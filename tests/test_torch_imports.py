@@ -1,0 +1,66 @@
+"""The port stands alone and runs on the card unless told otherwise.
+
+- No module under ``paddle_tpu_torch/`` imports ``jax`` or ``paddle_tpu``
+  (checked on the source with ``ast``, so a lazy import inside a
+  function is caught too).
+- Entry points called without ``device=`` raise on a box without a CUDA
+  device instead of running on the CPU.
+"""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch.core import enforce as TE
+from paddle_tpu_torch.inference import ServingEngine
+from paddle_tpu_torch.models import llama as TL
+
+_ROOT = pathlib.Path(paddle_tpu_torch.__file__).parent
+_FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted(_ROOT.rglob("*.py"))
+    assert len(files) >= 10
+    bad = [(str(f.relative_to(_ROOT)), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in _FORBIDDEN]
+    assert not bad, bad
+
+
+def test_import_scan_catches_a_forbidden_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("def g():\n    from paddle_tpu.models import llama\n"
+                 "    import jax.numpy as jnp\n")
+    assert {m.split(".")[0] for m in _imported_modules(f)} == {
+        "paddle_tpu", "jax"}
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: entry points run on it")
+
+
+def test_entry_points_refuse_to_drop_to_cpu(no_cuda):
+    cfg = TL.llama_tiny()
+    with pytest.raises(TE.UnavailableError):
+        TL.init_params(cfg)
+    with pytest.raises(TE.UnavailableError):
+        TL.params_from_numpy({"embed": torch.zeros(2, 2).numpy()})
+    params = TL.init_params(cfg, device="cpu")
+    with pytest.raises(TE.UnavailableError):
+        ServingEngine(TL, params, cfg)
+    assert ServingEngine(TL, params, cfg, device="cpu").device.type == "cpu"
