@@ -7,19 +7,28 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each printed on its own line; any failure exits non-zero:
 
-1. build: compile every CUDA kernel of the serving path from
-   ``paddle_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, one compile per
-   source, all at once;
+1. build: compile every CUDA kernel of the serving and training paths
+   from ``paddle_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, one
+   compile per source, all at once;
 2. kernels: call each kernel's wrapper on card tensors at the shapes the
-   main path gives it, hold the result to its plain PyTorch version on
+   main paths give it, hold the result to its plain PyTorch version on
    the same inputs (tolerances stated below), and time kernel, plain
-   version and, for flash attention, ``scaled_dot_product_attention``;
+   version and the one PyTorch call that computes the same function
+   (``scaled_dot_product_attention``, forward or backward);
 3. parity: a ``llama_tiny`` float32 model with one set of weights is
    served on the card (kernels) and on the CPU (plain versions); the
    greedy tokens must be equal, through queueing and preemption;
-4. main path: a ``ServingEngine`` at Llama-3-8B widths (random bf16
-   weights from a seed) serves 16 requests; both kernels' launch counts
-   over this run must be above zero and every token in range.
+4. train_parity: the same kind of model takes 3 ``make_train_step``
+   steps on the card and on the CPU; losses and step-1 gradients must
+   agree, and the card's steps must go through the kernels;
+5. main: a ``ServingEngine`` at Llama-3-8B widths (random bf16 weights
+   from a seed) serves 16 requests; both kernels' launch counts over
+   this run must be above zero and every token in range;
+6. train: ``make_train_step`` at Llama-3-8B widths, 4 layers (the JAX
+   package's headline training rung), random bf16 weights from seed 0,
+   float32 AdamW moments, batch 4 x 2048: 2 untimed and 5 timed steps on
+   one batch; the loss must be finite and fall, and every step must run
+   the backward kernel once a layer and no plain version.
 
 Then it prints the kernel records as one JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -43,6 +52,13 @@ FLASH_TOL = 2e-2    # bf16 output: one bf16 rounding of values of size ~1
 FLASH_F32_TOL = 1e-4    # float32: summation order and __expf only
 LSE_TOL = 1e-3
 PAGED_TOL = 2e-2
+# backward: max abs error of dq / dk / dv over each reference's max |.|
+BWD_TOL = 2e-2      # bf16 outputs and inputs
+BWD_F32_TOL = 1e-4  # float32: summation order and __expf only
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-5   # step-1 grads, relative to each tensor's max |g|
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 
 
 def _say(phase, **kv):
@@ -215,11 +231,8 @@ def phase_parity(torch, dev):
     from paddle_tpu_torch.models import llama as L
     cfg = L.llama_tiny()
     cpu_params = L.init_params(cfg, seed=0, device="cpu")
-    card_params = {
-        "embed": cpu_params["embed"].to(dev),
-        "layers": {k: w.to(dev) for k, w in cpu_params["layers"].items()},
-        "ln_f": cpu_params["ln_f"].to(dev),
-        "lm_head": cpu_params["lm_head"].to(dev)}
+    card_params = L._map(lambda t: t.to(dev, copy=True),
+                        cpu_params)
     rng = np.random.default_rng(5)
     trace = [(rng.integers(0, cfg.vocab_size, n), m)
              for n, m in zip((4, 7, 3, 5, 6, 9), (8, 5, 9, 6, 4, 7))]
@@ -293,6 +306,199 @@ def phase_main(torch, dev, layers, requests, card):
     return launches
 
 
+def phase_flash_bwd(torch, dev, batch, seq):
+    """The backward kernels against their plain version on the same card
+    tensors (out and lse from the forward kernel), then timed at the
+    training path's shape."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(4)
+    H, KVH, D = 32, 8, 128
+
+    def inputs(b, sq, sk, dtype, causal):
+        q, k, v, dout = (torch.randn(b, s, h, D, generator=gen, device=dev)
+                         .to(dtype) for s, h in ((sq, H), (sk, KVH),
+                                                 (sk, KVH), (sq, H)))
+        out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+        return q, k, v, out, lse, dout
+
+    def check(args, is_causal, tol, **what):
+        got = FA.flash_attention_bwd(*args, causal=is_causal)
+        torch.cuda.synchronize()
+        want = FA.flash_attention_bwd_ref(*args, causal=is_causal)
+        errs = [_err(g, w) for g, w in zip(got, want)]
+        rel = max(e / float(w.float().abs().max())
+                  for e, w in zip(errs, want))
+        _say("kernels", kernel="flash_bwd", **what, max_abs_err=max(errs),
+             rel_err=rel, tol=tol)
+        assert rel <= tol, "flash_bwd disagrees"
+        assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+        return got, max(errs)
+
+    worst = 0.0
+    bf16, f32 = torch.bfloat16, torch.float32
+    for sq, sk, causal, dtype, tol in ((16, 16, True, bf16, BWD_TOL),
+                                       (48, 48, True, bf16, BWD_TOL),
+                                       (512, 512, True, bf16, BWD_TOL),
+                                       (48, 48, False, bf16, BWD_TOL),
+                                       (48, 48, True, f32, BWD_F32_TOL),
+                                       (32, 80, True, bf16, BWD_TOL),
+                                       (80, 48, True, bf16, BWD_TOL)):
+        got, err = check(inputs(2, sq, sk, dtype, causal), causal, tol,
+                         Sq=sq, Sk=sk, causal=causal,
+                         dtype=str(dtype).split(".")[-1])
+        if sq > sk:     # rows that see no key: exact zeros
+            assert bool((got[0][:, :sq - sk] == 0).all()), \
+                "flash_bwd: a row that sees no key has a nonzero dq"
+            _say("kernels", kernel="flash_bwd", zero_rows=sq - sk,
+                 dq_zero=True)
+        if dtype == bf16:
+            worst = max(worst, err)
+
+    # the training path's shape: one layer's attention of the train phase;
+    # its out / lse from the forward kernel are held to the plain forward
+    args = inputs(batch, seq, seq, bf16, True)
+    ref, ref_lse = FA.flash_attention_ref(*args[:3], causal=True)
+    err, lerr = _err(args[3], ref), _err(args[4], ref_lse)
+    _say("kernels", kernel="flash_fwd", shape=f"B{batch}xS{seq}",
+         max_abs_err=err, lse_err=lerr, tol=FLASH_TOL)
+    assert err <= FLASH_TOL and lerr <= LSE_TOL, \
+        "flash_fwd disagrees at the training path's shape"
+    del ref, ref_lse
+    _, err = check(args, True, BWD_TOL, shape=f"B{batch}xS{seq}")
+    worst = max(worst, err)
+    ms = _time_ms(lambda: FA.flash_attention_bwd(*args, causal=True), 5)
+    plain_ms = _time_ms(
+        lambda: FA.flash_attention_bwd_ref(*args, causal=True), 3)
+    q, k, v, _, _, dout = args
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_()
+              for x in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+    lib_dout = dout.transpose(1, 2).contiguous()
+    library_ms = _time_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, lib_dout, retain_graph=True), 5)
+    del lib_out, leaves, args
+    # least work: 5 causal products (q k^T, dout v^T, dv, dq, dk) of
+    # B*H*S^2*D operations each; bytes: q, o, dout, k, v, lse read once,
+    # dq, dk, dv written once
+    flops = 5.0 * batch * H * seq * seq * D
+    nbytes = (2 * batch * seq * D * (4 * H + 4 * KVH)
+              + 4 * batch * H * seq)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    bound = max(t_ops, t_bytes) * 1e3
+    _say("kernels", kernel="flash_bwd", shape=f"B{batch}xS{seq}", ms=ms,
+         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+         tflops=flops / ms / 1e9)
+    return {"name": "flash_bwd", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "paddle_tpu/kernels/flash_attention.py:146",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
+
+
+def phase_train_parity(torch, dev):
+    """Three train steps of one float32 llama_tiny model on the card
+    (kernels) and on the CPU (plain versions)."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_tiny()
+    cpu_params = L.init_params(cfg, seed=0, device="cpu")
+    card_params = L._map(lambda t: t.to(dev, copy=True),
+                        cpu_params)
+    batch = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 33)))
+    losses, grads = {}, {}
+    for name, params in (("card", card_params), ("cpu", cpu_params)):
+        K.reset_dispatch_stats()
+        grads[name] = L._leaves(L.loss_and_grads(params, batch, cfg)[1])
+        state = L.adamw_init(params)
+        step = L.make_train_step(cfg)
+        losses[name] = [float(step(params, state, batch)[2])
+                        for _ in range(3)]
+        torch.cuda.synchronize()
+        stats = K.dispatch_stats()
+        _say("train_parity", device=name, losses=losses[name], **stats)
+        if name == "card":
+            assert stats["flash_bwd"] > 0 and stats["flash_bwd_ref"] == 0
+            assert stats["flash"] > 0 and stats["flash_ref"] == 0
+            assert stats["fused_ce"] > 0
+    grad_err = max(_err(a.cpu(), b) / float(b.abs().max())
+                   for a, b in zip(grads["card"], grads["cpu"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["card"], losses["cpu"]))
+    _say("train_parity", loss_rel_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL,
+         grad_rel_err=grad_err, grad_tol=TRAIN_GRAD_TOL)
+    assert loss_err <= TRAIN_LOSS_RTOL, losses
+    assert grad_err <= TRAIN_GRAD_TOL, grad_err
+
+
+def train_setup(torch, dev):
+    """The training main path's ``(cfg, params, opt_state, step, batch)``:
+    Llama-3-8B widths at ``TRAIN_LAYERS`` layers, random bf16 weights from
+    seed 0, float32 AdamW moments, ids ``[TRAIN_BATCH, TRAIN_SEQ + 1]``
+    from ``numpy.random.default_rng(0)``, all on ``dev``."""
+    import numpy as np
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_3_8b(num_hidden_layers=TRAIN_LAYERS)
+    params = L.init_params(cfg, seed=0, device=dev)
+    state = L.adamw_init(params, moment_dtype=torch.float32)
+    step = L.make_train_step(cfg)
+    batch = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)), device=dev)
+    return cfg, params, state, step, batch
+
+
+def phase_train(torch, dev, card):
+    """The training main path: Llama-3-8B widths, 4 layers, AdamW."""
+    import math
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    t0 = time.perf_counter()
+    cfg, params, state, step, batch = train_setup(torch, dev)
+    torch.cuda.synchronize()
+    nparams = L.count_params(cfg)
+    _say("train", layers=TRAIN_LAYERS, params_b=round(nparams / 1e9, 3),
+         remat=cfg.remat_policy, fused_ce=cfg.fused_ce,
+         batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}",
+         init_s=round(time.perf_counter() - t0, 2))
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_dispatch_stats()
+    losses, times = [], []
+    for i in range(7):
+        t0 = time.perf_counter()
+        _, _, loss = step(params, state, batch)
+        losses.append(float(loss))        # waits for the step's end
+        times.append(time.perf_counter() - t0)
+    launches = K.dispatch_stats()
+    timed = sorted(times[2:])
+    step_s = timed[len(timed) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    _say("train", card=repr(card), losses=losses,
+         step_ms=[t * 1e3 for t in times[2:]], median_step_ms=step_s * 1e3,
+         tokens_per_s=tokens / step_s,
+         mfu_6nd=6.0 * nparams * tokens / step_s / H100_BF16_FLOPS,
+         peak_mem_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 2))
+    _say("train", steps=len(times), flash_launches=launches["flash"],
+         flash_bwd_launches=launches["flash_bwd"],
+         fused_ce=launches["fused_ce"], flash_ref=launches["flash_ref"],
+         flash_bwd_ref=launches["flash_bwd_ref"],
+         fused_ce_fallback=launches["fused_ce_fallback"],
+         paged_ref=launches["paged_ref"])
+    ln_v = math.log(cfg.vocab_size)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert ln_v - 1 <= losses[0] <= ln_v + 2, (losses[0], ln_v)
+    assert losses[-1] < losses[0], losses
+    assert launches["flash_bwd"] == TRAIN_LAYERS * len(times), launches
+    assert launches["fused_ce"] == len(times), launches
+    assert all(launches[k] == 0 for k in ("flash_ref", "flash_bwd_ref",
+                                          "paged_ref", "fused_ce_fallback"))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -337,16 +543,23 @@ def main() -> int:
                     for r in requests[:8]]
     flash = phase_flash(torch, dev, 8, 512)
     paged = phase_paged(torch, dev, main_lengths, 8 * maxp, maxp)
-    phase_parity(torch, dev)
+    flash_bwd = phase_flash_bwd(torch, dev, TRAIN_BATCH, TRAIN_SEQ)
     torch.cuda.empty_cache()
+    phase_parity(torch, dev)
+    phase_train_parity(torch, dev)
     launches = phase_main(torch, dev, args.layers, requests, smi)
+    torch.cuda.empty_cache()
+    train_launches = phase_train(torch, dev, smi)
+    # launches on each kernel's main path: serving for the forward and
+    # the decode kernel, training for the backward
     flash["launches"] = launches["flash"]
     paged["launches"] = launches["paged"]
+    flash_bwd["launches"] = train_launches["flash_bwd"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in (flash, paged)]}))
+                                  for rec in (flash, paged, flash_bwd)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

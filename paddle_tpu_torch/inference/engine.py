@@ -436,9 +436,13 @@ class ServingEngine:
             i += 1
         return [idx for idx in live_idx if self.slots[idx] is not None]
 
+    @torch.inference_mode()
     def step(self) -> bool:
         """One scheduling iteration: retire -> compact -> admit -> one
-        decode chunk. Returns False when the engine is fully idle."""
+        decode chunk. Returns False when the engine is fully idle.
+
+        Runs in inference mode: a served parameter tree that requires
+        grad builds no autograd graph and saves nothing for a backward."""
         for idx in range(self.num_slots):
             if self.slots[idx] is not None and self.slots[idx].done:
                 self._retire(idx)

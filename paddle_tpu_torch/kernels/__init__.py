@@ -6,21 +6,47 @@ tensors (or raises) and takes the kernel's plain PyTorch version for CPU
 tensors; there is no fallback from the card to the plain version:
 
 - ``flash_attention.flash_attention_fwd``: ``csrc/flash_fwd.cu``;
+- ``flash_attention.flash_attention_bwd``: ``csrc/flash_bwd.cu``;
 - ``paged_attention.ragged_paged_attention``: ``csrc/paged_decode.cu``.
 
-The launch counters mirror the reference's ``_DISPATCH_STATS``.
+``fused_ce`` is plain PyTorch on every device, as the reference's is
+plain ``lax.scan`` code. The launch counters mirror the reference's
+``_DISPATCH_STATS``.
 """
 from __future__ import annotations
 
-from . import flash_attention, paged_attention  # noqa: F401
+from . import flash_attention, fused_ce, paged_attention  # noqa: F401
 from ._stats import DISPATCH_STATS as _DISPATCH_STATS
+
+# the reference's CE_DEFAULT_CHUNK (kernels/autotune.py), its chunk off
+# the TPU; the port has no autotune cache
+CE_DEFAULT_CHUNK = 4096
 
 # the decode seam inference/paged.py calls (the reference's name)
 dispatched_paged_attention = paged_attention.ragged_paged_attention
 
-__all__ = ["flash_attention", "paged_attention",
-           "dispatched_paged_attention", "dispatch_stats",
-           "reset_dispatch_stats"]
+__all__ = ["flash_attention", "fused_ce", "paged_attention",
+           "dispatched_fused_ce", "dispatched_paged_attention",
+           "dispatch_stats", "reset_dispatch_stats"]
+
+
+def dispatched_fused_ce(x, head, labels, *, vocab_chunk=None,
+                        reduction="mean", ignore_index=-100):
+    """Blockwise cross entropy, counted: a shape it does not take falls
+    back to the materialising cross entropy (the same math, ignore_index
+    masking and valid-count mean included). ``vocab_chunk=None`` is
+    ``CE_DEFAULT_CHUNK``; an explicit int is taken as given."""
+    if fused_ce.supported(x, head, labels):
+        _DISPATCH_STATS["fused_ce"] += 1
+        return fused_ce.fused_cross_entropy(
+            x, head, labels,
+            vocab_chunk=CE_DEFAULT_CHUNK if vocab_chunk is None
+            else vocab_chunk,
+            reduction=reduction, ignore_index=ignore_index)
+    _DISPATCH_STATS["fused_ce_fallback"] += 1
+    logits = (x @ head.t()).float()
+    return fused_ce.masked_xent_from_logits(
+        logits, labels, ignore_index=ignore_index, reduction=reduction)
 
 
 def dispatch_stats() -> dict:

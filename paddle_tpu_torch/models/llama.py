@@ -5,23 +5,36 @@ Parameters are a plain dict of tensors in the reference's pytree layout:
 per-layer weights stacked on a leading ``[L, ...]`` axis and matmul
 weights stored ``[in, out]`` (``x @ w``), so a JAX parameter tree crosses
 over through numpy without transposes (``params_from_numpy``). The layer
-loop is a Python loop over the stacked axis.
+loop is a Python loop over the stacked axis, each layer under
+``torch.utils.checkpoint`` when the config asks for remat.
+
+Training: ``loss_fn`` (blockwise cross entropy), ``adamw_init`` /
+``_adamw_update`` (the reference's AdamW math) and ``make_train_step``,
+which updates the parameters in place (the counterpart of donation).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+import functools
+import os
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
+from ..core import enforce as E
 from ..core import resolve_device
 from ..nn.functional.attention import rope_raw, rope_tables as _rope_tables
 from ..nn.functional.attention import sdpa_raw
 
 __all__ = ["LlamaConfig", "llama_tiny", "llama_3_8b", "init_params",
-           "params_from_numpy", "forward_hidden", "forward", "decode_mlp"]
+           "params_from_numpy", "forward_hidden", "forward", "decode_mlp",
+           "remat_policy", "unpack_batch", "loss_fn", "count_params",
+           "loss_and_grads", "adamw_init", "make_train_step"]
 
 
 @dataclasses.dataclass
@@ -37,6 +50,14 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     tie_word_embeddings: bool = False
     dtype: Any = torch.bfloat16
+    remat: bool = True              # per-layer rematerialisation
+    # "full" recomputes the whole layer; "dots" keeps the products of
+    # the weight matmuls and recomputes the rest; "attn" (keep only the
+    # attention output) is not ported yet
+    remat_policy: str = "dots"
+    fused_ce: bool = True           # blockwise lm-head cross entropy
+    # vocab chunk of the blockwise cross entropy; None: CE_DEFAULT_CHUNK
+    fused_ce_chunk: Optional[int] = None
 
     @property
     def head_dim(self) -> int:
@@ -48,7 +69,7 @@ def llama_tiny(**kw) -> LlamaConfig:
     base = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
                 num_hidden_layers=2, num_attention_heads=4,
                 num_key_value_heads=2, max_position_embeddings=128,
-                rope_theta=10000.0, dtype=torch.float32)
+                rope_theta=10000.0, dtype=torch.float32, remat=False)
     base.update(kw)
     return LlamaConfig(**base)
 
@@ -191,14 +212,49 @@ def _block(x, lp, cos, sin, config: LlamaConfig):
     return _ffn(x, lp, c)
 
 
+def remat_policy(name: str):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a config's
+    remat policy name: none for ``"full"`` (recompute everything),
+    selective checkpointing that keeps the outputs of ``aten.mm`` /
+    ``aten.addmm`` (the weight matmuls; attention's products run inside
+    its kernel) for ``"dots"``."""
+    if name == "full":
+        return noop_context_fn
+    if name == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 [torch.ops.aten.mm.default,
+                                  torch.ops.aten.addmm.default])
+    if name == "attn":
+        raise NotImplementedError(
+            "remat_policy 'attn' is not ported yet: the flash attention "
+            "output comes from a CUDA kernel that selective checkpointing "
+            "cannot single out (ROADMAP.md queue A, remat 'attn')")
+    raise E.InvalidArgumentError(
+        f"remat_policy must be one of ['attn', 'dots', 'full'], got "
+        f"{name!r}")
+
+
 def forward_hidden(params, ids, config: LlamaConfig):
-    """Final hidden states ``[B, S, D]`` (post ln_f) from token ids."""
+    """Final hidden states ``[B, S, D]`` (post ln_f) from token ids.
+
+    The stacked weights are split into per-layer views once
+    (``unbind``), so their gradient is stacked once. With
+    ``config.remat`` and grad enabled, each layer runs under
+    ``torch.utils.checkpoint`` with ``config.remat_policy``."""
     c = config
     x = params["embed"][ids]
     cos, sin = _rope_tables(ids.shape[1], c.head_dim, theta=c.rope_theta,
                             device=x.device)
+    per_layer = {k: w.unbind(0) for k, w in params["layers"].items()}
+    remat = c.remat and torch.is_grad_enabled()
+    context_fn = remat_policy(c.remat_policy) if remat else None
     for i in range(c.num_hidden_layers):
-        x = _block(x, layer(params, i), cos, sin, c)
+        lp = {k: w[i] for k, w in per_layer.items()}
+        if remat:
+            x = checkpoint(_block, x, lp, cos, sin, c, use_reentrant=False,
+                           context_fn=context_fn)
+        else:
+            x = _block(x, lp, cos, sin, c)
     return _rms(x, params["ln_f"], c.rms_norm_eps)
 
 
@@ -211,3 +267,173 @@ def forward(params, ids, config: LlamaConfig):
     """Logits ``[B, S, V]`` (float32) from token ids ``[B, S]``."""
     x = forward_hidden(params, ids, config)
     return _head_logits(x, _head(params, config))
+
+
+# -- training -----------------------------------------------------------------
+
+def unpack_batch(batch):
+    """A train-step batch as ``(inp, labels, segment_ids, positions)``:
+
+    - ids ``[B, S+1]`` (labels are the shifted ids),
+    - ``(inp, labels)``,
+    - ``(inp, labels, segment_ids, positions)``: sequence-packed rows,
+    - ``{"ids", "labels", "segment_ids", "positions"}``: the packing
+      collator's output.
+    """
+    if isinstance(batch, dict):
+        return (batch["ids"], batch["labels"],
+                batch.get("segment_ids"), batch.get("positions"))
+    if isinstance(batch, (tuple, list)):
+        if len(batch) == 4:
+            return batch[0], batch[1], batch[2], batch[3]
+        inp, labels = batch
+        return inp, labels, None, None
+    return batch[:, :-1], batch[:, 1:], None, None
+
+
+def loss_fn(params, batch, config: LlamaConfig):
+    """Causal-LM cross entropy of a batch in any ``unpack_batch`` form:
+    the blockwise cross entropy over the final hidden states with
+    ``config.fused_ce`` (the ``[B, S, V]`` logits never exist whole), else
+    the materialising one over ``forward``'s logits; both leave out
+    ``ignore_index`` labels and take the mean over the valid tokens.
+
+    Sequence-packed batches (``segment_ids`` / ``positions``) raise
+    ``NotImplementedError``: the segment attention kernels are the next
+    slice of the port."""
+    from ..kernels import dispatched_fused_ce
+    from ..kernels.fused_ce import masked_xent_from_logits
+    inp, labels, seg, pos = unpack_batch(batch)
+    if seg is not None or pos is not None:
+        raise NotImplementedError(
+            "loss_fn: sequence-packed batches (segment_ids / positions) "
+            "are not ported yet; they need the segment flash attention "
+            "kernels (ROADMAP.md queue B rows 3 and 4)")
+    c = config
+    if c.fused_ce:
+        x = forward_hidden(params, inp, c)
+        return dispatched_fused_ce(x, _head(params, c), labels,
+                                   vocab_chunk=c.fused_ce_chunk)
+    return masked_xent_from_logits(forward(params, inp, c), labels)
+
+
+def count_params(config: LlamaConfig) -> int:
+    c = config
+    hd = c.head_dim
+    per_layer = (c.hidden_size * hd * (c.num_attention_heads +
+                                       2 * c.num_key_value_heads)
+                 + c.num_attention_heads * hd * c.hidden_size
+                 + 3 * c.hidden_size * c.intermediate_size
+                 + 2 * c.hidden_size)
+    n = c.vocab_size * c.hidden_size + c.num_hidden_layers * per_layer \
+        + c.hidden_size
+    if not c.tie_word_embeddings:
+        n += c.vocab_size * c.hidden_size
+    return n
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for key in tree for leaf in _leaves(tree[key])]
+    return [tree]
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def adamw_init(params, moment_dtype=torch.float32):
+    """Adam state: the step count and zero moments like every parameter,
+    stored in ``moment_dtype`` (float32, or bfloat16 to halve their
+    memory; the update math runs in float32 either way)."""
+    return {"step": 0,
+            "m": _map(lambda p: torch.zeros_like(p, dtype=moment_dtype),
+                      params),
+            "v": _map(lambda p: torch.zeros_like(p, dtype=moment_dtype),
+                      params)}
+
+
+@torch.no_grad()
+def _adamw_update(params, grads, opt_state, lr, *, b1=0.9, b2=0.95,
+                  eps=1e-8, wd=0.1):
+    """One AdamW step with the reference's math and order of operations,
+    in float32 and cast back to each stored dtype. Updates ``params`` and
+    the moments in place (one leaf at a time, so the float32 temporaries
+    never exceed one leaf) and returns ``(params, opt_state)``."""
+    step = opt_state["step"] + 1
+    t = np.float32(step)
+    bc1 = float(np.float32(1.0) - np.float32(b1) ** t)
+    bc2 = float(np.float32(1.0) - np.float32(b2) ** t)
+    for p, g, m, v in zip(_leaves(params), _leaves(grads),
+                          _leaves(opt_state["m"]), _leaves(opt_state["v"])):
+        gf = g.float()
+        mf = b1 * m.float() + (1 - b1) * gf
+        vf = b2 * v.float() + (1 - b2) * (gf * gf)
+        u = (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
+        pf = p.float()
+        p.copy_(pf - lr * (u + wd * pf))
+        m.copy_(mf)
+        v.copy_(vf)
+    opt_state["step"] = step
+    return params, opt_state
+
+
+def _batch_to(batch, device):
+    """A batch in any ``unpack_batch`` form with every array on
+    ``device``."""
+    if isinstance(batch, dict):
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return tuple(torch.as_tensor(v, device=device) for v in batch)
+    return torch.as_tensor(batch, device=device)
+
+
+def loss_and_grads(params, batch, config: LlamaConfig):
+    """``(loss, grads)``: ``loss_fn`` and the gradient of every parameter,
+    as a tree like ``params``. The parameters need not require grad (the
+    gradient is taken through detached aliases of them); the batch
+    (tensors or numpy arrays) is brought to their device."""
+    flat = _leaves(params)
+    work = [p.detach().requires_grad_() for p in flat]
+    it = iter(work)
+    with torch.enable_grad():
+        loss = loss_fn(_map(lambda _: next(it), params),
+                       _batch_to(batch, flat[0].device), config)
+        grads = iter(torch.autograd.grad(loss, work))
+    return loss.detach(), _map(lambda _: next(grads), params)
+
+
+def make_train_step(config: LlamaConfig, mesh=None, *, lr: float = 3e-4,
+                    weight_decay: float = 0.1,
+                    guard: Optional[bool] = None):
+    """``step(params, opt_state, batch) -> (params, opt_state, loss)``:
+    ``loss_and_grads``, then AdamW. The parameters and the moments are
+    updated in place under ``no_grad`` (the counterpart of the
+    reference's buffer donation) and the same dicts are returned. The
+    step runs where the parameters lie and never moves them.
+
+    ``guard`` defaults, as in the reference, to the environment's
+    ``FLAGS_enable_sentinel``. Not ported yet, and raising: the guarded
+    step (``guard`` true, or unset with that flag on) and the mesh
+    path."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step: the mesh (multi-GPU) path is not ported yet "
+            "(ROADMAP.md queue A item 9)")
+    if guard is None:
+        guard = os.environ.get("FLAGS_enable_sentinel", "").lower() in (
+            "1", "true", "yes", "on")
+    if guard:
+        raise NotImplementedError(
+            "make_train_step: the guarded step is not ported yet "
+            "(ROADMAP.md queue A, training/guards.py)")
+
+    def step(params, opt_state, batch):
+        loss, grads = loss_and_grads(params, batch, config)
+        _adamw_update(params, grads, opt_state, lr, wd=weight_decay)
+        return params, opt_state, loss
+
+    return step

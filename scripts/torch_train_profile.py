@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Where the port's training time goes on one CUDA card.
+
+Builds ``chip_smoke.py``'s training main path (Llama-3-8B widths, 4
+layers, random bf16 weights from seed 0, float32 AdamW moments, batch
+4 x 2048, remat ``"dots"``, blockwise cross entropy), takes two warm-up
+steps, then one step under ``torch.profiler``, and prints, on the card:
+
+- host wall time of the profiled step (it ends in a synchronize);
+- device time and launches by class: the flash backward kernels, the
+  flash forward kernel, cuBLAS matmuls of the model, the cross entropy's
+  chunks (its forward and backward, matmuls included), the AdamW update,
+  and everything else; a kernel is put in a class by its own name
+  (flash) or by the profiler range it was launched from (cross entropy,
+  optimizer; then matmuls by name), and "other" is the rest of the
+  device busy time;
+- the device busy share (summed kernel time over wall time) and its
+  complement, the idle share;
+- the dozen kernels that took the most device time.
+
+Run from the repo root: ``python3 scripts/torch_train_profile.py``.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+CLASSES = ("flash_bwd", "flash_fwd", "matmul", "fused_ce", "optimizer",
+           "other")
+# the script's own ranges; the profiler also shows each as a span on the
+# device's timeline, which is no kernel and is left out of every sum
+RANGES = ("fused_ce", "adamw_update")
+
+
+def _classify(kernel: str, ranges) -> str:
+    n = kernel.lower()
+    if "flash_bwd" in n:
+        return "flash_bwd"
+    if "flash_fwd_kernel" in n:
+        return "flash_fwd"
+    if any("_BlockwiseCE" in r or r == "fused_ce" for r in ranges):
+        return "fused_ce"
+    if any(r == "adamw_update" for r in ranges):
+        return "optimizer"
+    if any(s in n for s in ("gemm", "gemv", "cutlass", "sm90_xmma",
+                            "nvjet", "matmul")):
+        return "matmul"
+    return "other"
+
+
+def _ranges(evt):
+    """Names of a CPU event and of every range around it."""
+    out = []
+    while evt is not None:
+        out.append(evt.name)
+        evt = evt.cpu_parent
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.parse_args()
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    if not torch.cuda.is_available():
+        print("no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    from chip_smoke import TRAIN_BATCH, TRAIN_LAYERS, TRAIN_SEQ, train_setup
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import llama as L
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+
+    # named ranges around the two pieces that have no kernel of their own
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    L._adamw_update = ranged(RANGES[1], L._adamw_update)
+    K.dispatched_fused_ce = ranged(RANGES[0], K.dispatched_fused_ce)
+
+    _, params, state, step, batch = train_setup(torch, dev)
+    for _ in range(2):                                   # warm-up
+        step(params, state, batch)
+    torch.cuda.synchronize()
+    K.reset_dispatch_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = float(step(params, state, batch)[2])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"layers={TRAIN_LAYERS} batch={TRAIN_BATCH}x{TRAIN_SEQ} "
+          f"loss={loss} wall_ms={wall * 1e3:.3f} "
+          f"launches={K.dispatch_stats()}")
+
+    # flash kernels by their own names, over every device event; the
+    # rest by the range their launch was made in, through the CPU op
+    # each kernel is linked to; "other" is what remains of the busy time
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in RANGES]
+    by = {c: [0.0, 0] for c in CLASSES}
+    for e in device:
+        cls = _classify(e.key, ())
+        if cls.startswith("flash"):
+            by[cls][0] += getattr(e, "self_device_time_total", 0) / 1e3
+            by[cls][1] += e.count
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU \
+                or not evt.kernels:
+            continue
+        ranges = _ranges(evt)
+        for k in evt.kernels:
+            if k.name in RANGES:
+                continue
+            cls = _classify(k.name, ranges)
+            if cls not in ("flash_bwd", "flash_fwd", "other"):
+                by[cls][0] += k.duration / 1e3
+                by[cls][1] += 1
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in device) / 1e3
+    launches = sum(e.count for e in device)
+    by["other"] = [busy - sum(ms for ms, _ in by.values()),
+                   launches - sum(n for _, n in by.values())]
+    for cls in CLASSES:
+        ms, n = by[cls]
+        print(f"device class={cls} ms={ms:.3f} launches={n} "
+              f"share_of_busy={ms / busy:.4f}")
+    print(f"device busy_ms={busy:.3f} wall_ms={wall * 1e3:.3f} "
+          f"busy_share={busy / (wall * 1e3):.4f} "
+          f"idle_share={1 - busy / (wall * 1e3):.4f}")
+    for e in sorted(device, key=lambda e: -getattr(
+            e, "self_device_time_total", 0))[:12]:
+        print(f"kernel ms={getattr(e, 'self_device_time_total', 0) / 1e3:.3f}"
+              f" count={e.count} name={e.key[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,7 +14,9 @@ import torch
 
 from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.kernels import flash_attention as FA
+from paddle_tpu_torch.kernels import fused_ce as CE
 from paddle_tpu_torch.kernels import paged_attention as PA
+from paddle_tpu_torch.nn.functional import attention as ATT
 
 pytestmark = pytest.mark.cuda
 
@@ -42,6 +44,82 @@ def test_flash_kernel_matches_plain(dev, dtype, tol, sq, sk, causal):
     ref, ref_lse = FA.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+def _bwd_inputs(dev, dtype, sq, sk, causal, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn(2, s, h, 64, generator=g, device=dev)
+                     .to(dtype) for s, h in ((sq, 8), (sk, 2), (sk, 2),
+                                             (sq, 8)))
+    out, lse = FA.flash_attention_ref(q, k, v, causal=causal)
+    return q, k, v, out.contiguous(), lse, dout
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("sq,sk,causal", [(48, 48, True), (32, 80, True),
+                                          (80, 33, True), (40, 40, False)])
+def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, sq, sk, causal):
+    """dq / dk / dv against the plain version on the same card tensors,
+    as max abs error over each reference's max |.|; rows that see no key
+    (sq > sk, causal) get exact zeros."""
+    args = _bwd_inputs(dev, dtype, sq, sk, causal)
+    K.reset_dispatch_stats()
+    got = FA.flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert K.dispatch_stats()["flash_bwd"] == 1
+    want = FA.flash_attention_bwd_ref(*args, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), err
+    if sq > sk and causal:
+        assert torch.all(got[0][:, :sq - sk] == 0)
+
+
+def test_attention_gradient_flows_on_the_card(dev):
+    """A loss through sdpa_raw on CUDA tensors reaches q, k and v through
+    the backward kernels, as it does through the plain version."""
+    q, k, v, _, _, dout = _bwd_inputs(dev, torch.float32, 48, 48, True, 3)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    K.reset_dispatch_stats()
+    (ATT.sdpa_raw(q, k, v, is_causal=True) * dout).sum().backward()
+    torch.cuda.synchronize()
+    assert K.dispatch_stats()["flash_bwd"] == 1
+    assert K.dispatch_stats()["flash_bwd_ref"] == 0
+    for t in (q, k, v):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+    want = FA.flash_attention_bwd_ref(
+        q.detach(), k.detach(), v.detach(),
+        *FA.flash_attention_fwd(q.detach(), k.detach(), v.detach(),
+                                causal=True), dout, causal=True)
+    for t, w in zip((q, k, v), want):
+        torch.testing.assert_close(t.grad, w, atol=1e-4, rtol=0)
+
+
+def test_fused_ce_bf16_card_matches_cpu(dev):
+    """bfloat16 blockwise cross entropy on the card (float32-output
+    cuBLAS products) against the CPU (float32 operands): loss to 1e-4,
+    dx / dhead to one bf16 rounding, 8e-3 of each reference's max |.|."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(64, 256, generator=g).bfloat16()
+    head = (0.3 * torch.randn(1000, 256, generator=g)).bfloat16()
+    labels = torch.randint(0, 1000, (64,), generator=g)
+    labels[::5] = -100
+    out = {}
+    for where in ("cpu", dev):
+        tx = x.to(where).detach().requires_grad_()
+        th = head.to(where).detach().requires_grad_()
+        loss = CE.fused_cross_entropy(tx, th, labels.to(where),
+                                      vocab_chunk=384)
+        loss.backward()
+        out[str(where)] = [t.detach().float().cpu()
+                           for t in (loss, tx.grad, th.grad)]
+    got, want = out[str(dev)], out["cpu"]
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max()) <= 8e-3 * float(b.abs().max())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
@@ -74,6 +152,12 @@ def test_kernels_raise_instead_of_falling_back(dev):
     q = torch.zeros(1, 8, 2, 24, device=dev)       # head_dim 24: no kernel
     with pytest.raises(ValueError):
         FA.flash_attention(q, q, q)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError):
+        FA.flash_attention_bwd(q, q, q, q, lse, q)
+    q = torch.zeros(1, 8, 2, 32, device=dev)
+    with pytest.raises(ValueError):                # lse must be float32
+        FA.flash_attention_bwd(q, q, q, q, lse.double(), q)
     with pytest.raises(ValueError):
         PA.ragged_paged_attention(
             torch.zeros(1, 2, 64, device=dev),

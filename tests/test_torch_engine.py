@@ -143,3 +143,26 @@ def test_params_on_another_device_refused(tiny):
     _, _, tcfg, tp = tiny
     with pytest.raises(ValueError):
         ServingEngine(TL, tp, tcfg, device=torch.device("meta"))
+
+
+def test_serving_a_grad_tree_builds_no_graph(tiny):
+    """The engine runs its device work in inference mode: a parameter
+    tree that requires grad gives the same greedy tokens as a plain one,
+    its ``.grad`` stays unset, and no attention backward is set up."""
+    from paddle_tpu_torch import kernels as TK
+    _, _, tcfg, tp = tiny
+    trace = _trace(11, (4, 6, 5), (6, 5, 7), tcfg.vocab_size)
+    grad_tp = TL._map(lambda p: p.detach().clone().requires_grad_(), tp)
+    outs = []
+    for params in (tp, grad_tp):
+        eng = ServingEngine(TL, params, tcfg, device="cpu", **_ENGINE)
+        TK.reset_dispatch_stats()
+        out = eng.run([Request(rid=i, prompt=p, max_new_tokens=m)
+                       for i, (p, m) in enumerate(trace)])
+        assert TK.dispatch_stats()["flash_ref"] > 0
+        outs.append([out[i].tokens for i in range(len(trace))])
+        assert not eng.cache.pool["k"].requires_grad
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    assert all(p.grad is None and p.requires_grad
+               for p in TL._leaves(grad_tp))
