@@ -28,7 +28,25 @@ Phases, each printed on its own line; any failure exits non-zero:
    package's headline training rung), random bf16 weights from seed 0,
    float32 AdamW moments, batch 4 x 2048: 2 untimed and 5 timed steps on
    one batch; the loss must be finite and fall, and every step must run
-   the backward kernel once a layer and no plain version.
+   the backward kernel once a layer and no plain version;
+7. train_packed_parity: 3 sequence-packed ``llama_tiny`` float32 steps
+   on the card and on the CPU (losses, step-1 gradients), and the packed
+   loss against the same documents one per row on the card;
+8. train_packed: the JAX package's packed training rung (``bench.py``
+   ``_training_packed_rung``): Llama-3-8B widths, 4 layers, vocab 32000,
+   materialising cross entropy, bf16 AdamW moments, lr 1e-4; 24
+   heavy-tailed documents (seed 7) packed into one ``[7, 2048]`` batch,
+   2 untimed and 5 timed steps, every step through the segment kernels
+   (2 forward launches and 1 backward a layer) and no plain version;
+   then the same documents one per row in 4 waves of ``[7, 2048]``
+   through the dense kernels (1 untimed and 2 timed passes), for useful
+   tokens/s both ways.
+
+The kernels phase also holds the segment (packed) kernels to their plain
+versions at 7 shapes, to the dense kernels on a one-document row, and at
+the packed trace's shape checks that the forward kernel computes exactly
+the tiles ``count_skipped_blocks`` leaves, then times both beside
+``scaled_dot_product_attention`` with a block-diagonal causal mask.
 
 Then it prints the kernel records as one JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -59,6 +77,9 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-5   # step-1 grads, relative to each tensor's max |g|
 TRAIN_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+# the packed rung's trace: heavy-tailed document lengths and token ids
+# from one seed, packed into rows of PACKED_SEQ
+PACKED_DOCS, PACKED_SEQ, PACKED_SEED, PACKED_VOCAB = 24, 2048, 7, 32000
 
 
 def _say(phase, **kv):
@@ -398,6 +419,234 @@ def phase_flash_bwd(torch, dev, batch, seq):
             "library_ms": library_ms}
 
 
+def packed_trace():
+    """The packed rung's documents: ``(docs, packed)``, 24 heavy-tailed
+    lengths up to 2048 (seed 7), ids from ``default_rng(7)``, packed
+    first-fit into ``[7, 2048]`` rows."""
+    import numpy as np
+    from paddle_tpu_torch.io import packing as PK
+    lens = PK.heavy_tailed_lengths(PACKED_SEQ, PACKED_DOCS, seed=PACKED_SEED)
+    rng = np.random.default_rng(PACKED_SEED)
+    docs = [rng.integers(0, PACKED_VOCAB, (n,)).astype(np.int32)
+            for n in lens]
+    return docs, PK.pack_documents(docs, PACKED_SEQ)
+
+
+def one_doc_per_row(docs, rows, seq):
+    """The padded form of ``docs``: ``(ids, labels)`` int32 ``[rows,
+    seq]``, one document a row from the top, next-token labels inside
+    each document and ``IGNORE_INDEX`` elsewhere."""
+    import numpy as np
+    from paddle_tpu_torch.io.packing import IGNORE_INDEX
+    ids = np.zeros((rows, seq), np.int32)
+    labels = np.full((rows, seq), IGNORE_INDEX, np.int32)
+    for i, d in enumerate(docs):
+        ids[i, :len(d)] = d
+        labels[i, :len(d) - 1] = d[1:]
+    return ids, labels
+
+
+def _seg_layout(torch, dev, b, sq, sk, kind):
+    """(seg_q, seg_k, pos_q, pos_k) int32 on the card: documents of
+    assorted lengths that cross tile edges, with a padding tail
+    ("packed"); random ids (padding included) and positions per token
+    ("random", where the tile predicate is only conservative); q and k
+    sides of different documents ("cu", Sq != Sk)."""
+    g = torch.Generator().manual_seed(8)
+    if kind == "random":
+        seg_q, seg_k = (torch.randint(-1, 3, (b, s), generator=g)
+                        for s in (sq, sk))
+        pos_q, pos_k = (torch.randint(0, s, (b, s), generator=g)
+                        for s in (sq, sk))
+    else:
+        def side(s, lens):
+            seg = torch.full((b, s), -1)
+            pos = torch.zeros(b, s, dtype=torch.long)
+            o = 0
+            for i, n in enumerate(lens):
+                seg[:, o:o + n], pos[:, o:o + n] = i, torch.arange(n)
+                o += n
+            return seg, pos
+        seg_q, pos_q = side(sq, [sq // 3, sq // 2 - 5, sq // 8])
+        seg_k, pos_k = (side(sk, [sk // 4, sk // 2, sk // 5])
+                        if kind == "cu" else (seg_q, pos_q))
+    return tuple(t.to(torch.int32).to(dev)
+                 for t in (seg_q, seg_k, pos_q, pos_k))
+
+
+def phase_flash_seg(torch, dev):
+    """The segment (sequence-packed) kernels against their plain versions
+    on the same card tensors, then at the packed trace's shape: the skip
+    count, out / lse and grads held to the plain versions, and times of
+    kernel, plain version and SDPA with a block-diagonal causal mask."""
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(9)
+    H, KVH, D = 32, 8, 128
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(b, sq, sk, dtype):
+        return tuple(torch.randn(b, s, h, D, generator=gen, device=dev)
+                     .to(dtype) for s, h in ((sq, H), (sk, KVH), (sk, KVH),
+                                             (sq, H)))
+
+    def check(q, k, v, dout, segs, is_causal, tol, **what):
+        """Both kernels against the plain versions; exact zeros on
+        padding rows (out, dq) and padding keys (dk, dv)."""
+        out, lse = FA.flash_attention_segments_fwd(q, k, v, *segs,
+                                                   causal=is_causal)
+        grads = FA.flash_attention_segments_bwd(q, k, v, out, lse, dout,
+                                                *segs, causal=is_causal)
+        torch.cuda.synchronize()
+        ref, ref_lse = FA.segment_attention_ref(q, k, v, *segs,
+                                                causal=is_causal)
+        err = _err(out, ref)
+        seen = torch.isfinite(ref_lse)
+        assert torch.equal(seen, torch.isfinite(lse)), \
+            "flash_seg_fwd: rows that see no key differ"
+        lerr = _err(lse[seen], ref_lse[seen]) if bool(seen.any()) else 0.0
+        del ref, ref_lse
+        want = FA.segment_attention_bwd_ref(q, k, v, out, lse, dout, *segs,
+                                            causal=is_causal)
+        berrs = [_err(g, w) for g, w in zip(grads, want)]
+        rel = max(e / float(w.float().abs().max())
+                  for e, w in zip(berrs, want))
+        del want
+        pad_q, pad_k = segs[0] < 0, segs[1] < 0
+        zeros = (bool((out[pad_q] == 0).all())
+                 and bool((grads[0][pad_q] == 0).all())
+                 and bool((grads[1][pad_k] == 0).all())
+                 and bool((grads[2][pad_k] == 0).all()))
+        _say("kernels", kernel="flash_seg", **what, max_abs_err=err,
+             lse_err=lerr, bwd_max_abs_err=max(berrs), bwd_rel_err=rel,
+             tol=tol, padding_rows=int(pad_q.sum()),
+             padding_keys=int(pad_k.sum()), padding_exact_zeros=zeros)
+        assert err <= tol and lerr <= LSE_TOL, "flash_seg_fwd disagrees"
+        assert rel <= tol, "flash_seg_bwd disagrees"
+        assert zeros, "flash_seg: padding rows / keys are not exact zeros"
+        assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+        return out, lse, grads, err, max(berrs)
+
+    worst_f = worst_b = 0.0
+    for sq, sk, causal, dtype, tol, kind in (
+            (96, 96, True, bf16, FLASH_TOL, "packed"),
+            (160, 160, False, bf16, FLASH_TOL, "packed"),
+            (512, 512, True, bf16, FLASH_TOL, "packed"),
+            (96, 96, True, f32, FLASH_F32_TOL, "packed"),
+            (64, 64, True, bf16, FLASH_TOL, "random"),
+            (70, 90, True, bf16, FLASH_TOL, "cu"),
+            (70, 90, False, f32, FLASH_F32_TOL, "cu")):
+        q, k, v, dout = inputs(2, sq, sk, dtype)
+        segs = _seg_layout(torch, dev, 2, sq, sk, kind)
+        *_, ef, eb = check(q, k, v, dout, segs, causal, tol, Sq=sq, Sk=sk,
+                           causal=causal, dtype=str(dtype).split(".")[-1],
+                           layout=kind)
+        if dtype == bf16:
+            worst_f, worst_b = max(worst_f, ef), max(worst_b, eb)
+
+    # one document over the whole row is dense causal attention: the
+    # segment kernels against the dense ones
+    q, k, v, dout = inputs(2, 200, 200, bf16)
+    seg = torch.zeros(2, 200, dtype=torch.int32, device=dev)
+    pos = torch.arange(200, dtype=torch.int32, device=dev).expand(2, 200)
+    segs = (seg, seg, pos.contiguous(), pos.contiguous())
+    out, lse = FA.flash_attention_segments_fwd(q, k, v, *segs, causal=True)
+    dense, dense_lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    grads = FA.flash_attention_segments_bwd(q, k, v, out, lse, dout, *segs,
+                                            causal=True)
+    dense_g = FA.flash_attention_bwd(q, k, v, dense, dense_lse, dout,
+                                     causal=True)
+    torch.cuda.synchronize()
+    err, lerr = _err(out, dense), _err(lse, dense_lse)
+    rel = max(_err(a, b) / float(b.float().abs().max())
+              for a, b in zip(grads, dense_g))
+    _say("kernels", kernel="flash_seg", case="one_document_vs_dense",
+         max_abs_err=err, lse_err=lerr, bwd_rel_err=rel, tol=FLASH_TOL)
+    assert err <= FLASH_TOL and lerr <= LSE_TOL and rel <= BWD_TOL, \
+        "flash_seg: a one-document row differs from the dense kernels"
+
+    # the packed trace: [7, 2048] at Llama-3-8B's attention widths
+    _, packed = packed_trace()
+    seg = torch.as_tensor(packed["segment_ids"], device=dev)
+    pos = torch.as_tensor(packed["positions"], device=dev)
+    segs = (seg, seg, pos, pos)
+    b, s = seg.shape
+    q, k, v, dout = inputs(b, s, s, bf16)
+    ran = torch.zeros(1, dtype=torch.int32, device=dev)
+    FA.flash_attention_segments_fwd(q, k, v, *segs, causal=True,
+                                    tiles_ran=ran)
+    skipped, total = FA.count_skipped_blocks(*segs, FA.SEG_BLOCK,
+                                             FA.SEG_BLOCK, True)
+    ran_per_head = int(ran) / H
+    _say("kernels", kernel="flash_seg_fwd", shape=f"B{b}xS{s}",
+         tiles_total=total, tiles_skipped_count=skipped,
+         tiles_run_kernel_per_head=ran_per_head)
+    assert ran_per_head == total - skipped, \
+        "flash_seg_fwd: the tiles run differ from count_skipped_blocks"
+    out, lse, grads, ef, eb = check(q, k, v, dout, segs, True, FLASH_TOL,
+                                    shape=f"B{b}xS{s}", layout="trace")
+    worst_f, worst_b = max(worst_f, ef), max(worst_b, eb)
+    del grads
+    torch.cuda.empty_cache()
+    fwd_ms = _time_ms(lambda: FA.flash_attention_segments_fwd(
+        q, k, v, *segs, causal=True), 10)
+    fwd_plain_ms = _time_ms(lambda: FA.segment_attention_ref(
+        q, k, v, *segs, causal=True), 3)
+    bwd_ms = _time_ms(lambda: FA.flash_attention_segments_bwd(
+        q, k, v, out, lse, dout, *segs, causal=True), 5)
+    bwd_plain_ms = _time_ms(lambda: FA.segment_attention_bwd_ref(
+        q, k, v, out, lse, dout, *segs, causal=True), 3)
+    torch.cuda.empty_cache()
+    # the library yardstick: SDPA with the same function as a boolean
+    # [B, 1, S, S] mask (k / v heads repeated outside the timed call);
+    # its padding rows may be NaN, so no value is compared
+    mask = FA._seg_mask(*segs, True)
+    visible = int(mask.sum())           # per head: sum of n(n + 1) / 2
+    leaves = [x.transpose(1, 2).repeat_interleave(H // x.shape[2], dim=1)
+              .contiguous().requires_grad_() for x in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        lib_fwd_ms = _time_ms(
+            lambda: sdpa(*leaves, attn_mask=mask[:, None]), 10)
+    lib_out = sdpa(*leaves, attn_mask=mask[:, None])
+    lib_dout = dout.transpose(1, 2).contiguous()
+    lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, lib_dout, retain_graph=True), 5)
+    del lib_out, leaves, mask
+    torch.cuda.empty_cache()
+    # least work over the visible pairs only: 2 products (q k^T, p v)
+    # forward, 5 backward, of 2 * D operations a pair and head; bytes:
+    # each input read once, each output written once
+    pair_ops = 2.0 * D * H * visible
+    seg_bytes = 4 * 4 * b * s
+    fwd_ops, bwd_ops = 2 * pair_ops, 5 * pair_ops
+    qb, kb = 2 * b * s * H * D, 2 * b * s * KVH * D
+    fwd_bytes = 2 * qb + 2 * kb + 4 * b * H * s + seg_bytes
+    bwd_bytes = 4 * qb + 4 * kb + 4 * b * H * s + seg_bytes
+    recs = []
+    for name, src_line, ms, plain, lib, ops, nbytes, worst in (
+            ("flash_seg_fwd", 496, fwd_ms, fwd_plain_ms, lib_fwd_ms,
+             fwd_ops, fwd_bytes, worst_f),
+            ("flash_seg_bwd", 546, bwd_ms, bwd_plain_ms, lib_bwd_ms,
+             bwd_ops, bwd_bytes, worst_b)):
+        t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        _say("kernels", kernel=name, shape=f"B{b}xS{s}", ms=ms,
+             plain_ms=plain, library_ms=lib, bound_ms=bound,
+             visible_pairs_per_head=visible, gflop=ops / 1e9,
+             mbytes=nbytes / 1e6, tflops=ops / ms / 1e9)
+        recs.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/" + (
+                         "flash_fwd.cu" if name.endswith("fwd")
+                         else "flash_bwd.cu"),
+                     "replaces": f"paddle_tpu/kernels/flash_attention.py:"
+                                 f"{src_line}",
+                     "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "library_ms": lib})
+    return recs
+
+
 def phase_train_parity(torch, dev):
     """Three train steps of one float32 llama_tiny model on the card
     (kernels) and on the CPU (plain versions)."""
@@ -499,6 +748,169 @@ def phase_train(torch, dev, card):
     return launches
 
 
+def phase_train_packed_parity(torch, dev):
+    """Three sequence-packed train steps of one float32 llama_tiny model
+    on the card (segment kernels) and on the CPU (plain versions), and
+    the packed loss against the same documents one per row on the
+    card."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.io import packing as PK
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_tiny()
+    cpu_params = L.init_params(cfg, seed=0, device="cpu")
+    card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+    rng = np.random.default_rng(10)
+    lens = [40, 24, 30, 17, 9, 33, 64, 5]
+    docs = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    packed = PK.pack_documents(docs, 64)
+    losses, grads = {}, {}
+    for name, params, where in (("card", card_params, dev),
+                                ("cpu", cpu_params, "cpu")):
+        batch = PK.packed_train_batch(packed, device=where)
+        K.reset_dispatch_stats()
+        grads[name] = L._leaves(L.loss_and_grads(params, batch, cfg)[1])
+        state = L.adamw_init(params)
+        step = L.make_train_step(cfg)
+        losses[name] = [float(step(params, state, batch)[2])
+                        for _ in range(3)]
+        torch.cuda.synchronize()
+        stats = K.dispatch_stats()
+        _say("train_packed_parity", device=name, rows=packed["ids"].shape[0],
+             losses=losses[name], **stats)
+        if name == "card":
+            assert stats["varlen"] > 0 and stats["varlen_bwd"] > 0
+            assert stats["varlen_ref"] == 0 and stats["varlen_bwd_ref"] == 0
+            assert stats["flash"] == 0 and stats["flash_ref"] == 0
+    grad_err = max(_err(a.cpu(), b) / float(b.abs().max())
+                   for a, b in zip(grads["card"], grads["cpu"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["card"], losses["cpu"]))
+    # the same documents one per row (padded with ignored labels), through
+    # the dense kernels, on the card
+    params = L.init_params(cfg, seed=0, device=dev)
+    ids, lab = one_doc_per_row(docs, len(docs), max(lens))
+    with torch.no_grad():
+        lp = float(L.loss_fn(params, PK.packed_train_batch(packed, dev),
+                             cfg))
+        lu = float(L.loss_fn(params, (torch.as_tensor(ids, device=dev),
+                                      torch.as_tensor(lab, device=dev)),
+                             cfg))
+    unpacked_err = abs(lp - lu) / abs(lu)
+    _say("train_packed_parity", loss_rel_err=loss_err,
+         loss_rtol=TRAIN_LOSS_RTOL, grad_rel_err=grad_err,
+         grad_tol=TRAIN_GRAD_TOL, packed_loss=lp, unpacked_loss=lu,
+         packed_vs_unpacked_rel_err=unpacked_err)
+    assert loss_err <= TRAIN_LOSS_RTOL, losses
+    assert grad_err <= TRAIN_GRAD_TOL, grad_err
+    assert unpacked_err <= TRAIN_LOSS_RTOL, (lp, lu)
+
+
+def packed_train_setup(torch, dev):
+    """The packed training main path's ``(cfg, params, opt_state, step,
+    batch, docs, packed)``: the JAX package's packed rung at Llama-3-8B
+    widths (4 layers, vocab 32000, remat "dots", materialising cross
+    entropy), random bf16 weights from seed 0, bf16 AdamW moments, lr
+    1e-4, the packed trace as one ``[7, 2048]`` batch on ``dev``."""
+    from paddle_tpu_torch.io import packing as PK
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_3_8b(num_hidden_layers=TRAIN_LAYERS,
+                       vocab_size=PACKED_VOCAB, remat_policy="dots",
+                       fused_ce=False)
+    params = L.init_params(cfg, seed=0, device=dev)
+    state = L.adamw_init(params, moment_dtype=torch.bfloat16)
+    step = L.make_train_step(cfg, lr=1e-4)
+    docs, packed = packed_trace()
+    return (cfg, params, state, step, PK.packed_train_batch(packed, dev),
+            docs, packed)
+
+
+def phase_train_packed(torch, dev, card):
+    """The packed training main path, then its padded baseline."""
+    import math
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.io import packing as PK
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.models import llama as L
+    t0 = time.perf_counter()
+    cfg, params, state, step, batch, docs, packed = packed_train_setup(
+        torch, dev)
+    torch.cuda.synchronize()
+    nparams = L.count_params(cfg)
+    rows, seq = packed["ids"].shape
+    useful = int((packed["labels"] >= 0).sum())
+    seg, pos = packed["segment_ids"], packed["positions"]
+    skipped, total = FA.count_skipped_blocks(seg, seg, pos, pos,
+                                             FA.SEG_BLOCK, FA.SEG_BLOCK, True)
+    _say("train_packed", layers=TRAIN_LAYERS,
+         params_b=round(nparams / 1e9, 3), vocab=cfg.vocab_size,
+         remat=cfg.remat_policy, fused_ce=cfg.fused_ce,
+         batch=f"{rows}x{seq}", documents=len(docs), useful_tokens=useful,
+         packing_efficiency=PK.packing_efficiency(packed),
+         tiles_skipped=skipped, tiles_total=total,
+         tiles_skipped_share=skipped / total,
+         init_s=round(time.perf_counter() - t0, 2))
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_dispatch_stats()
+    losses, times = [], []
+    for i in range(7):
+        t0 = time.perf_counter()
+        _, _, loss = step(params, state, batch)
+        losses.append(float(loss))        # waits for the step's end
+        times.append(time.perf_counter() - t0)
+    launches = K.dispatch_stats()
+    peak = torch.cuda.max_memory_allocated(dev)
+    timed = sorted(times[2:])
+    step_s = timed[len(timed) // 2]
+    packed_tps = useful / step_s
+
+    # the padded baseline: the same documents one per row, in waves of
+    # `rows` rows, through the same step (the dense kernels)
+    waves = -(-len(docs) // rows)
+    ids, lab = one_doc_per_row(docs, waves * rows, seq)
+    pad_batches = [(torch.as_tensor(ids[w * rows:(w + 1) * rows], device=dev),
+                    torch.as_tensor(lab[w * rows:(w + 1) * rows], device=dev))
+                   for w in range(waves)]
+    K.reset_dispatch_stats()
+    pass_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for pb in pad_batches:
+            float(step(params, state, pb)[2])
+        pass_s.append(time.perf_counter() - t0)
+    pad_launches = K.dispatch_stats()
+    padded_tps = useful / (sum(pass_s[1:]) / 2)
+    steps = len(times)
+    _say("train_packed", card=repr(card), losses=losses,
+         step_ms=[t * 1e3 for t in times[2:]], median_step_ms=step_s * 1e3,
+         useful_tokens_per_s=packed_tps,
+         mfu_6nd_useful=6.0 * nparams * packed_tps / H100_BF16_FLOPS,
+         peak_mem_gb=round(peak / 1e9, 2))
+    _say("train_packed", padded_waves=waves, padded_pass_ms=[
+        t * 1e3 for t in pass_s[1:]], padded_useful_tokens_per_s=padded_tps,
+         speedup_vs_padded=packed_tps / padded_tps,
+         padded_flash=pad_launches["flash"],
+         padded_flash_bwd=pad_launches["flash_bwd"])
+    _say("train_packed", steps=steps,
+         varlen_per_step=launches["varlen"] / steps,
+         varlen_bwd_per_step=launches["varlen_bwd"] / steps,
+         **{k: v for k, v in launches.items() if k != "paged"})
+    ln_v = math.log(cfg.vocab_size)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert ln_v - 1 <= losses[0] <= ln_v + 2, (losses[0], ln_v)
+    assert losses[-1] < losses[0], losses
+    assert launches["varlen"] == 2 * TRAIN_LAYERS * steps, launches
+    assert launches["varlen_bwd"] == TRAIN_LAYERS * steps, launches
+    assert launches["flash"] == 0 and launches["flash_bwd"] == 0, launches
+    assert all(v == 0 for k, v in launches.items() if k.endswith("_ref")), \
+        launches
+    assert pad_launches["flash_bwd"] == TRAIN_LAYERS * waves * 3
+    assert all(v == 0 for k, v in pad_launches.items()
+               if k.endswith("_ref") or k.startswith("varlen"))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -545,21 +957,30 @@ def main() -> int:
     paged = phase_paged(torch, dev, main_lengths, 8 * maxp, maxp)
     flash_bwd = phase_flash_bwd(torch, dev, TRAIN_BATCH, TRAIN_SEQ)
     torch.cuda.empty_cache()
+    seg_fwd, seg_bwd = phase_flash_seg(torch, dev)
+    torch.cuda.empty_cache()
     phase_parity(torch, dev)
     phase_train_parity(torch, dev)
+    phase_train_packed_parity(torch, dev)
     launches = phase_main(torch, dev, args.layers, requests, smi)
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, dev, smi)
+    torch.cuda.empty_cache()
+    packed_launches = phase_train_packed(torch, dev, smi)
     # launches on each kernel's main path: serving for the forward and
-    # the decode kernel, training for the backward
+    # the decode kernel, dense training for the backward, packed
+    # training for the segment kernels
     flash["launches"] = launches["flash"]
     paged["launches"] = launches["paged"]
     flash_bwd["launches"] = train_launches["flash_bwd"]
+    seg_fwd["launches"] = packed_launches["varlen"]
+    seg_bwd["launches"] = packed_launches["varlen_bwd"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in (flash, paged, flash_bwd)]}))
+    print(json.dumps({"kernels": [
+        {k: rec[k] for k in keys}
+        for rec in (flash, paged, flash_bwd, seg_fwd, seg_bwd)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

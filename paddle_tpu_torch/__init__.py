@@ -2,9 +2,10 @@
 
 The JAX package beside it stays the reference. This package mirrors its
 layout module by module (``models/llama.py``, ``inference/paged.py``,
-``inference/engine.py``, ``kernels/...``) and runs on an NVIDIA Hopper
-card: every Pallas kernel on a ported path is a hand-written CUDA kernel
-under ``csrc/``, built with ``nvcc`` at first use.
+``inference/engine.py``, ``io/packing.py``, ``kernels/...``) and runs on
+an NVIDIA Hopper card: every Pallas kernel on a ported path is a
+hand-written CUDA kernel under ``csrc/``, built with ``nvcc`` at first
+use.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper takes its plain PyTorch version. Nothing

@@ -2,13 +2,18 @@
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py _bwd_dq_kernel and
 // _bwd_dkv_kernel (launched by _bwd under the _flash custom VJP), the
-// Pallas TPU kernels that give every training attention its gradient.
+// Pallas TPU kernels that give every training attention its gradient, and
+// _seg_bwd_dq_kernel and _seg_bwd_dkv_kernel (launched by _seg_bwd under
+// the _flash_seg custom VJP), their sequence-packed variants.
 //
 // Computes, from the forward's inputs q / k / v, its output o, its
 // log-sum-exp lse and the output gradient dout, the gradients dq, dk, dv of
 // out = softmax(q k^T * scale) v with GQA (query head h reads kv head
-// h / (H / KVH)) under a mask policy (here the dense one: bottom-right
-// aligned causal, query row r sees keys c <= r + Sk - Sq, or none):
+// h / (H / KVH)) under a mask policy: DenseMask (entry flash_bwd; bottom-
+// right aligned causal, query row r sees keys c <= r + Sk - Sq, or none)
+// or SegmentMask (entry flash_bwd_seg; same segment id >= 0 and, when
+// causal, key position <= query position, segment-local; tile pairs that
+// the forward's tile extrema rule out are skipped):
 //
 //   p  = exp(q.k * scale - lse)          recomputed, never stored
 //   dp = dout . v
@@ -18,29 +23,35 @@
 // Two kernels, launched in this order on one stream:
 // - dq: one block per (batch, query head, 32 query rows). It first writes
 //   delta for its rows (fused: the dkv kernel reads it), then loops over
-//   32-key tiles up to the causal limit, accumulating dq in float32.
+//   the 32-key tiles that can hold a visible key, accumulating dq in
+//   float32.
 // - dkv: one block per (batch, kv head, 32 keys). It loops over the GQA
-//   group's query heads and their 32-row tiles from the first row that
-//   can see its keys, accumulating dk and dv in float32. Summing the group
-//   inside the block needs no per-query-head dk / dv buffers, no group sum
-//   afterwards and no atomics.
+//   group's query heads and their 32-row tiles that can see its keys,
+//   accumulating dk and dv in float32. Summing the group inside the block
+//   needs no per-query-head dk / dv buffers, no group sum afterwards and
+//   no atomics.
 // Masked entries get p = 0 explicitly, so a row that sees no key (the
-// forward wrote lse = -inf for it) gets exact zero gradients and
-// exp(-inf - -inf) is never formed.
+// forward wrote lse = -inf for it: padding, or nothing before the causal
+// limit) gets exact zero gradients, a padding key exact zero dk / dv, and
+// exp(-inf - -inf) is never formed. The segment ids and positions of the
+// tile a block walks are staged in shared memory; its own stay in
+// registers.
 //
 // Bound on the H100: 5 causal products of B*H*S^2*D operations each at
-// least (q k^T, dout v^T, dv, dq, dk) against ~(8 B S H D + 2 B S KVH D)
-// bytes: far above ~295 operations per byte, so arithmetic bounds it. This
-// first version recomputes q k^T and dout v^T in both kernels (7 products)
-// and runs them on the CUDA cores in float32, well under the bf16 tensor
-// core peak. Its traffic is small all the same: every tile a block loads
-// into shared memory serves 32 rows or keys, the score matrix never leaves
-// registers, and causal blocks skip the tiles above the diagonal.
-// Tensor-core (wgmma) tiles are the next step.
+// least (q k^T, dout v^T, dv, dq, dk; for packed rows over the visible
+// pairs only) against ~(8 B S H D + 2 B S KVH D) bytes: far above ~295
+// operations per byte, so arithmetic bounds it. This first version
+// recomputes q k^T and dout v^T in both kernels (7 products) and runs them
+// on the CUDA cores in float32, well under the bf16 tensor core peak. Its
+// traffic is small all the same: every tile a block loads into shared
+// memory serves 32 rows or keys, the score matrix never leaves registers,
+// and causal blocks skip the tiles above the diagonal, segment blocks
+// those of other documents. Tensor-core (wgmma) tiles are the next step.
 //
 // Layout: q / o / dout / dq [B, Sq, H, D], k / v / dk / dv [B, Sk, KVH, D],
-// all contiguous, float32 or bfloat16; lse and delta float32 [B, H, Sq].
-// D is a multiple of 16, at most 128.
+// all contiguous, float32 or bfloat16; lse and delta float32 [B, H, Sq];
+// segment ids and positions int32 [B, Sq] / [B, Sk]. D is a multiple of
+// 16, at most 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,16 +111,37 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x;
 }
 
-// The mask policy both kernels take. The dense one: bottom-right-aligned
-// causal or no mask, ragged edges cut. A segment mask (packed sequences)
-// supplies the same three functions from per-token segment ids.
+// Mask policies (the same two as in flash_fwd.cu). A policy describes a
+// query row (Row) and a key (Key) by what its visibility needs, stages
+// the keys or rows of one tile in shared memory (Tile), says which keys
+// or rows a block must walk (key_end, row_begin) and whether a (q tile,
+// k tile) pair can hold a visible pair at all (tile_runs, uniform over
+// the block).
+static_assert(BM == BN, "a staged tile serves rows and keys alike");
+
 struct DenseMask {
   int Sq, Sk, offset;   // offset = Sk - Sq
   int causal;
 
-  // whether query row `row` of batch `b` sees key `col`
-  __device__ __forceinline__ bool visible(int b, int row, int col) const {
-    return row < Sq && col < Sk && (!causal || col <= row + offset);
+  struct Idx { int i; };   // a row or a key is its index
+  using Row = Idx;
+  using Key = Idx;
+  struct Tile {};          // nothing to stage
+
+  __device__ __forceinline__ Row row(int b, int i) const { return {i}; }
+  __device__ __forceinline__ Key key(int b, int i) const { return {i}; }
+  __device__ __forceinline__ void stage_keys(Tile&, int b, int k0,
+                                             int tid) const {}
+  __device__ __forceinline__ void stage_rows(Tile&, int b, int q0,
+                                             int tid) const {}
+  __device__ __forceinline__ Key tile_key(const Tile&, int k0, int j) const {
+    return {k0 + j};
+  }
+  __device__ __forceinline__ Row tile_row(const Tile&, int q0, int i) const {
+    return {q0 + i};
+  }
+  __device__ __forceinline__ bool visible(Row r, Key c) const {
+    return r.i < Sq && c.i < Sk && (!causal || c.i <= r.i + offset);
   }
   // keys [0, key_end) hold every key rows <= q_last of batch b can see
   __device__ __forceinline__ int key_end(int b, int q_last) const {
@@ -118,6 +150,81 @@ struct DenseMask {
   // rows [row_begin, Sq) hold every row that can see a key >= k0
   __device__ __forceinline__ int row_begin(int b, int k0) const {
     return causal ? max(0, k0 - offset) : 0;
+  }
+  __device__ __forceinline__ bool tile_runs(int b, int qt, int kt) const {
+    return true;
+  }
+};
+
+struct SegmentMask {
+  const int* seg_q;   // [B, Sq]
+  const int* seg_k;   // [B, Sk]
+  const int* pos_q;   // [B, Sq]
+  const int* pos_k;   // [B, Sk]
+  // [6, B, stride]: per q tile segment min / max, per k tile segment
+  // min / max, per q tile position max, per k tile position min
+  const int* stats;
+  int B, Sq, Sk, stride;
+  int causal;
+
+  struct Tok { int seg, pos; };
+  using Row = Tok;
+  using Key = Tok;
+  struct Tile { int seg[BN]; int pos[BN]; };
+
+  // past the edge: a row of segment -1 (padding) and a key of segment -2,
+  // which no row matches
+  __device__ __forceinline__ Row row(int b, int i) const {
+    if (i >= Sq) return {-1, 0};
+    const size_t o = size_t(b) * Sq + i;
+    return {seg_q[o], pos_q[o]};
+  }
+  __device__ __forceinline__ Key key(int b, int i) const {
+    if (i >= Sk) return {-2, 0};
+    const size_t o = size_t(b) * Sk + i;
+    return {seg_k[o], pos_k[o]};
+  }
+  __device__ __forceinline__ void stage_keys(Tile& t, int b, int k0,
+                                             int tid) const {
+    if (tid < BN) {
+      const Key c = key(b, k0 + tid);
+      t.seg[tid] = c.seg;
+      t.pos[tid] = c.pos;
+    }
+  }
+  __device__ __forceinline__ void stage_rows(Tile& t, int b, int q0,
+                                             int tid) const {
+    if (tid < BM) {
+      const Row r = row(b, q0 + tid);
+      t.seg[tid] = r.seg;
+      t.pos[tid] = r.pos;
+    }
+  }
+  __device__ __forceinline__ Key tile_key(const Tile& t, int k0,
+                                          int j) const {
+    return {t.seg[j], t.pos[j]};
+  }
+  __device__ __forceinline__ Row tile_row(const Tile& t, int q0,
+                                          int i) const {
+    return {t.seg[i], t.pos[i]};
+  }
+  __device__ __forceinline__ bool visible(Row r, Key c) const {
+    return r.seg >= 0 && r.seg == c.seg && (!causal || c.pos <= r.pos);
+  }
+  __device__ __forceinline__ int key_end(int b, int q_last) const {
+    return Sk;
+  }
+  __device__ __forceinline__ int row_begin(int b, int k0) const { return 0; }
+  // the reference's _seg_run_predicate (see flash_fwd.cu)
+  __device__ __forceinline__ bool tile_runs(int b, int qt, int kt) const {
+    const size_t plane = size_t(B) * stride;
+    const int* st = stats + size_t(b) * stride;
+    const int qsmin = st[qt], qsmax = st[plane + qt];
+    const int ksmin = st[2 * plane + kt], ksmax = st[3 * plane + kt];
+    bool run = qsmax >= 0 && ksmax >= 0 && max(qsmin, 0) <= ksmax &&
+               max(ksmin, 0) <= qsmax;
+    if (causal) run = run && st[5 * plane + kt] <= st[4 * plane + qt];
+    return run;
   }
 };
 
@@ -136,6 +243,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int D4 = D / 4;
   __shared__ float4 ks[BN][D4];
   __shared__ float4 vs[BN][D4];
+  __shared__ typename Mask::Tile keys;
 
   const int tid = threadIdx.x;
   const int r = tid / QUAD;
@@ -148,6 +256,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = q0 + r;
   const bool row_ok = row < Sq;
   const size_t roff = ((size_t(b) * Sq + (row_ok ? row : 0)) * H + h) * D;
+  const typename Mask::Row rinfo = mask.row(b, row);
 
   float4 qv[NC];
   float4 dov[NC];
@@ -170,6 +279,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = mask.key_end(b, q_last);
 
   for (int k0 = 0; k0 < k_end; k0 += BN) {
+    if (!mask.tile_runs(b, blockIdx.x, k0 / BN)) continue;
     for (int idx = tid; idx < BN * D4; idx += THREADS) {
       const int j = idx / D4;
       const int c = idx % D4;
@@ -184,6 +294,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ks[j][c] = kk;
       vs[j][c] = vv;
     }
+    mask.stage_keys(keys, b, k0, tid);
     __syncthreads();
 
 #pragma unroll 2
@@ -197,8 +308,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       s = quad_sum(s);
       dp = quad_sum(dp);
-      const float p =
-          mask.visible(b, row, k0 + j) ? __expf(s * scale - lse_r) : 0.f;
+      const float p = mask.visible(rinfo, mask.tile_key(keys, k0, j))
+                          ? __expf(s * scale - lse_r)
+                          : 0.f;
       const float ds = p * (dp - dlt);
 #pragma unroll
       for (int i = 0; i < NC; ++i) axpy4(acc[i], ds, ks[j][4 * i + t]);
@@ -231,6 +343,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float4 dos[BM][D4];
   __shared__ float lses[BM];
   __shared__ float dls[BM];
+  __shared__ typename Mask::Tile rows;
 
   const int tid = threadIdx.x;
   const int j = tid / QUAD;
@@ -243,6 +356,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int col = k0 + j;
   const bool col_ok = col < Sk;
   const size_t koff = ((size_t(b) * Sk + (col_ok ? col : 0)) * KVH + kvh) * D;
+  const typename Mask::Key cinfo = mask.key(b, col);
 
   float4 kv[NC];
   float4 vv[NC];
@@ -263,6 +377,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = kvh * group + g;
     const size_t bh = size_t(b) * H + h;
     for (int q0 = r_begin; q0 < Sq; q0 += BM) {
+      if (!mask.tile_runs(b, q0 / BM, blockIdx.x)) continue;
       for (int idx = tid; idx < BM * D4; idx += THREADS) {
         const int i = idx / D4;
         const int c = idx % D4;
@@ -282,6 +397,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         lses[tid] = rr < Sq ? lse[bh * Sq + rr] : -INFINITY;
         dls[tid] = rr < Sq ? delta[bh * Sq + rr] : 0.f;
       }
+      mask.stage_rows(rows, b, q0, tid);
       __syncthreads();
 
 #pragma unroll 2
@@ -295,8 +411,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         s = quad_sum(s);
         dp = quad_sum(dp);
-        const float p =
-            mask.visible(b, q0 + i, col) ? __expf(s * scale - lses[i]) : 0.f;
+        const float p = mask.visible(mask.tile_row(rows, q0, i), cinfo)
+                            ? __expf(s * scale - lses[i])
+                            : 0.f;
         const float ds = p * (dp - dls[i]);
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
@@ -354,6 +471,32 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename Mask>
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* o, const void* lse, const void* dout,
+                     void* dq, void* dk, void* dv, void* delta, int B, int Sq,
+                     int Sk, int H, int KVH, int D, float scale, Mask mask,
+                     int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (dtype == 0) {
+    return launch<float>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk, H,
+                         KVH, D, scale, mask, s);
+  }
+  if (dtype == 1) {
+    return launch<__nv_bfloat16>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq,
+                                 Sk, H, KVH, D, scale, mask, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+bool bad_shape(int B, int Sq, int Sk, int H, int KVH, int D) {
+  return B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH != 0 ||
+         D % 16 != 0 || D < 16 || D > 128 || B * H > 65535 ||
+         B * KVH > 65535;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. delta is float32 scratch [B, H, Sq]
@@ -364,22 +507,32 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          void* dq, void* dk, void* dv, void* delta, int B,
                          int Sq, int Sk, int H, int KVH, int D, float scale,
                          int causal, int dtype, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH != 0 ||
-      D % 16 != 0 || D < 16 || D > 128 || B * H > 65535 ||
-      B * KVH > 65535) {
+  if (bad_shape(B, Sq, Sk, H, KVH, D)) return cudaErrorInvalidValue;
+  const DenseMask mask{Sq, Sk, Sk - Sq, causal};
+  return dispatch(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H,
+                  KVH, D, scale, mask, dtype, stream);
+}
+
+// The segment-masked backward: flash_bwd's arguments plus seg_q / pos_q
+// int32 [B, Sq], seg_k / pos_k int32 [B, Sk] and the forward's tile
+// extrema stats int32 [6, B, stride] at 32 x 32.
+extern "C" int flash_bwd_seg(const void* q, const void* k, const void* v,
+                             const void* o, const void* lse,
+                             const void* dout, void* dq, void* dk, void* dv,
+                             void* delta, const void* seg_q,
+                             const void* seg_k, const void* pos_q,
+                             const void* pos_k, const void* stats, int B,
+                             int Sq, int Sk, int H, int KVH, int D,
+                             int stride, float scale, int causal, int dtype,
+                             void* stream) {
+  if (bad_shape(B, Sq, Sk, H, KVH, D) || stride < (Sq + BM - 1) / BM ||
+      stride < (Sk + BN - 1) / BN) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  const DenseMask mask{Sq, Sk, Sk - Sq, causal};
-  if (dtype == 0) {
-    return launch<float>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk, H,
-                         KVH, D, scale, mask, s);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq,
-                                 Sk, H, KVH, D, scale, mask, s);
-  }
-  return cudaErrorInvalidValue;
+  const SegmentMask mask{
+      static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
+      static_cast<const int*>(pos_q), static_cast<const int*>(pos_k),
+      static_cast<const int*>(stats), B, Sq, Sk, stride, causal};
+  return dispatch(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H,
+                  KVH, D, scale, mask, dtype, stream);
 }

@@ -7,6 +7,8 @@ tensors; there is no fallback from the card to the plain version:
 
 - ``flash_attention.flash_attention_fwd``: ``csrc/flash_fwd.cu``;
 - ``flash_attention.flash_attention_bwd``: ``csrc/flash_bwd.cu``;
+- ``flash_attention.flash_attention_segments_fwd`` / ``_bwd``: the
+  segment (sequence-packed) entries of the same two sources;
 - ``paged_attention.ragged_paged_attention``: ``csrc/paged_decode.cu``.
 
 ``fused_ce`` is plain PyTorch on every device, as the reference's is
@@ -27,7 +29,19 @@ dispatched_paged_attention = paged_attention.ragged_paged_attention
 
 __all__ = ["flash_attention", "fused_ce", "paged_attention",
            "dispatched_fused_ce", "dispatched_paged_attention",
-           "dispatch_stats", "reset_dispatch_stats"]
+           "dispatched_segment_attention", "dispatch_stats",
+           "reset_dispatch_stats"]
+
+
+def dispatched_segment_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
+                                 causal=False, scale=None):
+    """Segment-masked (sequence-packed) attention, differentiable: the
+    CUDA segment kernels for CUDA tensors (counted ``varlen`` /
+    ``varlen_bwd``; a shape they do not take raises), the plain versions
+    for CPU tensors (``varlen_ref`` / ``varlen_bwd_ref``). The reference's
+    ``varlen_fallback`` arm has no counterpart on the card."""
+    return flash_attention.flash_attention_segments(
+        q, k, v, seg_q, seg_k, pos_q, pos_k, causal=causal, scale=scale)
 
 
 def dispatched_fused_ce(x, head, labels, *, vocab_chunk=None,

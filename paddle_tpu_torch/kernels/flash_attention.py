@@ -10,10 +10,22 @@ forward's plain version has the math of ``sdpa_reference`` (and gives a
 zero row, where the reference gives NaN, for a row that sees no key, as
 the kernel does); the backward gives such a row exact zero gradients.
 
-``flash_attention`` is the differentiable entry: ``_FlashAttention``
-(the reference's ``_flash`` custom VJP) when autograd needs a gradient,
-the forward alone otherwise.
-Layout: ``[B, S, H, D]`` in and out; ``lse`` is float32 ``[B, H, Sq]``.
+The segment-masked (sequence-packed) variants, ``flash_attention_
+segments_fwd`` / ``flash_attention_segments_bwd``, launch the same two
+sources' segment entries (the reference's ``_seg_fwd_kernel``,
+``_seg_bwd_dq_kernel`` / ``_seg_bwd_dkv_kernel``); their plain versions
+are ``segment_attention_ref`` / ``segment_attention_bwd_ref``. A token
+attends only to keys of its own segment id (-1: padding, exact zero rows
+and gradients), causal on segment-local positions, and the kernels skip
+32 x 32 tile pairs that the per-tile extrema (``_seg_block_stats``) rule
+out; ``count_skipped_blocks`` counts them.
+
+``flash_attention`` / ``flash_attention_segments`` are the
+differentiable entries: ``_FlashAttention`` / ``_FlashSegAttention``
+(the reference's ``_flash`` / ``_flash_seg`` custom VJPs) when autograd
+needs a gradient, the forward alone otherwise.
+Layout: ``[B, S, H, D]`` in and out; ``lse`` is float32 ``[B, H, Sq]``;
+segment ids and positions ``[B, S]`` integers.
 """
 from __future__ import annotations
 
@@ -28,7 +40,10 @@ from ._stats import DISPATCH_STATS
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "flash_attention_bwd", "flash_attention_bwd_ref", "supported",
-           "supported_bwd"]
+           "supported_bwd", "flash_attention_segments",
+           "flash_attention_segments_fwd", "flash_attention_segments_bwd",
+           "segment_attention_ref", "segment_attention_bwd_ref",
+           "segments_supported", "count_skipped_blocks", "SEG_BLOCK"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -223,21 +238,347 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
     return flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]
 
 
+# -- segment-masked (sequence-packed) attention --------------------------------
+
+SEG_BLOCK = 32      # the CUDA kernels' tile, rows and keys (BM = BN = 32)
+# rows of the tile stats (int32 [6, B * stride]), the reference's order
+_ST_QSMIN, _ST_QSMAX, _ST_KSMIN, _ST_KSMAX, _ST_QPMAX, _ST_KPMIN = range(6)
+_I32 = torch.iinfo(torch.int32)
+
+
+def _seg_block_stats(seg_q, seg_k, pos_q, pos_k, block_q, block_k):
+    """Per-tile segment / position extrema for the skip predicate, the
+    reference's layout: ``(stats int32 [6, B * stride], stride)`` with q
+    tiles at ``b * stride + qi`` and k tiles at ``b * stride + ki``
+    (zero past each side's tile count). A ragged last tile takes the
+    extrema of the tokens it holds, so S need not divide the tile."""
+    b, sq = seg_q.shape
+    sk = seg_k.shape[1]
+    nq, nk = -(-sq // block_q), -(-sk // block_k)
+    stride = max(nq, nk)
+
+    def extrema(a, block, n, lowest):
+        a = a.to(torch.int32)
+        fill = _I32.max if lowest else _I32.min
+        if n * block > a.shape[1]:
+            a = torch.cat([a, a.new_full((b, n * block - a.shape[1]), fill)],
+                          dim=1)
+        a = a.reshape(b, n, block)
+        r = a.amin(-1) if lowest else a.amax(-1)
+        return torch.cat([r, r.new_zeros((b, stride - n))], dim=1)
+
+    stats = torch.stack([
+        extrema(seg_q, block_q, nq, True), extrema(seg_q, block_q, nq, False),
+        extrema(seg_k, block_k, nk, True), extrema(seg_k, block_k, nk, False),
+        extrema(pos_q, block_q, nq, False), extrema(pos_k, block_k, nk, True),
+    ]).reshape(6, b * stride).contiguous()
+    return stats, stride
+
+
+def _tiles_run(stats, stride, b, nq, nk, causal):
+    """bool ``[B, nq, nk]``: the reference's ``_seg_run_predicate`` over
+    every tile pair. Segment intervals ``[max(min, 0), max]`` overlap
+    (conservative for any layout, exact for contiguous packing) and, when
+    causal, some key is not in the future of every row (``min pos_k <=
+    max pos_q``)."""
+    st = stats.reshape(6, b, stride)
+    qsmin, qsmax = st[_ST_QSMIN, :, :nq], st[_ST_QSMAX, :, :nq]
+    ksmin, ksmax = st[_ST_KSMIN, :, :nk], st[_ST_KSMAX, :, :nk]
+    run = ((qsmax[:, :, None] >= 0) & (ksmax[:, None, :] >= 0)
+           & (qsmin.clamp(min=0)[:, :, None] <= ksmax[:, None, :])
+           & (ksmin.clamp(min=0)[:, None, :] <= qsmax[:, :, None]))
+    if causal:
+        run = run & (st[_ST_KPMIN, :, None, :nk]
+                     <= st[_ST_QPMAX, :, :nq, None])
+    return run
+
+
+def count_skipped_blocks(seg_q, seg_k, pos_q, pos_k, block_q, block_k,
+                         causal):
+    """``(skipped, total)`` tile pairs of one head's grid under the skip
+    predicate the kernels run (every head sees the same layout). Inputs
+    ``[B, S]`` integers; at ``SEG_BLOCK`` x ``SEG_BLOCK`` the skipped
+    count is the kernels' own."""
+    seg_q, seg_k, pos_q, pos_k = (torch.as_tensor(a)
+                                  for a in (seg_q, seg_k, pos_q, pos_k))
+    b, sq = seg_q.shape
+    nq, nk = -(-sq // block_q), -(-seg_k.shape[1] // block_k)
+    stats, stride = _seg_block_stats(seg_q, seg_k, pos_q, pos_k, block_q,
+                                     block_k)
+    total = b * nq * nk
+    return total - int(_tiles_run(stats, stride, b, nq, nk, causal).sum()), \
+        total
+
+
+def _seg_mask(seg_q, seg_k, pos_q, pos_k, causal):
+    """bool ``[B, Sq, Sk]``: same segment id ``>= 0`` and, when causal,
+    ``pos_q >= pos_k``."""
+    seg_q, seg_k = seg_q.long(), seg_k.long()
+    same = (seg_q[:, :, None] == seg_k[:, None, :]) & (seg_q[:, :, None] >= 0)
+    if causal:
+        same = same & (pos_q.long()[:, :, None] >= pos_k.long()[:, None, :])
+    return same
+
+
+def segment_attention_ref(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
+                          causal=False, scale=None):
+    """Plain version of the segment forward, the reference's
+    ``segment_attention_ref`` math in float32: ``(out [B, Sq, H, D],
+    lse f32 [B, H, Sq])``. Same-segment block-diagonal mask, causal on
+    segment-local positions, padding (``seg < 0``) rows exactly zero with
+    ``lse = -inf``; GQA contracts each kv head with its group of query
+    heads without repeating k / v."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q5 = q.float().reshape(b, sq, kvh, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q5, k.float()) * scale
+    mask = _seg_mask(seg_q, seg_k, pos_q, pos_k, causal)[:, None, None]
+    s.masked_fill_(~mask, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    # a row that sees no key has m = -inf: the clamp keeps s - m from
+    # forming -inf - -inf (NaN) there
+    e = torch.where(mask, torch.exp(s - m.clamp(min=-3e38)), 0.0)
+    del s
+    l = e.sum(-1, keepdim=True)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", e / torch.where(l == 0, 1.0, l),
+                       v.float())
+    lse = torch.where(l > 0, m + torch.log(l), float("-inf"))
+    return (out.reshape(b, sq, h, d).to(q.dtype),
+            lse.reshape(b, h, sq))
+
+
+def segment_attention_bwd_ref(q, k, v, out, lse, dout, seg_q, seg_k, pos_q,
+                              pos_k, *, causal=False, scale=None):
+    """Plain version of the segment backward, the math of the reference's
+    ``_seg_bwd`` in float32: ``p`` is zeroed by the mask before any
+    exponential, so padding rows and padding keys get exact zero ``dq`` /
+    ``dk`` / ``dv``; dk and dv are summed over each kv head's group."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q5 = q.float().reshape(b, sq, kvh, g, d)
+    do5 = dout.float().reshape(b, sq, kvh, g, d)
+    kf, vf = k.float(), v.float()
+    mask = _seg_mask(seg_q, seg_k, pos_q, pos_k, causal)[:, None, None]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q5, kf) * scale
+    s -= lse.reshape(b, kvh, g, sq, 1)
+    p = torch.exp(s.masked_fill_(~mask, float("-inf")))
+    del s
+    delta = (do5 * out.float().reshape(b, sq, kvh, g, d)).sum(-1)
+    ds = torch.einsum("bqhgd,bkhd->bhgqk", do5, vf)
+    ds -= delta.permute(0, 2, 3, 1)[..., None]
+    ds *= p
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, q5) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do5)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+_INT_DTYPES = (torch.int32, torch.int64)
+
+
+def segments_supported(q, k, v, seg_q, seg_k, pos_q, pos_k) -> bool:
+    """Whether the CUDA segment kernels take these tensors: the dense
+    kernels' limits (``supported_bwd``), and int32 or int64 segment ids
+    and positions of ``[B, Sq]`` (query side) and ``[B, Sk]`` (key
+    side)."""
+    if not supported_bwd(q, k, v):
+        return False
+    b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    return all(isinstance(a, torch.Tensor) and a.dtype in _INT_DTYPES
+               and tuple(a.shape) == shape
+               for a, shape in ((seg_q, (b, sq)), (pos_q, (b, sq)),
+                                (seg_k, (b, sk)), (pos_k, (b, sk))))
+
+
+def _seg_check(what, q, k, v, segs, extra=()):
+    """Device, shape and contiguity checks of a CUDA segment call; the
+    segment ids and positions come back as contiguous int32."""
+    tensors = (q, k, v, *segs, *extra)
+    E.enforce(q.is_cuda and all(isinstance(t, torch.Tensor)
+                                and t.device == q.device for t in tensors),
+              f"{what}: every tensor must lie on one CUDA device, got "
+              f"{[str(getattr(t, 'device', type(t))) for t in tensors]}",
+              error=E.InvalidArgumentError)
+    E.enforce(segments_supported(q, k, v, *segs),
+              f"{what}: the CUDA kernels do not take q {tuple(q.shape)} "
+              f"{q.dtype}, k {tuple(k.shape)} {k.dtype}, v "
+              f"{tuple(v.shape)} {v.dtype}, segment ids / positions "
+              f"{[(tuple(a.shape), a.dtype) for a in segs]} (needs the "
+              f"dense kernels' limits and int32 / int64 [B, Sq] and "
+              f"[B, Sk] segment ids and positions)",
+              error=E.InvalidArgumentError)
+    E.enforce(all(t.is_contiguous() for t in (q, k, v, *extra)),
+              f"{what}: inputs must be contiguous",
+              error=E.InvalidArgumentError)
+    _build.check_device(q, what)
+    return tuple(a.to(torch.int32).contiguous() for a in segs)
+
+
+def _tile_stats(segs):
+    """The kernels' tile extrema at ``SEG_BLOCK`` x ``SEG_BLOCK``."""
+    return _seg_block_stats(*segs, SEG_BLOCK, SEG_BLOCK)
+
+
+def flash_attention_segments_fwd(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
+                                 causal=False, scale=None, stats=None,
+                                 tiles_ran=None):
+    """``(out, lse)`` of segment-masked attention: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors. Raises for a CUDA
+    tensor the kernel does not take.
+
+    ``stats`` is ``_seg_block_stats`` at ``SEG_BLOCK`` (computed here when
+    None). ``tiles_ran``, CUDA only, is an int32 tensor of one element to
+    which the kernel adds one for every (batch, head, q tile, k tile) it
+    computes."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    segs = (seg_q, seg_k, pos_q, pos_k)
+    if q.device.type == "cpu":
+        E.enforce(tiles_ran is None, "flash_attention_segments_fwd: "
+                  "tiles_ran counts the CUDA kernel's tiles; the plain "
+                  "version has none", error=E.InvalidArgumentError)
+        DISPATCH_STATS["varlen_ref"] += 1
+        return segment_attention_ref(q, k, v, *segs, causal=causal,
+                                     scale=scale)
+    extra = () if tiles_ran is None else (tiles_ran,)
+    segs = _seg_check("flash_attention_segments", q, k, v, segs, extra)
+    E.enforce(tiles_ran is None or (tiles_ran.dtype == torch.int32
+                                    and tiles_ran.numel() == 1),
+              "flash_attention_segments_fwd: tiles_ran must be one int32",
+              error=E.InvalidArgumentError)
+    stats, stride = stats if stats is not None else _tile_stats(segs)
+    lib = _lib()
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = lib.flash_fwd_seg(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *(a.data_ptr() for a in segs), stats.data_ptr(),
+        None if tiles_ran is None else tiles_ran.data_ptr(), b, sq, sk, h,
+        kvh, d, stride, float(scale), int(bool(causal)), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    DISPATCH_STATS["varlen"] += 1
+    _build.check_launch("flash_fwd_seg", err)
+    return out, lse
+
+
+def flash_attention_segments_bwd(q, k, v, out, lse, dout, seg_q, seg_k,
+                                 pos_q, pos_k, *, causal=False, scale=None,
+                                 stats=None):
+    """``(dq, dk, dv)`` of segment-masked attention from the forward's
+    inputs, its output and lse and the output gradient: the CUDA kernels
+    for CUDA tensors (``stats`` as in the forward), the plain version for
+    CPU tensors. Raises for CUDA tensors the kernels do not take."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    segs = (seg_q, seg_k, pos_q, pos_k)
+    if q.device.type == "cpu":
+        DISPATCH_STATS["varlen_bwd_ref"] += 1
+        return segment_attention_bwd_ref(q, k, v, out, lse, dout, *segs,
+                                         causal=causal, scale=scale)
+    b, sq, h, d = q.shape
+    E.enforce(out.shape == q.shape and dout.shape == q.shape
+              and out.dtype == q.dtype and dout.dtype == q.dtype
+              and lse.shape == (b, h, sq) and lse.dtype == torch.float32,
+              f"flash_attention_segments_bwd: out {tuple(out.shape)} "
+              f"{out.dtype}, dout {tuple(dout.shape)} {dout.dtype} must be "
+              f"like q {tuple(q.shape)} {q.dtype}, lse {tuple(lse.shape)} "
+              f"{lse.dtype} float32 [B, H, Sq]",
+              error=E.InvalidArgumentError)
+    segs = _seg_check("flash_attention_segments_bwd", q, k, v, segs,
+                      (out, lse, dout))
+    stats, stride = stats if stats is not None else _tile_stats(segs)
+    lib = _lib_bwd()
+    sk, kvh = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = lib.flash_bwd_seg(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), *(a.data_ptr() for a in segs),
+        stats.data_ptr(), b, sq, sk, h, kvh, d, stride, float(scale),
+        int(bool(causal)), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    DISPATCH_STATS["varlen_bwd"] += 1
+    _build.check_launch("flash_bwd_seg", err)
+    return dq, dk, dv
+
+
+class _FlashSegAttention(torch.autograd.Function):
+    """The reference's ``_flash_seg`` custom VJP: the forward wrapper
+    saves ``q, k, v, out, lse``, the segment ids and positions and, on
+    the card, the tile stats, which the backward kernels reuse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_k, pos_q, pos_k, causal, scale):
+        segs = (seg_q, seg_k, pos_q, pos_k)
+        stats = None
+        if q.is_cuda:
+            segs = _seg_check("flash_attention_segments", q, k, v, segs)
+            stats = _tile_stats(segs)
+        out, lse = flash_attention_segments_fwd(
+            q, k, v, *segs, causal=causal, scale=scale, stats=stats)
+        ctx.save_for_backward(q, k, v, out, lse, *segs,
+                              None if stats is None else stats[0])
+        ctx.causal, ctx.scale = causal, scale
+        ctx.stride = None if stats is None else stats[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, *segs, stats = ctx.saved_tensors
+        dq, dk, dv = flash_attention_segments_bwd(
+            q, k, v, out, lse, dout.contiguous(), *segs, causal=ctx.causal,
+            scale=ctx.scale,
+            stats=None if stats is None else (stats, ctx.stride))
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_segments(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
+                             causal=False, scale=None):
+    """Segment-masked attention output ``[B, Sq, H, D]`` on packed rows,
+    differentiable (the reference's ``flash_attention_segments``).
+
+    ``seg_q`` / ``seg_k`` ``[B, Sq]`` / ``[B, Sk]`` tag each token with
+    its document (-1 = padding: exact zero rows and gradients); tokens
+    attend only within their segment, and ``causal`` masks on the
+    segment-local ``pos_q`` / ``pos_k``. Through ``_FlashSegAttention``
+    when autograd needs a gradient of q, k or v, the forward wrapper
+    alone otherwise."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashSegAttention.apply(q, k, v, seg_q, seg_k, pos_q, pos_k,
+                                        bool(causal), float(scale))
+    return flash_attention_segments_fwd(q, k, v, seg_q, seg_k, pos_q, pos_k,
+                                        causal=causal, scale=scale)[0]
+
+
 def _lib():
     lib = _build.load("flash_fwd")
     if lib.flash_fwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                  ctypes.c_float, i, i, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i,
+                                  p]
         lib.flash_fwd.restype = ctypes.c_int
+        lib.flash_fwd_seg.argtypes = [p] * 11 + [i] * 7 + [f, i, i, p]
+        lib.flash_fwd_seg.restype = ctypes.c_int
     return lib
 
 
 def _lib_bwd():
     lib = _build.load("flash_bwd")
     if lib.flash_bwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_bwd.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, i,
-                                                       p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_bwd.argtypes = [p] * 10 + [i] * 6 + [f, i, i, p]
         lib.flash_bwd.restype = ctypes.c_int
+        lib.flash_bwd_seg.argtypes = [p] * 15 + [i] * 7 + [f, i, i, p]
+        lib.flash_bwd_seg.restype = ctypes.c_int
     return lib

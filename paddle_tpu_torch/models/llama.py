@@ -28,7 +28,8 @@ from torch.utils.checkpoint import (checkpoint,
 
 from ..core import enforce as E
 from ..core import resolve_device
-from ..nn.functional.attention import rope_raw, rope_tables as _rope_tables
+from ..nn.functional.attention import gather_rope_rows, rope_raw
+from ..nn.functional.attention import rope_tables as _rope_tables
 from ..nn.functional.attention import sdpa_raw
 
 __all__ = ["LlamaConfig", "llama_tiny", "llama_3_8b", "init_params",
@@ -200,14 +201,18 @@ def layer(params, i: int) -> Dict[str, torch.Tensor]:
     return {k: w[i] for k, w in params["layers"].items()}
 
 
-def _block(x, lp, cos, sin, config: LlamaConfig):
+def _block(x, lp, cos, sin, config: LlamaConfig, segment_ids=None,
+           positions=None):
+    """One decoder layer. ``segment_ids`` / ``positions`` select the
+    sequence-packed attention (``sdpa_raw``)."""
     c = config
     B, S, _ = x.shape
     h = _rms(x, lp["ln1"], c.rms_norm_eps)
     q, k, v = _qkv_proj(h, lp, c)
     q = rope_raw(q, cos, sin)
     k = rope_raw(k, cos, sin)
-    a = sdpa_raw(q, k, v, is_causal=True).reshape(B, S, -1)
+    a = sdpa_raw(q, k, v, is_causal=True, segment_ids=segment_ids,
+                 positions=positions).reshape(B, S, -1)
     x = x + _mm(a, lp["wo"])
     return _ffn(x, lp, c)
 
@@ -234,27 +239,34 @@ def remat_policy(name: str):
         f"{name!r}")
 
 
-def forward_hidden(params, ids, config: LlamaConfig):
+def forward_hidden(params, ids, config: LlamaConfig, *, segment_ids=None,
+                   positions=None):
     """Final hidden states ``[B, S, D]`` (post ln_f) from token ids.
 
-    The stacked weights are split into per-layer views once
-    (``unbind``), so their gradient is stacked once. With
-    ``config.remat`` and grad enabled, each layer runs under
+    ``segment_ids`` / ``positions`` ``[B, S]`` select sequence-packed
+    semantics: rope positions restart per document and attention is
+    segment-masked (``sdpa_raw``). The stacked weights are split into
+    per-layer views once (``unbind``), so their gradient is stacked once.
+    With ``config.remat`` and grad enabled, each layer runs under
     ``torch.utils.checkpoint`` with ``config.remat_policy``."""
     c = config
     x = params["embed"][ids]
     cos, sin = _rope_tables(ids.shape[1], c.head_dim, theta=c.rope_theta,
                             device=x.device)
+    if positions is not None:
+        # segment-local rope rows (sequence packing)
+        cos, sin = gather_rope_rows(cos, sin, positions)
     per_layer = {k: w.unbind(0) for k, w in params["layers"].items()}
     remat = c.remat and torch.is_grad_enabled()
     context_fn = remat_policy(c.remat_policy) if remat else None
     for i in range(c.num_hidden_layers):
         lp = {k: w[i] for k, w in per_layer.items()}
         if remat:
-            x = checkpoint(_block, x, lp, cos, sin, c, use_reentrant=False,
+            x = checkpoint(_block, x, lp, cos, sin, c, segment_ids,
+                           positions, use_reentrant=False,
                            context_fn=context_fn)
         else:
-            x = _block(x, lp, cos, sin, c)
+            x = _block(x, lp, cos, sin, c, segment_ids, positions)
     return _rms(x, params["ln_f"], c.rms_norm_eps)
 
 
@@ -263,9 +275,12 @@ def _head(params, config: LlamaConfig):
         else params["lm_head"]
 
 
-def forward(params, ids, config: LlamaConfig):
-    """Logits ``[B, S, V]`` (float32) from token ids ``[B, S]``."""
-    x = forward_hidden(params, ids, config)
+def forward(params, ids, config: LlamaConfig, *, segment_ids=None,
+            positions=None):
+    """Logits ``[B, S, V]`` (float32) from token ids ``[B, S]``
+    (sequence-packed with ``segment_ids`` / ``positions``)."""
+    x = forward_hidden(params, ids, config, segment_ids=segment_ids,
+                       positions=positions)
     return _head_logits(x, _head(params, config))
 
 
@@ -298,23 +313,20 @@ def loss_fn(params, batch, config: LlamaConfig):
     the materialising one over ``forward``'s logits; both leave out
     ``ignore_index`` labels and take the mean over the valid tokens.
 
-    Sequence-packed batches (``segment_ids`` / ``positions``) raise
-    ``NotImplementedError``: the segment attention kernels are the next
-    slice of the port."""
+    Sequence-packed batches carry per-token segment ids and segment-local
+    positions (``io/packing.py``), and their labels hold ``ignore_index``
+    at every document's last token, so no document predicts the next
+    one's first token."""
     from ..kernels import dispatched_fused_ce
     from ..kernels.fused_ce import masked_xent_from_logits
     inp, labels, seg, pos = unpack_batch(batch)
-    if seg is not None or pos is not None:
-        raise NotImplementedError(
-            "loss_fn: sequence-packed batches (segment_ids / positions) "
-            "are not ported yet; they need the segment flash attention "
-            "kernels (ROADMAP.md queue B rows 3 and 4)")
     c = config
     if c.fused_ce:
-        x = forward_hidden(params, inp, c)
+        x = forward_hidden(params, inp, c, segment_ids=seg, positions=pos)
         return dispatched_fused_ce(x, _head(params, c), labels,
                                    vocab_chunk=c.fused_ce_chunk)
-    return masked_xent_from_logits(forward(params, inp, c), labels)
+    return masked_xent_from_logits(
+        forward(params, inp, c, segment_ids=seg, positions=pos), labels)
 
 
 def count_params(config: LlamaConfig) -> int:

@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
 """Where the port's training time goes on one CUDA card.
 
-Builds ``chip_smoke.py``'s training main path (Llama-3-8B widths, 4
-layers, random bf16 weights from seed 0, float32 AdamW moments, batch
-4 x 2048, remat ``"dots"``, blockwise cross entropy), takes two warm-up
-steps, then one step under ``torch.profiler``, and prints, on the card:
+Builds ``chip_smoke.py``'s dense training main path (Llama-3-8B widths,
+4 layers, random bf16 weights from seed 0, float32 AdamW moments, batch
+4 x 2048, remat ``"dots"``, blockwise cross entropy) or, with
+``--packed``, its packed training main path (the same widths at vocab
+32000, bf16 moments, materialising cross entropy, the packed trace's
+``[7, 2048]`` batch), takes two warm-up steps, then one step under
+``torch.profiler``, and prints, on the card:
 
 - host wall time of the profiled step (it ends in a synchronize);
-- device time and launches by class: the flash backward kernels, the
-  flash forward kernel, cuBLAS matmuls of the model, the cross entropy's
-  chunks (its forward and backward, matmuls included), the AdamW update,
-  and everything else; a kernel is put in a class by its own name
-  (flash) or by the profiler range it was launched from (cross entropy,
-  optimizer; then matmuls by name), and "other" is the rest of the
-  device busy time;
+- device time and launches by class: the segment (packed) flash kernels,
+  the dense flash backward and forward kernels, cuBLAS matmuls of the
+  model, the cross entropy (the blockwise chunks with their matmuls, or
+  the materialising loss's forward and its logsumexp / gather
+  backwards), the AdamW update, and everything else; a kernel is put in
+  a class by its own name (flash) or by the profiler range it was
+  launched from (cross entropy, optimizer; then matmuls by name), and
+  "other" is the rest of the device busy time;
 - the device busy share (summed kernel time over wall time) and its
   complement, the idle share;
 - the dozen kernels that took the most device time.
 
-Run from the repo root: ``python3 scripts/torch_train_profile.py``.
+Run from the repo root: ``python3 scripts/torch_train_profile.py
+[--packed]``.
 """
 from __future__ import annotations
 
@@ -31,21 +36,27 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-CLASSES = ("flash_bwd", "flash_fwd", "matmul", "fused_ce", "optimizer",
-           "other")
+CLASSES = ("segment", "flash_bwd", "flash_fwd", "matmul", "cross_entropy",
+           "optimizer", "other")
+NAMED = ("segment", "flash_bwd", "flash_fwd")     # classed by kernel name
 # the script's own ranges; the profiler also shows each as a span on the
 # device's timeline, which is no kernel and is left out of every sum
-RANGES = ("fused_ce", "adamw_update")
+RANGES = ("cross_entropy", "adamw_update")
+# the autograd nodes of the materialising loss's backward
+CE_BACKWARD = ("LogsumexpBackward", "GatherBackward")
 
 
 def _classify(kernel: str, ranges) -> str:
     n = kernel.lower()
+    if "flash" in n and "segmentmask" in n:
+        return "segment"
     if "flash_bwd" in n:
         return "flash_bwd"
     if "flash_fwd_kernel" in n:
         return "flash_fwd"
-    if any("_BlockwiseCE" in r or r == "fused_ce" for r in ranges):
-        return "fused_ce"
+    if any("_BlockwiseCE" in r or r == RANGES[0]
+           or any(b in r for b in CE_BACKWARD) for r in ranges):
+        return "cross_entropy"
     if any(r == "adamw_update" for r in ranges):
         return "optimizer"
     if any(s in n for s in ("gemm", "gemv", "cutlass", "sm90_xmma",
@@ -65,15 +76,19 @@ def _ranges(evt):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.parse_args()
+    ap.add_argument("--packed", action="store_true",
+                    help="profile the packed training main path")
+    args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     if not torch.cuda.is_available():
         print("no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from chip_smoke import TRAIN_BATCH, TRAIN_LAYERS, TRAIN_SEQ, train_setup
+    from chip_smoke import (TRAIN_BATCH, TRAIN_LAYERS, TRAIN_SEQ,
+                            packed_train_setup, train_setup)
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import fused_ce as FCE
     from paddle_tpu_torch.models import llama as L
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -91,8 +106,16 @@ def main() -> int:
 
     L._adamw_update = ranged(RANGES[1], L._adamw_update)
     K.dispatched_fused_ce = ranged(RANGES[0], K.dispatched_fused_ce)
+    FCE.masked_xent_from_logits = ranged(RANGES[0],
+                                         FCE.masked_xent_from_logits)
 
-    _, params, state, step, batch = train_setup(torch, dev)
+    if args.packed:
+        _, params, state, step, batch, _, packed = packed_train_setup(
+            torch, dev)
+        shape = "x".join(map(str, packed["ids"].shape)) + " packed"
+    else:
+        _, params, state, step, batch = train_setup(torch, dev)
+        shape = f"{TRAIN_BATCH}x{TRAIN_SEQ}"
     for _ in range(2):                                   # warm-up
         step(params, state, batch)
     torch.cuda.synchronize()
@@ -103,7 +126,7 @@ def main() -> int:
         loss = float(step(params, state, batch)[2])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"layers={TRAIN_LAYERS} batch={TRAIN_BATCH}x{TRAIN_SEQ} "
+    print(f"layers={TRAIN_LAYERS} batch={shape} "
           f"loss={loss} wall_ms={wall * 1e3:.3f} "
           f"launches={K.dispatch_stats()}")
 
@@ -116,7 +139,7 @@ def main() -> int:
     by = {c: [0.0, 0] for c in CLASSES}
     for e in device:
         cls = _classify(e.key, ())
-        if cls.startswith("flash"):
+        if cls in NAMED:
             by[cls][0] += getattr(e, "self_device_time_total", 0) / 1e3
             by[cls][1] += e.count
     for evt in prof.events():
@@ -128,7 +151,7 @@ def main() -> int:
             if k.name in RANGES:
                 continue
             cls = _classify(k.name, ranges)
-            if cls not in ("flash_bwd", "flash_fwd", "other"):
+            if cls not in NAMED + ("other",):
                 by[cls][0] += k.duration / 1e3
                 by[cls][1] += 1
     busy = sum(getattr(e, "self_device_time_total", 0) for e in device) / 1e3

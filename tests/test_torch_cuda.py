@@ -148,6 +148,103 @@ def test_paged_kernel_matches_plain(dev, dtype, tol):
     assert torch.all(out[0] == 0)
 
 
+def _seg_layout(dev, b, sq, sk, kind):
+    """(seg_q, seg_k, pos_q, pos_k) int32 on the card: documents of
+    assorted lengths with a padding tail ("packed"), random ids and
+    positions per token ("random"), or q / k sides of different
+    documents ("cu", Sq != Sk)."""
+    g = torch.Generator().manual_seed(5)
+    if kind == "random":
+        seg_q = torch.randint(-1, 3, (b, sq), generator=g)
+        pos_q = torch.randint(0, sq, (b, sq), generator=g)
+        seg_k = torch.randint(-1, 3, (b, sk), generator=g)
+        pos_k = torch.randint(0, sk, (b, sk), generator=g)
+    else:
+        def side(s, lens):
+            seg = torch.full((b, s), -1)
+            pos = torch.zeros(b, s, dtype=torch.long)
+            o = 0
+            for i, n in enumerate(lens):
+                seg[:, o:o + n], pos[:, o:o + n] = i, torch.arange(n)
+                o += n
+            return seg, pos
+        seg_q, pos_q = side(sq, [sq // 3, sq // 2 - 5, sq // 8])
+        seg_k, pos_k = (side(sk, [sk // 4, sk // 2, sk // 5])
+                        if kind == "cu" else (seg_q, pos_q))
+    return tuple(t.to(torch.int32).to(dev)
+                 for t in (seg_q, seg_k, pos_q, pos_k))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("sq,sk,causal,kind", [
+    (96, 96, True, "packed"), (100, 100, False, "packed"),
+    (64, 64, True, "random"), (70, 90, True, "cu")])
+def test_segment_kernels_match_plain(dev, dtype, tol, sq, sk, causal, kind):
+    """The segment forward (out, lse) and backward (dq / dk / dv, as max
+    abs error over each reference's max |.|) against their plain
+    versions on the same card tensors; padding rows and keys get exact
+    zeros."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, dout = (torch.randn(2, s, h, 64, generator=g, device=dev)
+                     .to(dtype) for s, h in ((sq, 8), (sk, 2), (sk, 2),
+                                             (sq, 8)))
+    segs = _seg_layout(dev, 2, sq, sk, kind)
+    K.reset_dispatch_stats()
+    out, lse = FA.flash_attention_segments_fwd(q, k, v, *segs, causal=causal)
+    grads = FA.flash_attention_segments_bwd(q, k, v, out, lse, dout, *segs,
+                                            causal=causal)
+    torch.cuda.synchronize()
+    stats = K.dispatch_stats()
+    assert stats["varlen"] == 1 and stats["varlen_bwd"] == 1
+    ref, ref_lse = FA.segment_attention_ref(q, k, v, *segs, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    seen = torch.isfinite(ref_lse)
+    assert torch.equal(seen, torch.isfinite(lse))
+    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-3, rtol=0)
+    want = FA.segment_attention_bwd_ref(q, k, v, out, lse, dout, *segs,
+                                        causal=causal)
+    for got, w in zip(grads, want):
+        err = float((got.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), err
+    pad_q, pad_k = segs[0] < 0, segs[1] < 0
+    assert torch.all(out[pad_q] == 0) and torch.all(grads[0][pad_q] == 0)
+    assert torch.all(grads[1][pad_k] == 0) and torch.all(grads[2][pad_k] == 0)
+
+
+def test_segment_tiles_skipped_match_count(dev):
+    """The forward kernel computes exactly the tiles that
+    ``count_skipped_blocks`` at 32 x 32 leaves, on every head."""
+    segs = _seg_layout(dev, 2, 200, 200, "packed")
+    q = torch.randn(2, 200, 4, 32, device=dev)
+    k = torch.randn(2, 200, 2, 32, device=dev)
+    for causal in (True, False):
+        ran = torch.zeros(1, dtype=torch.int32, device=dev)
+        FA.flash_attention_segments_fwd(q, k, k, *segs, causal=causal,
+                                        tiles_ran=ran)
+        skipped, total = FA.count_skipped_blocks(*segs, FA.SEG_BLOCK,
+                                                 FA.SEG_BLOCK, causal)
+        assert int(ran) == 4 * (total - skipped)
+
+
+def test_single_document_segments_equal_dense_kernels(dev):
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, dout = (torch.randn(2, 80, h, 64, generator=g, device=dev)
+                     .bfloat16() for h in (8, 2, 2, 8))
+    seg = torch.zeros(2, 80, dtype=torch.int32, device=dev)
+    pos = torch.arange(80, dtype=torch.int32, device=dev).expand(2, 80)
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = FA.flash_attention_segments(*ts, seg, seg, pos, pos, causal=True)
+    grads = torch.autograd.grad(out, ts, dout)
+    dense_ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    dense = FA.flash_attention(*dense_ts, causal=True)
+    dense_grads = torch.autograd.grad(dense, dense_ts, dout)
+    torch.testing.assert_close(out.float(), dense.float(), atol=2e-2, rtol=0)
+    for a, b in zip(grads, dense_grads):
+        assert float((a.float() - b.float()).abs().max()) <= \
+            2e-2 * float(b.float().abs().max())
+
+
 def test_kernels_raise_instead_of_falling_back(dev):
     q = torch.zeros(1, 8, 2, 24, device=dev)       # head_dim 24: no kernel
     with pytest.raises(ValueError):
@@ -165,3 +262,14 @@ def test_kernels_raise_instead_of_falling_back(dev):
             torch.zeros(4, 2, 16, 64, device=dev),
             torch.zeros(1, 2, dtype=torch.int64, device=dev),   # not int32
             torch.ones(1, dtype=torch.int32, device=dev))
+    seg = torch.zeros(1, 8, dtype=torch.int32, device=dev)
+    q24 = torch.zeros(1, 8, 2, 24, device=dev)     # head_dim 24: no kernel
+    with pytest.raises(ValueError):
+        FA.flash_attention_segments(q24, q24, q24, seg, seg, seg, seg)
+    with pytest.raises(ValueError):                # segment ids on the CPU
+        FA.flash_attention_segments(q, q, q, seg.cpu(), seg, seg, seg)
+    with pytest.raises(ValueError):                # float segment ids
+        FA.flash_attention_segments(q, q, q, seg.float(), seg, seg, seg)
+    with pytest.raises(ValueError):                # lse must be float32
+        FA.flash_attention_segments_bwd(q, q, q, q, lse.double(), q, seg,
+                                        seg, seg, seg)

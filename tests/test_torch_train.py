@@ -260,16 +260,21 @@ def test_loss_and_grads_leaves_params_alone():
 
 
 def test_not_yet_ported_paths_raise():
+    """Sequence-packed batches are ported (``tests/test_torch_packing.py``);
+    the guarded step and the mesh path, and attention masks / dropout in
+    ``sdpa_raw``, still raise."""
+    from paddle_tpu_torch.nn.functional import attention as TATT
     cfg = TL.llama_tiny()
     tp = TL.init_params(cfg, device="cpu")
     ids = torch.as_tensor(_ids(cfg, (2, 9)))
     seg = torch.zeros(2, 8, dtype=torch.int32)
     pos = torch.arange(8).repeat(2, 1)
-    with pytest.raises(NotImplementedError, match="segment"):
-        TL.loss_fn(tp, (ids[:, :-1], ids[:, 1:], seg, pos), cfg)
-    with pytest.raises(NotImplementedError):
-        TL.loss_fn(tp, {"ids": ids[:, :-1], "labels": ids[:, 1:],
-                        "segment_ids": seg}, cfg)
+    packed = TL.loss_fn(tp, (ids[:, :-1], ids[:, 1:], seg, pos), cfg)
+    np.testing.assert_allclose(float(packed), float(TL.loss_fn(tp, ids, cfg)),
+                               rtol=1e-6)
+    q = torch.zeros(1, 8, 4, 16)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TATT.sdpa_raw(q, q, q, torch.ones(8, 8, dtype=torch.bool))
     with pytest.raises(NotImplementedError, match="guarded"):
         TL.make_train_step(cfg, guard=True)
     with pytest.raises(NotImplementedError, match="mesh"):
