@@ -14,33 +14,45 @@ Phases, each printed on its own line; any failure exits non-zero:
    main paths give it, hold the result to its plain PyTorch version on
    the same inputs (tolerances stated below), and time kernel, plain
    version and the one PyTorch call that computes the same function
-   (``scaled_dot_product_attention``, forward or backward);
+   (``scaled_dot_product_attention``, forward or backward); the decode
+   kernel's int8 arm (``kernel=paged_decode_int8``) at page sizes 16, 32
+   and 64 with float32 and bfloat16 queries, and against the
+   full-precision kernel on the densely dequantized pages;
 3. parity: a ``llama_tiny`` float32 model with one set of weights is
    served on the card (kernels) and on the CPU (plain versions); the
    greedy tokens must be equal, through queueing and preemption;
-4. train_parity: the same kind of model takes 3 ``make_train_step``
+4. quant_parity: the same with int8 KV pages, alone and with int8 and
+   int4 weight-only trees; the card must decode through the int8 arm;
+5. train_parity: the same kind of model takes 3 ``make_train_step``
    steps on the card and on the CPU; losses and step-1 gradients must
    agree, and the card's steps must go through the kernels;
-5. main: a ``ServingEngine`` at Llama-3-8B widths (random bf16 weights
+6. main: a ``ServingEngine`` at Llama-3-8B widths (random bf16 weights
    from a seed) serves 16 requests; both kernels' launch counts over
    this run must be above zero and every token in range;
-6. train: ``make_train_step`` at Llama-3-8B widths, 4 layers (the JAX
+7. main_kvq: the same requests with ``kv_quant=True`` (int8 KV pages of
+   32 tokens, the JAX package's ``kv_quant`` arm of its serving rung):
+   every decode launch must take the int8 arm; pool bytes per KV token
+   against bf16 pages; how many requests give ``main``'s greedy tokens
+   (a reading: int8 KV is lossy);
+8. main_wq: the same with int8 weight-only weights
+   (``quantize_weights``) and int8 KV pages, the quantized memory plane;
+9. train: ``make_train_step`` at Llama-3-8B widths, 4 layers (the JAX
    package's headline training rung), random bf16 weights from seed 0,
    float32 AdamW moments, batch 4 x 2048: 2 untimed and 5 timed steps on
    one batch; the loss must be finite and fall, and every step must run
    the backward kernel once a layer and no plain version;
-7. train_packed_parity: 3 sequence-packed ``llama_tiny`` float32 steps
-   on the card and on the CPU (losses, step-1 gradients), and the packed
-   loss against the same documents one per row on the card;
-8. train_packed: the JAX package's packed training rung (``bench.py``
-   ``_training_packed_rung``): Llama-3-8B widths, 4 layers, vocab 32000,
-   materialising cross entropy, bf16 AdamW moments, lr 1e-4; 24
-   heavy-tailed documents (seed 7) packed into one ``[7, 2048]`` batch,
-   2 untimed and 5 timed steps, every step through the segment kernels
-   (2 forward launches and 1 backward a layer) and no plain version;
-   then the same documents one per row in 4 waves of ``[7, 2048]``
-   through the dense kernels (1 untimed and 2 timed passes), for useful
-   tokens/s both ways.
+10. train_packed_parity: 3 sequence-packed ``llama_tiny`` float32 steps
+    on the card and on the CPU (losses, step-1 gradients), and the packed
+    loss against the same documents one per row on the card;
+11. train_packed: the JAX package's packed training rung (``bench.py``
+    ``_training_packed_rung``): Llama-3-8B widths, 4 layers, vocab 32000,
+    materialising cross entropy, bf16 AdamW moments, lr 1e-4; 24
+    heavy-tailed documents (seed 7) packed into one ``[7, 2048]`` batch,
+    2 untimed and 5 timed steps, every step through the segment kernels
+    (2 forward launches and 1 backward a layer) and no plain version;
+    then the same documents one per row in 4 waves of ``[7, 2048]``
+    through the dense kernels (1 untimed and 2 timed passes), for useful
+    tokens/s both ways.
 
 The kernels phase also holds the segment (packed) kernels to their plain
 versions at 7 shapes, to the dense kernels on a one-document row, and at
@@ -53,7 +65,8 @@ power limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the rest of the repo beside it, it exits non-zero
 before printing any result.
 
-``--layers N`` cuts the main path's depth (default: all 32 layers).
+``--layers N`` cuts the depth of the three serving main paths (default:
+all 32 layers).
 """
 from __future__ import annotations
 
@@ -180,6 +193,23 @@ def phase_flash(torch, dev, main_g, main_s):
             "library_ms": library_ms}
 
 
+def _page_tables(torch, dev, lengths, ps, width, num_pages, seed):
+    """int32 ``[len(lengths), width]`` block tables on the card: each
+    sequence's own pages (a seeded permutation), then sentinel
+    (``num_pages``) entries and garbage past them."""
+    bt = torch.full((len(lengths), width), num_pages, dtype=torch.int32)
+    perm = torch.randperm(num_pages, generator=torch.Generator()
+                          .manual_seed(seed))
+    nxt = 0
+    for b, n in enumerate(lengths):
+        used = -(-n // ps)
+        bt[b, :used] = perm[nxt:nxt + used]
+        nxt += used
+        if used < width - 1:
+            bt[b, -1] = -7 if b % 2 else 10 * num_pages
+    return bt.to(dev)
+
+
 def phase_paged(torch, dev, main_lengths, num_pages, maxp):
     from paddle_tpu_torch.kernels import paged_attention as PA
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -189,28 +219,13 @@ def phase_paged(torch, dev, main_lengths, num_pages, maxp):
     vp = torch.randn(num_pages, KVH, PS, D, generator=gen,
                      device=dev).to(torch.bfloat16)
 
-    def tables(lengths):
-        """Each sequence's own pages, then sentinel (num_pages) entries
-        and garbage past them."""
-        bt = torch.full((B, maxp), num_pages, dtype=torch.int32)
-        perm = torch.randperm(num_pages, generator=torch.Generator()
-                              .manual_seed(3))
-        nxt = 0
-        for b, n in enumerate(lengths):
-            used = -(-n // PS)
-            bt[b, :used] = perm[nxt:nxt + used]
-            nxt += used
-            if used < maxp - 1:
-                bt[b, -1] = -7 if b % 2 else 10 * num_pages
-        return bt.to(dev)
-
     worst = 0.0
     cases = (("edge", [0, 1, 15, 16, 17, 300, 777, maxp * PS]),
              ("main", list(main_lengths)))
     for name, lengths in cases:
         q = torch.randn(B, NH, D, generator=gen,
                         device=dev).to(torch.bfloat16)
-        bt = tables(lengths)
+        bt = _page_tables(torch, dev, lengths, PS, maxp, num_pages, 3)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
         out = PA.ragged_paged_attention(q, kp, vp, bt, ln)
         torch.cuda.synchronize()
@@ -237,6 +252,101 @@ def phase_paged(torch, dev, main_lengths, num_pages, maxp):
          ms=ms, plain_ms=plain_ms, bound_ms=bound,
          gbps=nbytes / ms / 1e6)
     return {"name": "paged_decode", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "paddle_tpu/kernels/paged_attention.py:60",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+
+
+def phase_paged_int8(torch, dev, main_lengths, num_pages, maxp, ps):
+    """The int8 arm of the decode kernel against its plain version at page
+    sizes 16, 32 and 64 with q in float32 and bfloat16 (edge lengths,
+    sentinel and garbage table entries, never-written pages of scale 0),
+    against the full-precision kernel on the densely dequantized pages,
+    then timed at the main decode shape (int8 pages of ``ps``)."""
+    from paddle_tpu_torch.kernels import paged_attention as PA
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, NH, KVH, D = len(main_lengths), 32, 8, 128
+
+    def pool(n_pages, page):
+        codes = [torch.randint(-127, 128, (n_pages, KVH, page, D),
+                               generator=gen, device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        scales = [0.02 * torch.rand(n_pages, KVH, generator=gen, device=dev)
+                  for _ in range(2)]
+        for t in scales:
+            t[:2] = 0.0                  # never written: dequantize to 0
+        return codes, scales
+
+    worst = 0.0
+    for page in (16, 32, 64):
+        width = 8
+        (kc, vc), (ks, vs) = pool(64, page)
+        lengths = [0, 1, page - 1, page, page + 1, width * page]
+        bt = _page_tables(torch, dev, lengths, page, width, 64, 12)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        for dtype, tol in ((torch.float32, FLASH_F32_TOL),
+                           (torch.bfloat16, PAGED_TOL)):
+            q = torch.randn(len(lengths), NH, D, generator=gen,
+                            device=dev).to(dtype)
+            out = PA.ragged_paged_attention(q, kc, vc, bt, ln, k_scales=ks,
+                                            v_scales=vs)
+            torch.cuda.synchronize()
+            ref = PA.paged_attention_ref(q, kc, vc, bt, ln, k_scales=ks,
+                                         v_scales=vs)
+            err = _err(out, ref)
+            zero = bool((out[0] == 0).all())
+            _say("kernels", kernel="paged_decode_int8", ps=page,
+                 q=str(dtype).split(".")[-1],
+                 lengths=",".join(map(str, lengths)), max_abs_err=err,
+                 tol=tol, zero_row_exact=zero)
+            assert err <= tol, "paged_decode_int8 disagrees"
+            assert zero, "paged_decode_int8: a length-0 row is not zero"
+            assert bool(torch.isfinite(out.float()).all())
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            else:
+                # scale handling is exact: the full-precision kernel on
+                # the densely dequantized float32 pages
+                dense = PA.ragged_paged_attention(
+                    q, (kc.float() * ks[:, :, None, None]).contiguous(),
+                    (vc.float() * vs[:, :, None, None]).contiguous(), bt, ln)
+                torch.cuda.synchronize()
+                derr = _err(out, dense)
+                _say("kernels", kernel="paged_decode_int8", ps=page,
+                     vs_full_precision_kernel=derr, tol=FLASH_F32_TOL)
+                assert derr <= FLASH_F32_TOL, \
+                    "paged_decode_int8 differs from the dense kernel"
+
+    # the main decode shape: bf16 q, int8 pages of ps, the first wave's
+    # lengths half-way through its generation
+    (kc, vc), (ks, vs) = pool(num_pages, ps)
+    bt = _page_tables(torch, dev, main_lengths, ps, maxp, num_pages, 12)
+    ln = torch.tensor(main_lengths, dtype=torch.int32, device=dev)
+    q = torch.randn(B, NH, D, generator=gen, device=dev).to(torch.bfloat16)
+    out = PA.ragged_paged_attention(q, kc, vc, bt, ln, k_scales=ks,
+                                    v_scales=vs)
+    torch.cuda.synchronize()
+    ref = PA.paged_attention_ref(q, kc, vc, bt, ln, k_scales=ks, v_scales=vs)
+    err = _err(out, ref)
+    assert err <= PAGED_TOL, "paged_decode_int8 disagrees at the main shape"
+    worst = max(worst, err)
+    ms = _time_ms(lambda: PA.ragged_paged_attention(
+        q, kc, vc, bt, ln, k_scales=ks, v_scales=vs), 50)
+    plain_ms = _time_ms(lambda: PA.paged_attention_ref(
+        q, kc, vc, bt, ln, k_scales=ks, v_scales=vs), 10)
+    ctx = sum(main_lengths)
+    pages = sum(-(-n // ps) for n in main_lengths)
+    # bytes: int8 codes of the live context and the scales of its pages
+    # (k and v), q and out in bf16, block tables and lengths
+    nbytes = (2 * KVH * ctx * D + 2 * 4 * KVH * pages + 2 * 2 * q.numel()
+              + 4 * (bt.numel() + B))
+    flops = 4.0 * NH * ctx * D
+    bound = max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
+    _say("kernels", kernel="paged_decode_int8",
+         shape=f"B{B}xctx{ctx}xps{ps}", max_abs_err=err, ms=ms,
+         plain_ms=plain_ms, bound_ms=bound, gbps=nbytes / ms / 1e6)
+    return {"name": "paged_decode_int8", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
             "replaces": "paddle_tpu/kernels/paged_attention.py:60",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
@@ -281,20 +391,64 @@ def phase_parity(torch, dev):
     assert same, f"card {outs['card']} != cpu {outs['cpu']}"
 
 
-def phase_main(torch, dev, layers, requests, card):
+def phase_quant_parity(torch, dev):
+    """``phase_parity`` with int8 KV pages, alone and with int8 and int4
+    weight-only trees (quantized once, on the CPU): the greedy tokens of
+    the card and the CPU must be equal, and the card must decode through
+    the int8 arm of the kernel with no plain version."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import Request, ServingEngine
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_tiny()
+    base = L.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(5)
+    trace = [(rng.integers(0, cfg.vocab_size, n), m)
+             for n, m in zip((4, 7, 3, 5, 6, 9), (8, 5, 9, 6, 4, 7))]
+    for weights in (None, "int8", "int4"):
+        cpu_params = base if weights is None else L.quantize_weights(
+            base, weights)
+        card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+        outs = {}
+        for name, params, device in (("card", card_params, dev),
+                                     ("cpu", cpu_params, "cpu")):
+            K.reset_dispatch_stats()
+            eng = ServingEngine(L, params, cfg, num_slots=2, max_len=16,
+                                page_size=4, num_pages=5, decode_chunk=2,
+                                kv_quant=True, device=device)
+            out = eng.run([Request(rid=i, prompt=p, max_new_tokens=m)
+                           for i, (p, m) in enumerate(trace)])
+            torch.cuda.synchronize()
+            stats = K.dispatch_stats()
+            outs[name] = [out[i].tokens.tolist() for i in range(len(trace))]
+            _say("quant_parity", weights=weights or "bf16_tree",
+                 engine=name, preempted=eng.stats.preempted, **stats)
+            if name == "card":
+                assert stats["paged_quant"] > 0 and stats["flash"] > 0
+                assert stats["paged"] == 0
+                assert all(v == 0 for k, v in stats.items()
+                           if k.endswith("_ref")), stats
+            assert eng.stats.preempted >= 1
+        same = outs["card"] == outs["cpu"]
+        _say("quant_parity", weights=weights or "bf16_tree",
+             tokens_equal=same, tokens=sum(len(t) for t in outs["card"]))
+        assert same, f"card {outs['card']} != cpu {outs['cpu']}"
+
+
+def phase_main(torch, dev, cfg, params, requests, card, phase="main",
+               kv_quant=False, reference=None):
+    """Serve ``requests`` through ``ServingEngine`` at the config's widths
+    (``kv_quant``: int8 KV pages). Returns ``(launches, tokens)``. With
+    ``reference`` (the tokens of the bf16 run) it also reports, as a
+    reading only, how many requests give the same greedy tokens and where
+    each first differs."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.models import llama as L
-    cfg = L.llama_3_8b(num_hidden_layers=layers)
-    t0 = time.perf_counter()
-    params = L.init_params(cfg, seed=0)
-    torch.cuda.synchronize()
-    nparams = sum(w.numel() for w in params["layers"].values()) + sum(
-        params[k].numel() for k in ("embed", "ln_f", "lm_head"))
-    _say("main", layers=layers, params_b=round(nparams / 1e9, 3),
-         weights_gb=round(2 * nparams / 1e9, 2),
-         init_s=round(time.perf_counter() - t0, 2))
-    eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in L._leaves(params))
+    eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048,
+                        kv_quant=kv_quant)
     torch.cuda.reset_peak_memory_stats(dev)
     K.reset_dispatch_stats()
     t0 = time.perf_counter()
@@ -304,7 +458,7 @@ def phase_main(torch, dev, layers, requests, card):
     launches = K.dispatch_stats()
     st = eng.stats
     ttft = sorted(o.ttft_s for o in out.values())
-    _say("main", card=repr(card), requests=len(out),
+    _say(phase, card=repr(card), requests=len(out),
          wall_s=round(wall, 3),
          prefill_tokens=st.tokens_prefilled, prefill_s=st.prefill_s,
          prefill_tok_per_s=st.tokens_prefilled / st.prefill_s,
@@ -314,17 +468,40 @@ def phase_main(torch, dev, layers, requests, card):
          ttft_median_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
          preempted=st.preempted,
          peak_mem_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 2))
-    _say("main", flash_launches=launches["flash"],
-         paged_launches=launches["paged"],
-         paged_per_decode_step=launches["paged"] / st.decode_steps,
-         flash_ref=launches["flash_ref"], paged_ref=launches["paged_ref"])
-    assert launches["flash"] > 0 and launches["paged"] > 0, launches
-    assert launches["flash_ref"] == 0 and launches["paged_ref"] == 0
+    # pool bytes per KV token over all layers, against bf16 pages of the
+    # same geometry (k and v: 2 bytes a value)
+    pool_bytes = eng.cache.pool_bytes()
+    per_token = pool_bytes / (eng.cache.num_pages * eng.page_size)
+    bf16_per_token = (2 * cfg.num_hidden_layers * cfg.num_key_value_heads
+                      * cfg.head_dim * 2)
+    _say(phase, kv_quant=kv_quant, page_size=eng.page_size,
+         pool_gb=pool_bytes / 1e9, pool_bytes_per_kv_token=per_token,
+         bf16_pool_bytes_per_kv_token=bf16_per_token,
+         servable_concurrency_at_fixed_pool_bytes=bf16_per_token / per_token,
+         weights_gb=weight_bytes / 1e9)
+    arm = "paged_quant" if kv_quant else "paged"
+    _say(phase, flash_launches=launches["flash"],
+         **{f"{arm}_launches": launches[arm],
+            f"{arm}_per_decode_step": launches[arm] / st.decode_steps},
+         other_arm=launches["paged" if kv_quant else "paged_quant"],
+         **{k: v for k, v in launches.items() if k.endswith("_ref")})
+    assert launches["flash"] > 0 and launches[arm] > 0, launches
+    assert launches["paged" if kv_quant else "paged_quant"] == 0, launches
+    assert all(v == 0 for k, v in launches.items() if k.endswith("_ref")), \
+        launches
+    tokens = {}
     for r in requests:
         toks = out[r.rid].tokens
         assert len(toks) == r.max_new_tokens, (r.rid, len(toks))
         assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), r.rid
-    return launches
+        tokens[r.rid] = toks.tolist()
+    if reference is not None:
+        first = [next((i for i, (a, b) in enumerate(zip(tokens[r], ref))
+                       if a != b), None) for r, ref in reference.items()]
+        _say(phase, tokens_equal_to_main=sum(f is None for f in first),
+             of=len(first), first_divergence=",".join(
+                 "-" if f is None else str(f) for f in first))
+    return launches, tokens
 
 
 def phase_flash_bwd(torch, dev, batch, seq):
@@ -955,23 +1132,48 @@ def main() -> int:
                     for r in requests[:8]]
     flash = phase_flash(torch, dev, 8, 512)
     paged = phase_paged(torch, dev, main_lengths, 8 * maxp, maxp)
+    paged_int8 = phase_paged_int8(torch, dev, main_lengths, 8 * (2048 // 32),
+                                  2048 // 32, 32)
     flash_bwd = phase_flash_bwd(torch, dev, TRAIN_BATCH, TRAIN_SEQ)
     torch.cuda.empty_cache()
     seg_fwd, seg_bwd = phase_flash_seg(torch, dev)
     torch.cuda.empty_cache()
     phase_parity(torch, dev)
+    phase_quant_parity(torch, dev)
     phase_train_parity(torch, dev)
     phase_train_packed_parity(torch, dev)
-    launches = phase_main(torch, dev, args.layers, requests, smi)
+    t0 = time.perf_counter()
+    params = L.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in L._leaves(params))
+    _say("main", layers=args.layers, params_b=round(nparams / 1e9, 3),
+         init_s=round(time.perf_counter() - t0, 2))
+    launches, main_tokens = phase_main(torch, dev, cfg, params, requests, smi)
+    torch.cuda.empty_cache()
+    kvq_launches, _ = phase_main(torch, dev, cfg, params, requests, smi,
+                                 phase="main_kvq", kv_quant=True,
+                                 reference=main_tokens)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    qparams = L.quantize_weights(params)        # int8 weight-only
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _say("main_wq", weights="int8", quantize_s=round(
+        time.perf_counter() - t0, 2))
+    phase_main(torch, dev, cfg, qparams, requests, smi, phase="main_wq",
+               kv_quant=True, reference=main_tokens)
+    del qparams
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, dev, smi)
     torch.cuda.empty_cache()
     packed_launches = phase_train_packed(torch, dev, smi)
     # launches on each kernel's main path: serving for the forward and
-    # the decode kernel, dense training for the backward, packed
-    # training for the segment kernels
+    # the decode kernel, int8-KV serving for its int8 arm, dense training
+    # for the backward, packed training for the segment kernels
     flash["launches"] = launches["flash"]
     paged["launches"] = launches["paged"]
+    paged_int8["launches"] = kvq_launches["paged_quant"]
     flash_bwd["launches"] = train_launches["flash_bwd"]
     seg_fwd["launches"] = packed_launches["varlen"]
     seg_bwd["launches"] = packed_launches["varlen_bwd"]
@@ -980,7 +1182,8 @@ def main() -> int:
             "library_ms")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys}
-        for rec in (flash, paged, flash_bwd, seg_fwd, seg_bwd)]}))
+        for rec in (flash, paged, paged_int8, flash_bwd, seg_fwd,
+                    seg_bwd)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

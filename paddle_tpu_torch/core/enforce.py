@@ -1,5 +1,5 @@
 """Typed errors of the port: a local copy of the part of the reference's
-enforce system (``paddle_tpu/core/enforce.py``) that the serving slice
+enforce system (``paddle_tpu/core/enforce.py``) that the port
 raises. Each error is also the natural builtin, so callers that catch
 ``ValueError`` / ``MemoryError`` / ``RuntimeError`` keep working."""
 from __future__ import annotations
@@ -7,7 +7,8 @@ from __future__ import annotations
 from typing import Any, Optional
 
 __all__ = ["EnforceError", "InvalidArgumentError", "ResourceExhaustedError",
-           "PreconditionNotMetError", "UnavailableError", "enforce"]
+           "PreconditionNotMetError", "UnimplementedError",
+           "UnavailableError", "enforce"]
 
 
 class EnforceError(Exception):
@@ -37,6 +38,7 @@ def _make(name, code, *bases):
 InvalidArgumentError = _make("InvalidArgumentError", 1, ValueError)
 ResourceExhaustedError = _make("ResourceExhaustedError", 5, MemoryError)
 PreconditionNotMetError = _make("PreconditionNotMetError", 6, RuntimeError)
+UnimplementedError = _make("UnimplementedError", 9, NotImplementedError)
 UnavailableError = _make("UnavailableError", 10, RuntimeError)
 
 

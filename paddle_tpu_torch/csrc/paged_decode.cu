@@ -1,8 +1,9 @@
 // Ragged paged decode attention for Hopper (sm_90a), plain C interface.
 //
 // Replaces: paddle_tpu/kernels/paged_attention.py _decode_kernel (launched
-// by ragged_paged_attention), full-precision arm: the Pallas TPU kernel of
-// every serving decode layer.
+// by ragged_paged_attention): the Pallas TPU kernel of every serving decode
+// layer, both its full-precision arm (entry paged_decode) and its int8 arm
+// (quant=True, entry paged_decode_int8, FLAGS_serving_kv_quant).
 //
 // Computes, for each sequence b and query head h, one decode query against
 // the first lengths[b] key/value positions of that sequence, which live in
@@ -14,25 +15,39 @@
 //
 // Bound on the H100: every key and value byte of the live context is read
 // once per step and used for 2 * group multiply-adds, so a step is bounded
-// by memory traffic, 2 * B * KVH * ctx * D * sizeof(T) bytes at 3.35 TB/s.
-// The design reads exactly that: one block per (sequence, kv head) serves
-// all `group` query heads of that kv head, so each page is read once per
-// kv head and not once per query head; it walks only the sequence's own
-// positions (no padding to the longest sequence); the group is not padded
-// the way the TPU kernel pads it to 16 sublanes. Key/value rows are loaded
-// with 8- or 16-byte vector loads, 32 positions at a time, into shared
-// memory. At small batch the grid (B * KVH blocks) is smaller than the
-// card's 132 SMs; splitting the positions of one sequence over several
-// blocks is the next step.
+// by memory traffic, 2 * B * KVH * ctx * D * sizeof(page element) bytes at
+// 3.35 TB/s (int8 pages: half the bf16 bytes, plus 8 bytes of scales per
+// page and kv head). The design reads exactly that: one block per
+// (sequence, kv head) serves all `group` query heads of that kv head, so
+// each page is read once per kv head and not once per query head; it
+// walks only the sequence's own positions (no padding to the longest
+// sequence); the group is not padded the way the TPU kernel pads it to 16
+// sublanes. Key/value rows are loaded with 4-, 8- or 16-byte vector loads,
+// 32 positions at a time, into shared memory. At small batch the grid
+// (B * KVH blocks) is smaller than the card's 132 SMs; splitting the
+// positions of one sequence over several blocks is the next step.
 //
-// Layout: q [B, NH, D], pages [P, KVH, ps, D], out [B, NH, D], float32 or
-// bfloat16, contiguous; block_tables int32 [B, maxp]; lengths int32 [B].
-// D % 8 == 0, D <= 128, group * D <= 1024.
+// The int8 arm is the same kernel instantiated on int8_t pages: each
+// 4-value chunk of a key or value row is loaded as 4 codes (char4) and
+// multiplied in float32 by the scale of its (page, kv head), which the
+// block stages once per position of the tile. So the staged tile holds
+// the plain version's dequantized values (code * scale, then attention),
+// not the Pallas kernel's fold of the scale into the dot; the two differ
+// only by rounding, and this order works when a 32-position tile spans
+// several pages (ps 16) or part of one (ps 64). Device-memory traffic
+// stays int8.
+//
+// Layout: q [B, NH, D], out [B, NH, D], float32 or bfloat16; pages
+// [P, KVH, ps, D] of q's type, or int8 with scales float32 [P, KVH] (one
+// per page and kv head); all contiguous; block_tables int32 [B, maxp];
+// lengths int32 [B]. D % 8 == 0, D <= 128, group * D <= 1024.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -50,6 +65,15 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.x));
   float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4(c.x, c.y, c.z, c.w);
+}
+
+__device__ __forceinline__ float4 mul4(float4 a, float s) {
+  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
 }
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
@@ -70,13 +94,19 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-template <typename T>
+// T: the type of q and out; PageT: the page element, T (full precision)
+// or int8_t (codes, dequantized with ksc / vsc, which are unused and may
+// be null otherwise).
+template <typename T, typename PageT>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ bt,
+paged_decode_kernel(const T* __restrict__ q, const PageT* __restrict__ kp,
+                    const PageT* __restrict__ vp,
+                    const float* __restrict__ ksc,
+                    const float* __restrict__ vsc, const int* __restrict__ bt,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     int NH, int KVH, int ps, int D, int P, int maxp,
                     float scale) {
+  constexpr bool kQuant = std::is_same<PageT, int8_t>::value;
   extern __shared__ float4 smem4[];
   const int g = NH / KVH;
   const int D4 = D / 4;
@@ -87,6 +117,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* m_s = sc + g * TT;                // [g]
   float* l_s = m_s + g;                    // [g]
   float* a_s = l_s + g;                    // [g]
+  float* ksc_s = a_s + g;                  // [TT], int8 pages only
+  float* vsc_s = ksc_s + TT;               // [TT], int8 pages only
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -108,6 +140,16 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   const int* row = bt + size_t(b) * maxp;
   for (int t0 = 0; t0 < len; t0 += TT) {
+    if constexpr (kQuant) {
+      // the scales of this tile's positions, read once per position
+      if (tid < TT && t0 + tid < len) {
+        const int pos = t0 + tid;
+        const int pid = min(max(row[pos / ps], 0), P - 1);
+        ksc_s[tid] = ksc[size_t(pid) * KVH + kvh];
+        vsc_s[tid] = vsc[size_t(pid) * KVH + kvh];
+      }
+      __syncthreads();
+    }
     for (int i = tid; i < TT * D4; i += THREADS) {
       const int j = i / D4;
       const int c = i % D4;
@@ -120,6 +162,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
             ((size_t(pid) * KVH + kvh) * ps + pos % ps) * D + 4 * c;
         kk = load4(kp + off);
         vv = load4(vp + off);
+        if constexpr (kQuant) {
+          kk = mul4(kk, ksc_s[j]);
+          vv = mul4(vv, vsc_s[j]);
+        }
       }
       ks[i] = kk;
       vs[i] = vv;
@@ -187,42 +233,82 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-size_t smem_bytes(int g, int D) {
+size_t smem_bytes(int g, int D, bool quant) {
   return sizeof(float) * (size_t(g) * D + 2 * size_t(TT) * D +
-                          size_t(g) * TT + 3 * size_t(g));
+                          size_t(g) * TT + 3 * size_t(g) +
+                          (quant ? 2 * size_t(TT) : 0));
+}
+
+bool bad_shape(int B, int NH, int KVH, int ps, int D, int P, int maxp) {
+  return B <= 0 || KVH <= 0 || NH % KVH != 0 || ps <= 0 || P <= 0 ||
+         maxp <= 0 || D % 8 != 0 || D <= 0 || D > 128 ||
+         (NH / KVH) * D > MAXO * THREADS;
+}
+
+template <typename T, typename PageT>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const float* ksc, const float* vsc, const void* block_tables,
+           const void* lengths, void* out, int B, int NH, int KVH, int ps,
+           int D, int P, int maxp, float scale, void* stream) {
+  const dim3 grid(KVH, B);
+  const size_t smem =
+      smem_bytes(NH / KVH, D, std::is_same<PageT, int8_t>::value);
+  paged_decode_kernel<T, PageT>
+      <<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(q), static_cast<const PageT*>(k_pages),
+          static_cast<const PageT*>(v_pages), ksc, vsc,
+          static_cast<const int*>(block_tables),
+          static_cast<const int*>(lengths), static_cast<T*>(out), NH, KVH,
+          ps, D, P, maxp, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype (of q, out and the pages): 0 = float32, 1 = bfloat16. Returns the
+// cudaError_t of the launch.
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, const void* block_tables,
                             const void* lengths, void* out, int B, int NH,
                             int KVH, int ps, int D, int P, int maxp,
                             float scale, int dtype, void* stream) {
-  if (B <= 0 || KVH <= 0 || NH % KVH != 0 || ps <= 0 || P <= 0 ||
-      maxp <= 0 || D % 8 != 0 || D <= 0 || D > 128 ||
-      (NH / KVH) * D > MAXO * THREADS) {
-    return cudaErrorInvalidValue;
-  }
-  const dim3 grid(KVH, B);
-  const size_t smem = smem_bytes(NH / KVH, D);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* ln = static_cast<const int*>(lengths);
+  if (bad_shape(B, NH, KVH, ps, D, P, maxp)) return cudaErrorInvalidValue;
   if (dtype == 0) {
-    paged_decode_kernel<float><<<grid, THREADS, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_pages),
-        static_cast<const float*>(v_pages), bt, ln, static_cast<float*>(out),
-        NH, KVH, ps, D, P, maxp, scale);
-  } else if (dtype == 1) {
-    paged_decode_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k_pages),
-        static_cast<const __nv_bfloat16*>(v_pages), bt, ln,
-        static_cast<__nv_bfloat16*>(out), NH, KVH, ps, D, P, maxp, scale);
-  } else {
-    return cudaErrorInvalidValue;
+    return launch<float, float>(q, k_pages, v_pages, nullptr, nullptr,
+                                block_tables, lengths, out, B, NH, KVH, ps,
+                                D, P, maxp, scale, stream);
   }
-  return cudaGetLastError();
+  if (dtype == 1) {
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, block_tables, lengths, out,
+        B, NH, KVH, ps, D, P, maxp, scale, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// int8 pages (codes) with float32 k_scales / v_scales [P, KVH]; dtype is
+// that of q and out: 0 = float32, 1 = bfloat16. Same clamping, masking and
+// zero-row contract as paged_decode.
+extern "C" int paged_decode_int8(const void* q, const void* k_codes,
+                                 const void* v_codes, const void* k_scales,
+                                 const void* v_scales,
+                                 const void* block_tables,
+                                 const void* lengths, void* out, int B,
+                                 int NH, int KVH, int ps, int D, int P,
+                                 int maxp, float scale, int dtype,
+                                 void* stream) {
+  if (bad_shape(B, NH, KVH, ps, D, P, maxp)) return cudaErrorInvalidValue;
+  const float* ksc = static_cast<const float*>(k_scales);
+  const float* vsc = static_cast<const float*>(v_scales);
+  if (dtype == 0) {
+    return launch<float, int8_t>(q, k_codes, v_codes, ksc, vsc,
+                                 block_tables, lengths, out, B, NH, KVH, ps,
+                                 D, P, maxp, scale, stream);
+  }
+  if (dtype == 1) {
+    return launch<__nv_bfloat16, int8_t>(q, k_codes, v_codes, ksc, vsc,
+                                         block_tables, lengths, out, B, NH,
+                                         KVH, ps, D, P, maxp, scale, stream);
+  }
+  return cudaErrorInvalidValue;
 }

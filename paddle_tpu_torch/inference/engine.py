@@ -5,9 +5,14 @@ The scheduler is the reference's with every ``FLAGS_serving_*`` option
 at its default (off): FIFO admission with a page watermark, same-bucket
 grouped prefill padded to a power-of-two page count and group size,
 chunked decode over a fixed slot grid, recompute preemption of the
-youngest request when the page pool runs out, and slot compaction. The
-prefix cache, speculative decode, int8 KV, deadlines, overload policies,
-failover and the monitor planes are not ported.
+youngest request when the page pool runs out, and slot compaction.
+``kv_quant=True`` stores int8 KV pages with one float32 scale per
+(page, kv head), the reference's ``FLAGS_serving_kv_quant`` (the port
+has no flags registry: the option is given to the constructor).
+``params`` may also be a weight-only-quantized tree
+(``models.llama.quantize_weights``). The prefix cache, speculative
+decode, deadlines, overload policies, failover and the monitor planes
+are not ported.
 
 Where the reference jits one program per chunk, ``_decode_chunk`` is a
 Python loop over ``chunk`` decode steps; the pool is updated in place.
@@ -33,6 +38,10 @@ __all__ = ["Request", "RequestOutput", "RequestRejected", "EngineStats",
            "ServingEngine"]
 
 PAGED_DEFAULT_PAGE = 16
+# the reference's page-size floor for int8 pools (kernels/autotune.py
+# paged_candidates(kv_quant=True)[0]); the CUDA int8 arm takes any page
+# size, so this is the default only
+PAGED_QUANT_PAGE = 32
 
 
 class RequestRejected(E.InvalidArgumentError):
@@ -160,14 +169,19 @@ class ServingEngine:
     ``family`` is a model module exposing the decoder seam
     (``models.llama``); ``params`` its parameter dict, already on
     ``device``. ``device=None`` means the CUDA card and raises without
-    one; pass ``device="cpu"`` for the plain versions on the CPU."""
+    one; pass ``device="cpu"`` for the plain versions on the CPU.
+
+    ``kv_quant`` stores the KV pages as int8 codes with per-(page, kv
+    head) float32 scales (about half the bytes of bfloat16 pages), and
+    decodes through the int8 arm of the paged kernel. ``page_size=None``
+    is 32 with ``kv_quant``, else 16."""
 
     def __init__(self, family, params, config, *, num_slots: int = 8,
                  max_len: Optional[int] = None,
-                 page_size: int = PAGED_DEFAULT_PAGE,
+                 page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  decode_chunk: int = 4, watermark: float = 0.0,
-                 device=None):
+                 kv_quant: bool = False, device=None):
         self.device = resolve_device(device)
         E.enforce(params["embed"].device == self.device,
                   f"params lie on {params['embed'].device}, the engine "
@@ -180,6 +194,10 @@ class ServingEngine:
         E.enforce(self.decode_chunk >= 1, "decode_chunk must be >= 1")
         max_len = int(max_len if max_len is not None
                       else config.max_position_embeddings)
+        self.kv_quant = bool(kv_quant)
+        if page_size is None:
+            page_size = PAGED_QUANT_PAGE if self.kv_quant \
+                else PAGED_DEFAULT_PAGE
         self.page_size = int(page_size)
         self.max_len = -(-max_len // self.page_size) * self.page_size
         self.max_pages_per_seq = self.max_len // self.page_size
@@ -191,7 +209,7 @@ class ServingEngine:
         self.watermark_pages = int(watermark * num_pages)
         self.cache = PagedKVCache(config, num_pages, self.page_size,
                                   self.max_pages_per_seq, config.dtype,
-                                  self.device)
+                                  self.device, kv_quant=self.kv_quant)
         self.queue: deque = deque()
         self.slots: List[Optional[_Slot]] = [None] * self.num_slots
         self.outputs: Dict[int, RequestOutput] = {}

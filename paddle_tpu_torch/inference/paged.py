@@ -1,6 +1,6 @@
 """Paged KV cache: page-pool tensors, block-table allocator and the paged
-prefill/decode data plane (port of ``paddle_tpu/inference/paged.py``,
-full-precision pools; the prefix cache and the int8 pool are not ported).
+prefill/decode data plane (port of ``paddle_tpu/inference/paged.py``;
+full-precision and int8 pools; the prefix cache is not ported).
 
 - ``PageAllocator``: host-side free list and ref-counted pages per
   sequence; plain Python and numpy, never touches the device.
@@ -16,6 +16,14 @@ pool arrays, the port updates the pool tensors in place
 (``index_copy_`` / ``index_put_``), and selects the non-sentinel rows
 before each write, since torch raises on an out-of-range index where
 JAX's ``mode="drop"`` drops it.
+
+With ``kv_quant`` (the reference's ``FLAGS_serving_kv_quant``) each pool
+leaf is the pair ``{"q": int8 [L, P, kv, ps, hd], "s": float32 [L, P,
+kv]}``: int8 codes and one scale per (page, kv head), the absmax / 127 of
+that page's values at its last write. Code and scale rows share the page
+axis, so every page-granular operation (copy-on-write, scatter with
+drop) moves them together; a page never written has scale 0 and
+dequantizes to 0.
 """
 from __future__ import annotations
 
@@ -175,14 +183,36 @@ class PageAllocator:
 
 
 def init_pool(config, num_pages: int, page_size: int, dtype=None,
-              device=None) -> dict:
+              device=None, kv_quant: bool = False) -> dict:
     """Zeroed page pools, one ``[P, kv, ps, hd]`` grid per layer, stacked
-    on a leading layer axis."""
+    on a leading layer axis; with ``kv_quant`` each leaf is the ``{"q":
+    int8 codes, "s": float32 [L, P, kv] scales}`` pair."""
     dt = dtype if dtype is not None else config.dtype
     shape = (config.num_hidden_layers, num_pages,
              config.num_key_value_heads, page_size, config.head_dim)
+    if kv_quant:
+        def leaf():
+            return {"q": torch.zeros(shape, dtype=torch.int8,
+                                     device=device),
+                    "s": torch.zeros(shape[:3], dtype=torch.float32,
+                                     device=device)}
+        return {"k": leaf(), "v": leaf()}
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _layer_leaf(pool_leaf, i):
+    """Layer ``i`` of a pool leaf: a ``[P, kv, ps, hd]`` tensor, or the
+    ``{"q", "s"}`` pair of it."""
+    if isinstance(pool_leaf, dict):
+        return {k: v[i] for k, v in pool_leaf.items()}
+    return pool_leaf[i]
+
+
+def _pool_tensors(pool):
+    """Every tensor of a pool: the plain leaves, or codes and scales."""
+    for leaf in pool.values():
+        yield from (leaf.values() if isinstance(leaf, dict) else (leaf,))
 
 
 class PagedKVCache:
@@ -190,18 +220,28 @@ class PagedKVCache:
     (``.alloc``): the serving engine's cache object."""
 
     def __init__(self, config, num_pages: int, page_size: int,
-                 max_pages_per_seq: int, dtype=None, device=None):
+                 max_pages_per_seq: int, dtype=None, device=None,
+                 kv_quant: bool = False):
         self.page_size = int(page_size)
         self.num_pages = int(num_pages)
         self.max_pages_per_seq = int(max_pages_per_seq)
-        self.pool = init_pool(config, num_pages, page_size, dtype, device)
+        self.kv_quant = bool(kv_quant)
+        self.pool = init_pool(config, num_pages, page_size, dtype, device,
+                              kv_quant=self.kv_quant)
         self.alloc = PageAllocator(num_pages, page_size, max_pages_per_seq)
 
+    def pool_bytes(self) -> int:
+        """Device bytes of the whole pool (codes and scales included)."""
+        return sum(t.numel() * t.element_size()
+                   for t in _pool_tensors(self.pool))
+
     def apply_cow(self, pairs):
-        """Mirror allocator copy-on-write decisions onto the pool."""
+        """Mirror allocator copy-on-write decisions onto the pool (codes
+        and scale rows of a quantized pool together: both have the page
+        on axis 1)."""
         for src, dst in pairs:
-            for leaf in self.pool.values():
-                leaf[:, dst] = leaf[:, src]
+            for t in _pool_tensors(self.pool):
+                t[:, dst] = t[:, src]
 
     def block_tables(self, seq_ids, width: Optional[int] = None
                      ) -> np.ndarray:
@@ -215,20 +255,60 @@ class PagedKVCache:
         return rows
 
 
+# int8 KV code range (the reference's _KV_QMAX): scales are per-page per-kv
+# head write-time absmax / 127, symmetric, round half to even
+_KV_QMAX = 127.0
+
+
+def _kv_quantize(xf, s):
+    """int8 codes of float32 values under broadcastable scales ``s``."""
+    return torch.clamp(torch.round(xf / torch.clamp(s, min=1e-10)),
+                       -_KV_QMAX, _KV_QMAX).to(torch.int8)
+
+
 def _kv_pool_write(leaf, pages, page_rows):
     """Write whole-page grids ``pages`` ``[G, npad, kv, ps, hd]`` into one
     layer's pool ``leaf`` ``[P, kv, ps, hd]`` at ``page_rows`` ``[G,
-    npad]``; sentinel rows (``>= P``) are dropped."""
-    P = leaf.shape[0]
+    npad]``; sentinel rows (``>= P``) are dropped. A quantized leaf (the
+    ``{"q", "s"}`` pair) takes each page's own absmax over ``(ps, hd)``
+    per kv head as its scale (a prompt's padding positions in its last
+    page count, as in the reference) and the codes under it."""
+    quant = isinstance(leaf, dict)
+    P = (leaf["q"] if quant else leaf).shape[0]
     rows = page_rows.reshape(-1)
     keep = torch.nonzero(rows < P).squeeze(1)
-    leaf.index_copy_(0, rows[keep],
-                     pages.reshape(-1, *pages.shape[2:])[keep].to(leaf.dtype))
+    rows = rows[keep]
+    pages = pages.reshape(-1, *pages.shape[2:])[keep]
+    if quant:
+        xf = pages.float()
+        s = xf.abs().amax(dim=(-2, -1)) / _KV_QMAX
+        leaf["q"].index_copy_(0, rows, _kv_quantize(xf, s[..., None, None]))
+        leaf["s"].index_copy_(0, rows, s)
+        return
+    leaf.index_copy_(0, rows, pages.to(leaf.dtype))
 
 
 def _kv_page_append(leaf, rows, off, val):
     """Write one token's ``[n, kv, hd]`` values at slot ``off`` of pages
-    ``rows`` (the decode-step write; callers pass only live rows)."""
+    ``rows`` (the decode-step write; callers pass only live rows). A
+    quantized leaf rescales the whole touched page, as the reference
+    does: gather and dequantize it, zero the slots after ``off`` (a
+    reused page's stale codes must not inflate the scale), insert the
+    token, requantize under the page's new absmax (committed slots are
+    rounded again) and write codes and scale row."""
+    if isinstance(leaf, dict):
+        n, kv = val.shape[0], val.shape[1]
+        ps = leaf["q"].shape[2]
+        page = (leaf["q"][rows].float()
+                * leaf["s"][rows][..., None, None])    # [n, kv, ps, hd]
+        keep = (torch.arange(ps, device=page.device)[None, None, :, None]
+                <= off[:, None, None, None])
+        page = torch.where(keep, page, 0.0)
+        page[torch.arange(n, device=page.device), :, off] = val.float()
+        s = page.abs().amax(dim=(-2, -1)) / _KV_QMAX
+        leaf["q"][rows] = _kv_quantize(page, s[..., None, None])
+        leaf["s"][rows] = s
+        return
     kvi = torch.arange(leaf.shape[1], device=leaf.device)
     leaf.index_put_((rows[:, None], kvi[None, :], off[:, None]),
                     val.to(leaf.dtype))
@@ -240,11 +320,12 @@ def paged_prefill(family, params, ids, config, pool_k, pool_v, page_rows,
     multiple; rows are independent requests): writes every covered page
     of K/V into ``page_rows`` ``[G, S_pad / ps]`` (sentinel rows drop;
     an all-sentinel row is a group-padding dummy) and returns the logits
-    ``[G, V]`` at each row's position ``slen[g] - 1``. Pools are updated
-    in place."""
+    ``[G, V]`` at each row's position ``slen[g] - 1``. Pools (plain or
+    quantized leaves) are updated in place."""
     c = config
     G, S = ids.shape
-    L, P, kv, ps, hd = pool_k.shape
+    L, P, kv, ps, hd = (pool_k["q"] if isinstance(pool_k, dict)
+                        else pool_k).shape
     E.enforce(S % ps == 0, f"padded prompt {S} not a multiple of "
               f"page_size {ps}")
     npad = S // ps
@@ -261,10 +342,12 @@ def paged_prefill(family, params, ids, config, pool_k, pool_v, page_rows,
         x = x + _mm(a.to(x.dtype), lp["wo"])
         x = family.decode_mlp(x, lp, c)
         # [G, S, kv, hd] -> [G, npad, kv, ps, hd] page grids
-        _kv_pool_write(pool_k[i], k.reshape(G, npad, ps, kv, hd)
-                       .transpose(2, 3), page_rows)
-        _kv_pool_write(pool_v[i], v.reshape(G, npad, ps, kv, hd)
-                       .transpose(2, 3), page_rows)
+        _kv_pool_write(_layer_leaf(pool_k, i),
+                       k.reshape(G, npad, ps, kv, hd).transpose(2, 3),
+                       page_rows)
+        _kv_pool_write(_layer_leaf(pool_v, i),
+                       v.reshape(G, npad, ps, kv, hd).transpose(2, 3),
+                       page_rows)
     x = _rms(x, params["ln_f"], c.rms_norm_eps)
     last = (slen.long() - 1).clamp(min=0)
     x = x[torch.arange(G, device=x.device), last]
@@ -277,11 +360,13 @@ def paged_decode_step(family, params, pool_k, pool_v, block_tables,
     position ``lengths - 1`` of their sequences (``lengths`` int32 is the
     valid KV count including each new token; 0 marks an inactive slot,
     whose write is dropped and whose logits row is garbage the caller
-    masks). ``block_tables`` is int32 ``[B, maxp]``. Pools are updated in
-    place; returns the logits ``[B, V]``."""
+    masks). ``block_tables`` is int32 ``[B, maxp]``. Pools (plain or
+    quantized leaves) are updated in place; returns the logits ``[B,
+    V]``."""
     c = config
     B = tokens.shape[0]
-    L, P, kv, ps, hd = pool_k.shape
+    quant = isinstance(pool_k, dict)
+    L, P, kv, ps, hd = (pool_k["q"] if quant else pool_k).shape
     n = lengths
     posw = (n.long() - 1).clamp(min=0)                 # [B] write position
     x = params["embed"][tokens][:, None, :]
@@ -304,10 +389,16 @@ def paged_decode_step(family, params, pool_k, pool_v, block_tables,
         q, k, v = _qkv_proj(h, lp, c)
         q = rope_raw(q, cos, sin)
         k = rope_raw(k, cos, sin)
-        _kv_page_append(pool_k[i], rows_l, off_l, k[live, 0])
-        _kv_page_append(pool_v[i], rows_l, off_l, v[live, 0])
-        a = dispatched_paged_attention(q[:, 0].contiguous(), pool_k[i],
-                                       pool_v[i], block_tables, n)
+        kpl, vpl = _layer_leaf(pool_k, i), _layer_leaf(pool_v, i)
+        _kv_page_append(kpl, rows_l, off_l, k[live, 0])
+        _kv_page_append(vpl, rows_l, off_l, v[live, 0])
+        if quant:
+            a = dispatched_paged_attention(
+                q[:, 0].contiguous(), kpl["q"], vpl["q"], block_tables, n,
+                k_scales=kpl["s"], v_scales=vpl["s"])
+        else:
+            a = dispatched_paged_attention(q[:, 0].contiguous(), kpl, vpl,
+                                           block_tables, n)
         x = x + _mm(a.reshape(B, 1, -1).to(x.dtype), lp["wo"])
         x = family.decode_mlp(x, lp, c)
     x = _rms(x, params["ln_f"], c.rms_norm_eps)

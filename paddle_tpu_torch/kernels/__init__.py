@@ -9,7 +9,9 @@ tensors; there is no fallback from the card to the plain version:
 - ``flash_attention.flash_attention_bwd``: ``csrc/flash_bwd.cu``;
 - ``flash_attention.flash_attention_segments_fwd`` / ``_bwd``: the
   segment (sequence-packed) entries of the same two sources;
-- ``paged_attention.ragged_paged_attention``: ``csrc/paged_decode.cu``.
+- ``paged_attention.ragged_paged_attention``: ``csrc/paged_decode.cu``
+  (entries ``paged_decode``, and ``paged_decode_int8`` for int8 pages
+  with per-(page, kv head) scales).
 
 ``fused_ce`` is plain PyTorch on every device, as the reference's is
 plain ``lax.scan`` code. The launch counters mirror the reference's
@@ -24,7 +26,8 @@ from ._stats import DISPATCH_STATS as _DISPATCH_STATS
 # the TPU; the port has no autotune cache
 CE_DEFAULT_CHUNK = 4096
 
-# the decode seam inference/paged.py calls (the reference's name)
+# the decode seam inference/paged.py calls (the reference's name); it
+# takes k_scales / v_scales for int8 pages, counted paged_quant[_ref]
 dispatched_paged_attention = paged_attention.ragged_paged_attention
 
 __all__ = ["flash_attention", "fused_ce", "paged_attention",
@@ -48,7 +51,8 @@ def dispatched_fused_ce(x, head, labels, *, vocab_chunk=None,
                         reduction="mean", ignore_index=-100):
     """Blockwise cross entropy, counted: a shape it does not take falls
     back to the materialising cross entropy (the same math, ignore_index
-    masking and valid-count mean included). ``vocab_chunk=None`` is
+    masking and valid-count mean included) over float32 logits, as the
+    reference's ``preferred_element_type``. ``vocab_chunk=None`` is
     ``CE_DEFAULT_CHUNK``; an explicit int is taken as given."""
     if fused_ce.supported(x, head, labels):
         _DISPATCH_STATS["fused_ce"] += 1
@@ -58,7 +62,7 @@ def dispatched_fused_ce(x, head, labels, *, vocab_chunk=None,
             else vocab_chunk,
             reduction=reduction, ignore_index=ignore_index)
     _DISPATCH_STATS["fused_ce_fallback"] += 1
-    logits = (x @ head.t()).float()
+    logits = fused_ce._mm_f32(x, head.t())
     return fused_ce.masked_xent_from_logits(
         logits, labels, ignore_index=ignore_index, reduction=reduction)
 

@@ -1,12 +1,13 @@
 """Launch counters of the port's kernels (mirror of the reference's
 ``_DISPATCH_STATS``, ``paddle_tpu/kernels/__init__.py:50``).
 
-``flash`` / ``flash_bwd`` / ``varlen`` / ``varlen_bwd`` / ``paged`` count
-CUDA kernel launches, one per wrapper call that launches, added by the
-wrapper right where it launches (a backward's dq / dkv pair counts as
-one; ``varlen*`` are the segment-masked, sequence-packed kernels, the
-reference's names); ``flash_ref`` / ``flash_bwd_ref`` / ``varlen_ref`` /
-``varlen_bwd_ref`` / ``paged_ref`` count calls that took the plain
+``flash`` / ``flash_bwd`` / ``varlen`` / ``varlen_bwd`` / ``paged`` /
+``paged_quant`` count CUDA kernel launches, one per wrapper call that
+launches, added by the wrapper right where it launches (a backward's
+dq / dkv pair counts as one; ``varlen*`` are the segment-masked, sequence-packed kernels, the
+reference's names; ``paged_quant`` is the decode kernel's int8 arm);
+``flash_ref`` / ``flash_bwd_ref`` / ``varlen_ref`` / ``varlen_bwd_ref`` /
+``paged_ref`` / ``paged_quant_ref`` count calls that took the plain
 PyTorch version because the tensors lay on the CPU.
 ``fused_ce`` / ``fused_ce_fallback`` count losses that took the blockwise
 cross entropy or, for a shape it does not take, the materialising one
@@ -18,4 +19,5 @@ DISPATCH_STATS = {"flash": 0, "flash_ref": 0,
                   "varlen": 0, "varlen_ref": 0,
                   "varlen_bwd": 0, "varlen_bwd_ref": 0,
                   "paged": 0, "paged_ref": 0,
+                  "paged_quant": 0, "paged_quant_ref": 0,
                   "fused_ce": 0, "fused_ce_fallback": 0}

@@ -51,12 +51,42 @@ def supported(x, head, labels) -> bool:
             and tuple(labels.shape) == tuple(x.shape[:-1]))
 
 
-def _mm_f32(a, b):
-    """``a @ b`` of 2D tensors, summed and returned in float32."""
-    if a.dtype == torch.float32:
-        return a @ b
-    if a.is_cuda:
+class _MmF32(torch.autograd.Function):
+    """``a [N, K] @ b [K, M]`` of two CUDA tensors of one 16-bit type,
+    summed and returned in float32 (cuBLAS, float32 output). PyTorch's
+    ``mm`` with ``out_dtype`` has no derivative, so this gives it one:
+    the float32 cotangent is rounded once to the operands' type, as the
+    blockwise loss rounds ``d_logits``, and each gradient is summed in
+    float32 and rounded once to its operand's type."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
         return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.mm(g, b.t(), out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.mm(a.t(), g, out_dtype=torch.float32).to(b.dtype)
+        return da, db
+
+
+def _mm_f32(a, b):
+    """``a [..., K] @ b [K, M]`` summed and returned in float32, never
+    rounded to a 16-bit type: the reference's
+    ``preferred_element_type=float32``. Float32 operands take a plain
+    product; 16-bit ones take cuBLAS with a float32 output on the card
+    (differentiable, ``_MmF32``) and float32 copies on the CPU."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda and a.dtype == b.dtype:
+        out = _MmF32.apply(a.reshape(-1, a.shape[-1]), b)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
     return a.float() @ b.float()
 
 

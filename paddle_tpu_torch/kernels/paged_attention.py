@@ -1,5 +1,6 @@
 """Ragged paged decode attention (port of
-``paddle_tpu/kernels/paged_attention.py``, full-precision arm).
+``paddle_tpu/kernels/paged_attention.py``: the full-precision arm and
+the int8 arm).
 
 ``ragged_paged_attention`` is the wrapper of the hand-written CUDA kernel
 ``csrc/paged_decode.cu``, which replaces the reference's Pallas
@@ -11,6 +12,11 @@ sequence); pages ``[num_pages, kv_heads, page_size, head_dim]``;
 block_tables int32 ``[B, max_pages]`` (entries past a sequence's pages
 may hold anything: they are clamped and masked); lengths int32 ``[B]``
 (0 marks an empty slot and gives a zero row).
+
+The int8 arm (the reference's ``FLAGS_serving_kv_quant``): pages hold
+int8 codes and ``k_scales`` / ``v_scales`` float32 ``[num_pages,
+kv_heads]`` carry one scale per (page, kv head); a key or value is
+``code * scale``. Both or neither are given, and only with int8 pages.
 """
 from __future__ import annotations
 
@@ -30,10 +36,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
-                        scale=None):
+                        scale=None, k_scales=None, v_scales=None):
     """Gather-based plain version, the math of the reference's
     ``paged_attention_ref`` (float32 softmax; an empty sequence yields a
-    zero row, never NaN)."""
+    zero row, never NaN). With ``k_scales`` / ``v_scales`` the gathered
+    int8 codes are dequantized in float32 (``code * scale``) before the
+    same math."""
     B, nh, hd = q.shape
     P, kv, ps, _ = k_pages.shape
     maxp = block_tables.shape[1]
@@ -43,6 +51,9 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     bt = block_tables.clamp(0, P - 1).reshape(-1).long()
     kf = k_pages[bt].reshape(B, maxp, kv, ps, hd).float()
     vf = v_pages[bt].reshape(B, maxp, kv, ps, hd).float()
+    if k_scales is not None:
+        kf = kf * k_scales[bt].reshape(B, maxp, kv, 1, 1).float()
+        vf = vf * v_scales[bt].reshape(B, maxp, kv, 1, 1).float()
     qf = q.float().reshape(B, kv, g, hd)
     s = torch.einsum("bkgd,bmkpd->bkgmp", qf, kf) * scale
     pos = (torch.arange(maxp, device=q.device)[:, None] * ps
@@ -58,43 +69,65 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     return out.reshape(B, nh, hd).to(q.dtype)
 
 
-def supported(q, k_pages, block_tables) -> bool:
-    """Whether the CUDA kernel takes these shapes and types."""
+def supported(q, k_pages, block_tables, quant: bool = False) -> bool:
+    """Whether the CUDA kernel takes these shapes and types. ``quant``
+    marks the int8 arm (scale planes present): it takes int8 pages only,
+    and int8 pages need it. Any page size the full-precision arm takes
+    (the reference's ``ps % 32`` is the TPU's int8 sublane tile; the
+    CUDA arm has no such rule)."""
     if q.ndim != 3 or k_pages.ndim != 4 or block_tables.ndim != 2:
         return False
     B, nh, hd = q.shape
     P, kv, ps, hd2 = k_pages.shape
+    page_ok = (k_pages.dtype == torch.int8 if quant
+               else k_pages.dtype == q.dtype)
     return (hd == hd2 and kv >= 1 and nh % kv == 0 and hd % 8 == 0
             and hd <= 128 and (nh // kv) * hd <= 1024 and P >= 1
             and ps >= 1 and block_tables.shape[0] == B
             and block_tables.shape[1] >= 1
-            and q.dtype in _DTYPES and k_pages.dtype == q.dtype)
+            and q.dtype in _DTYPES and page_ok)
 
 
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
-                           scale=None):
+                           scale=None, k_scales=None, v_scales=None):
     """Paged decode attention ``[B, num_heads, head_dim]``: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors (the int8 arm when ``k_scales`` / ``v_scales`` are
+    given), the plain version for CPU tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    quant = k_scales is not None
+    E.enforce(quant == (v_scales is not None),
+              "ragged_paged_attention: give both k_scales and v_scales, "
+              "or neither", error=E.InvalidArgumentError)
+    arm = "paged_quant" if quant else "paged"
     if q.device.type == "cpu":
-        DISPATCH_STATS["paged_ref"] += 1
+        DISPATCH_STATS[arm + "_ref"] += 1
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                   lengths, scale=scale)
-    tensors = (q, k_pages, v_pages, block_tables, lengths)
+                                   lengths, scale=scale, k_scales=k_scales,
+                                   v_scales=v_scales)
+    tensors = (q, k_pages, v_pages, block_tables, lengths) + (
+        (k_scales, v_scales) if quant else ())
     E.enforce(all(t.device == q.device for t in tensors),
               "ragged_paged_attention: every tensor must lie on "
               f"{q.device}", error=E.InvalidArgumentError)
-    E.enforce(supported(q, k_pages, block_tables)
+    E.enforce(supported(q, k_pages, block_tables, quant=quant)
               and v_pages.shape == k_pages.shape
               and v_pages.dtype == k_pages.dtype
               and lengths.shape == (q.shape[0],),
               f"ragged_paged_attention: the CUDA kernel does not take q "
               f"{tuple(q.shape)} {q.dtype}, pages {tuple(k_pages.shape)} "
-              f"{k_pages.dtype}, block_tables {tuple(block_tables.shape)} "
-              f"(needs head_dim % 8 == 0, head_dim <= 128, group * "
-              f"head_dim <= 1024, float32 or bfloat16)",
-              error=E.InvalidArgumentError)
+              f"{k_pages.dtype}, block_tables {tuple(block_tables.shape)}"
+              f"{', scales' if quant else ', no scales'} (needs head_dim "
+              f"% 8 == 0, head_dim <= 128, group * head_dim <= 1024, q "
+              f"float32 or bfloat16, pages of q's type without scales or "
+              f"int8 with them)", error=E.InvalidArgumentError)
+    if quant:
+        E.enforce(all(t.dtype == torch.float32
+                      and tuple(t.shape) == tuple(k_pages.shape[:2])
+                      for t in (k_scales, v_scales)),
+                  f"ragged_paged_attention: scales must be float32 "
+                  f"{tuple(k_pages.shape[:2])} (one per page and kv "
+                  f"head)", error=E.InvalidArgumentError)
     E.enforce(block_tables.dtype == torch.int32
               and lengths.dtype == torch.int32,
               "ragged_paged_attention: block_tables and lengths must be "
@@ -107,14 +140,23 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     B, nh, hd = q.shape
     P, kv, ps, _ = k_pages.shape
     out = torch.empty_like(q)
-    err = lib.paged_decode(q.data_ptr(), k_pages.data_ptr(),
-                           v_pages.data_ptr(), block_tables.data_ptr(),
-                           lengths.data_ptr(), out.data_ptr(), B, nh, kv,
-                           ps, hd, P, block_tables.shape[1], float(scale),
-                           _DTYPES[q.dtype],
-                           torch.cuda.current_stream(q.device).cuda_stream)
-    DISPATCH_STATS["paged"] += 1
-    _build.check_launch("paged_decode", err)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if quant:
+        err = lib.paged_decode_int8(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
+            nh, kv, ps, hd, P, block_tables.shape[1], float(scale),
+            _DTYPES[q.dtype], stream)
+    else:
+        err = lib.paged_decode(q.data_ptr(), k_pages.data_ptr(),
+                               v_pages.data_ptr(), block_tables.data_ptr(),
+                               lengths.data_ptr(), out.data_ptr(), B, nh,
+                               kv, ps, hd, P, block_tables.shape[1],
+                               float(scale), _DTYPES[q.dtype], stream)
+    DISPATCH_STATS[arm] += 1
+    _build.check_launch("paged_decode_int8" if quant else "paged_decode",
+                        err)
     return out
 
 
@@ -125,4 +167,7 @@ def _lib():
         lib.paged_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
                                      ctypes.c_float, i, p]
         lib.paged_decode.restype = ctypes.c_int
+        lib.paged_decode_int8.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                          i, i, i, i, ctypes.c_float, i, p]
+        lib.paged_decode_int8.restype = ctypes.c_int
     return lib

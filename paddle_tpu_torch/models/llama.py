@@ -8,6 +8,11 @@ over through numpy without transposes (``params_from_numpy``). The layer
 loop is a Python loop over the stacked axis, each layer under
 ``torch.utils.checkpoint`` when the config asks for remat.
 
+Serving also takes the weight-only-quantized tree of ``quantize_weights``
+(int8 or packed int4 codes with float32 per-output-channel scales):
+``_mm`` and ``_head_logits`` dequantize each such weight in plain
+PyTorch before its product, as the reference leaves both to XLA.
+
 Training: ``loss_fn`` (blockwise cross entropy), ``adamw_init`` /
 ``_adamw_update`` (the reference's AdamW math) and ``make_train_step``,
 which updates the parameters in place (the counterpart of donation).
@@ -28,12 +33,15 @@ from torch.utils.checkpoint import (checkpoint,
 
 from ..core import enforce as E
 from ..core import resolve_device
+from ..kernels.fused_ce import _mm_f32
 from ..nn.functional.attention import gather_rope_rows, rope_raw
 from ..nn.functional.attention import rope_tables as _rope_tables
 from ..nn.functional.attention import sdpa_raw
 
 __all__ = ["LlamaConfig", "llama_tiny", "llama_3_8b", "init_params",
-           "params_from_numpy", "forward_hidden", "forward", "decode_mlp",
+           "params_from_numpy", "quant_int8", "quant_packed",
+           "unpack_int4", "quantize_weights", "forward_hidden", "forward",
+           "decode_mlp",
            "remat_policy", "unpack_batch", "loss_fn", "count_params",
            "loss_and_grads", "adamw_init", "make_train_step"]
 
@@ -131,12 +139,14 @@ def params_from_numpy(tree, device=None, dtype=None):
     numpy (``jax.tree.map(np.asarray, params)``). A bfloat16 leaf arrives
     as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
     refuses; it goes through float32 (lossless) and back to bfloat16.
-    ``dtype`` casts every floating leaf; ``None`` keeps the source type."""
+    ``dtype`` casts every floating leaf; ``None`` keeps the source type.
+    A weight-only-quantized tree (``quantize_weights``) keeps its int8
+    codes and its float32 scales as they are."""
     dev = resolve_device(device)
 
-    def leaf(a):
+    def leaf(a, cast=True):
         a = np.asarray(a)
-        want = dtype
+        want = dtype if cast else None
         if a.dtype.name == "bfloat16":
             a = a.astype(np.float32)
             want = want or torch.bfloat16
@@ -147,7 +157,9 @@ def params_from_numpy(tree, device=None, dtype=None):
 
     def walk(node):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            quant = "s" in node and ("q" in node or "q4" in node)
+            return {k: leaf(v, cast=not quant) if quant else walk(v)
+                    for k, v in node.items()}
         return leaf(node)
 
     return walk(tree)
@@ -159,15 +171,105 @@ def _rms(x, w, eps):
     return (y * w.float()).to(x.dtype)
 
 
+def _dequant(w, in_axis: int, dtype):
+    """A weight-only-quantized leaf (``{"q": int8, "s"}`` or ``{"q4":
+    int8 nibble pairs, "s"}``) as a dense weight in ``dtype``: the
+    reference's ordering, an f32 multiply ``q * s`` and ONE cast. The
+    scale is per output channel; ``in_axis`` is the contraction axis of
+    the codes.
+
+    One elementwise pass: ``mul`` takes the product in the inputs'
+    common type (float32) and rounds it once to ``dtype`` on store, the
+    numbers of ``(q.float() * s).to(dtype)`` without its two float32
+    temporaries (a third of the device-memory traffic)."""
+    q = unpack_int4(w["q4"], in_axis) if "q4" in w else w["q"]
+    s = w["s"].unsqueeze(in_axis % q.ndim)
+    return torch.mul(q, s, out=torch.empty(q.shape, dtype=dtype,
+                                           device=q.device))
+
+
 def _mm(x, w):
-    """Matmul against a plain ``[in, out]`` weight."""
+    """Matmul against a plain ``[in, out]`` weight or its weight-only
+    form ``{"q"|"q4", "s": f32 [out]}`` (dequantized in plain PyTorch,
+    then the product, as the reference leaves both to XLA)."""
+    if isinstance(w, dict):
+        return x @ _dequant(w, -2, x.dtype)
     return x @ w
 
 
 def _head_logits(x2d, head):
-    """lm-head logits ``[.., V]`` in float32 from hidden ``[.., D]``; head
-    is ``[V, D]``."""
-    return (x2d @ head.t()).float()
+    """lm-head logits ``[.., V]`` from hidden ``[.., D]``; head is ``[V,
+    D]`` or its weight-only form ``{"q"|"q4", "s": f32 [V]}``. The
+    product is summed and returned in float32, never rounded to
+    bfloat16 (the reference's ``preferred_element_type=float32``)."""
+    if isinstance(head, dict):
+        head = _dequant(head, -1, x2d.dtype)
+    return _mm_f32(x2d, head.t())
+
+
+# -- weight-only quantization -------------------------------------------------
+
+def quant_int8(w, in_axis: int):
+    """Per-out-channel absmax int8 quantization of a (stacked) weight:
+    ``|w|`` reduced over ``in_axis`` (the contraction axis), scale
+    ``absmax / 127``, codes ``clamp(round(w / max(s, 1e-10)), ±127)``.
+    Returns ``{"q": int8, "s": f32}`` with the reduced axis dropped."""
+    return quant_packed(w, in_axis, "int8")
+
+
+def quant_packed(w, in_axis: int, weight_dtype: str = "int8"):
+    """``quant_int8`` over a code width: ``"int8"`` gives ``{"q", "s"}``;
+    ``"int4"`` takes scale ``absmax / 7`` and codes in ``[-8, 7]``, then
+    packs two codes along ``in_axis`` into one byte (even index in the
+    low nibble, odd in the high): ``{"q4": int8 with in_axis halved,
+    "s"}``. ``torch.round`` rounds half to even, as ``jnp.round``."""
+    E.enforce(weight_dtype in ("int8", "int4"),
+              f"weight-only serving supports int8 and packed int4, got "
+              f"{weight_dtype!r}", error=E.UnimplementedError)
+    in_axis = in_axis % w.ndim
+    qmax, qmin = (127.0, -127.0) if weight_dtype == "int8" else (7.0, -8.0)
+    wf = w.float()
+    s = wf.abs().amax(dim=in_axis, keepdim=True) / qmax
+    q = torch.clamp(torch.round(wf / torch.clamp(s, min=1e-10)),
+                    qmin, qmax).to(torch.int8)
+    s = s.squeeze(in_axis)
+    if weight_dtype == "int8":
+        return {"q": q, "s": s}
+    E.enforce(w.shape[in_axis] % 2 == 0,
+              f"int4 packing needs an even contraction dim, got "
+              f"{w.shape[in_axis]} on axis {in_axis} of "
+              f"{tuple(w.shape)}")
+    lead = (slice(None),) * in_axis
+    lo, hi = q[lead + (slice(0, None, 2),)], q[lead + (slice(1, None, 2),)]
+    return {"q4": (lo & 0x0F) | (hi << 4), "s": s}
+
+
+def unpack_int4(q4, in_axis: int):
+    """Inverse of ``quant_packed``'s nibble pack: both nibbles of each
+    byte sign-extended (arithmetic shifts) and re-interleaved along
+    ``in_axis``, which doubles; int8 codes in ``[-8, 7]``."""
+    in_axis = in_axis % q4.ndim
+    lo = (q4 << 4) >> 4
+    hi = q4 >> 4
+    shape = list(q4.shape)
+    shape[in_axis] *= 2
+    return torch.stack([lo, hi], dim=in_axis + 1).reshape(shape)
+
+
+def quantize_weights(params, weight_dtype: str = "int8"):
+    """Weight-only quantization of a parameter dict for serving: every
+    matmul weight (the per-layer attention and MLP matrices and the lm
+    head) becomes ``quant_packed`` of it over its contraction axis; the
+    norms and the embedding stay full precision (the embedding is
+    gathered, not multiplied; with tied embeddings it also serves the
+    head in full precision)."""
+    out = {"embed": params["embed"], "layers": {}, "ln_f": params["ln_f"]}
+    for name, w in params["layers"].items():
+        out["layers"][name] = w if name.startswith("ln") else \
+            quant_packed(w, 1, weight_dtype)
+    if "lm_head" in params:
+        out["lm_head"] = quant_packed(params["lm_head"], 1, weight_dtype)
+    return out
 
 
 def _qkv_proj(h, lp, config: LlamaConfig):
@@ -196,9 +298,17 @@ def decode_mlp(x, lp, config: LlamaConfig):
     return _ffn(x, lp, config)
 
 
-def layer(params, i: int) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s slice of the stacked weights (views, no copies)."""
-    return {k: w[i] for k, w in params["layers"].items()}
+def _slice(w, i):
+    """Layer ``i`` of a stacked leaf: a tensor or a weight-only dict."""
+    if isinstance(w, dict):
+        return {k: v[i] for k, v in w.items()}
+    return w[i]
+
+
+def layer(params, i: int) -> Dict[str, Any]:
+    """Layer ``i``'s slice of the stacked weights (views, no copies;
+    weight-only ``{"q"|"q4", "s"}`` leaves slice both parts)."""
+    return {k: _slice(w, i) for k, w in params["layers"].items()}
 
 
 def _block(x, lp, cos, sin, config: LlamaConfig, segment_ids=None,
@@ -256,7 +366,9 @@ def forward_hidden(params, ids, config: LlamaConfig, *, segment_ids=None,
     if positions is not None:
         # segment-local rope rows (sequence packing)
         cos, sin = gather_rope_rows(cos, sin, positions)
-    per_layer = {k: w.unbind(0) for k, w in params["layers"].items()}
+    per_layer = {k: w.unbind(0) if torch.is_tensor(w)
+                 else [_slice(w, i) for i in range(c.num_hidden_layers)]
+                 for k, w in params["layers"].items()}
     remat = c.remat and torch.is_grad_enabled()
     context_fn = remat_policy(c.remat_policy) if remat else None
     for i in range(c.num_hidden_layers):

@@ -8,11 +8,17 @@ widths, random bf16 weights, 8 slots) once to warm up and once under
 - host wall time of the run, split by the engine into prefill groups and
   decode chunks (each ends in a download, so it includes waiting for the
   card);
-- device time by kernel class (flash forward, paged decode, matrix
-  products, everything else), their launch counts, and the device busy
-  share (summed kernel time over wall time).
+- device time by kernel class (flash forward, paged decode and its int8
+  arm, matrix products, the dequantization of weight-only weights,
+  everything else), their launch counts, and the device busy share
+  (summed kernel time over wall time).
 
-Run from the repo root: ``python3 scripts/torch_serving_profile.py``.
+Run from the repo root: ``python3 scripts/torch_serving_profile.py``;
+``--kv-quant`` serves with int8 KV pages (``chip_smoke.py``'s
+``main_kvq``), and ``--weights int8`` (or ``int4``) with weight-only
+quantized weights as well (``main_wq``). The dequantization class is the
+device time of the kernels launched inside ``models.llama._dequant``,
+which this script wraps in a profiler range.
 """
 from __future__ import annotations
 
@@ -31,7 +37,9 @@ def _classify(name: str) -> str:
     if "flash_fwd_kernel" in n:
         return "flash_fwd"
     if "paged_decode_kernel" in n:
-        return "paged_decode"
+        # the int8 arm is the kernel instantiated on int8_t pages
+        return "paged_decode_int8" if ("signed char" in n or "int8" in n) \
+            else "paged_decode"
     if any(s in n for s in ("gemm", "gemv", "cutlass", "sm90_xmma",
                             "nvjet", "matmul")):
         return "matmul"
@@ -41,9 +49,13 @@ def _classify(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV pages (kv_quant=True)")
+    ap.add_argument("--weights", choices=("bf16", "int8", "int4"),
+                    default="bf16", help="weight-only quantized weights")
     args = ap.parse_args()
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     if not torch.cuda.is_available():
         print("no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -58,9 +70,19 @@ def main() -> int:
     _build.build_all()
     cfg = L.llama_3_8b(num_hidden_layers=args.layers)
     params = L.init_params(cfg, seed=0)
+    if args.weights != "bf16":
+        params = L.quantize_weights(params, args.weights)
+        torch.cuda.empty_cache()
+    dequant = L._dequant
+
+    def traced_dequant(*a, **kw):
+        with record_function("weight_dequant"):
+            return dequant(*a, **kw)
+    L._dequant = traced_dequant
 
     def serve():
-        eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048)
+        eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048,
+                            kv_quant=args.kv_quant)
         t0 = time.perf_counter()
         eng.run(_main_requests(cfg.vocab_size))
         torch.cuda.synchronize()
@@ -71,7 +93,8 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         eng, wall = serve()
     st = eng.stats
-    print(f"layers={args.layers} wall_s={wall:.4f} "
+    print(f"layers={args.layers} kv_quant={args.kv_quant} "
+          f"weights={args.weights} wall_s={wall:.4f} "
           f"prefill_s={st.prefill_s:.4f} decode_s={st.decode_s:.4f} "
           f"prefill_tokens={st.tokens_prefilled} "
           f"decode_tokens={st.tokens_decoded} "
@@ -85,6 +108,16 @@ def main() -> int:
         cls = _classify(evt.key)
         ms, n = by.get(cls, (0.0, 0))
         by[cls] = (ms + dt / 1e3, n + evt.count)
+    # the dequantization kernels, counted under the "other" class above,
+    # are moved to their own class by the range around them
+    for evt in prof.key_averages():
+        if evt.key == "weight_dequant":
+            ms = getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0)) / 1e3
+            if ms:
+                other_ms, other_n = by["other"]
+                by["other"] = (other_ms - ms, other_n)
+                by["weight_dequant"] = (ms, evt.count)
     busy = sum(ms for ms, _ in by.values())
     for cls, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0]):
         print(f"device class={cls} ms={ms:.3f} launches={n} "

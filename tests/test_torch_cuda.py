@@ -16,6 +16,7 @@ from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.kernels import flash_attention as FA
 from paddle_tpu_torch.kernels import fused_ce as CE
 from paddle_tpu_torch.kernels import paged_attention as PA
+from paddle_tpu_torch.models import llama as L
 from paddle_tpu_torch.nn.functional import attention as ATT
 
 pytestmark = pytest.mark.cuda
@@ -148,6 +149,99 @@ def test_paged_kernel_matches_plain(dev, dtype, tol):
     assert torch.all(out[0] == 0)
 
 
+def _int8_case(dev, ps, dtype, B=6, NH=8, KVH=2, D=64, P=30, seed=3):
+    """int8 codes and scales (pages 0 and 5 never written: scale 0),
+    lengths 0, 1, ps - 1, ps, ps + 1 and a full table, garbage and
+    sentinel entries past each sequence's pages."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    maxp = 4
+    q = torch.randn(B, NH, D, generator=g, device=dev).to(dtype)
+    kc, vc = (torch.randint(-127, 128, (P, KVH, ps, D), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (0.02 * torch.rand(P, KVH, generator=g, device=dev)
+              for _ in range(2))
+    ks[[0, 5]] = 0.0
+    vs[[0, 5]] = 0.0
+    lengths = [0, 1, ps - 1, ps, ps + 1, maxp * ps]
+    bt = torch.full((B, maxp), P, dtype=torch.int32)
+    bt[:, -1] = -3
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(4))
+    nxt = 0
+    for b, n in enumerate(lengths):
+        used = -(-n // ps)
+        bt[b, :used] = perm[nxt:nxt + used]
+        nxt += used
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kc, vc, ks, vs, bt.to(dev), ln
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("ps", [16, 32, 64])
+def test_paged_int8_kernel_matches_plain(dev, dtype, tol, ps):
+    q, kc, vc, ks, vs, bt, ln = _int8_case(dev, ps, dtype)
+    K.reset_dispatch_stats()
+    out = PA.ragged_paged_attention(q, kc, vc, bt, ln, k_scales=ks,
+                                    v_scales=vs)
+    torch.cuda.synchronize()
+    assert K.dispatch_stats()["paged_quant"] == 1
+    ref = PA.paged_attention_ref(q, kc, vc, bt, ln, k_scales=ks,
+                                 v_scales=vs)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    assert torch.all(out[0] == 0)
+
+
+def test_paged_int8_kernel_equals_full_precision_kernel(dev):
+    """float32: the int8 arm against the full-precision kernel on the
+    densely dequantized pages (the same staged values)."""
+    q, kc, vc, ks, vs, bt, ln = _int8_case(dev, 32, torch.float32)
+    out = PA.ragged_paged_attention(q, kc, vc, bt, ln, k_scales=ks,
+                                    v_scales=vs)
+    dense = PA.ragged_paged_attention(
+        q, (kc.float() * ks[:, :, None, None]).contiguous(),
+        (vc.float() * vs[:, :, None, None]).contiguous(), bt, ln)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, dense, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("width", ["int8", "int4"])
+def test_weight_dequant_card_equals_cpu(dev, width):
+    """The one-pass dequantization on the card gives the CPU's bf16
+    weights bit for bit (an f32 product, one rounding)."""
+    g = torch.Generator().manual_seed(10)
+    w = L.quant_packed(torch.randn(3, 64, 48, generator=g), 1, width)
+    want = L._dequant({k: v[1] for k, v in w.items()}, -2, torch.bfloat16)
+    got = L._dequant({k: v[1].to(dev) for k, v in w.items()}, -2,
+                     torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), want)
+
+
+def test_bf16_head_logits_card_matches_cpu(dev):
+    """The float32-output head product on the card (cuBLAS) against
+    float32 operands on the CPU: logits to 1e-5 of the largest, and the
+    gradients of both bf16 operands to one bf16 rounding."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 5, 256, generator=g).bfloat16()
+    head = (0.1 * torch.randn(1000, 256, generator=g)).bfloat16()
+    gl = torch.randn(2, 5, 1000, generator=g)
+    out = {}
+    for where in ("cpu", dev):
+        tx = x.to(where).detach().requires_grad_()
+        th = head.to(where).detach().requires_grad_()
+        logits = L._head_logits(tx, th)
+        assert logits.dtype == torch.float32
+        logits.backward(gl.to(where))
+        out[str(where)] = [t.detach().float().cpu()
+                           for t in (logits, tx.grad, th.grad)]
+    got, want = out[str(dev)], out["cpu"]
+    assert float((got[0] - want[0]).abs().max()) <= \
+        1e-5 * float(want[0].abs().max())
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max()) <= 8e-3 * float(b.abs().max())
+
+
 def _seg_layout(dev, b, sq, sk, kind):
     """(seg_q, seg_k, pos_q, pos_k) int32 on the card: documents of
     assorted lengths with a padding tail ("packed"), random ids and
@@ -262,6 +356,20 @@ def test_kernels_raise_instead_of_falling_back(dev):
             torch.zeros(4, 2, 16, 64, device=dev),
             torch.zeros(1, 2, dtype=torch.int64, device=dev),   # not int32
             torch.ones(1, dtype=torch.int32, device=dev))
+    codes = torch.zeros(4, 2, 16, 64, dtype=torch.int8, device=dev)
+    scales = torch.zeros(4, 2, device=dev)
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    q64 = torch.zeros(1, 2, 64, device=dev)
+    with pytest.raises(ValueError):                # int8 pages, no scales
+        PA.ragged_paged_attention(q64, codes, codes, bt, one)
+    with pytest.raises(ValueError):                # scales not float32
+        PA.ragged_paged_attention(q64, codes, codes, bt, one,
+                                  k_scales=scales.half(),
+                                  v_scales=scales.half())
+    with pytest.raises(ValueError):                # float16 q
+        PA.ragged_paged_attention(q64.half(), codes, codes, bt, one,
+                                  k_scales=scales, v_scales=scales)
     seg = torch.zeros(1, 8, dtype=torch.int32, device=dev)
     q24 = torch.zeros(1, 8, 2, 24, device=dev)     # head_dim 24: no kernel
     with pytest.raises(ValueError):
