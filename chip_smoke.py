@@ -52,9 +52,28 @@ Phases, each printed on its own line; any failure exits non-zero:
     (2 forward launches and 1 backward a layer) and no plain version;
     then the same documents one per row in 4 waves of ``[7, 2048]``
     through the dense kernels (1 untimed and 2 timed passes), for useful
-    tokens/s both ways.
+    tokens/s both ways;
+12. eager_parity: one float32 ``llama_tiny`` eager ``LlamaForCausalLM``
+    (the Paddle surface: ``model(ids)``, ``F.cross_entropy``,
+    ``loss.backward()``, ``optimizer.AdamW``) with one set of weights
+    takes 3 steps on the card and on the CPU; losses and step-1
+    gradients must agree, and the card must go through the RMSNorm and
+    flash kernels and no plain version;
+13. eager_train: the same eager model at Llama-3-8B widths, 4 layers
+    (``seed(0)``, Paddle's default initializers, ``.to(dtype=
+    "bfloat16")``, ``AdamW(learning_rate=3e-4)``), ids ``[4, 2049]`` from
+    a numpy seed: 2 untimed and 5 timed steps on one batch; the loss must
+    be finite and fall, and every step must launch the RMSNorm forward
+    and backward kernels ``2L + 1`` times each, the flash forward and
+    backward once a layer, and no plain version.
 
-The kernels phase also holds the segment (packed) kernels to their plain
+The kernels phase also holds the RMSNorm forward and backward kernels to
+their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
+and 5120 with n 1, 22 and 8193, each float32 / bfloat16 pair of x and w,
+then the eager path's ``[8192, 4096]`` bfloat16, where ``dw`` must be
+the same bit for bit in two launches) and times kernel, plain version
+and ``torch.nn.functional.rms_norm`` (forward, and its autograd
+backward), and it holds the segment (packed) kernels to their plain
 versions at 7 shapes, to the dense kernels on a one-document row, and at
 the packed trace's shape checks that the forward kernel computes exactly
 the tiles ``count_skipped_blocks`` leaves, then times both beside
@@ -77,6 +96,7 @@ import sys
 import time
 
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
+H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12    # HBM3
 
 FLASH_TOL = 2e-2    # bf16 output: one bf16 rounding of values of size ~1
@@ -90,6 +110,11 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-5   # step-1 grads, relative to each tensor's max |g|
 TRAIN_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+# RMSNorm: float32 outputs differ by summation order; one bf16 ulp is
+# 3.9e-3 of a value, and a value may round the other way
+RMS_F32_TOL = 1e-5
+RMS_BF16_TOL = 8e-3     # both relative to max |ref|
+RMS_EPS = 1e-5          # llama_3_8b's rms_norm_eps
 # the packed rung's trace: heavy-tailed document lengths and token ids
 # from one seed, packed into rows of PACKED_SEQ
 PACKED_DOCS, PACKED_SEQ, PACKED_SEED, PACKED_VOCAB = 24, 2048, 7, 32000
@@ -191,6 +216,107 @@ def phase_flash(torch, dev, main_g, main_s):
             "bound_by": "operations" if flops / H100_BF16_FLOPS
             >= nbytes / H100_BYTES_PER_S else "bytes",
             "library_ms": library_ms}
+
+
+def phase_rms(torch, dev):
+    """The RMSNorm kernels against their plain versions on the same card
+    tensors (every float32 / bfloat16 pair of x and w, d 64 / 4096 /
+    5120, n 1 / 22 / 8193), then at the eager path's ``[8192, 4096]``
+    bfloat16: ``dw`` bit for bit across two launches, and times of
+    kernel, plain version and ``torch.nn.functional.rms_norm``."""
+    from paddle_tpu_torch.kernels import rms_norm as RN
+    gen = torch.Generator(device=dev).manual_seed(13)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def inputs(n, d, xdt, wdt):
+        x = torch.randn(n, d, generator=gen, device=dev).to(xdt)
+        w = (1 + 0.3 * torch.randn(d, generator=gen, device=dev)).to(wdt)
+        dy = torch.randn(n, d, generator=gen, device=dev).to(xdt)
+        return x, w, dy
+
+    def check(x, w, dy):
+        """Worst error over y / dx / dw as a share of max |ref|, against
+        each output's tolerance; returns the worst bf16 and f32 abs
+        errors of the forward."""
+        y, rstd = RN.rms_norm_fwd(x, w, RMS_EPS)
+        dx, dw = RN.rms_norm_bwd(x, w, rstd, dy)
+        torch.cuda.synchronize()
+        y_ref, rstd_ref = RN.rms_norm_ref(x, w, RMS_EPS)
+        dx_ref, dw_ref = RN.rms_norm_bwd_ref(x, w, rstd_ref, dy)
+        errs = {}
+        for name, got, want in (("y", y, y_ref), ("dx", dx, dx_ref),
+                                ("dw", dw, dw_ref), ("rstd", rstd, rstd_ref)):
+            assert got.dtype == want.dtype and got.shape == want.shape, name
+            tol = RMS_F32_TOL if got.dtype == torch.float32 else RMS_BF16_TOL
+            rel = _err(got, want) / float(want.float().abs().max())
+            assert rel <= tol, (name, tuple(x.shape), x.dtype, w.dtype, rel)
+            errs[name] = rel
+        return errs, _err(y, y_ref), _err(dx, dx_ref)
+
+    worst_fwd = worst_bwd = 0.0
+    for d in (64, 4096, 5120):
+        for n in (1, 22, 8193):
+            rel = {}
+            for xn, wn in (("f32", "f32"), ("bf16", "bf16"), ("bf16", "f32"),
+                           ("f32", "bf16")):
+                errs, ef, eb = check(*inputs(n, d, dts[xn], dts[wn]))
+                rel[f"{xn}x{wn}"] = max(errs.values())
+                worst_fwd, worst_bwd = max(worst_fwd, ef), max(worst_bwd, eb)
+            _say("kernels", kernel="rms_norm_fwd|rms_norm_bwd", n=n, d=d,
+                 max_rel_err_by_x_w_dtype=json.dumps(rel).replace(" ", ""),
+                 f32_tol=RMS_F32_TOL, bf16_tol=RMS_BF16_TOL)
+
+    # the eager path's shape: x [B * S, D] bf16, w [D] bf16
+    n, d = TRAIN_BATCH * TRAIN_SEQ, 4096
+    x, w, dy = inputs(n, d, torch.bfloat16, torch.bfloat16)
+    errs, ef, eb = check(x, w, dy)
+    worst_fwd, worst_bwd = max(worst_fwd, ef), max(worst_bwd, eb)
+    _, rstd = RN.rms_norm_fwd(x, w, RMS_EPS)
+    dws = [RN.rms_norm_bwd(x, w, rstd, dy)[1] for _ in range(2)]
+    deterministic = bool(torch.equal(dws[0], dws[1]))
+    _say("kernels", kernel="rms_norm_fwd|rms_norm_bwd", shape=f"{n}x{d}",
+         dtype="bf16", max_rel_err=json.dumps(errs).replace(" ", ""),
+         dw_bitwise_equal_across_launches=deterministic,
+         bwd_rows_per_block=RN.bwd_rows(n), bwd_blocks=-(-n // RN.bwd_rows(n)))
+    assert deterministic, "rms_norm dw differs between two launches"
+
+    ms_f = _time_ms(lambda: RN.rms_norm_fwd(x, w, RMS_EPS), 50)
+    plain_f = _time_ms(lambda: RN.rms_norm_ref(x, w, RMS_EPS), 20)
+    lib = torch.nn.functional.rms_norm
+    lib_f = _time_ms(lambda: lib(x, (d,), w, RMS_EPS), 50)
+    ms_b = _time_ms(lambda: RN.rms_norm_bwd(x, w, rstd, dy), 50)
+    plain_b = _time_ms(lambda: RN.rms_norm_bwd_ref(x, w, rstd, dy), 20)
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+    yl = lib(xl, (d,), wl, RMS_EPS)
+    lib_b = _time_ms(lambda: torch.autograd.grad(yl, (xl, wl), dy,
+                                                 retain_graph=True), 50)
+    # bytes each moves at least: every input read once, every output
+    # written once; a few float32 operations an element besides
+    e = x.element_size()
+    fwd_bytes = 2 * n * d * e + d * w.element_size() + 4 * n
+    bwd_bytes = 3 * n * d * e + 2 * d * w.element_size() + 4 * n
+    fwd_ops, bwd_ops = 4.0 * n * d, 10.0 * n * d
+    recs = []
+    for name, line, ms, plain, libms, nbytes, ops, err in (
+            ("rms_norm_fwd", 48, ms_f, plain_f, lib_f, fwd_bytes, fwd_ops,
+             worst_fwd),
+            ("rms_norm_bwd", 55, ms_b, plain_b, lib_b, bwd_bytes, bwd_ops,
+             worst_bwd)):
+        t_bytes = nbytes / H100_BYTES_PER_S
+        t_ops = ops / H100_F32_FLOPS
+        bound = max(t_bytes, t_ops) * 1e3
+        _say("kernels", kernel=name, shape=f"{n}x{d}", dtype="bf16", ms=ms,
+             plain_ms=plain, library_ms=libms, bound_ms=bound,
+             bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
+        recs.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/rms_norm.cu",
+                     "replaces": f"paddle_tpu/kernels/rms_norm.py:{line}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "library_ms": libms})
+    return recs
 
 
 def _page_tables(torch, dev, lengths, ps, width, num_pages, seed):
@@ -1088,6 +1214,141 @@ def phase_train_packed(torch, dev, card):
     return launches
 
 
+def eager_train_setup(torch, cfg, seed=0, data_seed=0, batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, dtype="bfloat16", lr=3e-4):
+    """The eager main path's ``(model, optimizer, inp, tgt)`` on the
+    current device: ``seed(seed)``, ``LlamaForCausalLM(cfg)`` with
+    Paddle's default initializers, cast to ``dtype``, ``AdamW``, ids
+    ``[batch, seq + 1]`` from ``numpy.random.default_rng(data_seed)``
+    split into inputs and shifted targets."""
+    import numpy as np
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models import llama as L
+    P.seed(seed)
+    model = L.LlamaForCausalLM(cfg)
+    if dtype is not None:
+        model.to(dtype=dtype)
+    opt = O.AdamW(learning_rate=lr, parameters=model.parameters())
+    ids = np.random.default_rng(data_seed).integers(
+        0, cfg.vocab_size, (batch, seq + 1))
+    return model, opt, P.to_tensor(ids[:, :-1]), P.to_tensor(ids[:, 1:])
+
+
+def eager_step(model, opt, inp, tgt):
+    """One eager training step as PaddleNLP users write it; returns the
+    loss (a tensor on the card)."""
+    import paddle_tpu_torch.nn.functional as F
+    vocab = model.config.vocab_size
+    loss = F.cross_entropy(model(inp).reshape([-1, vocab]),
+                           tgt.reshape([-1]))
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def phase_eager_parity(torch, dev):
+    """Three eager steps of one float32 llama_tiny ``LlamaForCausalLM``
+    on the card (kernels) and on the CPU (plain versions), from one set
+    of weights."""
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_tiny()
+    losses, grads, weights = {}, {}, None
+    try:
+        for name, where in (("cpu", "cpu"), ("card", f"gpu:{dev.index}")):
+            P.set_device(where)
+            model, opt, inp, tgt = eager_train_setup(
+                torch, cfg, seed=0, data_seed=6, batch=2, seq=32,
+                dtype=None, lr=3e-3)
+            if weights is None:
+                weights = {k: v.detach().clone()
+                           for k, v in model.state_dict().items()}
+            else:
+                model.set_state_dict(weights)
+            K.reset_dispatch_stats()
+            loss = F.cross_entropy(
+                model(inp).reshape([-1, cfg.vocab_size]), tgt.reshape([-1]))
+            loss.backward()
+            grads[name] = [p.grad.detach().cpu() for p in model.parameters()]
+            opt.clear_grad()
+            losses[name] = [float(eager_step(model, opt, inp, tgt))
+                            for _ in range(3)]
+            torch.cuda.synchronize()
+            stats = K.dispatch_stats()
+            _say("eager_parity", device=name, losses=losses[name],
+                 **{k: v for k, v in stats.items() if v})
+        # 2L + 1 RMSNorms a forward: 4 forwards (one for the gradients)
+        n_rms = 4 * (2 * cfg.num_hidden_layers + 1)
+        assert stats["rms"] == n_rms and stats["rms_bwd"] == n_rms, stats
+        assert stats["flash"] > 0 and stats["flash_bwd"] > 0, stats
+        assert all(v == 0 for k, v in stats.items()
+                   if k.endswith("_ref") or k == "rms_fallback"), stats
+    finally:
+        P.set_device(f"gpu:{dev.index}")
+    grad_err = max(_err(a, b) / float(b.abs().max())
+                   for a, b in zip(grads["card"], grads["cpu"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["card"], losses["cpu"]))
+    _say("eager_parity", loss_rel_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL,
+         grad_rel_err=grad_err, grad_tol=TRAIN_GRAD_TOL)
+    assert loss_err <= TRAIN_LOSS_RTOL, losses
+    assert grad_err <= TRAIN_GRAD_TOL, grad_err
+
+
+def phase_eager_train(torch, dev, card):
+    """The eager main path: ``LlamaForCausalLM`` at Llama-3-8B widths, 4
+    layers, bf16, AdamW, batch 4 x 2048."""
+    import math
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    t0 = time.perf_counter()
+    cfg = L.llama_3_8b(num_hidden_layers=TRAIN_LAYERS)
+    model, opt, inp, tgt = eager_train_setup(torch, cfg)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    assert nparams == L.count_params(cfg), (nparams, L.count_params(cfg))
+    _say("eager_train", layers=TRAIN_LAYERS, params_b=round(nparams / 1e9, 3),
+         dtype="bf16", batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}",
+         init_s=round(time.perf_counter() - t0, 2))
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_dispatch_stats()
+    losses, times = [], []
+    for i in range(7):
+        t0 = time.perf_counter()
+        losses.append(float(eager_step(model, opt, inp, tgt)))   # waits
+        times.append(time.perf_counter() - t0)
+    launches = K.dispatch_stats()
+    timed = sorted(times[2:])
+    step_s = timed[len(timed) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steps = len(times)
+    _say("eager_train", card=repr(card), losses=losses,
+         step_ms=[t * 1e3 for t in times[2:]], median_step_ms=step_s * 1e3,
+         tokens_per_s=tokens / step_s,
+         mfu_6nd=6.0 * nparams * tokens / step_s / H100_BF16_FLOPS,
+         peak_mem_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 2))
+    _say("eager_train", steps=steps, rms_per_step=launches["rms"] / steps,
+         rms_bwd_per_step=launches["rms_bwd"] / steps,
+         **{k: v for k, v in launches.items() if v})
+    n_rms = 2 * TRAIN_LAYERS + 1
+    ln_v = math.log(cfg.vocab_size)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert ln_v - 1 <= losses[0] <= ln_v + 2, (losses[0], ln_v)
+    assert losses[-1] < losses[0], losses
+    assert launches["rms"] == n_rms * steps, launches
+    assert launches["rms_bwd"] == n_rms * steps, launches
+    assert launches["flash"] == TRAIN_LAYERS * steps, launches
+    assert launches["flash_bwd"] == TRAIN_LAYERS * steps, launches
+    assert all(v == 0 for k, v in launches.items()
+               if k.endswith("_ref") or k == "rms_fallback"), launches
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -1138,10 +1399,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     seg_fwd, seg_bwd = phase_flash_seg(torch, dev)
     torch.cuda.empty_cache()
+    rms_fwd, rms_bwd = phase_rms(torch, dev)
+    torch.cuda.empty_cache()
     phase_parity(torch, dev)
     phase_quant_parity(torch, dev)
     phase_train_parity(torch, dev)
     phase_train_packed_parity(torch, dev)
+    phase_eager_parity(torch, dev)
     t0 = time.perf_counter()
     params = L.init_params(cfg, seed=0)
     torch.cuda.synchronize()
@@ -1168,22 +1432,27 @@ def main() -> int:
     train_launches = phase_train(torch, dev, smi)
     torch.cuda.empty_cache()
     packed_launches = phase_train_packed(torch, dev, smi)
+    torch.cuda.empty_cache()
+    eager_launches = phase_eager_train(torch, dev, smi)
     # launches on each kernel's main path: serving for the forward and
     # the decode kernel, int8-KV serving for its int8 arm, dense training
-    # for the backward, packed training for the segment kernels
+    # for the backward, packed training for the segment kernels, eager
+    # training for the RMSNorm kernels
     flash["launches"] = launches["flash"]
     paged["launches"] = launches["paged"]
     paged_int8["launches"] = kvq_launches["paged_quant"]
     flash_bwd["launches"] = train_launches["flash_bwd"]
     seg_fwd["launches"] = packed_launches["varlen"]
     seg_bwd["launches"] = packed_launches["varlen_bwd"]
+    rms_fwd["launches"] = eager_launches["rms"]
+    rms_bwd["launches"] = eager_launches["rms_bwd"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys}
         for rec in (flash, paged, paged_int8, flash_bwd, seg_fwd,
-                    seg_bwd)]}))
+                    seg_bwd, rms_fwd, rms_bwd)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,21 @@
 ``_DISPATCH_STATS``, ``paddle_tpu/kernels/__init__.py:50``).
 
 ``flash`` / ``flash_bwd`` / ``varlen`` / ``varlen_bwd`` / ``paged`` /
-``paged_quant`` count CUDA kernel launches, one per wrapper call that
-launches, added by the wrapper right where it launches (a backward's
-dq / dkv pair counts as one; ``varlen*`` are the segment-masked, sequence-packed kernels, the
-reference's names; ``paged_quant`` is the decode kernel's int8 arm);
-``flash_ref`` / ``flash_bwd_ref`` / ``varlen_ref`` / ``varlen_bwd_ref`` /
-``paged_ref`` / ``paged_quant_ref`` count calls that took the plain
-PyTorch version because the tensors lay on the CPU.
-``fused_ce`` / ``fused_ce_fallback`` count losses that took the blockwise
-cross entropy or, for a shape it does not take, the materialising one
-(plain PyTorch on every device, as in the reference). Plain integers, so
+``paged_quant`` / ``rms`` / ``rms_bwd`` count CUDA kernel launches, one
+per wrapper call that launches, added by the wrapper right where it
+launches (a backward's dq / dkv pair, and the RMSNorm backward's row and
+column passes, count as one; ``varlen*`` are the segment-masked,
+sequence-packed kernels, the reference's names; ``paged_quant`` is the
+decode kernel's int8 arm); ``flash_ref`` / ``flash_bwd_ref`` /
+``varlen_ref`` / ``varlen_bwd_ref`` / ``paged_ref`` / ``paged_quant_ref``
+/ ``rms_ref`` / ``rms_bwd_ref`` count calls that took the plain PyTorch
+version because the tensors lay on the CPU. ``fused_ce`` /
+``fused_ce_fallback`` count losses that took the blockwise cross entropy
+or, for a shape it does not take, the materialising one (plain PyTorch
+on every device, as in the reference). ``rms_fallback`` counts RMSNorm
+calls on CPU tensors whose weight is not ``[x.shape[-1]]``: the
+dispatcher gives them the plain math, the reference's one shape rule (a
+CUDA tensor launches or raises there). Plain integers, so
 a run can show which path it took."""
 
 DISPATCH_STATS = {"flash": 0, "flash_ref": 0,
@@ -20,4 +25,6 @@ DISPATCH_STATS = {"flash": 0, "flash_ref": 0,
                   "varlen_bwd": 0, "varlen_bwd_ref": 0,
                   "paged": 0, "paged_ref": 0,
                   "paged_quant": 0, "paged_quant_ref": 0,
+                  "rms": 0, "rms_ref": 0, "rms_bwd": 0, "rms_bwd_ref": 0,
+                  "rms_fallback": 0,
                   "fused_ce": 0, "fused_ce_fallback": 0}

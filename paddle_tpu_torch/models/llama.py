@@ -16,6 +16,14 @@ PyTorch before its product, as the reference leaves both to XLA.
 Training: ``loss_fn`` (blockwise cross entropy), ``adamw_init`` /
 ``_adamw_update`` (the reference's AdamW math) and ``make_train_step``,
 which updates the parameters in place (the counterpart of donation).
+
+The eager Paddle-surface model, ``LlamaForCausalLM`` over
+``LlamaDecoderLayer``, is built from ``nn.Layer``s (``Embedding``,
+``Linear`` with ``[in, out]`` weights, ``RMSNorm`` through the fused
+RMSNorm kernels) and trained as PaddleNLP users train it: ``model(ids)``,
+``F.cross_entropy``, ``loss.backward()``, ``optimizer.AdamW``.
+``functional_params()`` exports its weights as the functional tree
+above.
 """
 from __future__ import annotations
 
@@ -31,19 +39,24 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from .. import nn
 from ..core import enforce as E
 from ..core import resolve_device
+from ..core.tensor import from_numpy
 from ..kernels.fused_ce import _mm_f32
+from ..nn import functional as PF
 from ..nn.functional.attention import gather_rope_rows, rope_raw
 from ..nn.functional.attention import rope_tables as _rope_tables
 from ..nn.functional.attention import sdpa_raw
+from ..optimizer.optimizer import adam_update_
 
 __all__ = ["LlamaConfig", "llama_tiny", "llama_3_8b", "init_params",
            "params_from_numpy", "quant_int8", "quant_packed",
            "unpack_int4", "quantize_weights", "forward_hidden", "forward",
            "decode_mlp",
            "remat_policy", "unpack_batch", "loss_fn", "count_params",
-           "loss_and_grads", "adamw_init", "make_train_step"]
+           "loss_and_grads", "adamw_init", "make_train_step",
+           "LlamaDecoderLayer", "LlamaForCausalLM"]
 
 
 @dataclasses.dataclass
@@ -138,21 +151,17 @@ def params_from_numpy(tree, device=None, dtype=None):
     """The port's parameter dict from a JAX parameter tree converted to
     numpy (``jax.tree.map(np.asarray, params)``). A bfloat16 leaf arrives
     as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
-    refuses; it goes through float32 (lossless) and back to bfloat16.
+    refuses; ``core.tensor.from_numpy`` takes it through float32
+    (lossless) and back to bfloat16.
     ``dtype`` casts every floating leaf; ``None`` keeps the source type.
     A weight-only-quantized tree (``quantize_weights``) keeps its int8
     codes and its float32 scales as they are."""
     dev = resolve_device(device)
 
     def leaf(a, cast=True):
-        a = np.asarray(a)
-        want = dtype if cast else None
-        if a.dtype.name == "bfloat16":
-            a = a.astype(np.float32)
-            want = want or torch.bfloat16
-        t = torch.from_numpy(np.array(a))
-        if want is not None and t.is_floating_point():
-            t = t.to(want)
+        t = from_numpy(a)
+        if cast and dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
         return t.to(dev)
 
     def walk(node):
@@ -482,24 +491,22 @@ def adamw_init(params, moment_dtype=torch.float32):
 @torch.no_grad()
 def _adamw_update(params, grads, opt_state, lr, *, b1=0.9, b2=0.95,
                   eps=1e-8, wd=0.1):
-    """One AdamW step with the reference's math and order of operations,
-    in float32 and cast back to each stored dtype. Updates ``params`` and
-    the moments in place (one leaf at a time, so the float32 temporaries
-    never exceed one leaf) and returns ``(params, opt_state)``."""
+    """One AdamW step, ``optimizer.adam_update_`` of every leaf with the
+    bias corrections rounded in float32 as the reference's are. Updates
+    ``params`` and the moments in place (one leaf at a time, so the
+    float32 temporaries never exceed one leaf) and returns ``(params,
+    opt_state)``. The reference computes ``p - lr * (u + wd * p)``; the
+    shared rule computes ``(p - lr * u) - lr * wd * p``, the eager
+    reference's order: equal in exact arithmetic, they may differ in the
+    last float32 bit."""
     step = opt_state["step"] + 1
     t = np.float32(step)
     bc1 = float(np.float32(1.0) - np.float32(b1) ** t)
     bc2 = float(np.float32(1.0) - np.float32(b2) ** t)
     for p, g, m, v in zip(_leaves(params), _leaves(grads),
                           _leaves(opt_state["m"]), _leaves(opt_state["v"])):
-        gf = g.float()
-        mf = b1 * m.float() + (1 - b1) * gf
-        vf = b2 * v.float() + (1 - b2) * (gf * gf)
-        u = (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
-        pf = p.float()
-        p.copy_(pf - lr * (u + wd * pf))
-        m.copy_(mf)
-        v.copy_(vf)
+        p.copy_(adam_update_(p, g, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
+                             bc1=bc1, bc2=bc2, wd=wd))
     opt_state["step"] = step
     return params, opt_state
 
@@ -561,3 +568,111 @@ def make_train_step(config: LlamaConfig, mesh=None, *, lr: float = 3e-4,
         return params, opt_state, loss
 
     return step
+
+
+# -- eager Layer model (imperative parity path) -------------------------------
+
+class LlamaDecoderLayer(nn.Layer):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        c = config
+        self.config = c
+        self.input_layernorm = nn.RMSNorm(c.hidden_size,
+                                          epsilon=c.rms_norm_eps)
+        self.q_proj = nn.Linear(c.hidden_size,
+                                c.num_attention_heads * c.head_dim,
+                                bias_attr=False)
+        self.k_proj = nn.Linear(c.hidden_size,
+                                c.num_key_value_heads * c.head_dim,
+                                bias_attr=False)
+        self.v_proj = nn.Linear(c.hidden_size,
+                                c.num_key_value_heads * c.head_dim,
+                                bias_attr=False)
+        self.o_proj = nn.Linear(c.num_attention_heads * c.head_dim,
+                                c.hidden_size, bias_attr=False)
+        self.post_attention_layernorm = nn.RMSNorm(c.hidden_size,
+                                                   epsilon=c.rms_norm_eps)
+        self.gate_proj = nn.Linear(c.hidden_size, c.intermediate_size,
+                                   bias_attr=False)
+        self.up_proj = nn.Linear(c.hidden_size, c.intermediate_size,
+                                 bias_attr=False)
+        self.down_proj = nn.Linear(c.intermediate_size, c.hidden_size,
+                                   bias_attr=False)
+
+    def forward(self, x, cos, sin):
+        c = self.config
+        b, s = x.shape[0], x.shape[1]
+        h = self.input_layernorm(x)
+        q = self.q_proj(h).reshape(b, s, c.num_attention_heads, c.head_dim)
+        k = self.k_proj(h).reshape(b, s, c.num_key_value_heads, c.head_dim)
+        v = self.v_proj(h).reshape(b, s, c.num_key_value_heads, c.head_dim)
+        q = PF.apply_rotary_emb(q, cos, sin)
+        k = PF.apply_rotary_emb(k, cos, sin)
+        a = PF.scaled_dot_product_attention(q, k, v, is_causal=True)
+        x = x + self.o_proj(a.reshape(b, s, c.num_attention_heads
+                                      * c.head_dim))
+        h = self.post_attention_layernorm(x)
+        return x + self.down_proj(PF.silu(self.gate_proj(h))
+                                  * self.up_proj(h))
+
+
+class LlamaForCausalLM(nn.Layer):
+    """Imperative Llama (reference surface: PaddleNLP
+    ``LlamaForCausalLM``): logits ``[B, S, V]`` in the parameters' type
+    from ids ``[B, S]``. Parameters are made on the current device in
+    float32 with Paddle's default initializers; ``.to(dtype=...)`` casts
+    them. ``generate`` needs the ring-cache decode, which is not ported
+    yet."""
+
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        c = config
+        self.config = c
+        self.embed_tokens = nn.Embedding(c.vocab_size, c.hidden_size)
+        self.layers = nn.LayerList(
+            [LlamaDecoderLayer(c) for _ in range(c.num_hidden_layers)])
+        self.norm = nn.RMSNorm(c.hidden_size, epsilon=c.rms_norm_eps)
+        if not c.tie_word_embeddings:
+            self.lm_head = nn.Linear(c.hidden_size, c.vocab_size,
+                                     bias_attr=False)
+
+    def forward(self, ids):
+        c = self.config
+        x = self.embed_tokens(ids)
+        cos, sin = _rope_tables(ids.shape[1], c.head_dim,
+                                theta=c.rope_theta, device=x.device)
+        for layer in self.layers:
+            x = layer(x, cos, sin)
+        x = self.norm(x)
+        if c.tie_word_embeddings:
+            return torch.matmul(x, self.embed_tokens.weight.t())
+        return self.lm_head(x)
+
+    _LAYER_MAP = (("ln1", "input_layernorm"), ("wq", "q_proj"),
+                  ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj"),
+                  ("ln2", "post_attention_layernorm"),
+                  ("gate", "gate_proj"), ("up", "up_proj"),
+                  ("down", "down_proj"))
+
+    def functional_params(self):
+        """This Layer's weights as the functional tree (``init_params``'
+        layout: per-layer weights stacked ``[L, ...]``, the head ``[V,
+        D]``), the bridge onto ``forward``, ``make_train_step`` and
+        ``ServingEngine``. Copies: mutate the Layer, export again."""
+        with torch.no_grad():
+            params = {
+                "embed": self.embed_tokens.weight.detach().clone(),
+                "layers": {fk: torch.stack([getattr(layer, attr).weight
+                                            for layer in self.layers])
+                           for fk, attr in self._LAYER_MAP},
+                "ln_f": self.norm.weight.detach().clone()}
+            if not self.config.tie_word_embeddings:
+                # the functional head is [V, D]; nn.Linear stores [D, V]
+                params["lm_head"] = self.lm_head.weight.t().contiguous()
+        return params
+
+    def generate(self, ids, max_new_tokens: int, num_beams: int = 1, **kw):
+        raise NotImplementedError(
+            "LlamaForCausalLM.generate: the ring-cache decode (generate / "
+            "beam_search) is not ported yet (ROADMAP.md queue A item 4); "
+            "serve functional_params() with inference.ServingEngine")

@@ -16,7 +16,8 @@ import torch
 from ...core import enforce as E
 
 __all__ = ["rope_tables", "rope_raw", "gather_rope_rows", "sdpa_reference",
-           "sdpa_raw", "segment_attention_raw",
+           "sdpa_raw", "scaled_dot_product_attention", "apply_rotary_emb",
+           "segment_attention_raw",
            "segment_ids_from_cu_seqlens", "flash_attn_unpadded",
            "flash_attn_varlen_qkvpacked"]
 
@@ -87,6 +88,21 @@ def sdpa_raw(query, key, value, attn_mask=None, *, dropout_p: float = 0.0,
     return flash_attention(query, key, value, causal=is_causal, scale=scale)
 
 
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p: float = 0.0,
+                                 is_causal: bool = False,
+                                 training: bool = True, name=None,
+                                 scale=None):
+    """``paddle.nn.functional.scaled_dot_product_attention`` on ``[B, S,
+    H, D]``, through ``sdpa_raw`` (the flash kernels on the card,
+    differentiable through ``_FlashAttention``). Dropout applies only
+    while ``training``; a mask or dropout raises, as in ``sdpa_raw``."""
+    del name
+    return sdpa_raw(query, key, value, attn_mask,
+                    dropout_p=dropout_p if training else 0.0,
+                    is_causal=is_causal, scale=scale)
+
+
 def rope_tables(seq_len: int, head_dim: int, *, theta: float = 10000.0,
                 dtype=torch.float32, device=None):
     """cos/sin tables ``[S, head_dim // 2]``."""
@@ -114,6 +130,12 @@ def rope_raw(x, cos, sin):
     d2 = x.shape[-1] // 2
     x1, x2 = x[..., :d2], x[..., d2:]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def apply_rotary_emb(x, cos, sin):
+    """Rotary position embedding (rotate-half) of ``x`` ``[B, S, H, D]``
+    with ``[S, D/2]`` tables: ``rope_raw``."""
+    return rope_raw(x, cos, sin)
 
 
 # -- varlen / unpadded attention ----------------------------------------------

@@ -3,15 +3,19 @@
 
 Builds ``chip_smoke.py``'s dense training main path (Llama-3-8B widths,
 4 layers, random bf16 weights from seed 0, float32 AdamW moments, batch
-4 x 2048, remat ``"dots"``, blockwise cross entropy) or, with
-``--packed``, its packed training main path (the same widths at vocab
-32000, bf16 moments, materialising cross entropy, the packed trace's
-``[7, 2048]`` batch), takes two warm-up steps, then one step under
-``torch.profiler``, and prints, on the card:
+4 x 2048, remat ``"dots"``, blockwise cross entropy), with ``--packed``
+its packed training main path (the same widths at vocab 32000, bf16
+moments, materialising cross entropy, the packed trace's ``[7, 2048]``
+batch), or with ``--eager`` its eager main path (the Paddle-surface
+``LlamaForCausalLM`` at the same widths, bf16, no remat,
+``F.cross_entropy``, ``optimizer.AdamW``, batch 4 x 2048), takes two
+warm-up steps, then one step under ``torch.profiler``, and prints, on
+the card:
 
 - host wall time of the profiled step (it ends in a synchronize);
 - device time and launches by class: the segment (packed) flash kernels,
-  the dense flash backward and forward kernels, cuBLAS matmuls of the
+  the dense flash backward and forward kernels, the RMSNorm kernels
+  (eager), cuBLAS matmuls of the
   model, the cross entropy (the blockwise chunks with their matmuls, or
   the materialising loss's forward and its logsumexp / gather
   backwards), the AdamW update, and everything else; a kernel is put in
@@ -23,7 +27,7 @@ Builds ``chip_smoke.py``'s dense training main path (Llama-3-8B widths,
 - the dozen kernels that took the most device time.
 
 Run from the repo root: ``python3 scripts/torch_train_profile.py
-[--packed]``.
+[--packed | --eager]``.
 """
 from __future__ import annotations
 
@@ -36,14 +40,19 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-CLASSES = ("segment", "flash_bwd", "flash_fwd", "matmul", "cross_entropy",
-           "optimizer", "other")
-NAMED = ("segment", "flash_bwd", "flash_fwd")     # classed by kernel name
+CLASSES = ("segment", "flash_bwd", "flash_fwd", "rms_norm", "matmul",
+           "cross_entropy", "optimizer", "other")
+# classed by kernel name
+NAMED = ("segment", "flash_bwd", "flash_fwd", "rms_norm")
 # the script's own ranges; the profiler also shows each as a span on the
 # device's timeline, which is no kernel and is left out of every sum
 RANGES = ("cross_entropy", "adamw_update")
-# the autograd nodes of the materialising loss's backward
-CE_BACKWARD = ("LogsumexpBackward", "GatherBackward")
+# the autograd nodes of the materialising losses' backward
+CE_BACKWARD = ("LogsumexpBackward", "LogSoftmaxBackward", "GatherBackward")
+# the profiler's own markers on the host: one that stalls a launch (the
+# launch queue is full) or a buffer request carries the id of the op
+# around it and lists that op's kernels a second time
+MARKERS = ("Command Buffer Full", "Activity Buffer Request")
 
 
 def _classify(kernel: str, ranges) -> str:
@@ -54,6 +63,9 @@ def _classify(kernel: str, ranges) -> str:
         return "flash_bwd"
     if "flash_fwd_kernel" in n:
         return "flash_fwd"
+    if any(k in n for k in ("rms_fwd_kernel", "rms_bwd_kernel",
+                            "rms_dw_kernel")):
+        return "rms_norm"
     if any("_BlockwiseCE" in r or r == RANGES[0]
            or any(b in r for b in CE_BACKWARD) for r in ranges):
         return "cross_entropy"
@@ -78,6 +90,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--packed", action="store_true",
                     help="profile the packed training main path")
+    ap.add_argument("--eager", action="store_true",
+                    help="profile the eager (Paddle-surface) main path")
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -85,8 +99,11 @@ def main() -> int:
         print("no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from chip_smoke import (TRAIN_BATCH, TRAIN_LAYERS, TRAIN_SEQ,
+                            eager_step, eager_train_setup,
                             packed_train_setup, train_setup)
+    import paddle_tpu_torch.nn.functional as PF
     from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch import optimizer as O
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import fused_ce as FCE
     from paddle_tpu_torch.models import llama as L
@@ -105,25 +122,38 @@ def main() -> int:
         return call
 
     L._adamw_update = ranged(RANGES[1], L._adamw_update)
+    O.AdamW.step = ranged(RANGES[1], O.AdamW.step)
+    PF.cross_entropy = ranged(RANGES[0], PF.cross_entropy)
     K.dispatched_fused_ce = ranged(RANGES[0], K.dispatched_fused_ce)
     FCE.masked_xent_from_logits = ranged(RANGES[0],
                                          FCE.masked_xent_from_logits)
 
-    if args.packed:
-        _, params, state, step, batch, _, packed = packed_train_setup(
-            torch, dev)
-        shape = "x".join(map(str, packed["ids"].shape)) + " packed"
+    if args.eager:
+        model, opt, inp, tgt = eager_train_setup(
+            torch, L.llama_3_8b(num_hidden_layers=TRAIN_LAYERS))
+        shape = f"{TRAIN_BATCH}x{TRAIN_SEQ} eager"
+
+        def run():
+            return eager_step(model, opt, inp, tgt)
     else:
-        _, params, state, step, batch = train_setup(torch, dev)
-        shape = f"{TRAIN_BATCH}x{TRAIN_SEQ}"
+        if args.packed:
+            _, params, state, step, batch, _, packed = packed_train_setup(
+                torch, dev)
+            shape = "x".join(map(str, packed["ids"].shape)) + " packed"
+        else:
+            _, params, state, step, batch = train_setup(torch, dev)
+            shape = f"{TRAIN_BATCH}x{TRAIN_SEQ}"
+
+        def run():
+            return step(params, state, batch)[2]
     for _ in range(2):                                   # warm-up
-        step(params, state, batch)
+        run()
     torch.cuda.synchronize()
     K.reset_dispatch_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss = float(step(params, state, batch)[2])
+        loss = float(run())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(f"layers={TRAIN_LAYERS} batch={shape} "
@@ -144,7 +174,7 @@ def main() -> int:
             by[cls][1] += e.count
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CPU \
-                or not evt.kernels:
+                or not evt.kernels or evt.name in MARKERS:
             continue
         ranges = _ranges(evt)
         for k in evt.kernels:

@@ -15,12 +15,13 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 def test_library_path_is_per_source_digest_under_build():
     paths = {n: _build.library_path(n) for n in _build.SOURCES}
-    assert set(paths) == {"flash_fwd", "flash_bwd", "paged_decode"}
+    assert set(paths) == {"flash_fwd", "flash_bwd", "paged_decode",
+                          "rms_norm"}
     for name, p in paths.items():
         assert p.parent == REPO / "build" / "kernels"
         assert p.name.startswith(f"lib{name}-") and p.suffix == ".so"
         assert (_build.CSRC / _build.SOURCES[name]).is_file()
-    assert len(set(paths.values())) == 3
+    assert len(set(paths.values())) == 4
 
 
 def test_failed_compile_raises_and_leaves_nothing(tmp_path, monkeypatch):

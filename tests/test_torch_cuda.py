@@ -16,6 +16,7 @@ from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.kernels import flash_attention as FA
 from paddle_tpu_torch.kernels import fused_ce as CE
 from paddle_tpu_torch.kernels import paged_attention as PA
+from paddle_tpu_torch.kernels import rms_norm as RN
 from paddle_tpu_torch.models import llama as L
 from paddle_tpu_torch.nn.functional import attention as ATT
 
@@ -381,3 +382,131 @@ def test_kernels_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):                # lse must be float32
         FA.flash_attention_segments_bwd(q, q, q, q, lse.double(), q, seg,
                                         seg, seg, seg)
+
+    x = torch.zeros(4, 64, device=dev)
+    with pytest.raises(ValueError):                # float16 x
+        RN.rms_norm(x.half(), torch.ones(64, device=dev))
+    with pytest.raises(ValueError):                # not contiguous
+        RN.rms_norm(x.t(), torch.ones(4, device=dev))
+    with pytest.raises(ValueError):                # d above the kernel's
+        RN.rms_norm(torch.zeros(2, RN.MAX_D + 8, device=dev),
+                    torch.ones(RN.MAX_D + 8, device=dev))
+
+
+_RMS_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("xdt,wdt", [("f32", "f32"), ("bf16", "bf16"),
+                                     ("bf16", "f32"), ("f32", "bf16")])
+@pytest.mark.parametrize("n,d", [(1, 64), (22, 4096), (8193, 5120),
+                                 (64, 100), (300, 16384)])
+def test_rms_norm_kernels_match_plain(dev, xdt, wdt, n, d):
+    """Forward and backward kernels against their plain versions on the
+    same card tensors: float32 outputs within ``1e-5 * max |ref|``
+    (summation order), bfloat16 ones within ``8e-3 * max |ref|`` (one
+    rounding); ``dw`` is the same bit for bit in two launches (no
+    atomics). ``d = 100`` takes the scalar path; ``d = 16384`` (the
+    largest) needs 128 KB of shared memory in the backward."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(n, d, generator=g, device=dev).to(_RMS_DT[xdt])
+    w = (1 + 0.3 * torch.randn(d, generator=g, device=dev)).to(_RMS_DT[wdt])
+    dy = torch.randn(n, d, generator=g, device=dev).to(_RMS_DT[xdt])
+    K.reset_dispatch_stats()
+    y, rstd = RN.rms_norm_fwd(x, w, 1e-5)
+    dx, dw = RN.rms_norm_bwd(x, w, rstd, dy)
+    dw2 = RN.rms_norm_bwd(x, w, rstd, dy)[1]
+    torch.cuda.synchronize()
+    stats = K.dispatch_stats()
+    assert stats["rms"] == 1 and stats["rms_bwd"] == 2
+    assert stats["rms_ref"] == 0 and stats["rms_bwd_ref"] == 0
+    assert torch.equal(dw, dw2)
+    y_ref, rstd_ref = RN.rms_norm_ref(x, w, 1e-5)
+    dx_ref, dw_ref = RN.rms_norm_bwd_ref(x, w, rstd_ref, dy)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=0)
+    for got, want in ((y, y_ref), (dx, dx_ref), (dw, dw_ref)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        tol = 1e-5 if got.dtype == torch.float32 else 8e-3
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max()), err
+
+
+def test_f_rms_norm_on_the_card_launches_or_raises(dev):
+    """``F.rms_norm`` never takes plain math for a CUDA tensor: no weight
+    (any axis), and a weight of d elements shaped ``[1, d]``, launch the
+    forward kernel (``rms`` one each, within one bfloat16 ulp of the CPU);
+    a weight that is not d elements, or a weight with another axis than
+    the last, raises."""
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(4, 8, 64, generator=g, device=dev).to(torch.bfloat16)
+    w = 1 + 0.3 * torch.randn(64, generator=g, device=dev)
+    xt = x.transpose(1, 2).contiguous()                   # [4, 64, 8]
+    cases = ((x, None, -1), (xt, None, 1), (x, w.reshape(1, 64), -1))
+    for xi, wi, axis in cases:
+        K.reset_dispatch_stats()
+        got = F.rms_norm(xi, wi, epsilon=1e-5, axis=axis)
+        torch.cuda.synchronize()
+        stats = K.dispatch_stats()
+        assert stats["rms"] == 1, (axis, stats)
+        assert stats["rms_ref"] == 0 and stats["rms_fallback"] == 0
+        want = RN.rms_norm_ref(
+            xi.movedim(axis, -1).cpu(),
+            (torch.ones(64) if wi is None else wi.reshape(64)).cpu(),
+            1e-5)[0].movedim(-1, axis)
+        if wi is not None:
+            want = want.float()
+        assert got.shape == xi.shape and got.dtype == want.dtype
+        a, b = got.cpu().float(), want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(a.abs(), b.abs()).clamp_min(1e-30))) - 7)
+        assert bool(((a - b).abs() <= ulp).all())
+    with pytest.raises(ValueError):                # 2 * d elements
+        F.rms_norm(x, torch.ones(2, 64, device=dev))
+    with pytest.raises(ValueError):                # a weight, axis 1
+        F.rms_norm(xt, torch.ones(64, 1, device=dev), axis=1)
+
+
+def test_eager_llama_card_matches_cpu(dev):
+    """The eager ``LlamaForCausalLM`` (float32 ``llama_tiny``) with one set
+    of weights, two AdamW steps on the card and on the CPU: losses to
+    ``rtol=1e-5``, and the card's steps go through the RMSNorm and flash
+    kernels and no plain version."""
+    import numpy as np
+
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import device as D
+    from paddle_tpu_torch import optimizer as O
+
+    cfg = L.llama_tiny(num_hidden_layers=2)
+    data = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 17))
+    prev = D._current_device
+    losses = {}
+    try:
+        for where in ("cpu", "gpu"):
+            P.set_device(where)
+            P.seed(0)
+            m = L.LlamaForCausalLM(cfg)
+            if where == "cpu":
+                weights = {k: v.detach().clone()
+                           for k, v in m.state_dict().items()}
+            else:
+                m.set_state_dict(weights)
+            o = O.AdamW(learning_rate=3e-3, parameters=m.parameters())
+            inp, tgt = P.to_tensor(data[:, :-1]), P.to_tensor(data[:, 1:])
+            K.reset_dispatch_stats()
+            losses[where] = []
+            for _ in range(2):
+                loss = F.cross_entropy(m(inp).reshape([-1, cfg.vocab_size]),
+                                       tgt.reshape([-1]))
+                loss.backward()
+                o.step()
+                o.clear_grad()
+                losses[where].append(float(loss.detach()))
+            stats = K.dispatch_stats()
+        assert stats["rms"] == 10 and stats["rms_bwd"] == 10
+        assert stats["flash"] == 4 and stats["flash_bwd"] == 4
+        assert all(v == 0 for k, v in stats.items() if k.endswith("_ref"))
+        np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-5)
+    finally:
+        D._current_device = prev

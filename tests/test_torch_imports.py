@@ -4,7 +4,9 @@
   (checked on the source with ``ast``, so a lazy import inside a
   function is caught too).
 - Entry points called without ``device=`` raise on a box without a CUDA
-  device instead of running on the CPU.
+  device instead of running on the CPU; so do the eager surface's
+  (``LlamaForCausalLM``, ``to_tensor``, ``seed``) until
+  ``set_device("cpu")`` asks for the CPU.
 """
 import ast
 import pathlib
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch
+from paddle_tpu_torch import device as TD
 from paddle_tpu_torch.core import enforce as TE
 from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.models import llama as TL
@@ -64,3 +67,23 @@ def test_entry_points_refuse_to_drop_to_cpu(no_cuda):
     with pytest.raises(TE.UnavailableError):
         ServingEngine(TL, params, cfg)
     assert ServingEngine(TL, params, cfg, device="cpu").device.type == "cpu"
+
+
+def test_eager_surface_refuses_to_drop_to_cpu(no_cuda):
+    cfg = TL.llama_tiny(num_hidden_layers=1)
+    prev = TD._current_device
+    TD._current_device = None
+    try:
+        with pytest.raises(TE.UnavailableError):
+            TL.LlamaForCausalLM(cfg)
+        with pytest.raises(TE.UnavailableError):
+            paddle_tpu_torch.to_tensor([1, 2, 3])
+        with pytest.raises(TE.UnavailableError):
+            paddle_tpu_torch.seed(0)
+        with pytest.raises(TE.UnavailableError):
+            paddle_tpu_torch.get_device()
+        assert paddle_tpu_torch.set_device("cpu") == "cpu"
+        assert paddle_tpu_torch.to_tensor([1.5]).dtype == torch.float32
+        assert TL.LlamaForCausalLM(cfg).lm_head.weight.device.type == "cpu"
+    finally:
+        TD._current_device = prev
