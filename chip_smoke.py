@@ -14,10 +14,18 @@ Phases, each printed on its own line; any failure exits non-zero:
    main paths give it, hold the result to its plain PyTorch version on
    the same inputs (tolerances stated below), and time kernel, plain
    version and the one PyTorch call that computes the same function
-   (``scaled_dot_product_attention``, forward or backward); the decode
+   (``scaled_dot_product_attention``, forward or backward). The dense
+   flash pair is checked on both routes: bf16 at head dim 128 and 64
+   (up to S 1000, Sq != Sk, rows that see no key exactly zero) on the
+   tensor cores, float32 on the CUDA cores, each launch counted on the
+   route it must take; the forward is timed at the serving and the
+   training shapes, the backward at the training shape; the decode
    kernel's int8 arm (``kernel=paged_decode_int8``) at page sizes 16, 32
    and 64 with float32 and bfloat16 queries, and against the
    full-precision kernel on the densely dequantized pages;
+   layer_grads: one bf16 layer at Llama-3-8B widths, forward and
+   backward, with attention through the kernels and through the plain
+   version: the q, k, v gradients must agree within ``BWD_TOL``;
 3. parity: a ``llama_tiny`` float32 model with one set of weights is
    served on the card (kernels) and on the CPU (plain versions); the
    greedy tokens must be equal, through queueing and preemption;
@@ -36,8 +44,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    (a reading: int8 KV is lossy);
 8. main_wq: the same with int8 weight-only weights
    (``quantize_weights``) and int8 KV pages, the quantized memory plane;
-9. train: ``make_train_step`` at Llama-3-8B widths, 4 layers (the JAX
-   package's headline training rung), random bf16 weights from seed 0,
+9. train: ``make_train_step`` at Llama-3-8B widths, 4 layers (vocab
+   128256, blockwise cross entropy, the ``make_train_step`` defaults; not
+   the JAX package's headline rung, which has vocab 32000, materialising
+   cross entropy and bf16 moments), random bf16 weights from seed 0,
    float32 AdamW moments, batch 4 x 2048: 2 untimed and 5 timed steps on
    one batch; the loss must be finite and fall, and every step must run
    the backward kernel once a layer and no plain version;
@@ -78,6 +88,12 @@ versions at 7 shapes, to the dense kernels on a one-document row, and at
 the packed trace's shape checks that the forward kernel computes exactly
 the tiles ``count_skipped_blocks`` leaves, then times both beside
 ``scaled_dot_product_attention`` with a block-diagonal causal mask.
+
+Every bf16 main path (``main``, ``main_kvq``, ``main_wq``, ``train``,
+the padded pass of ``train_packed``, ``eager_train``) must launch the
+dense flash kernels only on their tensor-core route (``flash_tc ==
+flash``, ``flash_bwd_tc == flash_bwd``). The build phase prints the
+registers and spills of each tensor-core kernel from ``ptxas``.
 
 Then it prints the kernel records as one JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -144,6 +160,29 @@ def _err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def _ptxas_entries(log):
+    """``(kernel, registers, spill store bytes, spill load bytes)`` of
+    each entry function in a ``ptxas -v`` log; a template kernel is
+    named ``name<arg>`` from its mangled name."""
+    import re
+    out, kernel, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = re.search(r"\d((?:flash|paged|rms)\w*?_kernel)(?:ILi(\d+)E)?",
+                          mangled)
+            kernel = (f"{m.group(1)}<{m.group(2)}>" if m and m.group(2)
+                      else m.group(1) if m else mangled)
+        elif kernel and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            spills = tuple(int(n) for n in nums[:2])
+        elif kernel and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append((kernel, regs, *spills))
+            kernel, spills = None, (0, 0)
+    return out
+
+
 def _main_requests(vocab, seed=0):
     """16 requests: 8 prompts of 257..512 tokens (one prefill group at a
     512-token bucket), then 8 of 513..1024; 32..64 new tokens each."""
@@ -158,35 +197,64 @@ def _main_requests(vocab, seed=0):
             for i, (n, m) in enumerate(zip(lens, news))]
 
 
+def _tc_launches(K, kind, want):
+    """Assert that one launch of a dense flash kernel (``kind``:
+    ``flash`` or ``flash_bwd``) was made since the counters were reset,
+    on the tensor-core route exactly when ``want`` (bf16 at D 64 / 128)."""
+    st = K.dispatch_stats()
+    assert st[kind] == 1 and st[f"{kind}_tc"] == int(want), st
+
+
 def phase_flash(torch, dev, main_g, main_s):
+    from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(1)
     H, KVH, D = 32, 8, 128
 
-    def qkv(b, s, dtype):
-        return tuple(torch.randn(b, s, h, D, generator=gen, device=dev)
-                     .to(dtype) for h in (H, KVH, KVH))
+    def qkv(b, sq, sk, dtype, d=D):
+        return tuple(torch.randn(b, s, h, d, generator=gen, device=dev)
+                     .to(dtype) for s, h in ((sq, H), (sk, KVH), (sk, KVH)))
 
     worst = 0.0
-    for s, causal, dtype, tol in ((16, True, torch.bfloat16, FLASH_TOL),
-                                  (48, True, torch.bfloat16, FLASH_TOL),
-                                  (512, True, torch.bfloat16, FLASH_TOL),
-                                  (48, False, torch.bfloat16, FLASH_TOL),
-                                  (48, True, torch.float32, FLASH_F32_TOL)):
-        q, k, v = qkv(2, s, dtype)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for sq, sk, d, causal, dtype, tol in (
+            (16, 16, D, True, bf16, FLASH_TOL),
+            (48, 48, D, True, bf16, FLASH_TOL),
+            (512, 512, D, True, bf16, FLASH_TOL),
+            (48, 48, D, False, bf16, FLASH_TOL),
+            (1000, 1000, D, True, bf16, FLASH_TOL),
+            (80, 48, D, True, bf16, FLASH_TOL),
+            (48, 48, 64, True, bf16, FLASH_TOL),
+            (1000, 1000, 64, True, bf16, FLASH_TOL),
+            (200, 200, 64, False, bf16, FLASH_TOL),
+            (48, 48, D, True, f32, FLASH_F32_TOL)):
+        q, k, v = qkv(2, sq, sk, dtype, d)
+        K.reset_dispatch_stats()
         out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        _tc_launches(K, "flash", FA.tensor_core_route(q))
         ref, ref_lse = FA.flash_attention_ref(q, k, v, causal=causal)
-        err, lerr = _err(out, ref), _err(lse, ref_lse)
-        _say("kernels", kernel="flash_fwd", S=s, causal=causal,
-             dtype=str(dtype).split(".")[-1], max_abs_err=err,
-             lse_err=lerr, tol=tol)
+        seen = torch.isfinite(ref_lse)
+        err = _err(out, ref)
+        lerr = _err(torch.where(seen, lse, 0.0), torch.where(seen, ref_lse,
+                                                               0.0))
+        _say("kernels", kernel="flash_fwd", Sq=sq, Sk=sk, D=d, causal=causal,
+             dtype=str(dtype).split(".")[-1],
+             route="tc" if FA.tensor_core_route(q) else "cuda_cores",
+             max_abs_err=err, lse_err=lerr, tol=tol)
         assert err <= tol and lerr <= LSE_TOL, "flash_fwd disagrees"
-        if dtype == torch.bfloat16:
+        if causal and sq > sk:      # rows that see no key: exact zeros
+            assert bool((out[:, :sq - sk] == 0).all()), \
+                "flash_fwd: a row that sees no key has a nonzero output"
+            assert bool((lse[..., :sq - sk] == float("-inf")).all()), \
+                "flash_fwd: a row that sees no key has a finite lse"
+            _say("kernels", kernel="flash_fwd", zero_rows=sq - sk,
+                 out_zero=True, lse_neg_inf=True)
+        if dtype == bf16:
             worst = max(worst, err)
 
     # the main path's first prefill group: G requests at one bucket
-    q, k, v = qkv(main_g, main_s, torch.bfloat16)
+    q, k, v = qkv(main_g, main_s, main_s, bf16)
     out = FA.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     ref = FA.flash_attention_ref(q, k, v, causal=True)[0]
@@ -207,7 +275,7 @@ def phase_flash(torch, dev, main_g, main_s):
     bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
     _say("kernels", kernel="flash_fwd", shape=f"G{main_g}xS{main_s}",
          ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-         tflops=flops / ms / 1e9)
+         share_of_bound=bound / ms, tflops=flops / ms / 1e9)
     return {"name": "flash_fwd", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "paddle_tpu/kernels/flash_attention.py:40",
@@ -607,12 +675,14 @@ def phase_main(torch, dev, cfg, params, requests, card, phase="main",
          weights_gb=weight_bytes / 1e9)
     arm = "paged_quant" if kv_quant else "paged"
     _say(phase, flash_launches=launches["flash"],
+         flash_tc_launches=launches["flash_tc"],
          **{f"{arm}_launches": launches[arm],
             f"{arm}_per_decode_step": launches[arm] / st.decode_steps},
          other_arm=launches["paged" if kv_quant else "paged_quant"],
          **{k: v for k, v in launches.items() if k.endswith("_ref")})
     assert launches["flash"] > 0 and launches[arm] > 0, launches
     assert launches["paged" if kv_quant else "paged_quant"] == 0, launches
+    _tc_route_only(launches)
     assert all(v == 0 for k, v in launches.items() if k.endswith("_ref")), \
         launches
     tokens = {}
@@ -634,20 +704,23 @@ def phase_flash_bwd(torch, dev, batch, seq):
     """The backward kernels against their plain version on the same card
     tensors (out and lse from the forward kernel), then timed at the
     training path's shape."""
+    from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(4)
     H, KVH, D = 32, 8, 128
 
-    def inputs(b, sq, sk, dtype, causal):
-        q, k, v, dout = (torch.randn(b, s, h, D, generator=gen, device=dev)
+    def inputs(b, sq, sk, dtype, causal, d=D):
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=gen, device=dev)
                          .to(dtype) for s, h in ((sq, H), (sk, KVH),
                                                  (sk, KVH), (sq, H)))
         out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
         return q, k, v, out, lse, dout
 
     def check(args, is_causal, tol, **what):
+        K.reset_dispatch_stats()
         got = FA.flash_attention_bwd(*args, causal=is_causal)
         torch.cuda.synchronize()
+        _tc_launches(K, "flash_bwd", FA.tensor_core_route(args[0]))
         want = FA.flash_attention_bwd_ref(*args, causal=is_causal)
         errs = [_err(g, w) for g, w in zip(got, want)]
         rel = max(e / float(w.float().abs().max())
@@ -660,15 +733,21 @@ def phase_flash_bwd(torch, dev, batch, seq):
 
     worst = 0.0
     bf16, f32 = torch.bfloat16, torch.float32
-    for sq, sk, causal, dtype, tol in ((16, 16, True, bf16, BWD_TOL),
-                                       (48, 48, True, bf16, BWD_TOL),
-                                       (512, 512, True, bf16, BWD_TOL),
-                                       (48, 48, False, bf16, BWD_TOL),
-                                       (48, 48, True, f32, BWD_F32_TOL),
-                                       (32, 80, True, bf16, BWD_TOL),
-                                       (80, 48, True, bf16, BWD_TOL)):
-        got, err = check(inputs(2, sq, sk, dtype, causal), causal, tol,
-                         Sq=sq, Sk=sk, causal=causal,
+    for sq, sk, d, causal, dtype, tol in (
+            (16, 16, D, True, bf16, BWD_TOL),
+            (48, 48, D, True, bf16, BWD_TOL),
+            (512, 512, D, True, bf16, BWD_TOL),
+            (48, 48, D, False, bf16, BWD_TOL),
+            (48, 48, D, True, f32, BWD_F32_TOL),
+            (32, 80, D, True, bf16, BWD_TOL),
+            (80, 48, D, True, bf16, BWD_TOL),
+            (1000, 1000, D, True, bf16, BWD_TOL),
+            (48, 48, 64, True, bf16, BWD_TOL),
+            (80, 48, 64, True, bf16, BWD_TOL),
+            (1000, 1000, 64, True, bf16, BWD_TOL),
+            (200, 200, 64, False, bf16, BWD_TOL)):
+        got, err = check(inputs(2, sq, sk, dtype, causal, d), causal, tol,
+                         Sq=sq, Sk=sk, D=d, causal=causal,
                          dtype=str(dtype).split(".")[-1])
         if sq > sk:     # rows that see no key: exact zeros
             assert bool((got[0][:, :sq - sk] == 0).all()), \
@@ -679,15 +758,32 @@ def phase_flash_bwd(torch, dev, batch, seq):
             worst = max(worst, err)
 
     # the training path's shape: one layer's attention of the train phase;
-    # its out / lse from the forward kernel are held to the plain forward
+    # its out / lse from the forward kernel are held to the plain forward,
+    # and the forward is timed there too, beside SDPA
     args = inputs(batch, seq, seq, bf16, True)
     ref, ref_lse = FA.flash_attention_ref(*args[:3], causal=True)
     err, lerr = _err(args[3], ref), _err(args[4], ref_lse)
-    _say("kernels", kernel="flash_fwd", shape=f"B{batch}xS{seq}",
-         max_abs_err=err, lse_err=lerr, tol=FLASH_TOL)
     assert err <= FLASH_TOL and lerr <= LSE_TOL, \
         "flash_fwd disagrees at the training path's shape"
     del ref, ref_lse
+    q, k, v = args[:3]
+    fwd_ms = _time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal=True),
+                      20)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd_lib_ms = _time_ms(
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    fwd_flops = 2.0 * batch * H * seq * seq * D        # causal
+    fwd_bytes = 4 * q.numel() + 4 * k.numel() + 4 * batch * H * seq
+    fwd_bound = max(fwd_flops / H100_BF16_FLOPS,
+                    fwd_bytes / H100_BYTES_PER_S) * 1e3
+    _say("kernels", kernel="flash_fwd", shape=f"B{batch}xS{seq}",
+         max_abs_err=err, lse_err=lerr, tol=FLASH_TOL, ms=fwd_ms,
+         library_ms=fwd_lib_ms, bound_ms=fwd_bound,
+         bound_by="operations" if fwd_flops / H100_BF16_FLOPS
+         >= fwd_bytes / H100_BYTES_PER_S else "bytes",
+         share_of_bound=fwd_bound / fwd_ms, tflops=fwd_flops / fwd_ms / 1e9)
+    del qt, kt, vt
     _, err = check(args, True, BWD_TOL, shape=f"B{batch}xS{seq}")
     worst = max(worst, err)
     ms = _time_ms(lambda: FA.flash_attention_bwd(*args, causal=True), 5)
@@ -712,7 +808,7 @@ def phase_flash_bwd(torch, dev, batch, seq):
     bound = max(t_ops, t_bytes) * 1e3
     _say("kernels", kernel="flash_bwd", shape=f"B{batch}xS{seq}", ms=ms,
          plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-         tflops=flops / ms / 1e9)
+         share_of_bound=bound / ms, tflops=flops / ms / 1e9)
     return {"name": "flash_bwd", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
             "replaces": "paddle_tpu/kernels/flash_attention.py:146",
@@ -720,6 +816,73 @@ def phase_flash_bwd(torch, dev, batch, seq):
             "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
+
+
+def phase_layer_grads(torch, dev):
+    """One bf16 layer at Llama-3-8B widths, one forward and backward on
+    ``[2, TRAIN_SEQ]``, with its attention through the kernels and then
+    through the plain version (autograd through ``flash_attention_ref``):
+    the gradients of the layer's q, k and v (after rope, as attention
+    sees them) must agree within ``BWD_TOL`` of each one's max |.|. This
+    catches layout and stride faults that the kernel-level checks, on
+    tensors made for them, cannot."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_3_8b(num_hidden_layers=1)
+    params = L.init_params(cfg, seed=0, device=dev)
+    lp = L.layer(params, 0)
+    b, s = 2, TRAIN_SEQ
+    ids = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (b, s)), device=dev)
+    x = params["embed"][ids].detach().requires_grad_()
+    cos, sin = L._rope_tables(s, cfg.head_dim, theta=cfg.rope_theta,
+                              device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cot = torch.randn(b, s, cfg.hidden_size, generator=gen,
+                      device=dev).to(x.dtype)
+    kernel_attn = L.sdpa_raw
+    grads, launches = {}, {}
+    for name in ("kernel", "plain"):
+        seen = []
+
+        def attn(q, k, v, **kw):
+            for t in (q, k, v):
+                t.retain_grad()
+            seen.extend((q, k, v))
+            if name == "kernel":
+                return kernel_attn(q, k, v, **kw)
+            return FA.flash_attention_ref(q, k, v,
+                                          causal=kw["is_causal"])[0]
+
+        L.sdpa_raw = attn
+        try:
+            K.reset_dispatch_stats()
+            L._block(x, lp, cos, sin, cfg).backward(cot)
+            torch.cuda.synchronize()
+        finally:
+            L.sdpa_raw = kernel_attn
+        launches[name] = K.dispatch_stats()
+        grads[name] = [t.grad for t in seen]
+    rel = [_err(g, w) / float(w.float().abs().max())
+           for g, w in zip(grads["kernel"], grads["plain"])]
+    st = launches["kernel"]
+    _say("layer_grads", widths="llama_3_8b", batch=f"{b}x{s}",
+         dq_rel_err=rel[0], dk_rel_err=rel[1], dv_rel_err=rel[2],
+         tol=BWD_TOL, flash=st["flash"], flash_tc=st["flash_tc"],
+         flash_bwd=st["flash_bwd"], flash_bwd_tc=st["flash_bwd_tc"])
+    assert max(rel) <= BWD_TOL, rel
+    assert st["flash"] == st["flash_tc"] == 1, st
+    assert st["flash_bwd"] == st["flash_bwd_tc"] == 1, st
+    assert launches["plain"]["flash"] == 0, launches["plain"]
+
+
+def _tc_route_only(launches):
+    """A bf16 main path launches the dense flash kernels only on their
+    tensor-core route."""
+    assert launches["flash_tc"] == launches["flash"], launches
+    assert launches["flash_bwd_tc"] == launches["flash_bwd"], launches
 
 
 def packed_trace():
@@ -1036,6 +1199,7 @@ def phase_train(torch, dev, card):
          peak_mem_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 2))
     _say("train", steps=len(times), flash_launches=launches["flash"],
          flash_bwd_launches=launches["flash_bwd"],
+         flash_tc=launches["flash_tc"], flash_bwd_tc=launches["flash_bwd_tc"],
          fused_ce=launches["fused_ce"], flash_ref=launches["flash_ref"],
          flash_bwd_ref=launches["flash_bwd_ref"],
          fused_ce_fallback=launches["fused_ce_fallback"],
@@ -1046,6 +1210,7 @@ def phase_train(torch, dev, card):
     assert losses[-1] < losses[0], losses
     assert launches["flash_bwd"] == TRAIN_LAYERS * len(times), launches
     assert launches["fused_ce"] == len(times), launches
+    _tc_route_only(launches)
     assert all(launches[k] == 0 for k in ("flash_ref", "flash_bwd_ref",
                                           "paged_ref", "fused_ce_fallback"))
     return launches
@@ -1194,7 +1359,9 @@ def phase_train_packed(torch, dev, card):
         t * 1e3 for t in pass_s[1:]], padded_useful_tokens_per_s=padded_tps,
          speedup_vs_padded=packed_tps / padded_tps,
          padded_flash=pad_launches["flash"],
-         padded_flash_bwd=pad_launches["flash_bwd"])
+         padded_flash_bwd=pad_launches["flash_bwd"],
+         padded_flash_tc=pad_launches["flash_tc"],
+         padded_flash_bwd_tc=pad_launches["flash_bwd_tc"])
     _say("train_packed", steps=steps,
          varlen_per_step=launches["varlen"] / steps,
          varlen_bwd_per_step=launches["varlen_bwd"] / steps,
@@ -1209,6 +1376,7 @@ def phase_train_packed(torch, dev, card):
     assert all(v == 0 for k, v in launches.items() if k.endswith("_ref")), \
         launches
     assert pad_launches["flash_bwd"] == TRAIN_LAYERS * waves * 3
+    _tc_route_only(pad_launches)
     assert all(v == 0 for k, v in pad_launches.items()
                if k.endswith("_ref") or k.startswith("varlen"))
     return launches
@@ -1344,6 +1512,7 @@ def phase_eager_train(torch, dev, card):
     assert launches["rms_bwd"] == n_rms * steps, launches
     assert launches["flash"] == TRAIN_LAYERS * steps, launches
     assert launches["flash_bwd"] == TRAIN_LAYERS * steps, launches
+    _tc_route_only(launches)
     assert all(v == 0 for k, v in launches.items()
                if k.endswith("_ref") or k == "rms_fallback"), launches
     return launches
@@ -1384,6 +1553,10 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 _say("build", lib=name, ptxas=line.strip().replace(" ", "_"))
+        for kernel, regs, stores, loads in _ptxas_entries(log):
+            if "_tc_kernel" in kernel:
+                _say("build", lib=name, kernel=kernel, registers=regs,
+                     spill_store_bytes=stores, spill_load_bytes=loads)
 
     cfg = L.llama_3_8b(num_hidden_layers=args.layers)
     requests = _main_requests(cfg.vocab_size)
@@ -1396,6 +1569,8 @@ def main() -> int:
     paged_int8 = phase_paged_int8(torch, dev, main_lengths, 8 * (2048 // 32),
                                   2048 // 32, 32)
     flash_bwd = phase_flash_bwd(torch, dev, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.empty_cache()
+    phase_layer_grads(torch, dev)
     torch.cuda.empty_cache()
     seg_fwd, seg_bwd = phase_flash_seg(torch, dev)
     torch.cuda.empty_cache()

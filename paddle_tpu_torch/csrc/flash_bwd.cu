@@ -20,7 +20,8 @@
 //   ds = p * (dp - delta),  delta = rowsum(dout * o)
 //   dq = scale * ds k,  dk = scale * ds^T q,  dv = p^T dout
 //
-// Two kernels, launched in this order on one stream:
+// Two kernels, launched in this order on one stream (the sizes of the
+// CUDA-core route; the tensor-core pair below splits the work alike):
 // - dq: one block per (batch, query head, 32 query rows). It first writes
 //   delta for its rows (fused: the dkv kernel reads it), then loops over
 //   the 32-key tiles that can hold a visible key, accumulating dq in
@@ -40,13 +41,17 @@
 // Bound on the H100: 5 causal products of B*H*S^2*D operations each at
 // least (q k^T, dout v^T, dv, dq, dk; for packed rows over the visible
 // pairs only) against ~(8 B S H D + 2 B S KVH D) bytes: far above ~295
-// operations per byte, so arithmetic bounds it. This first version
-// recomputes q k^T and dout v^T in both kernels (7 products) and runs them
-// on the CUDA cores in float32, well under the bf16 tensor core peak. Its
-// traffic is small all the same: every tile a block loads into shared
-// memory serves 32 rows or keys, the score matrix never leaves registers,
-// and causal blocks skip the tiles above the diagonal, segment blocks
-// those of other documents. Tensor-core (wgmma) tiles are the next step.
+// operations per byte, so arithmetic bounds it. Both routes recompute
+// q k^T and dout v^T in both kernels (7 products) and need no atomics:
+// - tensor cores (entry flash_bwd, bfloat16 at D = 64 or 128, the route
+//   of every main path; the *_tc_kernel pair below): wgmma in bf16 with
+//   float32 sums;
+// - CUDA cores (flash_bwd for float32 or another D, and flash_bwd_seg):
+//   float32 arithmetic, 32 rows or keys a block. Its traffic is small all
+//   the same: every tile a block loads into shared memory serves 32 rows
+//   or keys, the score matrix never leaves registers, and causal blocks
+//   skip the tiles above the diagonal, segment blocks those of other
+//   documents. The segment route on the tensor cores comes next.
 //
 // Layout: q / o / dout / dq [B, Sq, H, D], k / v / dk / dv [B, Sk, KVH, D],
 // all contiguous, float32 or bfloat16; lse and delta float32 [B, H, Sq];
@@ -57,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -491,6 +498,418 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// ---- the tensor-core route: bfloat16, D = 64 or 128, dense mask --------
+//
+// The same two kernels on wgmma, with bf16 operands and float32 sums; P
+// and dS are rounded to bf16 before they enter a product, as SDPA's
+// backward rounds them. Blocks are 256 threads, two warpgroups.
+// - dq: 128 query rows of one (batch, head), 64 rows a warpgroup. Q and
+//   dout stay in shared memory; K / V tiles of 64 keys stream through a
+//   2-stage cp.async ring. Per tile: S = Q K^T and dP = dout V^T (wgmma,
+//   both operands in shared memory), P = exp2(S scale log2 e - lse log2 e),
+//   dS = P (dP - delta) in registers, dQ += dS K (A = dS from registers,
+//   K as an MN-major B). Writes delta for its rows first, as above.
+// - dkv: 128 keys of one (batch, kv head), 64 keys a warpgroup. K and V
+//   stay in shared memory; the GQA group's query heads and their 64-row
+//   Q / dout tiles (with lse and delta) stream through the ring from the
+//   diagonal down. It computes the transposes, S^T = K Q^T and dP^T =
+//   V dout^T, so that both accumulating products take A from registers:
+//   dV += P^T dout and dK += dS^T Q, dout and Q as MN-major B operands
+//   (FlashAttention-3's layout).
+// Both launch their longest tiles first. Masked entries get p = 0 by a
+// select, so rows that see no key get exact zero dq and keys no row sees
+// exact zero dk / dv.
+constexpr int TC_THREADS = 256;
+constexpr int TC_ROWS = 128;   // dq: query rows a block; dkv: keys a block
+constexpr int TC_TILE = 64;    // dq: keys a tile; dkv: query rows a tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr int tc_bwd_smem() {
+  // two resident tiles of TC_ROWS rows, a 2-stage ring of two TC_TILE-row
+  // tiles, lse and delta for up to TC_ROWS rows in each of 2 stages,
+  // alignment
+  return (2 * TC_ROWS + 4 * TC_TILE) * D * 2 + 4 * TC_ROWS * 4 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ o,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       __nv_bfloat16* __restrict__ dq,
+                       float* __restrict__ delta, int Sq, int Sk, int H,
+                       int KVH, float scale, int causal) {
+  using namespace hopper;
+  constexpr uint32_t TILE = TC_TILE * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sDO = sQ + TC_ROWS * D * 2;
+  const uint32_t sK = sDO + TC_ROWS * D * 2;
+  const uint32_t sV = sK + 2 * TILE;
+  float* rowstat = reinterpret_cast<float*>(
+      smem_raw + (sV + 2 * TILE - smem_u32(smem_raw)));
+  float* lse2_s = rowstat;              // lse * log2(e), [TC_ROWS]
+  float* delta_s = rowstat + TC_ROWS;   // [TC_ROWS]
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;   // longest first
+  const int offset = Sk - Sq;
+  const int q_last = min(q0 + TC_ROWS, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_last + offset + 1) : Sk;
+  const int n_kt = k_end > 0 ? (k_end + TC_TILE - 1) / TC_TILE : 0;
+  const size_t q_stride = size_t(H) * D;
+  const size_t kv_stride = size_t(KVH) * D;
+  const size_t qoff = (size_t(b) * Sq * H + h) * D;
+  const __nv_bfloat16* kg = k + (size_t(b) * Sk * KVH + kvh) * D;
+  const __nv_bfloat16* vg = v + (size_t(b) * Sk * KVH + kvh) * D;
+
+  load_tile<TC_ROWS, D>(sQ, q + qoff, q0, Sq, q_stride, tid, TC_THREADS);
+  load_tile<TC_ROWS, D>(sDO, dout + qoff, q0, Sq, q_stride, tid, TC_THREADS);
+  if (n_kt > 0) {
+    load_tile<TC_TILE, D>(sK, kg, 0, Sk, kv_stride, tid, TC_THREADS);
+    load_tile<TC_TILE, D>(sV, vg, 0, Sk, kv_stride, tid, TC_THREADS);
+  }
+  cp_async_commit();
+
+  // delta = rowsum(dout * o) of the block's rows, two threads a row
+  {
+    const int r = tid / 2;
+    const int row = q0 + r;
+    float acc = 0.f;
+    if (row < Sq) {
+      const __nv_bfloat16* dr = dout + qoff + size_t(row) * q_stride;
+      const __nv_bfloat16* orow = o + qoff + size_t(row) * q_stride;
+#pragma unroll
+      for (int c = (tid & 1) * 8; c < D; c += 16) {
+        const uint4 du = *reinterpret_cast<const uint4*>(dr + c);
+        const uint4 ou = *reinterpret_cast<const uint4*>(orow + c);
+        const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(&du);
+        const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ou);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 df = __bfloat1622float2(d2[e]);
+          const float2 of = __bfloat1622float2(o2[e]);
+          acc += df.x * of.x + df.y * of.y;
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((tid & 1) == 0) {
+      delta_s[r] = acc;
+      lse2_s[r] = row < Sq ? lse[size_t(bh) * Sq + row] * LOG2E : 0.f;
+      if (row < Sq) delta[size_t(bh) * Sq + row] = acc;
+    }
+  }
+  __syncthreads();
+  const int rw0 = q0 + 64 * wg;                   // this warpgroup's rows
+  const int lr0 = 64 * wg + 16 * warp + lane / 4;   // this thread's, local
+  const float lse2[2] = {lse2_s[lr0], lse2_s[lr0 + 8]};
+  const float dl[2] = {delta_s[lr0], delta_s[lr0 + 8]};
+  const float scale_log2 = scale * LOG2E;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < n_kt; ++j) {
+    if (j + 1 < n_kt) {
+      const uint32_t st = (j + 1) & 1;
+      load_tile<TC_TILE, D>(sK + st * TILE, kg, (j + 1) * TC_TILE, Sk,
+                            kv_stride, tid, TC_THREADS);
+      load_tile<TC_TILE, D>(sV + st * TILE, vg, (j + 1) * TC_TILE, Sk,
+                            kv_stride, tid, TC_THREADS);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t kt = sK + (j & 1) * TILE;
+    const uint32_t vt = sV + (j & 1) * TILE;
+    const int k0 = j * TC_TILE;
+    if (!causal || k0 <= rw0 + 63 + offset) {   // uniform: warpgroup
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<TC_TILE>(s, desc_k<TC_ROWS>(sQ, 64 * wg, kk),
+                          desc_k<TC_TILE>(kt, 0, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<TC_TILE>(dp, desc_k<TC_ROWS>(sDO, 64 * wg, kk),
+                          desc_k<TC_TILE>(vt, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      const bool edge = rw0 + 64 > Sq || k0 + TC_TILE > Sk ||
+                        (causal && k0 + TC_TILE - 1 > rw0 + offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2_approx(s[i] * scale_log2 - lse2[r]);
+        if (edge) {
+          const int row = q0 + lr0 + 8 * r;
+          const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          if (row >= Sq || col >= Sk || (causal && col > row + offset)) {
+            p = 0.f;
+          }
+        }
+        s[i] = p * (dp[i] - dl[r]);   // dS
+      }
+      uint32_t a[TC_TILE / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TC_TILE / 16; ++kk) pack_a(s, kk, a[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TC_TILE / 16; ++kk) {
+        wgmma_rs<D>(acc, a[kk], desc_mn<TC_TILE>(kt, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + lr0 + 8 * r;
+    if (row >= Sq) continue;
+    __nv_bfloat16* drow = dq + qoff + size_t(row) * q_stride;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      *reinterpret_cast<uint32_t*>(drow + 8 * jn + 2 * (lane & 3)) =
+          pack_bf16(acc[4 * jn + 2 * r] * scale,
+                    acc[4 * jn + 2 * r + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
+                        int H, int KVH, float scale, int causal) {
+  using namespace hopper;
+  constexpr uint32_t TILE = TC_TILE * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sK = base;
+  const uint32_t sV = sK + TC_ROWS * D * 2;
+  const uint32_t sQ = sV + TC_ROWS * D * 2;
+  const uint32_t sDO = sQ + 2 * TILE;
+  const uint32_t sStat = sDO + 2 * TILE;   // [2 stages][lse, delta][64]
+  const float* stat = reinterpret_cast<const float*>(
+      smem_raw + (sStat - smem_u32(smem_raw)));
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int bkv = blockIdx.x;
+  const int b = bkv / KVH;
+  const int kvh = bkv % KVH;
+  const int group = H / KVH;
+  const int k0 = blockIdx.y * TC_ROWS;   // the first key tiles see most
+  const int offset = Sk - Sq;
+  const size_t q_stride = size_t(H) * D;
+  const size_t kv_stride = size_t(KVH) * D;
+  const size_t kvoff = (size_t(b) * Sk * KVH + kvh) * D;
+
+  // q tiles [qt_begin, n_qt) of each query head of the group can see a
+  // key of this block
+  const int n_qt = (Sq + TC_TILE - 1) / TC_TILE;
+  const int qt_begin = causal ? min(n_qt, max(0, k0 - offset) / TC_TILE) : 0;
+  const int per_head = n_qt - qt_begin;
+  const int n_it = group * per_head;
+
+  // the stage's Q / dout tiles and their rows' lse and delta
+  auto load_stage = [&](int it, uint32_t st) {
+    const int hh = kvh * group + it / per_head;
+    const int r0 = (qt_begin + it % per_head) * TC_TILE;
+    const size_t qoff = (size_t(b) * Sq * H + hh) * D;
+    load_tile<TC_TILE, D>(sQ + st * TILE, q + qoff, r0, Sq, q_stride, tid,
+                          TC_THREADS);
+    load_tile<TC_TILE, D>(sDO + st * TILE, dout + qoff, r0, Sq, q_stride,
+                          tid, TC_THREADS);
+    if (tid < 2 * TC_TILE) {
+      const int r = tid % TC_TILE;
+      const float* src = (tid < TC_TILE ? lse : delta) +
+                         (size_t(b) * H + hh) * Sq + min(r0 + r, Sq - 1);
+      cp_async4(sStat + (st * 2 * TC_TILE + tid) * 4, src, r0 + r < Sq);
+    }
+  };
+
+  load_tile<TC_ROWS, D>(sK, k + kvoff, k0, Sk, kv_stride, tid, TC_THREADS);
+  load_tile<TC_ROWS, D>(sV, v + kvoff, k0, Sk, kv_stride, tid, TC_THREADS);
+  if (n_it > 0) load_stage(0, 0);
+  cp_async_commit();
+
+  const int kw0 = k0 + 64 * wg;                    // this warpgroup's keys
+  const int key0 = kw0 + 16 * warp + lane / 4;     // this thread's, +8
+  const float scale_log2 = scale * LOG2E;
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    adk[i] = 0.f;
+    adv[i] = 0.f;
+  }
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) {
+      load_stage(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t st = it & 1;
+    const uint32_t qt = sQ + st * TILE;
+    const uint32_t dot = sDO + st * TILE;
+    const float* lse_s = stat + st * 2 * TC_TILE;
+    const float* delta_s = lse_s + TC_TILE;
+    const int r0 = (qt_begin + it % per_head) * TC_TILE;
+    if (!causal || kw0 <= r0 + TC_TILE - 1 + offset) {   // uniform
+      float sT[32], dpT[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<TC_TILE>(sT, desc_k<TC_ROWS>(sK, 64 * wg, kk),
+                          desc_k<TC_TILE>(qt, 0, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<TC_TILE>(dpT, desc_k<TC_ROWS>(sV, 64 * wg, kk),
+                          desc_k<TC_TILE>(dot, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sT);
+      fence_regs(dpT);
+      const bool edge = r0 + TC_TILE > Sq || kw0 + 64 > Sk ||
+                        (causal && kw0 + 63 > r0 + offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int lr = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);   // column
+        float p = exp2_approx(fmaf(sT[i], scale_log2, -lse_s[lr] * LOG2E));
+        if (edge) {
+          const int key = key0 + 8 * ((i >> 1) & 1);
+          const int row = r0 + lr;
+          if (row >= Sq || key >= Sk || (causal && key > row + offset)) {
+            p = 0.f;
+          }
+        }
+        sT[i] = p;                             // P^T
+        dpT[i] = p * (dpT[i] - delta_s[lr]);   // dS^T
+      }
+      uint32_t ap[TC_TILE / 16][4], ads[TC_TILE / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TC_TILE / 16; ++kk) {
+        pack_a(sT, kk, ap[kk]);
+        pack_a(dpT, kk, ads[kk]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TC_TILE / 16; ++kk) {
+        wgmma_rs<D>(adv, ap[kk], desc_mn<TC_TILE>(dot, kk), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < TC_TILE / 16; ++kk) {
+        wgmma_rs<D>(adk, ads[kk], desc_mn<TC_TILE>(qt, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(adv);
+      fence_regs(adk);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= Sk) continue;
+    const size_t off = kvoff + size_t(key) * kv_stride;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      const int c = 8 * jn + 2 * (lane & 3);
+      *reinterpret_cast<uint32_t*>(dk + off + c) = pack_bf16(
+          adk[4 * jn + 2 * r] * scale, adk[4 * jn + 2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + off + c) =
+          pack_bf16(adv[4 * jn + 2 * r], adv[4 * jn + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      void* dq, void* dk, void* dv, float* delta, int B,
+                      int Sq, int Sk, int H, int KVH, float scale, int causal,
+                      cudaStream_t stream) {
+  constexpr int smem = tc_bwd_smem<D>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_tc_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+    }
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  using bf16 = __nv_bfloat16;
+  const bf16* qq = static_cast<const bf16*>(q);
+  const bf16* kk = static_cast<const bf16*>(k);
+  const bf16* vv = static_cast<const bf16*>(v);
+  const dim3 grid_q(B * H, (Sq + TC_ROWS - 1) / TC_ROWS);
+  flash_bwd_dq_tc_kernel<D><<<grid_q, TC_THREADS, smem, stream>>>(
+      qq, kk, vv, static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, Sq,
+      Sk, H, KVH, scale, causal);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_k(B * KVH, (Sk + TC_ROWS - 1) / TC_ROWS);
+  flash_bwd_dkv_tc_kernel<D><<<grid_k, TC_THREADS, smem, stream>>>(
+      qq, kk, vv, static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H, KVH, scale,
+      causal);
+  return cudaGetLastError();
+}
+
+// The route of a dense launch: bf16 at D = 64 or 128 takes the tensor
+// cores (kernels.flash_attention.tensor_core_route is its mirror).
+bool tc_route(int dtype, int D) { return dtype == 1 && (D == 64 || D == 128); }
+
 bool bad_shape(int B, int Sq, int Sk, int H, int KVH, int D) {
   return B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH != 0 ||
          D % 16 != 0 || D < 16 || D > 128 || B * H > 65535 ||
@@ -508,6 +927,15 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          int Sq, int Sk, int H, int KVH, int D, float scale,
                          int causal, int dtype, void* stream) {
   if (bad_shape(B, Sq, Sk, H, KVH, D)) return cudaErrorInvalidValue;
+  if (tc_route(dtype, D)) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* l = static_cast<const float*>(lse);
+    float* dl = static_cast<float*>(delta);
+    return D == 64 ? launch_tc<64>(q, k, v, o, dout, l, dq, dk, dv, dl, B,
+                                   Sq, Sk, H, KVH, scale, causal, s)
+                   : launch_tc<128>(q, k, v, o, dout, l, dq, dk, dv, dl, B,
+                                    Sq, Sk, H, KVH, scale, causal, s);
+  }
   const DenseMask mask{Sq, Sk, Sk - Sq, causal};
   return dispatch(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H,
                   KVH, D, scale, mask, dtype, stream);

@@ -25,25 +25,34 @@
 // floating-point operations against (4*B*S*H*D) bytes, far above the
 // card's ~295 operations per byte, so it is bounded by arithmetic (for
 // packed rows, by the visible pairs only: the sum over documents of
-// n(n+1)/2). This first version does that arithmetic on the CUDA cores in
-// float32 (no tensor cores yet, so it runs well under the bf16 peak). Its
-// design keeps the traffic at the minimum all the same: each block loads
-// every key and value tile it needs once into shared memory and reuses it
-// for 32 query rows; the S x S score matrix never leaves registers; causal
-// blocks stop at the diagonal and segment blocks skip tiles of other
-// documents, so masked tiles cost nothing. The per-key segment ids and
-// positions of a tile are staged in shared memory beside it, the query's
-// own stay in registers. Tensor-core (wgmma) tiles are the next step.
+// n(n+1)/2). Two routes:
+// - tensor cores (entry flash_fwd, bfloat16 at D = 64 or 128, the route
+//   of every main path; flash_fwd_tc_kernel below): wgmma products in
+//   bf16 with float32 sums, 128 query rows a block, K / V tiles of 128
+//   keys through TMA rings, a producer warpgroup and two consumers;
+// - CUDA cores (flash_fwd for float32 or another D, and flash_fwd_seg):
+//   the arithmetic in float32, 32 query rows a block. Its traffic is at
+//   the minimum all the same: each block loads every key and value tile
+//   it needs once into shared memory and reuses it for 32 query rows;
+//   the S x S score matrix never leaves registers; causal blocks stop at
+//   the diagonal and segment blocks skip tiles of other documents, so
+//   masked tiles cost nothing. The per-key segment ids and positions of
+//   a tile are staged in shared memory beside it, the query's own stay
+//   in registers. The segment route on the tensor cores comes next.
 //
 // Layout: q [B, Sq, H, D], k / v [B, Sk, KVH, D], out like q, all
 // contiguous, float32 or bfloat16; lse float32 [B, H, Sq]; segment ids and
 // positions int32 [B, Sq] (query side) and [B, Sk] (key side). D is a
 // multiple of 16, at most 128.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -332,6 +341,361 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
   return cudaErrorInvalidValue;
 }
 
+// ---- the tensor-core route: bfloat16, D = 64 or 128, dense mask --------
+//
+// One block holds 128 query rows of one (batch, head) in three warpgroups
+// (FlashAttention-3's roles):
+// - the producer (warpgroup 2, setmaxnreg 24): one thread loads the Q
+//   tile once and streams the K and V tiles of 128 keys through two
+//   2-stage rings in shared memory with TMA (128-byte swizzle; rows past
+//   the end read as zeros). Each stage has a "full" mbarrier (the copies'
+//   bytes) and an "empty" one (all 256 consumer threads are done with it:
+//   a K tile after its S product, a V tile after its P V product);
+// - two consumer warpgroups of 64 rows each (setmaxnreg 240). Per key
+//   tile: S = Q K^T is a wgmma with both operands in shared memory
+//   (K-major); the online softmax runs on S in registers (base-2
+//   exponentials, one FFMA a score with scale * log2(e)); P is rounded to
+//   bf16 in registers and O += P V is a wgmma with A from registers and V
+//   as an MN-major B from shared memory. The warpgroups take turns at
+//   issuing S (named barriers), so that one's softmax overlaps the
+//   other's products; O is rescaled only when a row maximum moved.
+// Only tiles that cross the diagonal or the ragged edge mask element by
+// element. Blocks go out longest first (the last q tiles of every head,
+// which see the most keys).
+constexpr int TC_CONSUMERS = 256;
+constexpr int TC_THREADS = TC_CONSUMERS + 128;
+constexpr int TC_BM = 128;   // query rows a block
+constexpr int TC_BN = 128;   // keys a tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+// named barriers 1 and 2: the warpgroups' turns
+constexpr int BAR_TURN = 1;
+// stages of the K and V rings; byte offsets of their mbarriers (one a
+// stage) from the first
+constexpr int STAGES = 2;
+constexpr uint32_t KFULL = 0, KEMPTY = 8 * STAGES, VFULL = 16 * STAGES,
+                   VEMPTY = 24 * STAGES, QFULL = 32 * STAGES;
+
+template <int D>
+constexpr int tc_fwd_smem() {
+  // Q, STAGES x (K, V), the mbarriers, alignment
+  return (TC_BM + 2 * STAGES * TC_BN) * D * 2 + 32 * STAGES + 8 + 1024;
+}
+
+// The consumer warpgroups' part of flash_fwd_tc_kernel.
+template <int D>
+__device__ __forceinline__ void consume(
+    uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bars,
+    __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int b, int h, int q0, int n_kt, int Sq, int Sk,
+    int H, float scale_log2, int causal) {
+  using namespace hopper;
+  constexpr uint32_t TILE = TC_BN * D * 2;
+  constexpr int NO = D / 2;
+  const int tid = threadIdx.x;
+  const int wg = warpgroup_index();
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int bh = b * H + h;
+  const int offset = Sk - Sq;
+  const size_t q_stride = size_t(H) * D;
+  mbar_wait(bars + QFULL, 0);
+
+  // this thread's two rows (accumulator registers with (i / 2) % 2 = 0, 1)
+  const int wg_first = q0 + 64 * wg;
+  const int row0 = wg_first + 16 * warp + lane / 4;
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  uint32_t a[TC_BN / 16][4];   // P_{j-1} as bf16 A fragments
+
+  // scores times scale * log2(e) = (flip ? -s : s) times sl2 > 0; FLT_MIN
+  // for a zero scale keeps a masked -inf from becoming -inf * 0 = NaN
+  const bool flip = scale_log2 < 0.f;
+  const float sl2 = fmaxf(fabsf(scale_log2), FLT_MIN);
+
+  // No wgmma and no wait sits under a condition (ptxas serialises every
+  // wgmma of a kernel whose products it cannot pair with their waits),
+  // and a warpgroup's P V is done before its next S is issued: with S, P
+  // and O all live across products the consumers need more than the
+  // 168 registers a thread ptxas allocates them.
+  auto issue_s = [&](int j, float(&s)[64]) {   // S_j = Q K_j^T
+    const uint32_t kt = sK + (j % STAGES) * TILE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<TC_BN>(s, desc_k<TC_BM>(sQ, 64 * wg, kk),
+                      desc_k<TC_BN>(kt, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int j) {   // O += P_j V_j
+    const uint32_t vt = sV + (j % STAGES) * TILE;
+    fence_regs(o);
+    fence_regs(a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) {
+      wgmma_rs<D>(o, a[kk], desc_mn<TC_BN>(vt, kk), 1);
+    }
+    wgmma_commit();
+  };
+  auto wait_k = [&](int j) {
+    mbar_wait(bars + KFULL + 8 * (j % STAGES), (j / STAGES) & 1);
+  };
+  auto wait_v = [&](int j) {
+    mbar_wait(bars + VFULL + 8 * (j % STAGES), (j / STAGES) & 1);
+  };
+  // the warpgroups take turns at issuing products; warpgroup 1 does not
+  // hand back its last turn, which nobody takes
+  auto take_turn = [&]() { bar_sync(BAR_TURN + wg, TC_CONSUMERS); };
+  auto pass_turn = [&](bool last) {
+    if (wg == 0 || !last) bar_arrive(BAR_TURN + 1 - wg, TC_CONSUMERS);
+  };
+  // the online softmax of tile j on S_j (done): P_j in s, alpha the
+  // factor of O's rescale; K_j is released
+  auto softmax = [&](int j, float(&s)[64], float(&alpha)[2]) {
+    fence_regs(s);
+    mbar_arrive(bars + KEMPTY + 8 * (j % STAGES));
+    if (flip) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] = -s[i];
+    }
+    const int k0 = j * TC_BN;
+    const bool edge = k0 + TC_BN > Sk ||
+                      (causal && k0 + TC_BN - 1 > wg_first + offset);
+    // the row maximum of the raw scores (a positive scale commutes with
+    // max); each probability is then one FFMA and one exponential
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (edge) {
+        const int row = row0 + 8 * ((i >> 1) & 1);
+        const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        if (col >= Sk || (causal && col > row + offset)) s[i] = -INFINITY;
+      }
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * sl2);
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;   // no -inf - -inf
+      alpha[r] = exp2_approx(m[r] - mu[r]);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2_approx(fmaf(s[i], sl2, -mu[r]));
+      l[r] += s[i];
+    }
+  };
+
+  if (n_kt > 0) {   // uniform over the block
+    if (wg == 1) bar_arrive(BAR_TURN, TC_CONSUMERS);   // warpgroup 0 first
+    for (int j = 0; j < n_kt; ++j) {
+      float s[64], alpha[2];
+      wait_k(j);
+      take_turn();
+      issue_s(j, s);
+      pass_turn(j == n_kt - 1);
+      wgmma_wait<0>();
+      softmax(j, s, alpha);
+      // alpha is exactly 1 where a row's maximum did not move: most tiles
+      // after the first few skip the rescale (decided a warp at a time)
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < TC_BN / 16; ++kk) pack_a(s, kk, a[kk]);
+      wait_v(j);
+      issue_pv(j);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(a);
+      mbar_arrive(bars + VEMPTY + 8 * (j % STAGES));
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    __nv_bfloat16* orow = out + (size_t(b) * Sq + row) * q_stride + h * D;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * jn + 2 * (lane & 3)) =
+          pack_bf16(o[4 * jn + 2 * r] * inv, o[4 * jn + 2 * r + 1] * inv);
+    }
+    if ((lane & 3) == 0) {
+      lse[size_t(bh) * Sq + row] =
+          l[r] > 0.f ? (m[r] + __log2f(l[r])) * LN2 : -INFINITY;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    int Sq, int Sk, int H, int KVH, float scale_log2,
+                    int causal) {
+  using namespace hopper;
+  constexpr uint32_t TILE = TC_BN * D * 2;   // bytes of a K or V tile
+  constexpr uint32_t HALF = TC_BN * 128;     // bytes of a 64-column block
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + TC_BM * D * 2;
+  const uint32_t sV = sK + STAGES * TILE;
+  // mbarriers, one a stage: K full, K empty, V full, V empty; Q full
+  const uint32_t bars = sV + STAGES * TILE;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BM;   // longest first
+  const int offset = Sk - Sq;
+  const int q_last = min(q0 + TC_BM, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_last + offset + 1) : Sk;
+  const int n_kt = k_end > 0 ? (k_end + TC_BN - 1) / TC_BN : 0;
+
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(bars + KFULL + 8 * st, 1);
+      mbar_init(bars + KEMPTY + 8 * st, TC_CONSUMERS);
+      mbar_init(bars + VFULL + 8 * st, 1);
+      mbar_init(bars + VEMPTY + 8 * st, TC_CONSUMERS);
+    }
+    mbar_init(bars + QFULL, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = warpgroup_index();
+  if (wg == 2) {   // the producer
+    regs_dealloc<24>();
+    if (tid == TC_CONSUMERS) {
+      mbar_expect_tx(bars + QFULL, TC_BM * D * 2);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sQ + c * TC_BM * 128, &q_map, bars + QFULL, 64 * c, h,
+                    q0, b);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % STAGES;
+        const uint32_t parity = (j / STAGES - 1) & 1;   // the stage's last use
+        if (j >= STAGES) mbar_wait(bars + KEMPTY + 8 * st, parity);
+        mbar_expect_tx(bars + KFULL + 8 * st, TILE);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sK + st * TILE + c * HALF, &k_map, bars + KFULL + 8 * st,
+                      64 * c, kvh, j * TC_BN, b);
+        }
+        if (j >= STAGES) mbar_wait(bars + VEMPTY + 8 * st, parity);
+        mbar_expect_tx(bars + VFULL + 8 * st, TILE);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sV + st * TILE + c * HALF, &v_map, bars + VFULL + 8 * st,
+                      64 * c, kvh, j * TC_BN, b);
+        }
+      }
+    }
+  } else {
+    regs_alloc<240>();
+    consume<D>(sQ, sK, sV, bars, out, lse, b, h, q0, n_kt, Sq, Sk, H,
+               scale_log2, causal);
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so
+// that the library links nothing beyond the CUDA runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A TMA map of a contiguous bf16 [B, S, NH, D] tensor whose box is 64
+// columns of `rows` rows of one (batch, head), swizzled by 128 bytes: the
+// shared-memory layout of one 64-column block of a tile (hopper_mma.cuh).
+// Rows past S read as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int NH,
+                int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(NH), cuuint64_t(S),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(NH) * D * 2,
+                                 cuuint64_t(S) * NH * D * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
+                      float* lse, int B, int Sq, int Sk, int H, int KVH,
+                      float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = tc_fwd_smem<D>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  CUtensorMap q_map, k_map, v_map;
+  if (!tensor_map(&q_map, q, B, Sq, H, D, TC_BM) ||
+      !tensor_map(&k_map, k, B, Sk, KVH, D, TC_BN) ||
+      !tensor_map(&v_map, v, B, Sk, KVH, D, TC_BN)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(B * H, (Sq + TC_BM - 1) / TC_BM);
+  flash_fwd_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H,
+      KVH, scale * LOG2E, causal);
+  return cudaGetLastError();
+}
+
+// The route of a dense launch: bf16 at D = 64 or 128 takes the tensor
+// cores (kernels.flash_attention.tensor_core_route is its mirror).
+bool tc_route(int dtype, int D) { return dtype == 1 && (D == 64 || D == 128); }
+
 bool bad_shape(int B, int Sq, int Sk, int H, int KVH, int D) {
   return B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH != 0 ||
          D % 16 != 0 || D < 16 || D > 128;
@@ -345,6 +709,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int KVH, int D, float scale, int causal, int dtype,
                          void* stream) {
   if (bad_shape(B, Sq, Sk, H, KVH, D)) return cudaErrorInvalidValue;
+  if (tc_route(dtype, D)) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* l = static_cast<float*>(lse);
+    return D == 64 ? launch_tc<64>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale,
+                                   causal, s)
+                   : launch_tc<128>(q, k, v, out, l, B, Sq, Sk, H, KVH,
+                                    scale, causal, s);
+  }
   const DenseMask mask{Sq, Sk, Sk - Sq, causal};
   return dispatch(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale, mask,
                   nullptr, dtype, stream);

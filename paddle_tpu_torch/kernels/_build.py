@@ -4,9 +4,10 @@ Each source under ``paddle_tpu_torch/csrc/`` exports a plain C function
 and is compiled on its own by ``nvcc`` for ``sm_90a`` into a shared
 library, loaded with ``ctypes``. Nothing includes PyTorch's headers, so a
 build takes seconds. Libraries land in ``build/kernels/`` at the repo
-root (listed in ``.gitignore``), named by a hash of source and flags, so
-an edited source is rebuilt and an unchanged one is reused. The build
-runs at first use; ``build_all`` starts one ``nvcc`` per source at once.
+root (listed in ``.gitignore``), named by a hash of source, shared
+headers and flags, so an edited source is rebuilt and an unchanged one is
+reused. The build runs at first use; ``build_all`` starts one ``nvcc`` per
+source at once.
 """
 from __future__ import annotations
 
@@ -46,7 +47,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the headers
+    beside it (``csrc/*.cuh``) and the flags."""
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -5,8 +5,10 @@
 ``paged_quant`` / ``rms`` / ``rms_bwd`` count CUDA kernel launches, one
 per wrapper call that launches, added by the wrapper right where it
 launches (a backward's dq / dkv pair, and the RMSNorm backward's row and
-column passes, count as one; ``varlen*`` are the segment-masked,
-sequence-packed kernels, the reference's names; ``paged_quant`` is the
+column passes, count as one; ``flash_tc`` / ``flash_bwd_tc`` count the
+dense launches among ``flash`` / ``flash_bwd`` that took the tensor-core
+route, ``flash_attention.tensor_core_route``; ``varlen*`` are the
+segment-masked, sequence-packed kernels, the reference's names; ``paged_quant`` is the
 decode kernel's int8 arm); ``flash_ref`` / ``flash_bwd_ref`` /
 ``varlen_ref`` / ``varlen_bwd_ref`` / ``paged_ref`` / ``paged_quant_ref``
 / ``rms_ref`` / ``rms_bwd_ref`` count calls that took the plain PyTorch
@@ -19,8 +21,8 @@ dispatcher gives them the plain math, the reference's one shape rule (a
 CUDA tensor launches or raises there). Plain integers, so
 a run can show which path it took."""
 
-DISPATCH_STATS = {"flash": 0, "flash_ref": 0,
-                  "flash_bwd": 0, "flash_bwd_ref": 0,
+DISPATCH_STATS = {"flash": 0, "flash_tc": 0, "flash_ref": 0,
+                  "flash_bwd": 0, "flash_bwd_tc": 0, "flash_bwd_ref": 0,
                   "varlen": 0, "varlen_ref": 0,
                   "varlen_bwd": 0, "varlen_bwd_ref": 0,
                   "paged": 0, "paged_ref": 0,

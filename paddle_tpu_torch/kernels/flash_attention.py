@@ -3,8 +3,13 @@
 ``flash_attention_fwd`` and ``flash_attention_bwd`` are the wrappers of
 the hand-written CUDA kernels ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu``, which replace the reference's Pallas
-``_fwd_kernel`` and ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``. For a CUDA
-tensor each launches its kernel or raises; only a CPU tensor takes the
+``_fwd_kernel`` and ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``. Each C
+entry has two routes, and ``tensor_core_route`` is the choice: bfloat16 at
+head dim 64 or 128 runs on the tensor cores (``wgmma``, bf16 operands,
+float32 sums, P and dS rounded to bf16 before their products, counted
+``flash_tc`` / ``flash_bwd_tc`` besides ``flash`` / ``flash_bwd``);
+float32, and any other head dim, runs the float32 CUDA-core kernels. For
+a CUDA tensor each launches its kernel or raises; only a CPU tensor takes the
 plain version (``flash_attention_ref``, ``flash_attention_bwd_ref``). The
 forward's plain version has the math of ``sdpa_reference`` (and gives a
 zero row, where the reference gives NaN, for a row that sees no key, as
@@ -40,7 +45,7 @@ from ._stats import DISPATCH_STATS
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "flash_attention_bwd", "flash_attention_bwd_ref", "supported",
-           "supported_bwd", "flash_attention_segments",
+           "supported_bwd", "tensor_core_route", "flash_attention_segments",
            "flash_attention_segments_fwd", "flash_attention_segments_bwd",
            "segment_attention_ref", "segment_attention_bwd_ref",
            "segments_supported", "count_skipped_blocks", "SEG_BLOCK"]
@@ -58,6 +63,13 @@ def supported(q, k, v) -> bool:
             and d % 16 == 0 and 16 <= d <= 128 and sq >= 1 and sk >= 1
             and q.dtype in _DTYPES and k.dtype == q.dtype
             and v.dtype == q.dtype)
+
+
+def tensor_core_route(q) -> bool:
+    """Whether a dense launch on ``q`` (a shape ``supported`` takes) runs
+    the tensor-core kernels: bfloat16 at head dim 64 or 128, the choice
+    the C entries ``flash_fwd`` / ``flash_bwd`` make (``tc_route``)."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128)
 
 
 def flash_attention_ref(q, k, v, *, causal=False, scale=None):
@@ -114,6 +126,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None):
                         float(scale), int(bool(causal)), _DTYPES[q.dtype],
                         torch.cuda.current_stream(q.device).cuda_stream)
     DISPATCH_STATS["flash"] += 1
+    DISPATCH_STATS["flash_tc"] += tensor_core_route(q)
     _build.check_launch("flash_fwd", err)
     return out, lse
 
@@ -200,6 +213,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=False,
                         int(bool(causal)), _DTYPES[q.dtype],
                         torch.cuda.current_stream(q.device).cuda_stream)
     DISPATCH_STATS["flash_bwd"] += 1
+    DISPATCH_STATS["flash_bwd_tc"] += tensor_core_route(q)
     _build.check_launch("flash_bwd", err)
     return dq, dk, dv
 

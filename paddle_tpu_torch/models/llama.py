@@ -491,14 +491,12 @@ def adamw_init(params, moment_dtype=torch.float32):
 @torch.no_grad()
 def _adamw_update(params, grads, opt_state, lr, *, b1=0.9, b2=0.95,
                   eps=1e-8, wd=0.1):
-    """One AdamW step, ``optimizer.adam_update_`` of every leaf with the
-    bias corrections rounded in float32 as the reference's are. Updates
-    ``params`` and the moments in place (one leaf at a time, so the
-    float32 temporaries never exceed one leaf) and returns ``(params,
-    opt_state)``. The reference computes ``p - lr * (u + wd * p)``; the
-    shared rule computes ``(p - lr * u) - lr * wd * p``, the eager
-    reference's order: equal in exact arithmetic, they may differ in the
-    last float32 bit."""
+    """One AdamW step, ``optimizer.adam_update_`` of every leaf in the
+    reference's coupled order ``p - lr * (u + wd * p)`` (decay from the
+    float32 weight before the step), with the bias corrections rounded in
+    float32 as the reference's are. Updates ``params`` and the moments in
+    place (one leaf at a time, so the float32 temporaries never exceed
+    one leaf) and returns ``(params, opt_state)``."""
     step = opt_state["step"] + 1
     t = np.float32(step)
     bc1 = float(np.float32(1.0) - np.float32(b1) ** t)
@@ -506,7 +504,7 @@ def _adamw_update(params, grads, opt_state, lr, *, b1=0.9, b2=0.95,
     for p, g, m, v in zip(_leaves(params), _leaves(grads),
                           _leaves(opt_state["m"]), _leaves(opt_state["v"])):
         p.copy_(adam_update_(p, g, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
-                             bc1=bc1, bc2=bc2, wd=wd))
+                             bc1=bc1, bc2=bc2, wd=wd, coupled=True))
     opt_state["step"] = step
     return params, opt_state
 

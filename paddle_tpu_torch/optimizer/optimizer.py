@@ -34,18 +34,24 @@ def _round_to(value: float, dtype) -> float:
 
 @torch.no_grad()
 def adam_update_(w, g, m1, m2, *, lr, b1, b2, eps, bc1, bc2, wd=0.0,
-                 decay_from=None):
+                 decay_from=None, coupled=False):
     """One Adam step of one tensor, the rule of both ``Adam`` / ``AdamW``
     and the functional train step (``models.llama._adamw_update``).
 
     Updates the moments ``m1`` and ``m2`` in place (their math in float32
     whatever type they are stored in) and returns the new weight in
-    float32: ``w - lr * u`` with ``u = (m1 / bc1) / (sqrt(m2 / bc2) +
-    eps)``, then, for ``wd``, the decoupled decay ``- lr * wd *
-    decay_from`` from the weight before the step (``w`` in float32 by
-    default; in ``decay_from``'s own type otherwise, ``lr * wd`` rounded
-    to it). Each caller passes its own bias corrections ``bc1``, ``bc2``,
-    rounded as its reference rounds them."""
+    float32, with ``u = (m1 / bc1) / (sqrt(m2 / bc2) + eps)`` and the
+    decay ``wd`` taken from the weight before the step, in one of two
+    orders that are equal in exact arithmetic but round differently:
+
+    - ``coupled=False`` (eager ``Adam`` / ``AdamW``): ``w - lr * u``, then
+      ``- lr * wd * decay_from`` (``w`` in float32 by default; in
+      ``decay_from``'s own type otherwise, ``lr * wd`` rounded to it);
+    - ``coupled=True`` (the functional step): ``w - lr * (u + wd * w)``
+      with ``w`` in float32 (``decay_from`` is not taken).
+
+    Each caller passes its own bias corrections ``bc1``, ``bc2``, rounded
+    as its reference rounds them."""
     gf = g.float()
     m1f, m2f = m1.float(), m2.float()       # m1 and m2 when float32
     m1f.mul_(b1).add_(gf * (1 - b1))
@@ -54,6 +60,11 @@ def adam_update_(w, g, m1, m2, *, lr, b1, b2, eps, bc1, bc2, wd=0.0,
         m1.copy_(m1f)
         m2.copy_(m2f)
     u = (m1f / bc1).div_((m2f / bc2).sqrt_().add_(eps))
+    if coupled:
+        wf = w.float()
+        if wd:
+            u.add_(wf * wd)
+        return wf - u.mul_(lr)
     new = w - u.mul_(lr)                    # float32 by promotion
     if wd:
         src = w.float() if decay_from is None else decay_from

@@ -34,7 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def _classify(name: str) -> str:
     n = name.lower()
-    if "flash_fwd_kernel" in n:
+    if "flash_fwd" in n:      # either route (flash_fwd_[tc_]kernel)
         return "flash_fwd"
     if "paged_decode_kernel" in n:
         # the int8 arm is the kernel instantiated on int8_t pages

@@ -61,7 +61,7 @@ def _classify(kernel: str, ranges) -> str:
         return "segment"
     if "flash_bwd" in n:
         return "flash_bwd"
-    if "flash_fwd_kernel" in n:
+    if "flash_fwd" in n:      # either route (flash_fwd_[tc_]kernel)
         return "flash_fwd"
     if any(k in n for k in ("rms_fwd_kernel", "rms_bwd_kernel",
                             "rms_dw_kernel")):

@@ -79,6 +79,62 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, sq, sk, causal):
         assert torch.all(got[0][:, :sq - sk] == 0)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(48, 48), (33, 70), (70, 33), (200, 200),
+                                   (1000, 1000)])
+def test_tensor_core_kernels_match_plain(dev, d, causal, sq, sk):
+    """The tensor-core route (bf16, D 64 / 128) against the plain
+    versions: out within 2e-2, lse within 1e-3 on rows that see a key,
+    dq / dk / dv within 2e-2 of each reference's max |.|; rows that see
+    no key get a zero output, lse = -inf and an exact zero dq."""
+    g = torch.Generator(device=dev).manual_seed(d + sq + sk)
+    q, k, v, dout = (torch.randn(2, s, h, d, generator=g, device=dev)
+                     .bfloat16() for s, h in ((sq, 8), (sk, 2), (sk, 2),
+                                              (sq, 8)))
+    K.reset_dispatch_stats()
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    st = K.dispatch_stats()
+    assert st["flash"] == st["flash_tc"] == 1, st
+    assert st["flash_bwd"] == st["flash_bwd_tc"] == 1, st
+    ref, ref_lse = FA.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    seen = torch.isfinite(ref_lse)
+    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-3, rtol=0)
+    assert torch.all(lse[~seen] == float("-inf"))
+    want = FA.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= 2e-2 * float(w.float().abs().max()), err
+    if causal and sq > sk:
+        assert torch.all(out[:, :sq - sk] == 0)
+        assert torch.all(got[0][:, :sq - sk] == 0)
+
+
+@pytest.mark.parametrize("scale", [-0.1, 0.0, 0.2])
+def test_tensor_core_kernels_take_any_scale(dev, scale):
+    """The tensor-core forward takes each row's maximum on the raw scores:
+    a negative or zero scale must give the plain version's result too."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, dout = (torch.randn(2, 200, h, 128, generator=g, device=dev)
+                     .bfloat16() for h in (8, 2, 2, 8))
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                 scale=scale)
+    torch.cuda.synchronize()
+    ref, ref_lse = FA.flash_attention_ref(q, k, v, causal=True, scale=scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    want = FA.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True,
+                                      scale=scale)
+    for a, w in zip(got, want):
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= 2e-2 * float(w.float().abs().max()), err
+
+
 def test_attention_gradient_flows_on_the_card(dev):
     """A loss through sdpa_raw on CUDA tensors reaches q, k and v through
     the backward kernels, as it does through the plain version."""
