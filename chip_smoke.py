@@ -25,7 +25,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    full-precision kernel on the densely dequantized pages;
    layer_grads: one bf16 layer at Llama-3-8B widths, forward and
    backward, with attention through the kernels and through the plain
-   version: the q, k, v gradients must agree within ``BWD_TOL``;
+   version: the q, k, v gradients must agree within ``BWD_TOL``; then
+   the same with the packed trace's first two rows of segment ids and
+   positions, through the segment kernels;
 3. parity: a ``llama_tiny`` float32 model with one set of weights is
    served on the card (kernels) and on the CPU (plain versions); the
    greedy tokens must be equal, through queueing and preemption;
@@ -84,15 +86,20 @@ then the eager path's ``[8192, 4096]`` bfloat16, where ``dw`` must be
 the same bit for bit in two launches) and times kernel, plain version
 and ``torch.nn.functional.rms_norm`` (forward, and its autograd
 backward), and it holds the segment (packed) kernels to their plain
-versions at 7 shapes, to the dense kernels on a one-document row, and at
-the packed trace's shape checks that the forward kernel computes exactly
-the tiles ``count_skipped_blocks`` leaves, then times both beside
-``scaled_dot_product_attention`` with a block-diagonal causal mask.
+versions at 11 shapes (bf16 at head dim 64 and 128 on the tensor cores,
+up to a ragged S 1000 with a padding tail; float32 on the CUDA cores),
+to the dense kernels on a one-document row, and at the packed trace's
+shape checks that the forward kernel computes exactly the tiles
+``count_skipped_blocks`` leaves at the route's tiles (``seg_tiles``),
+then times both beside ``scaled_dot_product_attention`` with a
+block-diagonal causal mask.
 
 Every bf16 main path (``main``, ``main_kvq``, ``main_wq``, ``train``,
 the padded pass of ``train_packed``, ``eager_train``) must launch the
 dense flash kernels only on their tensor-core route (``flash_tc ==
-flash``, ``flash_bwd_tc == flash_bwd``). The build phase prints the
+flash``, ``flash_bwd_tc == flash_bwd``), and the packed pass of
+``train_packed`` the segment kernels only on theirs (``varlen_tc ==
+varlen``, ``varlen_bwd_tc == varlen_bwd``). The build phase prints the
 registers and spills of each tensor-core kernel from ``ptxas``.
 
 Then it prints the kernel records as one JSON line, the card's name and
@@ -163,15 +170,20 @@ def _err(a, b):
 def _ptxas_entries(log):
     """``(kernel, registers, spill store bytes, spill load bytes)`` of
     each entry function in a ``ptxas -v`` log; a template kernel is
-    named ``name<arg>`` from its mangled name."""
+    named ``name<D>`` or ``name<D,Policy>`` from its mangled name."""
     import re
     out, kernel, spills = [], None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"\d((?:flash|paged|rms)\w*?_kernel)(?:ILi(\d+)E)?",
-                          mangled)
-            kernel = (f"{m.group(1)}<{m.group(2)}>" if m and m.group(2)
+            m = re.search(r"\d((?:flash|paged|rms)\w*?_kernel)"
+                          r"(?:ILi(\d+)E(?:NS_(\d+)(\w+))?)?", mangled)
+            args = []
+            if m and m.group(2):
+                args.append(m.group(2))
+            if m and m.group(3):          # a policy: its name's length
+                args.append(m.group(4)[:int(m.group(3))])
+            kernel = (f"{m.group(1)}<{','.join(args)}>" if args
                       else m.group(1) if m else mangled)
         elif kernel and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -818,14 +830,16 @@ def phase_flash_bwd(torch, dev, batch, seq):
             "library_ms": library_ms}
 
 
-def phase_layer_grads(torch, dev):
+def phase_layer_grads(torch, dev, packed=False):
     """One bf16 layer at Llama-3-8B widths, one forward and backward on
     ``[2, TRAIN_SEQ]``, with its attention through the kernels and then
-    through the plain version (autograd through ``flash_attention_ref``):
-    the gradients of the layer's q, k and v (after rope, as attention
-    sees them) must agree within ``BWD_TOL`` of each one's max |.|. This
-    catches layout and stride faults that the kernel-level checks, on
-    tensors made for them, cannot."""
+    through the plain version (autograd through ``flash_attention_ref``,
+    or, ``packed``, through ``segment_attention_ref`` with the packed
+    trace's first two rows of segment ids and positions): the gradients
+    of the layer's q, k and v (after rope, as attention sees them) must
+    agree within ``BWD_TOL`` of each one's max |.|, and the kernels must
+    take the tensor-core route. This catches layout and stride faults
+    that the kernel-level checks, on tensors made for them, cannot."""
     import numpy as np
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import flash_attention as FA
@@ -834,6 +848,11 @@ def phase_layer_grads(torch, dev):
     params = L.init_params(cfg, seed=0, device=dev)
     lp = L.layer(params, 0)
     b, s = 2, TRAIN_SEQ
+    segs = ()
+    if packed:
+        trace = packed_trace()[1]
+        segs = tuple(torch.as_tensor(trace[key][:b], device=dev)
+                     for key in ("segment_ids", "positions"))
     ids = torch.as_tensor(np.random.default_rng(5).integers(
         0, cfg.vocab_size, (b, s)), device=dev)
     x = params["embed"][ids].detach().requires_grad_()
@@ -853,13 +872,17 @@ def phase_layer_grads(torch, dev):
             seen.extend((q, k, v))
             if name == "kernel":
                 return kernel_attn(q, k, v, **kw)
+            if packed:
+                seg, pos = kw["segment_ids"], kw["positions"]
+                return FA.segment_attention_ref(q, k, v, seg, seg, pos, pos,
+                                                causal=kw["is_causal"])[0]
             return FA.flash_attention_ref(q, k, v,
                                           causal=kw["is_causal"])[0]
 
         L.sdpa_raw = attn
         try:
             K.reset_dispatch_stats()
-            L._block(x, lp, cos, sin, cfg).backward(cot)
+            L._block(x, lp, cos, sin, cfg, *segs).backward(cot)
             torch.cuda.synchronize()
         finally:
             L.sdpa_raw = kernel_attn
@@ -868,14 +891,16 @@ def phase_layer_grads(torch, dev):
     rel = [_err(g, w) / float(w.float().abs().max())
            for g, w in zip(grads["kernel"], grads["plain"])]
     st = launches["kernel"]
+    fwd, bwd = ("varlen", "varlen_bwd") if packed else ("flash", "flash_bwd")
     _say("layer_grads", widths="llama_3_8b", batch=f"{b}x{s}",
+         layout="packed_trace_rows_0_1" if packed else "dense",
          dq_rel_err=rel[0], dk_rel_err=rel[1], dv_rel_err=rel[2],
-         tol=BWD_TOL, flash=st["flash"], flash_tc=st["flash_tc"],
-         flash_bwd=st["flash_bwd"], flash_bwd_tc=st["flash_bwd_tc"])
+         tol=BWD_TOL, **{key: st[key] for key in (fwd, f"{fwd}_tc", bwd,
+                                                  f"{bwd}_tc")})
     assert max(rel) <= BWD_TOL, rel
-    assert st["flash"] == st["flash_tc"] == 1, st
-    assert st["flash_bwd"] == st["flash_bwd_tc"] == 1, st
-    assert launches["plain"]["flash"] == 0, launches["plain"]
+    assert st[fwd] == st[f"{fwd}_tc"] == 1, st
+    assert st[bwd] == st[f"{bwd}_tc"] == 1, st
+    assert launches["plain"][fwd] == 0, launches["plain"]
 
 
 def _tc_route_only(launches):
@@ -883,6 +908,13 @@ def _tc_route_only(launches):
     tensor-core route."""
     assert launches["flash_tc"] == launches["flash"], launches
     assert launches["flash_bwd_tc"] == launches["flash_bwd"], launches
+
+
+def _seg_tc_route_only(launches):
+    """A bf16 packed main path launches the segment kernels only on their
+    tensor-core route."""
+    assert launches["varlen_tc"] == launches["varlen"], launches
+    assert launches["varlen_bwd_tc"] == launches["varlen_bwd"], launches
 
 
 def packed_trace():
@@ -942,27 +974,36 @@ def _seg_layout(torch, dev, b, sq, sk, kind):
 
 def phase_flash_seg(torch, dev):
     """The segment (sequence-packed) kernels against their plain versions
-    on the same card tensors, then at the packed trace's shape: the skip
-    count, out / lse and grads held to the plain versions, and times of
+    on the same card tensors, each launch on the route it must take
+    (bf16 at D 64 / 128 on the tensor cores, float32 on the CUDA cores),
+    then at the packed trace's shape: the skip count at the route's
+    tiles, out / lse and grads held to the plain versions, and times of
     kernel, plain version and SDPA with a block-diagonal causal mask."""
+    from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(9)
     H, KVH, D = 32, 8, 128
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def inputs(b, sq, sk, dtype):
-        return tuple(torch.randn(b, s, h, D, generator=gen, device=dev)
+    def inputs(b, sq, sk, dtype, d=D):
+        return tuple(torch.randn(b, s, h, d, generator=gen, device=dev)
                      .to(dtype) for s, h in ((sq, H), (sk, KVH), (sk, KVH),
                                              (sq, H)))
 
     def check(q, k, v, dout, segs, is_causal, tol, **what):
-        """Both kernels against the plain versions; exact zeros on
-        padding rows (out, dq) and padding keys (dk, dv)."""
+        """Both kernels against the plain versions, each launched once on
+        its route; exact zeros on padding rows (out, dq) and padding keys
+        (dk, dv)."""
+        K.reset_dispatch_stats()
         out, lse = FA.flash_attention_segments_fwd(q, k, v, *segs,
                                                    causal=is_causal)
         grads = FA.flash_attention_segments_bwd(q, k, v, out, lse, dout,
                                                 *segs, causal=is_causal)
         torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        tc = int(FA.tensor_core_route(q))
+        assert st["varlen"] == st["varlen_bwd"] == 1, st
+        assert st["varlen_tc"] == st["varlen_bwd_tc"] == tc, st
         ref, ref_lse = FA.segment_attention_ref(q, k, v, *segs,
                                                 causal=is_causal)
         err = _err(out, ref)
@@ -982,7 +1023,8 @@ def phase_flash_seg(torch, dev):
                  and bool((grads[0][pad_q] == 0).all())
                  and bool((grads[1][pad_k] == 0).all())
                  and bool((grads[2][pad_k] == 0).all()))
-        _say("kernels", kernel="flash_seg", **what, max_abs_err=err,
+        _say("kernels", kernel="flash_seg", **what,
+             route="tc" if tc else "cuda_cores", max_abs_err=err,
              lse_err=lerr, bwd_max_abs_err=max(berrs), bwd_rel_err=rel,
              tol=tol, padding_rows=int(pad_q.sum()),
              padding_keys=int(pad_k.sum()), padding_exact_zeros=zeros)
@@ -993,19 +1035,24 @@ def phase_flash_seg(torch, dev):
         return out, lse, grads, err, max(berrs)
 
     worst_f = worst_b = 0.0
-    for sq, sk, causal, dtype, tol, kind in (
-            (96, 96, True, bf16, FLASH_TOL, "packed"),
-            (160, 160, False, bf16, FLASH_TOL, "packed"),
-            (512, 512, True, bf16, FLASH_TOL, "packed"),
-            (96, 96, True, f32, FLASH_F32_TOL, "packed"),
-            (64, 64, True, bf16, FLASH_TOL, "random"),
-            (70, 90, True, bf16, FLASH_TOL, "cu"),
-            (70, 90, False, f32, FLASH_F32_TOL, "cu")):
-        q, k, v, dout = inputs(2, sq, sk, dtype)
+    for sq, sk, d, causal, dtype, tol, kind in (
+            (96, 96, D, True, bf16, FLASH_TOL, "packed"),
+            (160, 160, D, False, bf16, FLASH_TOL, "packed"),
+            (512, 512, D, True, bf16, FLASH_TOL, "packed"),
+            (96, 96, D, True, f32, FLASH_F32_TOL, "packed"),
+            (64, 64, D, True, bf16, FLASH_TOL, "random"),
+            (70, 90, D, True, bf16, FLASH_TOL, "cu"),
+            (70, 90, D, False, f32, FLASH_F32_TOL, "cu"),
+            # ragged S with a padding tail, at both tensor-core head dims
+            (1000, 1000, D, True, bf16, FLASH_TOL, "packed"),
+            (1000, 1000, 64, True, bf16, FLASH_TOL, "packed"),
+            (1000, 1000, 64, False, bf16, FLASH_TOL, "packed"),
+            (300, 260, 64, True, bf16, FLASH_TOL, "cu")):
+        q, k, v, dout = inputs(2, sq, sk, dtype, d)
         segs = _seg_layout(torch, dev, 2, sq, sk, kind)
         *_, ef, eb = check(q, k, v, dout, segs, causal, tol, Sq=sq, Sk=sk,
-                           causal=causal, dtype=str(dtype).split(".")[-1],
-                           layout=kind)
+                           D=d, causal=causal,
+                           dtype=str(dtype).split(".")[-1], layout=kind)
         if dtype == bf16:
             worst_f, worst_b = max(worst_f, ef), max(worst_b, eb)
 
@@ -1015,6 +1062,7 @@ def phase_flash_seg(torch, dev):
     seg = torch.zeros(2, 200, dtype=torch.int32, device=dev)
     pos = torch.arange(200, dtype=torch.int32, device=dev).expand(2, 200)
     segs = (seg, seg, pos.contiguous(), pos.contiguous())
+    K.reset_dispatch_stats()
     out, lse = FA.flash_attention_segments_fwd(q, k, v, *segs, causal=True)
     dense, dense_lse = FA.flash_attention_fwd(q, k, v, causal=True)
     grads = FA.flash_attention_segments_bwd(q, k, v, out, lse, dout, *segs,
@@ -1022,13 +1070,17 @@ def phase_flash_seg(torch, dev):
     dense_g = FA.flash_attention_bwd(q, k, v, dense, dense_lse, dout,
                                      causal=True)
     torch.cuda.synchronize()
+    st = K.dispatch_stats()
     err, lerr = _err(out, dense), _err(lse, dense_lse)
     rel = max(_err(a, b) / float(b.float().abs().max())
               for a, b in zip(grads, dense_g))
     _say("kernels", kernel="flash_seg", case="one_document_vs_dense",
-         max_abs_err=err, lse_err=lerr, bwd_rel_err=rel, tol=FLASH_TOL)
+         route="tc", max_abs_err=err, lse_err=lerr, bwd_rel_err=rel,
+         tol=FLASH_TOL)
     assert err <= FLASH_TOL and lerr <= LSE_TOL and rel <= BWD_TOL, \
         "flash_seg: a one-document row differs from the dense kernels"
+    assert all(st[key] == 1 for key in ("varlen_tc", "varlen_bwd_tc",
+                                        "flash_tc", "flash_bwd_tc")), st
 
     # the packed trace: [7, 2048] at Llama-3-8B's attention widths
     _, packed = packed_trace()
@@ -1040,12 +1092,21 @@ def phase_flash_seg(torch, dev):
     ran = torch.zeros(1, dtype=torch.int32, device=dev)
     FA.flash_attention_segments_fwd(q, k, v, *segs, causal=True,
                                     tiles_ran=ran)
-    skipped, total = FA.count_skipped_blocks(*segs, FA.SEG_BLOCK,
-                                             FA.SEG_BLOCK, True)
+    tiles = FA.seg_tiles(q)
+    skipped, total = FA.count_skipped_blocks(*segs, *tiles, True)
     ran_per_head = int(ran) / H
     _say("kernels", kernel="flash_seg_fwd", shape=f"B{b}xS{s}",
-         tiles_total=total, tiles_skipped_count=skipped,
-         tiles_run_kernel_per_head=ran_per_head)
+         tiles=f"{tiles[0]}x{tiles[1]}", tiles_total=total,
+         tiles_skipped_count=skipped, tiles_run_kernel_per_head=ran_per_head)
+    # what coarser tiles cost on this trace: tiles run of the total, and
+    # pairs computed over visible pairs (a count, on the CPU)
+    cpu_segs = [x.cpu() for x in segs]
+    visible = int(FA._seg_mask(*cpu_segs, True).sum())
+    for tq, tk in ((32, 32), (64, 64), (128, 128), (128, 64), (64, 128)):
+        sk_, tot_ = FA.count_skipped_blocks(*cpu_segs, tq, tk, True)
+        _say("kernels", kernel="flash_seg", trace_tiles=f"{tq}x{tk}",
+             tiles_run=tot_ - sk_, tiles_total=tot_,
+             pairs_computed_over_visible=(tot_ - sk_) * tq * tk / visible)
     assert ran_per_head == total - skipped, \
         "flash_seg_fwd: the tiles run differ from count_skipped_blocks"
     out, lse, grads, ef, eb = check(q, k, v, dout, segs, True, FLASH_TOL,
@@ -1053,12 +1114,18 @@ def phase_flash_seg(torch, dev):
     worst_f, worst_b = max(worst_f, ef), max(worst_b, eb)
     del grads
     torch.cuda.empty_cache()
+    # the kernels on stats computed once, as the main path's backward
+    # reuses its forward's; the stats' own time beside them
+    stats = [FA._tile_stats(segs, FA.seg_tiles(q, backward=bwd))
+             for bwd in (False, True)]
+    stats_ms = _time_ms(lambda: [FA._tile_stats(segs, FA.seg_tiles(
+        q, backward=bwd)) for bwd in (False, True)], 10)
     fwd_ms = _time_ms(lambda: FA.flash_attention_segments_fwd(
-        q, k, v, *segs, causal=True), 10)
+        q, k, v, *segs, causal=True, stats=stats[0]), 10)
     fwd_plain_ms = _time_ms(lambda: FA.segment_attention_ref(
         q, k, v, *segs, causal=True), 3)
     bwd_ms = _time_ms(lambda: FA.flash_attention_segments_bwd(
-        q, k, v, out, lse, dout, *segs, causal=True), 5)
+        q, k, v, out, lse, dout, *segs, causal=True, stats=stats[1]), 5)
     bwd_plain_ms = _time_ms(lambda: FA.segment_attention_bwd_ref(
         q, k, v, out, lse, dout, *segs, causal=True), 3)
     torch.cuda.empty_cache()
@@ -1096,10 +1163,11 @@ def phase_flash_seg(torch, dev):
              bwd_ops, bwd_bytes, worst_b)):
         t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
-        _say("kernels", kernel=name, shape=f"B{b}xS{s}", ms=ms,
-             plain_ms=plain, library_ms=lib, bound_ms=bound,
-             visible_pairs_per_head=visible, gflop=ops / 1e9,
-             mbytes=nbytes / 1e6, tflops=ops / ms / 1e9)
+        _say("kernels", kernel=name, shape=f"B{b}xS{s}", route="tc",
+             ms=ms, stats_ms=stats_ms, plain_ms=plain, library_ms=lib,
+             bound_ms=bound,
+             share_of_bound=bound / ms, visible_pairs_per_head=visible,
+             gflop=ops / 1e9, mbytes=nbytes / 1e6, tflops=ops / ms / 1e9)
         recs.append({"name": name, "route": "cuda",
                      "source": "paddle_tpu_torch/csrc/" + (
                          "flash_fwd.cu" if name.endswith("fwd")
@@ -1309,8 +1377,11 @@ def phase_train_packed(torch, dev, card):
     rows, seq = packed["ids"].shape
     useful = int((packed["labels"] >= 0).sum())
     seg, pos = packed["segment_ids"], packed["positions"]
+    # at the tiles the forward kernel runs on the path's bf16 q
+    q_like = torch.empty(1, 1, cfg.num_attention_heads, cfg.head_dim,
+                         dtype=torch.bfloat16, device="meta")
     skipped, total = FA.count_skipped_blocks(seg, seg, pos, pos,
-                                             FA.SEG_BLOCK, FA.SEG_BLOCK, True)
+                                             *FA.seg_tiles(q_like), True)
     _say("train_packed", layers=TRAIN_LAYERS,
          params_b=round(nparams / 1e9, 3), vocab=cfg.vocab_size,
          remat=cfg.remat_policy, fused_ce=cfg.fused_ce,
@@ -1372,6 +1443,7 @@ def phase_train_packed(torch, dev, card):
     assert losses[-1] < losses[0], losses
     assert launches["varlen"] == 2 * TRAIN_LAYERS * steps, launches
     assert launches["varlen_bwd"] == TRAIN_LAYERS * steps, launches
+    _seg_tc_route_only(launches)
     assert launches["flash"] == 0 and launches["flash_bwd"] == 0, launches
     assert all(v == 0 for k, v in launches.items() if k.endswith("_ref")), \
         launches
@@ -1571,6 +1643,8 @@ def main() -> int:
     flash_bwd = phase_flash_bwd(torch, dev, TRAIN_BATCH, TRAIN_SEQ)
     torch.cuda.empty_cache()
     phase_layer_grads(torch, dev)
+    torch.cuda.empty_cache()
+    phase_layer_grads(torch, dev, packed=True)
     torch.cuda.empty_cache()
     seg_fwd, seg_bwd = phase_flash_seg(torch, dev)
     torch.cuda.empty_cache()

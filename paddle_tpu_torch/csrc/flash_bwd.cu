@@ -13,7 +13,7 @@
 // right aligned causal, query row r sees keys c <= r + Sk - Sq, or none)
 // or SegmentMask (entry flash_bwd_seg; same segment id >= 0 and, when
 // causal, key position <= query position, segment-local; tile pairs that
-// the forward's tile extrema rule out are skipped):
+// the tile extrema at the route's tiles rule out are skipped):
 //
 //   p  = exp(q.k * scale - lse)          recomputed, never stored
 //   dp = dout . v
@@ -43,15 +43,18 @@
 // pairs only) against ~(8 B S H D + 2 B S KVH D) bytes: far above ~295
 // operations per byte, so arithmetic bounds it. Both routes recompute
 // q k^T and dout v^T in both kernels (7 products) and need no atomics:
-// - tensor cores (entry flash_bwd, bfloat16 at D = 64 or 128, the route
-//   of every main path; the *_tc_kernel pair below): wgmma in bf16 with
-//   float32 sums;
-// - CUDA cores (flash_bwd for float32 or another D, and flash_bwd_seg):
-//   float32 arithmetic, 32 rows or keys a block. Its traffic is small all
-//   the same: every tile a block loads into shared memory serves 32 rows
-//   or keys, the score matrix never leaves registers, and causal blocks
-//   skip the tiles above the diagonal, segment blocks those of other
-//   documents. The segment route on the tensor cores comes next.
+// - tensor cores (bfloat16 at D = 64 or 128, the route of every main
+//   path, chosen alike by both entries, tc_route; the *_tc_kernel pair
+//   below, over the DenseTC or SegmentTC policy): wgmma in bf16 with
+//   float32 sums. A segment block lists once the 64 x 64 tile pairs it
+//   runs, each warpgroup computes only its own, and only pairs that hold
+//   a document boundary, a diagonal or the ragged edge mask element by
+//   element;
+// - CUDA cores (float32 or another D): float32 arithmetic, 32 rows or
+//   keys a block. Its traffic is small all the same: every tile a block
+//   loads into shared memory serves 32 rows or keys, the score matrix
+//   never leaves registers, and causal blocks skip the tiles above the
+//   diagonal, segment blocks the 32 x 32 tiles of other documents.
 //
 // Layout: q / o / dout / dq [B, Sq, H, D], k / v / dk / dv [B, Sk, KVH, D],
 // all contiguous, float32 or bfloat16; lse and delta float32 [B, H, Sq];
@@ -64,6 +67,7 @@
 #include <stdint.h>
 
 #include "hopper_mma.cuh"
+#include "segment_tiles.cuh"
 
 namespace {
 
@@ -168,8 +172,7 @@ struct SegmentMask {
   const int* seg_k;   // [B, Sk]
   const int* pos_q;   // [B, Sq]
   const int* pos_k;   // [B, Sk]
-  // [6, B, stride]: per q tile segment min / max, per k tile segment
-  // min / max, per q tile position max, per k tile position min
+  // [8, B, stride] at BM x BN (segment_tiles.cuh); rows 0-5 decide
   const int* stats;
   int B, Sq, Sk, stride;
   int causal;
@@ -222,16 +225,10 @@ struct SegmentMask {
     return Sk;
   }
   __device__ __forceinline__ int row_begin(int b, int k0) const { return 0; }
-  // the reference's _seg_run_predicate (see flash_fwd.cu)
+  // the reference's _seg_run_predicate (seg::runs)
   __device__ __forceinline__ bool tile_runs(int b, int qt, int kt) const {
-    const size_t plane = size_t(B) * stride;
-    const int* st = stats + size_t(b) * stride;
-    const int qsmin = st[qt], qsmax = st[plane + qt];
-    const int ksmin = st[2 * plane + kt], ksmax = st[3 * plane + kt];
-    bool run = qsmax >= 0 && ksmax >= 0 && max(qsmin, 0) <= ksmax &&
-               max(ksmin, 0) <= qsmax;
-    if (causal) run = run && st[5 * plane + kt] <= st[4 * plane + qt];
-    return run;
+    return seg::runs(stats + size_t(b) * stride, size_t(B) * stride, qt, kt,
+                     causal);
   }
 };
 
@@ -498,7 +495,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// ---- the tensor-core route: bfloat16, D = 64 or 128, dense mask --------
+// ---- the tensor-core route: bfloat16, D = 64 or 128 --------------------
 //
 // The same two kernels on wgmma, with bf16 operands and float32 sums; P
 // and dS are rounded to bf16 before they enter a product, as SDPA's
@@ -511,14 +508,20 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 //   K as an MN-major B). Writes delta for its rows first, as above.
 // - dkv: 128 keys of one (batch, kv head), 64 keys a warpgroup. K and V
 //   stay in shared memory; the GQA group's query heads and their 64-row
-//   Q / dout tiles (with lse and delta) stream through the ring from the
-//   diagonal down. It computes the transposes, S^T = K Q^T and dP^T =
-//   V dout^T, so that both accumulating products take A from registers:
-//   dV += P^T dout and dK += dS^T Q, dout and Q as MN-major B operands
-//   (FlashAttention-3's layout).
-// Both launch their longest tiles first. Masked entries get p = 0 by a
-// select, so rows that see no key get exact zero dq and keys no row sees
-// exact zero dk / dv.
+//   Q / dout tiles (with lse and delta) stream through the ring. It
+//   computes the transposes, S^T = K Q^T and dP^T = V dout^T, so that both
+//   accumulating products take A from registers: dV += P^T dout and
+//   dK += dS^T Q, dout and Q as MN-major B operands (FlashAttention-3's
+//   layout).
+// The mask is a policy (DenseTC, SegmentTC below): it says which tiles a
+// block walks (a list; dkv walks it once for each query head of its
+// group), whether each warpgroup computes a tile at all (one test a
+// warpgroup, around both its products and their waits), whether it masks
+// the tile element by element, and which pairs of such a tile are
+// visible. Masked entries get p = 0 by a select, so rows that see no key
+// get exact zero dq and keys no row sees exact zero dk / dv; a block
+// with an empty list writes zeros. Dense blocks launch their longest
+// tiles first.
 constexpr int TC_THREADS = 256;
 constexpr int TC_ROWS = 128;   // dq: query rows a block; dkv: keys a block
 constexpr int TC_TILE = 64;    // dq: keys a tile; dkv: query rows a tile
@@ -527,12 +530,184 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <int D>
 constexpr int tc_bwd_smem() {
   // two resident tiles of TC_ROWS rows, a 2-stage ring of two TC_TILE-row
-  // tiles, lse and delta for up to TC_ROWS rows in each of 2 stages,
-  // alignment
+  // tiles, 2 KB of row statistics and staged segment ids, alignment
   return (2 * TC_ROWS + 4 * TC_TILE) * D * 2 + 4 * TC_ROWS * 4 + 1024;
 }
 
-template <int D>
+// The dense mask: bottom-right-aligned causal (query row r sees keys
+// c <= r + offset), or none. A dq block walks key tiles 0 .. count - 1,
+// up to the diagonal of its last row; a dkv block the q tiles from the
+// diagonal down.
+struct DenseTC {
+  int Sq, Sk, offset;   // offset = Sk - Sq
+  int causal;
+  static constexpr bool kStages = false;
+  struct Idx { int i; };   // a row or a key is its index
+  using Row = Idx;
+  using Key = Idx;
+
+  int extra_smem() const { return 0; }
+  // the tiles of a dq block of rows q0 ..: entries first .. first + count
+  __device__ __forceinline__ int count_dq(const int*, int q0) const {
+    const int q_last = min(q0 + TC_ROWS, Sq) - 1;
+    const int k_end = causal ? min(Sk, q_last + offset + 1) : Sk;
+    return k_end > 0 ? (k_end + TC_TILE - 1) / TC_TILE : 0;
+  }
+  // q tiles [first, n_qt) of each query head can see a key >= k0
+  __device__ __forceinline__ int count_dkv(const int*, int k0,
+                                           int& first) const {
+    const int n_qt = (Sq + TC_TILE - 1) / TC_TILE;
+    first = causal ? min(n_qt, max(0, k0 - offset) / TC_TILE) : 0;
+    return n_qt - first;
+  }
+  __device__ __forceinline__ int entry(const int*, int j) const { return j; }
+  __device__ __forceinline__ static int tile(int e) { return e; }
+  // a warpgroup's 64 rows from rows0 against 64 keys from keys0
+  __device__ __forceinline__ bool runs(int e, int wg, int rows0,
+                                       int keys0) const {
+    return !causal || keys0 <= rows0 + 63 + offset;
+  }
+  __device__ __forceinline__ bool edge(int e, int wg, int rows0,
+                                       int keys0) const {
+    return rows0 + 64 > Sq || keys0 + 64 > Sk ||
+           (causal && keys0 + 63 > rows0 + offset);
+  }
+  __device__ __forceinline__ Row row(int b, int i) const { return {i}; }
+  __device__ __forceinline__ Key key(int b, int i) const { return {i}; }
+  // the staged ids of entry c of a tile that starts at i0
+  __device__ __forceinline__ Idx at(const int*, int c, int i0) const {
+    return {i0 + c};
+  }
+  __device__ __forceinline__ void stage_keys(uint32_t, const int*, int b,
+                                             int k0, int tid) const {}
+  __device__ __forceinline__ void stage_rows(uint32_t, const int*, int b,
+                                             int r0, int tid) const {}
+  __device__ __forceinline__ bool visible(Row r, Key c) const {
+    return r.i < Sq && c.i < Sk && (!causal || c.i <= r.i + offset);
+  }
+};
+
+// The segment mask (SegmentMask's, on the tensor cores). warp 0 lists
+// the tiles that either warpgroup runs at 64 x 64 (stats at TC_TILE x
+// TC_TILE), with each warpgroup's flags (segment_tiles.cuh). The tile's
+// keys (dq) or rows (dkv) have their (segment, position) staged beside
+// the tile, seg[64] then pos[64]; the block's own stay in registers. Rows
+// past Sq have segment -1, keys past Sk -2, which no row has.
+struct SegmentTC {
+  const int* seg_q;   // [B, Sq]
+  const int* seg_k;   // [B, Sk]
+  const int* pos_q;   // [B, Sq]
+  const int* pos_k;   // [B, Sk]
+  const int* stats;   // [8, B, stride] at TC_TILE x TC_TILE
+  int B, Sq, Sk, stride;
+  int causal;
+  static constexpr bool kStages = true;
+  struct Tok { int seg, pos; };
+  using Row = Tok;
+  using Key = Tok;
+
+  int extra_smem() const {
+    const int n = max((Sq + TC_TILE - 1) / TC_TILE,
+                      (Sk + TC_TILE - 1) / TC_TILE);
+    return 4 * (1 + n);
+  }
+  __device__ __forceinline__ void build_dq(int* list, int b, int qt0,
+                                           int tid) const {
+    if (tid >= 32) return;
+    const int* st = stats + size_t(b) * stride;
+    const size_t plane = size_t(B) * stride;
+    const int nq = (Sq + TC_TILE - 1) / TC_TILE;
+    seg::compact(list, (Sk + TC_TILE - 1) / TC_TILE, tid, [&](int kt) {
+      int e = 0;
+      for (int w = 0; w < 2 && qt0 + w < nq; ++w) {
+        const int qt = qt0 + w;
+        e |= seg::flags(st, plane, qt, kt, causal,
+                        (qt + 1) * TC_TILE > Sq || (kt + 1) * TC_TILE > Sk,
+                        w);
+      }
+      return e != 0 ? kt | e : -1;
+    });
+  }
+  __device__ __forceinline__ void build_dkv(int* list, int b, int kt0,
+                                            int tid) const {
+    if (tid >= 32) return;
+    const int* st = stats + size_t(b) * stride;
+    const size_t plane = size_t(B) * stride;
+    const int nk = (Sk + TC_TILE - 1) / TC_TILE;
+    seg::compact(list, (Sq + TC_TILE - 1) / TC_TILE, tid, [&](int qt) {
+      int e = 0;
+      for (int w = 0; w < 2 && kt0 + w < nk; ++w) {
+        const int kt = kt0 + w;
+        e |= seg::flags(st, plane, qt, kt, causal,
+                        (qt + 1) * TC_TILE > Sq || (kt + 1) * TC_TILE > Sk,
+                        w);
+      }
+      return e != 0 ? qt | e : -1;
+    });
+  }
+  __device__ __forceinline__ int count_dq(const int* list, int q0) const {
+    return list[0];
+  }
+  __device__ __forceinline__ int count_dkv(const int* list, int k0,
+                                           int& first) const {
+    first = 0;
+    return list[0];
+  }
+  __device__ __forceinline__ int entry(const int* list, int j) const {
+    return list[1 + j];
+  }
+  __device__ __forceinline__ static int tile(int e) { return e & seg::TILE; }
+  __device__ __forceinline__ bool runs(int e, int wg, int rows0,
+                                       int keys0) const {
+    return (e & (seg::RUN0 << wg)) != 0;
+  }
+  __device__ __forceinline__ bool edge(int e, int wg, int rows0,
+                                       int keys0) const {
+    return (e & (seg::EDGE0 << wg)) != 0;
+  }
+  __device__ __forceinline__ Row row(int b, int i) const {
+    if (i >= Sq) return {-1, 0};
+    const size_t o = size_t(b) * Sq + i;
+    return {seg_q[o], pos_q[o]};
+  }
+  __device__ __forceinline__ Key key(int b, int i) const {
+    if (i >= Sk) return {-2, 0};
+    const size_t o = size_t(b) * Sk + i;
+    return {seg_k[o], pos_k[o]};
+  }
+  __device__ __forceinline__ Tok at(const int* staged, int c, int i0) const {
+    return {staged[c], staged[TC_TILE + c]};
+  }
+  // threads 0 .. 127 of the block: entry tid % 64 of seg (tid < 64) or
+  // pos, by cp.async from [B, S] ids; past S, `pad` and 0 by a store
+  __device__ __forceinline__ static void stage(uint32_t dst, const int* ids,
+                                               const int* pos, int b, int S,
+                                               int i0, int pad, int tid) {
+    if (tid >= 2 * TC_TILE) return;
+    const int i = i0 + tid % TC_TILE;
+    if (i < S) {
+      hopper::cp_async4(dst + 4 * tid,
+                        (tid < TC_TILE ? ids : pos) + size_t(b) * S + i, true);
+    } else {
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst + 4 * tid),
+                   "r"(tid < TC_TILE ? pad : 0)
+                   : "memory");
+    }
+  }
+  __device__ __forceinline__ void stage_keys(uint32_t dst, const int*, int b,
+                                             int k0, int tid) const {
+    stage(dst, seg_k, pos_k, b, Sk, k0, -2, tid);
+  }
+  __device__ __forceinline__ void stage_rows(uint32_t dst, const int*, int b,
+                                             int r0, int tid) const {
+    stage(dst, seg_q, pos_q, b, Sq, r0, -1, tid);
+  }
+  __device__ __forceinline__ bool visible(Row r, Key c) const {
+    return r.seg >= 0 && r.seg == c.seg && (!causal || c.pos <= r.pos);
+  }
+};
+
+template <int D, typename Mask>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
@@ -542,7 +717,7 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const float* __restrict__ lse,
                        __nv_bfloat16* __restrict__ dq,
                        float* __restrict__ delta, int Sq, int Sk, int H,
-                       int KVH, float scale, int causal) {
+                       int KVH, float scale, const Mask mask) {
   using namespace hopper;
   constexpr uint32_t TILE = TC_TILE * D * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -555,6 +730,11 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
       smem_raw + (sV + 2 * TILE - smem_u32(smem_raw)));
   float* lse2_s = rowstat;              // lse * log2(e), [TC_ROWS]
   float* delta_s = rowstat + TC_ROWS;   // [TC_ROWS]
+  // the policy's: staged ids of each K / V stage [2][seg, pos][64], then
+  // the tile list
+  const uint32_t sKeys = sV + 2 * TILE + 2 * TC_ROWS * 4;
+  const int* keys_s = reinterpret_cast<const int*>(rowstat + 2 * TC_ROWS);
+  int* list = reinterpret_cast<int*>(rowstat + 4 * TC_ROWS);
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -565,22 +745,29 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = bh % H;
   const int kvh = h / (H / KVH);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;   // longest first
-  const int offset = Sk - Sq;
-  const int q_last = min(q0 + TC_ROWS, Sq) - 1;
-  const int k_end = causal ? min(Sk, q_last + offset + 1) : Sk;
-  const int n_kt = k_end > 0 ? (k_end + TC_TILE - 1) / TC_TILE : 0;
+  if constexpr (Mask::kStages) {
+    mask.build_dq(list, b, q0 / TC_TILE, tid);
+    __syncthreads();
+  }
+  const int n_kt = mask.count_dq(list, q0);
   const size_t q_stride = size_t(H) * D;
   const size_t kv_stride = size_t(KVH) * D;
   const size_t qoff = (size_t(b) * Sq * H + h) * D;
   const __nv_bfloat16* kg = k + (size_t(b) * Sk * KVH + kvh) * D;
   const __nv_bfloat16* vg = v + (size_t(b) * Sk * KVH + kvh) * D;
+  // the K / V tiles of list entry j, and their keys' ids, into stage st
+  auto load_kv = [&](int j, uint32_t st) {
+    const int k0 = Mask::tile(mask.entry(list, j)) * TC_TILE;
+    load_tile<TC_TILE, D>(sK + st * TILE, kg, k0, Sk, kv_stride, tid,
+                          TC_THREADS);
+    load_tile<TC_TILE, D>(sV + st * TILE, vg, k0, Sk, kv_stride, tid,
+                          TC_THREADS);
+    mask.stage_keys(sKeys + st * 2 * TC_TILE * 4, list, b, k0, tid);
+  };
 
   load_tile<TC_ROWS, D>(sQ, q + qoff, q0, Sq, q_stride, tid, TC_THREADS);
   load_tile<TC_ROWS, D>(sDO, dout + qoff, q0, Sq, q_stride, tid, TC_THREADS);
-  if (n_kt > 0) {
-    load_tile<TC_TILE, D>(sK, kg, 0, Sk, kv_stride, tid, TC_THREADS);
-    load_tile<TC_TILE, D>(sV, vg, 0, Sk, kv_stride, tid, TC_THREADS);
-  }
+  if (n_kt > 0) load_kv(0, 0);
   cp_async_commit();
 
   // delta = rowsum(dout * o) of the block's rows, two threads a row
@@ -617,6 +804,8 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int lr0 = 64 * wg + 16 * warp + lane / 4;   // this thread's, local
   const float lse2[2] = {lse2_s[lr0], lse2_s[lr0 + 8]};
   const float dl[2] = {delta_s[lr0], delta_s[lr0 + 8]};
+  const typename Mask::Row rows[2] = {mask.row(b, q0 + lr0),
+                                      mask.row(b, q0 + lr0 + 8)};
   const float scale_log2 = scale * LOG2E;
 
   float acc[D / 2];
@@ -625,11 +814,7 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int j = 0; j < n_kt; ++j) {
     if (j + 1 < n_kt) {
-      const uint32_t st = (j + 1) & 1;
-      load_tile<TC_TILE, D>(sK + st * TILE, kg, (j + 1) * TC_TILE, Sk,
-                            kv_stride, tid, TC_THREADS);
-      load_tile<TC_TILE, D>(sV + st * TILE, vg, (j + 1) * TC_TILE, Sk,
-                            kv_stride, tid, TC_THREADS);
+      load_kv(j + 1, (j + 1) & 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -639,8 +824,10 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     const uint32_t kt = sK + (j & 1) * TILE;
     const uint32_t vt = sV + (j & 1) * TILE;
-    const int k0 = j * TC_TILE;
-    if (!causal || k0 <= rw0 + 63 + offset) {   // uniform: warpgroup
+    const int* kid = keys_s + (j & 1) * 2 * TC_TILE;
+    const int e = mask.entry(list, j);
+    const int k0 = Mask::tile(e) * TC_TILE;
+    if (mask.runs(e, wg, rw0, k0)) {   // uniform: warpgroup
       float s[32], dp[32];
       wgmma_fence();
 #pragma unroll
@@ -657,18 +844,14 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      const bool edge = rw0 + 64 > Sq || k0 + TC_TILE > Sk ||
-                        (causal && k0 + TC_TILE - 1 > rw0 + offset);
+      const bool edge = mask.edge(e, wg, rw0, k0);
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int r = (i >> 1) & 1;
         float p = exp2_approx(s[i] * scale_log2 - lse2[r]);
         if (edge) {
-          const int row = q0 + lr0 + 8 * r;
-          const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-          if (row >= Sq || col >= Sk || (causal && col > row + offset)) {
-            p = 0.f;
-          }
+          const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          if (!mask.visible(rows[r], mask.at(kid, c, k0))) p = 0.f;
         }
         s[i] = p * (dp[i] - dl[r]);   // dS
       }
@@ -702,7 +885,7 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, typename Mask>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -712,7 +895,7 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
-                        int H, int KVH, float scale, int causal) {
+                        int H, int KVH, float scale, const Mask mask) {
   using namespace hopper;
   constexpr uint32_t TILE = TC_TILE * D * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -724,6 +907,12 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t sStat = sDO + 2 * TILE;   // [2 stages][lse, delta][64]
   const float* stat = reinterpret_cast<const float*>(
       smem_raw + (sStat - smem_u32(smem_raw)));
+  // the policy's: staged ids of each Q stage [2][seg, pos][64], then the
+  // tile list
+  const uint32_t sRows = sStat + 4 * TC_TILE * 4;
+  const int* rows_s = reinterpret_cast<const int*>(stat + 4 * TC_TILE);
+  int* list = reinterpret_cast<int*>(
+      smem_raw + (sStat + 8 * TC_TILE * 4 - smem_u32(smem_raw)));
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -734,22 +923,25 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int kvh = bkv % KVH;
   const int group = H / KVH;
   const int k0 = blockIdx.y * TC_ROWS;   // the first key tiles see most
-  const int offset = Sk - Sq;
   const size_t q_stride = size_t(H) * D;
   const size_t kv_stride = size_t(KVH) * D;
   const size_t kvoff = (size_t(b) * Sk * KVH + kvh) * D;
+  if constexpr (Mask::kStages) {
+    mask.build_dkv(list, b, k0 / TC_TILE, tid);
+    __syncthreads();
+  }
 
-  // q tiles [qt_begin, n_qt) of each query head of the group can see a
-  // key of this block
-  const int n_qt = (Sq + TC_TILE - 1) / TC_TILE;
-  const int qt_begin = causal ? min(n_qt, max(0, k0 - offset) / TC_TILE) : 0;
-  const int per_head = n_qt - qt_begin;
+  // list entries [first, first + per_head) of each query head of the
+  // group can see a key of this block
+  int first;
+  const int per_head = mask.count_dkv(list, k0, first);
   const int n_it = group * per_head;
 
-  // the stage's Q / dout tiles and their rows' lse and delta
+  // the stage's Q / dout tiles and their rows' lse, delta and ids
   auto load_stage = [&](int it, uint32_t st) {
     const int hh = kvh * group + it / per_head;
-    const int r0 = (qt_begin + it % per_head) * TC_TILE;
+    const int r0 = Mask::tile(mask.entry(list, first + it % per_head)) *
+                   TC_TILE;
     const size_t qoff = (size_t(b) * Sq * H + hh) * D;
     load_tile<TC_TILE, D>(sQ + st * TILE, q + qoff, r0, Sq, q_stride, tid,
                           TC_THREADS);
@@ -760,6 +952,9 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const float* src = (tid < TC_TILE ? lse : delta) +
                          (size_t(b) * H + hh) * Sq + min(r0 + r, Sq - 1);
       cp_async4(sStat + (st * 2 * TC_TILE + tid) * 4, src, r0 + r < Sq);
+    } else {
+      mask.stage_rows(sRows + st * 2 * TC_TILE * 4, list, b, r0,
+                      tid - 2 * TC_TILE);
     }
   };
 
@@ -793,8 +988,10 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const uint32_t dot = sDO + st * TILE;
     const float* lse_s = stat + st * 2 * TC_TILE;
     const float* delta_s = lse_s + TC_TILE;
-    const int r0 = (qt_begin + it % per_head) * TC_TILE;
-    if (!causal || kw0 <= r0 + TC_TILE - 1 + offset) {   // uniform
+    const int* rid = rows_s + st * 2 * TC_TILE;
+    const int e = mask.entry(list, first + it % per_head);
+    const int r0 = Mask::tile(e) * TC_TILE;
+    if (mask.runs(e, wg, r0, kw0)) {   // uniform: warpgroup
       float sT[32], dpT[32];
       wgmma_fence();
 #pragma unroll
@@ -811,18 +1008,14 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
       wgmma_wait<0>();
       fence_regs(sT);
       fence_regs(dpT);
-      const bool edge = r0 + TC_TILE > Sq || kw0 + 64 > Sk ||
-                        (causal && kw0 + 63 > r0 + offset);
+      const bool edge = mask.edge(e, wg, r0, kw0);
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int lr = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);   // column
         float p = exp2_approx(fmaf(sT[i], scale_log2, -lse_s[lr] * LOG2E));
-        if (edge) {
-          const int key = key0 + 8 * ((i >> 1) & 1);
-          const int row = r0 + lr;
-          if (row >= Sq || key >= Sk || (causal && key > row + offset)) {
-            p = 0.f;
-          }
+        if (edge) {   // this thread's keys' ids are read here, not kept
+          const auto key = mask.key(b, key0 + 8 * ((i >> 1) & 1));
+          if (!mask.visible(mask.at(rid, lr, r0), key)) p = 0.f;
         }
         sT[i] = p;                             // P^T
         dpT[i] = p * (dpT[i] - delta_s[lr]);   // dS^T
@@ -867,43 +1060,59 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, typename Mask>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       void* dq, void* dk, void* dv, float* delta, int B,
-                      int Sq, int Sk, int H, int KVH, float scale, int causal,
-                      cudaStream_t stream) {
-  constexpr int smem = tc_bwd_smem<D>();
-  static bool configured = false;
-  if (!configured) {
+                      int Sq, int Sk, int H, int KVH, float scale,
+                      const Mask& mask, cudaStream_t stream) {
+  const int smem = tc_bwd_smem<D>() + mask.extra_smem();
+  if (smem > hopper::MAX_SMEM) return cudaErrorInvalidValue;
+  static int configured = 0;   // the shared memory the kernels may take
+  if (smem > configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_tc_kernel<D>,
+        flash_bwd_dq_tc_kernel<D, Mask>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+      err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D, Mask>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
     }
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured = smem;
   }
   using bf16 = __nv_bfloat16;
   const bf16* qq = static_cast<const bf16*>(q);
   const bf16* kk = static_cast<const bf16*>(k);
   const bf16* vv = static_cast<const bf16*>(v);
   const dim3 grid_q(B * H, (Sq + TC_ROWS - 1) / TC_ROWS);
-  flash_bwd_dq_tc_kernel<D><<<grid_q, TC_THREADS, smem, stream>>>(
+  flash_bwd_dq_tc_kernel<D, Mask><<<grid_q, TC_THREADS, smem, stream>>>(
       qq, kk, vv, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, Sq,
-      Sk, H, KVH, scale, causal);
+      Sk, H, KVH, scale, mask);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k(B * KVH, (Sk + TC_ROWS - 1) / TC_ROWS);
-  flash_bwd_dkv_tc_kernel<D><<<grid_k, TC_THREADS, smem, stream>>>(
+  flash_bwd_dkv_tc_kernel<D, Mask><<<grid_k, TC_THREADS, smem, stream>>>(
       qq, kk, vv, static_cast<const bf16*>(dout), lse, delta,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H, KVH, scale,
-      causal);
+      mask);
   return cudaGetLastError();
+}
+
+template <typename Mask>
+cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
+                        const void* o, const void* lse, const void* dout,
+                        void* dq, void* dk, void* dv, void* delta, int B,
+                        int Sq, int Sk, int H, int KVH, int D, float scale,
+                        const Mask& mask, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  return D == 64 ? launch_tc<64>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq,
+                                 Sk, H, KVH, scale, mask, s)
+                 : launch_tc<128>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq,
+                                  Sk, H, KVH, scale, mask, s);
 }
 
 // The route of a dense launch: bf16 at D = 64 or 128 takes the tensor
@@ -928,13 +1137,9 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          int causal, int dtype, void* stream) {
   if (bad_shape(B, Sq, Sk, H, KVH, D)) return cudaErrorInvalidValue;
   if (tc_route(dtype, D)) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float* l = static_cast<const float*>(lse);
-    float* dl = static_cast<float*>(delta);
-    return D == 64 ? launch_tc<64>(q, k, v, o, dout, l, dq, dk, dv, dl, B,
-                                   Sq, Sk, H, KVH, scale, causal, s)
-                   : launch_tc<128>(q, k, v, o, dout, l, dq, dk, dv, dl, B,
-                                    Sq, Sk, H, KVH, scale, causal, s);
+    const DenseTC mask{Sq, Sk, Sk - Sq, causal};
+    return dispatch_tc(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk,
+                       H, KVH, D, scale, mask, stream);
   }
   const DenseMask mask{Sq, Sk, Sk - Sq, causal};
   return dispatch(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H,
@@ -942,8 +1147,9 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
 }
 
 // The segment-masked backward: flash_bwd's arguments plus seg_q / pos_q
-// int32 [B, Sq], seg_k / pos_k int32 [B, Sk] and the forward's tile
-// extrema stats int32 [6, B, stride] at 32 x 32.
+// int32 [B, Sq], seg_k / pos_k int32 [B, Sk] and the tile extrema stats
+// int32 [8, B, stride] at tile_q x tile_k, which must be the route's
+// tiles (64 x 64 on the tensor cores, 32 x 32 on the CUDA cores).
 extern "C" int flash_bwd_seg(const void* q, const void* k, const void* v,
                              const void* o, const void* lse,
                              const void* dout, void* dq, void* dk, void* dv,
@@ -951,16 +1157,26 @@ extern "C" int flash_bwd_seg(const void* q, const void* k, const void* v,
                              const void* seg_k, const void* pos_q,
                              const void* pos_k, const void* stats, int B,
                              int Sq, int Sk, int H, int KVH, int D,
-                             int stride, float scale, int causal, int dtype,
-                             void* stream) {
-  if (bad_shape(B, Sq, Sk, H, KVH, D) || stride < (Sq + BM - 1) / BM ||
-      stride < (Sk + BN - 1) / BN) {
+                             int stride, int tile_q, int tile_k, float scale,
+                             int causal, int dtype, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, KVH, D)) return cudaErrorInvalidValue;
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* sk = static_cast<const int*>(seg_k);
+  const int* pq = static_cast<const int*>(pos_q);
+  const int* pk = static_cast<const int*>(pos_k);
+  const int* st = static_cast<const int*>(stats);
+  if (tc_route(dtype, D)) {
+    if (seg::bad_tiles(Sq, Sk, stride, tile_q, tile_k, TC_TILE, TC_TILE)) {
+      return cudaErrorInvalidValue;
+    }
+    const SegmentTC mask{sq, sk, pq, pk, st, B, Sq, Sk, stride, causal};
+    return dispatch_tc(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk,
+                       H, KVH, D, scale, mask, stream);
+  }
+  if (seg::bad_tiles(Sq, Sk, stride, tile_q, tile_k, BM, BN)) {
     return cudaErrorInvalidValue;
   }
-  const SegmentMask mask{
-      static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
-      static_cast<const int*>(pos_q), static_cast<const int*>(pos_k),
-      static_cast<const int*>(stats), B, Sq, Sk, stride, causal};
+  const SegmentMask mask{sq, sk, pq, pk, st, B, Sq, Sk, stride, causal};
   return dispatch(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H,
                   KVH, D, scale, mask, dtype, stream);
 }

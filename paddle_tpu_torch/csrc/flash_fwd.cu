@@ -12,10 +12,10 @@
 //   (query row r sees keys c <= r + Sk - Sq), or none;
 // - SegmentMask (entry flash_fwd_seg): a query sees a key only when both
 //   carry the same segment id >= 0 (a negative id is padding) and, when
-//   causal, the key's segment-local position is <= the query's. A
-//   32 x 32 tile pair whose per-tile segment / position extrema (computed
-//   once per call by the wrapper, _seg_block_stats) rule out every
-//   visible pair is skipped without loading it.
+//   causal, the key's segment-local position is <= the query's. A tile
+//   pair whose per-tile segment / position extrema (computed once per
+//   call by the wrapper, _seg_block_stats, at the route's tiles) rule out
+//   every visible pair is skipped without loading it.
 // Also writes the log-sum-exp lse[b, h, r] = m + log(l) that the backward
 // will read. A row that sees no key (padding, or nothing before the
 // causal limit) gets a zero output and lse = -inf. Any Sq / Sk works: the
@@ -25,20 +25,24 @@
 // floating-point operations against (4*B*S*H*D) bytes, far above the
 // card's ~295 operations per byte, so it is bounded by arithmetic (for
 // packed rows, by the visible pairs only: the sum over documents of
-// n(n+1)/2). Two routes:
-// - tensor cores (entry flash_fwd, bfloat16 at D = 64 or 128, the route
-//   of every main path; flash_fwd_tc_kernel below): wgmma products in
-//   bf16 with float32 sums, 128 query rows a block, K / V tiles of 128
-//   keys through TMA rings, a producer warpgroup and two consumers;
-// - CUDA cores (flash_fwd for float32 or another D, and flash_fwd_seg):
-//   the arithmetic in float32, 32 query rows a block. Its traffic is at
-//   the minimum all the same: each block loads every key and value tile
-//   it needs once into shared memory and reuses it for 32 query rows;
-//   the S x S score matrix never leaves registers; causal blocks stop at
-//   the diagonal and segment blocks skip tiles of other documents, so
-//   masked tiles cost nothing. The per-key segment ids and positions of
-//   a tile are staged in shared memory beside it, the query's own stay
-//   in registers. The segment route on the tensor cores comes next.
+// n(n+1)/2). Two routes, chosen alike by both entries (tc_route):
+// - tensor cores (bfloat16 at D = 64 or 128, the route of every main
+//   path; flash_fwd_tc_kernel below, over the DenseTC or SegmentTC
+//   policy): wgmma products in bf16 with float32 sums, 128 query rows a
+//   block, K / V tiles of 128 keys through TMA rings, a producer
+//   warpgroup and two consumers. A segment block lists once the key
+//   tiles it runs (128 x 128 pairs) and walks only those; the keys'
+//   segment ids and positions are staged beside each K stage, and only
+//   tiles that hold a document boundary, a diagonal or the ragged edge
+//   mask element by element;
+// - CUDA cores (float32 or another D): the arithmetic in float32, 32
+//   query rows a block. Its traffic is at the minimum all the same: each
+//   block loads every key and value tile it needs once into shared
+//   memory and reuses it for 32 query rows; the S x S score matrix never
+//   leaves registers; causal blocks stop at the diagonal and segment
+//   blocks skip 32 x 32 tiles of other documents, so masked tiles cost
+//   nothing. The per-key segment ids and positions of a tile are staged
+//   in shared memory beside it, the query's own stay in registers.
 //
 // Layout: q [B, Sq, H, D], k / v [B, Sk, KVH, D], out like q, all
 // contiguous, float32 or bfloat16; lse float32 [B, H, Sq]; segment ids and
@@ -53,6 +57,7 @@
 #include <stdint.h>
 
 #include "hopper_mma.cuh"
+#include "segment_tiles.cuh"
 
 namespace {
 
@@ -126,8 +131,7 @@ struct SegmentMask {
   const int* seg_k;   // [B, Sk]
   const int* pos_q;   // [B, Sq]
   const int* pos_k;   // [B, Sk]
-  // [6, B, stride]: per q tile segment min / max, per k tile segment
-  // min / max, per q tile position max, per k tile position min
+  // [8, B, stride] at BM x BN (segment_tiles.cuh); rows 0-5 decide
   const int* stats;
   int B, Sq, Sk, stride;
   int causal;
@@ -167,19 +171,10 @@ struct SegmentMask {
   __device__ __forceinline__ int key_end(int b, int q_last) const {
     return Sk;
   }
-  // the reference's _seg_run_predicate: the segment intervals
-  // [max(min, 0), max] overlap (conservative for any layout, exact for
-  // contiguous packing) and, when causal, some key is not in the future
-  // of every row (min pos_k <= max pos_q)
+  // the reference's _seg_run_predicate (seg::runs)
   __device__ __forceinline__ bool tile_runs(int b, int qt, int kt) const {
-    const size_t plane = size_t(B) * stride;
-    const int* st = stats + size_t(b) * stride;
-    const int qsmin = st[qt], qsmax = st[plane + qt];
-    const int ksmin = st[2 * plane + kt], ksmax = st[3 * plane + kt];
-    bool run = qsmax >= 0 && ksmax >= 0 && max(qsmin, 0) <= ksmax &&
-               max(ksmin, 0) <= qsmax;
-    if (causal) run = run && st[5 * plane + kt] <= st[4 * plane + qt];
-    return run;
+    return seg::runs(stats + size_t(b) * stride, size_t(B) * stride, qt, kt,
+                     causal);
   }
 };
 
@@ -341,27 +336,30 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
   return cudaErrorInvalidValue;
 }
 
-// ---- the tensor-core route: bfloat16, D = 64 or 128, dense mask --------
+// ---- the tensor-core route: bfloat16, D = 64 or 128 --------------------
 //
 // One block holds 128 query rows of one (batch, head) in three warpgroups
 // (FlashAttention-3's roles):
-// - the producer (warpgroup 2, setmaxnreg 24): one thread loads the Q
-//   tile once and streams the K and V tiles of 128 keys through two
-//   2-stage rings in shared memory with TMA (128-byte swizzle; rows past
-//   the end read as zeros). Each stage has a "full" mbarrier (the copies'
-//   bytes) and an "empty" one (all 256 consumer threads are done with it:
-//   a K tile after its S product, a V tile after its P V product);
-// - two consumer warpgroups of 64 rows each (setmaxnreg 240). Per key
-//   tile: S = Q K^T is a wgmma with both operands in shared memory
-//   (K-major); the online softmax runs on S in registers (base-2
-//   exponentials, one FFMA a score with scale * log2(e)); P is rounded to
-//   bf16 in registers and O += P V is a wgmma with A from registers and V
-//   as an MN-major B from shared memory. The warpgroups take turns at
-//   issuing S (named barriers), so that one's softmax overlaps the
-//   other's products; O is rescaled only when a row maximum moved.
-// Only tiles that cross the diagonal or the ragged edge mask element by
-// element. Blocks go out longest first (the last q tiles of every head,
-// which see the most keys).
+// - the producer (warpgroup 2): one thread loads the Q tile once and
+//   streams the K and V tiles of 128 keys through two 2-stage rings in
+//   shared memory with TMA (128-byte swizzle; rows past the end read as
+//   zeros). Each stage has a "full" mbarrier (the copies' bytes) and an
+//   "empty" one (all 256 consumer threads are done with it: a K tile after
+//   its S product, a V tile after its P V product);
+// - two consumer warpgroups of 64 rows each. Per key tile: S = Q K^T is a
+//   wgmma with both operands in shared memory (K-major); the online
+//   softmax runs on S in registers (base-2 exponentials, one FFMA a score
+//   with scale * log2(e)); P is rounded to bf16 in registers and O += P V
+//   is a wgmma with A from registers and V as an MN-major B from shared
+//   memory. The warpgroups take turns at issuing S (named barriers), so
+//   that one's softmax overlaps the other's products; O is rescaled only
+//   when a row maximum moved.
+// The mask is a policy (DenseTC, SegmentTC below). A block walks a list
+// of key tiles that its producer and consumers read alike, so that no
+// product and no wait sits under a data-dependent condition; only tiles
+// the list marks as edges mask element by element. Blocks go out longest
+// first (the last q tiles of every head, which see the most keys under
+// the dense causal mask).
 constexpr int TC_CONSUMERS = 256;
 constexpr int TC_THREADS = TC_CONSUMERS + 128;
 constexpr int TC_BM = 128;   // query rows a block
@@ -375,6 +373,11 @@ constexpr int BAR_TURN = 1;
 constexpr int STAGES = 2;
 constexpr uint32_t KFULL = 0, KEMPTY = 8 * STAGES, VFULL = 16 * STAGES,
                    VEMPTY = 24 * STAGES, QFULL = 32 * STAGES;
+// a policy's shared memory starts this far past the mbarriers
+constexpr int TC_EXTRA = 128;
+// producer threads that stage a segment tile's key ids and positions (two
+// keys each; the last two warps of the producer warpgroup)
+constexpr int TC_STAGERS = TC_BN / 2;
 
 template <int D>
 constexpr int tc_fwd_smem() {
@@ -382,13 +385,131 @@ constexpr int tc_fwd_smem() {
   return (TC_BM + 2 * STAGES * TC_BN) * D * 2 + 32 * STAGES + 8 + 1024;
 }
 
+// The dense mask: bottom-right-aligned causal, or none. A q tile walks
+// key tiles 0 .. count - 1, up to the causal diagonal of its last row;
+// tiles that cross the diagonal or the ragged edge are edges.
+struct DenseTC {
+  int Sq, Sk, offset;   // offset = Sk - Sq
+  int causal;
+  static constexpr bool kStagesKeys = false;
+  struct Row { int i; };
+
+  int extra_smem() const { return 0; }
+  __device__ __forceinline__ void build(int*, int b, int qt, int tid) const {}
+  __device__ __forceinline__ int count(const int*, int q0) const {
+    const int q_last = min(q0 + TC_BM, Sq) - 1;
+    const int k_end = causal ? min(Sk, q_last + offset + 1) : Sk;
+    return k_end > 0 ? (k_end + TC_BN - 1) / TC_BN : 0;
+  }
+  __device__ __forceinline__ int entry(const int*, int j) const { return j; }
+  __device__ __forceinline__ static int tile(int e) { return e; }
+  __device__ __forceinline__ bool edge(int e, int k0, int wg_first) const {
+    return k0 + TC_BN > Sk || (causal && k0 + TC_BN - 1 > wg_first + offset);
+  }
+  __device__ __forceinline__ Row row(int b, int i) const { return {i}; }
+  // scores of keys past Sk or after the diagonal to -inf
+  __device__ __forceinline__ void apply(float (&s)[64], const int4*, int k0,
+                                        const Row (&r)[2], int lane) const {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int row = r[(i >> 1) & 1].i;
+      const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      if (col >= Sk || (causal && col > row + offset)) s[i] = -INFINITY;
+    }
+  }
+};
+
+// The segment mask (SegmentMask's, on the tensor cores). warp 0 lists the
+// key tiles of the block's q tile that the run predicate keeps, at 128 x
+// 128 (stats at TC_BM x TC_BN); an entry is an edge unless every pair of
+// the tile is visible. The producer's stagers copy each key tile's
+// (segment, position) pairs into shared memory beside its K stage (keys
+// past Sk get segment -2, which no row has); each consumer keeps its two
+// rows' pairs in registers (rows past Sq get segment -1).
+struct SegmentTC {
+  const int* seg_q;   // [B, Sq]
+  const int* seg_k;   // [B, Sk]
+  const int* pos_q;   // [B, Sq]
+  const int* pos_k;   // [B, Sk]
+  const int* stats;   // [8, B, stride] at TC_BM x TC_BN
+  int* tiles_ran;     // when not null, += the tiles the block computes
+  int B, Sq, Sk, stride;
+  int causal;
+  static constexpr bool kStagesKeys = true;
+  struct Row { int seg, pos; };
+
+  // the key stages (int2 a key), then the list
+  int extra_smem() const {
+    return TC_EXTRA + STAGES * TC_BN * 8 + 4 * (1 + (Sk + TC_BN - 1) / TC_BN);
+  }
+  __device__ __forceinline__ void build(int* list, int b, int qt,
+                                        int tid) const {
+    if (tid >= 32) return;
+    const int* st = stats + size_t(b) * stride;
+    const size_t plane = size_t(B) * stride;
+    const int n = seg::compact(
+        list, (Sk + TC_BN - 1) / TC_BN, tid, [&](int kt) {
+          const int f = seg::flags(st, plane, qt, kt, causal,
+                                   (kt + 1) * TC_BN > Sk, 0);
+          return f != 0 ? kt | f : -1;
+        });
+    if (tid == 0 && tiles_ran != nullptr) atomicAdd(tiles_ran, n);
+  }
+  __device__ __forceinline__ int count(const int* list, int q0) const {
+    return list[0];
+  }
+  __device__ __forceinline__ int entry(const int* list, int j) const {
+    return list[1 + j];
+  }
+  __device__ __forceinline__ static int tile(int e) { return e & seg::TILE; }
+  __device__ __forceinline__ bool edge(int e, int k0, int wg_first) const {
+    return (e & seg::EDGE0) != 0;
+  }
+  __device__ __forceinline__ Row row(int b, int i) const {
+    if (i >= Sq) return {-1, 0};
+    const size_t o = size_t(b) * Sq + i;
+    return {seg_q[o], pos_q[o]};
+  }
+  // stager t's keys k0 + 2 t, k0 + 2 t + 1 as (seg, pos, seg, pos)
+  __device__ __forceinline__ int4 load_keys(int b, int k0, int t) const {
+    int v[4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = k0 + 2 * t + e;
+      const size_t o = size_t(b) * Sk + i;
+      v[2 * e] = i < Sk ? seg_k[o] : -2;
+      v[2 * e + 1] = i < Sk ? pos_k[o] : 0;
+    }
+    return make_int4(v[0], v[1], v[2], v[3]);
+  }
+  // keys holds the stage's (segment, position) pairs two keys an int4;
+  // this thread's columns 8 g + 2 (lane % 4) + {0, 1} are int4 4 g + lane % 4
+  __device__ __forceinline__ void apply(float (&s)[64], const int4* keys,
+                                        int k0, const Row (&r)[2],
+                                        int lane) const {
+#pragma unroll
+    for (int g = 0; g < TC_BN / 8; ++g) {
+      const int4 kk = keys[4 * g + (lane & 3)];
+#pragma unroll
+      for (int i = 4 * g; i < 4 * g + 4; ++i) {
+        const Row& rr = r[(i >> 1) & 1];
+        const int kseg = (i & 1) ? kk.z : kk.x;
+        const int kpos = (i & 1) ? kk.w : kk.y;
+        if (!(rr.seg >= 0 && kseg == rr.seg && (!causal || kpos <= rr.pos))) {
+          s[i] = -INFINITY;
+        }
+      }
+    }
+  }
+};
+
 // The consumer warpgroups' part of flash_fwd_tc_kernel.
-template <int D>
+template <int D, typename Mask>
 __device__ __forceinline__ void consume(
     uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bars,
-    __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int b, int h, int q0, int n_kt, int Sq, int Sk,
-    int H, float scale_log2, int causal) {
+    const int4* __restrict__ keys, const int* __restrict__ list,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int b, int h,
+    int q0, int n_kt, int Sq, int H, float scale_log2, const Mask& mask) {
   using namespace hopper;
   constexpr uint32_t TILE = TC_BN * D * 2;
   constexpr int NO = D / 2;
@@ -397,13 +518,14 @@ __device__ __forceinline__ void consume(
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int bh = b * H + h;
-  const int offset = Sk - Sq;
   const size_t q_stride = size_t(H) * D;
   mbar_wait(bars + QFULL, 0);
 
   // this thread's two rows (accumulator registers with (i / 2) % 2 = 0, 1)
   const int wg_first = q0 + 64 * wg;
   const int row0 = wg_first + 16 * warp + lane / 4;
+  const typename Mask::Row rows[2] = {mask.row(b, row0),
+                                      mask.row(b, row0 + 8)};
   float o[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
@@ -455,27 +577,29 @@ __device__ __forceinline__ void consume(
     if (wg == 0 || !last) bar_arrive(BAR_TURN + 1 - wg, TC_CONSUMERS);
   };
   // the online softmax of tile j on S_j (done): P_j in s, alpha the
-  // factor of O's rescale; K_j is released
+  // factor of O's rescale; K_j (and its staged keys) is released
   auto softmax = [&](int j, float(&s)[64], float(&alpha)[2]) {
     fence_regs(s);
-    mbar_arrive(bars + KEMPTY + 8 * (j % STAGES));
+    if constexpr (!Mask::kStagesKeys) {
+      mbar_arrive(bars + KEMPTY + 8 * (j % STAGES));
+    }
     if (flip) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) s[i] = -s[i];
     }
-    const int k0 = j * TC_BN;
-    const bool edge = k0 + TC_BN > Sk ||
-                      (causal && k0 + TC_BN - 1 > wg_first + offset);
+    const int e = mask.entry(list, j);
+    const int k0 = Mask::tile(e) * TC_BN;
+    if (mask.edge(e, k0, wg_first)) {
+      mask.apply(s, keys + (j % STAGES) * (TC_BN / 2), k0, rows, lane);
+    }
+    if constexpr (Mask::kStagesKeys) {
+      mbar_arrive(bars + KEMPTY + 8 * (j % STAGES));
+    }
     // the row maximum of the raw scores (a positive scale commutes with
     // max); each probability is then one FFMA and one exponential
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
-      if (edge) {
-        const int row = row0 + 8 * ((i >> 1) & 1);
-        const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-        if (col >= Sk || (causal && col > row + offset)) s[i] = -INFINITY;
-      }
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     }
     float mu[2];
@@ -524,6 +648,8 @@ __device__ __forceinline__ void consume(
     }
   }
 
+  // a row that saw no key (l = 0: an empty list, padding, nothing before
+  // the causal limit) writes zeros and lse = -inf
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -544,14 +670,14 @@ __device__ __forceinline__ void consume(
   }
 }
 
-template <int D>
+template <int D, typename Mask>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                    int Sq, int Sk, int H, int KVH, float scale_log2,
-                    int causal) {
+                    int Sq, int H, int KVH, float scale_log2,
+                    const Mask mask) {
   using namespace hopper;
   constexpr uint32_t TILE = TC_BN * D * 2;   // bytes of a K or V tile
   constexpr uint32_t HALF = TC_BN * 128;     // bytes of a 64-column block
@@ -562,6 +688,10 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t sV = sK + STAGES * TILE;
   // mbarriers, one a stage: K full, K empty, V full, V empty; Q full
   const uint32_t bars = sV + STAGES * TILE;
+  // the policy's: staged keys of each K stage, then the tile list
+  int2* keys = reinterpret_cast<int2*>(
+      smem_raw + (bars + TC_EXTRA - smem_u32(smem_raw)));
+  int* list = reinterpret_cast<int*>(keys + STAGES * TC_BN);
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -569,14 +699,11 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   const int h = bh % H;
   const int kvh = h / (H / KVH);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BM;   // longest first
-  const int offset = Sk - Sq;
-  const int q_last = min(q0 + TC_BM, Sq) - 1;
-  const int k_end = causal ? min(Sk, q_last + offset + 1) : Sk;
-  const int n_kt = k_end > 0 ? (k_end + TC_BN - 1) / TC_BN : 0;
 
   if (tid == 0) {
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(bars + KFULL + 8 * st, 1);
+      // K full: the TMA thread's arrival with its bytes, and each stager's
+      mbar_init(bars + KFULL + 8 * st, Mask::kStagesKeys ? 1 + TC_STAGERS : 1);
       mbar_init(bars + KEMPTY + 8 * st, TC_CONSUMERS);
       mbar_init(bars + VFULL + 8 * st, 1);
       mbar_init(bars + VEMPTY + 8 * st, TC_CONSUMERS);
@@ -584,12 +711,17 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_init(bars + QFULL, 1);
     mbar_fence_init();
   }
+  mask.build(list, b, q0 / TC_BM, tid);
   __syncthreads();
+  const int n_kt = mask.count(list, q0);
 
   const int wg = warpgroup_index();
   if (wg == 2) {   // the producer
-    regs_dealloc<24>();
-    if (tid == TC_CONSUMERS) {
+    // (setmaxnreg does not lift ptxas's 168 registers for the consumers;
+    // the stagers need more than 24, so the segment policy keeps both)
+    if constexpr (!Mask::kStagesKeys) regs_dealloc<24>();
+    const int pt = tid - TC_CONSUMERS;
+    if (pt == 0) {
       mbar_expect_tx(bars + QFULL, TC_BM * D * 2);
 #pragma unroll
       for (int c = 0; c < D / 64; ++c) {
@@ -599,26 +731,41 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int j = 0; j < n_kt; ++j) {
         const int st = j % STAGES;
         const uint32_t parity = (j / STAGES - 1) & 1;   // the stage's last use
+        const int k0 = Mask::tile(mask.entry(list, j)) * TC_BN;
         if (j >= STAGES) mbar_wait(bars + KEMPTY + 8 * st, parity);
         mbar_expect_tx(bars + KFULL + 8 * st, TILE);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c) {
           tma_load_4d(sK + st * TILE + c * HALF, &k_map, bars + KFULL + 8 * st,
-                      64 * c, kvh, j * TC_BN, b);
+                      64 * c, kvh, k0, b);
         }
         if (j >= STAGES) mbar_wait(bars + VEMPTY + 8 * st, parity);
         mbar_expect_tx(bars + VFULL + 8 * st, TILE);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c) {
           tma_load_4d(sV + st * TILE + c * HALF, &v_map, bars + VFULL + 8 * st,
-                      64 * c, kvh, j * TC_BN, b);
+                      64 * c, kvh, k0, b);
+        }
+      }
+    } else if constexpr (Mask::kStagesKeys) {
+      if (pt >= 128 - TC_STAGERS) {   // the stagers
+        const int t = pt - (128 - TC_STAGERS);
+        for (int j = 0; j < n_kt; ++j) {
+          const int st = j % STAGES;
+          const uint32_t parity = (j / STAGES - 1) & 1;
+          // the ids load while the stage is still in use
+          const int4 ids = mask.load_keys(
+              b, Mask::tile(mask.entry(list, j)) * TC_BN, t);
+          if (j >= STAGES) mbar_wait(bars + KEMPTY + 8 * st, parity);
+          reinterpret_cast<int4*>(keys + st * TC_BN)[t] = ids;
+          mbar_arrive(bars + KFULL + 8 * st);
         }
       }
     }
   } else {
-    regs_alloc<240>();
-    consume<D>(sQ, sK, sV, bars, out, lse, b, h, q0, n_kt, Sq, Sk, H,
-               scale_log2, causal);
+    if constexpr (!Mask::kStagesKeys) regs_alloc<240>();
+    consume<D>(sQ, sK, sV, bars, reinterpret_cast<const int4*>(keys), list,
+               out, lse, b, h, q0, n_kt, Sq, H, scale_log2, mask);
   }
 }
 
@@ -666,18 +813,19 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int NH,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, typename Mask>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       float* lse, int B, int Sq, int Sk, int H, int KVH,
-                      float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = tc_fwd_smem<D>();
-  static bool configured = false;
-  if (!configured) {
+                      float scale, const Mask& mask, cudaStream_t stream) {
+  const int smem = tc_fwd_smem<D>() + mask.extra_smem();
+  if (smem > hopper::MAX_SMEM) return cudaErrorInvalidValue;
+  static int configured = 0;   // the shared memory the kernel may take
+  if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        flash_fwd_tc_kernel<D, Mask>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured = smem;
   }
   CUtensorMap q_map, k_map, v_map;
   if (!tensor_map(&q_map, q, B, Sq, H, D, TC_BM) ||
@@ -686,10 +834,23 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
     return cudaErrorInvalidValue;
   }
   const dim3 grid(B * H, (Sq + TC_BM - 1) / TC_BM);
-  flash_fwd_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H,
-      KVH, scale * LOG2E, causal);
+  flash_fwd_tc_kernel<D, Mask><<<grid, TC_THREADS, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Sq, H, KVH,
+      scale * LOG2E, mask);
   return cudaGetLastError();
+}
+
+template <typename Mask>
+cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
+                        void* out, void* lse, int B, int Sq, int Sk, int H,
+                        int KVH, int D, float scale, const Mask& mask,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  return D == 64 ? launch_tc<64>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale,
+                                 mask, s)
+                 : launch_tc<128>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale,
+                                  mask, s);
 }
 
 // The route of a dense launch: bf16 at D = 64 or 128 takes the tensor
@@ -710,12 +871,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* stream) {
   if (bad_shape(B, Sq, Sk, H, KVH, D)) return cudaErrorInvalidValue;
   if (tc_route(dtype, D)) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    float* l = static_cast<float*>(lse);
-    return D == 64 ? launch_tc<64>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale,
-                                   causal, s)
-                   : launch_tc<128>(q, k, v, out, l, B, Sq, Sk, H, KVH,
-                                    scale, causal, s);
+    const DenseTC mask{Sq, Sk, Sk - Sq, causal};
+    return dispatch_tc(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale, mask,
+                       stream);
   }
   const DenseMask mask{Sq, Sk, Sk - Sq, causal};
   return dispatch(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale, mask,
@@ -723,24 +881,39 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // The segment-masked forward. seg_q / pos_q int32 [B, Sq], seg_k / pos_k
-// int32 [B, Sk]; stats int32 [6, B, stride], the tile extrema at 32 x 32;
-// tiles_ran, when not null, an int32 the kernel adds one to for every
-// (batch, head, q tile, k tile) it computes.
+// int32 [B, Sk]; stats int32 [8, B, stride], the tile extrema at tile_q x
+// tile_k, which must be the route's tiles (128 x 128 on the tensor cores,
+// 32 x 32 on the CUDA cores); tiles_ran, when not null, an int32 the
+// kernel adds one to for every (batch, head, q tile, k tile) it computes.
 extern "C" int flash_fwd_seg(const void* q, const void* k, const void* v,
                              void* out, void* lse, const void* seg_q,
                              const void* seg_k, const void* pos_q,
                              const void* pos_k, const void* stats,
                              void* tiles_ran, int B, int Sq, int Sk, int H,
-                             int KVH, int D, int stride, float scale,
-                             int causal, int dtype, void* stream) {
-  if (bad_shape(B, Sq, Sk, H, KVH, D) || B * H > 65535 ||
-      stride < (Sq + BM - 1) / BM || stride < (Sk + BN - 1) / BN) {
+                             int KVH, int D, int stride, int tile_q,
+                             int tile_k, float scale, int causal, int dtype,
+                             void* stream) {
+  if (bad_shape(B, Sq, Sk, H, KVH, D) || B * H > 65535) {
     return cudaErrorInvalidValue;
   }
-  const SegmentMask mask{
-      static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
-      static_cast<const int*>(pos_q), static_cast<const int*>(pos_k),
-      static_cast<const int*>(stats), B, Sq, Sk, stride, causal};
-  return dispatch(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale, mask,
-                  static_cast<int*>(tiles_ran), dtype, stream);
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* sk = static_cast<const int*>(seg_k);
+  const int* pq = static_cast<const int*>(pos_q);
+  const int* pk = static_cast<const int*>(pos_k);
+  const int* st = static_cast<const int*>(stats);
+  int* ran = static_cast<int*>(tiles_ran);
+  if (tc_route(dtype, D)) {
+    if (seg::bad_tiles(Sq, Sk, stride, tile_q, tile_k, TC_BM, TC_BN)) {
+      return cudaErrorInvalidValue;
+    }
+    const SegmentTC mask{sq, sk, pq, pk, st, ran, B, Sq, Sk, stride, causal};
+    return dispatch_tc(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale, mask,
+                       stream);
+  }
+  if (seg::bad_tiles(Sq, Sk, stride, tile_q, tile_k, BM, BN)) {
+    return cudaErrorInvalidValue;
+  }
+  const SegmentMask mask{sq, sk, pq, pk, st, B, Sq, Sk, stride, causal};
+  return dispatch(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale, mask, ran,
+                  dtype, stream);
 }

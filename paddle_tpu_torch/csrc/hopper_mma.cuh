@@ -29,6 +29,9 @@
 
 namespace hopper {
 
+// the shared memory a block can take (227 KB of the SM's 256)
+constexpr int MAX_SMEM = 232448;
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

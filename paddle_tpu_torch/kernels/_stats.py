@@ -8,7 +8,9 @@ launches (a backward's dq / dkv pair, and the RMSNorm backward's row and
 column passes, count as one; ``flash_tc`` / ``flash_bwd_tc`` count the
 dense launches among ``flash`` / ``flash_bwd`` that took the tensor-core
 route, ``flash_attention.tensor_core_route``; ``varlen*`` are the
-segment-masked, sequence-packed kernels, the reference's names; ``paged_quant`` is the
+segment-masked, sequence-packed kernels, the reference's names, and
+``varlen_tc`` / ``varlen_bwd_tc`` count those of their launches that took
+the same tensor-core route; ``paged_quant`` is the
 decode kernel's int8 arm); ``flash_ref`` / ``flash_bwd_ref`` /
 ``varlen_ref`` / ``varlen_bwd_ref`` / ``paged_ref`` / ``paged_quant_ref``
 / ``rms_ref`` / ``rms_bwd_ref`` count calls that took the plain PyTorch
@@ -23,8 +25,8 @@ a run can show which path it took."""
 
 DISPATCH_STATS = {"flash": 0, "flash_tc": 0, "flash_ref": 0,
                   "flash_bwd": 0, "flash_bwd_tc": 0, "flash_bwd_ref": 0,
-                  "varlen": 0, "varlen_ref": 0,
-                  "varlen_bwd": 0, "varlen_bwd_ref": 0,
+                  "varlen": 0, "varlen_tc": 0, "varlen_ref": 0,
+                  "varlen_bwd": 0, "varlen_bwd_tc": 0, "varlen_bwd_ref": 0,
                   "paged": 0, "paged_ref": 0,
                   "paged_quant": 0, "paged_quant_ref": 0,
                   "rms": 0, "rms_ref": 0, "rms_bwd": 0, "rms_bwd_ref": 0,

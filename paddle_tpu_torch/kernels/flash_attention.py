@@ -18,12 +18,15 @@ the kernel does); the backward gives such a row exact zero gradients.
 The segment-masked (sequence-packed) variants, ``flash_attention_
 segments_fwd`` / ``flash_attention_segments_bwd``, launch the same two
 sources' segment entries (the reference's ``_seg_fwd_kernel``,
-``_seg_bwd_dq_kernel`` / ``_seg_bwd_dkv_kernel``); their plain versions
-are ``segment_attention_ref`` / ``segment_attention_bwd_ref``. A token
-attends only to keys of its own segment id (-1: padding, exact zero rows
-and gradients), causal on segment-local positions, and the kernels skip
-32 x 32 tile pairs that the per-tile extrema (``_seg_block_stats``) rule
-out; ``count_skipped_blocks`` counts them.
+``_seg_bwd_dq_kernel`` / ``_seg_bwd_dkv_kernel``) on the same two routes
+(counted ``varlen_tc`` / ``varlen_bwd_tc`` besides ``varlen`` /
+``varlen_bwd``); their plain versions are ``segment_attention_ref`` /
+``segment_attention_bwd_ref``. A token attends only to keys of its own
+segment id (-1: padding, exact zero rows and gradients), causal on
+segment-local positions, and the kernels skip tile pairs that the
+per-tile extrema (``_seg_block_stats``) rule out, at the route's tiles
+(``seg_tiles``: 128 x 128 forward and 64 x 64 backward on the tensor
+cores, 32 x 32 on the CUDA cores); ``count_skipped_blocks`` counts them.
 
 ``flash_attention`` / ``flash_attention_segments`` are the
 differentiable entries: ``_FlashAttention`` / ``_FlashSegAttention``
@@ -48,7 +51,8 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "supported_bwd", "tensor_core_route", "flash_attention_segments",
            "flash_attention_segments_fwd", "flash_attention_segments_bwd",
            "segment_attention_ref", "segment_attention_bwd_ref",
-           "segments_supported", "count_skipped_blocks", "SEG_BLOCK"]
+           "segments_supported", "count_skipped_blocks", "SEG_BLOCK",
+           "seg_tiles"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -254,18 +258,37 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
 
 # -- segment-masked (sequence-packed) attention --------------------------------
 
-SEG_BLOCK = 32      # the CUDA kernels' tile, rows and keys (BM = BN = 32)
-# rows of the tile stats (int32 [6, B * stride]), the reference's order
-_ST_QSMIN, _ST_QSMAX, _ST_KSMIN, _ST_KSMAX, _ST_QPMAX, _ST_KPMIN = range(6)
+SEG_BLOCK = 32      # the CUDA-core kernels' tile, rows and keys
+# the tensor-core kernels' tiles: forward 128 x 128 (TC_BM x TC_BN), dq
+# and dkv 64 x 64 (a warpgroup's rows or keys against a tile)
+_SEG_TC_FWD, _SEG_TC_BWD = (128, 128), (64, 64)
+# rows of the tile stats (int32 [8, B * stride]): the reference's six,
+# then each q tile's position minimum and each k tile's position maximum
+# (csrc/segment_tiles.cuh)
+(_ST_QSMIN, _ST_QSMAX, _ST_KSMIN, _ST_KSMAX, _ST_QPMAX, _ST_KPMIN,
+ _ST_QPMIN, _ST_KPMAX) = range(8)
 _I32 = torch.iinfo(torch.int32)
+
+
+def seg_tiles(q, backward=False):
+    """``(block_q, block_k)``: the tiles the segment kernels run for a
+    launch on ``q``, forward or backward (``tensor_core_route`` picks the
+    route). The tile stats, the skip predicate and ``tiles_ran`` are at
+    these tiles."""
+    if tensor_core_route(q):
+        return _SEG_TC_BWD if backward else _SEG_TC_FWD
+    return SEG_BLOCK, SEG_BLOCK
 
 
 def _seg_block_stats(seg_q, seg_k, pos_q, pos_k, block_q, block_k):
     """Per-tile segment / position extrema for the skip predicate, the
-    reference's layout: ``(stats int32 [6, B * stride], stride)`` with q
+    reference's layout: ``(stats int32 [8, B * stride], stride)`` with q
     tiles at ``b * stride + qi`` and k tiles at ``b * stride + ki``
-    (zero past each side's tile count). A ragged last tile takes the
-    extrema of the tokens it holds, so S need not divide the tile."""
+    (zero past each side's tile count). Rows 0-5 are the reference's;
+    rows 6-7, each q tile's position minimum and each k tile's position
+    maximum, mark the tiles whose pairs are all visible
+    (``_tiles_full``). A ragged last tile takes the extrema of the tokens
+    it holds, so S need not divide the tile."""
     b, sq = seg_q.shape
     sk = seg_k.shape[1]
     nq, nk = -(-sq // block_q), -(-sk // block_k)
@@ -285,7 +308,8 @@ def _seg_block_stats(seg_q, seg_k, pos_q, pos_k, block_q, block_k):
         extrema(seg_q, block_q, nq, True), extrema(seg_q, block_q, nq, False),
         extrema(seg_k, block_k, nk, True), extrema(seg_k, block_k, nk, False),
         extrema(pos_q, block_q, nq, False), extrema(pos_k, block_k, nk, True),
-    ]).reshape(6, b * stride).contiguous()
+        extrema(pos_q, block_q, nq, True), extrema(pos_k, block_k, nk, False),
+    ]).reshape(8, b * stride).contiguous()
     return stats, stride
 
 
@@ -295,7 +319,7 @@ def _tiles_run(stats, stride, b, nq, nk, causal):
     (conservative for any layout, exact for contiguous packing) and, when
     causal, some key is not in the future of every row (``min pos_k <=
     max pos_q``)."""
-    st = stats.reshape(6, b, stride)
+    st = stats.reshape(-1, b, stride)
     qsmin, qsmax = st[_ST_QSMIN, :, :nq], st[_ST_QSMAX, :, :nq]
     ksmin, ksmax = st[_ST_KSMIN, :, :nk], st[_ST_KSMAX, :, :nk]
     run = ((qsmax[:, :, None] >= 0) & (ksmax[:, None, :] >= 0)
@@ -307,11 +331,27 @@ def _tiles_run(stats, stride, b, nq, nk, causal):
     return run
 
 
+def _tiles_full(stats, stride, b, nq, nk, causal):
+    """bool ``[B, nq, nk]``: the tile pairs whose every pair is visible
+    (the kernels' ``seg::full``), which need no element mask: one segment
+    ``>= 0`` on both sides and, when causal, no key after any row (``max
+    pos_k <= min pos_q``)."""
+    st = stats.reshape(-1, b, stride)
+    s = st[_ST_QSMIN, :, :nq, None]
+    full = ((s >= 0) & (st[_ST_QSMAX, :, :nq, None] == s)
+            & (st[_ST_KSMIN, :, None, :nk] == s)
+            & (st[_ST_KSMAX, :, None, :nk] == s))
+    if causal:
+        full = full & (st[_ST_KPMAX, :, None, :nk]
+                       <= st[_ST_QPMIN, :, :nq, None])
+    return full
+
+
 def count_skipped_blocks(seg_q, seg_k, pos_q, pos_k, block_q, block_k,
                          causal):
     """``(skipped, total)`` tile pairs of one head's grid under the skip
     predicate the kernels run (every head sees the same layout). Inputs
-    ``[B, S]`` integers; at ``SEG_BLOCK`` x ``SEG_BLOCK`` the skipped
+    ``[B, S]`` integers; at a route's tiles (``seg_tiles``) the skipped
     count is the kernels' own."""
     seg_q, seg_k, pos_q, pos_k = (torch.as_tensor(a)
                                   for a in (seg_q, seg_k, pos_q, pos_k))
@@ -433,9 +473,11 @@ def _seg_check(what, q, k, v, segs, extra=()):
     return tuple(a.to(torch.int32).contiguous() for a in segs)
 
 
-def _tile_stats(segs):
-    """The kernels' tile extrema at ``SEG_BLOCK`` x ``SEG_BLOCK``."""
-    return _seg_block_stats(*segs, SEG_BLOCK, SEG_BLOCK)
+def _tile_stats(segs, tiles):
+    """``(stats, stride, tiles)``: the tile extrema at ``tiles`` (a
+    route's ``seg_tiles``), which the C entries check against the tiles
+    they run."""
+    return (*_seg_block_stats(*segs, *tiles), tuple(tiles))
 
 
 def flash_attention_segments_fwd(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
@@ -445,10 +487,10 @@ def flash_attention_segments_fwd(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
     CUDA tensors, the plain version for CPU tensors. Raises for a CUDA
     tensor the kernel does not take.
 
-    ``stats`` is ``_seg_block_stats`` at ``SEG_BLOCK`` (computed here when
+    ``stats`` is ``_tile_stats`` at ``seg_tiles(q)`` (computed here when
     None). ``tiles_ran``, CUDA only, is an int32 tensor of one element to
     which the kernel adds one for every (batch, head, q tile, k tile) it
-    computes."""
+    computes, at ``seg_tiles(q)``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     segs = (seg_q, seg_k, pos_q, pos_k)
@@ -465,7 +507,8 @@ def flash_attention_segments_fwd(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
                                     and tiles_ran.numel() == 1),
               "flash_attention_segments_fwd: tiles_ran must be one int32",
               error=E.InvalidArgumentError)
-    stats, stride = stats if stats is not None else _tile_stats(segs)
+    stats, stride, tiles = (stats if stats is not None
+                            else _tile_stats(segs, seg_tiles(q)))
     lib = _lib()
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -475,9 +518,10 @@ def flash_attention_segments_fwd(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *(a.data_ptr() for a in segs), stats.data_ptr(),
         None if tiles_ran is None else tiles_ran.data_ptr(), b, sq, sk, h,
-        kvh, d, stride, float(scale), int(bool(causal)), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        kvh, d, stride, *tiles, float(scale), int(bool(causal)),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     DISPATCH_STATS["varlen"] += 1
+    DISPATCH_STATS["varlen_tc"] += tensor_core_route(q)
     _build.check_launch("flash_fwd_seg", err)
     return out, lse
 
@@ -487,8 +531,9 @@ def flash_attention_segments_bwd(q, k, v, out, lse, dout, seg_q, seg_k,
                                  stats=None):
     """``(dq, dk, dv)`` of segment-masked attention from the forward's
     inputs, its output and lse and the output gradient: the CUDA kernels
-    for CUDA tensors (``stats`` as in the forward), the plain version for
-    CPU tensors. Raises for CUDA tensors the kernels do not take."""
+    for CUDA tensors (``stats`` as in the forward, at ``seg_tiles(q,
+    backward=True)``), the plain version for CPU tensors. Raises for CUDA
+    tensors the kernels do not take."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     segs = (seg_q, seg_k, pos_q, pos_k)
@@ -507,7 +552,8 @@ def flash_attention_segments_bwd(q, k, v, out, lse, dout, seg_q, seg_k,
               error=E.InvalidArgumentError)
     segs = _seg_check("flash_attention_segments_bwd", q, k, v, segs,
                       (out, lse, dout))
-    stats, stride = stats if stats is not None else _tile_stats(segs)
+    stats, stride, tiles = (stats if stats is not None else _tile_stats(
+        segs, seg_tiles(q, backward=True)))
     lib = _lib_bwd()
     sk, kvh = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -516,10 +562,11 @@ def flash_attention_segments_bwd(q, k, v, out, lse, dout, seg_q, seg_k,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), *(a.data_ptr() for a in segs),
-        stats.data_ptr(), b, sq, sk, h, kvh, d, stride, float(scale),
-        int(bool(causal)), _DTYPES[q.dtype],
+        stats.data_ptr(), b, sq, sk, h, kvh, d, stride, *tiles,
+        float(scale), int(bool(causal)), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     DISPATCH_STATS["varlen_bwd"] += 1
+    DISPATCH_STATS["varlen_bwd_tc"] += tensor_core_route(q)
     _build.check_launch("flash_bwd_seg", err)
     return dq, dk, dv
 
@@ -527,21 +574,26 @@ def flash_attention_segments_bwd(q, k, v, out, lse, dout, seg_q, seg_k,
 class _FlashSegAttention(torch.autograd.Function):
     """The reference's ``_flash_seg`` custom VJP: the forward wrapper
     saves ``q, k, v, out, lse``, the segment ids and positions and, on
-    the card, the tile stats, which the backward kernels reuse."""
+    the card, the backward kernels' tile stats (``seg_tiles(q,
+    backward=True)``; the same tensor as the forward's when the tiles
+    agree)."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_k, pos_q, pos_k, causal, scale):
         segs = (seg_q, seg_k, pos_q, pos_k)
-        stats = None
+        stats = bwd_stats = None
         if q.is_cuda:
             segs = _seg_check("flash_attention_segments", q, k, v, segs)
-            stats = _tile_stats(segs)
+            stats = _tile_stats(segs, seg_tiles(q))
+            tiles = seg_tiles(q, backward=True)
+            bwd_stats = (stats if stats[2] == tiles
+                         else _tile_stats(segs, tiles))
         out, lse = flash_attention_segments_fwd(
             q, k, v, *segs, causal=causal, scale=scale, stats=stats)
         ctx.save_for_backward(q, k, v, out, lse, *segs,
-                              None if stats is None else stats[0])
+                              None if bwd_stats is None else bwd_stats[0])
         ctx.causal, ctx.scale = causal, scale
-        ctx.stride = None if stats is None else stats[1]
+        ctx.stats_layout = None if bwd_stats is None else bwd_stats[1:]
         return out
 
     @staticmethod
@@ -550,7 +602,7 @@ class _FlashSegAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_segments_bwd(
             q, k, v, out, lse, dout.contiguous(), *segs, causal=ctx.causal,
             scale=ctx.scale,
-            stats=None if stats is None else (stats, ctx.stride))
+            stats=None if stats is None else (stats, *ctx.stats_layout))
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -582,7 +634,7 @@ def _lib():
         lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i,
                                   p]
         lib.flash_fwd.restype = ctypes.c_int
-        lib.flash_fwd_seg.argtypes = [p] * 11 + [i] * 7 + [f, i, i, p]
+        lib.flash_fwd_seg.argtypes = [p] * 11 + [i] * 9 + [f, i, i, p]
         lib.flash_fwd_seg.restype = ctypes.c_int
     return lib
 
@@ -593,6 +645,6 @@ def _lib_bwd():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_bwd.argtypes = [p] * 10 + [i] * 6 + [f, i, i, p]
         lib.flash_bwd.restype = ctypes.c_int
-        lib.flash_bwd_seg.argtypes = [p] * 15 + [i] * 7 + [f, i, i, p]
+        lib.flash_bwd_seg.argtypes = [p] * 15 + [i] * 9 + [f, i, i, p]
         lib.flash_bwd_seg.restype = ctypes.c_int
     return lib

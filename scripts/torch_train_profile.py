@@ -57,7 +57,8 @@ MARKERS = ("Command Buffer Full", "Activity Buffer Request")
 
 def _classify(kernel: str, ranges) -> str:
     n = kernel.lower()
-    if "flash" in n and "segmentmask" in n:
+    # either route's policy (SegmentMask, SegmentTC) names the segment pair
+    if "flash" in n and "segment" in n:
         return "segment"
     if "flash_bwd" in n:
         return "flash_bwd"

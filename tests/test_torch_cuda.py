@@ -348,6 +348,8 @@ def test_segment_kernels_match_plain(dev, dtype, tol, sq, sk, causal, kind):
     torch.cuda.synchronize()
     stats = K.dispatch_stats()
     assert stats["varlen"] == 1 and stats["varlen_bwd"] == 1
+    tc = int(dtype == torch.bfloat16)        # D 64: bf16 on the tensor cores
+    assert stats["varlen_tc"] == tc and stats["varlen_bwd_tc"] == tc, stats
     ref, ref_lse = FA.segment_attention_ref(q, k, v, *segs, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
     seen = torch.isfinite(ref_lse)
@@ -363,18 +365,86 @@ def test_segment_kernels_match_plain(dev, dtype, tol, sq, sk, causal, kind):
     assert torch.all(grads[1][pad_k] == 0) and torch.all(grads[2][pad_k] == 0)
 
 
-def test_segment_tiles_skipped_match_count(dev):
+def _check_segment_kernels(q, k, v, dout, segs, causal, scale=None,
+                           tol=2e-2):
+    """Both segment kernels against their plain versions: out within
+    ``tol``, lse within 1e-3 on rows that see a key (-inf on the others),
+    dq / dk / dv within ``tol`` of each reference's max |.|; padding rows
+    and keys exact zeros."""
+    out, lse = FA.flash_attention_segments_fwd(q, k, v, *segs, causal=causal,
+                                               scale=scale)
+    grads = FA.flash_attention_segments_bwd(q, k, v, out, lse, dout, *segs,
+                                            causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    ref, ref_lse = FA.segment_attention_ref(q, k, v, *segs, causal=causal,
+                                            scale=scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    seen = torch.isfinite(ref_lse)
+    assert torch.equal(seen, torch.isfinite(lse))
+    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-3, rtol=0)
+    want = FA.segment_attention_bwd_ref(q, k, v, out, lse, dout, *segs,
+                                        causal=causal, scale=scale)
+    for got, w in zip(grads, want):
+        assert got.dtype == w.dtype and got.shape == w.shape
+        err = float((got.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), err
+    pad_q, pad_k = segs[0] < 0, segs[1] < 0
+    assert torch.all(out[pad_q] == 0) and torch.all(grads[0][pad_q] == 0)
+    assert torch.all(grads[1][pad_k] == 0) and torch.all(grads[2][pad_k] == 0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,kind", [
+    (1000, 1000, "packed"), (200, 200, "random"), (70, 90, "cu"),
+    (300, 260, "cu"), (128, 128, "packed")])
+def test_tensor_core_segment_kernels_match_plain(dev, d, causal, sq, sk,
+                                                 kind):
+    """The segment kernels' tensor-core route (bf16, D 64 / 128) against
+    their plain versions: ragged S with a padding tail, random ids and
+    positions per token (where the skip predicate is only conservative),
+    and Sq != Sk; each launch counted on the route."""
+    g = torch.Generator(device=dev).manual_seed(d + sq + sk)
+    q, k, v, dout = (torch.randn(2, s, h, d, generator=g, device=dev)
+                     .bfloat16() for s, h in ((sq, 8), (sk, 2), (sk, 2),
+                                              (sq, 8)))
+    segs = _seg_layout(dev, 2, sq, sk, kind)
+    K.reset_dispatch_stats()
+    _check_segment_kernels(q, k, v, dout, segs, causal)
+    st = K.dispatch_stats()
+    assert st["varlen"] == st["varlen_tc"] == 1, st
+    assert st["varlen_bwd"] == st["varlen_bwd_tc"] == 1, st
+
+
+@pytest.mark.parametrize("scale", [-0.1, 0.0, 0.2])
+def test_tensor_core_segment_kernels_take_any_scale(dev, scale):
+    """A negative or zero scale gives the plain version's result on the
+    segment route too (the forward takes row maxima on raw scores)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, dout = (torch.randn(2, 300, h, 128, generator=g, device=dev)
+                     .bfloat16() for h in (8, 2, 2, 8))
+    segs = _seg_layout(dev, 2, 300, 300, "packed")
+    _check_segment_kernels(q, k, v, dout, segs, True, scale=scale)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128)])
+def test_segment_tiles_skipped_match_count(dev, dtype, d):
     """The forward kernel computes exactly the tiles that
-    ``count_skipped_blocks`` at 32 x 32 leaves, on every head."""
-    segs = _seg_layout(dev, 2, 200, 200, "packed")
-    q = torch.randn(2, 200, 4, 32, device=dev)
-    k = torch.randn(2, 200, 2, 32, device=dev)
+    ``count_skipped_blocks`` leaves at its route's tiles
+    (``seg_tiles``), on every head."""
+    segs = _seg_layout(dev, 2, 1000, 1000, "packed")
+    q = torch.randn(2, 1000, 4, d, device=dev).to(dtype)
+    k = torch.randn(2, 1000, 2, d, device=dev).to(dtype)
+    assert FA.seg_tiles(q) == ((128, 128) if dtype == torch.bfloat16
+                               else (FA.SEG_BLOCK, FA.SEG_BLOCK))
     for causal in (True, False):
         ran = torch.zeros(1, dtype=torch.int32, device=dev)
         FA.flash_attention_segments_fwd(q, k, k, *segs, causal=causal,
                                         tiles_ran=ran)
-        skipped, total = FA.count_skipped_blocks(*segs, FA.SEG_BLOCK,
-                                                 FA.SEG_BLOCK, causal)
+        skipped, total = FA.count_skipped_blocks(*segs, *FA.seg_tiles(q),
+                                                 causal)
         assert int(ran) == 4 * (total - skipped)
 
 
@@ -438,6 +508,18 @@ def test_kernels_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):                # lse must be float32
         FA.flash_attention_segments_bwd(q, q, q, q, lse.double(), q, seg,
                                         seg, seg, seg)
+    qb = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, device=dev)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError):                # lse must be float32
+        FA.flash_attention_segments_bwd(qb, qb, qb, qb, lse.double(), qb,
+                                        seg, seg, seg, seg)
+    segs = (seg, seg, seg, seg)
+    cuda_cores = FA._tile_stats(segs, (FA.SEG_BLOCK, FA.SEG_BLOCK))
+    with pytest.raises(RuntimeError):              # stats at other tiles
+        FA.flash_attention_segments_fwd(qb, qb, qb, *segs, stats=cuda_cores)
+    with pytest.raises(RuntimeError):
+        FA.flash_attention_segments_bwd(qb, qb, qb, qb, lse, qb, *segs,
+                                        stats=cuda_cores)
 
     x = torch.zeros(4, 64, device=dev)
     with pytest.raises(ValueError):                # float16 x

@@ -1,12 +1,14 @@
-"""The dense flash kernels' two routes, on the CPU.
+"""The flash kernels' two routes, dense and segment-masked, on the CPU.
 
 ``flash_attention.tensor_core_route`` says which kernels a CUDA launch
 runs: bfloat16 at head dim 64 or 128 takes the tensor-core kernels
 (``wgmma``), float32 and every other head dim that ``supported`` takes
 the float32 CUDA-core kernels. The C entries make the same choice
-(``tc_route`` in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``); the
-counters ``flash_tc`` / ``flash_bwd_tc`` count the launches that took
-it. The kernels themselves run only on the card
+(``tc_route`` in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, in the
+dense and the segment entries); the counters ``flash_tc`` /
+``flash_bwd_tc`` and ``varlen_tc`` / ``varlen_bwd_tc`` count the
+launches that took it. ``seg_tiles`` names each route's segment tiles,
+which the C entries check. The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
 import re
@@ -61,6 +63,66 @@ def test_c_entries_choose_the_same_route(source):
     assert "if (tc_route(dtype, D))" in text
 
 
+def _entry_body(source, name):
+    """The text of C entry ``name`` in ``source``, up to the next
+    top-level closing brace."""
+    text = (CSRC / source).read_text()
+    start = text.index(f'extern "C" int {name}(')
+    return text[start:text.index("\n}\n", start)]
+
+
+@pytest.mark.parametrize("source,entry", [
+    ("flash_fwd.cu", "flash_fwd"), ("flash_fwd.cu", "flash_fwd_seg"),
+    ("flash_bwd.cu", "flash_bwd"), ("flash_bwd.cu", "flash_bwd_seg")])
+def test_every_entry_takes_the_route(source, entry):
+    """Each C entry, dense and segment-masked, chooses its route by
+    ``tc_route`` before the CUDA-core dispatch."""
+    body = _entry_body(source, entry)
+    assert "if (tc_route(dtype, D))" in body
+    assert body.index("if (tc_route(dtype, D))") < body.index(
+        "return dispatch(")
+
+
+def _constant(source, name):
+    text = (CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 64),
+    (torch.float32, 128), (torch.bfloat16, 32), (torch.bfloat16, 96)])
+def test_seg_tiles_name_the_kernels_tiles(dtype, d):
+    """``seg_tiles`` gives the tiles the segment kernels of the route run:
+    the tensor-core forward's TC_BM x TC_BN and the backward's TC_TILE x
+    TC_TILE, or the CUDA-core BM x BN."""
+    q = torch.zeros(1, 8, 2, d, dtype=dtype)
+    fwd, bwd = FA.seg_tiles(q), FA.seg_tiles(q, backward=True)
+    if FA.tensor_core_route(q):
+        assert fwd == (_constant("flash_fwd.cu", "TC_BM"),
+                       _constant("flash_fwd.cu", "TC_BN")) == (128, 128)
+        tile = _constant("flash_bwd.cu", "TC_TILE")
+        assert bwd == (tile, tile) == (64, 64)
+    else:
+        for source, tiles in (("flash_fwd.cu", fwd), ("flash_bwd.cu", bwd)):
+            assert tiles == (_constant(source, "BM"), _constant(source, "BN"))
+            assert tiles == (FA.SEG_BLOCK, FA.SEG_BLOCK)
+
+
+def test_tile_stats_carry_their_tiles():
+    """The wrappers pass the stats' tiles to the C entries, which refuse
+    stats at other tiles than the route's."""
+    seg = torch.zeros(2, 300, dtype=torch.int32)
+    pos = torch.arange(300, dtype=torch.int32).expand(2, 300)
+    for tiles in ((128, 128), (64, 64), (32, 32)):
+        stats, stride, got = FA._tile_stats((seg, seg, pos, pos), tiles)
+        assert got == tiles and stride == -(-300 // tiles[0])
+        assert stats.shape == (8, 2 * stride) and stats.dtype == torch.int32
+    for source, entry in (("flash_fwd.cu", "flash_fwd_seg"),
+                          ("flash_bwd.cu", "flash_bwd_seg")):
+        body = _entry_body(source, entry)
+        assert body.count("bad_tiles(Sq, Sk, stride, tile_q, tile_k,") == 2
+
+
 def test_route_counters_start_at_zero_and_reset():
     K.reset_dispatch_stats()
     st = K.dispatch_stats()
@@ -70,6 +132,42 @@ def test_route_counters_start_at_zero_and_reset():
     K.reset_dispatch_stats()
     st = K.dispatch_stats()
     assert st["flash_tc"] == 0 and st["flash_bwd_tc"] == 0
+
+
+def test_segment_route_counters_start_at_zero_and_reset():
+    K.reset_dispatch_stats()
+    st = K.dispatch_stats()
+    assert st["varlen_tc"] == 0 and st["varlen_bwd_tc"] == 0
+    K._DISPATCH_STATS["varlen_tc"] = 3
+    K._DISPATCH_STATS["varlen_bwd_tc"] = 2
+    K.reset_dispatch_stats()
+    st = K.dispatch_stats()
+    assert st["varlen_tc"] == 0 and st["varlen_bwd_tc"] == 0
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 64)])
+def test_cpu_segment_calls_count_the_plain_version_not_a_route(dtype, d):
+    """A CPU tensor takes the segment plain versions (``varlen_ref`` /
+    ``varlen_bwd_ref``) on either route's dtype, through the wrappers and
+    through the autograd Function, and launches nothing."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 8, h, d, generator=g).to(dtype)
+               for h in (4, 2, 2))
+    seg = torch.tensor([[0, 0, 0, 1, 1, 1, -1, -1]], dtype=torch.int32)
+    pos = torch.tensor([[0, 1, 2, 0, 1, 2, 0, 0]], dtype=torch.int32)
+    segs = (seg, seg, pos, pos)
+    K.reset_dispatch_stats()
+    out, lse = FA.flash_attention_segments_fwd(q, k, v, *segs, causal=True)
+    FA.flash_attention_segments_bwd(q, k, v, out, lse, torch.ones_like(q),
+                                    *segs, causal=True)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    FA.flash_attention_segments(*leaves, *segs, causal=True).sum().backward()
+    st = K.dispatch_stats()
+    assert st["varlen_ref"] == 2 and st["varlen_bwd_ref"] == 2, st
+    assert st["varlen"] == st["varlen_tc"] == 0
+    assert st["varlen_bwd"] == st["varlen_bwd_tc"] == 0
 
 
 def test_cpu_tensors_count_the_plain_version_not_a_route():

@@ -180,12 +180,23 @@ def test_function_gradients_equal_plain_backward():
             causal=True).grad_fn is None
 
 
+_SIZES = {"cross": (128, 128), "aligned": (128, 128), "padtail": (64, 64),
+          "noncontig": (64, 64), "sq_ne_sk": (64, 96)}
+
+
+def _dividing(blocks):
+    """(layout, (block_q, block_k)) pairs where the tiles divide S, as the
+    reference needs: the CUDA-core tile (32), the tensor-core route's
+    (128 x 128 forward, 64 x 64 backward), smaller and mixed ones."""
+    return [(layout, (bq, bk)) for layout, (sq, sk) in _SIZES.items()
+            for bq, bk in blocks if sq % bq == 0 and sk % bk == 0]
+
+
 # the reference needs the tile to divide S: Sk = 96 of "sq_ne_sk" leaves
-# out 64
+# out 64 and 128, S = 64 of "padtail" and "noncontig" leaves out 128
 @pytest.mark.parametrize("layout,block", [
-    (layout, block) for layout in ("cross", "aligned", "padtail",
-                                   "noncontig", "sq_ne_sk")
-    for block in (16, 32, 64) if (layout, block) != ("sq_ne_sk", 64)])
+    (layout, block) for layout, (sq, sk) in _SIZES.items()
+    for block in (16, 32, 64, 128) if sq % block == 0 and sk % block == 0])
 def test_count_skipped_blocks_matches_jax(layout, block):
     segs = _layout(layout)
     for causal in (True, False):
@@ -194,24 +205,89 @@ def test_count_skipped_blocks_matches_jax(layout, block):
             JFA.count_skipped_blocks(*segs, block, block, causal)
 
 
-@pytest.mark.parametrize("layout", ["cross", "noncontig", "sq_ne_sk"])
-def test_tile_skipping_is_conservative(layout):
-    """Every tile pair that holds a visible token pair runs, also where S
-    does not divide the tile (a ragged last tile) and for layouts where
-    the predicate is not exact."""
-    segs = [torch.as_tensor(a)[:, :-5] for a in _layout(layout)]
+@pytest.mark.parametrize("layout,tiles", _dividing([(64, 32), (32, 64),
+                                                    (128, 64)]))
+def test_count_skipped_blocks_matches_jax_on_mixed_tiles(layout, tiles):
+    segs = _layout(layout)
+    for causal in (True, False):
+        assert TFA.count_skipped_blocks(*(torch.as_tensor(a) for a in segs),
+                                        *tiles, causal) == \
+            JFA.count_skipped_blocks(*segs, *tiles, causal)
+
+
+@pytest.mark.parametrize("layout,tiles", _dividing(
+    [(32, 32), (64, 64), (128, 128)]))
+def test_tile_stats_first_six_rows_match_jax(layout, tiles):
+    """The stats' first six rows are the reference's ``_seg_block_stats``
+    (the two rows after them are the port's own)."""
+    segs = _layout(layout)
+    got, stride = TFA._seg_block_stats(*(torch.as_tensor(a) for a in segs),
+                                       *tiles)
+    want, jstride = JFA._seg_block_stats(*(jnp.asarray(a) for a in segs),
+                                         *tiles)
+    assert stride == jstride and got.shape[0] == 8
+    np.testing.assert_array_equal(got[:6].numpy(), np.asarray(want))
+
+
+def _ragged(layout):
+    """The layout less its last five tokens: S divides no tile."""
+    return [torch.as_tensor(a)[:, :-5] for a in _layout(layout)]
+
+
+def _pairs(segs, causal, tq, tk):
+    """(visible [B, nq, tq, nk, tk], present [...]): visible token pairs
+    and pairs of real (not past-the-edge) tokens, tile by tile."""
     b, sq = segs[0].shape
     sk = segs[1].shape[1]
+    nq, nk = -(-sq // tq), -(-sk // tk)
+    pad = (0, nk * tk - sk, 0, nq * tq - sq)
+    vis = torch.nn.functional.pad(TFA._seg_mask(*segs, causal), pad)
+    real = torch.nn.functional.pad(torch.ones(b, sq, sk, dtype=torch.bool),
+                                   pad)
+    return (vis.reshape(b, nq, tq, nk, tk), real.reshape(b, nq, tq, nk, tk),
+            nq, nk)
+
+
+@pytest.mark.parametrize("layout", ["cross", "noncontig", "sq_ne_sk"])
+def test_tile_skipping_is_conservative(layout):
+    """Every tile pair that holds a visible token pair runs, at the
+    CUDA-core tiles (32) and the tensor-core route's (128 forward, 64
+    backward), also where S does not divide the tile (a ragged last
+    tile) and for layouts where the predicate is not exact."""
+    segs = _ragged(layout)
+    b = segs[0].shape[0]
+    for tiles in ((32, 32), (64, 64), (128, 128)):
+        for causal in (True, False):
+            stats, stride = TFA._seg_block_stats(*segs, *tiles)
+            vis, _, nq, nk = _pairs(segs, causal, *tiles)
+            run = TFA._tiles_run(stats, stride, b, nq, nk, causal)
+            needed = vis.any(4).any(2)
+            assert not bool((needed & ~run).any())
+            skipped, total = TFA.count_skipped_blocks(*segs, *tiles, causal)
+            assert total == b * nq * nk and skipped == int((~run).sum())
+
+
+@pytest.mark.parametrize("tiles", [(32, 32), (64, 64), (128, 128)])
+@pytest.mark.parametrize("layout", ["cross", "aligned", "noncontig",
+                                    "sq_ne_sk"])
+def test_full_tiles_see_every_pair(layout, tiles):
+    """A tile pair that the stats' last two rows mark as needing no
+    element mask (``_tiles_full``) runs, and every pair of real tokens in
+    it is visible, also in a ragged last tile; on tile-aligned documents
+    some pairs are full, so the mark is not vacuous."""
+    segs = _ragged(layout) if layout != "aligned" else [
+        torch.as_tensor(a) for a in _layout(layout)]
+    b = segs[0].shape[0]
     for causal in (True, False):
-        stats, stride = TFA._seg_block_stats(*segs, 32, 32)
-        nq, nk = -(-sq // 32), -(-sk // 32)
+        stats, stride = TFA._seg_block_stats(*segs, *tiles)
+        vis, real, nq, nk = _pairs(segs, causal, *tiles)
+        full = TFA._tiles_full(stats, stride, b, nq, nk, causal)
         run = TFA._tiles_run(stats, stride, b, nq, nk, causal)
-        vis = TFA._seg_mask(*segs, causal)
-        vis = torch.nn.functional.pad(vis, (0, nk * 32 - sk, 0, nq * 32 - sq))
-        needed = vis.reshape(b, nq, 32, nk, 32).any(4).any(2)
-        assert not bool((needed & ~run).any())
-        skipped, total = TFA.count_skipped_blocks(*segs, 32, 32, causal)
-        assert total == b * nq * nk and skipped == int((~run).sum())
+        assert not bool((full & ~run).any())
+        unseen = (real & ~vis).any(4).any(2)
+        assert not bool((full & unseen).any())
+        if layout == "aligned" and tiles == (32, 32):
+            assert bool(full.any())
 
 
 def test_segment_ids_from_cu_seqlens_match_jax():
