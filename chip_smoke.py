@@ -20,9 +20,19 @@ Phases, each printed on its own line; any failure exits non-zero:
    tensor cores, float32 on the CUDA cores, each launch counted on the
    route it must take; the forward is timed at the serving and the
    training shapes, the backward at the training shape; the decode
-   kernel's int8 arm (``kernel=paged_decode_int8``) at page sizes 16, 32
-   and 64 with float32 and bfloat16 queries, and against the
-   full-precision kernel on the densely dequantized pages;
+   kernel (``kernel=paged_decode``, bf16 pages of 16) at edge lengths,
+   the first and second waves' lengths, lengths at the split plan's
+   chunk edges up to the full 2048-position table, one sequence over the
+   full table, 32 sequences (twice, bit for bit) and NaN in every slot
+   past a sequence's length; its int8 arm (``kernel=paged_decode_int8``)
+   at page sizes 16, 32 and 64 with float32 and bfloat16 queries,
+   against the full-precision kernel on the densely dequantized pages,
+   and at int8 pages of 32 on the same cases (NaN scales where the
+   table's sentinel entries point); both arms timed at the first wave,
+   the second wave and 32 sequences over the full table by the
+   profiler's device time of the split and combine kernels over a
+   rotation of pools larger than the L2 (``decode_timing``), beside the
+   old back-to-back wrapper time (``wrapper_ms``);
    layer_grads: one bf16 layer at Llama-3-8B widths, forward and
    backward, with attention through the kernels and through the plain
    version: the q, k, v gradients must agree within ``BWD_TOL``; then
@@ -100,7 +110,9 @@ dense flash kernels only on their tensor-core route (``flash_tc ==
 flash``, ``flash_bwd_tc == flash_bwd``), and the packed pass of
 ``train_packed`` the segment kernels only on theirs (``varlen_tc ==
 varlen``, ``varlen_bwd_tc == varlen_bwd``). The build phase prints the
-registers and spills of each tensor-core kernel from ``ptxas``.
+registers and spills of each tensor-core kernel and each decode kernel
+(``paged_decode_kernel<q, page, heads>``, ``paged_decode_combine_kernel``)
+from ``ptxas``.
 
 Then it prints the kernel records as one JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -183,6 +195,8 @@ def _ptxas_entries(log):
                 args.append(m.group(2))
             if m and m.group(3):          # a policy: its name's length
                 args.append(m.group(4)[:int(m.group(3))])
+            if m and m.group(1).startswith("paged_decode"):
+                args = _decode_args(mangled[m.end(1):])
             kernel = (f"{m.group(1)}<{','.join(args)}>" if args
                       else m.group(1) if m else mangled)
         elif kernel and "spill stores" in line:
@@ -193,6 +207,23 @@ def _ptxas_entries(log):
             out.append((kernel, regs, *spills))
             kernel, spills = None, (0, 0)
     return out
+
+
+def _decode_args(rest):
+    """The template arguments of a mangled decode kernel name after its
+    name (``I13__nv_bfloat16aLi4ELb1EEE...``): types, numbers and bools
+    (1 / 0); a substitution (``S1_``) repeats the type before it."""
+    import re
+    m = re.match(r"I((?:f|a|13__nv_bfloat16|S\d*_|L[ib]\d+E)+)E", rest)
+    args = []
+    for tok in re.finditer(r"f|a|13__nv_bfloat16|S\d*_|L[ib](\d+)E",
+                           m.group(1) if m else ""):
+        t = tok.group(0)
+        args.append(tok.group(1) if tok.group(1) else
+                    {"f": "float", "a": "int8",
+                     "13__nv_bfloat16": "bf16"}.get(t, args[-1] if args
+                                                    else t))
+    return args
 
 
 def _main_requests(vocab, seed=0):
@@ -416,60 +447,239 @@ def _page_tables(torch, dev, lengths, ps, width, num_pages, seed):
     return bt.to(dev)
 
 
-def phase_paged(torch, dev, main_lengths, num_pages, maxp):
+def decode_wave_lengths(requests):
+    """Decode lengths of the main path's two waves of 8 requests (prompts
+    257..512, then 513..1024), each half-way through its generation."""
+    lens = [int(r.prompt.shape[0]) + r.max_new_tokens // 2 for r in requests]
+    return lens[:8], lens[8:16]
+
+
+def _split_cases(torch, PA, B, KVH, ps, width, main_lengths, wave2):
+    """The decode kernel's cases beyond its edge lengths, each ``(name,
+    lengths)``: the first wave; lengths at the edges of the split plan's
+    chunk (``decode_split_plan``) up to the full table; one sequence over
+    the full table (where the split matters most); 32 sequences; the
+    second wave."""
+    full = width * ps
+
+    def chunk(b):
+        return PA.decode_split_plan(b, KVH, ps, width)[0] * ps
+
+    c8, c32 = chunk(B), chunk(32)
+    rng = torch.Generator().manual_seed(17)
+    b32 = [0, 1, full, c32 - 1, c32, c32 + 1] + torch.randint(
+        1, full + 1, (26,), generator=rng).tolist()
+    return (("main", list(main_lengths)),
+            ("split_edges", [c8 - 1, c8, c8 + 1, 2 * c8 - 1, 2 * c8 + 1, 0,
+                             full - 1, full]),
+            ("b1_full", [full]),
+            ("b32", b32),
+            ("second_wave", list(wave2)))
+
+
+def _nan_past_lengths(torch, pages, bt, lengths, ps, value):
+    """A copy of ``pages`` whose slots past each sequence's length in its
+    last page hold ``value``."""
+    out = pages.clone()
+    for b, n in enumerate(lengths):
+        if n % ps:
+            out[int(bt[b, n // ps]), :, n % ps:] = value
+    return out
+
+
+L2_BYTES = 50e6      # the H100's L2 cache
+
+
+def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
+                  check=True):
+    """One decode call's device time at ``lengths`` (bf16 q, Llama-3-8B
+    heads; bf16 pages of ``ps``, or int8 with scales): ``torch.profiler``'s
+    device time of every ``paged_decode*`` kernel (split and combine) over
+    a rotation of pools of the same shape whose live bytes are at least
+    twice the L2, so each call finds its pages cold, as the main path's 32
+    layer pools do. Beside it ``wrapper_ms`` (back-to-back wrapper calls
+    on one pool, the timing of earlier rows: hot L2, and paced by the
+    host once the kernel is short) and the plain version's time. Checks
+    the kernel against the plain version on one pool (``check=False``
+    reports the error without the check, for variants that drop part of
+    the work)."""
+    import math
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, NH, KVH, D = len(lengths), 32, 8, 128
+    P = sum(-(-n // ps) for n in lengths) + 1
+    elem = 1 if quant else 2
+    live = 2 * KVH * sum(lengths) * D * elem
+    npool = max(8, math.ceil(2 * L2_BYTES / live))
+    pools = []
+    for _ in range(npool):
+        if quant:
+            pools.append(tuple(
+                torch.randint(-127, 128, (P, KVH, ps, D), generator=gen,
+                              device=dev, dtype=torch.int8)
+                for _ in range(2)) + tuple(
+                0.02 * torch.rand(P, KVH, generator=gen, device=dev)
+                for _ in range(2)))
+        else:
+            pools.append(tuple(
+                torch.randn(P, KVH, ps, D, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2)))
+    bt = _page_tables(torch, dev, lengths, ps, width, P - 1, seed)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn(B, NH, D, generator=gen, device=dev).to(torch.bfloat16)
+
+    def call(i, fn=PA.ragged_paged_attention):
+        kp, vp, *sc = pools[i]
+        return fn(q, kp, vp, bt, ln, **(
+            {"k_scales": sc[0], "v_scales": sc[1]} if quant else {}))
+
+    err = _err(call(0), call(0, PA.paged_attention_ref))
+    assert err <= PAGED_TOL or not check, \
+        f"decode kernel disagrees at B{B}: {err}"
+    for i in range(npool):
+        call(i)
+    torch.cuda.synchronize()
+    reps = math.ceil(240 / npool)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for i in range(npool):
+                call(i)
+        torch.cuda.synchronize()
+    split_us = combine_us = 0.0
+    for evt in prof.key_averages():
+        if "paged_decode" not in evt.key:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        if "combine" in evt.key:
+            combine_us += us
+        else:
+            split_us += us
+    calls = reps * npool
+    assert split_us > 0, "the profiler saw no decode kernel"
+    ms = (split_us + combine_us) / calls / 1e3
+    ctx = sum(lengths)
+    pages = sum(-(-n // ps) for n in lengths)
+    # bytes: the live context's keys and values (int8: codes, and the
+    # scales of their pages), q and out in bf16, block tables and lengths
+    nbytes = (2 * KVH * ctx * D * elem + (2 * 4 * KVH * pages if quant
+                                         else 0)
+              + 2 * 2 * q.numel() + 4 * (bt.numel() + B))
+    flops = 4.0 * NH * ctx * D
+    bound = max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
+    return {"shape": f"B{B}xctx{ctx}xps{ps}", "ms": ms,
+            "split_ms": split_us / calls / 1e3,
+            "combine_ms": combine_us / calls / 1e3,
+            "wrapper_ms": _time_ms(lambda: call(0), 50),
+            "plain_ms": _time_ms(lambda: call(0, PA.paged_attention_ref),
+                                 10),
+            "bound_ms": bound, "bound_share": bound / ms,
+            "gbps": nbytes / ms / 1e6, "pools": npool,
+            "pool_mb": live / 1e6, "max_abs_err": err,
+            "splits": PA.decode_split_plan(B, KVH, ps, width)[1]
+            if hasattr(PA, "decode_split_plan") else 1}
+
+
+def decode_timing_shapes(main_lengths, wave2, full):
+    """The three timed shapes: the first wave, the second wave, and 32
+    sequences over the full table of ``full`` positions (the bandwidth
+    shape)."""
+    return (("first_wave", list(main_lengths)),
+            ("second_wave", list(wave2)),
+            ("bandwidth", [full] * 32))
+
+
+def phase_paged(torch, dev, main_lengths, wave2, maxp):
+    """The decode kernel (bf16 pages of 16) against its plain version:
+    edge lengths, the first wave, the split plan's chunk edges, B 1 over
+    the full table, B 32, the second wave, NaN in every slot past a
+    sequence's length and in the page its sentinel entries name (against
+    the plain version on zeros there), two launches bit for bit; then
+    timed at three shapes (``decode_timing``)."""
     from paddle_tpu_torch.kernels import paged_attention as PA
     gen = torch.Generator(device=dev).manual_seed(2)
     B, NH, KVH, D, PS = len(main_lengths), 32, 8, 128, 16
+    num_pages = 32 * maxp + 8
     kp = torch.randn(num_pages, KVH, PS, D, generator=gen,
                      device=dev).to(torch.bfloat16)
     vp = torch.randn(num_pages, KVH, PS, D, generator=gen,
                      device=dev).to(torch.bfloat16)
 
     worst = 0.0
-    cases = (("edge", [0, 1, 15, 16, 17, 300, 777, maxp * PS]),
-             ("main", list(main_lengths)))
+    cases = (("edge", [0, 1, 15, 16, 17, 300, 777, maxp * PS]),) + \
+        _split_cases(torch, PA, B, KVH, PS, maxp, main_lengths, wave2) + \
+        (("nan_past_length", [1, 15, 17, 255, 257, 700, 1025,
+                              maxp * PS - 1]),)
     for name, lengths in cases:
-        q = torch.randn(B, NH, D, generator=gen,
+        q = torch.randn(len(lengths), NH, D, generator=gen,
                         device=dev).to(torch.bfloat16)
-        bt = _page_tables(torch, dev, lengths, PS, maxp, num_pages, 3)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        out = PA.ragged_paged_attention(q, kp, vp, bt, ln)
-        torch.cuda.synchronize()
-        ref = PA.paged_attention_ref(q, kp, vp, bt, ln)
+        if name == "nan_past_length":
+            # sentinel entries (num_pages - 1 after the clamp) name the
+            # last page, which no sequence owns
+            bt = _page_tables(torch, dev, lengths, PS, maxp, num_pages - 1,
+                              3)
+            kn = _nan_past_lengths(torch, kp, bt, lengths, PS, float("nan"))
+            vn = _nan_past_lengths(torch, vp, bt, lengths, PS, float("nan"))
+            kn[-1] = float("nan")
+            vn[-1] = float("nan")
+            out = PA.ragged_paged_attention(q, kn, vn, bt, ln)
+            kz = _nan_past_lengths(torch, kp, bt, lengths, PS, 0.0)
+            vz = _nan_past_lengths(torch, vp, bt, lengths, PS, 0.0)
+            kz[-1] = 0.0
+            vz[-1] = 0.0
+            torch.cuda.synchronize()
+            ref = PA.paged_attention_ref(q, kz, vz, bt, ln)
+            del kn, vn, kz, vz
+        else:
+            bt = _page_tables(torch, dev, lengths, PS, maxp, num_pages, 3)
+            out = PA.ragged_paged_attention(q, kp, vp, bt, ln)
+            torch.cuda.synchronize()
+            ref = PA.paged_attention_ref(q, kp, vp, bt, ln)
         err = _err(out, ref)
         zero_rows = [b for b, n in enumerate(lengths) if n == 0]
-        _say("kernels", kernel="paged_decode", case=name,
-             lengths=",".join(map(str, lengths)), max_abs_err=err,
-             tol=PAGED_TOL)
-        assert err <= PAGED_TOL, "paged_decode disagrees"
+        same = True
+        if name == "b32":
+            again = PA.ragged_paged_attention(q, kp, vp, bt, ln)
+            same = bool(torch.equal(out, again))
+        _say("kernels", kernel="paged_decode", case=name, B=len(lengths),
+             splits=PA.decode_split_plan(len(lengths), KVH, PS, maxp)[1],
+             lengths=",".join(map(str, lengths)) if len(lengths) <= 8
+             else f"{len(lengths)}_seqs", max_abs_err=err, tol=PAGED_TOL,
+             bitwise_repeat=same)
+        assert err <= PAGED_TOL, f"paged_decode disagrees ({name})"
         assert all(bool((out[b] == 0).all()) for b in zero_rows), \
             "paged_decode: a length-0 row is not zero"
         assert bool(torch.isfinite(out.float()).all())
+        assert same, "paged_decode: two launches differ"
         worst = max(worst, err)
-    ms = _time_ms(lambda: PA.ragged_paged_attention(q, kp, vp, bt, ln), 50)
-    plain_ms = _time_ms(lambda: PA.paged_attention_ref(q, kp, vp, bt, ln),
-                        10)
-    ctx = sum(main_lengths)
-    nbytes = (2 * KVH * ctx * D * 2 + 2 * 2 * q.numel()
-              + 4 * (bt.numel() + B))
-    flops = 4.0 * NH * ctx * D
-    bound = max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
-    _say("kernels", kernel="paged_decode", shape=f"B{B}xctx{ctx}",
-         ms=ms, plain_ms=plain_ms, bound_ms=bound,
-         gbps=nbytes / ms / 1e6)
+    del kp, vp
+    torch.cuda.empty_cache()
+    timed = {}
+    for shape, lengths in decode_timing_shapes(main_lengths, wave2,
+                                               maxp * PS):
+        timed[shape] = t = decode_timing(torch, dev, PA, lengths, PS, maxp,
+                                         False, 4)
+        _say("kernels", kernel="paged_decode", timing=shape, **t)
+        torch.cuda.empty_cache()
+    first = timed["first_wave"]
     return {"name": "paged_decode", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
             "replaces": "paddle_tpu/kernels/paged_attention.py:60",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": worst, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": "bytes", "library_ms": None}
 
 
-def phase_paged_int8(torch, dev, main_lengths, num_pages, maxp, ps):
+def phase_paged_int8(torch, dev, main_lengths, wave2, maxp, ps):
     """The int8 arm of the decode kernel against its plain version at page
     sizes 16, 32 and 64 with q in float32 and bfloat16 (edge lengths,
     sentinel and garbage table entries, never-written pages of scale 0),
-    against the full-precision kernel on the densely dequantized pages,
-    then timed at the main decode shape (int8 pages of ``ps``)."""
+    against the full-precision kernel on the densely dequantized pages;
+    then at the main int8 pages (``ps``, bf16 q) the cases of
+    ``phase_paged`` (the NaN case: NaN scales on the page the sentinel
+    entries name, -128 codes past each length); then timed at three
+    shapes."""
     from paddle_tpu_torch.kernels import paged_attention as PA
     gen = torch.Generator(device=dev).manual_seed(11)
     B, NH, KVH, D = len(main_lengths), 32, 8, 128
@@ -524,39 +734,77 @@ def phase_paged_int8(torch, dev, main_lengths, num_pages, maxp, ps):
                 assert derr <= FLASH_F32_TOL, \
                     "paged_decode_int8 differs from the dense kernel"
 
-    # the main decode shape: bf16 q, int8 pages of ps, the first wave's
-    # lengths half-way through its generation
+    # the main int8 pages: bf16 q, pages of ps, the phase_paged cases
+    num_pages = 32 * maxp + 8
     (kc, vc), (ks, vs) = pool(num_pages, ps)
-    bt = _page_tables(torch, dev, main_lengths, ps, maxp, num_pages, 12)
-    ln = torch.tensor(main_lengths, dtype=torch.int32, device=dev)
-    q = torch.randn(B, NH, D, generator=gen, device=dev).to(torch.bfloat16)
-    out = PA.ragged_paged_attention(q, kc, vc, bt, ln, k_scales=ks,
-                                    v_scales=vs)
-    torch.cuda.synchronize()
-    ref = PA.paged_attention_ref(q, kc, vc, bt, ln, k_scales=ks, v_scales=vs)
-    err = _err(out, ref)
-    assert err <= PAGED_TOL, "paged_decode_int8 disagrees at the main shape"
-    worst = max(worst, err)
-    ms = _time_ms(lambda: PA.ragged_paged_attention(
-        q, kc, vc, bt, ln, k_scales=ks, v_scales=vs), 50)
-    plain_ms = _time_ms(lambda: PA.paged_attention_ref(
-        q, kc, vc, bt, ln, k_scales=ks, v_scales=vs), 10)
-    ctx = sum(main_lengths)
-    pages = sum(-(-n // ps) for n in main_lengths)
-    # bytes: int8 codes of the live context and the scales of its pages
-    # (k and v), q and out in bf16, block tables and lengths
-    nbytes = (2 * KVH * ctx * D + 2 * 4 * KVH * pages + 2 * 2 * q.numel()
-              + 4 * (bt.numel() + B))
-    flops = 4.0 * NH * ctx * D
-    bound = max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
-    _say("kernels", kernel="paged_decode_int8",
-         shape=f"B{B}xctx{ctx}xps{ps}", max_abs_err=err, ms=ms,
-         plain_ms=plain_ms, bound_ms=bound, gbps=nbytes / ms / 1e6)
+    cases = _split_cases(torch, PA, B, KVH, ps, maxp, main_lengths,
+                         wave2) + (("nan_past_length",
+                                    [1, 31, 33, 255, 257, 700, 1025,
+                                     maxp * ps - 1]),)
+    for name, lengths in cases:
+        q = torch.randn(len(lengths), NH, D, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        if name == "nan_past_length":
+            bt = _page_tables(torch, dev, lengths, ps, maxp, num_pages - 1,
+                              12)
+            kn = _nan_past_lengths(torch, kc, bt, lengths, ps, -128)
+            vn = _nan_past_lengths(torch, vc, bt, lengths, ps, -128)
+            ksn, vsn = ks.clone(), vs.clone()
+            ksn[-1] = float("nan")
+            vsn[-1] = float("nan")
+            out = PA.ragged_paged_attention(q, kn, vn, bt, ln, k_scales=ksn,
+                                            v_scales=vsn)
+            kz = _nan_past_lengths(torch, kc, bt, lengths, ps, 0)
+            vz = _nan_past_lengths(torch, vc, bt, lengths, ps, 0)
+            ksz, vsz = ks.clone(), vs.clone()
+            ksz[-1] = 0.0
+            vsz[-1] = 0.0
+            torch.cuda.synchronize()
+            ref = PA.paged_attention_ref(q, kz, vz, bt, ln, k_scales=ksz,
+                                         v_scales=vsz)
+            del kn, vn, kz, vz
+        else:
+            bt = _page_tables(torch, dev, lengths, ps, maxp, num_pages, 12)
+            out = PA.ragged_paged_attention(q, kc, vc, bt, ln, k_scales=ks,
+                                            v_scales=vs)
+            torch.cuda.synchronize()
+            ref = PA.paged_attention_ref(q, kc, vc, bt, ln, k_scales=ks,
+                                         v_scales=vs)
+        err = _err(out, ref)
+        same = True
+        if name == "b32":
+            again = PA.ragged_paged_attention(q, kc, vc, bt, ln,
+                                              k_scales=ks, v_scales=vs)
+            same = bool(torch.equal(out, again))
+        _say("kernels", kernel="paged_decode_int8", case=name, ps=ps,
+             B=len(lengths),
+             splits=PA.decode_split_plan(len(lengths), KVH, ps, maxp)[1],
+             lengths=",".join(map(str, lengths)) if len(lengths) <= 8
+             else f"{len(lengths)}_seqs", max_abs_err=err, tol=PAGED_TOL,
+             bitwise_repeat=same)
+        assert err <= PAGED_TOL, f"paged_decode_int8 disagrees ({name})"
+        assert all(bool((out[b] == 0).all())
+                   for b, n in enumerate(lengths) if n == 0)
+        assert bool(torch.isfinite(out.float()).all())
+        assert same, "paged_decode_int8: two launches differ"
+        worst = max(worst, err)
+    del kc, vc
+    torch.cuda.empty_cache()
+    timed = {}
+    for shape, lengths in decode_timing_shapes(main_lengths, wave2,
+                                               maxp * ps):
+        timed[shape] = t = decode_timing(torch, dev, PA, lengths, ps, maxp,
+                                         True, 13)
+        _say("kernels", kernel="paged_decode_int8", timing=shape, **t)
+        torch.cuda.empty_cache()
+    first = timed["first_wave"]
     return {"name": "paged_decode_int8", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
             "replaces": "paddle_tpu/kernels/paged_attention.py:60",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": worst, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": "bytes", "library_ms": None}
 
 
 def phase_parity(torch, dev):
@@ -1626,7 +1874,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 _say("build", lib=name, ptxas=line.strip().replace(" ", "_"))
         for kernel, regs, stores, loads in _ptxas_entries(log):
-            if "_tc_kernel" in kernel:
+            if "_tc_kernel" in kernel or kernel.startswith("paged"):
                 _say("build", lib=name, kernel=kernel, registers=regs,
                      spill_store_bytes=stores, spill_load_bytes=loads)
 
@@ -1634,11 +1882,10 @@ def main() -> int:
     requests = _main_requests(cfg.vocab_size)
     maxp = 2048 // 16
     # decode lengths of the first wave, half-way through its generation
-    main_lengths = [int(r.prompt.shape[0]) + r.max_new_tokens // 2
-                    for r in requests[:8]]
+    main_lengths, wave2 = decode_wave_lengths(requests)
     flash = phase_flash(torch, dev, 8, 512)
-    paged = phase_paged(torch, dev, main_lengths, 8 * maxp, maxp)
-    paged_int8 = phase_paged_int8(torch, dev, main_lengths, 8 * (2048 // 32),
+    paged = phase_paged(torch, dev, main_lengths, wave2, maxp)
+    paged_int8 = phase_paged_int8(torch, dev, main_lengths, wave2,
                                   2048 // 32, 32)
     flash_bwd = phase_flash_bwd(torch, dev, TRAIN_BATCH, TRAIN_SEQ)
     torch.cuda.empty_cache()

@@ -17,6 +17,11 @@ The int8 arm (the reference's ``FLAGS_serving_kv_quant``): pages hold
 int8 codes and ``k_scales`` / ``v_scales`` float32 ``[num_pages,
 kv_heads]`` carry one scale per (page, kv head); a key or value is
 ``code * scale``. Both or neither are given, and only with int8 pages.
+
+The kernel splits each sequence's positions over several blocks
+(flash-decoding) and combines their partials in a second pass;
+``decode_split_plan`` chooses the chunk a block takes, from the table
+width alone (no host sync on ``lengths``).
 """
 from __future__ import annotations
 
@@ -29,10 +34,37 @@ from ..core import enforce as E
 from . import _build
 from ._stats import DISPATCH_STATS
 
-__all__ = ["ragged_paged_attention", "paged_attention_ref", "supported"]
+__all__ = ["ragged_paged_attention", "paged_attention_ref", "supported",
+           "decode_split_plan"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# a block's chunk: SPLIT_POSITIONS positions of whole pages, halved (not
+# below MIN_SPLIT_POSITIONS, nor below one page) while the grid over the
+# table has fewer than TARGET_BLOCKS blocks, about eight for each of the
+# H100's 132 SMs; at most MAX_SPLIT_PAGES pages (the C entry's limit).
+# Long chunks amortise a block's fixed cost where the batch fills the
+# card; short ones shorten each block's serial walk where it does not.
+SPLIT_POSITIONS = 512
+MIN_SPLIT_POSITIONS = 64
+TARGET_BLOCKS = 1024
+MAX_SPLIT_PAGES = 512
+
+
+def decode_split_plan(B: int, kv_heads: int, page_size: int,
+                      max_pages: int):
+    """``(pages_per_split, splits)`` of the decode kernel's grid
+    ``(splits, kv_heads, B)``: each block takes ``pages_per_split`` whole
+    pages of one sequence's table, ``splits = ceil(max_pages /
+    pages_per_split)``. Sized from the table width ``max_pages *
+    page_size``, never from the lengths, so a launch needs no host sync;
+    blocks whose chunk lies past a sequence's length exit at once."""
+    pps = max(1, SPLIT_POSITIONS // page_size)
+    while (pps > 1 and (pps // 2) * page_size >= MIN_SPLIT_POSITIONS
+           and B * kv_heads * -(-max_pages // pps) < TARGET_BLOCKS):
+        pps //= 2
+    pps = min(pps, max_pages, MAX_SPLIT_PAGES)
+    return pps, -(-max_pages // pps)
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
@@ -136,38 +168,55 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
               "ragged_paged_attention: inputs must be contiguous",
               error=E.InvalidArgumentError)
     _build.check_device(q, "ragged_paged_attention")
-    lib = _lib()
+    out = torch.empty_like(q)
+    _launch(_lib(), q, k_pages, v_pages, block_tables, lengths, out, scale,
+            k_scales, v_scales)
+    DISPATCH_STATS[arm] += 1
+    return out
+
+
+def _launch(lib, q, k_pages, v_pages, block_tables, lengths, out, scale,
+            k_scales=None, v_scales=None):
+    """One call of the C entry of ``lib`` (the int8 one with scales), on
+    checked tensors: the split plan, the partials' scratch, the launch."""
     B, nh, hd = q.shape
     P, kv, ps, _ = k_pages.shape
-    out = torch.empty_like(q)
+    maxp = block_tables.shape[1]
+    pps, splits = decode_split_plan(B, kv, ps, maxp)
+    scratch = (torch.empty(splits * B * nh * (hd + 2), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
+    part = scratch.data_ptr() if scratch is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if quant:
+    if k_scales is not None:
         err = lib.paged_decode_int8(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr(), v_scales.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
-            nh, kv, ps, hd, P, block_tables.shape[1], float(scale),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part, B, nh, kv, ps, hd, P, maxp, pps, float(scale),
             _DTYPES[q.dtype], stream)
     else:
         err = lib.paged_decode(q.data_ptr(), k_pages.data_ptr(),
                                v_pages.data_ptr(), block_tables.data_ptr(),
-                               lengths.data_ptr(), out.data_ptr(), B, nh,
-                               kv, ps, hd, P, block_tables.shape[1],
-                               float(scale), _DTYPES[q.dtype], stream)
-    DISPATCH_STATS[arm] += 1
-    _build.check_launch("paged_decode_int8" if quant else "paged_decode",
-                        err)
-    return out
+                               lengths.data_ptr(), out.data_ptr(), part, B,
+                               nh, kv, ps, hd, P, maxp, pps, float(scale),
+                               _DTYPES[q.dtype], stream)
+    _build.check_launch("paged_decode_int8" if k_scales is not None
+                        else "paged_decode", err)
 
 
 def _lib():
     lib = _build.load("paged_decode")
     if lib.paged_decode.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                     ctypes.c_float, i, p]
-        lib.paged_decode.restype = ctypes.c_int
-        lib.paged_decode_int8.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                          i, i, i, i, ctypes.c_float, i, p]
-        lib.paged_decode_int8.restype = ctypes.c_int
+        _bind(lib)
     return lib
+
+
+def _bind(lib):
+    """The C entries' argument types."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.paged_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                 i, ctypes.c_float, i, p]
+    lib.paged_decode.restype = ctypes.c_int
+    lib.paged_decode_int8.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
+                                      i, i, i, i, i, ctypes.c_float, i, p]
+    lib.paged_decode_int8.restype = ctypes.c_int

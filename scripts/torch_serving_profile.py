@@ -36,8 +36,9 @@ def _classify(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:      # either route (flash_fwd_[tc_]kernel)
         return "flash_fwd"
-    if "paged_decode_kernel" in n:
-        # the int8 arm is the kernel instantiated on int8_t pages
+    if "paged_decode" in n:
+        # the split kernel and its combine pass; the int8 arm is each
+        # instantiated on int8_t pages
         return "paged_decode_int8" if ("signed char" in n or "int8" in n) \
             else "paged_decode"
     if any(s in n for s in ("gemm", "gemv", "cutlass", "sm90_xmma",

@@ -180,79 +180,135 @@ def test_fused_ce_bf16_card_matches_cpu(dev):
         assert float((a - b).abs().max()) <= 8e-3 * float(b.abs().max())
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
-                                       (torch.float32, 1e-4)])
-def test_paged_kernel_matches_plain(dev, dtype, tol):
-    g = torch.Generator(device=dev).manual_seed(1)
-    B, NH, KVH, D, PS, P, MAXP = 5, 8, 2, 64, 16, 40, 6
-    q = torch.randn(B, NH, D, generator=g, device=dev).to(dtype)
-    kp = torch.randn(P, KVH, PS, D, generator=g, device=dev).to(dtype)
-    vp = torch.randn(P, KVH, PS, D, generator=g, device=dev).to(dtype)
-    lengths = [0, 1, 17, 64, MAXP * PS]
-    bt = torch.full((B, MAXP), P, dtype=torch.int32)
-    bt[:, -1] = -3                                 # garbage past the pages
-    perm = torch.randperm(P, generator=torch.Generator().manual_seed(2))
-    nxt = 0
-    for b, n in enumerate(lengths):
-        used = -(-n // PS)
-        bt[b, :used] = perm[nxt:nxt + used]
-        nxt += used
-    bt = bt.to(dev)
-    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    out = PA.ragged_paged_attention(q, kp, vp, bt, ln)
-    torch.cuda.synchronize()
-    ref = PA.paged_attention_ref(q, kp, vp, bt, ln)
-    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
-    assert torch.all(out[0] == 0)
+PAGED_CASES = ["edge", "split_edges", "b1_full", "b32", "nan_past_length"]
 
 
-def _int8_case(dev, ps, dtype, B=6, NH=8, KVH=2, D=64, P=30, seed=3):
-    """int8 codes and scales (pages 0 and 5 never written: scale 0),
-    lengths 0, 1, ps - 1, ps, ps + 1 and a full table, garbage and
-    sentinel entries past each sequence's pages."""
+def _decode_case(dev, case, dtype, quant, ps, seed=3):
+    """Inputs of one decode case, 8 / 2 heads of 64, and the plain
+    version's pages and scales. ``edge``: lengths 0, 1, ps - 1, ps,
+    ps + 1 and a full table of 4 pages. The others use a table of 2048
+    positions: lengths at the edges of the split plan's chunk
+    (``decode_split_plan``) up to the full table; one sequence over the
+    full table; 32 sequences; and NaN (full precision) or -128 codes
+    (int8) in every slot past a sequence's length in its last page,
+    with the table's sentinel entries naming a page no sequence owns
+    whose values (or, for int8, scales) are NaN, against the plain
+    version on zeros there. int8 pages 0 and 5 are never written (scale
+    0)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    maxp = 4
+    NH, KVH, D = 8, 2, 64
+    maxp = 4 if case == "edge" else 2048 // ps
+    full = maxp * ps
+
+    def chunk(b):
+        return PA.decode_split_plan(b, KVH, ps, maxp)[0] * ps
+
+    c = chunk(8)
+    lengths = {
+        "edge": [0, 1, ps - 1, ps, ps + 1, full],
+        "split_edges": [c - 1, c, c + 1, 2 * c - 1, 2 * c + 1, 0, full - 1,
+                        full],
+        "b1_full": [full],
+        "b32": [0, 1, full, chunk(32) - 1, chunk(32), chunk(32) + 1]
+        + torch.randint(1, full + 1, (26,),
+                        generator=torch.Generator().manual_seed(5)).tolist(),
+        "nan_past_length": [1, ps - 1, ps + 1, c - 1, c + 1, 700, full - 1,
+                            0],
+    }[case]
+    B = len(lengths)
+    P = sum(-(-n // ps) for n in lengths) + 8
     q = torch.randn(B, NH, D, generator=g, device=dev).to(dtype)
-    kc, vc = (torch.randint(-127, 128, (P, KVH, ps, D), generator=g,
-                            device=dev, dtype=torch.int8) for _ in range(2))
-    ks, vs = (0.02 * torch.rand(P, KVH, generator=g, device=dev)
-              for _ in range(2))
-    ks[[0, 5]] = 0.0
-    vs[[0, 5]] = 0.0
-    lengths = [0, 1, ps - 1, ps, ps + 1, maxp * ps]
-    bt = torch.full((B, maxp), P, dtype=torch.int32)
-    bt[:, -1] = -3
-    perm = torch.randperm(P, generator=torch.Generator().manual_seed(4))
+    if quant:
+        kp, vp = (torch.randint(-127, 128, (P, KVH, ps, D), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (0.02 * torch.rand(P, KVH, generator=g, device=dev)
+                  for _ in range(2))
+        ks[[0, 5]] = 0.0
+        vs[[0, 5]] = 0.0
+    else:
+        kp, vp = (torch.randn(P, KVH, ps, D, generator=g, device=dev)
+                  .to(dtype) for _ in range(2))
+        ks = vs = None
+    # each sequence's own pages, then the sentinel P - 1 (the last page,
+    # which no sequence owns) and garbage (-3 names page 0)
+    bt = torch.full((B, maxp), P - 1, dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(4))
     nxt = 0
     for b, n in enumerate(lengths):
         used = -(-n // ps)
         bt[b, :used] = perm[nxt:nxt + used]
         nxt += used
+        if used < maxp - 1:
+            bt[b, -1] = -3
+    bt = bt.to(dev)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    return q, kc, vc, ks, vs, bt.to(dev), ln
+    ref = [kp, vp, ks, vs]
+    if case == "nan_past_length":
+        bad = -128 if quant else float("nan")
+        kp, vp, kz, vz = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        for b, n in enumerate(lengths):
+            if n % ps:
+                page = int(bt[b, n // ps])
+                for t, v in ((kp, bad), (vp, bad), (kz, 0), (vz, 0)):
+                    t[page, :, n % ps:] = v
+        if quant:
+            ks, vs, ksz, vsz = ks.clone(), vs.clone(), ks.clone(), vs.clone()
+            ks[-1] = vs[-1] = float("nan")
+            ksz[-1] = vsz[-1] = 0.0
+            ref = [kz, vz, ksz, vsz]
+        else:
+            kp[-1] = vp[-1] = float("nan")
+            kz[-1] = vz[-1] = 0.0
+            ref = [kz, vz, None, None]
+    return q, kp, vp, ks, vs, bt, ln, ref
 
 
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_paged_kernel_matches_plain(dev, dtype, tol, case):
+    q, kp, vp, _, _, bt, ln, (kr, vr, _, _) = _decode_case(
+        dev, case, dtype, False, 16)
+    K.reset_dispatch_stats()
+    out = PA.ragged_paged_attention(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    assert K.dispatch_stats()["paged"] == 1
+    ref = PA.paged_attention_ref(q, kr, vr, bt, ln)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    for b in torch.nonzero(ln == 0).flatten().tolist():
+        assert torch.all(out[b] == 0)
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("ps", [16, 32, 64])
-def test_paged_int8_kernel_matches_plain(dev, dtype, tol, ps):
-    q, kc, vc, ks, vs, bt, ln = _int8_case(dev, ps, dtype)
+def test_paged_int8_kernel_matches_plain(dev, dtype, tol, ps, case):
+    q, kc, vc, ks, vs, bt, ln, (kr, vr, ksr, vsr) = _decode_case(
+        dev, case, dtype, True, ps)
     K.reset_dispatch_stats()
     out = PA.ragged_paged_attention(q, kc, vc, bt, ln, k_scales=ks,
                                     v_scales=vs)
     torch.cuda.synchronize()
     assert K.dispatch_stats()["paged_quant"] == 1
-    ref = PA.paged_attention_ref(q, kc, vc, bt, ln, k_scales=ks,
-                                 v_scales=vs)
+    ref = PA.paged_attention_ref(q, kr, vr, bt, ln, k_scales=ksr,
+                                 v_scales=vsr)
     assert out.dtype == dtype
+    assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
-    assert torch.all(out[0] == 0)
+    for b in torch.nonzero(ln == 0).flatten().tolist():
+        assert torch.all(out[b] == 0)
 
 
-def test_paged_int8_kernel_equals_full_precision_kernel(dev):
-    """float32: the int8 arm against the full-precision kernel on the
-    densely dequantized pages (the same staged values)."""
-    q, kc, vc, ks, vs, bt, ln = _int8_case(dev, 32, torch.float32)
+@pytest.mark.parametrize("case", ["edge", "split_edges", "b32"])
+def test_paged_int8_kernel_equals_full_precision_kernel(dev, case):
+    """float32: the int8 arm (scales folded into the scores and p)
+    against the full-precision kernel on the densely dequantized
+    pages."""
+    q, kc, vc, ks, vs, bt, ln, _ = _decode_case(dev, case, torch.float32,
+                                                True, 32)
     out = PA.ragged_paged_attention(q, kc, vc, bt, ln, k_scales=ks,
                                     v_scales=vs)
     dense = PA.ragged_paged_attention(
@@ -260,6 +316,17 @@ def test_paged_int8_kernel_equals_full_precision_kernel(dev):
         (vc.float() * vs[:, :, None, None]).contiguous(), bt, ln)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, dense, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernel_repeats_bit_for_bit(dev, quant):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, kp, vp, ks, vs, bt, ln, _ = _decode_case(dev, "b32", torch.bfloat16,
+                                                quant, 16)
+    kw = {"k_scales": ks, "v_scales": vs} if quant else {}
+    a = PA.ragged_paged_attention(q, kp, vp, bt, ln, **kw)
+    b = PA.ragged_paged_attention(q, kp, vp, bt, ln, **kw)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("width", ["int8", "int4"])

@@ -34,6 +34,7 @@ from paddle_tpu_torch.inference import Request, ServingEngine
 from paddle_tpu_torch.inference import paged as TP
 from paddle_tpu_torch.kernels import paged_attention as TPA
 from paddle_tpu_torch.models import llama as TL
+from test_torch_paged import _split_combine
 
 JPA = importlib.import_module("paddle_tpu.kernels.paged_attention")
 
@@ -98,6 +99,40 @@ def test_int8_ref_equals_full_precision_on_dequantized_pages(ps):
     vd = vc.float() * vs[:, :, None, None]
     want = TPA.paged_attention_ref(q, kd, vd, bt, ln)
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_int8_split_combine_model_matches_jax_kernel_interpret_and_ref():
+    """The plain model of the kernel's split-then-combine with folded
+    scales (``test_torch_paged._split_combine``), at the chunk of
+    ``decode_split_plan`` for int8 pages of 32 (64 positions, 8 splits):
+    lengths 0, 1, chunk - 1, chunk, chunk + 1 and the full table, four
+    rows whose every split past the first is empty; against JAX's
+    interpret-mode kernel and reference and the port's plain version."""
+    B, ps, maxp = 6, 32, 16
+    pps, splits = TPA.decode_split_plan(B, 2, ps, maxp)
+    c = pps * ps
+    assert (c, splits) == (64, 8)
+    q, kc, vc, ks, vs, bt, _ = _quant_case(B=B, ps=ps, P=20, maxp=maxp,
+                                           seed=2)
+    lengths = np.array([0, 1, c - 1, c, c + 1, maxp * ps], np.int32)
+    rng = np.random.default_rng(6)
+    for b, n in enumerate(lengths):
+        used = -(-int(n) // ps)
+        bt[b, :used] = rng.permutation(20)[:used]
+    j = [jnp.asarray(a) for a in (q, kc, vc, ks, vs, bt, lengths)]
+    t = [torch.as_tensor(a) for a in (q, kc, vc, ks, vs, bt, lengths)]
+    got = _split_combine(t[0], t[1], t[2], t[5], t[6], pps, k_scales=t[3],
+                         v_scales=t[4])
+    kern = JPA.ragged_paged_attention(j[0], j[1], j[2], j[5], j[6],
+                                      k_scales=j[3], v_scales=j[4],
+                                      interpret=True)
+    want = JPA.paged_attention_ref(j[0], j[1], j[2], j[5], j[6],
+                                   k_scales=j[3], v_scales=j[4])
+    plain = TPA.paged_attention_ref(t[0], t[1], t[2], t[5], t[6],
+                                    k_scales=t[3], v_scales=t[4])
+    assert torch.all(got[0] == 0) and torch.isfinite(got).all()
+    for other in (np.asarray(kern), np.asarray(want), plain.numpy()):
+        np.testing.assert_allclose(got.numpy(), other, atol=2e-5, rtol=0)
 
 
 def test_int8_wrapper_on_cpu_counts_the_quant_arm():

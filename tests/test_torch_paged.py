@@ -206,3 +206,232 @@ def test_prefill_then_decode_logits_and_pool_match_jax(dt, tol):
         np.testing.assert_allclose(_np(pool["v"]), _np(jv), atol=tol, rtol=0)
         toks = np.asarray(jlog).argmax(-1).astype(np.int32)
         lengths = np.where(live, lengths + 1, 0).astype(np.int32)
+
+
+# -- the decode kernel's split plan (flash-decoding) ------------------------
+
+CSRC = TPA.__file__.rsplit("/kernels/", 1)[0] + "/csrc/paged_decode.cu"
+
+
+@pytest.mark.parametrize("ps", [1, 16, 32, 64])
+@pytest.mark.parametrize("B,kv,positions", [(1, 8, 2048), (8, 8, 2048),
+                                             (32, 8, 2048), (2, 1, 48),
+                                             (5, 2, 96), (3, 4, 4096)])
+def test_decode_split_plan_rules(ps, B, kv, positions):
+    """Chunks of whole pages, at least one page, at most MAX_SPLIT_PAGES
+    and about SPLIT_POSITIONS positions (halved, not below
+    MIN_SPLIT_POSITIONS, while the grid is small); the splits cover the
+    table and none lies wholly past it; the grid fits CUDA's limits."""
+    maxp = max(1, positions // ps)
+    pps, splits = TPA.decode_split_plan(B, kv, ps, maxp)
+    assert 1 <= pps <= min(maxp, TPA.MAX_SPLIT_PAGES)
+    assert splits * pps >= maxp and (splits - 1) * pps < maxp
+    chunk = pps * ps
+    assert chunk <= max(TPA.SPLIT_POSITIONS, ps)
+    if pps < min(maxp, TPA.SPLIT_POSITIONS // ps):      # it was halved
+        assert chunk >= TPA.MIN_SPLIT_POSITIONS or pps == 1
+        assert B * kv * -(-maxp // (2 * pps)) < TPA.TARGET_BLOCKS
+    assert splits < 2 ** 31 and B * kv <= 65535 * 65535
+
+
+@pytest.mark.parametrize("B,ps,maxp,want", [(8, 16, 128, (8, 16)),
+                                            (8, 32, 64, (4, 16)),
+                                            (16, 16, 128, (16, 8)),
+                                            (32, 16, 128, (32, 4)),
+                                            (32, 32, 64, (16, 4)),
+                                            (1, 16, 128, (4, 32)),
+                                            (1, 32, 64, (2, 32))])
+def test_decode_split_plan_at_serving_shapes(B, ps, maxp, want):
+    """The serving tables (2048 positions, 8 kv heads, bf16 pages of 16
+    and int8 pages of 32): 128-position chunks at the main path's B 8,
+    512 at B 32, 64 for one sequence, so the grid holds more blocks than
+    the H100 has SMs (132) even at B 1."""
+    plan = TPA.decode_split_plan(B, 8, ps, maxp)
+    assert plan == want
+    assert B * 8 * plan[1] > 132
+
+
+def test_decode_split_constants_match_the_source():
+    text = open(CSRC).read()
+    assert f"MAX_SPLIT_PAGES = {TPA.MAX_SPLIT_PAGES};" in text
+    # the combine pass and the split kernel share one name stem, which
+    # the serving profile classes as decode time
+    assert "paged_decode_kernel(" in text
+    assert "paged_decode_combine_kernel(" in text
+
+
+def _split_combine(q, kp, vp, bt, lengths, pps, k_scales=None,
+                   v_scales=None):
+    """A plain model of the kernel's split-then-combine: each chunk of
+    ``pps`` pages gives its own running max ``m_i``, sum ``l_i`` and
+    unnormalised ``acc_i`` (an empty chunk: ``-inf``, 0, 0); then ``out
+    = sum_i e^(m_i - m) acc_i / sum_i e^(m_i - m) l_i``. int8 scales fold
+    as in the kernel: the k scale multiplies a page's scores, the v
+    scale its probabilities."""
+    B, nh, hd = q.shape
+    P, kv, ps, _ = kp.shape
+    maxp = bt.shape[1]
+    g = nh // kv
+    idx = bt.clamp(0, P - 1).long()
+    k = kp[idx].float()                               # [B, maxp, kv, ps, hd]
+    v = vp[idx].float()
+    s = torch.einsum("bkgd,bmkpd->bkgmp", q.float().reshape(B, kv, g, hd),
+                     k) / np.sqrt(hd)
+    vsc = torch.ones(B, kv, 1, maxp, 1)
+    if k_scales is not None:
+        s = s * k_scales[idx].permute(0, 2, 1)[:, :, None, :, None]
+        vsc = v_scales[idx].permute(0, 2, 1)[:, :, None, :, None]
+    pos = torch.arange(maxp * ps).reshape(maxp, ps)
+    ms, ls, accs = [], [], []
+    for first in range(0, maxp, pps):
+        live = (pos < lengths.long()[:, None, None]) & \
+            (pos >= first * ps) & (pos < (first + pps) * ps)
+        live = live[:, None, None]                    # [B, 1, 1, maxp, ps]
+        sc = torch.where(live, s, -torch.inf)
+        m = sc.amax(dim=(-2, -1), keepdim=True)
+        mu = torch.where(torch.isinf(m), 0.0, m)
+        p = torch.where(live, torch.exp(sc - mu), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=(-2, -1), keepdim=True))
+        accs.append(torch.einsum("bkgmp,bmkpd->bkgd", p * vsc, v))
+    m = torch.stack(ms).amax(0)
+    mu = torch.where(torch.isinf(m), 0.0, m)
+    w = [torch.where(torch.isinf(mi), 0.0, torch.exp(mi - mu)) for mi in ms]
+    den = sum(wi * li for wi, li in zip(w, ls))[..., 0]
+    num = sum(wi[..., 0] * ai for wi, ai in zip(w, accs))
+    out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+    return out.reshape(B, nh, hd).to(q.dtype)
+
+
+def _split_case(dt, ps=16, maxp=32, seed=4):
+    """Lengths 0, 1, chunk - 1, chunk, chunk + 1 and the full table, the
+    chunk of ``decode_split_plan`` at this shape (64 positions, 8
+    splits): four rows whose every split past the first is empty."""
+    B, nh, kv, hd = 6, 4, 2, 32
+    pps, splits = TPA.decode_split_plan(B, kv, ps, maxp)
+    c = pps * ps
+    rng = np.random.default_rng(seed)
+    P = maxp * 3
+    q = rng.normal(size=(B, nh, hd)).astype(np.float32)
+    kp = rng.normal(size=(P, kv, ps, hd)).astype(np.float32)
+    vp = rng.normal(size=(P, kv, ps, hd)).astype(np.float32)
+    lengths = np.array([0, 1, c - 1, c, c + 1, maxp * ps], np.int32)
+    bt = rng.integers(-5, 3 * P, (B, maxp)).astype(np.int32)
+    for b, n in enumerate(lengths):
+        used = -(-int(n) // ps)
+        bt[b, :used] = rng.permutation(P)[:used]
+    return (q, kp, vp, bt, lengths), pps, splits
+
+
+@pytest.mark.parametrize("dt,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_split_combine_model_matches_jax_kernel_interpret_and_ref(dt, tol):
+    arrs, pps, splits = _split_case(dt)
+    assert splits == 8 and pps * 16 == 64
+    (jq, jk, jv, jbt, jln), (tq, tk, tv, tbt, tln) = _both(arrs, dt)
+    got = _split_combine(tq, tk, tv, tbt, tln, pps)
+    kern = JPA.ragged_paged_attention(jq, jk, jv, jbt, jln, interpret=True)
+    ref = JPA.paged_attention_ref(jq, jk, jv, jbt, jln)
+    assert torch.isfinite(got.float()).all()
+    assert torch.all(got[0] == 0)                      # length 0: zero row
+    np.testing.assert_allclose(_np(got), _np(kern), atol=tol, rtol=0)
+    np.testing.assert_allclose(_np(got), _np(ref), atol=tol, rtol=0)
+    np.testing.assert_allclose(
+        _np(got), _np(TPA.paged_attention_ref(tq, tk, tv, tbt, tln)),
+        atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("q_shape,q_dt,pages,p_dt,bt_shape,quant,want", [
+    ((2, 8, 128), torch.float32, (4, 2, 16, 128), torch.float32, (2, 3),
+     False, True),
+    ((2, 8, 128), torch.float32, (4, 3, 16, 128), torch.float32, (2, 3),
+     False, False),                                   # heads % kv
+    ((2, 8, 12), torch.float32, (4, 2, 16, 12), torch.float32, (2, 3),
+     False, False),                                   # head_dim % 8
+    ((2, 32, 128), torch.float32, (4, 2, 16, 128), torch.float32, (2, 3),
+     False, False),                                   # group * D > 1024
+    ((2, 16, 128), torch.bfloat16, (4, 2, 16, 128), torch.bfloat16, (2, 3),
+     False, True),                                    # group * D = 1024
+    ((2, 4, 136), torch.float32, (4, 2, 16, 136), torch.float32, (2, 3),
+     False, False),                                   # head_dim > 128
+    ((1, 4, 8), torch.bfloat16, (3, 2, 1, 8), torch.bfloat16, (1, 5),
+     False, True),                                    # ps 1, head_dim 8
+    ((3, 6, 24), torch.float32, (9, 2, 3, 24), torch.float32, (3, 30),
+     False, True),                                    # odd ps and D / 8
+    ((2, 4, 32), torch.float32, (4, 1, 300, 32), torch.float32, (2, 2),
+     False, True),                                    # ps above 256
+    ((2, 64, 16), torch.float32, (4, 1, 16, 16), torch.float32, (2, 3),
+     False, True),                                    # group 64
+    ((2, 8, 128), torch.float16, (4, 2, 16, 128), torch.float16, (2, 3),
+     False, False),                                   # float16
+    ((2, 8, 128), torch.bfloat16, (4, 2, 16, 128), torch.float32, (2, 3),
+     False, False),                                   # pages not q's type
+    ((2, 8, 128), torch.float32, (4, 2, 16, 128), torch.int8, (2, 3),
+     True, True),                                     # int8, ps 16
+    ((2, 8, 40), torch.bfloat16, (4, 2, 64, 40), torch.int8, (2, 3),
+     True, True),                                     # int8, D % 16 != 0
+    ((2, 8, 128), torch.float32, (4, 2, 16, 128), torch.int8, (2, 3),
+     False, False),                                   # int8, no scales
+    ((2, 8, 128), torch.float32, (4, 2, 16, 128), torch.float32, (2, 3),
+     True, False),                                    # scales, no int8
+    ((2, 8, 128), torch.float32, (4, 2, 16, 128), torch.float32, (3, 3),
+     False, False),                                   # table rows != B
+    ((2, 8, 128), torch.float32, (4, 2, 16, 128), torch.float32, (2, 0),
+     False, False),                                   # empty table
+])
+def test_supported_takes_the_same_shapes(q_shape, q_dt, pages, p_dt,
+                                         bt_shape, quant, want):
+    """The split kernel takes exactly the shapes the kernel before it
+    took: any page size, head_dim % 8 == 0 up to 128, group * head_dim
+    <= 1024, float32 / bfloat16 q with pages of its type, or int8 pages
+    with scales."""
+    assert TPA.supported(torch.zeros(q_shape, dtype=q_dt),
+                         torch.zeros(pages, dtype=p_dt),
+                         torch.zeros(bt_shape, dtype=torch.int32),
+                         quant=quant) is want
+
+
+def test_launch_passes_the_split_plan_and_scratch(monkeypatch):
+    """The wrapper hands the C entry the plan's pages_per_split and a
+    float32 scratch of splits * B * heads * (head_dim + 2) values (none
+    with one split); a nonzero return raises."""
+    calls = []
+
+    class Lib:
+        def paged_decode(self, *a):
+            calls.append(a)
+            return self.rc
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: Stream())
+    made = []
+    empty = torch.empty
+
+    def spy_empty(*a, **kw):
+        t = empty(*a, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    lib = Lib()
+    lib.rc = 0
+    for B, maxp in ((3, 32), (3, 2)):
+        q = torch.zeros(B, 8, 64)
+        kp = torch.zeros(70, 2, 16, 64)
+        bt = torch.zeros(B, maxp, dtype=torch.int32)
+        ln = torch.zeros(B, dtype=torch.int32)
+        made.clear()
+        TPA._launch(lib, q, kp, kp, bt, ln, torch.empty_like(q), 0.125)
+        pps, splits = TPA.decode_split_plan(B, 2, 16, maxp)
+        a = calls[-1]
+        assert a[6:15] == (a[6], B, 8, 2, 16, 64, 70, maxp, pps)
+        if splits > 1:
+            scratch = [t for t in made if t.data_ptr() == a[6]]
+            assert scratch and scratch[0].dtype == torch.float32
+            assert scratch[0].numel() == splits * B * 8 * (64 + 2)
+        else:
+            assert a[6] is None
+    lib.rc = 1
+    with pytest.raises(TE.UnavailableError):
+        TPA._launch(lib, q, kp, kp, bt, ln, torch.empty_like(q), 0.125)
