@@ -195,7 +195,7 @@ def _ptxas_entries(log):
                 args.append(m.group(2))
             if m and m.group(3):          # a policy: its name's length
                 args.append(m.group(4)[:int(m.group(3))])
-            if m and m.group(1).startswith("paged_decode"):
+            if m and m.group(1).startswith(("paged_decode", "rms")):
                 args = _decode_args(mangled[m.end(1):])
             kernel = (f"{m.group(1)}<{','.join(args)}>" if args
                       else m.group(1) if m else mangled)
@@ -329,12 +329,79 @@ def phase_flash(torch, dev, main_g, main_s):
             "library_ms": library_ms}
 
 
+def rms_bwd_timing(torch, dev, RN, n, d, xdt, wdt, seed=0):
+    """The RMSNorm backward of ``RN`` (a ``kernels.rms_norm`` module) at
+    ``[n, d]``: ``torch.profiler``'s device time of its row pass and of
+    its ``dw`` pass (kernels named ``rms_bwd*`` and ``rms_dw*``) over 30
+    calls on one set of inputs (x and dy together exceed the L2 at the
+    timed shapes, so each call finds them cold), beside the back-to-back
+    wrapper time, ``F.rms_norm``'s autograd backward and ``torch.add``
+    over the same three streams (read x and dy, write dx: the rate the
+    card reaches on this traffic). Checks dx and dw against the plain
+    version first. Bound: bytes (every input read once, every output
+    written once)."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, generator=gen, device=dev).to(xdt)
+    w = (1 + 0.3 * torch.randn(d, generator=gen, device=dev)).to(wdt)
+    dy = torch.randn(n, d, generator=gen, device=dev).to(xdt)
+    _, rstd = RN.rms_norm_ref(x, w, RMS_EPS)
+    dx, dw = RN.rms_norm_bwd(x, w, rstd, dy)
+    dx_ref, dw_ref = RN.rms_norm_bwd_ref(x, w, rstd, dy)
+    err = {}
+    for name, got, want in (("dx", dx, dx_ref), ("dw", dw, dw_ref)):
+        tol = RMS_F32_TOL if got.dtype == torch.float32 else RMS_BF16_TOL
+        err[name] = _err(got, want) / float(want.float().abs().max())
+        assert err[name] <= tol, (name, n, d, xdt, wdt, err[name])
+    del dx_ref, dw_ref
+    for _ in range(5):
+        RN.rms_norm_bwd(x, w, rstd, dy)
+    torch.cuda.synchronize()
+    calls = 30
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            RN.rms_norm_bwd(x, w, rstd, dy)
+        torch.cuda.synchronize()
+    row_us = dw_us = 0.0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        if "rms_dw" in evt.key:
+            dw_us += us
+        elif "rms_bwd" in evt.key:
+            row_us += us
+    assert row_us > 0 and dw_us > 0, "the profiler saw no backward kernel"
+    ms = (row_us + dw_us) / calls / 1e3
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+    yl = torch.nn.functional.rms_norm(xl, (d,), wl, RMS_EPS)
+    out = torch.empty_like(x)
+    nbytes = (3 * n * d * x.element_size() + 2 * d * w.element_size()
+              + 4 * n)
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    plan = (RN.bwd_plan(n, d, xdt, wdt)._asdict()
+            if hasattr(RN, "bwd_plan") else
+            {"route": "blocks", "grid": -(-n // RN.bwd_rows(n)),
+             "rows": RN.bwd_rows(n)})
+    return {"shape": f"{n}x{d}", "ms": ms, "row_ms": row_us / calls / 1e3,
+            "dw_ms": dw_us / calls / 1e3,
+            "wrapper_ms": _time_ms(lambda: RN.rms_norm_bwd(x, w, rstd, dy),
+                                   50),
+            "library_ms": _time_ms(lambda: torch.autograd.grad(
+                yl, (xl, wl), dy, retain_graph=True), 50),
+            "add_ms": _time_ms(lambda: torch.add(x, dy, out=out), 50),
+            "bound_ms": bound, "bound_share": bound / ms,
+            "gbps": nbytes / ms / 1e6, "max_rel_err": err,
+            "plan": json.dumps(plan).replace(" ", "")}
+
+
 def phase_rms(torch, dev):
     """The RMSNorm kernels against their plain versions on the same card
     tensors (every float32 / bfloat16 pair of x and w, d 64 / 4096 /
-    5120, n 1 / 22 / 8193), then at the eager path's ``[8192, 4096]``
-    bfloat16: ``dw`` bit for bit across two launches, and times of
-    kernel, plain version and ``torch.nn.functional.rms_norm``."""
+    5120, n 1 / 22 / 8193, each with the backward's plan), then at the
+    eager path's ``[8192, 4096]`` bfloat16: ``dw`` bit for bit across
+    two launches, times of kernel (the backward: device time of its row
+    and ``dw`` passes, ``rms_bwd_timing``), plain version and
+    ``torch.nn.functional.rms_norm``."""
     from paddle_tpu_torch.kernels import rms_norm as RN
     gen = torch.Generator(device=dev).manual_seed(13)
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -364,17 +431,24 @@ def phase_rms(torch, dev):
             errs[name] = rel
         return errs, _err(y, y_ref), _err(dx, dx_ref)
 
+    def plan(n, d, xdt, wdt):
+        p = RN.bwd_plan(n, d, xdt, wdt)
+        return f"{p.route}:{p.grid}x{p.groups}x{p.threads}:s{p.stages}"
+
     worst_fwd = worst_bwd = 0.0
     for d in (64, 4096, 5120):
         for n in (1, 22, 8193):
-            rel = {}
+            rel, plans = {}, {}
             for xn, wn in (("f32", "f32"), ("bf16", "bf16"), ("bf16", "f32"),
                            ("f32", "bf16")):
                 errs, ef, eb = check(*inputs(n, d, dts[xn], dts[wn]))
                 rel[f"{xn}x{wn}"] = max(errs.values())
+                plans[f"{xn}x{wn}"] = plan(n, d, dts[xn], dts[wn])
                 worst_fwd, worst_bwd = max(worst_fwd, ef), max(worst_bwd, eb)
             _say("kernels", kernel="rms_norm_fwd|rms_norm_bwd", n=n, d=d,
                  max_rel_err_by_x_w_dtype=json.dumps(rel).replace(" ", ""),
+                 bwd_plan_grid_groups_threads_stages=json.dumps(
+                     plans).replace(" ", ""),
                  f32_tol=RMS_F32_TOL, bf16_tol=RMS_BF16_TOL)
 
     # the eager path's shape: x [B * S, D] bf16, w [D] bf16
@@ -388,31 +462,30 @@ def phase_rms(torch, dev):
     _say("kernels", kernel="rms_norm_fwd|rms_norm_bwd", shape=f"{n}x{d}",
          dtype="bf16", max_rel_err=json.dumps(errs).replace(" ", ""),
          dw_bitwise_equal_across_launches=deterministic,
-         bwd_rows_per_block=RN.bwd_rows(n), bwd_blocks=-(-n // RN.bwd_rows(n)))
+         bwd_plan=json.dumps(RN.bwd_plan(n, d, x.dtype, w.dtype)._asdict())
+         .replace(" ", ""))
     assert deterministic, "rms_norm dw differs between two launches"
 
     ms_f = _time_ms(lambda: RN.rms_norm_fwd(x, w, RMS_EPS), 50)
     plain_f = _time_ms(lambda: RN.rms_norm_ref(x, w, RMS_EPS), 20)
     lib = torch.nn.functional.rms_norm
     lib_f = _time_ms(lambda: lib(x, (d,), w, RMS_EPS), 50)
-    ms_b = _time_ms(lambda: RN.rms_norm_bwd(x, w, rstd, dy), 50)
     plain_b = _time_ms(lambda: RN.rms_norm_bwd_ref(x, w, rstd, dy), 20)
-    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
-    yl = lib(xl, (d,), wl, RMS_EPS)
-    lib_b = _time_ms(lambda: torch.autograd.grad(yl, (xl, wl), dy,
-                                                 retain_graph=True), 50)
+    e = x.element_size()
+    del x, w, dy, rstd, dws
+    tb = rms_bwd_timing(torch, dev, RN, n, d, torch.bfloat16, torch.bfloat16)
+    _say("kernels", kernel="rms_norm_bwd", timing="device", **tb)
     # bytes each moves at least: every input read once, every output
     # written once; a few float32 operations an element besides
-    e = x.element_size()
-    fwd_bytes = 2 * n * d * e + d * w.element_size() + 4 * n
-    bwd_bytes = 3 * n * d * e + 2 * d * w.element_size() + 4 * n
+    fwd_bytes = 2 * n * d * e + d * e + 4 * n
+    bwd_bytes = 3 * n * d * e + 2 * d * e + 4 * n
     fwd_ops, bwd_ops = 4.0 * n * d, 10.0 * n * d
     recs = []
     for name, line, ms, plain, libms, nbytes, ops, err in (
             ("rms_norm_fwd", 48, ms_f, plain_f, lib_f, fwd_bytes, fwd_ops,
              worst_fwd),
-            ("rms_norm_bwd", 55, ms_b, plain_b, lib_b, bwd_bytes, bwd_ops,
-             worst_bwd)):
+            ("rms_norm_bwd", 55, tb["ms"], plain_b, tb["library_ms"],
+             bwd_bytes, bwd_ops, worst_bwd)):
         t_bytes = nbytes / H100_BYTES_PER_S
         t_ops = ops / H100_F32_FLOPS
         bound = max(t_bytes, t_ops) * 1e3
@@ -1874,7 +1947,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 _say("build", lib=name, ptxas=line.strip().replace(" ", "_"))
         for kernel, regs, stores, loads in _ptxas_entries(log):
-            if "_tc_kernel" in kernel or kernel.startswith("paged"):
+            if "_tc_kernel" in kernel or kernel.startswith(("paged",
+                                                             "rms_bwd")):
                 _say("build", lib=name, kernel=kernel, registers=regs,
                      spill_store_bytes=stores, spill_load_bytes=loads)
 

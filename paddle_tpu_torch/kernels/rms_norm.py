@@ -21,6 +21,7 @@ otherwise.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,13 +30,34 @@ from . import _build
 from ._stats import DISPATCH_STATS
 
 __all__ = ["rms_norm", "rms_norm_fwd", "rms_norm_bwd", "rms_norm_ref",
-           "rms_norm_bwd_ref", "supported", "MAX_D", "bwd_rows"]
+           "rms_norm_bwd_ref", "supported", "MAX_D", "BwdPlan", "bwd_plan"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_D = 16384       # the backward keeps 8 * d bytes in shared memory
-# the backward's blocks: at most _BWD_BLOCKS (two a streaming
-# multiprocessor on the H100), each a run of at least _MIN_ROWS rows
-_BWD_BLOCKS, _MIN_ROWS = 264, 32
+MAX_D = 16384
+# The backward's plan (csrc/rms_norm.cu). Bulk route: one block per
+# streaming multiprocessor of the H100 (_SMS) of at most _BULK_THREADS
+# threads, in row groups of at most _GROUP_THREADS (whole warps) that
+# own 2 chunks of 8 columns a thread where that fits, at most _MAX_V;
+# at most _MAX_GROUPS groups a block, each a ring of at most _STAGES row
+# stages, a block's rings within _RING_BYTES of shared memory.
+# Scalar route: at most _SCALAR_BLOCKS blocks of at least _MIN_ROWS rows.
+_SMS, _BULK_THREADS, _GROUP_THREADS, _MAX_GROUPS = 132, 512, 256, 8
+_STAGES, _MAX_V, _RING_BYTES = 3, 4, 192 * 1024
+_SCALAR_BLOCKS, _MIN_ROWS = 264, 32
+
+
+class BwdPlan(NamedTuple):
+    """How the backward runs: ``route`` ``"bulk"`` (TMA row rings) or
+    ``"scalar"``; ``grid`` blocks (one float32 partial ``dw`` row each);
+    ``groups`` row groups a block of ``threads`` threads each; ``stages``
+    row stages a group (0 on the scalar route); ``rows``, the most rows
+    a group takes (groups take rows ``q, q + grid * groups, ...``)."""
+    route: str
+    grid: int
+    groups: int
+    threads: int
+    stages: int
+    rows: int
 
 
 def supported(x, w) -> bool:
@@ -45,10 +67,36 @@ def supported(x, w) -> bool:
             and w.dtype in _DTYPES)
 
 
-def bwd_rows(n: int) -> int:
-    """Rows each backward block owns (a fixed function of ``n``, so the
-    column sums of ``dw`` run in the same order at every launch)."""
-    return max(_MIN_ROWS, -(-n // _BWD_BLOCKS))
+def bwd_plan(n: int, d: int, xdtype, wdtype, aligned: bool = True
+             ) -> BwdPlan:
+    """The backward's plan for ``n`` rows of ``d`` values of ``xdtype``
+    and a weight of ``wdtype``, with every pointer 16-byte aligned or
+    not. A function of these alone, so ``dw``'s sums run in one order at
+    every launch. The bulk route takes ``d % 8 == 0`` and aligned
+    pointers; a row group has ``d / 16`` threads rounded up to whole
+    warps (2 chunks of 8 columns a thread) up to 256, more where 4 chunks
+    a thread would not cover the row; a block as many groups as fit in
+    512 threads with a stage each in the ring budget (at most 8), each
+    group as many stages as the budget then holds (at most 3). At
+    ``[8192, 4096]`` bf16: 132 blocks of 2 groups of 256 threads, 3
+    stages of 16 KB."""
+    del wdtype      # w is read once into registers: no part of the plan
+    if d % 8 or not aligned:
+        rows = max(_MIN_ROWS, -(-n // _SCALAR_BLOCKS))
+        grid = -(-n // rows)
+        return BwdPlan("scalar", grid, 1, min(256, 32 * -(-d // 32)), 0,
+                       -(-n // grid))
+    chunks = d // 8
+    threads = min(_GROUP_THREADS, 32 * -(-chunks // 64))
+    if chunks > _MAX_V * threads:
+        threads = 32 * -(-chunks // (32 * _MAX_V))
+    stage = 2 * d * xdtype.itemsize
+    groups = max(1, min(_MAX_GROUPS, _BULK_THREADS // threads,
+                        _RING_BYTES // stage))
+    stages = max(1, min(_STAGES, _RING_BYTES // (groups * stage)))
+    grid = min(_SMS, -(-n // groups))
+    return BwdPlan("bulk", grid, groups, threads, stages,
+                   -(-n // (grid * groups)))
 
 
 def rms_norm_ref(x, w, eps):
@@ -131,19 +179,19 @@ def rms_norm_bwd(x, w, rstd, dy):
     dx = torch.empty_like(x)
     if n == 0:
         return dx, torch.zeros_like(w)
-    rows = bwd_rows(n)
-    nb = -(-n // rows)
-    part = torch.empty((nb, d), dtype=torch.float32, device=x.device)
+    plan = bwd_plan(n, d, x.dtype, w.dtype, all(
+        t.data_ptr() % 16 == 0 for t in (x, w, dy, dx)))
+    part = torch.empty((plan.grid, d), dtype=torch.float32, device=x.device)
     dw = torch.empty_like(w)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.rms_norm_bwd(x.data_ptr(), w.data_ptr(), rstd.data_ptr(),
                            dy.data_ptr(), dx.data_ptr(), part.data_ptr(), n,
-                           d, rows, _DTYPES[x.dtype], _DTYPES[w.dtype],
-                           stream)
+                           d, _DTYPES[x.dtype], _DTYPES[w.dtype], plan.grid,
+                           plan.groups, plan.threads, plan.stages, stream)
     DISPATCH_STATS["rms_bwd"] += 1
     _build.check_launch("rms_norm_bwd", err)
-    err = lib.rms_norm_dw(part.data_ptr(), dw.data_ptr(), nb, d,
+    err = lib.rms_norm_dw(part.data_ptr(), dw.data_ptr(), plan.grid, d,
                           _DTYPES[w.dtype], stream)
     _build.check_launch("rms_norm_dw", err)
     return dx, dw
@@ -182,7 +230,7 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rms_norm_fwd.argtypes = [p, p, p, p, i, i, f, i, i, p]
         lib.rms_norm_fwd.restype = ctypes.c_int
-        lib.rms_norm_bwd.argtypes = [p] * 6 + [i] * 5 + [p]
+        lib.rms_norm_bwd.argtypes = [p] * 6 + [i] * 8 + [p]
         lib.rms_norm_bwd.restype = ctypes.c_int
         lib.rms_norm_dw.argtypes = [p, p, i, i, i, p]
         lib.rms_norm_dw.restype = ctypes.c_int

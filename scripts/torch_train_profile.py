@@ -64,8 +64,8 @@ def _classify(kernel: str, ranges) -> str:
         return "flash_bwd"
     if "flash_fwd" in n:      # either route (flash_fwd_[tc_]kernel)
         return "flash_fwd"
-    if any(k in n for k in ("rms_fwd_kernel", "rms_bwd_kernel",
-                            "rms_dw_kernel")):
+    # the backward's either route (rms_bwd_[scalar_]kernel), its dw pass
+    if any(k in n for k in ("rms_fwd_kernel", "rms_bwd", "rms_dw_kernel")):
         return "rms_norm"
     if any("_BlockwiseCE" in r or r == RANGES[0]
            or any(b in r for b in CE_BACKWARD) for r in ranges):

@@ -610,8 +610,9 @@ def test_rms_norm_kernels_match_plain(dev, xdt, wdt, n, d):
     same card tensors: float32 outputs within ``1e-5 * max |ref|``
     (summation order), bfloat16 ones within ``8e-3 * max |ref|`` (one
     rounding); ``dw`` is the same bit for bit in two launches (no
-    atomics). ``d = 100`` takes the scalar path; ``d = 16384`` (the
-    largest) needs 128 KB of shared memory in the backward."""
+    atomics). ``d = 100`` takes the backward's scalar route; ``d =
+    16384`` (the largest) fills one row group of 512 threads on the bulk
+    route."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(n, d, generator=g, device=dev).to(_RMS_DT[xdt])
     w = (1 + 0.3 * torch.randn(d, generator=g, device=dev)).to(_RMS_DT[wdt])
@@ -629,6 +630,58 @@ def test_rms_norm_kernels_match_plain(dev, xdt, wdt, n, d):
     dx_ref, dw_ref = RN.rms_norm_bwd_ref(x, w, rstd_ref, dy)
     torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=0)
     for got, want in ((y, y_ref), (dx, dx_ref), (dw, dw_ref)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        tol = 1e-5 if got.dtype == torch.float32 else 8e-3
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max()), err
+
+
+def _misaligned(n, d, dtype, g, dev):
+    """A contiguous ``[n, d]`` view whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.randn(n * d + 1, generator=g, device=dev).to(dtype)
+    return buf[1:].view(n, d)
+
+
+@pytest.mark.parametrize("xdt,wdt", [("f32", "f32"), ("bf16", "bf16"),
+                                     ("bf16", "f32"), ("f32", "bf16")])
+@pytest.mark.parametrize("case,n,d,route", [
+    ("n_1", 1, 4096, "bulk"), ("n_7", 7, 4096, "bulk"),
+    ("n_8193", 8193, 4096, "bulk"), ("d_100", 64, 100, "scalar"),
+    ("d_16384", 300, 16384, "bulk"), ("misaligned", 40, 512, "scalar"),
+    ("ring_48k", 64, 512, "bulk"), ("scalar_48k", 9, 6143, "scalar")])
+def test_rms_norm_bwd_plan_edges(dev, xdt, wdt, case, n, d, route):
+    """The backward at the edges of its plan: fewer rows than the grid's
+    row groups (n 1, 7), rows that do not fill the last pass of the
+    groups (8193), the scalar route (d 100; x, dy and w one element past
+    a 16-byte boundary), one 512-thread group a block (d 16384), 48 KB of
+    shared memory with the static arrays on top (d 512 bf16 on the bulk
+    route: 8 rings of 3 stages of 2 KB; d 6143 on the scalar route, 8
+    bytes short of it). dx and
+    dw within the plain version's tolerances (float32 ``1e-5``, bfloat16
+    ``8e-3`` of max |ref|), dw bit for bit in two launches."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    xt, wt = _RMS_DT[xdt], _RMS_DT[wdt]
+    if case == "misaligned":
+        x, dy = (_misaligned(n, d, xt, g, dev) for _ in range(2))
+        w = _misaligned(1, d, wt, g, dev)[0].mul_(0.3).add_(1)
+        assert x.data_ptr() % 16 and dy.data_ptr() % 16 and w.data_ptr() % 16
+    else:
+        x = torch.randn(n, d, generator=g, device=dev).to(xt)
+        dy = torch.randn(n, d, generator=g, device=dev).to(xt)
+        w = (1 + 0.3 * torch.randn(d, generator=g, device=dev)).to(wt)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy))
+    assert RN.bwd_plan(n, d, xt, wt, aligned).route == route
+    _, rstd = RN.rms_norm_ref(x, w, 1e-5)
+    K.reset_dispatch_stats()
+    dx, dw = RN.rms_norm_bwd(x, w, rstd, dy)
+    dw2 = RN.rms_norm_bwd(x, w, rstd, dy)[1]
+    torch.cuda.synchronize()
+    stats = K.dispatch_stats()
+    assert stats["rms_bwd"] == 2 and stats["rms_bwd_ref"] == 0
+    assert torch.equal(dw, dw2)
+    dx_ref, dw_ref = RN.rms_norm_bwd_ref(x, w, rstd, dy)
+    for got, want in ((dx, dx_ref), (dw, dw_ref)):
         assert got.dtype == want.dtype and got.shape == want.shape
         tol = 1e-5 if got.dtype == torch.float32 else 8e-3
         err = float((got.float() - want.float()).abs().max())

@@ -177,10 +177,47 @@ def test_missing_weight_and_other_axis_match_jax(case):
     _ulp_close(got.float().numpy(), want, "y")
 
 
-def test_bwd_rows_fixed_by_n():
-    """The backward's row runs depend on n alone (so dw's column sums run
-    in one order at every launch): at least 32 rows, at most 264 runs."""
-    for n in (1, 31, 8192, 8193, 10 ** 6):
-        rows = TRN.bwd_rows(n)
-        assert rows >= 32 and -(-n // rows) <= 264
-    assert TRN.bwd_rows(8192) == 32
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+
+@pytest.mark.parametrize("n,d,xdt,aligned,route", [
+    (8192, 4096, torch.bfloat16, True, "bulk"),
+    (4096, 4096, torch.float32, True, "bulk"),
+    (1, 4096, torch.bfloat16, True, "bulk"),
+    (7, 4096, torch.bfloat16, True, "bulk"),
+    (8193, 5120, torch.bfloat16, True, "bulk"),
+    (22, 64, torch.float32, True, "bulk"),
+    (64, 512, torch.bfloat16, True, "bulk"),
+    (2048, 16384, torch.bfloat16, True, "bulk"),
+    (300, 16384, torch.float32, True, "bulk"),
+    (64, 100, torch.bfloat16, True, "scalar"),
+    (8193, 5120, torch.float32, False, "scalar"),
+    (10 ** 6, 4092, torch.float32, True, "scalar")])
+def test_bwd_plan(n, d, xdt, aligned, route):
+    """The backward's plan is a function of ``n``, ``d``, the types and
+    alignment alone (so dw's sums run in one order at every launch),
+    takes the bulk route exactly for ``d % 8 == 0`` and aligned pointers,
+    stays within the kernel's limits (512 threads, 8 groups, 4 stages, 4
+    chunks of 8 columns a thread, 192 KB of rings, rings that
+    hold the groups' dw accumulators) and hands every row to exactly one
+    row group (group q of Q takes rows q, q + Q, ...)."""
+    for wdt in (torch.float32, torch.bfloat16):
+        plan = TRN.bwd_plan(n, d, xdt, wdt, aligned)
+        assert plan == TRN.bwd_plan(n, d, xdt, wdt, aligned)
+        assert plan.route == route
+        groups = plan.grid * plan.groups
+        taken = [min(plan.rows, max(0, -(-(n - q) // groups)))
+                 for q in range(groups)]
+        assert sum(taken) == n and max(taken) == plan.rows
+        assert 1 <= plan.grid <= (132 if route == "bulk" else 264)
+        if route == "scalar":
+            assert plan.stages == 0 and plan.groups == 1
+            assert plan.rows >= min(n, 32)
+            continue
+        ring = plan.groups * plan.stages * 2 * d * _ESIZE[xdt]
+        assert plan.threads % 32 == 0 and plan.groups * plan.threads <= 512
+        assert 1 <= plan.groups <= 8 and 1 <= plan.stages <= 4
+        assert -(-d // 8 // plan.threads) <= 4
+        assert plan.groups * d * 4 <= ring <= 192 * 1024
+        if (n, d) == (8192, 4096):      # the eager path's shape
+            assert plan == TRN.BwdPlan("bulk", 132, 2, 256, 3, 32)
