@@ -32,7 +32,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    the second wave and 32 sequences over the full table by the
    profiler's device time of the split and combine kernels over a
    rotation of pools larger than the L2 (``decode_timing``), beside the
-   old back-to-back wrapper time (``wrapper_ms``);
+   old back-to-back wrapper time (``wrapper_ms``); the dense flash pair
+   and the bf16 decode kernel are checked again at DeepSeekMoE-16B's 16
+   query and 16 kv heads (no GQA) at the MoE main paths' shapes:
+   ``moe_main``'s prefill groups and decode lengths (its split plan),
+   ``moe_train``'s 8 x 1024;
    layer_grads: one bf16 layer at Llama-3-8B widths, forward and
    backward, with attention through the kernels and through the plain
    version: the q, k, v gradients must agree within ``BWD_TOL``; then
@@ -48,7 +52,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    agree, and the card's steps must go through the kernels;
 6. main: a ``ServingEngine`` at Llama-3-8B widths (random bf16 weights
    from a seed) serves 16 requests; both kernels' launch counts over
-   this run must be above zero and every token in range;
+   this run must be above zero and every token in range; then the JAX
+   serving rung's uniform-batch baseline: the same requests in waves of
+   8 through ring-cache ``generate``, each wave padded to the largest
+   prompt and generation (``uniform_batch_tokens_per_sec``,
+   ``speedup_vs_uniform``);
 7. main_kvq: the same requests with ``kv_quant=True`` (int8 KV pages of
    32 tokens, the JAX package's ``kv_quant`` arm of its serving rung):
    every decode launch must take the int8 arm; pool bytes per KV token
@@ -87,7 +95,37 @@ Phases, each printed on its own line; any failure exits non-zero:
     a numpy seed: 2 untimed and 5 timed steps on one batch; the loss must
     be finite and fall, and every step must launch the RMSNorm forward
     and backward kernels ``2L + 1`` times each, the flash forward and
-    backward once a layer, and no plain version.
+    backward once a layer, and no plain version;
+14. generate_parity: one float32 ``llama_tiny`` model with one set of
+    weights runs ring-cache ``generate`` (greedy, and with EOS and a
+    negative pad) and ``beam_search`` (3 beams, EOS) on the card and on
+    the CPU: tokens equal, beam scores within ``BEAM_SCORE_TOL``; the
+    card's prefills launch the flash kernel, no plain version;
+15. moe_parity: one float32 ``moe_tiny`` model (capacity dispatch) on
+    the card and on the CPU: ``ServingEngine`` through queueing and a
+    preemption with full-precision and with int8 pages, ``generate``, 3
+    ``make_train_step`` steps; tokens equal, losses and step-1 gradients
+    within the train tolerances, and the card through ``flash``,
+    ``flash_bwd``, ``paged`` and ``paged_quant``, no plain version;
+16. generate: the JAX package's decode rung (``bench.py``
+    ``_decode_rung``) on the ring cache: Llama-3-8B widths, 4 layers,
+    vocab 32000, random bf16 weights from seed 0, prompt 128, 64 greedy
+    tokens at batch 8, 16 and 32 (decode tokens/s, ms a token, prefill
+    ms and tokens/s, and ``generate`` end to end), then int8 and int4
+    weight-only trees at batch 8, then ``beam_search`` with 4 beams at
+    batch 8; every prefill on the flash kernel's tensor-core route;
+17. moe_main: the serving main path over DeepSeekMoE-16B (28 layers,
+    16.88 B parameters, random bf16 weights from seed 0 with a float32
+    router) and the same engine and request shapes over its vocab,
+    after the Llama weights are freed; both serving kernels must launch;
+18. moe_train: the JAX package's MoE rung (``bench.py`` ``_moe_rung``):
+    DeepSeekMoE-16B widths at 2 layers, capacity dispatch, materialising
+    cross entropy, remat ``"dots"``, bf16 AdamW moments, lr 1e-4, ids
+    ``[8, 1025]``: 2 untimed and 5 timed steps (step ms, tokens/s, MFU on
+    the active parameters, peak memory); the loss must be finite and
+    fall, and every step must launch the flash forward twice a layer
+    (remat) and the backward once, on their tensor-core routes, and no
+    plain version.
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -104,8 +142,9 @@ shape checks that the forward kernel computes exactly the tiles
 then times both beside ``scaled_dot_product_attention`` with a
 block-diagonal causal mask.
 
-Every bf16 main path (``main``, ``main_kvq``, ``main_wq``, ``train``,
-the padded pass of ``train_packed``, ``eager_train``) must launch the
+Every bf16 main path (``main`` and its uniform baseline, ``main_kvq``,
+``main_wq``, ``generate``, ``moe_main``, ``train``, the padded pass of
+``train_packed``, ``eager_train``, ``moe_train``) must launch the
 dense flash kernels only on their tensor-core route (``flash_tc ==
 flash``, ``flash_bwd_tc == flash_bwd``), and the packed pass of
 ``train_packed`` the segment kernels only on theirs (``varlen_tc ==
@@ -119,8 +158,8 @@ power limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the rest of the repo beside it, it exits non-zero
 before printing any result.
 
-``--layers N`` cuts the depth of the three serving main paths (default:
-all 32 layers).
+``--layers N`` cuts the depth of the serving main paths: the three Llama
+ones (default: all 32 layers) and ``moe_main`` (at most its 28).
 """
 from __future__ import annotations
 
@@ -150,6 +189,14 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 RMS_F32_TOL = 1e-5
 RMS_BF16_TOL = 8e-3     # both relative to max |ref|
 RMS_EPS = 1e-5          # llama_3_8b's rms_norm_eps
+BEAM_SCORE_TOL = 1e-5   # float32 beam scores, card against CPU
+# the JAX package's decode rung: batches, prompt and new tokens
+DECODE_BATCHES = (8, 16, 32)
+DECODE_PROMPT, DECODE_NEW = 128, 64
+# the JAX package's MoE rung: DeepSeekMoE-16B widths at 2 layers
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 8, 1024
+MOE_HEADS = (16, 16)    # DeepSeekMoE-16B: 16 query and 16 kv heads of 128
 # the packed rung's trace: heavy-tailed document lengths and token ids
 # from one seed, packed into rows of PACKED_SEQ
 PACKED_DOCS, PACKED_SEQ, PACKED_SEED, PACKED_VOCAB = 24, 2048, 7, 32000
@@ -248,15 +295,32 @@ def _tc_launches(K, kind, want):
     assert st[kind] == 1 and st[f"{kind}_tc"] == int(want), st
 
 
+def moe_flash_cases(main_g, main_s):
+    """``(B, Sq, Sk, causal)`` of the dense flash kernels at
+    DeepSeekMoE-16B's heads: edge shapes, then the MoE main paths' own:
+    ``moe_main``'s prefill groups at its two buckets (the same requests
+    as ``main``) and ``moe_train``'s batch."""
+    return tuple(dict.fromkeys((
+        (2, 48, 48, True), (2, 48, 48, False), (2, 80, 48, True),
+        (2, 1000, 1000, True), (main_g, main_s, main_s, True),
+        (main_g, 2 * main_s, 2 * main_s, True),
+        (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_SEQ, True))))
+
+
 def phase_flash(torch, dev, main_g, main_s):
+    """The forward kernel against its plain version: Llama-3-8B's heads
+    (32 / 8) at edge shapes on both routes, then DeepSeekMoE-16B's (16 /
+    16, no GQA) at ``moe_flash_cases``; then timed at the serving main
+    path's first prefill group."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(1)
     H, KVH, D = 32, 8, 128
 
-    def qkv(b, sq, sk, dtype, d=D):
-        return tuple(torch.randn(b, s, h, d, generator=gen, device=dev)
-                     .to(dtype) for s, h in ((sq, H), (sk, KVH), (sk, KVH)))
+    def qkv(b, sq, sk, dtype, d=D, heads=(H, KVH)):
+        h, kvh = heads
+        return tuple(torch.randn(b, s, n, d, generator=gen, device=dev)
+                     .to(dtype) for s, n in ((sq, h), (sk, kvh), (sk, kvh)))
 
     worst = 0.0
     bf16, f32 = torch.bfloat16, torch.float32
@@ -295,6 +359,28 @@ def phase_flash(torch, dev, main_g, main_s):
                  out_zero=True, lse_neg_inf=True)
         if dtype == bf16:
             worst = max(worst, err)
+
+    for b, sq, sk, causal in moe_flash_cases(main_g, main_s):
+        q, k, v = qkv(b, sq, sk, bf16, heads=MOE_HEADS)
+        K.reset_dispatch_stats()
+        out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        _tc_launches(K, "flash", True)
+        ref, ref_lse = FA.flash_attention_ref(q, k, v, causal=causal)
+        seen = torch.isfinite(ref_lse)
+        err = _err(out, ref)
+        lerr = _err(torch.where(seen, lse, 0.0), torch.where(seen, ref_lse,
+                                                               0.0))
+        _say("kernels", kernel="flash_fwd", heads="16/16", B=b, Sq=sq,
+             Sk=sk, D=D, causal=causal, dtype="bfloat16", route="tc",
+             max_abs_err=err, lse_err=lerr, tol=FLASH_TOL)
+        assert err <= FLASH_TOL and lerr <= LSE_TOL, \
+            "flash_fwd disagrees at DeepSeekMoE-16B's heads"
+        if causal and sq > sk:
+            assert bool((out[:, :sq - sk] == 0).all())
+        worst = max(worst, err)
+        del out, lse, ref, ref_lse
+    torch.cuda.empty_cache()
 
     # the main path's first prefill group: G requests at one bucket
     q, k, v = qkv(main_g, main_s, main_s, bf16)
@@ -662,16 +748,15 @@ def decode_timing_shapes(main_lengths, wave2, full):
             ("bandwidth", [full] * 32))
 
 
-def phase_paged(torch, dev, main_lengths, wave2, maxp):
-    """The decode kernel (bf16 pages of 16) against its plain version:
-    edge lengths, the first wave, the split plan's chunk edges, B 1 over
-    the full table, B 32, the second wave, NaN in every slot past a
-    sequence's length and in the page its sentinel entries name (against
-    the plain version on zeros there), two launches bit for bit; then
-    timed at three shapes (``decode_timing``)."""
-    from paddle_tpu_torch.kernels import paged_attention as PA
+def paged_checks(torch, dev, PA, heads, main_lengths, wave2, maxp):
+    """The decode kernel (bf16 pages of 16, ``heads`` = (query, kv) of
+    128) against its plain version: edge lengths, the first wave, the
+    split plan's chunk edges, B 1 over the full table, B 32, the second
+    wave, NaN in every slot past a sequence's length and in the page its
+    sentinel entries name (against the plain version on zeros there),
+    two launches bit for bit. Returns the largest error."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    B, NH, KVH, D, PS = len(main_lengths), 32, 8, 128, 16
+    (NH, KVH), B, D, PS = heads, len(main_lengths), 128, 16
     num_pages = 32 * maxp + 8
     kp = torch.randn(num_pages, KVH, PS, D, generator=gen,
                      device=dev).to(torch.bfloat16)
@@ -715,7 +800,8 @@ def phase_paged(torch, dev, main_lengths, wave2, maxp):
         if name == "b32":
             again = PA.ragged_paged_attention(q, kp, vp, bt, ln)
             same = bool(torch.equal(out, again))
-        _say("kernels", kernel="paged_decode", case=name, B=len(lengths),
+        _say("kernels", kernel="paged_decode", heads=f"{NH}/{KVH}",
+             case=name, B=len(lengths),
              splits=PA.decode_split_plan(len(lengths), KVH, PS, maxp)[1],
              lengths=",".join(map(str, lengths)) if len(lengths) <= 8
              else f"{len(lengths)}_seqs", max_abs_err=err, tol=PAGED_TOL,
@@ -727,6 +813,21 @@ def phase_paged(torch, dev, main_lengths, wave2, maxp):
         assert same, "paged_decode: two launches differ"
         worst = max(worst, err)
     del kp, vp
+    return worst
+
+
+def phase_paged(torch, dev, main_lengths, wave2, maxp):
+    """The decode kernel (bf16 pages of 16) against its plain version
+    (``paged_checks``) at Llama-3-8B's heads (32 / 8), then at
+    DeepSeekMoE-16B's (16 / 16, no GQA: the kernel's one-head-a-group
+    instance, and its own split plan), both at the main paths' decode
+    lengths (``moe_main`` serves the same requests); then timed at
+    three shapes (``decode_timing``)."""
+    from paddle_tpu_torch.kernels import paged_attention as PA
+    PS = 16
+    worst = max(paged_checks(torch, dev, PA, heads, main_lengths, wave2,
+                             maxp)
+                for heads in ((32, 8), MOE_HEADS))
     torch.cuda.empty_cache()
     timed = {}
     for shape, lengths in decode_timing_shapes(main_lengths, wave2,
@@ -963,18 +1064,22 @@ def phase_quant_parity(torch, dev):
 
 
 def phase_main(torch, dev, cfg, params, requests, card, phase="main",
-               kv_quant=False, reference=None):
+               kv_quant=False, reference=None, family=None, uniform=False):
     """Serve ``requests`` through ``ServingEngine`` at the config's widths
-    (``kv_quant``: int8 KV pages). Returns ``(launches, tokens)``. With
-    ``reference`` (the tokens of the bf16 run) it also reports, as a
-    reading only, how many requests give the same greedy tokens and where
-    each first differs."""
+    (``kv_quant``: int8 KV pages) with the model ``family`` (default
+    llama). Returns ``(launches, tokens)``. With ``reference`` (the tokens
+    of the bf16 run) it also reports, as a reading only, how many
+    requests give the same greedy tokens and where each first differs.
+    With ``uniform`` it also serves the same requests as the JAX serving
+    rung's uniform-batch baseline (``uniform_batch_baseline``) and reports
+    both rates over the requested tokens and ``speedup_vs_uniform``."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.models import llama as L
+    family = L if family is None else family
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in L._leaves(params))
-    eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048,
+    eng = ServingEngine(family, params, cfg, num_slots=8, max_len=2048,
                         kv_quant=kv_quant)
     torch.cuda.reset_peak_memory_stats(dev)
     K.reset_dispatch_stats()
@@ -1024,6 +1129,19 @@ def phase_main(torch, dev, cfg, params, requests, card, phase="main",
         assert len(toks) == r.max_new_tokens, (r.rid, len(toks))
         assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), r.rid
         tokens[r.rid] = toks.tolist()
+    if uniform:
+        useful = sum(r.max_new_tokens for r in requests)
+        uniform_s, uniform_launches = uniform_batch_baseline(
+            torch, family, cfg, params, requests, eng.num_slots, dev)
+        _say(phase, requested_tokens=useful,
+             serving_tokens_per_sec=useful / wall,
+             uniform_batch_s=uniform_s,
+             uniform_batch_tokens_per_sec=useful / uniform_s,
+             speedup_vs_uniform=uniform_s / wall,
+             uniform_flash=uniform_launches["flash"],
+             uniform_flash_tc=uniform_launches["flash_tc"])
+        _tc_route_only(uniform_launches)
+        assert uniform_launches["flash"] > 0, uniform_launches
     if reference is not None:
         first = [next((i for i, (a, b) in enumerate(zip(tokens[r], ref))
                        if a != b), None) for r, ref in reference.items()]
@@ -1033,19 +1151,355 @@ def phase_main(torch, dev, cfg, params, requests, card, phase="main",
     return launches, tokens
 
 
+def phase_generate_parity(torch, dev):
+    """Ring-cache generation of one float32 llama_tiny model on the card
+    (flash kernel in the prefill) and on the CPU: greedy tokens (with and
+    without EOS) and beam tokens must be equal, beam scores within
+    ``BEAM_SCORE_TOL``."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_tiny()
+    cpu_params = L.init_params(cfg, seed=0, device="cpu")
+    card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+    ids = np.random.default_rng(8).integers(0, cfg.vocab_size, (3, 7))
+    eos = int(L.generate(cpu_params, ids, cfg, max_new_tokens=8)[0, 2])
+    outs = {}
+    for name, params in (("cpu", cpu_params), ("card", card_params)):
+        K.reset_dispatch_stats()
+        greedy = L.generate(params, ids, cfg, max_new_tokens=8)
+        stopped = L.generate(params, ids, cfg, max_new_tokens=8,
+                             eos_token_id=eos, pad_token_id=-1)
+        beams, scores = L.beam_search(params, ids, cfg, max_new_tokens=6,
+                                      num_beams=3, eos_token_id=eos)
+        if name == "card":
+            torch.cuda.synchronize()
+        stats = K.dispatch_stats()
+        outs[name] = [t.cpu() for t in (greedy, stopped, beams, scores)]
+        _say("generate_parity", device=name, **stats)
+        if name == "card":
+            # 3 prefills of 2 layers; decode attends over the ring cache
+            # in plain PyTorch, as the reference's einsum
+            assert stats["flash"] == 3 * cfg.num_hidden_layers, stats
+            assert all(v == 0 for k, v in stats.items()
+                       if k.endswith("_ref")), stats
+    card, cpu = outs["card"], outs["cpu"]
+    same = all(torch.equal(a, b) for a, b in zip(card[:3], cpu[:3]))
+    score_err = _err(card[3], cpu[3])
+    _say("generate_parity", tokens_equal=same, eos=eos,
+         stopped_pads=int((cpu[1] == -1).sum()), beam_score_err=score_err,
+         beam_score_tol=BEAM_SCORE_TOL)
+    assert same, (card, cpu)
+    assert (cpu[1] == -1).any(), cpu[1]
+    assert score_err <= BEAM_SCORE_TOL, score_err
+
+
+def _decode_one_batch(torch, L, cfg, params, batch, dev, phase, card):
+    """The JAX package's ``_decode_one_batch`` on the port: ``batch``
+    prompts of ``DECODE_PROMPT`` tokens prefilled into a fresh ring cache
+    (timed), then ``DECODE_NEW`` greedy decode steps (timed), after one
+    untimed pass of both; then ``generate`` end to end. Every prefill
+    must take the flash kernel on its tensor-core route."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    ids = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (batch, DECODE_PROMPT)), device=dev)
+
+    def prefill():
+        cache = L.init_cache(cfg, batch, DECODE_PROMPT + DECODE_NEW,
+                             device=dev)
+        return L.prefill(params, ids, cfg, cache)
+
+    def decode(cache, logits):
+        toks = []
+        for _ in range(DECODE_NEW):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            cache, logits = L.decode_step(params, cache, tok, cfg)
+            toks.append(tok)
+        return torch.stack(toks, dim=1)
+
+    decode(*prefill())
+    torch.cuda.synchronize()
+    K.reset_dispatch_stats()
+    t0 = time.perf_counter()
+    cache, logits = prefill()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = decode(cache, logits)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen = L.generate(params, ids, cfg, max_new_tokens=DECODE_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = K.dispatch_stats()
+    _say(phase, card=repr(card), batch=batch, prompt=DECODE_PROMPT,
+         new_tokens=DECODE_NEW,
+         decode_tokens_per_sec=batch * DECODE_NEW / decode_s,
+         ms_per_token=decode_s / DECODE_NEW * 1e3,
+         prefill_ms=prefill_s * 1e3,
+         prefill_tokens_per_sec=batch * DECODE_PROMPT / prefill_s,
+         generate_s=gen_s, generate_tokens_per_sec=batch * DECODE_NEW / gen_s,
+         generate_equals_loop=bool(torch.equal(gen, toks)),
+         flash=launches["flash"], flash_tc=launches["flash_tc"])
+    for t in (toks, gen):
+        assert ((t >= 0) & (t < cfg.vocab_size)).all()
+    assert launches["flash"] == 2 * cfg.num_hidden_layers, launches
+    _tc_route_only(launches)
+    assert all(v == 0 for k, v in launches.items() if k.endswith("_ref"))
+    return ids
+
+
+def phase_generate(torch, dev, card):
+    """The JAX package's decode rung (``bench.py`` ``_decode_rung``) on the
+    ring cache: Llama-3-8B widths, 4 layers, vocab 32000, random bf16
+    weights from seed 0, prompt 128 and 64 new greedy tokens at batch 8,
+    16 and 32; then int8 and int4 weight-only trees at batch 8, and
+    ``beam_search`` with 4 beams at batch 8."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_3_8b(num_hidden_layers=4, vocab_size=32000, remat=False)
+    params = L.init_params(cfg, seed=0, device=dev)
+    for batch in DECODE_BATCHES:
+        ids = _decode_one_batch(torch, L, cfg, params, batch, dev,
+                                "generate", card)
+    ids = ids[:DECODE_BATCHES[0]]
+    for width in ("int8", "int4"):
+        qparams = L.quantize_weights(params, width)
+        _say("generate", weights=width)
+        _decode_one_batch(torch, L, cfg, qparams, DECODE_BATCHES[0], dev,
+                          "generate", card)
+        del qparams
+    L.beam_search(params, ids, cfg, max_new_tokens=2, num_beams=4)
+    torch.cuda.synchronize()
+    K.reset_dispatch_stats()
+    t0 = time.perf_counter()
+    toks, scores = L.beam_search(params, ids, cfg,
+                                 max_new_tokens=DECODE_NEW, num_beams=4)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    launches = K.dispatch_stats()
+    _say("generate", card=repr(card), beams=4, batch=ids.shape[0],
+         new_tokens=DECODE_NEW, beam_s=beam_s,
+         ms_per_token=beam_s / DECODE_NEW * 1e3,
+         scores_finite=bool(torch.isfinite(scores).all()),
+         flash=launches["flash"], flash_tc=launches["flash_tc"])
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    assert torch.isfinite(scores).all()
+    assert launches["flash"] == cfg.num_hidden_layers, launches
+    _tc_route_only(launches)
+
+
+def uniform_batch_baseline(torch, family, cfg, params, requests, num_slots,
+                           dev):
+    """The JAX serving rung's uniform-batch baseline (``bench.py``
+    ``_serving_paged_rung``): the same requests in waves of
+    ``num_slots``, each wave padded to the largest prompt and generation,
+    through ``generate`` on the ring cache, after one untimed wave.
+    Returns ``(seconds, launches)`` of the timed waves."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    max_p = max(len(r.prompt) for r in requests)
+    max_g = max(r.max_new_tokens for r in requests)
+    ids = torch.as_tensor(np.random.default_rng(42).integers(
+        0, cfg.vocab_size, (num_slots, max_p)), device=dev)
+    waves = -(-len(requests) // num_slots)
+    family.generate(params, ids, cfg, max_new_tokens=max_g)
+    torch.cuda.synchronize()
+    K.reset_dispatch_stats()
+    t0 = time.perf_counter()
+    for _ in range(waves):
+        toks = family.generate(params, ids, cfg, max_new_tokens=max_g)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    return seconds, K.dispatch_stats()
+
+
+def phase_moe_parity(torch, dev):
+    """One float32 moe_tiny model (capacity dispatch, the full-width
+    paths' choice) with one set of weights on the card and on the CPU:
+    ``ServingEngine`` through queueing and a forced preemption with
+    full-precision pages, then with int8 pages; ``generate``; 3
+    ``make_train_step`` steps. Tokens must be equal, losses and step-1
+    gradients within ``TRAIN_LOSS_RTOL`` / ``TRAIN_GRAD_TOL``, and the card
+    must take the flash pair and both decode arms, no plain version."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import Request, ServingEngine
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.models import moe as M
+    cfg = M.moe_tiny(dispatch_mode="capacity")
+    cpu_params = M.init_params(cfg, seed=0, device="cpu")
+    card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+    rng = np.random.default_rng(5)
+    trace = [(rng.integers(0, cfg.vocab_size, n), m)
+             for n, m in zip((4, 7, 3, 5, 6, 9), (8, 5, 9, 6, 4, 7))]
+    ids = rng.integers(0, cfg.vocab_size, (3, 6))
+    batch = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 33)))
+    tokens, losses, grads = {}, {}, {}
+    for name, params, device in (("card", card_params, dev),
+                                 ("cpu", cpu_params, "cpu")):
+        out = []
+        for kv_quant in (False, True):
+            K.reset_dispatch_stats()
+            eng = ServingEngine(M, params, cfg, num_slots=2, max_len=16,
+                                page_size=4, num_pages=5, decode_chunk=2,
+                                kv_quant=kv_quant, device=device)
+            served = eng.run([Request(rid=i, prompt=p, max_new_tokens=m)
+                              for i, (p, m) in enumerate(trace)])
+            stats = K.dispatch_stats()
+            _say("moe_parity", device=name, path="serve", kv_quant=kv_quant,
+                 preempted=eng.stats.preempted, **stats)
+            assert eng.stats.preempted >= 1
+            if name == "card":
+                arm = "paged_quant" if kv_quant else "paged"
+                assert stats["flash"] > 0 and stats[arm] > 0, stats
+            out += [served[i].tokens.tolist() for i in range(len(trace))]
+        K.reset_dispatch_stats()
+        out.append(M.generate(params, ids, cfg, max_new_tokens=6).tolist())
+        grads[name] = L._leaves(M.loss_and_grads(params, batch, cfg)[1])
+        state = M.adamw_init(params)
+        step = M.make_train_step(cfg)
+        losses[name] = [float(step(params, state, batch)[2])
+                        for _ in range(3)]
+        stats = K.dispatch_stats()
+        _say("moe_parity", device=name, path="generate_train",
+             losses=losses[name], **stats)
+        if name == "card":
+            assert stats["flash"] > 0 and stats["flash_bwd"] > 0, stats
+            assert all(v == 0 for k, v in stats.items()
+                       if k.endswith("_ref")), stats
+        tokens[name] = out
+    grad_err = max(_err(a.cpu(), b) / float(b.abs().max())
+                   for a, b in zip(grads["card"], grads["cpu"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["card"], losses["cpu"]))
+    same = tokens["card"] == tokens["cpu"]
+    _say("moe_parity", tokens_equal=same, loss_rel_err=loss_err,
+         loss_rtol=TRAIN_LOSS_RTOL, grad_rel_err=grad_err,
+         grad_tol=TRAIN_GRAD_TOL)
+    assert same, (tokens["card"], tokens["cpu"])
+    assert loss_err <= TRAIN_LOSS_RTOL, losses
+    assert grad_err <= TRAIN_GRAD_TOL, grad_err
+
+
+def phase_moe_main(torch, dev, layers, card):
+    """The MoE serving main path: DeepSeekMoE-16B widths at
+    ``min(layers, 28)`` layers (all 28 by default), random bf16 weights
+    from seed 0 (router float32), the llama main path's engine and
+    request shapes over its vocab; both serving kernels must launch."""
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.models import moe as M
+    cfg = M.deepseek_moe_16b()
+    cfg.num_hidden_layers = min(layers, cfg.num_hidden_layers)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    _say("moe_main", layers=cfg.num_hidden_layers,
+         params_b=round(M.count_params(cfg) / 1e9, 3),
+         router_dtype=str(params["layers"]["router"].dtype),
+         weight_dtype=str(params["layers"]["e_gate"].dtype),
+         dispatch=cfg.dispatch_mode or "capacity",
+         init_s=round(time.perf_counter() - t0, 2))
+    assert params["layers"]["router"].dtype == torch.float32
+    assert sum(t.numel() for t in L._leaves(params)) == M.count_params(cfg)
+    launches, _ = phase_main(torch, dev, cfg, params,
+                             _main_requests(cfg.vocab_size), card,
+                             phase="moe_main", family=M)
+    return launches
+
+
+def moe_train_setup(torch, dev):
+    """The MoE training main path's ``(cfg, params, opt_state, step,
+    batch)``: the JAX package's MoE rung (``bench.py`` ``_moe_rung``),
+    DeepSeekMoE-16B widths at ``MOE_TRAIN_LAYERS`` layers, capacity
+    dispatch, materialising cross entropy, remat ``"dots"``, random bf16
+    weights from seed 0 (router float32), bf16 AdamW moments, lr 1e-4,
+    ids ``[MOE_TRAIN_BATCH, MOE_TRAIN_SEQ + 1]`` from
+    ``numpy.random.default_rng(1)``, all on ``dev``."""
+    import numpy as np
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.models import moe as M
+    cfg = M.deepseek_moe_16b(num_hidden_layers=MOE_TRAIN_LAYERS,
+                             dispatch_mode="capacity", fused_ce=False,
+                             remat_policy="dots")
+    params = M.init_params(cfg, seed=0, device=dev)
+    state = L.adamw_init(params, moment_dtype=torch.bfloat16)
+    step = M.make_train_step(cfg, lr=1e-4)
+    batch = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ + 1)), device=dev)
+    return cfg, params, state, step, batch
+
+
+def phase_moe_train(torch, dev, card):
+    """The MoE training main path (``moe_train_setup``): 2 untimed and 5
+    timed steps on one batch; MFU against the active parameters (shared,
+    top-k routed, dense), as the JAX package's MoE rung defines it."""
+    import math
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import moe as M
+    t0 = time.perf_counter()
+    cfg, params, state, step, batch = moe_train_setup(torch, dev)
+    torch.cuda.synchronize()
+    total = M.count_params(cfg)
+    routed = (cfg.num_hidden_layers * cfg.num_experts * 3
+              * cfg.hidden_size * cfg.intermediate_size)
+    active = total - routed + routed * cfg.num_experts_per_tok \
+        // cfg.num_experts
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    _say("moe_train", layers=MOE_TRAIN_LAYERS, params_total=total,
+         params_active=active, dispatch=cfg.dispatch_mode,
+         capacity=M.moe_capacity(cfg, tokens), remat=cfg.remat_policy,
+         fused_ce=cfg.fused_ce, batch=f"{MOE_TRAIN_BATCH}x{MOE_TRAIN_SEQ}",
+         init_s=round(time.perf_counter() - t0, 2))
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_dispatch_stats()
+    losses, times = [], []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        _, _, loss = step(params, state, batch)
+        losses.append(float(loss))        # waits for the step's end
+        times.append(time.perf_counter() - t0)
+    launches = K.dispatch_stats()
+    timed = sorted(times[2:])
+    step_s = timed[len(timed) // 2]
+    _say("moe_train", card=repr(card), losses=losses,
+         step_ms=[t * 1e3 for t in times[2:]], median_step_ms=step_s * 1e3,
+         tokens_per_s=tokens / step_s,
+         mfu_active=6.0 * active * tokens / step_s / H100_BF16_FLOPS,
+         peak_mem_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 2))
+    _say("moe_train", steps=len(times), **launches)
+    ln_v = math.log(cfg.vocab_size)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert ln_v - 1 <= losses[0] <= ln_v + 2, (losses[0], ln_v)
+    assert losses[-1] < losses[0], losses
+    assert launches["flash_bwd"] == MOE_TRAIN_LAYERS * len(times), launches
+    # remat recomputes each layer's forward: two forward launches a layer
+    assert launches["flash"] == 2 * MOE_TRAIN_LAYERS * len(times), launches
+    _tc_route_only(launches)
+    assert all(v == 0 for k, v in launches.items() if k.endswith("_ref"))
+    return launches
+
+
 def phase_flash_bwd(torch, dev, batch, seq):
     """The backward kernels against their plain version on the same card
-    tensors (out and lse from the forward kernel), then timed at the
-    training path's shape."""
+    tensors (out and lse from the forward kernel): Llama-3-8B's heads at
+    edge shapes on both routes, then DeepSeekMoE-16B's (16 / 16) at edge
+    shapes and ``moe_train``'s batch; then timed at the training path's
+    shape."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(4)
     H, KVH, D = 32, 8, 128
 
-    def inputs(b, sq, sk, dtype, causal, d=D):
-        q, k, v, dout = (torch.randn(b, s, h, d, generator=gen, device=dev)
-                         .to(dtype) for s, h in ((sq, H), (sk, KVH),
-                                                 (sk, KVH), (sq, H)))
+    def inputs(b, sq, sk, dtype, causal, d=D, heads=(H, KVH)):
+        h, kvh = heads
+        q, k, v, dout = (torch.randn(b, s, n, d, generator=gen, device=dev)
+                         .to(dtype) for s, n in ((sq, h), (sk, kvh),
+                                                 (sk, kvh), (sq, h)))
         out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
         return q, k, v, out, lse, dout
 
@@ -1089,6 +1543,21 @@ def phase_flash_bwd(torch, dev, batch, seq):
                  dq_zero=True)
         if dtype == bf16:
             worst = max(worst, err)
+
+    for b, sq, sk, causal in ((2, 48, 48, True), (2, 48, 48, False),
+                              (2, 32, 80, True), (2, 80, 48, True),
+                              (2, 1000, 1000, True),
+                              (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                               MOE_TRAIN_SEQ, True)):
+        got, err = check(inputs(b, sq, sk, bf16, causal, heads=MOE_HEADS),
+                         causal, BWD_TOL, heads="16/16", B=b, Sq=sq, Sk=sk,
+                         D=D, causal=causal, dtype="bfloat16")
+        if sq > sk:
+            assert bool((got[0][:, :sq - sk] == 0).all()), \
+                "flash_bwd: a row that sees no key has a nonzero dq"
+        worst = max(worst, err)
+        del got
+    torch.cuda.empty_cache()
 
     # the training path's shape: one layer's attention of the train phase;
     # its out / lse from the forward kernel are held to the plain forward,
@@ -1914,7 +2383,8 @@ def phase_eager_train(torch, dev, card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="main-path depth (default: all 32 layers)")
+                    help="serving main-path depth (default: all 32 "
+                    "layers; moe_main takes at most its 28)")
     args = ap.parse_args()
 
     import torch
@@ -1976,13 +2446,16 @@ def main() -> int:
     phase_train_parity(torch, dev)
     phase_train_packed_parity(torch, dev)
     phase_eager_parity(torch, dev)
+    phase_generate_parity(torch, dev)
+    phase_moe_parity(torch, dev)
     t0 = time.perf_counter()
     params = L.init_params(cfg, seed=0)
     torch.cuda.synchronize()
     nparams = sum(t.numel() for t in L._leaves(params))
     _say("main", layers=args.layers, params_b=round(nparams / 1e9, 3),
          init_s=round(time.perf_counter() - t0, 2))
-    launches, main_tokens = phase_main(torch, dev, cfg, params, requests, smi)
+    launches, main_tokens = phase_main(torch, dev, cfg, params, requests, smi,
+                                       uniform=True)
     torch.cuda.empty_cache()
     kvq_launches, _ = phase_main(torch, dev, cfg, params, requests, smi,
                                  phase="main_kvq", kv_quant=True,
@@ -1999,11 +2472,17 @@ def main() -> int:
                kv_quant=True, reference=main_tokens)
     del qparams
     torch.cuda.empty_cache()
+    phase_generate(torch, dev, smi)
+    torch.cuda.empty_cache()
+    phase_moe_main(torch, dev, args.layers, smi)
+    torch.cuda.empty_cache()
     train_launches = phase_train(torch, dev, smi)
     torch.cuda.empty_cache()
     packed_launches = phase_train_packed(torch, dev, smi)
     torch.cuda.empty_cache()
     eager_launches = phase_eager_train(torch, dev, smi)
+    torch.cuda.empty_cache()
+    phase_moe_train(torch, dev, smi)
     # launches on each kernel's main path: serving for the forward and
     # the decode kernel, int8-KV serving for its int8 arm, dense training
     # for the backward, packed training for the segment kernels, eager

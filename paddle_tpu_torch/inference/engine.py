@@ -9,8 +9,9 @@ youngest request when the page pool runs out, and slot compaction.
 ``kv_quant=True`` stores int8 KV pages with one float32 scale per
 (page, kv head), the reference's ``FLAGS_serving_kv_quant`` (the port
 has no flags registry: the option is given to the constructor).
-``params`` may also be a weight-only-quantized tree
-(``models.llama.quantize_weights``). The prefix cache, speculative
+The model is a family module, ``models.llama`` or ``models.moe``;
+``params`` may also be a weight-only-quantized tree of it
+(``quantize_weights``). The prefix cache, speculative
 decode, deadlines, overload policies, failover and the monitor planes
 are not ported.
 
@@ -167,7 +168,8 @@ class ServingEngine:
     """Continuous-batching decode over a paged KV cache.
 
     ``family`` is a model module exposing the decoder seam
-    (``models.llama``); ``params`` its parameter dict, already on
+    (``models.llama`` or ``models.moe``); ``params`` its parameter dict
+    (or its weight-only-quantized tree), already on
     ``device``. ``device=None`` means the CUDA card and raises without
     one; pass ``device="cpu"`` for the plain versions on the CPU.
 

@@ -7,7 +7,8 @@ full-precision and int8 pools; the prefix cache is not ported).
 - ``PagedKVCache``: the pool tensors married to an allocator.
 - ``paged_prefill`` / ``paged_decode_step``: the data plane, generic over
   the model family's decoder seam (``_qkv_proj``-compatible layers,
-  ``decode_mlp``, ``_head``).
+  ``decode_mlp``, ``_head``), which ``models.llama`` and ``models.moe``
+  both expose.
 
 Pool layout: ``[L, num_pages, kv_heads, page_size, head_dim]``. Block
 table entries equal to ``num_pages`` are the "no page" sentinel: a write

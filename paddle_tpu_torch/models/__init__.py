@@ -1,1 +1,1 @@
-from . import llama  # noqa: F401
+from . import llama, moe  # noqa: F401

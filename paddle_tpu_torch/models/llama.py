@@ -13,6 +13,15 @@ Serving also takes the weight-only-quantized tree of ``quantize_weights``
 ``_mm`` and ``_head_logits`` dequantize each such weight in plain
 PyTorch before its product, as the reference leaves both to XLA.
 
+Generation over a static ring cache ``[L, B, max_len, kv, hd]``, as the
+reference: ``init_cache``, ``prefill`` (attention through the flash
+kernel), ``decode_step`` (one position written in place, float32
+attention over the whole cache in plain PyTorch, the reference's
+einsum), ``generate`` (greedy, or temperature then top-k / top-p
+sampling from a ``torch.Generator``; EOS and pad masking) and
+``beam_search``. The loops are family-generic (``_generate_over`` /
+``_beam_search_over``); the MoE family runs them over its own MLP.
+
 Training: ``loss_fn`` (blockwise cross entropy), ``adamw_init`` /
 ``_adamw_update`` (the reference's AdamW math) and ``make_train_step``,
 which updates the parameters in place (the counterpart of donation).
@@ -23,12 +32,13 @@ The eager Paddle-surface model, ``LlamaForCausalLM`` over
 RMSNorm kernels) and trained as PaddleNLP users train it: ``model(ids)``,
 ``F.cross_entropy``, ``loss.backward()``, ``optimizer.AdamW``.
 ``functional_params()`` exports its weights as the functional tree
-above.
+above, and its ``generate`` runs the ring-cache generation on them.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import os
 from typing import Any, Dict, Optional
 
@@ -53,7 +63,8 @@ from ..optimizer.optimizer import adam_update_
 __all__ = ["LlamaConfig", "llama_tiny", "llama_3_8b", "init_params",
            "params_from_numpy", "quant_int8", "quant_packed",
            "unpack_int4", "quantize_weights", "forward_hidden", "forward",
-           "decode_mlp",
+           "decode_mlp", "init_cache", "prefill", "decode_step",
+           "sampling_filter", "make_sampler", "generate", "beam_search",
            "remat_policy", "unpack_batch", "loss_fn", "count_params",
            "loss_and_grads", "adamw_init", "make_train_step",
            "LlamaDecoderLayer", "LlamaForCausalLM"]
@@ -153,9 +164,11 @@ def params_from_numpy(tree, device=None, dtype=None):
     as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
     refuses; ``core.tensor.from_numpy`` takes it through float32
     (lossless) and back to bfloat16.
-    ``dtype`` casts every floating leaf; ``None`` keeps the source type.
-    A weight-only-quantized tree (``quantize_weights``) keeps its int8
-    codes and its float32 scales as they are."""
+    ``dtype`` casts every floating leaf but a MoE tree's ``router``,
+    which stays float32 in every tree, as the reference draws it;
+    ``None`` keeps the source type. A weight-only-quantized tree
+    (``quantize_weights``) keeps its int8 codes and its float32 scales
+    as they are."""
     dev = resolve_device(device)
 
     def leaf(a, cast=True):
@@ -167,8 +180,8 @@ def params_from_numpy(tree, device=None, dtype=None):
     def walk(node):
         if isinstance(node, dict):
             quant = "s" in node and ("q" in node or "q4" in node)
-            return {k: leaf(v, cast=not quant) if quant else walk(v)
-                    for k, v in node.items()}
+            return {k: leaf(v, cast=False) if quant or k == "router"
+                    else walk(v) for k, v in node.items()}
         return leaf(node)
 
     return walk(tree)
@@ -324,6 +337,14 @@ def _block(x, lp, cos, sin, config: LlamaConfig, segment_ids=None,
            positions=None):
     """One decoder layer. ``segment_ids`` / ``positions`` select the
     sequence-packed attention (``sdpa_raw``)."""
+    x, _, _ = _attn_half(x, lp, cos, sin, config, segment_ids, positions)
+    return _ffn(x, lp, config)
+
+
+def _attn_half(x, lp, cos, sin, config, segment_ids=None, positions=None):
+    """Attention half of a decoder layer (ln1, q/k/v, rope, causal
+    ``sdpa_raw``, output projection, residual), shared with the MoE
+    family and the prefill: ``(x, k after rope, v)``."""
     c = config
     B, S, _ = x.shape
     h = _rms(x, lp["ln1"], c.rms_norm_eps)
@@ -332,8 +353,7 @@ def _block(x, lp, cos, sin, config: LlamaConfig, segment_ids=None,
     k = rope_raw(k, cos, sin)
     a = sdpa_raw(q, k, v, is_causal=True, segment_ids=segment_ids,
                  positions=positions).reshape(B, S, -1)
-    x = x + _mm(a, lp["wo"])
-    return _ffn(x, lp, c)
+    return x + _mm(a, lp["wo"]), k, v
 
 
 def remat_policy(name: str):
@@ -364,10 +384,20 @@ def forward_hidden(params, ids, config: LlamaConfig, *, segment_ids=None,
 
     ``segment_ids`` / ``positions`` ``[B, S]`` select sequence-packed
     semantics: rope positions restart per document and attention is
-    segment-masked (``sdpa_raw``). The stacked weights are split into
-    per-layer views once (``unbind``), so their gradient is stacked once.
-    With ``config.remat`` and grad enabled, each layer runs under
-    ``torch.utils.checkpoint`` with ``config.remat_policy``."""
+    segment-masked (``sdpa_raw``)."""
+    return _layers_over(_block, params, ids, config, segment_ids,
+                        positions)[0]
+
+
+def _layers_over(block, params, ids, config, segment_ids=None,
+                 positions=None):
+    """The layer loop of any family: embed ``ids``, run ``block(x, lp,
+    cos, sin, config, segment_ids, positions)`` over the stacked layers,
+    apply ln_f. ``block`` returns ``x``, or ``(x, aux)``; returns
+    ``(hidden [B, S, D], [each layer's aux])``. The stacked weights are
+    split into per-layer views once (``unbind``), so their gradient is
+    stacked once. With ``config.remat`` and grad enabled, each layer runs
+    under ``torch.utils.checkpoint`` with ``config.remat_policy``."""
     c = config
     x = params["embed"][ids]
     cos, sin = _rope_tables(ids.shape[1], c.head_dim, theta=c.rope_theta,
@@ -380,15 +410,19 @@ def forward_hidden(params, ids, config: LlamaConfig, *, segment_ids=None,
                  for k, w in params["layers"].items()}
     remat = c.remat and torch.is_grad_enabled()
     context_fn = remat_policy(c.remat_policy) if remat else None
+    auxes = []
     for i in range(c.num_hidden_layers):
         lp = {k: w[i] for k, w in per_layer.items()}
         if remat:
-            x = checkpoint(_block, x, lp, cos, sin, c, segment_ids,
+            x = checkpoint(block, x, lp, cos, sin, c, segment_ids,
                            positions, use_reentrant=False,
                            context_fn=context_fn)
         else:
-            x = _block(x, lp, cos, sin, c, segment_ids, positions)
-    return _rms(x, params["ln_f"], c.rms_norm_eps)
+            x = block(x, lp, cos, sin, c, segment_ids, positions)
+        if isinstance(x, tuple):
+            x, aux = x
+            auxes.append(aux)
+    return _rms(x, params["ln_f"], c.rms_norm_eps), auxes
 
 
 def _head(params, config: LlamaConfig):
@@ -403,6 +437,328 @@ def forward(params, ids, config: LlamaConfig, *, segment_ids=None,
     x = forward_hidden(params, ids, config, segment_ids=segment_ids,
                        positions=positions)
     return _head_logits(x, _head(params, config))
+
+
+# -- ring-cache decoding ------------------------------------------------------
+#
+# A static [L, B, max_len, kv, hd] cache per sequence batch: prefill fills
+# positions [0, S), each decode step writes one position in place and
+# attends over the whole buffer with the positions past it masked (the
+# reference's shapes; it writes with dynamic_update_slice). ``pos`` is a
+# Python int, so no step reads the device to learn where to write.
+
+def init_cache(config, batch: int, max_len: int, dtype=None, *,
+               device=None):
+    """Zeroed decode cache ``{"k", "v": [L, batch, max_len, kv, hd],
+    "pos": 0}`` in ``dtype`` (default ``config.dtype``)."""
+    c = config
+    dev = resolve_device(device)
+    dt = dtype if dtype is not None else c.dtype
+    shape = (c.num_hidden_layers, batch, max_len, c.num_key_value_heads,
+             c.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev), "pos": 0}
+
+
+def _attn_over_cache(q, kc, vc, pos: int):
+    """One query row ``q`` ``[B, 1, nh, hd]`` against a layer's cache
+    ``kc`` / ``vc`` ``[B, M, nkv, hd]`` in float32, positions after
+    ``pos`` masked out; ``[B, 1, nh * hd]`` float32. The whole buffer is
+    read every step, as in the reference."""
+    B, M, nkv, hd = kc.shape
+    nh = q.shape[2]
+    qf = q.float().reshape(B, nkv, nh // nkv, hd)
+    scores = torch.einsum("bkgd,bmkd->bkgm", qf, kc.float()) / math.sqrt(hd)
+    mask = torch.arange(M, device=q.device) <= pos
+    scores = scores.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgm,bmkd->bkgd", p, vc.float())
+    return out.reshape(B, 1, nh * hd)
+
+
+def _prefill_over(mlp, head, params, ids, config, cache):
+    """``prefill`` of a family whose decoder layer is ``_attn_half`` then
+    ``mlp(x, lp, config)`` and whose head is ``head(params, config)``."""
+    c = config
+    S = ids.shape[1]
+    E.enforce(S <= cache["k"].shape[2],
+              f"prompt length {S} exceeds cache max_len "
+              f"{cache['k'].shape[2]}")
+    x = params["embed"][ids]
+    cos, sin = _rope_tables(S, c.head_dim, theta=c.rope_theta,
+                            device=x.device)
+    for i in range(c.num_hidden_layers):
+        lp = layer(params, i)
+        x, k, v = _attn_half(x, lp, cos, sin, c)
+        x = mlp(x, lp, c)
+        cache["k"][i, :, :S] = k      # post-rope k, raw v
+        cache["v"][i, :, :S] = v
+    x = _rms(x, params["ln_f"], c.rms_norm_eps)
+    logits = _head_logits(x[:, -1, :], head(params, c))
+    return {"k": cache["k"], "v": cache["v"], "pos": S}, logits
+
+
+def _decode_step_over(mlp, head, params, cache, token, config):
+    """``decode_step`` of a family, as ``_prefill_over``."""
+    c = config
+    pos = int(cache["pos"])
+    M = cache["k"].shape[2]
+    E.enforce(pos < M, f"decode position {pos} is past the cache's "
+              f"max_len {M}")
+    x = params["embed"][token][:, None, :]                 # [B, 1, D]
+    cos_t, sin_t = _rope_tables(M, c.head_dim, theta=c.rope_theta,
+                                device=x.device)
+    cos, sin = cos_t[pos:pos + 1], sin_t[pos:pos + 1]      # prefill's rows
+    for i in range(c.num_hidden_layers):
+        lp = layer(params, i)
+        h = _rms(x, lp["ln1"], c.rms_norm_eps)
+        q, k, v = _qkv_proj(h, lp, c)
+        q = rope_raw(q, cos, sin)
+        k = rope_raw(k, cos, sin)
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[:, pos] = k[:, 0]
+        vc[:, pos] = v[:, 0]
+        a = _attn_over_cache(q, kc, vc, pos)
+        x = mlp(x + _mm(a.to(x.dtype), lp["wo"]), lp, c)
+    x = _rms(x, params["ln_f"], c.rms_norm_eps)
+    logits = _head_logits(x[:, 0, :], head(params, c))
+    return {"k": cache["k"], "v": cache["v"], "pos": pos + 1}, logits
+
+
+@torch.no_grad()
+def prefill(params, ids, config: LlamaConfig, cache):
+    """Consume the prompt ``ids`` ``[B, S]``: writes ``cache[:, :, :S]``
+    in place and returns ``(cache, last-position logits [B, V])`` with
+    ``pos`` ``S``. Attention goes through ``sdpa_raw`` (the flash
+    kernel on the card)."""
+    return _prefill_over(decode_mlp, _head, params, ids, config, cache)
+
+
+@torch.no_grad()
+def decode_step(params, cache, token, config: LlamaConfig):
+    """One incremental step: ``token`` ``[B]`` sits at ``cache["pos"]``;
+    its k / v are written there in place. Returns ``(cache, logits [B,
+    V])`` for the next position, ``pos`` advanced by one."""
+    return _decode_step_over(decode_mlp, _head, params, cache, token, config)
+
+
+def _top_k_stable(x, k: int):
+    """``(values, indices)`` of the ``k`` largest entries along the last
+    axis, equal values in index order (the order of ``lax.top_k``, which
+    ``torch.topk`` does not promise)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def sampling_filter(logits, top_k: Optional[int] = None,
+                    top_p: Optional[float] = None):
+    """The logits ``make_sampler`` draws from: entries below the
+    ``top_k``-th largest, then those outside the nucleus, set to -inf.
+    The nucleus keeps, over the descending order, every token whose
+    preceding cumulative probability is still below ``top_p`` (the
+    first always survives)."""
+    if top_k is not None:
+        kth = torch.topk(logits, min(top_k, logits.shape[-1]),
+                         dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p is not None and top_p < 1.0:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1) - probs
+        cut = torch.where(cum < top_p, srt, float("inf")).amin(
+            dim=-1, keepdim=True)
+        logits = logits.masked_fill(logits < cut, float("-inf"))
+    return logits
+
+
+def make_sampler(temperature: float = 0.0, *, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None):
+    """``sample(logits [B, V], generator) -> [B]`` int32: the argmax at
+    temperature 0; otherwise the logits over ``temperature`` (first, so
+    the nucleus is taken on the tempered distribution), then
+    ``sampling_filter``, then one categorical draw a row from
+    ``generator`` (a ``torch.Generator`` on the logits' device). The
+    draws are not those of the reference, whose keys are JAX's."""
+    if top_p is not None:
+        E.enforce(0.0 < top_p <= 1.0, f"top_p must be in (0, 1], got "
+                  f"{top_p}", error=E.InvalidArgumentError)
+
+    def sample(logits, generator=None):
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(
+            sampling_filter(logits.float() / temperature, top_k, top_p),
+            dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+            torch.int32)
+
+    return sample
+
+
+def _generator(generator, device):
+    """A ``torch.Generator`` on ``device``: the one given, or one seeded
+    with the given int (default 0, the reference's ``PRNGKey(0)``)."""
+    if isinstance(generator, torch.Generator):
+        return generator
+    return torch.Generator(device=device).manual_seed(
+        0 if generator is None else int(generator))
+
+
+def generate(params, ids, config: LlamaConfig, *, max_new_tokens: int,
+             max_len: Optional[int] = None, temperature: float = 0.0,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             eos_token_id: Optional[int] = None, pad_token_id: int = 0,
+             generator=None):
+    """Autoregressive generation over the ring cache: greedy at
+    temperature 0, else temperature sampling with optional top-k /
+    nucleus filtering, and EOS stopping. ``ids`` ``[B, S]`` (a tensor or
+    an array, brought to the parameters' device); returns int32 ``[B,
+    max_new_tokens]``. With ``eos_token_id``, positions after a row's EOS
+    hold ``pad_token_id`` (finished rows keep decoding; their outputs are
+    masked). ``generator`` (a ``torch.Generator`` or an int seed) stands
+    where the reference takes a JAX key; its draws differ."""
+    return _generate_over(
+        prefill, decode_step, params, ids, config,
+        max_new_tokens=max_new_tokens, max_len=max_len,
+        temperature=temperature, top_k=top_k, top_p=top_p,
+        eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+        generator=generator)
+
+
+@torch.no_grad()
+def _generate_over(prefill_fn, decode_fn, params, ids, config, *,
+                   max_new_tokens: int, max_len: Optional[int] = None,
+                   temperature: float = 0.0,
+                   top_k: Optional[int] = None, top_p: Optional[float] = None,
+                   eos_token_id: Optional[int] = None, pad_token_id: int = 0,
+                   generator=None):
+    """The sampling loop of any family whose ``(prefill, decode_step)``
+    run over ``init_cache``'s ring cache: ``max_new_tokens - 1`` decode
+    steps; the last token is sampled from the carried logits."""
+    c = config
+    dev = params["embed"].device
+    ids = torch.as_tensor(ids, device=dev)
+    B, S = ids.shape
+    M = max_len if max_len is not None else S + max_new_tokens
+    E.enforce(M >= S + max_new_tokens,
+              f"max_len {M} < prompt {S} + max_new_tokens "
+              f"{max_new_tokens}")
+    if max_new_tokens == 0:
+        return torch.zeros((B, 0), dtype=torch.int32, device=dev)
+    sample = make_sampler(temperature, top_k=top_k, top_p=top_p)
+    gen = None if temperature == 0.0 else _generator(generator, dev)
+    cache = init_cache(c, B, M, device=dev)
+    cache, logits = prefill_fn(params, ids, c, cache)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    pad = torch.tensor(pad_token_id, dtype=torch.int32, device=dev)
+    out = []
+    for t in range(max_new_tokens):
+        tok = sample(logits, gen)
+        if eos_token_id is not None:
+            out.append(torch.where(done, pad, tok))
+            done = done | (tok == eos_token_id)
+        else:
+            out.append(tok)
+        if t + 1 < max_new_tokens:
+            cache, logits = decode_fn(params, cache, tok, c)
+    return torch.stack(out, dim=1)
+
+
+def beam_search(params, ids, config: LlamaConfig, *, max_new_tokens: int,
+                num_beams: int, max_len: Optional[int] = None,
+                length_penalty: float = 0.0,
+                eos_token_id: Optional[int] = None, pad_token_id: int = 0):
+    """Beam search over the ring cache: one prefill, then each step one
+    decode over the ``B * K`` beam rows, the global top ``K`` of
+    ``running score + log-softmax`` over ``[K, V]`` (equal totals in
+    index order, as the reference's ``lax.top_k``), and the cache
+    reordered along the beam axis with a gather. A beam that emitted EOS
+    is frozen: its only continuation is ``pad_token_id`` at zero score.
+    The final ranking divides scores by ``generated_length **
+    length_penalty``. Returns ``(tokens [B, max_new_tokens] int32 of the
+    best beam, its scores [B] float32)``."""
+    return _beam_search_over(
+        prefill, decode_step, params, ids, config,
+        max_new_tokens=max_new_tokens, num_beams=num_beams,
+        max_len=max_len, length_penalty=length_penalty,
+        eos_token_id=eos_token_id, pad_token_id=pad_token_id)
+
+
+@torch.no_grad()
+def _beam_search_over(prefill_fn, decode_fn, params, ids, config, *,
+                      max_new_tokens: int, num_beams: int,
+                      max_len: Optional[int] = None,
+                      length_penalty: float = 0.0,
+                      eos_token_id: Optional[int] = None,
+                      pad_token_id: int = 0):
+    """The beam loop of any family with the cache contract (see
+    ``_generate_over``)."""
+    c = config
+    dev = params["embed"].device
+    ids = torch.as_tensor(ids, device=dev)
+    B, S = ids.shape
+    K = num_beams
+    E.enforce(K >= 1, f"num_beams must be >= 1, got {K}")
+    M = max_len if max_len is not None else S + max_new_tokens
+    E.enforce(M >= S + max_new_tokens,
+              f"max_len {M} < prompt {S} + max_new_tokens "
+              f"{max_new_tokens}")
+    # beam 0 starts live, the rest at -inf, so step 1 picks K distinct
+    # tokens of the prompt's distribution
+    scores = torch.full((B, K), float("-inf"), device=dev)
+    scores[:, 0] = 0.0
+    if max_new_tokens == 0:
+        return (torch.zeros((B, 0), dtype=torch.int32, device=dev),
+                scores[:, 0].clone())
+    cache = init_cache(c, B, M, device=dev)
+    cache, logits = prefill_fn(params, ids, c, cache)   # logits [B, V]
+    cache = {"k": cache["k"].repeat_interleave(K, dim=1),
+             "v": cache["v"].repeat_interleave(K, dim=1),
+             "pos": cache["pos"]}
+    V = logits.shape[-1]
+    logits = logits.repeat_interleave(K, dim=0)          # [B * K, V]
+    pad_only = torch.full((V,), float("-inf"), device=dev)
+    pad_only[pad_token_id] = 0.0          # a negative id wraps, as in JAX
+    pad = torch.tensor(pad_token_id, dtype=torch.int32, device=dev)
+    done = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    lengths = torch.zeros((B, K), dtype=torch.int32, device=dev)
+    row0 = torch.arange(B, device=dev)[:, None] * K
+    toks, bidx = [], []
+    for t in range(max_new_tokens):
+        logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+        # frozen beams: only pad continues, at zero additional score
+        logp = torch.where(done[:, :, None], pad_only, logp)
+        total = scores[:, :, None] + logp                # [B, K, V]
+        scores, flat = _top_k_stable(total.reshape(B, K * V), K)
+        beam_idx = flat // V
+        tok = (flat % V).to(torch.int32)
+        done = done.gather(1, beam_idx)
+        lengths = lengths.gather(1, beam_idx) + (~done).to(torch.int32)
+        # a frozen beam records the literal pad id (which may be
+        # negative), not its wrapped score slot
+        tok = torch.where(done, pad, tok)
+        if eos_token_id is not None:
+            done = done | ((tok == eos_token_id) & ~done)
+        toks.append(tok)
+        bidx.append(beam_idx)
+        if t + 1 < max_new_tokens:
+            rows = (row0 + beam_idx).reshape(-1)
+            cache = {"k": cache["k"].index_select(1, rows),
+                     "v": cache["v"].index_select(1, rows),
+                     "pos": cache["pos"]}
+            cache, logits = decode_fn(params, cache, tok.reshape(-1), c)
+    # each final beam's path, walked back through its parents
+    beam = torch.arange(K, device=dev).repeat(B, 1)
+    path = []
+    for tok, bi in zip(reversed(toks), reversed(bidx)):
+        path.append(tok.gather(1, beam))
+        beam = bi.gather(1, beam)
+    path = torch.stack(path[::-1], dim=-1)              # [B, K, T]
+    norm = lengths.clamp(min=1).float() ** length_penalty
+    ranked = scores / norm
+    best = torch.argmax(ranked, dim=1)
+    best_toks = path[torch.arange(B, device=dev), best]
+    return best_toks, ranked.gather(1, best[:, None])[:, 0]
 
 
 # -- training -----------------------------------------------------------------
@@ -520,29 +876,32 @@ def _batch_to(batch, device):
     return torch.as_tensor(batch, device=device)
 
 
-def loss_and_grads(params, batch, config: LlamaConfig):
-    """``(loss, grads)``: ``loss_fn`` and the gradient of every parameter,
-    as a tree like ``params``. The parameters need not require grad (the
-    gradient is taken through detached aliases of them); the batch
-    (tensors or numpy arrays) is brought to their device."""
+def loss_and_grads(params, batch, config: LlamaConfig, *, loss=None):
+    """``(loss, grads)``: ``loss_fn`` (or the family's ``loss``) and the
+    gradient of every parameter, as a tree like ``params``. The
+    parameters need not require grad (the gradient is taken through
+    detached aliases of them); the batch (tensors or numpy arrays) is
+    brought to their device."""
+    loss = loss_fn if loss is None else loss
     flat = _leaves(params)
     work = [p.detach().requires_grad_() for p in flat]
     it = iter(work)
     with torch.enable_grad():
-        loss = loss_fn(_map(lambda _: next(it), params),
-                       _batch_to(batch, flat[0].device), config)
-        grads = iter(torch.autograd.grad(loss, work))
-    return loss.detach(), _map(lambda _: next(grads), params)
+        value = loss(_map(lambda _: next(it), params),
+                     _batch_to(batch, flat[0].device), config)
+        grads = iter(torch.autograd.grad(value, work))
+    return value.detach(), _map(lambda _: next(grads), params)
 
 
 def make_train_step(config: LlamaConfig, mesh=None, *, lr: float = 3e-4,
                     weight_decay: float = 0.1,
-                    guard: Optional[bool] = None):
+                    guard: Optional[bool] = None, loss=None):
     """``step(params, opt_state, batch) -> (params, opt_state, loss)``:
-    ``loss_and_grads``, then AdamW. The parameters and the moments are
-    updated in place under ``no_grad`` (the counterpart of the
-    reference's buffer donation) and the same dicts are returned. The
-    step runs where the parameters lie and never moves them.
+    ``loss_and_grads`` (of ``loss_fn``, or of the family's ``loss``),
+    then AdamW. The parameters and the moments are updated in place
+    under ``no_grad`` (the counterpart of the reference's buffer
+    donation) and the same dicts are returned. The step runs where the
+    parameters lie and never moves them.
 
     ``guard`` defaults, as in the reference, to the environment's
     ``FLAGS_enable_sentinel``. Not ported yet, and raising: the guarded
@@ -551,19 +910,19 @@ def make_train_step(config: LlamaConfig, mesh=None, *, lr: float = 3e-4,
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step: the mesh (multi-GPU) path is not ported yet "
-            "(ROADMAP.md queue A item 9)")
+            "(ROADMAP.md queue A item A9)")
     if guard is None:
         guard = os.environ.get("FLAGS_enable_sentinel", "").lower() in (
             "1", "true", "yes", "on")
     if guard:
         raise NotImplementedError(
             "make_train_step: the guarded step is not ported yet "
-            "(ROADMAP.md queue A, training/guards.py)")
+            "(ROADMAP.md queue A item A2, training/guards.py)")
 
     def step(params, opt_state, batch):
-        loss, grads = loss_and_grads(params, batch, config)
+        value, grads = loss_and_grads(params, batch, config, loss=loss)
         _adamw_update(params, grads, opt_state, lr, wd=weight_decay)
-        return params, opt_state, loss
+        return params, opt_state, value
 
     return step
 
@@ -619,8 +978,8 @@ class LlamaForCausalLM(nn.Layer):
     ``LlamaForCausalLM``): logits ``[B, S, V]`` in the parameters' type
     from ids ``[B, S]``. Parameters are made on the current device in
     float32 with Paddle's default initializers; ``.to(dtype=...)`` casts
-    them. ``generate`` needs the ring-cache decode, which is not ported
-    yet."""
+    them. ``generate`` runs the ring-cache decode on the exported
+    weights."""
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
@@ -670,7 +1029,21 @@ class LlamaForCausalLM(nn.Layer):
         return params
 
     def generate(self, ids, max_new_tokens: int, num_beams: int = 1, **kw):
-        raise NotImplementedError(
-            "LlamaForCausalLM.generate: the ring-cache decode (generate / "
-            "beam_search) is not ported yet (ROADMAP.md queue A item 4); "
-            "serve functional_params() with inference.ServingEngine")
+        """Generation through the ring-cache functional path on this
+        Layer's weights (``functional_params()``): ``beam_search`` when
+        ``num_beams > 1``, else ``generate``, the reference's one-API
+        shape. The other mode's knobs are dropped as the reference drops
+        them (beam search is deterministic; ``length_penalty`` is
+        beam-only). ``ids`` is a tensor or an array; returns the tokens
+        ``[B, max_new_tokens]`` as a tensor on the weights' device."""
+        params = self.functional_params()
+        if num_beams > 1:
+            for k in ("temperature", "top_k", "top_p", "key", "generator"):
+                kw.pop(k, None)
+            toks, _ = beam_search(params, ids, self.config,
+                                  max_new_tokens=max_new_tokens,
+                                  num_beams=num_beams, **kw)
+            return toks
+        kw.pop("length_penalty", None)
+        return generate(params, ids, self.config,
+                        max_new_tokens=max_new_tokens, **kw)

@@ -6,11 +6,13 @@ Builds ``chip_smoke.py``'s dense training main path (Llama-3-8B widths,
 4 x 2048, remat ``"dots"``, blockwise cross entropy), with ``--packed``
 its packed training main path (the same widths at vocab 32000, bf16
 moments, materialising cross entropy, the packed trace's ``[7, 2048]``
-batch), or with ``--eager`` its eager main path (the Paddle-surface
+batch), with ``--eager`` its eager main path (the Paddle-surface
 ``LlamaForCausalLM`` at the same widths, bf16, no remat,
-``F.cross_entropy``, ``optimizer.AdamW``, batch 4 x 2048), takes two
-warm-up steps, then one step under ``torch.profiler``, and prints, on
-the card:
+``F.cross_entropy``, ``optimizer.AdamW``, batch 4 x 2048), or with
+``--moe`` its MoE training main path (DeepSeekMoE-16B widths, 2 layers,
+capacity dispatch, remat ``"dots"``, materialising cross entropy, bf16
+moments, batch 8 x 1024), takes two warm-up steps, then one step under
+``torch.profiler``, and prints, on the card:
 
 - host wall time of the profiled step (it ends in a synchronize);
 - device time and launches by class: the segment (packed) flash kernels,
@@ -21,13 +23,21 @@ the card:
   backwards), the AdamW update, and everything else; a kernel is put in
   a class by its own name (flash) or by the profiler range it was
   launched from (cross entropy, optimizer; then matmuls by name), and
-  "other" is the rest of the device busy time;
+  "other" is the rest of the device busy time. With ``--moe`` two more
+  classes: ``moe_routing``, the router (its float32 product, softmax,
+  top-k, aux loss) and the capacity dispatch and combine (slot
+  bookkeeping, gathers, weighted sum), forward and its remat recompute,
+  plus the backward kernels of the autograd nodes of the gathers and the
+  router softmax (``IndexBackward``, ``SoftmaxBackward``; the
+  embedding's gather backward falls here too); and ``experts``, the
+  routed experts' batched products and SwiGLU, forward and
+  ``BmmBackward``;
 - the device busy share (summed kernel time over wall time) and its
   complement, the idle share;
 - the dozen kernels that took the most device time.
 
 Run from the repo root: ``python3 scripts/torch_train_profile.py
-[--packed | --eager]``.
+[--packed | --eager | --moe]``.
 """
 from __future__ import annotations
 
@@ -40,13 +50,19 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-CLASSES = ("segment", "flash_bwd", "flash_fwd", "rms_norm", "matmul",
-           "cross_entropy", "optimizer", "other")
+CLASSES = ("segment", "flash_bwd", "flash_fwd", "rms_norm", "moe_routing",
+           "experts", "matmul", "cross_entropy", "optimizer", "other")
 # classed by kernel name
 NAMED = ("segment", "flash_bwd", "flash_fwd", "rms_norm")
 # the script's own ranges; the profiler also shows each as a span on the
 # device's timeline, which is no kernel and is left out of every sum
 RANGES = ("cross_entropy", "adamw_update")
+# ranges around the MoE family's router, its dispatch / combine, and its
+# expert products (--moe)
+MOE_RANGES = ("moe_router", "moe_dispatch", "moe_experts")
+# the autograd nodes of the routing ops' and the experts' backward
+MOE_ROUTING_BACKWARD = ("IndexBackward", "SoftmaxBackward")
+EXPERTS_BACKWARD = ("BmmBackward",)
 # the autograd nodes of the materialising losses' backward
 CE_BACKWARD = ("LogsumexpBackward", "LogSoftmaxBackward", "GatherBackward")
 # the profiler's own markers on the host: one that stalls a launch (the
@@ -72,6 +88,12 @@ def _classify(kernel: str, ranges) -> str:
         return "cross_entropy"
     if any(r == "adamw_update" for r in ranges):
         return "optimizer"
+    if any(r == MOE_RANGES[2] or any(b in r for b in EXPERTS_BACKWARD)
+           for r in ranges):
+        return "experts"
+    if any(r in MOE_RANGES[:2] or any(b in r for b in MOE_ROUTING_BACKWARD)
+           for r in ranges):
+        return "moe_routing"
     if any(s in n for s in ("gemm", "gemv", "cutlass", "sm90_xmma",
                             "nvjet", "matmul")):
         return "matmul"
@@ -93,14 +115,17 @@ def main() -> int:
                     help="profile the packed training main path")
     ap.add_argument("--eager", action="store_true",
                     help="profile the eager (Paddle-surface) main path")
+    ap.add_argument("--moe", action="store_true",
+                    help="profile the MoE training main path")
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     if not torch.cuda.is_available():
         print("no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from chip_smoke import (TRAIN_BATCH, TRAIN_LAYERS, TRAIN_SEQ,
-                            eager_step, eager_train_setup,
+    from chip_smoke import (MOE_TRAIN_BATCH, MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ,
+                            TRAIN_BATCH, TRAIN_LAYERS, TRAIN_SEQ,
+                            eager_step, eager_train_setup, moe_train_setup,
                             packed_train_setup, train_setup)
     import paddle_tpu_torch.nn.functional as PF
     from paddle_tpu_torch import kernels as K
@@ -108,6 +133,7 @@ def main() -> int:
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import fused_ce as FCE
     from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.models import moe as M
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -128,6 +154,11 @@ def main() -> int:
     K.dispatched_fused_ce = ranged(RANGES[0], K.dispatched_fused_ce)
     FCE.masked_xent_from_logits = ranged(RANGES[0],
                                          FCE.masked_xent_from_logits)
+    M._route = ranged(MOE_RANGES[0], M._route)
+    M._moe_mlp_capacity = ranged(MOE_RANGES[1], M._moe_mlp_capacity)
+    M._moe_mlp_dense = ranged(MOE_RANGES[1], M._moe_mlp_dense)
+    M._expert_ffn = ranged(MOE_RANGES[2], M._expert_ffn)
+    layers = TRAIN_LAYERS
 
     if args.eager:
         model, opt, inp, tgt = eager_train_setup(
@@ -141,6 +172,10 @@ def main() -> int:
             _, params, state, step, batch, _, packed = packed_train_setup(
                 torch, dev)
             shape = "x".join(map(str, packed["ids"].shape)) + " packed"
+        elif args.moe:
+            _, params, state, step, batch = moe_train_setup(torch, dev)
+            shape = f"{MOE_TRAIN_BATCH}x{MOE_TRAIN_SEQ} moe"
+            layers = MOE_TRAIN_LAYERS
         else:
             _, params, state, step, batch = train_setup(torch, dev)
             shape = f"{TRAIN_BATCH}x{TRAIN_SEQ}"
@@ -157,7 +192,7 @@ def main() -> int:
         loss = float(run())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"layers={TRAIN_LAYERS} batch={shape} "
+    print(f"layers={layers} batch={shape} "
           f"loss={loss} wall_ms={wall * 1e3:.3f} "
           f"launches={K.dispatch_stats()}")
 
@@ -166,7 +201,7 @@ def main() -> int:
     # each kernel is linked to; "other" is what remains of the busy time
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.key not in RANGES]
+              and e.key not in RANGES + MOE_RANGES]
     by = {c: [0.0, 0] for c in CLASSES}
     for e in device:
         cls = _classify(e.key, ())
@@ -179,7 +214,7 @@ def main() -> int:
             continue
         ranges = _ranges(evt)
         for k in evt.kernels:
-            if k.name in RANGES:
+            if k.name in RANGES + MOE_RANGES:
                 continue
             cls = _classify(k.name, ranges)
             if cls not in NAMED + ("other",):

@@ -83,15 +83,19 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, sq, sk, causal):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk", [(48, 48), (33, 70), (70, 33), (200, 200),
                                    (1000, 1000)])
-def test_tensor_core_kernels_match_plain(dev, d, causal, sq, sk):
+@pytest.mark.parametrize("heads", [(8, 2), (16, 16)])
+def test_tensor_core_kernels_match_plain(dev, d, causal, sq, sk, heads):
     """The tensor-core route (bf16, D 64 / 128) against the plain
-    versions: out within 2e-2, lse within 1e-3 on rows that see a key,
-    dq / dk / dv within 2e-2 of each reference's max |.|; rows that see
-    no key get a zero output, lse = -inf and an exact zero dq."""
+    versions, with grouped kv heads and with as many kv heads as query
+    heads (DeepSeekMoE-16B's 16 / 16): out within 2e-2, lse within 1e-3
+    on rows that see a key, dq / dk / dv within 2e-2 of each reference's
+    max |.|; rows that see no key get a zero output, lse = -inf and an
+    exact zero dq."""
     g = torch.Generator(device=dev).manual_seed(d + sq + sk)
-    q, k, v, dout = (torch.randn(2, s, h, d, generator=g, device=dev)
-                     .bfloat16() for s, h in ((sq, 8), (sk, 2), (sk, 2),
-                                              (sq, 8)))
+    h, kvh = heads
+    q, k, v, dout = (torch.randn(2, s, n, d, generator=g, device=dev)
+                     .bfloat16() for s, n in ((sq, h), (sk, kvh), (sk, kvh),
+                                              (sq, h)))
     K.reset_dispatch_stats()
     out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
     got = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
@@ -183,8 +187,9 @@ def test_fused_ce_bf16_card_matches_cpu(dev):
 PAGED_CASES = ["edge", "split_edges", "b1_full", "b32", "nan_past_length"]
 
 
-def _decode_case(dev, case, dtype, quant, ps, seed=3):
-    """Inputs of one decode case, 8 / 2 heads of 64, and the plain
+def _decode_case(dev, case, dtype, quant, ps, seed=3, heads=(8, 2, 64)):
+    """Inputs of one decode case, ``heads`` = (query heads, kv heads,
+    head dim), and the plain
     version's pages and scales. ``edge``: lengths 0, 1, ps - 1, ps,
     ps + 1 and a full table of 4 pages. The others use a table of 2048
     positions: lengths at the edges of the split plan's chunk
@@ -196,7 +201,7 @@ def _decode_case(dev, case, dtype, quant, ps, seed=3):
     version on zeros there. int8 pages 0 and 5 are never written (scale
     0)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    NH, KVH, D = 8, 2, 64
+    NH, KVH, D = heads
     maxp = 4 if case == "edge" else 2048 // ps
     full = maxp * ps
 
@@ -267,9 +272,12 @@ def _decode_case(dev, case, dtype, quant, ps, seed=3):
 @pytest.mark.parametrize("case", PAGED_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
-def test_paged_kernel_matches_plain(dev, dtype, tol, case):
+@pytest.mark.parametrize("heads", [(8, 2, 64), (16, 16, 128)])
+def test_paged_kernel_matches_plain(dev, dtype, tol, case, heads):
+    """Grouped kv heads, and DeepSeekMoE-16B's 16 / 16 heads of 128 (one
+    query head a kv head, its own split plan)."""
     q, kp, vp, _, _, bt, ln, (kr, vr, _, _) = _decode_case(
-        dev, case, dtype, False, 16)
+        dev, case, dtype, False, 16, heads=heads)
     K.reset_dispatch_stats()
     out = PA.ragged_paged_attention(q, kp, vp, bt, ln)
     torch.cuda.synchronize()
@@ -768,3 +776,106 @@ def test_eager_llama_card_matches_cpu(dev):
         np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-5)
     finally:
         D._current_device = prev
+
+
+def test_generate_and_beam_card_match_cpu(dev):
+    """Ring-cache ``generate`` (greedy, then with EOS and a negative pad)
+    and ``beam_search`` (3 beams, EOS) of one float32 ``llama_tiny``
+    model: the card's tokens equal the CPU's, beam scores within 1e-5;
+    the card's prefills go through the flash kernel."""
+    import numpy as np
+    cfg = L.llama_tiny()
+    cpu = L.init_params(cfg, seed=0, device="cpu")
+    card = L._map(lambda t: t.to(dev, copy=True), cpu)
+    ids = np.random.default_rng(8).integers(0, cfg.vocab_size, (3, 7))
+    eos = int(L.generate(cpu, ids, cfg, max_new_tokens=8)[0, 2])
+    outs = {}
+    for name, params in (("cpu", cpu), ("card", card)):
+        K.reset_dispatch_stats()
+        outs[name] = [
+            L.generate(params, ids, cfg, max_new_tokens=8).cpu(),
+            L.generate(params, ids, cfg, max_new_tokens=8, eos_token_id=eos,
+                       pad_token_id=-1).cpu(),
+            *(t.cpu() for t in L.beam_search(params, ids, cfg,
+                                             max_new_tokens=6, num_beams=3,
+                                             eos_token_id=eos))]
+    stats = K.dispatch_stats()
+    assert stats["flash"] == 3 * cfg.num_hidden_layers
+    assert all(v == 0 for k, v in stats.items() if k.endswith("_ref"))
+    for a, b in zip(outs["card"][:3], outs["cpu"][:3]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(outs["card"][3], outs["cpu"][3], atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["capacity", "dense"])
+def test_moe_card_matches_cpu(dev, mode):
+    """One float32 ``moe_tiny`` model: loss within ``rtol=1e-5`` and every
+    gradient within ``1e-5`` of its tensor's largest, card against CPU;
+    the engine's greedy tokens equal with full-precision and int8 pages;
+    the card takes the kernels and no plain version."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference import Request, ServingEngine
+    from paddle_tpu_torch.models import moe as M
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = M.moe_tiny(dispatch_mode=mode)
+        cpu = M.init_params(cfg, seed=0, device="cpu")
+        card = L._map(lambda t: t.to(dev, copy=True), cpu)
+        rng = np.random.default_rng(5)
+        batch = rng.integers(0, cfg.vocab_size, (2, 17))
+        trace = [(rng.integers(0, cfg.vocab_size, n), m)
+                 for n, m in zip((4, 7, 3, 5), (8, 5, 9, 6))]
+        res = {}
+        for name, params, where in (("cpu", cpu, "cpu"), ("card", card, dev)):
+            K.reset_dispatch_stats()
+            loss, grads = M.loss_and_grads(params, batch, cfg)
+            toks = []
+            for kv_quant in (False, True):
+                eng = ServingEngine(M, params, cfg, num_slots=2, max_len=16,
+                                    page_size=4, num_pages=5,
+                                    decode_chunk=2, kv_quant=kv_quant,
+                                    device=where)
+                out = eng.run([Request(rid=i, prompt=p, max_new_tokens=m)
+                               for i, (p, m) in enumerate(trace)])
+                toks.append([out[i].tokens.tolist()
+                             for i in range(len(trace))])
+            res[name] = (float(loss), L._leaves(grads), toks,
+                         K.dispatch_stats())
+        stats = res["card"][3]
+        for kind in ("flash", "flash_bwd", "paged", "paged_quant"):
+            assert stats[kind] > 0, stats
+        assert all(v == 0 for k, v in stats.items() if k.endswith("_ref"))
+        np.testing.assert_allclose(res["card"][0], res["cpu"][0], rtol=1e-5)
+        for a, b in zip(res["card"][1], res["cpu"][1]):
+            assert float((a.cpu() - b).abs().max()) <= \
+                1e-5 * float(b.abs().max())
+        assert res["card"][2] == res["cpu"][2]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_moe_bf16_step_takes_tensor_core_flash(dev):
+    """A bf16 MoE train step at head dim 128 (capacity dispatch, remat
+    ``"dots"``, materialising CE): a finite loss, the flash pair on its
+    tensor-core route, two forward launches a layer (remat) and one
+    backward."""
+    from paddle_tpu_torch.models import moe as M
+    cfg = M.moe_tiny(hidden_size=256, num_attention_heads=2,
+                     num_key_value_heads=2, dtype=torch.bfloat16,
+                     dispatch_mode="capacity", remat=True,
+                     remat_policy="dots", fused_ce=False)
+    params = M.init_params(cfg, seed=1, device=dev)
+    state = L.adamw_init(params, moment_dtype=torch.bfloat16)
+    step = M.make_train_step(cfg)
+    batch = torch.randint(0, cfg.vocab_size, (2, 129), device=dev)
+    K.reset_dispatch_stats()
+    loss = float(step(params, state, batch)[2])
+    stats = K.dispatch_stats()
+    assert torch.isfinite(torch.tensor(loss))
+    assert stats["flash"] == stats["flash_tc"] == 2 * cfg.num_hidden_layers
+    assert stats["flash_bwd"] == stats["flash_bwd_tc"] == \
+        cfg.num_hidden_layers
+    assert params["layers"]["router"].dtype == torch.float32

@@ -222,6 +222,17 @@ def test_cross_entropy_matches_jax(cpu_device, reduction, ignore, weighted,
 
 
 def test_generate_is_not_ported_yet(cpu_device):
-    _, tm = _models()
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        tm.generate(tpaddle.to_tensor(_ids((1, 3))), max_new_tokens=2)
+    """Named for when ``generate`` raised; it is ported now. The eager
+    model's ``generate`` gives the JAX eager model's tokens on the same
+    weights, greedy and with 3 beams, and drops the other mode's knobs
+    as the reference does."""
+    jm, tm = _models()
+    ids = _ids((2, 5))
+    for beams, kw in ((1, {"length_penalty": 1.0}),
+                      (3, {"temperature": 0.7, "top_k": 5})):
+        want = jm.generate(jpaddle.to_tensor(ids), max_new_tokens=4,
+                           num_beams=beams, **kw).numpy()
+        got = tm.generate(tpaddle.to_tensor(ids), max_new_tokens=4,
+                          num_beams=beams, **kw)
+        assert torch.is_tensor(got) and got.device.type == "cpu"
+        np.testing.assert_array_equal(got.numpy(), want)

@@ -69,6 +69,23 @@ def test_entry_points_refuse_to_drop_to_cpu(no_cuda):
     assert ServingEngine(TL, params, cfg, device="cpu").device.type == "cpu"
 
 
+def test_generation_and_moe_entry_points_refuse_to_drop_to_cpu(no_cuda):
+    from paddle_tpu_torch.models import moe as TM
+    cfg = TM.moe_tiny()
+    with pytest.raises(TE.UnavailableError):
+        TM.init_params(cfg)
+    with pytest.raises(TE.UnavailableError):
+        TL.init_cache(TL.llama_tiny(), 1, 8)
+    with pytest.raises(TE.UnavailableError):
+        TM.init_cache(cfg, 1, 8)
+    params = TM.init_params(cfg, device="cpu")
+    with pytest.raises(TE.UnavailableError):
+        ServingEngine(TM, params, cfg)
+    # generation follows its parameters' device
+    assert TM.generate(params, [[1, 2]], cfg,
+                       max_new_tokens=2).device.type == "cpu"
+
+
 def test_eager_surface_refuses_to_drop_to_cpu(no_cuda):
     cfg = TL.llama_tiny(num_hidden_layers=1)
     prev = TD._current_device
