@@ -125,7 +125,37 @@ Phases, each printed on its own line; any failure exits non-zero:
     the active parameters, peak memory); the loss must be finite and
     fall, and every step must launch the flash forward twice a layer
     (remat) and the backward once, on their tensor-core routes, and no
-    plain version.
+    plain version;
+19. no_sync (before ``main``, on its weights): the ``ServingEngine``
+    serves 3 prompts of one bucket (512) in 4 slots: one prefill group
+    (a dummy row of sentinel pages) and one 8-step decode chunk (a dead
+    slot) at Llama-3-8B widths, with bf16 pages, int8 pages, and one
+    request sampled (bf16 pages), with its data plane (``_prefill_plane``,
+    ``_decode_plane``) under ``torch.cuda.set_sync_debug_mode("error")``:
+    no host sync may happen there, and the tokens must equal the same
+    serve's outside that mode;
+20. surface (card against CPU on the same seeded inputs): masked
+    ``F.scaled_dot_product_attention`` (boolean and additive masks, with
+    causal, 32 / 8 heads, float32 and bf16: plain math, no flash launch),
+    ``flash_attention_with_sparse_mask``, dropout by its statistics (keep
+    rate within six binomial deviations, kept values scaled by
+    ``1 / (1 - p)``), ``F.flash_attention`` and ``flash_attn_qkvpacked``
+    in bf16 at D 128 (one tensor-core flash launch each, equal to
+    ``sdpa_raw``) and ``fused_rms_norm`` (one ``rms`` launch, equal to
+    ``F.rms_norm``);
+21. eager_recipe_parity: the training recipe (``AdamW`` with beta2 0.95
+    and weight decay 0.1, ``LinearWarmup`` over ``CosineAnnealingDecay``,
+    ``ClipGradByGlobalNorm`` at 0.05, which binds from step 1 on
+    llama_tiny) on a float32 llama_tiny ``LlamaForCausalLM``, 3 steps on
+    the card and on the CPU from one set of weights (losses and step-1
+    gradients at the train tolerances), and on each device a
+    ``state_dict`` after step 2 into a fresh optimizer and scheduler whose
+    step 3 equals the uninterrupted run's bit for bit;
+22. eager_recipe: ``eager_train`` with the recipe (clip norm 1.0): the
+    median step beside ``eager_train``'s of the same run, the learning
+    rate and the clip's scale at each step (read after the timed
+    window), the clip alone and the scheduler's step alone timed, and
+    ``eager_train``'s launch counts, every one on a kernel.
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -1571,6 +1601,8 @@ def phase_flash_bwd(torch, dev, batch, seq):
     q, k, v = args[:3]
     fwd_ms = _time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal=True),
                       20)
+    fwd_plain_ms = _time_ms(
+        lambda: FA.flash_attention_ref(q, k, v, causal=True), 3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd_lib_ms = _time_ms(
@@ -1581,7 +1613,7 @@ def phase_flash_bwd(torch, dev, batch, seq):
                     fwd_bytes / H100_BYTES_PER_S) * 1e3
     _say("kernels", kernel="flash_fwd", shape=f"B{batch}xS{seq}",
          max_abs_err=err, lse_err=lerr, tol=FLASH_TOL, ms=fwd_ms,
-         library_ms=fwd_lib_ms, bound_ms=fwd_bound,
+         plain_ms=fwd_plain_ms, library_ms=fwd_lib_ms, bound_ms=fwd_bound,
          bound_by="operations" if fwd_flops / H100_BF16_FLOPS
          >= fwd_bytes / H100_BYTES_PER_S else "bytes",
          share_of_bound=fwd_bound / fwd_ms, tflops=fwd_flops / fwd_ms / 1e9)
@@ -2331,7 +2363,8 @@ def phase_eager_parity(torch, dev):
 
 def phase_eager_train(torch, dev, card):
     """The eager main path: ``LlamaForCausalLM`` at Llama-3-8B widths, 4
-    layers, bf16, AdamW, batch 4 x 2048."""
+    layers, bf16, AdamW, batch 4 x 2048. Returns ``(launches, median step
+    ms)``."""
     import math
 
     from paddle_tpu_torch import kernels as K
@@ -2377,7 +2410,407 @@ def phase_eager_train(torch, dev, card):
     _tc_route_only(launches)
     assert all(v == 0 for k, v in launches.items()
                if k.endswith("_ref") or k == "rms_fallback"), launches
-    return launches
+    return launches, step_s * 1e3
+
+
+# the no_sync phase: three prompts of one bucket (512 positions) in an
+# engine of 4 slots make one prefill group padded to 4 (a dummy row of
+# sentinel pages) and then one decode chunk with a dead slot; the last
+# request is sampled in the sampled case
+NO_SYNC_PROMPTS, NO_SYNC_CHUNK = (400, 300, 257), 8
+
+
+def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
+                 chunk, forbid_sync, temperature=0.0):
+    """Serve ``prompts`` (random ids from seed 0, ``chunk + 1`` new tokens
+    each) with a ``ServingEngine`` of 4 slots and decode chunk ``chunk``
+    on bf16 pages, or int8 pages with ``kv_quant``; the last request
+    samples at ``temperature`` when it is above 0. With ``forbid_sync``
+    every call of the engine's data plane (``_prefill_plane``,
+    ``_decode_plane``) runs under ``torch.cuda.set_sync_debug_mode
+    ("error")``, so any read of the device by the host inside a prefill
+    group or a decode chunk raises; the engine's own uploads and reads
+    between them are allowed. Returns the tokens of each request and the
+    number of group and chunk calls."""
+    import numpy as np
+    from paddle_tpu_torch.inference import Request, ServingEngine
+    eng = ServingEngine(family, params, cfg, num_slots=4, max_len=1024,
+                        decode_chunk=chunk, kv_quant=kv_quant, device=dev)
+    calls = {"prefill": 0, "decode": 0}
+
+    def watched(name, plane):
+        def run(*args):
+            calls[name] += 1
+            if not forbid_sync:
+                return plane(*args)
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return plane(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        return run
+
+    eng._prefill_plane = watched("prefill", eng._prefill_plane)
+    eng._decode_plane = watched("decode", eng._decode_plane)
+    rng = np.random.default_rng(0)
+    last = len(prompts) - 1
+    out = eng.run([Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                      plen),
+                           max_new_tokens=chunk + 1,
+                           temperature=temperature if i == last else 0.0,
+                           seed=100 + i)
+                   for i, plen in enumerate(prompts)])
+    return [out[i].tokens for i in range(len(prompts))], calls
+
+
+def phase_no_sync(torch, dev, cfg, params):
+    """The serving data plane reads nothing back inside a prefill group or
+    a decode chunk: at ``main``'s Llama-3-8B widths, with bf16 and then
+    int8 pages, the engine serves one group and one greedy chunk with its
+    data plane under ``set_sync_debug_mode("error")`` and gives the
+    tokens of the same serve outside it; a sampled request (bf16 pages)
+    likewise, drawing the same tokens twice from the same seed."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    layers = cfg.num_hidden_layers
+    for kv_quant, temperature in ((False, 0.0), (True, 0.0), (False, 0.8)):
+        free, _ = serve_strict(torch, L, cfg, params, dev, kv_quant,
+                               NO_SYNC_PROMPTS, NO_SYNC_CHUNK, False,
+                               temperature)
+        K.reset_dispatch_stats()
+        t0 = time.perf_counter()
+        strict, calls = serve_strict(torch, L, cfg, params, dev, kv_quant,
+                                     NO_SYNC_PROMPTS, NO_SYNC_CHUNK, True,
+                                     temperature)
+        wall = time.perf_counter() - t0
+        st = K.dispatch_stats()
+        arm = "paged_quant" if kv_quant else "paged"
+        same = all(np.array_equal(a, b) for a, b in zip(free, strict))
+        _say("no_sync", kv_quant=kv_quant, temperature=temperature,
+             prompts=",".join(map(str, NO_SYNC_PROMPTS)),
+             chunk=NO_SYNC_CHUNK, sync_debug_mode="error", raised=False,
+             groups=calls["prefill"], chunks=calls["decode"],
+             tokens_equal=same, first=[int(t[0]) for t in strict],
+             wall_s=round(wall, 3), flash=st["flash"],
+             flash_tc=st["flash_tc"], **{arm: st[arm]})
+        assert same, (free, strict)
+        assert calls == {"prefill": 1, "decode": 1}, calls
+        assert all(len(t) == NO_SYNC_CHUNK + 1 for t in strict), strict
+        assert all(0 <= int(v) < cfg.vocab_size for t in strict for v in t)
+        assert st["flash"] == st["flash_tc"] == layers, st
+        assert st[arm] == NO_SYNC_CHUNK * layers, st
+        assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+
+
+SURFACE_TOL = {"float32": 1e-5, "bfloat16": FLASH_TOL}
+
+
+def phase_surface(torch, dev):
+    """The masked attention path and the eager surface's leftovers, card
+    against CPU on the same seeded inputs: masked
+    ``F.scaled_dot_product_attention`` (boolean and additive masks, with
+    causal, GQA, float32 and bf16; plain math on every device, no flash
+    launch), ``flash_attention_with_sparse_mask``, dropout by its
+    statistics, ``F.flash_attention`` and ``flash_attn_qkvpacked`` (one
+    tensor-core flash launch each, equal to ``sdpa_raw``) and
+    ``fused_rms_norm`` (one ``rms`` launch, equal to ``F.rms_norm``)."""
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import kernels as K
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    B, S, H, KVH, D = 2, 256, 32, 8, 128
+
+    def both(x):
+        return x, x.to(dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    q, k, v = randn(B, S, H, D), randn(B, S, KVH, D), randn(B, S, KVH, D)
+    masks = {"bool": (torch.rand(B, 1, S, S, generator=gen) < 0.5)
+             | torch.eye(S, dtype=torch.bool),
+             "additive": randn(B, H, S, S)}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for kind, causal in (("bool", False), ("bool", True),
+                             ("additive", True)):
+            outs = {}
+            K.reset_dispatch_stats()
+            for where, idx in (("cpu", 0), ("card", 1)):
+                t = [both(x.to(dtype))[idx] for x in (q, k, v)]
+                m = both(masks[kind])[idx]
+                outs[where] = F.scaled_dot_product_attention(
+                    *t, m, is_causal=causal)
+            torch.cuda.synchronize()
+            err = _err(outs["card"].cpu(), outs["cpu"]) / float(
+                outs["cpu"].float().abs().max())
+            flash = K.dispatch_stats()["flash"]
+            _say("surface", fn="scaled_dot_product_attention", mask=kind,
+                 causal=causal, gqa=f"{H}/{KVH}", dtype=name, rel_err=err,
+                 tol=SURFACE_TOL[name], flash_launches=flash)
+            assert err <= SURFACE_TOL[name] and flash == 0
+
+    starts = torch.randint(1, S + 1, (B, 8, S), generator=gen)
+    starts[..., 0] = S
+    q8, k8, v8 = (randn(B, S, 8, D) for _ in range(3))
+    outs = [F.flash_attention_with_sparse_mask(
+        *(both(x)[i] for x in (q8, k8, v8)), both(starts)[i],
+        is_causal=True)[0] for i in (0, 1)]
+    err = _err(outs[1].cpu(), outs[0]) / float(outs[0].abs().max())
+    _say("surface", fn="flash_attention_with_sparse_mask", causal=True,
+         rel_err=err, tol=SURFACE_TOL["float32"])
+    assert err <= SURFACE_TOL["float32"]
+
+    # dropout: one-hot values turn the output rows into the probabilities
+    p = 0.2
+    qd, kd = (x.to(dev) for x in (q8, k8))
+    vd = torch.eye(S, device=dev)[None, :, None, :].expand(
+        B, S, 8, S).contiguous()
+    plain = F.sdpa_reference(qd, kd, vd, causal=True)     # D 256: no flash
+    P.seed(5)
+    drop = F.scaled_dot_product_attention(qd, kd, vd, dropout_p=p,
+                                          is_causal=True)
+    seen = plain > 0
+    kept = drop[seen] != 0
+    n, n_kept = int(seen.sum()), int(kept.sum())
+    scale_err = float(((drop[seen][kept] - plain[seen][kept] / (1 - p))
+                       .abs() / plain[seen][kept]).max())
+    bound = 6 * (n * p * (1 - p)) ** 0.5
+    _say("surface", fn="dropout", p=p, probabilities=n,
+         keep_rate=n_kept / n, keep_bound=f"{1 - p}+-{bound / n:.5f}",
+         kept_scale_rel_err=scale_err,
+         dropped_past_causal=int((drop[~seen] != 0).sum()))
+    assert abs(n_kept - n * (1 - p)) <= bound and scale_err <= 1e-6
+    assert not bool((drop[~seen] != 0).any())
+
+    # the flash entries at D 128 in bf16: one launch each, tensor cores
+    qb, kb, vb = (x.to(dev, torch.bfloat16) for x in (q, k, v))
+    want = F.sdpa_raw(qb, kb, vb, is_causal=True)
+    qkv = torch.stack([qb, kb.repeat_interleave(H // KVH, 2),
+                       vb.repeat_interleave(H // KVH, 2)], dim=2)
+    want_packed = F.sdpa_raw(*(qkv[:, :, i].contiguous() for i in range(3)),
+                             is_causal=True)
+    for fn, call, ref in (
+            ("flash_attention",
+             lambda: F.flash_attention(qb, kb, vb, causal=True)[0], want),
+            ("flash_attn_qkvpacked",
+             lambda: F.flash_attn_qkvpacked(qkv, causal=True)[0],
+             want_packed)):
+        K.reset_dispatch_stats()
+        got = call()
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        _say("surface", fn=fn, D=D, dtype="bfloat16", flash=st["flash"],
+             flash_tc=st["flash_tc"], equal_to_sdpa_raw=torch.equal(got,
+                                                                    ref))
+        assert st["flash"] == 1 and st["flash_tc"] == 1, st
+        assert torch.equal(got, ref)
+
+    # over the last axis (d 512), and over the last two flattened (4096)
+    x = randn(16, 8, 512).to(dev, torch.bfloat16)
+    for axis in (-1, 1):
+        wi = (1 + 0.3 * randn(*x.shape[axis:])).to(dev, torch.bfloat16)
+        K.reset_dispatch_stats()
+        got = IF.fused_rms_norm(x, wi, None, RMS_EPS, axis)[0]
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        want = F.rms_norm(x.reshape(16, -1) if axis == 1 else x,
+                          wi.reshape(-1), epsilon=RMS_EPS).reshape(x.shape)
+        _say("surface", fn="fused_rms_norm", begin_norm_axis=axis,
+             rms=st["rms"], rms_ref=st["rms_ref"],
+             equal_to_f_rms_norm=torch.equal(got, want))
+        assert st["rms"] == 1 and st["rms_ref"] == 0 and torch.equal(got,
+                                                                     want)
+
+
+# the training recipe of a Llama user: AdamW (beta2 0.95, weight decay
+# 0.1) under LinearWarmup over CosineAnnealingDecay, global-norm clip
+RECIPE_LR, RECIPE_WARMUP, RECIPE_T_MAX = 3e-4, 2, 100
+# llama_tiny's step-1 gradient norm is about 1.5: 0.05 makes the clip bind
+RECIPE_PARITY_CLIP = 0.05
+
+
+def eager_recipe_setup(torch, cfg, clip_norm, seed=0, data_seed=0,
+                       batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bfloat16",
+                       lr=RECIPE_LR):
+    """``eager_train_setup`` with the recipe: ``(model, optimizer,
+    scheduler, clip, inp, tgt)``; ``clip`` records each step's scale (a
+    device tensor) in ``clip.scales``."""
+    from paddle_tpu_torch import optimizer as O
+
+    class RecordingClip(O.ClipGradByGlobalNorm):
+        def __init__(self, clip_norm):
+            super().__init__(clip_norm)
+            self.scales = []
+
+        def _scale(self, grads):
+            s = super()._scale(grads)
+            self.scales.append(s)
+            return s
+
+    model, _, inp, tgt = eager_train_setup(torch, cfg, seed, data_seed,
+                                           batch, seq, dtype, lr)
+    clip = RecordingClip(clip_norm)
+    opt, sched = recipe_optimizer(model.parameters(), clip, lr)
+    return model, opt, sched, clip, inp, tgt
+
+
+def recipe_optimizer(params, clip, lr):
+    """The recipe's ``(AdamW, scheduler)`` over ``params``: warmup from
+    ``lr / 10`` over ``RECIPE_WARMUP`` steps, then cosine."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.optimizer import lr as LR
+    sched = LR.LinearWarmup(LR.CosineAnnealingDecay(lr, T_max=RECIPE_T_MAX),
+                            RECIPE_WARMUP, lr / 10, lr)
+    return O.AdamW(learning_rate=sched, beta2=0.95, weight_decay=0.1,
+                   grad_clip=clip, parameters=params), sched
+
+
+def recipe_step(model, opt, sched, inp, tgt):
+    """``eager_step`` and then the scheduler's step."""
+    loss = eager_step(model, opt, inp, tgt)
+    sched.step()
+    return loss
+
+
+def phase_eager_recipe_parity(torch, dev):
+    """The recipe on one float32 llama_tiny ``LlamaForCausalLM``, 3 steps
+    on the card and on the CPU from one set of weights (losses and step-1
+    gradients agree, the clip binds at step 1); then on each device a
+    ``state_dict`` after step 2 into a fresh optimizer and scheduler, whose
+    step 3 must equal the uninterrupted run's bit for bit."""
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_tiny()
+    losses, grads, weights = {}, {}, None
+    kw = dict(seed=0, data_seed=7, batch=2, seq=32, dtype=None, lr=3e-3)
+    try:
+        for name, where in (("cpu", "cpu"), ("card", f"gpu:{dev.index}")):
+            P.set_device(where)
+            model, opt, sched, clip, inp, tgt = eager_recipe_setup(
+                torch, cfg, RECIPE_PARITY_CLIP, **kw)
+            if weights is None:
+                weights = {k: v.detach().clone()
+                           for k, v in model.state_dict().items()}
+            else:
+                model.set_state_dict(weights)
+            K.reset_dispatch_stats()
+            loss = F.cross_entropy(
+                model(inp).reshape([-1, cfg.vocab_size]), tgt.reshape([-1]))
+            loss.backward()
+            grads[name] = [p.grad.detach().cpu() for p in model.parameters()]
+            opt.clear_grad()
+            losses[name] = [float(recipe_step(model, opt, sched, inp, tgt))
+                            for _ in range(3)]
+            stats = K.dispatch_stats()
+            scales = [float(s) for s in clip.scales]
+            # the same 2 steps, a state dict into a fresh optimizer, step 3
+            again, opt2, sched2, _, _, _ = eager_recipe_setup(
+                torch, cfg, RECIPE_PARITY_CLIP, **kw)
+            again.set_state_dict(weights)
+            for _ in range(2):
+                recipe_step(again, opt2, sched2, inp, tgt)
+            saved = opt2.state_dict()
+            opt3, sched3 = recipe_optimizer(
+                again.parameters(), O.ClipGradByGlobalNorm(
+                    RECIPE_PARITY_CLIP), kw["lr"])
+            opt3.set_state_dict(saved)
+            recipe_step(again, opt3, sched3, inp, tgt)
+            bitwise = all(torch.equal(a, b) for a, b in zip(
+                model.parameters(), again.parameters()))
+            _say("eager_recipe_parity", device=name, losses=losses[name],
+                 clip_norm=RECIPE_PARITY_CLIP, clip_scales=scales,
+                 resumed_step3_bit_for_bit=bitwise,
+                 **{k: v for k, v in stats.items() if v})
+            assert bitwise, name
+            assert scales[0] < 1.0, scales            # the clip binds
+        n_rms = 4 * (2 * cfg.num_hidden_layers + 1)
+        assert stats["rms"] == n_rms and stats["rms_bwd"] == n_rms, stats
+        assert stats["flash"] > 0 and stats["flash_bwd"] > 0, stats
+        assert all(v == 0 for k, v in stats.items()
+                   if k.endswith("_ref") or k == "rms_fallback"), stats
+    finally:
+        P.set_device(f"gpu:{dev.index}")
+    grad_err = max(_err(a, b) / float(b.abs().max())
+                   for a, b in zip(grads["card"], grads["cpu"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["card"], losses["cpu"]))
+    _say("eager_recipe_parity", loss_rel_err=loss_err,
+         loss_rtol=TRAIN_LOSS_RTOL, grad_rel_err=grad_err,
+         grad_tol=TRAIN_GRAD_TOL)
+    assert loss_err <= TRAIN_LOSS_RTOL, losses
+    assert grad_err <= TRAIN_GRAD_TOL, grad_err
+
+
+def phase_eager_recipe(torch, dev, card, eager_step_ms):
+    """The eager main path with the recipe (clip norm 1.0) at Llama-3-8B
+    widths, 4 layers, bf16, batch 4 x 2048: 2 untimed and 5 timed steps,
+    beside ``eager_train``'s median step of the same run; then the clip
+    alone and the scheduler's step alone, timed on the last gradients."""
+    import math
+    import statistics
+
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_3_8b(num_hidden_layers=TRAIN_LAYERS)
+    model, opt, sched, clip, inp, tgt = eager_recipe_setup(torch, cfg, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_dispatch_stats()
+    losses, times, lrs = [], [], []
+    for _ in range(7):
+        lrs.append(opt.get_lr())
+        t0 = time.perf_counter()
+        losses.append(float(recipe_step(model, opt, sched, inp, tgt)))
+        times.append(time.perf_counter() - t0)
+    launches = K.dispatch_stats()
+    scales = [float(s) for s in clip.scales]      # after the timed window
+    step_ms = statistics.median(times[2:]) * 1e3
+    # the clip alone on one step's gradients, and the scheduler alone
+    F.cross_entropy(model(inp).reshape([-1, cfg.vocab_size]),
+                    tgt.reshape([-1])).backward()
+    grads = [p.grad for p in model.parameters()]
+    clip_ms = _time_ms(lambda: clip._clip(grads), 5)
+    opt.clear_grad()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        sched.step()
+        opt.get_lr()
+    sched_us = (time.perf_counter() - t0) * 1e3
+    steps = len(times)
+    _say("eager_recipe", card=repr(card), layers=TRAIN_LAYERS, dtype="bf16",
+         batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", clip_norm=1.0,
+         losses=losses, lr=lrs, clip_scale=scales,
+         step_ms=[t * 1e3 for t in times[2:]], median_step_ms=step_ms,
+         eager_train_median_step_ms=eager_step_ms,
+         recipe_over_eager_train=step_ms / eager_step_ms,
+         clip_ms=clip_ms, clip_share=clip_ms / step_ms,
+         scheduler_step_us=sched_us, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+         / step_ms * 1e3,
+         peak_mem_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 2))
+    _say("eager_recipe", steps=steps,
+         **{k: v for k, v in launches.items() if v})
+    n_rms = 2 * TRAIN_LAYERS + 1
+    ln_v = math.log(cfg.vocab_size)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert ln_v - 1 <= losses[0] <= ln_v + 2, (losses[0], ln_v)
+    assert losses[-1] < losses[0], losses
+    assert len(scales) == steps and all(0 < s <= 1 for s in scales), scales
+    assert lrs[0] < lrs[RECIPE_WARMUP] and lrs[-1] < lrs[RECIPE_WARMUP], lrs
+    assert launches["rms"] == n_rms * steps, launches
+    assert launches["rms_bwd"] == n_rms * steps, launches
+    assert launches["flash"] == TRAIN_LAYERS * steps, launches
+    assert launches["flash_bwd"] == TRAIN_LAYERS * steps, launches
+    _tc_route_only(launches)
+    assert all(v == 0 for k, v in launches.items()
+               if k.endswith("_ref") or k == "rms_fallback"), launches
 
 
 def main() -> int:
@@ -2446,6 +2879,8 @@ def main() -> int:
     phase_train_parity(torch, dev)
     phase_train_packed_parity(torch, dev)
     phase_eager_parity(torch, dev)
+    phase_surface(torch, dev)
+    phase_eager_recipe_parity(torch, dev)
     phase_generate_parity(torch, dev)
     phase_moe_parity(torch, dev)
     t0 = time.perf_counter()
@@ -2454,6 +2889,8 @@ def main() -> int:
     nparams = sum(t.numel() for t in L._leaves(params))
     _say("main", layers=args.layers, params_b=round(nparams / 1e9, 3),
          init_s=round(time.perf_counter() - t0, 2))
+    phase_no_sync(torch, dev, cfg, params)
+    torch.cuda.empty_cache()
     launches, main_tokens = phase_main(torch, dev, cfg, params, requests, smi,
                                        uniform=True)
     torch.cuda.empty_cache()
@@ -2480,7 +2917,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     packed_launches = phase_train_packed(torch, dev, smi)
     torch.cuda.empty_cache()
-    eager_launches = phase_eager_train(torch, dev, smi)
+    eager_launches, eager_ms = phase_eager_train(torch, dev, smi)
+    torch.cuda.empty_cache()
+    phase_eager_recipe(torch, dev, smi, eager_ms)
     torch.cuda.empty_cache()
     phase_moe_train(torch, dev, smi)
     # launches on each kernel's main path: serving for the forward and

@@ -17,8 +17,13 @@ are not ported.
 
 Where the reference jits one program per chunk, ``_decode_chunk`` is a
 Python loop over ``chunk`` decode steps; the pool is updated in place.
-The host reads the device once per prefill group (the first tokens) and
-once per decode chunk (the emitted-token grid).
+The host waits for the card twice per prefill group and twice per decode
+chunk, and nowhere else: once to upload the group's or chunk's inputs
+(``_upload``, one copy) and once to read its tokens back. Between the
+two, the data plane (``_prefill_plane``, ``_decode_plane``) selects no
+rows on the host (writes the reference drops land in the pool's sink
+page) and draws sampled tokens on the device, so the host issues a
+chunk's steps while the card works through the earlier ones.
 """
 from __future__ import annotations
 
@@ -123,8 +128,17 @@ def _token_seed(seed: int, t: int) -> int:
 def _sample_rows(logits, temps, seeds=None):
     """Per-slot sampling: greedy (first argmax) rows where the temperature
     is 0; a row with temperature > 0 draws from softmax(logits / t) with a
-    CPU ``torch.Generator`` seeded by ``seeds[row]``. ``seeds=None``
-    means every row is greedy."""
+    ``torch.Generator`` of the logits' device seeded by ``seeds[row]``.
+    ``seeds=None`` means every row is greedy.
+
+    The draw is the exponential race that ``torch.multinomial`` runs for
+    one sample: the argmax of ``p / e``, ``e ~ Exp(1)``, where a token of
+    probability 0 never wins. Unlike ``multinomial`` it does not check
+    its input on the host, so the token stays a device tensor. The
+    stream of ``e`` is the device generator's, so a card draws other
+    tokens than the CPU under the same seed; on each device one seed
+    gives one token, and a preempted request that recomputes draws the
+    same tokens again."""
     greedy = logits.argmax(dim=-1)
     if seeds is None:
         return greedy
@@ -132,10 +146,11 @@ def _sample_rows(logits, temps, seeds=None):
     for i, sd in enumerate(seeds):
         if sd is None or temps[i] <= 0.0:
             continue
-        row = logits[i].float().cpu() / max(float(temps[i]), 1e-6)
-        gen = torch.Generator().manual_seed(sd)
-        out[i] = int(torch.multinomial(torch.softmax(row, dim=-1), 1,
-                                       generator=gen))
+        p = torch.softmax(logits[i].float() / max(float(temps[i]), 1e-6),
+                          dim=-1)
+        gen = torch.Generator(device=logits.device).manual_seed(sd)
+        race = p / torch.empty_like(p).exponential_(generator=gen)
+        out[i] = race.masked_fill_(p == 0, 0.0).argmax()
     return out
 
 
@@ -395,16 +410,10 @@ class ServingEngine:
             slot.kv_len = plen
             slot.preemptions = r._preempt_count
             slots.append(slot)
-        dev = self.device
         t0 = time.perf_counter()
-        logits = paged_prefill(
-            self.family, self.params, torch.as_tensor(ids, device=dev),
-            self.config, self.cache.pool["k"], self.cache.pool["v"],
-            torch.as_tensor(rows, device=dev),
-            torch.as_tensor(slen, device=dev))
-        toks = _sample_rows(logits, temps,
-                            seeds if any(s is not None for s in seeds)
-                            else None).tolist()
+        toks = self._prefill_plane(
+            *self._upload(ids, rows, slen), temps,
+            seeds if any(s is not None for s in seeds) else None).tolist()
         t_first = time.perf_counter()
         self.stats.prefill_s += t_first - t0
         for j, (r, slot) in enumerate(zip(group, slots)):
@@ -421,6 +430,38 @@ class ServingEngine:
             self.stats.admitted += 1
             self.stats.tokens_generated += 1
             self.stats.tokens_prefilled += int(slen[j])
+
+    def _upload(self, *arrays):
+        """A prefill group's or decode chunk's host arrays as device
+        tensors, shapes and types kept, through one copy: a copy from
+        pageable host memory waits for the card, so there is one, not
+        one an array."""
+        flat = np.concatenate([a.ravel().astype(np.int64) for a in arrays])
+        buf = torch.as_tensor(flat, device=self.device)
+        out, at = [], 0
+        for a in arrays:
+            out.append(buf[at:at + a.size].view(a.shape)
+                       .to(torch.as_tensor(a[:0]).dtype))
+            at += a.size
+        return out
+
+    def _prefill_plane(self, ids, rows, slen, temps, seeds):
+        """The device work of one prefill group on uploaded inputs: the
+        prefill over the pool and the draw of the first tokens, which
+        stay on the device. Reads nothing back."""
+        logits = paged_prefill(
+            self.family, self.params, ids, self.config,
+            self.cache.pool["k"], self.cache.pool["v"], rows, slen)
+        return _sample_rows(logits, temps, seeds)
+
+    def _decode_plane(self, chunk, bt, tokens, kv_len, done, gen, max_new,
+                      eos, temps, seeds):
+        """The device work of one decode chunk on uploaded inputs:
+        ``_decode_chunk`` over the pool. Reads nothing back."""
+        return _decode_chunk(
+            self.family, self.config, chunk, self.params,
+            self.cache.pool["k"], self.cache.pool["v"], bt, tokens, kv_len,
+            done, gen, max_new, eos, temps, seeds)
 
     def _pick_chunk(self, live_idx: List[int]) -> int:
         """Turbo chunk when no retire/join/EOS could land mid-chunk."""
@@ -506,16 +547,10 @@ class ServingEngine:
         bt = self.cache.block_tables(
             [self.slots[i].req.rid if i in live else None
              for i in range(B)])
-        dev = self.device
-
-        def put(a):
-            return torch.as_tensor(a, device=dev)
-
         t0 = time.perf_counter()
-        emitted = _decode_chunk(
-            self.family, self.config, C, self.params, self.cache.pool["k"],
-            self.cache.pool["v"], put(bt), put(tokens), put(kv_len),
-            put(done), put(gen), put(max_new), put(eos), temps, seeds)
+        emitted = self._decode_plane(
+            C, *self._upload(bt, tokens, kv_len, done, gen, max_new, eos),
+            temps, seeds)
         emitted = emitted.cpu().numpy()                      # [C, B]
         self.stats.decode_s += time.perf_counter() - t0
         new_tokens = 0

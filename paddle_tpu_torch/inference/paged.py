@@ -10,20 +10,25 @@ full-precision and int8 pools; the prefix cache is not ported).
   ``decode_mlp``, ``_head``), which ``models.llama`` and ``models.moe``
   both expose.
 
-Pool layout: ``[L, num_pages, kv_heads, page_size, head_dim]``. Block
-table entries equal to ``num_pages`` are the "no page" sentinel: a write
-aimed at it is dropped. Unlike the reference, which replaces its donated
-pool arrays, the port updates the pool tensors in place
-(``index_copy_`` / ``index_put_``), and selects the non-sentinel rows
-before each write, since torch raises on an out-of-range index where
-JAX's ``mode="drop"`` drops it.
+Pool layout: ``[L, num_pages + 1, kv_heads, page_size, head_dim]``:
+``num_pages`` usable pages and one sink page at index ``num_pages``.
+Block table entries equal to ``num_pages`` are the "no page" sentinel: a
+write aimed at it is dropped. Unlike the reference, which replaces its
+donated pool arrays, the port updates the pool tensors in place
+(``index_copy_`` / ``index_put_``). torch raises on an out-of-range
+index where JAX's ``mode="drop"`` drops it, so every write that the
+reference drops (a sentinel row, an inactive slot) is aimed at the sink
+page instead: no row is selected on the host, and the data plane never
+synchronises the host with the card. Nothing reads the sink: the
+allocator never hands it out, block tables never name it, and the
+decode kernel is given the usable pages only.
 
 With ``kv_quant`` (the reference's ``FLAGS_serving_kv_quant``) each pool
-leaf is the pair ``{"q": int8 [L, P, kv, ps, hd], "s": float32 [L, P,
-kv]}``: int8 codes and one scale per (page, kv head), the absmax / 127 of
-that page's values at its last write. Code and scale rows share the page
-axis, so every page-granular operation (copy-on-write, scatter with
-drop) moves them together; a page never written has scale 0 and
+leaf is the pair ``{"q": int8 [L, P + 1, kv, ps, hd], "s": float32 [L,
+P + 1, kv]}``: int8 codes and one scale per (page, kv head), the absmax
+/ 127 of that page's values at its last write. Code and scale rows share
+the page axis, so every page-granular operation (copy-on-write, scatter
+with drop) moves them together; a page never written has scale 0 and
 dequantizes to 0.
 """
 from __future__ import annotations
@@ -185,11 +190,12 @@ class PageAllocator:
 
 def init_pool(config, num_pages: int, page_size: int, dtype=None,
               device=None, kv_quant: bool = False) -> dict:
-    """Zeroed page pools, one ``[P, kv, ps, hd]`` grid per layer, stacked
-    on a leading layer axis; with ``kv_quant`` each leaf is the ``{"q":
-    int8 codes, "s": float32 [L, P, kv] scales}`` pair."""
+    """Zeroed page pools, one ``[P + 1, kv, ps, hd]`` grid per layer (the
+    ``P = num_pages`` usable pages and the sink page), stacked on a
+    leading layer axis; with ``kv_quant`` each leaf is the ``{"q": int8
+    codes, "s": float32 [L, P + 1, kv] scales}`` pair."""
     dt = dtype if dtype is not None else config.dtype
-    shape = (config.num_hidden_layers, num_pages,
+    shape = (config.num_hidden_layers, num_pages + 1,
              config.num_key_value_heads, page_size, config.head_dim)
     if kv_quant:
         def leaf():
@@ -208,6 +214,14 @@ def _layer_leaf(pool_leaf, i):
     if isinstance(pool_leaf, dict):
         return {k: v[i] for k, v in pool_leaf.items()}
     return pool_leaf[i]
+
+
+def _usable(leaf, P):
+    """The usable pages ``[:P]`` of one layer's leaf (the sink left out):
+    what the decode kernel reads."""
+    if isinstance(leaf, dict):
+        return {k: v[:P] for k, v in leaf.items()}
+    return leaf[:P]
 
 
 def _pool_tensors(pool):
@@ -232,8 +246,9 @@ class PagedKVCache:
         self.alloc = PageAllocator(num_pages, page_size, max_pages_per_seq)
 
     def pool_bytes(self) -> int:
-        """Device bytes of the whole pool (codes and scales included)."""
-        return sum(t.numel() * t.element_size()
+        """Device bytes of the usable pages (codes and scales included;
+        the sink page, which holds no token, is not counted)."""
+        return sum(t[:, :self.num_pages].numel() * t.element_size()
                    for t in _pool_tensors(self.pool))
 
     def apply_cow(self, pairs):
@@ -269,17 +284,19 @@ def _kv_quantize(xf, s):
 
 def _kv_pool_write(leaf, pages, page_rows):
     """Write whole-page grids ``pages`` ``[G, npad, kv, ps, hd]`` into one
-    layer's pool ``leaf`` ``[P, kv, ps, hd]`` at ``page_rows`` ``[G,
-    npad]``; sentinel rows (``>= P``) are dropped. A quantized leaf (the
-    ``{"q", "s"}`` pair) takes each page's own absmax over ``(ps, hd)``
-    per kv head as its scale (a prompt's padding positions in its last
-    page count, as in the reference) and the codes under it."""
+    layer's pool ``leaf`` ``[P + 1, kv, ps, hd]`` at ``page_rows`` ``[G,
+    npad]``; sentinel rows (``>= P``) are written into the sink page
+    ``P``, in the same
+    ``index_copy_`` (which of several sink writes lands does not matter:
+    nothing reads the sink). A quantized leaf (the ``{"q", "s"}`` pair)
+    takes each page's own absmax over ``(ps, hd)`` per kv head as its
+    scale (a prompt's padding positions in its last page count, as in
+    the reference) and the codes under it."""
     quant = isinstance(leaf, dict)
-    P = (leaf["q"] if quant else leaf).shape[0]
+    P = (leaf["q"] if quant else leaf).shape[0] - 1
     rows = page_rows.reshape(-1)
-    keep = torch.nonzero(rows < P).squeeze(1)
-    rows = rows[keep]
-    pages = pages.reshape(-1, *pages.shape[2:])[keep]
+    rows = torch.where(rows < P, rows, P)
+    pages = pages.reshape(-1, *pages.shape[2:])
     if quant:
         xf = pages.float()
         s = xf.abs().amax(dim=(-2, -1)) / _KV_QMAX
@@ -291,7 +308,8 @@ def _kv_pool_write(leaf, pages, page_rows):
 
 def _kv_page_append(leaf, rows, off, val):
     """Write one token's ``[n, kv, hd]`` values at slot ``off`` of pages
-    ``rows`` (the decode-step write; callers pass only live rows). A
+    ``rows`` (the decode-step write; rows the reference drops are aimed
+    at the sink page, whose rescale touches nothing else). A
     quantized leaf rescales the whole touched page, as the reference
     does: gather and dequantize it, zero the slots after ``off`` (a
     reused page's stale codes must not inflate the scale), insert the
@@ -322,7 +340,8 @@ def paged_prefill(family, params, ids, config, pool_k, pool_v, page_rows,
     of K/V into ``page_rows`` ``[G, S_pad / ps]`` (sentinel rows drop;
     an all-sentinel row is a group-padding dummy) and returns the logits
     ``[G, V]`` at each row's position ``slen[g] - 1``. Pools (plain or
-    quantized leaves) are updated in place."""
+    quantized leaves) are updated in place; nothing is read back to the
+    host."""
     c = config
     G, S = ids.shape
     L, P, kv, ps, hd = (pool_k["q"] if isinstance(pool_k, dict)
@@ -363,11 +382,12 @@ def paged_decode_step(family, params, pool_k, pool_v, block_tables,
     whose write is dropped and whose logits row is garbage the caller
     masks). ``block_tables`` is int32 ``[B, maxp]``. Pools (plain or
     quantized leaves) are updated in place; returns the logits ``[B,
-    V]``."""
+    V]``. Nothing is read back to the host."""
     c = config
     B = tokens.shape[0]
     quant = isinstance(pool_k, dict)
     L, P, kv, ps, hd = (pool_k["q"] if quant else pool_k).shape
+    P -= 1                                             # the sink is page P
     n = lengths
     posw = (n.long() - 1).clamp(min=0)                 # [B] write position
     x = params["embed"][tokens][:, None, :]
@@ -381,9 +401,9 @@ def paged_decode_step(family, params, pool_k, pool_v, block_tables,
     page_idx = (posw // ps).clamp(max=block_tables.shape[1] - 1)
     off = posw % ps
     rows = block_tables.gather(1, page_idx[:, None])[:, 0].long()
-    # live rows only: inactive slots (length 0) and sentinel entries drop
-    live = torch.nonzero((n > 0) & (rows < P)).squeeze(1)
-    rows_l, off_l = rows[live], off[live]
+    # the writes the reference drops (inactive slots, of length 0, and
+    # sentinel entries) go to the sink page
+    rows = torch.where((n > 0) & (rows < P), rows, P)
     for i in range(c.num_hidden_layers):
         lp = layer(params, i)
         h = _rms(x, lp["ln1"], c.rms_norm_eps)
@@ -391,8 +411,9 @@ def paged_decode_step(family, params, pool_k, pool_v, block_tables,
         q = rope_raw(q, cos, sin)
         k = rope_raw(k, cos, sin)
         kpl, vpl = _layer_leaf(pool_k, i), _layer_leaf(pool_v, i)
-        _kv_page_append(kpl, rows_l, off_l, k[live, 0])
-        _kv_page_append(vpl, rows_l, off_l, v[live, 0])
+        _kv_page_append(kpl, rows, off, k[:, 0])
+        _kv_page_append(vpl, rows, off, v[:, 0])
+        kpl, vpl = _usable(kpl, P), _usable(vpl, P)
         if quant:
             a = dispatched_paged_attention(
                 q[:, 0].contiguous(), kpl["q"], vpl["q"], block_tables, n,

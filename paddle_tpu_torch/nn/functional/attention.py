@@ -1,13 +1,16 @@
 """Attention functionals (port of ``paddle_tpu/nn/functional/attention.py``).
 
 ``sdpa_raw`` is the kernel seam the model cores call: it hands every
-call to the flash wrappers (``kernels/flash_attention.py``), which
-launch the CUDA kernels for CUDA tensors and take the plain versions for
-CPU tensors; with ``segment_ids`` it takes the segment-masked
-(sequence-packed) path, ``segment_attention_raw``. The varlen surface
-(``flash_attn_unpadded``, ``flash_attn_varlen_qkvpacked``) is a second
-entry to the same segment kernels, on packed ``[T, H, D]`` tensors with
-``cu_seqlens`` prefix sums. Layout is the reference's ``[B, S, H, D]``.
+call without a mask or dropout to the flash wrappers
+(``kernels/flash_attention.py``), which launch the CUDA kernels for CUDA
+tensors and take the plain versions for CPU tensors; with
+``segment_ids`` it takes the segment-masked (sequence-packed) path,
+``segment_attention_raw``. A mask or dropout takes ``sdpa_reference``,
+the plain math path, on every device, as in the reference (which has no
+Pallas kernel for them). The varlen surface (``flash_attn_unpadded``,
+``flash_attn_varlen_qkvpacked``) is a second entry to the same segment
+kernels, on packed ``[T, H, D]`` tensors with ``cu_seqlens`` prefix
+sums. Layout is the reference's ``[B, S, H, D]``.
 """
 from __future__ import annotations
 
@@ -16,27 +19,46 @@ import torch
 from ...core import enforce as E
 
 __all__ = ["rope_tables", "rope_raw", "gather_rope_rows", "sdpa_reference",
-           "sdpa_raw", "scaled_dot_product_attention", "apply_rotary_emb",
-           "segment_attention_raw",
-           "segment_ids_from_cu_seqlens", "flash_attn_unpadded",
-           "flash_attn_varlen_qkvpacked"]
+           "sdpa_raw", "scaled_dot_product_attention", "flash_attention",
+           "apply_rotary_emb", "fused_rotary_position_embedding",
+           "segment_attention_raw", "segment_ids_from_cu_seqlens",
+           "flash_attn_unpadded", "flash_attn_qkvpacked",
+           "flash_attn_varlen_qkvpacked", "flash_attention_with_sparse_mask"]
+
+# False inside ``sdp_kernel(enable_flash=False)``: the dense and segment
+# paths take their plain math instead of the kernels (the reference
+# unregisters its flash and segment dispatchers there)
+_FLASH_ENABLED = True
 
 
 def segment_attention_raw(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
                           causal=False, scale=None):
     """Segment-masked attention on ``[B, S, H, D]`` (the kernel seam of
     ``sdpa_raw``'s packed path and the varlen surface): the dispatcher
-    ``kernels.dispatched_segment_attention``."""
+    ``kernels.dispatched_segment_attention``, or with the flash path
+    switched off (``sdp_kernel``) the plain ``segment_attention_ref``."""
+    if not _FLASH_ENABLED:
+        from ...kernels.flash_attention import segment_attention_ref
+        return segment_attention_ref(q, k, v, seg_q, seg_k, pos_q, pos_k,
+                                     causal=causal, scale=scale)[0]
     from ...kernels import dispatched_segment_attention
     return dispatched_segment_attention(q, k, v, seg_q, seg_k, pos_q, pos_k,
                                         causal=causal, scale=scale)
 
 
-def sdpa_reference(q, k, v, *, causal=False, scale=None):
-    """Math attention on ``[B, S, H, D]`` with a float32 softmax. GQA
-    repeats each kv head over its group of query heads; the causal mask
-    is bottom-right aligned (query row ``r`` sees keys ``<= r + Sk - Sq``).
-    A fully masked row is NaN, as in the reference."""
+def sdpa_reference(q, k, v, attn_mask=None, *, causal=False, scale=None,
+                   dropout_p=0.0, generator=None):
+    """Math attention on ``[B, S, H, D]`` with a float32 softmax, plain
+    PyTorch and differentiable by autograd. GQA repeats each kv head over
+    its group of query heads; the causal mask is bottom-right aligned
+    (query row ``r`` sees keys ``<= r + Sk - Sq``). ``attn_mask``
+    broadcasts against ``[B, H, Sq, Sk]``: a boolean one keeps the
+    scores where it is true, any other is added to them. A fully masked
+    row is NaN, as in the reference. With ``dropout_p > 0`` and a
+    ``generator``, each probability (in ``q``'s type) is kept with
+    probability ``1 - dropout_p`` and scaled by ``1 / (1 - dropout_p)``,
+    the rest zeroed; without a generator there is no dropout, as the
+    reference has none without a key."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -50,34 +72,39 @@ def sdpa_reference(q, k, v, *, causal=False, scale=None):
         mask = torch.ones(sq, sk, dtype=torch.bool,
                           device=q.device).tril(diagonal=sk - sq)
         logits = logits.masked_fill(~mask, float("-inf"))
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = logits.masked_fill(~attn_mask, float("-inf"))
+        else:
+            logits = logits + attn_mask.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_p > 0.0 and generator is not None:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
     out = torch.matmul(probs.float(), vt.float()).to(q.dtype)
     return out.transpose(1, 2)
 
 
 def sdpa_raw(query, key, value, attn_mask=None, *, dropout_p: float = 0.0,
-             is_causal: bool = False, scale=None, segment_ids=None,
-             positions=None):
+             is_causal: bool = False, generator=None, scale=None,
+             segment_ids=None, positions=None):
     """Attention dispatcher on ``[B, S, H, D]``: the flash wrappers, whose
-    device decides kernel (CUDA) or plain version (CPU).
+    device decides kernel (CUDA) or plain version (CPU), when there is no
+    mask and no dropout; else ``sdpa_reference`` (dropout draws from
+    ``generator``, the reference's ``rng_key``).
 
     ``segment_ids`` ``[B, S]`` selects the sequence-packed path: tokens
     attend only within their own document (-1 = padding: zero rows), with
     ``is_causal`` evaluated on the segment-local ``positions`` ``[B, S]``
     (default: the global arange, which is the segment-local order for
-    contiguously packed rows). ``attn_mask`` and dropout are not ported:
-    with ``segment_ids`` they raise as in the reference (the packed mask
-    is the mask), and without them too."""
-    from ...kernels.flash_attention import flash_attention
-    if attn_mask is not None or dropout_p != 0.0:
-        if segment_ids is not None:
+    contiguously packed rows). A mask or dropout with ``segment_ids``
+    raises, as in the reference (the packed mask is the mask)."""
+    if segment_ids is not None:
+        if attn_mask is not None or dropout_p != 0.0:
             raise NotImplementedError(
                 "sdpa_raw: attn_mask/dropout are not supported together "
                 "with segment_ids (the packed mask IS the mask)")
-        raise NotImplementedError(
-            "sdpa_raw: attn_mask and attention dropout are not ported yet "
-            "(the flash kernels take neither)")
-    if segment_ids is not None:
         pos = positions
         if pos is None:
             pos = torch.arange(query.shape[1], device=segment_ids.device)
@@ -85,7 +112,13 @@ def sdpa_raw(query, key, value, attn_mask=None, *, dropout_p: float = 0.0,
         return segment_attention_raw(query, key, value, segment_ids,
                                      segment_ids, pos, pos,
                                      causal=is_causal, scale=scale)
-    return flash_attention(query, key, value, causal=is_causal, scale=scale)
+    if _FLASH_ENABLED and attn_mask is None and dropout_p == 0.0:
+        from ...kernels.flash_attention import flash_attention
+        return flash_attention(query, key, value, causal=is_causal,
+                               scale=scale)
+    return sdpa_reference(query, key, value, attn_mask, causal=is_causal,
+                          scale=scale, dropout_p=dropout_p,
+                          generator=generator)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -94,13 +127,29 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training: bool = True, name=None,
                                  scale=None):
     """``paddle.nn.functional.scaled_dot_product_attention`` on ``[B, S,
-    H, D]``, through ``sdpa_raw`` (the flash kernels on the card,
-    differentiable through ``_FlashAttention``). Dropout applies only
-    while ``training``; a mask or dropout raises, as in ``sdpa_raw``."""
+    H, D]``, through ``sdpa_raw`` (without a mask or dropout the flash
+    kernels on the card, differentiable through ``_FlashAttention``).
+    Dropout applies only while ``training``, drawn from the seeded
+    generator of the query's device (``framework.random``)."""
     del name
-    return sdpa_raw(query, key, value, attn_mask,
-                    dropout_p=dropout_p if training else 0.0,
-                    is_causal=is_causal, scale=scale)
+    from ...framework.random import default_generator
+    p = dropout_p if training else 0.0
+    gen = default_generator(query.device) if p > 0.0 else None
+    return sdpa_raw(query, key, value, attn_mask, dropout_p=p,
+                    is_causal=is_causal, generator=gen, scale=scale)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True, name=None):
+    """``paddle.nn.functional.flash_attention``: ``(out, None)`` (the
+    softmax is never returned, as in the reference), through
+    ``scaled_dot_product_attention``."""
+    del return_softmax, fixed_seed_offset, rng_name, name
+    out = scaled_dot_product_attention(
+        query, key, value, None, dropout_p=dropout if training else 0.0,
+        is_causal=causal, training=training)
+    return out, None
 
 
 def rope_tables(seq_len: int, head_dim: int, *, theta: float = 10000.0,
@@ -121,21 +170,53 @@ def gather_rope_rows(cos, sin, positions):
     return cos[idx], sin[idx]
 
 
-def rope_raw(x, cos, sin):
-    """Rotate-half rope (GPT-NeoX / Llama convention). ``x``: ``[B, S, H,
-    D]``; ``cos``/``sin``: ``[S, D/2]`` or per-row ``[B, S, D/2]``. The
-    rotation runs in the tables' float32 and casts back to ``x.dtype``."""
+def rope_raw(x, cos, sin, *, neox: bool = True):
+    """Rope of ``x`` ``[B, S, H, D]`` with ``cos``/``sin`` ``[S, D/2]`` or
+    per-row ``[B, S, D/2]``: rotate-half (GPT-NeoX / Llama) with
+    ``neox``, else interleaved pairs. The rotation runs in the tables'
+    type (float32 for ``rope_tables``) and casts back to ``x.dtype``."""
     c = cos[None, :, None, :] if cos.ndim == 2 else cos[:, :, None, :]
     s = sin[None, :, None, :] if sin.ndim == 2 else sin[:, :, None, :]
-    d2 = x.shape[-1] // 2
-    x1, x2 = x[..., :d2], x[..., d2:]
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    if neox:
+        d2 = x.shape[-1] // 2
+        x1, x2 = x[..., :d2], x[..., d2:]
+        return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
+                         dim=-1).to(x.dtype)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    return torch.stack([x1 * c - x2 * s, x2 * c + x1 * s],
+                       dim=-1).reshape(x.shape).to(x.dtype)
 
 
 def apply_rotary_emb(x, cos, sin):
     """Rotary position embedding (rotate-half) of ``x`` ``[B, S, H, D]``
     with ``[S, D/2]`` tables: ``rope_raw``."""
     return rope_raw(x, cos, sin)
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style=True):
+    """``paddle.incubate.nn.functional.fused_rotary_position_embedding``:
+    ``(rope(q), rope(k) or None, v)``. ``sin`` / ``cos`` are ``[1, S, 1,
+    D]`` or ``[S, D/2]`` tables (a full-``D`` table is cut to its first
+    half); without them ``rope_tables(S, D)``. ``position_ids`` ``[B,
+    S]`` gathers each token's table rows."""
+    def table(t):
+        if t.ndim == 4:
+            t = t[0, :, 0, :]
+        if t.shape[-1] == q.shape[-1]:
+            t = t[..., :t.shape[-1] // 2]
+        return t
+
+    if cos is None or sin is None:
+        cos_t, sin_t = rope_tables(q.shape[1], q.shape[-1], device=q.device)
+    else:
+        cos_t, sin_t = table(cos), table(sin)
+    if position_ids is not None:
+        cos_t, sin_t = gather_rope_rows(cos_t, sin_t, position_ids)
+    neox = use_neox_rotary_style
+    return (rope_raw(q, cos_t, sin_t, neox=neox),
+            None if k is None else rope_raw(k, cos_t, sin_t, neox=neox), v)
 
 
 # -- varlen / unpadded attention ----------------------------------------------
@@ -210,3 +291,44 @@ def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
                                max_seqlen_q, max_seqlen_k, scale,
                                dropout=dropout, causal=causal,
                                return_softmax=return_softmax)
+
+
+def flash_attn_qkvpacked(qkv, dropout=0.0, causal=False,
+                         return_softmax=False, *, fixed_seed_offset=None,
+                         rng_name="", training=True, name=None):
+    """``paddle flash_attn_qkvpacked``: ``qkv`` ``[B, S, 3, H, D]`` ->
+    ``(out, None)`` through ``flash_attention``; q, k and v are copied out
+    of the packed tensor (the kernels take contiguous tensors)."""
+    q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
+    return flash_attention(q, k, v, dropout=dropout, causal=causal,
+                           return_softmax=return_softmax, training=training)
+
+
+def flash_attention_with_sparse_mask(query, key, value,
+                                     attn_mask_start_row_indices,
+                                     attn_mask_start_row=0, dropout_p=0.0,
+                                     is_causal=False, return_softmax=False,
+                                     return_softmax_lse=False,
+                                     return_seed_offset=False, training=True,
+                                     name=None):
+    """``paddle flash_attention_with_sparse_mask``: ``(out, None)``.
+    ``attn_mask_start_row_indices`` ``[B, H, Sk]`` gives, for each key
+    column, the first query row that may not attend to it; with
+    ``is_causal`` a row also sees no later key. The dense boolean mask
+    goes through ``scaled_dot_product_attention``'s math path, as in the
+    reference."""
+    del attn_mask_start_row, name
+    if return_softmax or return_softmax_lse or return_seed_offset:
+        raise NotImplementedError(
+            "flash_attention_with_sparse_mask: softmax/lse/seed returns "
+            "are not materialized on this path")
+    rows = torch.arange(query.shape[1], device=query.device)
+    starts = attn_mask_start_row_indices.to(query.device)
+    allowed = rows[None, None, :, None] < starts[:, :, None, :]
+    if is_causal:
+        allowed = allowed & (rows[:, None] >= rows[None, :])[None, None]
+    out = scaled_dot_product_attention(
+        query, key, value, allowed,
+        dropout_p=dropout_p if training else 0.0, is_causal=False,
+        training=training)
+    return out, None

@@ -1,5 +1,5 @@
-"""Dense layer functionals (port of ``linear`` and the dense
-``embedding`` of ``paddle_tpu/nn/functional/common.py``)."""
+"""Layer functionals (port of ``linear`` and ``embedding``, dense and
+row-sparse, of ``paddle_tpu/nn/functional/common.py``)."""
 from __future__ import annotations
 
 import torch
@@ -18,13 +18,17 @@ def linear(x, weight, bias=None):
 
 def embedding(ids, weight, padding_idx=None, sparse: bool = False):
     """Rows of ``weight`` at ``ids``; rows at ``padding_idx`` are zero.
-    The gradient of ``weight`` is dense. ``sparse=True`` (the reference's
-    row-sparse gradient) is not ported yet and raises."""
-    if sparse:
-        raise NotImplementedError(
-            "embedding: sparse=True (row-sparse weight gradients) is not "
-            "ported yet (ROADMAP.md queue A item 1)")
-    out = weight[ids]
+    With ``sparse`` the gradient of ``weight`` is row-sparse (the
+    reference's SelectedRows): a ``torch.sparse_coo`` tensor of the rows
+    ``ids`` names, duplicates included until the optimizer coalesces
+    them, and zero values at ``padding_idx`` positions. As in the
+    reference, that holds for a leaf weight under autograd; otherwise
+    (and without ``sparse``) the gradient is dense."""
+    if (sparse and weight.is_leaf and weight.requires_grad
+            and torch.is_grad_enabled()):
+        out = torch.nn.functional.embedding(ids, weight, sparse=True)
+    else:
+        out = weight[ids]
     if padding_idx is not None:
         out = torch.where((ids == padding_idx)[..., None],
                           out.new_zeros(()), out)

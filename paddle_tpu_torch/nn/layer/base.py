@@ -41,8 +41,10 @@ class Layer(torch.nn.Module):
         """A new parameter of ``shape`` on the current device. ``attr`` is
         ``False`` (no parameter: ``None``), an initializer, or a
         ``ParamAttr``-like object (``initializer``, ``trainable``,
-        ``name``); its initializer comes before ``default_initializer``,
-        then zeros for a bias and ``XavierUniform`` for a weight."""
+        ``name``); its initializer comes before the global one
+        (``initializer.set_global_initializer``), then
+        ``default_initializer``, then zeros for a bias and
+        ``XavierUniform`` for a weight."""
         if attr is False:
             return None
         dtype = convert_dtype(dtype) if dtype else self._dtype
@@ -53,6 +55,8 @@ class Layer(torch.nn.Module):
             initializer = getattr(attr, "initializer", None)
             trainable = getattr(attr, "trainable", True)
             name = getattr(attr, "name", None)
+        if initializer is None:
+            initializer = init_mod.global_initializer(is_bias)
         if initializer is None:
             initializer = default_initializer
         if initializer is None:

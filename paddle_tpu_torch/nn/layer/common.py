@@ -39,7 +39,8 @@ class Linear(Layer):
 
 class Embedding(Layer):
     """Weight ``[num_embeddings, embedding_dim]``, drawn from
-    ``Normal(0, 1)``; the row at ``padding_idx`` is zero."""
+    ``Normal(0, 1)``; the row at ``padding_idx`` is zero. With ``sparse``
+    the weight's gradient is row-sparse (``F.embedding``)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  padding_idx=None, sparse: bool = False, weight_attr=None,

@@ -9,6 +9,7 @@ root:
 Tolerances: bfloat16 outputs ``2e-2`` (one bf16 rounding of values of
 size ~1), float32 ``1e-4`` (summation order and the fast exponential).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -879,3 +880,133 @@ def test_moe_bf16_step_takes_tensor_core_flash(dev):
     assert stats["flash_bwd"] == stats["flash_bwd_tc"] == \
         cfg.num_hidden_layers
     assert params["layers"]["router"].dtype == torch.float32
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo root, imported by path."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kv_quant,temperature", [(False, 0.0), (True, 0.0),
+                                                  (False, 0.8)])
+def test_serving_data_plane_never_syncs_the_host(dev, kv_quant,
+                                                 temperature):
+    """The ``ServingEngine`` serves 3 prompts of one bucket in 4 slots:
+    one prefill group (padded to 4: a row of sentinel pages) and one
+    decode chunk (one slot dead), with bf16 and int8 pages and with a
+    sampled request. Its data plane (``_prefill_plane``,
+    ``_decode_plane``) runs under ``torch.cuda.set_sync_debug_mode
+    ("error")`` (any host read of the device raises); the tokens equal
+    those of the same serve outside that mode, so a sampled request
+    draws the same tokens again from the same seed."""
+    C = _chip_smoke()
+    cfg = L.llama_tiny(dtype=torch.bfloat16)
+    params = L.init_params(cfg, seed=0, device=dev)
+    runs = [C.serve_strict(torch, L, cfg, params, dev, kv_quant,
+                           (40, 33, 50), 6, strict, temperature)
+            for strict in (False, True)]
+    for a, b in zip(runs[0][0], runs[1][0]):
+        np.testing.assert_array_equal(a, b)
+    assert runs[1][1] == {"prefill": 1, "decode": 1}
+    assert all(len(t) == 7 and ((t >= 0) & (t < cfg.vocab_size)).all()
+               for t in runs[1][0])
+
+
+@pytest.mark.parametrize("temperature", [0.7, 1.5])
+def test_card_sampler_follows_the_tempered_softmax(dev, temperature):
+    """``_sample_rows`` on the card over 4000 rows of the same logits,
+    each drawn from its own seed: every token's count lies within five
+    binomial deviations of 4000 * softmax(logits / t), and the token of
+    probability 0 (logit -inf) is never drawn."""
+    from paddle_tpu_torch.inference.engine import _sample_rows, _token_seed
+    n = 4000
+    row = torch.tensor([2.0, 1.0, 0.5, 0.0, -1.0, -float("inf"), 0.3, 1.5])
+    toks = _sample_rows(row.to(dev).expand(n, -1), [temperature] * n,
+                        [_token_seed(s, 0) for s in range(n)])
+    assert toks.device.type == "cuda"
+    counts = np.bincount(toks.cpu().numpy(), minlength=row.numel())
+    p = torch.softmax(row.double() / temperature, dim=-1).numpy()
+    assert counts[5] == 0
+    bound = 5 * np.sqrt(n * p * (1 - p)) + 1
+    assert (np.abs(counts - n * p) <= bound).all(), (counts, n * p)
+
+
+@pytest.mark.parametrize("clip", ["value", "norm", "global_norm"])
+def test_optimizer_step_never_syncs_the_host(dev, clip):
+    """``AdamW`` with ``amsgrad``, a scheduler and each gradient clip steps
+    bf16 parameters (one with a float32 master) under
+    ``set_sync_debug_mode("error")``; the parameters move."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.optimizer import lr as LR
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = [torch.nn.Parameter(torch.randn(64, 32, generator=g, device=dev)
+                                 .to(torch.bfloat16)) for _ in range(3)]
+    before = [p.detach().clone() for p in params]
+    clips = {"value": O.ClipGradByValue(0.1),
+             "norm": O.ClipGradByNorm(0.5),
+             "global_norm": O.ClipGradByGlobalNorm(0.5)}
+    sched = LR.LinearWarmup(LR.CosineAnnealingDecay(1e-2, T_max=10), 2,
+                            1e-3, 1e-2)
+    opt = O.AdamW(learning_rate=sched, parameters=params, weight_decay=0.1,
+                  grad_clip=clips[clip], amsgrad=True, multi_precision=True)
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=g, device=dev).to(p.dtype)
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            opt.step()
+            sched.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert all(not torch.equal(p, b) for p, b in zip(params, before))
+
+
+def test_attention_surface_and_fused_rms_norm_routes(dev):
+    """``F.flash_attention`` and ``flash_attn_qkvpacked`` in bf16 at head
+    dim 128 launch the flash forward once on the tensor-core route and
+    equal ``sdpa_raw``; a masked or dropout ``scaled_dot_product_attention``
+    takes the plain math (no launch) and agrees with the CPU within
+    ``2e-2``; ``fused_rms_norm`` launches ``rms`` once and equals
+    ``F.rms_norm``."""
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    import paddle_tpu_torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(2, 64, 4, 128, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    want = ATT.sdpa_raw(q, k, v, is_causal=True)
+    qkv = torch.stack([q, k, v], dim=2)
+    for got in (lambda: F.flash_attention(q, k, v, causal=True)[0],
+                lambda: F.flash_attn_qkvpacked(qkv, causal=True)[0]):
+        K.reset_dispatch_stats()
+        out = got()
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        assert st["flash"] == 1 and st["flash_tc"] == 1, st
+        assert torch.equal(out, want)
+    mask = torch.rand(2, 1, 64, 64, generator=g, device=dev) < 0.5
+    mask |= torch.eye(64, dtype=torch.bool, device=dev)
+    K.reset_dispatch_stats()
+    out = F.scaled_dot_product_attention(q, k, v, mask, is_causal=True)
+    assert K.dispatch_stats()["flash"] == 0
+    ref = F.scaled_dot_product_attention(q.cpu(), k.cpu(), v.cpu(),
+                                         mask.cpu(), is_causal=True)
+    assert float((out.cpu().float() - ref.float()).abs().max()) <= \
+        2e-2 * float(ref.float().abs().max())
+    drop = F.scaled_dot_product_attention(q, k, v, dropout_p=0.5)
+    assert drop.shape == q.shape and bool(torch.isfinite(drop).all())
+    x = torch.randn(8, 4, 256, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.ones(4, 256, device=dev, dtype=torch.bfloat16)
+    K.reset_dispatch_stats()
+    out = IF.fused_rms_norm(x, w, None, 1e-5, 1)[0]
+    torch.cuda.synchronize()
+    assert K.dispatch_stats()["rms"] == 1
+    assert torch.equal(out, F.rms_norm(x.reshape(8, -1), w.reshape(-1),
+                                       epsilon=1e-5).reshape(x.shape))

@@ -119,6 +119,24 @@ def test_temperature_sampling_replays_under_preemption(tiny):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("temperature", [0.7, 1.5])
+def test_sampled_tokens_follow_the_tempered_softmax(temperature):
+    """``_sample_rows`` over 4000 rows of the same logits, each row drawn
+    from its own seed: every token's count lies within five binomial
+    deviations of 4000 * softmax(logits / t), and the token of
+    probability 0 (logit -inf) is never drawn."""
+    from paddle_tpu_torch.inference.engine import _sample_rows, _token_seed
+    n = 4000
+    row = torch.tensor([2.0, 1.0, 0.5, 0.0, -1.0, -float("inf"), 0.3, 1.5])
+    toks = _sample_rows(row.expand(n, -1), [temperature] * n,
+                        [_token_seed(s, 0) for s in range(n)])
+    counts = np.bincount(toks.numpy(), minlength=row.numel())
+    p = torch.softmax(row.double() / temperature, dim=-1).numpy()
+    assert counts[5] == 0
+    bound = 5 * np.sqrt(n * p * (1 - p)) + 1
+    assert (np.abs(counts - n * p) <= bound).all(), (counts, n * p)
+
+
 @pytest.mark.parametrize("kw", [
     dict(prompt=np.zeros((0,), np.int32), max_new_tokens=2),
     dict(prompt=np.array([1, 300]), max_new_tokens=2),

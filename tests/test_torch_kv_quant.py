@@ -192,11 +192,14 @@ def _pool_write_both(rng, P=9, kv=2, ps=8, hd=16, G=3, npad=2):
              "s": jnp.zeros((1, P, kv), jnp.float32)}
     jleaf = JP._kv_pool_write(jleaf, jnp.asarray(pages)[None],
                               jnp.asarray(rows))
-    tleaf = {"q": torch.zeros(P, kv, ps, hd, dtype=torch.int8),
-             "s": torch.zeros(P, kv)}
+    # the port's leaf has a sink page past the P usable ones, where the
+    # sentinel row's write lands; the comparison leaves it out
+    tleaf = {"q": torch.zeros(P + 1, kv, ps, hd, dtype=torch.int8),
+             "s": torch.zeros(P + 1, kv)}
     TP._kv_pool_write(tleaf, torch.as_tensor(pages),
                       torch.as_tensor(rows).long())
-    return {k: np.asarray(v[0]) for k, v in jleaf.items()}, tleaf
+    return ({k: np.asarray(v[0]) for k, v in jleaf.items()},
+            {k: v[:P] for k, v in tleaf.items()})
 
 
 def _assert_leaf_equal(tleaf, jq, js):
@@ -236,7 +239,7 @@ def test_cow_copies_codes_and_scales_in_lockstep():
     c = TP.PagedKVCache(TL.llama_tiny(), num_pages=6, page_size=4,
                         max_pages_per_seq=3, device="cpu", kv_quant=True)
     assert c.pool["k"]["q"].dtype == torch.int8
-    assert tuple(c.pool["k"]["s"].shape) == (2, 6, 2)
+    assert tuple(c.pool["k"]["s"].shape) == (2, 6 + 1, 2)   # + the sink
     pages = c.alloc.alloc(0, 6)
     c.pool["k"]["q"][:, pages[1]] = 7
     c.pool["k"]["s"][:, pages[1]] = 0.25
@@ -281,6 +284,7 @@ def test_prefill_then_decode_with_int8_pools_matches_jax(tiny):
         assert err <= 1e-5 * np.abs(want).max(), err
         codes = off = 0
         for t, j in ((pool["k"], jk), (pool["v"], jv)):
+            t = {k: v[:, :P] for k, v in t.items()}        # the sink aside
             d = np.abs(t["q"].numpy().astype(np.int32)
                        - np.asarray(j["q"]).astype(np.int32))
             assert d.max() <= 1

@@ -183,8 +183,8 @@ def test_prefill_then_decode_logits_and_pool_match_jax(dt, tol):
                             torch.as_tensor(slen))
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=tol,
                                rtol=0)
-    np.testing.assert_allclose(_np(pool["k"]), _np(jk), atol=tol, rtol=0)
-    np.testing.assert_allclose(_np(pool["v"]), _np(jv), atol=tol, rtol=0)
+    np.testing.assert_allclose(_np(pool["k"][:, :P]), _np(jk), atol=tol, rtol=0)
+    np.testing.assert_allclose(_np(pool["v"][:, :P]), _np(jv), atol=tol, rtol=0)
 
     bt = np.full((3, maxp), P, np.int32)
     bt[0, :2], bt[1, :2] = [3, 8], [1, 6]
@@ -202,8 +202,8 @@ def test_prefill_then_decode_logits_and_pool_match_jax(dt, tol):
         live = lengths > 0
         np.testing.assert_allclose(tlog.numpy()[live],
                                    np.asarray(jlog)[live], atol=tol, rtol=0)
-        np.testing.assert_allclose(_np(pool["k"]), _np(jk), atol=tol, rtol=0)
-        np.testing.assert_allclose(_np(pool["v"]), _np(jv), atol=tol, rtol=0)
+        np.testing.assert_allclose(_np(pool["k"][:, :P]), _np(jk), atol=tol, rtol=0)
+        np.testing.assert_allclose(_np(pool["v"][:, :P]), _np(jv), atol=tol, rtol=0)
         toks = np.asarray(jlog).argmax(-1).astype(np.int32)
         lengths = np.where(live, lengths + 1, 0).astype(np.int32)
 

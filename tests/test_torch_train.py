@@ -291,9 +291,10 @@ def test_loss_and_grads_leaves_params_alone():
 
 
 def test_not_yet_ported_paths_raise():
-    """Sequence-packed batches are ported (``tests/test_torch_packing.py``);
-    the guarded step and the mesh path, and attention masks / dropout in
-    ``sdpa_raw``, still raise."""
+    """Sequence-packed batches are ported (``tests/test_torch_packing.py``),
+    and so are attention masks in ``sdpa_raw`` (they take the plain math
+    path, ``sdpa_reference``; ``tests/test_torch_masked_attention.py``);
+    the guarded step and the mesh path still raise."""
     from paddle_tpu_torch.nn.functional import attention as TATT
     cfg = TL.llama_tiny()
     tp = TL.init_params(cfg, device="cpu")
@@ -304,8 +305,9 @@ def test_not_yet_ported_paths_raise():
     np.testing.assert_allclose(float(packed), float(TL.loss_fn(tp, ids, cfg)),
                                rtol=1e-6)
     q = torch.zeros(1, 8, 4, 16)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TATT.sdpa_raw(q, q, q, torch.ones(8, 8, dtype=torch.bool))
+    mask = torch.ones(8, 8, dtype=torch.bool)
+    torch.testing.assert_close(TATT.sdpa_raw(q, q, q, mask),
+                               TATT.sdpa_reference(q, q, q, mask))
     with pytest.raises(NotImplementedError, match="guarded"):
         TL.make_train_step(cfg, guard=True)
     with pytest.raises(NotImplementedError, match="mesh"):
