@@ -156,6 +156,34 @@ Phases, each printed on its own line; any failure exits non-zero:
     rate and the clip's scale at each step (read after the timed
     window), the clip alone and the scheduler's step alone timed, and
     ``eager_train``'s launch counts, every one on a kernel.
+23. flash_d (in the kernels phase): the flash pair's CUDA-core route at
+    head dims 8, 24, 40, 72, 80, 136, 192 and 256 (``FLASH_DIMS``: under
+    16, not a multiple of 16, above 128), float32 and bf16, GQA 8 / 2:
+    the dense forward and backward causal at Sq 70 != Sk 100 and not
+    causal at a ragged S 100, the segment pair on a packed layout with a
+    padding tail and on Sq 70 != Sk 90, each against its plain version at
+    the forward and backward tolerances below, every launch off the
+    tensor cores; then the two DiT-XL/2 records (``phase_dit_kernels``):
+    the forward at the sampling shape ``[16, 256, 16, 72]`` and the
+    backward at the training shape ``[32, 256, 16, 72]``, bf16, not
+    causal, timed beside their plain versions and SDPA;
+24. dit_parity: one float32 DiT at head dim 72 (hidden 144, 2 heads, 2
+    blocks; zero leaves refilled so the gates are not zero) on the card
+    and on the CPU: forward and ``loss_fn`` within ``DIT_PARITY_TOL``,
+    step-1 gradients, 3 ``make_train_step`` losses and a 5-step DDIM loop
+    (eta 1, guidance 4.0) from the same draws; the card through
+    ``flash`` and ``flash_bwd``, no plain version;
+25. dit_sample: DiT-XL/2 (675 M parameters, 28 blocks, bf16, random
+    weights from seed 0 with refilled gates) samples 8 labels under
+    classifier-free guidance 4.0 (16 rows a forward) in 50 DDIM steps at
+    eta 0: ms a step, images/s, peak memory; 1400 flash launches a call
+    (28 a step), all on the CUDA-core route (head dim 72), finite samples;
+26. dit_train: the same model, remat on, float32 AdamW moments, lr
+    1e-4, 32 latents of 4 x 32 x 32 (the DiT paper's 256 over 8 GPUs):
+    2 untimed and 5 timed steps, median step ms, images/s, MFU by 6 N
+    tokens (attention's operations not credited), peak memory; the flash
+    forward twice a block (remat) and the backward once, both on the
+    CUDA-core route; the loss finite and falling.
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -179,9 +207,11 @@ dense flash kernels only on their tensor-core route (``flash_tc ==
 flash``, ``flash_bwd_tc == flash_bwd``), and the packed pass of
 ``train_packed`` the segment kernels only on theirs (``varlen_tc ==
 varlen``, ``varlen_bwd_tc == varlen_bwd``). The build phase prints the
-registers and spills of each tensor-core kernel and each decode kernel
-(``paged_decode_kernel<q, page, heads>``, ``paged_decode_combine_kernel``)
-from ``ptxas``.
+registers and spills of every flash kernel (the CUDA-core ones at each
+padded head dim, ``flash_fwd_kernel<bf16,Dp80,DenseMask>``), each
+decode kernel (``paged_decode_kernel<q, page, heads>``,
+``paged_decode_combine_kernel``) and the RMSNorm backward from
+``ptxas``.
 
 Then it prints the kernel records as one JSON line, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -230,6 +260,19 @@ MOE_HEADS = (16, 16)    # DeepSeekMoE-16B: 16 query and 16 kv heads of 128
 # the packed rung's trace: heavy-tailed document lengths and token ids
 # from one seed, packed into rows of PACKED_SEQ
 PACKED_DOCS, PACKED_SEQ, PACKED_SEED, PACKED_VOCAB = 24, 2048, 7, 32000
+# head dims of the flash pair's CUDA-core route held to the plain
+# versions beyond the tensor cores' 64 / 128 (up to 128: 4 threads a row;
+# above: 8)
+FLASH_DIMS = (8, 24, 40, 72, 80, 136, 192, 256)
+# DiT: parity within 1e-4 of the largest value (of each gradient's max),
+# card against CPU, float32 at head dim 72: the flash pair's own float32
+# tolerance (summation order and __expf), which every gradient passes
+# through, and cuBLAS sums over the batch's tokens in another order than
+# the CPU's; sampling 8 labels under guidance 4.0, 50 DDIM steps;
+# training at the DiT paper's 256 over 8 GPUs, 32 images a card
+DIT_PARITY_TOL = 1e-4
+DIT_LABELS, DIT_STEPS, DIT_GUIDANCE = 8, 50, 4.0
+DIT_TRAIN_BATCH = 32
 
 
 def _say(phase, **kv):
@@ -274,6 +317,12 @@ def _ptxas_entries(log):
                 args.append(m.group(4)[:int(m.group(3))])
             if m and m.group(1).startswith(("paged_decode", "rms")):
                 args = _decode_args(mangled[m.end(1):])
+            cc = m and re.match(r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ENS_"
+                                r"(\d+)(\w+)", mangled[m.end(1):])
+            if cc:                        # <T, G, NC, Mask>: Dp = 4 G NC
+                args = [{"f": "float"}.get(cc.group(1), "bf16"),
+                        f"Dp{4 * int(cc.group(2)) * int(cc.group(3))}",
+                        cc.group(5)[:int(cc.group(4))]]
             kernel = (f"{m.group(1)}<{','.join(args)}>" if args
                       else m.group(1) if m else mangled)
         elif kernel and "spill stores" in line:
@@ -2813,6 +2862,383 @@ def phase_eager_recipe(torch, dev, card, eager_step_ms):
                if k.endswith("_ref") or k == "rms_fallback"), launches
 
 
+def phase_flash_d(torch, dev):
+    """The flash pair's CUDA-core route at ``FLASH_DIMS`` against the
+    plain versions, float32 and bf16, with GQA (8 / 2): the dense forward
+    and backward causal at Sq 70 != Sk 100 and not causal at a ragged S
+    100, then the segment forward and backward on a packed layout with a
+    padding tail (causal) and on documents that differ on the two sides
+    (Sq 70 != Sk 90, not causal). Every launch is counted off the tensor
+    cores (``flash_tc`` / ``varlen_tc`` stay 0)."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def rel(got, want):
+        return max(_err(g, w) / float(w.float().abs().max())
+                   for g, w in zip(got, want))
+
+    for d in FLASH_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            ftol = FLASH_F32_TOL if f32 else FLASH_TOL
+            btol = BWD_F32_TOL if f32 else BWD_TOL
+            errs = {}
+            for kind, sq, sk, causal in (("dense", 70, 100, True),
+                                         ("dense", 100, 100, False),
+                                         ("segment", 100, 100, True),
+                                         ("segment", 70, 90, False)):
+                q, k, v, dout = (
+                    torch.randn(2, s, h, d, generator=gen, device=dev)
+                    .to(dtype) for s, h in ((sq, 8), (sk, 2), (sk, 2),
+                                            (sq, 8)))
+                K.reset_dispatch_stats()
+                if kind == "dense":
+                    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+                    got = FA.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                 causal=causal)
+                    torch.cuda.synchronize()
+                    ref, ref_lse = FA.flash_attention_ref(q, k, v,
+                                                          causal=causal)
+                    want = FA.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                      causal=causal)
+                    count, tc = ("flash", "flash_bwd"), ("flash_tc",
+                                                         "flash_bwd_tc")
+                else:
+                    segs = _seg_layout(torch, dev, 2, sq, sk,
+                                       "packed" if sq == sk else "cu")
+                    out, lse = FA.flash_attention_segments_fwd(
+                        q, k, v, *segs, causal=causal)
+                    got = FA.flash_attention_segments_bwd(
+                        q, k, v, out, lse, dout, *segs, causal=causal)
+                    torch.cuda.synchronize()
+                    ref, ref_lse = FA.segment_attention_ref(
+                        q, k, v, *segs, causal=causal)
+                    want = FA.segment_attention_bwd_ref(
+                        q, k, v, out, lse, dout, *segs, causal=causal)
+                    count, tc = ("varlen", "varlen_bwd"), ("varlen_tc",
+                                                           "varlen_bwd_tc")
+                st = K.dispatch_stats()
+                assert all(st[c] == 1 for c in count), st
+                assert all(st[c] == 0 for c in tc), st
+                seen = torch.isfinite(ref_lse)
+                assert torch.equal(seen, torch.isfinite(lse)), \
+                    "flash: rows that see a key differ"
+                fe, le = _err(out, ref), _err(lse[seen], ref_lse[seen])
+                be = rel(got, want)
+                assert fe <= ftol and le <= LSE_TOL, (d, dtype, kind, fe, le)
+                assert be <= btol, (d, dtype, kind, be)
+                assert all(bool(torch.isfinite(g.float()).all())
+                           for g in got)
+                tag = f"{kind}_{'causal' if causal else 'full'}"
+                errs[f"{tag}_fwd"], errs[f"{tag}_bwd"] = fe, be
+            _say("flash_d", D=d, dtype=str(dtype).split(".")[-1],
+                 route="cuda_cores", fwd_tol=ftol, bwd_tol=btol,
+                 **{k: f"{v:.3g}" for k, v in errs.items()})
+
+
+def _dit_named(tree, prefix=""):
+    """``(path, leaf)`` pairs of a DiT parameter tree, ``blocks.qkv_w``."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _dit_named(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _dit_refill(torch, params, gen):
+    """Refill the zero leaves of a DiT tree (biases, ``mod_*``,
+    ``final_*``) in place with normals of std 0.02 from ``gen``, a block
+    at a time: with the reference's init the gates are zero and no
+    output depends on attention."""
+    from paddle_tpu_torch.models import llama as L
+    for leaf in L._leaves(params):
+        if bool(leaf.any()):
+            continue
+        for part in (leaf if leaf.ndim == 3 else (leaf,)):
+            part.copy_(torch.randn(part.shape, generator=gen,
+                                   device=leaf.device) * 0.02)
+
+
+def phase_dit_parity(torch, dev):
+    """One float32 DiT at head dim 72 (hidden 144, 2 heads, 2 blocks) with
+    refilled gates, one tree on the card and on the CPU: the forward and
+    ``loss_fn`` within ``DIT_PARITY_TOL`` of the largest value, the step-1
+    gradients within ``DIT_PARITY_TOL`` of each tensor's max, 3
+    ``make_train_step`` losses within ``TRAIN_LOSS_RTOL``, and a 5-step
+    ``ddim_sample`` loop (``_ddim_over``, eta 1, guidance 4.0) from the
+    same draws within ``DIT_PARITY_TOL``; the card through ``flash`` and
+    ``flash_bwd``, no plain version."""
+    import numpy as np
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import dit as DIT
+    from paddle_tpu_torch.models import llama as L
+    cfg = DIT.dit_tiny(hidden_size=144, num_attention_heads=2)
+    assert cfg.head_dim == 72
+    cpu_params = DIT.init_params(cfg, seed=0, device="cpu")
+    _dit_refill(torch, cpu_params, torch.Generator().manual_seed(1))
+    card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+    rng = np.random.default_rng(2)
+    shape = (4, cfg.in_channels, cfg.image_size, cfg.image_size)
+    batch = (rng.standard_normal(shape).astype(np.float32),
+             rng.integers(0, 1000, 4).astype(np.int32),
+             rng.integers(0, cfg.num_classes + 1, 4).astype(np.int32),
+             rng.standard_normal(shape).astype(np.float32))
+    labels = np.array([1, 7], np.int32)
+    x_t = rng.standard_normal((2, *shape[1:])).astype(np.float32)
+    noise = rng.standard_normal((5, 2, *shape[1:])).astype(np.float32)
+    res = {}
+    for name, params in (("card", card_params), ("cpu", cpu_params)):
+        K.reset_dispatch_stats()
+        out = DIT.forward(params, *batch[:3], cfg).cpu()
+        loss, grads = L.loss_and_grads(params, batch, cfg,
+                                       loss=DIT.loss_fn)
+        grads = {k: g.cpu() for k, g in _dit_named(grads)}
+        state = DIT.adamw_init(params)
+        step = DIT.make_train_step(cfg)
+        losses = [float(step(params, state, batch)[2]) for _ in range(3)]
+        sample = DIT._ddim_over(params, labels, cfg, x_t, noise, steps=5,
+                                eta=1.0, guidance_scale=4.0).cpu()
+        torch.cuda.synchronize()
+        stats = K.dispatch_stats()
+        _say("dit_parity", device=name, loss=float(loss), losses=losses,
+             **{k: v for k, v in stats.items() if k.startswith("flash")})
+        if name == "card":
+            assert stats["flash"] > 0 and stats["flash_bwd"] > 0, stats
+            assert stats["flash_tc"] == stats["flash_bwd_tc"] == 0, stats
+            assert all(v == 0 for k, v in stats.items()
+                       if k.endswith("_ref")), stats
+        res[name] = (out, float(loss), grads, losses, sample)
+    (out, loss, grads, losses, sample), (w_out, w_loss, w_grads, w_losses,
+                                         w_sample) = res["card"], res["cpu"]
+    fwd_err = _err(out, w_out) / float(w_out.abs().max())
+    loss_err = abs(loss - w_loss) / abs(w_loss)
+    grad_errs = {k: _err(g, w_grads[k]) / float(w_grads[k].abs().max())
+                 for k, g in grads.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    grad_err = grad_errs[worst]
+    step_err = max(abs(a - b) / abs(b) for a, b in zip(losses, w_losses))
+    sample_err = _err(sample, w_sample) / float(w_sample.abs().max())
+    _say("dit_parity", head_dim=cfg.head_dim, fwd_rel_err=fwd_err,
+         loss_rel_err=loss_err, grad_rel_err=grad_err, grad_worst=worst,
+         step_loss_rel_err=step_err, ddim_rel_err=sample_err,
+         tol=DIT_PARITY_TOL, loss_rtol=TRAIN_LOSS_RTOL)
+    assert fwd_err <= DIT_PARITY_TOL and loss_err <= DIT_PARITY_TOL
+    assert grad_err <= DIT_PARITY_TOL, (worst, grad_err)
+    assert step_err <= TRAIN_LOSS_RTOL, (losses, w_losses)
+    assert sample_err <= DIT_PARITY_TOL, sample_err
+    assert bool(torch.isfinite(sample).all())
+
+
+def dit_xl_setup(torch, dev):
+    """DiT-XL/2 in bf16 with random weights from seed 0, zero leaves
+    refilled (seed 1) so that the gates are not zero."""
+    from paddle_tpu_torch.models import dit as DIT
+    cfg = DIT.dit_xl_2()
+    params = DIT.init_params(cfg, seed=0, device=dev)
+    _dit_refill(torch, params, torch.Generator(device=dev).manual_seed(1))
+    return cfg, params
+
+
+def dit_train_setup(torch, dev):
+    """The DiT training main path's ``(cfg, params, opt_state, step,
+    batch)``: ``dit_xl_setup``'s model (remat on), float32 AdamW moments,
+    lr 1e-4, and one batch of ``DIT_TRAIN_BATCH`` latents, timesteps,
+    labels and noise from a generator on ``dev`` seeded with 3."""
+    from paddle_tpu_torch.models import dit as DIT
+    cfg, params = dit_xl_setup(torch, dev)
+    assert cfg.remat
+    state = DIT.adamw_init(params)
+    step = DIT.make_train_step(cfg, lr=1e-4)
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = (DIT_TRAIN_BATCH, cfg.in_channels, cfg.image_size,
+             cfg.image_size)
+    batch = (torch.randn(shape, generator=g, device=dev),
+             torch.randint(0, 1000, (DIT_TRAIN_BATCH,), generator=g,
+                           device=dev),
+             torch.randint(0, cfg.num_classes, (DIT_TRAIN_BATCH,),
+                           generator=g, device=dev),
+             torch.randn(shape, generator=g, device=dev))
+    return cfg, params, state, step, batch
+
+
+def dit_labels(torch, dev, cfg):
+    """The sampling main path's ``DIT_LABELS`` class labels."""
+    return torch.arange(DIT_LABELS, device=dev) * 97 % cfg.num_classes
+
+
+def phase_dit_sample(torch, dev, card):
+    """DiT sampling at full width: DiT-XL/2, 28 blocks, bf16,
+    ``DIT_LABELS`` labels under classifier-free guidance ``DIT_GUIDANCE``
+    (twice as many rows a forward), ``DIT_STEPS`` DDIM steps at eta 0:
+    one untimed call, then one timed; every attention through the flash
+    kernel's CUDA-core route (head dim 72), no plain version."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import dit as DIT
+    t0 = time.perf_counter()
+    cfg, params = dit_xl_setup(torch, dev)
+    torch.cuda.synchronize()
+    _say("dit_sample", layers=cfg.num_hidden_layers,
+         params=DIT.count_params(cfg), head_dim=cfg.head_dim,
+         tokens=cfg.num_patches, init_s=round(time.perf_counter() - t0, 2))
+    labels = dit_labels(torch, dev, cfg)
+
+    def sample():
+        return DIT.ddim_sample(params, labels, cfg, steps=DIT_STEPS,
+                               guidance_scale=DIT_GUIDANCE, generator=0)
+
+    sample()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_dispatch_stats()
+    t0 = time.perf_counter()
+    x = sample()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.dispatch_stats()
+    _say("dit_sample", card=repr(card), labels=DIT_LABELS,
+         rows_a_forward=2 * DIT_LABELS, steps=DIT_STEPS, eta=0.0,
+         guidance=DIT_GUIDANCE, ms_a_step=wall * 1e3 / DIT_STEPS,
+         images_per_s=DIT_LABELS / wall, sample_s=wall,
+         peak_mem_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 2),
+         x_std=float(x.std()),
+         **{k: v for k, v in launches.items() if v})
+    assert x.shape == (DIT_LABELS, cfg.in_channels, cfg.image_size,
+                       cfg.image_size)
+    assert bool(torch.isfinite(x).all()), "dit_sample: non-finite samples"
+    assert launches["flash"] == cfg.num_hidden_layers * DIT_STEPS, launches
+    assert launches["flash_tc"] == 0, launches
+    assert all(v == 0 for k, v in launches.items() if k.endswith("_ref"))
+    del params
+    return launches
+
+
+def phase_dit_train(torch, dev, card):
+    """DiT training at full width: DiT-XL/2, 28 blocks, bf16, remat,
+    float32 AdamW moments, lr 1e-4, ``DIT_TRAIN_BATCH`` latents of 4 x 32
+    x 32 (256 tokens each) with timesteps, labels and noise from a seeded
+    generator, one batch: 2 untimed and 5 timed steps. MFU is 6 N tokens
+    a step over 989 TFLOP/s (N = ``count_params``); attention's own
+    operations are not credited. The flash forward launches twice a block
+    (remat), the backward once, both on the CUDA-core route."""
+    import math
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import dit as DIT
+    t0 = time.perf_counter()
+    cfg, params, state, step, batch = dit_train_setup(torch, dev)
+    torch.cuda.synchronize()
+    n = DIT.count_params(cfg)
+    tokens = DIT_TRAIN_BATCH * cfg.num_patches
+    _say("dit_train", layers=cfg.num_hidden_layers, params=n,
+         batch=f"{DIT_TRAIN_BATCH}x{cfg.num_patches}", remat=cfg.remat,
+         init_s=round(time.perf_counter() - t0, 2))
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_dispatch_stats()
+    losses, times = [], []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        _, _, loss = step(params, state, batch)
+        losses.append(float(loss))        # waits for the step's end
+        times.append(time.perf_counter() - t0)
+    launches = K.dispatch_stats()
+    timed = sorted(times[2:])
+    step_s = timed[len(timed) // 2]
+    _say("dit_train", card=repr(card), losses=losses,
+         step_ms=[t * 1e3 for t in times[2:]], median_step_ms=step_s * 1e3,
+         images_per_s=DIT_TRAIN_BATCH / step_s, tokens_per_s=tokens / step_s,
+         mfu=6.0 * n * tokens / step_s / H100_BF16_FLOPS,
+         mfu_note="6N_tokens_attention_not_credited",
+         peak_mem_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 2),
+         flash_a_step=launches["flash"] / len(times),
+         flash_bwd_a_step=launches["flash_bwd"] / len(times))
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    L_ = cfg.num_hidden_layers
+    assert launches["flash"] == 2 * L_ * len(times), launches
+    assert launches["flash_bwd"] == L_ * len(times), launches
+    assert launches["flash_tc"] == launches["flash_bwd_tc"] == 0, launches
+    assert all(v == 0 for k, v in launches.items() if k.endswith("_ref"))
+    del params, state
+    return launches
+
+
+def phase_dit_kernels(torch, dev):
+    """The two kernel records at DiT-XL/2's shapes, bf16, not causal, on
+    the CUDA-core route: the forward at the sampling shape ``[16, 256, 16,
+    72]`` and the backward at the training shape ``[32, 256, 16, 72]``,
+    each held to its plain version and timed beside it and beside
+    ``scaled_dot_product_attention`` (its backward by autograd). Bounds:
+    the forward's 4 B H S^2 D operations, the backward's five products
+    (q k^T, dout v^T, dv, dq, dk) of 2 B H S^2 D each, at the bf16 peak,
+    against each input read once and each output written once."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(13)
+    H, S, D = 16, 256, 72
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    recs = []
+    for kind, b in (("fwd", 2 * DIT_LABELS), ("bwd", DIT_TRAIN_BATCH)):
+        q, k, v, dout = (torch.randn(b, S, H, D, generator=gen, device=dev)
+                         .bfloat16() for _ in range(4))
+        K.reset_dispatch_stats()
+        out, lse = FA.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        _tc_launches(K, "flash", False)
+        ref, ref_lse = FA.flash_attention_ref(q, k, v)
+        err = _err(out, ref)
+        assert err <= FLASH_TOL and _err(lse, ref_lse) <= LSE_TOL, err
+        leaves = [x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v)]
+        elem = 2 * b * S * H * D          # bytes of one bf16 [b, S, H, D]
+        if kind == "fwd":
+            ms = _time_ms(lambda: FA.flash_attention_fwd(q, k, v), 20)
+            plain_ms = _time_ms(lambda: FA.flash_attention_ref(q, k, v), 5)
+            with torch.no_grad():
+                library_ms = _time_ms(lambda: sdpa(*leaves), 20)
+            flops = 4.0 * b * H * S * S * D
+            nbytes = 4 * elem + 4 * b * H * S         # q k v out, lse
+        else:
+            K.reset_dispatch_stats()
+            got = FA.flash_attention_bwd(q, k, v, out, lse, dout)
+            torch.cuda.synchronize()
+            _tc_launches(K, "flash_bwd", False)
+            want = FA.flash_attention_bwd_ref(q, k, v, out, lse, dout)
+            err = max(_err(a, w) for a, w in zip(got, want))
+            rel = max(_err(a, w) / float(w.float().abs().max())
+                      for a, w in zip(got, want))
+            assert rel <= BWD_TOL, rel
+            ms = _time_ms(lambda: FA.flash_attention_bwd(
+                q, k, v, out, lse, dout), 10)
+            plain_ms = _time_ms(lambda: FA.flash_attention_bwd_ref(
+                q, k, v, out, lse, dout), 3)
+            lib_out = sdpa(*leaves)
+            lib_dout = dout.transpose(1, 2).contiguous()
+            library_ms = _time_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, lib_dout, retain_graph=True), 10)
+            flops = 5 * 2.0 * b * H * S * S * D
+            # q, k, v, out, dout, lse read; dq, dk, dv written
+            nbytes = 8 * elem + 4 * b * H * S
+        t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        _say("kernels", kernel=f"flash_{kind}", shape=f"B{b}xS{S}xH{H}xD{D}",
+             dtype="bfloat16", causal=False, route="cuda_cores",
+             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+             bound_ms=bound, share_of_bound=bound / ms,
+             tflops=flops / ms / 1e9)
+        recs.append({"name": f"flash_{kind}_d72", "route": "cuda",
+                     "source": f"paddle_tpu_torch/csrc/flash_{kind}.cu",
+                     "replaces": "paddle_tpu/kernels/flash_attention.py:"
+                     + ("40" if kind == "fwd" else "146"),
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "library_ms": library_ms})
+        del q, k, v, dout, out, lse, ref, leaves
+        torch.cuda.empty_cache()
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -2850,8 +3276,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 _say("build", lib=name, ptxas=line.strip().replace(" ", "_"))
         for kernel, regs, stores, loads in _ptxas_entries(log):
-            if "_tc_kernel" in kernel or kernel.startswith(("paged",
-                                                             "rms_bwd")):
+            if kernel.startswith(("flash", "paged", "rms_bwd")):
                 _say("build", lib=name, kernel=kernel, registers=regs,
                      spill_store_bytes=stores, spill_load_bytes=loads)
 
@@ -2872,6 +3297,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     seg_fwd, seg_bwd = phase_flash_seg(torch, dev)
     torch.cuda.empty_cache()
+    phase_flash_d(torch, dev)
+    dit_fwd, dit_bwd = phase_dit_kernels(torch, dev)
+    torch.cuda.empty_cache()
     rms_fwd, rms_bwd = phase_rms(torch, dev)
     torch.cuda.empty_cache()
     phase_parity(torch, dev)
@@ -2883,6 +3311,7 @@ def main() -> int:
     phase_eager_recipe_parity(torch, dev)
     phase_generate_parity(torch, dev)
     phase_moe_parity(torch, dev)
+    phase_dit_parity(torch, dev)
     t0 = time.perf_counter()
     params = L.init_params(cfg, seed=0)
     torch.cuda.synchronize()
@@ -2922,10 +3351,15 @@ def main() -> int:
     phase_eager_recipe(torch, dev, smi, eager_ms)
     torch.cuda.empty_cache()
     phase_moe_train(torch, dev, smi)
+    torch.cuda.empty_cache()
+    dit_sample_launches = phase_dit_sample(torch, dev, smi)
+    torch.cuda.empty_cache()
+    dit_train_launches = phase_dit_train(torch, dev, smi)
     # launches on each kernel's main path: serving for the forward and
     # the decode kernel, int8-KV serving for its int8 arm, dense training
     # for the backward, packed training for the segment kernels, eager
-    # training for the RMSNorm kernels
+    # training for the RMSNorm kernels, DiT sampling and training for the
+    # flash pair's CUDA-core route at head dim 72
     flash["launches"] = launches["flash"]
     paged["launches"] = launches["paged"]
     paged_int8["launches"] = kvq_launches["paged_quant"]
@@ -2934,13 +3368,15 @@ def main() -> int:
     seg_bwd["launches"] = packed_launches["varlen_bwd"]
     rms_fwd["launches"] = eager_launches["rms"]
     rms_bwd["launches"] = eager_launches["rms_bwd"]
+    dit_fwd["launches"] = dit_sample_launches["flash"]
+    dit_bwd["launches"] = dit_train_launches["flash_bwd"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys}
         for rec in (flash, paged, paged_int8, flash_bwd, seg_fwd,
-                    seg_bwd, rms_fwd, rms_bwd)]}))
+                    seg_bwd, rms_fwd, rms_bwd, dit_fwd, dit_bwd)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

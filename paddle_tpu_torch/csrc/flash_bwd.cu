@@ -50,16 +50,23 @@
 //   runs, each warpgroup computes only its own, and only pairs that hold
 //   a document boundary, a diagonal or the ragged edge mask element by
 //   element;
-// - CUDA cores (float32 or another D): float32 arithmetic, 32 rows or
-//   keys a block. Its traffic is small all the same: every tile a block
-//   loads into shared memory serves 32 rows or keys, the score matrix
-//   never leaves registers, and causal blocks skip the tiles above the
-//   diagonal, segment blocks the 32 x 32 tiles of other documents.
+// - CUDA cores (float32, or bfloat16 at another D): float32 arithmetic,
+//   32 rows or keys a block. Its traffic is small all the same: every
+//   tile a block loads into shared memory serves 32 rows or keys, the
+//   score matrix never leaves registers, and causal blocks skip the tiles
+//   above the diagonal, segment blocks the 32 x 32 tiles of other
+//   documents. A row or key is shared by 4 threads up to a padded head
+//   dim Dp of 128 and by 8 above it, so that the dkv kernel's four
+//   per-key vectors (k, v and the dk, dv sums) stay at 128 floats a
+//   thread at any D; D is padded to Dp with zeros in registers and
+//   shared memory (so the pad adds nothing to a score, to dout . v or to
+//   delta), and the pad is never stored. The tiles (up to 64 KB at Dp
+//   256) are dynamic shared memory.
 //
 // Layout: q / o / dout / dq [B, Sq, H, D], k / v / dk / dv [B, Sk, KVH, D],
 // all contiguous, float32 or bfloat16; lse and delta float32 [B, H, Sq];
 // segment ids and positions int32 [B, Sq] / [B, Sk]. D is a multiple of
-// 16, at most 128.
+// 8, from 8 to 256 (the tensor cores take bf16 at 64 and 128).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,8 +80,7 @@ namespace {
 
 constexpr int BM = 32;               // query rows per tile
 constexpr int BN = 32;               // keys per tile
-constexpr int QUAD = 4;              // threads sharing one row or key
-constexpr int THREADS = 32 * QUAD;   // 128
+constexpr int MAX_D = 256;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -115,10 +121,12 @@ __device__ __forceinline__ float4 scale4(float4 x, float a) {
   return make_float4(x.x * a, x.y * a, x.z * a, x.w * a);
 }
 
-// Sum over the four threads of a quad (all 32 lanes take part).
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
+// Sum over the G threads that share a row or key (all 32 lanes take
+// part).
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < G; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
@@ -232,26 +240,29 @@ struct SegmentMask {
   }
 };
 
-// dq (and delta). Four threads share a query row; thread t of the quad
-// owns dims 16*i + 4*t .. 16*i + 4*t + 3, so the eight rows of a warp read
-// the same 64 bytes of a shared key row (a broadcast).
-template <typename T, int NC, typename Mask>  // head dim D = 16 * NC
-__global__ void __launch_bounds__(THREADS)
+// dq (and delta). G threads share a query row (4, or 8 above a padded
+// head dim of 128); thread t of the group owns dims 4 G i + 4 t .. + 3
+// (i < NC, Dp = 4 G NC), so the 32 / G rows of a warp read the same
+// 16 G bytes of a shared key row (a broadcast). A thread's dims lie all
+// below D or all past it; those past it are zeros and are not stored.
+template <typename T, int G, int NC, typename Mask>
+__global__ void __launch_bounds__(BM * G)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout,
                     const float* __restrict__ lse, T* __restrict__ dq,
                     float* __restrict__ delta, int Sq, int Sk, int H,
-                    int KVH, float scale, Mask mask) {
-  constexpr int D = 16 * NC;
-  constexpr int D4 = D / 4;
-  __shared__ float4 ks[BN][D4];
-  __shared__ float4 vs[BN][D4];
+                    int KVH, int D, float scale, Mask mask) {
+  constexpr int THREADS = BM * G;
+  constexpr int D4 = G * NC;   // float4 columns of a padded row
+  extern __shared__ float4 tile_mem[];
+  float4(*ks)[D4] = reinterpret_cast<float4(*)[D4]>(tile_mem);
+  float4(*vs)[D4] = reinterpret_cast<float4(*)[D4]>(tile_mem + BN * D4);
   __shared__ typename Mask::Tile keys;
 
   const int tid = threadIdx.x;
-  const int r = tid / QUAD;
-  const int t = tid % QUAD;
+  const int r = tid / G;
+  const int t = tid % G;
   const int q0 = blockIdx.x * BM;
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -268,14 +279,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float dlt = 0.f;
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
-    const int c = 16 * i + 4 * t;
+    const int c = 4 * (G * i + t);
+    const bool in = row_ok && c < D;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    qv[i] = row_ok ? load4(q + roff + c) : zero;
-    dov[i] = row_ok ? load4(dout + roff + c) : zero;
-    dlt += dot4(dov[i], row_ok ? load4(o + roff + c) : zero);
+    qv[i] = in ? load4(q + roff + c) : zero;
+    dov[i] = in ? load4(dout + roff + c) : zero;
+    dlt += dot4(dov[i], in ? load4(o + roff + c) : zero);
     acc[i] = zero;
   }
-  dlt = quad_sum(dlt);
+  dlt = group_sum<G>(dlt);
   const float lse_r = row_ok ? lse[size_t(bh) * Sq + row] : -INFINITY;
   if (row_ok && t == 0) delta[size_t(bh) * Sq + row] = dlt;
 
@@ -290,7 +302,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kr = k0 + j;
       float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 vv = kk;
-      if (kr < k_end) {
+      if (kr < k_end && 4 * c < D) {
         const size_t off = ((size_t(b) * Sk + kr) * KVH + kvh) * D + 4 * c;
         kk = load4(k + off);
         vv = load4(v + off);
@@ -307,17 +319,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float dp = 0.f;
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
-        s += dot4(qv[i], ks[j][4 * i + t]);
-        dp += dot4(dov[i], vs[j][4 * i + t]);
+        s += dot4(qv[i], ks[j][G * i + t]);
+        dp += dot4(dov[i], vs[j][G * i + t]);
       }
-      s = quad_sum(s);
-      dp = quad_sum(dp);
+      s = group_sum<G>(s);
+      dp = group_sum<G>(dp);
       const float p = mask.visible(rinfo, mask.tile_key(keys, k0, j))
                           ? __expf(s * scale - lse_r)
                           : 0.f;
       const float ds = p * (dp - dlt);
 #pragma unroll
-      for (int i = 0; i < NC; ++i) axpy4(acc[i], ds, ks[j][4 * i + t]);
+      for (int i = 0; i < NC; ++i) axpy4(acc[i], ds, ks[j][G * i + t]);
     }
     __syncthreads();
   }
@@ -325,33 +337,35 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (row_ok) {
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
-      store4(dq + roff + 16 * i + 4 * t, scale4(acc[i], scale));
+      const int c = 4 * (G * i + t);
+      if (c < D) store4(dq + roff + c, scale4(acc[i], scale));
     }
   }
 }
 
-// dk and dv. Four threads share a key; thread t of the quad owns the same
-// dims as in the dq kernel, so the eight keys of a warp read the same 64
-// bytes of a shared query row.
-template <typename T, int NC, typename Mask>
-__global__ void __launch_bounds__(THREADS)
+// dk and dv. G threads share a key; thread t of the group owns the same
+// dims as in the dq kernel, so the 32 / G keys of a warp read the same
+// 16 G bytes of a shared query row.
+template <typename T, int G, int NC, typename Mask>
+__global__ void __launch_bounds__(BN * G)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int Sq, int Sk, int H, int KVH,
-                     float scale, Mask mask) {
-  constexpr int D = 16 * NC;
-  constexpr int D4 = D / 4;
-  __shared__ float4 qs[BM][D4];
-  __shared__ float4 dos[BM][D4];
+                     int D, float scale, Mask mask) {
+  constexpr int THREADS = BN * G;
+  constexpr int D4 = G * NC;
+  extern __shared__ float4 tile_mem[];
+  float4(*qs)[D4] = reinterpret_cast<float4(*)[D4]>(tile_mem);
+  float4(*dos)[D4] = reinterpret_cast<float4(*)[D4]>(tile_mem + BM * D4);
   __shared__ float lses[BM];
   __shared__ float dls[BM];
   __shared__ typename Mask::Tile rows;
 
   const int tid = threadIdx.x;
-  const int j = tid / QUAD;
-  const int t = tid % QUAD;
+  const int j = tid / G;
+  const int t = tid % G;
   const int k0 = blockIdx.x * BN;
   const int bkv = blockIdx.y;
   const int b = bkv / KVH;
@@ -368,10 +382,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float4 av[NC];
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
-    const int c = 16 * i + 4 * t;
+    const int c = 4 * (G * i + t);
+    const bool in = col_ok && c < D;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    kv[i] = col_ok ? load4(k + koff + c) : zero;
-    vv[i] = col_ok ? load4(v + koff + c) : zero;
+    kv[i] = in ? load4(k + koff + c) : zero;
+    vv[i] = in ? load4(v + koff + c) : zero;
     ak[i] = zero;
     av[i] = zero;
   }
@@ -388,7 +403,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int rr = q0 + i;
         float4 qq = make_float4(0.f, 0.f, 0.f, 0.f);
         float4 dd = qq;
-        if (rr < Sq) {
+        if (rr < Sq && 4 * c < D) {
           const size_t off = ((size_t(b) * Sq + rr) * H + h) * D + 4 * c;
           qq = load4(q + off);
           dd = load4(dout + off);
@@ -410,19 +425,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float dp = 0.f;
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          s += dot4(qs[i][4 * c + t], kv[c]);
-          dp += dot4(dos[i][4 * c + t], vv[c]);
+          s += dot4(qs[i][G * c + t], kv[c]);
+          dp += dot4(dos[i][G * c + t], vv[c]);
         }
-        s = quad_sum(s);
-        dp = quad_sum(dp);
+        s = group_sum<G>(s);
+        dp = group_sum<G>(dp);
         const float p = mask.visible(mask.tile_row(rows, q0, i), cinfo)
                             ? __expf(s * scale - lses[i])
                             : 0.f;
         const float ds = p * (dp - dls[i]);
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          axpy4(av[c], p, dos[i][4 * c + t]);
-          axpy4(ak[c], ds, qs[i][4 * c + t]);
+          axpy4(av[c], p, dos[i][G * c + t]);
+          axpy4(ak[c], ds, qs[i][G * c + t]);
         }
       }
       __syncthreads();
@@ -432,21 +447,58 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (col_ok) {
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
-      const int c = 16 * i + 4 * t;
-      store4(dk + koff + c, scale4(ak[i], scale));
-      store4(dv + koff + c, av[i]);
+      const int c = 4 * (G * i + t);
+      if (c < D) {
+        store4(dk + koff + c, scale4(ak[i], scale));
+        store4(dv + koff + c, av[i]);
+      }
     }
   }
 }
 
+// Allow a kernel its dynamic shared memory, once.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  configured = err == cudaSuccess;
+  return err;
+}
+
+// One launch pair of the (G, NC) instance: each kernel's two tiles, 2 x
+// 32 Dp floats, are dynamic shared memory (64 KB at Dp 256).
+template <typename T, int G, int NC, typename Mask>
+cudaError_t run(const T* q, const T* k, const T* v, const T* o,
+                const T* dout, const float* lse, T* dq, T* dk, T* dv,
+                float* delta, int B, int Sq, int Sk, int H, int KVH, int D,
+                float scale, Mask mask, cudaStream_t stream) {
+  constexpr int smem = 2 * BM * G * NC * int(sizeof(float4));
+  static bool dq_ok = false, dkv_ok = false;
+  cudaError_t err =
+      allow_smem(flash_bwd_dq_kernel<T, G, NC, Mask>, smem, dq_ok);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_bwd_dkv_kernel<T, G, NC, Mask>, smem, dkv_ok);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((Sq + BM - 1) / BM, B * H);
+  const dim3 grid_k((Sk + BN - 1) / BN, B * KVH);
+  flash_bwd_dq_kernel<T, G, NC, Mask><<<grid_q, BM * G, smem, stream>>>(
+      q, k, v, o, dout, lse, dq, delta, Sq, Sk, H, KVH, D, scale, mask);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<T, G, NC, Mask><<<grid_k, BN * G, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, KVH, D, scale, mask);
+  return cudaGetLastError();
+}
+
+// The instance of a head dim: 4 threads a row or key and Dp = 16 NC up
+// to 128, 8 threads and Dp = 32 NC above.
 template <typename T, typename Mask>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    void* dq, void* dk, void* dv, float* delta, int B, int Sq,
                    int Sk, int H, int KVH, int D, float scale, Mask mask,
                    cudaStream_t stream) {
-  const dim3 grid_q((Sq + BM - 1) / BM, B * H);
-  const dim3 grid_k((Sk + BN - 1) / BN, B * KVH);
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
@@ -455,24 +507,27 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   T* dqq = static_cast<T*>(dq);
   T* dkk = static_cast<T*>(dk);
   T* dvv = static_cast<T*>(dv);
-  cudaError_t err = cudaSuccess;
-#define FLASH_BWD_CASE(NC)                                                 \
+#define FLASH_BWD_CASE(G, NC)                                              \
   case NC:                                                                 \
-    flash_bwd_dq_kernel<T, NC, Mask><<<grid_q, THREADS, 0, stream>>>(      \
-        qq, kk, vv, oo, gg, lse, dqq, delta, Sq, Sk, H, KVH, scale, mask); \
-    err = cudaGetLastError();                                              \
-    if (err != cudaSuccess) return err;                                    \
-    flash_bwd_dkv_kernel<T, NC, Mask><<<grid_k, THREADS, 0, stream>>>(     \
-        qq, kk, vv, gg, lse, delta, dkk, dvv, Sq, Sk, H, KVH, scale,       \
-        mask);                                                             \
-    break;
-  switch (D / 16) {
-    FLASH_BWD_CASE(1) FLASH_BWD_CASE(2) FLASH_BWD_CASE(3) FLASH_BWD_CASE(4)
-    FLASH_BWD_CASE(5) FLASH_BWD_CASE(6) FLASH_BWD_CASE(7) FLASH_BWD_CASE(8)
-    default: return cudaErrorInvalidValue;
+    return run<T, G, NC, Mask>(qq, kk, vv, oo, gg, lse, dqq, dkk, dvv,     \
+                               delta, B, Sq, Sk, H, KVH, D, scale, mask,   \
+                               stream);
+  if (D <= 128) {
+    switch ((D + 15) / 16) {
+      FLASH_BWD_CASE(4, 1) FLASH_BWD_CASE(4, 2) FLASH_BWD_CASE(4, 3)
+      FLASH_BWD_CASE(4, 4) FLASH_BWD_CASE(4, 5) FLASH_BWD_CASE(4, 6)
+      FLASH_BWD_CASE(4, 7) FLASH_BWD_CASE(4, 8)
+      default: break;
+    }
+  } else {
+    switch ((D + 31) / 32) {
+      FLASH_BWD_CASE(8, 5) FLASH_BWD_CASE(8, 6) FLASH_BWD_CASE(8, 7)
+      FLASH_BWD_CASE(8, 8)
+      default: break;
+    }
   }
 #undef FLASH_BWD_CASE
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 template <typename Mask>
@@ -1121,7 +1176,7 @@ bool tc_route(int dtype, int D) { return dtype == 1 && (D == 64 || D == 128); }
 
 bool bad_shape(int B, int Sq, int Sk, int H, int KVH, int D) {
   return B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH != 0 ||
-         D % 16 != 0 || D < 16 || D > 128 || B * H > 65535 ||
+         D % 8 != 0 || D < 8 || D > MAX_D || B * H > 65535 ||
          B * KVH > 65535;
 }
 

@@ -35,19 +35,25 @@
 //   segment ids and positions are staged beside each K stage, and only
 //   tiles that hold a document boundary, a diagonal or the ragged edge
 //   mask element by element;
-// - CUDA cores (float32 or another D): the arithmetic in float32, 32
-//   query rows a block. Its traffic is at the minimum all the same: each
-//   block loads every key and value tile it needs once into shared
-//   memory and reuses it for 32 query rows; the S x S score matrix never
-//   leaves registers; causal blocks stop at the diagonal and segment
-//   blocks skip 32 x 32 tiles of other documents, so masked tiles cost
-//   nothing. The per-key segment ids and positions of a tile are staged
-//   in shared memory beside it, the query's own stay in registers.
+// - CUDA cores (float32, or bfloat16 at another D): the arithmetic in
+//   float32, 32 query rows a block. Its traffic is at the minimum all the
+//   same: each block loads every key and value tile it needs once into
+//   shared memory and reuses it for 32 query rows; the S x S score matrix
+//   never leaves registers; causal blocks stop at the diagonal and
+//   segment blocks skip 32 x 32 tiles of other documents, so masked tiles
+//   cost nothing. The per-key segment ids and positions of a tile are
+//   staged in shared memory beside it, the query's own stay in registers.
+//   A row is shared by 4 threads up to a padded head dim Dp of 128 and by
+//   8 above it, so that a thread holds at most 32 floats of q and 32 of
+//   the accumulator at any D; D is padded to Dp (a multiple of 16, or of
+//   32 above 128) with zeros in registers and shared memory, and the pad
+//   is never stored. The tiles (up to 64 KB at Dp 256) are dynamic shared
+//   memory.
 //
 // Layout: q [B, Sq, H, D], k / v [B, Sk, KVH, D], out like q, all
 // contiguous, float32 or bfloat16; lse float32 [B, H, Sq]; segment ids and
 // positions int32 [B, Sq] (query side) and [B, Sk] (key side). D is a
-// multiple of 16, at most 128.
+// multiple of 8, from 8 to 256 (the tensor cores take bf16 at 64 and 128).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -63,8 +69,7 @@ namespace {
 
 constexpr int BM = 32;               // query rows per block
 constexpr int BN = 32;               // keys per shared-memory tile
-constexpr int QUAD = 4;              // threads sharing one query row
-constexpr int THREADS = BM * QUAD;   // 128
+constexpr int MAX_D = 256;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -92,6 +97,14 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// Sum over the G threads that share a row (all 32 lanes take part).
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < G; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 // Mask policies (the same two as in flash_bwd.cu). A policy describes a
@@ -178,26 +191,31 @@ struct SegmentMask {
   }
 };
 
-// One block: BM query rows of one (batch, head). Four threads share a row;
-// thread t of the quad owns the dims 16*i + 4*t .. 16*i + 4*t + 3 of q and
-// of the accumulator, so a quad reads 64 contiguous bytes of a shared key
-// row and the eight rows of a warp read the same bytes (a broadcast).
+// One block: BM query rows of one (batch, head). G threads share a row
+// (4, or 8 above a padded head dim of 128); thread t of the group owns the
+// dims 4 G i + 4 t .. 4 G i + 4 t + 3 of q and of the accumulator (i <
+// NC), so a group reads 16 G contiguous bytes of a shared key row and the
+// 32 / G rows of a warp read the same bytes (a broadcast). Dp = 4 G NC is
+// D rounded up; a thread's dims lie all below D or all at or past it (D
+// is a multiple of 8), those past it hold zeros in q and in the tiles, so
+// they add nothing to a score, and are not stored.
 // tiles_ran, when not null, counts the tiles the block computes.
-template <typename T, int NC, typename Mask>  // head dim D = 16 * NC
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int G, int NC, typename Mask>
+__global__ void __launch_bounds__(BM * G)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
-                 float scale, Mask mask, int* tiles_ran) {
-  constexpr int D = 16 * NC;
-  constexpr int D4 = D / 4;
-  __shared__ float4 ks[BN][D4];
-  __shared__ float4 vs[BN][D4];
+                 int D, float scale, Mask mask, int* tiles_ran) {
+  constexpr int THREADS = BM * G;
+  constexpr int D4 = G * NC;   // float4 columns of a padded row
+  extern __shared__ float4 tile_mem[];
+  float4(*ks)[D4] = reinterpret_cast<float4(*)[D4]>(tile_mem);
+  float4(*vs)[D4] = reinterpret_cast<float4(*)[D4]>(tile_mem + BN * D4);
   __shared__ typename Mask::Tile keys;
 
   const int tid = threadIdx.x;
-  const int r = tid / QUAD;
-  const int t = tid % QUAD;
+  const int r = tid / G;
+  const int t = tid % G;
   const int q0 = blockIdx.x * BM;
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -212,7 +230,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qrow = q + ((size_t(b) * Sq + (row_ok ? row : 0)) * H + h) * D;
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
-    qv[i] = row_ok ? load4(qrow + 16 * i + 4 * t) : make_float4(0, 0, 0, 0);
+    const int c = 4 * (G * i + t);
+    qv[i] = row_ok && c < D ? load4(qrow + c) : make_float4(0, 0, 0, 0);
     acc[i] = make_float4(0, 0, 0, 0);
   }
   float m = -INFINITY;
@@ -231,7 +250,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kr = k0 + j;
       float4 kk = make_float4(0, 0, 0, 0);
       float4 vv = kk;
-      if (kr < k_end) {
+      if (kr < k_end && 4 * c < D) {
         const size_t off = ((size_t(b) * Sk + kr) * KVH + kvh) * D + 4 * c;
         kk = load4(k + off);
         vv = load4(v + off);
@@ -248,15 +267,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BN; ++j) {
       float p = 0.f;
 #pragma unroll
-      for (int i = 0; i < NC; ++i) p += dot4(qv[i], ks[j][4 * i + t]);
-      p += __shfl_xor_sync(0xffffffffu, p, 1);
-      p += __shfl_xor_sync(0xffffffffu, p, 2);
+      for (int i = 0; i < NC; ++i) p += dot4(qv[i], ks[j][G * i + t]);
+      p = group_sum<G>(p);
       const bool ok = mask.visible(rinfo, mask.tile_key(keys, k0, j));
       s[j] = ok ? p * scale : -INFINITY;
       tile_max = fmaxf(tile_max, s[j]);
     }
     const float m_new = fmaxf(m, tile_max);
-    if (m_new != -INFINITY) {  // uniform over the quad
+    if (m_new != -INFINITY) {  // uniform over the group
       const float alpha = __expf(m - m_new);
       float psum = 0.f;
 #pragma unroll
@@ -270,7 +288,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         psum += p;
 #pragma unroll
         for (int i = 0; i < NC; ++i) {
-          const float4 vv = vs[j][4 * i + t];
+          const float4 vv = vs[j][G * i + t];
           acc[i].x += p * vv.x; acc[i].y += p * vv.y;
           acc[i].z += p * vv.z; acc[i].w += p * vv.w;
         }
@@ -286,36 +304,67 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = out + ((size_t(b) * Sq + row) * H + h) * D;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
-      store4(orow + 16 * i + 4 * t,
-             make_float4(acc[i].x * inv, acc[i].y * inv, acc[i].z * inv,
-                         acc[i].w * inv));
+      const int c = 4 * (G * i + t);
+      if (c < D) {
+        store4(orow + c, make_float4(acc[i].x * inv, acc[i].y * inv,
+                                     acc[i].z * inv, acc[i].w * inv));
+      }
     }
     if (t == 0) lse[size_t(bh) * Sq + row] = l > 0.f ? m + logf(l) : -INFINITY;
   }
 }
 
+// One launch of the (G, NC) instance: its K and V tiles, 2 BN Dp floats,
+// are dynamic shared memory (64 KB at Dp 256), which the kernel is
+// allowed once.
+template <typename T, int G, int NC, typename Mask>
+cudaError_t run(const T* q, const T* k, const T* v, T* out, float* lse,
+                int B, int Sq, int Sk, int H, int KVH, int D, float scale,
+                Mask mask, int* tiles_ran, cudaStream_t stream) {
+  constexpr int smem = 2 * BN * G * NC * int(sizeof(float4));
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, G, NC, Mask>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((Sq + BM - 1) / BM, B * H);
+  flash_fwd_kernel<T, G, NC, Mask><<<grid, BM * G, smem, stream>>>(
+      q, k, v, out, lse, Sq, Sk, H, KVH, D, scale, mask, tiles_ran);
+  return cudaGetLastError();
+}
+
+// The instance of a head dim: 4 threads a row and Dp = 16 NC up to 128,
+// 8 threads a row and Dp = 32 NC above.
 template <typename T, typename Mask>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int Sq, int Sk, int H, int KVH, int D,
                    float scale, Mask mask, int* tiles_ran,
                    cudaStream_t stream) {
-  const dim3 grid((Sq + BM - 1) / BM, B * H);
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
   T* oo = static_cast<T*>(out);
-#define FLASH_CASE(NC)                                                    \
-  case NC:                                                                \
-    flash_fwd_kernel<T, NC, Mask><<<grid, THREADS, 0, stream>>>(          \
-        qq, kk, vv, oo, lse, Sq, Sk, H, KVH, scale, mask, tiles_ran);     \
-    break;
-  switch (D / 16) {
-    FLASH_CASE(1) FLASH_CASE(2) FLASH_CASE(3) FLASH_CASE(4)
-    FLASH_CASE(5) FLASH_CASE(6) FLASH_CASE(7) FLASH_CASE(8)
-    default: return cudaErrorInvalidValue;
+#define FLASH_CASE(G, NC)                                                   \
+  case NC:                                                                  \
+    return run<T, G, NC, Mask>(qq, kk, vv, oo, lse, B, Sq, Sk, H, KVH, D,   \
+                               scale, mask, tiles_ran, stream);
+  if (D <= 128) {
+    switch ((D + 15) / 16) {
+      FLASH_CASE(4, 1) FLASH_CASE(4, 2) FLASH_CASE(4, 3) FLASH_CASE(4, 4)
+      FLASH_CASE(4, 5) FLASH_CASE(4, 6) FLASH_CASE(4, 7) FLASH_CASE(4, 8)
+      default: break;
+    }
+  } else {
+    switch ((D + 31) / 32) {
+      FLASH_CASE(8, 5) FLASH_CASE(8, 6) FLASH_CASE(8, 7) FLASH_CASE(8, 8)
+      default: break;
+    }
   }
 #undef FLASH_CASE
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 template <typename Mask>
@@ -859,7 +908,7 @@ bool tc_route(int dtype, int D) { return dtype == 1 && (D == 64 || D == 128); }
 
 bool bad_shape(int B, int Sq, int Sk, int H, int KVH, int D) {
   return B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH != 0 ||
-         D % 16 != 0 || D < 16 || D > 128;
+         D % 8 != 0 || D < 8 || D > MAX_D;
 }
 
 }  // namespace

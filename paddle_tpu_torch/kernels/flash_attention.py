@@ -8,9 +8,11 @@ entry has two routes, and ``tensor_core_route`` is the choice: bfloat16 at
 head dim 64 or 128 runs on the tensor cores (``wgmma``, bf16 operands,
 float32 sums, P and dS rounded to bf16 before their products, counted
 ``flash_tc`` / ``flash_bwd_tc`` besides ``flash`` / ``flash_bwd``);
-float32, and any other head dim, runs the float32 CUDA-core kernels. For
-a CUDA tensor each launches its kernel or raises; only a CPU tensor takes the
-plain version (``flash_attention_ref``, ``flash_attention_bwd_ref``). The
+float32, and bfloat16 at any other head dim, runs the float32 CUDA-core
+kernels. Both take every head dim ``D % 8 == 0`` from 8 to 256
+(``MIN_D`` .. ``MAX_D``; the CUDA-core kernels pad D to a multiple of 16,
+or of 32 above 128, with zeros). For a CUDA tensor each launches its
+kernel or raises; only a CPU tensor takes the plain version (``flash_attention_ref``, ``flash_attention_bwd_ref``). The
 forward's plain version has the math of ``sdpa_reference`` (and gives a
 zero row, where the reference gives NaN, for a row that sees no key, as
 the kernel does); the backward gives such a row exact zero gradients.
@@ -52,9 +54,12 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "flash_attention_segments_fwd", "flash_attention_segments_bwd",
            "segment_attention_ref", "segment_attention_bwd_ref",
            "segments_supported", "count_skipped_blocks", "SEG_BLOCK",
-           "seg_tiles"]
+           "seg_tiles", "MIN_D", "MAX_D"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the head dims the kernels take: multiples of 8 in [MIN_D, MAX_D] (the
+# C entries' bad_shape)
+MIN_D, MAX_D = 8, 256
 
 
 def supported(q, k, v) -> bool:
@@ -64,7 +69,8 @@ def supported(q, k, v) -> bool:
     b, sq, h, d = q.shape
     bk, sk, kvh, dk = k.shape
     return (b == bk and d == dk and kvh >= 1 and h % kvh == 0
-            and d % 16 == 0 and 16 <= d <= 128 and sq >= 1 and sk >= 1
+            and d % 8 == 0 and MIN_D <= d <= MAX_D and sq >= 1
+            and sk >= 1
             and q.dtype in _DTYPES and k.dtype == q.dtype
             and v.dtype == q.dtype)
 
@@ -114,7 +120,8 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None):
               f"flash_attention: the CUDA kernel does not take q "
               f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}, "
               f"v {tuple(v.shape)} {v.dtype} (needs [B, S, H, D] with "
-              f"H % KVH == 0, D % 16 == 0, D <= 128, float32 or bfloat16)",
+              f"H % KVH == 0, D % 8 == 0, {MIN_D} <= D <= {MAX_D}, "
+              f"float32 or bfloat16)",
               error=E.InvalidArgumentError)
     E.enforce(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
               "flash_attention: q/k/v must be contiguous",

@@ -1,1 +1,1 @@
-from . import llama, moe  # noqa: F401
+from . import dit, llama, moe  # noqa: F401

@@ -11,7 +11,11 @@ batch), with ``--eager`` its eager main path (the Paddle-surface
 ``F.cross_entropy``, ``optimizer.AdamW``, batch 4 x 2048), or with
 ``--moe`` its MoE training main path (DeepSeekMoE-16B widths, 2 layers,
 capacity dispatch, remat ``"dots"``, materialising cross entropy, bf16
-moments, batch 8 x 1024), takes two warm-up steps, then one step under
+moments, batch 8 x 1024), with ``--dit`` its DiT training main path
+(DiT-XL/2, bf16, remat, float32 moments, 32 latents of 256 tokens), or
+with ``--dit-sample`` one denoising step of its DiT sampling main path
+(a 1-step ``ddim_sample`` of 8 labels under guidance 4.0: one forward
+over 16 rows), takes two warm-up steps, then one step under
 ``torch.profiler``, and prints, on the card:
 
 - host wall time of the profiled step (it ends in a synchronize);
@@ -37,7 +41,7 @@ moments, batch 8 x 1024), takes two warm-up steps, then one step under
 - the dozen kernels that took the most device time.
 
 Run from the repo root: ``python3 scripts/torch_train_profile.py
-[--packed | --eager | --moe]``.
+[--packed | --eager | --moe | --dit | --dit-sample]``.
 """
 from __future__ import annotations
 
@@ -117,21 +121,28 @@ def main() -> int:
                     help="profile the eager (Paddle-surface) main path")
     ap.add_argument("--moe", action="store_true",
                     help="profile the MoE training main path")
+    ap.add_argument("--dit", action="store_true",
+                    help="profile the DiT-XL/2 training main path")
+    ap.add_argument("--dit-sample", action="store_true",
+                    help="profile one DiT-XL/2 denoising step")
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     if not torch.cuda.is_available():
         print("no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from chip_smoke import (MOE_TRAIN_BATCH, MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ,
-                            TRAIN_BATCH, TRAIN_LAYERS, TRAIN_SEQ,
-                            eager_step, eager_train_setup, moe_train_setup,
+    from chip_smoke import (DIT_GUIDANCE, DIT_LABELS, DIT_TRAIN_BATCH,
+                            MOE_TRAIN_BATCH, MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ,
+                            TRAIN_BATCH, TRAIN_LAYERS, TRAIN_SEQ, dit_labels,
+                            dit_train_setup, dit_xl_setup, eager_step,
+                            eager_train_setup, moe_train_setup,
                             packed_train_setup, train_setup)
     import paddle_tpu_torch.nn.functional as PF
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch import optimizer as O
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import fused_ce as FCE
+    from paddle_tpu_torch.models import dit as DIT
     from paddle_tpu_torch.models import llama as L
     from paddle_tpu_torch.models import moe as M
 
@@ -167,6 +178,15 @@ def main() -> int:
 
         def run():
             return eager_step(model, opt, inp, tgt)
+    elif args.dit_sample:
+        cfg, params = dit_xl_setup(torch, dev)
+        labels = dit_labels(torch, dev, cfg)
+        layers = cfg.num_hidden_layers
+        shape = f"{2 * DIT_LABELS}x{cfg.num_patches} dit_sample"
+
+        def run():
+            return DIT.ddim_sample(params, labels, cfg, steps=1,
+                                   guidance_scale=DIT_GUIDANCE).std()
     else:
         if args.packed:
             _, params, state, step, batch, _, packed = packed_train_setup(
@@ -176,6 +196,10 @@ def main() -> int:
             _, params, state, step, batch = moe_train_setup(torch, dev)
             shape = f"{MOE_TRAIN_BATCH}x{MOE_TRAIN_SEQ} moe"
             layers = MOE_TRAIN_LAYERS
+        elif args.dit:
+            cfg, params, state, step, batch = dit_train_setup(torch, dev)
+            shape = f"{DIT_TRAIN_BATCH}x{cfg.num_patches} dit"
+            layers = cfg.num_hidden_layers
         else:
             _, params, state, step, batch = train_setup(torch, dev)
             shape = f"{TRAIN_BATCH}x{TRAIN_SEQ}"

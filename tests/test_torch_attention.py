@@ -141,10 +141,11 @@ def test_flash_supported_guard():
     assert TFA.supported(q, k, k)
     assert not TFA.supported(q, torch.zeros(1, 8, 3, 32),
                              torch.zeros(1, 8, 3, 32))     # H % KVH
-    assert not TFA.supported(torch.zeros(1, 8, 4, 24),
-                             torch.zeros(1, 8, 2, 24),
-                             torch.zeros(1, 8, 2, 24))     # D % 16
-    assert not TFA.supported(torch.zeros(1, 8, 2, 256),
-                             torch.zeros(1, 8, 2, 256),
-                             torch.zeros(1, 8, 2, 256))    # D > 128
+    for d in (24, 72, 256):                                # D % 8, <= 256
+        assert TFA.supported(torch.zeros(1, 8, 4, d), torch.zeros(1, 8, 2, d),
+                             torch.zeros(1, 8, 2, d)), d
+    for d in (4, 12, 264):                                 # D % 8, > 256
+        assert not TFA.supported(torch.zeros(1, 8, 4, d),
+                                 torch.zeros(1, 8, 2, d),
+                                 torch.zeros(1, 8, 2, d)), d
     assert not TFA.supported(q.half(), k.half(), k.half())

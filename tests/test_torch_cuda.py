@@ -542,8 +542,111 @@ def test_single_document_segments_equal_dense_kernels(dev):
             2e-2 * float(b.float().abs().max())
 
 
+# head dims of the CUDA-core route beyond the tensor cores' 64 / 128:
+# under 16, not a multiple of 16, above 128 (8 threads a row)
+CUDA_CORE_DIMS = [8, 24, 40, 72, 136, 192, 256]
+
+
+@pytest.mark.parametrize("d", CUDA_CORE_DIMS)
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_pair_at_every_head_dim(dev, d, dtype, tol, causal):
+    """The dense pair on the CUDA-core route at head dims that are not
+    64 / 128 (GQA 8 / 2, Sq != Sk, ragged S): out within ``tol``, lse
+    within 1e-3 on rows that see a key, dq / dk / dv within ``tol`` of
+    each reference's max |.|; each launch counted off the tensor cores."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    for sq, sk in ((70, 33), (100, 100)):
+        q, k, v, dout = (torch.randn(2, s, h, d, generator=g, device=dev)
+                         .to(dtype) for s, h in ((sq, 8), (sk, 2), (sk, 2),
+                                                 (sq, 8)))
+        K.reset_dispatch_stats()
+        out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+        got = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        assert st["flash"] == st["flash_bwd"] == 1, st
+        assert st["flash_tc"] == st["flash_bwd_tc"] == 0, st
+        ref, ref_lse = FA.flash_attention_ref(q, k, v, causal=causal)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=0)
+        seen = torch.isfinite(ref_lse)
+        assert torch.equal(seen, torch.isfinite(lse))
+        torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-3,
+                                   rtol=0)
+        want = FA.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                          causal=causal)
+        for a, w in zip(got, want):
+            assert a.dtype == dtype and a.shape == w.shape
+            err = float((a.float() - w.float()).abs().max())
+            assert err <= tol * float(w.float().abs().max()), err
+        if causal and sq > sk:
+            assert torch.all(out[:, :sq - sk] == 0)
+            assert torch.all(got[0][:, :sq - sk] == 0)
+
+
+@pytest.mark.parametrize("d", CUDA_CORE_DIMS)
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_segment_pair_at_every_head_dim(dev, d, dtype, tol, causal):
+    """The segment pair on the CUDA-core route at the same head dims, on
+    a packed layout with a padding tail (ragged S) and on Sq != Sk."""
+    g = torch.Generator(device=dev).manual_seed(100 + d)
+    for sq, sk, kind in ((100, 100, "packed"), (70, 90, "cu")):
+        q, k, v, dout = (torch.randn(2, s, h, d, generator=g, device=dev)
+                         .to(dtype) for s, h in ((sq, 8), (sk, 2), (sk, 2),
+                                                 (sq, 8)))
+        segs = _seg_layout(dev, 2, sq, sk, kind)
+        K.reset_dispatch_stats()
+        _check_segment_kernels(q, k, v, dout, segs, causal, tol=tol)
+        st = K.dispatch_stats()
+        assert st["varlen"] == st["varlen_bwd"] == 1, st
+        assert st["varlen_tc"] == st["varlen_bwd_tc"] == 0, st
+
+
+def test_dit_card_matches_cpu(dev):
+    """A float32 DiT at head dim 72 (hidden 144, 2 heads) with nonzero
+    gates, one tree on the card and on the CPU: the forward within 1e-5
+    of the largest value, the loss 1e-5 and each gradient 1e-4 of its
+    max (the flash backward's own float32 tolerance: every gradient
+    passes through it, and cuBLAS sums the tokens in another order); the
+    card through the flash pair, no plain version."""
+    from paddle_tpu_torch.models import dit as DIT
+    cfg = DIT.dit_tiny(hidden_size=144, num_attention_heads=2)
+    cpu = DIT.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    for leaf in L._leaves(cpu):
+        if not leaf.any():
+            leaf.copy_(torch.as_tensor(
+                rng.standard_normal(tuple(leaf.shape)) * 0.02))
+    card = L._map(lambda t: t.to(dev), cpu)
+    x = rng.standard_normal((3, 4, 8, 8)).astype(np.float32)
+    t = np.array([5, 500, 999], np.int32)
+    y = np.array([0, 3, 10], np.int32)
+    batch = (x, t, y, rng.standard_normal(x.shape).astype(np.float32))
+    K.reset_dispatch_stats()
+    got = DIT.forward(card, x, t, y, cfg)
+    loss, grads = L.loss_and_grads(card, batch, cfg, loss=DIT.loss_fn)
+    torch.cuda.synchronize()
+    st = K.dispatch_stats()
+    assert st["flash"] == 2 * cfg.num_hidden_layers, st
+    assert st["flash_bwd"] == cfg.num_hidden_layers, st
+    assert st["flash_ref"] == st["flash_bwd_ref"] == 0, st
+    want = DIT.forward(cpu, x, t, y, cfg)
+    want_loss, want_grads = L.loss_and_grads(cpu, batch, cfg,
+                                             loss=DIT.loss_fn)
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for a, w in zip(L._leaves(grads), L._leaves(want_grads)):
+        assert float((a.cpu() - w).abs().max()) <= \
+            1e-4 * float(w.abs().max())
+
+
 def test_kernels_raise_instead_of_falling_back(dev):
-    q = torch.zeros(1, 8, 2, 24, device=dev)       # head_dim 24: no kernel
+    q = torch.zeros(1, 8, 2, 12, device=dev)       # head_dim 12: no kernel
     with pytest.raises(ValueError):
         FA.flash_attention(q, q, q)
     lse = torch.zeros(1, 2, 8, device=dev)
@@ -574,9 +677,14 @@ def test_kernels_raise_instead_of_falling_back(dev):
         PA.ragged_paged_attention(q64.half(), codes, codes, bt, one,
                                   k_scales=scales, v_scales=scales)
     seg = torch.zeros(1, 8, dtype=torch.int32, device=dev)
-    q24 = torch.zeros(1, 8, 2, 24, device=dev)     # head_dim 24: no kernel
+    q12 = torch.zeros(1, 8, 2, 12, device=dev)     # head_dim 12: no kernel
     with pytest.raises(ValueError):
-        FA.flash_attention_segments(q24, q24, q24, seg, seg, seg, seg)
+        FA.flash_attention_segments(q12, q12, q12, seg, seg, seg, seg)
+    q264 = torch.zeros(1, 8, 2, 264, device=dev)   # above 256: no kernel
+    with pytest.raises(ValueError):
+        FA.flash_attention(q264, q264, q264)
+    with pytest.raises(ValueError):
+        FA.flash_attention_segments(q264, q264, q264, seg, seg, seg, seg)
     with pytest.raises(ValueError):                # segment ids on the CPU
         FA.flash_attention_segments(q, q, q, seg.cpu(), seg, seg, seg)
     with pytest.raises(ValueError):                # float segment ids

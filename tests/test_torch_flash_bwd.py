@@ -143,9 +143,14 @@ def test_bwd_supported_guard():
     q = torch.zeros(1, 8, 4, 32)
     k = torch.zeros(1, 8, 2, 32)
     assert TFA.supported_bwd(q, k, k)
-    assert not TFA.supported_bwd(torch.zeros(1, 8, 4, 24),
-                                 torch.zeros(1, 8, 2, 24),
-                                 torch.zeros(1, 8, 2, 24))     # D % 16
+    for d in (24, 72, 256):                                    # D % 8
+        assert TFA.supported_bwd(torch.zeros(1, 8, 4, d),
+                                 torch.zeros(1, 8, 2, d),
+                                 torch.zeros(1, 8, 2, d)), d
+    for d in (4, 12, 264):                                     # D % 8, D
+        assert not TFA.supported_bwd(torch.zeros(1, 8, 4, d),
+                                     torch.zeros(1, 8, 2, d),
+                                     torch.zeros(1, 8, 2, d)), d
     assert not TFA.supported_bwd(torch.zeros(16384, 1, 8, 16),
                                  torch.zeros(16384, 1, 8, 16),
                                  torch.zeros(16384, 1, 8, 16))  # B * H

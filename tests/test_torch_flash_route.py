@@ -3,7 +3,7 @@
 ``flash_attention.tensor_core_route`` says which kernels a CUDA launch
 runs: bfloat16 at head dim 64 or 128 takes the tensor-core kernels
 (``wgmma``), float32 and every other head dim that ``supported`` takes
-the float32 CUDA-core kernels. The C entries make the same choice
+(``D % 8 == 0``, 8 to 256) the float32 CUDA-core kernels. The C entries make the same choice
 (``tc_route`` in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, in the
 dense and the segment entries); the counters ``flash_tc`` /
 ``flash_bwd_tc`` and ``varlen_tc`` / ``varlen_bwd_tc`` count the
@@ -33,7 +33,8 @@ def _q(dtype, d, h=4, kvh=2, s=8):
     (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
     (torch.float32, 64, False), (torch.float32, 128, False),
     (torch.bfloat16, 16, False), (torch.bfloat16, 48, False),
-    (torch.bfloat16, 112, False)])
+    (torch.bfloat16, 112, False), (torch.bfloat16, 72, False),
+    (torch.bfloat16, 256, False)])
 def test_route_takes_tensor_cores_for_bf16_at_64_and_128(dtype, d, want):
     q, k, v = _q(dtype, d)
     assert FA.supported(q, k, v) and FA.supported_bwd(q, k, v)
@@ -42,11 +43,14 @@ def test_route_takes_tensor_cores_for_bf16_at_64_and_128(dtype, d, want):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_supported_keeps_every_head_dim(dtype):
-    """The tensor-core route narrows nothing: every multiple of 16 up to
-    128 is still taken, in float32 and bfloat16 alike."""
-    for d in range(16, 129, 16):
+    """The tensor-core route narrows nothing: every multiple of 8 from 8
+    to 256 is taken, in float32 and bfloat16 alike; 4, 12 and 264 are
+    not."""
+    for d in range(8, 257, 8):
         assert FA.supported(*_q(dtype, d)), d
-    for d in (8, 24, 144):
+    for d in (24, 72, 256):
+        assert FA.supported(*_q(dtype, d)), d
+    for d in (4, 12, 264):
         assert not FA.supported(*_q(dtype, d)), d
 
 

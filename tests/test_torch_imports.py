@@ -39,7 +39,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) >= 10
     scanned = {str(f.relative_to(_ROOT)) for f in files}
     assert {"optimizer/lr.py", "nn/initializer.py",
-            "incubate/nn/functional.py"} <= scanned
+            "incubate/nn/functional.py", "models/dit.py"} <= scanned
     bad = [(str(f.relative_to(_ROOT)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in _FORBIDDEN]
@@ -87,6 +87,24 @@ def test_generation_and_moe_entry_points_refuse_to_drop_to_cpu(no_cuda):
     # generation follows its parameters' device
     assert TM.generate(params, [[1, 2]], cfg,
                        max_new_tokens=2).device.type == "cpu"
+
+
+def test_dit_entry_points_refuse_to_drop_to_cpu(no_cuda):
+    from paddle_tpu_torch.models import dit as TDIT
+    cfg = TDIT.dit_tiny()
+    with pytest.raises(TE.UnavailableError):
+        TDIT.init_params(cfg)
+    with pytest.raises(TE.UnavailableError):
+        TDIT.params_from_numpy({"pos": torch.zeros(2, 2).numpy()})
+    params = TDIT.init_params(cfg, device="cpu")
+    # sampling and training follow their parameters' device
+    out = TDIT.ddim_sample(params, [1, 2], cfg, steps=2)
+    assert out.device.type == "cpu" and out.shape == (2, 4, 8, 8)
+    x = torch.zeros(2, 4, 8, 8)
+    batch = (x, torch.tensor([3, 4]), torch.tensor([1, 2]), x)
+    step = TDIT.make_train_step(cfg)
+    _, _, loss = step(params, TDIT.adamw_init(params), batch)
+    assert loss.device.type == "cpu"
 
 
 def test_eager_surface_refuses_to_drop_to_cpu(no_cuda):

@@ -389,8 +389,11 @@ def test_segments_supported_rules():
     assert not TFA.segments_supported(q, k, k, sq, sq, sq, sq)   # [B, Sk]
     assert not TFA.segments_supported(q, k, k, sq.float(), sk, sq, sk)
     assert not TFA.segments_supported(q, k, k, sq.numpy(), sk, sq, sk)
-    d24 = torch.zeros(2, 64, 2, 24)
-    assert not TFA.segments_supported(d24, d24, d24, sq, sq, sq, sq)
+    d24 = torch.zeros(2, 64, 2, 24)                 # D % 8, <= 256: taken
+    assert TFA.segments_supported(d24, d24, d24, sq, sq, sq, sq)
+    for d in (12, 264):                             # refused
+        bad = torch.zeros(2, 64, 2, d)
+        assert not TFA.segments_supported(bad, bad, bad, sq, sq, sq, sq)
     with pytest.raises(ValueError, match="tiles_ran"):  # a CUDA counter
         TFA.flash_attention_segments_fwd(
             q, torch.zeros(2, 64, 2, 32), torch.zeros(2, 64, 2, 32), sq, sq,
