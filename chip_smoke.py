@@ -156,20 +156,24 @@ Phases, each printed on its own line; any failure exits non-zero:
     rate and the clip's scale at each step (read after the timed
     window), the clip alone and the scheduler's step alone timed, and
     ``eager_train``'s launch counts, every one on a kernel.
-23. flash_d (in the kernels phase): the flash pair's CUDA-core route at
-    head dims 8, 24, 40, 72, 80, 136, 192 and 256 (``FLASH_DIMS``: under
-    16, not a multiple of 16, above 128), float32 and bf16, GQA 8 / 2:
+23. flash_d (in the kernels phase): the flash pair at head dims 8, 24,
+    40, 72, 80, 136, 192 and 256 (``FLASH_DIMS``: under 16, not a
+    multiple of 16, above 128), float32 and bf16, GQA 8 / 2:
     the dense forward and backward causal at Sq 70 != Sk 100 and not
     causal at a ragged S 100, the segment pair on a packed layout with a
     padding tail and on Sq 70 != Sk 90, each against its plain version at
-    the forward and backward tolerances below, every launch off the
-    tensor cores; then the two DiT-XL/2 records (``phase_dit_kernels``):
-    the forward at the sampling shape ``[16, 256, 16, 72]`` and the
-    backward at the training shape ``[32, 256, 16, 72]``, bf16, not
-    causal, timed beside their plain versions and SDPA;
-24. dit_parity: one float32 DiT at head dim 72 (hidden 144, 2 heads, 2
-    blocks; zero leaves refilled so the gates are not zero) on the card
-    and on the CPU: forward and ``loss_fn`` within ``DIT_PARITY_TOL``,
+    the forward and backward tolerances below, bf16 at 72 on the tensor
+    cores and every other launch off them; then the two DiT-XL/2 records
+    (``phase_dit_kernels``): the forward at the sampling shape ``[16,
+    256, 16, 72]`` and the backward at the training shape ``[32, 256,
+    16, 72]``, bf16, not causal, on the tensor cores, their device times
+    taken in turns with SDPA's (median of ``DIT_TIMING_REPS``), beside
+    their plain versions and the float32 CUDA-core route, then against
+    the waves of blocks they launch;
+24. dit_parity: one DiT at head dim 72 (hidden 144, 2 heads, 2 blocks;
+    zero leaves refilled so the gates are not zero) on the card and on
+    the CPU, float32 (the CUDA cores) and bf16 (the tensor cores):
+    forward and ``loss_fn`` within ``DIT_PARITY_TOL`` / ``DIT_BF16_TOL``,
     step-1 gradients, 3 ``make_train_step`` losses and a 5-step DDIM loop
     (eta 1, guidance 4.0) from the same draws; the card through
     ``flash`` and ``flash_bwd``, no plain version;
@@ -177,13 +181,13 @@ Phases, each printed on its own line; any failure exits non-zero:
     weights from seed 0 with refilled gates) samples 8 labels under
     classifier-free guidance 4.0 (16 rows a forward) in 50 DDIM steps at
     eta 0: ms a step, images/s, peak memory; 1400 flash launches a call
-    (28 a step), all on the CUDA-core route (head dim 72), finite samples;
+    (28 a step), all on the tensor cores (head dim 72), finite samples;
 26. dit_train: the same model, remat on, float32 AdamW moments, lr
     1e-4, 32 latents of 4 x 32 x 32 (the DiT paper's 256 over 8 GPUs):
     2 untimed and 5 timed steps, median step ms, images/s, MFU by 6 N
     tokens (attention's operations not credited), peak memory; the flash
     forward twice a block (remat) and the backward once, both on the
-    CUDA-core route; the loss finite and falling.
+    tensor cores; the loss finite and falling.
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -202,13 +206,16 @@ block-diagonal causal mask.
 
 Every bf16 main path (``main`` and its uniform baseline, ``main_kvq``,
 ``main_wq``, ``generate``, ``moe_main``, ``train``, the padded pass of
-``train_packed``, ``eager_train``, ``moe_train``) must launch the
+``train_packed``, ``eager_train``, ``moe_train``, ``dit_sample``,
+``dit_train``) must launch the
 dense flash kernels only on their tensor-core route (``flash_tc ==
 flash``, ``flash_bwd_tc == flash_bwd``), and the packed pass of
 ``train_packed`` the segment kernels only on theirs (``varlen_tc ==
 varlen``, ``varlen_bwd_tc == varlen_bwd``). The build phase prints the
-registers and spills of every flash kernel (the CUDA-core ones at each
-padded head dim, ``flash_fwd_kernel<bf16,Dp80,DenseMask>``), each
+registers and spills of every flash kernel (the tensor-core ones at
+each head dim they take, ``flash_fwd_tc_kernel<72,DenseTC>``, the
+CUDA-core ones at each padded head dim,
+``flash_fwd_kernel<bf16,Dp80,DenseMask>``), each
 decode kernel (``paged_decode_kernel<q, page, heads>``,
 ``paged_decode_combine_kernel``) and the RMSNorm backward from
 ``ptxas``.
@@ -260,9 +267,10 @@ MOE_HEADS = (16, 16)    # DeepSeekMoE-16B: 16 query and 16 kv heads of 128
 # the packed rung's trace: heavy-tailed document lengths and token ids
 # from one seed, packed into rows of PACKED_SEQ
 PACKED_DOCS, PACKED_SEQ, PACKED_SEED, PACKED_VOCAB = 24, 2048, 7, 32000
-# head dims of the flash pair's CUDA-core route held to the plain
-# versions beyond the tensor cores' 64 / 128 (up to 128: 4 threads a row;
-# above: 8)
+# head dims of the flash pair held to the plain versions beyond the
+# tensor cores' 64 / 128: the CUDA-core route in float32 at each, and in
+# bf16 at each but 72, which takes the tensor cores (up to 128: 4 threads
+# a row; above: 8)
 FLASH_DIMS = (8, 24, 40, 72, 80, 136, 192, 256)
 # DiT: parity within 1e-4 of the largest value (of each gradient's max),
 # card against CPU, float32 at head dim 72: the flash pair's own float32
@@ -271,7 +279,17 @@ FLASH_DIMS = (8, 24, 40, 72, 80, 136, 192, 256)
 # the CPU's; sampling 8 labels under guidance 4.0, 50 DDIM steps;
 # training at the DiT paper's 256 over 8 GPUs, 32 images a card
 DIT_PARITY_TOL = 1e-4
+# bf16 at head dim 72 (the tensor cores), card against CPU, each relative
+# to the largest value: the flash pair's bf16 tolerance (FLASH_TOL,
+# BWD_TOL: one bf16 rounding of P and of dS, which the kernels make and
+# the plain backward does not). The whole bf16-vs-float32 drift of this
+# model on the CPU is at most 8.4e-3 (gradients) and 4.9e-3 (forward).
+DIT_BF16_TOL = 2e-2
 DIT_LABELS, DIT_STEPS, DIT_GUIDANCE = 8, 50, 4.0
+# interleaved repetitions of each timing in phase_dit_kernels (median),
+# and the batches of its waves reading at DiT's [b, 256, 16, 72]
+DIT_TIMING_REPS = 5
+DIT_WAVE_BATCHES = (4, 8, 16, 32)
 DIT_TRAIN_BATCH = 32
 
 
@@ -369,7 +387,8 @@ def _main_requests(vocab, seed=0):
 def _tc_launches(K, kind, want):
     """Assert that one launch of a dense flash kernel (``kind``:
     ``flash`` or ``flash_bwd``) was made since the counters were reset,
-    on the tensor-core route exactly when ``want`` (bf16 at D 64 / 128)."""
+    on the tensor-core route exactly when ``want`` (bf16 at D 64 / 72 /
+    128)."""
     st = K.dispatch_stats()
     assert st[kind] == 1 and st[f"{kind}_tc"] == int(want), st
 
@@ -1846,7 +1865,8 @@ def _seg_layout(torch, dev, b, sq, sk, kind):
 def phase_flash_seg(torch, dev):
     """The segment (sequence-packed) kernels against their plain versions
     on the same card tensors, each launch on the route it must take
-    (bf16 at D 64 / 128 on the tensor cores, float32 on the CUDA cores),
+    (bf16 at D 64 / 128 on the tensor cores, float32 on the CUDA cores;
+    bf16 at D 72 in ``phase_flash_d``),
     then at the packed trace's shape: the skip count at the route's
     tiles, out / lse and grads held to the plain versions, and times of
     kernel, plain version and SDPA with a block-diagonal causal mask."""
@@ -2863,13 +2883,14 @@ def phase_eager_recipe(torch, dev, card, eager_step_ms):
 
 
 def phase_flash_d(torch, dev):
-    """The flash pair's CUDA-core route at ``FLASH_DIMS`` against the
-    plain versions, float32 and bf16, with GQA (8 / 2): the dense forward
-    and backward causal at Sq 70 != Sk 100 and not causal at a ragged S
-    100, then the segment forward and backward on a packed layout with a
-    padding tail (causal) and on documents that differ on the two sides
-    (Sq 70 != Sk 90, not causal). Every launch is counted off the tensor
-    cores (``flash_tc`` / ``varlen_tc`` stay 0)."""
+    """The flash pair at ``FLASH_DIMS`` against the plain versions,
+    float32 and bf16, with GQA (8 / 2): the dense forward and backward
+    causal at Sq 70 != Sk 100 and not causal at a ragged S 100, then the
+    segment forward and backward on a packed layout with a padding tail
+    (causal) and on documents that differ on the two sides (Sq 70 != Sk
+    90, not causal). bf16 at D 72 is counted on the tensor cores
+    (``flash_tc`` / ``varlen_tc`` and the backward's), every other launch
+    off them."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -2883,6 +2904,7 @@ def phase_flash_d(torch, dev):
             f32 = dtype == torch.float32
             ftol = FLASH_F32_TOL if f32 else FLASH_TOL
             btol = BWD_F32_TOL if f32 else BWD_TOL
+            tc_route = dtype == torch.bfloat16 and d == 72
             errs = {}
             for kind, sq, sk, causal in (("dense", 70, 100, True),
                                          ("dense", 100, 100, False),
@@ -2919,8 +2941,9 @@ def phase_flash_d(torch, dev):
                     count, tc = ("varlen", "varlen_bwd"), ("varlen_tc",
                                                            "varlen_bwd_tc")
                 st = K.dispatch_stats()
+                assert FA.tensor_core_route(q) is tc_route
                 assert all(st[c] == 1 for c in count), st
-                assert all(st[c] == 0 for c in tc), st
+                assert all(st[c] == int(tc_route) for c in tc), st
                 seen = torch.isfinite(ref_lse)
                 assert torch.equal(seen, torch.isfinite(lse)), \
                     "flash: rows that see a key differ"
@@ -2933,7 +2956,8 @@ def phase_flash_d(torch, dev):
                 tag = f"{kind}_{'causal' if causal else 'full'}"
                 errs[f"{tag}_fwd"], errs[f"{tag}_bwd"] = fe, be
             _say("flash_d", D=d, dtype=str(dtype).split(".")[-1],
-                 route="cuda_cores", fwd_tol=ftol, bwd_tol=btol,
+                 route="tc" if tc_route else "cuda_cores", fwd_tol=ftol,
+                 bwd_tol=btol,
                  **{k: f"{v:.3g}" for k, v in errs.items()})
 
 
@@ -2961,19 +2985,29 @@ def _dit_refill(torch, params, gen):
 
 
 def phase_dit_parity(torch, dev):
-    """One float32 DiT at head dim 72 (hidden 144, 2 heads, 2 blocks) with
-    refilled gates, one tree on the card and on the CPU: the forward and
-    ``loss_fn`` within ``DIT_PARITY_TOL`` of the largest value, the step-1
-    gradients within ``DIT_PARITY_TOL`` of each tensor's max, 3
-    ``make_train_step`` losses within ``TRAIN_LOSS_RTOL``, and a 5-step
-    ``ddim_sample`` loop (``_ddim_over``, eta 1, guidance 4.0) from the
-    same draws within ``DIT_PARITY_TOL``; the card through ``flash`` and
-    ``flash_bwd``, no plain version."""
+    """One DiT at head dim 72 (hidden 144, 2 heads, 2 blocks) with
+    refilled gates, one tree on the card and on the CPU, in float32 (the
+    flash pair's CUDA-core route) and in bf16 (its tensor cores): the
+    forward and ``loss_fn`` within the dtype's tolerance of the largest
+    value, the step-1 gradients of each tensor's max, 3
+    ``make_train_step`` losses, and a 5-step ``ddim_sample`` loop
+    (``_ddim_over``, eta 1, guidance 4.0) from the same draws. float32
+    holds ``DIT_PARITY_TOL`` (step losses ``TRAIN_LOSS_RTOL``), bf16
+    ``DIT_BF16_TOL`` throughout; the card goes through ``flash`` and
+    ``flash_bwd`` on the route of its dtype, never a plain version."""
+    for dtype in (torch.float32, torch.bfloat16):
+        _dit_parity(torch, dev, dtype)
+
+
+def _dit_parity(torch, dev, dtype):
     import numpy as np
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.models import dit as DIT
     from paddle_tpu_torch.models import llama as L
-    cfg = DIT.dit_tiny(hidden_size=144, num_attention_heads=2)
+    f32 = dtype == torch.float32
+    tol = DIT_PARITY_TOL if f32 else DIT_BF16_TOL
+    step_tol = TRAIN_LOSS_RTOL if f32 else DIT_BF16_TOL
+    cfg = DIT.dit_tiny(hidden_size=144, num_attention_heads=2, dtype=dtype)
     assert cfg.head_dim == 72
     cpu_params = DIT.init_params(cfg, seed=0, device="cpu")
     _dit_refill(torch, cpu_params, torch.Generator().manual_seed(1))
@@ -2990,22 +3024,26 @@ def phase_dit_parity(torch, dev):
     res = {}
     for name, params in (("card", card_params), ("cpu", cpu_params)):
         K.reset_dispatch_stats()
-        out = DIT.forward(params, *batch[:3], cfg).cpu()
+        out = DIT.forward(params, *batch[:3], cfg).float().cpu()
         loss, grads = L.loss_and_grads(params, batch, cfg,
                                        loss=DIT.loss_fn)
-        grads = {k: g.cpu() for k, g in _dit_named(grads)}
+        grads = {k: g.float().cpu() for k, g in _dit_named(grads)}
         state = DIT.adamw_init(params)
         step = DIT.make_train_step(cfg)
         losses = [float(step(params, state, batch)[2]) for _ in range(3)]
         sample = DIT._ddim_over(params, labels, cfg, x_t, noise, steps=5,
-                                eta=1.0, guidance_scale=4.0).cpu()
+                                eta=1.0, guidance_scale=4.0).float().cpu()
         torch.cuda.synchronize()
         stats = K.dispatch_stats()
-        _say("dit_parity", device=name, loss=float(loss), losses=losses,
+        _say("dit_parity", device=name, dtype=str(dtype).split(".")[-1],
+             loss=float(loss), losses=losses,
              **{k: v for k, v in stats.items() if k.startswith("flash")})
         if name == "card":
             assert stats["flash"] > 0 and stats["flash_bwd"] > 0, stats
-            assert stats["flash_tc"] == stats["flash_bwd_tc"] == 0, stats
+            if f32:
+                assert stats["flash_tc"] == stats["flash_bwd_tc"] == 0, stats
+            else:
+                _tc_route_only(stats)
             assert all(v == 0 for k, v in stats.items()
                        if k.endswith("_ref")), stats
         res[name] = (out, float(loss), grads, losses, sample)
@@ -3019,14 +3057,15 @@ def phase_dit_parity(torch, dev):
     grad_err = grad_errs[worst]
     step_err = max(abs(a - b) / abs(b) for a, b in zip(losses, w_losses))
     sample_err = _err(sample, w_sample) / float(w_sample.abs().max())
-    _say("dit_parity", head_dim=cfg.head_dim, fwd_rel_err=fwd_err,
-         loss_rel_err=loss_err, grad_rel_err=grad_err, grad_worst=worst,
-         step_loss_rel_err=step_err, ddim_rel_err=sample_err,
-         tol=DIT_PARITY_TOL, loss_rtol=TRAIN_LOSS_RTOL)
-    assert fwd_err <= DIT_PARITY_TOL and loss_err <= DIT_PARITY_TOL
-    assert grad_err <= DIT_PARITY_TOL, (worst, grad_err)
-    assert step_err <= TRAIN_LOSS_RTOL, (losses, w_losses)
-    assert sample_err <= DIT_PARITY_TOL, sample_err
+    _say("dit_parity", dtype=str(dtype).split(".")[-1],
+         route="cuda_cores" if f32 else "tc", head_dim=cfg.head_dim,
+         fwd_rel_err=fwd_err, loss_rel_err=loss_err, grad_rel_err=grad_err,
+         grad_worst=worst, step_loss_rel_err=step_err,
+         ddim_rel_err=sample_err, tol=tol, loss_rtol=step_tol)
+    assert fwd_err <= tol and loss_err <= tol, (fwd_err, loss_err)
+    assert grad_err <= tol, (worst, grad_err)
+    assert step_err <= step_tol, (losses, w_losses)
+    assert sample_err <= tol, sample_err
     assert bool(torch.isfinite(sample).all())
 
 
@@ -3072,7 +3111,7 @@ def phase_dit_sample(torch, dev, card):
     ``DIT_LABELS`` labels under classifier-free guidance ``DIT_GUIDANCE``
     (twice as many rows a forward), ``DIT_STEPS`` DDIM steps at eta 0:
     one untimed call, then one timed; every attention through the flash
-    kernel's CUDA-core route (head dim 72), no plain version."""
+    kernel's tensor-core route (bf16 at head dim 72), no plain version."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.models import dit as DIT
     t0 = time.perf_counter()
@@ -3107,7 +3146,7 @@ def phase_dit_sample(torch, dev, card):
                        cfg.image_size)
     assert bool(torch.isfinite(x).all()), "dit_sample: non-finite samples"
     assert launches["flash"] == cfg.num_hidden_layers * DIT_STEPS, launches
-    assert launches["flash_tc"] == 0, launches
+    assert launches["flash_tc"] == launches["flash"], launches
     assert all(v == 0 for k, v in launches.items() if k.endswith("_ref"))
     del params
     return launches
@@ -3120,7 +3159,7 @@ def phase_dit_train(torch, dev, card):
     generator, one batch: 2 untimed and 5 timed steps. MFU is 6 N tokens
     a step over 989 TFLOP/s (N = ``count_params``); attention's own
     operations are not credited. The flash forward launches twice a block
-    (remat), the backward once, both on the CUDA-core route."""
+    (remat), the backward once, both on the tensor-core route."""
     import math
 
     from paddle_tpu_torch import kernels as K
@@ -3157,21 +3196,62 @@ def phase_dit_train(torch, dev, card):
     L_ = cfg.num_hidden_layers
     assert launches["flash"] == 2 * L_ * len(times), launches
     assert launches["flash_bwd"] == L_ * len(times), launches
-    assert launches["flash_tc"] == launches["flash_bwd_tc"] == 0, launches
+    _tc_route_only(launches)
     assert all(v == 0 for k, v in launches.items() if k.endswith("_ref"))
     del params, state
     return launches
 
 
+def _device_ms(fn, calls):
+    """Device ms a call of ``fn``: ``torch.profiler``'s device time of
+    every kernel that ``calls`` back-to-back calls launch, over
+    ``calls``. Unlike ``_time_ms`` it does not count the card's waits for
+    the host between short launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages())
+    assert us > 0, "the profiler saw no kernel"
+    return us / calls / 1e3
+
+
+def _interleaved_ms(fns, reps=DIT_TIMING_REPS):
+    """``{name: (median, min, max)}`` ms a call of each ``(timer, fn,
+    iters)`` in ``fns`` (``timer`` is ``_device_ms`` or ``_time_ms``),
+    timed in turns ``reps`` times, so that a drift of the card or its
+    host falls on every entry alike."""
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, (timer, fn, iters) in fns.items():
+            times[name].append(timer(fn, iters))
+    return {name: (sorted(v)[len(v) // 2], min(v), max(v))
+            for name, v in times.items()}
+
+
 def phase_dit_kernels(torch, dev):
     """The two kernel records at DiT-XL/2's shapes, bf16, not causal, on
-    the CUDA-core route: the forward at the sampling shape ``[16, 256, 16,
-    72]`` and the backward at the training shape ``[32, 256, 16, 72]``,
-    each held to its plain version and timed beside it and beside
-    ``scaled_dot_product_attention`` (its backward by autograd). Bounds:
-    the forward's 4 B H S^2 D operations, the backward's five products
-    (q k^T, dout v^T, dv, dq, dk) of 2 B H S^2 D each, at the bf16 peak,
-    against each input read once and each output written once."""
+    the tensor-core route: the forward at the sampling shape ``[16, 256,
+    16, 72]`` and the backward at the training shape ``[32, 256, 16,
+    72]``, each held to its plain version, then timed in turns
+    (``_interleaved_ms``, the median of ``DIT_TIMING_REPS``) beside
+    ``scaled_dot_product_attention`` (its backward by autograd), the plain
+    version and, at the same shape in float32, the CUDA-core route (held
+    to its plain version too; a reading, not a record). The records' ``ms``
+    and ``library_ms`` are device times (``_device_ms``); the lines give
+    beside them each one's back-to-back wrapper time (``_time_ms``),
+    which the host's enqueue paces at these shapes. Bounds: the
+    forward's 4 B H S^2 D operations, the backward's five products (q k^T,
+    dout v^T, dv, dq, dk) of 2 B H S^2 D each, at the bf16 peak, against
+    each input read once and each output written once. Then each kernel
+    at batches of ``DIT_WAVE_BATCHES``, a reading of its time against the
+    waves of blocks it launches (``_dit_waves``)."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -3184,48 +3264,102 @@ def phase_dit_kernels(torch, dev):
         K.reset_dispatch_stats()
         out, lse = FA.flash_attention_fwd(q, k, v)
         torch.cuda.synchronize()
-        _tc_launches(K, "flash", False)
+        _tc_launches(K, "flash", True)
         ref, ref_lse = FA.flash_attention_ref(q, k, v)
         err = _err(out, ref)
-        assert err <= FLASH_TOL and _err(lse, ref_lse) <= LSE_TOL, err
+        lse_err = _err(lse, ref_lse)
+        assert err <= FLASH_TOL and lse_err <= LSE_TOL, (err, lse_err)
         leaves = [x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v)]
+        # the CUDA-core route at the same shape: float32 inputs
+        q32, k32, v32, do32 = (x.float() for x in (q, k, v, dout))
         elem = 2 * b * S * H * D          # bytes of one bf16 [b, S, H, D]
         if kind == "fwd":
-            ms = _time_ms(lambda: FA.flash_attention_fwd(q, k, v), 20)
-            plain_ms = _time_ms(lambda: FA.flash_attention_ref(q, k, v), 5)
+            K.reset_dispatch_stats()
+            o32, l32 = FA.flash_attention_fwd(q32, k32, v32)
+            torch.cuda.synchronize()
+            _tc_launches(K, "flash", False)
+            cc_err = _err(o32, FA.flash_attention_ref(q32, k32, v32)[0])
+            assert cc_err <= FLASH_F32_TOL, cc_err
+
+            def kernel():
+                return FA.flash_attention_fwd(q, k, v)
+
+            def library():
+                return sdpa(*leaves)
+
             with torch.no_grad():
-                library_ms = _time_ms(lambda: sdpa(*leaves), 20)
+                times = _interleaved_ms({
+                    "kernel": (_device_ms, kernel, 20),
+                    "library": (_device_ms, library, 20),
+                    "kernel_wrapper": (_time_ms, kernel, 20),
+                    "library_wrapper": (_time_ms, library, 20),
+                    "cuda_cores": (_time_ms, lambda: FA.flash_attention_fwd(
+                        q32, k32, v32), 10),
+                    "plain": (_time_ms, lambda: FA.flash_attention_ref(
+                        q, k, v), 5)})
             flops = 4.0 * b * H * S * S * D
             nbytes = 4 * elem + 4 * b * H * S         # q k v out, lse
         else:
             K.reset_dispatch_stats()
             got = FA.flash_attention_bwd(q, k, v, out, lse, dout)
             torch.cuda.synchronize()
-            _tc_launches(K, "flash_bwd", False)
+            _tc_launches(K, "flash_bwd", True)
             want = FA.flash_attention_bwd_ref(q, k, v, out, lse, dout)
             err = max(_err(a, w) for a, w in zip(got, want))
             rel = max(_err(a, w) / float(w.float().abs().max())
                       for a, w in zip(got, want))
             assert rel <= BWD_TOL, rel
-            ms = _time_ms(lambda: FA.flash_attention_bwd(
-                q, k, v, out, lse, dout), 10)
-            plain_ms = _time_ms(lambda: FA.flash_attention_bwd_ref(
-                q, k, v, out, lse, dout), 3)
+            o32, l32 = FA.flash_attention_fwd(q32, k32, v32)
+            K.reset_dispatch_stats()
+            got32 = FA.flash_attention_bwd(q32, k32, v32, o32, l32, do32)
+            torch.cuda.synchronize()
+            _tc_launches(K, "flash_bwd", False)
+            want32 = FA.flash_attention_bwd_ref(q32, k32, v32, o32, l32, do32)
+            cc_err = max(_err(a, w) / float(w.abs().max())
+                         for a, w in zip(got32, want32))
+            assert cc_err <= BWD_F32_TOL, cc_err
+            del got32, want32
             lib_out = sdpa(*leaves)
             lib_dout = dout.transpose(1, 2).contiguous()
-            library_ms = _time_ms(lambda: torch.autograd.grad(
-                lib_out, leaves, lib_dout, retain_graph=True), 10)
+
+            def kernel():
+                return FA.flash_attention_bwd(q, k, v, out, lse, dout)
+
+            def library():
+                return torch.autograd.grad(lib_out, leaves, lib_dout,
+                                           retain_graph=True)
+
+            times = _interleaved_ms({
+                "kernel": (_device_ms, kernel, 10),
+                "library": (_device_ms, library, 10),
+                "kernel_wrapper": (_time_ms, kernel, 10),
+                "library_wrapper": (_time_ms, library, 10),
+                "cuda_cores": (_time_ms, lambda: FA.flash_attention_bwd(
+                    q32, k32, v32, o32, l32, do32), 5),
+                "plain": (_time_ms, lambda: FA.flash_attention_bwd_ref(
+                    q, k, v, out, lse, dout), 3)})
             flops = 5 * 2.0 * b * H * S * S * D
             # q, k, v, out, dout, lse read; dq, dk, dv written
             nbytes = 8 * elem + 4 * b * H * S
+        ms, library_ms, plain_ms = (times[n][0] for n in
+                                    ("kernel", "library", "plain"))
         t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
         _say("kernels", kernel=f"flash_{kind}", shape=f"B{b}xS{S}xH{H}xD{D}",
-             dtype="bfloat16", causal=False, route="cuda_cores",
+             dtype="bfloat16", causal=False, route="tc",
              max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
              bound_ms=bound, share_of_bound=bound / ms,
-             tflops=flops / ms / 1e9)
+             tflops=flops / ms / 1e9, vs_library=ms / library_ms,
+             timing="device", wrapper_ms=times["kernel_wrapper"][0],
+             library_wrapper_ms=times["library_wrapper"][0],
+             reps=DIT_TIMING_REPS,
+             **{f"{n}_min_max": f"{lo:.4f}/{hi:.4f}"
+                for n, (_, lo, hi) in times.items()})
+        _say("kernels", kernel=f"flash_{kind}", shape=f"B{b}xS{S}xH{H}xD{D}",
+             dtype="float32", causal=False, route="cuda_cores",
+             err_vs_plain=cc_err, ms=times["cuda_cores"][0],
+             tc_speedup=times["cuda_cores"][0] / ms)
         recs.append({"name": f"flash_{kind}_d72", "route": "cuda",
                      "source": f"paddle_tpu_torch/csrc/flash_{kind}.cu",
                      "replaces": "paddle_tpu/kernels/flash_attention.py:"
@@ -3234,9 +3368,43 @@ def phase_dit_kernels(torch, dev):
                      "bound_ms": bound,
                      "bound_by": "operations" if t_ops >= t_bytes
                      else "bytes", "library_ms": library_ms})
-        del q, k, v, dout, out, lse, ref, leaves
+        del q, k, v, dout, out, lse, ref, leaves, q32, k32, v32, do32, o32
         torch.cuda.empty_cache()
+        _dit_waves(torch, dev, FA, kind, H, S, D)
     return recs
+
+
+def _dit_waves(torch, dev, FA, kind, H, S, D):
+    """The bf16 kernel ``kind`` at ``[b, S, H, D]`` for each b of
+    ``DIT_WAVE_BATCHES``, beside the waves of blocks it launches: B H
+    ceil(S / 128) blocks in each kernel, one resident on each of the
+    card's SMs at a time (registers and shared memory). Device ms
+    (``_device_ms``) that grow by more than the bytes a wave moves are a
+    latency each block pays; back-to-back wrapper ms (``_time_ms``) that
+    do not grow with the waves are the host's enqueue."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ms, wrapper = {}, {}
+    for b in DIT_WAVE_BATCHES:
+        q, k, v, dout = (torch.randn(b, S, H, D, device=dev).bfloat16()
+                         for _ in range(4))
+        out, lse = FA.flash_attention_fwd(q, k, v)
+
+        def call():
+            if kind == "fwd":
+                return FA.flash_attention_fwd(q, k, v)
+            return FA.flash_attention_bwd(q, k, v, out, lse, dout)
+
+        ms[b], wrapper[b] = _device_ms(call, 20), _time_ms(call, 20)
+    waves = {b: b * H * -(-S // 128) / sms for b in ms}
+    lo, hi = min(ms), max(ms)
+    _say("kernels", kernel=f"flash_{kind}", reading="waves", sms=sms,
+         **{f"B{b}": f"{ms[b]:.4f}ms/{wrapper[b]:.4f}wrapper_ms/"
+            f"{waves[b]:.2f}waves" for b in ms},
+         ms_a_wave=(ms[hi] - ms[lo]) / (waves[hi] - waves[lo]),
+         # a block's share of the bytes: 4 (forward) or 8 (backward)
+         # [128, D] bf16 tiles
+         bytes_ms_a_wave=(4 if kind == "fwd" else 8) * 2 * 128 * D * sms
+         / H100_BYTES_PER_S * 1e3)
 
 
 def main() -> int:
@@ -3359,7 +3527,7 @@ def main() -> int:
     # the decode kernel, int8-KV serving for its int8 arm, dense training
     # for the backward, packed training for the segment kernels, eager
     # training for the RMSNorm kernels, DiT sampling and training for the
-    # flash pair's CUDA-core route at head dim 72
+    # flash pair's tensor-core route at head dim 72
     flash["launches"] = launches["flash"]
     paged["launches"] = launches["paged"]
     paged_int8["launches"] = kvq_launches["paged_quant"]

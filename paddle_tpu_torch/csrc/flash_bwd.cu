@@ -41,15 +41,20 @@
 // Bound on the H100: 5 causal products of B*H*S^2*D operations each at
 // least (q k^T, dout v^T, dv, dq, dk; for packed rows over the visible
 // pairs only) against ~(8 B S H D + 2 B S KVH D) bytes: far above ~295
-// operations per byte, so arithmetic bounds it. Both routes recompute
-// q k^T and dout v^T in both kernels (7 products) and need no atomics:
-// - tensor cores (bfloat16 at D = 64 or 128, the route of every main
-//   path, chosen alike by both entries, tc_route; the *_tc_kernel pair
-//   below, over the DenseTC or SegmentTC policy): wgmma in bf16 with
-//   float32 sums. A segment block lists once the 64 x 64 tile pairs it
-//   runs, each warpgroup computes only its own, and only pairs that hold
-//   a document boundary, a diagonal or the ragged edge mask element by
-//   element;
+// operations per byte, so arithmetic bounds a long causal one. A short
+// non-causal one is bounded by bytes: at DiT-XL/2's training shape
+// [32, 256, 16, 72] the 24.2 GFLOP of the five products take 24.4 us at
+// the bf16 peak and the 151 MB read and written 45.2 us at 3.35 TB/s.
+// Both routes recompute q k^T and dout v^T in both kernels (7 products)
+// and need no atomics:
+// - tensor cores (bfloat16 at D = 64, 72 or 128, the route of every
+//   main path, chosen alike by both entries, tc_route; the *_tc_kernel
+//   pair below, over the DenseTC or SegmentTC policy): wgmma in bf16
+//   with float32 sums, tiles at the stored width DS = 64 ceil(D / 64)
+//   and products at the computed width D (hopper_mma.cuh). A segment
+//   block lists once the 64 x 64 tile pairs it runs, each warpgroup
+//   computes only its own, and only pairs that hold a document boundary,
+//   a diagonal or the ragged edge mask element by element;
 // - CUDA cores (float32, or bfloat16 at another D): float32 arithmetic,
 //   32 rows or keys a block. Its traffic is small all the same: every
 //   tile a block loads into shared memory serves 32 rows or keys, the
@@ -66,7 +71,7 @@
 // Layout: q / o / dout / dq [B, Sq, H, D], k / v / dk / dv [B, Sk, KVH, D],
 // all contiguous, float32 or bfloat16; lse and delta float32 [B, H, Sq];
 // segment ids and positions int32 [B, Sq] / [B, Sk]. D is a multiple of
-// 8, from 8 to 256 (the tensor cores take bf16 at 64 and 128).
+// 8, from 8 to 256 (the tensor cores take bf16 at 64, 72 and 128).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -550,11 +555,22 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// ---- the tensor-core route: bfloat16, D = 64 or 128 --------------------
+// ---- the tensor-core route: bfloat16, D = 64, 72 or 128 ----------------
 //
 // The same two kernels on wgmma, with bf16 operands and float32 sums; P
 // and dS are rounded to bf16 before they enter a product, as SDPA's
 // backward rounds them. Blocks are 256 threads, two warpgroups.
+// Widths: the template's D is the computed width. The products over D
+// (S, dP; S^T, dP^T) take k_slices(D) k16 slices, 5 at D 72, and those
+// whose N is D (dQ, dK, dV) run at N = D, 36 floats a thread at D 72;
+// the tiles are stored_width(D) wide (128 at D 72, tc_bwd_smem<72> is
+// tc_bwd_smem<128>). load_tile copies a row's D / 8 chunks and zeroes
+// the next up to 16 k_slices(D) columns; delta and every store cover
+// columns < D only.
+// Bound: at DiT-XL/2's [32, 256, 16, 72] bytes (45.2 us) set it; each
+// block reads its resident tiles once and streams 4 tiles of the other
+// side (S 256 in 64-row tiles), so it too pays its fixed cost (the
+// resident loads, the delta pass) for little work.
 // - dq: 128 query rows of one (batch, head), 64 rows a warpgroup. Q and
 //   dout stay in shared memory; K / V tiles of 64 keys stream through a
 //   2-stage cp.async ring. Per tile: S = Q K^T and dP = dout V^T (wgmma,
@@ -582,11 +598,13 @@ constexpr int TC_ROWS = 128;   // dq: query rows a block; dkv: keys a block
 constexpr int TC_TILE = 64;    // dq: keys a tile; dkv: query rows a tile
 constexpr float LOG2E = 1.4426950408889634f;
 
+// at head dim D: two resident tiles of TC_ROWS rows, a 2-stage ring of
+// two TC_TILE-row tiles (all at the stored width), 2 KB of row statistics
+// and staged segment ids, alignment
 template <int D>
 constexpr int tc_bwd_smem() {
-  // two resident tiles of TC_ROWS rows, a 2-stage ring of two TC_TILE-row
-  // tiles, 2 KB of row statistics and staged segment ids, alignment
-  return (2 * TC_ROWS + 4 * TC_TILE) * D * 2 + 4 * TC_ROWS * 4 + 1024;
+  return (2 * TC_ROWS + 4 * TC_TILE) * hopper::stored_width(D) * 2 +
+         4 * TC_ROWS * 4 + 1024;
 }
 
 // The dense mask: bottom-right-aligned causal (query row r sees keys
@@ -774,12 +792,13 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        float* __restrict__ delta, int Sq, int Sk, int H,
                        int KVH, float scale, const Mask mask) {
   using namespace hopper;
-  constexpr uint32_t TILE = TC_TILE * D * 2;
+  constexpr int DS = stored_width(D);
+  constexpr uint32_t TILE = TC_TILE * DS * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base;
-  const uint32_t sDO = sQ + TC_ROWS * D * 2;
-  const uint32_t sK = sDO + TC_ROWS * D * 2;
+  const uint32_t sDO = sQ + TC_ROWS * DS * 2;
+  const uint32_t sK = sDO + TC_ROWS * DS * 2;
   const uint32_t sV = sK + 2 * TILE;
   float* rowstat = reinterpret_cast<float*>(
       smem_raw + (sV + 2 * TILE - smem_u32(smem_raw)));
@@ -825,7 +844,8 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   if (n_kt > 0) load_kv(0, 0);
   cp_async_commit();
 
-  // delta = rowsum(dout * o) of the block's rows, two threads a row
+  // delta = rowsum(dout * o) of the block's rows over their D columns,
+  // two threads a row
   {
     const int r = tid / 2;
     const int row = q0 + r;
@@ -886,12 +906,12 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
       float s[32], dp[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < k_slices(D); ++kk) {
         wgmma_ss<TC_TILE>(s, desc_k<TC_ROWS>(sQ, 64 * wg, kk),
                           desc_k<TC_TILE>(kt, 0, kk), kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < k_slices(D); ++kk) {
         wgmma_ss<TC_TILE>(dp, desc_k<TC_ROWS>(sDO, 64 * wg, kk),
                           desc_k<TC_TILE>(vt, 0, kk), kk > 0);
       }
@@ -952,12 +972,13 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
                         int H, int KVH, float scale, const Mask mask) {
   using namespace hopper;
-  constexpr uint32_t TILE = TC_TILE * D * 2;
+  constexpr int DS = stored_width(D);
+  constexpr uint32_t TILE = TC_TILE * DS * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sK = base;
-  const uint32_t sV = sK + TC_ROWS * D * 2;
-  const uint32_t sQ = sV + TC_ROWS * D * 2;
+  const uint32_t sV = sK + TC_ROWS * DS * 2;
+  const uint32_t sQ = sV + TC_ROWS * DS * 2;
   const uint32_t sDO = sQ + 2 * TILE;
   const uint32_t sStat = sDO + 2 * TILE;   // [2 stages][lse, delta][64]
   const float* stat = reinterpret_cast<const float*>(
@@ -1050,12 +1071,12 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
       float sT[32], dpT[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < k_slices(D); ++kk) {
         wgmma_ss<TC_TILE>(sT, desc_k<TC_ROWS>(sK, 64 * wg, kk),
                           desc_k<TC_TILE>(qt, 0, kk), kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < k_slices(D); ++kk) {
         wgmma_ss<TC_TILE>(dpT, desc_k<TC_ROWS>(sV, 64 * wg, kk),
                           desc_k<TC_TILE>(dot, 0, kk), kk > 0);
       }
@@ -1164,15 +1185,27 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  return D == 64 ? launch_tc<64>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq,
-                                 Sk, H, KVH, scale, mask, s)
-                 : launch_tc<128>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq,
-                                  Sk, H, KVH, scale, mask, s);
+  switch (D) {   // one instance for each D that tc_route takes
+    case 64:
+      return launch_tc<64>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk, H,
+                           KVH, scale, mask, s);
+    case 72:
+      return launch_tc<72>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk, H,
+                           KVH, scale, mask, s);
+    case 128:
+      return launch_tc<128>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk,
+                            H, KVH, scale, mask, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
-// The route of a dense launch: bf16 at D = 64 or 128 takes the tensor
-// cores (kernels.flash_attention.tensor_core_route is its mirror).
-bool tc_route(int dtype, int D) { return dtype == 1 && (D == 64 || D == 128); }
+// The route of a launch, dense or segment: bf16 at D = 64, 72 or 128
+// takes the tensor cores (kernels.flash_attention.tensor_core_route is
+// its mirror).
+bool tc_route(int dtype, int D) {
+  return dtype == 1 && (D == 64 || D == 72 || D == 128);
+}
 
 bool bad_shape(int B, int Sq, int Sk, int H, int KVH, int D) {
   return B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH != 0 ||

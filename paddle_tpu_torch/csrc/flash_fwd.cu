@@ -25,16 +25,23 @@
 // floating-point operations against (4*B*S*H*D) bytes, far above the
 // card's ~295 operations per byte, so it is bounded by arithmetic (for
 // packed rows, by the visible pairs only: the sum over documents of
-// n(n+1)/2). Two routes, chosen alike by both entries (tc_route):
-// - tensor cores (bfloat16 at D = 64 or 128, the route of every main
-//   path; flash_fwd_tc_kernel below, over the DenseTC or SegmentTC
+// n(n+1)/2). A short non-causal one is bounded by bytes instead: at
+// DiT-XL/2's sampling shape [16, 256, 16, 72] the 4.8 GFLOP take 4.9 us
+// at the bf16 peak and the 38.0 MB of q, k, v, out and lse 11.3 us at
+// 3.35 TB/s. Two routes, chosen alike by both entries (tc_route):
+// - tensor cores (bfloat16 at D = 64, 72 or 128, the route of every
+//   main path; flash_fwd_tc_kernel below, over the DenseTC or SegmentTC
 //   policy): wgmma products in bf16 with float32 sums, 128 query rows a
 //   block, K / V tiles of 128 keys through TMA rings, a producer
-//   warpgroup and two consumers. A segment block lists once the key
-//   tiles it runs (128 x 128 pairs) and walks only those; the keys'
-//   segment ids and positions are staged beside each K stage, and only
-//   tiles that hold a document boundary, a diagonal or the ragged edge
-//   mask element by element;
+//   warpgroup and two consumers. D is the computed width and DS =
+//   64 ceil(D / 64) the stored one (hopper_mma.cuh): D 72 runs in D
+//   128's tiles, S = Q K^T over 5 k16 slices, O += P V at N = 72, and
+//   the columns past 72 are TMA's zero fill, which reads no memory, so
+//   each block moves only its q tile, the key tiles it walks and its
+//   output. A segment block lists once the key tiles it runs (128 x 128
+//   pairs) and walks only those; the keys' segment ids and positions are
+//   staged beside each K stage, and only tiles that hold a document
+//   boundary, a diagonal or the ragged edge mask element by element;
 // - CUDA cores (float32, or bfloat16 at another D): the arithmetic in
 //   float32, 32 query rows a block. Its traffic is at the minimum all the
 //   same: each block loads every key and value tile it needs once into
@@ -53,7 +60,8 @@
 // Layout: q [B, Sq, H, D], k / v [B, Sk, KVH, D], out like q, all
 // contiguous, float32 or bfloat16; lse float32 [B, H, Sq]; segment ids and
 // positions int32 [B, Sq] (query side) and [B, Sk] (key side). D is a
-// multiple of 8, from 8 to 256 (the tensor cores take bf16 at 64 and 128).
+// multiple of 8, from 8 to 256 (the tensor cores take bf16 at 64, 72 and
+// 128).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -385,7 +393,19 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
   return cudaErrorInvalidValue;
 }
 
-// ---- the tensor-core route: bfloat16, D = 64 or 128 --------------------
+// ---- the tensor-core route: bfloat16, D = 64, 72 or 128 ----------------
+//
+// Widths: the template's D is the computed width, the count of every
+// product (S over k_slices(D) k16 slices, O at N = D: 36 floats a thread
+// at D 72); tiles, TMA boxes and shared memory are at the stored width
+// stored_width(D) (128 at D 72: tc_fwd_smem<72> is tc_fwd_smem<128>).
+// The TMA maps carry the real D, so a box past it reads zeros and its
+// expected-tx count stays the whole box.
+//
+// Bound: at DiT-XL/2's [16, 256, 16, 72] bytes (11.3 us) set it, and a
+// 128-row block sees only 2 key tiles of S 256, so its fixed cost (the
+// Q load, the ring's fill, the epilogue) is paid for little work; the
+// 512 blocks keep every SM busy for about four waves.
 //
 // One block holds 128 query rows of one (batch, head) in three warpgroups
 // (FlashAttention-3's roles):
@@ -428,10 +448,12 @@ constexpr int TC_EXTRA = 128;
 // keys each; the last two warps of the producer warpgroup)
 constexpr int TC_STAGERS = TC_BN / 2;
 
+// at head dim D: Q, STAGES x (K, V) at the stored width, the mbarriers,
+// alignment
 template <int D>
 constexpr int tc_fwd_smem() {
-  // Q, STAGES x (K, V), the mbarriers, alignment
-  return (TC_BM + 2 * STAGES * TC_BN) * D * 2 + 32 * STAGES + 8 + 1024;
+  return (TC_BM + 2 * STAGES * TC_BN) * hopper::stored_width(D) * 2 +
+         32 * STAGES + 8 + 1024;
 }
 
 // The dense mask: bottom-right-aligned causal, or none. A q tile walks
@@ -560,8 +582,8 @@ __device__ __forceinline__ void consume(
     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int b, int h,
     int q0, int n_kt, int Sq, int H, float scale_log2, const Mask& mask) {
   using namespace hopper;
-  constexpr uint32_t TILE = TC_BN * D * 2;
-  constexpr int NO = D / 2;
+  constexpr uint32_t TILE = TC_BN * stored_width(D) * 2;
+  constexpr int NO = D / 2;   // O's 64 x D accumulator, floats a thread
   const int tid = threadIdx.x;
   const int wg = warpgroup_index();
   const int warp = (tid % 128) / 32;
@@ -596,7 +618,7 @@ __device__ __forceinline__ void consume(
     const uint32_t kt = sK + (j % STAGES) * TILE;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < k_slices(D); ++kk) {
       wgmma_ss<TC_BN>(s, desc_k<TC_BM>(sQ, 64 * wg, kk),
                       desc_k<TC_BN>(kt, 0, kk), kk > 0);
     }
@@ -728,12 +750,13 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                     int Sq, int H, int KVH, float scale_log2,
                     const Mask mask) {
   using namespace hopper;
-  constexpr uint32_t TILE = TC_BN * D * 2;   // bytes of a K or V tile
-  constexpr uint32_t HALF = TC_BN * 128;     // bytes of a 64-column block
+  constexpr int DS = stored_width(D);
+  constexpr uint32_t TILE = TC_BN * DS * 2;   // bytes of a K or V tile
+  constexpr uint32_t HALF = TC_BN * 128;      // bytes of a 64-column block
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base;
-  const uint32_t sK = sQ + TC_BM * D * 2;
+  const uint32_t sK = sQ + TC_BM * DS * 2;
   const uint32_t sV = sK + STAGES * TILE;
   // mbarriers, one a stage: K full, K empty, V full, V empty; Q full
   const uint32_t bars = sV + STAGES * TILE;
@@ -771,9 +794,10 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     if constexpr (!Mask::kStagesKeys) regs_dealloc<24>();
     const int pt = tid - TC_CONSUMERS;
     if (pt == 0) {
-      mbar_expect_tx(bars + QFULL, TC_BM * D * 2);
+      // every box counts whole, its columns past D (zeros) included
+      mbar_expect_tx(bars + QFULL, TC_BM * DS * 2);
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c) {
+      for (int c = 0; c < DS / 64; ++c) {
         tma_load_4d(sQ + c * TC_BM * 128, &q_map, bars + QFULL, 64 * c, h,
                     q0, b);
       }
@@ -784,14 +808,14 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
         if (j >= STAGES) mbar_wait(bars + KEMPTY + 8 * st, parity);
         mbar_expect_tx(bars + KFULL + 8 * st, TILE);
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < DS / 64; ++c) {
           tma_load_4d(sK + st * TILE + c * HALF, &k_map, bars + KFULL + 8 * st,
                       64 * c, kvh, k0, b);
         }
         if (j >= STAGES) mbar_wait(bars + VEMPTY + 8 * st, parity);
         mbar_expect_tx(bars + VFULL + 8 * st, TILE);
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < DS / 64; ++c) {
           tma_load_4d(sV + st * TILE + c * HALF, &v_map, bars + VFULL + 8 * st,
                       64 * c, kvh, k0, b);
         }
@@ -844,7 +868,8 @@ EncodeTiled encode_tiled() {
 // A TMA map of a contiguous bf16 [B, S, NH, D] tensor whose box is 64
 // columns of `rows` rows of one (batch, head), swizzled by 128 bytes: the
 // shared-memory layout of one 64-column block of a tile (hopper_mma.cuh).
-// Rows past S read as zeros.
+// Rows past S, and columns past D (the second box at D 72 holds 8 real
+// columns), read as zeros.
 bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int NH,
                 int D, int rows) {
   const EncodeTiled encode = encode_tiled();
@@ -896,15 +921,27 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  return D == 64 ? launch_tc<64>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale,
-                                 mask, s)
-                 : launch_tc<128>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale,
-                                  mask, s);
+  switch (D) {   // one instance for each D that tc_route takes
+    case 64:
+      return launch_tc<64>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale, mask,
+                           s);
+    case 72:
+      return launch_tc<72>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale, mask,
+                           s);
+    case 128:
+      return launch_tc<128>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale, mask,
+                            s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
-// The route of a dense launch: bf16 at D = 64 or 128 takes the tensor
-// cores (kernels.flash_attention.tensor_core_route is its mirror).
-bool tc_route(int dtype, int D) { return dtype == 1 && (D == 64 || D == 128); }
+// The route of a launch, dense or segment: bf16 at D = 64, 72 or 128
+// takes the tensor cores (kernels.flash_attention.tensor_core_route is
+// its mirror).
+bool tc_route(int dtype, int D) {
+  return dtype == 1 && (D == 64 || D == 72 || D == 128);
+}
 
 bool bad_shape(int B, int Sq, int Sk, int H, int KVH, int D) {
   return B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH != 0 ||

@@ -2,16 +2,27 @@
 // (flash_fwd.cu, flash_bwd.cu), written as inline PTX so that a build
 // needs no header beyond the CUDA toolkit's and links nothing.
 //
-// Shared-memory tiles. A tile of R rows of D bfloat16 values (D = 64 or
-// 128) is stored as D / 64 column blocks of R rows x 128 bytes, each row's
-// eight 16-byte chunks permuted by the 128-byte swizzle (chunk c of row r
-// at chunk c ^ (r % 8)), every block 1024-byte aligned. That is the layout
+// Widths. A head dim D (64, 72 or 128) is computed at D and stored at
+// DS = 64 ceil(D / 64) (stored_width): a tile is DS columns wide, so D 72
+// takes D 128's tiles, descriptors, TMA boxes and shared-memory budgets.
+// A product whose reduction runs over D takes ceil(D / 16) k16 slices
+// (k_slices: 5 at D 72, whose last reads columns 64-79); one whose N is
+// D runs at N = D (m64n72k16 at D 72). Columns D .. 16 ceil(D / 16) - 1
+// of every tile hold zeros (TMA's out-of-bounds fill past the map's D
+// columns, load_tile's zero chunks), so the fifth slice adds nothing;
+// columns past them are never read.
+//
+// Shared-memory tiles. A tile of R rows of DS bfloat16 values is stored
+// as DS / 64 column blocks of R rows x 128 bytes, each row's eight
+// 16-byte chunks permuted by the 128-byte swizzle (chunk c of row r at
+// chunk c ^ (r % 8)), every block 1024-byte aligned. That is the layout
 // that a wgmma descriptor of swizzle mode 128B reads, both as a K-major
 // operand (rows are M or N, the row's D values are the reduction) and as
-// an MN-major one (rows are the reduction, D is N). Tiles are filled by
-// 16-byte cp.async copies (load_tile) or by TMA, whose 64-column box with
-// the 128-byte swizzle writes the same layout; rows past the tensor's end
-// read as zeros either way.
+// an MN-major one (rows are the reduction, D is N; at N = 72 the product
+// reads the first block whole and 8 columns of the second, one leading
+// offset on). Tiles are filled by 16-byte cp.async copies (load_tile) or
+// by TMA, whose 64-column box with the 128-byte swizzle writes the same
+// layout; rows past the tensor's end read as zeros either way.
 //
 // Products: wgmma.mma_async m64nNk16 with bfloat16 operands and float32
 // sums, A from shared memory (wgmma_ss, B K-major) or from registers
@@ -31,6 +42,14 @@ namespace hopper {
 
 // the shared memory a block can take (227 KB of the SM's 256)
 constexpr int MAX_SMEM = 232448;
+
+// the stored width of head dim D: whole 64-column (128-byte) blocks
+__host__ __device__ constexpr int stored_width(int D) {
+  return 64 * ((D + 63) / 64);
+}
+
+// the k16 slices of a product whose reduction runs over head dim D
+__host__ __device__ constexpr int k_slices(int D) { return (D + 15) / 16; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -122,28 +141,32 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// byte offset of 16-byte chunk c (of D / 8) of row r in a tile of R rows
+// byte offset of 16-byte chunk c (of DS / 8) of row r in a tile of R rows
 template <int R>
 __device__ __forceinline__ uint32_t tile_offset(int r, int c) {
   return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
-// Rows row0 .. row0 + R - 1 of a bf16 matrix (row i at g + i * stride
-// elements, rows >= rows_valid read as zeros) into the tile at smem
-// address tile, by the block's nthreads threads, asynchronously.
+// Rows row0 .. row0 + R - 1 of a bf16 matrix of D columns (row i at
+// g + i * stride elements) into the tile at smem address tile, by the
+// block's nthreads threads, asynchronously: the 2 k_slices(D) 16-byte
+// chunks of a row that the products read, of which the first D / 8 are
+// copied and the rest, like rows >= rows_valid, read as zeros.
 template <int R, int D>
 __device__ __forceinline__ void load_tile(uint32_t tile,
                                           const __nv_bfloat16* g, int row0,
                                           int rows_valid, size_t stride,
                                           int tid, int nthreads) {
-  constexpr int CH = D / 8;   // 16-byte chunks a row
+  constexpr int CH = 2 * k_slices(D);   // 16-byte chunks a row, filled
+  constexpr int VALID = D / 8;          // of which hold data
 #pragma unroll 4
   for (int idx = tid; idx < R * CH; idx += nthreads) {
     const int r = idx / CH;
     const int c = idx % CH;
     const int row = row0 + r;
-    const bool ok = row < rows_valid;
-    const __nv_bfloat16* src = g + size_t(ok ? row : 0) * stride + 8 * c;
+    const bool ok = row < rows_valid && c < VALID;
+    const __nv_bfloat16* src = g + size_t(ok ? row : 0) * stride +
+                               (ok ? 8 * c : 0);
     cp_async16(tile + tile_offset<R>(r, c), src, ok);
   }
 }
@@ -241,7 +264,7 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 }
 
 // K-major operand: rows r0 .. r0 + 63 (A) or all N rows (B) of a tile of
-// R rows, k16 slice kk of its D columns. Eight-row groups lie 1024 bytes
+// R rows, k16 slice kk of its DS columns. Eight-row groups lie 1024 bytes
 // apart; a slice is 32 bytes into its 128-byte row.
 template <int R>
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
@@ -249,8 +272,8 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
                    16, 1024);
 }
 
-// MN-major B operand (the tile's rows are the reduction, its D columns
-// are N): rows 16 kk .. 16 kk + 15 of a tile of R rows. Eight-row groups
+// MN-major B operand (the tile's rows are the reduction, its first D
+// columns are N): rows 16 kk .. 16 kk + 15 of a tile of R rows. Eight-row groups
 // along the reduction lie 1024 bytes apart (stride offset), the 64-column
 // blocks along N R * 128 bytes apart (leading offset).
 template <int R>
@@ -340,6 +363,29 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<72>(float (&d)[36],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35"
+      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

@@ -5,14 +5,21 @@ the hand-written CUDA kernels ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu``, which replace the reference's Pallas
 ``_fwd_kernel`` and ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``. Each C
 entry has two routes, and ``tensor_core_route`` is the choice: bfloat16 at
-head dim 64 or 128 runs on the tensor cores (``wgmma``, bf16 operands,
-float32 sums, P and dS rounded to bf16 before their products, counted
-``flash_tc`` / ``flash_bwd_tc`` besides ``flash`` / ``flash_bwd``);
-float32, and bfloat16 at any other head dim, runs the float32 CUDA-core
-kernels. Both take every head dim ``D % 8 == 0`` from 8 to 256
+head dim 64, 72 or 128 runs on the tensor cores (``wgmma``, bf16
+operands, float32 sums, P and dS rounded to bf16 before their products,
+counted ``flash_tc`` / ``flash_bwd_tc`` besides ``flash`` /
+``flash_bwd``); float32, and bfloat16 at any other head dim, runs the
+float32 CUDA-core kernels. The tensor-core kernels compute at D and store
+their tiles at ``64 * ceil(D / 64)`` columns: DiT-XL/2's 72 runs in D
+128's tiles, its products over D in 5 k16 slices (zeros past 72) and
+those whose N is D at N 72. At DiT's shapes (``[16, 256, 16, 72]``
+forward, ``[32, 256, 16, 72]`` backward) bytes bound them, 0.0113 and
+0.0452 ms on the H100; the columns past 72 are zero fill that reads no
+memory. Both routes take every head dim ``D % 8 == 0`` from 8 to 256
 (``MIN_D`` .. ``MAX_D``; the CUDA-core kernels pad D to a multiple of 16,
 or of 32 above 128, with zeros). For a CUDA tensor each launches its
-kernel or raises; only a CPU tensor takes the plain version (``flash_attention_ref``, ``flash_attention_bwd_ref``). The
+kernel or raises; only a CPU tensor takes the plain version
+(``flash_attention_ref``, ``flash_attention_bwd_ref``). The
 forward's plain version has the math of ``sdpa_reference`` (and gives a
 zero row, where the reference gives NaN, for a row that sees no key, as
 the kernel does); the backward gives such a row exact zero gradients.
@@ -54,7 +61,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "flash_attention_segments_fwd", "flash_attention_segments_bwd",
            "segment_attention_ref", "segment_attention_bwd_ref",
            "segments_supported", "count_skipped_blocks", "SEG_BLOCK",
-           "seg_tiles", "MIN_D", "MAX_D"]
+           "seg_tiles", "MIN_D", "MAX_D", "TC_DIMS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims the kernels take: multiples of 8 in [MIN_D, MAX_D] (the
@@ -75,11 +82,16 @@ def supported(q, k, v) -> bool:
             and v.dtype == q.dtype)
 
 
+# head dims of the tensor-core kernels in bfloat16 (each source's
+# tc_route, one dispatch_tc instance each)
+TC_DIMS = (64, 72, 128)
+
+
 def tensor_core_route(q) -> bool:
-    """Whether a dense launch on ``q`` (a shape ``supported`` takes) runs
-    the tensor-core kernels: bfloat16 at head dim 64 or 128, the choice
-    the C entries ``flash_fwd`` / ``flash_bwd`` make (``tc_route``)."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128)
+    """Whether a launch on ``q`` (a shape ``supported`` takes), dense or
+    segment, runs the tensor-core kernels: bfloat16 at a head dim of
+    ``TC_DIMS``, the choice the C entries make (``tc_route``)."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in TC_DIMS
 
 
 def flash_attention_ref(q, k, v, *, causal=False, scale=None):

@@ -8,7 +8,7 @@ over through numpy without transposes (``params_from_numpy``). Patchify
 is a reshape (no convolution); each block is adaLN-Zero: six modulation
 vectors from the conditioning (timestep MLP plus label embedding), a
 non-causal self-attention through ``sdpa_raw`` (the flash kernels on the
-card: DiT-XL/2's head dim 72 runs their CUDA-core route) and a tanh-GELU
+card: DiT-XL/2's head dim 72 runs their tensor cores in bf16) and a tanh-GELU
 MLP, each gated into the residual. The block loop is a Python loop over
 the stacked axis, each block under ``torch.utils.checkpoint`` when the
 config asks for remat and autograd needs it.

@@ -80,13 +80,13 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, sq, sk, causal):
         assert torch.all(got[0][:, :sq - sk] == 0)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 72, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk", [(48, 48), (33, 70), (70, 33), (200, 200),
                                    (1000, 1000)])
 @pytest.mark.parametrize("heads", [(8, 2), (16, 16)])
 def test_tensor_core_kernels_match_plain(dev, d, causal, sq, sk, heads):
-    """The tensor-core route (bf16, D 64 / 128) against the plain
+    """The tensor-core route (bf16, D 64 / 72 / 128) against the plain
     versions, with grouped kv heads and with as many kv heads as query
     heads (DeepSeekMoE-16B's 16 / 16): out within 2e-2, lse within 1e-3
     on rows that see a key, dq / dk / dv within 2e-2 of each reference's
@@ -469,14 +469,14 @@ def _check_segment_kernels(q, k, v, dout, segs, causal, scale=None,
     assert torch.all(grads[1][pad_k] == 0) and torch.all(grads[2][pad_k] == 0)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 72, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk,kind", [
     (1000, 1000, "packed"), (200, 200, "random"), (70, 90, "cu"),
     (300, 260, "cu"), (128, 128, "packed")])
 def test_tensor_core_segment_kernels_match_plain(dev, d, causal, sq, sk,
                                                  kind):
-    """The segment kernels' tensor-core route (bf16, D 64 / 128) against
+    """The segment kernels' tensor-core route (bf16, D 64 / 72 / 128) against
     their plain versions: ragged S with a padding tail, random ids and
     positions per token (where the skip predicate is only conservative),
     and Sq != Sk; each launch counted on the route."""
@@ -505,6 +505,7 @@ def test_tensor_core_segment_kernels_take_any_scale(dev, scale):
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
                                      (torch.bfloat16, 64),
+                                     (torch.bfloat16, 72),
                                      (torch.bfloat16, 128)])
 def test_segment_tiles_skipped_match_count(dev, dtype, d):
     """The forward kernel computes exactly the tiles that
@@ -543,19 +544,24 @@ def test_single_document_segments_equal_dense_kernels(dev):
 
 
 # head dims of the CUDA-core route beyond the tensor cores' 64 / 128:
-# under 16, not a multiple of 16, above 128 (8 threads a row)
+# under 16, not a multiple of 16, above 128 (8 threads a row); bf16 at 72
+# takes the tensor cores (test_tensor_core_kernels_match_plain), float32
+# at 72 stays here
 CUDA_CORE_DIMS = [8, 24, 40, 72, 136, 192, 256]
+CUDA_CORE_CASES = [(d, dtype, tol) for d in CUDA_CORE_DIMS
+                   for dtype, tol in ((torch.bfloat16, 2e-2),
+                                      (torch.float32, 1e-4))
+                   if not (dtype == torch.bfloat16 and d in FA.TC_DIMS)]
 
 
-@pytest.mark.parametrize("d", CUDA_CORE_DIMS)
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
-                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("d,dtype,tol", CUDA_CORE_CASES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_pair_at_every_head_dim(dev, d, dtype, tol, causal):
     """The dense pair on the CUDA-core route at head dims that are not
-    64 / 128 (GQA 8 / 2, Sq != Sk, ragged S): out within ``tol``, lse
-    within 1e-3 on rows that see a key, dq / dk / dv within ``tol`` of
-    each reference's max |.|; each launch counted off the tensor cores."""
+    64 / 128, bf16 at 72 aside (GQA 8 / 2, Sq != Sk, ragged S): out
+    within ``tol``, lse within 1e-3 on rows that see a key, dq / dk / dv
+    within ``tol`` of each reference's max |.|; each launch counted off
+    the tensor cores."""
     g = torch.Generator(device=dev).manual_seed(d)
     for sq, sk in ((70, 33), (100, 100)):
         q, k, v, dout = (torch.randn(2, s, h, d, generator=g, device=dev)
@@ -586,9 +592,7 @@ def test_flash_pair_at_every_head_dim(dev, d, dtype, tol, causal):
             assert torch.all(got[0][:, :sq - sk] == 0)
 
 
-@pytest.mark.parametrize("d", CUDA_CORE_DIMS)
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
-                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("d,dtype,tol", CUDA_CORE_CASES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_segment_pair_at_every_head_dim(dev, d, dtype, tol, causal):
     """The segment pair on the CUDA-core route at the same head dims, on
@@ -643,6 +647,61 @@ def test_dit_card_matches_cpu(dev):
     for a, w in zip(L._leaves(grads), L._leaves(want_grads)):
         assert float((a.cpu() - w).abs().max()) <= \
             1e-4 * float(w.abs().max())
+
+
+def test_dit_bf16_card_matches_cpu(dev):
+    """The same DiT in bf16, where its head dim 72 takes the flash pair's
+    tensor cores, card against the CPU's plain path: the forward, the loss,
+    each gradient (of its max) and a 5-step DDIM loop (eta 1, guidance
+    4.0, the same draws) within 2e-2 of the largest value, the flash
+    pair's bf16 tolerance (one bf16 rounding of P and of dS, which the
+    kernels make and the plain backward does not; this model's whole
+    bf16-vs-float32 drift on the CPU is at most 8.4e-3); every launch on
+    the tensor cores."""
+    from paddle_tpu_torch.models import dit as DIT
+    cfg = DIT.dit_tiny(hidden_size=144, num_attention_heads=2,
+                       dtype=torch.bfloat16)
+    cpu = DIT.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    for leaf in L._leaves(cpu):
+        if not leaf.any():
+            leaf.copy_(torch.as_tensor(
+                rng.standard_normal(tuple(leaf.shape)) * 0.02))
+    card = L._map(lambda t: t.to(dev), cpu)
+    x = rng.standard_normal((3, 4, 8, 8)).astype(np.float32)
+    t = np.array([5, 500, 999], np.int32)
+    y = np.array([0, 3, 10], np.int32)
+    batch = (x, t, y, rng.standard_normal(x.shape).astype(np.float32))
+    x_t = rng.standard_normal((2, 4, 8, 8)).astype(np.float32)
+    noise = rng.standard_normal((5, 2, 4, 8, 8)).astype(np.float32)
+    labels = np.array([1, 7], np.int32)
+
+    def run(params):
+        out = DIT.forward(params, x, t, y, cfg).float().cpu()
+        loss, grads = L.loss_and_grads(params, batch, cfg, loss=DIT.loss_fn)
+        sample = DIT._ddim_over(params, labels, cfg, x_t, noise, steps=5,
+                                eta=1.0, guidance_scale=4.0)
+        return (out, float(loss), [g.float().cpu() for g in L._leaves(grads)],
+                sample.float().cpu())
+
+    K.reset_dispatch_stats()
+    got = run(card)
+    torch.cuda.synchronize()
+    st = K.dispatch_stats()
+    assert st["flash"] == st["flash_tc"] > 0, st
+    assert st["flash_bwd"] == st["flash_bwd_tc"] == cfg.num_hidden_layers, st
+    assert st["flash_ref"] == st["flash_bwd_ref"] == 0, st
+    want = run(cpu)
+
+    def rel(a, w):
+        return float((a - w).abs().max()) / float(w.abs().max())
+
+    assert rel(got[0], want[0]) <= 2e-2
+    assert abs(got[1] - want[1]) <= 2e-2 * abs(want[1])
+    for a, w in zip(got[2], want[2]):
+        assert rel(a, w) <= 2e-2
+    assert rel(got[3], want[3]) <= 2e-2
+    assert bool(torch.isfinite(got[3]).all())
 
 
 def test_kernels_raise_instead_of_falling_back(dev):
@@ -703,6 +762,15 @@ def test_kernels_raise_instead_of_falling_back(dev):
         FA.flash_attention_segments_fwd(qb, qb, qb, *segs, stats=cuda_cores)
     with pytest.raises(RuntimeError):
         FA.flash_attention_segments_bwd(qb, qb, qb, qb, lse, qb, *segs,
+                                        stats=cuda_cores)
+    # bf16 at D 72 takes the tensor cores or raises: stats at the CUDA-core
+    # tiles, which that route's kernels would take, are refused
+    q72 = torch.zeros(1, 8, 2, 72, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError):
+        FA.flash_attention_segments_fwd(q72, q72, q72, *segs,
+                                        stats=cuda_cores)
+    with pytest.raises(RuntimeError):
+        FA.flash_attention_segments_bwd(q72, q72, q72, q72, lse, q72, *segs,
                                         stats=cuda_cores)
 
     x = torch.zeros(4, 64, device=dev)

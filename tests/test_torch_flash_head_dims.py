@@ -110,7 +110,7 @@ def test_supported_takes_every_multiple_of_8_to_256(dtype):
         assert TFA.supported(q, k, v) and TFA.supported_bwd(q, k, v), d
         assert TFA.segments_supported(q, k, v, seg, seg, seg, seg), d
         assert TFA.tensor_core_route(q) is (dtype == torch.bfloat16
-                                            and d in (64, 128)), d
+                                            and d in (64, 72, 128)), d
     for d in (1, 4, 12, 20, 36, 100, 252, 260, 264, 512):
         q, k, v = _zeros(d, dtype)
         assert not TFA.supported(q, k, v), d
