@@ -187,7 +187,35 @@ Phases, each printed on its own line; any failure exits non-zero:
     2 untimed and 5 timed steps, median step ms, images/s, MFU by 6 N
     tokens (attention's operations not credited), peak memory; the flash
     forward twice a block (remat) and the backward once, both on the
-    tensor cores; the loss finite and falling.
+    tensor cores; the loss finite and falling;
+27. prefix_plane (after ``no_sync``, on ``main``'s weights before they
+    are quantized; bf16 pages of 16, int8 pages of 16, then the same
+    model cast to float32 on float32 pages): 4 prompts of 1024 tokens
+    sharing their first 768, through one ``paged_prefill`` and through a
+    prefill of the prefix plus ``paged_prefill_shared`` of the 256-token
+    tails over its pages; a ``paged_verify_window`` of 4 drafted tokens
+    at 8 sequences of 257-1024 tokens against 4 greedy
+    ``paged_decode_step``s; both functions under
+    ``set_sync_debug_mode("error")``. float32: logits and tail pages
+    within ``PREFIX_F32_TOL`` of the largest value, every argmax equal.
+    bf16 and int8: each function bit for bit against the same math
+    (``prefix_plane_checks``), its difference from the kernel paths a
+    reading under ``PREFIX_DRIFT_GUARD``; wall ms of each beside what it
+    replaces;
+28. guard: the guarded train step (``make_train_step(guard=True)``) at
+    ``train``'s configuration and at ``moe_train``'s: a clean step gives
+    the unguarded step's loss, parameters and moments bit for bit and
+    makes one host sync more than it (counted under
+    ``set_sync_debug_mode("warn")``); ``iinfo(int32).min`` at ``[0, 0]``,
+    ``vocab_size`` at ``[0, 3]`` and a cap of 1e-9 give ``finite`` false
+    and write nothing; the next clean step, with numerics, applies bit
+    for bit and its squared norms tile ``grad_norm`` within
+    ``GUARD_NORM_RTOL``; unguarded, guarded and numerics step ms;
+29. remat_attn: ``train``'s loss and every gradient under remat
+    ``"attn"`` and ``"full"`` equal bit for bit, with 4 and 8 flash
+    forward launches and 4 backward launches; the packed rung's batch
+    the same through the segment kernels; step ms and peak memory of
+    each policy on ``train``'s path.
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -1580,6 +1608,474 @@ def phase_moe_train(torch, dev, card):
     _tc_route_only(launches)
     assert all(v == 0 for k, v in launches.items() if k.endswith("_ref"))
     return launches
+
+
+# guarded train step (A2): a cap every finite step exceeds, and the
+# tolerance of sqrt(sum of the numerics block's gnorm_sq) against
+# grad_norm (float32 sums in another order)
+GUARD_CAP = 1e-9
+GUARD_NORM_RTOL = 1e-5
+GUARD_TIMED = 3         # timed steps of each kind, in turns
+# the paged data plane's prefix pieces (A6) at the serving model: prompts
+# of PREFIX_LEN sharing their first PREFIX_SHARED tokens, and a verify
+# window of VERIFY_C drafted tokens at VERIFY_B sequences. In float32 at
+# full depth both are held to what they replace within PREFIX_F32_TOL of
+# the largest logit (summation order). In bf16 two rounding orders drift
+# apart with depth through the residual stream: between the flash and the
+# plain full prefill 1.1% / 2.7% / 5.5% of the largest logit at 2 / 8 /
+# 32 layers, int8 pages 9.6-11% (H100, this phase at each depth); so in
+# bf16 each function is held bit for bit to the same math (the shared
+# prefill to the full prefill on plain attention; on int8 pages, to the
+# shared prefill over the dequantized prefix), and its difference from
+# the kernel path is a reading under PREFIX_DRIFT_GUARD, a guard against
+# gross faults only
+PREFIX_ROWS, PREFIX_LEN, PREFIX_SHARED = 4, 1024, 768
+VERIFY_B, VERIFY_C = 8, 4
+PREFIX_F32_TOL = 1e-4
+PREFIX_DRIFT_GUARD = 0.15
+
+
+def _tree_copy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v) for k, v in tree.items()}
+    return tree.clone() if hasattr(tree, "clone") else tree
+
+
+def _tree_same(torch, a, b):
+    """Byte equality of two trees of tensors (and host scalars)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_same(torch, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    return a == b
+
+
+def count_syncs(torch, fn):
+    """``(fn(), sites)``: ``fn`` runs under ``set_sync_debug_mode("warn")``;
+    ``sites`` lists ``file:line`` of each synchronizing CUDA call it made
+    (one warning each)."""
+    import os
+    import warnings
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                 if str(w.message).startswith(
+                     "called a synchronizing CUDA operation")]
+
+
+def guard_checks(torch, family, cfg, params, state, batch, timed=0, **kw):
+    """The guarded step's contract on one model (``params`` / ``state``
+    are stepped in place; a copy takes the guarded steps):
+
+    - a clean batch: the guarded step gives the unguarded step's loss,
+      parameters, moments and ``step`` bit for bit;
+    - ``iinfo(int32).min`` at ``[0, 0]``, ``vocab_size`` at ``[0, 3]``
+      and a cap of ``GUARD_CAP``: ``finite`` false, nothing written (the
+      copy stays byte-equal to the unguarded side);
+    - a second clean pair, each step's host syncs counted (the first
+      pair has settled the caching allocator, whose own frees would
+      count), again bit for bit;
+    - then a clean guarded step with numerics applies, bit for bit with
+      the unguarded step, and the squared norms of its numerics block
+      tile ``grad_norm``;
+    - with ``timed``, that many unguarded, guarded and numerics steps in
+      turns: their median ms."""
+    import math
+
+    import numpy as np
+    from paddle_tpu_torch.training.guards import NUMERIC_STATS
+    unguarded = family.make_train_step(cfg, guard=False, **kw)
+    guarded = family.make_train_step(cfg, guard=True, numerics=False, **kw)
+    numerics = family.make_train_step(cfg, guard=True, numerics=True, **kw)
+    gp, gs = _tree_copy(params), _tree_copy(state)
+
+    def same():
+        return _tree_same(torch, params, gp) and _tree_same(torch, state, gs)
+
+    _, _, lu = unguarded(params, state, batch)
+    _, _, lg, h = guarded(gp, gs, batch, math.inf)
+    r = {"clean_finite": bool(h["finite"]),
+         "clean_bitwise": torch.equal(lu, lg) and same(),
+         "loss": float(lu), "grad_norm": float(h["grad_norm"])}
+    for name, (row, col, val) in (("int32_min", (0, 0, np.iinfo(np.int32)
+                                                 .min)),
+                                  ("vocab_size", (0, 3, cfg.vocab_size))):
+        bad = batch.clone()
+        bad[row, col] = val
+        _, _, _, hb = guarded(gp, gs, bad, math.inf)
+        r[f"{name}_finite"] = bool(hb["finite"])
+        r[f"{name}_unchanged"] = same()
+    _, _, lc, hc = guarded(gp, gs, batch, GUARD_CAP)
+    r["cap_finite"] = bool(hc["finite"])
+    r["cap_loss_finite"] = math.isfinite(float(lc))
+    r["cap_unchanged"] = same()
+    (_, _, lu), sites_u = count_syncs(
+        torch, lambda: unguarded(params, state, batch))
+    (_, _, lg, h), sites_g = count_syncs(
+        torch, lambda: guarded(gp, gs, batch, math.inf))
+    r["syncs_unguarded"], r["syncs_guarded"] = len(sites_u), len(sites_g)
+    r["sync_sites_unguarded"] = ",".join(sites_u) or "none"
+    r["sync_sites_guarded"] = ",".join(sites_g) or "none"
+    r["second_clean_bitwise"] = (bool(h["finite"]) and torch.equal(lu, lg)
+                                 and same())
+    _, _, lu = unguarded(params, state, batch)
+    _, _, ln, hn = numerics(gp, gs, batch, math.inf)
+    r["next_clean_finite"] = bool(hn["finite"])
+    r["next_clean_bitwise"] = torch.equal(lu, ln) and same()
+    nm = hn["numerics"]
+    r["numerics_keys"] = all(tuple(s) == NUMERIC_STATS
+                             for grp in nm.values() for s in grp.values())
+    tiled = math.sqrt(sum(float(s["gnorm_sq"].double().sum())
+                          for grp in nm.values() for s in grp.values()))
+    r["norm_tiling_rel_err"] = abs(tiled - float(hn["grad_norm"])) / float(
+        hn["grad_norm"])
+    if timed:
+        times = {"unguarded": [], "guarded": [], "numerics": []}
+        for _ in range(timed):
+            for kind, run in (
+                    ("unguarded", lambda: unguarded(params, state, batch)),
+                    ("guarded", lambda: guarded(gp, gs, batch, math.inf)),
+                    ("numerics", lambda: numerics(gp, gs, batch,
+                                                  math.inf))):
+                t0 = time.perf_counter()
+                float(run()[2])               # waits for the step's end
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+        for kind, ts in times.items():
+            r[f"{kind}_ms"] = sorted(ts)[len(ts) // 2]
+        r["guarded_over_unguarded"] = r["guarded_ms"] / r["unguarded_ms"]
+    return r
+
+
+def _guard_asserts(r):
+    assert r["clean_finite"] and r["clean_bitwise"], r
+    assert r["second_clean_bitwise"], r
+    assert r["syncs_guarded"] == r["syncs_unguarded"] + 1, r
+    for name in ("int32_min", "vocab_size", "cap"):
+        assert not r[f"{name}_finite"] and r[f"{name}_unchanged"], (name, r)
+    assert r["cap_loss_finite"], r
+    assert r["next_clean_finite"] and r["next_clean_bitwise"], r
+    assert r["numerics_keys"], r
+    assert r["norm_tiling_rel_err"] <= GUARD_NORM_RTOL, r
+
+
+def phase_guard(torch, dev, card):
+    """The guarded train step (``guard_checks``) at the dense training
+    main path's configuration and at the MoE rung's."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.models import moe as M
+    for name, setup, family, kw in (("dense", train_setup, L, {}),
+                                    ("moe", moe_train_setup, M,
+                                     {"lr": 1e-4})):
+        cfg, params, state, _, batch = setup(torch, dev)
+        K.reset_dispatch_stats()
+        r = guard_checks(torch, family, cfg, params, state, batch,
+                         timed=GUARD_TIMED, **kw)
+        st = K.dispatch_stats()
+        _say("guard", model=name, card=repr(card), **r, flash=st["flash"],
+             flash_bwd=st["flash_bwd"])
+        _guard_asserts(r)
+        _tc_route_only(st)
+        assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+        del params, state
+        torch.cuda.empty_cache()
+
+
+def remat_attn_checks(torch, cfg, params, batch):
+    """``loss_and_grads`` under remat ``"full"`` and ``"attn"`` on the same
+    weights and batch: ``(bit-identical, {policy: launches and
+    grads_peak_gb})``, the launches of one call each and the peak memory
+    it adds above what was allocated before it (the saved activations,
+    the gradients and the temporaries of the backward)."""
+    import dataclasses
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    out = {}
+    for policy in ("full", "attn"):
+        c = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+        K.reset_dispatch_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, grads = L.loss_and_grads(params, batch, c)
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        st["grads_peak_gb"] = round(
+            (torch.cuda.max_memory_allocated() - base) / 1e9, 4)
+        out[policy] = (loss, grads, st)
+    same = torch.equal(out["full"][0], out["attn"][0]) and _tree_same(
+        torch, out["full"][1], out["attn"][1])
+    return same, {p: o[2] for p, o in out.items()}
+
+
+def phase_remat_attn(torch, dev, card):
+    """Remat ``"attn"`` against ``"full"``: the dense training main path's
+    loss and gradients bit for bit, 4 flash forward launches against 8
+    and 4 backward launches in both; the packed rung's batch the same
+    through the segment kernels; then each policy's step ms and peak
+    memory on the dense path."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import llama as L
+    layers = TRAIN_LAYERS
+    for name, setup, fwd, bwd in (
+            ("dense", train_setup, "flash", "flash_bwd"),
+            ("packed", packed_train_setup, "varlen", "varlen_bwd")):
+        cfg, params, state, _, batch, *_ = setup(torch, dev)
+        same, launches = remat_attn_checks(torch, cfg, params, batch)
+        _say("remat_attn", batch=name, bitwise=same,
+             **{f"{p}_{k}": v[k] for p, v in launches.items()
+                for k in (fwd, bwd, f"{fwd}_tc", f"{bwd}_tc",
+                          "grads_peak_gb")})
+        assert same
+        for p, want in (("full", 2 * layers), ("attn", layers)):
+            st = launches[p]
+            assert st[fwd] == st[f"{fwd}_tc"] == want, (p, st)
+            assert st[bwd] == st[f"{bwd}_tc"] == layers, (p, st)
+            assert all(v == 0 for k, v in st.items() if k.endswith("_ref"))
+        if name == "dense":
+            for policy in ("full", "attn"):
+                c = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+                step = L.make_train_step(c)
+                torch.cuda.reset_peak_memory_stats(dev)
+                times = []
+                for _ in range(4):
+                    t0 = time.perf_counter()
+                    float(step(params, state, batch)[2])
+                    times.append((time.perf_counter() - t0) * 1e3)
+                timed = sorted(times[1:])
+                _say("remat_attn", batch=name, policy=policy,
+                     card=repr(card), step_ms=times[1:],
+                     median_step_ms=timed[len(timed) // 2],
+                     peak_mem_gb=round(
+                         torch.cuda.max_memory_allocated(dev) / 1e9, 3))
+        del params, state
+        torch.cuda.empty_cache()
+
+
+def _strict(torch, fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``: a host read of the
+    device raises."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _wall_ms(torch, fn):
+    """``(fn(), wall ms)`` from a drained card to the end of ``fn``'s
+    work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _rel(a, b):
+    """Max abs difference over the reference's max abs value."""
+    return _err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+def _layer_pages(torch, PG, leaf, rows, dtype):
+    """Every layer's pages ``rows`` of a pool leaf in ``dtype`` (an int8
+    leaf dequantized as the data plane does)."""
+    L = (leaf["q"] if isinstance(leaf, dict) else leaf).shape[0]
+    return torch.stack([PG._kv_pool_gather(PG._layer_leaf(leaf, i), rows,
+                                           dtype) for i in range(L)])
+
+
+def prefix_plane_checks(torch, family, cfg, params, dev, kv_quant, *,
+                        rows=PREFIX_ROWS, plen=PREFIX_LEN,
+                        shared=PREFIX_SHARED, verify_lens=None,
+                        window=VERIFY_C, ps=16):
+    """``paged_prefill_shared`` and ``paged_verify_window`` on the card,
+    each run under ``set_sync_debug_mode("error")`` (a host sync raises):
+
+    - ``rows`` prompts of ``plen`` tokens sharing their first ``shared``:
+      a prefill of the prefix on plain attention (``sdp_kernel(
+      enable_flash=False)``), then a shared prefill of the tails over its
+      pages, against one ``paged_prefill`` of the whole prompts (the flash
+      kernel): ``shared_vs_full`` (logits), ``shared_pages_vs_full``
+      (tail pages). Same math: on full-precision pages the shared prefill
+      must equal the full prefill on plain attention bit for bit, logits
+      and tail pages; on int8
+      pages, the shared prefill over a full-precision pool that holds the
+      int8 prefix dequantized, bit for bit (logits), and its tail pages
+      must lie within half a code step of that pool's;
+    - sequences of ``verify_lens`` tokens (one prefill group): a window of
+      ``window`` tokens against that many greedy ``paged_decode_step``s on
+      a copy of the pool: ``verify_vs_decode`` (logits) and the argmax
+      agreement.
+
+    Returns the readings, the same-math verdicts and wall ms (the second
+    of two runs of each)."""
+    import numpy as np
+    from paddle_tpu_torch.inference import paged as PG
+    from paddle_tpu_torch.nn import functional as PF
+    V = cfg.vocab_size
+    rng = np.random.default_rng(11)
+    npages, ncp = plen // ps, shared // ps
+    prefix = rng.integers(0, V, shared)
+    ids = torch.as_tensor(np.concatenate(
+        [np.tile(prefix, (rows, 1)), rng.integers(0, V, (rows, plen - shared))],
+        axis=1), device=dev)
+    full_rows = torch.arange(rows * npages, device=dev).reshape(rows, npages)
+    tail_rows = full_rows[:, ncp:]
+    ctx_rows = torch.arange(ncp, device=dev).expand(rows, ncp).contiguous()
+    slen = torch.full((rows,), plen, device=dev)
+    tail_slen = slen - shared
+    head_slen = torch.full((1,), shared, device=dev)
+
+    def pools(quant):
+        return PG.init_pool(cfg, rows * npages, ps, device=dev,
+                            kv_quant=quant)
+
+    def shared_prefill(pool):
+        return PG.paged_prefill_shared(
+            family, params, ids[:, shared:], cfg, pool["k"], pool["v"],
+            tail_rows, tail_slen, ctx_rows)
+
+    pool, pool_sh = pools(kv_quant), pools(kv_quant)
+    with PF.sdp_kernel(enable_flash=False):
+        PG.paged_prefill(family, params, ids[:1, :shared], cfg,
+                         pool_sh["k"], pool_sh["v"], ctx_rows[:1], head_slen)
+    r = {}
+    for _ in range(2):
+        want, r["full_prefill_ms"] = _wall_ms(torch, lambda: PG.paged_prefill(
+            family, params, ids, cfg, pool["k"], pool["v"], full_rows, slen))
+        got, r["shared_prefill_ms"] = _wall_ms(
+            torch, lambda: _strict(torch, lambda: shared_prefill(pool_sh)))
+    r["shared_over_full"] = r["shared_prefill_ms"] / r["full_prefill_ms"]
+    flat = tail_rows.reshape(-1)
+    tails = {n: _layer_pages(torch, PG, pool_sh[n], flat, torch.float32)
+             for n in ("k", "v")}
+    r["shared_vs_full"] = _rel(got, want)
+    r["shared_pages_vs_full"] = max(
+        _rel(tails[n], _layer_pages(torch, PG, pool[n], flat,
+                                    torch.float32)) for n in ("k", "v"))
+    if not kv_quant:
+        with PF.sdp_kernel(enable_flash=False):
+            plain = PG.paged_prefill(family, params, ids, cfg, pool["k"],
+                                     pool["v"], full_rows, slen)
+        r["same_math"] = bool(torch.equal(got, plain)) and all(
+            torch.equal(pool_sh[n][:, flat], pool[n][:, flat])
+            for n in ("k", "v"))
+    else:
+        deq = pools(False)
+        for n in ("k", "v"):
+            deq[n][:, :ncp] = _layer_pages(torch, PG, pool_sh[n],
+                                           ctx_rows[0], cfg.dtype)
+        ref = shared_prefill(deq)
+        code_step = {n: pool_sh[n]["s"][:, flat][..., None, None]
+                     for n in ("k", "v")}
+        r["same_math"] = bool(torch.equal(got, ref)) and all(
+            bool(((tails[n] - deq[n][:, flat].float()).abs()
+                  <= 0.501 * code_step[n]).all()) for n in ("k", "v"))
+        del deq
+    del pool, pool_sh
+    lens = (np.linspace(257, plen, VERIFY_B).astype(np.int64)
+            if verify_lens is None else np.asarray(verify_lens))
+    B, S = len(lens), -(-int(lens.max()) // ps) * ps
+    maxp = -(-(int(lens.max()) + window) // ps)
+    bt = torch.arange(B * maxp, device=dev, dtype=torch.int32).reshape(
+        B, maxp)
+    kv_len = torch.as_tensor(lens, device=dev, dtype=torch.int32)
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    steps = [kv_len + i + 1 for i in range(window)]
+    pool = PG.init_pool(cfg, B * maxp, ps, device=dev, kv_quant=kv_quant)
+    logits = PG.paged_prefill(
+        family, params, torch.as_tensor(rng.integers(0, V, (B, S)),
+                                        device=dev), cfg, pool["k"],
+        pool["v"], bt[:, :S // ps].long(), kv_len)
+    first = logits.argmax(-1)
+    base = _tree_copy(pool)
+    del pool
+    for _ in range(2):
+        seq_pool, win_pool = _tree_copy(base), _tree_copy(base)
+
+        def sequential():
+            toks, outs = [first], []
+            for n in steps:
+                outs.append(PG.paged_decode_step(
+                    family, params, seq_pool["k"], seq_pool["v"], bt, n,
+                    toks[-1], cfg))
+                toks.append(outs[-1].argmax(-1))
+            return torch.stack(toks[:window], 1), torch.stack(outs, 1)
+
+        (drafted, seq), r["decode_steps_ms"] = _wall_ms(torch, sequential)
+        got, r["verify_window_ms"] = _wall_ms(torch, lambda: _strict(
+            torch, lambda: PG.paged_verify_window(
+                family, params, drafted, cfg, win_pool["k"], win_pool["v"],
+                bt, kv_len, live)))
+        del seq_pool, win_pool
+    r["window_over_decode_step"] = r["verify_window_ms"] / (
+        r["decode_steps_ms"] / window)
+    r["verify_vs_decode"] = _rel(got, seq)
+    agree = got.argmax(-1) == seq.argmax(-1)
+    r["verify_argmax_agree"] = f"{int(agree.sum())}/{agree.numel()}"
+    r["verify_argmax_all"] = bool(agree.all())
+    r["sync_debug_mode"] = "error"
+    return r
+
+
+def _prefix_asserts(r, exact):
+    """``exact``: float32, within ``PREFIX_F32_TOL`` and every argmax
+    equal (the same-math pair is a reading there: cuBLAS may sum the
+    prefix prefill's rows and the full prefill's, a different count, in
+    other orders, and float32 keeps the last bits that bf16 rounds away);
+    else bf16 weights: the same-math verdict, and the drift from the
+    kernel paths under ``PREFIX_DRIFT_GUARD``."""
+    if exact:
+        assert r["shared_vs_full"] <= PREFIX_F32_TOL, r
+        assert r["shared_pages_vs_full"] <= PREFIX_F32_TOL, r
+        assert r["verify_vs_decode"] <= PREFIX_F32_TOL, r
+        assert r["verify_argmax_all"], r
+        return
+    for key in ("shared_vs_full", "shared_pages_vs_full",
+                "verify_vs_decode"):
+        assert r[key] <= PREFIX_DRIFT_GUARD, (key, r)
+    assert r["same_math"], r
+
+
+def phase_prefix_plane(torch, dev, cfg, params, card):
+    """The rest of the paged data plane (``prefix_plane_checks``) at the
+    serving main path's model and weights: bf16 pages of 16, int8 pages
+    of 16, then the same model in float32 on float32 pages."""
+    import dataclasses
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    for dtype, kv_quant in ((cfg.dtype, False), (cfg.dtype, True),
+                            (torch.float32, False)):
+        c, p = cfg, params
+        if dtype != cfg.dtype:
+            c = dataclasses.replace(cfg, dtype=dtype)
+            p = L._map(lambda t: t.to(dtype), params)
+        K.reset_dispatch_stats()
+        r = prefix_plane_checks(torch, L, c, p, dev, kv_quant)
+        st = K.dispatch_stats()
+        arm = "paged_quant" if kv_quant else "paged"
+        _say("prefix_plane", dtype=str(dtype).removeprefix("torch."),
+             kv_quant=kv_quant, layers=c.num_hidden_layers,
+             card=repr(card), flash=st["flash"], **{arm: st[arm]}, **r)
+        _prefix_asserts(r, exact=dtype == torch.float32)
+        assert st[arm] > 0 and st["flash"] > 0, st
+        assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+        del p
+        torch.cuda.empty_cache()
 
 
 def phase_flash_bwd(torch, dev, batch, seq):
@@ -3488,6 +3984,8 @@ def main() -> int:
          init_s=round(time.perf_counter() - t0, 2))
     phase_no_sync(torch, dev, cfg, params)
     torch.cuda.empty_cache()
+    phase_prefix_plane(torch, dev, cfg, params, smi)
+    torch.cuda.empty_cache()
     launches, main_tokens = phase_main(torch, dev, cfg, params, requests, smi,
                                        uniform=True)
     torch.cuda.empty_cache()
@@ -3519,6 +4017,10 @@ def main() -> int:
     phase_eager_recipe(torch, dev, smi, eager_ms)
     torch.cuda.empty_cache()
     phase_moe_train(torch, dev, smi)
+    torch.cuda.empty_cache()
+    phase_guard(torch, dev, smi)
+    torch.cuda.empty_cache()
+    phase_remat_attn(torch, dev, smi)
     torch.cuda.empty_cache()
     dit_sample_launches = phase_dit_sample(torch, dev, smi)
     torch.cuda.empty_cache()

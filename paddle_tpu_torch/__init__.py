@@ -15,6 +15,7 @@ wrapper takes its plain PyTorch version. Nothing here imports ``jax`` or
 __version__ = "0.1.0"
 
 from . import incubate, nn, optimizer  # noqa: F401
+from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.tensor import to_tensor  # noqa: F401
 from .device import get_device, set_device  # noqa: F401
 from .framework.random import seed  # noqa: F401

@@ -6,14 +6,14 @@ at its default (off): FIFO admission with a page watermark, same-bucket
 grouped prefill padded to a power-of-two page count and group size,
 chunked decode over a fixed slot grid, recompute preemption of the
 youngest request when the page pool runs out, and slot compaction.
-``kv_quant=True`` stores int8 KV pages with one float32 scale per
-(page, kv head), the reference's ``FLAGS_serving_kv_quant`` (the port
-has no flags registry: the option is given to the constructor).
-The model is a family module, ``models.llama`` or ``models.moe``;
-``params`` may also be a weight-only-quantized tree of it
-(``quantize_weights``). The prefix cache, speculative
-decode, deadlines, overload policies, failover and the monitor planes
-are not ported.
+``kv_quant`` (default: ``FLAGS_serving_kv_quant``) stores int8 KV pages
+with one float32 scale per (page, kv head). The model is a family
+module, ``models.llama`` or ``models.moe``; ``params`` may also be a
+weight-only-quantized tree of it (``quantize_weights``). The prefix
+cache, speculative decode, priority admission and tenant caps, overload
+shedding, SLO preemption, failover and the monitor planes are not ported
+(ROADMAP A7): the constructor refuses to build an engine with one of
+their ``FLAGS_serving_*`` flags on.
 
 Where the reference jits one program per chunk, ``_decode_chunk`` is a
 Python loop over ``chunk`` decode steps; the pool is updated in place.
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..core import enforce as E
+from ..core import flags as _flags
 from ..core import resolve_device
 from .paged import PagedKVCache, paged_decode_step, paged_prefill
 
@@ -48,6 +49,14 @@ PAGED_DEFAULT_PAGE = 16
 # paged_candidates(kv_quant=True)[0]); the CUDA int8 arm takes any page
 # size, so this is the default only
 PAGED_QUANT_PAGE = 32
+
+# the flags of the reference's serving options (the engine's, and the
+# elastic controller's fleet burn scaling) that the port does not run yet
+_UNPORTED_FLAGS = ("serving_priority_admission", "serving_tenant_inflight_cap",
+                   "serving_max_queue", "serving_shed_on_burn",
+                   "serving_slo_preemption", "serving_failover",
+                   "serving_prefix_cache", "serving_spec_decode",
+                   "serving_fleet_burn_scaling")
 
 
 class RequestRejected(E.InvalidArgumentError):
@@ -188,17 +197,32 @@ class ServingEngine:
     ``device``. ``device=None`` means the CUDA card and raises without
     one; pass ``device="cpu"`` for the plain versions on the CPU.
 
-    ``kv_quant`` stores the KV pages as int8 codes with per-(page, kv
-    head) float32 scales (about half the bytes of bfloat16 pages), and
-    decodes through the int8 arm of the paged kernel. ``page_size=None``
-    is 32 with ``kv_quant``, else 16."""
+    ``kv_quant`` (default: ``FLAGS_serving_kv_quant``) stores the KV
+    pages as int8 codes with per-(page, kv head) float32 scales (about
+    half the bytes of bfloat16 pages), and decodes through the int8 arm
+    of the paged kernel. ``page_size=None`` is 32 with ``kv_quant``, else
+    16.
+
+    The reference's other serving options (prefix cache, spec decode,
+    priority admission, tenant caps, queue bounds, shedding, SLO
+    preemption, failover, fleet burn scaling) are not ported yet (ROADMAP
+    A7): with any of their ``FLAGS_serving_*`` flags on (true, or a
+    positive cap or depth) the constructor raises
+    ``NotImplementedError``. All off, the default, is the engine
+    above."""
 
     def __init__(self, family, params, config, *, num_slots: int = 8,
                  max_len: Optional[int] = None,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  decode_chunk: int = 4, watermark: float = 0.0,
-                 kv_quant: bool = False, device=None):
+                 kv_quant: Optional[bool] = None, device=None):
+        on = [f"FLAGS_{flag}" for flag in _UNPORTED_FLAGS
+              if _flags.flag_value(flag) > 0]
+        if on:
+            raise NotImplementedError(
+                f"ServingEngine: {', '.join(on)} selects a serving option "
+                f"that is not ported yet (ROADMAP.md queue A item A7)")
         self.device = resolve_device(device)
         E.enforce(params["embed"].device == self.device,
                   f"params lie on {params['embed'].device}, the engine "
@@ -211,7 +235,8 @@ class ServingEngine:
         E.enforce(self.decode_chunk >= 1, "decode_chunk must be >= 1")
         max_len = int(max_len if max_len is not None
                       else config.max_position_embeddings)
-        self.kv_quant = bool(kv_quant)
+        self.kv_quant = bool(_flags.flag_value("serving_kv_quant")
+                             if kv_quant is None else kv_quant)
         if page_size is None:
             page_size = PAGED_QUANT_PAGE if self.kv_quant \
                 else PAGED_DEFAULT_PAGE

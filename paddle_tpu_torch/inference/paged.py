@@ -1,14 +1,21 @@
-"""Paged KV cache: page-pool tensors, block-table allocator and the paged
-prefill/decode data plane (port of ``paddle_tpu/inference/paged.py``;
-full-precision and int8 pools; the prefix cache is not ported).
+"""Paged KV cache: page-pool tensors, block-table allocator, the radix
+prefix cache and the paged data plane (port of
+``paddle_tpu/inference/paged.py``; full-precision and int8 pools).
 
 - ``PageAllocator``: host-side free list and ref-counted pages per
-  sequence; plain Python and numpy, never touches the device.
+  sequence, with the prefix cache's holds (one extra ref a cached page);
+  plain Python and numpy, never touches the device.
+- ``PrefixCache``: radix tree over committed page-aligned prompt
+  prefixes, one node a page, LRU leaf eviction (host Python).
 - ``PagedKVCache``: the pool tensors married to an allocator.
 - ``paged_prefill`` / ``paged_decode_step``: the data plane, generic over
   the model family's decoder seam (``_qkv_proj``-compatible layers,
   ``decode_mlp``, ``_head``), which ``models.llama`` and ``models.moe``
-  both expose.
+  both expose; ``paged_prefill_shared`` (the uncached tail of prompts
+  over cached prefix pages) and ``paged_verify_window`` (a drafted
+  window of tokens in one pass), the pieces the engine's prefix cache
+  and speculative decode call. Those two attend through the masked plain
+  attention (``sdpa_raw`` with ``attn_mask``), as the reference.
 
 Pool layout: ``[L, num_pages + 1, kv_heads, page_size, head_dim]``:
 ``num_pages`` usable pages and one sink page at index ``num_pages``.
@@ -17,11 +24,14 @@ write aimed at it is dropped. Unlike the reference, which replaces its
 donated pool arrays, the port updates the pool tensors in place
 (``index_copy_`` / ``index_put_``). torch raises on an out-of-range
 index where JAX's ``mode="drop"`` drops it, so every write that the
-reference drops (a sentinel row, an inactive slot) is aimed at the sink
-page instead: no row is selected on the host, and the data plane never
-synchronises the host with the card. Nothing reads the sink: the
-allocator never hands it out, block tables never name it, and the
-decode kernel is given the usable pages only.
+reference drops (a sentinel row, an inactive slot, a page past the
+table) is aimed at the sink page instead: no row is selected on the
+host, and the data plane never synchronises the host with the card. The
+allocator never hands the sink out and the decode kernel is given the
+usable pages only. A gather over a block table (``_kv_pool_gather``)
+reads the sink for a sentinel entry, where the reference reads page
+``P - 1`` (JAX clamps the index): both are garbage that the attention
+mask keeps out of every result.
 
 With ``kv_quant`` (the reference's ``FLAGS_serving_kv_quant``) each pool
 leaf is the pair ``{"q": int8 [L, P + 1, kv, ps, hd], "s": float32 [L,
@@ -43,14 +53,15 @@ from ..kernels import dispatched_paged_attention
 from ..models.llama import _head_logits, _mm, _qkv_proj, _rms, layer
 from ..nn.functional.attention import rope_raw, rope_tables, sdpa_raw
 
-__all__ = ["PageAllocator", "PagedKVCache", "init_pool", "paged_prefill",
-           "paged_decode_step"]
+__all__ = ["PageAllocator", "PrefixCache", "PagedKVCache", "init_pool",
+           "paged_prefill", "paged_decode_step", "paged_prefill_shared",
+           "paged_verify_window"]
 
 
 class PageAllocator:
     """Free-list page allocator with per-sequence block tables and
-    ref-counted pages (copy-on-fork). Host-side and O(pages touched);
-    OOM is a ``None`` return with state unchanged."""
+    ref-counted pages (copy-on-fork and prefix sharing). Host-side and
+    O(pages touched); OOM is a ``None`` return with state unchanged."""
 
     def __init__(self, num_pages: int, page_size: int,
                  max_pages_per_seq: int):
@@ -61,6 +72,10 @@ class PageAllocator:
         self.max_pages_per_seq = int(max_pages_per_seq)
         self._free: List[int] = list(range(num_pages - 1, -1, -1))
         self._ref = np.zeros(num_pages, np.int32)
+        # prefix-cache pins: a held page carries one extra ref owned by
+        # the radix cache (0 or 1 a page), so that sequence holds plus
+        # cache holds equal _ref
+        self._cache_hold = np.zeros(num_pages, np.int32)
         # seq_id -> {"pages": [page ids], "len": tokens written}
         self._seqs: Dict[int, dict] = {}
 
@@ -75,8 +90,15 @@ class PageAllocator:
     def pages_for(self, n_tokens: int) -> int:
         return -(-int(n_tokens) // self.page_size)
 
+    def seq_len(self, seq_id: int) -> int:
+        return self._seqs[seq_id]["len"]
+
     def seq_pages(self, seq_id: int) -> List[int]:
         return list(self._seqs[seq_id]["pages"])
+
+    def page_count(self, seq_id: int) -> int:
+        """Pages this sequence holds (no list copy)."""
+        return len(self._seqs[seq_id]["pages"])
 
     def block_row(self, seq_id: int, width: Optional[int] = None
                   ) -> np.ndarray:
@@ -90,15 +112,21 @@ class PageAllocator:
 
     def check_invariants(self):
         """Refcount audit (tests): every page is free (ref 0) or
-        referenced exactly as often as sequences hold it, and the free
-        list is duplicate-free."""
+        referenced exactly as often as sequences and the prefix cache
+        hold it, and the free list is duplicate-free. The cache-hold half
+        is what shows that evicting from the prefix cache never frees a
+        page a live sequence holds."""
         counts = np.zeros(self.num_pages, np.int32)
         for s in self._seqs.values():
             for p in s["pages"]:
                 counts[p] += 1
-        if not np.array_equal(counts, self._ref):
+        if not np.array_equal(counts + self._cache_hold, self._ref):
             raise AssertionError(f"refcount drift: held={counts.tolist()} "
+                                 f"cached={self._cache_hold.tolist()} "
                                  f"ref={self._ref.tolist()}")
+        if np.any(self._cache_hold < 0) or np.any(self._cache_hold > 1):
+            raise AssertionError(
+                f"cache-hold out of range: {self._cache_hold.tolist()}")
         free = set(self._free)
         if len(free) != len(self._free):
             raise AssertionError("duplicate pages on the free list")
@@ -129,6 +157,57 @@ class PageAllocator:
             return None
         self._seqs[seq_id] = {"pages": pages, "len": 0}
         return pages
+
+    def alloc_prefix(self, seq_id: int, shared_pages: List[int],
+                     n_tokens: int) -> Optional[List[int]]:
+        """Create a sequence whose leading pages are shared (refcount
+        bumps): ``shared_pages`` hold the committed KV of a cached prompt
+        prefix, and the rest up to ``n_tokens`` of capacity is taken
+        fresh. The shared region must leave a fresh tail page (the cache
+        matches strictly less than the prompt), so the holder never
+        writes a shared page. None = OOM, state unchanged."""
+        E.enforce(seq_id not in self._seqs,
+                  f"sequence {seq_id} already allocated")
+        need = self.pages_for(n_tokens)
+        E.enforce(need <= self.max_pages_per_seq,
+                  f"{n_tokens} tokens need {need} pages > "
+                  f"max_pages_per_seq {self.max_pages_per_seq}")
+        E.enforce(len(shared_pages) < need,
+                  f"shared prefix ({len(shared_pages)} pages) must "
+                  f"leave a fresh tail page (need {need})")
+        E.enforce(all(self._ref[p] > 0 for p in shared_pages),
+                  "shared prefix references an unreferenced page")
+        fresh = self._take(need - len(shared_pages))
+        if fresh is None:
+            return None
+        for p in shared_pages:
+            self._ref[p] += 1
+        pages = list(shared_pages) + fresh
+        self._seqs[seq_id] = {"pages": pages, "len": 0}
+        return pages
+
+    def cache_hold(self, page: int):
+        """Pin ``page`` with the prefix cache's own ref. Only a committed
+        (referenced) page may be cached: insertion runs at retirement,
+        before the sequence's ``free``."""
+        E.enforce(self._ref[page] > 0,
+                  f"cache_hold on unreferenced page {page}")
+        E.enforce(self._cache_hold[page] == 0,
+                  f"page {page} already cache-held")
+        self._ref[page] += 1
+        self._cache_hold[page] = 1
+
+    def cache_release(self, page: int) -> int:
+        """Drop the cache's pin on ``page``. Returns 1 if the page went to
+        the free list (no live sequence held it), else 0."""
+        E.enforce(self._cache_hold[page] == 1,
+                  f"cache_release on unheld page {page}")
+        self._cache_hold[page] = 0
+        self._ref[page] -= 1
+        if self._ref[page] == 0:
+            self._free.append(page)
+            return 1
+        return 0
 
     def ensure(self, seq_id: int, total_tokens: int
                ) -> Optional[Tuple[List[int], List[Tuple[int, int]]]]:
@@ -186,6 +265,131 @@ class PageAllocator:
             E.enforce(self._ref[p] >= 0, f"double free of page {p}")
             if self._ref[p] == 0:
                 self._free.append(p)
+
+
+class _RadixNode:
+    """One page of cached prefix: ``key`` is the page's token tuple; the
+    path from the root is the page-aligned prefix it completes."""
+    __slots__ = ("key", "page", "children", "parent", "stamp")
+
+    def __init__(self, key, page, parent, stamp):
+        self.key = key
+        self.page = page
+        self.children: Dict[tuple, "_RadixNode"] = {}
+        self.parent = parent
+        self.stamp = stamp
+
+
+class PrefixCache:
+    """Radix tree over committed, page-aligned KV prefixes: one node a
+    page, the edge key that page's token ids.
+
+    With ``PageAllocator``:
+
+    - ``insert`` runs when a request retires, before the sequence's
+      ``free``: only fully committed pages enter, each pinned with
+      ``cache_hold``.
+    - ``match`` returns the longest cached page-aligned prefix strictly
+      shorter than the prompt (the prefill needs at least one tail token
+      for the last position's logits) and refreshes the matched nodes'
+      LRU stamps.
+    - ``evict`` drops LRU leaves whose page no live sequence holds
+      (``_ref == cache_hold``); pinned leaves are skipped.
+
+    The same tokens at the same positions give the same KV, so inserting
+    along an existing node keeps the cached copy."""
+
+    def __init__(self, alloc: PageAllocator):
+        self.alloc = alloc
+        self.page_size = alloc.page_size
+        self.root = _RadixNode(None, None, None, 0)
+        self._clock = 0
+        self._nodes = 0
+        self.evicted_nodes = 0
+
+    @property
+    def nodes(self) -> int:
+        return self._nodes
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def _key(self, tokens, i: int) -> tuple:
+        ps = self.page_size
+        return tuple(int(t) for t in tokens[i * ps:(i + 1) * ps])
+
+    def match(self, tokens) -> Tuple[int, List[int]]:
+        """Longest cached page-aligned prefix of ``tokens`` capped at
+        ``len(tokens) - 1``: ``(n_cached_tokens, pages)``. Touches every
+        matched node's LRU stamp."""
+        limit = (len(tokens) - 1) // self.page_size
+        node, pages = self.root, []
+        stamp = self._tick()
+        i = 0
+        while i < limit:
+            child = node.children.get(self._key(tokens, i))
+            if child is None:
+                break
+            child.stamp = stamp
+            pages.append(child.page)
+            node = child
+            i += 1
+        return i * self.page_size, pages
+
+    def insert(self, tokens, pages: List[int]) -> int:
+        """Insert the committed page-aligned prefix of ``tokens`` (its KV
+        in ``pages``, the retiring sequence's pages). New nodes take a
+        cache hold on their page; existing nodes keep the cached copy.
+        Returns the nodes added."""
+        n_full = min(len(tokens) // self.page_size, len(pages))
+        node, added = self.root, 0
+        stamp = self._tick()
+        for i in range(n_full):
+            key = self._key(tokens, i)
+            child = node.children.get(key)
+            if child is None:
+                self.alloc.cache_hold(pages[i])
+                child = _RadixNode(key, pages[i], node, stamp)
+                node.children[key] = child
+                self._nodes += 1
+                added += 1
+            else:
+                child.stamp = stamp
+            node = child
+        return added
+
+    def reclaimable(self) -> int:
+        """Pages eviction could free now: cache-held pages whose only ref
+        is the cache's."""
+        a = self.alloc
+        return int(np.sum((a._cache_hold > 0) & (a._ref == a._cache_hold)))
+
+    def evict(self, n_pages: int) -> int:
+        """LRU leaf eviction until ``n_pages`` reached the free list or
+        nothing evictable remains. Only leaves whose page would free are
+        dropped (interior nodes become leaves as their subtrees drain).
+        Returns the pages freed."""
+        a = self.alloc
+        freed = 0
+        while freed < n_pages:
+            best = None
+            stack = [self.root]
+            while stack:
+                nd = stack.pop()
+                for ch in nd.children.values():
+                    if ch.children:
+                        stack.append(ch)
+                    elif a._ref[ch.page] == a._cache_hold[ch.page] \
+                            and (best is None or ch.stamp < best.stamp):
+                        best = ch
+            if best is None:
+                break
+            del best.parent.children[best.key]
+            self._nodes -= 1
+            self.evicted_nodes += 1
+            freed += a.cache_release(best.page)
+        return freed
 
 
 def init_pool(config, num_pages: int, page_size: int, dtype=None,
@@ -306,6 +510,17 @@ def _kv_pool_write(leaf, pages, page_rows):
     leaf.index_copy_(0, rows, pages.to(leaf.dtype))
 
 
+def _kv_pool_gather(leaf, rows, dtype):
+    """Pages ``rows`` (any shape of page ids, sink included) of one
+    layer's pool ``leaf`` as ``[*rows.shape, kv, ps, hd]`` in ``dtype``;
+    a quantized leaf dequantizes as the reference: a float32 multiply of
+    codes and scales, then one cast."""
+    if isinstance(leaf, dict):
+        return (leaf["q"][rows].float()
+                * leaf["s"][rows][..., None, None]).to(dtype)
+    return leaf[rows].to(dtype)
+
+
 def _kv_page_append(leaf, rows, off, val):
     """Write one token's ``[n, kv, hd]`` values at slot ``off`` of pages
     ``rows`` (the decode-step write; rows the reference drops are aimed
@@ -331,6 +546,20 @@ def _kv_page_append(leaf, rows, off, val):
     kvi = torch.arange(leaf.shape[1], device=leaf.device)
     leaf.index_put_((rows[:, None], kvi[None, :], off[:, None]),
                     val.to(leaf.dtype))
+
+
+def _to_pages(x, npad, ps):
+    """``[G, npad * ps, kv, hd]`` token rows as ``[G, npad, kv, ps, hd]``
+    page grids."""
+    G, _, kv, hd = x.shape
+    return x.reshape(G, npad, ps, kv, hd).transpose(2, 3)
+
+
+def _from_pages(pages):
+    """``[G, n, kv, ps, hd]`` page grids as ``[G, n * ps, kv, hd]`` token
+    rows."""
+    G, n, kv, ps, hd = pages.shape
+    return pages.transpose(2, 3).reshape(G, n * ps, kv, hd)
 
 
 def paged_prefill(family, params, ids, config, pool_k, pool_v, page_rows,
@@ -361,12 +590,9 @@ def paged_prefill(family, params, ids, config, pool_k, pool_v, page_rows,
         a = sdpa_raw(q, k, v, is_causal=True).reshape(G, S, -1)
         x = x + _mm(a.to(x.dtype), lp["wo"])
         x = family.decode_mlp(x, lp, c)
-        # [G, S, kv, hd] -> [G, npad, kv, ps, hd] page grids
-        _kv_pool_write(_layer_leaf(pool_k, i),
-                       k.reshape(G, npad, ps, kv, hd).transpose(2, 3),
+        _kv_pool_write(_layer_leaf(pool_k, i), _to_pages(k, npad, ps),
                        page_rows)
-        _kv_pool_write(_layer_leaf(pool_v, i),
-                       v.reshape(G, npad, ps, kv, hd).transpose(2, 3),
+        _kv_pool_write(_layer_leaf(pool_v, i), _to_pages(v, npad, ps),
                        page_rows)
     x = _rms(x, params["ln_f"], c.rms_norm_eps)
     last = (slen.long() - 1).clamp(min=0)
@@ -425,3 +651,141 @@ def paged_decode_step(family, params, pool_k, pool_v, block_tables,
         x = family.decode_mlp(x, lp, c)
     x = _rms(x, params["ln_f"], c.rms_norm_eps)
     return _head_logits(x[:, 0, :], family._head(params, c))
+
+
+def paged_prefill_shared(family, params, ids, config, pool_k, pool_v,
+                         page_rows, slen, ctx_rows):
+    """Tail-only prefill over a shared cached prefix: every row owns
+    ``ctx_rows`` ``[G, ncp]`` pages of committed prefix KV (all rows the
+    same cached length ``ctx = ncp * ps``) and prefills only its uncached
+    tail ``ids`` ``[G, S_tail]`` (a page multiple) into ``page_rows``
+    ``[G, S_tail / ps]`` (sentinel rows go to the sink, as in
+    ``paged_prefill``). Tail query ``i`` sits at position ``ctx + i``
+    (rope there) and attends key ``t`` of prefix ++ tail where ``t <= ctx
+    + i``, through the masked plain attention. Returns the logits ``[G,
+    V]`` at tail position ``slen - 1``, those of a full prefill at ``ctx +
+    slen - 1``. Pools are updated in place; nothing is read back to the
+    host."""
+    c = config
+    G, S = ids.shape
+    L, P, kv, ps, hd = (pool_k["q"] if isinstance(pool_k, dict)
+                        else pool_k).shape
+    ncp = ctx_rows.shape[1]
+    E.enforce(S % ps == 0, f"padded tail {S} not a multiple of "
+              f"page_size {ps}")
+    E.enforce(ncp >= 1, "shared prefill needs a cached prefix")
+    ctx, npad = ncp * ps, S // ps
+    x = params["embed"][ids]
+    cos, sin = rope_tables(ctx + S, c.head_dim, theta=c.rope_theta,
+                           device=x.device)
+    cos, sin = cos[ctx:], sin[ctx:]
+    mask = (torch.arange(ctx + S, device=x.device)[None, :]
+            <= torch.arange(S, device=x.device)[:, None] + ctx)[None, None]
+    for i in range(c.num_hidden_layers):
+        lp = layer(params, i)
+        kpl, vpl = _layer_leaf(pool_k, i), _layer_leaf(pool_v, i)
+        h = _rms(x, lp["ln1"], c.rms_norm_eps)
+        q, k, v = _qkv_proj(h, lp, c)
+        q = rope_raw(q, cos, sin)
+        k = rope_raw(k, cos, sin)
+        # the cached pages, token-major (rope applied when written)
+        ka = torch.cat([_from_pages(_kv_pool_gather(kpl, ctx_rows, k.dtype)),
+                        k], dim=1)
+        va = torch.cat([_from_pages(_kv_pool_gather(vpl, ctx_rows, v.dtype)),
+                        v], dim=1)
+        a = sdpa_raw(q, ka, va, attn_mask=mask).reshape(G, S, -1)
+        x = x + _mm(a.to(x.dtype), lp["wo"])
+        x = family.decode_mlp(x, lp, c)
+        _kv_pool_write(kpl, _to_pages(k, npad, ps), page_rows)
+        _kv_pool_write(vpl, _to_pages(v, npad, ps), page_rows)
+    x = _rms(x, params["ln_f"], c.rms_norm_eps)
+    last = (slen.long() - 1).clamp(min=0)
+    x = x[torch.arange(G, device=x.device), last]
+    return _head_logits(x, family._head(params, c))
+
+
+def paged_verify_window(family, params, tokens, config, pool_k, pool_v,
+                        block_tables, kv_len, live):
+    """Speculative-decode verify: a drafted window ``tokens`` ``[B, C]`` at
+    positions ``kv_len .. kv_len + C - 1`` of each sequence in one pass.
+    The window's KV is written into the block table's pages first (rows
+    not ``live``, and positions whose page is past the table or a
+    sentinel, go to the sink), then window query ``i`` attends every slot
+    ``t`` of the row's block table (token-major) with ``t <= kv_len + i``,
+    through the masked plain attention. The same math per position as
+    ``paged_decode_step``, so the argmax of the returned logits ``[B, C,
+    V]`` is the sequential chunk's. A quantized pool rewrites the
+    window's pages whole (``_window_rewrite``). Pools are updated in
+    place; nothing is read back to the host."""
+    c = config
+    B, C = tokens.shape
+    quant = isinstance(pool_k, dict)
+    L, P, kv, ps, hd = (pool_k["q"] if quant else pool_k).shape
+    P -= 1                                             # the sink is page P
+    maxp = block_tables.shape[1]
+    dev = tokens.device
+    bt = block_tables.long()
+    pos = kv_len.long()[:, None] + torch.arange(C, device=dev)[None, :]
+    x = params["embed"][tokens]
+    inv = 1.0 / (c.rope_theta ** (
+        torch.arange(0, c.head_dim, 2, dtype=torch.float32,
+                     device=dev) / c.head_dim))
+    freqs = pos.float()[:, :, None] * inv             # [B, C, hd/2]
+    cos, sin = freqs.cos(), freqs.sin()
+    page_idx = pos // ps
+    off = pos % ps
+    rows = bt.gather(1, page_idx.clamp(max=maxp - 1))
+    rows = torch.where(live[:, None] & (page_idx < maxp), rows, P)
+    kvi = torch.arange(kv, device=dev)
+    # slot t of a row's table is visible to window query i iff t <=
+    # kv_len + i; slots past the allocated pages read the sink, beyond
+    # every query's limit
+    mask = (torch.arange(maxp * ps, device=dev)[None, None, :]
+            <= pos[:, :, None])[:, None]               # [B, 1, C, T]
+    if quant:
+        # the window spans at most nwp consecutive pages of a sequence
+        nwp = (C + ps - 2) // ps + 1
+        wstart = kv_len.long() // ps                       # [B]
+        wi = wstart[:, None] + torch.arange(nwp, device=dev)[None, :]
+        wrows = bt.gather(1, wi.clamp(max=maxp - 1))
+        wrows = torch.where((wi < maxp) & live[:, None], wrows, P)
+        lpi = page_idx - wstart[:, None]                   # [B, C]
+        bi = torch.arange(B, device=dev)[:, None]
+        gpos = wi[:, :, None] * ps + torch.arange(ps, device=dev)
+        keep = gpos <= (kv_len.long() + C - 1)[:, None, None]
+
+        def _window_rewrite(leaf, val):
+            """Gather and dequantize the window's pages, zero their
+            unwritten tail (stale codes must not inflate the scale),
+            insert the window's tokens, requantize each page under its
+            new absmax and write codes and scale rows back."""
+            page = (leaf["q"][wrows].float()
+                    * leaf["s"][wrows][..., None, None])  # [B, nwp, kv, ps, hd]
+            page = torch.where(keep[:, :, None, :, None], page, 0.0)
+            page[bi[:, :, None], lpi[:, :, None], kvi[None, None, :],
+                 off[:, :, None]] = val.float()
+            s = page.abs().amax(dim=(-2, -1)) / _KV_QMAX
+            leaf["q"][wrows] = _kv_quantize(page, s[..., None, None])
+            leaf["s"][wrows] = s
+
+    for i in range(c.num_hidden_layers):
+        lp = layer(params, i)
+        kpl, vpl = _layer_leaf(pool_k, i), _layer_leaf(pool_v, i)
+        h = _rms(x, lp["ln1"], c.rms_norm_eps)
+        q, k, v = _qkv_proj(h, lp, c)
+        q = rope_raw(q, cos, sin)
+        k = rope_raw(k, cos, sin)
+        if quant:
+            _window_rewrite(kpl, k)
+            _window_rewrite(vpl, v)
+        else:
+            idx = (rows[:, :, None], kvi[None, None, :], off[:, :, None])
+            kpl.index_put_(idx, k.to(kpl.dtype))
+            vpl.index_put_(idx, v.to(vpl.dtype))
+        ck = _from_pages(_kv_pool_gather(kpl, bt, q.dtype))
+        cv = _from_pages(_kv_pool_gather(vpl, bt, q.dtype))
+        a = sdpa_raw(q, ck, cv, attn_mask=mask).reshape(B, C, -1)
+        x = x + _mm(a.to(x.dtype), lp["wo"])
+        x = family.decode_mlp(x, lp, c)
+    x = _rms(x, params["ln_f"], c.rms_norm_eps)
+    return _head_logits(x, family._head(params, c))

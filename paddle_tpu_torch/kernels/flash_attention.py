@@ -40,14 +40,23 @@ cores, 32 x 32 on the CUDA cores); ``count_skipped_blocks`` counts them.
 ``flash_attention`` / ``flash_attention_segments`` are the
 differentiable entries: ``_FlashAttention`` / ``_FlashSegAttention``
 (the reference's ``_flash`` / ``_flash_seg`` custom VJPs) when autograd
-needs a gradient, the forward alone otherwise.
+needs a gradient, the forward alone otherwise. Inside ``through_ops()``
+those two Functions call their forward wrapper through a registered
+custom op (``torch.ops.paddle_tpu_torch.flash_fwd`` /
+``flash_fwd_seg``, ``FLASH_FWD_OPS``), which selective checkpointing
+sees, so remat ``"attn"`` can save exactly their ``(out, lse)``; a
+recompute served from the saved outputs launches nothing. Outside it
+they call the wrapper directly: the op's dispatch costs host time on
+every call, and only remat ``"attn"`` needs it.
 Layout: ``[B, S, H, D]`` in and out; ``lse`` is float32 ``[B, H, Sq]``;
 segment ids and positions ``[B, S]`` integers.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -61,7 +70,8 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "flash_attention_segments_fwd", "flash_attention_segments_bwd",
            "segment_attention_ref", "segment_attention_bwd_ref",
            "segments_supported", "count_skipped_blocks", "SEG_BLOCK",
-           "seg_tiles", "MIN_D", "MAX_D", "TC_DIMS"]
+           "seg_tiles", "MIN_D", "MAX_D", "TC_DIMS", "through_ops",
+           "FLASH_FWD_OPS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims the kernels take: multiples of 8 in [MIN_D, MAX_D] (the
@@ -152,6 +162,22 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None):
     DISPATCH_STATS["flash_tc"] += tensor_core_route(q)
     _build.check_launch("flash_fwd", err)
     return out, lse
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd`` as a dispatcher op (same dispatch: the
+    kernel for CUDA tensors, the plain version for CPU tensors)."""
+    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, scale):
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, sq), dtype=torch.float32))
 
 
 def supported_bwd(q, k, v) -> bool:
@@ -248,7 +274,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        if _THROUGH_OPS:
+            out, lse = _flash_fwd_op(q, k, v, causal, scale)
+        else:
+            out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                           scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
@@ -590,6 +620,30 @@ def flash_attention_segments_bwd(q, k, v, out, lse, dout, seg_q, seg_k,
     return dq, dk, dv
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd_seg",
+                         mutates_args=())
+def _flash_seg_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      seg_q: torch.Tensor, seg_k: torch.Tensor,
+                      pos_q: torch.Tensor, pos_k: torch.Tensor,
+                      stats: Optional[torch.Tensor], stride: int,
+                      tiles: List[int], causal: bool, scale: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_segments_fwd`` as a dispatcher op; ``stats``,
+    ``stride`` and ``tiles`` are ``_tile_stats``' three parts (``stats``
+    None on the CPU)."""
+    return flash_attention_segments_fwd(
+        q, k, v, seg_q, seg_k, pos_q, pos_k, causal=causal, scale=scale,
+        stats=None if stats is None else (stats, stride, tuple(tiles)))
+
+
+@_flash_seg_fwd_op.register_fake
+def _(q, k, v, seg_q, seg_k, pos_q, pos_k, stats, stride, tiles, causal,
+      scale):
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
 class _FlashSegAttention(torch.autograd.Function):
     """The reference's ``_flash_seg`` custom VJP: the forward wrapper
     saves ``q, k, v, out, lse``, the segment ids and positions and, on
@@ -607,8 +661,14 @@ class _FlashSegAttention(torch.autograd.Function):
             tiles = seg_tiles(q, backward=True)
             bwd_stats = (stats if stats[2] == tiles
                          else _tile_stats(segs, tiles))
-        out, lse = flash_attention_segments_fwd(
-            q, k, v, *segs, causal=causal, scale=scale, stats=stats)
+        if _THROUGH_OPS:
+            out, lse = _flash_seg_fwd_op(
+                q, k, v, *segs, None if stats is None else stats[0],
+                0 if stats is None else stats[1],
+                [] if stats is None else list(stats[2]), causal, scale)
+        else:
+            out, lse = flash_attention_segments_fwd(
+                q, k, v, *segs, causal=causal, scale=scale, stats=stats)
         ctx.save_for_backward(q, k, v, out, lse, *segs,
                               None if bwd_stats is None else bwd_stats[0])
         ctx.causal, ctx.scale = causal, scale
@@ -644,6 +704,27 @@ def flash_attention_segments(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
                                         bool(causal), float(scale))
     return flash_attention_segments_fwd(q, k, v, seg_q, seg_k, pos_q, pos_k,
                                         causal=causal, scale=scale)[0]
+
+
+# the registered forward ops whose outputs remat "attn" saves
+FLASH_FWD_OPS = (torch.ops.paddle_tpu_torch.flash_fwd.default,
+                 torch.ops.paddle_tpu_torch.flash_fwd_seg.default)
+_THROUGH_OPS = 0        # depth of open through_ops() contexts
+
+
+@contextlib.contextmanager
+def through_ops():
+    """Within this context ``_FlashAttention`` / ``_FlashSegAttention``
+    call their forward wrapper through its registered op
+    (``FLASH_FWD_OPS``), the one form of the launch that selective
+    checkpointing can save; remat ``"attn"`` opens it around a layer's
+    forward and its recompute."""
+    global _THROUGH_OPS
+    _THROUGH_OPS += 1
+    try:
+        yield
+    finally:
+        _THROUGH_OPS -= 1
 
 
 def _lib():

@@ -24,7 +24,9 @@ sampling from a ``torch.Generator``; EOS and pad masking) and
 
 Training: ``loss_fn`` (blockwise cross entropy), ``adamw_init`` /
 ``_adamw_update`` (the reference's AdamW math) and ``make_train_step``,
-which updates the parameters in place (the counterpart of donation).
+which updates the parameters in place (the counterpart of donation),
+optionally guarded (``training.guards``: the update applies only to a
+healthy step).
 
 The eager Paddle-surface model, ``LlamaForCausalLM`` over
 ``LlamaDecoderLayer``, is built from ``nn.Layer``s (``Embedding``,
@@ -36,16 +38,16 @@ above, and its ``generate`` runs the ring-cache generation on them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import (checkpoint,
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
@@ -53,12 +55,15 @@ from .. import nn
 from ..core import enforce as E
 from ..core import resolve_device
 from ..core.tensor import from_numpy
+from ..kernels.flash_attention import FLASH_FWD_OPS, through_ops
 from ..kernels.fused_ce import _mm_f32
 from ..nn import functional as PF
 from ..nn.functional.attention import gather_rope_rows, rope_raw
 from ..nn.functional.attention import rope_tables as _rope_tables
 from ..nn.functional.attention import sdpa_raw
 from ..optimizer.optimizer import adam_update_
+from ..training.guards import (gated_update, grad_numerics, resolve_guard,
+                               resolve_numerics, step_health)
 
 __all__ = ["LlamaConfig", "llama_tiny", "llama_3_8b", "init_params",
            "params_from_numpy", "quant_int8", "quant_packed",
@@ -85,8 +90,8 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16
     remat: bool = True              # per-layer rematerialisation
     # "full" recomputes the whole layer; "dots" keeps the products of
-    # the weight matmuls and recomputes the rest; "attn" (keep only the
-    # attention output) is not ported yet
+    # the weight matmuls and recomputes the rest; "attn" keeps only the
+    # flash forward's output and lse
     remat_policy: str = "dots"
     fused_ce: bool = True           # blockwise lm-head cross entropy
     # vocab chunk of the blockwise cross entropy; None: CE_DEFAULT_CHUNK
@@ -356,12 +361,37 @@ def _attn_half(x, lp, cos, sin, config, segment_ids=None, positions=None):
     return x + _mm(a, lp["wo"]), k, v
 
 
+def _save_flash_outputs(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat ``"attn"``: keep the outputs of
+    the flash forward ops, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in FLASH_FWD_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _through_ops(ctx):
+    """``ctx`` (a selective-checkpoint context) with the flash forwards
+    called through their ops, which the context can see."""
+    with through_ops(), ctx:
+        yield
+
+
+def _attn_contexts():
+    fwd, recompute = create_selective_checkpoint_contexts(_save_flash_outputs)
+    return _through_ops(fwd), _through_ops(recompute)
+
+
 def remat_policy(name: str):
     """The ``context_fn`` of ``torch.utils.checkpoint`` for a config's
     remat policy name: none for ``"full"`` (recompute everything),
     selective checkpointing that keeps the outputs of ``aten.mm`` /
     ``aten.addmm`` (the weight matmuls; attention's products run inside
-    its kernel) for ``"dots"``."""
+    its kernel) for ``"dots"``, and for ``"attn"`` selective
+    checkpointing that keeps only the flash forward's ``(out, lse)``
+    (the reference's ``checkpoint_name(a, "attn_out")``), so the
+    backward's recompute launches no flash forward. The flash forwards
+    run through their registered ops (``kernels.flash_attention.
+    through_ops``) under that policy only."""
     if name == "full":
         return noop_context_fn
     if name == "dots":
@@ -369,10 +399,7 @@ def remat_policy(name: str):
                                  [torch.ops.aten.mm.default,
                                   torch.ops.aten.addmm.default])
     if name == "attn":
-        raise NotImplementedError(
-            "remat_policy 'attn' is not ported yet: the flash attention "
-            "output comes from a CUDA kernel that selective checkpointing "
-            "cannot single out (ROADMAP.md queue A, remat 'attn')")
+        return _attn_contexts
     raise E.InvalidArgumentError(
         f"remat_policy must be one of ['attn', 'dots', 'full'], got "
         f"{name!r}")
@@ -390,14 +417,16 @@ def forward_hidden(params, ids, config: LlamaConfig, *, segment_ids=None,
 
 
 def _layers_over(block, params, ids, config, segment_ids=None,
-                 positions=None):
+                 positions=None, *, tags_attn: bool = True):
     """The layer loop of any family: embed ``ids``, run ``block(x, lp,
     cos, sin, config, segment_ids, positions)`` over the stacked layers,
     apply ln_f. ``block`` returns ``x``, or ``(x, aux)``; returns
     ``(hidden [B, S, D], [each layer's aux])``. The stacked weights are
     split into per-layer views once (``unbind``), so their gradient is
     stacked once. With ``config.remat`` and grad enabled, each layer runs
-    under ``torch.utils.checkpoint`` with ``config.remat_policy``."""
+    under ``torch.utils.checkpoint`` with ``config.remat_policy``. A
+    family whose block tags no attention output (``tags_attn=False``, the
+    MoE block, as in the reference) runs ``"attn"`` as ``"full"``."""
     c = config
     x = params["embed"][ids]
     cos, sin = _rope_tables(ids.shape[1], c.head_dim, theta=c.rope_theta,
@@ -409,7 +438,10 @@ def _layers_over(block, params, ids, config, segment_ids=None,
                  else [_slice(w, i) for i in range(c.num_hidden_layers)]
                  for k, w in params["layers"].items()}
     remat = c.remat and torch.is_grad_enabled()
-    context_fn = remat_policy(c.remat_policy) if remat else None
+    policy = c.remat_policy
+    if policy == "attn" and not tags_attn:
+        policy = "full"
+    context_fn = remat_policy(policy) if remat else None
     auxes = []
     for i in range(c.num_hidden_layers):
         lp = {k: w[i] for k, w in per_layer.items()}
@@ -893,9 +925,23 @@ def loss_and_grads(params, batch, config: LlamaConfig, *, loss=None):
     return value.detach(), _map(lambda _: next(grads), params)
 
 
+def _clamped_ids(batch, vocab_size: int):
+    """A batch in the ``(inp, labels[, segment_ids, positions])`` form with
+    the input ids clamped into ``[0, vocab_size)``: what the guarded step
+    feeds its loss, so that an out-of-range id (which ``step_health``
+    flags) gathers a row instead of raising (CPU) or tripping a
+    device-side assert that poisons the CUDA context (card). Labels are
+    left as they are: the cross entropy gives labels outside ``[0, V)``
+    zero loss, as the reference's."""
+    inp, labels, seg, pos = unpack_batch(batch)
+    inp = inp.clamp(0, vocab_size - 1)
+    return (inp, labels) if seg is None else (inp, labels, seg, pos)
+
+
 def make_train_step(config: LlamaConfig, mesh=None, *, lr: float = 3e-4,
                     weight_decay: float = 0.1,
-                    guard: Optional[bool] = None, loss=None):
+                    guard: Optional[bool] = None,
+                    numerics: Optional[bool] = None, loss=None):
     """``step(params, opt_state, batch) -> (params, opt_state, loss)``:
     ``loss_and_grads`` (of ``loss_fn``, or of the family's ``loss``),
     then AdamW. The parameters and the moments are updated in place
@@ -903,28 +949,51 @@ def make_train_step(config: LlamaConfig, mesh=None, *, lr: float = 3e-4,
     donation) and the same dicts are returned. The step runs where the
     parameters lie and never moves them.
 
-    ``guard`` defaults, as in the reference, to the environment's
-    ``FLAGS_enable_sentinel``. Not ported yet, and raising: the guarded
-    step (``guard`` true, or unset with that flag on) and the mesh
-    path."""
+    ``guard`` (default: ``FLAGS_enable_sentinel``, read when the step is
+    built) selects the guarded step ``(params, opt_state, batch,
+    gnorm_cap) -> (params, opt_state, loss, health)``: ``health`` is
+    ``training.guards.step_health``'s ``{"finite", "grad_norm"}``
+    (tensors on the parameters' device), and the update applies only
+    when the loss and the global gradient norm are finite, every input
+    id lies in ``[0, vocab_size)`` and the norm is at most ``gnorm_cap``.
+    The gate (``gated_update``) reads that flag on the host once, after
+    the gradients: on an anomalous step nothing is written, so
+    parameters, moments and ``step`` stay byte-identical; on a clean
+    step the update is the unguarded step's. The loss is taken on the
+    input ids clamped into the vocabulary (``_clamped_ids``), so a
+    poisoned batch cannot index out of range.
+
+    ``numerics`` (default: ``FLAGS_enable_numerics``; guarded step only)
+    adds ``health["numerics"]``, ``training.guards.grad_numerics`` of the
+    gradients. The mesh path raises (ROADMAP A9)."""
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step: the mesh (multi-GPU) path is not ported yet "
             "(ROADMAP.md queue A item A9)")
-    if guard is None:
-        guard = os.environ.get("FLAGS_enable_sentinel", "").lower() in (
-            "1", "true", "yes", "on")
-    if guard:
-        raise NotImplementedError(
-            "make_train_step: the guarded step is not ported yet "
-            "(ROADMAP.md queue A item A2, training/guards.py)")
+    guard = resolve_guard(guard)
+    numerics = guard and resolve_numerics(numerics)
+
+    def update(params, opt_state, grads):
+        return _adamw_update(params, grads, opt_state, lr, wd=weight_decay)
 
     def step(params, opt_state, batch):
         value, grads = loss_and_grads(params, batch, config, loss=loss)
-        _adamw_update(params, grads, opt_state, lr, wd=weight_decay)
+        update(params, opt_state, grads)
         return params, opt_state, value
 
-    return step
+    def guarded_step(params, opt_state, batch, gnorm_cap):
+        batch = _batch_to(batch, _leaves(params)[0].device)
+        value, grads = loss_and_grads(
+            params, _clamped_ids(batch, config.vocab_size), config,
+            loss=loss)
+        ok, health = step_health(value, grads, unpack_batch(batch)[0],
+                                 config.vocab_size, gnorm_cap)
+        if numerics:
+            health["numerics"] = grad_numerics(grads)
+        gated_update(ok, update, params, opt_state, grads)
+        return params, opt_state, value, health
+
+    return guarded_step if guard else step
 
 
 # -- eager Layer model (imperative parity path) -------------------------------

@@ -67,7 +67,8 @@ class MoEConfig:
     dtype: Any = torch.bfloat16
     remat: bool = True
     # "full" recomputes the whole layer; "dots" keeps the products of the
-    # weight matmuls (aten.mm / addmm), not the batched expert products
+    # weight matmuls (aten.mm / addmm), not the batched expert products;
+    # "attn" acts as "full" (the MoE block tags nothing)
     remat_policy: str = "full"
     # None: "capacity" (the single-device choice of the reference)
     dispatch_mode: Optional[str] = None
@@ -358,10 +359,12 @@ def forward_hidden(params, ids, config: MoEConfig, *, mesh=None,
                    segment_ids=None, positions=None):
     """``(final hidden [B, S, D] after ln_f, aux summed over layers)``:
     llama's layer loop over this family's ``_block`` (packed batches and
-    remat as there)."""
+    remat as there; the block tags no attention output, so remat
+    ``"attn"`` recomputes the whole layer, as ``"full"``, as in the
+    reference)."""
     _no_mesh(mesh, "forward_hidden")
     x, auxes = _L._layers_over(_block, params, ids, config, segment_ids,
-                               positions)
+                               positions, tags_attn=False)
     return x, torch.stack(auxes).sum()
 
 
@@ -405,13 +408,18 @@ def adamw_init(params):
 
 
 def make_train_step(config: MoEConfig, mesh=None, *, lr: float = 1e-4,
-                    guard: Optional[bool] = None):
-    """``step(params, opt_state, batch) -> (params, opt_state, loss)``:
-    llama's ``make_train_step`` over this family's ``loss_fn`` (the
-    reference's shared AdamW, coupled decay 0.1), at ``lr`` 1e-4. The
-    guarded step (ROADMAP A2) and the mesh path (A9) raise."""
+                    guard: Optional[bool] = None,
+                    numerics: Optional[bool] = None):
+    """llama's ``make_train_step`` over this family's ``loss_fn`` (the
+    reference's shared AdamW, coupled decay 0.1), at ``lr`` 1e-4:
+    ``step(params, opt_state, batch) -> (params, opt_state, loss)``, or
+    with ``guard`` (default: ``FLAGS_enable_sentinel``) the guarded
+    ``(params, opt_state, batch, gnorm_cap) -> (params, opt_state, loss,
+    health)``, the llama family's contract, with ``numerics`` (default:
+    ``FLAGS_enable_numerics``) as there. The mesh path raises (A9)."""
     _no_mesh(mesh, "make_train_step")
-    return _L.make_train_step(config, lr=lr, guard=guard, loss=loss_fn)
+    return _L.make_train_step(config, lr=lr, guard=guard,
+                              numerics=numerics, loss=loss_fn)
 
 
 # -- ring-cache decoding (the llama family's, over this MLP) ------------------

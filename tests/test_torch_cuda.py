@@ -1186,3 +1186,67 @@ def test_attention_surface_and_fused_rms_norm_routes(dev):
     assert K.dispatch_stats()["rms"] == 1
     assert torch.equal(out, F.rms_norm(x.reshape(8, -1), w.reshape(-1),
                                        epsilon=1e-5).reshape(x.shape))
+
+
+@pytest.mark.parametrize("family", ["llama", "moe"])
+def test_guarded_step_on_the_card(dev, family):
+    """``chip_smoke.guard_checks`` on a tiny bf16 model: a clean guarded
+    step equals the unguarded one bit for bit and makes exactly one host
+    sync more (the gate's read of ``ok``); ``iinfo(int32).min`` and
+    ``vocab_size`` ids and a tiny cap write nothing, and the CUDA context
+    stays usable for the next clean step."""
+    from paddle_tpu_torch.models import moe as M
+    C = _chip_smoke()
+    mod = {"llama": L, "moe": M}[family]
+    cfg = (L.llama_tiny(dtype=torch.bfloat16) if family == "llama"
+           else M.moe_tiny(dtype=torch.bfloat16))
+    params = mod.init_params(cfg, seed=0, device=dev)
+    state = mod.adamw_init(params)
+    batch = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 33)), device=dev)
+    r = C.guard_checks(torch, mod, cfg, params, state, batch)
+    C._guard_asserts(r)
+
+
+@pytest.mark.parametrize("dtype,kv_quant", [(torch.bfloat16, False),
+                                            (torch.bfloat16, True),
+                                            (torch.float32, False)])
+def test_prefix_plane_never_syncs_the_host(dev, dtype, kv_quant):
+    """``paged_prefill_shared`` and ``paged_verify_window`` on a tiny model
+    under ``set_sync_debug_mode("error")``
+    (``chip_smoke.prefix_plane_checks``): float32 within 1e-4 of the full
+    prefill and the sequential decode, every argmax equal; bf16 bit for
+    bit against the same math, full-precision and int8 pages."""
+    C = _chip_smoke()
+    cfg = L.llama_tiny(dtype=dtype)
+    params = L.init_params(cfg, seed=0, device=dev)
+    r = C.prefix_plane_checks(torch, L, cfg, params, dev, kv_quant, rows=2,
+                              plen=64, shared=48, verify_lens=[17, 40, 64])
+    C._prefix_asserts(r, exact=dtype == torch.float32)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_remat_attn_launch_counts_on_the_card(dev, packed):
+    """Remat ``"attn"`` launches the flash forward once a layer where
+    ``"full"`` launches it twice, the backward once in both, with the
+    same loss and gradients bit for bit."""
+    C = _chip_smoke()
+    cfg = L.llama_tiny(dtype=torch.bfloat16)
+    params = L.init_params(cfg, seed=0, device=dev)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 33)), device=dev)
+    fwd, bwd = ("varlen", "varlen_bwd") if packed else ("flash", "flash_bwd")
+    if packed:
+        seg = torch.tensor([[0] * 20 + [1] * 12, [0] * 25 + [-1] * 7],
+                           dtype=torch.int32, device=dev)
+        pos = torch.cat([torch.arange(20), torch.arange(12), torch.arange(25),
+                         torch.zeros(7, dtype=torch.long)]).reshape(2, 32)
+        batch = (ids[:, :-1], ids[:, 1:], seg, pos.to(dev, torch.int32))
+    else:
+        batch = ids
+    same, launches = C.remat_attn_checks(torch, cfg, params, batch)
+    layers = cfg.num_hidden_layers
+    assert same
+    assert launches["full"][fwd] == 2 * layers
+    assert launches["attn"][fwd] == layers
+    assert launches["full"][bwd] == launches["attn"][bwd] == layers

@@ -39,7 +39,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) >= 10
     scanned = {str(f.relative_to(_ROOT)) for f in files}
     assert {"optimizer/lr.py", "nn/initializer.py",
-            "incubate/nn/functional.py", "models/dit.py"} <= scanned
+            "incubate/nn/functional.py", "models/dit.py",
+            "core/flags.py", "training/guards.py"} <= scanned
     bad = [(str(f.relative_to(_ROOT)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in _FORBIDDEN]

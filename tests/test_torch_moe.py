@@ -227,8 +227,10 @@ def test_three_train_steps_match_reference():
 def test_not_ported_paths_raise():
     cfg = TM.moe_tiny()
     tp = TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A2"):
-        TM.make_train_step(cfg, guard=True)
+    # the guarded step is ported (tests/test_torch_guards.py)
+    _, _, _, health = TM.make_train_step(cfg, guard=True)(
+        tp, TM.adamw_init(tp), torch.as_tensor(_ids((2, 9))), float("inf"))
+    assert bool(health["finite"])
     with pytest.raises(NotImplementedError, match="A9"):
         TM.make_train_step(cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="A9"):

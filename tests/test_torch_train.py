@@ -109,8 +109,7 @@ def test_remat_policy_names():
     from torch.utils.checkpoint import noop_context_fn
     assert TL.remat_policy("full") is noop_context_fn
     assert callable(TL.remat_policy("dots"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.remat_policy("attn")
+    assert callable(TL.remat_policy("attn"))   # tests/test_torch_remat_attn.py
     with pytest.raises(ValueError):
         TL.remat_policy("everything")
 
@@ -293,8 +292,9 @@ def test_loss_and_grads_leaves_params_alone():
 def test_not_yet_ported_paths_raise():
     """Sequence-packed batches are ported (``tests/test_torch_packing.py``),
     and so are attention masks in ``sdpa_raw`` (they take the plain math
-    path, ``sdpa_reference``; ``tests/test_torch_masked_attention.py``);
-    the guarded step and the mesh path still raise."""
+    path, ``sdpa_reference``; ``tests/test_torch_masked_attention.py``)
+    and the guarded step (``tests/test_torch_guards.py``); the mesh path
+    still raises."""
     from paddle_tpu_torch.nn.functional import attention as TATT
     cfg = TL.llama_tiny()
     tp = TL.init_params(cfg, device="cpu")
@@ -308,20 +308,29 @@ def test_not_yet_ported_paths_raise():
     mask = torch.ones(8, 8, dtype=torch.bool)
     torch.testing.assert_close(TATT.sdpa_raw(q, q, q, mask),
                                TATT.sdpa_reference(q, q, q, mask))
-    with pytest.raises(NotImplementedError, match="guarded"):
-        TL.make_train_step(cfg, guard=True)
+    step = TL.make_train_step(cfg, guard=True)
+    _, _, _, health = step(tp, TL.adamw_init(tp), ids, float("inf"))
+    assert bool(health["finite"])
     with pytest.raises(NotImplementedError, match="mesh"):
         TL.make_train_step(cfg, mesh=object())
 
 
-def test_guard_default_follows_sentinel_flag(monkeypatch):
+def test_guard_default_follows_sentinel_flag():
     """``guard=None`` resolves from ``FLAGS_enable_sentinel`` as in the
-    reference: on, the guarded step is asked for and raises; off, the
-    plain step is built."""
+    reference (the registry, ``paddle_tpu_torch.set_flags``; the
+    environment is read when the flag is defined): on, the guarded 4-in /
+    4-out step is built; off, the plain step."""
+    import paddle_tpu_torch
     cfg = TL.llama_tiny()
-    monkeypatch.setenv("FLAGS_enable_sentinel", "true")
-    with pytest.raises(NotImplementedError, match="guarded"):
-        TL.make_train_step(cfg)
-    TL.make_train_step(cfg, guard=False)
-    monkeypatch.setenv("FLAGS_enable_sentinel", "0")
-    assert callable(TL.make_train_step(cfg))
+    tp = TL.init_params(cfg, device="cpu")
+    ids = torch.as_tensor(_ids(cfg, (2, 9)))
+    try:
+        paddle_tpu_torch.set_flags({"FLAGS_enable_sentinel": True})
+        out = TL.make_train_step(cfg)(tp, TL.adamw_init(tp), ids,
+                                      float("inf"))
+        assert len(out) == 4 and bool(out[3]["finite"])
+        assert len(TL.make_train_step(cfg, guard=False)(
+            tp, TL.adamw_init(tp), ids)) == 3
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_enable_sentinel": False})
+    assert len(TL.make_train_step(cfg)(tp, TL.adamw_init(tp), ids)) == 3
