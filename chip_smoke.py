@@ -133,7 +133,11 @@ Phases, each printed on its own line; any failure exits non-zero:
     request sampled (bf16 pages), with its data plane (``_prefill_plane``,
     ``_decode_plane``) under ``torch.cuda.set_sync_debug_mode("error")``:
     no host sync may happen there, and the tokens must equal the same
-    serve's outside that mode;
+    serve's outside that mode; then, with bf16 pages, a prefix-cache
+    serve whose second group prefills its tails over the cached prefix
+    (``_prefill_plane`` with context pages) and a spec-decode serve with
+    one verify round (``_spec_plane``), the calls counted by arm
+    (``NO_SYNC_OPTIONS``);
 20. surface (card against CPU on the same seeded inputs): masked
     ``F.scaled_dot_product_attention`` (boolean and additive masks, with
     causal, 32 / 8 heads, float32 and bf16: plain math, no flash launch),
@@ -215,7 +219,33 @@ Phases, each printed on its own line; any failure exits non-zero:
     ``"attn"`` and ``"full"`` equal bit for bit, with 4 and 8 flash
     forward launches and 4 backward launches; the packed rung's batch
     the same through the segment kernels; step ms and peak memory of
-    each policy on ``train``'s path.
+    each policy on ``train``'s path;
+30. engine_options_parity (after ``parity``): the engine's options on one
+    float32 ``llama_tiny`` model (``engine_option_cases``): the prefix
+    cache served one request at a time, spec decode on a repetitive
+    prompt, both in a starved pool (eviction, forks of cached pages,
+    preemption, verify rounds), and priority admission with a tenant cap
+    and SLO preemption; card (kernels) against CPU (plain versions)
+    against the card with the options off: tokens equal all three ways,
+    every counter, each request's preemptions and the order of admission
+    equal card against CPU, acceptances above 0;
+31. prefix_serve (after ``main_kvq``): the prefix cache on the serving
+    main path (``ServingEngine(num_slots=8, max_len=2048)`` at
+    Llama-3-8B widths, ``--layers`` deep, bf16): the port's
+    ``generate_trace`` at the JAX bench rung's seed 1717 and rate 28 with
+    two tenants, three of four opening with one 512-token system prompt
+    (``prefix_serve_requests``: 21 requests of 600-1024 prompt tokens,
+    32-64 new), all submitted at once; cache off, then cache on after a
+    warm pass over the rid-shifted trace, then the cache-on pair on int8
+    pages of 32: hits, saved tokens, evictions, tokens prefilled, prefill
+    and decode rates, TTFT, wall, peak memory, launches, and how many
+    requests keep the cache-off tokens (a reading). Hits must be above 0,
+    cache-on prefill fewer tokens by at least what it saved, every
+    request complete, the refcounts consistent;
+32. spec_serve: ``main``'s requests with spec decode off and on: verify
+    rounds, drafts, acceptances, decode rate, paged launches a decode
+    step, and how many requests keep the spec-off tokens (a reading);
+    rounds above 0.
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -233,9 +263,10 @@ then times both beside ``scaled_dot_product_attention`` with a
 block-diagonal causal mask.
 
 Every bf16 main path (``main`` and its uniform baseline, ``main_kvq``,
-``main_wq``, ``generate``, ``moe_main``, ``train``, the padded pass of
-``train_packed``, ``eager_train``, ``moe_train``, ``dit_sample``,
-``dit_train``) must launch the
+``main_wq``, ``prefix_serve``, ``spec_serve``, ``generate``,
+``moe_main``, ``train``, the padded pass of ``train_packed``,
+``eager_train``, ``moe_train``, ``dit_sample``, ``dit_train``) must
+launch the
 dense flash kernels only on their tensor-core route (``flash_tc ==
 flash``, ``flash_bwd_tc == flash_bwd``), and the packed pass of
 ``train_packed`` the segment kernels only on theirs (``varlen_tc ==
@@ -339,6 +370,50 @@ def _time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _kernel_us(run, match=lambda key: True, tries=3):
+    """``{kernel name: device µs}`` of the kernels whose names pass
+    ``match``, from ``torch.profiler``'s CUDA trace of one ``run()``. Now
+    and then a trace holds no kernel at all; then ``run()`` is traced
+    again, up to ``tries`` traces in all, and ``{}`` is returned when none
+    held a matching kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        got = {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+            if us > 0 and match(evt.key):
+                got[evt.key] = got.get(evt.key, 0.0) + us
+        if got:
+            return got
+    return {}
+
+
+def _held_ms(run, hold_ms=50.0):
+    """Device ms of one ``run()`` by CUDA events, with the stream held by
+    a spin kernel (``torch.cuda._sleep``, ``hold_ms`` at the H100's
+    1.98 GHz) while the host enqueues the run's launches, so that the
+    card does not wait for the host between short launches. The timing
+    used where ``_kernel_us`` saw no kernel; it says so on a line."""
+    import torch
+    print("[timing] the profiler saw no kernel; timed by CUDA events "
+          "behind a held stream", flush=True)
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_ms * 1.98e6))
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def _err(a, b):
@@ -552,7 +627,6 @@ def rms_bwd_timing(torch, dev, RN, n, d, xdt, wdt, seed=0):
     card reaches on this traffic). Checks dx and dw against the plain
     version first. Bound: bytes (every input read once, every output
     written once)."""
-    from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(n, d, generator=gen, device=dev).to(xdt)
     w = (1 + 0.3 * torch.randn(d, generator=gen, device=dev)).to(wdt)
@@ -570,20 +644,18 @@ def rms_bwd_timing(torch, dev, RN, n, d, xdt, wdt, seed=0):
         RN.rms_norm_bwd(x, w, rstd, dy)
     torch.cuda.synchronize()
     calls = 30
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             RN.rms_norm_bwd(x, w, rstd, dy)
-        torch.cuda.synchronize()
-    row_us = dw_us = 0.0
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0))
-        if "rms_dw" in evt.key:
-            dw_us += us
-        elif "rms_bwd" in evt.key:
-            row_us += us
-    assert row_us > 0 and dw_us > 0, "the profiler saw no backward kernel"
-    ms = (row_us + dw_us) / calls / 1e3
+    got = _kernel_us(run, lambda key: "rms_dw" in key or "rms_bwd" in key)
+    dw_us = sum(us for key, us in got.items() if "rms_dw" in key)
+    row_us = sum(got.values()) - dw_us
+    if row_us > 0 and dw_us > 0:
+        ms = (row_us + dw_us) / calls / 1e3
+        row_ms, dw_ms = row_us / calls / 1e3, dw_us / calls / 1e3
+    else:
+        ms, row_ms, dw_ms = _held_ms(run) / calls, None, None
     xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
     yl = torch.nn.functional.rms_norm(xl, (d,), wl, RMS_EPS)
     out = torch.empty_like(x)
@@ -594,8 +666,8 @@ def rms_bwd_timing(torch, dev, RN, n, d, xdt, wdt, seed=0):
             if hasattr(RN, "bwd_plan") else
             {"route": "blocks", "grid": -(-n // RN.bwd_rows(n)),
              "rows": RN.bwd_rows(n)})
-    return {"shape": f"{n}x{d}", "ms": ms, "row_ms": row_us / calls / 1e3,
-            "dw_ms": dw_us / calls / 1e3,
+    return {"shape": f"{n}x{d}", "ms": ms, "row_ms": row_ms,
+            "dw_ms": dw_ms,
             "wrapper_ms": _time_ms(lambda: RN.rms_norm_bwd(x, w, rstd, dy),
                                    50),
             "library_ms": _time_ms(lambda: torch.autograd.grad(
@@ -789,7 +861,6 @@ def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
     reports the error without the check, for variants that drop part of
     the work)."""
     import math
-    from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device=dev).manual_seed(seed)
     B, NH, KVH, D = len(lengths), 32, 8, 128
     P = sum(-(-n // ps) for n in lengths) + 1
@@ -825,24 +896,20 @@ def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
         call(i)
     torch.cuda.synchronize()
     reps = math.ceil(240 / npool)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    calls = reps * npool
+
+    def run():
         for _ in range(reps):
             for i in range(npool):
                 call(i)
-        torch.cuda.synchronize()
-    split_us = combine_us = 0.0
-    for evt in prof.key_averages():
-        if "paged_decode" not in evt.key:
-            continue
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0))
-        if "combine" in evt.key:
-            combine_us += us
-        else:
-            split_us += us
-    calls = reps * npool
-    assert split_us > 0, "the profiler saw no decode kernel"
-    ms = (split_us + combine_us) / calls / 1e3
+    got = _kernel_us(run, lambda key: "paged_decode" in key)
+    combine_us = sum(us for key, us in got.items() if "combine" in key)
+    split_us = sum(got.values()) - combine_us
+    if split_us > 0:
+        ms = (split_us + combine_us) / calls / 1e3
+        split_ms, combine_ms = split_us / calls / 1e3, combine_us / calls / 1e3
+    else:
+        ms, split_ms, combine_ms = _held_ms(run) / calls, None, None
     ctx = sum(lengths)
     pages = sum(-(-n // ps) for n in lengths)
     # bytes: the live context's keys and values (int8: codes, and the
@@ -853,8 +920,7 @@ def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
     flops = 4.0 * NH * ctx * D
     bound = max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
     return {"shape": f"B{B}xctx{ctx}xps{ps}", "ms": ms,
-            "split_ms": split_us / calls / 1e3,
-            "combine_ms": combine_us / calls / 1e3,
+            "split_ms": split_ms, "combine_ms": combine_ms,
             "wrapper_ms": _time_ms(lambda: call(0), 50),
             "plain_ms": _time_ms(lambda: call(0, PA.paged_attention_ref),
                                  10),
@@ -1189,6 +1255,147 @@ def phase_quant_parity(torch, dev):
         assert same, f"card {outs['card']} != cpu {outs['cpu']}"
 
 
+def engine_option_cases(vocab):
+    """The ``[engine_options_parity]`` cases, name -> (engine kwargs,
+    option kwargs, script); a script item is ``"run"`` (serve until
+    idle), ``"step"`` (one scheduling step) or a request ``(rid, prompt,
+    max_new_tokens, tenant, priority)``:
+
+    - ``prefix``: three prompts sharing 8 tokens, served one at a time,
+      so that each retirement seeds the radix for the next;
+    - ``spec``: a repetitive prompt, 28 greedy tokens in one slot, long
+      enough for the turbo chunk and so for verify rounds;
+    - ``starved``: prefix cache and spec decode on 14 pages of 4 for ten
+      prompts of three prefix families: admissions evict radix leaves and
+      fork cached pages, chunks preempt, full grids take verify rounds;
+    - ``policy``: priority admission, a tenant cap of 2 and SLO
+      preemption on 3 slots and 9 pages: three tenants of mixed
+      priorities, a scheduling step after the third submission."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, vocab, 8)
+    serial = []
+    for i, n in enumerate((3, 5, 6)):
+        serial += [(i, np.concatenate([prefix, rng.integers(0, vocab, n)]),
+                    4, "default", 0), "run"]
+    rep = np.tile(np.random.default_rng(13).integers(0, vocab, 4), 3)
+    rng = np.random.default_rng(23)
+    fams = [rng.integers(0, vocab, 8) for _ in range(3)]
+    starved = [(i, np.concatenate([fams[i % 3],
+                                   rng.integers(0, vocab, 2 + i % 4)]),
+                18, "default", 0) for i in range(10)]
+    rng = np.random.default_rng(31)
+    policy = []
+    for i in range(8):
+        policy.append((i, rng.integers(0, vocab, 4 + (i * 3) % 10),
+                       3 + (i % 4) * 2, "abc"[i % 3], (i * 5) % 3))
+        if i == 2:
+            policy.append("step")
+    return {
+        "prefix": (dict(num_slots=2, max_len=32, page_size=4,
+                        decode_chunk=3), dict(prefix_cache=True), serial),
+        "spec": (dict(num_slots=1, max_len=64, page_size=4, decode_chunk=2),
+                 dict(spec_decode=True), [(0, rep, 28, "default", 0)]),
+        "starved": (dict(num_slots=2, max_len=32, page_size=4, num_pages=14,
+                         decode_chunk=2),
+                    dict(prefix_cache=True, spec_decode=True), starved),
+        "policy": (dict(num_slots=3, max_len=24, page_size=4, num_pages=9,
+                        decode_chunk=2),
+                   dict(priority_admission=True, tenant_inflight_cap=2,
+                        slo_preemption=True), policy),
+    }
+
+
+def engine_options_serve(torch, family, cfg, params, device, case,
+                         options=True):
+    """Serve ``engine_option_cases``' ``case`` on ``device``, with its
+    options on or all off. Returns each request's tokens and preemptions,
+    the engine's counters (``EngineStats.as_dict``) and its prefill
+    groups as rid lists in the order of admission (``_prefill_group``
+    wrapped on the instance); the allocator's refcounts are audited."""
+    from paddle_tpu_torch.inference import Request, ServingEngine
+    eng_kw, opt_kw, script = engine_option_cases(cfg.vocab_size)[case]
+    eng = ServingEngine(family, params, cfg, device=device, **eng_kw,
+                        **(opt_kw if options else {}))
+    groups = []
+    plain = eng._prefill_group
+
+    def recorded(free, group, s_pad):
+        groups.append([r.rid for r in group])
+        return plain(free, group, s_pad)
+
+    eng._prefill_group = recorded
+    for ev in script:
+        if ev == "run":
+            eng.run()
+        elif ev == "step":
+            eng.step()
+        else:
+            rid, prompt, new, tenant, priority = ev
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new,
+                               tenant=tenant, priority=priority))
+    out = eng.run()
+    eng.cache.alloc.check_invariants()
+    return {"tokens": {r: o.tokens.tolist() for r, o in sorted(out.items())},
+            "preemptions": {r: o.preemptions for r, o in sorted(out.items())},
+            "stats": eng.stats.as_dict(), "groups": groups}
+
+
+def phase_engine_options_parity(torch, dev):
+    """The engine's options on one float32 llama_tiny model: each case of
+    ``engine_option_cases`` served on the card (kernels) and on the CPU
+    (plain versions) with its options on, and on the card with them off.
+    Tokens equal all three ways; counters, preemptions and the order of
+    admission equal card against CPU; acceptances in ``spec``; eviction,
+    hits, preemption and verify rounds in ``starved``; the card through
+    the flash and decode kernels, no plain version."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_tiny()
+    cpu_params = L.init_params(cfg, seed=0, device="cpu")
+    card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+    total = {"flash": 0, "paged": 0}
+    for case in engine_option_cases(cfg.vocab_size):
+        K.reset_dispatch_stats()
+        card = engine_options_serve(torch, L, cfg, card_params, dev, case)
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        cpu = engine_options_serve(torch, L, cfg, cpu_params, "cpu", case)
+        off = engine_options_serve(torch, L, cfg, card_params, dev, case,
+                                   options=False)
+        s = card["stats"]
+        _say("engine_options_parity", case=case,
+             tokens_equal=card["tokens"] == cpu["tokens"] == off["tokens"],
+             stats_equal=s == cpu["stats"],
+             groups=";".join(",".join(map(str, g)) for g in card["groups"]),
+             groups_off=";".join(",".join(map(str, g))
+                                 for g in off["groups"]),
+             flash=st["flash"], paged=st["paged"],
+             **{k: s[k] for k in ("preempted", "prefix_lookups",
+                                  "prefix_hits", "prefix_tokens_saved",
+                                  "prefix_evictions", "spec_rounds",
+                                  "spec_drafted", "spec_accepted")})
+        assert card["tokens"] == cpu["tokens"], (case, card, cpu)
+        assert card["tokens"] == off["tokens"], (case, card, off)
+        assert s == cpu["stats"], (case, s, cpu["stats"])
+        assert card["groups"] == cpu["groups"], (case, card, cpu)
+        assert card["preemptions"] == cpu["preemptions"], (case, card, cpu)
+        assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+        total["flash"] += st["flash"]
+        total["paged"] += st["paged"]
+        if case == "prefix":
+            assert s["prefix_hits"] > 0, s
+        if case == "spec":
+            assert s["spec_accepted"] > 0, s
+        if case == "starved":
+            assert min(s["preempted"], s["prefix_evictions"],
+                       s["prefix_hits"], s["spec_rounds"]) > 0, s
+        if case == "policy":
+            assert s["preempted"] > 0, s
+            assert card["groups"] != off["groups"], (card, off)
+    assert total["flash"] > 0 and total["paged"] > 0, total
+
+
 def phase_main(torch, dev, cfg, params, requests, card, phase="main",
                kv_quant=False, reference=None, family=None, uniform=False):
     """Serve ``requests`` through ``ServingEngine`` at the config's widths
@@ -1275,6 +1482,225 @@ def phase_main(torch, dev, cfg, params, requests, card, phase="main",
              of=len(first), first_divergence=",".join(
                  "-" if f is None else str(f) for f in first))
     return launches, tokens
+
+
+# [prefix_serve]'s traffic: the JAX bench rung's TPU seed and rate
+# (bench.py:1378-1392) at the serving cell's prompt and generation
+# lengths, two tenants, three of four requests opening with one shared
+# 512-token system prompt
+PREFIX_SERVE_SEED, PREFIX_SERVE_RATE, PREFIX_SERVE_PROMPT = 1717, 28.0, 512
+PREFIX_SERVE_WARM_SHIFT = 500_000
+
+
+def prefix_serve_requests(vocab, shift=0):
+    """The ``[prefix_serve]`` trace's requests (``generate_trace`` of the
+    port's ``loadgen``; prompts by ``_trace_prompt``), rids shifted by
+    ``shift``: a shifted copy has other per-request tokens but the same
+    shared system prompt, so serving it first seeds the radix as the JAX
+    bench rung's warm pass does (``bench.py:1396-1402``)."""
+    from paddle_tpu_torch.inference import Request
+    from paddle_tpu_torch.loadgen import TenantSpec, generate_trace
+    from paddle_tpu_torch.loadgen.traces import _trace_prompt
+    trace = generate_trace(
+        PREFIX_SERVE_SEED, duration_s=1.0, rate=PREFIX_SERVE_RATE,
+        alpha=1.3, prompt_len=(600, 1024), max_new_tokens=(32, 64),
+        tenants=[TenantSpec("assistant", share=3.0,
+                            prefix_len=PREFIX_SERVE_PROMPT),
+                 TenantSpec("adhoc", share=1.0)])
+    return [Request(rid=r.rid + shift, prompt=_trace_prompt(
+                trace.seed, r.rid + shift, r.prompt_len, vocab, r.tenant,
+                r.prefix_len), max_new_tokens=r.max_new_tokens,
+                    tenant=r.tenant, priority=r.priority)
+            for r in trace.requests]
+
+
+def _first_divergence(tokens, reference):
+    """How many requests give ``reference``'s tokens, and where each first
+    differs (``-`` where none does)."""
+    first = [next((i for i, (a, b) in enumerate(zip(tokens[r], ref))
+                   if a != b), None) for r, ref in reference.items()]
+    return dict(tokens_equal=sum(f is None for f in first), of=len(first),
+                first_divergence=",".join("-" if f is None else str(f)
+                                          for f in first))
+
+
+def _arm_clock(eng):
+    """Host wall of ``eng``'s prefill groups by arm (``full``, or
+    ``shared`` over a cached prefix) and of its verify rounds (``spec``),
+    each to the read of its tokens: ``{arm: [calls, seconds, rows]}``,
+    filled as ``eng`` serves (``_prefill_group`` and ``_spec_step``
+    wrapped on the instance)."""
+    arms = {}
+
+    def clocked(method, arm_of):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = method(*args)
+            arm, rows = arm_of(*args)
+            a = arms.setdefault(arm, [0, 0.0, 0])
+            a[0] += 1
+            a[1] += time.perf_counter() - t0
+            a[2] += rows
+            return out
+        return run
+
+    eng._prefill_group = clocked(
+        eng._prefill_group, lambda free, group, s_pad: (
+            "shared" if eng._prefix is not None and group[0]._pfx_cached
+            else "full", len(group)))
+    eng._spec_step = clocked(eng._spec_step,
+                             lambda live_idx, C: ("spec", len(live_idx)))
+    return arms
+
+
+def _arm_ms(arms, arm):
+    """Calls, mean ms a call and rows of one ``_arm_clock`` arm."""
+    n, sec, rows = arms.get(arm, (0, 0.0, 0))
+    return {f"{arm}_calls": n, f"{arm}_ms": sec / n * 1e3 if n else None,
+            f"{arm}_rows": rows}
+
+
+def _serve_measured(torch, dev, eng, requests):
+    """Serve ``requests`` on ``eng`` from zeroed launch counts and a reset
+    peak: ``(outputs, wall s, launches, peak GB)``."""
+    from paddle_tpu_torch import kernels as K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_dispatch_stats()
+    t0 = time.perf_counter()
+    out = eng.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, wall, K.dispatch_stats(),
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def _check_served(cfg, eng, requests, out, launches, arm):
+    """Every request complete with its count of tokens in the vocabulary,
+    refcounts consistent, both serving kernels launched (the flash
+    forward on its tensor-core route), no plain version."""
+    for r in requests:
+        toks = out[r.rid].tokens
+        assert len(toks) == r.max_new_tokens, (r.rid, len(toks))
+        assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), r.rid
+    eng.cache.alloc.check_invariants()
+    assert launches["flash"] > 0 and launches[arm] > 0, launches
+    _tc_route_only(launches)
+    assert all(v == 0 for k, v in launches.items() if k.endswith("_ref")), \
+        launches
+
+
+def phase_prefix_serve(torch, dev, cfg, params, card):
+    """The prefix cache on the serving main path: ``ServingEngine(
+    num_slots=8, max_len=2048)`` at the config's widths serves the
+    ``prefix_serve_requests`` trace (all submitted at once: arrival times
+    are not replayed) with the cache off; with it on after a warm pass
+    over the rid-shifted trace (stats reset after it); then the cache-on
+    pair again on int8 pages of 32. Each measured serve reports the cache
+    counters, prefill and decode rates, TTFT, wall and peak memory, and,
+    as a reading, how many requests keep the cache-off tokens."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.engine import EngineStats
+    from paddle_tpu_torch.models import llama as L
+    V = cfg.vocab_size
+    reference = off = None
+    for kv_quant, cache in ((False, False), (False, True), (True, True)):
+        eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048,
+                            kv_quant=kv_quant, prefix_cache=cache)
+        warm_saved = 0
+        if cache:
+            eng.run(prefix_serve_requests(V, PREFIX_SERVE_WARM_SHIFT))
+            warm_saved = eng.stats.prefix_tokens_saved
+            eng.stats = EngineStats()
+        requests = prefix_serve_requests(V)
+        arms = _arm_clock(eng)
+        out, wall, launches, peak = _serve_measured(torch, dev, eng,
+                                                    requests)
+        st = eng.stats
+        arm = "paged_quant" if kv_quant else "paged"
+        ttft = sorted(o.ttft_s for r, o in out.items()
+                      if r < PREFIX_SERVE_WARM_SHIFT)
+        tokens = {r.rid: out[r.rid].tokens.tolist() for r in requests}
+        extra = {} if reference is None else _first_divergence(tokens,
+                                                               reference)
+        _say("prefix_serve", card=repr(card), kv_quant=kv_quant,
+             page_size=eng.page_size, prefix_cache=cache,
+             requests=len(requests), warm_tokens_saved=warm_saved,
+             prefix_lookups=st.prefix_lookups, prefix_hits=st.prefix_hits,
+             hit_rate=st.prefix_hits / max(st.prefix_lookups, 1),
+             prefix_tokens_saved=st.prefix_tokens_saved,
+             prefix_evictions=st.prefix_evictions,
+             tokens_prefilled=st.tokens_prefilled, prefill_s=st.prefill_s,
+             prefill_tok_per_s=st.tokens_prefilled / st.prefill_s,
+             **_arm_ms(arms, "full"), **_arm_ms(arms, "shared"),
+             decode_tokens=st.tokens_decoded, decode_steps=st.decode_steps,
+             decode_s=st.decode_s,
+             decode_tok_per_s=st.tokens_decoded / st.decode_s,
+             ttft_median_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
+             wall_s=round(wall, 3), preempted=st.preempted,
+             peak_mem_gb=round(peak, 2), flash=launches["flash"],
+             flash_tc=launches["flash_tc"], **{arm: launches[arm]}, **extra)
+        _check_served(cfg, eng, requests, out, launches, arm)
+        if not cache:
+            reference, off = tokens, st
+            continue
+        assert st.prefix_hits > 0, st.as_dict()
+        assert st.tokens_prefilled < off.tokens_prefilled, (st, off)
+        if st.preempted == 0:
+            # what the cache saved is what it did not prefill (a
+            # preemption re-prefills, so only without one)
+            assert off.tokens_prefilled - st.tokens_prefilled \
+                >= st.prefix_tokens_saved, (st.as_dict(), off.as_dict())
+        del eng
+        torch.cuda.empty_cache()
+
+
+def phase_spec_serve(torch, dev, cfg, params, requests, card):
+    """n-gram spec decode on the serving main path: ``main``'s requests on
+    ``ServingEngine(num_slots=8, max_len=2048)`` with spec decode off and
+    then on (the turbo chunk of 16 takes verify rounds). Reports the
+    rounds, drafts, acceptances, decode rate and time, paged launches a
+    decode step, and, as a reading, how many requests keep the spec-off
+    tokens."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import llama as L
+    reference = None
+    for spec in (False, True):
+        eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048,
+                            spec_decode=spec)
+        arms = _arm_clock(eng)
+        out, wall, launches, peak = _serve_measured(torch, dev, eng,
+                                                    requests)
+        st = eng.stats
+        # the sequential decode steps' host wall, the verify rounds' taken
+        # out (a round counts turbo_chunk decode steps)
+        rounds, round_s, _ = arms.get("spec", (0, 0.0, 0))
+        seq_steps = st.decode_steps - rounds * eng.turbo_chunk
+        step_ms = (st.decode_s - round_s) / seq_steps * 1e3
+        tokens = {r.rid: out[r.rid].tokens.tolist() for r in requests}
+        extra = {} if reference is None else _first_divergence(tokens,
+                                                               reference)
+        _say("spec_serve", card=repr(card), spec_decode=spec,
+             requests=len(requests), spec_rounds=st.spec_rounds,
+             spec_drafted=st.spec_drafted, spec_accepted=st.spec_accepted,
+             acceptance=st.spec_accepted / max(st.spec_drafted, 1),
+             decode_tokens=st.tokens_decoded, decode_steps=st.decode_steps,
+             decode_s=st.decode_s,
+             decode_tok_per_s=st.tokens_decoded / st.decode_s,
+             paged_per_decode_step=launches["paged"] / st.decode_steps,
+             rounds=rounds, round_ms=round_s / rounds * 1e3 if rounds
+             else None, sequential_steps=seq_steps, step_ms=step_ms,
+             round_over_step=round_s / rounds * 1e3 / step_ms if rounds
+             else None,
+             wall_s=round(wall, 3), peak_mem_gb=round(peak, 2),
+             flash=launches["flash"], paged=launches["paged"], **extra)
+        _check_served(cfg, eng, requests, out, launches, "paged")
+        if spec:
+            assert st.spec_rounds > 0, st.as_dict()
+        else:
+            reference = tokens
+        del eng
+        torch.cuda.empty_cache()
 
 
 def phase_generate_parity(torch, dev):
@@ -2986,26 +3412,38 @@ NO_SYNC_PROMPTS, NO_SYNC_CHUNK = (400, 300, 257), 8
 
 
 def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
-                 chunk, forbid_sync, temperature=0.0):
-    """Serve ``prompts`` (random ids from seed 0, ``chunk + 1`` new tokens
-    each) with a ``ServingEngine`` of 4 slots and decode chunk ``chunk``
-    on bf16 pages, or int8 pages with ``kv_quant``; the last request
-    samples at ``temperature`` when it is above 0. With ``forbid_sync``
+                 chunk, forbid_sync, temperature=0.0, shared=0,
+                 warm_first=False, max_new=None, **options):
+    """Serve ``prompts`` (random ids from seed 0, the first ``shared`` of
+    them the same in every prompt; ``max_new`` new tokens each, default
+    ``chunk + 1``) with a ``ServingEngine`` of 4 slots and decode chunk
+    ``chunk`` on bf16 pages, or int8 pages with ``kv_quant``, and the
+    engine ``options`` (``prefix_cache``, ``spec_decode``); the last
+    request samples at ``temperature`` when it is above 0. With
+    ``warm_first`` the first request is served alone before the others,
+    so that its retirement seeds the prefix cache. With ``forbid_sync``
     every call of the engine's data plane (``_prefill_plane``,
-    ``_decode_plane``) runs under ``torch.cuda.set_sync_debug_mode
-    ("error")``, so any read of the device by the host inside a prefill
-    group or a decode chunk raises; the engine's own uploads and reads
-    between them are allowed. Returns the tokens of each request and the
-    number of group and chunk calls."""
+    ``_decode_plane``, ``_spec_plane``) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so any read of the
+    device by the host inside a prefill group, a decode chunk or a verify
+    round raises; the engine's own uploads and reads between them are
+    allowed. Returns the tokens of each request and the calls of each
+    arm: ``prefill``, ``prefill_shared`` (with context pages),
+    ``decode``, ``spec``, those made at least once."""
     import numpy as np
     from paddle_tpu_torch.inference import Request, ServingEngine
     eng = ServingEngine(family, params, cfg, num_slots=4, max_len=1024,
-                        decode_chunk=chunk, kv_quant=kv_quant, device=dev)
-    calls = {"prefill": 0, "decode": 0}
+                        decode_chunk=chunk, kv_quant=kv_quant, device=dev,
+                        **options)
+    calls = {}
 
     def watched(name, plane):
         def run(*args):
-            calls[name] += 1
+            # _prefill_plane's sixth argument is ctx_rows, the cached
+            # prefix's pages
+            arm = "prefill_shared" if name == "prefill" and len(args) > 5 \
+                else name
+            calls[arm] = calls.get(arm, 0) + 1
             if not forbid_sync:
                 return plane(*args)
             prev = torch.cuda.get_sync_debug_mode()
@@ -3018,24 +3456,51 @@ def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
 
     eng._prefill_plane = watched("prefill", eng._prefill_plane)
     eng._decode_plane = watched("decode", eng._decode_plane)
+    eng._spec_plane = watched("spec", eng._spec_plane)
     rng = np.random.default_rng(0)
+    head = rng.integers(0, cfg.vocab_size, shared)
     last = len(prompts) - 1
-    out = eng.run([Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                                      plen),
-                           max_new_tokens=chunk + 1,
-                           temperature=temperature if i == last else 0.0,
-                           seed=100 + i)
-                   for i, plen in enumerate(prompts)])
+    reqs = [Request(rid=i, prompt=np.concatenate(
+                [head, rng.integers(0, cfg.vocab_size, plen - shared)]),
+                    max_new_tokens=chunk + 1 if max_new is None else max_new,
+                    temperature=temperature if i == last else 0.0,
+                    seed=100 + i)
+            for i, plen in enumerate(prompts)]
+    if warm_first:
+        eng.run(reqs[:1])
+        reqs = reqs[1:]
+    out = eng.run(reqs)
+    eng.cache.alloc.check_invariants()
     return [out[i].tokens for i in range(len(prompts))], calls
 
 
+# the two option cases of [no_sync]: name -> (prompts, serve_strict
+# arguments, the calls of each arm); "prefix" serves its first prompt
+# alone, so its retirement seeds the radix and the other two (one bucket,
+# the same 256 cached tokens) make one group over the shared prefix;
+# "spec" fills the 4 slots at decode chunk 2, whose turbo chunk (8)
+# covers the 9 new tokens once: one verify round, then plain chunks for
+# what the round did not accept
+NO_SYNC_OPTIONS = {
+    "prefix": ((400, 300, 257), dict(shared=256, warm_first=True,
+                                     prefix_cache=True),
+               {"prefill": 1, "prefill_shared": 1, "decode": 2}),
+    "spec": ((400, 300, 257, 350), dict(chunk=2, max_new=9,
+                                        spec_decode=True),
+             {"prefill": 1, "spec": 1}),
+}
+
+
 def phase_no_sync(torch, dev, cfg, params):
-    """The serving data plane reads nothing back inside a prefill group or
-    a decode chunk: at ``main``'s Llama-3-8B widths, with bf16 and then
-    int8 pages, the engine serves one group and one greedy chunk with its
-    data plane under ``set_sync_debug_mode("error")`` and gives the
-    tokens of the same serve outside it; a sampled request (bf16 pages)
-    likewise, drawing the same tokens twice from the same seed."""
+    """The serving data plane reads nothing back inside a prefill group, a
+    decode chunk or a verify round: at ``main``'s Llama-3-8B widths, with
+    bf16 and then int8 pages, the engine serves one group and one greedy
+    chunk with its data plane under ``set_sync_debug_mode("error")`` and
+    gives the tokens of the same serve outside it; a sampled request
+    (bf16 pages) likewise, drawing the same tokens twice from the same
+    seed. Then the options (``NO_SYNC_OPTIONS``, bf16 pages): a prefix
+    cache serve whose second group prefills its tails over the cached
+    prefix, and a spec decode serve with one verify round."""
     import numpy as np
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.models import llama as L
@@ -3066,6 +3531,32 @@ def phase_no_sync(torch, dev, cfg, params):
         assert all(0 <= int(v) < cfg.vocab_size for t in strict for v in t)
         assert st["flash"] == st["flash_tc"] == layers, st
         assert st[arm] == NO_SYNC_CHUNK * layers, st
+        assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+    for option, (prompts, kw, want) in NO_SYNC_OPTIONS.items():
+        kw = dict(kw)
+        chunk = kw.pop("chunk", NO_SYNC_CHUNK)
+        free, _ = serve_strict(torch, L, cfg, params, dev, False, prompts,
+                               chunk, False, **kw)
+        K.reset_dispatch_stats()
+        t0 = time.perf_counter()
+        strict, calls = serve_strict(torch, L, cfg, params, dev, False,
+                                     prompts, chunk, True, **kw)
+        wall = time.perf_counter() - t0
+        st = K.dispatch_stats()
+        same = all(np.array_equal(a, b) for a, b in zip(free, strict))
+        _say("no_sync", option=option, prompts=",".join(map(str, prompts)),
+             chunk=chunk, sync_debug_mode="error", raised=False,
+             calls=",".join(f"{k}:{v}" for k, v in sorted(calls.items())),
+             tokens_equal=same, wall_s=round(wall, 3), flash=st["flash"],
+             flash_tc=st["flash_tc"], paged=st["paged"])
+        assert same, (option, free, strict)
+        assert {k: calls.get(k, 0) for k in want} == want, (option, calls)
+        assert set(calls) <= {"prefill", "prefill_shared", "decode",
+                              "spec"}, calls
+        new = kw.get("max_new", chunk + 1)
+        assert all(len(t) == new for t in strict), strict
+        assert all(0 <= int(v) < cfg.vocab_size for t in strict for v in t)
+        assert st["flash"] == st["flash_tc"] == layers, st
         assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
 
 
@@ -3704,18 +4195,14 @@ def _device_ms(fn, calls):
     ``calls``. Unlike ``_time_ms`` it does not count the card's waits for
     the host between short launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages())
-    assert us > 0, "the profiler saw no kernel"
-    return us / calls / 1e3
+    us = sum(_kernel_us(run).values())
+    return us / calls / 1e3 if us > 0 else _held_ms(run) / calls
 
 
 def _interleaved_ms(fns, reps=DIT_TIMING_REPS):
@@ -3967,6 +4454,7 @@ def main() -> int:
     rms_fwd, rms_bwd = phase_rms(torch, dev)
     torch.cuda.empty_cache()
     phase_parity(torch, dev)
+    phase_engine_options_parity(torch, dev)
     phase_quant_parity(torch, dev)
     phase_train_parity(torch, dev)
     phase_train_packed_parity(torch, dev)
@@ -3992,6 +4480,10 @@ def main() -> int:
     kvq_launches, _ = phase_main(torch, dev, cfg, params, requests, smi,
                                  phase="main_kvq", kv_quant=True,
                                  reference=main_tokens)
+    torch.cuda.empty_cache()
+    phase_prefix_serve(torch, dev, cfg, params, smi)
+    torch.cuda.empty_cache()
+    phase_spec_serve(torch, dev, cfg, params, requests, smi)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     qparams = L.quantize_weights(params)        # int8 weight-only

@@ -9,9 +9,11 @@ The port defines the reference's flags that mean something here, with the
 reference's names, defaults and docs: ``enable_sentinel`` and
 ``enable_numerics`` (read by ``make_train_step``'s ``guard`` / ``numerics``
 defaults through ``training.guards``) and every ``serving_*`` flag (read by
-``ServingEngine``: ``serving_kv_quant`` selects int8 pages; the others name
-serving options that are not ported yet, and the engine refuses to run
-with one of them on). Left out, because nothing in the port reads them: the
+``ServingEngine``: ``serving_kv_quant``, ``serving_prefix_cache``,
+``serving_spec_decode``, ``serving_priority_admission``,
+``serving_tenant_inflight_cap`` and ``serving_slo_preemption`` are its
+options' defaults; the others name serving options that are not ported
+yet, and the engine refuses to run with one of them on). Left out, because nothing in the port reads them: the
 JAX-only flags (``use_pallas_kernels``, ``eager_jit_ops``,
 ``default_matmul_precision``) and those of modules not ported yet
 (``check_nan_inf``, ``enable_monitor``, ``enable_monitor_server``,

@@ -1,26 +1,50 @@
-"""Continuous-batching serving engine over a paged KV cache (port of the
-core of ``paddle_tpu/inference/engine.py``).
+"""Continuous-batching serving engine over a paged KV cache (port of
+``paddle_tpu/inference/engine.py``).
 
-The scheduler is the reference's with every ``FLAGS_serving_*`` option
-at its default (off): FIFO admission with a page watermark, same-bucket
-grouped prefill padded to a power-of-two page count and group size,
-chunked decode over a fixed slot grid, recompute preemption of the
-youngest request when the page pool runs out, and slot compaction.
-``kv_quant`` (default: ``FLAGS_serving_kv_quant``) stores int8 KV pages
-with one float32 scale per (page, kv head). The model is a family
-module, ``models.llama`` or ``models.moe``; ``params`` may also be a
-weight-only-quantized tree of it (``quantize_weights``). The prefix
-cache, speculative decode, priority admission and tenant caps, overload
-shedding, SLO preemption, failover and the monitor planes are not ported
-(ROADMAP A7): the constructor refuses to build an engine with one of
-their ``FLAGS_serving_*`` flags on.
+With every ``FLAGS_serving_*`` option at its default (off) the scheduler
+is the reference's core: FIFO admission with a page watermark,
+same-bucket grouped prefill padded to a power-of-two page count and
+group size, chunked decode over a fixed slot grid, recompute preemption
+of the youngest request when the page pool runs out, and slot
+compaction. ``kv_quant`` (default: ``FLAGS_serving_kv_quant``) stores
+int8 KV pages with one float32 scale per (page, kv head). The model is a
+family module, ``models.llama`` or ``models.moe``; ``params`` may also be
+a weight-only-quantized tree of it (``quantize_weights``).
+
+The reference's options that are off by default, each taking its
+``FLAGS_serving_*`` flag as its default:
+
+- ``prefix_cache``: a radix ``PrefixCache`` over committed pages.
+  Admission forks the longest cached page-aligned prefix and takes only
+  the tail fresh (evicting cold cache pages under pressure), a group
+  shares one cached length and prefills only its tails
+  (``paged_prefill_shared``), retirement inserts the committed positions,
+  and a decode chunk that runs out of pages evicts cache pages before it
+  preempts.
+- ``spec_decode``: on a greedy turbo chunk, each sequence drafts a window
+  from a bigram table over its own context and one ``paged_verify_window``
+  pass accepts the longest run the model's greedy predictions confirm.
+- ``priority_admission`` and ``tenant_inflight_cap``: admission picks the
+  highest ``Request.priority`` first and skips a tenant that holds its
+  cap of slots. ``_admit`` is one scan for every option; the
+  reference's second, copied scan (``_admit_policy``) is not kept.
+- ``slo_preemption``: the victim is the lowest (priority, prior
+  preemptions, KV length) instead of the youngest.
+
+The bounded queue, shedding, deadlines and drain, failover and fleet burn
+scaling are not ported (ROADMAP A7): the constructor refuses to build an
+engine with one of their flags on. Nor are the monitor, forensics and
+trace planes, so the reference's calls into them (``_defer``'s deferral
+records, the cost records, latency histograms, spans and counters) are
+left out; SLO preemption measures a victim's work by its KV length, the
+reference's measure when its monitor is off.
 
 Where the reference jits one program per chunk, ``_decode_chunk`` is a
 Python loop over ``chunk`` decode steps; the pool is updated in place.
-The host waits for the card twice per prefill group and twice per decode
-chunk, and nowhere else: once to upload the group's or chunk's inputs
-(``_upload``, one copy) and once to read its tokens back. Between the
-two, the data plane (``_prefill_plane``, ``_decode_plane``) selects no
+The host waits for the card twice per prefill group, decode chunk or
+verify round, and nowhere else: once to upload its inputs (``_upload``,
+one copy) and once to read its tokens back. Between the two, the data
+plane (``_prefill_plane``, ``_decode_plane``, ``_spec_plane``) selects no
 rows on the host (writes the reference drops land in the pool's sink
 page) and draws sampled tokens on the device, so the host issues a
 chunk's steps while the card works through the earlier ones.
@@ -39,7 +63,8 @@ import torch
 from ..core import enforce as E
 from ..core import flags as _flags
 from ..core import resolve_device
-from .paged import PagedKVCache, paged_decode_step, paged_prefill
+from .paged import (PagedKVCache, PrefixCache, paged_decode_step,
+                    paged_prefill, paged_prefill_shared, paged_verify_window)
 
 __all__ = ["Request", "RequestOutput", "RequestRejected", "EngineStats",
            "ServingEngine"]
@@ -52,11 +77,8 @@ PAGED_QUANT_PAGE = 32
 
 # the flags of the reference's serving options (the engine's, and the
 # elastic controller's fleet burn scaling) that the port does not run yet
-_UNPORTED_FLAGS = ("serving_priority_admission", "serving_tenant_inflight_cap",
-                   "serving_max_queue", "serving_shed_on_burn",
-                   "serving_slo_preemption", "serving_failover",
-                   "serving_prefix_cache", "serving_spec_decode",
-                   "serving_fleet_burn_scaling")
+_UNPORTED_FLAGS = ("serving_max_queue", "serving_shed_on_burn",
+                   "serving_failover", "serving_fleet_burn_scaling")
 
 
 class RequestRejected(E.InvalidArgumentError):
@@ -77,6 +99,10 @@ class Request:
     temperature: float = 0.0
     eos_token_id: Optional[int] = None
     seed: Optional[int] = None           # sampling seed when temperature > 0
+    tenant: str = "default"              # admission cap dimension
+    priority: int = 0                    # scheduling class: HIGHER is
+    #                                      more important (admission
+    #                                      order, preemption protection)
 
 
 @dataclasses.dataclass
@@ -87,11 +113,12 @@ class RequestOutput:
     preemptions: int = 0                 # times this request was evicted
     ttft_s: Optional[float] = None       # first submit to the first token
     #                                      the client keeps (host clock)
+    tenant: str = "default"
 
 
 class _Slot:
     __slots__ = ("req", "kv_len", "gen", "tokens", "pending", "done",
-                 "preemptions", "t_first")
+                 "preemptions", "t_first", "ng", "ng_n")
 
     def __init__(self, req: Request):
         self.req = req
@@ -102,6 +129,9 @@ class _Slot:
         self.done = False
         self.preemptions = 0
         self.t_first = None      # host time the first token reached the host
+        self.ng = None           # spec decode: bigram draft table over
+        #                          this request's own context (lazy)
+        self.ng_n = 0            # context tokens folded into ng so far
 
 
 class EngineStats:
@@ -119,12 +149,40 @@ class EngineStats:
         self.decode_s = 0.0          # and of decode chunks (each ends in a
         #                              download, which waits for the card)
         self._occ_steps = 0          # decode steps weighted by slot count
+        # shared-prefix radix cache (prefix_cache)
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_tokens_saved = 0     # prompt tokens not re-prefilled
+        self.prefix_evictions = 0        # radix nodes dropped by pressure
+        # n-gram speculative decode (spec_decode)
+        self.spec_rounds = 0     # per-slot verify windows dispatched
+        self.spec_drafted = 0    # draft tokens proposed (C-1 per round)
+        self.spec_accepted = 0   # drafts accepted by greedy verify
 
     def occupancy(self) -> float:
         """Useful-token fraction of the decode grid: decode-emitted
         tokens / (decode steps x slots)."""
         return (self.tokens_decoded / self._occ_steps
                 if self._occ_steps else 0.0)
+
+    def as_dict(self) -> dict:
+        """The counters under the reference's keys (those of the options
+        the port does not run, ``expired`` and ``shed``, left out)."""
+        return {"admitted": self.admitted, "completed": self.completed,
+                "preempted": self.preempted,
+                "decode_steps": self.decode_steps,
+                "tokens_generated": self.tokens_generated,
+                "tokens_prefilled": self.tokens_prefilled,
+                "tokens_discarded": self.tokens_discarded,
+                "peak_pages_in_use": self.peak_pages_in_use,
+                "batch_occupancy": round(self.occupancy(), 4),
+                "prefix_lookups": self.prefix_lookups,
+                "prefix_hits": self.prefix_hits,
+                "prefix_tokens_saved": self.prefix_tokens_saved,
+                "prefix_evictions": self.prefix_evictions,
+                "spec_rounds": self.spec_rounds,
+                "spec_drafted": self.spec_drafted,
+                "spec_accepted": self.spec_accepted}
 
 
 def _token_seed(seed: int, t: int) -> int:
@@ -203,26 +261,47 @@ class ServingEngine:
     of the paged kernel. ``page_size=None`` is 32 with ``kv_quant``, else
     16.
 
-    The reference's other serving options (prefix cache, spec decode,
-    priority admission, tenant caps, queue bounds, shedding, SLO
-    preemption, failover, fleet burn scaling) are not ported yet (ROADMAP
-    A7): with any of their ``FLAGS_serving_*`` flags on (true, or a
-    positive cap or depth) the constructor raises
-    ``NotImplementedError``. All off, the default, is the engine
-    above."""
+    ``prefix_cache``, ``spec_decode``, ``priority_admission``,
+    ``tenant_inflight_cap`` (a negative cap is 0, uncapped) and
+    ``slo_preemption`` each default to their ``FLAGS_serving_*`` flag;
+    the module docstring says what each does. All off, the default, is
+    the engine above, tokens and scheduling alike.
+
+    The reference's other serving options (queue bounds, shedding,
+    failover, fleet burn scaling) are not ported yet (ROADMAP A7): with
+    any of their ``FLAGS_serving_*`` flags on (true, or a positive
+    depth) the constructor raises ``NotImplementedError``."""
 
     def __init__(self, family, params, config, *, num_slots: int = 8,
                  max_len: Optional[int] = None,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  decode_chunk: int = 4, watermark: float = 0.0,
-                 kv_quant: Optional[bool] = None, device=None):
+                 kv_quant: Optional[bool] = None,
+                 prefix_cache: Optional[bool] = None,
+                 spec_decode: Optional[bool] = None,
+                 priority_admission: Optional[bool] = None,
+                 tenant_inflight_cap: Optional[int] = None,
+                 slo_preemption: Optional[bool] = None, device=None):
         on = [f"FLAGS_{flag}" for flag in _UNPORTED_FLAGS
               if _flags.flag_value(flag) > 0]
         if on:
             raise NotImplementedError(
                 f"ServingEngine: {', '.join(on)} selects a serving option "
                 f"that is not ported yet (ROADMAP.md queue A item A7)")
+
+        def _opt(v, flag):
+            return _flags.flag_value(flag) if v is None else v
+        self._priority_admission = bool(
+            _opt(priority_admission, "serving_priority_admission"))
+        # negatives clamp to 0 = uncapped (a raw -1 cap would read
+        # `0 >= -1` for every tenant and block admission forever)
+        self._tenant_cap = max(0, int(
+            _opt(tenant_inflight_cap, "serving_tenant_inflight_cap")))
+        self._slo_preemption = bool(
+            _opt(slo_preemption, "serving_slo_preemption"))
+        self._spec_decode = bool(_opt(spec_decode, "serving_spec_decode"))
+        prefix_on = bool(_opt(prefix_cache, "serving_prefix_cache"))
         self.device = resolve_device(device)
         E.enforce(params["embed"].device == self.device,
                   f"params lie on {params['embed'].device}, the engine "
@@ -252,6 +331,9 @@ class ServingEngine:
         self.cache = PagedKVCache(config, num_pages, self.page_size,
                                   self.max_pages_per_seq, config.dtype,
                                   self.device, kv_quant=self.kv_quant)
+        # radix shared-prefix cache over the pool's committed pages; None
+        # (option off) short-circuits every hook to the plain code
+        self._prefix = PrefixCache(self.cache.alloc) if prefix_on else None
         self.queue: deque = deque()
         self.slots: List[Optional[_Slot]] = [None] * self.num_slots
         self.outputs: Dict[int, RequestOutput] = {}
@@ -306,7 +388,27 @@ class ServingEngine:
             return bad(f"temperature {req.temperature!r} is not a float")
         if not math.isfinite(temp) or temp < 0.0:
             return bad(f"temperature must be finite and >= 0, got {temp}")
-        return None, (prompt.astype(np.int64), max_new, temp)
+        tenant = req.tenant
+        if tenant is None:
+            tenant = "default"
+        else:
+            try:
+                tenant = str(tenant)
+            except Exception:
+                return bad("tenant is not string-coercible")
+            tenant = tenant or "default"
+            if len(tenant) > 128:
+                return bad(f"tenant name of {len(tenant)} chars exceeds "
+                           "the 128-char limit")
+        try:
+            priority = int(req.priority)
+            if priority != req.priority:
+                return bad(f"priority {req.priority!r} is not an "
+                           "integral class")
+        except (TypeError, ValueError, OverflowError):
+            return bad(f"priority {req.priority!r} is not an int")
+        return None, (prompt.astype(np.int64), max_new, temp, tenant,
+                      priority)
 
     def submit(self, req: Request):
         """Queue a request, or raise :class:`RequestRejected` when it is
@@ -314,12 +416,14 @@ class ServingEngine:
         reason, norm = self._reject_reason(req)
         if reason is not None:
             raise RequestRejected(req.rid, reason)
-        req.prompt, req.max_new_tokens, req.temperature = norm
+        (req.prompt, req.max_new_tokens, req.temperature, req.tenant,
+         req.priority) = norm
         if req.temperature > 0.0 and req.seed is None:
             self._rng_fallback += 1
             req.seed = self._rng_fallback
         req._t_submit = time.perf_counter()
         req._preempt_count = 0
+        req._pfx_cached = 0          # cached prefix length of its admission
         self.queue.append(req)
 
     # -- scheduling ---------------------------------------------------------
@@ -338,27 +442,117 @@ class ServingEngine:
         live = [s for s in self.slots if s is not None]
         self.slots = live + [None] * (self.num_slots - len(live))
 
+    def _free_slack(self) -> int:
+        """Free pages the admission watermark may count: the free list
+        plus prefix-cache pages reclaimable on demand (one
+        ``_evict_pages`` away from free), so that cold cache entries never
+        jam admission. Cache off: exactly ``free_pages``."""
+        free = self.cache.alloc.free_pages
+        if self._prefix is not None:
+            free += self._prefix.reclaimable()
+        return free
+
+    def _evict_pages(self, n: int) -> int:
+        """LRU-evict prefix-cache entries until ``n`` pages reach the free
+        list (or nothing evictable remains); returns the pages freed.
+        Cache off: 0."""
+        if self._prefix is None:
+            return 0
+        before = self._prefix.evicted_nodes
+        freed = self._prefix.evict(n)
+        self.stats.prefix_evictions += self._prefix.evicted_nodes - before
+        return freed
+
+    def _match_len(self, req: Request) -> int:
+        """Cached page-aligned prefix length of a prompt (the group-fill
+        probe; refreshes the matched nodes' LRU stamps)."""
+        return self._prefix.match(req.prompt)[0]
+
+    def _alloc_for(self, req: Request, s_pad: int):
+        """Admission allocation through the prefix cache: fork the longest
+        cached page-aligned prefix by refcount and take only the tail
+        fresh, evicting LRU cache leaves under pool pressure. The match
+        is re-run after every eviction round: eviction may drop the very
+        nodes just matched, and a stale page list must never be forked.
+        Stamps ``req._pfx_cached`` with the shared token count on
+        success. Cache off: the plain ``alloc``."""
+        alloc = self.cache.alloc
+        if self._prefix is None:
+            return alloc.alloc(req.rid, s_pad)
+        self.stats.prefix_lookups += 1
+        need = alloc.pages_for(s_pad)
+        while True:
+            cached, pages = self._prefix.match(req.prompt)
+            missing = (need - len(pages)) - alloc.free_pages
+            if missing > 0:
+                if self._evict_pages(missing) == 0:
+                    return None
+                continue
+            got = alloc.alloc_prefix(req.rid, pages, s_pad) if cached \
+                else alloc.alloc(req.rid, s_pad)
+            if got is None:
+                return None
+            req._pfx_cached = cached
+            if cached:
+                self.stats.prefix_hits += 1
+                self.stats.prefix_tokens_saved += cached
+            return got
+
     def _retire(self, idx: int):
         slot = self.slots[idx]
         self.slots[idx] = None
+        if self._prefix is not None and slot.kv_len >= self.page_size:
+            # only COMMITTED positions enter the radix: the prompt plus
+            # the generated tokens whose KV is written (kv_len of them;
+            # the last sampled token's KV never is). insert() takes its
+            # cache holds BEFORE the free below, so the pages survive the
+            # sequence's release.
+            plen = int(slot.req.prompt.shape[0])
+            gen_committed = slot.kv_len - plen
+            stream = slot.req.prompt if gen_committed <= 0 else \
+                np.concatenate([slot.req.prompt, np.asarray(
+                    slot.tokens[:gen_committed], np.int64)])
+            self._prefix.insert(stream,
+                                self.cache.alloc.seq_pages(slot.req.rid))
         self.cache.alloc.free(slot.req.rid)
         self.outputs[slot.req.rid] = RequestOutput(
             rid=slot.req.rid, tokens=np.asarray(slot.tokens, np.int32),
             prompt_len=int(slot.req.prompt.shape[0]),
             preemptions=slot.preemptions,
-            ttft_s=slot.t_first - slot.req._t_submit)
+            ttft_s=slot.t_first - slot.req._t_submit,
+            tenant=slot.req.tenant)
         self.stats.completed += 1
 
-    def _preempt_one(self) -> bool:
-        """Evict the youngest live request (recompute policy: pages
-        freed, request requeued at the front). False when nothing can be
-        evicted."""
-        for idx in range(self.num_slots - 1, -1, -1):
+    def _preempt_victim_idx(self) -> Optional[int]:
+        """The eviction victim. Default: the youngest live request (the
+        highest slot index). With ``slo_preemption``: the lowest
+        (priority, prior preemptions, KV length), the youngest among
+        equals: the least important class first, within a class repeat
+        victims protected, then the request cheapest to recompute."""
+        if not self._slo_preemption:
+            for idx in range(self.num_slots - 1, -1, -1):
+                slot = self.slots[idx]
+                if slot is not None and not slot.done:
+                    return idx
+            return None
+        best_idx, best_key = None, None
+        for idx in range(self.num_slots):
             slot = self.slots[idx]
-            if slot is not None and not slot.done:
-                break
-        else:
+            if slot is None or slot.done:
+                continue
+            key = (slot.req.priority, slot.preemptions, slot.kv_len, -idx)
+            if best_key is None or key < best_key:
+                best_idx, best_key = idx, key
+        return best_idx
+
+    def _preempt_one(self) -> bool:
+        """Evict :meth:`_preempt_victim_idx`'s request (recompute policy:
+        pages freed, request requeued at the front). False when nothing
+        can be evicted."""
+        idx = self._preempt_victim_idx()
+        if idx is None:
             return False
+        slot = self.slots[idx]
         self.slots[idx] = None
         self.cache.alloc.free(slot.req.rid)
         slot.req._preempt_count += 1
@@ -367,25 +561,58 @@ class ServingEngine:
         self.stats.tokens_discarded += slot.gen
         return True
 
+    def _pad_bucket(self, req: Request) -> int:
+        return max(self._bucket(int(req.prompt.shape[0])), self.page_size)
+
     def _admit(self):
-        """FIFO admission with head-of-line page watermark; same-bucket
-        waiters join the head's prefill group."""
+        """Admission with a head-of-line page watermark. Each pass picks
+        a head: the FIFO head, or with ``priority_admission`` the
+        highest-priority waiter (ties by queue position: arrival order,
+        preemption re-queues at the front). With ``tenant_inflight_cap``
+        a tenant that already holds its cap of slots is skipped: its
+        requests wait without blocking other tenants, and the cap alone
+        keeps FIFO among the eligible. Same-bucket waiters join the
+        head's prefill group (with the prefix cache, only those whose
+        cached length is the head's), in queue order, or in priority
+        order under ``priority_admission``, so grouping may co-admit
+        lower-priority same-bucket waiters into slots the dispatch would
+        leave idle (a bounded, one-dispatch-deep inversion traded for
+        batched prefill). The reference runs the options in a second,
+        copied scan (``_admit_policy``); with both options off this scan
+        takes the same steps as its FIFO one."""
         alloc = self.cache.alloc
+        cap = self._tenant_cap
+        inflight: Dict[str, int] = {}
+        if cap:
+            for s in self.slots:
+                if s is not None:
+                    inflight[s.req.tenant] = inflight.get(s.req.tenant, 0) + 1
         while self.queue:
             free = [i for i, s in enumerate(self.slots) if s is None]
             if not free:
                 break
-            req = self.queue[0]
-            s_pad = max(self._bucket(int(req.prompt.shape[0])),
-                        self.page_size)
+            pos = None
+            for j, r in enumerate(self.queue):
+                if cap and inflight.get(r.tenant, 0) >= cap:
+                    continue
+                if not self._priority_admission:
+                    pos = j               # first eligible (FIFO)
+                    break
+                if pos is None or r.priority > self.queue[pos].priority:
+                    pos = j
+            if pos is None:               # every waiter's tenant is at cap
+                break
+            req = self.queue[pos]
+            s_pad = self._pad_bucket(req)
             need = s_pad // self.page_size
             idle = not any(s is not None and not s.done
                            for s in self.slots)
-            if alloc.free_pages - need < self.watermark_pages and not idle:
+            if self._free_slack() - need < self.watermark_pages \
+                    and not idle:
                 break
-            self.queue.popleft()
-            if alloc.alloc(req.rid, s_pad) is None:
-                self.queue.appendleft(req)
+            del self.queue[pos]
+            if self._alloc_for(req, s_pad) is None:
+                self.queue.insert(pos, req)
                 # an idle engine that cannot place its head request will
                 # never make progress: a sizing error, not a transient
                 E.enforce(not idle,
@@ -393,41 +620,74 @@ class ServingEngine:
                           f"{alloc.free_pages} exist free on an idle "
                           f"engine", error=E.ResourceExhaustedError)
                 break
+            # the tail prefill's context page count is one per group, so
+            # co-grouped requests must match the head's cached length
+            head_cached = req._pfx_cached
             group = [req]
-            scanned = 0
-            while (len(group) < len(free) and scanned < len(self.queue)
-                   and alloc.free_pages - need >= self.watermark_pages):
-                cand = self.queue[scanned]
-                if max(self._bucket(int(cand.prompt.shape[0])),
-                       self.page_size) != s_pad:
-                    scanned += 1
-                    continue
-                if alloc.alloc(cand.rid, s_pad) is None:
+            if cap:
+                inflight[req.tenant] = inflight.get(req.tenant, 0) + 1
+            # priority order (ties: queue position), so an equal-or-higher
+            # priority same-bucket waiter never loses its seat to an
+            # earlier-queued lower-priority one
+            order = list(range(len(self.queue)))
+            if self._priority_admission:
+                order.sort(key=lambda j: (-self.queue[j].priority, j))
+            picked: List[int] = []
+            for j in order:
+                if len(group) >= len(free):
                     break
-                del self.queue[scanned]
+                if self._free_slack() - need < self.watermark_pages:
+                    break
+                cand = self.queue[j]
+                if self._pad_bucket(cand) != s_pad or (
+                        cap and inflight.get(cand.tenant, 0) >= cap) or (
+                        self._prefix is not None
+                        and self._match_len(cand) != head_cached):
+                    continue
+                if self._alloc_for(cand, s_pad) is None:
+                    break
+                if cand._pfx_cached != head_cached:
+                    # an eviction inside _alloc_for shifted the match:
+                    # not groupable this pass, so it stays queued
+                    alloc.free(cand.rid)
+                    continue
+                picked.append(j)
                 group.append(cand)
+                if cap:
+                    inflight[cand.tenant] = inflight.get(cand.tenant, 0) + 1
+            for j in sorted(picked, reverse=True):
+                del self.queue[j]
             self._prefill_group(free, group, s_pad)
 
     def _prefill_group(self, free: List[int], group: List[Request],
                        s_pad: int):
         """One batched prefill for same-bucket requests, padded to a
         power-of-two group size; dummy rows carry all-sentinel page rows
-        and never touch the pool."""
+        and never touch the pool. With the prefix cache every member
+        shares one cached page-aligned prefix length (admission grouped
+        by it), and only the uncached tails are prefilled, over the
+        shared context pages, which are read and never written."""
         need = s_pad // self.page_size
         g = 1
         while g < len(group):
             g *= 2
-        ids = np.zeros((g, s_pad), np.int64)
-        rows = np.full((g, need), self.cache.num_pages, np.int64)
+        cached = group[0]._pfx_cached if self._prefix is not None else 0
+        ncp = cached // self.page_size
+        sentinel = self.cache.num_pages
+        ids = np.zeros((g, s_pad - cached), np.int64)
+        rows = np.full((g, need - ncp), sentinel, np.int64)
+        ctx_rows = np.full((g, ncp), sentinel, np.int64)
         slen = np.ones(g, np.int64)
         temps = [0.0] * g
         seeds = [None] * g
         slots = []
         for j, r in enumerate(group):
             plen = int(r.prompt.shape[0])
-            ids[j, :plen] = r.prompt
-            rows[j] = self.cache.alloc.block_row(r.rid, need)
-            slen[j] = plen
+            ids[j, :plen - cached] = r.prompt[cached:]
+            brow = self.cache.alloc.block_row(r.rid, need)
+            ctx_rows[j] = brow[:ncp]
+            rows[j] = brow[ncp:]
+            slen[j] = plen - cached
             temps[j] = r.temperature
             if r.temperature > 0.0:
                 seeds[j] = _token_seed(r.seed, 0)
@@ -436,13 +696,17 @@ class ServingEngine:
             slot.preemptions = r._preempt_count
             slots.append(slot)
         t0 = time.perf_counter()
+        ids, rows, slen, *ctx = self._upload(
+            ids, rows, slen, *((ctx_rows,) if cached else ()))
         toks = self._prefill_plane(
-            *self._upload(ids, rows, slen), temps,
-            seeds if any(s is not None for s in seeds) else None).tolist()
+            ids, rows, slen, temps,
+            seeds if any(s is not None for s in seeds) else None,
+            *ctx).tolist()
         t_first = time.perf_counter()
         self.stats.prefill_s += t_first - t0
         for j, (r, slot) in enumerate(zip(group, slots)):
-            self.cache.alloc.advance(r.rid, int(slen[j]))
+            tail = int(r.prompt.shape[0]) - cached
+            self.cache.alloc.advance(r.rid, tail + cached)
             tok = int(toks[j])
             slot.tokens.append(tok)
             slot.pending = tok
@@ -454,7 +718,7 @@ class ServingEngine:
             self.slots[free[j]] = slot
             self.stats.admitted += 1
             self.stats.tokens_generated += 1
-            self.stats.tokens_prefilled += int(slen[j])
+            self.stats.tokens_prefilled += tail
 
     def _upload(self, *arrays):
         """A prefill group's or decode chunk's host arrays as device
@@ -470,13 +734,20 @@ class ServingEngine:
             at += a.size
         return out
 
-    def _prefill_plane(self, ids, rows, slen, temps, seeds):
+    def _prefill_plane(self, ids, rows, slen, temps, seeds, ctx_rows=None):
         """The device work of one prefill group on uploaded inputs: the
-        prefill over the pool and the draw of the first tokens, which
-        stay on the device. Reads nothing back."""
-        logits = paged_prefill(
-            self.family, self.params, ids, self.config,
-            self.cache.pool["k"], self.cache.pool["v"], rows, slen)
+        prefill over the pool (with ``ctx_rows``, the cached prefix's
+        pages, the tails' prefill over them) and the draw of the first
+        tokens, which stay on the device. Reads nothing back."""
+        pool = self.cache.pool
+        if ctx_rows is None:
+            logits = paged_prefill(self.family, self.params, ids,
+                                   self.config, pool["k"], pool["v"], rows,
+                                   slen)
+        else:
+            logits = paged_prefill_shared(self.family, self.params, ids,
+                                          self.config, pool["k"], pool["v"],
+                                          rows, slen, ctx_rows)
         return _sample_rows(logits, temps, seeds)
 
     def _decode_plane(self, chunk, bt, tokens, kv_len, done, gen, max_new,
@@ -501,9 +772,10 @@ class ServingEngine:
 
     def _ensure_chunk_capacity(self, live_idx: List[int],
                                chunk: int) -> List[int]:
-        """Reserve pages for up to ``chunk`` appends per live slot,
-        preempting the youngest requests on OOM. Returns the (possibly
-        shrunk) live index list."""
+        """Reserve pages for up to ``chunk`` appends per live slot; on OOM
+        evict cold prefix-cache pages first, then preempt
+        (``_preempt_victim_idx``). Returns the (possibly shrunk) live
+        index list."""
         i = 0
         while i < len(live_idx):
             slot = self.slots[live_idx[i]]
@@ -514,9 +786,10 @@ class ServingEngine:
             got = self.cache.alloc.ensure(slot.req.rid,
                                           slot.kv_len + appends)
             if got is None:
-                E.enforce(self._preempt_one(),
-                          "page pool exhausted with nothing left to "
-                          "preempt", error=E.ResourceExhaustedError)
+                if self._evict_pages(1) == 0:
+                    E.enforce(self._preempt_one(),
+                              "page pool exhausted with nothing left to "
+                              "preempt", error=E.ResourceExhaustedError)
                 continue                  # retry this slot
             self.cache.apply_cow(got[1])
             i += 1
@@ -545,6 +818,15 @@ class ServingEngine:
         live_idx = self._ensure_chunk_capacity(live_idx, C)
         if not live_idx:
             return True
+        if (self._spec_decode and C == self.turbo_chunk
+                and not any(self.slots[i].req.temperature > 0
+                            for i in live_idx)):
+            # greedy turbo chunk: verify a self-drafted window in one
+            # model pass instead of C sequential decode steps. The turbo
+            # preconditions (full grid, no EOS, every remaining run
+            # covers the chunk) hold, so the round ends at the boundary
+            # the sequential chunk would
+            return self._spec_step(live_idx, C)
 
         B = self.num_slots
         tokens = np.zeros(B, np.int64)
@@ -597,6 +879,101 @@ class ServingEngine:
         self.stats.tokens_generated += new_tokens
         self.stats.tokens_decoded += new_tokens
         self.stats._occ_steps += C * self.num_slots
+        return True
+
+    def _draft_for(self, s: _Slot, C: int) -> np.ndarray:
+        """A C-token verify window for one sequence: position 0 is the
+        pending token (its KV is the one unwritten commit), positions
+        1..C-1 come from a bigram table over the request's own context
+        (prompt + emitted tokens), repeat-last on a miss. Host work only:
+        the table lives on the slot and folds in only the tokens appended
+        since the last draft."""
+        if s.ng is None:
+            s.ng = {}
+        prompt = s.req.prompt
+        plen = int(prompt.shape[0])
+        total = plen + len(s.tokens)
+
+        def at(p):
+            return int(prompt[p]) if p < plen else int(s.tokens[p - plen])
+
+        for p in range(max(s.ng_n, 2), total):
+            s.ng[(at(p - 2), at(p - 1))] = at(p)
+        s.ng_n = total
+        out = np.empty(C, np.int64)
+        out[0] = s.pending
+        p2, p1 = at(total - 2), at(total - 1)
+        for t in range(1, C):
+            nxt = s.ng.get((p2, p1), p1)
+            out[t] = nxt
+            p2, p1 = p1, nxt
+        return out
+
+    def _spec_plane(self, bt, drafts, kv_len, live):
+        """The device work of one verify round on uploaded inputs: the
+        drafted windows through ``paged_verify_window`` (their KV written
+        into the pool) and each position's greedy prediction ``[B, C]``,
+        on the device. Reads nothing back."""
+        logits = paged_verify_window(
+            self.family, self.params, drafts, self.config,
+            self.cache.pool["k"], self.cache.pool["v"], bt, kv_len, live)
+        return logits.argmax(dim=-1)
+
+    def _spec_step(self, live_idx: List[int], C: int) -> bool:
+        """One speculative verify round over the greedy turbo chunk: write
+        all C drafted positions' KV, attend over the window in one pass,
+        and accept the longest run where the model's greedy prediction
+        confirms the next draft. The tokens are the sequential path's by
+        construction: draft 0 is the real pending token, so prediction 0
+        is the sequential next token; each further draft is kept only
+        when it equals the prediction before it, and the first token
+        after a rejection is again the model's own prediction. (The
+        window is another program than the decode steps, so in reduced
+        precision an argmax near-tie can flip; float32 is exact.)
+        Rejected positions' KV stays in the pool past each sequence's
+        length, masked out and overwritten by later commits."""
+        B = self.num_slots
+        live = set(live_idx)
+        bt = self.cache.block_tables(
+            [self.slots[i].req.rid if i in live else None
+             for i in range(B)])
+        drafts = np.zeros((B, C), np.int64)
+        kv_len = np.zeros(B, np.int64)
+        live_m = np.zeros(B, bool)
+        for i in live_idx:
+            s = self.slots[i]
+            drafts[i] = self._draft_for(s, C)
+            kv_len[i] = s.kv_len
+            live_m[i] = True
+        t0 = time.perf_counter()
+        preds = self._spec_plane(
+            *self._upload(bt, drafts, kv_len, live_m)).cpu().numpy()
+        self.stats.decode_s += time.perf_counter() - t0
+        new_tokens = accepted = 0
+        for i in live_idx:
+            s = self.slots[i]
+            dr, col = drafts[i], preds[i]
+            a = 0
+            while a < C - 1 and dr[a + 1] == col[a]:
+                a += 1
+            emitted = [int(t) for t in col[:a + 1]]
+            s.tokens.extend(emitted)
+            new_tokens += len(emitted)
+            accepted += a
+            self.cache.alloc.advance(s.req.rid, len(emitted))
+            s.kv_len += len(emitted)
+            s.gen += len(emitted)
+            s.pending = emitted[-1]
+            # the turbo preconditions rule out EOS: only the length bound
+            # can finish a sequence here
+            s.done = s.gen >= s.req.max_new_tokens
+        self.stats.decode_steps += C
+        self.stats.tokens_generated += new_tokens
+        self.stats.tokens_decoded += new_tokens
+        self.stats._occ_steps += C * self.num_slots
+        self.stats.spec_rounds += len(live_idx)
+        self.stats.spec_drafted += (C - 1) * len(live_idx)
+        self.stats.spec_accepted += accepted
         return True
 
     def run(self, requests=None, max_steps: int = 1_000_000

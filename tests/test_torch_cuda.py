@@ -1094,6 +1094,63 @@ def test_serving_data_plane_never_syncs_the_host(dev, kv_quant,
                for t in runs[1][0])
 
 
+@pytest.mark.parametrize("option,prompts,kw,want", [
+    ("prefix", (40, 30, 25), dict(shared=16, warm_first=True,
+                                  prefix_cache=True),
+     {"prefill": 1, "prefill_shared": 1, "decode": 2}),
+    ("spec", (40, 35, 50, 45), dict(chunk=2, max_new=9, spec_decode=True),
+     {"prefill": 1, "spec": 1})])
+def test_prefix_and_spec_planes_never_sync_the_host(dev, option, prompts, kw,
+                                                    want):
+    """The engine's option arms of the data plane under
+    ``set_sync_debug_mode("error")`` (``chip_smoke.serve_strict``): a
+    prefix-cache serve whose second group prefills its tails over the
+    cached prefix (``_prefill_plane`` with ``ctx_rows``), and a
+    spec-decode serve that makes one verify round (``_spec_plane``); the
+    tokens equal those of the same serve outside that mode."""
+    C = _chip_smoke()
+    cfg = L.llama_tiny(dtype=torch.bfloat16)
+    params = L.init_params(cfg, seed=0, device=dev)
+    kw = dict(kw)
+    chunk = kw.pop("chunk", 8)
+    runs = [C.serve_strict(torch, L, cfg, params, dev, False, prompts, chunk,
+                           strict, **kw) for strict in (False, True)]
+    for a, b in zip(runs[0][0], runs[1][0]):
+        np.testing.assert_array_equal(a, b)
+    calls = runs[1][1]
+    assert {k: calls.get(k, 0) for k in want} == want, calls
+    new = kw.get("max_new", chunk + 1)
+    assert all(len(t) == new and ((t >= 0) & (t < cfg.vocab_size)).all()
+               for t in runs[1][0])
+
+
+def test_engine_options_match_the_cpu(dev):
+    """``[engine_options_parity]``'s starved case: prefix cache and spec
+    decode on 14 pages for ten prompts of three prefix families, float32
+    ``llama_tiny``: the card's tokens, counters (evictions, hits,
+    preemptions, verify rounds) and order of admission equal the CPU's,
+    and its tokens equal the card's with the options off."""
+    C = _chip_smoke()
+    cfg = L.llama_tiny()
+    cpu_params = L.init_params(cfg, seed=0, device="cpu")
+    card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+    K.reset_dispatch_stats()
+    card = C.engine_options_serve(torch, L, cfg, card_params, dev, "starved")
+    torch.cuda.synchronize()
+    st = K.dispatch_stats()
+    cpu = C.engine_options_serve(torch, L, cfg, cpu_params, "cpu", "starved")
+    off = C.engine_options_serve(torch, L, cfg, card_params, dev, "starved",
+                                 options=False)
+    assert card["tokens"] == cpu["tokens"] == off["tokens"]
+    assert card["stats"] == cpu["stats"]
+    assert card["groups"] == cpu["groups"]
+    s = card["stats"]
+    assert min(s["preempted"], s["prefix_evictions"], s["prefix_hits"],
+               s["spec_rounds"]) > 0, s
+    assert st["flash"] > 0 and st["paged"] > 0, st
+    assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+
+
 @pytest.mark.parametrize("temperature", [0.7, 1.5])
 def test_card_sampler_follows_the_tempered_softmax(dev, temperature):
     """``_sample_rows`` on the card over 4000 rows of the same logits,

@@ -8,8 +8,10 @@ copy of ``paddle_tpu/core/flags.py``) and the options that read it.
 - Every flag the port defines has the JAX registry's name, default and
   doc, and the port defines exactly the ones it reads.
 - ``set_flags`` reaches ``make_train_step``'s guard and numerics
-  defaults and ``ServingEngine``'s ``kv_quant``; each serving flag whose
-  option is not ported makes the engine raise, naming ROADMAP A7.
+  defaults and ``ServingEngine``'s ``kv_quant``, ``prefix_cache``,
+  ``spec_decode``, ``priority_admission``, ``tenant_inflight_cap`` and
+  ``slo_preemption``; each serving flag whose option is not ported makes
+  the engine raise, naming ROADMAP A7.
 """
 import os
 import subprocess
@@ -28,11 +30,16 @@ from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models import moe as TM
 
 PORTED = ("enable_sentinel", "enable_numerics")
-UNPORTED_SERVING = ("serving_priority_admission", "serving_tenant_inflight_cap",
-                    "serving_max_queue", "serving_shed_on_burn",
-                    "serving_slo_preemption", "serving_fleet_burn_scaling",
-                    "serving_failover", "serving_prefix_cache",
-                    "serving_spec_decode")
+UNPORTED_SERVING = ("serving_max_queue", "serving_shed_on_burn",
+                    "serving_fleet_burn_scaling", "serving_failover")
+# each ported serving option's flag and how the engine shows it is on
+ENGINE_OPTIONS = {
+    "serving_prefix_cache": lambda e: e._prefix is not None,
+    "serving_spec_decode": lambda e: e._spec_decode,
+    "serving_priority_admission": lambda e: e._priority_admission,
+    "serving_tenant_inflight_cap": lambda e: e._tenant_cap == 4,
+    "serving_slo_preemption": lambda e: e._slo_preemption,
+}
 
 
 @pytest.fixture(autouse=True)
@@ -130,6 +137,21 @@ def test_set_flags_reaches_the_engine_kv_quant():
     assert eng.kv_quant and isinstance(eng.cache.pool["k"], dict)
     assert not ServingEngine(TL, params, cfg, device="cpu",
                              kv_quant=False).kv_quant
+
+
+@pytest.mark.parametrize("flag", sorted(ENGINE_OPTIONS))
+def test_set_flags_reaches_the_engine_options(flag):
+    """Each ported option's flag is its constructor default, as
+    ``kv_quant``'s; an explicit argument wins over it."""
+    cfg = TL.llama_tiny()
+    params = TL.init_params(cfg, device="cpu")
+    is_on = ENGINE_OPTIONS[flag]
+    assert not is_on(ServingEngine(TL, params, cfg, device="cpu"))
+    on = True if isinstance(TF._REGISTRY[flag].default, bool) else 4
+    paddle_tpu_torch.set_flags({f"FLAGS_{flag}": on})
+    assert is_on(ServingEngine(TL, params, cfg, device="cpu"))
+    off = {flag.removeprefix("serving_"): 0 if on == 4 else False}
+    assert not is_on(ServingEngine(TL, params, cfg, device="cpu", **off))
 
 
 @pytest.mark.parametrize("flag", UNPORTED_SERVING)
