@@ -135,9 +135,10 @@ Phases, each printed on its own line; any failure exits non-zero:
     no host sync may happen there, and the tokens must equal the same
     serve's outside that mode; then, with bf16 pages, a prefix-cache
     serve whose second group prefills its tails over the cached prefix
-    (``_prefill_plane`` with context pages) and a spec-decode serve with
-    one verify round (``_spec_plane``), the calls counted by arm
-    (``NO_SYNC_OPTIONS``);
+    (``_prefill_plane`` with context pages), a spec-decode serve with
+    one verify round (``_spec_plane``) and a serve over a float32 pool
+    (the decode kernel's mixed pair) with a journal attached and a
+    deadline eviction, the calls counted by arm (``NO_SYNC_OPTIONS``);
 20. surface (card against CPU on the same seeded inputs): masked
     ``F.scaled_dot_product_attention`` (boolean and additive masks, with
     causal, 32 / 8 heads, float32 and bf16: plain math, no flash launch),
@@ -245,7 +246,43 @@ Phases, each printed on its own line; any failure exits non-zero:
 32. spec_serve: ``main``'s requests with spec decode off and on: verify
     rounds, drafts, acceptances, decode rate, paged launches a decode
     step, and how many requests keep the spec-off tokens (a reading);
-    rounds above 0.
+    rounds above 0;
+33. paged_mixed (in the kernels phase): the decode kernel at every mixed
+    (q, page) pair (``MIXED_PAIRS``: float32 q over bf16 / float16 pages,
+    bf16 q over float32 / float16 pages) against its plain version within
+    ``mixed_tol``, bf16 q against ``paged_ref_round_p`` (p rounded to the
+    page type) within ``PAGED_TOL``, and for float32 q over 2-byte pages
+    the RMS ratio of the rounding (``MIXED_RMS_BAND``), at the edge
+    shapes (empty sequences, a partial last page, sentinel entries, D 64
+    / 128, groups 1-8) and the main decode shape; bf16 q over float32 pages of bf16 values bit for bit equal to
+    the bf16 arm; bf16 q over float32 pages timed at the first wave
+    beside the same-type arm (the ``kernels`` line's eleventh record);
+34. overload_parity (after ``engine_options_parity``): the overload
+    policies on one float32 ``llama_tiny`` model, card against CPU
+    (``overload_cases``: a bounded queue of 3 with priority admission, a
+    drain of a starved pool that keeps its preemption re-queue, deadlines
+    under a fake clock, bf16 pages under the float32 model), then
+    ``failover_case`` (replica A abandoned, a coordinator strands the
+    rest, replica B serves them; a sampled request replays its tokens);
+35. kv_dtype_serve (after ``main``): ``main``'s requests over a float32
+    pool (``kv_dtype=torch.float32``) under the bf16 model: every decode
+    launch on the mixed pair, pool bytes, decode rate against ``main``'s,
+    how many requests keep ``main``'s tokens (a reading);
+36. overload_serve (after ``spec_serve``): the JAX ``serving_trace_replay``
+    rung's trace and burst episode (``overload_trace_requests``: seed
+    1616, rate 40, a burst of arrivals; an interactive tenant of priority
+    2, a batch tenant with a 0.2 s deadline; 48 priority-0 requests at
+    0.55 s) at the serving lengths, ``max_queue=16`` with priority
+    admission, one engine step per 0.01 s of a fake clock, then a drain
+    (``drive_overload``): every rid ends in exactly one state; sheds at
+    submit, displacements, expiries in the queue and in a slot and sheds
+    by the drain all above 0; terminal counts by state and reason, retry
+    hints, TTFT per tenant in virtual seconds;
+37. failover_serve: ``main``'s 16 greedy requests on replica A until 4
+    have completed with 4 live, then A is dropped and replica B serves
+    what a ``FailoverCoordinator`` strands from A's journal: each rid
+    served exactly once, lineage ``["A"]``, seconds from strand to the
+    last recovery, tokens equal to ``main``'s (a reading).
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -263,7 +300,8 @@ then times both beside ``scaled_dot_product_attention`` with a
 block-diagonal causal mask.
 
 Every bf16 main path (``main`` and its uniform baseline, ``main_kvq``,
-``main_wq``, ``prefix_serve``, ``spec_serve``, ``generate``,
+``main_wq``, ``prefix_serve``, ``spec_serve``, ``kv_dtype_serve``,
+``overload_serve``, ``generate``,
 ``moe_main``, ``train``, the padded pass of ``train_packed``,
 ``eager_train``, ``moe_train``, ``dit_sample``, ``dit_train``) must
 launch the
@@ -290,6 +328,7 @@ ones (default: all 32 layers) and ``moe_main`` (at most its 28).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -303,6 +342,34 @@ FLASH_TOL = 2e-2    # bf16 output: one bf16 rounding of values of size ~1
 FLASH_F32_TOL = 1e-4    # float32: summation order and __expf only
 LSE_TOL = 1e-3
 PAGED_TOL = 2e-2
+# the decode kernel's mixed (q, page) pairs. A pair with 2-byte pages
+# rounds p to the page type before P.V, as the Pallas kernel does, but
+# against the running max of its row group (Pallas: of its pages so far),
+# so no plain version repeats its rounding bit for bit. Against the plain
+# version (p float32): the same-type tolerance (PAGED_TOL for bf16 q,
+# FLASH_F32_TOL for float32 q) plus the rounding's bound on a weighted mean
+# of the values, the page type's unit roundoff of max |v| (8 and 11
+# significant bits: bf16 2^-8, float16 2^-11; float32 pages keep p)
+MIXED_UNIT_ROUNDOFF = {"float32": 0.0, "bfloat16": 2.0 ** -8,
+                       "float16": 2.0 ** -11}
+# bf16 q: against ``paged_ref_round_p`` (p rounded against the global
+# max) within PAGED_TOL. float32 q over 2-byte pages: the RMS of the
+# kernel's difference from the plain version over that of
+# ``paged_ref_round_p``'s lies within MIXED_RMS_BAND. Rounding at the page
+# type puts it near 1, below it since each of the kernel's row groups
+# keeps an exact p = 1 at its own max (0.54-0.69 at these shapes in a CPU
+# model of the kernel's layout); no rounding puts it near 0, bf16's
+# rounding on float16 pages near 2^3 and float16's on bf16 pages near 2^-3
+MIXED_RMS_BAND = (0.25, 2.0)
+# the pairs the mixed arm adds: (q, page) types other than the same-type
+# arms, over the Pallas kernel's page types
+MIXED_PAIRS = (("float32", "bfloat16"), ("float32", "float16"),
+               ("bfloat16", "float32"), ("bfloat16", "float16"))
+# [overload_parity]'s kv_dtype case: the float32 model's decode logits
+# over a bf16 pool, card (p rounded to bf16 before P.V, as the Pallas
+# kernel) against CPU (plain version, p float32), relative to the largest
+# |logit|: about 8 times the H100's reading of 1.28e-4
+KV_DTYPE_LOGIT_TOL = 1e-3
 # backward: max abs error of dq / dk / dv over each reference's max |.|
 BWD_TOL = 2e-2      # bf16 outputs and inputs
 BWD_F32_TOL = 1e-4  # float32: summation order and __expf only
@@ -848,9 +915,10 @@ L2_BYTES = 50e6      # the H100's L2 cache
 
 
 def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
-                  check=True):
+                  check=True, page_dtype=None):
     """One decode call's device time at ``lengths`` (bf16 q, Llama-3-8B
-    heads; bf16 pages of ``ps``, or int8 with scales): ``torch.profiler``'s
+    heads; bf16 pages of ``ps``, pages of ``page_dtype`` when given, or
+    int8 with scales): ``torch.profiler``'s
     device time of every ``paged_decode*`` kernel (split and combine) over
     a rotation of pools of the same shape whose live bytes are at least
     twice the L2, so each call finds its pages cold, as the main path's 32
@@ -864,7 +932,8 @@ def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
     gen = torch.Generator(device=dev).manual_seed(seed)
     B, NH, KVH, D = len(lengths), 32, 8, 128
     P = sum(-(-n // ps) for n in lengths) + 1
-    elem = 1 if quant else 2
+    page_dtype = torch.bfloat16 if page_dtype is None else page_dtype
+    elem = 1 if quant else page_dtype.itemsize
     live = 2 * KVH * sum(lengths) * D * elem
     npool = max(8, math.ceil(2 * L2_BYTES / live))
     pools = []
@@ -879,7 +948,7 @@ def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
         else:
             pools.append(tuple(
                 torch.randn(P, KVH, ps, D, generator=gen, device=dev)
-                .to(torch.bfloat16) for _ in range(2)))
+                .to(page_dtype) for _ in range(2)))
     bt = _page_tables(torch, dev, lengths, ps, width, P - 1, seed)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     q = torch.randn(B, NH, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -913,7 +982,8 @@ def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
     ctx = sum(lengths)
     pages = sum(-(-n // ps) for n in lengths)
     # bytes: the live context's keys and values (int8: codes, and the
-    # scales of their pages), q and out in bf16, block tables and lengths
+    # scales of their pages; elem bytes a value), q and out in bf16, block
+    # tables and lengths
     nbytes = (2 * KVH * ctx * D * elem + (2 * 4 * KVH * pages if quant
                                          else 0)
               + 2 * 2 * q.numel() + 4 * (bt.numel() + B))
@@ -1035,6 +1105,140 @@ def phase_paged(torch, dev, main_lengths, wave2, maxp):
             "max_abs_err": worst, "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": "bytes", "library_ms": None}
+
+
+def mixed_tol(torch, qdt, pdt, vmax):
+    """The stated tolerance of a mixed pair against the plain version
+    (``MIXED_UNIT_ROUNDOFF``)."""
+    tol = PAGED_TOL if qdt == torch.bfloat16 else FLASH_F32_TOL
+    return tol + MIXED_UNIT_ROUNDOFF[str(pdt).split(".")[-1]] * vmax
+
+
+def paged_ref_round_p(torch, q, k_pages, v_pages, block_tables, lengths):
+    """The plain version (``paged_attention_ref``'s math, default scale)
+    with p rounded to the page type before P.V, as the Pallas kernel's
+    ``p.astype(v.dtype)``: p against each row's global max, l summed from
+    the unrounded p. Float32 out."""
+    import math
+    B, nh, hd = q.shape
+    P, kv, ps, _ = k_pages.shape
+    maxp = block_tables.shape[1]
+    bt = block_tables.clamp(0, P - 1).reshape(-1).long()
+    kf = k_pages[bt].reshape(B, maxp, kv, ps, hd).float()
+    vf = v_pages[bt].reshape(B, maxp, kv, ps, hd).float()
+    s = torch.einsum("bkgd,bmkpd->bkgmp", q.float().reshape(B, kv, -1, hd),
+                     kf) / math.sqrt(hd)
+    pos = torch.arange(maxp * ps, device=q.device).reshape(maxp, ps)
+    mask = (pos[None] < lengths.long()[:, None, None])[:, None, None]
+    s = torch.where(mask, s, -1e30)
+    e = torch.where(mask, torch.exp(s - s.amax(dim=(-2, -1), keepdim=True)),
+                    0.0)
+    l = e.sum(dim=(-2, -1), keepdim=True)
+    l = torch.where(l == 0.0, 1.0, l)
+    out = torch.einsum("bkgmp,bmkpd->bkgd",
+                       e.to(v_pages.dtype).float() / l, vf)
+    return out.reshape(B, nh, hd)
+
+
+def _rms(x):
+    return float(x.float().pow(2).mean().sqrt())
+
+
+def paged_mixed_checks(torch, dev, PA, main_lengths, maxp):
+    """The decode kernel at every mixed (q, page) pair (``MIXED_PAIRS``,
+    pages of 16): the edge shapes of ``paged_checks`` (empty sequences, a
+    partial last page, sentinel and garbage table entries, the full
+    table) at D 64 and 128 and groups 1, 2, 4 and 8, then the main
+    serving shape (32 / 8 heads of 128, ``[main]``'s first wave). Each
+    pair against its plain version within ``mixed_tol``; bf16 q against
+    ``paged_ref_round_p`` within ``PAGED_TOL``; float32 q over 2-byte
+    pages the rounding's RMS ratio within ``MIXED_RMS_BAND``. Then bf16 q
+    over float32 pages that hold bf16 values must equal the bf16 arm bit
+    for bit (the same tiles in the same order, p float32 in both).
+    Returns each pair's largest error and the largest margin ``err /
+    tol``."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    PS = 16
+    worst, margin = {}, 0.0
+    shapes = [("edge", (NH, 8, D), [0, 1, 15, 16, 17, 300, 777, maxp * PS])
+              for NH, D in ((8, 64), (16, 64), (32, 128), (64, 128))]
+    shapes.append(("main", (32, 8, 128), list(main_lengths)))
+    for name, (NH, KVH, D), lengths in shapes:
+        P = sum(-(-n // PS) for n in lengths) + 4
+        kf = torch.randn(P, KVH, PS, D, generator=gen, device=dev)
+        vf = torch.randn(P, KVH, PS, D, generator=gen, device=dev)
+        bt = _page_tables(torch, dev, lengths, PS, maxp, P, 22)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        qf = torch.randn(len(lengths), NH, D, generator=gen, device=dev)
+        for qn, pn in MIXED_PAIRS:
+            qdt, pdt = getattr(torch, qn), getattr(torch, pn)
+            q, kp, vp = qf.to(qdt), kf.to(pdt), vf.to(pdt)
+            out = PA.ragged_paged_attention(q, kp, vp, bt, ln)
+            torch.cuda.synchronize()
+            ref = PA.paged_attention_ref(q, kp, vp, bt, ln)
+            rnd = paged_ref_round_p(torch, q, kp, vp, bt, ln)
+            err, err_rnd = _err(out, ref), _err(out, rnd)
+            tol = mixed_tol(torch, qdt, pdt, float(vp.float().abs().max()))
+            ratio = None
+            if qdt == torch.float32 and pdt.itemsize == 2:
+                ratio = _rms(out - ref) / _rms(rnd - ref)
+            zero = all(bool((out[b] == 0).all())
+                       for b, n in enumerate(lengths) if n == 0)
+            _say("paged_mixed", shape=name, heads=f"{NH}/{KVH}", D=D,
+                 q=qn, pages=pn, B=len(lengths), max_abs_err=err, tol=tol,
+                 vs_rounded_ref=err_rnd, rms_ratio=ratio,
+                 zero_rows_exact=zero)
+            assert out.dtype == qdt and bool(torch.isfinite(
+                out.float()).all()), (qn, pn)
+            assert err <= tol, f"paged_decode {qn} q over {pn} pages " \
+                f"disagrees at {name} {NH}/{KVH}/{D}: {err}"
+            if qdt == torch.bfloat16:
+                assert err_rnd <= PAGED_TOL, (qn, pn, name, err_rnd)
+            if ratio is not None:
+                lo, hi = MIXED_RMS_BAND
+                assert lo <= ratio <= hi, f"paged_decode {qn} q over " \
+                    f"{pn} pages: p not rounded to {pn} ({name} " \
+                    f"{NH}/{KVH}/{D}: RMS ratio {ratio})"
+            assert zero, "paged_decode: a length-0 row is not zero"
+            worst[(qn, pn)] = max(worst.get((qn, pn), 0.0), err)
+            margin = max(margin, err / tol)
+        qb, kb, vb = qf.bfloat16(), kf.bfloat16(), vf.bfloat16()
+        same = torch.equal(
+            PA.ragged_paged_attention(qb, kb.float(), vb.float(), bt, ln),
+            PA.ragged_paged_attention(qb, kb, vb, bt, ln))
+        _say("paged_mixed", shape=name, heads=f"{NH}/{KVH}", D=D,
+             bf16_q_f32_pages_of_bf16_values_equal_bf16_arm=same)
+        assert same, "bf16 q over float32 pages differs from the bf16 arm"
+        del kf, vf
+    return worst, margin
+
+
+def phase_paged_mixed(torch, dev, main_lengths, maxp):
+    """``paged_mixed_checks``, then bf16 q over float32 pages (the
+    ``kv_dtype=torch.float32`` pool under the bf16 model) timed at the
+    first wave beside the same-dtype arm (``decode_timing``, the
+    profiler's device time over a rotation of cold pools) and both
+    bounds. Returns the kernel record of the pair."""
+    from paddle_tpu_torch.kernels import paged_attention as PA
+    worst, margin = paged_mixed_checks(torch, dev, PA, main_lengths, maxp)
+    PS = 16
+    first = list(main_lengths)
+    mixed = decode_timing(torch, dev, PA, first, PS, maxp, False, 24,
+                          page_dtype=torch.float32)
+    same = decode_timing(torch, dev, PA, first, PS, maxp, False, 24)
+    _say("paged_mixed", timing="first_wave", q="bfloat16", pages="float32",
+         **mixed)
+    _say("paged_mixed", timing="first_wave", q="bfloat16", pages="bfloat16",
+         ms=same["ms"], bound_ms=same["bound_ms"],
+         mixed_over_same=mixed["ms"] / same["ms"], worst_margin=margin)
+    torch.cuda.empty_cache()
+    return {"name": "paged_decode_bf16q_f32pages", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "paddle_tpu/kernels/paged_attention.py:60",
+            "max_abs_err": worst[("bfloat16", "float32")],
+            "ms": mixed["ms"], "plain_ms": mixed["plain_ms"],
+            "bound_ms": mixed["bound_ms"], "bound_by": "bytes",
+            "library_ms": None}
 
 
 def phase_paged_int8(torch, dev, main_lengths, wave2, maxp, ps):
@@ -1396,11 +1600,330 @@ def phase_engine_options_parity(torch, dev):
     assert total["flash"] > 0 and total["paged"] > 0, total
 
 
+class FakeClock:
+    """The ``time`` module as the serving engine sees it
+    (``inference.engine.time``): ``perf_counter`` reads a value only
+    ``advance`` moves, so deadlines expire at scripted steps, the same on
+    every device."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def perf_counter(self):
+        return self.now
+
+    def advance(self, dt):
+        self.now += dt
+
+
+def overload_cases():
+    """The ``[overload_parity]`` cases, name -> (engine kwargs, script); a
+    script item is ``("sub", rid, prompt_len, max_new_tokens, fields)``,
+    ``("step",)``, ``("tick", seconds)`` (the fake clock),
+    ``("drain",)`` or ``("until_requeue",)`` (step until a preemption
+    re-queue heads the queue):
+
+    - ``bounded``: ``max_queue=3`` with priority admission, eight
+      mixed-priority submissions at once on 2 slots: displacements and
+      sheds at submit;
+    - ``drain``: a starved pool (2 slots, 5 pages of 4) that has preempted
+      a request, then ``begin_drain()``: the re-queue survives, the
+      others queued are shed, and a later submission is refused;
+    - ``deadlines``: under the fake clock, one request expires in the
+      queue, one is evicted mid-decode, one finishes just before its
+      deadline passes;
+    - ``kv_dtype``: bfloat16 pages under the float32 model, through
+      queueing and a preemption.
+
+    ``failover`` is ``failover_case``."""
+    bounded = [("sub", i, 4 + i % 5, 3 + (i % 3) * 2,
+                {"priority": (i * 5) % 3}) for i in range(8)]
+    drain = [("sub", i, 5, 8, {}) for i in range(4)] + [
+        ("until_requeue",), ("drain",), ("sub", 9, 4, 2, {})]
+    deadlines = [("sub", 0, 5, 40, {"deadline_s": 0.05}),
+                 ("sub", 1, 6, 4, {"deadline_s": 0.03}),
+                 ("sub", 2, 7, 4, {"deadline_s": 0.01}),
+                 ("step",), ("tick", 0.02), ("step",), ("step",),
+                 ("tick", 0.04)]
+    starved = dict(num_slots=2, max_len=16, page_size=4, num_pages=5,
+                   decode_chunk=2)
+    return {
+        "bounded": (dict(num_slots=2, max_len=32, page_size=4,
+                         decode_chunk=2, max_queue=3,
+                         priority_admission=True), bounded),
+        "drain": (starved, drain),
+        "deadlines": (dict(num_slots=2, max_len=64, page_size=4,
+                           decode_chunk=2), deadlines),
+        "kv_dtype": (dict(starved, kv_dtype="bfloat16"),
+                     [("sub", i, 3 + i, 4 + i % 3, {}) for i in range(5)]),
+    }
+
+
+@contextlib.contextmanager
+def _patched_clock(clock):
+    """The engine module's ``time`` replaced by ``clock`` (as is, when
+    ``clock`` is None)."""
+    import importlib
+    mod = importlib.import_module("paddle_tpu_torch.inference.engine")
+    saved = mod.time
+    mod.time = clock or saved
+    try:
+        yield
+    finally:
+        mod.time = saved
+
+
+def overload_case(torch, family, cfg, params, device, case, **override):
+    """Serve ``overload_cases``' ``case`` on ``device`` (engine kwargs
+    ``override`` replacing the case's) under a fresh fake clock. Returns per rid the finish reason, tokens, shed reason and
+    retry hint, the rids refused with ``EngineOverloaded`` (with their
+    hints), the counters (``EngineStats.as_dict``), the queue after the
+    drain, and the pool's dtype; the refcounts are audited."""
+    import numpy as np
+    from paddle_tpu_torch.inference import (EngineOverloaded, Request,
+                                            ServingEngine)
+    kw, script = overload_cases()[case]
+    kw = dict(kw, **override)
+    if "kv_dtype" in kw:
+        kw["kv_dtype"] = getattr(torch, kw["kv_dtype"])
+    clock = FakeClock()
+    refused, after_drain = {}, None
+    with _patched_clock(clock):
+        eng = ServingEngine(family, params, cfg, device=device, **kw)
+        for ev in script:
+            if ev[0] == "sub":
+                _, rid, n, new, fields = ev
+                prompt = np.random.default_rng(100 + rid).integers(
+                    0, cfg.vocab_size, n)
+                try:
+                    eng.submit(Request(rid=rid, prompt=prompt,
+                                       max_new_tokens=new, **fields))
+                except EngineOverloaded as e:
+                    refused[rid] = e.retry_after_s
+            elif ev[0] == "step":
+                eng.step()
+            elif ev[0] == "tick":
+                clock.advance(ev[1])
+            elif ev[0] == "drain":
+                eng.begin_drain()
+                after_drain = [(r.rid, r._preempt_count) for r in eng.queue]
+            elif ev[0] == "until_requeue":
+                for _ in range(20):
+                    eng.step()
+                    if eng.queue and eng.queue[0]._preempt_count > 0:
+                        break
+        out = eng.run()
+    eng.cache.alloc.check_invariants()
+    return {"outputs": {r: (o.finish_reason, o.tokens.tolist(),
+                            o.shed_reason, o.retry_after_s)
+                        for r, o in sorted(out.items())},
+            "refused": refused, "stats": eng.stats.as_dict(),
+            "after_drain": after_drain,
+            "pool_dtype": str(eng.cache.pool["k"].dtype)}
+
+
+def failover_case(torch, family, cfg, params, device, journal_dir):
+    """Replica A (``failover=True``, a journal in ``journal_dir``) serves
+    six requests (the last sampled at temperature 0.8, its seed pinned by
+    A), stepping until two have completed, and is abandoned; a ``FailoverCoordinator`` strands the rest
+    (``note_replaced``), ``rebuild_request`` rebuilds them and replica B
+    serves them. Returns A's and B's outputs (tokens per rid), an
+    uninterrupted serve's, the coordinator's counters, the rids it
+    recovered and each rebuilt request's lineage."""
+    import numpy as np
+    from paddle_tpu_torch.inference import Request, ServingEngine
+    from paddle_tpu_torch.inference import failover as FO
+    kw = dict(num_slots=2, max_len=48, page_size=4, decode_chunk=2)
+    n_requests = 6
+    rng = np.random.default_rng(41)
+    spec = [(i, rng.integers(0, cfg.vocab_size, 4 + i % 4),
+             4 + 3 * i, 0.8 if i == n_requests - 1 else 0.0)
+            for i in range(n_requests)]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=n, temperature=t)
+                for i, p, n, t in spec]
+
+    whole = ServingEngine(family, params, cfg, device=device, **kw)
+    whole_out = {r: o.tokens.tolist() for r, o in whole.run(reqs()).items()}
+    a = ServingEngine(family, params, cfg, device=device, failover=True,
+                      **kw)
+    a.attach_journal("A", journal_dir)
+    for r in reqs():
+        a.submit(r)
+    while len(a.outputs) < 2:
+        a.step()
+    a_out = {r: o.tokens.tolist() for r, o in a.outputs.items()}
+    a.cache.alloc.check_invariants()
+    del a
+    coord = FO.FailoverCoordinator(heartbeat_dir=journal_dir)
+    stranded = coord.note_replaced("A", now=0.0)
+    b = ServingEngine(family, params, cfg, device=device, failover=True,
+                      **kw)
+    b.attach_journal("B", journal_dir)
+    lineage = {}
+    for rec in coord.due(1e9):
+        req = FO.rebuild_request(rec, cfg.vocab_size, None)
+        lineage[req.rid] = (req._recovered_from, req.seed)
+        b.submit(req)
+        coord.redispatched(rec, "B", 1e9)
+    out_b = b.run()
+    for r, o in out_b.items():
+        coord.note_result(r, o.finish_reason)
+    b.cache.alloc.check_invariants()
+    return {"a": a_out, "b": {r: o.tokens.tolist()
+                              for r, o in sorted(out_b.items())},
+            "whole": whole_out, "stranded": stranded,
+            "counters": dict(coord.counters), "lineage": lineage,
+            "recovered": sorted(out_b), "sampled": n_requests - 1}
+
+
+def _failover_asserts(r):
+    """Each rid served exactly once across A and B, A's and B's tokens the
+    uninterrupted serve's (the sampled request's too: its seed was pinned
+    by A and journaled), every recovered request's lineage ``["A"]``."""
+    a, b, whole = r["a"], r["b"], r["whole"]
+    assert not set(a) & set(b), (sorted(a), sorted(b))
+    assert sorted(set(a) | set(b)) == sorted(whole)
+    for rid, toks in list(a.items()) + list(b.items()):
+        assert toks == whole[rid], (rid, toks, whole[rid])
+    assert r["sampled"] in b, "the sampled request was not stranded"
+    assert all(v[0] == ["A"] for v in r["lineage"].values()), r["lineage"]
+    c = r["counters"]
+    assert c["stranded"] == c["redispatched"] == c["recovered"] \
+        == r["stranded"] == len(b), c
+
+
+def kv_dtype_logit_err(torch, family, cfg, card_params, cpu_params, dev):
+    """One batch of 4 prompts (16-token pages of 4) prefilled into a
+    bfloat16 pool under the float32 model and one ``paged_decode_step``
+    over it, on the card (float32 q over bf16 pages, p rounded) and on the
+    CPU (the plain version): the decode logits' largest difference over
+    the CPU's largest |logit|."""
+    import numpy as np
+    from paddle_tpu_torch.inference.paged import (PagedKVCache,
+                                                  paged_decode_step,
+                                                  paged_prefill)
+    rng = np.random.default_rng(61)
+    G, S, ps = 4, 16, 4
+    width = S // ps + 1
+    ids = rng.integers(0, cfg.vocab_size, (G, S))
+    slen = np.array([16, 11, 5, 13])
+    out = []
+    for params, device in ((card_params, dev), (cpu_params, "cpu")):
+        cache = PagedKVCache(cfg, G * width, ps, width, torch.bfloat16,
+                             device)
+        pool = cache.pool
+        rows = torch.arange(G * width, device=device).reshape(G, width)
+        logits = paged_prefill(family, params,
+                               torch.as_tensor(ids, device=device), cfg,
+                               pool["k"], pool["v"], rows[:, :S // ps],
+                               torch.as_tensor(slen, device=device))
+        tok = logits.argmax(-1)
+        step = paged_decode_step(
+            family, params, pool["k"], pool["v"], rows.to(torch.int32),
+            torch.as_tensor(slen + 1, device=device).to(torch.int32), tok,
+            cfg)
+        out.append(step.float().cpu())
+    return float((out[0] - out[1]).abs().max() / out[1].abs().max())
+
+
+def phase_overload_parity(torch, dev):
+    """The overload policies on one float32 llama_tiny model, card
+    (kernels) against CPU (plain versions): each case of
+    ``overload_cases`` (finish reasons, tokens, shed reasons, retry hints,
+    refused rids and counters equal; the preemption re-queue kept by the
+    drain), then ``failover_case`` (counters, recovered rids, tokens).
+    In ``kv_dtype`` the card's float32 q over bf16 pages rounds p as the
+    Pallas kernel does and the CPU's plain version does not: there the
+    decode logits of one prefilled batch are held within
+    ``KV_DTYPE_LOGIT_TOL`` of the largest, and tokens equal to the CPU's
+    and to a float32 pool's are readings."""
+    import tempfile
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_tiny()
+    cpu_params = L.init_params(cfg, seed=0, device="cpu")
+    card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+    for case in overload_cases():
+        K.reset_dispatch_stats()
+        card = overload_case(torch, L, cfg, card_params, dev, case)
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        cpu = overload_case(torch, L, cfg, cpu_params, "cpu", case)
+        reasons = {}
+        for fr, *_ in card["outputs"].values():
+            reasons[fr] = reasons.get(fr, 0) + 1
+        toks_equal = sum(card["outputs"][r][1] == cpu["outputs"][r][1]
+                         for r in cpu["outputs"])
+        _say("overload_parity", case=case,
+             outputs_equal=card["outputs"] == cpu["outputs"],
+             tokens_equal=f"{toks_equal}/{len(cpu['outputs'])}",
+             refused=",".join(map(str, sorted(card["refused"]))),
+             stats_equal=card["stats"] == cpu["stats"],
+             **{f"finish_{k}": v for k, v in sorted(reasons.items())},
+             expired=card["stats"]["expired"], shed=card["stats"]["shed"],
+             preempted=card["stats"]["preempted"],
+             after_drain=card["after_drain"], pool=card["pool_dtype"],
+             flash=st["flash"], paged=st["paged"],
+             paged_mixed=st["paged_mixed"])
+        assert card["refused"] == cpu["refused"], (case, card, cpu)
+        assert card["stats"] == cpu["stats"], (case, card, cpu)
+        assert card["after_drain"] == cpu["after_drain"], (case, card, cpu)
+        assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+        assert st["flash"] > 0 and st["paged"] > 0, st
+        if case != "kv_dtype":
+            assert card["outputs"] == cpu["outputs"], (case, card, cpu)
+            assert st["paged_mixed"] == 0, st
+            continue
+        assert card["pool_dtype"] == cpu["pool_dtype"] == "torch.bfloat16"
+        assert st["paged_mixed"] == st["paged"], st
+        assert {r: o[0] for r, o in card["outputs"].items()} == {
+            r: o[0] for r, o in cpu["outputs"].items()}
+        err = kv_dtype_logit_err(torch, L, cfg, card_params, cpu_params,
+                                 dev)
+        f32 = overload_case(torch, L, cfg, card_params, dev, case,
+                            kv_dtype="float32")
+        _say("overload_parity", case=case, logits_rel_err=err,
+             tol=KV_DTYPE_LOGIT_TOL,
+             tokens_equal_to_float32_pool=sum(
+                 card["outputs"][r][1] == f32["outputs"][r][1]
+                 for r in f32["outputs"]), of=len(f32["outputs"]))
+        assert err <= KV_DTYPE_LOGIT_TOL, err
+    with tempfile.TemporaryDirectory() as d_card, \
+            tempfile.TemporaryDirectory() as d_cpu:
+        K.reset_dispatch_stats()
+        card = failover_case(torch, L, cfg, card_params, dev, d_card)
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        cpu = failover_case(torch, L, cfg, cpu_params, "cpu", d_cpu)
+    _say("overload_parity", case="failover", stranded=card["stranded"],
+         recovered=",".join(map(str, card["recovered"])),
+         completed_on_a=",".join(map(str, sorted(card["a"]))),
+         counters_equal=card["counters"] == cpu["counters"],
+         greedy_equal=all(card["whole"][r] == cpu["whole"][r]
+                          for r in card["whole"] if r != card["sampled"]),
+         **{f"coord_{k}": v for k, v in card["counters"].items() if v})
+    for r in (card, cpu):
+        _failover_asserts(r)
+    assert card["counters"] == cpu["counters"], (card, cpu)
+    assert card["recovered"] == cpu["recovered"], (card, cpu)
+    assert sorted(card["a"]) == sorted(cpu["a"]), (card, cpu)
+    for rid in card["whole"]:
+        if rid != card["sampled"]:    # the draws are the device's own
+            assert card["whole"][rid] == cpu["whole"][rid], rid
+    assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+
+
 def phase_main(torch, dev, cfg, params, requests, card, phase="main",
-               kv_quant=False, reference=None, family=None, uniform=False):
+               kv_quant=False, reference=None, family=None, uniform=False,
+               kv_dtype=None, rates=None):
     """Serve ``requests`` through ``ServingEngine`` at the config's widths
-    (``kv_quant``: int8 KV pages) with the model ``family`` (default
-    llama). Returns ``(launches, tokens)``. With ``reference`` (the tokens
+    (``kv_quant``: int8 KV pages; ``kv_dtype``: pages of that type, which
+    must then decode through the mixed pair of the decode kernel) with
+    the model ``family`` (default llama). Returns ``(launches, tokens)``;
+    ``rates`` (a dict) gets the decode tokens/s under ``phase``, and
+    beside an earlier phase's rate there the ratio is printed. With ``reference`` (the tokens
     of the bf16 run) it also reports, as a reading only, how many
     requests give the same greedy tokens and where each first differs.
     With ``uniform`` it also serves the same requests as the JAX serving
@@ -1413,7 +1936,7 @@ def phase_main(torch, dev, cfg, params, requests, card, phase="main",
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in L._leaves(params))
     eng = ServingEngine(family, params, cfg, num_slots=8, max_len=2048,
-                        kv_quant=kv_quant)
+                        kv_quant=kv_quant, kv_dtype=kv_dtype)
     torch.cuda.reset_peak_memory_stats(dev)
     K.reset_dispatch_stats()
     t0 = time.perf_counter()
@@ -1445,6 +1968,18 @@ def phase_main(torch, dev, cfg, params, requests, card, phase="main",
          servable_concurrency_at_fixed_pool_bytes=bf16_per_token / per_token,
          weights_gb=weight_bytes / 1e9)
     arm = "paged_quant" if kv_quant else "paged"
+    rate = st.tokens_decoded / st.decode_s
+    if rates is not None:
+        _say(phase, decode_tok_per_s=rate, **{
+            f"over_{k}": rate / v for k, v in rates.items()})
+        rates[phase] = rate
+    if kv_dtype is not None:
+        _say(phase, kv_dtype=str(kv_dtype).split(".")[-1],
+             pool_dtype=str(eng.cache.pool["k"].dtype).split(".")[-1],
+             paged_mixed_launches=launches["paged_mixed"])
+        assert launches["paged_mixed"] == launches["paged"] > 0, launches
+    else:
+        assert launches["paged_mixed"] == 0, launches
     _say(phase, flash_launches=launches["flash"],
          flash_tc_launches=launches["flash_tc"],
          **{f"{arm}_launches": launches[arm],
@@ -1586,6 +2121,283 @@ def _check_served(cfg, eng, requests, out, launches, arm):
     eng.cache.alloc.check_invariants()
     assert launches["flash"] > 0 and launches[arm] > 0, launches
     _tc_route_only(launches)
+    assert all(v == 0 for k, v in launches.items() if k.endswith("_ref")), \
+        launches
+
+
+# [overload_serve]'s traffic: the JAX serving_trace_replay rung's seed,
+# rate, tenants, burst of arrivals, queue bound (2 * slots) and burst
+# episode (6 * slots priority-0 requests at 0.55 s; bench.py:1294-1306
+# and loadgen/replay.py's _burst_requests), one engine step per
+# OVERLOAD_DT of arrival time (the rung's dt_per_step). Chosen here: the
+# serving cell's prompt and generation lengths (the rung's are 4-16 and
+# 4-24 tokens) and the batch tenant's deadline (the rung sets none), read
+# off a FakeClock advanced by OVERLOAD_DT a step: 20 steps, short enough
+# that batch requests expire both queued behind the burst and decoding
+OVERLOAD_SEED, OVERLOAD_RATE, OVERLOAD_DT = 1616, 40.0, 0.01
+OVERLOAD_SLOTS, OVERLOAD_BURST_AT = 8, 0.55
+OVERLOAD_DEADLINE_S = 0.2
+OVERLOAD_PROMPT, OVERLOAD_NEW = (128, 512), (16, 64)
+
+
+def overload_trace_requests(vocab):
+    """``[overload_serve]``'s requests: the trace in arrival order, each
+    ``(arrival_s, Request)`` (the port's ``generate_trace``: an
+    "interactive" tenant, share 1, priority 2; a "batch" tenant, share 2,
+    priority 0, deadline ``OVERLOAD_DEADLINE_S``; prompts by
+    ``_trace_prompt``), then the burst episode's requests (tenant
+    "burst", priority 0, lengths drawn as the rung's ``_burst_requests``
+    draws them, rids from 1 000 000)."""
+    import numpy as np
+    from paddle_tpu_torch.inference import Request
+    from paddle_tpu_torch.loadgen import TenantSpec, generate_trace
+    from paddle_tpu_torch.loadgen.traces import _trace_prompt, prompt_tokens
+    trace = generate_trace(
+        OVERLOAD_SEED, duration_s=1.0, rate=OVERLOAD_RATE,
+        tenants=[TenantSpec("interactive", share=1.0, priority=2),
+                 TenantSpec("batch", share=2.0, priority=0,
+                            deadline_s=OVERLOAD_DEADLINE_S)],
+        prompt_len=OVERLOAD_PROMPT, max_new_tokens=OVERLOAD_NEW, alpha=1.3,
+        burst=(0.5, 0.2, 2.0))
+    timed = [(tr.arrival_s, Request(
+        rid=tr.rid, prompt=_trace_prompt(OVERLOAD_SEED, tr.rid,
+                                         tr.prompt_len, vocab, tr.tenant,
+                                         tr.prefix_len),
+        max_new_tokens=tr.max_new_tokens, tenant=tr.tenant,
+        priority=tr.priority, deadline_s=tr.deadline_s))
+        for tr in sorted(trace.requests, key=lambda t: t.arrival_s)]
+    rng = np.random.default_rng([OVERLOAD_SEED & 0x7FFFFFFF, 7919, 0])
+    burst = []
+    for i in range(6 * OVERLOAD_SLOTS):
+        rid = 1_000_000 + i
+        plen = int(rng.integers(OVERLOAD_PROMPT[0], OVERLOAD_PROMPT[1] + 1))
+        glen = int(rng.integers(OVERLOAD_NEW[0], OVERLOAD_NEW[1] + 1))
+        burst.append(Request(
+            rid=rid, prompt=prompt_tokens(OVERLOAD_SEED, rid, plen, vocab),
+            max_new_tokens=glen, tenant="burst", priority=0))
+    return timed, burst
+
+
+def drive_overload(eng, timed, burst):
+    """Replay ``overload_trace_requests`` on ``eng`` under a FakeClock:
+    each request submitted at the first step its arrival has passed, the
+    burst at ``OVERLOAD_BURST_AT`` before that step's arrivals (as the
+    JAX ``replay_fleet`` fires its episodes), one
+    ``step`` per ``OVERLOAD_DT`` of arrival time (the clock advanced by
+    as much), ``EngineOverloaded`` caught; after the last arrival
+    ``begin_drain()``, then steps until ``drain_complete``. Returns the
+    hints of the rids refused at submit, the rids that expired in the
+    queue, the requests live at the drain, the queued rids the drain
+    ended, and the steps."""
+    from paddle_tpu_torch.inference import EngineOverloaded
+    clock = FakeClock()
+    shed_at_submit, expired_queued, steps = {}, set(), 0
+
+    def submit(req):
+        try:
+            eng.submit(req)
+        except EngineOverloaded as e:
+            shed_at_submit[req.rid] = e.retry_after_s
+
+    def step():
+        queued = {r.rid for r in eng.queue}
+        eng.step()
+        clock.advance(OVERLOAD_DT)
+        expired_queued.update(r for r in queued if r in eng.outputs and
+                              eng.outputs[r].finish_reason == "expired")
+
+    with _patched_clock(clock):
+        vnow, i, pending = 0.0, 0, list(burst)
+        while i < len(timed) or pending:
+            if pending and OVERLOAD_BURST_AT <= vnow:
+                for req in pending:
+                    submit(req)
+                pending = []
+            while i < len(timed) and timed[i][0] <= vnow:
+                submit(timed[i][1])
+                i += 1
+            step()
+            steps += 1
+            vnow += OVERLOAD_DT
+        live = len(eng.queue) + sum(s is not None for s in eng.slots)
+        queued = {r.rid for r in eng.queue}
+        eng.begin_drain()
+        drained = {r for r in queued if r in eng.outputs}
+        while not eng.drain_complete:
+            step()
+            steps += 1
+    return shed_at_submit, expired_queued, live, drained, steps
+
+
+def phase_overload_serve(torch, dev, cfg, params, card):
+    """The overload policies on the serving main path: Llama-3-8B widths,
+    ``--layers`` deep, bf16, ``ServingEngine(num_slots=8, max_len=2048,
+    page_size=16, priority_admission=True, max_queue=16)`` under
+    ``drive_overload``. Every rid ends in exactly one state; the counters
+    match; sheds at submit, displacements, expiries in the queue and in a
+    slot and sheds by the drain all happen; no priority-2 request is displaced; completed
+    requests have their full count; both kernels launch, no plain
+    version. Latencies are read off the FakeClock (virtual seconds)."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import llama as L
+    timed, burst = overload_trace_requests(cfg.vocab_size)
+    eng = ServingEngine(L, params, cfg, num_slots=OVERLOAD_SLOTS,
+                        max_len=2048, page_size=16, priority_admission=True,
+                        max_queue=2 * OVERLOAD_SLOTS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_dispatch_stats()
+    t0 = time.perf_counter()
+    shed_at_submit, expired_queued, live, drained, steps = drive_overload(
+        eng, timed, burst)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.dispatch_stats()
+    out, st = eng.outputs, eng.stats
+    reqs = {r.rid: r for r in [r for _, r in timed] + burst}
+    by_state, by_reason = {}, {}
+    for o in out.values():
+        by_state[o.finish_reason] = by_state.get(o.finish_reason, 0) + 1
+        if o.shed_reason:
+            why = o.shed_reason.split(" request")[0].replace(" ", "_")
+            by_reason[why] = by_reason.get(why, 0) + 1
+    displaced = [r for r, o in out.items() if o.shed_reason
+                 and o.shed_reason.startswith("displaced")]
+    hints = list(shed_at_submit.values()) + [
+        o.retry_after_s for o in out.values() if o.retry_after_s]
+    ttft = {}
+    for o in out.values():
+        if o.finish_reason == "completed":
+            ttft.setdefault(o.tenant, []).append(o.ttft_s)
+    expired_in_slot = by_state.get("expired", 0) - len(expired_queued)
+    _say("overload_serve", card=repr(card), requests=len(reqs),
+         burst=len(burst),
+         steps=steps, wall_s=round(wall, 3), live_at_drain=live,
+         shed_at_submit=len(shed_at_submit),
+         **{f"finished_{k}": v for k, v in sorted(by_state.items())},
+         **{f"shed_{k}": v for k, v in sorted(by_reason.items())},
+         displaced=len(displaced), shed_by_drain=len(drained),
+         expired_in_queue=len(expired_queued),
+         expired_in_slot=expired_in_slot,
+         retry_after_min_s=min(hints) if hints else None,
+         retry_after_max_s=max(hints) if hints else None,
+         **{f"ttft_virtual_median_s_{t}": sorted(v)[len(v) // 2]
+            for t, v in sorted(ttft.items())},
+         decode_tokens=st.tokens_decoded,
+         preempted=st.preempted,
+         peak_mem_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 2),
+         flash=launches["flash"], paged=launches["paged"])
+    assert not set(shed_at_submit) & set(out)
+    assert sorted(set(shed_at_submit) | set(out)) == sorted(reqs)
+    assert st.shed == len(shed_at_submit) + by_state.get("shed", 0), st
+    assert st.expired == by_state.get("expired", 0), st
+    assert st.completed == by_state.get("completed", 0), st
+    assert shed_at_submit and displaced, (shed_at_submit, displaced)
+    assert expired_queued and expired_in_slot > 0 and drained, by_state
+    assert all(reqs[r].priority < 2 for r in displaced), displaced
+    for rid, o in out.items():
+        toks = o.tokens
+        assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), rid
+        if o.finish_reason == "completed":
+            assert len(toks) == reqs[rid].max_new_tokens, rid
+        elif o.finish_reason == "shed":
+            assert len(toks) == 0 and o.retry_after_s >= 1.0, rid
+    assert st.tokens_generated - st.tokens_discarded == sum(
+        len(o.tokens) for o in out.values())
+    eng.cache.alloc.check_invariants()
+    assert eng.cache.alloc.free_pages == eng.cache.num_pages
+    assert launches["flash"] > 0 and launches["paged"] > 0, launches
+    _tc_route_only(launches)
+    assert all(v == 0 for k, v in launches.items() if k.endswith("_ref")), \
+        launches
+    return launches
+
+
+def phase_failover_serve(torch, dev, cfg, params, requests, card,
+                         reference):
+    """Exactly-once failover on the serving main path: ``[main]``'s 16
+    greedy requests at full width, bf16, on two engines over one
+    parameter tree, each with its own pool. Replica A (``failover=True``,
+    its journal in a temporary directory) steps until at least 4 requests
+    have completed while at least 4 are live, and is dropped (its pool
+    freed); a ``FailoverCoordinator`` strands the rest and replica B
+    serves them. Each rid is served to completion exactly once across A
+    and B, every recovered request's lineage is ``["A"]``, B's refcounts
+    hold; tokens equal to ``[main]``'s are a reading (bf16)."""
+    import gc
+    import tempfile
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import Request, ServingEngine
+    from paddle_tpu_torch.inference import failover as FO
+    from paddle_tpu_torch.models import llama as L
+
+    def fresh():
+        return [Request(rid=r.rid, prompt=r.prompt.copy(),
+                        max_new_tokens=r.max_new_tokens) for r in requests]
+
+    with tempfile.TemporaryDirectory() as d:
+        K.reset_dispatch_stats()
+        t0 = time.perf_counter()
+        a = ServingEngine(L, params, cfg, num_slots=8, max_len=2048,
+                          failover=True)
+        a.attach_journal("A", d)
+        for r in fresh():
+            a.submit(r)
+        while not (len(a.outputs) >= 4 and len(a.queue) + sum(
+                s is not None and not s.done for s in a.slots) >= 4):
+            assert a.step(), "replica A went idle"
+        a_out = {r: o.tokens.tolist() for r, o in a.outputs.items()}
+        live_a = len(a.queue) + sum(s is not None for s in a.slots)
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+        coord = FO.FailoverCoordinator(heartbeat_dir=d)
+        t_strand = time.perf_counter()
+        stranded = coord.note_replaced("A", now=0.0)
+        b = ServingEngine(L, params, cfg, num_slots=8, max_len=2048,
+                          failover=True)
+        b.attach_journal("B", d)
+        lineage = {}
+        for rec in coord.due(1e9):
+            req = FO.rebuild_request(rec, cfg.vocab_size, None)
+            lineage[req.rid] = list(req._recovered_from)
+            b.submit(req)
+            coord.redispatched(rec, "B", 1e9)
+        journaled = {k: v["recovered_from"]
+                     for k, v in b._journal.inflight.items()}
+        out_b = b.run()
+        torch.cuda.synchronize()
+        recovery_s = time.perf_counter() - t_strand
+        wall = time.perf_counter() - t0
+        for rid, o in out_b.items():
+            coord.note_result(rid, o.finish_reason)
+        b.cache.alloc.check_invariants()
+        launches = K.dispatch_stats()
+    b_out = {r: o.tokens.tolist() for r, o in out_b.items()}
+    same = sum(b_out[r] == reference[r] for r in b_out)
+    _say("failover_serve", card=repr(card), requests=len(requests),
+         completed_on_a=len(a_out), live_on_a=live_a, stranded=stranded,
+         recovered=coord.counters["recovered"],
+         deduped=coord.counters["deduped"],
+         strand_to_last_recovery_s=recovery_s, wall_s=round(wall, 3),
+         recovered_tokens_equal_to_main=f"{same}/{len(b_out)}",
+         completed_tokens_equal_to_main=sum(
+             a_out[r] == reference[r] for r in a_out),
+         flash=launches["flash"], paged=launches["paged"])
+    assert len(a_out) >= 4 and stranded >= 4, (a_out.keys(), stranded)
+    assert not set(a_out) & set(b_out)
+    assert sorted(set(a_out) | set(b_out)) == sorted(r.rid for r in requests)
+    assert all(o.finish_reason == "completed" for o in out_b.values())
+    for r in requests:
+        toks = (a_out.get(r.rid) or b_out[r.rid])
+        assert len(toks) == r.max_new_tokens and all(
+            0 <= t < cfg.vocab_size for t in toks), r.rid
+    assert all(v == ["A"] for v in lineage.values()), lineage
+    assert all(v == ["A"] for v in journaled.values()), journaled
+    c = coord.counters
+    assert c["stranded"] == c["redispatched"] == c["recovered"] \
+        == stranded == len(b_out), c
+    assert launches["flash"] > 0 and launches["paged"] > 0, launches
     assert all(v == 0 for k, v in launches.items() if k.endswith("_ref")), \
         launches
 
@@ -3413,13 +4225,19 @@ NO_SYNC_PROMPTS, NO_SYNC_CHUNK = (400, 300, 257), 8
 
 def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
                  chunk, forbid_sync, temperature=0.0, shared=0,
-                 warm_first=False, max_new=None, **options):
+                 warm_first=False, max_new=None, deadline=None,
+                 journal=None, **options):
     """Serve ``prompts`` (random ids from seed 0, the first ``shared`` of
     them the same in every prompt; ``max_new`` new tokens each, default
     ``chunk + 1``) with a ``ServingEngine`` of 4 slots and decode chunk
     ``chunk`` on bf16 pages, or int8 pages with ``kv_quant``, and the
-    engine ``options`` (``prefix_cache``, ``spec_decode``); the last
-    request samples at ``temperature`` when it is above 0. With
+    engine ``options`` (``prefix_cache``, ``spec_decode``, ``kv_dtype``,
+    ``failover``); the last request samples at ``temperature`` when it is
+    above 0; with ``deadline`` the second request carries that
+    ``deadline_s`` and the engine runs on a ``FakeClock`` that each decode
+    chunk advances by ``deadline``, so the second step evicts it after
+    its first chunk; with ``journal`` (a directory) the engine journals
+    there as replica ``no_sync`` (``attach_journal``). With
     ``warm_first`` the first request is served alone before the others,
     so that its retirement seeds the prefix cache. With ``forbid_sync``
     every call of the engine's data plane (``_prefill_plane``,
@@ -3435,6 +4253,9 @@ def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
     eng = ServingEngine(family, params, cfg, num_slots=4, max_len=1024,
                         decode_chunk=chunk, kv_quant=kv_quant, device=dev,
                         **options)
+    if journal is not None:
+        eng.attach_journal("no_sync", journal)
+    clock = FakeClock() if deadline is not None else None
     calls = {}
 
     def watched(name, plane):
@@ -3444,6 +4265,8 @@ def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
             arm = "prefill_shared" if name == "prefill" and len(args) > 5 \
                 else name
             calls[arm] = calls.get(arm, 0) + 1
+            if clock is not None and name == "decode":
+                clock.advance(deadline)
             if not forbid_sync:
                 return plane(*args)
             prev = torch.cuda.get_sync_debug_mode()
@@ -3464,23 +4287,29 @@ def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
                 [head, rng.integers(0, cfg.vocab_size, plen - shared)]),
                     max_new_tokens=chunk + 1 if max_new is None else max_new,
                     temperature=temperature if i == last else 0.0,
-                    seed=100 + i)
+                    seed=100 + i, deadline_s=deadline if i == 1 else None)
             for i, plen in enumerate(prompts)]
-    if warm_first:
-        eng.run(reqs[:1])
-        reqs = reqs[1:]
-    out = eng.run(reqs)
+    with _patched_clock(clock):
+        if warm_first:
+            eng.run(reqs[:1])
+            reqs = reqs[1:]
+        out = eng.run(reqs)
     eng.cache.alloc.check_invariants()
     return [out[i].tokens for i in range(len(prompts))], calls
 
 
-# the two option cases of [no_sync]: name -> (prompts, serve_strict
+# the option cases of [no_sync]: name -> (prompts, serve_strict
 # arguments, the calls of each arm); "prefix" serves its first prompt
 # alone, so its retirement seeds the radix and the other two (one bucket,
 # the same 256 cached tokens) make one group over the shared prefix;
 # "spec" fills the 4 slots at decode chunk 2, whose turbo chunk (8)
 # covers the 9 new tokens once: one verify round, then plain chunks for
-# what the round did not accept
+# what the round did not accept; "kv_dtype" serves over a float32 pool
+# under the bf16 model (the decode kernel's mixed pair) with a journal
+# attached, and the second request's deadline is spent by its first
+# decode chunk (serve_strict's fake clock), so the second step evicts it
+# with 9 of its 17 tokens
+NO_SYNC_DEADLINE_S = 0.05
 NO_SYNC_OPTIONS = {
     "prefix": ((400, 300, 257), dict(shared=256, warm_first=True,
                                      prefix_cache=True),
@@ -3488,21 +4317,31 @@ NO_SYNC_OPTIONS = {
     "spec": ((400, 300, 257, 350), dict(chunk=2, max_new=9,
                                         spec_decode=True),
              {"prefill": 1, "spec": 1}),
+    "kv_dtype": ((400, 300, 257), dict(max_new=17, kv_dtype="float32",
+                                       failover=True,
+                                       deadline=NO_SYNC_DEADLINE_S),
+                 {"prefill": 1, "decode": 2}),
 }
 
 
 def phase_no_sync(torch, dev, cfg, params):
     """The serving data plane reads nothing back inside a prefill group, a
-    decode chunk or a verify round: at ``main``'s Llama-3-8B widths, with
+    decode chunk or a verify round (nor do expiry and journaling, which
+    run between them): at ``main``'s Llama-3-8B widths, with
     bf16 and then int8 pages, the engine serves one group and one greedy
     chunk with its data plane under ``set_sync_debug_mode("error")`` and
     gives the tokens of the same serve outside it; a sampled request
     (bf16 pages) likewise, drawing the same tokens twice from the same
     seed. Then the options (``NO_SYNC_OPTIONS``, bf16 pages): a prefix
     cache serve whose second group prefills its tails over the cached
-    prefix, and a spec decode serve with one verify round."""
+    prefix, a spec decode serve with one verify round, and a serve over a
+    float32 pool (the mixed pair) with a journal and a deadline
+    eviction."""
+    import tempfile
+
     import numpy as np
     from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import failover as FO
     from paddle_tpu_torch.models import llama as L
     layers = cfg.num_hidden_layers
     for kv_quant, temperature in ((False, 0.0), (True, 0.0), (False, 0.8)):
@@ -3535,26 +4374,47 @@ def phase_no_sync(torch, dev, cfg, params):
     for option, (prompts, kw, want) in NO_SYNC_OPTIONS.items():
         kw = dict(kw)
         chunk = kw.pop("chunk", NO_SYNC_CHUNK)
-        free, _ = serve_strict(torch, L, cfg, params, dev, False, prompts,
-                               chunk, False, **kw)
-        K.reset_dispatch_stats()
-        t0 = time.perf_counter()
-        strict, calls = serve_strict(torch, L, cfg, params, dev, False,
-                                     prompts, chunk, True, **kw)
-        wall = time.perf_counter() - t0
-        st = K.dispatch_stats()
+        if "kv_dtype" in kw:
+            kw["kv_dtype"] = getattr(torch, kw["kv_dtype"])
+        with tempfile.TemporaryDirectory() as d:
+            free, _ = serve_strict(torch, L, cfg, params, dev, False,
+                                   prompts, chunk, False, **kw)
+            K.reset_dispatch_stats()
+            t0 = time.perf_counter()
+            strict, calls = serve_strict(
+                torch, L, cfg, params, dev, False, prompts, chunk, True,
+                journal=d if kw.get("failover") else None, **kw)
+            wall = time.perf_counter() - t0
+            st = K.dispatch_stats()
+            journal = FO.read_journal("no_sync", dir_path=d)
         same = all(np.array_equal(a, b) for a, b in zip(free, strict))
+        markers = {} if journal is None else {
+            int(r): m["state"] for r, m in journal["completed"].items()}
         _say("no_sync", option=option, prompts=",".join(map(str, prompts)),
              chunk=chunk, sync_debug_mode="error", raised=False,
              calls=",".join(f"{k}:{v}" for k, v in sorted(calls.items())),
              tokens_equal=same, wall_s=round(wall, 3), flash=st["flash"],
-             flash_tc=st["flash_tc"], paged=st["paged"])
+             flash_tc=st["flash_tc"], paged=st["paged"],
+             paged_mixed=st["paged_mixed"],
+             lengths=",".join(str(len(t)) for t in strict),
+             markers=",".join(f"{r}:{m}" for r, m in sorted(
+                 markers.items())) or None)
         assert same, (option, free, strict)
         assert {k: calls.get(k, 0) for k in want} == want, (option, calls)
         assert set(calls) <= {"prefill", "prefill_shared", "decode",
                               "spec"}, calls
         new = kw.get("max_new", chunk + 1)
-        assert all(len(t) == new for t in strict), strict
+        if option == "kv_dtype":
+            # the second request evicted after its first step (1 + chunk
+            # tokens), the others whole; every decode launch on the mixed
+            # pair; completion markers for both kinds of end
+            assert [len(t) for t in strict] == [new, chunk + 1, new], \
+                strict
+            assert st["paged_mixed"] == st["paged"] > 0, st
+            assert markers == {0: "completed", 1: "expired",
+                               2: "completed"}, markers
+        else:
+            assert all(len(t) == new for t in strict), strict
         assert all(0 <= int(v) < cfg.vocab_size for t in strict for v in t)
         assert st["flash"] == st["flash_tc"] == layers, st
         assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
@@ -4438,6 +5298,7 @@ def main() -> int:
     main_lengths, wave2 = decode_wave_lengths(requests)
     flash = phase_flash(torch, dev, 8, 512)
     paged = phase_paged(torch, dev, main_lengths, wave2, maxp)
+    paged_mixed = phase_paged_mixed(torch, dev, main_lengths, maxp)
     paged_int8 = phase_paged_int8(torch, dev, main_lengths, wave2,
                                   2048 // 32, 32)
     flash_bwd = phase_flash_bwd(torch, dev, TRAIN_BATCH, TRAIN_SEQ)
@@ -4455,6 +5316,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_parity(torch, dev)
     phase_engine_options_parity(torch, dev)
+    phase_overload_parity(torch, dev)
     phase_quant_parity(torch, dev)
     phase_train_parity(torch, dev)
     phase_train_packed_parity(torch, dev)
@@ -4474,8 +5336,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_prefix_plane(torch, dev, cfg, params, smi)
     torch.cuda.empty_cache()
+    rates = {}
     launches, main_tokens = phase_main(torch, dev, cfg, params, requests, smi,
-                                       uniform=True)
+                                       uniform=True, rates=rates)
+    torch.cuda.empty_cache()
+    mixed_launches, _ = phase_main(torch, dev, cfg, params, requests, smi,
+                                   phase="kv_dtype_serve",
+                                   kv_dtype=torch.float32,
+                                   reference=main_tokens, rates=rates)
     torch.cuda.empty_cache()
     kvq_launches, _ = phase_main(torch, dev, cfg, params, requests, smi,
                                  phase="main_kvq", kv_quant=True,
@@ -4484,6 +5352,10 @@ def main() -> int:
     phase_prefix_serve(torch, dev, cfg, params, smi)
     torch.cuda.empty_cache()
     phase_spec_serve(torch, dev, cfg, params, requests, smi)
+    torch.cuda.empty_cache()
+    phase_overload_serve(torch, dev, cfg, params, smi)
+    torch.cuda.empty_cache()
+    phase_failover_serve(torch, dev, cfg, params, requests, smi, main_tokens)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     qparams = L.quantize_weights(params)        # int8 weight-only
@@ -4518,12 +5390,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     dit_train_launches = phase_dit_train(torch, dev, smi)
     # launches on each kernel's main path: serving for the forward and
-    # the decode kernel, int8-KV serving for its int8 arm, dense training
+    # the decode kernel, float32-pool serving for its mixed pair, int8-KV
+    # serving for its int8 arm, dense training
     # for the backward, packed training for the segment kernels, eager
     # training for the RMSNorm kernels, DiT sampling and training for the
     # flash pair's tensor-core route at head dim 72
     flash["launches"] = launches["flash"]
     paged["launches"] = launches["paged"]
+    paged_mixed["launches"] = mixed_launches["paged_mixed"]
     paged_int8["launches"] = kvq_launches["paged_quant"]
     flash_bwd["launches"] = train_launches["flash_bwd"]
     seg_fwd["launches"] = packed_launches["varlen"]
@@ -4538,7 +5412,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys}
         for rec in (flash, paged, paged_int8, flash_bwd, seg_fwd,
-                    seg_bwd, rms_fwd, rms_bwd, dit_fwd, dit_bwd)]}))
+                    seg_bwd, rms_fwd, rms_bwd, dit_fwd, dit_bwd,
+                    paged_mixed)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

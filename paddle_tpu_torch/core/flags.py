@@ -11,13 +11,16 @@ reference's names, defaults and docs: ``enable_sentinel`` and
 defaults through ``training.guards``) and every ``serving_*`` flag (read by
 ``ServingEngine``: ``serving_kv_quant``, ``serving_prefix_cache``,
 ``serving_spec_decode``, ``serving_priority_admission``,
-``serving_tenant_inflight_cap`` and ``serving_slo_preemption`` are its
-options' defaults; the others name serving options that are not ported
-yet, and the engine refuses to run with one of them on). Left out, because nothing in the port reads them: the
-JAX-only flags (``use_pallas_kernels``, ``eager_jit_ops``,
+``serving_tenant_inflight_cap``, ``serving_slo_preemption``,
+``serving_max_queue`` and ``serving_failover`` are its options' defaults;
+``serving_shed_on_burn`` and ``serving_fleet_burn_scaling`` name options
+that wait for the monitor planes, and the engine refuses to run with one
+of them on) and ``fault_injection`` (armed at import by
+``testing.faults``). Left out, because nothing in the port reads them:
+the JAX-only flags (``use_pallas_kernels``, ``eager_jit_ops``,
 ``default_matmul_precision``) and those of modules not ported yet
 (``check_nan_inf``, ``enable_monitor``, ``enable_monitor_server``,
-``monitor_server_port``, ``fault_injection``).
+``monitor_server_port``).
 """
 from __future__ import annotations
 
@@ -204,3 +207,8 @@ define_flag("serving_spec_decode", False,
             "token-identical to spec-off by construction. Off (the "
             "default) = sequential chunked decode, byte-identical "
             "tokens.")
+define_flag("fault_injection", "",
+            "Chaos-run fault spec: comma list of point:action[:nth[:delay_s]]"
+            " armed at import by paddle_tpu.testing.faults (actions: "
+            "raise|delay|kill|corrupt|corrupt_inf; e.g. "
+            "'checkpoint.rename:kill:2', 'train.batch:corrupt:3').")

@@ -16,8 +16,16 @@
 // Bound on the H100: every key and value byte of the live context is read
 // once per step and used for 2 * group multiply-adds, so a step is bounded
 // by memory traffic, 2 * B * KVH * ctx * D * sizeof(page element) bytes at
-// 3.35 TB/s (int8 pages: half the bf16 bytes, plus 8 bytes of scales per
-// page and kv head).
+// 3.35 TB/s (float32 pages: twice the bf16 bytes; int8 pages: half, plus 8
+// bytes of scales per page and kv head).
+//
+// Page types (the serving engine's kv_dtype): the full-precision entry takes
+// pages of float32, bfloat16 or float16 under a float32 or bfloat16 q, the
+// Pallas kernel's domain. Every pair computes q.k and the online softmax in
+// float32. The pairs whose page type is not q's round p to a 2-byte page
+// type before the P.V product, as the Pallas kernel's p.astype(v.dtype)
+// does (float32 pages: p stays float32); the same-type pairs keep p in
+// float32, as they always have.
 //
 // Design (split positions, flash-decoding). The grid is (splits, KVH * hg,
 // B): a block takes one chunk of pages_per_split whole pages of one
@@ -73,13 +81,14 @@
 // eighth of the FMA rate and would bound the arm before memory does.
 //
 // Layout: q [B, NH, D], out [B, NH, D], float32 or bfloat16; pages
-// [P, KVH, ps, D] of q's type, or int8 with scales float32 [P, KVH] (one
-// per page and kv head); all contiguous; block_tables int32 [B, maxp];
+// [P, KVH, ps, D] of float32, bfloat16 or float16, or int8 with scales
+// float32 [P, KVH] (one per page and kv head); all contiguous; block_tables int32 [B, maxp];
 // lengths int32 [B]; scratch float32, splits * B * NH * (D + 2) values
 // (allocated by the caller; unused, and may be null, with one split).
 // D % 8 == 0, D <= 128, group * D <= 1024; page pointers 4-byte aligned.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -139,6 +148,16 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+// p rounded to the page type (float32 pages: p itself)
+__device__ __forceinline__ float round_to(float p, const float*) { return p; }
+__device__ __forceinline__ float round_to(float p, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(p));
+}
+__device__ __forceinline__ float round_to(float p, const __half*) {
+  return __half2float(__float2half(p));
+}
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
@@ -163,6 +182,17 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
   }
 }
 
+__device__ __forceinline__ void load8(const __half* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __half22float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
 __device__ __forceinline__ void load8(const int8_t* p, float* f) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const uint32_t w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
@@ -176,9 +206,9 @@ __device__ __forceinline__ void load8(const int8_t* p, float* f) {
   }
 }
 
-// T: the type of q and out; PageT: the page element, T (full precision)
-// or int8_t (codes, with ksc / vsc, which are unused and may be null
-// otherwise); G: query heads a block serves.
+// T: the type of q and out; PageT: the page element, float, bfloat16 or
+// half (full precision) or int8_t (codes, with ksc / vsc, which are unused
+// and may be null otherwise); G: query heads a block serves.
 template <typename T, typename PageT, int G>
 __global__ void __launch_bounds__(THREADS, G <= 4 ? 4 : 2)
 paged_decode_kernel(const T* __restrict__ q, const PageT* __restrict__ kp,
@@ -190,6 +220,9 @@ paged_decode_kernel(const T* __restrict__ q, const PageT* __restrict__ kp,
                     FastDiv psd, int D, int dtp, int P, int maxp, int pps,
                     int vb, float qscale) {
   constexpr bool kQuant = std::is_same<PageT, int8_t>::value;
+  // a pair whose page type is not q's rounds p to the page type before
+  // P.V, as the Pallas kernel does; the same-type pairs keep p in float32
+  constexpr bool kRoundP = !kQuant && !std::is_same<PageT, T>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int g = NH / KVH;
   const int hgs = (g + G - 1) / G;
@@ -394,7 +427,13 @@ paged_decode_kernel(const T* __restrict__ q, const PageT* __restrict__ kp,
       for (int r = 0; r < ROWS; ++r) {
         const float p = ex2(s[r][h] - mu);
         psum += p;
-        s[r][h] = kQuant ? p * vsr[r] : p;
+        if constexpr (kQuant) {
+          s[r][h] = p * vsr[r];
+        } else if constexpr (kRoundP) {
+          s[r][h] = round_to(p, static_cast<const PageT*>(nullptr));
+        } else {
+          s[r][h] = p;
+        }
       }
       l[h] = l[h] * alpha + psum;
 #pragma unroll
@@ -587,9 +626,34 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   return cudaGetLastError();
 }
 
+template <typename T>
+int launch_pages(int page_dtype, const void* q, const void* k_pages,
+                 const void* v_pages, const void* block_tables,
+                 const void* lengths, void* out, void* scratch, int B, int NH,
+                 int KVH, int ps, int D, int P, int maxp, int pps,
+                 float scale, void* stream) {
+  switch (page_dtype) {
+    case 0:
+      return launch<T, float>(q, k_pages, v_pages, nullptr, nullptr,
+                              block_tables, lengths, out, scratch, B, NH,
+                              KVH, ps, D, P, maxp, pps, scale, stream);
+    case 1:
+      return launch<T, __nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr,
+                                      block_tables, lengths, out, scratch, B,
+                                      NH, KVH, ps, D, P, maxp, pps, scale,
+                                      stream);
+    case 2:
+      return launch<T, __half>(q, k_pages, v_pages, nullptr, nullptr,
+                               block_tables, lengths, out, scratch, B, NH,
+                               KVH, ps, D, P, maxp, pps, scale, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype (of q, out and the pages): 0 = float32, 1 = bfloat16.
+// dtype (of q and out): 0 = float32, 1 = bfloat16; page_dtype (of the
+// pages): 0 = float32, 1 = bfloat16, 2 = float16.
 // pages_per_split: the chunk a block takes (the wrapper's
 // decode_split_plan); scratch: the partials, float32 [splits * B * NH *
 // (D + 2)] with splits = ceil(maxp / pages_per_split). Returns the
@@ -599,19 +663,20 @@ extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* lengths, void* out, void* scratch,
                             int B, int NH, int KVH, int ps, int D, int P,
                             int maxp, int pages_per_split, float scale,
-                            int dtype, void* stream) {
+                            int dtype, int page_dtype, void* stream) {
   if (bad_shape(B, NH, KVH, ps, D, P, maxp, pages_per_split))
     return cudaErrorInvalidValue;
   if (dtype == 0) {
-    return launch<float, float>(q, k_pages, v_pages, nullptr, nullptr,
-                                block_tables, lengths, out, scratch, B, NH,
-                                KVH, ps, D, P, maxp, pages_per_split, scale,
-                                stream);
+    return launch_pages<float>(page_dtype, q, k_pages, v_pages,
+                               block_tables, lengths, out, scratch, B, NH,
+                               KVH, ps, D, P, maxp, pages_per_split, scale,
+                               stream);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k_pages, v_pages, nullptr, nullptr, block_tables, lengths, out,
-        scratch, B, NH, KVH, ps, D, P, maxp, pages_per_split, scale, stream);
+    return launch_pages<__nv_bfloat16>(page_dtype, q, k_pages, v_pages,
+                                       block_tables, lengths, out, scratch,
+                                       B, NH, KVH, ps, D, P, maxp,
+                                       pages_per_split, scale, stream);
   }
   return cudaErrorInvalidValue;
 }

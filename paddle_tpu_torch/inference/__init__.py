@@ -1,4 +1,6 @@
-from .engine import Request, RequestOutput, ServingEngine  # noqa: F401
+from .engine import (EngineOverloaded, Request, RequestOutput,  # noqa: F401
+                     RequestRejected, ServingEngine)
 from .paged import PagedKVCache  # noqa: F401
 
-__all__ = ["ServingEngine", "Request", "RequestOutput", "PagedKVCache"]
+__all__ = ["EngineOverloaded", "ServingEngine", "Request", "RequestOutput",
+           "RequestRejected", "PagedKVCache"]

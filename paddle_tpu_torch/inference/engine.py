@@ -6,10 +6,13 @@ is the reference's core: FIFO admission with a page watermark,
 same-bucket grouped prefill padded to a power-of-two page count and
 group size, chunked decode over a fixed slot grid, recompute preemption
 of the youngest request when the page pool runs out, and slot
-compaction. ``kv_quant`` (default: ``FLAGS_serving_kv_quant``) stores
-int8 KV pages with one float32 scale per (page, kv head). The model is a
-family module, ``models.llama`` or ``models.moe``; ``params`` may also be
-a weight-only-quantized tree of it (``quantize_weights``).
+compaction. ``kv_dtype`` (default: the model's dtype) is the type of
+the KV pages: float32, bfloat16 or float16 under a float32 or bfloat16
+model, decoded by the paged kernel's pair for that (q, page) type.
+``kv_quant`` (default: ``FLAGS_serving_kv_quant``) stores int8 KV pages
+with one float32 scale per (page, kv head) instead. The model is a family
+module, ``models.llama`` or ``models.moe``; ``params`` may also be a
+weight-only-quantized tree of it (``quantize_weights``).
 
 The reference's options that are off by default, each taking its
 ``FLAGS_serving_*`` flag as its default:
@@ -30,14 +33,37 @@ The reference's options that are off by default, each taking its
   reference's second, copied scan (``_admit_policy``) is not kept.
 - ``slo_preemption``: the victim is the lowest (priority, prior
   preemptions, KV length) instead of the youngest.
+- ``max_queue``: a bounded queue. A submission to a full queue displaces
+  the lowest strictly-lower-priority queued request (never a preemption
+  re-queue), which leaves through ``outputs`` as ``shed``; when nothing
+  can be displaced the newcomer is shed with :class:`EngineOverloaded`.
+  Every shed carries ``retry_after_s`` from the autoscale demand model
+  (``monitor.slo``) over this engine's state (``autoscale_payload``).
+- ``failover``: ``attach_journal`` opts the engine into the exactly-once
+  admission journal (``inference/failover.py``): each admitted request is
+  journaled after every gate, its sampling seed pinned first, and each
+  terminal event (completed, shed, expired) writes a completion marker.
 
-The bounded queue, shedding, deadlines and drain, failover and fleet burn
-scaling are not ported (ROADMAP A7): the constructor refuses to build an
-engine with one of their flags on. Nor are the monitor, forensics and
-trace planes, so the reference's calls into them (``_defer``'s deferral
-records, the cost records, latency histograms, spans and counters) are
-left out; SLO preemption measures a victim's work by its KV length, the
-reference's measure when its monitor is off.
+Without an option: ``Request.deadline_s`` is a TTL from submission; once
+it is spent the request expires from the queue with no tokens or is
+evicted from its slot with the tokens it had (``finish_reason=
+"expired"``; a slot already done retires as completed). The expiry scan
+runs first in ``step`` and only once some request carried a deadline.
+``begin_drain`` stops admission (``submit`` sheds), sheds the queue
+except preemption re-queues, and lets live slots run to retirement;
+``drain_complete`` then holds. Every submitted request ends in exactly one
+of completed / expired / shed, or is refused at ``submit``.
+
+``FLAGS_serving_shed_on_burn`` and ``FLAGS_serving_fleet_burn_scaling``
+are not ported: both act on the SLO plane's burn alert, which waits for
+the monitor planes (ROADMAP A7(c)), and the constructor refuses to build
+an engine with either on. Nor are the monitor, SLO-record, forensics and
+trace planes (A7(c)), so the reference's calls into them (``_defer``'s
+deferral records, ``slo.record_*``, ``forensics`` notes and decisions,
+``trace`` spans, counters and latency histograms) and its per-request
+``RequestCost`` records are left out, and ``publish_frames`` (fleet
+federation) with them; SLO preemption measures a victim's work by its KV
+length, the reference's measure when its monitor is off.
 
 Where the reference jits one program per chunk, ``_decode_chunk`` is a
 Python loop over ``chunk`` decode steps; the pool is updated in place.
@@ -63,11 +89,12 @@ import torch
 from ..core import enforce as E
 from ..core import flags as _flags
 from ..core import resolve_device
+from ..monitor import slo as _slo
 from .paged import (PagedKVCache, PrefixCache, paged_decode_step,
                     paged_prefill, paged_prefill_shared, paged_verify_window)
 
-__all__ = ["Request", "RequestOutput", "RequestRejected", "EngineStats",
-           "ServingEngine"]
+__all__ = ["EngineOverloaded", "Request", "RequestOutput",
+           "RequestRejected", "EngineStats", "ServingEngine"]
 
 PAGED_DEFAULT_PAGE = 16
 # the reference's page-size floor for int8 pools (kernels/autotune.py
@@ -75,10 +102,10 @@ PAGED_DEFAULT_PAGE = 16
 # size, so this is the default only
 PAGED_QUANT_PAGE = 32
 
-# the flags of the reference's serving options (the engine's, and the
-# elastic controller's fleet burn scaling) that the port does not run yet
-_UNPORTED_FLAGS = ("serving_max_queue", "serving_shed_on_burn",
-                   "serving_failover", "serving_fleet_burn_scaling")
+# the flags of the reference's serving options that act on the SLO
+# plane's burn alert (the engine's shedding on burn, and the elastic
+# controller's fleet burn scaling): they wait for the monitor planes
+_UNPORTED_FLAGS = ("serving_shed_on_burn", "serving_fleet_burn_scaling")
 
 
 class RequestRejected(E.InvalidArgumentError):
@@ -89,6 +116,17 @@ class RequestRejected(E.InvalidArgumentError):
         self.rid = rid
         self.reason = reason
         super().__init__(f"request {rid!r} rejected: {reason}")
+
+
+class EngineOverloaded(RequestRejected):
+    """A well-formed submission refused by overload policy: the bounded
+    queue is full (``max_queue``) with nothing to displace, or the engine
+    is draining. ``retry_after_s`` is the demand model's backoff hint
+    over this engine's state."""
+
+    def __init__(self, rid, reason: str, retry_after_s: float):
+        self.retry_after_s = retry_after_s
+        super().__init__(rid, reason)
 
 
 @dataclasses.dataclass
@@ -102,7 +140,16 @@ class Request:
     tenant: str = "default"              # admission cap dimension
     priority: int = 0                    # scheduling class: HIGHER is
     #                                      more important (admission
-    #                                      order, preemption protection)
+    #                                      order, displacement, preemption
+    #                                      protection)
+    deadline_s: Optional[float] = None   # TTL from submit: the request
+    #                                      expires in the queue or is
+    #                                      evicted from its slot once it
+    #                                      is spent (default off)
+    prompt_spec: Optional[dict] = None   # failover journal only: a
+    #                                      derivation spec (trace seed,
+    #                                      rid, lengths) journaled
+    #                                      instead of inline tokens
 
 
 @dataclasses.dataclass
@@ -112,8 +159,12 @@ class RequestOutput:
     prompt_len: int
     preemptions: int = 0                 # times this request was evicted
     ttft_s: Optional[float] = None       # first submit to the first token
-    #                                      the client keeps (host clock)
+    #                                      the client keeps (host clock;
+    #                                      None without tokens)
     tenant: str = "default"
+    finish_reason: str = "completed"     # completed | expired | shed
+    retry_after_s: Optional[float] = None  # shed only: the backoff hint
+    shed_reason: Optional[str] = None    # shed only: displacement or drain
 
 
 class _Slot:
@@ -139,6 +190,8 @@ class EngineStats:
         self.admitted = 0
         self.completed = 0
         self.preempted = 0
+        self.expired = 0             # ended by their deadline
+        self.shed = 0                # refused or ended by overload policy
         self.decode_steps = 0
         self.tokens_generated = 0    # incl. the token sampled at prefill
         self.tokens_decoded = 0      # emitted by decode steps only
@@ -166,10 +219,10 @@ class EngineStats:
                 if self._occ_steps else 0.0)
 
     def as_dict(self) -> dict:
-        """The counters under the reference's keys (those of the options
-        the port does not run, ``expired`` and ``shed``, left out)."""
+        """The counters under the reference's keys, in its order."""
         return {"admitted": self.admitted, "completed": self.completed,
                 "preempted": self.preempted,
+                "expired": self.expired, "shed": self.shed,
                 "decode_steps": self.decode_steps,
                 "tokens_generated": self.tokens_generated,
                 "tokens_prefilled": self.tokens_prefilled,
@@ -255,22 +308,26 @@ class ServingEngine:
     ``device``. ``device=None`` means the CUDA card and raises without
     one; pass ``device="cpu"`` for the plain versions on the CPU.
 
-    ``kv_quant`` (default: ``FLAGS_serving_kv_quant``) stores the KV
-    pages as int8 codes with per-(page, kv head) float32 scales (about
-    half the bytes of bfloat16 pages), and decodes through the int8 arm
-    of the paged kernel. ``page_size=None`` is 32 with ``kv_quant``, else
-    16.
+    ``kv_dtype`` (a torch dtype; default: ``config.dtype``) is the KV
+    pages' type: float32, bfloat16 or float16. ``kv_quant`` (default:
+    ``FLAGS_serving_kv_quant``) stores the KV pages as int8 codes with
+    per-(page, kv head) float32 scales instead (about half the bytes of
+    bfloat16 pages), and decodes through the int8 arm of the paged
+    kernel. ``page_size=None`` is 32 with ``kv_quant``, else 16.
 
     ``prefix_cache``, ``spec_decode``, ``priority_admission``,
-    ``tenant_inflight_cap`` (a negative cap is 0, uncapped) and
-    ``slo_preemption`` each default to their ``FLAGS_serving_*`` flag;
-    the module docstring says what each does. All off, the default, is
-    the engine above, tokens and scheduling alike.
+    ``tenant_inflight_cap`` (a negative cap is 0, uncapped),
+    ``slo_preemption``, ``max_queue`` (a negative depth is 0, unbounded)
+    and ``failover`` each default to their ``FLAGS_serving_*`` flag; the
+    module docstring says what each does. All off, the default, is the
+    engine above, tokens and scheduling alike. Deadlines
+    (``Request.deadline_s``) and the drain lifecycle (``begin_drain``)
+    need no option.
 
-    The reference's other serving options (queue bounds, shedding,
-    failover, fleet burn scaling) are not ported yet (ROADMAP A7): with
-    any of their ``FLAGS_serving_*`` flags on (true, or a positive
-    depth) the constructor raises ``NotImplementedError``."""
+    Shedding on an SLO burn and fleet burn scaling are not ported yet
+    (ROADMAP A7(c), with the monitor planes): with
+    ``FLAGS_serving_shed_on_burn`` or ``FLAGS_serving_fleet_burn_scaling``
+    on the constructor raises ``NotImplementedError``."""
 
     def __init__(self, family, params, config, *, num_slots: int = 8,
                  max_len: Optional[int] = None,
@@ -282,13 +339,18 @@ class ServingEngine:
                  spec_decode: Optional[bool] = None,
                  priority_admission: Optional[bool] = None,
                  tenant_inflight_cap: Optional[int] = None,
-                 slo_preemption: Optional[bool] = None, device=None):
+                 slo_preemption: Optional[bool] = None,
+                 max_queue: Optional[int] = None,
+                 failover: Optional[bool] = None, kv_dtype=None,
+                 device=None):
         on = [f"FLAGS_{flag}" for flag in _UNPORTED_FLAGS
-              if _flags.flag_value(flag) > 0]
+              if _flags.flag_value(flag)]
         if on:
             raise NotImplementedError(
                 f"ServingEngine: {', '.join(on)} selects a serving option "
-                f"that is not ported yet (ROADMAP.md queue A item A7)")
+                f"that acts on the SLO plane's burn alert, which is not "
+                f"ported yet (ROADMAP.md queue A item A7(c), the monitor "
+                f"planes)")
 
         def _opt(v, flag):
             return _flags.flag_value(flag) if v is None else v
@@ -300,6 +362,14 @@ class ServingEngine:
             _opt(tenant_inflight_cap, "serving_tenant_inflight_cap")))
         self._slo_preemption = bool(
             _opt(slo_preemption, "serving_slo_preemption"))
+        self._max_queue = max(0, int(_opt(max_queue, "serving_max_queue")))
+        # the flag only offers durability: journaling starts when the
+        # caller names the replica through attach_journal
+        self._failover = bool(_opt(failover, "serving_failover"))
+        self._journal = None
+        self._draining = False
+        self._deadlines_seen = False     # sticky: the first request with a
+        #                                  deadline arms step's expiry scan
         self._spec_decode = bool(_opt(spec_decode, "serving_spec_decode"))
         prefix_on = bool(_opt(prefix_cache, "serving_prefix_cache"))
         self.device = resolve_device(device)
@@ -328,8 +398,14 @@ class ServingEngine:
                   f"pool of {num_pages} pages cannot hold even one "
                   f"max-length sequence ({self.max_pages_per_seq} pages)")
         self.watermark_pages = int(watermark * num_pages)
+        self.kv_dtype = config.dtype if kv_dtype is None else kv_dtype
+        E.enforce(self.kv_dtype in (torch.float32, torch.bfloat16,
+                                    torch.float16),
+                  f"kv_dtype {self.kv_dtype} is not a page type the decode "
+                  f"kernel takes (float32, bfloat16, float16)",
+                  error=E.InvalidArgumentError)
         self.cache = PagedKVCache(config, num_pages, self.page_size,
-                                  self.max_pages_per_seq, config.dtype,
+                                  self.max_pages_per_seq, self.kv_dtype,
                                   self.device, kv_quant=self.kv_quant)
         # radix shared-prefix cache over the pool's committed pages; None
         # (option off) short-circuits every hook to the plain code
@@ -407,24 +483,208 @@ class ServingEngine:
                            "integral class")
         except (TypeError, ValueError, OverflowError):
             return bad(f"priority {req.priority!r} is not an int")
+        deadline = req.deadline_s
+        if deadline is not None:
+            try:
+                deadline = float(deadline)
+            except (TypeError, ValueError, OverflowError):
+                return bad(f"deadline_s {req.deadline_s!r} is not a "
+                           "float")
+            if not math.isfinite(deadline) or deadline <= 0.0:
+                return bad("deadline_s must be finite and > 0, got "
+                           f"{deadline}")
         return None, (prompt.astype(np.int64), max_new, temp, tenant,
-                      priority)
+                      priority, deadline)
 
     def submit(self, req: Request):
         """Queue a request, or raise :class:`RequestRejected` when it is
-        malformed (engine state untouched either way until admission)."""
+        malformed (engine state untouched either way until admission).
+        A well-formed submission may be shed instead, with
+        :class:`EngineOverloaded`: the engine is draining, or the bounded
+        queue (``max_queue``) is full and holds no strictly
+        lower-priority request to displace; a displaced request ends in
+        ``outputs`` as ``shed``."""
         reason, norm = self._reject_reason(req)
         if reason is not None:
             raise RequestRejected(req.rid, reason)
         (req.prompt, req.max_new_tokens, req.temperature, req.tenant,
-         req.priority) = norm
+         req.priority, req.deadline_s) = norm
+        if self._draining:
+            self._shed_submit(req, "engine is draining")
+        if self._max_queue and len(self.queue) >= self._max_queue:
+            victim = self._displaceable_pos(req.priority)
+            if victim is None:
+                self._shed_submit(
+                    req, f"queue full ({self._max_queue}) and no "
+                         f"lower-priority request to displace")
+            shed = self.queue[victim]
+            del self.queue[victim]
+            self._finish_shed(shed, "displaced by higher-priority request "
+                                    f"{req.rid!r}")
         if req.temperature > 0.0 and req.seed is None:
             self._rng_fallback += 1
             req.seed = self._rng_fallback
+        # per-run state, set anew on every submission: an object submitted
+        # again starts a new run (the seed pinned on its first submission
+        # is kept, so it draws the same tokens again)
         req._t_submit = time.perf_counter()
         req._preempt_count = 0
         req._pfx_cached = 0          # cached prefix length of its admission
+        req._t_deadline = None
+        if req.deadline_s is not None:
+            req._t_deadline = req._t_submit + req.deadline_s
+            self._deadlines_seen = True
+        if self._journal is not None:
+            # after every gate that could still refuse the request, and
+            # after the seed is pinned: a re-dispatch replays its tokens
+            self._journal.admit(req)
         self.queue.append(req)
+
+    # -- overload policy: shedding, deadlines, drain ------------------------
+
+    def autoscale_payload(self) -> dict:
+        """The autoscale demand model (``monitor.slo.demand_model``) over
+        this engine's state. Resident slots count as live, done but
+        unretired ones too (their output appears at the next ``step``),
+        so ``drain_safe`` here is :attr:`drain_complete`."""
+        resident = sum(1 for s in self.slots if s is not None)
+        return _slo.demand_model(
+            len(self.queue), resident, self.num_slots,
+            self.cache.alloc.free_pages / self.cache.num_pages
+            if self.cache.num_pages else 0.0)
+
+    def _retry_after(self) -> float:
+        return _slo.retry_after_hint(self.autoscale_payload())
+
+    def attach_journal(self, name: str, dir_path: Optional[str] = None,
+                       *, client=None):
+        """Opt this engine into the exactly-once admission journal
+        (``inference/failover.py``) under the replica name ``name``, on
+        the heartbeat transport's directory ``dir_path`` and key-value
+        ``client``. Needs ``failover=True`` (or ``FLAGS_serving_failover``):
+        without it returns None and journals nothing. Returns the journal
+        (one per engine; attaching again replaces it)."""
+        if not self._failover:
+            return None
+        from .failover import AdmissionJournal
+        self._journal = AdmissionJournal(name, dir_path=dir_path,
+                                         client=client)
+        return self._journal
+
+    def _shed_submit(self, req: Request, why: str):
+        """Refuse a well-formed submission by overload policy, before it
+        touches any engine state: :class:`EngineOverloaded` with the
+        demand model's backoff hint."""
+        hint = self._retry_after()
+        self.stats.shed += 1
+        raise EngineOverloaded(req.rid, why, hint)
+
+    def _displaceable_pos(self, priority: int) -> Optional[int]:
+        """Queue position of the displacement victim for an arriving
+        ``priority`` request at a full queue: the lowest-priority queued
+        request, oldest first, and only when strictly below the newcomer
+        (equal priority is never displaced). Preemption re-queues are
+        exempt: they are admitted work mid-recompute."""
+        pos, lowest = None, None
+        for j, r in enumerate(self.queue):
+            if r._preempt_count > 0:
+                continue
+            if r.priority < priority and (lowest is None
+                                          or r.priority < lowest):
+                pos, lowest = j, r.priority
+        return pos
+
+    def _finish_shed(self, req: Request, why: str):
+        """End a queued request as shed (displacement or drain): it leaves
+        through ``outputs`` with ``finish_reason="shed"``, the backoff hint
+        and the reason."""
+        hint = self._retry_after()
+        self.stats.shed += 1
+        self.outputs[req.rid] = RequestOutput(
+            rid=req.rid, tokens=np.zeros(0, np.int32),
+            prompt_len=int(req.prompt.shape[0]),
+            preemptions=req._preempt_count, tenant=req.tenant,
+            finish_reason="shed", retry_after_s=hint, shed_reason=why)
+        if self._journal is not None:
+            self._journal.finish(req.rid, "shed")
+
+    def begin_drain(self, shed_queued: bool = True):
+        """Enter the drain lifecycle: stop admitting (``submit`` sheds
+        with :class:`EngineOverloaded`), shed the queued requests
+        (``shed_queued=False`` lets them finish instead) but never a
+        preemption re-queue, which is admitted work, and let live slots
+        run to retirement; :attr:`drain_complete` holds once nothing is
+        queued or resident. Idempotent."""
+        from ..testing import faults as _faults
+        _faults.hit("serving.drain")
+        self._draining = True
+        if shed_queued:
+            keep: deque = deque()
+            while self.queue:
+                r = self.queue.popleft()
+                if r._preempt_count > 0:
+                    keep.append(r)
+                else:
+                    self._finish_shed(r, "engine is draining")
+            self.queue = keep
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def drain_complete(self) -> bool:
+        """No queued and no resident requests (a done but unretired slot
+        is resident: its output appears at the next ``step``)."""
+        return not self.queue and all(s is None for s in self.slots)
+
+    def _expire_due(self):
+        """Deadline enforcement, once a ``step``: a queued request whose
+        deadline is spent leaves with no tokens, a running one is evicted
+        with the tokens it had (pages freed, nothing inserted into the
+        prefix cache). A done slot past its deadline retires as
+        completed: its output is whole."""
+        now = time.perf_counter()
+        if any(r._t_deadline is not None and now >= r._t_deadline
+               for r in self.queue):
+            keep: deque = deque()
+            for r in self.queue:
+                if r._t_deadline is not None and now >= r._t_deadline:
+                    self._finish_expired(r, None)
+                else:
+                    keep.append(r)
+            self.queue = keep
+        for idx in range(self.num_slots):
+            slot = self.slots[idx]
+            if slot is None or slot.done:
+                continue
+            t = slot.req._t_deadline
+            if t is not None and now >= t:
+                self._finish_expired(slot.req, idx)
+
+    def _finish_expired(self, req: Request, slot_idx: Optional[int]):
+        """End ``req`` as expired: from the queue (no tokens) or evicted
+        from slot ``slot_idx`` with its tokens, which are the client's, so
+        ``tokens_generated - tokens_discarded`` stays the tokens
+        emitted."""
+        tokens = np.zeros(0, np.int32)
+        preemptions = req._preempt_count
+        ttft = None
+        if slot_idx is not None:
+            slot = self.slots[slot_idx]
+            self.slots[slot_idx] = None
+            self.cache.alloc.free(req.rid)
+            tokens = np.asarray(slot.tokens, np.int32)
+            preemptions = slot.preemptions
+            ttft = slot.t_first - req._t_submit
+        self.stats.expired += 1
+        self.outputs[req.rid] = RequestOutput(
+            rid=req.rid, tokens=tokens, prompt_len=int(req.prompt.shape[0]),
+            preemptions=preemptions, ttft_s=ttft, tenant=req.tenant,
+            finish_reason="expired")
+        if self._journal is not None:
+            self._journal.finish(req.rid, "expired",
+                                 tokens=int(tokens.shape[0]))
 
     # -- scheduling ---------------------------------------------------------
 
@@ -521,6 +781,12 @@ class ServingEngine:
             preemptions=slot.preemptions,
             ttft_s=slot.t_first - slot.req._t_submit,
             tenant=slot.req.tenant)
+        if self._journal is not None:
+            # the completion marker lands before the output can be
+            # harvested: a crash after it re-dispatches nothing for
+            # this rid
+            self._journal.finish(slot.req.rid, "completed",
+                                 tokens=len(slot.tokens))
         self.stats.completed += 1
 
     def _preempt_victim_idx(self) -> Optional[int]:
@@ -797,11 +1063,14 @@ class ServingEngine:
 
     @torch.inference_mode()
     def step(self) -> bool:
-        """One scheduling iteration: retire -> compact -> admit -> one
-        decode chunk. Returns False when the engine is fully idle.
+        """One scheduling iteration: expire (once any request carried a
+        deadline) -> retire -> compact -> admit -> one decode chunk.
+        Returns False when the engine is fully idle.
 
         Runs in inference mode: a served parameter tree that requires
         grad builds no autograd graph and saves nothing for a backward."""
+        if self._deadlines_seen:
+            self._expire_due()
         for idx in range(self.num_slots):
             if self.slots[idx] is not None and self.slots[idx].done:
                 self._retire(idx)

@@ -11,7 +11,8 @@ route, ``flash_attention.tensor_core_route``; ``varlen*`` are the
 segment-masked, sequence-packed kernels, the reference's names, and
 ``varlen_tc`` / ``varlen_bwd_tc`` count those of their launches that took
 the same tensor-core route; ``paged_quant`` is the
-decode kernel's int8 arm); ``flash_ref`` / ``flash_bwd_ref`` /
+decode kernel's int8 arm, and ``paged_mixed`` counts the launches among
+``paged`` whose pages are of another type than q); ``flash_ref`` / ``flash_bwd_ref`` /
 ``varlen_ref`` / ``varlen_bwd_ref`` / ``paged_ref`` / ``paged_quant_ref``
 / ``rms_ref`` / ``rms_bwd_ref`` count calls that took the plain PyTorch
 version because the tensors lay on the CPU. ``fused_ce`` /
@@ -27,7 +28,7 @@ DISPATCH_STATS = {"flash": 0, "flash_tc": 0, "flash_ref": 0,
                   "flash_bwd": 0, "flash_bwd_tc": 0, "flash_bwd_ref": 0,
                   "varlen": 0, "varlen_tc": 0, "varlen_ref": 0,
                   "varlen_bwd": 0, "varlen_bwd_tc": 0, "varlen_bwd_ref": 0,
-                  "paged": 0, "paged_ref": 0,
+                  "paged": 0, "paged_mixed": 0, "paged_ref": 0,
                   "paged_quant": 0, "paged_quant_ref": 0,
                   "rms": 0, "rms_ref": 0, "rms_bwd": 0, "rms_bwd_ref": 0,
                   "rms_fallback": 0,

@@ -13,6 +13,13 @@ block_tables int32 ``[B, max_pages]`` (entries past a sequence's pages
 may hold anything: they are clamped and masked); lengths int32 ``[B]``
 (0 marks an empty slot and gives a zero row).
 
+Pages of float32, bfloat16 or float16 go under a float32 or bfloat16 q
+(the Pallas kernel's domain; the serving engine's ``kv_dtype``): q.k and
+the softmax run in float32, and a pair whose page type is not q's rounds
+the softmax weights to the page type before the P.V product, as the Pallas
+kernel does (float32 pages keep them float32). Launches of such a pair
+count ``paged_mixed`` as well as ``paged``.
+
 The int8 arm (the reference's ``FLAGS_serving_kv_quant``): pages hold
 int8 codes and ``k_scales`` / ``v_scales`` float32 ``[num_pages,
 kv_heads]`` carry one scale per (page, kv head); a key or value is
@@ -39,6 +46,8 @@ __all__ = ["ragged_paged_attention", "paged_attention_ref", "supported",
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the full-precision arm's page types (the C entry's page_dtype codes)
+_PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # a block's chunk: SPLIT_POSITIONS positions of whole pages, halved (not
 # below MIN_SPLIT_POSITIONS, nor below one page) while the grid over the
 # table has fewer than TARGET_BLOCKS blocks, about eight for each of the
@@ -104,15 +113,16 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
 def supported(q, k_pages, block_tables, quant: bool = False) -> bool:
     """Whether the CUDA kernel takes these shapes and types. ``quant``
     marks the int8 arm (scale planes present): it takes int8 pages only,
-    and int8 pages need it. Any page size the full-precision arm takes
-    (the reference's ``ps % 32`` is the TPU's int8 sublane tile; the
-    CUDA arm has no such rule)."""
+    and int8 pages need it; otherwise pages of float32, bfloat16 or
+    float16 under any q it takes. Any page size the full-precision arm
+    takes (the reference's ``ps % 32`` is the TPU's int8 sublane tile;
+    the CUDA arm has no such rule)."""
     if q.ndim != 3 or k_pages.ndim != 4 or block_tables.ndim != 2:
         return False
     B, nh, hd = q.shape
     P, kv, ps, hd2 = k_pages.shape
     page_ok = (k_pages.dtype == torch.int8 if quant
-               else k_pages.dtype == q.dtype)
+               else k_pages.dtype in _PAGE_DTYPES)
     return (hd == hd2 and kv >= 1 and nh % kv == 0 and hd % 8 == 0
             and hd <= 128 and (nh // kv) * hd <= 1024 and P >= 1
             and ps >= 1 and block_tables.shape[0] == B
@@ -151,8 +161,9 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
               f"{k_pages.dtype}, block_tables {tuple(block_tables.shape)}"
               f"{', scales' if quant else ', no scales'} (needs head_dim "
               f"% 8 == 0, head_dim <= 128, group * head_dim <= 1024, q "
-              f"float32 or bfloat16, pages of q's type without scales or "
-              f"int8 with them)", error=E.InvalidArgumentError)
+              f"float32 or bfloat16, pages float32, bfloat16 or float16 "
+              f"without scales or int8 with them)",
+              error=E.InvalidArgumentError)
     if quant:
         E.enforce(all(t.dtype == torch.float32
                       and tuple(t.shape) == tuple(k_pages.shape[:2])
@@ -172,6 +183,8 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     _launch(_lib(), q, k_pages, v_pages, block_tables, lengths, out, scale,
             k_scales, v_scales)
     DISPATCH_STATS[arm] += 1
+    if not quant and k_pages.dtype != q.dtype:
+        DISPATCH_STATS["paged_mixed"] += 1
     return out
 
 
@@ -199,7 +212,8 @@ def _launch(lib, q, k_pages, v_pages, block_tables, lengths, out, scale,
                                v_pages.data_ptr(), block_tables.data_ptr(),
                                lengths.data_ptr(), out.data_ptr(), part, B,
                                nh, kv, ps, hd, P, maxp, pps, float(scale),
-                               _DTYPES[q.dtype], stream)
+                               _DTYPES[q.dtype], _PAGE_DTYPES[k_pages.dtype],
+                               stream)
     _build.check_launch("paged_decode_int8" if k_scales is not None
                         else "paged_decode", err)
 
@@ -215,7 +229,7 @@ def _bind(lib):
     """The C entries' argument types."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                 i, ctypes.c_float, i, p]
+                                 i, ctypes.c_float, i, i, p]
     lib.paged_decode.restype = ctypes.c_int
     lib.paged_decode_int8.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
                                       i, i, i, i, i, ctypes.c_float, i, p]

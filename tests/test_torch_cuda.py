@@ -327,6 +327,27 @@ def test_paged_int8_kernel_equals_full_precision_kernel(dev, case):
     torch.testing.assert_close(out, dense, atol=1e-4, rtol=0)
 
 
+def test_paged_decode_mixed_page_dtypes(dev):
+    """Every mixed (q, page) pair of the decode kernel (float32 q over
+    bf16 / float16 pages, bf16 q over float32 / float16 pages) against the
+    plain version at the edge shapes (D 64 / 128, groups 1-8) and the main
+    serving shape, within ``chip_smoke.mixed_tol``, bf16 q against
+    ``chip_smoke.paged_ref_round_p`` and float32 q over 2-byte pages
+    within ``chip_smoke.MIXED_RMS_BAND`` (the pairs with 2-byte pages
+    round p as the Pallas kernel does); bf16 q over float32 pages of
+    bf16 values equals the bf16 arm bit for bit; launches count
+    ``paged_mixed``."""
+    C = _chip_smoke()
+    main_lengths, _ = C.decode_wave_lengths(C._main_requests(32000))
+    K.reset_dispatch_stats()
+    worst, margin = C.paged_mixed_checks(torch, dev, PA, main_lengths, 128)
+    st = K.dispatch_stats()
+    assert set(worst) == set(C.MIXED_PAIRS) and margin <= 1.0
+    # 5 shapes: each pair, the bit-for-bit pair and the bf16 arm
+    assert st["paged_mixed"] == 5 * (len(C.MIXED_PAIRS) + 1), st
+    assert st["paged"] == st["paged_mixed"] + 5, st
+
+
 @pytest.mark.parametrize("quant", [False, True])
 def test_paged_kernel_repeats_bit_for_bit(dev, quant):
     """No atomics: two launches on the same inputs give the same bits."""
@@ -1147,6 +1168,38 @@ def test_engine_options_match_the_cpu(dev):
     s = card["stats"]
     assert min(s["preempted"], s["prefix_evictions"], s["prefix_hits"],
                s["spec_rounds"]) > 0, s
+    assert st["flash"] > 0 and st["paged"] > 0, st
+    assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+
+
+def test_overload_and_failover_match_the_cpu(dev, tmp_path):
+    """``[overload_parity]``'s failover case on float32 ``llama_tiny``:
+    replica A journals six requests (one sampled) and is abandoned after
+    two complete; a ``FailoverCoordinator`` strands the rest and replica B
+    serves them. On the card as on the CPU each rid is served exactly
+    once with the uninterrupted serve's tokens (the sampled one replays
+    its pinned seed's draws on its own device); the counters, the
+    recovered rids and the greedy tokens equal the CPU's."""
+    C = _chip_smoke()
+    cfg = L.llama_tiny()
+    cpu_params = L.init_params(cfg, seed=0, device="cpu")
+    card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    K.reset_dispatch_stats()
+    card = C.failover_case(torch, L, cfg, card_params, dev,
+                           str(tmp_path / "card"))
+    torch.cuda.synchronize()
+    st = K.dispatch_stats()
+    cpu = C.failover_case(torch, L, cfg, cpu_params, "cpu",
+                          str(tmp_path / "cpu"))
+    for r in (card, cpu):
+        C._failover_asserts(r)
+    assert card["counters"] == cpu["counters"]
+    assert card["recovered"] == cpu["recovered"]
+    for rid, toks in card["whole"].items():
+        if rid != card["sampled"]:
+            assert toks == cpu["whole"][rid], rid
     assert st["flash"] > 0 and st["paged"] > 0, st
     assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
 

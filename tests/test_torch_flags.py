@@ -9,9 +9,10 @@ copy of ``paddle_tpu/core/flags.py``) and the options that read it.
   doc, and the port defines exactly the ones it reads.
 - ``set_flags`` reaches ``make_train_step``'s guard and numerics
   defaults and ``ServingEngine``'s ``kv_quant``, ``prefix_cache``,
-  ``spec_decode``, ``priority_admission``, ``tenant_inflight_cap`` and
-  ``slo_preemption``; each serving flag whose option is not ported makes
-  the engine raise, naming ROADMAP A7.
+  ``spec_decode``, ``priority_admission``, ``tenant_inflight_cap``,
+  ``slo_preemption``, ``max_queue`` and ``failover``; each serving flag
+  whose option is not ported makes the engine raise, naming ROADMAP
+  A7(c).
 """
 import os
 import subprocess
@@ -29,9 +30,8 @@ from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models import moe as TM
 
-PORTED = ("enable_sentinel", "enable_numerics")
-UNPORTED_SERVING = ("serving_max_queue", "serving_shed_on_burn",
-                    "serving_fleet_burn_scaling", "serving_failover")
+PORTED = ("enable_sentinel", "enable_numerics", "fault_injection")
+UNPORTED_SERVING = ("serving_shed_on_burn", "serving_fleet_burn_scaling")
 # each ported serving option's flag and how the engine shows it is on
 ENGINE_OPTIONS = {
     "serving_prefix_cache": lambda e: e._prefix is not None,
@@ -39,6 +39,8 @@ ENGINE_OPTIONS = {
     "serving_priority_admission": lambda e: e._priority_admission,
     "serving_tenant_inflight_cap": lambda e: e._tenant_cap == 4,
     "serving_slo_preemption": lambda e: e._slo_preemption,
+    "serving_max_queue": lambda e: e._max_queue == 4,
+    "serving_failover": lambda e: e._failover,
 }
 
 
@@ -161,7 +163,7 @@ def test_unported_serving_flags_raise_naming_a7(flag):
     default = TF._REGISTRY[flag].default
     on = True if isinstance(default, bool) else 4      # a cap or a depth
     paddle_tpu_torch.set_flags({f"FLAGS_{flag}": on})
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match=r"A7\(c\)"):
         ServingEngine(TL, params, cfg, device="cpu")
     # a cap of 0 or below is uncapped, as in the reference: off
     paddle_tpu_torch.set_flags({f"FLAGS_{flag}": False if on is True else -1})

@@ -76,6 +76,48 @@ def test_paged_ref_matches_jax_kernel_interpret_and_ref(dt, ps, tol):
     np.testing.assert_allclose(_np(got), _np(ref), atol=tol, rtol=0)
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo root, imported by path."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_paged", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("pdt", ["bfloat16", "float16"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rounded_p_reference_matches_jax_kernel_interpret(pdt, seed):
+    """``chip_smoke.paged_ref_round_p``, the reference the card's mixed
+    pairs are held to, against the Pallas kernel in interpret mode:
+    float32 q over 2-byte pages, sequences of at most one page (there the
+    kernel's running max is the row's max), within 1e-5 (float32
+    summation order). The plain version, which keeps p float32, is off
+    by the rounding, more than ten times that."""
+    rng = np.random.default_rng(seed)
+    B, nh, kv, hd, ps, P, maxp = 4, 8, 2, 64, 32, 6, 2
+    q = rng.normal(size=(B, nh, hd)).astype(np.float32)
+    kp = rng.normal(size=(P, kv, ps, hd)).astype(np.float32)
+    vp = rng.normal(size=(P, kv, ps, hd)).astype(np.float32)
+    ln = np.array([13, 0, ps, 27], np.int32)
+    bt = rng.integers(-5, 3 * P, (B, maxp)).astype(np.int32)
+    bt[:, 0] = rng.permutation(P)[:B]
+    kern = np.asarray(JPA.ragged_paged_attention(
+        jnp.asarray(q), jnp.asarray(kp, getattr(jnp, pdt)),
+        jnp.asarray(vp, getattr(jnp, pdt)), jnp.asarray(bt),
+        jnp.asarray(ln), interpret=True))
+    args = (torch.as_tensor(q), torch.as_tensor(kp).to(getattr(torch, pdt)),
+            torch.as_tensor(vp).to(getattr(torch, pdt)), torch.as_tensor(bt),
+            torch.as_tensor(ln))
+    got = _chip_smoke().paged_ref_round_p(torch, *args)
+    assert got.dtype == torch.float32 and torch.all(got[1] == 0)
+    np.testing.assert_allclose(got.numpy(), kern, atol=1e-5, rtol=0)
+    plain = TPA.paged_attention_ref(*args).numpy()
+    assert np.abs(plain - kern).max() > 1e-4
+
+
 def test_paged_wrapper_on_cpu_takes_plain_version():
     _, (tq, tk, tv, tbt, tln) = _both(_case("float32", B=2), "float32")
     TK.reset_dispatch_stats()
@@ -363,8 +405,8 @@ def test_split_combine_model_matches_jax_kernel_interpret_and_ref(dt, tol):
      False, True),                                    # group 64
     ((2, 8, 128), torch.float16, (4, 2, 16, 128), torch.float16, (2, 3),
      False, False),                                   # float16
-    ((2, 8, 128), torch.bfloat16, (4, 2, 16, 128), torch.float32, (2, 3),
-     False, False),                                   # pages not q's type
+    ((2, 8, 128), torch.bfloat16, (4, 2, 16, 128), torch.float64, (2, 3),
+     False, False),                                   # float64 pages
     ((2, 8, 128), torch.float32, (4, 2, 16, 128), torch.int8, (2, 3),
      True, True),                                     # int8, ps 16
     ((2, 8, 40), torch.bfloat16, (4, 2, 64, 40), torch.int8, (2, 3),
@@ -377,13 +419,24 @@ def test_split_combine_model_matches_jax_kernel_interpret_and_ref(dt, tol):
      False, False),                                   # table rows != B
     ((2, 8, 128), torch.float32, (4, 2, 16, 128), torch.float32, (2, 0),
      False, False),                                   # empty table
+    ((2, 8, 128), torch.bfloat16, (4, 2, 16, 128), torch.float32, (2, 3),
+     False, True),                                    # float32 pages, bf16 q
+    ((2, 8, 128), torch.float32, (4, 2, 16, 128), torch.bfloat16, (2, 3),
+     False, True),                                    # bf16 pages, f32 q
+    ((2, 8, 64), torch.float32, (4, 2, 16, 64), torch.float16, (2, 3),
+     False, True),                                    # float16 pages
+    ((2, 8, 24), torch.bfloat16, (4, 2, 8, 24), torch.float16, (2, 3),
+     False, True),                                    # float16, bf16 q
+    ((2, 8, 128), torch.float16, (4, 2, 16, 128), torch.float32, (2, 3),
+     False, False),                                   # float16 q
 ])
 def test_supported_takes_the_same_shapes(q_shape, q_dt, pages, p_dt,
                                          bt_shape, quant, want):
     """The split kernel takes exactly the shapes the kernel before it
     took: any page size, head_dim % 8 == 0 up to 128, group * head_dim
-    <= 1024, float32 / bfloat16 q with pages of its type, or int8 pages
-    with scales."""
+    <= 1024, float32 / bfloat16 q with pages of float32, bfloat16 or
+    float16 (the Pallas kernel's page types), or int8 pages with
+    scales."""
     assert TPA.supported(torch.zeros(q_shape, dtype=q_dt),
                          torch.zeros(pages, dtype=p_dt),
                          torch.zeros(bt_shape, dtype=torch.int32),
@@ -426,12 +479,19 @@ def test_launch_passes_the_split_plan_and_scratch(monkeypatch):
         pps, splits = TPA.decode_split_plan(B, 2, 16, maxp)
         a = calls[-1]
         assert a[6:15] == (a[6], B, 8, 2, 16, 64, 70, maxp, pps)
+        assert a[16:18] == (0, 0)            # q and page type codes
         if splits > 1:
             scratch = [t for t in made if t.data_ptr() == a[6]]
             assert scratch and scratch[0].dtype == torch.float32
             assert scratch[0].numel() == splits * B * 8 * (64 + 2)
         else:
             assert a[6] is None
+    for qdt, pdt, codes in ((torch.bfloat16, torch.float32, (1, 0)),
+                            (torch.float32, torch.bfloat16, (0, 1)),
+                            (torch.bfloat16, torch.float16, (1, 2))):
+        TPA._launch(lib, q.to(qdt), kp.to(pdt), kp.to(pdt), bt, ln,
+                    torch.empty_like(q.to(qdt)), 0.125)
+        assert calls[-1][16:18] == codes
     lib.rc = 1
     with pytest.raises(TE.UnavailableError):
         TPA._launch(lib, q, kp, kp, bt, ln, torch.empty_like(q), 0.125)
