@@ -136,9 +136,10 @@ Phases, each printed on its own line; any failure exits non-zero:
     serve's outside that mode; then, with bf16 pages, a prefix-cache
     serve whose second group prefills its tails over the cached prefix
     (``_prefill_plane`` with context pages), a spec-decode serve with
-    one verify round (``_spec_plane``) and a serve over a float32 pool
+    one verify round (``_spec_plane``), a serve over a float32 pool
     (the decode kernel's mixed pair) with a journal attached and a
-    deadline eviction, the calls counted by arm (``NO_SYNC_OPTIONS``);
+    deadline eviction, and a serve with the monitor on at exec and KV
+    sample rates 1, the calls counted by arm (``NO_SYNC_OPTIONS``);
 20. surface (card against CPU on the same seeded inputs): masked
     ``F.scaled_dot_product_attention`` (boolean and additive masks, with
     causal, 32 / 8 heads, float32 and bf16: plain math, no flash launch),
@@ -282,7 +283,33 @@ Phases, each printed on its own line; any failure exits non-zero:
     have completed with 4 live, then A is dropped and replica B serves
     what a ``FailoverCoordinator`` strands from A's journal: each rid
     served exactly once, lineage ``["A"]``, seconds from strand to the
-    last recovery, tokens equal to ``main``'s (a reading).
+    last recovery, tokens equal to ``main``'s (a reading);
+38. monitor_parity (after ``overload_parity``): the monitor planes on one
+    float32 ``llama_tiny`` model, card against CPU, under one fake clock
+    (``monitor_case``): a 6-request serve through a preemption with full
+    and int8 pages, exec and KV sample rates 1; tokens, every counter,
+    each histogram's count, the integer fields of each ``RequestCost``,
+    the forensics event kinds of each rid and the SLO report's alerting
+    list equal, ``model_flops`` within ``MONITOR_FLOPS_RTOL``;
+39. monitor_serve (after ``failover_serve``): ``main``'s 16 requests and
+    engine with the monitor off, on, on, off (the default sample rates):
+    tokens equal, ``serving.tokens.generated - serving.tokens.discarded``
+    equal to the tokens kept, a ``RequestCost`` with ``model_flops`` and
+    ``page_seconds`` above 0 on each request, 16 ``ttft_ms``
+    observations; decode rate and wall on against off, the exec samples
+    and their ms, the KV-absmax samples and the ms of one on the 32-layer
+    pool, and one request's ``model_flops`` against 2 N tokens (readings);
+40. trace_replay: the JAX ``serving_trace_replay`` rung's own on-TPU
+    configuration (``trace_replay_rung``: Llama-3-8B widths at 4 layers,
+    vocab 32000, bf16, 8 slots, pages of 16, chunk 4, ``max_len`` 40,
+    priority admission, a queue of 16; the trace of seed 1616 at rate 40
+    with its burst window, a burst of 48 at 0.55 s; a rid-shifted warm
+    pass, then the measured ``replay_trace`` and ``build_scorecard``),
+    monitor on: the scorecard's ``deterministic`` block must equal the
+    one the same replay gives for float32 ``llama_tiny`` on the card
+    (``tests/test_torch_replay.py`` ties that block to JAX's); goodput
+    tokens/s, p99 TTFT, terminal states, sheds by reason and wall under
+    the rung's keys.
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -1601,16 +1628,25 @@ def phase_engine_options_parity(torch, dev):
 
 
 class FakeClock:
-    """The ``time`` module as the serving engine sees it
-    (``inference.engine.time``): ``perf_counter`` reads a value only
-    ``advance`` moves, so deadlines expire at scripted steps, the same on
-    every device."""
+    """The ``time`` module as the serving engine and the monitor planes
+    see it: ``perf_counter`` (and its ``_ns`` twin, ``monotonic`` and
+    ``time``) read a value only ``advance`` moves, so deadlines expire at
+    scripted steps and latencies are the same on every device."""
 
     def __init__(self):
         self.now = 1000.0
 
     def perf_counter(self):
         return self.now
+
+    def perf_counter_ns(self):
+        return int(round(self.now * 1e9))
+
+    def monotonic(self):
+        return self.now
+
+    def time(self):
+        return 1.7e9 + self.now
 
     def advance(self, dt):
         self.now += dt
@@ -1671,6 +1707,348 @@ def _patched_clock(clock):
         yield
     finally:
         mod.time = saved
+
+
+# the port's modules that read a clock with the monitor on
+MONITOR_CLOCKED = ("inference.engine", "monitor.slo", "monitor.forensics",
+                   "monitor.trace", "monitor.exectime", "monitor.programs",
+                   "loadgen.replay")
+
+
+@contextlib.contextmanager
+def monitor_on(clock=None, exec_rate=None, kv_rate=None):
+    """``FLAGS_enable_monitor`` on over clean planes, with the exec and KV
+    sample rates given (None: the environment's, default 16) and, with
+    ``clock``, the ``time`` name of every clock-reading module replaced
+    by it. Yields ``paddle_tpu_torch.monitor``; the flag, the rates and
+    the clocks are restored on exit, the planes' contents are kept."""
+    import importlib
+    import paddle_tpu_torch
+    from paddle_tpu_torch import monitor as M
+    mods = [importlib.import_module(f"paddle_tpu_torch.{m}")
+            for m in MONITOR_CLOCKED]
+    saved = [m.time for m in mods]
+    M.reset()
+    M.exectime.set_sample_rate(exec_rate)
+    M.numerics.set_kv_sample_rate(kv_rate)
+    paddle_tpu_torch.set_flags({"FLAGS_enable_monitor": True})
+    if clock is not None:
+        for m in mods:
+            m.time = clock
+    try:
+        yield M
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_enable_monitor": False})
+        for m, t in zip(mods, saved):
+            m.time = t
+        M.exectime.set_sample_rate(None)
+        M.numerics.set_kv_sample_rate(None)
+
+
+# [monitor_parity]'s engine: a starved pool of 6 pages of 4 over 3 slots,
+# so that its 6 requests queue and one is preempted
+MONITOR_PARITY_ENGINE = dict(num_slots=3, max_len=16, page_size=4,
+                             num_pages=6, decode_chunk=2)
+MONITOR_FLOPS_RTOL = 1e-6
+
+
+def monitor_case(torch, family, cfg, params, device, kv_quant):
+    """``[monitor_parity]``'s serve on ``device``: 6 greedy requests
+    (prompts of 5-8 tokens from seed 3, 7-9 new tokens, tenants ``a`` /
+    ``b``, priorities 0 / 1) through ``MONITOR_PARITY_ENGINE`` with
+    ``kv_quant``, the monitor on at exec and KV sample rates 1 under a
+    fake clock that each step advances 10 ms. Returns what
+    ``phase_monitor_parity`` compares: tokens, counters, histogram
+    counts, the integer fields and ``model_flops`` of each
+    ``RequestCost``, the forensics event kinds of each rid and the SLO
+    report's alerting list."""
+    import numpy as np
+    from paddle_tpu_torch.inference import Request, ServingEngine
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=r, prompt=rng.integers(0, cfg.vocab_size,
+                                               5 + r % 4),
+                    max_new_tokens=7 + r % 3, tenant=("a", "b")[r % 2],
+                    priority=r % 2) for r in range(6)]
+    clock = FakeClock()
+    with monitor_on(clock, exec_rate=1, kv_rate=1) as M:
+        eng = ServingEngine(family, params, cfg, device=device,
+                            kv_quant=kv_quant, **MONITOR_PARITY_ENGINE)
+        for r in reqs:
+            eng.submit(r)
+        while eng.step():
+            clock.advance(0.01)
+        snap = M.snapshot()
+        out = eng.outputs
+        costs = {rid: o.cost.as_dict() for rid, o in out.items()}
+        return {
+            "tokens": {rid: o.tokens.tolist() for rid, o in out.items()},
+            "counters": snap["counters"],
+            "histogram_counts": {k: v["count"] for k, v in
+                                 snap["histograms"].items()},
+            "cost_ints": {rid: {k: v for k, v in c.items()
+                                if isinstance(v, int)}
+                          for rid, c in costs.items()},
+            "model_flops": {rid: c["model_flops"]
+                            for rid, c in costs.items()},
+            "forensics_kinds": {rid: [e["kind"] for e in
+                                      M.forensics.request_payload(rid)[
+                                          "events"]] for rid in out},
+            "alerting": M.slo.compliance_report()["alerting"],
+            "preempted": eng.stats.preempted,
+        }
+
+
+def phase_monitor_parity(torch, dev):
+    """The monitor planes on one float32 llama_tiny model, card (kernels)
+    against CPU (plain versions), full and int8 pages: ``monitor_case``'s
+    facts equal, ``model_flops`` within ``MONITOR_FLOPS_RTOL``; the card
+    through the kernels, no plain version."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_tiny()
+    cpu_params = L.init_params(cfg, seed=0, device="cpu")
+    card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+    for kv_quant in (False, True):
+        K.reset_dispatch_stats()
+        card = monitor_case(torch, L, cfg, card_params, dev, kv_quant)
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        cpu = monitor_case(torch, L, cfg, cpu_params, "cpu", kv_quant)
+        flops_err = max(abs(card["model_flops"][r] - v) / v
+                        for r, v in cpu["model_flops"].items())
+        c = card["counters"]
+        arm = "paged_quant" if kv_quant else "paged"
+        _say("monitor_parity", kv_quant=kv_quant,
+             requests=len(card["tokens"]),
+             tokens_equal=card["tokens"] == cpu["tokens"],
+             counters_equal=card["counters"] == cpu["counters"],
+             histogram_counts_equal=card["histogram_counts"]
+             == cpu["histogram_counts"],
+             cost_ints_equal=card["cost_ints"] == cpu["cost_ints"],
+             forensics_equal=card["forensics_kinds"]
+             == cpu["forensics_kinds"],
+             alerting=",".join(card["alerting"]) or None,
+             alerting_equal=card["alerting"] == cpu["alerting"],
+             model_flops_rel_err=flops_err, tol=MONITOR_FLOPS_RTOL,
+             preempted=card["preempted"],
+             exec_samples=c.get("jit.program.exec.samples"),
+             kv_samples=c.get("numerics.kv.samples"),
+             flash=st["flash"], **{arm: st[arm]})
+        for k in ("tokens", "counters", "histogram_counts", "cost_ints",
+                  "forensics_kinds", "alerting"):
+            assert card[k] == cpu[k], (kv_quant, k, card[k], cpu[k])
+        assert flops_err <= MONITOR_FLOPS_RTOL, flops_err
+        assert card["preempted"] > 0
+        assert c["jit.program.exec.samples"] > 0
+        assert c["numerics.kv.samples"] > 0
+        assert st["flash"] > 0 and st[arm] > 0, st
+        assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+
+
+def phase_monitor_serve(torch, dev, cfg, params, requests, card):
+    """``main``'s requests and engine with the monitor off, on, on, off
+    (default sample rates; host-paced decode spreads between serves, so
+    the two arms are taken in turns): tokens equal in all four, the
+    token-accounting contract, a cost record with FLOPs and page-seconds
+    on every request and one TTFT observation each in each monitored
+    serve; the rest are readings."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import llama as L
+    runs = []
+    for on in (False, True, True, False):
+        ctx = monitor_on() if on else contextlib.nullcontext()
+        with ctx as M:
+            eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048)
+            kv_ms = []
+            if on:
+                sample = eng._maybe_sample_kv_absmax
+
+                def timed_sample(sample=sample, M=M, kv_ms=kv_ms):
+                    n = M.numerics.kv_snapshot()["samples"]
+                    t0 = time.perf_counter()
+                    sample()
+                    if M.numerics.kv_snapshot()["samples"] > n:
+                        kv_ms.append((time.perf_counter() - t0) * 1e3)
+                eng._maybe_sample_kv_absmax = timed_sample
+            K.reset_dispatch_stats()
+            t0 = time.perf_counter()
+            out = eng.run(requests)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = eng.stats
+            runs.append(dict(
+                on=on, tokens={r: o.tokens.tolist() for r, o in out.items()},
+                wall=wall, rate=st.tokens_decoded / st.decode_s,
+                launches=K.dispatch_stats(), out=out, kv_ms=kv_ms,
+                snap=M.snapshot() if on else None,
+                programs=M.programs.programs_snapshot() if on else None,
+                eng=eng))
+    # the KV sample's device part alone: the engine's two aminmax
+    # reductions over the served pool (the sample's wall adds the host's
+    # quantiles and bookkeeping)
+    pool = runs[-1]["eng"].cache.pool
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    reps = 5
+    ev0.record()
+    for _ in range(reps):
+        for leaf in (pool["k"], pool["v"]):
+            torch.aminmax(leaf.reshape(*leaf.shape[:2], -1), dim=-1)
+    ev1.record()
+    torch.cuda.synchronize()
+    reduce_ms = ev0.elapsed_time(ev1) / reps
+    pool_gb = sum(t.numel() * t.element_size()
+                  for t in (pool["k"], pool["v"])) / 1e9
+    for run in runs:
+        del run["eng"]
+    offs = [r for r in runs if not r["on"]]
+    ons = [r for r in runs if r["on"]]
+    nparams = sum(t.numel() for t in L._leaves(params)) \
+        - params["embed"].numel()
+    r0 = requests[0]
+    ideal = 2 * nparams * (len(r0.prompt) + r0.max_new_tokens)
+    rate_off = sum(r["rate"] for r in offs) / len(offs)
+    rate_on = sum(r["rate"] for r in ons) / len(ons)
+    equal = sum(all(r["tokens"][q] == offs[0]["tokens"][q] for r in runs)
+                for q in offs[0]["tokens"])
+    _say("monitor_serve", card=repr(card), requests=len(requests),
+         order="off,on,on,off", tokens_equal=f"{equal}/{len(requests)}",
+         decode_tok_per_s=",".join(f"{r['rate']:.2f}" for r in runs),
+         wall_s=",".join(f"{r['wall']:.3f}" for r in runs),
+         on_over_off=rate_on / rate_off, kv_reduce_device_ms=reduce_ms,
+         pool_gb=pool_gb, kv_reduce_gb_per_s=pool_gb / reduce_ms * 1e3)
+    for k, run in enumerate(ons):
+        c = run["snap"]["counters"]
+        cost0 = run["out"][r0.rid].cost
+        _say("monitor_serve", run=k + 1,
+             generated=c["serving.tokens.generated"],
+             discarded=c.get("serving.tokens.discarded", 0),
+             kept=sum(len(t) for t in run["tokens"].values()),
+             ttft_observations=run["snap"]["histograms"][
+                 "serving.latency.ttft_ms"]["count"],
+             exec_samples=c.get("jit.program.exec.samples", 0),
+             kv_samples=c.get("numerics.kv.samples", 0),
+             kv_sample_ms=",".join(f"{m:.3f}" for m in run["kv_ms"])
+             or None,
+             model_flops_req0=cost0.model_flops, two_n_tokens_req0=ideal,
+             model_flops_over_2nt=cost0.model_flops / ideal,
+             page_seconds_req0=cost0.page_seconds)
+        for p in run["programs"]:
+            if p["exec_samples"]:
+                _say("monitor_serve", run=k + 1, program=p["name"],
+                     exec_samples=p["exec_samples"],
+                     exec_mean_ms=p["exec_mean_ms"])
+    assert equal == len(requests), "the monitor changed tokens"
+    for run in ons:
+        c = run["snap"]["counters"]
+        kept = sum(len(t) for t in run["tokens"].values())
+        assert c["serving.tokens.generated"] - c.get(
+            "serving.tokens.discarded", 0) == kept
+        assert all(o.cost is not None and o.cost.model_flops > 0
+                   and o.cost.page_seconds > 0
+                   for o in run["out"].values())
+        assert run["snap"]["histograms"]["serving.latency.ttft_ms"][
+            "count"] == len(requests)
+    for run in runs:
+        assert all(v == 0 for k, v in run["launches"].items()
+                   if k.endswith("_ref")), run["launches"]
+        _tc_route_only(run["launches"])
+
+
+# [trace_replay]: the JAX serving_trace_replay rung's on-TPU configuration
+# (bench.py:1284-1328)
+TRACE_REPLAY = dict(slots=8, page=16, chunk=4, rate=40.0)
+
+
+def trace_replay_rung(torch, family, cfg, params, device, slots=8, page=16,
+                      chunk=4, rate=40.0):
+    """The JAX ``serving_trace_replay`` rung on the port: the seeded
+    two-tenant trace (seed 1616, 1 s at ``rate``, a burst window), an
+    engine of ``slots`` slots, pages of ``page``, decode chunk ``chunk``,
+    ``max_len`` 40, priority admission and a queue of ``2 * slots``; a
+    warm pass over the rid-shifted trace, then the measured replay with a
+    burst episode of ``6 * slots`` requests at 0.55 s (one engine step per
+    10 ms of virtual time) and its scorecard. Returns ``(result,
+    scorecard, wall seconds of the measured replay)``."""
+    import dataclasses
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.engine import EngineStats
+    from paddle_tpu_torch.loadgen import (Episode, TenantSpec,
+                                          build_scorecard, generate_trace,
+                                          replay_trace)
+    trace = generate_trace(
+        1616, duration_s=1.0, rate=rate,
+        tenants=[TenantSpec("interactive", share=1.0, priority=2),
+                 TenantSpec("batch", share=2.0, priority=0)],
+        prompt_len=(4, 16), max_new_tokens=(4, 24), alpha=1.3,
+        burst=(0.5, 0.2, 2.0))
+    eng = ServingEngine(family, params, cfg, device=device,
+                        num_slots=slots, max_len=16 + 24, page_size=page,
+                        decode_chunk=chunk, priority_admission=True,
+                        max_queue=2 * slots)
+    warm = dataclasses.replace(trace, requests=[
+        dataclasses.replace(r, rid=r.rid + 500_000)
+        for r in trace.requests])
+    replay_trace(eng, warm, dt_per_step=0.01)
+    eng.stats = EngineStats()
+    t0 = time.perf_counter()
+    result = replay_trace(eng, trace, dt_per_step=0.01, episodes=[
+        Episode("burst", at_s=0.55, n_requests=6 * slots)])
+    wall = time.perf_counter() - t0
+    return result, build_scorecard(result), wall
+
+
+def phase_trace_replay(torch, dev, card):
+    """``trace_replay_rung`` at Llama-3-8B widths, 4 layers, vocab 32000,
+    bf16, monitor on; its deterministic block against float32
+    ``llama_tiny``'s on the card at the same geometry and trace."""
+    import hashlib
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_3_8b(num_hidden_layers=4, vocab_size=32000)
+    params = L.init_params(cfg, seed=0)
+    with monitor_on():
+        K.reset_dispatch_stats()
+        result, sc, wall = trace_replay_rung(torch, L, cfg, params, dev,
+                                             **TRACE_REPLAY)
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+    del params
+    tcfg = L.llama_tiny()
+    with monitor_on():
+        _, tiny_sc, _ = trace_replay_rung(
+            torch, L, tcfg, L.init_params(tcfg, seed=0, device=dev), dev,
+            **TRACE_REPLAY)
+    det = sc["deterministic"]
+    blob = json.dumps(det, sort_keys=True)
+    lat = sc["timing"]["latency_ms"]
+    _say("trace_replay", card=repr(card),
+         config=f"llama_3_8b[{cfg.num_hidden_layers}L]",
+         trace_sha256=det["trace"]["sha256"][:16],
+         deterministic_sha256=hashlib.sha256(blob.encode()).hexdigest()[:16],
+         deterministic_equal_to_tiny=blob == json.dumps(
+             tiny_sc["deterministic"], sort_keys=True),
+         offered_requests=det["goodput"]["offered_requests"],
+         terminal=",".join(f"{k}:{v}" for k, v in
+                           sorted(det["terminal"].items())),
+         shed_by_reason=",".join(f"{k}:{v}" for k, v in
+                                 sorted(det["shed_by_reason"].items()))
+         or None,
+         request_goodput=det["goodput"]["request_goodput"],
+         token_goodput=det["goodput"]["token_goodput"],
+         useful_tokens=det["tokens"]["useful"],
+         goodput_tokens_per_sec=det["tokens"]["useful"] / wall,
+         ttft_p99_ms=(lat.get("ttft_ms") or {}).get("p99"),
+         verdict=sc["verdict"]["pass"], wall_s=wall, steps=result.steps,
+         flash=st["flash"], paged=st["paged"])
+    assert sc["verdict"]["pass"], sc["verdict"]
+    assert blob == json.dumps(tiny_sc["deterministic"], sort_keys=True), \
+        (det, tiny_sc["deterministic"])
+    assert det["terminal"].get("completed", 0) > 0
+    assert st["flash"] > 0 and st["paged"] > 0, st
+    _tc_route_only(st)
+    assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
 
 
 def overload_case(torch, family, cfg, params, device, case, **override):
@@ -4226,7 +4604,7 @@ NO_SYNC_PROMPTS, NO_SYNC_CHUNK = (400, 300, 257), 8
 def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
                  chunk, forbid_sync, temperature=0.0, shared=0,
                  warm_first=False, max_new=None, deadline=None,
-                 journal=None, **options):
+                 journal=None, monitor=None, **options):
     """Serve ``prompts`` (random ids from seed 0, the first ``shared`` of
     them the same in every prompt; ``max_new`` new tokens each, default
     ``chunk + 1``) with a ``ServingEngine`` of 4 slots and decode chunk
@@ -4237,7 +4615,9 @@ def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
     ``deadline_s`` and the engine runs on a ``FakeClock`` that each decode
     chunk advances by ``deadline``, so the second step evicts it after
     its first chunk; with ``journal`` (a directory) the engine journals
-    there as replica ``no_sync`` (``attach_journal``). With
+    there as replica ``no_sync`` (``attach_journal``). With ``monitor``
+    (a dict) the serve runs with the monitor on at exec and KV sample
+    rates 1, and the dict gets the monitor's counters. With
     ``warm_first`` the first request is served alone before the others,
     so that its retirement seeds the prefix cache. With ``forbid_sync``
     every call of the engine's data plane (``_prefill_plane``,
@@ -4289,11 +4669,15 @@ def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
                     temperature=temperature if i == last else 0.0,
                     seed=100 + i, deadline_s=deadline if i == 1 else None)
             for i, plen in enumerate(prompts)]
-    with _patched_clock(clock):
+    mon = monitor_on(exec_rate=1, kv_rate=1) if monitor is not None \
+        else contextlib.nullcontext()
+    with _patched_clock(clock), mon as M:
         if warm_first:
             eng.run(reqs[:1])
             reqs = reqs[1:]
         out = eng.run(reqs)
+        if monitor is not None:
+            monitor.update(M.snapshot()["counters"])
     eng.cache.alloc.check_invariants()
     return [out[i].tokens for i in range(len(prompts))], calls
 
@@ -4308,7 +4692,8 @@ def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
 # under the bf16 model (the decode kernel's mixed pair) with a journal
 # attached, and the second request's deadline is spent by its first
 # decode chunk (serve_strict's fake clock), so the second step evicts it
-# with 9 of its 17 tokens
+# with 9 of its 17 tokens; "monitor" serves with the monitor planes on at
+# exec and KV sample rates 1 (the free serve runs with them off)
 NO_SYNC_DEADLINE_S = 0.05
 NO_SYNC_OPTIONS = {
     "prefix": ((400, 300, 257), dict(shared=256, warm_first=True,
@@ -4321,6 +4706,8 @@ NO_SYNC_OPTIONS = {
                                        failover=True,
                                        deadline=NO_SYNC_DEADLINE_S),
                  {"prefill": 1, "decode": 2}),
+    "monitor": ((400, 300, 257), dict(monitor=True),
+                {"prefill": 1, "decode": 1}),
 }
 
 
@@ -4334,9 +4721,11 @@ def phase_no_sync(torch, dev, cfg, params):
     (bf16 pages) likewise, drawing the same tokens twice from the same
     seed. Then the options (``NO_SYNC_OPTIONS``, bf16 pages): a prefix
     cache serve whose second group prefills its tails over the cached
-    prefix, a spec decode serve with one verify round, and a serve over a
+    prefix, a spec decode serve with one verify round, a serve over a
     float32 pool (the mixed pair) with a journal and a deadline
-    eviction."""
+    eviction, and a serve with the monitor on (exec and KV sampled at
+    every chunk: the exec sample closes on the chunk's own download and
+    the KV-page reduction runs after it, outside the data plane)."""
     import tempfile
 
     import numpy as np
@@ -4374,6 +4763,7 @@ def phase_no_sync(torch, dev, cfg, params):
     for option, (prompts, kw, want) in NO_SYNC_OPTIONS.items():
         kw = dict(kw)
         chunk = kw.pop("chunk", NO_SYNC_CHUNK)
+        counters = {} if kw.pop("monitor", False) else None
         if "kv_dtype" in kw:
             kw["kv_dtype"] = getattr(torch, kw["kv_dtype"])
         with tempfile.TemporaryDirectory() as d:
@@ -4383,7 +4773,8 @@ def phase_no_sync(torch, dev, cfg, params):
             t0 = time.perf_counter()
             strict, calls = serve_strict(
                 torch, L, cfg, params, dev, False, prompts, chunk, True,
-                journal=d if kw.get("failover") else None, **kw)
+                journal=d if kw.get("failover") else None,
+                monitor=counters, **kw)
             wall = time.perf_counter() - t0
             st = K.dispatch_stats()
             journal = FO.read_journal("no_sync", dir_path=d)
@@ -4398,8 +4789,14 @@ def phase_no_sync(torch, dev, cfg, params):
              paged_mixed=st["paged_mixed"],
              lengths=",".join(str(len(t)) for t in strict),
              markers=",".join(f"{r}:{m}" for r, m in sorted(
-                 markers.items())) or None)
+                 markers.items())) or None,
+             exec_samples=(counters or {}).get("jit.program.exec.samples"),
+             kv_samples=(counters or {}).get("numerics.kv.samples"))
         assert same, (option, free, strict)
+        if counters is not None:
+            # one prefill group and one chunk, each sampled
+            assert counters["jit.program.exec.samples"] == 2, counters
+            assert counters["numerics.kv.samples"] == 1, counters
         assert {k: calls.get(k, 0) for k in want} == want, (option, calls)
         assert set(calls) <= {"prefill", "prefill_shared", "decode",
                               "spec"}, calls
@@ -5317,6 +5714,7 @@ def main() -> int:
     phase_parity(torch, dev)
     phase_engine_options_parity(torch, dev)
     phase_overload_parity(torch, dev)
+    phase_monitor_parity(torch, dev)
     phase_quant_parity(torch, dev)
     phase_train_parity(torch, dev)
     phase_train_packed_parity(torch, dev)
@@ -5356,6 +5754,10 @@ def main() -> int:
     phase_overload_serve(torch, dev, cfg, params, smi)
     torch.cuda.empty_cache()
     phase_failover_serve(torch, dev, cfg, params, requests, smi, main_tokens)
+    torch.cuda.empty_cache()
+    phase_monitor_serve(torch, dev, cfg, params, requests, smi)
+    torch.cuda.empty_cache()
+    phase_trace_replay(torch, dev, smi)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     qparams = L.quantize_weights(params)        # int8 weight-only

@@ -12,15 +12,16 @@ defaults through ``training.guards``) and every ``serving_*`` flag (read by
 ``ServingEngine``: ``serving_kv_quant``, ``serving_prefix_cache``,
 ``serving_spec_decode``, ``serving_priority_admission``,
 ``serving_tenant_inflight_cap``, ``serving_slo_preemption``,
-``serving_max_queue`` and ``serving_failover`` are its options' defaults;
-``serving_shed_on_burn`` and ``serving_fleet_burn_scaling`` name options
-that wait for the monitor planes, and the engine refuses to run with one
-of them on) and ``fault_injection`` (armed at import by
-``testing.faults``). Left out, because nothing in the port reads them:
-the JAX-only flags (``use_pallas_kernels``, ``eager_jit_ops``,
-``default_matmul_precision``) and those of modules not ported yet
-(``check_nan_inf``, ``enable_monitor``, ``enable_monitor_server``,
-``monitor_server_port``).
+``serving_max_queue``, ``serving_shed_on_burn`` and ``serving_failover``
+are its options' defaults; ``serving_fleet_burn_scaling`` names the elastic
+controller's option, which waits for fleet federation, and the engine
+refuses to run with it on), ``enable_monitor`` (the monitor planes),
+``enable_monitor_server`` and ``monitor_server_port`` (the operator HTTP
+server, ROADMAP A7(d): the engine refuses ``enable_monitor_server``) and
+``fault_injection`` (armed at import by ``testing.faults``). Left out,
+because nothing in the port reads them: the JAX-only flags
+(``use_pallas_kernels``, ``eager_jit_ops``, ``default_matmul_precision``)
+and ``check_nan_inf``, whose module is not ported yet.
 """
 from __future__ import annotations
 
@@ -103,6 +104,9 @@ def flag_info(name: str) -> _FlagInfo:
 
 
 # The reference's flags that the port reads (see the module docstring).
+define_flag("enable_monitor", False,
+            "Collect runtime metrics (paddle_tpu.monitor counters/gauges/"
+            "histograms) on the instrumented hot paths; off = one branch.")
 define_flag("enable_sentinel", False,
             "Train-loop anomaly sentinel: models.llama/models.moe "
             "make_train_step builds the GUARDED step (in-graph "
@@ -122,6 +126,16 @@ define_flag("enable_numerics", False,
             "paddle_tpu.monitor.numerics. Only meaningful with the "
             "sentinel guard on; off = the guarded step is byte-"
             "identical to the pre-numerics program.")
+define_flag("enable_monitor_server", False,
+            "Serve the operator plane (paddle_tpu.monitor.server): an "
+            "HTTP daemon with /metrics (Prometheus text), /healthz "
+            "(liveness), /flight, /programs and /memory, started by the "
+            "ServingEngine / SentinelLoop / hapi fit entrypoints. Off "
+            "(the default) = one cached branch, no thread, no socket.")
+define_flag("monitor_server_port", 0,
+            "Port for the operator-plane HTTP server (binds 127.0.0.1; "
+            "override host with PADDLE_TPU_MONITOR_HOST). 0 = an "
+            "ephemeral port, exposed on the server object for tests.")
 define_flag("serving_priority_admission", False,
             "Serving engine admission orders the queue by (priority "
             "desc, arrival) instead of FIFO and honours "

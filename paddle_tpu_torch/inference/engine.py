@@ -43,6 +43,10 @@ The reference's options that are off by default, each taking its
   admission journal (``inference/failover.py``): each admitted request is
   journaled after every gate, its sampling seed pinned first, and each
   terminal event (completed, shed, expired) writes a completion marker.
+- ``shed_on_burn``: with the monitor on, a submission of priority <= 0
+  is shed while a latency objective of the SLO plane burns its error
+  budget at or over the warn rate (``monitor.slo.burn_alerting(
+  load_only=True)``). With the monitor off it never sheds.
 
 Without an option: ``Request.deadline_s`` is a TTL from submission; once
 it is spent the request expires from the queue with no tokens or is
@@ -54,16 +58,39 @@ except preemption re-queues, and lets live slots run to retirement;
 ``drain_complete`` then holds. Every submitted request ends in exactly one
 of completed / expired / shed, or is refused at ``submit``.
 
-``FLAGS_serving_shed_on_burn`` and ``FLAGS_serving_fleet_burn_scaling``
-are not ported: both act on the SLO plane's burn alert, which waits for
-the monitor planes (ROADMAP A7(c)), and the constructor refuses to build
-an engine with either on. Nor are the monitor, SLO-record, forensics and
-trace planes (A7(c)), so the reference's calls into them (``_defer``'s
-deferral records, ``slo.record_*``, ``forensics`` notes and decisions,
-``trace`` spans, counters and latency histograms) and its per-request
-``RequestCost`` records are left out, and ``publish_frames`` (fleet
-federation) with them; SLO preemption measures a victim's work by its KV
-length, the reference's measure when its monitor is off.
+Monitor planes (``FLAGS_enable_monitor``, default off; ``monitor/``): the
+reference's counters (``serving.requests.*``, ``serving.tokens.*``,
+``serving.prefix_cache.*``, ``serving.spec.*``), gauges
+(``serving.pages.in_use|total``, ``serving.queue.depth``,
+``serving.batch.occupancy``) and latency histograms
+(``serving.latency.{queue_wait,ttft,tpot,e2e}_ms``, each observed once a
+request: ``ttft_ms`` and ``e2e_ms`` from the first submission, at
+retirement, so a preempted run's discarded first token never counts);
+the trace ring's lifecycle instants and spans; the forensics timelines
+and decision records (``_defer`` at each deferral of the admission
+scan); the SLO records and the autoscale tick; the program registry with
+1-in-N exec timing; and the KV-page absmax sampler. Each request carries
+a :class:`RequestCost` (``RequestOutput.cost``): tokens, the cumulative
+queue wait, page-seconds and slot steps integrated at chunk edges, and
+its share of each program's FLOPs (``serving_program_flops``, counted
+from the program's shapes). All of it is host bookkeeping after the
+download each group, chunk or round already makes, so the monitor adds
+no synchronization, and with it off each seam is one cached-flag branch:
+tokens and scheduling are the same either way.
+
+Token accounting contract (the reference's): ``serving.tokens.generated``
+counts every sampled token (prefill's first token and decode emissions,
+work later thrown away included); ``serving.tokens.discarded`` counts the
+tokens a preemption discarded. On a drained engine ``generated -
+discarded == sum(len(output.tokens))`` exactly.
+
+``FLAGS_serving_fleet_burn_scaling`` (the elastic controller's burn
+scaling over federated frames) and ``FLAGS_enable_monitor_server`` (the
+operator HTTP server) are not ported (ROADMAP A7(d)): the constructor
+refuses to build an engine with either on, and ``publish_frames`` (fleet
+federation) raises. SLO preemption measures a victim's work by its cost
+record's prefill and decode tokens with the monitor on, else by its KV
+length, as the reference does.
 
 Where the reference jits one program per chunk, ``_decode_chunk`` is a
 Python loop over ``chunk`` decode steps; the pool is updated in place.
@@ -73,28 +100,39 @@ one copy) and once to read its tokens back. Between the two, the data
 plane (``_prefill_plane``, ``_decode_plane``, ``_spec_plane``) selects no
 rows on the host (writes the reference drops land in the pool's sink
 page) and draws sampled tokens on the device, so the host issues a
-chunk's steps while the card works through the earlier ones.
+chunk's steps while the card works through the earlier ones. With the
+monitor on, a KV-page sample (1 chunk in ``PADDLE_TPU_KV_SAMPLE``) reads
+its reductions back once more, after the chunk's tokens: the card has
+no chunk work left then.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import weakref
 from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from .. import monitor as _monitor
 from ..core import enforce as E
 from ..core import flags as _flags
 from ..core import resolve_device
+from ..monitor import forensics as _forensics
+from ..monitor import programs as _programs
+from ..monitor import server as _mserver
 from ..monitor import slo as _slo
+from ..monitor import trace as _trace
+from ..monitor.registry import LATENCY_BUCKETS_MS as _LATENCY_BUCKETS_MS
 from .paged import (PagedKVCache, PrefixCache, paged_decode_step,
                     paged_prefill, paged_prefill_shared, paged_verify_window)
 
-__all__ = ["EngineOverloaded", "Request", "RequestOutput",
-           "RequestRejected", "EngineStats", "ServingEngine"]
+__all__ = ["EngineOverloaded", "Request", "RequestCost", "RequestOutput",
+           "RequestRejected", "EngineStats", "ServingEngine",
+           "serving_program_flops"]
 
 PAGED_DEFAULT_PAGE = 16
 # the reference's page-size floor for int8 pools (kernels/autotune.py
@@ -102,10 +140,70 @@ PAGED_DEFAULT_PAGE = 16
 # size, so this is the default only
 PAGED_QUANT_PAGE = 32
 
-# the flags of the reference's serving options that act on the SLO
-# plane's burn alert (the engine's shedding on burn, and the elastic
-# controller's fleet burn scaling): they wait for the monitor planes
-_UNPORTED_FLAGS = ("serving_shed_on_burn", "serving_fleet_burn_scaling")
+# the reference's flags whose planes are not ported: the elastic
+# controller's fleet burn scaling (federated SLO frames) and the
+# operator HTTP server
+_UNPORTED_FLAGS = ("serving_fleet_burn_scaling", "enable_monitor_server")
+
+
+def _engine_health_provider(ref):
+    """Health contributor over a weakly-held engine: queue depth, slot
+    occupancy, page-pool pressure. Returns None once the engine is
+    garbage-collected (the map prunes the entry). Always ``ok`` — a deep
+    queue is backpressure, not a liveness failure."""
+    def provide():
+        eng = ref()
+        if eng is None:
+            return None
+        return {
+            "ok": True,
+            "queue_depth": len(eng.queue),
+            "slots_live": sum(1 for s in eng.slots if s is not None),
+            "num_slots": eng.num_slots,
+            "pages_free": eng.cache.alloc.free_pages,
+            "pages_total": eng.cache.num_pages,
+            "requests_completed": eng.stats.completed,
+        }
+    return provide
+
+
+def _observe_latency(name: str, ms: float, doc: str):
+    _monitor.observe(name, ms, doc=doc, buckets=_LATENCY_BUCKETS_MS)
+
+
+def serving_program_flops(config, *, tokens: int, key_len: int,
+                          head_rows: int, steps: int = 1) -> float:
+    """FLOPs of one call of a serving program, from its shapes: ``steps``
+    passes (the steps of a decode chunk; 1 otherwise), each taking
+    ``tokens`` query rows through every layer and ``head_rows`` rows
+    through the head. A layer counts its matmuls (the q / k / v / o
+    projections and the MLP: SwiGLU, or the router, the experts as the
+    family's dispatch runs them and the shared expert) and its attention,
+    a score and a value product over ``key_len`` keys a query row: every
+    key position of the program's shapes, masked ones included, as the
+    plain versions compute it. The kernels skip work the mask rules out
+    (the flash forward's tiles above the diagonal, the decode kernel's
+    positions past each length), so on the card this term bounds their
+    work. Normalisation, rope and sampling are not counted."""
+    c = config
+    D, L = c.hidden_size, c.num_hidden_layers
+    nh, nkv, hd = (c.num_attention_heads, c.num_key_value_heads,
+                   c.head_dim)
+    T = int(tokens)
+    proj = 2 * T * D * (2 * nh * hd + 2 * nkv * hd)
+    attn = 4 * T * nh * hd * int(key_len)
+    if hasattr(c, "num_experts"):
+        E_, Fe = c.num_experts, c.intermediate_size
+        mlp = 2 * T * D * E_ + 6 * T * D * c.shared_intermediate_size
+        if (c.dispatch_mode or "capacity") == "dense":
+            mlp += 6 * E_ * T * D * Fe + 2 * E_ * T * D
+        else:
+            from ..models.moe import moe_capacity
+            mlp += 6 * E_ * moe_capacity(c, T) * D * Fe
+    else:
+        mlp = 6 * T * D * c.intermediate_size
+    head = 2 * int(head_rows) * D * c.vocab_size
+    return float(int(steps) * (L * (proj + attn + mlp) + head))
 
 
 class RequestRejected(E.InvalidArgumentError):
@@ -153,6 +251,43 @@ class Request:
 
 
 @dataclasses.dataclass
+class RequestCost:
+    """Per-request resource attribution (the reference's record),
+    accumulated at the engine's existing host-sync seams with the monitor
+    on. Cumulative across preemption re-queues: the record follows the
+    request, not one run of it."""
+
+    tenant: str = "default"
+    priority: int = 0
+    prefill_tokens: int = 0      # prompt tokens prefilled (re-prefills
+    #                              after preemption included; tokens a
+    #                              cached prefix skipped are not here)
+    prefix_cached_tokens: int = 0    # prompt tokens served from the
+    #                              radix prefix cache instead of prefill
+    prefill_flops_saved: float = 0.0  # modeled FLOPs the cached prefix
+    #                              skipped (the tail program's per-padded-
+    #                              token rate x cached tokens)
+    decode_tokens: int = 0       # decode emissions (work done, incl.
+    #                              tokens a preemption later discarded)
+    discarded_tokens: int = 0    # thrown away by preemption recompute
+    queue_wait_ms: float = 0.0   # sum of every enqueue->admission wait
+    page_seconds: float = 0.0    # KV pages held x wall (chunk edges)
+    slot_steps: int = 0          # decode-grid steps a slot was held
+    grid_steps: int = 0          # grid capacity (steps x slots) that
+    #                              elapsed during the residencies
+    slot_share: Optional[float] = None   # slot_steps / grid_steps
+    model_flops: float = 0.0     # program FLOPs, split across the
+    #                              dispatch's live slots / group rows
+    preemptions: int = 0
+    ttft_ms: Optional[float] = None
+    tpot_ms: Optional[float] = None
+    e2e_ms: Optional[float] = None
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
 class RequestOutput:
     rid: int
     tokens: np.ndarray                   # generated ids (<= max_new_tokens)
@@ -162,6 +297,8 @@ class RequestOutput:
     #                                      the client keeps (host clock;
     #                                      None without tokens)
     tenant: str = "default"
+    cost: Optional[RequestCost] = None   # monitor on: the attribution
+    #                                      record; monitor off: None
     finish_reason: str = "completed"     # completed | expired | shed
     retry_after_s: Optional[float] = None  # shed only: the backoff hint
     shed_reason: Optional[str] = None    # shed only: displacement or drain
@@ -169,7 +306,8 @@ class RequestOutput:
 
 class _Slot:
     __slots__ = ("req", "kv_len", "gen", "tokens", "pending", "done",
-                 "preemptions", "t_first", "ng", "ng_n")
+                 "preemptions", "t_first", "t_last", "cost", "t_tick",
+                 "steps0", "ng", "ng_n")
 
     def __init__(self, req: Request):
         self.req = req
@@ -180,6 +318,10 @@ class _Slot:
         self.done = False
         self.preemptions = 0
         self.t_first = None      # host time the first token reached the host
+        self.t_last = None       # latest-token stamp (monitor on)
+        self.cost = None         # the request's RequestCost (monitor on)
+        self.t_tick = None       # last page-seconds integration stamp
+        self.steps0 = 0          # engine decode_steps at admission
         self.ng = None           # spec decode: bigram draft table over
         #                          this request's own context (lazy)
         self.ng_n = 0            # context tokens folded into ng so far
@@ -317,17 +459,17 @@ class ServingEngine:
 
     ``prefix_cache``, ``spec_decode``, ``priority_admission``,
     ``tenant_inflight_cap`` (a negative cap is 0, uncapped),
-    ``slo_preemption``, ``max_queue`` (a negative depth is 0, unbounded)
-    and ``failover`` each default to their ``FLAGS_serving_*`` flag; the
-    module docstring says what each does. All off, the default, is the
-    engine above, tokens and scheduling alike. Deadlines
-    (``Request.deadline_s``) and the drain lifecycle (``begin_drain``)
-    need no option.
+    ``slo_preemption``, ``max_queue`` (a negative depth is 0, unbounded),
+    ``shed_on_burn`` and ``failover`` each default to their
+    ``FLAGS_serving_*`` flag; the module docstring says what each does.
+    All off, the default, is the engine above, tokens and scheduling
+    alike. Deadlines (``Request.deadline_s``) and the drain lifecycle
+    (``begin_drain``) need no option.
 
-    Shedding on an SLO burn and fleet burn scaling are not ported yet
-    (ROADMAP A7(c), with the monitor planes): with
-    ``FLAGS_serving_shed_on_burn`` or ``FLAGS_serving_fleet_burn_scaling``
-    on the constructor raises ``NotImplementedError``."""
+    Fleet burn scaling and the operator HTTP server are not ported yet
+    (ROADMAP A7(d)): with ``FLAGS_serving_fleet_burn_scaling`` or
+    ``FLAGS_enable_monitor_server`` on the constructor raises
+    ``NotImplementedError``."""
 
     def __init__(self, family, params, config, *, num_slots: int = 8,
                  max_len: Optional[int] = None,
@@ -341,16 +483,17 @@ class ServingEngine:
                  tenant_inflight_cap: Optional[int] = None,
                  slo_preemption: Optional[bool] = None,
                  max_queue: Optional[int] = None,
+                 shed_on_burn: Optional[bool] = None,
                  failover: Optional[bool] = None, kv_dtype=None,
                  device=None):
         on = [f"FLAGS_{flag}" for flag in _UNPORTED_FLAGS
               if _flags.flag_value(flag)]
         if on:
             raise NotImplementedError(
-                f"ServingEngine: {', '.join(on)} selects a serving option "
-                f"that acts on the SLO plane's burn alert, which is not "
-                f"ported yet (ROADMAP.md queue A item A7(c), the monitor "
-                f"planes)")
+                f"ServingEngine: {', '.join(on)} selects a plane that is "
+                f"not ported yet (ROADMAP.md queue A item A7(d): fleet "
+                f"federation with its burn scaling, and the operator HTTP "
+                f"server)")
 
         def _opt(v, flag):
             return _flags.flag_value(flag) if v is None else v
@@ -363,6 +506,7 @@ class ServingEngine:
         self._slo_preemption = bool(
             _opt(slo_preemption, "serving_slo_preemption"))
         self._max_queue = max(0, int(_opt(max_queue, "serving_max_queue")))
+        self._shed_on_burn = bool(_opt(shed_on_burn, "serving_shed_on_burn"))
         # the flag only offers durability: journaling starts when the
         # caller names the replica through attach_journal
         self._failover = bool(_opt(failover, "serving_failover"))
@@ -418,6 +562,49 @@ class ServingEngine:
         # the 4x "turbo" chunk engages when every live slot is sure to
         # run it end to end (no retire/join could happen mid-chunk)
         self.turbo_chunk = self.decode_chunk * 4
+        # KV-page absmax sampling (monitor/numerics.py): 1-in-N decode
+        # chunks reduce the pool after the chunk's download
+        self._kv_chunks = 0
+        # program FLOPs, cached per registry key: the cost plane reads
+        # it once per chunk, not once per slot
+        self._flops_by_key: dict = {}
+        _monitor.set_gauge("serving.pages.total", self.cache.num_pages,
+                           doc="KV page pool capacity")
+        # process-unique uid: keys the health provider ("serving:<n>")
+        # and the program records, which outlive the engine. The
+        # provider holds the engine weakly and registers only while
+        # some plane could read it: a fully-off process grows nothing.
+        self._engine_uid = _programs.next_uid()
+        if _monitor.enabled() or _mserver.plane_active():
+            _mserver.register_health_provider(
+                f"serving:{self._engine_uid}",
+                _engine_health_provider(weakref.ref(self)))
+
+    def _record_serving_program(self, spec_key, name, flops_fn, args):
+        """Register a serving program with the program registry
+        (``monitor/programs.py``) at the first dispatch of its key, with
+        its signature and the FLOPs ``flops_fn()`` counts from its
+        shapes; later dispatches count hits. The registry itself is the
+        dedup: after a ``monitor.reset()`` mid-run the next dispatch
+        registers again. Monitor on only."""
+        key = ("engine", self._engine_uid) + spec_key
+        if _programs.has_record(key):
+            _programs.note_hit(key)
+            return key
+        _programs.record_call(key, name, flops_fn(), args,
+                              source="serving")
+        return key
+
+    def _program_flops(self, key):
+        """Cached ``monitor/programs.flops_of`` read (None when unknown).
+        An unknown key is not cached as None: after a ``monitor.reset()``
+        the next dispatch registers again and the lookup recovers."""
+        v = self._flops_by_key.get(key)
+        if v is None:
+            v = _programs.flops_of(key)
+            if v is not None:
+                self._flops_by_key[key] = v
+        return v
 
     # -- submission ---------------------------------------------------------
 
@@ -502,15 +689,44 @@ class ServingEngine:
         A well-formed submission may be shed instead, with
         :class:`EngineOverloaded`: the engine is draining, or the bounded
         queue (``max_queue``) is full and holds no strictly
-        lower-priority request to displace; a displaced request ends in
-        ``outputs`` as ``shed``."""
+        lower-priority request to displace, or (``shed_on_burn``, monitor
+        on) a priority <= 0 submission arrives while a latency objective
+        burns; a displaced request ends in ``outputs`` as ``shed``."""
         reason, norm = self._reject_reason(req)
         if reason is not None:
+            _monitor.inc("serving.requests.rejected",
+                         doc="malformed submissions refused at the "
+                             "door (engine state untouched)")
+            _trace.instant("serving.reject", rid=req.rid, reason=reason)
+            if _monitor.enabled():
+                # availability counts the refusal, attributed to the
+                # tenant the submission claimed (the rejection may be
+                # about that very field)
+                try:
+                    tenant = str(req.tenant or "default")[:128]
+                except Exception:
+                    tenant = "default"
+                _slo.record_rejected(tenant or "default")
+                _forensics.note_terminal(req.rid, "rejected",
+                                         reason=reason,
+                                         tenant=tenant or "default")
             raise RequestRejected(req.rid, reason)
         (req.prompt, req.max_new_tokens, req.temperature, req.tenant,
          req.priority, req.deadline_s) = norm
+        # overload gates, in severity order, all before the request
+        # touches any engine state: a draining engine refuses everything,
+        # a latency burn sheds best-effort work, a full queue sheds (or
+        # displaces a lower priority)
         if self._draining:
             self._shed_submit(req, "engine is draining")
+        if (self._shed_on_burn and req.priority <= 0
+                and _monitor.enabled()
+                and _slo.burn_alerting(load_only=True)):
+            # load_only: the sheds this gate makes are availability-bad
+            # records, and an availability-fed trigger would keep itself
+            # alight after the overload cleared
+            self._shed_submit(req, "SLO fast-burn alerting; "
+                                   "priority<=0 work shed")
         if self._max_queue and len(self.queue) >= self._max_queue:
             victim = self._displaceable_pos(req.priority)
             if victim is None:
@@ -519,6 +735,11 @@ class ServingEngine:
                          f"lower-priority request to displace")
             shed = self.queue[victim]
             del self.queue[victim]
+            _forensics.decision(
+                "displace", rid=shed.rid, reason="queue_full",
+                queue_depth=len(self.queue) + 1, max_queue=self._max_queue,
+                by_rid=req.rid, by_priority=req.priority,
+                victim_priority=shed.priority)
             self._finish_shed(shed, "displaced by higher-priority request "
                                     f"{req.rid!r}")
         if req.temperature > 0.0 and req.seed is None:
@@ -531,9 +752,23 @@ class ServingEngine:
         req._preempt_count = 0
         req._pfx_cached = 0          # cached prefix length of its admission
         req._t_deadline = None
+        req._t0 = req._t_enqueue = req._cost = None
         if req.deadline_s is not None:
             req._t_deadline = req._t_submit + req.deadline_s
             self._deadlines_seen = True
+        if _monitor.enabled():
+            # _t0 anchors TTFT and e2e; _t_enqueue is refreshed by
+            # preemption re-queues and anchors each queue wait; the cost
+            # record follows the request across those re-queues
+            plen = int(req.prompt.shape[0])
+            req._t0 = req._t_enqueue = now = time.perf_counter()
+            req._cost = RequestCost(tenant=req.tenant,
+                                    priority=req.priority)
+            _trace.instant("serving.enqueue", rid=req.rid, prompt=plen,
+                           max_new=req.max_new_tokens, tenant=req.tenant)
+            _forensics.note(req.rid, "enqueue", t=now, tenant=req.tenant,
+                            priority=req.priority, prompt=plen,
+                            max_new=req.max_new_tokens)
         if self._journal is not None:
             # after every gate that could still refuse the request, and
             # after the seed is pinned: a re-dispatch replays its tokens
@@ -577,6 +812,21 @@ class ServingEngine:
         demand model's backoff hint."""
         hint = self._retry_after()
         self.stats.shed += 1
+        _monitor.inc("serving.requests.shed",
+                     doc="admissible work refused by overload policy "
+                         "(bounded queue, SLO burn, displacement, "
+                         "drain) with a retry_after_s hint")
+        _trace.instant("serving.shed", rid=req.rid, reason=why,
+                       retry_after_s=hint, tenant=req.tenant)
+        if _monitor.enabled():
+            _slo.record_shed(req.tenant)
+            _forensics.decision("shed", rid=req.rid, reason=why,
+                                queue_depth=len(self.queue),
+                                priority=req.priority,
+                                draining=self._draining)
+            _forensics.note_terminal(req.rid, "shed", reason=why,
+                                     tenant=req.tenant,
+                                     retry_after_s=round(hint, 3))
         raise EngineOverloaded(req.rid, why, hint)
 
     def _displaceable_pos(self, priority: int) -> Optional[int]:
@@ -600,13 +850,35 @@ class ServingEngine:
         and the reason."""
         hint = self._retry_after()
         self.stats.shed += 1
+        _monitor.inc("serving.requests.shed")
+        mon = _monitor.enabled()
+        cost = req._cost if mon else None
+        if cost is not None:
+            cost.queue_wait_ms += (time.perf_counter()
+                                   - req._t_enqueue) * 1e3
+            # the shed counts against availability like a rejection, and
+            # what it consumed (prefill before a preemption, page-seconds,
+            # the queue wait above) folds into its tenant's aggregates
+            _slo.record_request(dict(cost.as_dict(), rejected=True,
+                                     shed=True))
+        elif mon:
+            _slo.record_shed(req.tenant)
         self.outputs[req.rid] = RequestOutput(
             rid=req.rid, tokens=np.zeros(0, np.int32),
             prompt_len=int(req.prompt.shape[0]),
-            preemptions=req._preempt_count, tenant=req.tenant,
+            preemptions=req._preempt_count, tenant=req.tenant, cost=cost,
             finish_reason="shed", retry_after_s=hint, shed_reason=why)
         if self._journal is not None:
             self._journal.finish(req.rid, "shed")
+        _trace.instant("serving.shed", rid=req.rid, reason=why,
+                       retry_after_s=hint, tenant=req.tenant)
+        if mon:
+            _forensics.decision("shed", rid=req.rid, reason=why,
+                                queued=True, priority=req.priority,
+                                draining=self._draining)
+            _forensics.note_terminal(req.rid, "shed", reason=why,
+                                     tenant=req.tenant,
+                                     retry_after_s=round(hint, 3))
 
     def begin_drain(self, shed_queued: bool = True):
         """Enter the drain lifecycle: stop admitting (``submit`` sheds
@@ -617,7 +889,10 @@ class ServingEngine:
         queued or resident. Idempotent."""
         from ..testing import faults as _faults
         _faults.hit("serving.drain")
+        already = self._draining
         self._draining = True
+        _trace.instant("serving.drain.begin", queued=len(self.queue),
+                       again=already)
         if shed_queued:
             keep: deque = deque()
             while self.queue:
@@ -650,7 +925,7 @@ class ServingEngine:
             keep: deque = deque()
             for r in self.queue:
                 if r._t_deadline is not None and now >= r._t_deadline:
-                    self._finish_expired(r, None)
+                    self._finish_expired(r, None, now)
                 else:
                     keep.append(r)
             self.queue = keep
@@ -660,31 +935,70 @@ class ServingEngine:
                 continue
             t = slot.req._t_deadline
             if t is not None and now >= t:
-                self._finish_expired(slot.req, idx)
+                self._finish_expired(slot.req, idx, now)
 
-    def _finish_expired(self, req: Request, slot_idx: Optional[int]):
-        """End ``req`` as expired: from the queue (no tokens) or evicted
-        from slot ``slot_idx`` with its tokens, which are the client's, so
-        ``tokens_generated - tokens_discarded`` stays the tokens
-        emitted."""
+    def _finish_expired(self, req: Request, slot_idx: Optional[int],
+                        now: float):
+        """End ``req`` as expired at ``now``: from the queue (no tokens)
+        or evicted from slot ``slot_idx`` with its tokens, which are the
+        client's, so ``tokens_generated - tokens_discarded`` stays the
+        tokens emitted."""
+        mon = _monitor.enabled()
+        cost = req._cost if mon else None
         tokens = np.zeros(0, np.int32)
         preemptions = req._preempt_count
         ttft = None
         if slot_idx is not None:
             slot = self.slots[slot_idx]
             self.slots[slot_idx] = None
+            if cost is not None and slot.t_tick is not None:
+                # final page-seconds tick, read before the free
+                cost.page_seconds += (self.cache.alloc.page_count(req.rid)
+                                      * (now - slot.t_tick))
             self.cache.alloc.free(req.rid)
             tokens = np.asarray(slot.tokens, np.int32)
             preemptions = slot.preemptions
             ttft = slot.t_first - req._t_submit
+            if cost is not None:
+                cost.grid_steps += (self.stats.decode_steps
+                                    - slot.steps0) * self.num_slots
+        elif cost is not None:
+            cost.queue_wait_ms += (now - req._t_enqueue) * 1e3
         self.stats.expired += 1
+        _monitor.inc("serving.requests.expired",
+                     doc="requests retired by their submit-time "
+                         "deadline (expired in queue or evicted from "
+                         "the running batch)")
+        if cost is not None:
+            cost.preemptions = preemptions
+            cost.e2e_ms = (now - req._t0) * 1e3
+            if cost.grid_steps > 0:
+                cost.slot_share = round(
+                    cost.slot_steps / cost.grid_steps, 6)
+            # the SLO window counts an expiry bad for availability and
+            # leaves it out of the latency objectives
+            _slo.record_request(dict(cost.as_dict(), expired=True))
         self.outputs[req.rid] = RequestOutput(
             rid=req.rid, tokens=tokens, prompt_len=int(req.prompt.shape[0]),
             preemptions=preemptions, ttft_s=ttft, tenant=req.tenant,
-            finish_reason="expired")
+            cost=cost, finish_reason="expired")
         if self._journal is not None:
             self._journal.finish(req.rid, "expired",
                                  tokens=int(tokens.shape[0]))
+        _trace.instant("serving.expire", rid=req.rid,
+                       tokens=int(tokens.shape[0]),
+                       in_slot=slot_idx is not None, tenant=req.tenant)
+        if mon:
+            if slot_idx is not None:
+                _forensics.decision("evict", rid=req.rid,
+                                    reason="deadline", slot=slot_idx,
+                                    tokens=int(tokens.shape[0]))
+            _forensics.note_terminal(
+                req.rid, "expired", t=now,
+                e2e_ms=(cost.e2e_ms if cost is not None
+                        and cost.e2e_ms else None),
+                tenant=req.tenant, tokens=int(tokens.shape[0]),
+                in_slot=slot_idx is not None)
 
     # -- scheduling ---------------------------------------------------------
 
@@ -720,7 +1034,11 @@ class ServingEngine:
             return 0
         before = self._prefix.evicted_nodes
         freed = self._prefix.evict(n)
-        self.stats.prefix_evictions += self._prefix.evicted_nodes - before
+        dropped = self._prefix.evicted_nodes - before
+        if dropped:
+            self.stats.prefix_evictions += dropped
+            _monitor.inc("serving.prefix_cache.evictions", dropped,
+                         doc="radix nodes dropped under pool pressure")
         return freed
 
     def _match_len(self, req: Request) -> int:
@@ -740,6 +1058,8 @@ class ServingEngine:
         if self._prefix is None:
             return alloc.alloc(req.rid, s_pad)
         self.stats.prefix_lookups += 1
+        _monitor.inc("serving.prefix_cache.lookups",
+                     doc="admission prompt-prefix radix probes")
         need = alloc.pages_for(s_pad)
         while True:
             cached, pages = self._prefix.match(req.prompt)
@@ -756,11 +1076,26 @@ class ServingEngine:
             if cached:
                 self.stats.prefix_hits += 1
                 self.stats.prefix_tokens_saved += cached
+                _monitor.inc("serving.prefix_cache.hits",
+                             doc="admissions that forked cached "
+                                 "prefix pages")
+                _monitor.inc("serving.prefix_cache.tokens_saved", cached,
+                             doc="prompt tokens served from cached KV "
+                                 "instead of prefill")
             return got
 
     def _retire(self, idx: int):
         slot = self.slots[idx]
         self.slots[idx] = None
+        mon = _monitor.enabled()
+        cost = slot.cost if mon else None
+        if cost is not None and slot.t_tick is not None:
+            # final page-seconds tick: pages held from the last chunk
+            # edge until this retirement, read before the free below
+            now_t = time.perf_counter()
+            cost.page_seconds += (self.cache.alloc.page_count(slot.req.rid)
+                                  * (now_t - slot.t_tick))
+            slot.t_tick = now_t
         if self._prefix is not None and slot.kv_len >= self.page_size:
             # only COMMITTED positions enter the radix: the prompt plus
             # the generated tokens whose KV is written (kv_len of them;
@@ -780,7 +1115,7 @@ class ServingEngine:
             prompt_len=int(slot.req.prompt.shape[0]),
             preemptions=slot.preemptions,
             ttft_s=slot.t_first - slot.req._t_submit,
-            tenant=slot.req.tenant)
+            tenant=slot.req.tenant, cost=cost)
         if self._journal is not None:
             # the completion marker lands before the output can be
             # harvested: a crash after it re-dispatches nothing for
@@ -788,13 +1123,69 @@ class ServingEngine:
             self._journal.finish(slot.req.rid, "completed",
                                  tokens=len(slot.tokens))
         self.stats.completed += 1
+        _monitor.inc("serving.requests.completed")
+        if mon:
+            self._retire_monitor(slot, cost)
+
+    def _retire_monitor(self, slot: _Slot, cost: Optional[RequestCost]):
+        """The monitor's half of a retirement: the latency histograms,
+        each observed once a completed request (``ttft_ms`` from the
+        first submission to the first token of the run the client keeps,
+        so a preempted run's discarded token never counts), the cost
+        record's final fields and its SLO record, the retire instant and
+        the forensics terminal."""
+        req = slot.req
+        now = time.perf_counter()
+        if req._t0 is not None:
+            e2e = (now - req._t0) * 1e3
+            _observe_latency("serving.latency.e2e_ms", e2e,
+                             "request lifetime: original enqueue to "
+                             "retirement")
+            if cost is not None:
+                cost.e2e_ms = e2e
+            if slot.t_first is not None:
+                ttft = (slot.t_first - req._t0) * 1e3
+                _observe_latency("serving.latency.ttft_ms", ttft,
+                                 "original enqueue to the prefill-sampled "
+                                 "first token the client keeps")
+                if cost is not None:
+                    cost.ttft_ms = ttft
+        if slot.gen > 1 and slot.t_first is not None \
+                and slot.t_last is not None:
+            # mean inter-token time over the decode phase (chunk-edge
+            # resolution)
+            tpot = (slot.t_last - slot.t_first) / (slot.gen - 1) * 1e3
+            _observe_latency("serving.latency.tpot_ms", tpot,
+                             "mean time per output token after the first")
+            if cost is not None:
+                cost.tpot_ms = tpot
+        if cost is not None:
+            cost.preemptions = slot.preemptions
+            # the share of the decode grid this request held over its
+            # residencies (None when it retired without a decode chunk)
+            cost.grid_steps += (self.stats.decode_steps
+                                - slot.steps0) * self.num_slots
+            cost.slot_share = round(cost.slot_steps / cost.grid_steps, 6) \
+                if cost.grid_steps > 0 else None
+            _slo.record_request(cost.as_dict())
+        _trace.instant("serving.retire", rid=req.rid, tokens=slot.gen,
+                       preemptions=slot.preemptions, tenant=req.tenant)
+        _forensics.note_terminal(
+            req.rid, "completed", t=now,
+            e2e_ms=(cost.e2e_ms if cost is not None and cost.e2e_ms
+                    else None),
+            ttft_ms=(cost.ttft_ms if cost is not None and cost.ttft_ms
+                     else None),
+            tenant=req.tenant, tokens=slot.gen,
+            preemptions=slot.preemptions)
 
     def _preempt_victim_idx(self) -> Optional[int]:
         """The eviction victim. Default: the youngest live request (the
         highest slot index). With ``slo_preemption``: the lowest
-        (priority, prior preemptions, KV length), the youngest among
+        (priority, prior preemptions, work), the youngest among
         equals: the least important class first, within a class repeat
-        victims protected, then the request cheapest to recompute."""
+        victims protected, then the request cheapest to recompute
+        (:meth:`_work`)."""
         if not self._slo_preemption:
             for idx in range(self.num_slots - 1, -1, -1):
                 slot = self.slots[idx]
@@ -806,10 +1197,20 @@ class ServingEngine:
             slot = self.slots[idx]
             if slot is None or slot.done:
                 continue
-            key = (slot.req.priority, slot.preemptions, slot.kv_len, -idx)
+            key = (slot.req.priority, slot.preemptions, self._work(slot),
+                   -idx)
             if best_key is None or key < best_key:
                 best_idx, best_key = idx, key
         return best_idx
+
+    @staticmethod
+    def _work(slot: _Slot) -> int:
+        """A live request's work so far: its cost record's prefill and
+        decode tokens (cumulative across re-runs) when the monitor keeps
+        one, else the current run's KV length."""
+        if slot.cost is not None:
+            return slot.cost.prefill_tokens + slot.cost.decode_tokens
+        return slot.kv_len
 
     def _preempt_one(self) -> bool:
         """Evict :meth:`_preempt_victim_idx`'s request (recompute policy:
@@ -820,12 +1221,52 @@ class ServingEngine:
             return False
         slot = self.slots[idx]
         self.slots[idx] = None
+        now = time.perf_counter() if _monitor.enabled() else None
+        cost = slot.cost if now is not None else None
+        if cost is not None and slot.t_tick is not None:
+            # final page-seconds tick for this run, read before the free:
+            # an evicted request paid for the pages it held
+            cost.page_seconds += (self.cache.alloc.page_count(slot.req.rid)
+                                  * (now - slot.t_tick))
         self.cache.alloc.free(slot.req.rid)
         slot.req._preempt_count += 1
         self.queue.appendleft(slot.req)
         self.stats.preempted += 1
         self.stats.tokens_discarded += slot.gen
+        _monitor.inc("serving.requests.preempted")
+        _monitor.inc("serving.tokens.discarded", slot.gen,
+                     doc="sampled tokens thrown away by "
+                         "preemption recompute")
+        if now is not None:
+            # the re-queue refreshes _t_enqueue: the next wait adds onto
+            # the record's cumulative queue_wait_ms at re-admission
+            slot.req._t_enqueue = now
+            if cost is not None:
+                cost.discarded_tokens += slot.gen
+                cost.grid_steps += (self.stats.decode_steps
+                                    - slot.steps0) * self.num_slots
+            tenant = slot.req.tenant
+            _trace.instant("serving.preempt", rid=slot.req.rid,
+                           discarded=slot.gen, tenant=tenant)
+            # the victim-selection inputs that chose this slot
+            victim = dict(policy="slo" if self._slo_preemption
+                          else "youngest", slot=idx,
+                          priority=slot.req.priority,
+                          prior_preemptions=slot.preemptions,
+                          work=int(self._work(slot)))
+            _forensics.decision("preempt", rid=slot.req.rid,
+                                discarded=slot.gen, **victim)
+            _forensics.note(slot.req.rid, "preempt", t=now, tenant=tenant,
+                            discarded=slot.gen, **victim)
         return True
+
+    def _defer(self, req: Request, reason: str, **inputs):
+        """Record one admission-scan deferral (forensics timeline and
+        decision ring, both self-gated and coalescing: a head request
+        blocked on one reason for many steps is one record with a
+        count)."""
+        _forensics.note_defer(req.rid, reason, **inputs)
+        _forensics.decision("defer", rid=req.rid, reason=reason, **inputs)
 
     def _pad_bucket(self, req: Request) -> int:
         return max(self._bucket(int(req.prompt.shape[0])), self.page_size)
@@ -845,7 +1286,10 @@ class ServingEngine:
         leave idle (a bounded, one-dispatch-deep inversion traded for
         batched prefill). The reference runs the options in a second,
         copied scan (``_admit_policy``); with both options off this scan
-        takes the same steps as its FIFO one."""
+        takes the same steps as its FIFO one. Each deferral is recorded
+        (``_defer``) with the reason and inputs of the reference's scan
+        that the options select: ``no_free_slot``, ``tenant_cap``,
+        ``watermark`` and ``alloc_failed``."""
         alloc = self.cache.alloc
         cap = self._tenant_cap
         inflight: Dict[str, int] = {}
@@ -856,6 +1300,8 @@ class ServingEngine:
         while self.queue:
             free = [i for i, s in enumerate(self.slots) if s is None]
             if not free:
+                self._defer(self.queue[0], "no_free_slot",
+                            queue_depth=len(self.queue))
                 break
             pos = None
             for j, r in enumerate(self.queue):
@@ -867,6 +1313,8 @@ class ServingEngine:
                 if pos is None or r.priority > self.queue[pos].priority:
                     pos = j
             if pos is None:               # every waiter's tenant is at cap
+                self._defer(self.queue[0], "tenant_cap", cap=cap,
+                            queue_depth=len(self.queue))
                 break
             req = self.queue[pos]
             s_pad = self._pad_bucket(req)
@@ -875,10 +1323,17 @@ class ServingEngine:
                            for s in self.slots)
             if self._free_slack() - need < self.watermark_pages \
                     and not idle:
+                self._defer(req, "watermark",
+                            free_slack=self._free_slack(), need=need,
+                            watermark_pages=self.watermark_pages,
+                            queue_depth=len(self.queue))
                 break
             del self.queue[pos]
             if self._alloc_for(req, s_pad) is None:
                 self.queue.insert(pos, req)
+                self._defer(req, "alloc_failed", need=need,
+                            free_pages=alloc.free_pages,
+                            queue_depth=len(self.queue))
                 # an idle engine that cannot place its head request will
                 # never make progress: a sizing error, not a transient
                 E.enforce(not idle,
@@ -934,11 +1389,17 @@ class ServingEngine:
         by it), and only the uncached tails are prefilled, over the
         shared context pages, which are read and never written."""
         need = s_pad // self.page_size
+        mon = _monitor.enabled()
+        t_admit = None
+        if mon:
+            t_admit = time.perf_counter()
+            self._admit_monitor(free, group, s_pad, t_admit)
         g = 1
         while g < len(group):
             g *= 2
         cached = group[0]._pfx_cached if self._prefix is not None else 0
         ncp = cached // self.page_size
+        s_eff = s_pad - cached
         sentinel = self.cache.num_pages
         ids = np.zeros((g, s_pad - cached), np.int64)
         rows = np.full((g, need - ncp), sentinel, np.int64)
@@ -961,15 +1422,47 @@ class ServingEngine:
             slot.kv_len = plen
             slot.preemptions = r._preempt_count
             slots.append(slot)
+        sampled = any(s is not None for s in seeds)
         t0 = time.perf_counter()
         ids, rows, slen, *ctx = self._upload(
             ids, rows, slen, *((ctx_rows,) if cached else ()))
-        toks = self._prefill_plane(
-            ids, rows, slen, temps,
-            seeds if any(s is not None for s in seeds) else None,
-            *ctx).tolist()
+        exec_rec = None
+        flops_share = None
+        if mon:
+            # the program's record (first dispatch of its key) and its
+            # FLOPs, split across the real requests of the group (pad
+            # rows attribute nowhere)
+            c = self.config
+            key = self._record_serving_program(
+                ("serving.prefill_shared", g, s_eff, ncp, sampled)
+                if cached else ("serving.prefill", g, s_pad, sampled),
+                f"serving.prefill_shared[g{g},s{s_eff},ctx{ncp}]"
+                if cached else f"serving.prefill[g{g},s{s_pad}]",
+                lambda: serving_program_flops(
+                    c, tokens=g * s_eff, key_len=cached + s_eff,
+                    head_rows=g),
+                (ids, rows, slen, *ctx))
+            from ..monitor import exectime as _exectime
+            exec_rec = _exectime.maybe_sample(key, feed_last=False)
+            pf_flops = self._program_flops(key)
+            if pf_flops:
+                flops_share = pf_flops / len(group)
+        with _trace.span("serving.prefill", group=len(group), s_pad=s_pad):
+            # the download waits for the card: the span ends, and the
+            # first token is stamped, when the tokens reached the host
+            toks = self._prefill_plane(
+                ids, rows, slen, temps, seeds if sampled else None,
+                *ctx).tolist()
+        if exec_rec is not None:
+            # the download above already waited: rec(None) adds no
+            # synchronization at this seam
+            exec_rec(None)
         t_first = time.perf_counter()
         self.stats.prefill_s += t_first - t0
+        if mon:
+            for r in group:
+                _trace.instant("serving.first_token", rid=r.rid)
+                _forensics.note(r.rid, "first_token", t=t_first)
         for j, (r, slot) in enumerate(zip(group, slots)):
             tail = int(r.prompt.shape[0]) - cached
             self.cache.alloc.advance(r.rid, tail + cached)
@@ -978,6 +1471,24 @@ class ServingEngine:
             slot.pending = tok
             slot.gen = 1
             slot.t_first = t_first
+            if mon:
+                slot.t_last = t_first
+                slot.cost = r._cost
+                # page-seconds integrate from admission (the pages were
+                # allocated in _admit) at chunk-edge resolution
+                slot.t_tick = t_admit
+                slot.steps0 = self.stats.decode_steps
+                if slot.cost is not None:
+                    slot.cost.prefill_tokens += tail
+                    if cached:
+                        slot.cost.prefix_cached_tokens += cached
+                        if flops_share:
+                            # the tail program's per-padded-token cost
+                            # times the tokens the cache served
+                            slot.cost.prefill_flops_saved += (
+                                flops_share / s_eff * cached)
+                    if flops_share:
+                        slot.cost.model_flops += flops_share
             slot.done = (r.eos_token_id is not None
                          and tok == r.eos_token_id) \
                 or slot.gen >= r.max_new_tokens
@@ -985,6 +1496,35 @@ class ServingEngine:
             self.stats.admitted += 1
             self.stats.tokens_generated += 1
             self.stats.tokens_prefilled += tail
+            _monitor.inc("serving.requests.admitted")
+            # the prefill-sampled first token counts here, so the counter
+            # agrees with stats.tokens_generated
+            _monitor.inc("serving.tokens.generated")
+            _monitor.inc("serving.tokens.prefilled", tail)
+
+    def _admit_monitor(self, free, group, s_pad: int, t_admit: float):
+        """The monitor's half of an admission: the admit decision, each
+        member's queue wait (observed once a wait; the cost record keeps
+        the sum across preemption re-queues), its admit instant and its
+        forensics note with the cached prefix length it was grouped on."""
+        _forensics.decision(
+            "admit", rid=group[0].rid, group=len(group), bucket=s_pad,
+            free_slots=len(free), queue_depth=len(self.queue),
+            pfx_cached=int(group[0]._pfx_cached))
+        for r in group:
+            wait_ms = None
+            if r._t_enqueue is not None:
+                wait_ms = (t_admit - r._t_enqueue) * 1e3
+                _observe_latency(
+                    "serving.latency.queue_wait_ms", wait_ms,
+                    "enqueue (or preemption re-queue) to admission")
+                if r._cost is not None:
+                    r._cost.queue_wait_ms += wait_ms
+            _trace.instant("serving.admit", rid=r.rid)
+            _forensics.note(
+                r.rid, "admit", t=t_admit, bucket=s_pad, group=len(group),
+                wait_ms=round(wait_ms, 3) if wait_ms is not None else None,
+                pfx_cached=int(r._pfx_cached))
 
     def _upload(self, *arrays):
         """A prefill group's or decode chunk's host arrays as device
@@ -1076,10 +1616,21 @@ class ServingEngine:
                 self._retire(idx)
         self._compact()
         self._admit()
+        _monitor.set_gauge("serving.queue.depth", len(self.queue),
+                           doc="requests waiting for admission")
+        in_use = self.cache.alloc.used_pages
         self.stats.peak_pages_in_use = max(self.stats.peak_pages_in_use,
-                                           self.cache.alloc.used_pages)
+                                           in_use)
+        _monitor.set_gauge("serving.pages.in_use", in_use,
+                           doc="KV pages currently allocated")
         live_idx = [i for i, s in enumerate(self.slots)
                     if s is not None and not s.done]
+        if _monitor.enabled():
+            # the autoscale feed: one host tick a scheduling step
+            _slo.note_sched_tick(
+                len(self.queue), len(live_idx), self.num_slots,
+                self.cache.alloc.free_pages / self.cache.num_pages
+                if self.cache.num_pages else 0.0)
         if not live_idx:
             return bool(self.queue) or any(
                 s is not None for s in self.slots)
@@ -1123,12 +1674,26 @@ class ServingEngine:
         bt = self.cache.block_tables(
             [self.slots[i].req.rid if i in live else None
              for i in range(B)])
+        mon = _monitor.enabled()
         t0 = time.perf_counter()
-        emitted = self._decode_plane(
-            C, *self._upload(bt, tokens, kv_len, done, gen, max_new, eos),
-            temps, seeds)
-        emitted = emitted.cpu().numpy()                      # [C, B]
+        args = self._upload(bt, tokens, kv_len, done, gen, max_new, eos)
+        exec_rec, flops_share = self._chunk_monitor(
+            ("serving.decode_chunk", C, seeds is not None),
+            f"serving.decode_chunk[c{C}"
+            f"{',sampled' if seeds is not None else ''}]",
+            dict(tokens=B, key_len=bt.shape[1] * self.page_size,
+                 head_rows=B, steps=C), args, len(live_idx)) \
+            if mon else (None, None)
+        with _trace.span("serving.decode_chunk", chunk=C,
+                         live=len(live_idx)):
+            # one download a chunk: every host-side fact derives from the
+            # emitted grid (-1 = the slot was done at that step), and the
+            # download waits for the card, so the span ends when the
+            # tokens reached the host
+            emitted = self._decode_plane(C, *args, temps, seeds)
+            emitted = emitted.cpu().numpy()                  # [C, B]
         self.stats.decode_s += time.perf_counter() - t0
+        t_chunk = self._chunk_edge(exec_rec) if mon else None
         new_tokens = 0
         for i in live_idx:
             s = self.slots[i]
@@ -1141,6 +1706,10 @@ class ServingEngine:
                 s.kv_len += len(toks)
                 s.gen += len(toks)
                 s.pending = toks[-1]
+                if t_chunk is not None:
+                    s.t_last = t_chunk
+            if t_chunk is not None and s.cost is not None:
+                self._charge(s, t_chunk, C, len(toks), flops_share)
             s.done = s.gen >= s.req.max_new_tokens or (
                 s.req.eos_token_id is not None and bool(toks)
                 and toks[-1] == s.req.eos_token_id)
@@ -1148,7 +1717,50 @@ class ServingEngine:
         self.stats.tokens_generated += new_tokens
         self.stats.tokens_decoded += new_tokens
         self.stats._occ_steps += C * self.num_slots
+        _monitor.set_gauge("serving.batch.occupancy",
+                           round(self.stats.occupancy(), 4),
+                           doc="generated tokens / (decode steps x slots)")
+        _monitor.inc("serving.tokens.generated", new_tokens)
         return True
+
+    def _chunk_monitor(self, spec_key, name, shape, args, live: int):
+        """Before a decode chunk's or verify round's dispatch (monitor
+        on): the program's record, an armed exec sample (or None) and its
+        FLOPs share for each of the ``live`` slots sharing the dispatch
+        (done and empty slots ride the fixed grid for free; the work
+        exists because of the live ones)."""
+        c = self.config
+        key = self._record_serving_program(
+            spec_key, name, lambda: serving_program_flops(c, **shape), args)
+        from ..monitor import exectime as _exectime
+        exec_rec = _exectime.maybe_sample(key, feed_last=False)
+        flops = self._program_flops(key)
+        return exec_rec, (flops / live if flops else None)
+
+    def _chunk_edge(self, exec_rec) -> float:
+        """After a chunk's or round's download (monitor on): close the
+        exec sample (the download already waited, so ``rec(None)`` adds
+        no synchronization), take a KV-page sample, stamp the edge."""
+        if exec_rec is not None:
+            exec_rec(None)
+        self._maybe_sample_kv_absmax()
+        return time.perf_counter()
+
+    def _charge(self, s: _Slot, t_chunk: float, C: int, emitted: int,
+                flops_share):
+        """Cost attribution of one slot at a chunk edge: page-seconds
+        since its last tick, the chunk's grid steps, its emissions and
+        its FLOPs share. Host reads only (allocator page counts, the
+        cached program FLOPs)."""
+        cost = s.cost
+        if s.t_tick is not None:
+            cost.page_seconds += (self.cache.alloc.page_count(s.req.rid)
+                                  * (t_chunk - s.t_tick))
+        s.t_tick = t_chunk
+        cost.slot_steps += C
+        cost.decode_tokens += emitted
+        if flops_share:
+            cost.model_flops += flops_share
 
     def _draft_for(self, s: _Slot, C: int) -> np.ndarray:
         """A C-token verify window for one sequence: position 0 is the
@@ -1214,10 +1826,19 @@ class ServingEngine:
             drafts[i] = self._draft_for(s, C)
             kv_len[i] = s.kv_len
             live_m[i] = True
+        mon = _monitor.enabled()
         t0 = time.perf_counter()
-        preds = self._spec_plane(
-            *self._upload(bt, drafts, kv_len, live_m)).cpu().numpy()
+        args = self._upload(bt, drafts, kv_len, live_m)
+        exec_rec, flops_share = self._chunk_monitor(
+            ("serving.spec_chunk", C), f"serving.spec_chunk[c{C}]",
+            dict(tokens=B * C, key_len=bt.shape[1] * self.page_size,
+                 head_rows=B * C), args, len(live_idx)) \
+            if mon else (None, None)
+        with _trace.span("serving.spec_chunk", chunk=C,
+                         live=len(live_idx)):
+            preds = self._spec_plane(*args).cpu().numpy()    # [B, C]
         self.stats.decode_s += time.perf_counter() - t0
+        t_chunk = self._chunk_edge(exec_rec) if mon else None
         new_tokens = accepted = 0
         for i in live_idx:
             s = self.slots[i]
@@ -1233,6 +1854,13 @@ class ServingEngine:
             s.kv_len += len(emitted)
             s.gen += len(emitted)
             s.pending = emitted[-1]
+            if t_chunk is not None:
+                s.t_last = t_chunk
+                if s.cost is not None:
+                    self._charge(s, t_chunk, C, len(emitted), flops_share)
+                # an aggregate fold, no event: spec rounds come at chunk
+                # rate and would flood the bounded timeline
+                _forensics.note_spec(s.req.rid, C - 1, a)
             # the turbo preconditions rule out EOS: only the length bound
             # can finish a sequence here
             s.done = s.gen >= s.req.max_new_tokens
@@ -1243,7 +1871,73 @@ class ServingEngine:
         self.stats.spec_rounds += len(live_idx)
         self.stats.spec_drafted += (C - 1) * len(live_idx)
         self.stats.spec_accepted += accepted
+        _monitor.set_gauge("serving.batch.occupancy",
+                           round(self.stats.occupancy(), 4),
+                           doc="generated tokens / (decode steps x slots)")
+        _monitor.inc("serving.tokens.generated", new_tokens)
+        _monitor.inc("serving.spec.rounds", len(live_idx),
+                     doc="per-sequence speculative verify rounds")
+        _monitor.inc("serving.spec.drafted", (C - 1) * len(live_idx),
+                     doc="n-gram draft tokens proposed for verification")
+        _monitor.inc("serving.spec.accepted", accepted,
+                     doc="draft tokens confirmed by the greedy verify")
         return True
+
+    def _maybe_sample_kv_absmax(self):
+        """KV-page absmax feed of the numerics plane: every 1-in-N chunks
+        (``PADDLE_TPU_KV_SAMPLE``; 0 disables) the per-layer per-page
+        max |K| / max |V| over the pool (with int8 pools: max |code| x
+        scale, the scales and the fraction of codes at the +-127 rail),
+        kept for the pages the allocator holds live (free pages are zeros
+        that would drown the distribution). Plain PyTorch reductions,
+        run after the chunk's download: the card has finished the chunk,
+        and the one download of the results waits for nothing else. A
+        full-precision pool is read once (``aminmax``)."""
+        from ..monitor import numerics as _numerics
+        rate = _numerics.kv_sample_rate()
+        if rate <= 0:
+            return
+        self._kv_chunks += 1
+        if self._kv_chunks < rate:
+            return
+        self._kv_chunks = 0
+        in_use = np.flatnonzero(self.cache.alloc._ref > 0)
+        if in_use.size == 0:
+            return
+        k, v = self.cache.pool["k"], self.cache.pool["v"]
+        if self.kv_quant:
+            # codes [L, P, kv, ps, hd] and scales [L, P, kv]
+            def one(leaf):
+                am = leaf["q"].abs().amax(dim=(3, 4))
+                return (am.float() * leaf["s"]).amax(dim=2)
+            clip = ((k["q"].abs() == 127).float().mean(dim=(0, 2, 3, 4))
+                    + (v["q"].abs() == 127).float().mean(
+                        dim=(0, 2, 3, 4))) * 0.5               # [P]
+            scales = torch.maximum(k["s"].amax(dim=2), v["s"].amax(dim=2))
+            grids = torch.stack([one(k), one(v), scales])
+            flat = torch.cat([grids.reshape(-1), clip]).cpu().numpy()
+            out = flat[:grids.numel()].reshape(grids.shape)
+            clip = flat[grids.numel():]
+        else:
+            # max |x| a (layer, page) from one pass: the larger of the max
+            # and the negated min (abs() would write the pool's size first)
+            def one(leaf):
+                lo, hi = torch.aminmax(leaf.reshape(*leaf.shape[:2], -1),
+                                       dim=-1)
+                return torch.maximum(hi, -lo).float()
+            out = torch.stack([one(k), one(v)]).cpu().numpy()
+        _numerics.record_kv_absmax(out[0][:, in_use], out[1][:, in_use])
+        if self.kv_quant:
+            _numerics.record_kv_quant(out[2][:, in_use],
+                                      float(np.mean(clip[in_use])))
+
+    def publish_frames(self, name: str, dir_path: Optional[str] = None,
+                       **kwargs):
+        """Fleet SLO federation (the reference's per-replica telemetry
+        frames, ``monitor/federation.py``) is not ported yet."""
+        raise NotImplementedError(
+            "ServingEngine.publish_frames: fleet SLO federation is not "
+            "ported yet (ROADMAP.md queue A item A7(d))")
 
     def run(self, requests=None, max_steps: int = 1_000_000
             ) -> Dict[int, RequestOutput]:

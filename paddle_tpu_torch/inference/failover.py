@@ -32,10 +32,10 @@ The journal's kind, version, payload layout and environment knobs are
 the reference's, so the port's coordinator reads a journal the JAX
 engine wrote. Where the port differs: a record journals ``"seed"`` (the
 engine's pinned sampling seed) where the reference journals ``"key"``
-(its pinned PRNG key); the reference's monitor counters and gauges,
-trace events and forensics notes are left out (the monitor planes are
-ROADMAP A7(c)), while ``coordinator.counters`` keeps counting and
-``snapshot()`` returns it. Everything is gated behind
+(its pinned PRNG key). The monitor counters and gauges
+(``serving.failover.*``), trace events and forensics notes are the
+reference's (monitor on only), and ``coordinator.counters`` counts either
+way. Everything is gated behind
 ``FLAGS_serving_failover`` (default off): with the flag off no journal
 is attached and scheduling and tokens are the engine's without it.
 """
@@ -49,6 +49,10 @@ from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from .. import monitor as _monitor
+from ..monitor import forensics as _forensics
+from ..monitor import trace as _trace
 
 
 JOURNAL_KIND = "paddle_tpu.admission_journal"
@@ -154,6 +158,10 @@ class AdmissionJournal:
     def admit(self, req) -> None:
         rec = self._record(req)
         self.inflight[str(rec["rid"])] = rec
+        _monitor.inc("serving.failover.journal.records",
+                     doc="admission-journal records published (one per "
+                         "accepted request while FLAGS_serving_failover "
+                         "is on)")
         self._publish()
 
     def finish(self, rid, state: str, tokens: int = 0) -> None:
@@ -165,6 +173,9 @@ class AdmissionJournal:
         self.completed[rid_s] = marker
         while len(self.completed) > self._max_completed:
             self.completed.popitem(last=False)
+        _monitor.inc("serving.failover.journal.completions",
+                     doc="completion markers written at retirement "
+                         "(the exactly-once dedup record)")
         self._publish()
 
     def _publish(self) -> None:
@@ -344,6 +355,15 @@ class FailoverCoordinator:
         self.terminal[rid] = rec
         self.counters[state if state in self.counters else "shed"] = \
             self.counters.get(state, 0) + 1
+        _trace.instant("serving.failover.terminal", rid=rid, state=state,
+                       attempts=rec.get("attempts", 0))
+        if state in ("quarantined", "expired", "shed"):
+            # coordinator-terminated strands never reach an engine
+            # terminal: this is their one terminal timeline event
+            _forensics.note_terminal(
+                rid, state, attempts=rec.get("attempts", 0),
+                tenant=rec.get("tenant"),
+                recovered_from=list(rec.get("recovered_from") or []))
 
     def note_replaced(self, victim: str,
                       now: Optional[float] = None) -> int:
@@ -376,6 +396,10 @@ class FailoverCoordinator:
                 # finished just before the crash: the marker wins, the
                 # output was (or will be) harvested — never re-serve
                 self.counters["deduped"] += 1
+                _monitor.inc("serving.failover.deduped",
+                             doc="stranded rids skipped by a journal "
+                                 "completion marker (exactly-once "
+                                 "dedup)")
                 continue
             if rid in known:
                 continue
@@ -390,15 +414,33 @@ class FailoverCoordinator:
                                            or []) + [victim])
             stranded += 1
             self.counters["stranded"] += 1
+            _monitor.inc("serving.failover.stranded",
+                         doc="journaled in-flight requests found on a "
+                             "replaced replica")
             fp = rec.get("fingerprint")
             if ((fp and fp in self.quarantined_hashes)
                     or attempts >= self.quarantine_attempts):
                 if fp:
                     self.quarantined_hashes.add(fp)
+                _monitor.inc("serving.failover.quarantined",
+                             doc="poison requests terminated typed "
+                                 "`quarantined` after N consecutive "
+                                 "replica-death attempts")
                 self._finish(rec, "quarantined")
             else:
                 rec["not_before"] = now + self._backoff(attempts)
                 self.pending.append(rec)
+            _trace.instant("serving.failover.strand", rid=rid,
+                           replica=victim, attempts=attempts)
+            # the strand hop rides the journal record's lineage, so a
+            # recovered request's timeline spans replicas
+            _forensics.note(rid, "strand",
+                            t=rec["_t_strand_wall"], replica=victim,
+                            attempts=attempts,
+                            recovered_from=list(rec["recovered_from"]))
+        _monitor.set_gauge("serving.failover.pending",
+                           len(self.pending),
+                           doc="stranded requests awaiting re-dispatch")
         return stranded
 
     # -- re-dispatch queue --------------------------------------------------
@@ -419,6 +461,13 @@ class FailoverCoordinator:
         self._redispatched[rid] = rec
         self.counters["redispatched"] += 1
         self.counters["attempts"] += 1
+        _monitor.inc("serving.failover.redispatched",
+                     doc="stranded requests resubmitted through normal "
+                         "admission on a surviving replica")
+        _trace.instant("serving.failover.redispatch", rid=rid,
+                       replica=replica, attempts=rec.get("attempts", 0))
+        _forensics.note(rid, "redispatch", replica=replica,
+                        attempts=rec.get("attempts", 0))
 
     def requeue(self, rec: dict, now: float,
                 retry_after_s: Optional[float] = None) -> None:
@@ -447,6 +496,10 @@ class FailoverCoordinator:
         """Terminal-state a stranded record without re-dispatching it
         (deadline spent while stranded -> ``expired``)."""
         self._redispatched.pop(int(rec["rid"]), None)
+        if state == "expired":
+            _monitor.inc("serving.failover.expired",
+                         doc="stranded requests whose deadline was "
+                             "already spent at re-dispatch time")
         self._finish(rec, state)
 
     def note_result(self, rid: int, state: str) -> None:
@@ -457,6 +510,9 @@ class FailoverCoordinator:
             return
         if state == "completed":
             self.counters["recovered"] += 1
+            _monitor.inc("serving.failover.recovered",
+                         doc="stranded requests that COMPLETED on a "
+                             "surviving replica after re-dispatch")
 
     def outstanding(self) -> int:
         return len(self.pending)
@@ -490,7 +546,29 @@ class FailoverCoordinator:
         """Feed one fresh-admission outcome to ``replica``'s breaker
         (sheds only — a malformed-request rejection says nothing about
         the replica's health and must be fed as neither)."""
-        self._breaker(replica).record(ok, now)
+        b = self._breaker(replica)
+        before = b.state
+        b.record(ok, now)
+        if b.state != before:
+            if b.state == "open":
+                _monitor.inc("serving.failover.breaker.opened",
+                             doc="circuit-breaker trips: a replica "
+                                 "whose fresh admissions keep "
+                                 "shedding routes new work away for "
+                                 "a cooldown")
+            elif b.state == "closed":
+                _monitor.inc("serving.failover.breaker.closed",
+                             doc="half-open probes that succeeded and "
+                                 "closed the breaker")
+            _trace.instant("serving.failover.breaker", replica=replica,
+                           state=b.state)
+            _forensics.decision("breaker", replica=replica,
+                                state=b.state, failures=b.failures)
+        _monitor.set_gauge(
+            "serving.failover.breaker.open",
+            sum(1 for x in self.breakers.values()
+                if x.state != "closed"),
+            doc="replicas currently open or half-open")
 
     # -- introspection ------------------------------------------------------
 

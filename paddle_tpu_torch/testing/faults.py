@@ -32,11 +32,11 @@ Cross-process use (chaos runs, subprocess crash tests)::
 The flag is parsed once at import; the spec is a comma-separated list
 of ``point:action[:nth[:delay_s]]``.
 
-Where the port differs: the reference dumps its trace ring to a flight
-record before a ``raise`` or ``kill`` fires and records a trace event
-for each ``corrupt``; the trace plane is not ported (ROADMAP A7(c)), so
-those calls are left out. ``corrupt`` walks its value with
-``torch.utils._pytree`` where the reference walks a JAX tree.
+As in the reference, a ``raise`` or ``kill`` first dumps the trace ring
+to the armed flight record (``monitor.trace.record_fault``) and a
+``corrupt`` records a ``fault.corrupt`` trace event. Where the port
+differs: ``corrupt`` walks its value with ``torch.utils._pytree`` where
+the reference walks a JAX tree.
 
 The reference's injection points (grep ``faults.hit`` for the live
 list); those marked [port] exist in the port so far:
@@ -169,7 +169,17 @@ def _fire(point: str, value_point: bool):
 
 
 def _fire_fatal(point: str, action: str):
-    """raise/kill tail shared by ``hit`` and ``corrupt``."""
+    """raise/kill tail shared by ``hit`` and ``corrupt``. Black box
+    first: before the process dies (or the failure starts unwinding),
+    dump the trace ring + metrics snapshot to the armed flight-record
+    path. The lazy import keeps this module free of monitor dependencies
+    on the no-fault path; ``record_fault`` never raises and does nothing
+    when no destination is armed."""
+    try:
+        from ..monitor import trace as _trace
+        _trace.record_fault(point, action)
+    except Exception:
+        pass
     if action == "kill":
         os._exit(KILL_EXIT_CODE)
     raise FaultInjected(f"fault injected at {point!r}")
@@ -213,6 +223,11 @@ def corrupt(point: str, value):
         time.sleep(delay_s)
         return value
     if action in ("corrupt", "corrupt_inf"):
+        try:
+            from ..monitor import trace as _trace
+            _trace.instant("fault.corrupt", point=point, action=action)
+        except Exception:
+            pass
         return _poison_first_leaf(value, action == "corrupt_inf")
     _fire_fatal(point, action)
 

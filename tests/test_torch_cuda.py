@@ -1145,6 +1145,48 @@ def test_prefix_and_spec_planes_never_sync_the_host(dev, option, prompts, kw,
                for t in runs[1][0])
 
 
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_monitor_plane_never_syncs_the_host(dev, kv_quant):
+    """``[no_sync]``'s ``monitor`` case: the same serve with the monitor
+    on at exec and KV sample rates 1, its data plane under
+    ``set_sync_debug_mode("error")``, gives the tokens of the serve with
+    the monitor off; each prefill group and chunk takes an exec sample
+    and the chunk a KV-page sample, both outside the data plane."""
+    C = _chip_smoke()
+    cfg = L.llama_tiny(dtype=torch.bfloat16)
+    params = L.init_params(cfg, seed=0, device=dev)
+    free, _ = C.serve_strict(torch, L, cfg, params, dev, kv_quant,
+                             (40, 33, 50), 6, False)
+    counters = {}
+    strict, calls = C.serve_strict(torch, L, cfg, params, dev, kv_quant,
+                                   (40, 33, 50), 6, True, monitor=counters)
+    for a, b in zip(free, strict):
+        np.testing.assert_array_equal(a, b)
+    assert calls == {"prefill": 1, "decode": 1}
+    assert counters["jit.program.exec.samples"] == 2
+    assert counters["numerics.kv.samples"] == 1
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_monitor_planes_match_the_cpu(dev, kv_quant):
+    """``[monitor_parity]`` on float32 ``llama_tiny``: the card's tokens,
+    counters, histogram counts, cost records' integer fields, forensics
+    event kinds and SLO alerting equal the CPU's; ``model_flops`` within
+    ``chip_smoke.MONITOR_FLOPS_RTOL``."""
+    C = _chip_smoke()
+    cfg = L.llama_tiny()
+    cpu_params = L.init_params(cfg, seed=0, device="cpu")
+    card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+    card = C.monitor_case(torch, L, cfg, card_params, dev, kv_quant)
+    cpu = C.monitor_case(torch, L, cfg, cpu_params, "cpu", kv_quant)
+    for k in ("tokens", "counters", "histogram_counts", "cost_ints",
+              "forensics_kinds", "alerting"):
+        assert card[k] == cpu[k], k
+    for rid, v in cpu["model_flops"].items():
+        assert abs(card["model_flops"][rid] - v) <= \
+            C.MONITOR_FLOPS_RTOL * v
+
+
 def test_engine_options_match_the_cpu(dev):
     """``[engine_options_parity]``'s starved case: prefix cache and spec
     decode on 14 pages for ten prompts of three prefix families, float32

@@ -10,9 +10,9 @@ copy of ``paddle_tpu/core/flags.py``) and the options that read it.
 - ``set_flags`` reaches ``make_train_step``'s guard and numerics
   defaults and ``ServingEngine``'s ``kv_quant``, ``prefix_cache``,
   ``spec_decode``, ``priority_admission``, ``tenant_inflight_cap``,
-  ``slo_preemption``, ``max_queue`` and ``failover``; each serving flag
-  whose option is not ported makes the engine raise, naming ROADMAP
-  A7(c).
+  ``slo_preemption``, ``max_queue``, ``shed_on_burn`` and ``failover``;
+  each flag whose plane is not ported (fleet burn scaling, the monitor's
+  HTTP server) makes the engine raise, naming ROADMAP A7(d).
 """
 import os
 import subprocess
@@ -30,8 +30,9 @@ from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models import moe as TM
 
-PORTED = ("enable_sentinel", "enable_numerics", "fault_injection")
-UNPORTED_SERVING = ("serving_shed_on_burn", "serving_fleet_burn_scaling")
+PORTED = ("enable_sentinel", "enable_numerics", "fault_injection",
+          "enable_monitor", "enable_monitor_server", "monitor_server_port")
+UNPORTED_SERVING = ("serving_fleet_burn_scaling", "enable_monitor_server")
 # each ported serving option's flag and how the engine shows it is on
 ENGINE_OPTIONS = {
     "serving_prefix_cache": lambda e: e._prefix is not None,
@@ -40,6 +41,7 @@ ENGINE_OPTIONS = {
     "serving_tenant_inflight_cap": lambda e: e._tenant_cap == 4,
     "serving_slo_preemption": lambda e: e._slo_preemption,
     "serving_max_queue": lambda e: e._max_queue == 4,
+    "serving_shed_on_burn": lambda e: e._shed_on_burn,
     "serving_failover": lambda e: e._failover,
 }
 
@@ -163,7 +165,7 @@ def test_unported_serving_flags_raise_naming_a7(flag):
     default = TF._REGISTRY[flag].default
     on = True if isinstance(default, bool) else 4      # a cap or a depth
     paddle_tpu_torch.set_flags({f"FLAGS_{flag}": on})
-    with pytest.raises(NotImplementedError, match=r"A7\(c\)"):
+    with pytest.raises(NotImplementedError, match=r"A7\(d\)"):
         ServingEngine(TL, params, cfg, device="cpu")
     # a cap of 0 or below is uncapped, as in the reference: off
     paddle_tpu_torch.set_flags({f"FLAGS_{flag}": False if on is True else -1})
