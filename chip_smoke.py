@@ -138,8 +138,10 @@ Phases, each printed on its own line; any failure exits non-zero:
     (``_prefill_plane`` with context pages), a spec-decode serve with
     one verify round (``_spec_plane``), a serve over a float32 pool
     (the decode kernel's mixed pair) with a journal attached and a
-    deadline eviction, and a serve with the monitor on at exec and KV
-    sample rates 1, the calls counted by arm (``NO_SYNC_OPTIONS``);
+    deadline eviction, a serve with the monitor on at exec and KV
+    sample rates 1, and a serve that publishes a fleet telemetry frame at
+    every step, each publish under the same mode, the calls counted by
+    arm (``NO_SYNC_OPTIONS``);
 20. surface (card against CPU on the same seeded inputs): masked
     ``F.scaled_dot_product_attention`` (boolean and additive masks, with
     causal, 32 / 8 heads, float32 and bf16: plain math, no flash launch),
@@ -309,7 +311,41 @@ Phases, each printed on its own line; any failure exits non-zero:
     one the same replay gives for float32 ``llama_tiny`` on the card
     (``tests/test_torch_replay.py`` ties that block to JAX's); goodput
     tokens/s, p99 TTFT, terminal states, sheds by reason and wall under
-    the rung's keys.
+    the rung's keys. The engine publishes its fleet frames locally
+    (``publish_frames("replay-replica0", local_only=True)``, as the JAX
+    rung does), so the scorecard's fleet block lists it;
+41. fleet_parity (after ``monitor_parity``): the fleet replay
+    (``fleet_rung``: ``replay_fleet`` under the elastic serving
+    controller, every replica an engine of ``trace_replay_rung``'s
+    geometry publishing frames) with 2 replicas and ``max_replicas`` 2,
+    no kill, on float32 ``llama_tiny``, on the card and on the CPU from
+    one set of weights: every request's emitted token ids, the terminal
+    map (state, token count and replica of every request) and the
+    scorecard's ``deterministic`` block equal;
+42. operator_plane (after ``monitor_serve``): ``main``'s requests served
+    with the monitor on and ``FLAGS_enable_monitor_server`` on at port 0
+    (the engine starts the server): a thread scrapes every route while
+    the engine serves (each route's status printed: 200, 404 for an
+    absent scorecard, 501 for the routes whose planes are ROADMAP A9 /
+    A10); ``/memory`` reports the card's total memory as ``bytes_limit``
+    and ``bytes_in_use`` above 0; ``/profile?seconds=1`` taken mid-serve
+    writes a torch chrome trace holding ``paged_decode`` kernel events
+    and ``serving.decode_chunk`` annotations (file size and event counts
+    printed), and a second ``/profile`` while it runs gets 409; the
+    server stops cleanly;
+43. fleet_replay (after ``operator_plane``, on ``main``'s weights, all
+    ``--layers``): ``fleet_rung`` at Llama-3-8B widths, bf16, 2 replicas
+    and ``max_replicas`` 3 sharing the one parameter tree (each with its
+    own KV pool), heartbeats and frames in a temporary directory with a
+    ``FLEET_HEARTBEAT_TIMEOUT`` timeout, failover on, monitor on; a
+    ``kill`` episode on ``replica1`` at 0.3 s: nothing ``lost``, every
+    request in one terminal state, tokens conserved across the replicas
+    (the victim's discarded partial generations included), the stranded
+    requests recovered with lineage ``["replica1"]``, the controller's
+    stale replacement and spawns, ``recovery_s`` and the fleet block
+    (replicas, the failover snapshot); useful tokens/s, p99 TTFT, the
+    longest gap between a live replica's beats, and both kernels' launch
+    counts (above 0).
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -357,6 +393,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1969,7 +2006,8 @@ def trace_replay_rung(torch, family, cfg, params, device, slots=8, page=16,
     ``max_len`` 40, priority admission and a queue of ``2 * slots``; a
     warm pass over the rid-shifted trace, then the measured replay with a
     burst episode of ``6 * slots`` requests at 0.55 s (one engine step per
-    10 ms of virtual time) and its scorecard. Returns ``(result,
+    10 ms of virtual time) and its scorecard. The engine publishes its
+    fleet frames locally, as the JAX rung's does. Returns ``(result,
     scorecard, wall seconds of the measured replay)``."""
     import dataclasses
     from paddle_tpu_torch.inference import ServingEngine
@@ -1987,6 +2025,8 @@ def trace_replay_rung(torch, family, cfg, params, device, slots=8, page=16,
                         num_slots=slots, max_len=16 + 24, page_size=page,
                         decode_chunk=chunk, priority_admission=True,
                         max_queue=2 * slots)
+    # the JAX rung publishes its frames locally (bench.py:1310)
+    eng.publish_frames("replay-replica0", local_only=True)
     warm = dataclasses.replace(trace, requests=[
         dataclasses.replace(r, rid=r.rid + 500_000)
         for r in trace.requests])
@@ -2041,11 +2081,374 @@ def phase_trace_replay(torch, dev, card):
          goodput_tokens_per_sec=det["tokens"]["useful"] / wall,
          ttft_p99_ms=(lat.get("ttft_ms") or {}).get("p99"),
          verdict=sc["verdict"]["pass"], wall_s=wall, steps=result.steps,
-         flash=st["flash"], paged=st["paged"])
+         flash=st["flash"], paged=st["paged"],
+         fleet=json.dumps(sc["timing"]["fleet"], sort_keys=True).replace(
+             " ", ""))
     assert sc["verdict"]["pass"], sc["verdict"]
+    assert sc["timing"]["fleet"]["available"] and sc["timing"]["fleet"][
+        "replicas"] == ["replay-replica0"], sc["timing"]["fleet"]
     assert blob == json.dumps(tiny_sc["deterministic"], sort_keys=True), \
         (det, tiny_sc["deterministic"])
     assert det["terminal"].get("completed", 0) > 0
+    assert st["flash"] > 0 and st["paged"] > 0, st
+    _tc_route_only(st)
+    assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+
+
+# [fleet_replay]'s heartbeat timeout: generous against the longest gap
+# between a live replica's beats at 32 layers (a controller tick steps
+# every replica twice), which the phase prints
+FLEET_HEARTBEAT_TIMEOUT = 5.0
+FLEET_KILL_AT = 0.3
+
+
+def fleet_rung(torch, family, cfg, params, device, *, replicas=2,
+               max_replicas=None, kill_at=None, heartbeat_dir=None,
+               heartbeat_timeout=0.0, failover=False, slots=8, page=16,
+               chunk=4, rate=40.0):
+    """The fleet replay (``loadgen.replay_fleet`` under the elastic
+    serving controller): ``trace_replay_rung``'s trace (seed 1616 at
+    ``rate``, two tenants, a burst window), every replica an engine of
+    its geometry (``slots`` slots, pages of ``page``, decode chunk
+    ``chunk``, ``max_len`` 40, priority admission, a queue of
+    ``2 * slots``, ``failover``) over the one ``params`` tree, each with
+    its own KV pool; the replay publishes each replica's frames (into
+    ``heartbeat_dir``, else locally) and, with ``failover``, attaches its
+    journal. With ``kill_at`` a ``kill`` episode crashes ``replica1``
+    then. Returns ``(result, scorecard, wall seconds, longest gap between
+    two steps of a replica that was not killed, the manager, every
+    engine built)``; the manager keeps the failover coordinator alive for
+    the scorecard's fleet block."""
+    from paddle_tpu_torch.distributed.fleet.elastic import (
+        AdaptiveElasticManager)
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.loadgen import (Episode, TenantSpec,
+                                          build_scorecard, generate_trace,
+                                          replay_fleet)
+    trace = generate_trace(
+        1616, duration_s=1.0, rate=rate,
+        tenants=[TenantSpec("interactive", share=1.0, priority=2),
+                 TenantSpec("batch", share=2.0, priority=0)],
+        prompt_len=(4, 16), max_new_tokens=(4, 24), alpha=1.3,
+        burst=(0.5, 0.2, 2.0))
+    steps, engines = {}, []
+
+    def make(name):
+        eng = ServingEngine(family, params, cfg, device=device,
+                            num_slots=slots, max_len=16 + 24,
+                            page_size=page, decode_chunk=chunk,
+                            priority_admission=True, max_queue=2 * slots,
+                            failover=failover)
+        engines.append(eng)
+        stamps = steps.setdefault(name, [])
+        step = eng.step
+
+        def stamped():
+            stamps.append(time.perf_counter())
+            return step()
+        eng.step = stamped
+        return eng
+
+    episodes = [] if kill_at is None else [
+        Episode("kill", at_s=kill_at, replica="replica1")]
+    mgr = AdaptiveElasticManager()
+    t0 = time.perf_counter()
+    result = replay_fleet(make, trace, replicas=replicas,
+                          max_replicas=max_replicas or replicas,
+                          episodes=episodes, heartbeat_dir=heartbeat_dir,
+                          heartbeat_timeout=heartbeat_timeout,
+                          honor_deadlines=False, failover=failover,
+                          manager=mgr)
+    wall = time.perf_counter() - t0
+    killed = {e["replica"] for e in result.episodes
+              if e.get("kind") == "killed"}
+    gaps = [b - a for name, st in steps.items() if name not in killed
+            for a, b in zip(st, st[1:])]
+    return (result, build_scorecard(result), wall, max(gaps or [0.0]),
+            mgr, engines)
+
+
+def _terminal_map(result):
+    return {rid: (r["state"], r["tokens"], r.get("replica"))
+            for rid, r in sorted(result.terminal.items())}
+
+
+def _emitted_tokens(engines):
+    """Every request's emitted token ids over a fleet's engines (a run
+    without a kill serves each request on one engine)."""
+    out = {}
+    for eng in engines:
+        for rid, o in eng.outputs.items():
+            assert rid not in out, rid
+            out[rid] = [int(t) for t in o.tokens]
+    return dict(sorted(out.items()))
+
+
+def phase_fleet_parity(torch, dev):
+    """``fleet_rung`` with 2 replicas and no scaling, no kill, on float32
+    ``llama_tiny`` from one set of weights, on the card and on the CPU:
+    every request's emitted token ids (greedy), the terminal map (state,
+    token count, replica) and the scorecard's deterministic block equal;
+    the card through the kernels."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.monitor import federation as FED
+    cfg = L.llama_tiny()
+    cpu_params = L.init_params(cfg, seed=0, device="cpu")
+    card_params = L._map(lambda t: t.to(dev, copy=True), cpu_params)
+    runs = {}
+    for name, params, device in (("card", card_params, dev),
+                                 ("cpu", cpu_params, "cpu")):
+        FED.reset()
+        K.reset_dispatch_stats()
+        result, sc, _, _, _, engines = fleet_rung(torch, L, cfg, params,
+                                                  device)
+        runs[name] = (result, sc, K.dispatch_stats(),
+                      _emitted_tokens(engines))
+    FED.reset()
+    (card, card_sc, st, card_tok), (cpu, cpu_sc, _, cpu_tok) = (
+        runs["card"], runs["cpu"])
+    det = json.dumps(card_sc["deterministic"], sort_keys=True)
+    same_tokens = card_tok == cpu_tok
+    same_map = _terminal_map(card) == _terminal_map(cpu)
+    same_det = det == json.dumps(cpu_sc["deterministic"], sort_keys=True)
+    _say("fleet_parity", replicas=",".join(sorted(card.engine_stats)),
+         offered=card.offered, terminal=",".join(
+             f"{k}:{v}" for k, v in sorted(card.terminal_counts().items())),
+         requests=len(card_tok),
+         emitted_tokens=sum(map(len, card_tok.values())),
+         tokens_equal=same_tokens,
+         terminal_map_equal=same_map, deterministic_equal=same_det,
+         fleet=",".join(card_sc["timing"]["fleet"]["replicas"]),
+         flash=st["flash"], paged=st["paged"])
+    assert same_tokens, [(r, t, cpu_tok.get(r)) for r, t in
+                         card_tok.items() if t != cpu_tok.get(r)]
+    assert set(card_tok) == set(card.terminal), (card_tok, card.terminal)
+    assert same_map, (_terminal_map(card), _terminal_map(cpu))
+    assert same_det, (card_sc["deterministic"], cpu_sc["deterministic"])
+    assert card.terminal_counts().get("lost", 0) == 0
+    assert set(card.engine_stats) == {"replica0", "replica1"}
+    assert st["flash"] > 0 and st["paged"] > 0, st
+    assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+
+
+def phase_fleet_replay(torch, dev, cfg, params, card):
+    """``fleet_rung`` at Llama-3-8B widths on ``main``'s weights: 2
+    replicas, ``max_replicas`` 3, failover on, heartbeats in a temporary
+    directory, a kill of ``replica1`` at ``FLEET_KILL_AT``, monitor on.
+    Nothing may be lost; the rest are readings."""
+    import tempfile
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    with monitor_on(), tempfile.TemporaryDirectory() as hb:
+        K.reset_dispatch_stats()
+        result, sc, wall, gap, mgr, _ = fleet_rung(
+            torch, L, cfg, params, dev, replicas=2, max_replicas=3,
+            kill_at=FLEET_KILL_AT, heartbeat_dir=hb,
+            heartbeat_timeout=FLEET_HEARTBEAT_TIMEOUT, failover=True)
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        leftover = sorted(os.listdir(hb))
+    counts = result.terminal_counts()
+    recovered = [r for r in result.terminal.values()
+                 if r.get("recovered_from")]
+    generated = sum(s["tokens_generated"] - s["tokens_discarded"]
+                    for s in result.engine_stats.values())
+    kept = sum(r["tokens"] for r in result.terminal.values())
+    events = [(d.get("reason"), d.get("replica"))
+              for _, _, d in result.fleet_events]
+    timing = sc["timing"]
+    fleet = timing["fleet"]
+    fo = result.failover or {}
+    useful = result.useful_tokens()
+    _say("fleet_replay", card=repr(card),
+         config=f"llama_3_8b[{cfg.num_hidden_layers}L]", replicas=2,
+         max_replicas=3, heartbeat_timeout_s=FLEET_HEARTBEAT_TIMEOUT,
+         kill=f"replica1@{FLEET_KILL_AT}s", offered=result.offered,
+         terminal=",".join(f"{k}:{v}" for k, v in sorted(counts.items())),
+         lost=counts.get("lost", 0), recovered_lineage=len(recovered),
+         recovery_s=timing.get("recovery_s"),
+         token_conservation=generated == kept, tokens_kept=kept,
+         useful_tokens=useful, useful_tokens_per_sec=useful / wall,
+         ttft_p99_ms=(timing["latency_ms"].get("ttft_ms") or {}).get("p99"),
+         wall_s=wall, longest_beat_gap_s=gap, steps=result.steps,
+         flash=st["flash"], paged=st["paged"],
+         verdict=sc["verdict"]["pass"])
+    _say("fleet_replay", events=";".join(f"{r}:{n}" for r, n in events),
+         spawned=",".join(sorted(result.engine_stats)),
+         failover_counters=json.dumps(fo.get("counters"),
+                                      sort_keys=True).replace(" ", ""),
+         request_recovery_s=json.dumps(
+             (timing.get("failover") or {}).get("recovery_s"),
+             sort_keys=True).replace(" ", ""))
+    _say("fleet_replay", fleet_block=json.dumps(
+        {k: v for k, v in fleet.items() if k != "failover"},
+        sort_keys=True).replace(" ", ""),
+        fleet_failover=json.dumps(fleet.get("failover"),
+                                  sort_keys=True).replace(" ", ""),
+        heartbeat_files_left=",".join(leftover))
+    del mgr
+    assert sc["verdict"]["pass"], sc["verdict"]
+    assert counts.get("lost", 0) == 0, counts
+    assert len(result.terminal) == result.offered
+    assert generated == kept, (generated, kept)
+    kinds = [e["kind"] for e in result.episodes]
+    assert "killed" in kinds and "recovered" in kinds, result.episodes
+    assert fo["counters"]["stranded"] >= 1, fo
+    assert recovered and all(r["recovered_from"] == ["replica1"]
+                             for r in recovered), recovered
+    assert timing.get("recovery_s") is not None
+    assert fleet["available"] and fleet.get("failover") is not None, fleet
+    # only the victim went stale: no live replica missed its beats
+    assert [n for r, n in events if r == "stale-replace"] == [
+        "replica1"], events
+    assert st["flash"] > 0 and st["paged"] > 0, st
+    _tc_route_only(st)
+    assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+
+
+# [operator_plane]: the routes a thread scrapes while the engine serves,
+# and the statuses each may answer (404: no trace replay scored yet in
+# this process; 501: a plane of ROADMAP A9 / A10)
+OPERATOR_ROUTES = {
+    "/metrics": {200}, "/healthz": {200}, "/flight": {200},
+    "/programs": {200}, "/memory": {200}, "/numerics": {200},
+    "/slo": {200}, "/fleet/serving": {200}, "/scorecard": {200, 404},
+    "/forensics": {200}, "/requests/0": {200}, "/": {200},
+    "/roofline": {501}, "/timeseries": {501}, "/sharding": {501},
+    "/metrics?scope=fleet": {501},
+}
+
+
+OPERATOR_SCRAPE_PAUSE_S = 0.25
+
+
+def _http(url):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def phase_operator_plane(torch, dev, cfg, params, requests, card):
+    """``main``'s requests served with the monitor on and the operator
+    server on at port 0 (started by the engine): every route scraped
+    while the engine serves, ``/memory`` against the card's memory, a
+    1 s ``/profile`` mid-serve holding ``paged_decode`` kernels and
+    ``serving.decode_chunk`` annotations, a concurrent second
+    ``/profile`` refused with 409, the server stopped at the end."""
+    import tempfile
+    import threading
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.monitor import profile_capture as PC
+    saved_dir = os.environ.get("PADDLE_TPU_PROFILE_DIR")
+    statuses = {r: set() for r in OPERATOR_ROUTES}
+    scrapes = [0]
+    got = {}
+    with monitor_on() as M, tempfile.TemporaryDirectory() as prof_dir:
+        os.environ["PADDLE_TPU_PROFILE_DIR"] = prof_dir
+        paddle_tpu_torch.set_flags({"FLAGS_enable_monitor_server": True,
+                                    "FLAGS_monitor_server_port": 0})
+        try:
+            eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048)
+            srv = M.server.get_server()
+            assert srv is not None and srv.port > 0
+            stop = threading.Event()
+
+            def scrape():
+                # a round of every route, then a pause: a scraper at full
+                # speed would hold the interpreter lock the engine's host
+                # loop needs
+                while not stop.is_set():
+                    for route in OPERATOR_ROUTES:
+                        st, body = _http(srv.url + route)
+                        statuses[route].add(st)
+                        if route == "/memory" and st == 200:
+                            got["memory"] = json.loads(body)
+                    scrapes[0] += 1
+                    stop.wait(OPERATOR_SCRAPE_PAUSE_S)
+
+            def profile():
+                got["profile"] = _http(srv.url + "/profile?seconds=1")
+
+            scraper = threading.Thread(target=scrape, daemon=True)
+            for r in requests:
+                eng.submit(r)
+            K.reset_dispatch_stats()
+            t0 = time.perf_counter()
+            eng.step()                   # the first prefill group
+            scraper.start()
+            prof = threading.Thread(target=profile, daemon=True)
+            prof.start()
+            # the window opens before the engine steps on, so every
+            # step of the next second runs inside it
+            while not PC.capturing() and prof.is_alive():
+                time.sleep(0.001)
+            got["second"] = _http(srv.url + "/profile?seconds=1")
+            capture_steps = 0
+            while eng.step():
+                capture_steps += PC.capturing()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.join()
+            stop.set()
+            scraper.join()
+            st = K.dispatch_stats()
+            out = eng.outputs
+            info = json.loads(got["profile"][1])
+            trace_path = os.path.join(info["dir"], PC.TRACE_FILE)
+            trace_bytes = os.path.getsize(trace_path)
+            with open(trace_path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            M.server.stop_server()
+            paddle_tpu_torch.set_flags({"FLAGS_enable_monitor_server":
+                                        False})
+            if saved_dir is None:
+                os.environ.pop("PADDLE_TPU_PROFILE_DIR", None)
+            else:
+                os.environ["PADDLE_TPU_PROFILE_DIR"] = saved_dir
+        stopped = M.server.get_server() is None
+    names = [e.get("name", "") for e in events]
+    paged_events = sum("paged_decode" in n for n in names)
+    chunk_events = names.count("serving.decode_chunk")
+    prefill_events = names.count("serving.prefill")
+    mem = got["memory"]["hbm"]
+    total = torch.cuda.mem_get_info(dev.index)[1]
+    card_mem = mem["devices"][dev.index]
+    _say("operator_plane", card=repr(card), port=srv.port,
+         scrape_rounds=scrapes[0], serve_wall_s=wall,
+         statuses=",".join(f"{r}:{'/'.join(map(str, sorted(v)))}"
+                           for r, v in statuses.items()))
+    _say("operator_plane", memory_bytes_limit=card_mem["bytes_limit"],
+         card_total_bytes=total, memory_bytes_in_use=card_mem[
+             "bytes_in_use"], profile_status=got["profile"][0],
+         second_profile_status=got["second"][0],
+         trace_file_bytes=trace_bytes, trace_events=len(events),
+         paged_decode_kernel_events=paged_events,
+         decode_chunk_annotations=chunk_events,
+         prefill_annotations=prefill_events,
+         steps_while_capturing=capture_steps, server_stopped=stopped,
+         flash=st["flash"], paged=st["paged"])
+    for route, want in OPERATOR_ROUTES.items():
+        assert statuses[route] and statuses[route] <= want, (route,
+                                                             statuses)
+    assert card_mem["bytes_limit"] == total, (card_mem, total)
+    assert card_mem["bytes_in_use"] > 0, card_mem
+    assert got["profile"][0] == 200, got["profile"]
+    assert got["second"][0] == 409, got["second"]
+    assert paged_events > 0 and chunk_events > 0, (paged_events,
+                                                   chunk_events)
+    assert stopped
+    for r in requests:
+        assert len(out[r.rid].tokens) == r.max_new_tokens, r.rid
     assert st["flash"] > 0 and st["paged"] > 0, st
     _tc_route_only(st)
     assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
@@ -4604,7 +5007,7 @@ NO_SYNC_PROMPTS, NO_SYNC_CHUNK = (400, 300, 257), 8
 def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
                  chunk, forbid_sync, temperature=0.0, shared=0,
                  warm_first=False, max_new=None, deadline=None,
-                 journal=None, monitor=None, **options):
+                 journal=None, monitor=None, frames=False, **options):
     """Serve ``prompts`` (random ids from seed 0, the first ``shared`` of
     them the same in every prompt; ``max_new`` new tokens each, default
     ``chunk + 1``) with a ``ServingEngine`` of 4 slots and decode chunk
@@ -4617,7 +5020,10 @@ def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
     its first chunk; with ``journal`` (a directory) the engine journals
     there as replica ``no_sync`` (``attach_journal``). With ``monitor``
     (a dict) the serve runs with the monitor on at exec and KV sample
-    rates 1, and the dict gets the monitor's counters. With
+    rates 1, and the dict gets the monitor's counters. With ``frames``
+    the engine publishes fleet telemetry frames (``publish_frames``,
+    local only, at every step), and with ``forbid_sync`` each publish
+    runs under the same sync mode as the data plane. With
     ``warm_first`` the first request is served alone before the others,
     so that its retirement seeds the prefix cache. With ``forbid_sync``
     every call of the engine's data plane (``_prefill_plane``,
@@ -4657,6 +5063,21 @@ def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
                 torch.cuda.set_sync_debug_mode(prev)
         return run
 
+    if frames:
+        eng.publish_frames("no_sync", local_only=True, min_interval_s=0.0)
+        publish = eng._frame_pub.maybe_publish
+
+        def strict_publish(*args, **kw):
+            calls["frames"] = calls.get("frames", 0) + 1
+            if not forbid_sync:
+                return publish(*args, **kw)
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return publish(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        eng._frame_pub.maybe_publish = strict_publish
     eng._prefill_plane = watched("prefill", eng._prefill_plane)
     eng._decode_plane = watched("decode", eng._decode_plane)
     eng._spec_plane = watched("spec", eng._spec_plane)
@@ -4693,7 +5114,9 @@ def serve_strict(torch, family, cfg, params, dev, kv_quant, prompts,
 # attached, and the second request's deadline is spent by its first
 # decode chunk (serve_strict's fake clock), so the second step evicts it
 # with 9 of its 17 tokens; "monitor" serves with the monitor planes on at
-# exec and KV sample rates 1 (the free serve runs with them off)
+# exec and KV sample rates 1 (the free serve runs with them off); "frames"
+# publishes a fleet telemetry frame at every step (local only), each
+# publish under the sync mode too
 NO_SYNC_DEADLINE_S = 0.05
 NO_SYNC_OPTIONS = {
     "prefix": ((400, 300, 257), dict(shared=256, warm_first=True,
@@ -4708,6 +5131,8 @@ NO_SYNC_OPTIONS = {
                  {"prefill": 1, "decode": 2}),
     "monitor": ((400, 300, 257), dict(monitor=True),
                 {"prefill": 1, "decode": 1}),
+    "frames": ((400, 300, 257), dict(frames=True),
+               {"prefill": 1, "decode": 1}),
 }
 
 
@@ -4723,9 +5148,11 @@ def phase_no_sync(torch, dev, cfg, params):
     cache serve whose second group prefills its tails over the cached
     prefix, a spec decode serve with one verify round, a serve over a
     float32 pool (the mixed pair) with a journal and a deadline
-    eviction, and a serve with the monitor on (exec and KV sampled at
+    eviction, a serve with the monitor on (exec and KV sampled at
     every chunk: the exec sample closes on the chunk's own download and
-    the KV-page reduction runs after it, outside the data plane)."""
+    the KV-page reduction runs after it, outside the data plane), and a
+    serve that publishes a fleet frame at every step (host state only),
+    each publish under the sync mode too."""
     import tempfile
 
     import numpy as np
@@ -4799,7 +5226,14 @@ def phase_no_sync(torch, dev, cfg, params):
             assert counters["numerics.kv.samples"] == 1, counters
         assert {k: calls.get(k, 0) for k in want} == want, (option, calls)
         assert set(calls) <= {"prefill", "prefill_shared", "decode",
-                              "spec"}, calls
+                              "spec", "frames"}, calls
+        if kw.get("frames"):
+            # the attach publish and one a step, each under the sync
+            # mode; the last frame saw every request complete
+            from paddle_tpu_torch.monitor import federation as FED
+            frame = FED.local_frames()["no_sync"]
+            assert calls["frames"] >= 2, calls
+            assert frame["requests"]["completed"] == len(prompts), frame
         new = kw.get("max_new", chunk + 1)
         if option == "kv_dtype":
             # the second request evicted after its first step (1 + chunk
@@ -5715,6 +6149,7 @@ def main() -> int:
     phase_engine_options_parity(torch, dev)
     phase_overload_parity(torch, dev)
     phase_monitor_parity(torch, dev)
+    phase_fleet_parity(torch, dev)
     phase_quant_parity(torch, dev)
     phase_train_parity(torch, dev)
     phase_train_packed_parity(torch, dev)
@@ -5756,6 +6191,10 @@ def main() -> int:
     phase_failover_serve(torch, dev, cfg, params, requests, smi, main_tokens)
     torch.cuda.empty_cache()
     phase_monitor_serve(torch, dev, cfg, params, requests, smi)
+    torch.cuda.empty_cache()
+    phase_operator_plane(torch, dev, cfg, params, requests, smi)
+    torch.cuda.empty_cache()
+    phase_fleet_replay(torch, dev, cfg, params, smi)
     torch.cuda.empty_cache()
     phase_trace_replay(torch, dev, smi)
     torch.cuda.empty_cache()

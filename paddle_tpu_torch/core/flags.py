@@ -13,12 +13,12 @@ defaults through ``training.guards``) and every ``serving_*`` flag (read by
 ``serving_spec_decode``, ``serving_priority_admission``,
 ``serving_tenant_inflight_cap``, ``serving_slo_preemption``,
 ``serving_max_queue``, ``serving_shed_on_burn`` and ``serving_failover``
-are its options' defaults; ``serving_fleet_burn_scaling`` names the elastic
-controller's option, which waits for fleet federation, and the engine
-refuses to run with it on), ``enable_monitor`` (the monitor planes),
+are its options' defaults; ``serving_fleet_burn_scaling`` is the elastic
+serving controller's burn scaling over federated frames,
+``distributed/fleet/elastic.py``), ``enable_monitor`` (the monitor planes),
 ``enable_monitor_server`` and ``monitor_server_port`` (the operator HTTP
-server, ROADMAP A7(d): the engine refuses ``enable_monitor_server``) and
-``fault_injection`` (armed at import by ``testing.faults``). Left out,
+server, which ``ServingEngine`` starts through ``monitor.server.maybe_start``)
+and ``fault_injection`` (armed at import by ``testing.faults``). Left out,
 because nothing in the port reads them: the JAX-only flags
 (``use_pallas_kernels``, ``eager_jit_ops``, ``default_matmul_precision``)
 and ``check_nan_inf``, whose module is not ported yet.

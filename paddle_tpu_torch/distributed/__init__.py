@@ -1,8 +1,9 @@
-"""Distributed runtime (port of ``paddle_tpu/distributed/``). So far only
-the named-participant transport of ``heartbeat.py``, which the serving
-engine's admission journal publishes on; process groups, collectives and
-the elastic controllers are ROADMAP A9 / A10.
+"""Distributed runtime (port of ``paddle_tpu/distributed/``). So far the
+named-participant transport of ``heartbeat.py`` (serving replicas'
+beats, telemetry frames and admission journals) and the elastic serving
+controller of ``fleet/elastic.py``. Process groups and collectives are
+ROADMAP A9; the launcher, checkpoints and the training fleet are A10.
 """
-from . import heartbeat  # noqa: F401
+from . import fleet, heartbeat  # noqa: F401
 
-__all__ = ["heartbeat"]
+__all__ = ["fleet", "heartbeat"]

@@ -84,11 +84,16 @@ work later thrown away included); ``serving.tokens.discarded`` counts the
 tokens a preemption discarded. On a drained engine ``generated -
 discarded == sum(len(output.tokens))`` exactly.
 
-``FLAGS_serving_fleet_burn_scaling`` (the elastic controller's burn
-scaling over federated frames) and ``FLAGS_enable_monitor_server`` (the
-operator HTTP server) are not ported (ROADMAP A7(d)): the constructor
-refuses to build an engine with either on, and ``publish_frames`` (fleet
-federation) raises. SLO preemption measures a victim's work by its cost
+The operator and fleet planes: ``FLAGS_enable_monitor_server`` makes the
+constructor start the operator HTTP server (``monitor/server.py``
+``maybe_start``), whose ``/profile`` window annotates the prefill group,
+decode chunk and verify round (``monitor/profile_capture.py``);
+``publish_frames`` attaches a telemetry frame publisher
+(``monitor/federation.py``) that publishes on every scheduler step and
+on the drain transition, reading host state only;
+``FLAGS_serving_fleet_burn_scaling`` is the elastic controller's option
+(``distributed/fleet/elastic.py``), which reads those frames. SLO
+preemption measures a victim's work by its cost
 record's prefill and decode tokens with the monitor on, else by its KV
 length, as the reference does.
 
@@ -122,6 +127,7 @@ from ..core import enforce as E
 from ..core import flags as _flags
 from ..core import resolve_device
 from ..monitor import forensics as _forensics
+from ..monitor import profile_capture as _pcap
 from ..monitor import programs as _programs
 from ..monitor import server as _mserver
 from ..monitor import slo as _slo
@@ -139,12 +145,6 @@ PAGED_DEFAULT_PAGE = 16
 # paged_candidates(kv_quant=True)[0]); the CUDA int8 arm takes any page
 # size, so this is the default only
 PAGED_QUANT_PAGE = 32
-
-# the reference's flags whose planes are not ported: the elastic
-# controller's fleet burn scaling (federated SLO frames) and the
-# operator HTTP server
-_UNPORTED_FLAGS = ("serving_fleet_burn_scaling", "enable_monitor_server")
-
 
 def _engine_health_provider(ref):
     """Health contributor over a weakly-held engine: queue depth, slot
@@ -464,12 +464,9 @@ class ServingEngine:
     ``FLAGS_serving_*`` flag; the module docstring says what each does.
     All off, the default, is the engine above, tokens and scheduling
     alike. Deadlines (``Request.deadline_s``) and the drain lifecycle
-    (``begin_drain``) need no option.
-
-    Fleet burn scaling and the operator HTTP server are not ported yet
-    (ROADMAP A7(d)): with ``FLAGS_serving_fleet_burn_scaling`` or
-    ``FLAGS_enable_monitor_server`` on the constructor raises
-    ``NotImplementedError``."""
+    (``begin_drain``) need no option. With ``FLAGS_enable_monitor_server``
+    on, the constructor starts the operator HTTP server on
+    ``FLAGS_monitor_server_port``."""
 
     def __init__(self, family, params, config, *, num_slots: int = 8,
                  max_len: Optional[int] = None,
@@ -486,15 +483,6 @@ class ServingEngine:
                  shed_on_burn: Optional[bool] = None,
                  failover: Optional[bool] = None, kv_dtype=None,
                  device=None):
-        on = [f"FLAGS_{flag}" for flag in _UNPORTED_FLAGS
-              if _flags.flag_value(flag)]
-        if on:
-            raise NotImplementedError(
-                f"ServingEngine: {', '.join(on)} selects a plane that is "
-                f"not ported yet (ROADMAP.md queue A item A7(d): fleet "
-                f"federation with its burn scaling, and the operator HTTP "
-                f"server)")
-
         def _opt(v, flag):
             return _flags.flag_value(flag) if v is None else v
         self._priority_admission = bool(
@@ -511,6 +499,8 @@ class ServingEngine:
         # caller names the replica through attach_journal
         self._failover = bool(_opt(failover, "serving_failover"))
         self._journal = None
+        # the fleet telemetry frame publisher (publish_frames opts in)
+        self._frame_pub = None
         self._draining = False
         self._deadlines_seen = False     # sticky: the first request with a
         #                                  deadline arms step's expiry scan
@@ -570,6 +560,9 @@ class ServingEngine:
         self._flops_by_key: dict = {}
         _monitor.set_gauge("serving.pages.total", self.cache.num_pages,
                            doc="KV page pool capacity")
+        # the operator HTTP server, when FLAGS_enable_monitor_server is
+        # on (one cached-flag branch otherwise)
+        _mserver.maybe_start()
         # process-unique uid: keys the health provider ("serving:<n>")
         # and the program records, which outlive the engine. The
         # provider holds the engine weakly and registers only while
@@ -902,6 +895,12 @@ class ServingEngine:
                 else:
                     self._finish_shed(r, "engine is draining")
             self.queue = keep
+        if self._frame_pub is not None:
+            # drain state must reach the federation controller now, not
+            # a rate-limit later; only the TRANSITION forces: the
+            # controller re-invokes begin_drain every retry tick of a
+            # slow drain
+            self._frame_pub.maybe_publish(self, force=not already)
 
     @property
     def draining(self) -> bool:
@@ -1447,7 +1446,8 @@ class ServingEngine:
             pf_flops = self._program_flops(key)
             if pf_flops:
                 flops_share = pf_flops / len(group)
-        with _trace.span("serving.prefill", group=len(group), s_pad=s_pad):
+        with _trace.span("serving.prefill", group=len(group),
+                         s_pad=s_pad), _pcap.annotate("serving.prefill"):
             # the download waits for the card: the span ends, and the
             # first token is stamped, when the tokens reached the host
             toks = self._prefill_plane(
@@ -1631,6 +1631,10 @@ class ServingEngine:
                 len(self.queue), len(live_idx), self.num_slots,
                 self.cache.alloc.free_pages / self.cache.num_pages
                 if self.cache.num_pages else 0.0)
+        if self._frame_pub is not None:
+            # the federation frame on the same host tick (rate-limited
+            # inside; host state only, no read of the device)
+            self._frame_pub.maybe_publish(self)
         if not live_idx:
             return bool(self.queue) or any(
                 s is not None for s in self.slots)
@@ -1685,7 +1689,9 @@ class ServingEngine:
                  head_rows=B, steps=C), args, len(live_idx)) \
             if mon else (None, None)
         with _trace.span("serving.decode_chunk", chunk=C,
-                         live=len(live_idx)):
+                         live=len(live_idx)), \
+                _pcap.annotate_step("serving.decode_chunk",
+                                    self.stats.decode_steps):
             # one download a chunk: every host-side fact derives from the
             # emitted grid (-1 = the slot was done at that step), and the
             # download waits for the card, so the span ends when the
@@ -1835,7 +1841,9 @@ class ServingEngine:
                  head_rows=B * C), args, len(live_idx)) \
             if mon else (None, None)
         with _trace.span("serving.spec_chunk", chunk=C,
-                         live=len(live_idx)):
+                         live=len(live_idx)), \
+                _pcap.annotate_step("serving.spec_chunk",
+                                    self.stats.decode_steps):
             preds = self._spec_plane(*args).cpu().numpy()    # [B, C]
         self.stats.decode_s += time.perf_counter() - t0
         t_chunk = self._chunk_edge(exec_rec) if mon else None
@@ -1932,12 +1940,26 @@ class ServingEngine:
                                       float(np.mean(clip[in_use])))
 
     def publish_frames(self, name: str, dir_path: Optional[str] = None,
-                       **kwargs):
-        """Fleet SLO federation (the reference's per-replica telemetry
-        frames, ``monitor/federation.py``) is not ported yet."""
-        raise NotImplementedError(
-            "ServingEngine.publish_frames: fleet SLO federation is not "
-            "ported yet (ROADMAP.md queue A item A7(d))")
+                       *, min_interval_s: float = 0.25, client=None,
+                       local_only: bool = False, slo_fn=None):
+        """Opt this replica into fleet SLO federation
+        (``monitor/federation.py``): attach a frame publisher that emits a
+        compact versioned telemetry frame (autoscale payload,
+        per-objective burn and compliance, bounded tenant aggregates,
+        terminal-state counters, drain state) on every scheduler step,
+        rate-limited to ``min_interval_s``, through the name-keyed
+        heartbeat transport (``dir_path`` beat files, and a key-value
+        store with ``client``; the frame IS the liveness beat).
+        ``local_only`` keeps frames in this process's registry. Host
+        reads only: publishing adds no read of the device. Returns the
+        publisher (one per engine; attaching again replaces it)."""
+        from ..monitor import federation as _fed
+        self._frame_pub = _fed.FramePublisher(
+            name, dir_path=dir_path, client=client,
+            local_only=local_only,
+            min_interval_s=min_interval_s, slo_fn=slo_fn)
+        self._frame_pub.maybe_publish(self, force=True)
+        return self._frame_pub
 
     def run(self, requests=None, max_steps: int = 1_000_000
             ) -> Dict[int, RequestOutput]:

@@ -4,12 +4,13 @@ also holds the replay's prompt builder, ``traces._trace_prompt``), the
 open-loop single-engine replay (``replay.py`` :func:`replay_trace`, on a
 virtual clock with burst and drain episodes) and the SLO scorecard
 (``scorecard.py`` :func:`build_scorecard`, deterministic and timing
-halves and a verdict). The fleet replay (``replay_fleet``, with the
-elastic controller, failover re-dispatch and federated frames) waits for
-ROADMAP A7(d).
+halves and a verdict), and the fleet replay (``replay.py``
+:func:`replay_fleet`: replicas under the elastic serving controller,
+publishing federated frames, with kill episodes and exactly-once
+failover re-dispatch).
 """
 from .replay import (BURST_RID_BASE, Episode, ReplayResult,  # noqa: F401
-                     replay_trace)
+                     replay_fleet, replay_trace)
 from .scorecard import (build_scorecard, last_scorecard,  # noqa: F401
                         set_last_scorecard)
 from .traces import (ArrivalTrace, TenantSpec, TraceRequest,  # noqa: F401
@@ -19,5 +20,5 @@ from .traces import (ArrivalTrace, TenantSpec, TraceRequest,  # noqa: F401
 __all__ = ["ArrivalTrace", "BURST_RID_BASE", "Episode", "ReplayResult",
            "TenantSpec", "TraceRequest", "build_scorecard",
            "generate_trace", "heavy_tailed_lengths", "last_scorecard",
-           "mixed_length_trace", "prompt_tokens", "replay_trace",
+           "mixed_length_trace", "prompt_tokens", "replay_fleet", "replay_trace",
            "set_last_scorecard", "tenant_prefix_tokens"]

@@ -16,10 +16,10 @@ hard separation:
 - ``timing``: everything stamped from the wall clock — latency
   quantiles, burn rates, episode-local SLO probes, fleet frames,
   wall seconds. Quarantined so nondeterminism never leaks into the
-  deterministic contract. The fleet block reads federated frames
-  (``monitor/federation.py``, ROADMAP A7(d)); until federation is
-  ported it is ``{"available": False}``, the reference's answer when no
-  frame was published.
+  deterministic contract. The fleet block reads the federated frames
+  (``monitor/federation.py``): ``{"available": False}`` when no frame
+  was published, else the replicas, the verdict and, under failover,
+  the coordinator's snapshot.
 - ``verdict``: pass/fail with typed reasons — every request in
   exactly one terminal state, the token conservation contract, shed
   requests carrying retry hints, no ``lost`` work outside a scripted
@@ -139,10 +139,24 @@ def _forensics_attribution_block() -> dict:
 
 
 def _fleet_block() -> dict:
-    """Federated frames (``monitor/federation.py``) are not ported: no
-    frame is ever published, so the block is the reference's answer for
-    that case."""
-    return {"available": False}
+    try:
+        from ..monitor import federation as _fed
+        snap = _fed.fleet_serving_snapshot()
+        frames = snap.get("frames") or {}
+        if not frames:
+            return {"available": False}
+        out = {"available": True, "replicas": sorted(frames),
+               "source": snap.get("source")}
+        rep = snap.get("report")
+        if rep:
+            out["alerting"] = rep.get("alerting")
+            out["demand_estimate"] = rep.get("demand_estimate")
+        fo = snap.get("failover")
+        if fo is not None:
+            out["failover"] = fo
+        return out
+    except Exception:
+        return {"available": False}
 
 
 def _sum_engine_stat(result: "ReplayResult", key: str) -> int:

@@ -14,7 +14,12 @@ planes built on it:
 - ``programs``: the serving programs with their shapes, hits and FLOPs;
 - ``exectime``: 1-in-N sampled execution timing at the engine's seams;
 - ``numerics``: the KV half (KV-page absmax, KV-quant health);
-- ``server``: the health-provider map (``health()``).
+- ``memory``: device-memory gauges and the serving headroom estimate;
+- ``federation``: per-replica telemetry frames and the federated fleet
+  verdict the elastic serving controller scales on;
+- ``profile_capture``: the on-demand ``torch.profiler`` window;
+- ``server``: the operator HTTP server (``start_server`` /
+  ``stop_server`` / ``maybe_start``) and its health-provider map.
 
 Gating: everything is behind ``FLAGS_enable_monitor`` (core/flags.py).
 With the flag off (the default) every instrumented seam pays ONE branch
@@ -29,11 +34,10 @@ Not ported yet, with their queue items in ROADMAP.md:
 
 - ``record_op``, ``tensor_bytes`` and ``tensor_free``, hooks of the
   eager ``Tensor`` (A10, ``core/``);
-- the ``mfu``, ``steptimer``, ``fleet``, ``memory``, ``comms``,
-  ``roofline`` and ``timeseries`` planes, the rest of ``numerics`` and
-  ``profiler/`` (A10);
-- ``federation``, the HTTP server (``start_server`` / ``stop_server``)
-  and ``profile_capture`` (A7(d)).
+- the ``mfu``, ``steptimer``, ``comms``, ``roofline`` and
+  ``timeseries`` planes, the rest of ``numerics`` and ``profiler/``
+  (A10);
+- ``fleet``, the cross-host metrics aggregate, a collective (A9).
 """
 from __future__ import annotations
 
@@ -51,7 +55,8 @@ __all__ = [
     "inc", "observe", "set_gauge",
     "snapshot", "expose_text", "dump_json", "reset", "timed",
     "trace", "server", "programs", "exectime", "numerics", "slo",
-    "forensics", "suppressed", "suppress_accounting",
+    "forensics", "memory", "federation", "profile_capture",
+    "suppressed", "suppress_accounting",
 ]
 
 # The one process-global registry (monitor.h StatRegistry::Instance()).
@@ -137,13 +142,16 @@ def expose_text() -> str:
     """Prometheus text exposition of every registered metric, plus the
     SLO plane's per-tenant labeled series (``slo_tenant_*{tenant=...}``
     — tenant names are client-supplied strings, so they ride label
-    escaping, not metric names; empty until a tenant records). The
-    reference also appends federation's per-replica series, empty until
-    a federated report exists; federation is not ported (A7(d))."""
+    escaping, not metric names; empty until a tenant records)."""
     text = _exposition.expose_text(_REGISTRY)
     tenant_text = slo.tenant_exposition_text()
     if tenant_text:
         text += tenant_text
+    # federation per-replica attribution series (slo_fleet_replica_*
+    # {replica="..."}); empty until a federated report exists
+    fed_text = federation.exposition_text()
+    if fed_text:
+        text += fed_text
     return text
 
 
@@ -164,6 +172,7 @@ def reset():
     exectime.reset()
     numerics.reset()
     slo.reset()
+    federation.reset()
     forensics.reset()
 
 
@@ -202,4 +211,7 @@ from . import exectime  # noqa: E402
 from . import numerics  # noqa: E402
 from . import slo  # noqa: E402
 from . import forensics  # noqa: E402
+from . import memory  # noqa: E402
+from . import federation  # noqa: E402
+from . import profile_capture  # noqa: E402
 from . import server  # noqa: E402

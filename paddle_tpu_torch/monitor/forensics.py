@@ -38,9 +38,9 @@ closes that gap with three bounded, flag-gated structures:
   (decode time is after the first token by definition).
 
 Surfaces: :func:`forensics_payload` (the audit ring + attribution +
-slowest-N index) and :func:`request_payload` (one full timeline), which
-the reference serves at ``GET /forensics`` and ``GET /requests/<rid>``
-(the HTTP server is ROADMAP A7(d)); a guarded ``forensics`` block in the
+slowest-N index) and :func:`request_payload` (one full timeline), served
+at ``GET /forensics`` and ``GET /requests/<rid>`` by the operator HTTP
+server (``monitor/server.py``); a guarded ``forensics`` block in the
 flight record; ``serving.forensics.*`` metrics.
 
 Gating & cost: everything rides ``FLAGS_enable_monitor`` — flag off,

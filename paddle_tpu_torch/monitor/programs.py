@@ -16,10 +16,13 @@ runs eager PyTorch, so :func:`record_call` takes the FLOPs its caller
 computed from the program's shapes (every layer, every step, every
 matmul: the engine's ``serving_program_flops``). ``bytes_accessed``
 stays None, as the reference's does when its backend reports none: the
-plane never fabricates a value. The reference's lazy memory analyzer
-(``analyze_pending``, ``max_temp_bytes``, ``analyzer_for``) serves the
-HTTP ``/programs`` route and waits for it (ROADMAP A7(d)); a record's
-``memory``, ``collectives`` and ``sharding`` are None.
+plane never fabricates a value. The reference's lazy XLA memory analyzer
+(``analyze_pending``, ``analyzer_for``) has no counterpart: eager
+PyTorch compiles no program to analyze. So a record's ``memory``,
+``collectives`` and ``sharding`` are None, the ``/programs`` route
+(``monitor/server.py``) serves the records without analysis, and
+:func:`max_temp_bytes` is 0, the reference's value before any analysis
+ran (ROADMAP C, "Reference behaviour").
 
 Gating: callers gate on ``monitor.enabled()``; with the flag off nothing
 records and the registry stays empty. ``monitor.reset()`` clears it.
@@ -33,7 +36,8 @@ from typing import List, Optional
 
 __all__ = ["ProgramRecord", "record_program", "record_call", "note_hit",
            "note_exec", "has_record", "flops_of", "programs_snapshot",
-           "signature_of", "evicted_count", "next_uid", "reset"]
+           "max_temp_bytes", "signature_of", "evicted_count", "next_uid",
+           "reset"]
 
 # Bounded registry: a serving process cycling through prompt buckets
 # must not grow this without limit — oldest records evict FIFO.
@@ -242,6 +246,15 @@ def flops_of(key) -> Optional[float]:
     with _MU:
         rec = _BY_KEY.get(key)
         return rec.flops if rec is not None else None
+
+
+def max_temp_bytes() -> int:
+    """Largest analyzed per-program temp footprint, the admission-headroom
+    input of ``monitor/memory.py``: 0, since no program is analyzed (see
+    the module docstring)."""
+    with _MU:
+        return max((r.memory.get("temp_bytes", 0) for r in _RECORDS
+                    if r.memory), default=0)
 
 
 def programs_snapshot() -> List[dict]:

@@ -19,9 +19,8 @@ and instants (``instant(name, **attrs)``) with monotonic
   SIGTERM preemption lands — writes the last N events plus a full
   ``monitor.snapshot()`` as JSON: what the system was doing in the
   seconds before it died. Its extra blocks are the planes ported so
-  far (``numerics``' KV half, ``slo``, ``forensics``); ``timeseries``
-  and ``federation`` stay None until their modules are ported (A10,
-  A7(d)).
+  far (``numerics``' KV half, ``slo``, ``federation``, ``forensics``);
+  ``timeseries`` stays None until its module is ported (A10).
 
 Gating: everything rides ``FLAGS_enable_monitor``. Flag off = every
 entry point is one cached-flag branch, the buffer stays empty, nothing
@@ -209,11 +208,10 @@ def flight_payload(reason: str = "manual") -> dict:
     record without waiting for a crash); ``dump_flight_record`` writes
     the same shape on crash paths."""
     from . import snapshot as _snapshot
-    # the step-time trajectory (monitor/timeseries.py) and the fleet
-    # story (monitor/federation.py) are not ported: their blocks stay
-    # None, as the reference's do when the plane holds nothing
+    # the step-time trajectory (monitor/timeseries.py) is not ported:
+    # its block stays None, as the reference's does when the plane holds
+    # nothing
     ts = None
-    fd = None
     try:
         # the KV-page value distribution (monitor/numerics.py). Guarded
         # — a flight dump on a crash path must never die on a
@@ -230,6 +228,15 @@ def flight_payload(reason: str = "manual") -> dict:
         sl = _slo.slo_snapshot()
     except Exception:
         sl = None
+    try:
+        # the fleet story (monitor/federation.py): which replicas were
+        # publishing frames and what the last federated verdict said.
+        # Cached state only — no transport or backend reads on a crash
+        # path — and guarded like the other telemetry extras.
+        from . import federation as _federation
+        fd = _federation.flight_block()
+    except Exception:
+        fd = None
     try:
         # the request story (monitor/forensics.py): the slowest-N full
         # timelines, the scheduler decision tail, and the violation

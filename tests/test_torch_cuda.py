@@ -1167,6 +1167,55 @@ def test_monitor_plane_never_syncs_the_host(dev, kv_quant):
     assert counters["numerics.kv.samples"] == 1
 
 
+def test_frame_publishing_never_syncs_the_host(dev):
+    """``[no_sync]``'s ``frames`` case: the engine publishes a fleet
+    telemetry frame (``publish_frames``, local only) at every step, each
+    publish and the data plane under ``set_sync_debug_mode("error")``;
+    the tokens equal those of the serve without frames, and the last
+    frame saw every request complete."""
+    from paddle_tpu_torch.monitor import federation as FED
+    C = _chip_smoke()
+    cfg = L.llama_tiny(dtype=torch.bfloat16)
+    params = L.init_params(cfg, seed=0, device=dev)
+    FED.reset()
+    try:
+        free, _ = C.serve_strict(torch, L, cfg, params, dev, False,
+                                 (40, 33, 50), 6, False)
+        strict, calls = C.serve_strict(torch, L, cfg, params, dev, False,
+                                       (40, 33, 50), 6, True, frames=True)
+        frame = FED.local_frames()["no_sync"]
+    finally:
+        FED.reset()
+    for a, b in zip(free, strict):
+        np.testing.assert_array_equal(a, b)
+    assert calls["prefill"] == calls["decode"] == 1 and calls["frames"] >= 2
+    assert frame["requests"]["completed"] == 3
+
+
+def test_memory_route_reads_the_card(dev):
+    """The operator server's ``/memory`` reads the card's allocator:
+    ``bytes_limit`` is the card's total memory and ``bytes_in_use``
+    covers a live tensor."""
+    import json
+    import urllib.request
+    from paddle_tpu_torch.monitor import server as S
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    srv = S.start_server(port=0)
+    try:
+        with urllib.request.urlopen(srv.url + "/memory", timeout=60) as r:
+            assert r.status == 200
+            mem = json.loads(r.read())
+    finally:
+        S.stop_server()
+    card = mem["hbm"]["devices"][dev.index]
+    assert card["bytes_limit"] == torch.cuda.mem_get_info(dev.index)[1]
+    assert card["bytes_in_use"] >= x.numel()
+    assert mem["hbm"]["devices_reporting"] == torch.cuda.device_count()
+    assert mem["headroom"]["hbm_free_bytes"] == \
+        mem["hbm"]["totals"]["bytes_limit"] - \
+        mem["hbm"]["totals"]["bytes_in_use"]
+
+
 @pytest.mark.parametrize("kv_quant", [False, True])
 def test_monitor_planes_match_the_cpu(dev, kv_quant):
     """``[monitor_parity]`` on float32 ``llama_tiny``: the card's tokens,

@@ -11,8 +11,10 @@ copy of ``paddle_tpu/core/flags.py``) and the options that read it.
   defaults and ``ServingEngine``'s ``kv_quant``, ``prefix_cache``,
   ``spec_decode``, ``priority_admission``, ``tenant_inflight_cap``,
   ``slo_preemption``, ``max_queue``, ``shed_on_burn`` and ``failover``;
-  each flag whose plane is not ported (fleet burn scaling, the monitor's
-  HTTP server) makes the engine raise, naming ROADMAP A7(d).
+  ``FLAGS_enable_monitor_server`` makes engine construction start the
+  operator HTTP server on ``FLAGS_monitor_server_port``, and
+  ``FLAGS_serving_fleet_burn_scaling`` is the elastic serving
+  controller's burn actuation.
 """
 import os
 import subprocess
@@ -31,8 +33,10 @@ from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models import moe as TM
 
 PORTED = ("enable_sentinel", "enable_numerics", "fault_injection",
-          "enable_monitor", "enable_monitor_server", "monitor_server_port")
-UNPORTED_SERVING = ("serving_fleet_burn_scaling", "enable_monitor_server")
+          "enable_monitor", "enable_monitor_server", "monitor_server_port",
+          "serving_fleet_burn_scaling")
+# the operator and fleet planes' flags, read outside the engine's options
+PLANE_FLAGS = ("serving_fleet_burn_scaling", "enable_monitor_server")
 # each ported serving option's flag and how the engine shows it is on
 ENGINE_OPTIONS = {
     "serving_prefix_cache": lambda e: e._prefix is not None,
@@ -158,15 +162,78 @@ def test_set_flags_reaches_the_engine_options(flag):
     assert not is_on(ServingEngine(TL, params, cfg, device="cpu", **off))
 
 
-@pytest.mark.parametrize("flag", UNPORTED_SERVING)
-def test_unported_serving_flags_raise_naming_a7(flag):
-    cfg = TL.llama_tiny()
-    params = TL.init_params(cfg, device="cpu")
-    default = TF._REGISTRY[flag].default
-    on = True if isinstance(default, bool) else 4      # a cap or a depth
-    paddle_tpu_torch.set_flags({f"FLAGS_{flag}": on})
-    with pytest.raises(NotImplementedError, match=r"A7\(d\)"):
-        ServingEngine(TL, params, cfg, device="cpu")
-    # a cap of 0 or below is uncapped, as in the reference: off
-    paddle_tpu_torch.set_flags({f"FLAGS_{flag}": False if on is True else -1})
-    ServingEngine(TL, params, cfg, device="cpu")
+def _burning_controller(d, burn_scaling=None):
+    """``run_serving`` over one fake replica whose published frame burns
+    its latency budget at flat demand: with burn scaling on, one replica
+    of scale-out pressure."""
+    from paddle_tpu_torch.distributed import heartbeat as HB
+    from paddle_tpu_torch.distributed.fleet import elastic as EL
+
+    class Replica:
+        def autoscale_payload(self):
+            return {"demand_estimate": 0.0, "drain_safe": True}
+
+    def publish(t, live):
+        HB.publish_named("replica0", {
+            "kind": "paddle_tpu.slo_frame", "version": 1,
+            "name": "replica0", "seq": t,
+            "autoscale": {"demand_estimate": 0.2, "drain_safe": True},
+            "slo": {"objectives": {"ttft_p99_ms": {
+                "compliance": 0.5, "burn_fast": 30.0, "burn_slow": 30.0,
+                "samples_slow": 64, "samples_fast": 64}}}}, dir_path=d)
+
+    mgr = EL.AdaptiveElasticManager()
+    out = mgr.run_serving(lambda n: Replica(), lambda n, h: None,
+                          min_replicas=1, max_replicas=3, heartbeat_dir=d,
+                          poll_interval=0.0001, max_ticks=5,
+                          on_tick=publish,
+                          fleet_burn_scaling=burn_scaling)
+    return [e[2].get("reason") for e in mgr.events], out["replicas"]
+
+
+@pytest.mark.parametrize("flag", PLANE_FLAGS)
+def test_operator_and_fleet_flags_reach_their_planes(flag, tmp_path):
+    """``FLAGS_enable_monitor_server`` makes ``ServingEngine`` start the
+    operator HTTP server on ``FLAGS_monitor_server_port`` (port 0:
+    ephemeral), and with the flag off none starts;
+    ``FLAGS_serving_fleet_burn_scaling`` is the default of the elastic
+    controller's burn actuation (an explicit argument wins)."""
+    from paddle_tpu_torch.monitor import federation as FED
+    from paddle_tpu_torch.monitor import server as S
+    S.stop_server()
+    try:
+        if flag == "enable_monitor_server":
+            cfg = TL.llama_tiny()
+            params = TL.init_params(cfg, device="cpu")
+            ServingEngine(TL, params, cfg, device="cpu")
+            assert S.get_server() is None
+            paddle_tpu_torch.set_flags({"FLAGS_enable_monitor_server": True,
+                                        "FLAGS_monitor_server_port": 0})
+            eng = ServingEngine(TL, params, cfg, device="cpu")
+            srv = S.get_server()
+            assert srv is not None and srv.port > 0
+            assert S.bound_port() == srv.port
+            import json
+            import urllib.request
+            with urllib.request.urlopen(srv.url + "/healthz",
+                                        timeout=30) as r:
+                providers = json.loads(r.read())["providers"]
+            assert f"serving:{eng._engine_uid}" in providers
+        else:
+            d = str(tmp_path)
+            reasons, replicas = _burning_controller(d)
+            assert "burn-pressure" not in reasons and replicas == [
+                "replica0"]
+            paddle_tpu_torch.set_flags({f"FLAGS_{flag}": True})
+            reasons, replicas = _burning_controller(d)
+            assert "burn-pressure" in reasons
+            assert replicas == ["replica0", "replica1"]
+            reasons, _ = _burning_controller(d, burn_scaling=False)
+            assert "burn-pressure" not in reasons
+            # the engine builds with the flag on: it is the controller's
+            cfg = TL.llama_tiny()
+            ServingEngine(TL, TL.init_params(cfg, device="cpu"), cfg,
+                          device="cpu")
+    finally:
+        S.stop_server()
+        FED.reset()

@@ -1,0 +1,312 @@
+"""Port parity: the operator plane's HTTP server
+(``paddle_tpu_torch/monitor/server.py`` against
+``paddle_tpu/monitor/server.py``) and the memory plane
+(``monitor/memory.py``).
+
+- Lifecycle: ``start_server`` on port 0 binds an ephemeral port on
+  127.0.0.1, a second start returns the running server, ``stop_server``
+  is idempotent; ``maybe_start`` starts nothing with
+  ``FLAGS_enable_monitor_server`` off and the server on
+  ``FLAGS_monitor_server_port`` with it on.
+- Routes: both packages serve the same requests (``llama_tiny`` float32,
+  weights carried across, one fake clock, monitor on), then each
+  package's server is scraped route by route: every ported route answers
+  the reference's status with the reference's JSON keys (``/numerics``
+  the KV half's keys, the part of the reference's plane that is ported,
+  and ``/flight`` likewise in its ``numerics`` block, with ``timeseries``
+  None; ``/metrics`` the same metric families, those of the reference's
+  XLA program analysis excepted). Bad ``/profile`` arguments answer 400 on both.
+- ``/roofline`` and ``/timeseries`` (A10), ``/sharding`` and
+  ``/metrics?scope=fleet`` (A9) answer 501 naming their ROADMAP item.
+- ``memory.hbm_stats`` / ``update_hbm_gauges`` / ``headroom`` on one
+  injected ``stats_fn`` and one page-pool state equal the reference's,
+  gauges included; on this host (no card) the port's device reading is
+  the reference's CPU answer: nothing reported.
+"""
+import json
+import re
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+
+from _torch_monitor_common import (FakeClock, JM, TM, equal_flops,
+                                   patch_clock, reset_both, set_monitor,
+                                   tiny_pair)
+from paddle_tpu.core import flags as JF
+from paddle_tpu.inference import Request as JRequest
+from paddle_tpu.inference import failover as jfo
+from paddle_tpu.loadgen import scorecard as jscorecard
+from paddle_tpu.inference import ServingEngine as JEngine
+from paddle_tpu.models import llama as JL
+from paddle_tpu_torch.core import flags as TF
+from paddle_tpu_torch.device import memory as tdevmem
+from paddle_tpu_torch.inference import Request, ServingEngine
+from paddle_tpu_torch.inference import failover as tfo
+from paddle_tpu_torch.loadgen import scorecard as tscorecard
+from paddle_tpu_torch.models import llama as TL
+
+ROUTES = ("/metrics", "/healthz", "/flight", "/programs", "/memory",
+          "/numerics", "/slo", "/fleet/serving", "/scorecard",
+          "/forensics", "/requests/1", "/requests/999", "/",
+          "/profile?seconds=abc", "/profile?seconds=0",
+          "/profile?seconds=1000", "/no/such/route")
+UNPORTED = {"/roofline": "A10", "/timeseries": "A10", "/sharding": "A9",
+            "/metrics?scope=fleet": "A9"}
+# the reference's XLA analysis of its programs (memory bytes, and the
+# collectives its comms plane reads from the compiled program) registers
+# these on a /metrics scrape; eager PyTorch compiles no program to analyze
+XLA_ONLY_FAMILIES = ("jit_program_", "comm_program_")
+# flight-record blocks of planes not ported (the step time series, A10)
+# or ported in part (numerics: the KV half)
+FLIGHT_PARTIAL = ("timeseries", "numerics")
+
+
+@pytest.fixture(autouse=True)
+def _servers_down():
+    TM.server.stop_server()
+    JM.server.stop_server()
+    saved = {k: TF.flag_value(k) for k in
+             ("enable_monitor_server", "monitor_server_port")}
+    yield
+    TM.server.stop_server()
+    JM.server.stop_server()
+    TF.set_flags(saved)
+    JF.set_flags({"enable_monitor_server": False})
+
+
+def get(srv, path):
+    try:
+        with urllib.request.urlopen(srv.url + path, timeout=60) as r:
+            return r.status, r.read(), r.headers.get("Content-Type")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers.get("Content-Type")
+
+
+def test_server_lifecycle_on_port_zero():
+    S = TM.server
+    assert S.get_server() is None and S.bound_port() is None
+    assert not S.plane_active()
+    srv = S.start_server(port=0)
+    try:
+        assert srv.host == "127.0.0.1" and srv.port > 0
+        assert S.bound_port() == srv.port and S.plane_active()
+        assert S.start_server(port=0) is srv     # one server a process
+        st, body, ctype = get(srv, "/")
+        assert st == 200 and ctype == "application/json"
+        assert json.loads(body)["service"] == "paddle_tpu_torch.monitor"
+    finally:
+        S.stop_server()
+    assert S.get_server() is None and not S.plane_active()
+    S.stop_server()                               # idempotent
+    with pytest.raises(urllib.error.URLError):
+        urllib.request.urlopen(srv.url + "/", timeout=2)
+
+
+def test_maybe_start_under_the_flag():
+    S = TM.server
+    TF.set_flags({"FLAGS_enable_monitor_server": False})
+    assert S.maybe_start() is None and S.get_server() is None
+    TF.set_flags({"FLAGS_enable_monitor_server": True,
+                  "FLAGS_monitor_server_port": 0})
+    srv = S.maybe_start()
+    assert srv is not None and srv.port > 0 and S.maybe_start() is srv
+    # a fixed port that another process holds: maybe_start gives up
+    # without raising, as the reference does
+    S.stop_server()
+    import socket
+    with socket.socket() as busy:
+        busy.bind(("127.0.0.1", 0))
+        busy.listen()
+        TF.set_flags({"FLAGS_monitor_server_port": busy.getsockname()[1]})
+        assert S.maybe_start() is None
+
+
+def _keys(v):
+    if isinstance(v, dict):
+        return sorted(v)
+    if isinstance(v, list):
+        return [_keys(x) for x in v[:1]]
+    return type(v).__name__
+
+
+def _families(text):
+    return sorted(line.split()[2] for line in text.decode().splitlines()
+                  if line.startswith("# TYPE ")
+                  and not line.split()[2].startswith(XLA_ONLY_FAMILIES))
+
+
+def _scrape(M, routes):
+    srv = M.server.start_server(port=0)
+    out = {}
+    try:
+        for route in routes:
+            st, body, ctype = get(srv, route)
+            if route == "/metrics":
+                out[route] = (st, ctype, _families(body))
+                continue
+            payload = json.loads(body)
+            if route == "/healthz":
+                # the providers this serve registered (the map is
+                # process-wide); their names carry each package's engine
+                # counter
+                payload["providers"] = {
+                    re.sub(r"^serving:\d+$", "serving:<uid>", k): v
+                    for k, v in payload["providers"].items()
+                    if k == "slo_burn" or k.startswith("serving:")}
+            shape = {k: _keys(v) for k, v in payload.items()} \
+                if isinstance(payload, dict) else _keys(payload)
+            out[route] = (st, ctype, shape, payload)
+    finally:
+        M.server.stop_server()
+    return out
+
+
+@pytest.fixture(scope="module")
+def scraped():
+    jcfg, jp, tcfg, tp = tiny_pair(2)
+    mp = pytest.MonkeyPatch()
+    clock = patch_clock(mp, FakeClock())
+    equal_flops(mp)
+    reset_both()
+    set_monitor(True)
+    # the last scorecard is process-global: no replay scored on either
+    # side before this serve
+    jscorecard.reset()
+    tscorecard.reset()
+    for fo in (jfo, tfo):
+        fo.set_active_coordinator(None)
+    kw = dict(num_slots=2, max_len=32, page_size=4, decode_chunk=3)
+    out = {}
+    try:
+        for side, M in (("torch", TM), ("jax", JM)):
+            JM.reset()
+            TM.reset()
+            clock.now = 1000.0
+            if side == "torch":
+                eng, req = ServingEngine(TL, tp, tcfg, device="cpu",
+                                         **kw), Request
+            else:
+                eng, req = JEngine(JL, jp, jcfg, **kw), JRequest
+            rng = np.random.default_rng(0)
+            for i in range(3):
+                eng.submit(req(rid=i, prompt=rng.integers(0, 256, (6,))
+                               .astype(np.int32), max_new_tokens=4))
+            while eng.step():
+                clock.advance(0.01)
+            out[side] = _scrape(M, ROUTES + (tuple(UNPORTED)
+                                             if side == "torch" else ()))
+            del eng
+    finally:
+        set_monitor(False)
+        reset_both()
+        mp.undo()
+    return out
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_route_status_and_keys_match_the_reference(scraped, route):
+    t, j = scraped["torch"][route], scraped["jax"][route]
+    assert t[0] == j[0], (route, t[0], j[0])
+    assert t[1] == j[1]
+    if route == "/metrics":
+        assert t[2] == j[2]
+        assert "serving_tokens_generated" in t[2]
+    elif route == "/numerics":
+        assert t[0] == 200
+        assert set(t[2]) == {"kv", "kv_quant"} <= set(j[2])
+        assert {k: t[2][k] for k in t[2]} == {k: j[2][k] for k in t[2]}
+    elif route == "/":
+        assert t[3]["routes"] == j[3]["routes"]
+    elif route == "/flight":
+        assert {k: v for k, v in t[2].items() if k not in FLIGHT_PARTIAL} \
+            == {k: v for k, v in j[2].items() if k not in FLIGHT_PARTIAL}
+        assert t[2]["timeseries"] == "NoneType"
+        assert set(t[2]["numerics"]) == {"kv", "kv_quant"}
+    else:
+        assert t[2] == j[2], (route, t[2], j[2])
+
+
+def test_route_payloads_pins(scraped):
+    t = scraped["torch"]
+    assert t["/healthz"][0] == 200 and t["/healthz"][3]["status"] == "ok"
+    assert any(k.startswith("serving:")
+               for k in t["/healthz"][3]["providers"])
+    assert t["/scorecard"][0] == 404 and t["/requests/999"][0] == 404
+    assert t["/requests/1"][3]["rid"] == 1
+    progs = t["/programs"][3]["programs"]
+    assert progs and all(p["memory"] is None for p in progs)
+    mem = t["/memory"][3]
+    assert mem["hbm"]["totals"] == {} and mem["headroom"][
+        "program_temp_bytes_max"] == 0
+    assert mem["headroom"]["pages_total"] > 0
+    fl = t["/flight"][3]
+    assert fl["kind"] == "paddle_tpu.flight_record" and fl["forensics"]
+    for route in ("/profile?seconds=abc", "/profile?seconds=0",
+                  "/profile?seconds=1000"):
+        assert t[route][0] == 400 and "error" in t[route][3]
+
+
+@pytest.mark.parametrize("route", sorted(UNPORTED))
+def test_unported_routes_name_their_roadmap_item(scraped, route):
+    st, ctype, shape, payload = scraped["torch"][route]
+    assert st == 501 and ctype == "application/json"
+    assert payload["roadmap"] == UNPORTED[route]
+    assert f"ROADMAP.md queue A item {UNPORTED[route]}" in payload["error"]
+
+
+# ---------------------------------------------------------------------------
+# the memory plane
+# ---------------------------------------------------------------------------
+
+READINGS = {
+    "two_cards": [{"bytes_in_use": 100, "bytes_limit": 1000,
+                   "peak_bytes_in_use": 300},
+                  {"bytes_in_use": 50, "bytes_limit": 1000}],
+    "one_reports": [{}, {"bytes_in_use": 7, "bytes_limit": 9,
+                         "largest_free_block_bytes": 2}],
+    "nothing": [{}],
+    "garbage": [{"bytes_in_use": "x", "bytes_limit": 10}],
+    "over_limit": [{"bytes_in_use": 20, "bytes_limit": 10}],
+}
+
+
+@pytest.mark.parametrize("reading", sorted(READINGS))
+@pytest.mark.parametrize("pages", [None, (64, 16)])
+def test_memory_plane_matches_the_reference(reading, pages):
+    reset_both()
+    set_monitor(True)
+    try:
+        out = {}
+        for side, M in (("torch", TM), ("jax", JM)):
+            if pages is not None:
+                M.set_gauge("serving.pages.total", pages[0])
+                M.set_gauge("serving.pages.in_use", pages[1])
+            fn = lambda: [dict(d) for d in READINGS[reading]]  # noqa: E731
+            out[side] = (M.memory.hbm_stats(fn), M.memory.headroom(fn),
+                         M.snapshot())
+        assert out["torch"] == out["jax"]
+    finally:
+        set_monitor(False)
+        reset_both()
+
+
+def test_device_reading_on_a_host_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert tdevmem.all_memory_stats() == [{}]
+    assert tdevmem.memory_stats() == {}
+    st = TM.memory.hbm_stats()
+    assert st["totals"] == {} and st["devices_reporting"] == 0
+    # and the gauges stay unwritten: nothing reported, nothing fabricated
+    reset_both()
+    set_monitor(True)
+    try:
+        TM.memory.update_hbm_gauges()
+        assert not any(k.startswith("device.hbm") for k in
+                       TM.snapshot().get("gauges", {}))
+    finally:
+        set_monitor(False)
+        reset_both()

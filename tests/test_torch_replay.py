@@ -1,8 +1,8 @@
-"""Port parity: the single-engine trace replay (``loadgen/replay.py``
-``replay_trace``) and the SLO scorecard (``loadgen/scorecard.py``),
+"""Port parity: the trace replay (``loadgen/replay.py`` ``replay_trace``
+and ``replay_fleet``) and the SLO scorecard (``loadgen/scorecard.py``),
 against the reference's, mirroring ``tests/test_loadgen.py``'s
-``TestReplay`` / ``TestScorecardUnits`` / ``TestScorecardRoute`` (the
-fleet replay is not ported).
+``TestReplay`` / ``TestScorecardUnits`` / ``TestScorecardRoute`` /
+``TestFleetReplay``.
 
 - The reference's ``serving_trace_replay`` rung (``bench.py``) at its
   CPU configuration (``llama_tiny`` 2 layers, 4 slots, page 4, chunk 8,
@@ -13,6 +13,16 @@ fleet replay is not ported).
   step advances 10 ms. The scorecard's ``deterministic`` block is equal,
   and so is its ``timing`` block. The on-TPU geometry's block is the
   one ``chip_smoke.py``'s ``[trace_replay]`` repeats on the card.
+- The fleet replay: two replicas under the elastic controller with
+  ``max_replicas == replicas`` (no scaling) give the reference's
+  terminal map (state, tokens, replica of every request) and
+  deterministic block on the same trace and weights, and a fleet block
+  that lists both replicas' frames. A scripted ``kill`` (a small
+  heartbeat timeout, so each replay takes about a second) loses work
+  only on the victim without failover; with failover nothing is lost,
+  every request ends in one terminal state, tokens are conserved across
+  the replicas and the recovered requests carry the victim in their
+  lineage. The reference marks its two kill cases slow; these are fast.
 - Same-seed replays on fresh engines give identical terminal states and
   deterministic blocks; every submission ends in exactly one terminal
   state; sheds carry typed reasons and retry hints; token conservation;
@@ -32,14 +42,18 @@ from paddle_tpu.inference import ServingEngine as JEngine
 from paddle_tpu.inference.engine import EngineStats as JStats
 from paddle_tpu.loadgen import Episode as JEpisode
 from paddle_tpu.loadgen import build_scorecard as jbuild
+from paddle_tpu.loadgen import replay_fleet as jfleet
 from paddle_tpu.loadgen import replay_trace as jreplay
+from paddle_tpu.monitor import federation as jfed
 from paddle_tpu.models import llama as JL
 from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.inference.engine import EngineStats
 from paddle_tpu_torch.loadgen import (Episode, TenantSpec, build_scorecard,
-                                      generate_trace, replay_trace)
+                                      generate_trace, replay_fleet,
+                                      replay_trace)
 from paddle_tpu_torch.loadgen import scorecard as sc
 from paddle_tpu_torch.models import llama as TL
+from paddle_tpu_torch.monitor import federation as tfed
 
 RUNGS = {
     # bench.py's serving_trace_replay rung: CPU configuration, and its
@@ -324,9 +338,9 @@ class TestScorecardUnits:
 
 
 class TestScorecardRoute:
-    """The reference serves the last scorecard at ``/scorecard`` (its
-    HTTP server waits for ROADMAP A7(d)); the data the route serves and
-    the counters a replay feeds."""
+    """The data the ``/scorecard`` route serves (the route itself:
+    ``tests/test_torch_operator_plane.py``) and the counters a replay
+    feeds."""
 
     def test_replay_metrics_counted(self):
         reset_both()
@@ -361,3 +375,213 @@ class TestScorecardRoute:
         assert card["timing"]["latency_ms"] == {}
         assert np.all([r["state"] is not None
                        for r in res.terminal.values()])
+
+
+# -- the fleet replay ---------------------------------------------------------
+
+FLEET_ENGINE = dict(num_slots=2, max_len=24, page_size=4, decode_chunk=2)
+
+
+@pytest.fixture
+def clean_fed():
+    jfed.reset()
+    tfed.reset()
+    yield
+    jfed.reset()
+    tfed.reset()
+
+
+@pytest.fixture(scope="module")
+def fleet_pair():
+    """The reference's fast fleet case on both packages: 2 replicas,
+    local frames, no kill, ``max_replicas == replicas``."""
+    jcfg, jp, tcfg, tp = tiny_pair(1, seed=3)
+    out = {}
+    for side in ("torch", "jax"):
+        jfed.reset()
+        tfed.reset()
+        if side == "torch":
+            res = replay_fleet(
+                lambda name: ServingEngine(TL, tp, tcfg, device="cpu",
+                                           **FLEET_ENGINE),
+                _small_trace(31), replicas=2, max_replicas=2,
+                dt_per_tick=0.05, steps_per_tick=2)
+            out[side] = (res, build_scorecard(res))
+        else:
+            res = jfleet(lambda name: JEngine(JL, jp, jcfg, **FLEET_ENGINE),
+                         _small_trace(31), replicas=2, max_replicas=2,
+                         dt_per_tick=0.05, steps_per_tick=2)
+            out[side] = (res, jbuild(res))
+    jfed.reset()
+    tfed.reset()
+    return out
+
+
+def test_fleet_replay_terminal_map_matches_the_reference(fleet_pair):
+    (tres, tcard), (jres, jcard) = fleet_pair["torch"], fleet_pair["jax"]
+    assert tres.terminal == jres.terminal
+    assert (tres.steps, tres.offered, tres.offered_tokens) == \
+        (jres.steps, jres.offered, jres.offered_tokens)
+    assert json.dumps(tcard["deterministic"], sort_keys=True) == \
+        json.dumps(jcard["deterministic"], sort_keys=True)
+    assert [(s, d.get("reason"), d.get("replica"))
+            for _, s, d in tres.fleet_events] == \
+        [(s, d.get("reason"), d.get("replica"))
+         for _, s, d in jres.fleet_events]
+
+
+def test_fleet_replay_routes_every_replica(fleet_pair):
+    res, card = fleet_pair["torch"]
+    assert card["verdict"]["pass"], card["verdict"]
+    assert len(res.terminal) == len(res.trace.requests)
+    assert res.terminal_counts().get("lost", 0) == 0
+    assert set(res.engine_stats) == {"replica0", "replica1"}
+    assert {r.get("replica") for r in res.terminal.values()} == {
+        "replica0", "replica1"}
+    # every replica published frames: the fleet block lists both
+    fleet = card["timing"]["fleet"]
+    assert fleet == fleet_pair["jax"][1]["timing"]["fleet"]
+    assert fleet["available"] is True and fleet["source"] == "local"
+    assert fleet["replicas"] == ["replica0", "replica1"]
+
+
+def test_fleet_flags_off_has_no_failover_surface(fleet_pair):
+    res, card = fleet_pair["torch"]
+    assert res.failover is None and res.engine_flags["failover"] is False
+    assert card["deterministic"]["failover"] == {
+        "recovered": 0, "failover_attempts": 0, "quarantined": 0}
+    assert "failover" not in card["timing"]
+
+
+def test_kill_without_heartbeat_rejected():
+    with pytest.raises(ValueError, match="heartbeat"):
+        replay_fleet(lambda name: _mk_engine(), _small_trace(),
+                     episodes=[Episode("kill", at_s=0.1)])
+
+
+def _kill_replay(tmp_path, failover):
+    trace = generate_trace(41, duration_s=1.2, rate=24.0,
+                           tenants=[TenantSpec("t0"), TenantSpec("t1")],
+                           prompt_len=(3, 8), max_new_tokens=(4, 12))
+    # a healthy replica beats every tick (a few ms on this model); only
+    # the victim, which stops stepping, goes stale
+    return replay_fleet(
+        lambda name: _mk_engine(failover=failover), trace, replicas=2,
+        episodes=[Episode("kill", at_s=0.3, replica="replica1")],
+        dt_per_tick=0.02, steps_per_tick=1, heartbeat_dir=str(tmp_path),
+        heartbeat_timeout=1.0, failover=failover)
+
+
+def test_kill_without_failover_loses_only_the_victims_work(tmp_path,
+                                                           clean_fed):
+    res = _kill_replay(tmp_path, False)
+    kinds = [e["kind"] for e in res.episodes]
+    assert "killed" in kinds and "recovered" in kinds, res.episodes
+    assert len(res.engine_stats) >= 3, sorted(res.engine_stats)
+    card = build_scorecard(res)
+    assert card["verdict"]["pass"], card["verdict"]
+    assert card["timing"]["recovery_s"] is not None
+    assert card["timing"]["recovery_s"] >= 0
+    assert len(res.terminal) == res.offered
+    lost = [r for r in res.terminal.values() if r["state"] == "lost"]
+    assert lost
+    assert all(r.get("replica") == "replica1" for r in lost), lost
+    assert res.failover is None
+
+
+def test_kill_with_failover_is_exactly_once(tmp_path, clean_fed):
+    res = _kill_replay(tmp_path, True)
+    kinds = [e["kind"] for e in res.episodes]
+    assert "killed" in kinds and "recovered" in kinds
+    counts = res.terminal_counts()
+    assert counts.get("lost", 0) == 0, counts
+    assert len(res.terminal) == res.offered
+    ctr = res.failover["counters"]
+    assert ctr["stranded"] >= 1
+    assert ctr["redispatched"] + ctr["quarantined"] + ctr["expired"] >= 1
+    recovered = [r for r in res.terminal.values()
+                 if r.get("recovered_from")]
+    assert recovered, res.failover
+    for rec in recovered:
+        assert rec["recovered_from"] == ["replica1"], rec
+        assert rec["state"] in ("completed", "expired", "shed",
+                                "quarantined")
+        assert rec.get("failover_attempts", 0) >= 1
+    # token conservation across every replica, the victim's discarded
+    # partial generations included
+    gen = sum(s["tokens_generated"] - s["tokens_discarded"]
+              for s in res.engine_stats.values())
+    assert gen == sum(r["tokens"] for r in res.terminal.values())
+    card = build_scorecard(res)
+    assert card["verdict"]["pass"], card["verdict"]
+    assert card["deterministic"]["failover"]["recovered"] == \
+        ctr["recovered"]
+    t_fo = card["timing"]["failover"]
+    assert t_fo["coordinator"]["counters"] == ctr
+    if ctr["recovered"]:
+        assert t_fo["recovery_s"]["count"] == len(
+            [r for r in res.terminal.values()
+             if r.get("recovery_s") is not None])
+        assert t_fo["recovery_s"]["p99"] > 0
+    assert card["timing"]["fleet"]["available"] is True
+    assert any(d.get("reason") == "stale-replace"
+               and d.get("replica") == "replica1"
+               for _, _, d in res.fleet_events)
+
+
+def test_replay_with_local_frames_fills_the_fleet_block(clean_fed):
+    """The JAX bench's trace-replay rung publishes its engine's frames
+    locally; the scorecard's fleet block then lists that replica."""
+    out = {}
+    jcfg, jp, tcfg, tp = tiny_pair(1, seed=3)
+    for side in ("torch", "jax"):
+        if side == "torch":
+            eng = ServingEngine(TL, tp, tcfg, device="cpu", **FLEET_ENGINE)
+            eng.publish_frames("replay-replica0", local_only=True)
+            out[side] = build_scorecard(replay_trace(
+                eng, _small_trace(), dt_per_step=0.02))
+        else:
+            eng = JEngine(JL, jp, jcfg, **FLEET_ENGINE)
+            eng.publish_frames("replay-replica0", local_only=True)
+            out[side] = jbuild(jreplay(eng, _small_trace(),
+                                       dt_per_step=0.02))
+    assert out["torch"]["timing"]["fleet"] == \
+        out["jax"]["timing"]["fleet"]
+    assert out["torch"]["timing"]["fleet"]["replicas"] == [
+        "replay-replica0"]
+    assert json.dumps(out["torch"]["deterministic"], sort_keys=True) == \
+        json.dumps(out["jax"]["deterministic"], sort_keys=True)
+
+
+def test_chip_smoke_fleet_rung_gives_the_reference_map(clean_fed):
+    """``chip_smoke.fleet_rung``, which ``[fleet_parity]`` runs on the card
+    and on the CPU, gives the reference fleet replay's terminal map and
+    deterministic block on the CPU (2 replicas, no scaling, no kill),
+    and every request's emitted token ids equal the reference's."""
+    import importlib.util
+    import pathlib
+
+    import torch
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_fleet", path)
+    C = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(C)
+    jcfg, jp, tcfg, tp = tiny_pair(2)
+    res, card, _, _, _, engines = C.fleet_rung(torch, TL, tcfg, tp, "cpu")
+    g = RUNGS["tpu_geometry"]
+    jfed.reset()
+    jengines = []
+
+    def jmake(name):
+        jengines.append(JEngine(
+            JL, jp, jcfg, num_slots=g["slots"], max_len=16 + 24,
+            page_size=g["page"], decode_chunk=g["chunk"],
+            priority_admission=True, max_queue=2 * g["slots"]))
+        return jengines[-1]
+    jres = jfleet(jmake, rung_trace(g["rate"]), replicas=2, max_replicas=2)
+    assert C._terminal_map(res) == C._terminal_map(jres)
+    assert C._emitted_tokens(engines) == C._emitted_tokens(jengines)
+    assert set(C._emitted_tokens(engines)) == set(res.terminal)
+    assert json.dumps(card["deterministic"], sort_keys=True) == \
+        json.dumps(jbuild(jres)["deterministic"], sort_keys=True)
+    assert card["timing"]["fleet"]["replicas"] == ["replica0", "replica1"]
