@@ -326,8 +326,10 @@ Phases, each printed on its own line; any failure exits non-zero:
     with the monitor on and ``FLAGS_enable_monitor_server`` on at port 0
     (the engine starts the server): a thread scrapes every route while
     the engine serves (each route's status printed: 200, 404 for an
-    absent scorecard, 501 for the routes whose planes are ROADMAP A9 /
-    A10); ``/memory`` reports the card's total memory as ``bytes_limit``
+    absent scorecard, 501 for the routes whose planes are ROADMAP
+    A10); ``/sharding`` lists the engine's parameter tree (every leaf,
+    its bytes), ``/metrics?scope=fleet`` reports world size 1;
+    ``/memory`` reports the card's total memory as ``bytes_limit``
     and ``bytes_in_use`` above 0; ``/profile?seconds=1`` taken mid-serve
     writes a torch chrome trace holding ``paged_decode`` kernel events
     and ``serving.decode_chunk`` annotations (file size and event counts
@@ -345,7 +347,35 @@ Phases, each printed on its own line; any failure exits non-zero:
     stale replacement and spawns, ``recovery_s`` and the fleet block
     (replicas, the failover snapshot); useful tokens/s, p99 TTFT, the
     longest gap between a live replica's beats, and both kernels' launch
-    counts (above 0).
+    counts (above 0);
+44. mesh_train, mesh_packed, moe_mesh, dit_mesh, ring_attention (last,
+    ROADMAP A9): the mesh path on a mesh of one (a one-rank NCCL group
+    over a ``HashStore``; NCCL takes one rank a card, so the multi-rank
+    behaviour is verified by the CPU tests over gloo). Each meshed step
+    (DTensor parameters placed by ``param_specs``, the flash kernels
+    launched on local shards) is held to the unmeshed step from a copy
+    of the same random weights (seed 0), entry by entry
+    (``mesh_leaf_compare``): the loss within ``MESH_LOSS_RTOL``; each
+    leaf's gradient (read from the first moments) within
+    ``MESH_GRAD_RTOL``, relative L2; where both gradients are loud (over
+    ``MESH_QUIET``, one sign) the updated entries within half a learning
+    rate beyond one ulp of the entry, elsewhere within
+    ``MESH_LEAF_LRS`` learning rates (the meshed cross entropy is the
+    vocab-parallel one, whose roundoff can flip the sign of Adam's first
+    step on a quiet gradient); a planted skipped and a planted reversed
+    update must fail the loud check; and the kernel launches a step
+    equal. ``mesh_train``: ``train``'s
+    configuration with the materialising cross entropy on both sides,
+    arms ``sp`` off / on, guarded (one host read a step on both sides,
+    ``count_syncs``), remat ``"full"`` / ``"attn"`` (4 flash forwards a
+    step against 8); step ms meshed and unmeshed in turns, the first
+    meshed step's seconds (DTensor's sharding propagation), peak memory.
+    ``mesh_packed``: ``train_packed``'s rung through the mesh step (the
+    segment kernels' launches equal). ``moe_mesh``: ``moe_train``'s
+    rung with dense dispatch on a (1, 1, 1, 1) dp / fsdp / ep / tp
+    mesh. ``dit_mesh``: one ``dit_train`` step on a (1, 1, 1) mesh.
+    ``ring_attention``: the ring at n = 1, ``[2, 2048, 32, 128]`` bf16
+    causal, against the flash kernel's output within ``FLASH_TOL``.
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -2315,8 +2345,8 @@ OPERATOR_ROUTES = {
     "/programs": {200}, "/memory": {200}, "/numerics": {200},
     "/slo": {200}, "/fleet/serving": {200}, "/scorecard": {200, 404},
     "/forensics": {200}, "/requests/0": {200}, "/": {200},
-    "/roofline": {501}, "/timeseries": {501}, "/sharding": {501},
-    "/metrics?scope=fleet": {501},
+    "/roofline": {501}, "/timeseries": {501}, "/sharding": {200},
+    "/metrics?scope=fleet": {200},
 }
 
 
@@ -2370,8 +2400,11 @@ def phase_operator_plane(torch, dev, cfg, params, requests, card):
                     for route in OPERATOR_ROUTES:
                         st, body = _http(srv.url + route)
                         statuses[route].add(st)
-                        if route == "/memory" and st == 200:
-                            got["memory"] = json.loads(body)
+                        if route in ("/memory", "/sharding") and \
+                                st == 200:
+                            got[route] = json.loads(body)
+                        elif route == "/metrics?scope=fleet" and st == 200:
+                            got[route] = body.decode()
                     scrapes[0] += 1
                     stop.wait(OPERATOR_SCRAPE_PAUSE_S)
 
@@ -2420,7 +2453,12 @@ def phase_operator_plane(torch, dev, cfg, params, requests, card):
     paged_events = sum("paged_decode" in n for n in names)
     chunk_events = names.count("serving.decode_chunk")
     prefill_events = names.count("serving.prefill")
-    mem = got["memory"]["hbm"]
+    mem = got["/memory"]["hbm"]
+    trees = got["/sharding"]["trees"]
+    (tree_name, tree), = ((k, v) for k, v in trees.items()
+                          if k == f"serving:{eng._engine_uid}.params")
+    fleet_world = [ln for ln in got["/metrics?scope=fleet"].splitlines()
+                   if ln.startswith("paddle_fleet_world_size ")]
     total = torch.cuda.mem_get_info(dev.index)[1]
     card_mem = mem["devices"][dev.index]
     _say("operator_plane", card=repr(card), port=srv.port,
@@ -2437,9 +2475,17 @@ def phase_operator_plane(torch, dev, cfg, params, requests, card):
          prefill_annotations=prefill_events,
          steps_while_capturing=capture_steps, server_stopped=stopped,
          flash=st["flash"], paged=st["paged"])
+    _say("operator_plane", sharding_tree=tree_name,
+         sharding_arrays=tree["num_arrays"],
+         sharding_global_bytes=tree["total_global_bytes"],
+         fleet_world_size=fleet_world[0].split()[1])
     for route, want in OPERATOR_ROUTES.items():
         assert statuses[route] and statuses[route] <= want, (route,
                                                              statuses)
+    assert tree["num_arrays"] == len(L._leaves(params)), tree["num_arrays"]
+    assert tree["total_global_bytes"] == sum(
+        t.numel() * t.element_size() for t in L._leaves(params))
+    assert fleet_world == ["paddle_fleet_world_size 1"], fleet_world
     assert card_mem["bytes_limit"] == total, (card_mem, total)
     assert card_mem["bytes_in_use"] > 0, card_mem
     assert got["profile"][0] == 200, got["profile"]
@@ -6081,6 +6127,386 @@ def _dit_waves(torch, dev, FA, kind, H, S, D):
          / H100_BYTES_PER_S * 1e3)
 
 
+# -- the mesh path (ROADMAP A9) on a mesh of one ------------------------------
+
+MESH_LOSS_RTOL = 1e-5
+MESH_GRAD_RTOL = BWD_TOL  # a leaf's gradient, relative L2 (bf16 backward)
+MESH_QUIET = 1e-6       # |g| within 100 Adam eps of zero: a step of noise
+MESH_LEAF_LRS = 2.0     # a quiet gradient's sign flip moves an entry 2 lr
+MESH_NORM_RTOL = 1e-3   # the guarded arm's gradient norm
+MESH_TIMED = 3          # timed steps of each side, in turns
+MESH_CHUNK = 1 << 25    # entries compared at a time
+MESH_ARMS = (("base", False, False, "full"), ("sp", True, False, "full"),
+             ("guarded", False, True, "full"), ("attn", False, False,
+                                                "attn"))
+MESH_LAUNCH_KEYS = ("flash", "flash_tc", "flash_bwd", "flash_bwd_tc",
+                    "varlen", "varlen_tc", "varlen_bwd", "varlen_bwd_tc",
+                    "fused_ce")
+RING_SHAPE = (2, 2048, 32, 128)
+
+
+def _full_value(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _ulp(torch, x, y, dtype):
+    """One unit in the last place, in ``dtype``, of the larger in
+    magnitude of each pair of entries of the float32 tensors ``x`` and
+    ``y``: two values each rounded to ``dtype`` from values ``d`` apart
+    lie at most ``d`` plus that apart."""
+    big = torch.maximum(x.abs(), y.abs())
+    _, e = torch.frexp(big.clamp_min(torch.finfo(dtype).tiny))
+    return torch.ldexp(torch.full_like(x, torch.finfo(dtype).eps), e - 1)
+
+
+def _masked_max(torch, x, mask):
+    return float(torch.where(mask, x, float("-inf")).max())
+
+
+def mesh_leaf_compare(torch, old, single, meshed, m_single, m_mesh, lr,
+                      b1=0.9):
+    """The meshed step against the unmeshed step, both one AdamW step
+    from the leaves ``old`` (lists of tensors of one type each), entry by
+    entry. ``m_single`` / ``m_mesh`` are the first moments after the
+    step, ``(1 - b1) g``: the gradients each side took.
+
+    - ``grad_rel``: the largest relative L2 error of a leaf's meshed
+      gradient (an unmeshed gradient of 0 must be met by 0);
+    - an entry is *loud* where both gradients are over ``MESH_QUIET`` and
+      of one sign: Adam's first step is then ``lr`` within 1% on both
+      sides, and ``loud_beyond`` is the largest difference of the leaves
+      there beyond one unit in the last place of the pair (ulp, in the
+      leaf's type); ``quiet_beyond`` is the same over the other entries,
+      whose step turns gradient roundoff into up to ``lr`` either way,
+      so that two steps differ by under 2 lr;
+    - readings: ``max_abs_diff``, ``differ`` (the share of entries not
+      bit-equal), ``moved`` (the largest share in a leaf of entries
+      whose updates differ by over lr / 2), ``quiet`` (the share of
+      entries that are not loud);
+    - ``planted_zero`` / ``planted_flip``: the largest share in a leaf of
+      loud entries whose difference would be over lr / 2 beyond their
+      ulp had the meshed step left the leaves as they were, or reversed
+      the unmeshed step's update (stored in the leaf's type): above 0,
+      the loud check sees a skipped or reversed update."""
+    out = dict.fromkeys(("grad_rel", "max_abs_diff", "loud_beyond",
+                         "quiet_beyond", "moved", "differ", "quiet",
+                         "planted_zero", "planted_flip"), 0.0)
+    n_all = n_differ = n_quiet = 0
+    half, mq = 0.5 * lr, (1 - b1) * MESH_QUIET
+    for o, a, b, ms, mm in zip(old, single, meshed, m_single, m_mesh):
+        o, a, b, ms, mm = (t.reshape(-1) for t in (o, a, b, ms, mm))
+        counts = dict.fromkeys(("moved", "planted_zero", "planted_flip"), 0)
+        n_loud, sq_d, sq_s = 0, 0.0, 0.0
+        for i in range(0, a.numel(), MESH_CHUNK):
+            oc, ac, bc, msc, mmc = (t[i:i + MESH_CHUNK]
+                                    for t in (o, a, b, ms, mm))
+            gs, gm = msc.float(), mmc.float()
+            sq_d += float(((gm - gs) ** 2).sum())
+            sq_s += float((gs ** 2).sum())
+            loud = ((gs.abs() > mq) & (gm.abs() > mq)
+                    & (gs.sign() == gm.sign()))
+            n_loud += int(loud.sum())
+            n_differ += int((ac != bc).sum())
+            of, af, bf = oc.float(), ac.float(), bc.float()
+            d = (bf - af).abs()
+            beyond = d - _ulp(torch, af, bf, a.dtype)
+            out["max_abs_diff"] = max(out["max_abs_diff"], float(d.max()))
+            out["loud_beyond"] = max(out["loud_beyond"], _masked_max(
+                torch, beyond, loud))
+            out["quiet_beyond"] = max(out["quiet_beyond"], _masked_max(
+                torch, beyond, ~loud))
+            counts["moved"] += int((d > half).sum())
+            flip = (2 * of - af).to(a.dtype).float()
+            for k, planted in (("planted_zero", of), ("planted_flip", flip)):
+                counts[k] += int((loud & ((planted - af).abs() - _ulp(
+                    torch, af, planted, a.dtype) > half)).sum())
+        n_all += a.numel()
+        n_quiet += a.numel() - n_loud
+        out["moved"] = max(out["moved"], counts["moved"] / a.numel())
+        for k in ("planted_zero", "planted_flip"):
+            out[k] = max(out[k], counts[k] / max(n_loud, 1))
+        rel = (sq_d ** 0.5 / sq_s ** 0.5 if sq_s
+               else 0.0 if sq_d == 0 else float("inf"))
+        out["grad_rel"] = max(out["grad_rel"], rel)
+    out["differ"] = n_differ / n_all
+    out["quiet"] = n_quiet / n_all
+    return out
+
+
+def mesh_step_compare(torch, family, cfg, params, batch, mesh, *, lr,
+                      sp=False, guard=False, timed=0, moments=None):
+    """One step of the unmeshed and of the meshed ``make_train_step``
+    from copies of ``params``: ``{side: {loss, launches, first_s, ...}}``
+    and the leaf comparison (``mesh_leaf_compare``). ``timed`` more steps
+    of each side follow, in turns (single, mesh, mesh, single, ...)."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    sides, live = {}, {}
+    args = (batch, float("inf")) if guard else (batch,)
+    for side in ("single", "mesh"):
+        p = _tree_copy(params)
+        m = mesh if side == "mesh" else None
+        if m is not None:
+            p = family.shard_params(p, cfg, m)
+        state = L.adamw_init(p) if moments is None else L.adamw_init(
+            p, moment_dtype=moments)
+        kw = dict(lr=lr)
+        if guard:
+            kw["guard"] = True
+        if family is L:
+            kw["sp"] = sp
+        step = family.make_train_step(cfg, m, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_dispatch_stats()
+        t0 = time.perf_counter()
+        out = step(p, state, *args)
+        loss = float(_full_value(out[2]))
+        first_s = time.perf_counter() - t0
+        sides[side] = {"loss": loss, "launches": K.dispatch_stats(),
+                       "first_s": first_s,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if guard:
+            sides[side]["grad_norm"] = float(out[3]["grad_norm"])
+            sides[side]["finite"] = bool(out[3]["finite"])
+        live[side] = (p, state, step)
+        del state, out
+    cmp = mesh_leaf_compare(
+        torch, L._leaves(params), L._leaves(live["single"][0]),
+        [_full_value(b) for b in L._leaves(live["mesh"][0])],
+        L._leaves(live["single"][1]["m"]),
+        [_full_value(m) for m in L._leaves(live["mesh"][1]["m"])], lr)
+    if guard:
+        # one more guarded step of each side, its host syncs counted (the
+        # gate's one read, guards.py ``bool(ok)``)
+        for side in ("single", "mesh"):
+            p, state, step = live[side]
+            _, sites = count_syncs(
+                torch, lambda: step(p, state, batch, float("inf")))
+            sides[side]["syncs"] = sites
+    times = {"single": [], "mesh": []}
+    for i in range(2 * timed):
+        for side in (("single", "mesh") if i % 2 == 0 else ("mesh",
+                                                            "single")):
+            if len(times[side]) == timed:
+                continue
+            p, state, step = live[side]
+            t0 = time.perf_counter()
+            float(_full_value(step(p, state, *args)[2]))
+            times[side].append((time.perf_counter() - t0) * 1e3)
+    del live
+    return sides, cmp, times
+
+
+def _mesh_asserts(torch, name, sides, cmp, lr, keys):
+    s, m = sides["single"], sides["mesh"]
+    rel = abs(m["loss"] - s["loss"]) / abs(s["loss"])
+    assert rel <= MESH_LOSS_RTOL, (name, s["loss"], m["loss"])
+    assert cmp["grad_rel"] <= MESH_GRAD_RTOL, (name, cmp)
+    assert cmp["loud_beyond"] <= 0.5 * lr, (name, cmp)
+    assert cmp["quiet_beyond"] <= MESH_LEAF_LRS * lr, (name, cmp)
+    # the loud check sees a skipped or a sign-flipped update
+    assert min(cmp["planted_zero"], cmp["planted_flip"]) > 0, (name, cmp)
+    for k in keys:
+        assert m["launches"][k] == s["launches"][k], (name, k, sides)
+    assert all(v == 0 for k, v in m["launches"].items()
+               if k.endswith("_ref")), (name, m["launches"])
+    return rel
+
+
+def _mesh_say(phase, arm, sides, cmp, rel, times, **extra):
+    s, m = sides["single"], sides["mesh"]
+    _say(phase, arm=arm, loss_single=s["loss"], loss_mesh=m["loss"],
+         loss_rel_err=rel, grad_rel_err=cmp["grad_rel"],
+         leaf_max_abs_diff=cmp["max_abs_diff"],
+         leaf_loud_beyond_ulp=cmp["loud_beyond"],
+         leaf_quiet_beyond_ulp=cmp["quiet_beyond"],
+         leaf_differ_share=cmp["differ"], leaf_moved_share=cmp["moved"],
+         quiet_share=cmp["quiet"],
+         planted_zero_caught_share=cmp["planted_zero"],
+         planted_flip_caught_share=cmp["planted_flip"],
+         first_step_s_single=s["first_s"], first_step_s_mesh=m["first_s"],
+         peak_gb_single=round(s["peak_gb"], 2),
+         peak_gb_mesh=round(m["peak_gb"], 2),
+         **({"step_ms_single": times["single"],
+             "step_ms_mesh": times["mesh"],
+             "median_ms_single": sorted(times["single"])[len(
+                 times["single"]) // 2],
+             "median_ms_mesh": sorted(times["mesh"])[len(
+                 times["mesh"]) // 2]} if times["single"] else {}),
+         **{f"{k}_mesh": m["launches"][k] for k in MESH_LAUNCH_KEYS},
+         **{f"{k}_single": s["launches"][k] for k in ("flash",
+                                                       "flash_bwd",
+                                                       "varlen",
+                                                       "varlen_bwd")},
+         **extra)
+
+
+def phase_mesh_train(torch, dev, card):
+    """``train``'s configuration (materialising cross entropy on both
+    sides) through the mesh step on a (1, 1, 1) mesh, arm by arm."""
+    from paddle_tpu_torch.distributed import spmd
+    from paddle_tpu_torch.models import llama as L
+    _, params, state, _, batch = train_setup(torch, dev)
+    del state
+    mesh = spmd.make_mesh((1, 1, 1), ("dp", "fsdp", "tp"))
+    launches = {}
+    for arm, sp, guard, policy in MESH_ARMS:
+        cfg = L.llama_3_8b(num_hidden_layers=TRAIN_LAYERS, fused_ce=False,
+                           remat_policy=policy)
+        sides, cmp, times = mesh_step_compare(
+            torch, L, cfg, params, batch, mesh, lr=3e-4, sp=sp, guard=guard,
+            timed=MESH_TIMED if arm == "base" else 0)
+        rel = _mesh_asserts(torch, arm, sides, cmp, 3e-4,
+                            MESH_LAUNCH_KEYS)
+        extra = {}
+        if guard:
+            s, m = sides["single"], sides["mesh"]
+            norm_rel = abs(m["grad_norm"] - s["grad_norm"]) / s["grad_norm"]
+            extra = dict(grad_norm_single=s["grad_norm"],
+                         grad_norm_mesh=m["grad_norm"],
+                         grad_norm_rel_err=norm_rel,
+                         host_syncs_single=len(s["syncs"]),
+                         host_syncs_mesh=len(m["syncs"]),
+                         sync_sites_mesh=",".join(m["syncs"]) or "none")
+            assert m["finite"] and s["finite"], sides
+            assert norm_rel <= MESH_NORM_RTOL, extra
+            assert len(m["syncs"]) == len(s["syncs"]) == 1, extra
+        _mesh_say("mesh_train", arm, sides, cmp, rel, times,
+                  sp=sp, guard=guard, remat=policy, **extra)
+        m = sides["mesh"]["launches"]
+        assert m["flash"] == TRAIN_LAYERS * (1 if policy == "attn" else 2)
+        assert m["flash_bwd"] == TRAIN_LAYERS, m
+        _tc_route_only(m)
+        launches[arm] = m
+    _say("mesh_train", card=repr(card), layers=TRAIN_LAYERS,
+         batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", mesh="dp1.fsdp1.tp1",
+         tolerance=f"loss_rtol={MESH_LOSS_RTOL},grad_rtol="
+                   f"{MESH_GRAD_RTOL},loud_beyond_ulp<=0.5lr,"
+                   f"quiet_beyond_ulp<={MESH_LEAF_LRS}lr")
+    del params
+    return launches["base"]
+
+
+def phase_mesh_packed(torch, dev, card):
+    """``train_packed``'s rung (``[7, 2048]``, 24 documents) through the
+    mesh step on a (1, 1, 1) mesh."""
+    from paddle_tpu_torch.distributed import spmd
+    from paddle_tpu_torch.models import llama as L
+    cfg, params, state, _, batch, docs, _ = packed_train_setup(torch, dev)
+    del state
+    mesh = spmd.make_mesh((1, 1, 1), ("dp", "fsdp", "tp"))
+    sides, cmp, times = mesh_step_compare(
+        torch, L, cfg, params, batch, mesh, lr=1e-4,
+        moments=torch.bfloat16)
+    rel = _mesh_asserts(torch, "packed", sides, cmp, 1e-4,
+                        MESH_LAUNCH_KEYS)
+    m = sides["mesh"]["launches"]
+    _mesh_say("mesh_packed", "packed", sides, cmp, rel, times,
+              card=repr(card), documents=len(docs),
+              batch="x".join(map(str, batch[0].shape)))
+    assert m["varlen"] > 0 and m["varlen_bwd"] == TRAIN_LAYERS, m
+    assert m["varlen_tc"] == m["varlen"], m
+    del params
+    return m
+
+
+def phase_moe_mesh(torch, dev, card):
+    """``moe_train``'s rung with dense dispatch, on a (1, 1, 1, 1) dp /
+    fsdp / ep / tp mesh against the unmeshed dense step."""
+    import dataclasses
+
+    from paddle_tpu_torch.distributed import spmd
+    from paddle_tpu_torch.models import moe as M
+    cfg, params, state, _, batch = moe_train_setup(torch, dev)
+    del state
+    cfg = dataclasses.replace(cfg, dispatch_mode="dense")
+    mesh = spmd.make_mesh((1, 1, 1, 1), ("dp", "fsdp", "ep", "tp"))
+    sides, cmp, times = mesh_step_compare(
+        torch, M, cfg, params, batch, mesh, lr=1e-4,
+        moments=torch.bfloat16)
+    rel = _mesh_asserts(torch, "moe", sides, cmp, 1e-4,
+                        MESH_LAUNCH_KEYS)
+    _mesh_say("moe_mesh", "dense", sides, cmp, rel, times,
+              card=repr(card), layers=MOE_TRAIN_LAYERS,
+              batch=f"{MOE_TRAIN_BATCH}x{MOE_TRAIN_SEQ}",
+              mesh="dp1.fsdp1.ep1.tp1")
+    m = sides["mesh"]["launches"]
+    assert m["flash"] > 0 and m["flash_bwd"] == MOE_TRAIN_LAYERS, m
+    _tc_route_only(m)
+    del params
+    return m
+
+
+def phase_dit_mesh(torch, dev, card):
+    """One ``dit_train`` step (DiT-XL/2, 32 latents) on a (1, 1, 1) mesh
+    against the unmeshed step."""
+    from paddle_tpu_torch.distributed import spmd
+    from paddle_tpu_torch.models import dit as DIT
+    cfg, params, state, _, batch = dit_train_setup(torch, dev)
+    del state
+    mesh = spmd.make_mesh((1, 1, 1), ("dp", "fsdp", "tp"))
+    sides, cmp, times = mesh_step_compare(
+        torch, DIT, cfg, params, batch, mesh, lr=1e-4)
+    rel = _mesh_asserts(torch, "dit", sides, cmp, 1e-4,
+                        MESH_LAUNCH_KEYS)
+    _mesh_say("dit_mesh", "xl2", sides, cmp, rel, times,
+              card=repr(card), batch=DIT_TRAIN_BATCH,
+              mesh="dp1.fsdp1.tp1")
+    m = sides["mesh"]["launches"]
+    assert m["flash"] > 0 and m["flash_bwd"] == cfg.num_hidden_layers, m
+    _tc_route_only(m)
+    del params
+    return m
+
+
+def phase_ring_attention(torch, dev, card):
+    """The ring at n = 1 on the card: ``[2, 2048, 32, 128]`` bf16 causal
+    against the flash kernel's output. The ring's multi-rank behaviour
+    is a CPU test (``tests/test_torch_ring_attention.py``, 4 gloo
+    ranks)."""
+    from paddle_tpu_torch.distributed import spmd
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.kernels import ring_attention
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    mesh = spmd.make_mesh((1,), ("sp",))
+    seq = spmd.P(None, "sp")
+    with torch.no_grad():
+        got = _full_value(ring_attention(
+            *(spmd.shard(t, mesh, seq) for t in (q, k, v)), mesh,
+            causal=True))
+        want = FA.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = _err(got, want)
+    _say("ring_attention", card=repr(card), shape="x".join(map(
+        str, RING_SHAPE)), ranks=1, max_abs_err=err, tol=FLASH_TOL,
+        multi_rank="cpu_test_only")
+    assert got.shape == want.shape and err <= FLASH_TOL, err
+
+
+def phase_mesh(torch, dev, card):
+    """The mesh phases, then the process group is torn down."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    try:
+        launches = {"train": phase_mesh_train(torch, dev, card)}
+        torch.cuda.empty_cache()
+        launches["packed"] = phase_mesh_packed(torch, dev, card)
+        torch.cuda.empty_cache()
+        launches["moe"] = phase_moe_mesh(torch, dev, card)
+        torch.cuda.empty_cache()
+        launches["dit"] = phase_dit_mesh(torch, dev, card)
+        torch.cuda.empty_cache()
+        phase_ring_attention(torch, dev, card)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    _say("mesh", seconds=round(time.perf_counter() - t0, 2))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -6230,6 +6656,8 @@ def main() -> int:
     dit_sample_launches = phase_dit_sample(torch, dev, smi)
     torch.cuda.empty_cache()
     dit_train_launches = phase_dit_train(torch, dev, smi)
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(torch, dev, smi)
     # launches on each kernel's main path: serving for the forward and
     # the decode kernel, float32-pool serving for its mixed pair, int8-KV
     # serving for its int8 arm, dense training
@@ -6247,9 +6675,24 @@ def main() -> int:
     rms_bwd["launches"] = eager_launches["rms_bwd"]
     dit_fwd["launches"] = dit_sample_launches["flash"]
     dit_bwd["launches"] = dit_train_launches["flash_bwd"]
+    # launches of each kernel in the mesh phases (ROADMAP A9): the dense
+    # pair in mesh_train's base arm, the segment pair in mesh_packed, the
+    # head-dim-72 pair in dit_mesh; the decode and RMSNorm kernels, off
+    # the mesh path, over all four mesh phases
+    for rec, arm, key in ((flash, "train", "flash"),
+                          (flash_bwd, "train", "flash_bwd"),
+                          (seg_fwd, "packed", "varlen"),
+                          (seg_bwd, "packed", "varlen_bwd"),
+                          (dit_fwd, "dit", "flash"),
+                          (dit_bwd, "dit", "flash_bwd")):
+        rec["mesh_launches"] = mesh_launches[arm][key]
+    for rec, key in ((paged, "paged"), (paged_int8, "paged_quant"),
+                     (paged_mixed, "paged_mixed"), (rms_fwd, "rms"),
+                     (rms_bwd, "rms_bwd")):
+        rec["mesh_launches"] = sum(m[key] for m in mesh_launches.values())
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "mesh_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys}
         for rec in (flash, paged, paged_int8, flash_bwd, seg_fwd,

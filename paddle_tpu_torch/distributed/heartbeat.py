@@ -11,14 +11,14 @@ key-value store (key ``pt_named/<name>``) for controllers with no shared
 filesystem. Readers take the freshest copy across both (a ``seq`` field
 breaks the tie).
 
-The key-value leg takes an explicit duck-typed ``client`` (with
-``key_value_set``, ``key_value_try_get`` or ``blocking_key_value_get``,
-and ``key_value_delete``). The reference finds JAX's coordination-service
-client by default; the port has no process group yet, so
-:func:`_kv_client` returns None and without a ``client`` only the file
-leg runs. ROADMAP A9 wires in ``torch.distributed``'s store. The
-rank-keyed beats, the dead and abort markers and the KV relay of the
-reference's module wait for A9 / A10.
+The key-value leg takes a duck-typed ``client`` (with ``key_value_set``,
+``key_value_try_get`` or ``blocking_key_value_get``, and
+``key_value_delete``). Without one it finds :func:`_kv_client`: an
+adapter over the default ``torch.distributed`` process group's store
+(the reference finds JAX's coordination-service client), or None
+without a process group, when only the file leg runs. The rank-keyed
+beats, the dead and abort markers and the KV relay of the reference's
+module wait for A10.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ import time
 from typing import Dict, Optional
 
 __all__ = ["touch_named", "start_named", "publish_named", "read_named",
-           "remove_named", "stale_names"]
+           "remove_named", "stale_names", "StoreClient"]
 
 _AUTO_SUFFIX = ".alive"
 
@@ -41,10 +41,43 @@ def _touch(path, payload=None):
     os.replace(tmp, path)
 
 
+class StoreClient:
+    """The four key-value calls the transport makes, over a
+    ``torch.distributed`` store (``TCPStore``, ``FileStore``,
+    ``HashStore``): values are text, as the reference's coordination
+    service keeps them."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def key_value_set(self, key: str, value: str,
+                      allow_overwrite: bool = False):
+        if not allow_overwrite and self.store.check([key]):
+            raise KeyError(f"key {key!r} is already set")
+        self.store.set(key, value)
+
+    def key_value_try_get(self, key: str) -> str:
+        if not self.store.check([key]):
+            raise KeyError(f"key {key!r} is not set")
+        return self.store.get(key).decode()
+
+    def blocking_key_value_get(self, key: str, timeout_ms: int) -> str:
+        import datetime
+        self.store.wait([key], datetime.timedelta(milliseconds=timeout_ms))
+        return self.store.get(key).decode()
+
+    def key_value_delete(self, key: str):
+        self.store.delete_key(key)
+
+
 def _kv_client():
-    """The process's key-value store client: None until the port has a
-    process group (ROADMAP A9); pass ``client=`` to use a store."""
-    return None
+    """The process's key-value client: a :class:`StoreClient` over the
+    default process group's store, or None without a process group."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    from torch.distributed.distributed_c10d import _get_default_store
+    return StoreClient(_get_default_store())
 
 
 # -- named beats (serving replicas & other non-rank participants) ------------

@@ -572,6 +572,11 @@ class ServingEngine:
             _mserver.register_health_provider(
                 f"serving:{self._engine_uid}",
                 _engine_health_provider(weakref.ref(self)))
+        # the sharding inspector's view of the parameter tree for
+        # /sharding (monitor-gated: off, nothing is computed)
+        from ..distributed import introspect as _introspect
+        _introspect.register_sharded_tree(
+            f"serving:{self._engine_uid}.params", self.params)
 
     def _record_serving_program(self, spec_key, name, flops_fn, args):
         """Register a serving program with the program registry
@@ -579,7 +584,12 @@ class ServingEngine:
         its signature and the FLOPs ``flops_fn()`` counts from its
         shapes; later dispatches count hits. The registry itself is the
         dedup: after a ``monitor.reset()`` mid-run the next dispatch
-        registers again. Monitor on only."""
+        registers again. Monitor on only. The parameter tree's sharding
+        summary rides the same seam (``ensure_sharded_tree``), so
+        ``/sharding`` fills again after a reset too."""
+        from ..distributed import introspect as _introspect
+        _introspect.ensure_sharded_tree(
+            f"serving:{self._engine_uid}.params", lambda: self.params)
         key = ("engine", self._engine_uid) + spec_key
         if _programs.has_record(key):
             _programs.note_hit(key)

@@ -16,8 +16,9 @@ tensors; there is no fallback from the card to the plain version:
   (entries ``rms_norm_fwd``, ``rms_norm_bwd`` and ``rms_norm_dw``),
   which ``F.rms_norm`` reaches through ``dispatched_rms_norm``.
 
-``fused_ce`` is plain PyTorch on every device, as the reference's is
-plain ``lax.scan`` code. The launch counters mirror the reference's
+``fused_ce`` and ``ring_attention`` (the sequence-parallel ring over
+``torch.distributed``) are plain PyTorch on every device, as the
+reference's are plain ``lax.scan`` code. The launch counters mirror the reference's
 ``_DISPATCH_STATS``.
 """
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from ..core import enforce as E
 from . import flash_attention, fused_ce, paged_attention, rms_norm  # noqa: F401
 from ._stats import DISPATCH_STATS as _DISPATCH_STATS
+from .ring_attention import ring_attention  # noqa: F401
 
 # the reference's CE_DEFAULT_CHUNK (kernels/autotune.py), its chunk off
 # the TPU; the port has no autotune cache
@@ -39,6 +41,7 @@ dispatched_paged_attention = paged_attention.ragged_paged_attention
 __all__ = ["flash_attention", "fused_ce", "paged_attention", "rms_norm",
            "dispatched_fused_ce", "dispatched_paged_attention",
            "dispatched_rms_norm", "dispatched_segment_attention",
+           "ring_attention",
            "dispatch_stats", "reset_dispatch_stats"]
 
 

@@ -44,6 +44,70 @@ def masked_xent_from_logits(logits, labels, *, ignore_index: int = -100,
     return per
 
 
+class _VocabParallelXent(torch.autograd.Function):
+    """Per-token cross entropy of one rank's vocab shard of float32
+    logits ``[..., Vl]`` (columns ``offset`` on of ``V``) against global
+    labels: the row max, the exp sum and the gold logit reduce over the
+    shards' ``group`` (max, sum, sum), so no rank holds a whole row.
+    ``per`` is zero where ``valid`` is false. The backward is
+    ``softmax - onehot`` on this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, valid, offset, group):
+        import torch.distributed as dist
+        vl = logits.shape[-1]
+        m = logits.amax(dim=-1)
+        if group is not None:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(logits - m[..., None])
+        se = e.sum(dim=-1)
+        loc = labels.long() - offset
+        mine = valid & (loc >= 0) & (loc < vl)
+        loc = loc.clamp(0, vl - 1)
+        gold = torch.where(mine, logits.gather(-1, loc[..., None])[..., 0],
+                           0.0)
+        if group is not None:
+            dist.all_reduce(se, group=group)
+            dist.all_reduce(gold, group=group)
+        per = torch.where(valid, m + torch.log(se) - gold, 0.0)
+        ctx.save_for_backward(e, se, loc, mine, valid)
+        return per
+
+    @staticmethod
+    def backward(ctx, dper):
+        e, se, loc, mine, valid = ctx.saved_tensors
+        g = torch.where(valid, dper, 0.0)
+        d = e * (g / se)[..., None]
+        d.scatter_add_(-1, loc[..., None],
+                       -torch.where(mine, g, 0.0)[..., None])
+        return d, None, None, None, None
+
+
+def vocab_parallel_xent(logits, labels, mesh, *, ignore_index: int = -100):
+    """``masked_xent_from_logits`` (mean) of float32 logits placed
+    ``P(("dp", "fsdp"), None, "tp")`` on ``mesh`` against labels placed
+    over the batch axes: each rank takes the loss of its rows over its
+    vocab shard, reducing across tp (``_VocabParallelXent``), and the
+    mean over the valid tokens reduces across the batch axes. Returns a
+    replicated scalar DTensor."""
+    from ..distributed import spmd
+    batch = ("dp", "fsdp")
+    logits = spmd.constrain(logits, mesh, spmd.P(batch, None, "tp"))
+    labels = spmd.constrain(labels, mesh, spmd.P(batch))
+    v = logits.shape[-1]
+    tp = spmd.axis_size(mesh, "tp")
+    group = mesh.get_group("tp") if tp > 1 else None
+    offset = spmd.axis_rank(mesh, "tp") * (-(-v // tp))
+
+    def shard_loss(lg, lb):
+        valid = (lb != ignore_index) & (lb >= 0) & (lb < v)
+        return _VocabParallelXent.apply(lg, lb, valid, offset, group), valid
+
+    per, valid = spmd.local(shard_loss, mesh,
+                            [spmd.P(batch), spmd.P(batch)], logits, labels)
+    return per.sum() / valid.sum().clamp(min=1).to(per.dtype)
+
+
 def supported(x, head, labels) -> bool:
     """Shape guard for the dispatcher: 2D-flattenable x, matching head."""
     return (x.ndim >= 2 and head.ndim == 2

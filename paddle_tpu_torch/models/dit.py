@@ -19,8 +19,14 @@ as one forward over the conditional and null-label halves), drawing its
 latents and noise from a ``torch.Generator`` on the parameters' device;
 ``_ddim_over`` is its loop on given draws. Training: ``loss_fn`` (the
 DDPM epsilon-prediction MSE), ``adamw_init`` and ``make_train_step``
-(the Llama family's AdamW step, parameters updated in place). The mesh
-path (``param_specs``, ``mesh=``) is ROADMAP.md queue A item A9.
+(the Llama family's AdamW step, parameters updated in place).
+
+On a ``("dp", "fsdp", "tp")`` mesh (``mesh=``): the parameters are
+DTensors placed by ``param_specs`` (``shard_params``), the batch is
+placed over dp and fsdp, each block gathers its weights over fsdp
+(ZeRO-3), the products are Megatron tensor-parallel on tp with the
+residual stream whole on each rank, and the attention runs the flash
+kernels on each rank's heads (``sdpa_raw``'s DTensor seam).
 """
 from __future__ import annotations
 
@@ -30,18 +36,22 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..core import enforce as E
 from ..core import resolve_device
+from ..distributed import spmd
+from ..distributed.spmd import P
 from ..nn.functional.attention import sdpa_raw
 from . import llama
-from .llama import adamw_init, params_from_numpy
+from .llama import BATCH, adamw_init, params_from_numpy
 
 __all__ = ["DiTConfig", "dit_tiny", "dit_xl_2", "init_params",
            "params_from_numpy", "timestep_embedding", "patchify",
            "unpatchify", "forward", "loss_fn", "ddim_timesteps",
-           "ddim_sample", "count_params", "adamw_init", "make_train_step"]
+           "ddim_sample", "count_params", "adamw_init", "make_train_step",
+           "param_specs", "shard_params"]
 
 
 @dataclasses.dataclass
@@ -81,13 +91,6 @@ def dit_xl_2(**kw) -> DiTConfig:
                 num_hidden_layers=28, num_attention_heads=16)
     base.update(kw)
     return DiTConfig(**base)
-
-
-def _no_mesh(what: str, mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}: the mesh (multi-GPU) path is not ported yet "
-            "(ROADMAP.md queue A item A9)")
 
 
 # -- parameters ---------------------------------------------------------------
@@ -203,55 +206,158 @@ def _modulate(x, shift, scale):
     return x * (1 + scale[:, None, :]) + shift[:, None, :]
 
 
-def _block(x, cond, bp, config: DiTConfig):
+# On a mesh each step runs on local shards with its placements stated
+# (``distributed.spmd``): the residual stream and the conditioning whole on
+# each rank (batch over dp and fsdp), the products Megatron
+# tensor-parallel on tp, the attention on each rank's heads. Without a
+# mesh the same body makes the plain calls.
+
+def _linear(h, w, b, mesh):
+    """``h @ w + b``. On a mesh ``h`` is gathered over tp before a
+    column-parallel ``w`` (output dim on tp), split over tp before a
+    row-parallel one (input dim on tp), whose partial sums reduce before
+    the bias; a replicated ``w`` takes ``h`` as it is."""
+    if mesh is None:
+        return h @ w + b
+    rows = P(BATCH, *([None] * (h.ndim - 1)))
+    split = P(BATCH, *([None] * (h.ndim - 2)), "tp")
+    tp = mesh.mesh_dim_names.index("tp")
+    wp = w.placements[tp]
+    if isinstance(wp, Shard) and wp.dim == 0:
+        y = spmd.constrain(spmd.matmul(spmd.constrain(h, mesh, split), w),
+                           mesh, rows)
+    else:
+        y = spmd.matmul(spmd.constrain(h, mesh, rows), w)
+    return spmd.bias_add(y, b)
+
+
+def _chunks(x, n, mesh):
+    """``x.chunk(n, -1)`` of a ``[B, n * D]`` conditioning vector, whole
+    on each rank."""
+    rows = P(BATCH, None)
+    x = spmd.constrain(x, mesh, rows)
+    return spmd.local(lambda a: a.chunk(n, dim=-1), mesh, [rows] * n, x)
+
+
+def _silu(x):
+    return spmd.elementwise(F.silu, x)
+
+
+def _block(x, cond, bp, config: DiTConfig, mesh=None):
     c = config
     B, N, D = x.shape
     nh, hd = c.num_attention_heads, c.head_dim
-    mod = F.silu(cond) @ bp["mod_w"] + bp["mod_b"]            # [B, 6D]
-    sh1, sc1, g1, sh2, sc2, g2 = mod.chunk(6, dim=-1)
+    bp = llama._zero3_gather(bp, mesh)
+    act = P(BATCH, None, None)
+    sh1, sc1, g1, sh2, sc2, g2 = _chunks(                       # [B, D]
+        _linear(_silu(cond), bp["mod_w"], bp["mod_b"], mesh), 6, mesh)
 
-    h = _modulate(_ln(x), sh1, sc1)
-    qkv = h @ bp["qkv_w"] + bp["qkv_b"]
-    q, k, v = (t.contiguous() for t in qkv.reshape(B, N, 3, nh, hd)
-               .unbind(2))                                     # [B, N, nh, hd]
-    a = sdpa_raw(q, k, v, is_causal=False).reshape(B, N, D)
-    x = x + g1[:, None, :] * (a @ bp["proj_w"] + bp["proj_b"])
+    def modulate(xl, shl, scl):
+        return _modulate(_ln(xl), shl, scl)
 
-    h = _modulate(_ln(x), sh2, sc2)
-    h = F.gelu(h @ bp["mlp_w1"] + bp["mlp_b1"], approximate="tanh")
-    return x + g2[:, None, :] * (h @ bp["mlp_w2"] + bp["mlp_b2"])
+    def gated(xl, gl, yl):
+        return xl + gl[:, None, :] * yl
+
+    h = spmd.local(modulate, mesh, act, x, sh1, sc1)
+    qkv = spmd.constrain(_linear(h, bp["qkv_w"], bp["qkv_b"], mesh), mesh,
+                         act)
+    q, k, v = (spmd.constrain(t, mesh, P(BATCH, None, "tp", None))
+               for t in spmd.local(
+                   lambda a: tuple(t.contiguous() for t in a.reshape(
+                       a.shape[0], N, 3, nh, hd).unbind(2)),
+                   mesh, [P(BATCH, None, None, None)] * 3, qkv))
+    a = sdpa_raw(q, k, v, is_causal=False)                    # [B, N, nh, hd]
+    a = spmd.local(lambda t: t.reshape(t.shape[0], N, -1), mesh,
+                   P(BATCH, None, "tp"), a)
+    x = spmd.local(gated, mesh, act, x, g1,
+                   _linear(a, bp["proj_w"], bp["proj_b"], mesh))
+
+    h = spmd.local(modulate, mesh, act, x, sh2, sc2)
+    h = spmd.elementwise(lambda t: F.gelu(t, approximate="tanh"),
+                         _linear(h, bp["mlp_w1"], bp["mlp_b1"], mesh))
+    return spmd.local(gated, mesh, act, x, g2,
+                      _linear(h, bp["mlp_w2"], bp["mlp_b2"], mesh))
 
 
 def forward(params, x, t, y, config: DiTConfig, *, mesh=None):
     """Noise prediction ``[B, C, H, W]`` float32 from latents ``x [B, C,
     H, W]``, integer timesteps ``t [B]`` and labels ``y [B]`` (tensors or
-    arrays, brought to the parameters' device)."""
-    _no_mesh("dit.forward", mesh)
+    arrays, brought to the parameters' device). With a ``mesh`` the
+    parameters are DTensors placed by ``param_specs``, the inputs are
+    placed over the batch axes, and so is the prediction."""
     c = config
-    p = params
-    dev = p["pos"].device
-    x, t, y = (torch.as_tensor(a, device=dev) for a in (x, t, y))
-    h = patchify(x.to(c.dtype), c) @ p["patch_w"] + p["patch_b"]
-    h = h + p["pos"][None]
+    if mesh is None:
+        dev = params["pos"].device
+        x, t, y = (torch.as_tensor(a, device=dev) for a in (x, t, y))
+    else:
+        x, t, y = (llama.shard_batch(a, mesh) for a in (x, t, y))
+    p = {k: v if k == "blocks" else spmd.gather_axis(v, "fsdp")
+         for k, v in params.items()}
+    act, rows = P(BATCH, None, None), P(BATCH, None)
+    patches = spmd.local(lambda a: patchify(a.to(c.dtype), c), mesh, act,
+                         x)
+    h = spmd.constrain(_linear(patches, p["patch_w"], p["patch_b"], mesh),
+                       mesh, act)
+    h = spmd.local(lambda a, pos: a + pos[None], mesh, act, h, p["pos"],
+                   grads=[None, spmd.partial_on(p["pos"], mesh, BATCH)])
 
-    temb = timestep_embedding(t).to(c.dtype)
-    cond = F.silu(temb @ p["t_w1"] + p["t_b1"]) @ p["t_w2"] + p["t_b2"]
-    cond = cond + p["y_embed"][y.long()]
+    temb = spmd.local(lambda tl: timestep_embedding(tl).to(c.dtype), mesh,
+                      rows, t)
+    cond = _linear(_silu(_linear(temb, p["t_w1"], p["t_b1"], mesh)),
+                   p["t_w2"], p["t_b2"], mesh)
+    label = spmd.local(lambda tab, yl: tab[yl.long()], mesh, rows,
+                       p["y_embed"], y,
+                       grads=[spmd.partial_on(p["y_embed"], mesh, BATCH),
+                              None])
+    cond = spmd.elementwise(torch.add, spmd.constrain(cond, mesh, rows),
+                            label)
 
     per_block = {k: w.unbind(0) for k, w in p["blocks"].items()}
     remat = c.remat and torch.is_grad_enabled()
     for i in range(c.num_hidden_layers):
         bp = {k: w[i] for k, w in per_block.items()}
         if remat:
-            h = checkpoint(_block, h, cond, bp, c, use_reentrant=False)
+            h = checkpoint(_block, h, cond, bp, c, mesh, use_reentrant=False)
         else:
-            h = _block(h, cond, bp, c)
+            h = _block(h, cond, bp, c, mesh)
 
-    fmod = F.silu(cond) @ p["final_mod_w"] + p["final_mod_b"]
-    fsh, fsc = fmod.chunk(2, dim=-1)
-    h = _modulate(_ln(h), fsh, fsc)
-    out = h @ p["final_w"] + p["final_b"]
-    return unpatchify(out.float(), c)
+    fsh, fsc = _chunks(_linear(_silu(cond), p["final_mod_w"],
+                               p["final_mod_b"], mesh), 2, mesh)
+    h = spmd.local(lambda a, shl, scl: _modulate(_ln(a), shl, scl), mesh,
+                   act, h, fsh, fsc)
+    out = _linear(h, p["final_w"], p["final_b"], mesh)
+    return spmd.local(lambda o: unpatchify(o.float(), c), mesh,
+                      P(BATCH, None, None, None), out)
+
+
+def param_specs(config: DiTConfig) -> Dict[str, Any]:
+    """Placements over a ``("dp", "fsdp", "tp")`` mesh: the attention and
+    MLP products column / row split on tp, the other matmul dim on
+    fsdp (the reference's)."""
+    del config
+    return {
+        "patch_w": P("fsdp", "tp"),
+        "patch_b": P(None),
+        "pos": P(None, "fsdp"),
+        "t_w1": P("fsdp", "tp"), "t_b1": P(None),
+        "t_w2": P("fsdp", "tp"), "t_b2": P(None),
+        "y_embed": P(None, "fsdp"),
+        "blocks": {
+            "mod_w": P(None, "fsdp", "tp"), "mod_b": P(None, None),
+            "qkv_w": P(None, "fsdp", "tp"), "qkv_b": P(None, None),
+            "proj_w": P(None, "tp", "fsdp"), "proj_b": P(None, None),
+            "mlp_w1": P(None, "fsdp", "tp"), "mlp_b1": P(None, None),
+            "mlp_w2": P(None, "tp", "fsdp"), "mlp_b2": P(None, None),
+        },
+        "final_mod_w": P("fsdp", "tp"), "final_mod_b": P(None),
+        "final_w": P("fsdp", None), "final_b": P(None),
+    }
+
+
+def shard_params(params, config: DiTConfig, mesh):
+    """A parameter tree (the same on every rank) as DTensors placed by
+    ``param_specs`` on ``mesh`` (``llama.shard_params``)."""
+    return llama.shard_params(params, config, mesh, param_specs(config))
 
 
 # -- diffusion ----------------------------------------------------------------
@@ -289,14 +395,31 @@ def ddim_timesteps(steps: int, tmax: int = 1000):
 
 def loss_fn(params, batch, config: DiTConfig, *, mesh=None):
     """DDPM epsilon-prediction MSE: ``batch = (x0, t, y, noise)``, ``t``
-    integer timesteps in ``[0, 1000)`` (the DiT training objective)."""
-    _no_mesh("dit.loss_fn", mesh)
+    integer timesteps in ``[0, 1000)`` (the DiT training objective). With
+    a ``mesh`` the batch is placed over the batch axes, each rank noises
+    its own rows, and the mean reduces across the mesh (a replicated
+    scalar)."""
+    if mesh is not None:
+        x0, t, y, noise = (llama.shard_batch(a, mesh) for a in batch)
+        rows = P(BATCH, None, None, None)
+        xt = spmd.local(_noised, mesh, rows, x0, t, noise)
+        pred = forward(params, xt, t, y, config, mesh=mesh)
+        n = pred.numel()
+        sq = spmd.local(lambda a, b: ((a - b) ** 2).sum(), mesh,
+                        spmd.partial_on(spmd.placements(P(), mesh), mesh,
+                                        BATCH), pred, noise)
+        return spmd.constrain(sq / n, mesh, P())
     dev = params["pos"].device
     x0, t, y, noise = (torch.as_tensor(a, device=dev) for a in batch)
-    abar = _alpha_bar_table(device=dev)[t.long()][:, None, None, None]
-    xt = torch.sqrt(abar) * x0 + torch.sqrt(1 - abar) * noise
+    xt = _noised(x0, t, noise)
     pred = forward(params, xt, t, y, config)
     return torch.mean((pred - noise) ** 2)
+
+
+def _noised(x0, t, noise):
+    """``x_t = sqrt(abar_t) x0 + sqrt(1 - abar_t) noise``."""
+    abar = _alpha_bar_table(device=x0.device)[t.long()][:, None, None, None]
+    return torch.sqrt(abar) * x0 + torch.sqrt(1 - abar) * noise
 
 
 @torch.no_grad()
@@ -379,12 +502,14 @@ def make_train_step(config: DiTConfig, mesh=None, *, lr: float = 1e-4):
     ``loss_fn`` and its gradients, then the Llama family's AdamW
     (``llama._adamw_update`` at its defaults, as the reference's step).
     Parameters and moments are updated in place and the same dicts are
-    returned; the step runs where the parameters lie."""
-    _no_mesh("dit.make_train_step", mesh)
+    returned; the step runs where the parameters lie. With a ``mesh``
+    the parameters are DTensors placed by ``param_specs``."""
+    def loss(p, b, c):
+        return loss_fn(p, b, c, mesh=mesh)
 
     def step(params, opt_state, batch):
         value, grads = llama.loss_and_grads(params, batch, config,
-                                            loss=loss_fn)
+                                            loss=loss)
         llama._adamw_update(params, grads, opt_state, lr)
         return params, opt_state, value
 

@@ -55,8 +55,10 @@ from .. import nn
 from ..core import enforce as E
 from ..core import resolve_device
 from ..core.tensor import from_numpy
+from ..distributed import spmd
+from ..distributed.spmd import P
 from ..kernels.flash_attention import FLASH_FWD_OPS, through_ops
-from ..kernels.fused_ce import _mm_f32
+from ..kernels.fused_ce import _mm_f32, vocab_parallel_xent
 from ..nn import functional as PF
 from ..nn.functional.attention import gather_rope_rows, rope_raw
 from ..nn.functional.attention import rope_tables as _rope_tables
@@ -72,6 +74,7 @@ __all__ = ["LlamaConfig", "llama_tiny", "llama_3_8b", "init_params",
            "sampling_filter", "make_sampler", "generate", "beam_search",
            "remat_policy", "unpack_batch", "loss_fn", "count_params",
            "loss_and_grads", "adamw_init", "make_train_step",
+           "param_specs", "shard_params", "shard_batch", "make_forward",
            "LlamaDecoderLayer", "LlamaForCausalLM"]
 
 
@@ -193,6 +196,8 @@ def params_from_numpy(tree, device=None, dtype=None):
 
 
 def _rms(x, w, eps):
+    if spmd.is_dtensor(x):
+        return spmd.rowwise(functools.partial(_rms, eps=eps), x, w)
     xf = x.float()
     y = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
     return (y * w.float()).to(x.dtype)
@@ -218,7 +223,10 @@ def _dequant(w, in_axis: int, dtype):
 def _mm(x, w):
     """Matmul against a plain ``[in, out]`` weight or its weight-only
     form ``{"q"|"q4", "s": f32 [out]}`` (dequantized in plain PyTorch,
-    then the product, as the reference leaves both to XLA)."""
+    then the product, as the reference leaves both to XLA). DTensors (a
+    mesh) multiply on their local shards (``spmd.matmul``)."""
+    if spmd.is_dtensor(x):
+        return spmd.matmul(x, w)
     if isinstance(w, dict):
         return x @ _dequant(w, -2, x.dtype)
     return x @ w
@@ -299,24 +307,57 @@ def quantize_weights(params, weight_dtype: str = "int8"):
     return out
 
 
-def _qkv_proj(h, lp, config: LlamaConfig):
+# the batch axes of every activation on a mesh (the reference's
+# ``("dp", "fsdp")`` entry)
+BATCH = ("dp", "fsdp")
+
+
+def _act_spec(sp: bool):
+    """The residual stream ``[B, S, D]`` on a mesh: batch over dp and
+    fsdp, the sequence over tp when sequence-parallel (Megatron-SP: the
+    norms and elementwise work run on sequence shards, gathered before
+    the column-parallel products and reduce-scattered after the
+    row-parallel ones)."""
+    return P(BATCH, "tp" if sp else None, None)
+
+
+def _heads_spec(mesh, n_heads: int):
+    """Placement of a ``[B, S, heads, hd]`` grid: heads over tp, unless
+    the heads do not split evenly over tp (kv heads fewer than tp), when
+    they stay whole and the attention seam repeats them
+    (``nn.functional.attention._sdpa_sharded``)."""
+    tp = spmd.axis_size(mesh, "tp")
+    return P(BATCH, None, "tp" if n_heads % tp == 0 else None, None)
+
+
+def _qkv_proj(h, lp, config: LlamaConfig, mesh=None):
     """Attention input projections ``[B, S, D]`` -> q/k/v head grids (no
-    rope)."""
+    rope). On a mesh the heads shard over tp (the reference's constraint
+    sites)."""
     c = config
     B, S, _ = h.shape
     nh, nkv, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
-    q = _mm(h, lp["wq"]).reshape(B, S, nh, hd)
-    k = _mm(h, lp["wk"]).reshape(B, S, nkv, hd)
-    v = _mm(h, lp["wv"]).reshape(B, S, nkv, hd)
-    return q, k, v
+
+    def heads(w, n):
+        spec = _heads_spec(mesh, n)
+        y = _mm(h, w)
+        if spec[2] is None:     # whole heads: gather the tp columns first
+            y = spmd.constrain(y, mesh, P(BATCH, None, None))
+        return spmd.constrain(y.reshape(B, S, n, hd), mesh, spec)
+
+    return heads(lp["wq"], nh), heads(lp["wk"], nkv), heads(lp["wv"], nkv)
 
 
-def _ffn(x, lp, config: LlamaConfig):
-    """Post-attention half of a decoder layer (ln2 + SwiGLU + residual)."""
-    h = _rms(x, lp["ln2"], config.rms_norm_eps)
-    g = _mm(h, lp["gate"])
-    u = _mm(h, lp["up"])
-    return x + _mm(F.silu(g) * u, lp["down"])
+def _ffn(x, lp, config: LlamaConfig, mesh=None, sp: bool = False):
+    """Post-attention half of a decoder layer (ln2 + SwiGLU + residual);
+    on a mesh column-parallel gate / up and a row-parallel down."""
+    h = spmd.constrain(_rms(x, lp["ln2"], config.rms_norm_eps), mesh,
+                       _act_spec(False))
+    g = spmd.constrain(_mm(h, lp["gate"]), mesh, P(BATCH, None, "tp"))
+    u = spmd.constrain(_mm(h, lp["up"]), mesh, P(BATCH, None, "tp"))
+    a = spmd.elementwise(lambda gl, ul: F.silu(gl) * ul, g, u)
+    return spmd.elementwise(torch.add, x, spmd.constrain(
+        _mm(a, lp["down"]), mesh, _act_spec(sp)))
 
 
 def decode_mlp(x, lp, config: LlamaConfig):
@@ -339,26 +380,44 @@ def layer(params, i: int) -> Dict[str, Any]:
 
 
 def _block(x, lp, cos, sin, config: LlamaConfig, segment_ids=None,
-           positions=None):
+           positions=None, mesh=None, sp: bool = False):
     """One decoder layer. ``segment_ids`` / ``positions`` select the
-    sequence-packed attention (``sdpa_raw``)."""
-    x, _, _ = _attn_half(x, lp, cos, sin, config, segment_ids, positions)
-    return _ffn(x, lp, config)
+    sequence-packed attention (``sdpa_raw``). On a mesh the layer's
+    weights are first gathered over fsdp (``_zero3_gather``)."""
+    lp = _zero3_gather(lp, mesh)
+    x, _, _ = _attn_half(x, lp, cos, sin, config, segment_ids, positions,
+                         mesh, sp)
+    return _ffn(x, lp, config, mesh, sp)
 
 
-def _attn_half(x, lp, cos, sin, config, segment_ids=None, positions=None):
+def _zero3_gather(lp, mesh):
+    """ZeRO-3: one layer's weights gathered over the fsdp axis, each
+    keeping its other shards (tp, ep). Inside the block, so remat
+    gathers again in the backward, and autograd reduce-scatters the
+    gradients back to the fsdp shards. Without a mesh, ``lp``."""
+    if mesh is None:
+        return lp
+    return {k: spmd.gather_axis(w, "fsdp") for k, w in lp.items()}
+
+
+def _attn_half(x, lp, cos, sin, config, segment_ids=None, positions=None,
+               mesh=None, sp: bool = False):
     """Attention half of a decoder layer (ln1, q/k/v, rope, causal
     ``sdpa_raw``, output projection, residual), shared with the MoE
-    family and the prefill: ``(x, k after rope, v)``."""
+    family and the prefill: ``(x, k after rope, v)``. On a mesh the
+    sequence is gathered before the projections (sequence-parallel) and
+    the output projection's partial sums reduce to ``_act_spec(sp)``."""
     c = config
     B, S, _ = x.shape
-    h = _rms(x, lp["ln1"], c.rms_norm_eps)
-    q, k, v = _qkv_proj(h, lp, c)
-    q = rope_raw(q, cos, sin)
-    k = rope_raw(k, cos, sin)
+    h = spmd.constrain(_rms(x, lp["ln1"], c.rms_norm_eps), mesh,
+                       _act_spec(False))
+    q, k, v = _qkv_proj(h, lp, c, mesh)
+    q = spmd.local(rope_raw, mesh, None, q, cos, sin)
+    k = spmd.local(rope_raw, mesh, None, k, cos, sin)
     a = sdpa_raw(q, k, v, is_causal=True, segment_ids=segment_ids,
                  positions=positions).reshape(B, S, -1)
-    return x + _mm(a, lp["wo"]), k, v
+    return spmd.elementwise(torch.add, x, spmd.constrain(
+        _mm(a, lp["wo"]), mesh, _act_spec(sp))), k, v
 
 
 def _save_flash_outputs(ctx, op, *args, **kwargs):
@@ -405,35 +464,78 @@ def remat_policy(name: str):
         f"{name!r}")
 
 
-def forward_hidden(params, ids, config: LlamaConfig, *, segment_ids=None,
-                   positions=None):
+def forward_hidden(params, ids, config: LlamaConfig, *, sp: bool = False,
+                   mesh=None, segment_ids=None, positions=None):
     """Final hidden states ``[B, S, D]`` (post ln_f) from token ids.
 
     ``segment_ids`` / ``positions`` ``[B, S]`` select sequence-packed
     semantics: rope positions restart per document and attention is
-    segment-masked (``sdpa_raw``)."""
+    segment-masked (``sdpa_raw``). With a ``mesh`` the parameters are
+    DTensors placed by ``param_specs`` and the ids a DTensor (or a tensor
+    that is the same on every rank); ``sp`` shards the residual stream's
+    sequence over tp."""
     return _layers_over(_block, params, ids, config, segment_ids,
-                        positions)[0]
+                        positions, mesh=mesh, sp=sp)[0]
+
+
+def _embed_on_mesh(params, ids, mesh, sp, segment_ids, positions):
+    """The mesh form of the embedding: the vocab-parallel gather of the
+    table's tp shards (each rank looks up the ids in its rows, the
+    partial rows reduce), the batch DTensors placed, the rope tables
+    replicated."""
+    ids = shard_batch(ids, mesh)
+    table = spmd.constrain(params["embed"], mesh, P("tp", None))
+    v = table.shape[0]
+    tp = spmd.axis_size(mesh, "tp")
+    offset = spmd.axis_rank(mesh, "tp") * (-(-v // tp))
+
+    def lookup(i, t):
+        # the rows of this rank's vocab shard; other ids give zeros
+        mine = (i >= offset) & (i < offset + t.shape[0])
+        rows = F.embedding((i - offset).clamp(0, t.shape[0] - 1), t)
+        return rows * mine[..., None].to(rows.dtype)
+
+    x = spmd.local(lookup, mesh, spmd.partial_on(
+        spmd.placements(P(BATCH), mesh), mesh, ("tp",)), ids, table,
+        grads=[None, spmd.partial_on(table, mesh, BATCH)])
+    x = spmd.constrain(x, mesh, _act_spec(sp))
+    seg = pos = None
+    if segment_ids is not None:
+        seg = shard_batch(segment_ids, mesh)
+    if positions is not None:
+        pos = shard_batch(positions, mesh)
+    return ids, x, seg, pos
 
 
 def _layers_over(block, params, ids, config, segment_ids=None,
-                 positions=None, *, tags_attn: bool = True):
+                 positions=None, *, tags_attn: bool = True, mesh=None,
+                 sp: bool = False):
     """The layer loop of any family: embed ``ids``, run ``block(x, lp,
-    cos, sin, config, segment_ids, positions)`` over the stacked layers,
+    cos, sin, config, segment_ids, positions, mesh, sp)`` over the
+    stacked layers,
     apply ln_f. ``block`` returns ``x``, or ``(x, aux)``; returns
     ``(hidden [B, S, D], [each layer's aux])``. The stacked weights are
     split into per-layer views once (``unbind``), so their gradient is
     stacked once. With ``config.remat`` and grad enabled, each layer runs
     under ``torch.utils.checkpoint`` with ``config.remat_policy``. A
     family whose block tags no attention output (``tags_attn=False``, the
-    MoE block, as in the reference) runs ``"attn"`` as ``"full"``."""
+    MoE block, as in the reference) runs ``"attn"`` as ``"full"``. With a
+    ``mesh`` the parameters are DTensors."""
     c = config
-    x = params["embed"][ids]
+    if mesh is None:
+        x = params["embed"][ids]
+    else:
+        ids, x, segment_ids, positions = _embed_on_mesh(
+            params, ids, mesh, sp, segment_ids, positions)
     cos, sin = _rope_tables(ids.shape[1], c.head_dim, theta=c.rope_theta,
                             device=x.device)
+    if mesh is not None:
+        cos, sin = spmd.replicate(cos, mesh), spmd.replicate(sin, mesh)
     if positions is not None:
-        # segment-local rope rows (sequence packing)
-        cos, sin = gather_rope_rows(cos, sin, positions)
+        # segment-local rope rows (sequence packing), each rank's own
+        cos, sin = spmd.local(gather_rope_rows, mesh,
+                              [P(BATCH, None, None)] * 2, cos, sin,
+                              positions)
     per_layer = {k: w.unbind(0) if torch.is_tensor(w)
                  else [_slice(w, i) for i in range(c.num_hidden_layers)]
                  for k, w in params["layers"].items()}
@@ -447,10 +549,10 @@ def _layers_over(block, params, ids, config, segment_ids=None,
         lp = {k: w[i] for k, w in per_layer.items()}
         if remat:
             x = checkpoint(block, x, lp, cos, sin, c, segment_ids,
-                           positions, use_reentrant=False,
+                           positions, mesh, sp, use_reentrant=False,
                            context_fn=context_fn)
         else:
-            x = block(x, lp, cos, sin, c, segment_ids, positions)
+            x = block(x, lp, cos, sin, c, segment_ids, positions, mesh, sp)
         if isinstance(x, tuple):
             x, aux = x
             auxes.append(aux)
@@ -462,12 +564,27 @@ def _head(params, config: LlamaConfig):
         else params["lm_head"]
 
 
-def forward(params, ids, config: LlamaConfig, *, segment_ids=None,
-            positions=None):
+def _sharded_logits(x, head, mesh):
+    """The mesh form of ``_head_logits``: each rank multiplies its batch
+    rows by its tp rows of the head (gathered over fsdp), so the float32
+    logits come out vocab-parallel, ``P(BATCH, None, "tp")``."""
+    x = spmd.constrain(x, mesh, _act_spec(False))
+    head = spmd.gather_axis(head, "fsdp")
+    return spmd.local(lambda a, w: _mm_f32(a, w.t()), mesh,
+                      P(BATCH, None, "tp"), x, head,
+                      grads=[spmd.partial_on(x, mesh, ("tp",)),
+                             spmd.partial_on(head, mesh, BATCH)])
+
+
+def forward(params, ids, config: LlamaConfig, *, sp: bool = False,
+            mesh=None, segment_ids=None, positions=None):
     """Logits ``[B, S, V]`` (float32) from token ids ``[B, S]``
-    (sequence-packed with ``segment_ids`` / ``positions``)."""
-    x = forward_hidden(params, ids, config, segment_ids=segment_ids,
-                       positions=positions)
+    (sequence-packed with ``segment_ids`` / ``positions``); on a mesh a
+    DTensor placed ``P(BATCH, None, "tp")``."""
+    x = forward_hidden(params, ids, config, sp=sp, mesh=mesh,
+                       segment_ids=segment_ids, positions=positions)
+    if mesh is not None:
+        return _sharded_logits(x, _head(params, config), mesh)
     return _head_logits(x, _head(params, config))
 
 
@@ -815,7 +932,8 @@ def unpack_batch(batch):
     return batch[:, :-1], batch[:, 1:], None, None
 
 
-def loss_fn(params, batch, config: LlamaConfig):
+def loss_fn(params, batch, config: LlamaConfig, *, sp: bool = False,
+            mesh=None):
     """Causal-LM cross entropy of a batch in any ``unpack_batch`` form:
     the blockwise cross entropy over the final hidden states with
     ``config.fused_ce`` (the ``[B, S, V]`` logits never exist whole), else
@@ -825,17 +943,78 @@ def loss_fn(params, batch, config: LlamaConfig):
     Sequence-packed batches carry per-token segment ids and segment-local
     positions (``io/packing.py``), and their labels hold ``ignore_index``
     at every document's last token, so no document predicts the next
-    one's first token."""
+    one's first token.
+
+    With a ``mesh`` the logits always materialise, vocab-parallel, and the
+    cross entropy reduces across the tp shards
+    (``kernels.fused_ce.vocab_parallel_xent``), as the reference's mesh
+    path never fuses."""
     from ..kernels import dispatched_fused_ce
     from ..kernels.fused_ce import masked_xent_from_logits
     inp, labels, seg, pos = unpack_batch(batch)
     c = config
+    if mesh is not None:
+        logits = forward(params, inp, c, sp=sp, mesh=mesh, segment_ids=seg,
+                         positions=pos)
+        return vocab_parallel_xent(logits, shard_batch(labels, mesh), mesh)
     if c.fused_ce:
         x = forward_hidden(params, inp, c, segment_ids=seg, positions=pos)
         return dispatched_fused_ce(x, _head(params, c), labels,
                                    vocab_chunk=c.fused_ce_chunk)
     return masked_xent_from_logits(
         forward(params, inp, c, segment_ids=seg, positions=pos), labels)
+
+
+def param_specs(config: LlamaConfig) -> Dict[str, Any]:
+    """Placement of every weight over a ``("dp", "fsdp", "tp")`` mesh:
+    Megatron column-parallel (wq / wk / wv / gate / up: output dim on
+    tp), row-parallel (wo / down: input dim on tp), vocab-parallel
+    embedding and head; fsdp (ZeRO-3) shards the other matmul dim."""
+    specs = {
+        "embed": P("tp", "fsdp"),
+        "layers": {
+            "ln1": P(None, None),
+            "wq": P(None, "fsdp", "tp"),
+            "wk": P(None, "fsdp", "tp"),
+            "wv": P(None, "fsdp", "tp"),
+            "wo": P(None, "tp", "fsdp"),
+            "ln2": P(None, None),
+            "gate": P(None, "fsdp", "tp"),
+            "up": P(None, "fsdp", "tp"),
+            "down": P(None, "tp", "fsdp"),
+        },
+        "ln_f": P(None),
+    }
+    if not config.tie_word_embeddings:
+        specs["lm_head"] = P("tp", "fsdp")
+    return specs
+
+
+def shard_params(params, config, mesh, specs=None):
+    """A parameter tree (the same on every rank, e.g. ``init_params`` or
+    ``params_from_numpy`` of a JAX tree) as DTensors placed by
+    ``param_specs`` (or ``specs``) on ``mesh``. Each rank keeps its own
+    shard of its own copy: nothing is sent, and where a shard is the
+    whole tensor (a mesh of one) it is the tree's tensor itself, which a
+    train step then updates in place."""
+    specs = param_specs(config) if specs is None else specs
+
+    def walk(p, s):
+        if isinstance(p, dict):
+            return {k: walk(p[k], s[k]) for k in p}
+        return spmd.shard(p, mesh, s)
+
+    return walk(params, specs)
+
+
+def shard_batch(x, mesh):
+    """A batch array ``[B, ...]`` (the same on every rank) or DTensor
+    placed over the batch axes, ``P(BATCH)``."""
+    if x is None:
+        return None
+    if not spmd.is_dtensor(x):
+        x = torch.as_tensor(x, device=mesh.device_type)
+    return spmd.shard(x, mesh, P(BATCH))
 
 
 def count_params(config: LlamaConfig) -> int:
@@ -884,13 +1063,17 @@ def _adamw_update(params, grads, opt_state, lr, *, b1=0.9, b2=0.95,
     float32 weight before the step), with the bias corrections rounded in
     float32 as the reference's are. Updates ``params`` and the moments in
     place (one leaf at a time, so the float32 temporaries never exceed
-    one leaf) and returns ``(params, opt_state)``."""
+    one leaf) and returns ``(params, opt_state)``. The update is
+    elementwise, so DTensor leaves (a mesh; the gradients in their
+    parameters' placements) are updated on their local shards."""
     step = opt_state["step"] + 1
     t = np.float32(step)
     bc1 = float(np.float32(1.0) - np.float32(b1) ** t)
     bc2 = float(np.float32(1.0) - np.float32(b2) ** t)
     for p, g, m, v in zip(_leaves(params), _leaves(grads),
                           _leaves(opt_state["m"]), _leaves(opt_state["v"])):
+        if spmd.is_dtensor(p):
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         p.copy_(adam_update_(p, g, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
                              bc1=bc1, bc2=bc2, wd=wd, coupled=True))
     opt_state["step"] = step
@@ -899,13 +1082,14 @@ def _adamw_update(params, grads, opt_state, lr, *, b1=0.9, b2=0.95,
 
 def _batch_to(batch, device):
     """A batch in any ``unpack_batch`` form with every array on
-    ``device``."""
+    ``device`` (DTensors stay where their mesh holds them)."""
+    def to(v):
+        return v if spmd.is_dtensor(v) else torch.as_tensor(v, device=device)
     if isinstance(batch, dict):
-        return {k: torch.as_tensor(v, device=device)
-                for k, v in batch.items()}
+        return {k: to(v) for k, v in batch.items()}
     if isinstance(batch, (tuple, list)):
-        return tuple(torch.as_tensor(v, device=device) for v in batch)
-    return torch.as_tensor(batch, device=device)
+        return tuple(to(v) for v in batch)
+    return to(batch)
 
 
 def loss_and_grads(params, batch, config: LlamaConfig, *, loss=None):
@@ -913,7 +1097,8 @@ def loss_and_grads(params, batch, config: LlamaConfig, *, loss=None):
     gradient of every parameter, as a tree like ``params``. The
     parameters need not require grad (the gradient is taken through
     detached aliases of them); the batch (tensors or numpy arrays) is
-    brought to their device."""
+    brought to their device. A DTensor parameter's gradient comes back in
+    the parameter's placements (partial sums reduced)."""
     loss = loss_fn if loss is None else loss
     flat = _leaves(params)
     work = [p.detach().requires_grad_() for p in flat]
@@ -921,7 +1106,9 @@ def loss_and_grads(params, batch, config: LlamaConfig, *, loss=None):
     with torch.enable_grad():
         value = loss(_map(lambda _: next(it), params),
                      _batch_to(batch, flat[0].device), config)
-        grads = iter(torch.autograd.grad(value, work))
+        grads = torch.autograd.grad(value, work)
+    grads = iter([g.redistribute(p.device_mesh, p.placements)
+                  if spmd.is_dtensor(p) else g for p, g in zip(flat, grads)])
     return value.detach(), _map(lambda _: next(grads), params)
 
 
@@ -938,8 +1125,22 @@ def _clamped_ids(batch, vocab_size: int):
     return (inp, labels) if seg is None else (inp, labels, seg, pos)
 
 
+def make_forward(config: LlamaConfig, mesh=None):
+    """``fwd(params, ids) -> logits``: ``forward`` of ``config``; with a
+    ``mesh``, on parameters placed by ``shard_params`` and ids placed over
+    the batch axes (``shard_batch``), the logits a DTensor placed
+    ``P(BATCH, None, "tp")``."""
+    if mesh is None:
+        return functools.partial(forward, config=config)
+
+    def fwd(params, ids):
+        return forward(params, shard_batch(ids, mesh), config, mesh=mesh)
+
+    return fwd
+
+
 def make_train_step(config: LlamaConfig, mesh=None, *, lr: float = 3e-4,
-                    weight_decay: float = 0.1,
+                    weight_decay: float = 0.1, sp: bool = False,
                     guard: Optional[bool] = None,
                     numerics: Optional[bool] = None, loss=None):
     """``step(params, opt_state, batch) -> (params, opt_state, loss)``:
@@ -965,24 +1166,43 @@ def make_train_step(config: LlamaConfig, mesh=None, *, lr: float = 3e-4,
 
     ``numerics`` (default: ``FLAGS_enable_numerics``; guarded step only)
     adds ``health["numerics"]``, ``training.guards.grad_numerics`` of the
-    gradients. The mesh path raises (ROADMAP A9)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step: the mesh (multi-GPU) path is not ported yet "
-            "(ROADMAP.md queue A item A9)")
+    gradients.
+
+    With a ``mesh`` (axes dp / fsdp / tp): the parameters are DTensors
+    placed by ``param_specs`` (``shard_params``), so the moments are too;
+    the batch is placed over the batch axes, the layers gather their
+    weights over fsdp (ZeRO-3), the products are Megatron tensor-parallel
+    on tp and ``sp`` shards the residual stream's sequence over tp. The
+    health scalars are reduced over the mesh, the same on every rank."""
     guard = resolve_guard(guard)
     numerics = guard and resolve_numerics(numerics)
+    if mesh is not None:
+        family = loss_fn if loss is None else loss
+        on_mesh = dict(mesh=mesh, **({"sp": True} if sp else {}))
+
+        def loss(p, b, c):
+            return family(p, b, c, **on_mesh)
+
+    def place(batch):
+        if mesh is None:
+            return batch
+        if isinstance(batch, dict):
+            return {k: shard_batch(v, mesh) for k, v in batch.items()}
+        if isinstance(batch, (tuple, list)):
+            return tuple(shard_batch(v, mesh) for v in batch)
+        return shard_batch(batch, mesh)
 
     def update(params, opt_state, grads):
         return _adamw_update(params, grads, opt_state, lr, wd=weight_decay)
 
     def step(params, opt_state, batch):
-        value, grads = loss_and_grads(params, batch, config, loss=loss)
+        value, grads = loss_and_grads(params, place(batch), config,
+                                      loss=loss)
         update(params, opt_state, grads)
         return params, opt_state, value
 
     def guarded_step(params, opt_state, batch, gnorm_cap):
-        batch = _batch_to(batch, _leaves(params)[0].device)
+        batch = place(_batch_to(batch, _leaves(params)[0].device))
         value, grads = loss_and_grads(
             params, _clamped_ids(batch, config.vocab_size), config,
             loss=loss)

@@ -15,9 +15,13 @@ Two dispatch modes, as in the reference:
   takes a place in its expert's buffer of ``C = moe_capacity(T)`` rows
   in token-major order; over-capacity slots drop (the token keeps its
   shared expert). The experts run as batched ``[E, C, D]`` products.
-- ``"dense"``: every expert sees every routed token through a 0/1
-  dispatch mask and the outputs combine with the router weights. Only
-  the single-device form is ported; a ``mesh`` raises (ROADMAP A9).
+- ``"dense"`` (the default on a mesh): every expert sees every routed
+  token through a 0/1 dispatch mask and the outputs combine with the
+  router weights. On a ``("dp", "fsdp", "ep", "tp")`` mesh the expert
+  axis shards over ep: the dispatched ``[E, T, D]`` rows and the expert
+  outputs are placed ``P("ep", None, None)`` (the reference's two
+  constraints, its ep exchange), the expert products are tensor-parallel
+  on tp, and the parameters are placed by ``param_specs``.
 
 Attention, the ring-cache decode (``prefill`` / ``decode_step`` /
 ``generate`` / ``beam_search``) and the train step are the llama
@@ -38,6 +42,8 @@ import torch.nn.functional as F
 from . import llama as _L
 from ..core import enforce as E
 from ..core import resolve_device
+from ..distributed import spmd
+from ..distributed.spmd import P
 from .llama import (_attn_half, _dequant, _head_logits, _mm, _rms,
                     params_from_numpy, quant_packed)
 
@@ -46,6 +52,7 @@ __all__ = ["MoEConfig", "moe_tiny", "deepseek_moe_16b", "qwen2_moe_a14b",
            "count_params", "quantize_weights", "moe_capacity",
            "decode_mlp", "forward_hidden", "forward", "loss_fn",
            "loss_and_grads", "adamw_init", "make_train_step", "init_cache",
+           "param_specs", "shard_params",
            "prefill", "decode_step", "generate", "beam_search"]
 
 
@@ -287,11 +294,15 @@ def _moe_mlp_capacity(x, lp, config: MoEConfig):
     return routed.to(x.dtype), aux
 
 
-def _moe_mlp_dense(x, lp, config: MoEConfig):
-    """Dense dispatch of ``x`` ``[T, D]`` (single device): every expert
-    takes every token, masked to 0 where not routed; outputs combine
-    with the router weights. ``(routed [T, D], aux)``."""
+def _moe_mlp_dense(x, lp, config: MoEConfig, mesh=None):
+    """Dense dispatch of ``x`` ``[T, D]``: every expert takes every token,
+    masked to 0 where not routed; outputs combine with the router
+    weights. ``(routed [T, D], aux)``. On a mesh the routing runs on each
+    rank's tokens and the dispatched rows and expert outputs are placed
+    over ep."""
     c = config
+    if mesh is not None:
+        return _moe_mlp_dense_mesh(x, lp, c, mesh)
     T = x.shape[0]
     topv, topi, aux = _route(x, lp, c)
     combine = torch.zeros((T, c.num_experts), dtype=torch.float32,
@@ -306,24 +317,96 @@ def _moe_mlp_dense(x, lp, config: MoEConfig):
     return routed.to(x.dtype), aux
 
 
-def _moe_mlp(h, lp, config: MoEConfig):
+def _moe_mlp_dense_mesh(x, lp, config: MoEConfig, mesh):
+    """``_moe_mlp_dense`` of batch-sharded tokens on a mesh. Each step
+    runs on local shards (``spmd.local``), with the placements between
+    them explicit: the dispatched rows ``[E, T, D]`` and the expert
+    outputs are placed ``P("ep", None, None)`` (the reference's two
+    constraints: every ep rank takes all tokens for its experts), the
+    expert products split their hidden dim over tp (partial sums reduced
+    on tp), and each ep rank combines its experts' outputs into partial
+    token rows that reduce over ep back to the batch shards."""
+    c = config
+    combine, aux = _route_on_mesh(x, lp, c, mesh)
+    tokens = P(_L.BATCH, None)
+
+    def dispatch_rows(comb, xl):
+        # a selected expert sees the unscaled token
+        return (comb > 0).to(c.dtype).t()[:, :, None] * xl.to(c.dtype)[None]
+
+    xe = spmd.constrain(spmd.local(dispatch_rows, mesh, P(None, _L.BATCH),
+                                   combine, x), mesh, P("ep", None, None))
+    experts = {k: spmd.gather_axis(lp[k], "fsdp")
+               for k in ("e_gate", "e_up", "e_down")}
+    ep_rows = spmd.placements(P("ep", None, None), mesh)
+    y = spmd.local(
+        lambda a, g, u, d: _expert_ffn(a, {"e_gate": g, "e_up": u,
+                                          "e_down": d}),
+        mesh, spmd.partial_on(ep_rows, mesh, ("tp",)), xe,
+        experts["e_gate"], experts["e_up"], experts["e_down"],
+        grads=[spmd.partial_on(xe, mesh, ("tp",)), None, None, None])
+    y = spmd.constrain(y, mesh, P("ep", None, None))
+    comb = spmd.constrain(combine, mesh, P(None, "ep"))
+    routed = spmd.local(
+        lambda yl, cl: torch.einsum("etd,te->td", yl.float(), cl), mesh,
+        spmd.partial_on(spmd.placements(P(None, None), mesh), mesh,
+                        ("ep",)), y, comb,
+        grads=[None, None])
+    return spmd.constrain(routed, mesh, tokens).to(x.dtype), aux
+
+
+def _route_on_mesh(x, lp, config: MoEConfig, mesh):
+    """``(combine [T, E] float32, aux)`` of batch-sharded tokens ``x``:
+    ``_route`` on each rank's tokens (the router replicated), the
+    load-balancing loss from the mesh-wide means."""
+    c = config
+    router = spmd.gather_axis(lp["router"], "fsdp")
+
+    def route(xl, r):
+        probs = torch.softmax(xl.float() @ r, dim=-1)
+        topv, topi = _L._top_k_stable(probs, c.num_experts_per_tok)
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+        combine = torch.zeros_like(probs).scatter(-1, topi, topv)
+        sel = F.one_hot(topi, c.num_experts).float().sum(dim=1)
+        return combine, probs, sel
+
+    rows = P(_L.BATCH, None)
+    combine, probs, sel = spmd.local(
+        route, mesh, [rows, rows, rows], x, router,
+        grads=[None, spmd.partial_on(router, mesh, _L.BATCH)])
+    aux = c.num_experts * (probs.mean(dim=0) * sel.mean(dim=0)).sum()
+    return combine, aux
+
+
+def _moe_mlp(h, lp, config: MoEConfig, mesh=None):
     """Routed experts plus the shared expert of ``h`` ``[B, S, D]``:
     ``(out [B, S, D], aux)``. The routed sum is float32 cast to
-    ``h.dtype``; the shared expert runs in ``h.dtype``."""
+    ``h.dtype``; the shared expert runs in ``h.dtype``. The dispatch mode
+    defaults to ``"capacity"`` on one device and ``"dense"`` on a mesh,
+    as the reference's; capacity dispatch on a mesh raises."""
     c = config
     B, S, D = h.shape
-    x = h.reshape(B * S, D)
-    mode = c.dispatch_mode or "capacity"
+    # each rank's rows, token-major
+    x = spmd.local(lambda a: a.reshape(-1, D), mesh, P(_L.BATCH, None),
+                   spmd.constrain(h, mesh, P(_L.BATCH, None, None)))
+    mode = c.dispatch_mode or ("dense" if mesh is not None else "capacity")
     if mode == "capacity":
+        if mesh is not None:
+            raise NotImplementedError(
+                "moe: capacity dispatch on a mesh is not ported; the mesh "
+                "path runs dispatch_mode='dense'")
         routed, aux = _moe_mlp_capacity(x, lp, c)
     elif mode == "dense":
-        routed, aux = _moe_mlp_dense(x, lp, c)
+        routed, aux = _moe_mlp_dense(x, lp, c, mesh)
     else:
         raise E.InvalidArgumentError(
             f"dispatch_mode must be 'dense' or 'capacity', got {mode!r}")
-    shared = _mm(F.silu(_mm(x, lp["s_gate"])) * _mm(x, lp["s_up"]),
-                 lp["s_down"])
-    return (routed + shared).reshape(B, S, D).to(h.dtype), aux
+    a = spmd.elementwise(lambda g, u: F.silu(g) * u, _mm(x, lp["s_gate"]),
+                         _mm(x, lp["s_up"]))
+    shared = spmd.constrain(_mm(a, lp["s_down"]), mesh, P(_L.BATCH, None))
+    out = spmd.local(lambda r, sh: (r + sh).reshape(-1, S, D).to(h.dtype),
+                     mesh, P(_L.BATCH, None, None), routed, shared)
+    return out, aux
 
 
 def decode_mlp(x, lp, config: MoEConfig):
@@ -340,19 +423,16 @@ def _head(params, config: MoEConfig):
 
 
 def _block(x, lp, cos, sin, config: MoEConfig, segment_ids=None,
-           positions=None):
-    """One decoder layer: ``(x, aux)``."""
-    x, _, _ = _attn_half(x, lp, cos, sin, config, segment_ids, positions)
+           positions=None, mesh=None, sp: bool = False):
+    """One decoder layer: ``(x, aux)``. On a mesh the layer's weights are
+    first gathered over fsdp, as llama's."""
+    lp = _L._zero3_gather(lp, mesh)
+    x, _, _ = _attn_half(x, lp, cos, sin, config, segment_ids, positions,
+                         mesh, sp)
     out, aux = _moe_mlp(_rms(x, lp["ln2"], config.rms_norm_eps), lp,
-                        config)
-    return x + out, aux
-
-
-def _no_mesh(mesh, what):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"moe.{what}: the mesh (multi-GPU, expert-parallel) path is "
-            f"not ported yet (ROADMAP.md queue A item A9)")
+                        config, mesh)
+    return spmd.elementwise(torch.add, x, spmd.constrain(
+        out, mesh, _L._act_spec(sp))), aux
 
 
 def forward_hidden(params, ids, config: MoEConfig, *, mesh=None,
@@ -361,18 +441,21 @@ def forward_hidden(params, ids, config: MoEConfig, *, mesh=None,
     llama's layer loop over this family's ``_block`` (packed batches and
     remat as there; the block tags no attention output, so remat
     ``"attn"`` recomputes the whole layer, as ``"full"``, as in the
-    reference)."""
-    _no_mesh(mesh, "forward_hidden")
+    reference). With a ``mesh`` the parameters are DTensors placed by
+    ``param_specs``."""
     x, auxes = _L._layers_over(_block, params, ids, config, segment_ids,
-                               positions, tags_attn=False)
+                               positions, tags_attn=False, mesh=mesh)
     return x, torch.stack(auxes).sum()
 
 
 def forward(params, ids, config: MoEConfig, *, mesh=None, segment_ids=None,
             positions=None):
-    """``(logits [B, S, V] float32, aux)``."""
+    """``(logits [B, S, V] float32, aux)``; on a mesh the logits are
+    placed vocab-parallel, as llama's."""
     x, aux = forward_hidden(params, ids, config, mesh=mesh,
                             segment_ids=segment_ids, positions=positions)
+    if mesh is not None:
+        return _L._sharded_logits(x, params["lm_head"], mesh), aux
     return _head_logits(x, params["lm_head"]), aux
 
 
@@ -380,20 +463,61 @@ def loss_fn(params, batch, config: MoEConfig, *, mesh=None):
     """Causal-LM cross entropy of a batch in any llama ``unpack_batch``
     form (sequence-packed included) plus ``router_aux_loss_coef * aux``:
     the blockwise cross entropy with ``config.fused_ce``, else the
-    materialising one over ``forward``'s logits."""
+    materialising one over ``forward``'s logits. On a mesh the logits
+    always materialise and the cross entropy is vocab-parallel
+    (``kernels.fused_ce.vocab_parallel_xent``), as the reference's mesh
+    path never fuses."""
     from ..kernels import dispatched_fused_ce
-    from ..kernels.fused_ce import masked_xent_from_logits
+    from ..kernels.fused_ce import masked_xent_from_logits, \
+        vocab_parallel_xent
     inp, labels, seg, pos = _L.unpack_batch(batch)
     c = config
-    if c.fused_ce:
-        x, aux = forward_hidden(params, inp, c, mesh=mesh, segment_ids=seg,
+    if mesh is not None:
+        logits, aux = forward(params, inp, c, mesh=mesh, segment_ids=seg,
+                              positions=pos)
+        ce = vocab_parallel_xent(logits, _L.shard_batch(labels, mesh), mesh)
+    elif c.fused_ce:
+        x, aux = forward_hidden(params, inp, c, segment_ids=seg,
                                 positions=pos)
         ce = dispatched_fused_ce(x, params["lm_head"], labels)
     else:
-        logits, aux = forward(params, inp, c, mesh=mesh, segment_ids=seg,
+        logits, aux = forward(params, inp, c, segment_ids=seg,
                               positions=pos)
         ce = masked_xent_from_logits(logits, labels)
     return ce + c.router_aux_loss_coef * aux
+
+
+def param_specs(config: MoEConfig) -> Dict[str, Any]:
+    """Placements over a ``("dp", "fsdp", "ep", "tp")`` mesh: the expert
+    grids put E on ep (expert parallelism) and their FFN dims on tp /
+    fsdp; the dense weights follow the llama family's layout."""
+    del config
+    return {
+        "embed": P("tp", "fsdp"),
+        "layers": {
+            "ln1": P(None, None),
+            "wq": P(None, "fsdp", "tp"),
+            "wk": P(None, "fsdp", "tp"),
+            "wv": P(None, "fsdp", "tp"),
+            "wo": P(None, "tp", "fsdp"),
+            "ln2": P(None, None),
+            "router": P(None, "fsdp", None),
+            "e_gate": P(None, "ep", "fsdp", "tp"),
+            "e_up": P(None, "ep", "fsdp", "tp"),
+            "e_down": P(None, "ep", "tp", "fsdp"),
+            "s_gate": P(None, "fsdp", "tp"),
+            "s_up": P(None, "fsdp", "tp"),
+            "s_down": P(None, "tp", "fsdp"),
+        },
+        "ln_f": P(None),
+        "lm_head": P("tp", "fsdp"),
+    }
+
+
+def shard_params(params, config: MoEConfig, mesh):
+    """A parameter tree (the same on every rank) as DTensors placed by
+    ``param_specs`` on ``mesh`` (``llama.shard_params``)."""
+    return _L.shard_params(params, config, mesh, param_specs(config))
 
 
 def loss_and_grads(params, batch, config: MoEConfig):
@@ -416,9 +540,9 @@ def make_train_step(config: MoEConfig, mesh=None, *, lr: float = 1e-4,
     with ``guard`` (default: ``FLAGS_enable_sentinel``) the guarded
     ``(params, opt_state, batch, gnorm_cap) -> (params, opt_state, loss,
     health)``, the llama family's contract, with ``numerics`` (default:
-    ``FLAGS_enable_numerics``) as there. The mesh path raises (A9)."""
-    _no_mesh(mesh, "make_train_step")
-    return _L.make_train_step(config, lr=lr, guard=guard,
+    ``FLAGS_enable_numerics``) as there. With a ``mesh`` the parameters
+    are placed by ``param_specs`` and the batch over dp and fsdp."""
+    return _L.make_train_step(config, mesh, lr=lr, guard=guard,
                               numerics=numerics, loss=loss_fn)
 
 

@@ -55,7 +55,7 @@ __all__ = [
     "inc", "observe", "set_gauge",
     "snapshot", "expose_text", "dump_json", "reset", "timed",
     "trace", "server", "programs", "exectime", "numerics", "slo",
-    "forensics", "memory", "federation", "profile_capture",
+    "forensics", "memory", "federation", "profile_capture", "fleet",
     "suppressed", "suppress_accounting",
 ]
 
@@ -174,6 +174,11 @@ def reset():
     slo.reset()
     federation.reset()
     forensics.reset()
+    fleet.reset()
+    import sys as _sys
+    _introspect = _sys.modules.get("paddle_tpu_torch.distributed.introspect")
+    if _introspect is not None:
+        _introspect.reset()
 
 
 class timed:
@@ -214,4 +219,5 @@ from . import forensics  # noqa: E402
 from . import memory  # noqa: E402
 from . import federation  # noqa: E402
 from . import profile_capture  # noqa: E402
+from . import fleet  # noqa: E402
 from . import server  # noqa: E402

@@ -31,9 +31,15 @@ Prometheus scraper or liveness probe hits:
   (``monitor/profile_capture.py``); a second concurrent request answers
   **409**.
 
-``/roofline`` and ``/timeseries`` have their planes in ROADMAP A10, and
-``/sharding`` and ``/metrics?scope=fleet`` (a cross-host collective) in
-A9. Until those are ported, each answers **501** with a JSON body that
+- ``GET /sharding``: the sharding inspector's registered trees
+  (``distributed/introspect.py``);
+- ``GET /metrics?scope=fleet``: the cross-process aggregate
+  (``monitor/fleet.py``): computed fresh per scrape in a single process,
+  else the last ``aggregated_snapshot()`` the ranks gathered (503 until
+  one was).
+
+``/roofline`` and ``/timeseries`` have their planes in ROADMAP A10.
+Until those are ported, each answers **501** with a JSON body that
 names its ROADMAP item, never a made-up payload.
 
 Gating and lifecycle: ``FLAGS_enable_monitor_server`` off (the default)
@@ -81,10 +87,6 @@ _HEALTH_PROVIDERS: Dict[str, Callable[[], Optional[dict]]] = {}
 UNPORTED_ROUTES = {
     "/roofline": ("A10", "the roofline plane (monitor/roofline.py)"),
     "/timeseries": ("A10", "the step time series (monitor/timeseries.py)"),
-    "/sharding": ("A9", "the sharding inspector "
-                        "(distributed/introspect.py)"),
-    "/metrics?scope=fleet": ("A9", "the cross-host fleet aggregate "
-                                   "(monitor/fleet.py)"),
 }
 
 
@@ -215,6 +217,9 @@ class _Handler(BaseHTTPRequestHandler):
                 hr = _memory.headroom()
                 self._send_json(200, {"hbm": hr.pop("hbm"),
                                       "headroom": hr})
+            elif route == "/sharding":
+                from ..distributed import introspect as _introspect
+                self._send_json(200, _introspect.sharding_snapshot())
             elif route in UNPORTED_ROUTES:
                 self._unported(route)
             elif route == "/numerics":
@@ -336,7 +341,21 @@ class _Handler(BaseHTTPRequestHandler):
 
         scope = (query.get("scope") or ["process"])[0]
         if scope == "fleet":
-            self._unported("/metrics?scope=fleet")
+            from . import fleet as _fleet
+            if _fleet.world_size() == 1:
+                # a single process: the gather is local, so compute it
+                # fresh per scrape (a cached payload would freeze)
+                payload = _fleet.aggregated_snapshot()
+            else:
+                payload = _fleet.last_aggregate()
+            if payload is None:
+                self._send_json(503, {
+                    "error": "no fleet aggregate published yet — "
+                             "aggregated_snapshot() is a collective the "
+                             "training/serving loop must call"})
+                return
+            self._send(200, _fleet.expose_fleet_text(payload).encode(),
+                       "text/plain; version=0.0.4; charset=utf-8")
             return
         # scrape-time refresh: HBM gauges re-read the backend (the
         # headroom composition reuses that one read), and the

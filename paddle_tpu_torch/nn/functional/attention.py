@@ -14,7 +14,10 @@ sums. Layout is the reference's ``[B, S, H, D]``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ...core import enforce as E
 
@@ -99,7 +102,13 @@ def sdpa_raw(query, key, value, attn_mask=None, *, dropout_p: float = 0.0,
     ``is_causal`` evaluated on the segment-local ``positions`` ``[B, S]``
     (default: the global arange, which is the segment-local order for
     contiguously packed rows). A mask or dropout with ``segment_ids``
-    raises, as in the reference (the packed mask is the mask)."""
+    raises, as in the reference (the packed mask is the mask).
+
+    DTensor q / k / v (a mesh) take ``_sdpa_sharded``: the same kernels on
+    each rank's local shards."""
+    if isinstance(query, DTensor):
+        return _sdpa_sharded(query, key, value, attn_mask, dropout_p,
+                             is_causal, scale, segment_ids, positions)
     if segment_ids is not None:
         if attn_mask is not None or dropout_p != 0.0:
             raise NotImplementedError(
@@ -119,6 +128,64 @@ def sdpa_raw(query, key, value, attn_mask=None, *, dropout_p: float = 0.0,
     return sdpa_reference(query, key, value, attn_mask, causal=is_causal,
                           scale=scale, dropout_p=dropout_p,
                           generator=generator)
+
+
+def _sdpa_sharded(q, k, v, attn_mask, dropout_p, is_causal, scale,
+                  segment_ids, positions):
+    """``sdpa_raw`` of DTensors: q is sharded on its batch (dim 0) and
+    heads (dim 2) only, never on the sequence; k / v and the segment
+    arrays are placed to match, and each rank runs ``sdpa_raw`` (the
+    flash kernels on the card) on its ``.contiguous()`` local shards,
+    wrapped back with q's placements. A local shard the kernel refuses
+    raises there; nothing is gathered to run the plain version.
+
+    When the kv heads do not split over the head shards (fewer kv heads
+    than tp), k and v are placed with whole heads and each kv head is
+    repeated ``shards // kv_heads`` times (``repeat_interleave``) before
+    the split, so rank ``t`` holds kv head ``t // r``: the one its query
+    heads use."""
+    from ...distributed import spmd
+    if attn_mask is not None or dropout_p != 0.0:
+        raise NotImplementedError(
+            "sdpa_raw: masks and dropout are not supported on a mesh")
+    mesh = q.device_mesh
+    pl = q.placements
+    E.enforce(all(isinstance(p, Replicate) or
+                  (isinstance(p, Shard) and p.dim in (0, 2)) for p in pl),
+              f"sdpa_raw: a mesh's q must be sharded on batch or heads "
+              f"only, got {pl}", error=E.InvalidArgumentError)
+    shards = math.prod(mesh.size(i) for i, p in enumerate(pl)
+                       if p == Shard(2))
+    nkv = k.shape[2]
+    if nkv % shards:
+        E.enforce(shards % nkv == 0,
+                  f"sdpa_raw: {nkv} kv heads do not tile {shards} head "
+                  f"shards", error=E.InvalidArgumentError)
+        whole = tuple(Replicate() if p == Shard(2) else p for p in pl)
+        r = shards // nkv
+
+        def rep(t):
+            return t.repeat_interleave(r, dim=2)
+
+        k = spmd.local(rep, mesh, whole, k.redistribute(mesh, whole))
+        v = spmd.local(rep, mesh, whole, v.redistribute(mesh, whole))
+    k, v = k.redistribute(mesh, pl), v.redistribute(mesh, pl)
+    out = pl
+    if segment_ids is None:
+        return spmd.local(
+            lambda a, b, c: sdpa_raw(a.contiguous(), b.contiguous(),
+                                     c.contiguous(), is_causal=is_causal,
+                                     scale=scale), mesh, out, q, k, v)
+    rows = tuple(p if p == Shard(0) else Replicate() for p in pl)
+    seg = segment_ids.redistribute(mesh, rows)
+    pos = seg if positions is None else positions.redistribute(mesh, rows)
+
+    def packed(a, b, c, sg, ps):
+        return sdpa_raw(a.contiguous(), b.contiguous(), c.contiguous(),
+                        is_causal=is_causal, scale=scale, segment_ids=sg,
+                        positions=None if positions is None else ps)
+
+    return spmd.local(packed, mesh, out, q, k, v, seg, pos)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core import flags as _flags
 
@@ -35,13 +36,21 @@ def _leaves(tree):
     return [tree]
 
 
+def _whole(x):
+    """A DTensor statistic as a plain tensor, its partial results reduced
+    over the mesh (``full_tensor``: a collective, no host read), so every
+    rank holds the same value; a plain tensor itself."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def grad_global_norm(grads):
     """Global L2 norm of a gradient tree, accumulated in float32: one
     reduction a leaf, which reads the leaf once in its own type
     (``vector_norm`` with a float32 ``dtype`` makes no float32 copy),
-    then the norm of those norms."""
+    then the norm of those norms. A sharded (DTensor) leaf's norm is
+    reduced across the mesh."""
     return torch.linalg.vector_norm(torch.stack([
-        torch.linalg.vector_norm(g, dtype=torch.float32)
+        _whole(torch.linalg.vector_norm(g, dtype=torch.float32))
         for g in _leaves(grads)]))
 
 
@@ -83,7 +92,8 @@ def tensor_stats(x, reduce_axes=None):
     every axis, scalars; a tuple keeps the other axes, e.g. axis 0 of a
     stacked ``[L, ...]`` weight gives per-layer ``[L]`` rows). Overflow
     and underflow fractions are measured against ``x``'s own dtype range
-    (``_dtype_range``)."""
+    (``_dtype_range``). A DTensor's statistics are reduced across its
+    mesh."""
     over_t, under_t = _dtype_range(x.dtype)
     xf = x.float()
     ax = tuple(range(x.ndim)) if reduce_axes is None else tuple(reduce_axes)
@@ -92,15 +102,16 @@ def tensor_stats(x, reduce_axes=None):
     for a in ax:
         n *= x.shape[a]
     n = float(n)
-    sumsq = torch.sum(xf * xf, dim=ax)
+    sumsq = _whole(torch.sum(xf * xf, dim=ax))
     return {
-        "absmax": torch.amax(absx, dim=ax),
+        "absmax": _whole(torch.amax(absx, dim=ax)),
         "rms": torch.sqrt(sumsq / n),
-        "mean": torch.sum(xf, dim=ax) / n,
-        "zero_frac": torch.sum((xf == 0.0).float(), dim=ax) / n,
-        "overflow_frac": torch.sum((absx > over_t).float(), dim=ax) / n,
-        "underflow_frac": torch.sum(
-            ((absx < under_t) & (xf != 0.0)).float(), dim=ax) / n,
+        "mean": _whole(torch.sum(xf, dim=ax)) / n,
+        "zero_frac": _whole(torch.sum((xf == 0.0).float(), dim=ax)) / n,
+        "overflow_frac": _whole(torch.sum((absx > over_t).float(),
+                                          dim=ax)) / n,
+        "underflow_frac": _whole(torch.sum(
+            ((absx < under_t) & (xf != 0.0)).float(), dim=ax)) / n,
         "gnorm_sq": sumsq,
     }
 
@@ -131,9 +142,15 @@ def step_health(loss, grads, inp, vocab_size: int, gnorm_cap):
     gradient norm, every input token id in ``[0, vocab_size)`` and the
     norm at most ``gnorm_cap`` (a float or a tensor; +inf disables it).
     ``health`` is ``{"finite": ok, "grad_norm": norm}``. Nothing is read
-    back to the host."""
+    back to the host. On a mesh (DTensor loss, grads, ids) every
+    reduction is taken over the mesh, so ``ok`` and the norm are the same
+    on every rank."""
     gnorm = grad_global_norm(grads)
-    ids_ok = torch.all((inp >= 0) & (inp < vocab_size))
+    if isinstance(inp, DTensor):
+        loss = _whole(loss)
+        ids_ok = _whole(((inp < 0) | (inp >= vocab_size)).sum()) == 0
+    else:
+        ids_ok = torch.all((inp >= 0) & (inp < vocab_size))
     ok = (torch.isfinite(loss) & torch.isfinite(gnorm) & ids_ok
           & (gnorm <= gnorm_cap))
     return ok, {"finite": ok, "grad_norm": gnorm}

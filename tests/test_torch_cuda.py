@@ -1451,3 +1451,62 @@ def test_remat_attn_launch_counts_on_the_card(dev, packed):
     assert launches["full"][fwd] == 2 * layers
     assert launches["attn"][fwd] == layers
     assert launches["full"][bwd] == launches["attn"][bwd] == layers
+
+
+@pytest.fixture
+def card_mesh(dev):
+    """A mesh of one on the card: a one-rank NCCL group over a
+    ``HashStore``, torn down after the test."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import spmd
+    made = not dist.is_initialized()
+    try:
+        yield spmd.make_mesh((1, 1, 1), ("dp", "fsdp", "tp"))
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("policy", ["full", "attn"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_mesh_of_one_step_launches_the_kernels(dev, card_mesh, policy,
+                                              packed):
+    """The meshed step (DTensor parameters, ``sdpa_raw``'s local-shard
+    seam) launches the flash kernels as the unmeshed step does, never a
+    plain version: ``"attn"`` one forward a layer, ``"full"`` two."""
+    C = _chip_smoke()
+    cfg = L.llama_tiny(dtype=torch.bfloat16, remat=True,
+                       remat_policy=policy, fused_ce=False)
+    params = L.init_params(cfg, seed=0, device=dev)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 33)), device=dev)
+    fwd, bwd = ("varlen", "varlen_bwd") if packed else ("flash", "flash_bwd")
+    if packed:
+        seg = torch.tensor([[0] * 20 + [1] * 12, [0] * 25 + [-1] * 7],
+                           dtype=torch.int32, device=dev)
+        pos = torch.cat([torch.arange(20), torch.arange(12), torch.arange(25),
+                         torch.zeros(7, dtype=torch.long)]).reshape(2, 32)
+        batch = (ids[:, :-1], ids[:, 1:], seg, pos.to(dev, torch.int32))
+    else:
+        batch = ids
+    sides, cmp, _ = C.mesh_step_compare(
+        torch, L, cfg, params, batch, card_mesh, lr=3e-4)
+    C._mesh_asserts(torch, policy, sides, cmp, 3e-4,
+                    C.MESH_LAUNCH_KEYS)
+    m = sides["mesh"]["launches"]
+    layers = cfg.num_hidden_layers
+    assert m[fwd] == layers * (1 if policy == "attn" else 2), m
+    assert m[bwd] == layers, m
+
+
+def test_meshed_attention_raises_where_the_kernel_refuses(dev, card_mesh):
+    """A local shard the flash kernel does not take (head dim 260) raises
+    on the card: the mesh seam never runs the plain version."""
+    from paddle_tpu_torch.distributed import spmd
+    q = torch.randn(2, 16, 4, 260, device=dev, dtype=torch.bfloat16)
+    spec = spmd.P(("dp", "fsdp"), None, "tp", None)
+    dq = spmd.shard(q, card_mesh, spec)
+    K.reset_dispatch_stats()
+    with pytest.raises(Exception, match="does not take"):
+        ATT.sdpa_raw(dq, dq, dq, is_causal=True)
+    assert K.dispatch_stats()["flash_ref"] == 0

@@ -349,11 +349,21 @@ def test_ddim_sample_draws_from_its_generator():
 
 
 def test_mesh_raises_and_names_a9():
+    """The mesh path (ROADMAP A9) is ported: on a one-rank dp / fsdp / tp
+    gloo mesh the forward, the loss and a train step are the
+    single-device ones (multi-rank parity: ``tests/test_torch_mesh.py``)."""
+    from _torch_mesh_common import one_rank_mesh
     _, _, cfg, tp = _setup(24)
     x, t, y, noise = _inputs(cfg)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TD.make_train_step(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        TD.forward(tp, x, t, y, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        TD.loss_fn(tp, (x, t, y, noise), cfg, mesh=object())
+    want = TD.forward(tp, x, t, y, cfg)
+    want_loss = TD.loss_fn(tp, (x, t, y, noise), cfg)
+    with one_rank_mesh(("dp", "fsdp", "tp")) as mesh:
+        mp = TD.shard_params(tp, cfg, mesh)
+        with torch.no_grad():
+            got = TD.forward(mp, x, t, y, cfg, mesh=mesh)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=1e-5,
+                                   atol=1e-6)
+        _, _, loss = TD.make_train_step(cfg, mesh)(
+            mp, TD.adamw_init(mp), (x, t, y, noise))
+        np.testing.assert_allclose(float(loss.full_tensor()),
+                                   float(want_loss), rtol=1e-6)

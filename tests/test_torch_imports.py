@@ -51,7 +51,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "loadgen/scorecard.py", "monitor/memory.py",
             "monitor/profile_capture.py", "monitor/federation.py",
             "device/memory.py", "distributed/fleet/__init__.py",
-            "distributed/fleet/elastic.py"} <= scanned
+            "distributed/fleet/elastic.py", "distributed/spmd.py",
+            "distributed/introspect.py", "monitor/fleet.py",
+            "kernels/ring_attention.py"} <= scanned
     bad = [(str(f.relative_to(_ROOT)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in _FORBIDDEN]
@@ -99,6 +101,19 @@ def test_generation_and_moe_entry_points_refuse_to_drop_to_cpu(no_cuda):
     # generation follows its parameters' device
     assert TM.generate(params, [[1, 2]], cfg,
                        max_new_tokens=2).device.type == "cpu"
+
+
+def test_make_mesh_refuses_to_drop_to_cpu(no_cuda):
+    """A mesh runs on the card by default (a one-rank NCCL group there);
+    without one it raises before any process group starts."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import spmd
+    for device in (None, "cuda"):
+        with pytest.raises(TE.UnavailableError):
+            spmd.make_mesh((1, 1, 1), ("dp", "fsdp", "tp"), device=device)
+    with pytest.raises(TE.UnavailableError):
+        spmd.init_group("nccl")
+    assert not dist.is_initialized()
 
 
 def test_dit_entry_points_refuse_to_drop_to_cpu(no_cuda):

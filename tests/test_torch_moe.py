@@ -231,10 +231,26 @@ def test_not_ported_paths_raise():
     _, _, _, health = TM.make_train_step(cfg, guard=True)(
         tp, TM.adamw_init(tp), torch.as_tensor(_ids((2, 9))), float("inf"))
     assert bool(health["finite"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        TM.make_train_step(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        TM.forward(tp, torch.as_tensor(_ids((1, 4))), cfg, mesh=object())
+    # the mesh path (ROADMAP A9): on a one-rank dp / fsdp / ep / tp mesh
+    # the dense dispatch is the single-device dense dispatch (multi-rank
+    # parity: tests/test_torch_mesh.py)
+    from _torch_mesh_common import one_rank_mesh
+    ids = torch.as_tensor(_ids((2, 5)))
+    dense = TM.moe_tiny(dispatch_mode="dense")
+    want, want_aux = TM.forward(tp, ids, dense)
+    with one_rank_mesh(("dp", "fsdp", "ep", "tp")) as mesh:
+        mp = TM.shard_params(tp, cfg, mesh)
+        with torch.no_grad():
+            got, aux = TM.forward(mp, ids, cfg, mesh=mesh)
+            loss = TM.loss_fn(mp, ids, cfg, mesh=mesh)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(aux.full_tensor(), want_aux)
+        np.testing.assert_allclose(float(loss.full_tensor()), float(
+            TM.loss_fn(tp, ids, dense)), rtol=1e-5)
+        with pytest.raises(NotImplementedError, match="capacity"):
+            TM.forward(mp, ids, TM.moe_tiny(dispatch_mode="capacity"),
+                       mesh=mesh)
     with pytest.raises(ValueError, match="dispatch_mode"):
         TM.forward(tp, torch.as_tensor(_ids((1, 4))),
                    TM.moe_tiny(dispatch_mode="ragged"))

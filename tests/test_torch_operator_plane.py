@@ -52,8 +52,10 @@ ROUTES = ("/metrics", "/healthz", "/flight", "/programs", "/memory",
           "/forensics", "/requests/1", "/requests/999", "/",
           "/profile?seconds=abc", "/profile?seconds=0",
           "/profile?seconds=1000", "/no/such/route")
-UNPORTED = {"/roofline": "A10", "/timeseries": "A10", "/sharding": "A9",
-            "/metrics?scope=fleet": "A9"}
+UNPORTED = {"/roofline": "A10", "/timeseries": "A10"}
+# the A9 routes, scraped on both sides after the same serve: the
+# parameter tree's layout and the single-process fleet aggregate
+MESH_ROUTES = ("/sharding", "/metrics?scope=fleet")
 # the reference's XLA analysis of its programs (memory bytes, and the
 # collectives its comms plane reads from the compiled program) registers
 # these on a /metrics scrape; eager PyTorch compiles no program to analyze
@@ -146,6 +148,9 @@ def _scrape(M, routes):
             if route == "/metrics":
                 out[route] = (st, ctype, _families(body))
                 continue
+            if route == "/metrics?scope=fleet":
+                out[route] = (st, ctype, _families(body), body.decode())
+                continue
             payload = json.loads(body)
             if route == "/healthz":
                 # the providers this serve registered (the map is
@@ -195,8 +200,8 @@ def scraped():
                                .astype(np.int32), max_new_tokens=4))
             while eng.step():
                 clock.advance(0.01)
-            out[side] = _scrape(M, ROUTES + (tuple(UNPORTED)
-                                             if side == "torch" else ()))
+            out[side] = _scrape(M, ROUTES + MESH_ROUTES + (
+                tuple(UNPORTED) if side == "torch" else ()))
             del eng
     finally:
         set_monitor(False)
@@ -254,6 +259,121 @@ def test_unported_routes_name_their_roadmap_item(scraped, route):
     assert st == 501 and ctype == "application/json"
     assert payload["roadmap"] == UNPORTED[route]
     assert f"ROADMAP.md queue A item {UNPORTED[route]}" in payload["error"]
+
+
+def test_sharding_route_lists_the_engine_params(scraped):
+    """``/sharding`` answers 200 with the engine's parameter tree, the
+    reference's layout facts leaf by leaf (unsharded in one process)."""
+    t, j = scraped["torch"]["/sharding"], scraped["jax"]["/sharding"]
+    assert t[0] == j[0] == 200 and t[1] == j[1] == "application/json"
+    assert sorted(t[3]) == sorted(j[3]) == ["programs", "trees", "world"]
+    assert sorted(t[3]["world"]) == sorted(j[3]["world"])
+    (tname, tree), = t[3]["trees"].items()
+    (jname, jtree), = j[3]["trees"].items()
+    assert re.fullmatch(r"serving:\d+\.params", tname)
+    assert re.fullmatch(r"serving:\d+\.params", jname)
+    assert tree["leaves"] == jtree["leaves"]
+    for key in ("num_arrays", "total_global_bytes",
+                "total_shard_bytes_per_device", "replicated_bytes"):
+        assert tree[key] == jtree[key], key
+    assert tree["imbalance"]["devices"] == 1
+
+
+def test_fleet_scope_answers_with_the_single_process_aggregate(scraped):
+    """``/metrics?scope=fleet`` answers 200 with the aggregate of this
+    process's snapshot (world size 1), the reference's families."""
+    t = scraped["torch"]["/metrics?scope=fleet"]
+    j = scraped["jax"]["/metrics?scope=fleet"]
+    assert t[0] == j[0] == 200 and t[1] == j[1]
+    assert "paddle_fleet_world_size 1" in t[3]
+    assert 'serving_tokens_generated{agg="sum"}' in t[3]
+    assert t[2] == j[2]
+
+
+SNAPS = [
+    {"gauges": {"g.ema": 1.0, "g.only0": 5, "z": 1.0},
+     "counters": {"c.tok": 100},
+     "histograms": {"h.lat": {"count": 2, "sum": 3.0, "min": 1.0,
+                              "max": 2.0}},
+     "slo_tenants": {"acme": {"tokens": 7, "cost": 1.5}}},
+    {"gauges": {"g.ema": 1.1, "z": -1.0}, "counters": {"c.tok": 100},
+     "histograms": {"h.lat": {"count": 1, "sum": 9.0, "min": 9.0,
+                              "max": 9.0}},
+     "slo_tenants": {"acme": {"tokens": 3}, "b\"x": {"cost": 2}}},
+    {"gauges": {"g.ema": 9.0}, "counters": {"c.tok": 100},
+     "histograms": {"h.lat": {"count": 0}}},
+]
+
+
+@pytest.mark.parametrize("hosts", [1, 2, 3])
+def test_fleet_aggregate_divergence_and_text_match_the_reference(hosts):
+    """``aggregate_hosts``, ``divergence`` and ``expose_fleet_text`` on
+    the same synthetic snapshots (the reference's
+    ``TestFleetAggregation`` shapes, with histograms and tenants)."""
+    from paddle_tpu.monitor import fleet as jfleet
+    from paddle_tpu_torch.monitor import fleet as tfleet
+    snaps = SNAPS[:hosts]
+    agg = tfleet.aggregate_hosts(snaps)
+    assert agg == jfleet.aggregate_hosts(snaps)
+    assert tfleet.divergence(agg) == jfleet.divergence(agg)
+    payload = {"world_size": hosts, "aggregate": agg}
+    assert tfleet.expose_fleet_text(payload) == \
+        jfleet.expose_fleet_text(payload)
+
+
+def test_single_process_aggregated_snapshot_matches_the_reference():
+    reset_both()
+    set_monitor(True)
+    try:
+        got = {}
+        for side, M in (("torch", TM), ("jax", JM)):
+            M.set_gauge("fa.gauge", 12.5, doc="g")
+            M.inc("fa.count", 4, doc="c")
+            M.observe("fa.lat", 3.0, doc="h")
+            got[side] = M.fleet.aggregated_snapshot(name="t1")
+            assert M.fleet.last_aggregate() is got[side]
+        t, j = got["torch"], got["jax"]
+        assert t["world_size"] == j["world_size"] == 1
+        assert t["divergence"] == j["divergence"] == []
+        for key in ("fa.gauge", "fa.count"):
+            assert t["aggregate"]["scalars"][key] == \
+                j["aggregate"]["scalars"][key]
+        assert t["aggregate"]["histograms"]["fa.lat"] == \
+            j["aggregate"]["histograms"]["fa.lat"]
+        assert sorted(t) == sorted(j)
+    finally:
+        set_monitor(False)
+        reset_both()
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    from _torch_mesh_common import launched, load_json
+    tmp = launched(tmp_path_factory, "fleet", 2, ["fleet"], lambda d: None)
+    return [load_json(tmp / f"out_fleet_r{r}.json") for r in range(2)]
+
+
+def test_aggregated_snapshot_agrees_on_every_rank(two_ranks):
+    """The collective over 2 gloo ranks: one payload on both, each
+    host's gauge in its place."""
+    a, b = (r["payload"] for r in two_ranks)
+    assert a == b and a["world_size"] == 2
+    s = a["aggregate"]["scalars"]["test.rank"]
+    assert s["hosts"] == [0.0, 1.0] and s["sum"] == 1.0
+    assert a["aggregate"]["scalars"]["test.steps"]["sum"] == 10
+    assert a["divergence"][0]["metric"] == "test.rank"
+    assert all(r["last_is_payload"] for r in two_ranks)
+
+
+def test_store_client_carries_a_beat_and_a_frame(two_ranks):
+    """With a process group, ``heartbeat._kv_client()`` is the default
+    store's adapter: rank 0 publishes a named beat and a telemetry frame
+    without a ``client``, rank 1 reads both."""
+    r0, r1 = two_ranks
+    assert r0["client"] == r1["client"] == "StoreClient"
+    assert r0["published"]
+    assert r1["beat"]["beat"] == 7
+    assert r1["ingested"] == 1 and r1["frame_names"] == ["replica1"]
 
 
 # ---------------------------------------------------------------------------

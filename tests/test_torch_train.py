@@ -293,8 +293,10 @@ def test_not_yet_ported_paths_raise():
     """Sequence-packed batches are ported (``tests/test_torch_packing.py``),
     and so are attention masks in ``sdpa_raw`` (they take the plain math
     path, ``sdpa_reference``; ``tests/test_torch_masked_attention.py``)
-    and the guarded step (``tests/test_torch_guards.py``); the mesh path
-    still raises."""
+    and the guarded step (``tests/test_torch_guards.py``); so is the mesh
+    path (ROADMAP A9): on a one-rank gloo mesh the guarded step is the
+    single-device one (multi-rank parity: ``tests/test_torch_mesh.py``)."""
+    from _torch_mesh_common import one_rank_mesh
     from paddle_tpu_torch.nn.functional import attention as TATT
     cfg = TL.llama_tiny()
     tp = TL.init_params(cfg, device="cpu")
@@ -308,11 +310,24 @@ def test_not_yet_ported_paths_raise():
     mask = torch.ones(8, 8, dtype=torch.bool)
     torch.testing.assert_close(TATT.sdpa_raw(q, q, q, mask),
                                TATT.sdpa_reference(q, q, q, mask))
+    with one_rank_mesh(("dp", "fsdp", "tp")) as mesh:
+        mp = TL.shard_params({k: (v.clone() if torch.is_tensor(v) else
+                                  {n: w.clone() for n, w in v.items()})
+                              for k, v in tp.items()}, cfg, mesh)
+        mstep = TL.make_train_step(cfg, mesh, guard=True)
+        _, _, mloss, mhealth = mstep(mp, TL.adamw_init(mp), ids,
+                                     float("inf"))
+        mp = {k: v.full_tensor() for k, v in _named(mp).items()}
     step = TL.make_train_step(cfg, guard=True)
-    _, _, _, health = step(tp, TL.adamw_init(tp), ids, float("inf"))
-    assert bool(health["finite"])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TL.make_train_step(cfg, mesh=object())
+    _, _, loss, health = step(tp, TL.adamw_init(tp), ids, float("inf"))
+    assert bool(health["finite"]) and bool(mhealth["finite"])
+    np.testing.assert_allclose(float(mloss.full_tensor()), float(loss),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(mhealth["grad_norm"]),
+                               float(health["grad_norm"]), rtol=1e-5)
+    # test_three_train_steps_match_reference's bound on the weights
+    for name, t in _named(tp).items():
+        torch.testing.assert_close(mp[name], t, rtol=0, atol=1e-5)
 
 
 def test_guard_default_follows_sentinel_flag():
