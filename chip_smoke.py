@@ -326,7 +326,7 @@ Phases, each printed on its own line; any failure exits non-zero:
     with the monitor on and ``FLAGS_enable_monitor_server`` on at port 0
     (the engine starts the server): a thread scrapes every route while
     the engine serves (each route's status printed: 200, 404 for an
-    absent scorecard, 501 for the routes whose planes are ROADMAP
+    absent scorecard, 501 for ``/roofline``, whose plane is ROADMAP
     A10); ``/sharding`` lists the engine's parameter tree (every leaf,
     its bytes), ``/metrics?scope=fleet`` reports world size 1;
     ``/memory`` reports the card's total memory as ``bytes_limit``
@@ -376,6 +376,35 @@ Phases, each printed on its own line; any failure exits non-zero:
     mesh. ``dit_mesh``: one ``dit_train`` step on a (1, 1, 1) mesh.
     ``ring_attention``: the ring at n = 1, ``[2, 2048, 32, 128]`` bf16
     causal, against the flash kernel's output within ``FLASH_TOL``.
+45. ckpt_train, sentinel_train (after ``guard``, ROADMAP A10), at
+    ``train``'s configuration, each in a temporary directory that the
+    phase first checks for ``CKPT_DISK_FACTOR`` times the state's bytes
+    free (it raises with the numbers) and removes at its end.
+    ``ckpt_train`` (``ckpt_train_checks``): a blocking
+    ``save_state_dict`` of ``{"params", "opt", "step"}`` after 2 steps
+    (bytes, seconds, GB/s, the CRC verify's seconds); ``load_state_dict``
+    into zeros on the card, every leaf and both steps equal bit for bit;
+    then a ``CheckpointManager(async_save=True)`` save of the same state
+    (the snapshot, device clones: its ms and peak), 3 steps in place
+    while the writer still runs (their ms against ``train``'s median),
+    ``wait()``: its members' CRC32s and sizes are the blocking save's,
+    so it holds the state at the save; the peak memory; then the other
+    home a snapshot could take, a copy of every leaf into page-locked
+    host memory (``host_snapshot``: its ms and peak). ``sentinel_train``
+    (``sentinel_train_checks``): a ``SentinelLoop`` over the guarded
+    step with an async ``CheckpointManager`` saving every
+    ``SENTINEL_INTERVAL`` steps and a ``HangWatchdog``; ``faults``
+    corrupts the third batch (SKIP: parameters bit for bit, moments by
+    checksum, ``opt["step"]`` unchanged), two batches poisoned in the
+    data give ROLLBACK to step 4, the replayed clean steps' losses equal
+    their first pass bit for bit, the poisoned batches are skipped on
+    replay by their quarantined hashes; the verdicts
+    ``SENTINEL_VERDICTS``, the counts ``SENTINEL_COUNTS``, 0 stalls;
+    the restore's seconds, the loop's step ms against ``guard``'s and
+    its host syncs a step (``count_syncs``). Both: ``flash_bwd`` =
+    ``TRAIN_LAYERS`` a step run, every ``*_ref`` counter 0, the
+    tensor-core route only, and at the end the device memory of the
+    phase's start (under 1 GB more), with no garbage collection run.
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -2339,13 +2368,13 @@ def phase_fleet_replay(torch, dev, cfg, params, card):
 
 # [operator_plane]: the routes a thread scrapes while the engine serves,
 # and the statuses each may answer (404: no trace replay scored yet in
-# this process; 501: a plane of ROADMAP A9 / A10)
+# this process; 501: the roofline plane, ROADMAP A10)
 OPERATOR_ROUTES = {
     "/metrics": {200}, "/healthz": {200}, "/flight": {200},
     "/programs": {200}, "/memory": {200}, "/numerics": {200},
     "/slo": {200}, "/fleet/serving": {200}, "/scorecard": {200, 404},
     "/forensics": {200}, "/requests/0": {200}, "/": {200},
-    "/roofline": {501}, "/timeseries": {501}, "/sharding": {200},
+    "/roofline": {501}, "/timeseries": {200}, "/sharding": {200},
     "/metrics?scope=fleet": {200},
 }
 
@@ -3834,7 +3863,8 @@ def _guard_asserts(r):
 
 def phase_guard(torch, dev, card):
     """The guarded train step (``guard_checks``) at the dense training
-    main path's configuration and at the MoE rung's."""
+    main path's configuration and at the MoE rung's; returns the dense
+    guarded step's median ms."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.models import llama as L
     from paddle_tpu_torch.models import moe as M
@@ -3851,8 +3881,11 @@ def phase_guard(torch, dev, card):
         _guard_asserts(r)
         _tc_route_only(st)
         assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+        if name == "dense":
+            guarded_ms = r["guarded_ms"]
         del params, state
         torch.cuda.empty_cache()
+    return guarded_ms
 
 
 def remat_attn_checks(torch, cfg, params, batch):
@@ -3926,6 +3959,434 @@ def phase_remat_attn(torch, dev, card):
                          torch.cuda.max_memory_allocated(dev) / 1e9, 3))
         del params, state
         torch.cuda.empty_cache()
+
+
+# checkpointing (A10) at ``train``'s configuration: the steps before the
+# blocking save and while the async save writes, and the disk both need:
+# a committed and a staging copy of the state, plus 2% for the zip
+# members' headers, the metadata and the manifest
+CKPT_FIRST_STEPS = 2
+CKPT_INFLIGHT_STEPS = 3
+CKPT_DISK_FACTOR = 2.04
+# the sentinel loop (A10) at ``train``'s configuration, batches from
+# SENTINEL_SEED: ``faults`` corrupts the SENTINEL_FAULT_NTH-th batch at
+# ``train.batch`` (an isolated SKIP); batches SENTINEL_POISON (0-based)
+# are poisoned in the data, so their replays hash the same (two
+# consecutive anomalies: ROLLBACK to the one save, at step
+# SENTINEL_INTERVAL); then the replay: two clean steps again, the two
+# poisoned batches skipped by their quarantined hashes, one new step
+SENTINEL_SEED = 11
+SENTINEL_INTERVAL = 4
+SENTINEL_MAX_CONSECUTIVE = 2
+SENTINEL_FAULT_NTH = 3
+SENTINEL_POISON = (6, 7)
+SENTINEL_STEPS = 9
+SENTINEL_VERDICTS = ["ok", "ok", "skip", "ok", "ok", "ok", "skip",
+                     "rollback", "ok", "ok", "ok"]
+SENTINEL_COUNTS = {"steps": 9, "applied": 8, "skipped": 5, "rollbacks": 1,
+                   "quarantined": 3}
+# the replayed clean steps (1-based) and the indices of their first and
+# second verdicts
+SENTINEL_REPLAYED = {5: (4, 8), 6: (5, 9)}
+# the watchdog's deadline: far above a step (~0.3 s) and above the
+# rollback's restore, the longest pause between two heartbeats
+SENTINEL_DEADLINE_S = 180.0
+SENTINEL_SYNC_STEPS = 3     # clean loop steps whose host syncs are counted
+
+
+def _state_bytes(tree):
+    """Bytes of the tensors of a state tree."""
+    if isinstance(tree, dict):
+        return sum(_state_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") \
+        else 0
+
+
+def _need_disk(root, nbytes, phase):
+    """Raise with the numbers unless ``root``'s file system has
+    ``CKPT_DISK_FACTOR`` times ``nbytes`` free."""
+    import shutil
+    need = int(CKPT_DISK_FACTOR * nbytes)
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise RuntimeError(
+            f"[{phase}] needs {need} bytes free under {root} (state "
+            f"{nbytes} bytes x {CKPT_DISK_FACTOR}), has {free}")
+    return free
+
+
+def _held_gb(torch, dev, base):
+    """Device memory held over ``base`` bytes, in GB. A phase's model and
+    state go by reference counting alone when it returns (no garbage
+    collection runs), so later phases have the room."""
+    return (torch.cuda.memory_allocated(dev) - base) / 1e9
+
+
+def host_snapshot(torch, leaves):
+    """The other home an async save's snapshot could take: one host
+    buffer of the leaves' bytes (each at a 256-byte offset), page-locked
+    with ``cudaHostRegister``, and every leaf copied into it. Returns
+    ``(pin_ms, copy_ms, nbytes, last_equal)``, ``last_equal`` whether the
+    last leaf's copy equals it; the buffer is unregistered and freed."""
+    offs, nbytes = [], 0
+    for t in leaves:
+        offs.append(nbytes)
+        nbytes += -(-t.numel() * t.element_size() // 256) * 256
+    buf = torch.empty(nbytes, dtype=torch.uint8)
+    cudart = torch.cuda.cudart()
+    t0 = time.perf_counter()
+    err = int(cudart.cudaHostRegister(buf.data_ptr(), nbytes, 0))
+    pin_ms = (time.perf_counter() - t0) * 1e3
+    assert err == 0, f"cudaHostRegister of {nbytes} bytes: error {err}"
+    try:
+        views = [buf[o:o + t.numel() * t.element_size()].view(t.dtype)
+                 .view(t.shape) for o, t in zip(offs, leaves)]
+        t0 = time.perf_counter()
+        for h, t in zip(views, leaves):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        last_equal = torch.equal(views[-1], leaves[-1].cpu())
+    finally:
+        err = int(cudart.cudaHostUnregister(buf.data_ptr()))
+    assert err == 0, f"cudaHostUnregister: error {err}"
+    return pin_ms, copy_ms, nbytes, last_equal
+
+
+def _member_crcs(path):
+    """``{member: (CRC32, size)}`` of every shard file's zip members (the
+    zip's central directory: nothing is read)."""
+    import zipfile
+    out = {}
+    for name in sorted(os.listdir(path)):
+        if name.endswith(".distcp"):
+            with zipfile.ZipFile(os.path.join(path, name)) as z:
+                out.update({f"{name}:{i.filename}": (i.CRC, i.file_size)
+                            for i in z.infolist()})
+    return out
+
+
+def ckpt_train_checks(torch, setup, dev, root):
+    """Checkpointing on one model (``setup(torch, dev)``, ``train_setup``'s
+    return) under directory ``root``:
+
+    - ``CKPT_FIRST_STEPS`` steps, then a blocking ``save_state_dict`` of
+      ``{"params", "opt", "step"}``: bytes, seconds and GB/s, and the
+      seconds of ``verify_checkpoint`` (CRC32 of every file);
+    - ``load_state_dict`` into a template of zeros on ``dev``: every leaf
+      equal bit for bit, both steps equal; seconds and GB/s;
+    - ``CheckpointManager(async_save=True, keep_last_n=1)`` saves the
+      same state (the synchronous snapshot's ms and the peak memory
+      just after it), ``CKPT_INFLIGHT_STEPS`` steps run in place while
+      it writes (their ms; whether the writer still ran after them),
+      ``wait()``: the async checkpoint's members carry the blocking
+      save's CRC32s and sizes (the state at the save, not the state
+      after it), the live state moved, the checkpoint verifies; the
+      peak memory of that part;
+    - on the card, ``host_snapshot`` of the same leaves: the ms to
+      page-lock the host buffer and to copy, and the peak memory.
+
+    Returns the readings and the kernel launches of the steps."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.distributed import checkpoint as C
+    from paddle_tpu_torch.models import llama as L
+    cfg, params, opt, step, batch = setup(torch, dev)
+    nbytes = _state_bytes({"params": params, "opt": opt})
+    r = {"state_bytes": nbytes,
+         "disk_free": _need_disk(root, nbytes, "ckpt_train")}
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    K.reset_dispatch_stats()
+    losses = [float(step(params, opt, batch)[2])
+              for _ in range(CKPT_FIRST_STEPS)]
+    state = {"params": params, "opt": opt, "step": CKPT_FIRST_STEPS}
+    blocking = os.path.join(root, "blocking")
+    t0 = time.perf_counter()
+    C.save_state_dict(state, blocking)
+    r["save_s"] = time.perf_counter() - t0
+    r["file_bytes"] = sum(os.path.getsize(os.path.join(blocking, f))
+                          for f in os.listdir(blocking))
+    r["save_gb_per_s"] = r["file_bytes"] / r["save_s"] / 1e9
+    t0 = time.perf_counter()
+    C.verify_checkpoint(blocking)
+    r["verify_s"] = time.perf_counter() - t0
+    zeros = {"params": L._map(torch.zeros_like, params),
+             "opt": {"step": 0, "m": L._map(torch.zeros_like, opt["m"]),
+                     "v": L._map(torch.zeros_like, opt["v"])},
+             "step": 0}
+    sync()
+    t0 = time.perf_counter()
+    C.load_state_dict(zeros, blocking, verify=False)
+    sync()
+    r["load_s"] = time.perf_counter() - t0
+    r["load_gb_per_s"] = r["file_bytes"] / r["load_s"] / 1e9
+    r["loaded_equal"] = _tree_same(torch, zeros, state)
+    r["loaded_steps"] = (zeros["step"], zeros["opt"]["step"])
+    del zeros
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    # a float32 moment: every step moves it (a bf16 norm weight near 1
+    # keeps its value under updates below its ulp)
+    before = opt["m"]["ln_f"].clone()
+    mgr = C.CheckpointManager(os.path.join(root, "managed"), keep_last_n=1,
+                              async_save=True)
+    t0 = time.perf_counter()
+    mgr.save(CKPT_FIRST_STEPS, state)
+    r["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+    if cuda:
+        r["snapshot_peak_mem_gb"] = round(
+            torch.cuda.max_memory_allocated(dev) / 1e9, 2)
+    times = []
+    for _ in range(CKPT_INFLIGHT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, opt, batch)[2]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    r["inflight_step_ms"] = times
+    r["inflight_median_ms"] = sorted(times)[len(times) // 2]
+    r["still_writing"] = not mgr._pending[1].done()
+    t0 = time.perf_counter()
+    mgr.wait()
+    r["wait_s"] = time.perf_counter() - t0
+    if cuda:
+        r["peak_mem_gb"] = round(torch.cuda.max_memory_allocated(dev) / 1e9,
+                                 2)
+    managed = os.path.join(root, "managed", f"step_{CKPT_FIRST_STEPS}")
+    C.verify_checkpoint(managed)
+    r["async_crcs_equal"] = _member_crcs(managed) == _member_crcs(blocking)
+    r["live_moved"] = not torch.equal(before, opt["m"]["ln_f"])
+    if cuda:
+        del before
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        (r["host_pin_ms"], r["host_snapshot_ms"], r["host_snapshot_bytes"],
+         r["host_snapshot_equal"]) = host_snapshot(torch, L._leaves(
+             {"params": params, "m": opt["m"], "v": opt["v"]}))
+        r["host_snapshot_peak_mem_gb"] = round(
+            torch.cuda.max_memory_allocated(dev) / 1e9, 2)
+    r["losses"] = losses
+    r["launches"] = K.dispatch_stats()
+    r["steps"] = len(losses)
+    return r
+
+
+def _ckpt_asserts(r):
+    import math
+    assert r["loaded_equal"], r
+    assert r["loaded_steps"] == (CKPT_FIRST_STEPS, CKPT_FIRST_STEPS), r
+    # the in-place steps ran while the writer read the state, so the
+    # CRC check could catch a snapshot that was not taken
+    assert r["still_writing"], r
+    assert r["async_crcs_equal"] and r["live_moved"], r
+    assert r.get("host_snapshot_equal", True), r
+    assert all(math.isfinite(x) for x in r["losses"]), r
+
+
+def phase_ckpt_train(torch, dev, card, train_ms):
+    """Checkpointing at the dense training main path's configuration
+    (``ckpt_train_checks``) in a temporary directory, removed at the
+    end."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated(dev)
+    root = tempfile.mkdtemp(prefix="ckpt_train_")
+    try:
+        r = ckpt_train_checks(torch, train_setup, dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    st = r.pop("launches")
+    held = _held_gb(torch, dev, base)
+    _say("ckpt_train", card=repr(card), **r, train_median_ms=train_ms,
+         inflight_over_train=r["inflight_median_ms"] / train_ms,
+         snapshot_home="device_clone", flash=st["flash"],
+         flash_bwd=st["flash_bwd"], held_after_gb=held,
+         seconds=round(time.perf_counter() - t_phase, 2))
+    _ckpt_asserts(r)
+    assert st["flash_bwd"] == TRAIN_LAYERS * r["steps"], st
+    assert st["fused_ce"] == r["steps"], st
+    _tc_route_only(st)
+    assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+    assert held < 1.0, held
+    torch.cuda.empty_cache()
+    return st
+
+
+def sentinel_batches(vocab, batch, seq, n=64):
+    """The sentinel loop's stream factory: batch ``i`` is ids
+    ``[batch, seq + 1]`` from ``default_rng(SENTINEL_SEED + i)`` on the
+    host, the batches ``SENTINEL_POISON`` with ``iinfo(int64).min`` at
+    ``[0, 0]`` (in the data: every replay is poisoned the same)."""
+    import numpy as np
+
+    def gen():
+        for i in range(n):
+            ids = np.random.default_rng(SENTINEL_SEED + i).integers(
+                0, vocab, (batch, seq + 1))
+            if i in SENTINEL_POISON:
+                ids[0, 0] = np.iinfo(np.int64).min
+            yield ids
+    return gen
+
+
+def _moment_sums(torch, opt):
+    """Per-leaf checksums of the moments: the sum of each leaf's 32-bit
+    words in int64 (one host read)."""
+    from paddle_tpu_torch.models import llama as L
+    return torch.stack([m.reshape(-1).view(torch.int32).sum(
+        dtype=torch.int64) for m in L._leaves({"m": opt["m"],
+                                                "v": opt["v"]})]).tolist()
+
+
+def sentinel_train_checks(torch, setup, dev, root, deadline_s):
+    """A ``SentinelLoop`` over ``make_train_step(cfg, guard=True)`` on one
+    model (``setup``, ``train_setup``'s return) with a
+    ``CheckpointManager(save_interval_steps=SENTINEL_INTERVAL,
+    async_save=True)`` under ``root`` and a ``HangWatchdog(deadline_s)``
+    running throughout, over ``sentinel_batches`` with ``faults``
+    corrupting ``train.batch`` once. Records each verdict with its loss,
+    holds the skipped step's parameters (bit for bit), ``opt["step"]``
+    and moments (``_moment_sums``), times the rollback's restore and the
+    gaps between heartbeats; then counts the host syncs of
+    ``SENTINEL_SYNC_STEPS`` clean steps of a loop without a manager."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.distributed import checkpoint as C
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.testing import faults
+    from paddle_tpu_torch.training import sentinel as S
+    cfg, params, opt, _, batch = setup(torch, dev)
+    nbytes = _state_bytes({"params": params, "opt": opt})
+    r = {"state_bytes": nbytes,
+         "disk_free": _need_disk(root, nbytes, "sentinel_train")}
+    B, S1 = batch.shape
+    stream = sentinel_batches(cfg.vocab_size, B, S1 - 1)
+    del batch
+    guarded = L.make_train_step(cfg, guard=True, numerics=False)
+    calls = [0]
+    skip = {}
+
+    def step_fn(p, o, b, cap):
+        calls[0] += 1
+        if calls[0] == SENTINEL_FAULT_NTH:
+            skip["params"] = _tree_copy(p)
+            skip["moments"] = _moment_sums(torch, o)
+            skip["opt_step"] = o["step"]
+        out = guarded(p, o, b, cap)
+        if calls[0] == SENTINEL_FAULT_NTH:
+            skip["params_equal"] = _tree_same(torch, skip.pop("params"), p)
+            skip["moments_equal"] = skip.pop("moments") == _moment_sums(
+                torch, o)
+            skip["opt_step_equal"] = skip.pop("opt_step") == o["step"]
+        return out
+
+    mgr = C.CheckpointManager(root, keep_last_n=1,
+                              save_interval_steps=SENTINEL_INTERVAL,
+                              async_save=True)
+    restores = []
+    restore_latest = mgr.restore_latest
+
+    def timed_restore(state):
+        t0 = time.perf_counter()
+        out = restore_latest(state)
+        restores.append((out, time.perf_counter() - t0))
+        return out
+
+    mgr.restore_latest = timed_restore
+    sent = S.AnomalySentinel(S.SentinelConfig(
+        max_consecutive=SENTINEL_MAX_CONSECUTIVE), manager=mgr)
+    seen = []
+    observe = sent.observe
+
+    def recorded(**kw):
+        v = observe(**kw)
+        seen.append((v, kw["loss"]))
+        return v
+
+    sent.observe = recorded
+    wd = S.HangWatchdog(deadline_s, poll_s=1.0)
+    beats = []
+    beat = wd.heartbeat
+
+    def timed_beat():
+        beats.append(time.monotonic())
+        beat()
+
+    wd.heartbeat = timed_beat
+    loop = S.SentinelLoop(step_fn, params, opt, stream, sentinel=sent,
+                          manager=mgr, watchdog=wd)
+    K.reset_dispatch_stats()
+    faults.inject("train.batch", "corrupt", nth=SENTINEL_FAULT_NTH)
+    t0 = time.perf_counter()
+    try:
+        with wd:
+            out = loop.run(SENTINEL_STEPS)
+    finally:
+        faults.clear()
+    r["run_s"] = time.perf_counter() - t0
+    r["launches"] = K.dispatch_stats()
+    r["calls"] = calls[0]
+    r["stalls"] = wd.stalls
+    r["counts"] = {k: out[k] for k in SENTINEL_COUNTS}
+    r["verdicts"] = [v for v, _ in seen]
+    r["replay_equal"] = {s: seen[a][1] == seen[b][1]
+                         for s, (a, b) in SENTINEL_REPLAYED.items()}
+    r.update({f"skip_{k}": v for k, v in skip.items()})
+    r["restored_step"], r["restore_s"] = restores[0] if restores else \
+        (None, None)
+    gaps = sorted((b - a) * 1e3 for a, b in zip(beats, beats[1:]))
+    r["loop_step_ms"] = gaps[len(gaps) // 2]
+    r["longest_beat_gap_ms"] = gaps[-1]
+    clean = S.SentinelLoop(guarded, params, opt, sentinel_batches(
+        cfg.vocab_size, B, S1 - 1), sentinel=S.AnomalySentinel())
+    if torch.device(dev).type == "cuda":
+        _, sites = count_syncs(torch, lambda: clean.run(SENTINEL_SYNC_STEPS))
+        r["syncs_per_step"] = len(sites) / SENTINEL_SYNC_STEPS
+        r["sync_sites"] = ",".join(sites) or "none"
+    return r
+
+
+def _sentinel_asserts(r):
+    assert r["verdicts"] == SENTINEL_VERDICTS, r
+    assert r["counts"] == SENTINEL_COUNTS, r
+    assert r["skip_params_equal"] and r["skip_moments_equal"], r
+    assert r["skip_opt_step_equal"], r
+    assert r["restored_step"] == SENTINEL_INTERVAL, r
+    assert all(r["replay_equal"].values()), r
+    assert r["stalls"] == 0, r
+
+
+def phase_sentinel_train(torch, dev, card, guard_ms):
+    """The sentinel loop at the dense training main path's configuration
+    (``sentinel_train_checks``) in a temporary directory, removed at the
+    end."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated(dev)
+    root = tempfile.mkdtemp(prefix="sentinel_train_")
+    try:
+        r = sentinel_train_checks(torch, train_setup, dev, root,
+                                  SENTINEL_DEADLINE_S)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    st = r.pop("launches")
+    held = _held_gb(torch, dev, base)
+    _say("sentinel_train", card=repr(card), **r, guard_median_ms=guard_ms,
+         loop_over_guard=r["loop_step_ms"] / guard_ms, flash=st["flash"],
+         flash_bwd=st["flash_bwd"], held_after_gb=held,
+         seconds=round(time.perf_counter() - t_phase, 2))
+    _sentinel_asserts(r)
+    assert st["flash_bwd"] == TRAIN_LAYERS * r["calls"], st
+    assert st["fused_ce"] == r["calls"], st
+    _tc_route_only(st)
+    assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+    assert held < 1.0, held
+    torch.cuda.empty_cache()
+    return st
 
 
 def _strict(torch, fn):
@@ -4733,7 +5194,7 @@ def phase_train(torch, dev, card):
     _tc_route_only(launches)
     assert all(launches[k] == 0 for k in ("flash_ref", "flash_bwd_ref",
                                           "paged_ref", "fused_ce_fallback"))
-    return launches
+    return launches, step_s * 1e3
 
 
 def phase_train_packed_parity(torch, dev):
@@ -5870,7 +6331,8 @@ def phase_dit_sample(torch, dev, card):
                        cfg.image_size)
     assert bool(torch.isfinite(x).all()), "dit_sample: non-finite samples"
     assert launches["flash"] == cfg.num_hidden_layers * DIT_STEPS, launches
-    assert launches["flash_tc"] == launches["flash"], launches
+    assert launches["flash_tc"] == launches["flash"] == \
+        launches["flash_d72"], launches
     assert all(v == 0 for k, v in launches.items() if k.endswith("_ref"))
     del params
     return launches
@@ -5921,6 +6383,8 @@ def phase_dit_train(torch, dev, card):
     assert launches["flash"] == 2 * L_ * len(times), launches
     assert launches["flash_bwd"] == L_ * len(times), launches
     _tc_route_only(launches)
+    assert launches["flash_d72"] == launches["flash"], launches
+    assert launches["flash_bwd_d72"] == launches["flash_bwd"], launches
     assert all(v == 0 for k, v in launches.items() if k.endswith("_ref"))
     del params, state
     return launches
@@ -6456,6 +6920,8 @@ def phase_dit_mesh(torch, dev, card):
     m = sides["mesh"]["launches"]
     assert m["flash"] > 0 and m["flash_bwd"] == cfg.num_hidden_layers, m
     _tc_route_only(m)
+    assert m["flash_d72"] == m["flash"], m
+    assert m["flash_bwd_d72"] == m["flash_bwd"], m
     del params
     return m
 
@@ -6639,7 +7105,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_moe_main(torch, dev, args.layers, smi)
     torch.cuda.empty_cache()
-    train_launches = phase_train(torch, dev, smi)
+    train_launches, train_ms = phase_train(torch, dev, smi)
     torch.cuda.empty_cache()
     packed_launches = phase_train_packed(torch, dev, smi)
     torch.cuda.empty_cache()
@@ -6649,8 +7115,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_moe_train(torch, dev, smi)
     torch.cuda.empty_cache()
-    phase_guard(torch, dev, smi)
+    guard_ms = phase_guard(torch, dev, smi)
     torch.cuda.empty_cache()
+    ckpt_launches = phase_ckpt_train(torch, dev, smi, train_ms)
+    sentinel_launches = phase_sentinel_train(torch, dev, smi, guard_ms)
     phase_remat_attn(torch, dev, smi)
     torch.cuda.empty_cache()
     dit_sample_launches = phase_dit_sample(torch, dev, smi)
@@ -6673,8 +7141,8 @@ def main() -> int:
     seg_bwd["launches"] = packed_launches["varlen_bwd"]
     rms_fwd["launches"] = eager_launches["rms"]
     rms_bwd["launches"] = eager_launches["rms_bwd"]
-    dit_fwd["launches"] = dit_sample_launches["flash"]
-    dit_bwd["launches"] = dit_train_launches["flash_bwd"]
+    dit_fwd["launches"] = dit_sample_launches["flash_d72"]
+    dit_bwd["launches"] = dit_train_launches["flash_bwd_d72"]
     # launches of each kernel in the mesh phases (ROADMAP A9): the dense
     # pair in mesh_train's base arm, the segment pair in mesh_packed, the
     # head-dim-72 pair in dit_mesh; the decode and RMSNorm kernels, off
@@ -6683,16 +7151,27 @@ def main() -> int:
                           (flash_bwd, "train", "flash_bwd"),
                           (seg_fwd, "packed", "varlen"),
                           (seg_bwd, "packed", "varlen_bwd"),
-                          (dit_fwd, "dit", "flash"),
-                          (dit_bwd, "dit", "flash_bwd")):
+                          (dit_fwd, "dit", "flash_d72"),
+                          (dit_bwd, "dit", "flash_bwd_d72")):
         rec["mesh_launches"] = mesh_launches[arm][key]
     for rec, key in ((paged, "paged"), (paged_int8, "paged_quant"),
                      (paged_mixed, "paged_mixed"), (rms_fwd, "rms"),
                      (rms_bwd, "rms_bwd")):
         rec["mesh_launches"] = sum(m[key] for m in mesh_launches.values())
+    # launches in the checkpoint and sentinel phases (ROADMAP A10): the
+    # dense pair at the training shape; every other kernel is off them
+    for rec, key in ((flash, "flash"), (flash_bwd, "flash_bwd"),
+                     (seg_fwd, "varlen"), (seg_bwd, "varlen_bwd"),
+                     (rms_fwd, "rms"), (rms_bwd, "rms_bwd"),
+                     (dit_fwd, "flash_d72"), (dit_bwd, "flash_bwd_d72"),
+                     (paged, "paged"), (paged_int8, "paged_quant"),
+                     (paged_mixed, "paged_mixed")):
+        rec["ckpt_launches"] = ckpt_launches[key]
+        rec["sentinel_launches"] = sentinel_launches[key]
     keys = ("name", "route", "source", "replaces", "launches",
-            "mesh_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "mesh_launches", "ckpt_launches", "sentinel_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys}
         for rec in (flash, paged, paged_int8, flash_bwd, seg_fwd,

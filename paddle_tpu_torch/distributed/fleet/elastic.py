@@ -1,6 +1,7 @@
-"""Elastic serving: the controller that drives a fleet of serving
-replicas (port of the serving half of
-``paddle_tpu/distributed/fleet/elastic.py``).
+"""Elastic serving and the elastic worker's state: the controller that
+drives a fleet of serving replicas, and the checkpoint resume point of a
+training worker (port of ``paddle_tpu/distributed/fleet/elastic.py``
+but its launcher half).
 
 :meth:`AdaptiveElasticManager.run_serving` manages a fleet of
 independent engine REPLICAS against the autoscale demand signals the
@@ -15,14 +16,19 @@ federated burn (``monitor/federation.py``) behind
 failover coordinator (``inference/failover.py``) behind
 ``FLAGS_serving_failover``.
 
-The training half of the reference's module (``ElasticManager.run``,
-``run_elastic``, ``AdaptiveElasticManager.run_adaptive`` and the
-worker-side ``save_state`` / ``finish_saves`` / ``load_state`` /
-``elastic_run_index``) re-forms a launched world from checkpoints, and
-the launcher and the checkpoint manager are ROADMAP A10. Until then
-those entry points raise ``NotImplementedError`` naming A10, and so
-does a drain checkpoint (``run_serving(state_fn=...)`` with
-``ckpt_dir`` or ``PADDLE_ELASTIC_CKPT_DIR`` set).
+A scale-in drains a replica after checkpointing its ``state_fn()``
+under ``ckpt_dir`` (or ``PADDLE_ELASTIC_CKPT_DIR``) through the
+checkpoint manager (``distributed/checkpoint``). The worker side
+(``elastic_run_index``, ``save_state``, ``finish_saves``,
+``load_state``, with the pre-commit ``latest`` + ``step<N>`` layout as
+a fallback) keeps a worker's resume point under
+``PADDLE_ELASTIC_CKPT_DIR``.
+
+The training restart loops (``ElasticManager.run``, ``run_elastic``,
+``AdaptiveElasticManager.run_adaptive``) re-form a launched world, and
+the launcher (``distributed/launch/main.py``) and the rest of
+``heartbeat.py`` are ROADMAP A10. Until then those entry points raise
+``NotImplementedError`` naming A10.
 """
 from __future__ import annotations
 
@@ -44,9 +50,8 @@ PEER_FAILURE_RC = 123
 
 def _unported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet: it re-forms a launched world from "
-        f"checkpoints, and the launcher and the checkpoint manager are "
-        f"ROADMAP.md queue A item A10")
+        f"{what} is not ported yet: it re-forms a launched world, and "
+        f"the launcher is ROADMAP.md queue A item A10")
 
 
 class ElasticStatus:
@@ -210,9 +215,11 @@ class AdaptiveElasticManager(ElasticManager):
                         stop_event=None, view=None) -> bool:
         """The scale-in path, in the order that keeps it crash-safe:
         (1) checkpoint the replica's ``state_fn()`` under ``ckpt_dir``
-        (or ``PADDLE_ELASTIC_CKPT_DIR``) through the checkpoint manager,
-        which is ROADMAP A10, so a drain checkpoint raises
-        ``NotImplementedError`` until then, (2) tell the replica to stop admitting
+        (or ``PADDLE_ELASTIC_CKPT_DIR``) through the checkpoint manager
+        (atomic commit: a kill anywhere after this leaves only committed
+        state; ``checkpoint=False`` on a RETRY of the same victim, so a
+        repeatedly-timing-out drain does not re-save identical state
+        every tick), (2) tell the replica to stop admitting
         (``drain``, default ``handle.begin_drain()``, idempotent: new
         submissions shed with retry hints), (3) WAIT until its signals
         report ``drain_safe`` (no queued, no resident requests — live
@@ -227,8 +234,10 @@ class AdaptiveElasticManager(ElasticManager):
 
         root = ckpt_dir or os.environ.get("PADDLE_ELASTIC_CKPT_DIR")
         if checkpoint and state_fn is not None and root:
-            _unported("a drain checkpoint (state_fn with ckpt_dir or "
-                      "PADDLE_ELASTIC_CKPT_DIR)")
+            _faults.hit("drain.checkpoint")
+            mgr = _manager_for(root)
+            step = (mgr.latest_step() or 0) + 1
+            mgr.save(step, dict(state_fn()), blocking=True)
         drain(name, handle)
         if discard_stale_signals and hasattr(signals,
                                              "discard_pending"):
@@ -372,11 +381,6 @@ class AdaptiveElasticManager(ElasticManager):
             raise ValueError(
                 f"need 1 <= min_replicas <= max_replicas, got "
                 f"[{min_replicas}, {max_replicas}]")
-        import os
-        if state_fn is not None and (
-                ckpt_dir or os.environ.get("PADDLE_ELASTIC_CKPT_DIR")):
-            _unported("a drain checkpoint (state_fn with ckpt_dir or "
-                      "PADDLE_ELASTIC_CKPT_DIR)")
         from .. import heartbeat as _heartbeat
 
         default_signals = signals is None
@@ -721,24 +725,117 @@ class AdaptiveElasticManager(ElasticManager):
         return out
 
 
-# -- worker-side elastic state (ROADMAP A10) ---------------------------------
+# -- worker-side elastic state (resume across world re-forms) ----------------
 
 def elastic_run_index() -> int:
-    """Which world incarnation this process belongs to (ROADMAP A10)."""
-    _unported("elastic_run_index")
+    """Which world incarnation this process belongs to (0 = first)."""
+    import os
+    return int(os.environ.get("PADDLE_ELASTIC_RUN", "0"))
+
+
+# One CheckpointManager per checkpoint root (workers call save_state /
+# load_state with only the env var set; the manager carries the commit
+# protocol, retention, discovery, and the SIGTERM finalize hook).
+_MANAGERS: dict = {}
+
+
+def _manager_for(root: str):
+    import os
+
+    mgr = _MANAGERS.get(root)
+    if mgr is None:
+        from ..checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(
+            root,
+            keep_last_n=int(os.environ.get("PADDLE_ELASTIC_KEEP_CKPTS",
+                                           "2")),
+            async_save=True)
+        # preemption (a supervisor's SIGTERM): finalize the
+        # in-flight save — or take an emergency sync save — before
+        # dying, so the restarted world resumes from the step the
+        # worker was actually on
+        mgr.install_preemption_hook()
+        _MANAGERS[root] = mgr
+    return mgr
 
 
 def save_state(step: int, state_dict, blocking: bool = False,
                prev_handle=None):
-    """Checkpoint one training step for elastic resume (ROADMAP A10)."""
-    _unported("save_state")
+    """Checkpoint one training step for elastic resume via the
+    CheckpointManager: atomic commit (a kill mid-write can never be
+    resumed from), async by default (snapshot now, write in background,
+    shard-aware, reshards on load at a different world size), keep-last-N
+    retention. The manager itself finalizes the previous save before
+    staging the next (a 1-deep pipeline: step N's save overlaps step
+    N+1's compute), so ``prev_handle`` is accepted only for backward
+    compatibility and ignored.
+
+    Returns the per-root manager (or None when blocking or no
+    PADDLE_ELASTIC_CKPT_DIR is set); pass whatever was returned to
+    ``finish_saves`` once after the loop to join the final save."""
+    import os
+
+    root = os.environ.get("PADDLE_ELASTIC_CKPT_DIR")
+    if not root:
+        return None
+    mgr = _manager_for(root)
+    mgr.save(step, dict(state_dict), blocking=blocking)
+    return None if blocking else mgr
 
 
 def finish_saves(pending) -> bool:
-    """Finalize an in-flight elastic save (ROADMAP A10)."""
-    _unported("finish_saves")
+    """Finalize an in-flight elastic save (join + retention GC)."""
+    if pending is None:
+        return False
+    pending.wait()
+    return True
 
 
 def load_state(template_state_dict):
-    """Resume point for an elastic worker (ROADMAP A10)."""
-    _unported("load_state")
+    """Resume point for an elastic worker: (start_step, state). Loads the
+    newest COMMITTED checkpoint into ``template_state_dict`` (sharded
+    values reshard to the CURRENT world's placements), skipping
+    incomplete or corrupt directories, or returns (0, template) on a
+    fresh start. Falls back to a pre-commit-protocol layout (``latest``
+    pointer + ``step<N>`` dirs) so jobs upgraded mid-flight keep their
+    resume point."""
+    import os
+
+    root = os.environ.get("PADDLE_ELASTIC_CKPT_DIR")
+    if not root or not os.path.isdir(root):
+        return 0, template_state_dict
+    mgr = _manager_for(root)
+    full = dict(template_state_dict)
+    step = mgr.restore_latest(full)
+    if step is None:
+        legacy = _load_legacy_state(root, template_state_dict)
+        if legacy is not None:
+            return legacy
+        return 0, template_state_dict
+    return step, full
+
+
+def _load_legacy_state(root, template_state_dict):
+    """Resume from a checkpoint dir written before the commit protocol:
+    the old rank-0 ``latest`` pointer named the ``step<N>`` dir (no
+    underscore, no COMMIT/manifest). Best-effort — any failure means a
+    fresh start, as before."""
+    import os
+
+    latest = os.path.join(root, "latest")
+    if not os.path.isfile(latest):
+        return None
+    from .. import checkpoint as dckpt
+
+    try:
+        step = int(open(latest).read().strip())
+        full = dict(template_state_dict)
+        dckpt.load_state_dict(full, os.path.join(root, f"step{step}"),
+                              verify=False)
+        return step, full
+    except Exception as e:
+        import sys
+        print(f"[elastic] legacy checkpoint at {root!r} unusable "
+              f"({type(e).__name__}: {e}); starting fresh", file=sys.stderr)
+        return None

@@ -7,7 +7,9 @@ per wrapper call that launches, added by the wrapper right where it
 launches (a backward's dq / dkv pair, and the RMSNorm backward's row and
 column passes, count as one; ``flash_tc`` / ``flash_bwd_tc`` count the
 dense launches among ``flash`` / ``flash_bwd`` that took the tensor-core
-route, ``flash_attention.tensor_core_route``; ``varlen*`` are the
+route, ``flash_attention.tensor_core_route``, and ``flash_d72`` /
+``flash_bwd_d72`` those of them at head dim 72, DiT's heads;
+``varlen*`` are the
 segment-masked, sequence-packed kernels, the reference's names, and
 ``varlen_tc`` / ``varlen_bwd_tc`` count those of their launches that took
 the same tensor-core route; ``paged_quant`` is the
@@ -24,8 +26,9 @@ dispatcher gives them the plain math, the reference's one shape rule (a
 CUDA tensor launches or raises there). Plain integers, so
 a run can show which path it took."""
 
-DISPATCH_STATS = {"flash": 0, "flash_tc": 0, "flash_ref": 0,
-                  "flash_bwd": 0, "flash_bwd_tc": 0, "flash_bwd_ref": 0,
+DISPATCH_STATS = {"flash": 0, "flash_tc": 0, "flash_d72": 0, "flash_ref": 0,
+                  "flash_bwd": 0, "flash_bwd_tc": 0, "flash_bwd_d72": 0,
+                  "flash_bwd_ref": 0,
                   "varlen": 0, "varlen_tc": 0, "varlen_ref": 0,
                   "varlen_bwd": 0, "varlen_bwd_tc": 0, "varlen_bwd_ref": 0,
                   "paged": 0, "paged_mixed": 0, "paged_ref": 0,

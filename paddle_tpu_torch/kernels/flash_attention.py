@@ -160,6 +160,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None):
                         torch.cuda.current_stream(q.device).cuda_stream)
     DISPATCH_STATS["flash"] += 1
     DISPATCH_STATS["flash_tc"] += tensor_core_route(q)
+    DISPATCH_STATS["flash_d72"] += tensor_core_route(q) and d == 72
     _build.check_launch("flash_fwd", err)
     return out, lse
 
@@ -263,6 +264,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=False,
                         torch.cuda.current_stream(q.device).cuda_stream)
     DISPATCH_STATS["flash_bwd"] += 1
     DISPATCH_STATS["flash_bwd_tc"] += tensor_core_route(q)
+    DISPATCH_STATS["flash_bwd_d72"] += tensor_core_route(q) and d == 72
     _build.check_launch("flash_bwd", err)
     return dq, dk, dv
 

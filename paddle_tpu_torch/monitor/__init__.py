@@ -1,5 +1,6 @@
 """paddle_tpu_torch.monitor — process-global runtime metrics (port of
-``paddle_tpu/monitor/``, the planes the serving engine calls).
+``paddle_tpu/monitor/``, the planes the serving engine and the training
+loops call).
 
 A typed registry (counters, gauges, histograms) with two exposition
 surfaces — Prometheus text and a run-id-keyed JSON snapshot — and the
@@ -13,7 +14,13 @@ planes built on it:
   violation-cause attribution;
 - ``programs``: the serving programs with their shapes, hits and FLOPs;
 - ``exectime``: 1-in-N sampled execution timing at the engine's seams;
-- ``numerics``: the KV half (KV-page absmax, KV-quant health);
+- ``steptimer``: ``StepTimer`` (data-wait / compute / checkpoint phases
+  and goodput), ``ambient_phase`` (the checkpoint manager's bill) and
+  the step listeners that feed the hang watchdog;
+- ``timeseries``: the bounded step ring and the step-time drift
+  detector behind ``/timeseries``;
+- ``numerics``: per-layer gradient statistics of the guarded step,
+  the weight-quantization audit, KV-page absmax and KV-quant health;
 - ``memory``: device-memory gauges and the serving headroom estimate;
 - ``federation``: per-replica telemetry frames and the federated fleet
   verdict the elastic serving controller scales on;
@@ -34,10 +41,8 @@ Not ported yet, with their queue items in ROADMAP.md:
 
 - ``record_op``, ``tensor_bytes`` and ``tensor_free``, hooks of the
   eager ``Tensor`` (A10, ``core/``);
-- the ``mfu``, ``steptimer``, ``comms``, ``roofline`` and
-  ``timeseries`` planes, the rest of ``numerics`` and ``profiler/``
-  (A10);
-- ``fleet``, the cross-host metrics aggregate, a collective (A9).
+- the ``mfu``, ``comms`` and ``roofline`` planes and ``profiler/``
+  (A10).
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ __all__ = [
     "snapshot", "expose_text", "dump_json", "reset", "timed",
     "trace", "server", "programs", "exectime", "numerics", "slo",
     "forensics", "memory", "federation", "profile_capture", "fleet",
+    "StepTimer", "ambient_phase", "timeseries",
     "suppressed", "suppress_accounting",
 ]
 
@@ -170,6 +176,7 @@ def reset():
     trace.clear()
     programs.reset()
     exectime.reset()
+    timeseries.reset()
     numerics.reset()
     slo.reset()
     federation.reset()
@@ -211,6 +218,8 @@ class timed:
 # The planes (imported AFTER the registry surface above: they call back
 # into it lazily).
 from . import trace  # noqa: E402
+from .steptimer import StepTimer, ambient_phase  # noqa: E402
+from . import timeseries  # noqa: E402
 from . import programs  # noqa: E402
 from . import exectime  # noqa: E402
 from . import numerics  # noqa: E402

@@ -16,8 +16,11 @@ Prometheus scraper or liveness probe hits:
   PyTorch compiles no program to analyze;
 - ``GET /memory``: per-device allocator stats and the serving headroom
   estimate (``monitor/memory.py``);
-- ``GET /numerics``: the KV half of the numerics plane
-  (``monitor/numerics.py``);
+- ``GET /timeseries``: the bounded step ring and the step-time drift
+  report (``monitor/timeseries.py``);
+- ``GET /numerics``: the numerics plane (``monitor/numerics.py``):
+  per-layer gradient statistics, the quantization audit, KV-page
+  absmax;
 - ``GET /slo``: objectives, compliance, burn rates, tenants and the
   autoscale signals (``monitor/slo.py``);
 - ``GET /fleet/serving``: fleet SLO federation
@@ -38,9 +41,9 @@ Prometheus scraper or liveness probe hits:
   else the last ``aggregated_snapshot()`` the ranks gathered (503 until
   one was).
 
-``/roofline`` and ``/timeseries`` have their planes in ROADMAP A10.
-Until those are ported, each answers **501** with a JSON body that
-names its ROADMAP item, never a made-up payload.
+``/roofline`` has its plane in ROADMAP A10. Until that is ported, it
+answers **501** with a JSON body that names its ROADMAP item, never a
+made-up payload.
 
 Gating and lifecycle: ``FLAGS_enable_monitor_server`` off (the default)
 means :func:`maybe_start` is one cached-flag branch: no thread, no
@@ -86,7 +89,6 @@ _HEALTH_PROVIDERS: Dict[str, Callable[[], Optional[dict]]] = {}
 # they answer 501 and name it.
 UNPORTED_ROUTES = {
     "/roofline": ("A10", "the roofline plane (monitor/roofline.py)"),
-    "/timeseries": ("A10", "the step time series (monitor/timeseries.py)"),
 }
 
 
@@ -222,6 +224,9 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json(200, _introspect.sharding_snapshot())
             elif route in UNPORTED_ROUTES:
                 self._unported(route)
+            elif route == "/timeseries":
+                from . import timeseries as _timeseries
+                self._send_json(200, _timeseries.timeseries_snapshot())
             elif route == "/numerics":
                 from . import numerics as _numerics
                 self._send_json(200, _numerics.numerics_snapshot())

@@ -18,9 +18,9 @@ and instants (``instant(name, **attrs)``) with monotonic
   in particular the moment a fault fires (``testing/faults.py``) or a
   SIGTERM preemption lands — writes the last N events plus a full
   ``monitor.snapshot()`` as JSON: what the system was doing in the
-  seconds before it died. Its extra blocks are the planes ported so
-  far (``numerics``' KV half, ``slo``, ``federation``, ``forensics``);
-  ``timeseries`` stays None until its module is ported (A10).
+  seconds before it died. Its extra blocks are the reference's:
+  ``timeseries``, ``numerics``, ``slo``, ``federation``,
+  ``forensics``.
 
 Gating: everything rides ``FLAGS_enable_monitor``. Flag off = every
 entry point is one cached-flag branch, the buffer stays empty, nothing
@@ -208,14 +208,18 @@ def flight_payload(reason: str = "manual") -> dict:
     record without waiting for a crash); ``dump_flight_record`` writes
     the same shape on crash paths."""
     from . import snapshot as _snapshot
-    # the step-time trajectory (monitor/timeseries.py) is not ported:
-    # its block stays None, as the reference's does when the plane holds
-    # nothing
-    ts = None
     try:
-        # the KV-page value distribution (monitor/numerics.py). Guarded
-        # — a flight dump on a crash path must never die on a
-        # telemetry extra.
+        # the step-time trajectory (monitor/timeseries.py): a crash's
+        # black box should show whether steps were slowing down, not
+        # just the final distribution. Guarded — a flight dump on a
+        # crash path must never die on a telemetry extra.
+        from . import timeseries as _timeseries
+        ts = _timeseries.timeseries_snapshot()
+    except Exception:
+        ts = None
+    try:
+        # the value trajectory (monitor/numerics.py): which layer's
+        # gradients were blowing up before the crash. Same guard.
         from . import numerics as _numerics
         nm = _numerics.numerics_snapshot(n=32)
     except Exception:

@@ -233,6 +233,82 @@ def case_fleet():
         json.dump(got, f, default=str)
 
 
+def _specs_on(specs, mesh):
+    """``param_specs`` with the axes ``mesh`` lacks dropped (a (4,) fsdp
+    mesh takes the reference's tp entries as unsharded)."""
+    names = set(mesh.mesh_dim_names)
+    if isinstance(specs, dict):
+        return {k: _specs_on(v, mesh) for k, v in specs.items()}
+    return spmd.P(*[e if e is None or e in names else None for e in specs])
+
+
+def case_ckpt_mesh():
+    """Checkpoints across meshes (4 ranks): the port's (2, 2) fsdp x tp
+    save of float32 and bf16 params loaded onto a (4,) fsdp mesh; the
+    JAX save over 8 fake devices (``DIR/jax8``) loaded onto the (2, 2)
+    mesh; an async ``CheckpointManager`` save restored onto the (4,)
+    mesh through ``restore_latest``'s agreement."""
+    from paddle_tpu_torch.distributed import checkpoint as C
+    d = _in("ckpt_mesh")
+    cfg = _llama_cfg()
+    specs = TL.param_specs(cfg)
+    m22 = spmd.make_mesh((2, 2), ("fsdp", "tp"), device="cpu")
+    m4 = spmd.make_mesh((4,), ("fsdp",), device="cpu")
+    p32 = _params(d["params"])
+    bf16 = TL._map(lambda t: t.to(torch.bfloat16), p32)
+
+    def placed(tree, mesh, zeros=False):
+        if zeros:
+            tree = TL._map(torch.zeros_like, tree)
+        return TL.shard_params(tree, cfg, mesh, _specs_on(specs, mesh))
+
+    state = {"params": placed(p32, m22), "bf16": placed(bf16, m22),
+             "step": 3}
+    C.save_state_dict(state, os.path.join(DIR, "port22"))
+    reload = {"params": placed(p32, m4, True),
+              "bf16": placed(bf16, m4, True), "step": 0}
+    C.load_state_dict(reload, os.path.join(DIR, "port22"))
+    jax8 = {"params": placed(p32, m22, True),
+            "bf16": placed(bf16, m22, True), "step": 0}
+    C.load_state_dict(jax8, os.path.join(DIR, "jax8"))
+    mgr = C.CheckpointManager(os.path.join(DIR, "managed"), async_save=True)
+    mgr.save(5, state)
+    for leaf in TL._leaves(state["params"]):
+        leaf.to_local().add_(1.0)          # in place, after the snapshot
+    restored = {"params": placed(p32, m4, True), "step": 0}
+    step = mgr.restore_latest(restored)
+    mgr.close()
+    out = {"reload": reload["params"], "reload_bf16": reload["bf16"],
+           "jax8": jax8["params"], "jax8_bf16": jax8["bf16"],
+           "restored": restored["params"]}
+    host = {k: spmd.full(v).detach().float().numpy()
+            for k, v in flat_tensors(out).items()}
+    if RANK == 0:
+        np.savez(os.path.join(DIR, "out_ckpt_mesh.npz"), **host)
+    with open(os.path.join(DIR, f"out_ckpt_mesh_r{RANK}.json"), "w") as f:
+        json.dump({"steps": [reload["step"], jax8["step"],
+                             restored["step"], step],
+                   "placements": str(reload["params"]["embed"].placements)},
+                  f)
+
+
+def case_sentinel_agree():
+    """The sentinel's skip agreement (2 ranks): rank 0 locally anomalous
+    makes both skip; healthy steps with rank-dependent norms keep the
+    EMA state rank-identical (the max norm wins)."""
+    from paddle_tpu_torch.training import sentinel as S
+    sent = S.AnomalySentinel(S.SentinelConfig(warmup_steps=1,
+                                              name="agreetest"))
+    verdicts = [sent.observe(finite=(RANK != 0), grad_norm=float("nan")),
+                sent.observe(finite=True, grad_norm=1.0 + RANK),
+                sent.observe(finite=True, grad_norm=2.0)]
+    with open(os.path.join(DIR, f"out_sentinel_agree_r{RANK}.json"),
+              "w") as f:
+        json.dump({"verdicts": verdicts, "n": sent.stats.n,
+                   "mean": sent.stats.mean, "cap": sent.gnorm_cap(),
+                   "consecutive": sent.consecutive}, f)
+
+
 def main():
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{DIR}/pg",

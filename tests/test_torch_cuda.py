@@ -1510,3 +1510,34 @@ def test_meshed_attention_raises_where_the_kernel_refuses(dev, card_mesh):
     with pytest.raises(Exception, match="does not take"):
         ATT.sdpa_raw(dq, dq, dq, is_causal=True)
     assert K.dispatch_stats()["flash_ref"] == 0
+
+
+@pytest.mark.parametrize("chunk", [1000, 1 << 26])
+def test_checkpoint_round_trip_from_the_card(dev, tmp_path, monkeypatch,
+                                             chunk):
+    """A blocking and an async save of card tensors (bf16, float32,
+    int64 and a 0-d leaf) go to the file through the pinned staging
+    buffers, ``chunk`` bytes at a time (1000: many chunks a leaf, so
+    every buffer is reused), and load back bit for bit into card
+    tensors; the files' CRC32s are what ``verify_checkpoint`` reads."""
+    from paddle_tpu_torch.distributed import checkpoint as C
+    monkeypatch.setattr(C, "_CHUNK", chunk)
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = {"w": torch.randn(300, 70, generator=g, device=dev)
+             .to(torch.bfloat16),
+             "m": torch.randn(4099, generator=g, device=dev),
+             "ids": torch.arange(5000, device=dev),
+             "s": torch.tensor(2.5, device=dev), "step": 3}
+    want = state["m"].clone()
+    C.save_state_dict(state, str(tmp_path / "sync"))
+    h = C.async_save_state_dict(state, str(tmp_path / "async"))
+    state["m"].add_(1.0)                  # in place, after the snapshot
+    h.result(timeout=120)
+    for name in ("sync", "async"):
+        C.verify_checkpoint(str(tmp_path / name))
+        tmpl = {k: torch.zeros_like(v) if torch.is_tensor(v) else 0
+                for k, v in state.items()}
+        C.load_state_dict(tmpl, str(tmp_path / name))
+        for k in ("w", "ids", "s"):
+            assert torch.equal(tmpl[k], state[k]), (name, k)
+        assert torch.equal(tmpl["m"], want) and tmpl["step"] == 3

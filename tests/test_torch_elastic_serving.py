@@ -15,8 +15,11 @@ and the replicas told to drain are equal to the JAX controller's. The
 cases that read wall time (heartbeat staleness) compare the decision
 sequence without tick numbers. The bounded ``signals`` worker is a
 thread by design; its cases run the port alone, with the reference's
-bounds. The training paths and a drain checkpoint raise, naming ROADMAP
-A10.
+bounds. The drain checkpoint and the worker's checkpointed state
+(``save_state`` / ``finish_saves`` / ``load_state`` with the legacy
+layout, ``elastic_run_index``) match the reference's; the training
+restart loops (``run``, ``run_elastic``, ``run_adaptive``) raise, naming
+ROADMAP A10.
 """
 import os
 import threading
@@ -85,12 +88,13 @@ def mk_frame(fed, name, seq=1, *, demand=0.5, burn_fast=None,
 
 
 def drive(side, scenario, tmp_path=None):
-    """Run one scenario on one package: ``{"decisions", "replicas",
-    "stopped", "drained", "out", "mgr", "ctx"}``."""
+    """Run one scenario (a ``SCENARIOS`` name or function) on one
+    package: ``{"decisions", "replicas", "stopped", "drained", "out",
+    "mgr", "ctx"}``."""
     E, fed, hb, fo = SIDES[side]
     ctx = {"E": E, "fed": fed, "hb": hb, "fo": fo, "replicas": {},
            "stopped": [], "tmp": tmp_path}
-    sc = SCENARIOS[scenario]
+    sc = SCENARIOS[scenario] if isinstance(scenario, str) else scenario
     kw, spawn_fn, script = sc(ctx)
 
     def spawn(name):
@@ -653,37 +657,197 @@ def test_bounds_and_protocol_codes():
     lambda: TE.ElasticManager().run("train.py"),
     lambda: TE.run_elastic("train.py"),
     lambda: TE.AdaptiveElasticManager().run_adaptive("train.py"),
-    lambda: TE.save_state(1, {}),
-    lambda: TE.finish_saves(None),
-    lambda: TE.load_state({}),
-    lambda: TE.elastic_run_index(),
-], ids=["run", "run_elastic", "run_adaptive", "save_state", "finish_saves",
-        "load_state", "elastic_run_index"])
+], ids=["run", "run_elastic", "run_adaptive"])
 def test_training_paths_raise_naming_a10(call):
     with pytest.raises(NotImplementedError, match="A10"):
         call()
 
 
-def test_drain_checkpoint_raises_naming_a10(tmp_path, monkeypatch):
-    mgr = TE.AdaptiveElasticManager()
-    with pytest.raises(NotImplementedError, match="A10"):
-        mgr.run_serving(lambda n: FakeReplica(), lambda n, h: None,
-                        state_fn=lambda: {"w": 1},
-                        ckpt_dir=str(tmp_path), max_ticks=1)
-    with pytest.raises(NotImplementedError, match="A10"):
-        mgr._drain_and_stop(
-            "r", FakeReplica(), signals=lambda n, h: h.autoscale_payload(),
-            drain=lambda n, h: None, stop=lambda n, h: None,
-            drain_timeout=0.1, poll_interval=0.01,
-            state_fn=lambda: {"w": 1}, ckpt_dir=str(tmp_path))
-    monkeypatch.setenv("PADDLE_ELASTIC_CKPT_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A10"):
-        mgr.run_serving(lambda n: FakeReplica(), lambda n, h: None,
-                        state_fn=lambda: {"w": 1}, max_ticks=1)
-    # without a state_fn the environment's directory is unused
-    out = mgr.run_serving(lambda n: FakeReplica(), lambda n, h: None,
-                          max_ticks=2, poll_interval=0.001)
-    assert out["replicas"] == ["replica0"]
+# ---------------------------------------------------------------------------
+# the elastic worker's checkpointed state and the drain checkpoint
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def ckpt_env(tmp_path, monkeypatch):
+    """``PADDLE_ELASTIC_CKPT_DIR`` per package; each package's per-root
+    managers (each with a SIGTERM hook) dropped after the test."""
+    roots = {side: tmp_path / f"ck_{side}" for side in SIDES}
+    for E, *_ in SIDES.values():
+        E._MANAGERS.clear()
+    yield roots, monkeypatch
+    for E, *_ in SIDES.values():
+        for mgr in E._MANAGERS.values():
+            mgr.remove_preemption_hook()
+        E._MANAGERS.clear()
+
+
+def _w(side, value):
+    import jax.numpy as jnp
+    import torch
+    return jnp.full((4,), value) if side == "jax" else \
+        torch.full((4,), value)
+
+
+def _values(x):
+    return np.asarray(x).tolist()
+
+
+def test_elastic_run_index_reads_the_run(monkeypatch):
+    monkeypatch.delenv("PADDLE_ELASTIC_RUN", raising=False)
+    assert TE.elastic_run_index() == JE.elastic_run_index() == 0
+    monkeypatch.setenv("PADDLE_ELASTIC_RUN", "3")
+    assert TE.elastic_run_index() == JE.elastic_run_index() == 3
+
+
+def test_save_state_load_state_match_the_reference(ckpt_env):
+    """Four async saves with ``PADDLE_ELASTIC_KEEP_CKPTS=2``, joined by
+    ``finish_saves``: the same retained steps and the same resume point
+    as the reference's."""
+    roots, mp = ckpt_env
+    mp.setenv("PADDLE_ELASTIC_KEEP_CKPTS", "2")
+    out = {}
+    for side, (E, *_) in SIDES.items():
+        mp.setenv("PADDLE_ELASTIC_CKPT_DIR", str(roots[side]))
+        pending = None
+        for step in range(4):
+            pending = E.save_state(step + 1, {"w": _w(side, float(step)),
+                                              "step": step + 1},
+                                   prev_handle=pending)
+        assert E.finish_saves(pending)
+        start, state = E.load_state({"w": _w(side, 0.0), "step": 0})
+        out[side] = (start, _values(state["w"]), state["step"],
+                     sorted(os.listdir(roots[side])))
+    assert out["torch"] == out["jax"] == (4, [3.0] * 4, 4,
+                                          ["step_3", "step_4"])
+
+
+def test_finish_saves_and_a_fresh_start(ckpt_env, monkeypatch):
+    roots, mp = ckpt_env
+    mp.delenv("PADDLE_ELASTIC_CKPT_DIR", raising=False)
+    import torch
+    tmpl = {"w": torch.zeros(4)}
+    # no checkpoint root: nothing saved, a fresh start
+    assert TE.save_state(1, tmpl) is None
+    assert TE.load_state(tmpl) == (0, tmpl)
+    assert not TE.finish_saves(None)
+    mp.setenv("PADDLE_ELASTIC_CKPT_DIR", str(roots["torch"]))
+    assert TE.load_state(tmpl) == (0, tmpl)         # no dir yet
+    mgr = TE.save_state(5, {"w": torch.full((4,), 5.0)})
+    assert mgr is TE._MANAGERS[str(roots["torch"])]
+    assert TE.finish_saves(mgr) and mgr.latest_step() == 5
+    assert TE.save_state(6, {"w": torch.full((4,), 6.0)},
+                         blocking=True) is None
+    start, state = TE.load_state({"w": torch.zeros(4)})
+    assert start == 6 and _values(state["w"]) == [6.0] * 4
+
+
+def test_load_state_legacy_layout_and_uncommitted_newest(ckpt_env):
+    """The pre-commit layout (``latest`` naming a markerless ``step<N>``
+    dir) still resumes; an uncommitted newest step is skipped. Both as
+    the reference."""
+    roots, mp = ckpt_env
+    from paddle_tpu.distributed import checkpoint as JC
+    from paddle_tpu_torch.distributed import checkpoint as TC
+    out = {}
+    for side, (E, *_) in SIDES.items():
+        C = JC if side == "jax" else TC
+        root = roots[side]
+        mp.setenv("PADDLE_ELASTIC_CKPT_DIR", str(root))
+        C.save_state_dict({"w": _w(side, 9.0)}, str(root / "step9"))
+        for marker in ("COMMIT", "checkpoint.manifest"):
+            os.remove(str(root / "step9" / marker))
+        (root / "latest").write_text("9")
+        legacy = E.load_state({"w": _w(side, 0.0)})
+        mp.setenv("PADDLE_ELASTIC_KEEP_CKPTS", "3")
+        E._MANAGERS.clear()
+        root2 = root.parent / f"new_{side}"
+        mp.setenv("PADDLE_ELASTIC_CKPT_DIR", str(root2))
+        for step in (1, 2):
+            E.save_state(step, {"w": _w(side, float(step))}, blocking=True)
+        os.remove(str(root2 / "step_2" / "COMMIT"))
+        newest = E.load_state({"w": _w(side, 0.0)})
+        out[side] = [(s, _values(st["w"])) for s, st in (legacy, newest)]
+    assert out["torch"] == out["jax"] == [(9, [9.0] * 4), (1, [1.0] * 4)]
+
+
+def _scale_in_with_checkpoint(ctx):
+    """``_scales_toward_hint`` with a drain checkpoint of the replica's
+    state under ``ckpt_dir``."""
+    kw, spawn, script = _scales_toward_hint(ctx)
+    side = "jax" if ctx["E"] is JE else "torch"
+    kw.update(state_fn=lambda: {"w": _w(side, 7.0), "step": 7},
+              ckpt_dir=str(ctx["tmp"] / f"drain_{side}"))
+    return kw, spawn, script
+
+
+def test_drain_checkpoint_commits_before_the_stop(ckpt_env, tmp_path):
+    """A scale-in checkpoints ``state_fn()`` (one committed step a
+    drained replica) before the drain: the decisions, the stops and the
+    committed checkpoints are the reference's."""
+    runs = {side: drive(side, _scale_in_with_checkpoint, tmp_path)
+            for side in SIDES}
+    t, j = runs["torch"], runs["jax"]
+    assert (t["decisions"], t["stopped"], t["drained"]) == \
+        (j["decisions"], j["stopped"], j["drained"])
+    assert t["stopped"]
+    import jax.numpy as jnp
+    import torch
+    from paddle_tpu.distributed.checkpoint import CheckpointManager as JCM
+    from paddle_tpu_torch.distributed.checkpoint import \
+        CheckpointManager as TCM
+    got = {}
+    for side, Mgr, tmpl in (("jax", JCM, {"w": jnp.zeros(4), "step": 0}),
+                            ("torch", TCM, {"w": torch.zeros(4),
+                                            "step": 0})):
+        mgr = Mgr(str(tmp_path / f"drain_{side}"))
+        got[side] = (mgr.all_steps(), mgr.restore_latest(tmpl),
+                     _values(tmpl["w"]), tmpl["step"])
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0] == list(range(1, len(t["stopped"]) + 1))
+    assert got["torch"][2:] == ([7.0] * 4, 7)
+
+
+def test_kill_after_the_drain_checkpoint_leaves_it_committed(tmp_path):
+    """A kill between the drain checkpoint's commit and the replica's
+    stop (``drain.stop``): exactly the committed step, restorable."""
+    import subprocess
+    import sys
+    import torch
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.testing import faults
+    root = str(tmp_path / "ckpt")
+    child = (
+        "import sys, torch\n"
+        "from paddle_tpu_torch.distributed.fleet.elastic import (\n"
+        "    AdaptiveElasticManager)\n"
+        "class H:\n"
+        "    def autoscale_payload(self):\n"
+        "        return {'drain_safe': True, 'demand_estimate': 0.0}\n"
+        "    def begin_drain(self):\n"
+        "        pass\n"
+        "state = {'w': torch.arange(6, dtype=torch.float32), 'step': 7}\n"
+        "AdaptiveElasticManager()._drain_and_stop('replica0', H(),\n"
+        "    signals=lambda n, x: x.autoscale_payload(),\n"
+        "    drain=lambda n, x: x.begin_drain(),\n"
+        "    stop=lambda n, x: None, drain_timeout=5,\n"
+        "    poll_interval=0.01, state_fn=lambda: state,\n"
+        "    ckpt_dir=sys.argv[1])\n"
+        "print('SURVIVED')\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-c", child, root], capture_output=True,
+        text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1",
+                 FLAGS_fault_injection="drain.stop:kill:1"))
+    assert r.returncode == faults.KILL_EXIT_CODE, (r.returncode,
+                                                   r.stderr[-800:])
+    assert "SURVIVED" not in r.stdout
+    mgr = CheckpointManager(root)
+    assert mgr.latest_step() == 1
+    target = {"w": torch.zeros(6), "step": 0}
+    assert mgr.restore_latest(target) == 1
+    assert torch.equal(target["w"], torch.arange(6, dtype=torch.float32))
+    assert target["step"] == 7
 
 
 def test_burn_scaling_flag_is_the_controllers_default(tmp_path):

@@ -234,6 +234,19 @@ def test_route_counters_start_at_zero_and_reset():
     assert st["flash_tc"] == 0 and st["flash_bwd_tc"] == 0
 
 
+def test_head_dim_72_counters_start_at_zero_and_reset():
+    """``flash_d72`` / ``flash_bwd_d72`` count the tensor-core launches at
+    DiT's head dim among ``flash`` / ``flash_bwd``."""
+    K.reset_dispatch_stats()
+    st = K.dispatch_stats()
+    assert st["flash_d72"] == 0 and st["flash_bwd_d72"] == 0
+    K._DISPATCH_STATS["flash_d72"] = 3
+    K._DISPATCH_STATS["flash_bwd_d72"] = 2
+    K.reset_dispatch_stats()
+    st = K.dispatch_stats()
+    assert st["flash_d72"] == 0 and st["flash_bwd_d72"] == 0
+
+
 def test_segment_route_counters_start_at_zero_and_reset():
     K.reset_dispatch_stats()
     st = K.dispatch_stats()

@@ -1,8 +1,9 @@
 """The port stands alone and runs on the card unless told otherwise.
 
-- No module under ``paddle_tpu_torch/`` imports ``jax`` or ``paddle_tpu``
-  (checked on the source with ``ast``, so a lazy import inside a
-  function is caught too).
+- No module under ``paddle_tpu_torch/``, and not ``chip_smoke.py``,
+  imports ``jax``, ``paddle_tpu`` or ``ml_dtypes`` (the card's machine
+  has no ``ml_dtypes``; checked on the source with ``ast``, so a lazy
+  import inside a function is caught too).
 - Entry points called without ``device=`` raise on a box without a CUDA
   device instead of running on the CPU; so do the eager surface's
   (``LlamaForCausalLM``, ``to_tensor``, ``seed``) until
@@ -21,7 +22,7 @@ from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.models import llama as TL
 
 _ROOT = pathlib.Path(paddle_tpu_torch.__file__).parent
-_FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
 
 
 def _imported_modules(path):
@@ -53,8 +54,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "device/memory.py", "distributed/fleet/__init__.py",
             "distributed/fleet/elastic.py", "distributed/spmd.py",
             "distributed/introspect.py", "monitor/fleet.py",
-            "kernels/ring_attention.py"} <= scanned
-    bad = [(str(f.relative_to(_ROOT)), m) for f in files
+            "kernels/ring_attention.py", "distributed/checkpoint/__init__.py",
+            "distributed/checkpoint/manager.py", "training/sentinel.py",
+            "monitor/steptimer.py", "monitor/timeseries.py"} <= scanned
+    files.append(_ROOT.parent / "chip_smoke.py")
+    bad = [(str(f.relative_to(_ROOT.parent)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in _FORBIDDEN]
     assert not bad, bad
@@ -63,9 +67,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_import_scan_catches_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("def g():\n    from paddle_tpu.models import llama\n"
-                 "    import jax.numpy as jnp\n")
+                 "    import jax.numpy as jnp\n    import ml_dtypes\n")
     assert {m.split(".")[0] for m in _imported_modules(f)} == {
-        "paddle_tpu", "jax"}
+        "paddle_tpu", "jax", "ml_dtypes"}
 
 
 @pytest.fixture

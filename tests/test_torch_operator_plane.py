@@ -11,13 +11,12 @@
 - Routes: both packages serve the same requests (``llama_tiny`` float32,
   weights carried across, one fake clock, monitor on), then each
   package's server is scraped route by route: every ported route answers
-  the reference's status with the reference's JSON keys (``/numerics``
-  the KV half's keys, the part of the reference's plane that is ported,
-  and ``/flight`` likewise in its ``numerics`` block, with ``timeseries``
-  None; ``/metrics`` the same metric families, those of the reference's
-  XLA program analysis excepted). Bad ``/profile`` arguments answer 400 on both.
-- ``/roofline`` and ``/timeseries`` (A10), ``/sharding`` and
-  ``/metrics?scope=fleet`` (A9) answer 501 naming their ROADMAP item.
+  the reference's status with the reference's JSON keys (``/metrics``
+  the same metric families, those of the reference's XLA program
+  analysis excepted; ``/timeseries``, ``/numerics`` and every block of
+  ``/flight`` whole). Bad ``/profile`` arguments answer 400 on both.
+- ``/roofline`` (A10) answers 501 naming its ROADMAP item; ``/sharding``
+  and ``/metrics?scope=fleet`` (A9) are compared with the reference's.
 - ``memory.hbm_stats`` / ``update_hbm_gauges`` / ``headroom`` on one
   injected ``stats_fn`` and one page-pool state equal the reference's,
   gauges included; on this host (no card) the port's device reading is
@@ -48,11 +47,11 @@ from paddle_tpu_torch.loadgen import scorecard as tscorecard
 from paddle_tpu_torch.models import llama as TL
 
 ROUTES = ("/metrics", "/healthz", "/flight", "/programs", "/memory",
-          "/numerics", "/slo", "/fleet/serving", "/scorecard",
+          "/timeseries", "/numerics", "/slo", "/fleet/serving", "/scorecard",
           "/forensics", "/requests/1", "/requests/999", "/",
           "/profile?seconds=abc", "/profile?seconds=0",
           "/profile?seconds=1000", "/no/such/route")
-UNPORTED = {"/roofline": "A10", "/timeseries": "A10"}
+UNPORTED = {"/roofline": "A10"}
 # the A9 routes, scraped on both sides after the same serve: the
 # parameter tree's layout and the single-process fleet aggregate
 MESH_ROUTES = ("/sharding", "/metrics?scope=fleet")
@@ -60,9 +59,6 @@ MESH_ROUTES = ("/sharding", "/metrics?scope=fleet")
 # collectives its comms plane reads from the compiled program) registers
 # these on a /metrics scrape; eager PyTorch compiles no program to analyze
 XLA_ONLY_FAMILIES = ("jit_program_", "comm_program_")
-# flight-record blocks of planes not ported (the step time series, A10)
-# or ported in part (numerics: the KV half)
-FLIGHT_PARTIAL = ("timeseries", "numerics")
 
 
 @pytest.fixture(autouse=True)
@@ -218,17 +214,15 @@ def test_route_status_and_keys_match_the_reference(scraped, route):
     if route == "/metrics":
         assert t[2] == j[2]
         assert "serving_tokens_generated" in t[2]
-    elif route == "/numerics":
-        assert t[0] == 200
-        assert set(t[2]) == {"kv", "kv_quant"} <= set(j[2])
-        assert {k: t[2][k] for k in t[2]} == {k: j[2][k] for k in t[2]}
     elif route == "/":
         assert t[3]["routes"] == j[3]["routes"]
+    elif route in ("/timeseries", "/numerics"):
+        assert t[0] == 200 and t[2] == j[2]
+        assert t[3] == j[3]        # a serve records no steps: empty planes
     elif route == "/flight":
-        assert {k: v for k, v in t[2].items() if k not in FLIGHT_PARTIAL} \
-            == {k: v for k, v in j[2].items() if k not in FLIGHT_PARTIAL}
-        assert t[2]["timeseries"] == "NoneType"
-        assert set(t[2]["numerics"]) == {"kv", "kv_quant"}
+        assert t[2] == j[2]
+        assert t[3]["timeseries"] == j[3]["timeseries"]
+        assert t[3]["numerics"] == j[3]["numerics"]
     else:
         assert t[2] == j[2], (route, t[2], j[2])
 

@@ -111,11 +111,11 @@ def test_flight_payload_matches(monitor_on, clock):
              for e in t["events"]]
     assert strip == [{k: v for k, v in e.items() if k != "tid"}
                      for e in j["events"]]
-    # the unported planes' blocks are None; the KV block is the
-    # reference's KV part
-    assert t["timeseries"] is None and t["federation"] is None
-    assert t["numerics"]["kv"] == j["numerics"]["kv"]
-    assert t["numerics"]["kv_quant"] == j["numerics"]["kv_quant"]
+    # the step time series and the numerics plane are the reference's
+    # whole; no federation block without a federated report
+    assert t["timeseries"] == j["timeseries"]
+    assert t["numerics"] == j["numerics"]
+    assert t["federation"] is None
 
 
 def test_flight_record_written_only_when_armed(monitor_on, tmp_path,
