@@ -406,6 +406,43 @@ Phases, each printed on its own line; any failure exits non-zero:
     tensor-core route only, and at the end the device memory of the
     phase's start (under 1 GB more), with no garbage collection run.
 
+46. paged_wide (in the kernels phase, ROADMAP B1b): the decode kernel at
+    head dims 136 and 256 and at groups of 32 (``WIDE_DECODE``: 16 / 8
+    heads of 136 and of 256, 32 / 1 of 128 and of 256), each at edge
+    lengths, the first wave and 32 sequences: bf16 and float32 same-type
+    pairs, every mixed pair (``MIXED_PAIRS``, within ``mixed_tol``, p's
+    rounding checked as in ``paged_mixed``), int8 pages of 32 with
+    float32 and bf16 q (and against the full-precision kernel on the
+    dequantized pages), each against its plain version; then both arms
+    timed at the first wave at head dim 256 and at group 32 (the
+    ``kernels`` line's ``paged_decode_d256``, ``paged_decode_int8_d256``,
+    ``paged_decode_g32`` and ``paged_decode_int8_g32`` records);
+47. memory_headroom (after ``dit_parity``, ROADMAP C5): ``/memory``'s
+    ``est_admittable_bytes`` against a raw ``cudaMalloc`` of 1 GiB made
+    outside torch's allocator (``phase_memory_headroom``): it drops by
+    that size, comes back when freed, never counts the CUDA context, and
+    ``bytes_limit`` is the card's total;
+48. wide_serve (after ``memory_headroom``): ``ServingEngine`` at
+    Llama-3-8B widths with head dim 256 (``llama_3_8b(num_attention_heads
+    =16)``) and with one kv head (``llama_3_8b(num_key_value_heads=1)``,
+    group 32), ``WIDE_LAYERS`` deep, ``main``'s 16 requests with bf16
+    pages and with int8 pages: every decode launch on its arm, the flash
+    prefill (head dim 256 off the tensor cores), no plain version, every
+    token in range; the launches fill the wide rows of the ``kernels``
+    line;
+49. elastic_train (after ``sentinel_train``, ROADMAP A10):
+    ``ElasticManager.run`` launches ``paddle_tpu_torch/training/
+    elastic_worker.py`` on the card (``nproc_per_node=1``): Llama-3-8B
+    widths at ``ELASTIC_LAYERS`` layers, bf16 moments, a checkpoint
+    every ``ELASTIC_SAVE_EVERY`` steps through ``save_state``, a hard
+    exit after step ``ELASTIC_KILL_AT`` on the first world; the
+    relaunched world resumes from its last committed checkpoint, and its
+    losses, like the killed world's, equal an uninterrupted world's bit
+    for bit; the restart's seconds; the flash pair launched in the
+    workers, no plain version. ``moe_mesh`` also runs ``moe_train``'s
+    rung with capacity dispatch (ROADMAP A9b) against the unmeshed
+    capacity step.
+
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
 and 5120 with n 1, 22 and 8193, each float32 / bfloat16 pair of x and w,
@@ -445,7 +482,9 @@ device, or without the rest of the repo beside it, it exits non-zero
 before printing any result.
 
 ``--layers N`` cuts the depth of the serving main paths: the three Llama
-ones (default: all 32 layers) and ``moe_main`` (at most its 28).
+ones (default: all 32 layers) and ``moe_main`` (at most its 28). The
+wide serves always run ``WIDE_LAYERS``, the launched worker
+``ELASTIC_LAYERS``.
 """
 from __future__ import annotations
 
@@ -1038,10 +1077,11 @@ L2_BYTES = 50e6      # the H100's L2 cache
 
 
 def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
-                  check=True, page_dtype=None):
-    """One decode call's device time at ``lengths`` (bf16 q, Llama-3-8B
-    heads; bf16 pages of ``ps``, pages of ``page_dtype`` when given, or
-    int8 with scales): ``torch.profiler``'s
+                  check=True, page_dtype=None, heads=(32, 8, 128)):
+    """One decode call's device time at ``lengths`` (bf16 q, ``heads`` =
+    (query heads, kv heads, head dim), default Llama-3-8B's; bf16 pages
+    of ``ps``, pages of ``page_dtype`` when given, or int8 with scales):
+    ``torch.profiler``'s
     device time of every ``paged_decode*`` kernel (split and combine) over
     a rotation of pools of the same shape whose live bytes are at least
     twice the L2, so each call finds its pages cold, as the main path's 32
@@ -1053,7 +1093,7 @@ def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
     the work)."""
     import math
     gen = torch.Generator(device=dev).manual_seed(seed)
-    B, NH, KVH, D = len(lengths), 32, 8, 128
+    B, (NH, KVH, D) = len(lengths), heads
     P = sum(-(-n // ps) for n in lengths) + 1
     page_dtype = torch.bfloat16 if page_dtype is None else page_dtype
     elem = 1 if quant else page_dtype.itemsize
@@ -1498,6 +1538,317 @@ def phase_paged_int8(torch, dev, main_lengths, wave2, maxp, ps):
             "max_abs_err": worst, "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": "bytes", "library_ms": None}
+
+
+# ROADMAP B1b: the decode kernel's domain above head dim 128 and group
+# 8, at the shapes of the two Llama-3-8B variants the wide serves run
+# (``WIDE_CONFIGS``) and at head dim 136 (rows of 17 lanes; int8 rows of
+# 136 bytes take 8-byte copies): (query heads, kv heads, head dim)
+WIDE_DECODE = {"d136": (16, 8, 136), "d256": (16, 8, 256),
+               "g32": (32, 1, 128), "g32_d256": (32, 1, 256)}
+# the serving variants: head dim 256 (16 heads of 256 over 8 kv heads)
+# and multi-query (32 heads of 128 over 1 kv head, group 32)
+WIDE_CONFIGS = {"d256": {"num_attention_heads": 16},
+                "g32": {"num_key_value_heads": 1}}
+WIDE_LAYERS = 4          # the wide serves' depth (of Llama-3-8B's 32)
+WIDE_INT8_PS = 32        # the engine's int8 page
+
+
+def wide_decode_checks(torch, dev, PA, name, heads, main_lengths, maxp):
+    """The decode kernel at ``heads`` = (query heads, kv heads, head dim)
+    against its plain version, pages of 16 (int8: of
+    ``WIDE_INT8_PS``): edge lengths (empty, a partial page, the full
+    table, sentinel and garbage table entries), the first wave and 32
+    sequences. Same-type pairs bf16 (``PAGED_TOL``) and float32
+    (``FLASH_F32_TOL``); every mixed pair (``MIXED_PAIRS``) within
+    ``mixed_tol``, bf16 q against ``paged_ref_round_p`` within
+    ``PAGED_TOL`` and float32 q over 2-byte pages the rounding's RMS
+    ratio within ``MIXED_RMS_BAND``; int8 with float32 and bf16 q (scale
+    0 on never-written pages), and the int8 arm against the
+    full-precision kernel on the densely dequantized pages. Length-0
+    rows exactly zero. Returns the largest errors by arm."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    NH, KVH, D = heads
+    rng = torch.Generator().manual_seed(32)
+    cases = (("edge", [0, 1, 15, 16, 17, 300, 777, maxp * 16]),
+             ("main", list(main_lengths)),
+             ("b32", [0, maxp * 16] + torch.randint(
+                 1, maxp * 16 + 1, (30,), generator=rng).tolist()))
+    worst = {"paged": 0.0, "paged_int8": 0.0, "mixed": 0.0}
+    for case, lengths in cases:
+        B = len(lengths)
+        zero = [b for b, n in enumerate(lengths) if n == 0]
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        qf = torch.randn(B, NH, D, generator=gen, device=dev)
+        P = sum(-(-n // 16) for n in lengths) + 4
+        kf = torch.randn(P, KVH, 16, D, generator=gen, device=dev)
+        vf = torch.randn(P, KVH, 16, D, generator=gen, device=dev)
+        bt = _page_tables(torch, dev, lengths, 16, maxp, P, 33)
+        pairs = (("bfloat16", "bfloat16"), ("float32", "float32")) + \
+            MIXED_PAIRS
+        for qn, pn in pairs:
+            qdt, pdt = getattr(torch, qn), getattr(torch, pn)
+            q, kp, vp = qf.to(qdt), kf.to(pdt), vf.to(pdt)
+            out = PA.ragged_paged_attention(q, kp, vp, bt, ln)
+            torch.cuda.synchronize()
+            ref = PA.paged_attention_ref(q, kp, vp, bt, ln)
+            err = _err(out, ref)
+            same_type = qn == pn
+            tol = ((PAGED_TOL if qdt == torch.bfloat16 else FLASH_F32_TOL)
+                   if same_type else
+                   mixed_tol(torch, qdt, pdt, float(vp.float().abs().max())))
+            rnd_err = ratio = None
+            if not same_type:
+                rnd = paged_ref_round_p(torch, q, kp, vp, bt, ln)
+                rnd_err = _err(out, rnd)
+                if qdt == torch.float32 and pdt.itemsize == 2:
+                    ratio = _rms(out - ref) / _rms(rnd - ref)
+            _say("paged_wide", shape=name, case=case,
+                 heads=f"{NH}/{KVH}", D=D, q=qn, pages=pn, B=B,
+                 splits=PA.decode_split_plan(B, KVH, 16, maxp)[1],
+                 max_abs_err=err, tol=tol, vs_rounded_ref=rnd_err,
+                 rms_ratio=ratio)
+            assert out.dtype == qdt and out.shape == q.shape
+            assert bool(torch.isfinite(out.float()).all()), (name, qn, pn)
+            assert err <= tol, f"paged_decode {qn} q over {pn} pages " \
+                f"disagrees at {name} {case}: {err}"
+            if rnd_err is not None and qdt == torch.bfloat16:
+                assert rnd_err <= PAGED_TOL, (name, case, qn, pn, rnd_err)
+            if ratio is not None:
+                lo, hi = MIXED_RMS_BAND
+                assert lo <= ratio <= hi, (name, case, qn, pn, ratio)
+            assert all(bool((out[b] == 0).all()) for b in zero), \
+                f"paged_decode: a length-0 row is not zero ({name})"
+            arm = "paged" if same_type else "mixed"
+            worst[arm] = max(worst[arm], err)
+        del kf, vf
+        # the int8 arm, pages of WIDE_INT8_PS
+        ps = WIDE_INT8_PS
+        width = -(-maxp * 16 // ps)
+        P = sum(-(-n // ps) for n in lengths) + 4
+        kc, vc = (torch.randint(-127, 128, (P, KVH, ps, D), generator=gen,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (0.02 * torch.rand(P, KVH, generator=gen, device=dev)
+                  for _ in range(2))
+        ks[:2] = 0.0
+        vs[:2] = 0.0
+        bt = _page_tables(torch, dev, lengths, ps, width, P, 34)
+        for qdt, tol in ((torch.float32, FLASH_F32_TOL),
+                         (torch.bfloat16, PAGED_TOL)):
+            q = qf.to(qdt)
+            out = PA.ragged_paged_attention(q, kc, vc, bt, ln, k_scales=ks,
+                                            v_scales=vs)
+            torch.cuda.synchronize()
+            ref = PA.paged_attention_ref(q, kc, vc, bt, ln, k_scales=ks,
+                                         v_scales=vs)
+            err = _err(out, ref)
+            derr = None
+            if qdt == torch.float32:
+                dense = PA.ragged_paged_attention(
+                    q, (kc.float() * ks[:, :, None, None]).contiguous(),
+                    (vc.float() * vs[:, :, None, None]).contiguous(), bt, ln)
+                torch.cuda.synchronize()
+                derr = _err(out, dense)
+            _say("paged_wide", shape=name, case=case, heads=f"{NH}/{KVH}",
+                 D=D, q=str(qdt).split(".")[-1], pages="int8", ps=ps, B=B,
+                 max_abs_err=err, tol=tol, vs_full_precision_kernel=derr)
+            assert bool(torch.isfinite(out.float()).all()), (name, case)
+            assert err <= tol, f"paged_decode_int8 disagrees at {name} " \
+                f"{case}: {err}"
+            assert derr is None or derr <= FLASH_F32_TOL, (name, case, derr)
+            assert all(bool((out[b] == 0).all()) for b in zero)
+            worst["paged_int8"] = max(worst["paged_int8"], err)
+        del kc, vc
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_paged_wide(torch, dev, main_lengths, maxp):
+    """``wide_decode_checks`` at every ``WIDE_DECODE`` shape, then both
+    arms timed at the first wave (``decode_timing``: bf16 q, bf16 pages
+    of 16 and int8 pages of ``WIDE_INT8_PS``) at head dim 256 and at group
+    32. Returns the four kernel records (launches are filled from the
+    wide serves)."""
+    from paddle_tpu_torch.kernels import paged_attention as PA
+    worst = {name: wide_decode_checks(torch, dev, PA, name, heads,
+                                      main_lengths, maxp)
+             for name, heads in WIDE_DECODE.items()}
+    recs = {}
+    for name in WIDE_CONFIGS:
+        heads = WIDE_DECODE[name]
+        for quant, ps, kernel in ((False, 16, "paged_decode"),
+                                  (True, WIDE_INT8_PS, "paged_decode_int8")):
+            width = -(-maxp * 16 // ps)
+            t = decode_timing(torch, dev, PA, list(main_lengths), ps, width,
+                              quant, 41, heads=heads)
+            _say("kernels", kernel=kernel, config=name,
+                 heads="/".join(map(str, heads)), timing="first_wave", **t)
+            torch.cuda.empty_cache()
+            recs[(kernel, name)] = {
+                "name": f"{kernel}_{name}", "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+                "replaces": "paddle_tpu/kernels/paged_attention.py:60",
+                "max_abs_err": worst[name]["paged_int8" if quant
+                                           else "paged"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                "library_ms": None}
+    _say("paged_wide", worst=json.dumps(worst, sort_keys=True))
+    return recs
+
+
+def phase_wide_serve(torch, dev, requests, card):
+    """ROADMAP B1b on the serving path: ``ServingEngine`` at Llama-3-8B
+    widths with head dim 256 (``llama_3_8b(num_attention_heads=16)``)
+    and multi-query (``llama_3_8b(num_key_value_heads=1)``, group 32),
+    ``WIDE_LAYERS`` deep, random bf16 weights from seed 0; ``requests``
+    with bf16 pages of 16, then with ``kv_quant=True`` (int8 pages of
+    32). Each serve: prefill on the flash kernel (head dim 256: the
+    CUDA-core route), every decode launch on its arm, no plain version,
+    every token in range; decode tokens/s, and how many requests the
+    int8 pages leave on the bf16 tokens (a reading). Returns the
+    launches by (config, arm)."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import llama as L
+    out_launches = {}
+    for name, kw in WIDE_CONFIGS.items():
+        cfg = L.llama_3_8b(num_hidden_layers=WIDE_LAYERS, **kw)
+        params = L.init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        base = None
+        for kv_quant in (False, True):
+            eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048,
+                                kv_quant=kv_quant)
+            K.reset_dispatch_stats()
+            t0 = time.perf_counter()
+            out = eng.run(requests)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = K.dispatch_stats()
+            st = eng.stats
+            arm = "paged_quant" if kv_quant else "paged"
+            tokens = {r.rid: out[r.rid].tokens.tolist() for r in requests}
+            same = (None if base is None else
+                    sum(tokens[r] == base[r] for r in base))
+            _say("wide_serve", config=name, card=repr(card),
+                 layers=WIDE_LAYERS, heads=f"{cfg.num_attention_heads}/"
+                 f"{cfg.num_key_value_heads}", head_dim=cfg.head_dim,
+                 kv_quant=kv_quant, page_size=eng.page_size,
+                 requests=len(out), wall_s=round(wall, 3),
+                 prefill_tok_per_s=st.tokens_prefilled / st.prefill_s,
+                 decode_tok_per_s=st.tokens_decoded / st.decode_s,
+                 decode_steps=st.decode_steps, preempted=st.preempted,
+                 flash=launches["flash"], flash_tc=launches["flash_tc"],
+                 **{f"{arm}_launches": launches[arm]},
+                 tokens_equal_to_bf16_pages=same,
+                 **{k: v for k, v in launches.items() if k.endswith("_ref")})
+            assert launches["flash"] > 0 and launches[arm] > 0, launches
+            assert launches["paged" if kv_quant else "paged_quant"] == 0
+            assert launches["paged_mixed"] == 0, launches
+            assert all(v == 0 for k, v in launches.items()
+                       if k.endswith("_ref")), launches
+            if cfg.head_dim not in (64, 72, 128):
+                assert launches["flash_tc"] == 0, launches
+            for r in requests:
+                toks = out[r.rid].tokens
+                assert len(toks) == r.max_new_tokens, (name, r.rid)
+                assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+            out_launches[(name, arm)] = launches[arm]
+            if base is None:
+                base = tokens
+            del eng
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    return out_launches
+
+
+HEADROOM_PROBE_BYTES = 1 << 30     # the allocation made outside torch
+HEADROOM_SLACK_BYTES = 64 << 20    # the driver's granularity and noise
+
+
+def _raw_device_alloc():
+    """``(alloc, free)`` of device memory outside torch's caching
+    allocator: ``cudaMalloc`` / ``cudaFree`` through ``ctypes`` on
+    libcudart, else the driver's ``cuMemAlloc_v2`` / ``cuMemFree_v2`` on
+    the context torch made current."""
+    import ctypes
+    import ctypes.util
+    for name in ("libcudart.so", "libcudart.so.12", "libcudart.so.13",
+                 "/usr/local/cuda/lib64/libcudart.so",
+                 ctypes.util.find_library("cudart")):
+        if not name:
+            continue
+        try:
+            rt = ctypes.CDLL(name)
+        except OSError:
+            continue
+
+        def alloc(n, rt=rt):
+            ptr = ctypes.c_void_p()
+            assert rt.cudaMalloc(ctypes.byref(ptr), ctypes.c_size_t(n)) == 0
+            return ptr
+
+        def free(ptr, rt=rt):
+            assert rt.cudaFree(ptr) == 0
+        return "cudaMalloc", alloc, free
+    drv = ctypes.CDLL("libcuda.so.1")
+
+    def alloc(n):
+        ptr = ctypes.c_uint64()
+        assert drv.cuMemAlloc_v2(ctypes.byref(ptr), ctypes.c_size_t(n)) == 0
+        return ptr
+
+    def free(ptr):
+        assert drv.cuMemFree_v2(ptr) == 0
+    return "cuMemAlloc_v2", alloc, free
+
+
+def phase_memory_headroom(torch, dev, card):
+    """ROADMAP C5 on the card: ``/memory``'s ``bytes_limit`` is the card's
+    total, and ``est_admittable_bytes`` excludes memory held outside
+    torch's allocator. It starts below ``bytes_limit - bytes_in_use`` by
+    at least the CUDA context; a raw allocation of
+    ``HEADROOM_PROBE_BYTES`` outside the allocator lowers it by that
+    size within ``HEADROOM_SLACK_BYTES`` while ``bytes_in_use`` and
+    ``hbm_free_bytes`` stay; freeing it gives it back; a torch tensor
+    freed into the allocator's cache becomes admittable at once."""
+    from paddle_tpu_torch.monitor import memory as MM
+    x = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    torch.cuda.synchronize()
+    before = MM.headroom()
+    how, alloc, free = _raw_device_alloc()
+    ptr = alloc(HEADROOM_PROBE_BYTES)
+    during = MM.headroom()
+    free(ptr)
+    after = MM.headroom()
+    del x
+    cached = MM.headroom()
+    totals = before["hbm"]["totals"]
+    ctx = before["hbm_free_bytes"] - before["est_admittable_bytes"]
+    drop = before["est_admittable_bytes"] - during["est_admittable_bytes"]
+    _say("memory_headroom", card=repr(card), alloc=how,
+         bytes_limit=totals["bytes_limit"],
+         bytes_in_use=totals["bytes_in_use"],
+         hbm_free_bytes=before["hbm_free_bytes"],
+         est_admittable_bytes=before["est_admittable_bytes"],
+         outside_allocator_bytes=ctx, probe_bytes=HEADROOM_PROBE_BYTES,
+         admittable_drop_bytes=drop,
+         restored_bytes=after["est_admittable_bytes"]
+         - during["est_admittable_bytes"],
+         freed_tensor_still_admittable=cached["est_admittable_bytes"]
+         - after["est_admittable_bytes"])
+    assert totals["bytes_limit"] == torch.cuda.mem_get_info(dev.index)[1]
+    assert ctx > 0, "the CUDA context counted as admittable"
+    assert abs(drop - HEADROOM_PROBE_BYTES) <= HEADROOM_SLACK_BYTES, drop
+    assert during["hbm_free_bytes"] == before["hbm_free_bytes"]
+    assert abs(after["est_admittable_bytes"]
+               - before["est_admittable_bytes"]) <= HEADROOM_SLACK_BYTES
+    assert abs(cached["est_admittable_bytes"] - after[
+        "est_admittable_bytes"] - (256 << 20)) <= HEADROOM_SLACK_BYTES
+    return {"outside_allocator_bytes": ctx, "drop_bytes": drop}
 
 
 def phase_parity(torch, dev):
@@ -4216,6 +4567,129 @@ def phase_ckpt_train(torch, dev, card, train_ms):
     return st
 
 
+# the launched elastic worker (ROADMAP A10): Llama-3-8B widths at
+# ELASTIC_LAYERS deep, bf16 weights and AdamW moments, ids [ELASTIC_BATCH,
+# ELASTIC_SEQ + 1]; a checkpoint every ELASTIC_SAVE_EVERY steps, a hard
+# exit after step ELASTIC_KILL_AT on the first world, ELASTIC_STEPS steps
+ELASTIC_LAYERS = 1
+ELASTIC_BATCH, ELASTIC_SEQ = 2, 2048
+ELASTIC_STEPS, ELASTIC_SAVE_EVERY, ELASTIC_KILL_AT = 6, 2, 5
+ELASTIC_WORKER_S = 150
+
+
+def _elastic_records(path):
+    """The worker's ``losses.jsonl``: ``({run: {step: record}}, {run:
+    done record})``."""
+    steps, done = {}, {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "step" in rec:
+                steps.setdefault(rec["run"], {})[rec["step"]] = rec
+            elif rec.get("done"):
+                done[rec["run"]] = rec
+    return steps, done
+
+
+def elastic_world(root, name, extra):
+    """One ``ElasticManager.run`` of ``paddle_tpu_torch/training/
+    elastic_worker.py`` on one card (``nproc_per_node=1``) under
+    ``root/name``, its checkpoints under ``PADDLE_ELASTIC_CKPT_DIR``
+    there: ``(manager, steps, done, seconds)``. Each worker ends itself
+    after ``ELASTIC_WORKER_S`` (``--max-seconds``), so a hung world
+    costs at most two of those and leaves no process behind."""
+    from paddle_tpu_torch.distributed.fleet import elastic as EL
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "paddle_tpu_torch", "training",
+                          "elastic_worker.py")
+    out = os.path.join(root, name)
+    os.makedirs(out)
+    args = ["--out", out, "--config", "8b", "--layers",
+            str(ELASTIC_LAYERS), "--batch", str(ELASTIC_BATCH), "--seq",
+            str(ELASTIC_SEQ), "--steps", str(ELASTIC_STEPS),
+            "--save-every", str(ELASTIC_SAVE_EVERY), "--moments",
+            "bfloat16", "--lr", "1e-4", "--max-seconds",
+            str(ELASTIC_WORKER_S), *extra]
+    env = {"PYTHONPATH": here,
+           "PADDLE_ELASTIC_CKPT_DIR": os.path.join(out, "ckpt")}
+    mgr = EL.ElasticManager(max_restarts=1, restart_delay=0.1)
+    t0 = time.perf_counter()
+    rc = mgr.run(script, args, nproc_per_node=1, extra_env=env,
+                 log_dir=os.path.join(out, "logs"))
+    seconds = time.perf_counter() - t0
+    logs = ""
+    for f in sorted(os.listdir(os.path.join(out, "logs"))):
+        if f.startswith("workerlog"):
+            with open(os.path.join(out, "logs", f)) as fh:
+                logs += fh.read()[-3000:]
+    assert rc == 0, f"[elastic_train] {name} rc {rc}: {logs}"
+    steps, done = _elastic_records(os.path.join(out, "losses.jsonl"))
+    return mgr, steps, done, seconds
+
+
+def phase_elastic_train(torch, dev, card):
+    """ROADMAP A10 on the card: ``ElasticManager.run`` launches one
+    worker (``elastic_world``), which trains Llama-3-8B widths at
+    ``ELASTIC_LAYERS`` layers through the kernels, checkpoints through
+    ``save_state`` every ``ELASTIC_SAVE_EVERY`` steps and exits hard
+    (rc 137) after step ``ELASTIC_KILL_AT`` on its first world; the
+    manager relaunches it (``PADDLE_ELASTIC_RUN`` 1), it resumes from
+    its last committed checkpoint and finishes. Then the same world
+    without the kill. Every loss of the resumed world equals the
+    uninterrupted world's at its step, bit for bit, and so do the killed
+    world's; the restart time runs from the killed world's last step to
+    the resumed world's first; each finished world launched the flash
+    pair and no plain version."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_3_8b(num_hidden_layers=ELASTIC_LAYERS)
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="elastic_train_")
+    try:
+        # bf16 weights and two bf16 moments, two checkpoints kept
+        _need_disk(root, 2 * 6 * L.count_params(cfg), "elastic_train")
+        mgr, steps, done, killed_s = elastic_world(
+            root, "killed", ["--kill-at", str(ELASTIC_KILL_AT)])
+        _, ref, ref_done, whole_s = elastic_world(root, "whole", [])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    events = [(s, d) for _, s, d in mgr.events]
+    assert [s for s, _ in events] == ["restart", "completed"], events
+    assert events[0][1]["rc"] == 137, events
+    assert sorted(steps) == [0, 1] and sorted(ref) == [0]
+    assert sorted(steps[0]) == list(range(1, ELASTIC_KILL_AT + 1))
+    resumed = {r["resumed_from"] for r in steps[1].values()}
+    assert len(resumed) == 1, resumed
+    start = resumed.pop()
+    assert start % ELASTIC_SAVE_EVERY == 0 and 0 < start <= \
+        ELASTIC_KILL_AT, start
+    assert sorted(steps[1]) == list(range(start + 1, ELASTIC_STEPS + 1))
+    same = {run: all(rec["loss"] == ref[0][step]["loss"]
+                     for step, rec in recs.items())
+            for run, recs in steps.items()}
+    restart_s = steps[1][start + 1]["t"] - steps[0][ELASTIC_KILL_AT]["t"]
+    launches = done[1]["launches"]
+    losses = [ref[0][s]["loss"] for s in sorted(ref[0])]
+    _say("elastic_train", card=repr(card), layers=ELASTIC_LAYERS,
+         batch=f"{ELASTIC_BATCH}x{ELASTIC_SEQ}", steps=ELASTIC_STEPS,
+         save_every=ELASTIC_SAVE_EVERY, killed_after=ELASTIC_KILL_AT,
+         resumed_from=start, restart_s=round(restart_s, 3),
+         killed_world_s=round(killed_s, 2), whole_world_s=round(whole_s, 2),
+         losses=",".join(f"{x:.6f}" for x in losses),
+         killed_equal=same[0], resumed_equal=same[1],
+         flash=launches["flash"], flash_bwd=launches["flash_bwd"],
+         whole_flash_bwd=ref_done[0]["launches"]["flash_bwd"],
+         seconds=round(time.perf_counter() - t_phase, 2))
+    assert same[0] and same[1], (steps, ref)
+    assert all(x == x and abs(x) < 1e4 for x in losses), losses
+    for st in (launches, ref_done[0]["launches"]):
+        assert st["flash"] > 0 and st["flash_bwd"] > 0, st
+        assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+    return {"restart_s": restart_s, "resumed_from": start}
+
+
 def sentinel_batches(vocab, batch, seq, n=64):
     """The sentinel loop's stream factory: batch ``i`` is ids
     ``[batch, seq + 1]`` from ``default_rng(SENTINEL_SEED + i)`` on the
@@ -6876,30 +7350,37 @@ def phase_mesh_packed(torch, dev, card):
 
 
 def phase_moe_mesh(torch, dev, card):
-    """``moe_train``'s rung with dense dispatch, on a (1, 1, 1, 1) dp /
-    fsdp / ep / tp mesh against the unmeshed dense step."""
+    """``moe_train``'s rung on a (1, 1, 1, 1) dp / fsdp / ep / tp mesh
+    against the unmeshed step, with dense dispatch and with capacity
+    dispatch (ROADMAP A9b: the global-capacity dispatch, on one rank the
+    one-device function). Returns the dense arm's launches and, under
+    ``"capacity"``, the capacity arm's."""
     import dataclasses
 
     from paddle_tpu_torch.distributed import spmd
     from paddle_tpu_torch.models import moe as M
     cfg, params, state, _, batch = moe_train_setup(torch, dev)
     del state
-    cfg = dataclasses.replace(cfg, dispatch_mode="dense")
     mesh = spmd.make_mesh((1, 1, 1, 1), ("dp", "fsdp", "ep", "tp"))
-    sides, cmp, times = mesh_step_compare(
-        torch, M, cfg, params, batch, mesh, lr=1e-4,
-        moments=torch.bfloat16)
-    rel = _mesh_asserts(torch, "moe", sides, cmp, 1e-4,
-                        MESH_LAUNCH_KEYS)
-    _mesh_say("moe_mesh", "dense", sides, cmp, rel, times,
-              card=repr(card), layers=MOE_TRAIN_LAYERS,
-              batch=f"{MOE_TRAIN_BATCH}x{MOE_TRAIN_SEQ}",
-              mesh="dp1.fsdp1.ep1.tp1")
-    m = sides["mesh"]["launches"]
-    assert m["flash"] > 0 and m["flash_bwd"] == MOE_TRAIN_LAYERS, m
-    _tc_route_only(m)
+    out = {}
+    for mode in ("dense", "capacity"):
+        arm_cfg = dataclasses.replace(cfg, dispatch_mode=mode)
+        sides, cmp, times = mesh_step_compare(
+            torch, M, arm_cfg, params, batch, mesh, lr=1e-4,
+            moments=torch.bfloat16)
+        rel = _mesh_asserts(torch, "moe", sides, cmp, 1e-4,
+                            MESH_LAUNCH_KEYS)
+        _mesh_say("moe_mesh", mode, sides, cmp, rel, times,
+                  card=repr(card), layers=MOE_TRAIN_LAYERS,
+                  batch=f"{MOE_TRAIN_BATCH}x{MOE_TRAIN_SEQ}",
+                  mesh="dp1.fsdp1.ep1.tp1")
+        m = sides["mesh"]["launches"]
+        assert m["flash"] > 0 and m["flash_bwd"] == MOE_TRAIN_LAYERS, m
+        _tc_route_only(m)
+        out[mode] = m
+        torch.cuda.empty_cache()
     del params
-    return m
+    return {**out["dense"], "capacity": out["capacity"]}
 
 
 def phase_dit_mesh(torch, dev, card):
@@ -7024,6 +7505,7 @@ def main() -> int:
     paged_mixed = phase_paged_mixed(torch, dev, main_lengths, maxp)
     paged_int8 = phase_paged_int8(torch, dev, main_lengths, wave2,
                                   2048 // 32, 32)
+    wide = phase_paged_wide(torch, dev, main_lengths, maxp)
     flash_bwd = phase_flash_bwd(torch, dev, TRAIN_BATCH, TRAIN_SEQ)
     torch.cuda.empty_cache()
     phase_layer_grads(torch, dev)
@@ -7051,6 +7533,9 @@ def main() -> int:
     phase_generate_parity(torch, dev)
     phase_moe_parity(torch, dev)
     phase_dit_parity(torch, dev)
+    phase_memory_headroom(torch, dev, smi)
+    wide_launches = phase_wide_serve(torch, dev, requests, smi)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = L.init_params(cfg, seed=0)
     torch.cuda.synchronize()
@@ -7119,6 +7604,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ckpt_launches = phase_ckpt_train(torch, dev, smi, train_ms)
     sentinel_launches = phase_sentinel_train(torch, dev, smi, guard_ms)
+    torch.cuda.empty_cache()
+    phase_elastic_train(torch, dev, smi)
     phase_remat_attn(torch, dev, smi)
     torch.cuda.empty_cache()
     dit_sample_launches = phase_dit_sample(torch, dev, smi)
@@ -7168,6 +7655,14 @@ def main() -> int:
                      (paged_mixed, "paged_mixed")):
         rec["ckpt_launches"] = ckpt_launches[key]
         rec["sentinel_launches"] = sentinel_launches[key]
+    # the wide decode rows (ROADMAP B1b): launches from the head-dim-256
+    # and group-32 serves; the other phases' counts are the arm's own
+    for (kernel, name), rec in wide.items():
+        arm = "paged_quant" if kernel.endswith("int8") else "paged"
+        src = paged_int8 if arm == "paged_quant" else paged
+        rec["launches"] = wide_launches[(name, arm)]
+        for key in ("mesh_launches", "ckpt_launches", "sentinel_launches"):
+            rec[key] = src[key]
     keys = ("name", "route", "source", "replaces", "launches",
             "mesh_launches", "ckpt_launches", "sentinel_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -7176,7 +7671,7 @@ def main() -> int:
         {k: rec[k] for k in keys}
         for rec in (flash, paged, paged_int8, flash_bwd, seg_fwd,
                     seg_bwd, rms_fwd, rms_bwd, dit_fwd, dit_bwd,
-                    paged_mixed)]}))
+                    paged_mixed, *wide.values())]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

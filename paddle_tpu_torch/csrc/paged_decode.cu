@@ -54,7 +54,8 @@
 // end): cp.async copies of 16 bytes (8 or 4 where a row's bytes or a
 // pointer are not a multiple of 16: int8 with D % 16 != 0), positions past
 // lengths[b] zero-filled by the copy and never read from device memory. A
-// row group is dtp = pow2ceil(D / 8) lanes, a lane holds 8 dims of a row,
+// row group is dtp = pow2ceil(D / 8) lanes (a whole warp for D 136-256), a
+// lane holds 8 dims of a row,
 // q for the block's G heads in registers (pre-scaled by scale * log2 e) and
 // acc[G][8]; a tile is ROWS rows of each of the warp's row groups. Per
 // tile a lane does G partial dots over its 8 dims for each of its ROWS
@@ -85,7 +86,11 @@
 // float32 [P, KVH] (one per page and kv head); all contiguous; block_tables int32 [B, maxp];
 // lengths int32 [B]; scratch float32, splits * B * NH * (D + 2) values
 // (allocated by the caller; unused, and may be null, with one split).
-// D % 8 == 0, D <= 128, group * D <= 1024; page pointers 4-byte aligned.
+// D % 8 == 0, D <= 256, any group NH / KVH (groups above 8 take
+// ceil(group / 8) blocks of each kv head); page pointers 4-byte aligned.
+// The ring, STAGES * 2 * (THREADS / dtp) * ROWS * D * sizeof(page), is
+// 48 KiB at bf16 pages of D 128 or 256 and 96 KiB at float32 pages of D
+// 256, above 48 KiB by the opt-in, within the 227 KiB a block may take.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -109,8 +114,9 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS = 4;      // rows of each row group in a tile
 constexpr int STAGES = 3;    // tiles in each warp's ring
-constexpr int MAXO = 8;      // group * D <= MAXO * THREADS = 1024
 constexpr int MAX_SPLIT_PAGES = 512;   // pages a chunk may hold
+constexpr int MAX_D = 256;
+constexpr int COMBINE_THREADS = MAX_D;  // one a dim
 constexpr float LOG2E = 1.4426950408889634f;
 
 // 8 bytes from global to shared, asynchronously; zeros when !valid
@@ -387,7 +393,7 @@ paged_decode_kernel(const T* __restrict__ q, const PageT* __restrict__ kp,
       }
     }
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {  // a butterfly over the row group
+    for (int o = 16; o > 0; o >>= 1) {  // a butterfly over the row group
       if (o < dtp) {
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
@@ -499,11 +505,12 @@ paged_decode_kernel(const T* __restrict__ q, const PageT* __restrict__ kp,
   }
 }
 
-// out from the live chunks' partials, in split order; rows whose sequence
-// fits in one chunk were written by the split kernel. PageT only names the
+// out from the live chunks' partials, in split order, one thread a dim (D
+// threads, rounded up to a warp); rows whose sequence fits in one chunk
+// were written by the split kernel. PageT only names the
 // arm (the profiler classes this kernel's time with its split kernel's).
 template <typename T, typename PageT>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(COMBINE_THREADS)
 paged_decode_combine_kernel(const float* __restrict__ part,
                             const int* __restrict__ lengths,
                             T* __restrict__ out, int B, int NH, int D,
@@ -538,8 +545,7 @@ paged_decode_combine_kernel(const float* __restrict__ part,
 bool bad_shape(int B, int NH, int KVH, int ps, int D, int P, int maxp,
                int pps) {
   return B <= 0 || KVH <= 0 || NH % KVH != 0 || ps <= 0 || P <= 0 ||
-         maxp <= 0 || D % 8 != 0 || D <= 0 || D > 128 ||
-         (NH / KVH) * D > MAXO * THREADS || pps <= 0 ||
+         maxp <= 0 || D % 8 != 0 || D <= 0 || D > MAX_D || pps <= 0 ||
          pps > MAX_SPLIT_PAGES;
 }
 

@@ -6,7 +6,13 @@ The reference reads each local device's allocator through PJRT
 - ``bytes_in_use``: ``torch.cuda.memory_allocated`` (bytes held by live
   tensors);
 - ``peak_bytes_in_use``: ``torch.cuda.max_memory_allocated``;
-- ``bytes_limit``: the card's total memory (``torch.cuda.mem_get_info``).
+- ``bytes_limit``: the card's total memory (``torch.cuda.mem_get_info``);
+- ``bytes_free``: the bytes a new allocation could still take: the
+  driver's free bytes (``mem_get_info``) plus what the allocator has
+  reserved but not handed out (``memory_reserved - memory_allocated``).
+  Memory held outside the allocator (the CUDA context, other libraries,
+  other processes) is not in it, though ``bytes_limit - bytes_in_use``
+  would count it as free.
 
 The contract is the reference's: the readers never raise (a telemetry
 read must not take down a serving loop) and never fabricate. Without a
@@ -31,11 +37,14 @@ def memory_stats(device: Optional[int] = None) -> dict:
         if not torch.cuda.is_available():
             return {}
         idx = torch.cuda.current_device() if device is None else int(device)
-        _free, total = torch.cuda.mem_get_info(idx)
-        return {"bytes_in_use": int(torch.cuda.memory_allocated(idx)),
+        free, total = torch.cuda.mem_get_info(idx)
+        in_use = int(torch.cuda.memory_allocated(idx))
+        cached = int(torch.cuda.memory_reserved(idx)) - in_use
+        return {"bytes_in_use": in_use,
                 "peak_bytes_in_use": int(
                     torch.cuda.max_memory_allocated(idx)),
-                "bytes_limit": int(total)}
+                "bytes_limit": int(total),
+                "bytes_free": int(free) + max(cached, 0)}
     except Exception:
         return {}
 

@@ -5,20 +5,29 @@
   placements, sharding constraints as ``redistribute``, and the process
   group (gloo on the CPU, a one-rank NCCL group on the card);
 - ``introspect``: the sharding inspector behind ``/sharding``;
-- ``heartbeat``: the named-participant transport (serving replicas'
-  beats, telemetry frames and admission journals), whose key-value leg
-  rides the default process group's store;
+- ``env``: rank, world size and ``init_parallel_env`` (the launched
+  world's process group: NCCL on the card, gloo on the CPU);
+- ``launch``: ``python -m paddle_tpu_torch.distributed.launch``, the
+  launch controller (rendezvous environment, fail-fast watch, liveness
+  and progress timeouts, death markers, the rescale stop);
+- ``heartbeat``: rank beats and their staleness check, the named
+  participants' transport (serving replicas' beats, telemetry frames and
+  admission journals), the dead-peer and abort markers; its key-value
+  leg rides the default process group's store;
 - ``checkpoint``: save / load with reshard-on-load and the atomic commit
   protocol, async saves and ``CheckpointManager`` (retention, restore of
   the newest committed step, the preemption hook);
-- ``fleet``: the elastic serving controller and the elastic worker's
-  checkpointed resume point.
-
-The launcher and the training restart loops are ROADMAP A10.
+- ``fleet``: the training restart loops, the elastic serving
+  controller and the elastic worker's checkpointed resume point.
 """
-from . import checkpoint, fleet, heartbeat, introspect, spmd  # noqa: F401
+from . import (checkpoint, env, fleet, heartbeat, introspect,  # noqa: F401
+               launch, spmd)
 from .checkpoint import (CheckpointManager, load_state_dict,  # noqa: F401
                          save_state_dict)
+from .env import (ParallelEnv, get_rank, get_world_size,  # noqa: F401
+                  init_parallel_env, is_initialized)
 
-__all__ = ["checkpoint", "fleet", "heartbeat", "introspect", "spmd",
-           "CheckpointManager", "save_state_dict", "load_state_dict"]
+__all__ = ["checkpoint", "env", "fleet", "heartbeat", "introspect",
+           "launch", "spmd", "CheckpointManager", "save_state_dict",
+           "load_state_dict", "ParallelEnv", "get_rank", "get_world_size",
+           "init_parallel_env", "is_initialized"]

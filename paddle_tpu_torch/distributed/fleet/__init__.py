@@ -1,6 +1,7 @@
-"""Fleet control (port of ``paddle_tpu/distributed/fleet/``): so far the
-elastic serving controller of ``elastic.py``. The training fleet (the
-pipeline schedules, mp / pp layers, recompute, topology) is ROADMAP A10.
+"""Fleet control (port of ``paddle_tpu/distributed/fleet/``): so far
+``elastic.py``, the training restart loops and the elastic serving
+controller. The training fleet (the pipeline schedules, mp / pp layers,
+recompute, topology) is ROADMAP A10.
 """
 from . import elastic  # noqa: F401
 

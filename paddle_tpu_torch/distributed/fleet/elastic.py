@@ -1,7 +1,7 @@
-"""Elastic serving and the elastic worker's state: the controller that
-drives a fleet of serving replicas, and the checkpoint resume point of a
-training worker (port of ``paddle_tpu/distributed/fleet/elastic.py``
-but its launcher half).
+"""Elastic training and serving (port of
+``paddle_tpu/distributed/fleet/elastic.py``): the restart loops around
+the launcher, the controller that drives a fleet of serving replicas,
+and the checkpoint resume point of a training worker.
 
 :meth:`AdaptiveElasticManager.run_serving` manages a fleet of
 independent engine REPLICAS against the autoscale demand signals the
@@ -24,34 +24,28 @@ checkpoint manager (``distributed/checkpoint``). The worker side
 a fallback) keeps a worker's resume point under
 ``PADDLE_ELASTIC_CKPT_DIR``.
 
-The training restart loops (``ElasticManager.run``, ``run_elastic``,
-``AdaptiveElasticManager.run_adaptive``) re-form a launched world, and
-the launcher (``distributed/launch/main.py``) and the rest of
-``heartbeat.py`` are ROADMAP A10. Until then those entry points raise
-``NotImplementedError`` naming A10.
+The training restart loops re-form a launched world
+(``distributed/launch``): :meth:`ElasticManager.run` (and
+``run_elastic``) relaunches a failed job up to a restart budget, at the
+same size, or one worker smaller toward ``min_nproc`` once half the
+budget is spent (never off ``PEER_FAILURE_RC``, an innocent rank's
+exit), each relaunch exporting the next ``PADDLE_ELASTIC_RUN``;
+:meth:`AdaptiveElasticManager.run_adaptive` also grows the world back
+when a worker is re-admitted (a ``worker*.up`` file in
+``membership_dir``, or ``readmit_after`` seconds), stopping the running
+world with ``RESCALE_RC``. Workers resume from their last committed
+checkpoint (``load_state``), which reshards to the new world.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
+
+from ..launch.main import PEER_FAILURE_RC, RESCALE_RC  # the protocol rcs
 
 __all__ = ["ElasticManager", "ElasticStatus", "AdaptiveElasticManager",
            "run_elastic", "save_state", "finish_saves", "load_state",
            "elastic_run_index", "RESCALE_RC", "PEER_FAILURE_RC"]
-
-# The launcher's protocol exit codes (a copy of the reference's
-# ``distributed/launch/main.py``; the port has no launcher yet).
-RESCALE_RC = 125   # controlled stop for an elastic re-scale (not a failure)
-# Coordinated abort: an INNOCENT rank exiting on a typed peer-lost
-# error — a peer is CONFIRMED dead; restart the world, never treat the
-# exiting rank as the sick one.
-PEER_FAILURE_RC = 123
-
-
-def _unported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it re-forms a launched world, and "
-        f"the launcher is ROADMAP.md queue A item A10")
 
 
 class ElasticStatus:
@@ -63,9 +57,9 @@ class ElasticStatus:
 
 
 class ElasticManager:
-    """The restart-policy manager: its event log (``events``, each
-    ``(timestamp, status, detail)``) and restart budget. The launch loop
-    (``run``) is ROADMAP A10."""
+    """Restart policy around the launch controller: the event log
+    (``events``, each ``(timestamp, status, detail)``), the restart
+    budget and :meth:`run`."""
 
     def __init__(self, max_restarts: int = 3, min_nproc: Optional[int] = None,
                  restart_delay: float = 1.0,
@@ -73,6 +67,8 @@ class ElasticManager:
         self.max_restarts = int(max_restarts)
         self.min_nproc = min_nproc
         self.restart_delay = restart_delay
+        if launcher is None:
+            from ..launch.main import launch as launcher
         self._launch = launcher
         self.restarts = 0
         self.events = []   # (timestamp, status, detail)
@@ -80,14 +76,64 @@ class ElasticManager:
     def _record(self, status, detail):
         self.events.append((time.time(), status, detail))
 
-    def run(self, script: str, *args, **kwargs) -> int:
-        """The training restart loop (ROADMAP A10)."""
-        _unported("ElasticManager.run")
+    def run(self, script: str, script_args: Sequence[str] = (),
+            nproc_per_node: int = 1, **launch_kwargs) -> int:
+        """Run the job; on worker failure relaunch (same size, then
+        scale-in toward min_nproc when repeated failures suggest a sick
+        worker). Returns the final exit code (0 = completed). The restart
+        budget is per-job: each run() starts fresh."""
+        self.restarts = 0
+        self.events = []
+        nproc = nproc_per_node
+        base_env = dict(launch_kwargs.pop("extra_env", None) or {})
+        run_idx = 0
+        while True:
+            # export the world incarnation (like run_adaptive): the
+            # death/abort markers are generation-keyed, so each
+            # relaunch must advance the generation or a marker from the
+            # previous incarnation (same shared heartbeat dir) would
+            # instantly kill the new world
+            env = dict(base_env, PADDLE_ELASTIC_RUN=str(run_idx))
+            run_idx += 1
+            rc = self._launch(script, script_args,
+                              nproc_per_node=nproc, extra_env=env,
+                              **launch_kwargs)
+            if rc == 0:
+                self._record(ElasticStatus.COMPLETED, {"nproc": nproc})
+                return 0
+            if self.restarts >= self.max_restarts:
+                self._record(ElasticStatus.ERROR,
+                             {"nproc": nproc, "rc": rc,
+                              "reason": "restart budget exhausted"})
+                return rc
+            self.restarts += 1
+            # PEER_FAILURE_RC means an INNOCENT rank exited because a
+            # PEER died — restart the world, but never feed the
+            # scale-in heuristic off the innocent rank's rc (the
+            # exiting worker is not the sick one).
+            peer_failure = rc == PEER_FAILURE_RC
+            # scale-in after half the budget is burned (a peer that
+            # stays unhealthy)
+            if (not peer_failure and self.min_nproc is not None
+                    and nproc > self.min_nproc
+                    and self.restarts > self.max_restarts // 2):
+                nproc = max(self.min_nproc, nproc - 1)
+            self._record(ElasticStatus.RESTART,
+                         {"nproc": nproc, "rc": rc,
+                          "attempt": self.restarts,
+                          "reason": "peer-failure" if peer_failure
+                          else "worker-failure"})
+            time.sleep(self.restart_delay)
 
 
-def run_elastic(script: str, *args, **kwargs) -> int:
-    """Functional form of ``ElasticManager.run`` (ROADMAP A10)."""
-    _unported("run_elastic")
+def run_elastic(script: str, script_args: Sequence[str] = (),
+                nproc_per_node: int = 1, max_restarts: int = 3,
+                min_nproc: Optional[int] = None, **launch_kwargs) -> int:
+    """Functional form of :meth:`ElasticManager.run`."""
+    return ElasticManager(max_restarts=max_restarts,
+                          min_nproc=min_nproc).run(
+        script, script_args, nproc_per_node=nproc_per_node,
+        **launch_kwargs)
 
 
 class _BoundedSignals:
@@ -177,9 +223,19 @@ class _BoundedSignals:
 
 
 class AdaptiveElasticManager(ElasticManager):
-    """The elastic controller. Its serving half (:meth:`run_serving`,
-    :meth:`_drain_and_stop`) is ported; scale-in/scale-out of a launched
-    training world (:meth:`run_adaptive`) is ROADMAP A10."""
+    """Elastic training with scale-IN on failure and scale-OUT on worker
+    re-admission, resuming each world from the latest checkpoint, and
+    the elastic serving controller (:meth:`run_serving`).
+
+    A DOWN worker is whatever the launch
+    watcher reported (crash rc or heartbeat rc=124), and re-admission is
+    an announcement file in ``membership_dir`` (``worker*.up``, touched
+    by the recovered host's agent) or an automatic ``readmit_after``
+    backoff expiry. A membership GROWTH during a running world triggers a
+    controlled stop (launch control_dir rescale flag, rc=125) and a
+    relaunch at the larger size; workers resume from the latest
+    checkpoint (distributed.checkpoint reshards on load, so 3→2→3-style
+    world changes re-partition state automatically)."""
 
     def __init__(self, max_restarts: int = 10,
                  min_nproc: Optional[int] = None,
@@ -189,11 +245,153 @@ class AdaptiveElasticManager(ElasticManager):
         super().__init__(max_restarts=max_restarts, min_nproc=min_nproc,
                          restart_delay=restart_delay, launcher=launcher)
         self.readmit_after = readmit_after
+        self._down_times: list = []      # one entry per currently-down slot
+        self._up_consumed: set = set()   # consumed worker*.up file paths
 
-    def run_adaptive(self, script: str, *args, **kwargs) -> int:
-        """World-size adaptation of a launched training job (ROADMAP
-        A10)."""
-        _unported("AdaptiveElasticManager.run_adaptive")
+    # membership -------------------------------------------------------------
+    def _capacity(self, nproc_target: int, membership_dir) -> int:
+        """Current admissible world size: target minus still-down slots.
+        A down slot is re-admitted by an unconsumed ``worker*.up``
+        announcement or by ``readmit_after`` expiry."""
+        import glob
+        import os
+
+        if membership_dir:
+            # consumed announcements tracked by FILENAME, not count: a
+            # consumed up-file being deleted later must not swallow a
+            # different worker's future announcement
+            ups = sorted(glob.glob(os.path.join(membership_dir,
+                                                "worker*.up")))
+            for u in ups:
+                if u in self._up_consumed or not self._down_times:
+                    continue
+                self._down_times.pop(0)
+                self._up_consumed.add(u)
+        if self.readmit_after is not None:
+            now = time.time()
+            self._down_times = [t for t in self._down_times
+                                if now - t < self.readmit_after]
+        return max(1, nproc_target - len(self._down_times))
+
+    def run_adaptive(self, script: str, script_args: Sequence[str] = (),
+                     nproc_per_node: int = 1,
+                     membership_dir: Optional[str] = None,
+                     ckpt_dir: Optional[str] = None,
+                     poll_interval: float = 0.5,
+                     **launch_kwargs) -> int:
+        """Run the job with world-size adaptation. Returns 0 when a world
+        completes, else the last failure rc once the restart budget is
+        exhausted. ``ckpt_dir`` is exported as PADDLE_ELASTIC_CKPT_DIR
+        for the load_state/save_state worker helpers."""
+        import os
+        import tempfile
+        import threading
+
+        self.restarts = 0
+        self.events = []
+        self._down_times = []
+        # baseline pre-existing announcements: an up-file left over from
+        # a previous job must not instantly re-admit this job's first
+        # crash
+        self._up_consumed = set()
+        if membership_dir:
+            import glob
+            self._up_consumed = set(glob.glob(
+                os.path.join(membership_dir, "worker*.up")))
+        ctl = tempfile.mkdtemp(prefix="paddle_elastic_ctl_")
+        extra_env = dict(launch_kwargs.pop("extra_env", None) or {})
+        if ckpt_dir:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            extra_env["PADDLE_ELASTIC_CKPT_DIR"] = ckpt_dir
+        import shutil
+        try:
+            run_idx = 0
+            rc = 0
+            while True:
+                np_now = self._capacity(nproc_per_node, membership_dir)
+                if self.min_nproc is not None and np_now < self.min_nproc:
+                    self._record(ElasticStatus.ERROR,
+                                 {"reason": "below min_nproc",
+                                  "capacity": np_now})
+                    return rc or 1
+                flag = os.path.join(ctl, "rescale")
+                if os.path.exists(flag):
+                    os.remove(flag)
+                stop_watch = threading.Event()
+
+                def watch_membership(np_running=np_now):
+                    while not stop_watch.is_set():
+                        if self._capacity(nproc_per_node,
+                                          membership_dir) > np_running:
+                            try:
+                                with open(flag, "w"):
+                                    pass
+                                return
+                            except OSError as e:
+                                # the re-admission was already consumed by
+                                # _capacity — keep retrying the flag write,
+                                # or the scale-out is silently lost
+                                import sys
+                                print(f"[elastic] rescale flag write failed "
+                                      f"({e}); retrying", file=sys.stderr)
+                        stop_watch.wait(poll_interval)
+
+                watcher = None
+                if np_now < nproc_per_node and (membership_dir
+                                                or self.readmit_after):
+                    watcher = threading.Thread(target=watch_membership,
+                                               daemon=True)
+                    watcher.start()
+                env = dict(extra_env, PADDLE_ELASTIC_RUN=str(run_idx))
+                kw = dict(launch_kwargs)
+                if kw.get("log_dir"):
+                    # one dir per world incarnation — a relaunch must not
+                    # overwrite the previous world's workerlogs
+                    kw["log_dir"] = os.path.join(kw["log_dir"],
+                                                 f"run{run_idx}")
+                try:
+                    rc = self._launch(script, script_args,
+                                      nproc_per_node=np_now,
+                                      extra_env=env, control_dir=ctl,
+                                      **kw)
+                finally:
+                    stop_watch.set()
+                    if watcher:
+                        watcher.join(timeout=5)
+                run_idx += 1
+                if rc == 0:
+                    self._record(ElasticStatus.COMPLETED, {"nproc": np_now})
+                    return 0
+                if rc == RESCALE_RC and os.path.exists(flag):
+                    # controlled stop for scale-out (confirmed by OUR flag —
+                    # a worker exiting 125 on its own is a failure, not a
+                    # rescale): no budget burn
+                    self._record(ElasticStatus.RESTART,
+                                 {"nproc": np_now, "reason": "scale-out"})
+                    continue
+                if self.restarts >= self.max_restarts:
+                    self._record(ElasticStatus.ERROR,
+                                 {"nproc": np_now, "rc": rc,
+                                  "reason": "restart budget exhausted"})
+                    return rc
+                self.restarts += 1
+                if rc != PEER_FAILURE_RC:
+                    self._down_times.append(time.time())
+                # else an INNOCENT rank exited first: marking a slot down
+                # off its rc would permanently shrink the next world (no
+                # up-file will ever re-admit a worker that was never
+                # sick); restart full-size
+                self._record(ElasticStatus.RESTART,
+                             {"nproc": np_now, "rc": rc,
+                              "attempt": self.restarts,
+                              "reason": "peer-failure"
+                              if rc == PEER_FAILURE_RC
+                              else "worker-failure"})
+                time.sleep(self.restart_delay)
+        finally:
+            # the control tempdir (rescale flag) must not leak
+            # across run_adaptive calls
+            shutil.rmtree(ctl, ignore_errors=True)
 
     # -- serving-replica elasticity ------------------------------------------
     #

@@ -17,9 +17,10 @@ Output contract (the dict form ``models.llama.unpack_batch`` takes):
   predicts across a document boundary.
 
 The arrays are numpy; ``packed_train_batch`` turns them into the torch
-tuple a train step takes. The reference's monitor gauges and counters
-(``packing.efficiency`` and friends) are not ported: the port has no
-monitor plane yet.
+tuple a train step takes. With the monitor on, each pack sets the
+``packing.efficiency`` gauge (real tokens over row slots) and counts
+``packing.documents``, ``.rows``, ``.tokens.real`` and
+``.tokens.padding``, as the reference does.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import monitor as _monitor
 from ..core import enforce as E
 from ..core import resolve_device
 
@@ -56,8 +58,10 @@ def pack_documents(docs: Sequence, seq_len: int, *, pad_id: int = 0,
     E.enforce(seq_len >= 2, f"seq_len must be >= 2, got {seq_len}",
               E.InvalidArgumentError)
     chunks = []
+    n_docs = 0
     for doc in docs:
         a = _as_1d_ids(doc)
+        n_docs += a.size > 0
         for off in range(0, len(a), seq_len):
             chunks.append(a[off:off + seq_len])
 
@@ -82,6 +86,8 @@ def pack_documents(docs: Sequence, seq_len: int, *, pad_id: int = 0,
                     "fewer documents per pack")
             rows.append([ch])
             space.append(seq_len - len(ch))
+    if overflow:
+        chunks = chunks[:len(chunks) - len(overflow)]
 
     b = max(len(rows), 1)
     ids = np.full((b, seq_len), pad_id, np.int32)
@@ -98,6 +104,16 @@ def pack_documents(docs: Sequence, seq_len: int, *, pad_id: int = 0,
             # next-token targets stay inside the document
             labels[r, o:o + n - 1] = ch[1:]
             o += n
+    real = int(sum(len(ch) for ch in chunks))
+    slots = b * seq_len
+    if _monitor.enabled():
+        _monitor.set_gauge("packing.efficiency",
+                           round(real / slots, 4) if slots else 0.0,
+                           doc="real tokens / row slots, most recent pack")
+        _monitor.inc("packing.documents", n_docs)
+        _monitor.inc("packing.rows", b)
+        _monitor.inc("packing.tokens.real", real)
+        _monitor.inc("packing.tokens.padding", slots - real)
     packed = {"ids": ids, "segment_ids": seg, "positions": pos,
               "labels": labels}
     if collect_overflow:

@@ -46,6 +46,9 @@ __all__ = ["ragged_paged_attention", "paged_attention_ref", "supported",
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims the kernel takes: D % 8 == 0 up to MAX_HEAD_DIM (the Pallas
+# kernel's domain); any group of query heads over a kv head
+MAX_HEAD_DIM = 256
 # the full-precision arm's page types (the C entry's page_dtype codes)
 _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # a block's chunk: SPLIT_POSITIONS positions of whole pages, halved (not
@@ -114,9 +117,10 @@ def supported(q, k_pages, block_tables, quant: bool = False) -> bool:
     """Whether the CUDA kernel takes these shapes and types. ``quant``
     marks the int8 arm (scale planes present): it takes int8 pages only,
     and int8 pages need it; otherwise pages of float32, bfloat16 or
-    float16 under any q it takes. Any page size the full-precision arm
-    takes (the reference's ``ps % 32`` is the TPU's int8 sublane tile;
-    the CUDA arm has no such rule)."""
+    float16 under any q it takes. Head dims ``% 8 == 0`` up to 256 and
+    any group ``num_heads / kv_heads``, the Pallas kernel's domain. Any
+    page size the full-precision arm takes (the reference's ``ps % 32``
+    is the TPU's int8 sublane tile; the CUDA arm has no such rule)."""
     if q.ndim != 3 or k_pages.ndim != 4 or block_tables.ndim != 2:
         return False
     B, nh, hd = q.shape
@@ -124,7 +128,7 @@ def supported(q, k_pages, block_tables, quant: bool = False) -> bool:
     page_ok = (k_pages.dtype == torch.int8 if quant
                else k_pages.dtype in _PAGE_DTYPES)
     return (hd == hd2 and kv >= 1 and nh % kv == 0 and hd % 8 == 0
-            and hd <= 128 and (nh // kv) * hd <= 1024 and P >= 1
+            and 0 < hd <= MAX_HEAD_DIM and P >= 1
             and ps >= 1 and block_tables.shape[0] == B
             and block_tables.shape[1] >= 1
             and q.dtype in _DTYPES and page_ok)
@@ -160,9 +164,9 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
               f"{tuple(q.shape)} {q.dtype}, pages {tuple(k_pages.shape)} "
               f"{k_pages.dtype}, block_tables {tuple(block_tables.shape)}"
               f"{', scales' if quant else ', no scales'} (needs head_dim "
-              f"% 8 == 0, head_dim <= 128, group * head_dim <= 1024, q "
-              f"float32 or bfloat16, pages float32, bfloat16 or float16 "
-              f"without scales or int8 with them)",
+              f"% 8 == 0, head_dim <= {MAX_HEAD_DIM}, num_heads % "
+              f"kv_heads == 0, q float32 or bfloat16, pages float32, "
+              f"bfloat16 or float16 without scales or int8 with them)",
               error=E.InvalidArgumentError)
     if quant:
         E.enforce(all(t.dtype == torch.float32

@@ -14,7 +14,9 @@ Two dispatch modes, as in the reference:
 - ``"capacity"`` (the default without a mesh): each (token, choice) slot
   takes a place in its expert's buffer of ``C = moe_capacity(T)`` rows
   in token-major order; over-capacity slots drop (the token keeps its
-  shared expert). The experts run as batched ``[E, C, D]`` products.
+  shared expert). The experts run as batched ``[E, C, D]`` products. On
+  a mesh ``T`` is the global batch's and the places count in global
+  token-major order, as the reference's GSPMD run of the same code.
 - ``"dense"`` (the default on a mesh): every expert sees every routed
   token through a 0/1 dispatch mask and the outputs combine with the
   router weights. On a ``("dp", "fsdp", "ep", "tp")`` mesh the expert
@@ -327,8 +329,11 @@ def _moe_mlp_dense_mesh(x, lp, config: MoEConfig, mesh):
     on tp), and each ep rank combines its experts' outputs into partial
     token rows that reduce over ep back to the batch shards."""
     c = config
-    combine, aux = _route_on_mesh(x, lp, c, mesh)
+    topv, topi, aux = _route_on_mesh(x, lp, c, mesh)
     tokens = P(_L.BATCH, None)
+    combine = spmd.local(                                      # [T, E]
+        lambda tv, ti: tv.new_zeros(tv.shape[0], c.num_experts).scatter(
+            -1, ti, tv), mesh, tokens, topv, topi)
 
     def dispatch_rows(comb, xl):
         # a selected expert sees the unscaled token
@@ -355,10 +360,91 @@ def _moe_mlp_dense_mesh(x, lp, config: MoEConfig, mesh):
     return spmd.constrain(routed, mesh, tokens).to(x.dtype), aux
 
 
+def _moe_mlp_capacity_mesh(x, lp, config: MoEConfig, mesh):
+    """``_moe_mlp_capacity`` of batch-sharded tokens on a mesh, computing
+    the reference's function: under GSPMD it runs on the global token
+    matrix, so ``C = moe_capacity(T)`` takes the global ``T`` and a
+    slot's place counts the earlier slots of every earlier batch shard
+    (an exclusive prefix over the shards of their per-expert counts,
+    gathered once) before its own shard's: drops fall in global
+    token-major order. Each shard scatters its kept slots into its part
+    of the ``[E, C, D]`` grid, which sums over the batch axes and is
+    placed ``P("ep", None, None)`` (the dense path's placement); each ep
+    rank runs its experts, and each token row gathers the outputs of the
+    slots its rank's experts hold, a partial sum over ep."""
+    c = config
+    Ex, k = c.num_experts, c.num_experts_per_tok
+    C = moe_capacity(c, x.shape[0])            # the global token count
+    fsdp = spmd.axis_size(mesh, "fsdp")
+    me = spmd.axis_rank(mesh, "dp") * fsdp + spmd.axis_rank(mesh, "fsdp")
+    El = Ex // spmd.axis_size(mesh, "ep")
+    e0 = spmd.axis_rank(mesh, "ep") * El
+    rows = P(_L.BATCH, None)
+    topv, topi, aux = _route_on_mesh(x, lp, c, mesh)
+    # every batch shard's slots an expert, [shards, E] on every rank
+    counts = spmd.full(spmd.local(
+        lambda ti: F.one_hot(ti.reshape(-1), Ex).sum(0, keepdim=True),
+        mesh, rows, topi))
+    before = counts[:me].sum(0)                # earlier shards' slots
+
+    def slots(ti):
+        # a slot's place: the earlier shards' slots of its expert, then
+        # its own shard's earlier ones; -1 where it drops
+        expert = ti.reshape(-1)
+        oh = (expert[None] == torch.arange(Ex, device=ti.device)[:, None]) \
+            .to(torch.int32)
+        pos = oh.cumsum(dim=1, dtype=torch.int32).gather(
+            0, expert[None])[0] - 1 + before.to(ti.device)[expert]
+        return torch.where(pos < C, expert * C + pos, -1).reshape(ti.shape)
+
+    dest = spmd.local(slots, mesh, rows, topi)
+
+    def dispatch(xl, dl):
+        # this shard's kept slots in the grid; the rest read a zero row
+        d = dl.reshape(-1)
+        idx = torch.full((Ex * C + 1,), xl.shape[0], dtype=torch.long,
+                         device=xl.device)
+        idx[torch.where(d >= 0, d, Ex * C)] = torch.arange(
+            xl.shape[0], device=xl.device).repeat_interleave(k)
+        xp = torch.cat([xl, xl.new_zeros(1, xl.shape[1])])
+        return xp[idx[:Ex * C]].reshape(Ex, C, -1)
+
+    grid = spmd.partial_on(spmd.placements(P(None, None, None), mesh), mesh,
+                           _L.BATCH)
+    xe = spmd.constrain(spmd.local(dispatch, mesh, grid, x, dest), mesh,
+                        P("ep", None, None))
+    experts = {n: spmd.gather_axis(lp[n], "fsdp")
+               for n in ("e_gate", "e_up", "e_down")}
+    ep_rows = spmd.placements(P("ep", None, None), mesh)
+    y = spmd.local(
+        lambda a, g, u, d: _expert_ffn(a, {"e_gate": g, "e_up": u,
+                                          "e_down": d}),
+        mesh, spmd.partial_on(ep_rows, mesh, ("tp",)), xe,
+        experts["e_gate"], experts["e_up"], experts["e_down"],
+        grads=[spmd.partial_on(xe, mesh, ("tp",)), None, None, None])
+    y = spmd.constrain(y, mesh, P("ep", None, None))
+
+    def combine(yl, tv, dl):
+        # the slots whose expert this ep rank holds, weighted by their
+        # router weights; a dropped slot or another rank's weighs 0
+        d = dl.reshape(-1)
+        mine = (d >= e0 * C) & (d < (e0 + El) * C)
+        yk = yl.reshape(El * C, -1)[torch.where(mine, d - e0 * C, 0)]
+        w = (tv.reshape(-1) * mine).float()[:, None]
+        return (yk.float() * w).reshape(tv.shape[0], k, -1).sum(dim=1)
+
+    routed = spmd.local(
+        combine, mesh, spmd.partial_on(spmd.placements(rows, mesh), mesh,
+                                       ("ep",)), y, topv, dest,
+        grads=[spmd.partial_on(y, mesh, _L.BATCH),
+               spmd.partial_on(topv, mesh, ("ep",)), None])
+    return spmd.constrain(routed, mesh, rows).to(x.dtype), aux
+
+
 def _route_on_mesh(x, lp, config: MoEConfig, mesh):
-    """``(combine [T, E] float32, aux)`` of batch-sharded tokens ``x``:
-    ``_route`` on each rank's tokens (the router replicated), the
-    load-balancing loss from the mesh-wide means."""
+    """``(topv [T, k], topi [T, k], aux)`` of batch-sharded tokens ``x``:
+    ``_route`` on each rank's tokens (the router gathered over fsdp),
+    the load-balancing loss from the mesh-wide means."""
     c = config
     router = spmd.gather_axis(lp["router"], "fsdp")
 
@@ -366,16 +452,15 @@ def _route_on_mesh(x, lp, config: MoEConfig, mesh):
         probs = torch.softmax(xl.float() @ r, dim=-1)
         topv, topi = _L._top_k_stable(probs, c.num_experts_per_tok)
         topv = topv / topv.sum(dim=-1, keepdim=True)
-        combine = torch.zeros_like(probs).scatter(-1, topi, topv)
         sel = F.one_hot(topi, c.num_experts).float().sum(dim=1)
-        return combine, probs, sel
+        return topv, topi, probs, sel
 
     rows = P(_L.BATCH, None)
-    combine, probs, sel = spmd.local(
-        route, mesh, [rows, rows, rows], x, router,
+    topv, topi, probs, sel = spmd.local(
+        route, mesh, [rows, rows, rows, rows], x, router,
         grads=[None, spmd.partial_on(router, mesh, _L.BATCH)])
     aux = c.num_experts * (probs.mean(dim=0) * sel.mean(dim=0)).sum()
-    return combine, aux
+    return topv, topi, aux
 
 
 def _moe_mlp(h, lp, config: MoEConfig, mesh=None):
@@ -383,7 +468,7 @@ def _moe_mlp(h, lp, config: MoEConfig, mesh=None):
     ``(out [B, S, D], aux)``. The routed sum is float32 cast to
     ``h.dtype``; the shared expert runs in ``h.dtype``. The dispatch mode
     defaults to ``"capacity"`` on one device and ``"dense"`` on a mesh,
-    as the reference's; capacity dispatch on a mesh raises."""
+    as the reference's; either runs on both."""
     c = config
     B, S, D = h.shape
     # each rank's rows, token-major
@@ -391,11 +476,8 @@ def _moe_mlp(h, lp, config: MoEConfig, mesh=None):
                    spmd.constrain(h, mesh, P(_L.BATCH, None, None)))
     mode = c.dispatch_mode or ("dense" if mesh is not None else "capacity")
     if mode == "capacity":
-        if mesh is not None:
-            raise NotImplementedError(
-                "moe: capacity dispatch on a mesh is not ported; the mesh "
-                "path runs dispatch_mode='dense'")
-        routed, aux = _moe_mlp_capacity(x, lp, c)
+        routed, aux = (_moe_mlp_capacity(x, lp, c) if mesh is None else
+                       _moe_mlp_capacity_mesh(x, lp, c, mesh))
     elif mode == "dense":
         routed, aux = _moe_mlp_dense(x, lp, c, mesh)
     else:

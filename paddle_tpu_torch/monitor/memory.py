@@ -6,8 +6,9 @@ left and how many more sequences this process could admit. Two
 inputs, both measured elsewhere, are composed here:
 
 - **Device bytes** from ``device/memory.py`` (each CUDA device's caching
-  allocator: ``bytes_in_use``, ``peak_bytes_in_use``, and the card's
-  total memory as ``bytes_limit``; a host without a card reports
+  allocator: ``bytes_in_use``, ``peak_bytes_in_use``, the card's
+  total memory as ``bytes_limit``, and ``bytes_free``, what a new
+  allocation could still take; a host without a card reports
   nothing). :func:`update_hbm_gauges` sums them over the local devices
   that report into the reference's ``device.hbm.*`` gauges. Devices
   that report nothing emit **no** gauges: a zero would read as "0 bytes
@@ -33,7 +34,8 @@ __all__ = ["hbm_stats", "update_hbm_gauges", "headroom"]
 
 # The allocator keys worth exporting (the reference's PJRT names), each
 # summed across the local devices that report it.
-_HBM_KEYS = ("bytes_in_use", "bytes_limit", "peak_bytes_in_use")
+_HBM_KEYS = ("bytes_in_use", "bytes_limit", "peak_bytes_in_use",
+             "bytes_free")
 
 
 def hbm_stats(stats_fn: Optional[Callable[[], List[dict]]] = None
@@ -81,6 +83,9 @@ def update_hbm_gauges(stats_fn=None) -> dict:
                        "devices that report)",
         "peak_bytes_in_use": "high-water mark of device bytes "
                              "allocated (summed across local devices)",
+        "bytes_free": "device bytes a new allocation could take: the "
+                      "driver's free plus the allocator's reserved but "
+                      "unallocated (summed across local devices)",
     }
     for key, v in totals.items():
         _set_gauge(f"device.hbm.{key}", v, doc=docs.get(key, ""))
@@ -115,7 +120,10 @@ def headroom(stats_fn=None) -> dict:
     - ``program_temp_bytes_max`` — the largest analyzed program's temp
       claim (0 in the port, which has no XLA memory analysis);
     - ``est_admittable_bytes`` — HBM free minus the temp reservation,
-      the bytes genuinely available for new KV pages.
+      the bytes genuinely available for new KV pages. Where the devices
+      report ``bytes_free`` (the card does), HBM free is capped by it,
+      so memory held outside the allocator (the CUDA context, other
+      processes) is not counted as admittable.
 
     Also refreshes the ``serving.headroom.pages_free_fraction`` gauge
     when a pool exists (monitor-gated)."""
@@ -149,6 +157,8 @@ def headroom(stats_fn=None) -> dict:
     if "bytes_limit" in totals and "bytes_in_use" in totals:
         free = max(totals["bytes_limit"] - totals["bytes_in_use"], 0)
         out["hbm_free_bytes"] = free
+        if "bytes_free" in totals:
+            free = min(free, max(totals["bytes_free"], 0))
         out["est_admittable_bytes"] = max(free - temp_max, 0)
     else:
         out["hbm_free_bytes"] = None

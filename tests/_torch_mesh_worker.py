@@ -138,6 +138,41 @@ def case_moe():
     _out("moe", {"loss": loss})
 
 
+# capacity dispatch on a mesh (ROADMAP A9b): each mesh's shape
+MOE_CAPACITY_MESHES = {"moe_cap_dp2": (2, 1, 1, 1),
+                       "moe_cap_dp2_ep2": (2, 1, 2, 1)}
+
+
+def _moe_capacity(name):
+    """The forward (logits, aux), the loss and every gradient of
+    ``moe_tiny(dispatch_mode="capacity")`` on the named mesh, then one
+    ``make_train_step`` step's loss."""
+    import functools
+    d = _in("moe_cap")
+    cfg = TM.moe_tiny(dispatch_mode="capacity",
+                      capacity_factor=float(d["capacity_factor"]))
+    mesh = spmd.make_mesh(MOE_CAPACITY_MESHES[name],
+                          ("dp", "fsdp", "ep", "tp"), device="cpu")
+    ids = torch.as_tensor(d["ids"])
+    p = TM.shard_params(_params(d["params"]), cfg, mesh)
+    with torch.no_grad():
+        logits, aux = TM.forward(p, ids, cfg, mesh=mesh)
+    loss, grads = TL.loss_and_grads(
+        p, ids, cfg, loss=functools.partial(TM.loss_fn, mesh=mesh))
+    _, _, step_loss = TM.make_train_step(cfg, mesh, lr=1e-2)(
+        p, TM.adamw_init(p), ids)
+    _out(name, {"logits": logits, "aux": aux, "loss": loss,
+                "grads": grads, "step_loss": step_loss})
+
+
+def case_moe_cap_dp2():
+    _moe_capacity("moe_cap_dp2")
+
+
+def case_moe_cap_dp2_ep2():
+    _moe_capacity("moe_cap_dp2_ep2")
+
+
 def case_dit():
     """(2, 2, 2) mesh: the DiT loss."""
     d = _in("dit")

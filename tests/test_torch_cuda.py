@@ -1541,3 +1541,121 @@ def test_checkpoint_round_trip_from_the_card(dev, tmp_path, monkeypatch,
         for k in ("w", "ids", "s"):
             assert torch.equal(tmpl[k], state[k]), (name, k)
         assert torch.equal(tmpl["m"], want) and tmpl["step"] == 3
+
+
+# ---------------------------------------------------------------------------
+# the paged decode kernel's whole domain (ROADMAP B1b), the admittable
+# bytes (C5), capacity dispatch on a mesh of one (A9b), the launched
+# elastic worker (A10)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nh,kv,hd", [(4, 2, 136), (4, 2, 256),
+                                      (16, 1, 64), (32, 1, 128),
+                                      (32, 1, 256)])
+@pytest.mark.parametrize("qdt,pdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.int8),
+                                     (torch.bfloat16, torch.int8)])
+def test_wide_decode_kernel_matches_plain(dev, nh, kv, hd, qdt, pdt):
+    """Head dims 136 and 256 and groups 16 and 32, every arm, against
+    the plain version (``chip_smoke.mixed_tol`` for the mixed pairs):
+    a partial page, an empty slot and a full table, over two splits."""
+    C = _chip_smoke()
+    g = torch.Generator(device=dev).manual_seed(0)
+    ps, maxp, P = 16, 40, 48
+    lengths = [37, 0, 16, maxp * ps]
+    bt = C._page_tables(torch, dev, lengths, ps, maxp, P - 1, 1)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn(4, nh, hd, generator=g, device=dev).to(qdt)
+    kw = {}
+    if pdt == torch.int8:
+        kp, vp = (torch.randint(-127, 128, (P, kv, ps, hd), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        kw = {n: 0.02 * torch.rand(P, kv, generator=g, device=dev)
+              for n in ("k_scales", "v_scales")}
+    else:
+        kp, vp = (torch.randn(P, kv, ps, hd, generator=g, device=dev)
+                  .to(pdt) for _ in range(2))
+    assert PA.decode_split_plan(4, kv, ps, maxp)[1] > 1
+    K.reset_dispatch_stats()
+    out = PA.ragged_paged_attention(q, kp, vp, bt, ln, **kw)
+    torch.cuda.synchronize()
+    st = K.dispatch_stats()
+    assert st["paged_quant" if kw else "paged"] == 1
+    assert st["paged_ref"] == st["paged_quant_ref"] == 0
+    ref = PA.paged_attention_ref(q, kp, vp, bt, ln, **kw)
+    if kw or qdt == pdt:
+        tol = 2e-2 if qdt == torch.bfloat16 else 1e-4
+    else:
+        tol = C.mixed_tol(torch, qdt, pdt, float(vp.float().abs().max()))
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert torch.all(out[1] == 0)
+
+
+def test_admittable_bytes_exclude_memory_outside_the_allocator(dev):
+    """``chip_smoke.phase_memory_headroom``: a raw allocation outside
+    torch's allocator lowers ``est_admittable_bytes`` by its size, the
+    CUDA context is not admittable, ``bytes_limit`` is the card's
+    total."""
+    r = _chip_smoke().phase_memory_headroom(torch, dev, "test")
+    assert r["outside_allocator_bytes"] > 0
+
+
+def test_capacity_dispatch_on_a_mesh_of_one(dev):
+    """``moe_tiny`` with capacity dispatch (factor 0.5, slots drop) on a
+    (1, 1, 1, 1) mesh on the card: the loss equals the unmeshed
+    capacity step's within ``chip_smoke.MESH_LOSS_RTOL``, launches
+    equal. The materialising cross entropy on both sides, as
+    ``[moe_mesh]``'s (the mesh path never fuses it)."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import spmd
+    from paddle_tpu_torch.models import moe as M
+    C = _chip_smoke()
+    cfg = M.moe_tiny(dispatch_mode="capacity", capacity_factor=0.5,
+                     fused_ce=False)
+    params = M.init_params(cfg, seed=3, device=dev)
+    ids = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 17)), device=dev)
+    made = not dist.is_initialized()
+    try:
+        mesh = spmd.make_mesh((1, 1, 1, 1), ("dp", "fsdp", "ep", "tp"))
+        sides, cmp, _ = C.mesh_step_compare(torch, M, cfg, params, ids,
+                                            mesh, lr=1e-4)
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    s, m = sides["single"], sides["mesh"]
+    assert abs(m["loss"] - s["loss"]) <= C.MESH_LOSS_RTOL * abs(s["loss"])
+    for k in C.MESH_LAUNCH_KEYS:
+        assert m["launches"][k] == s["launches"][k], k
+
+
+def test_launched_worker_trains_on_the_card(dev, tmp_path):
+    """``paddle_tpu_torch/training/elastic_worker.py`` at ``llama_tiny``
+    under ``ElasticManager.run`` on one card: killed after step 3 on
+    the first world, resumed from its checkpoint, every kernel launch on
+    the card and no plain version."""
+    import json
+    import os
+    from paddle_tpu_torch.distributed.fleet import elastic as EL
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "w"
+    out.mkdir()
+    rc = EL.ElasticManager(max_restarts=1, restart_delay=0.1).run(
+        os.path.join(root, "paddle_tpu_torch", "training",
+                     "elastic_worker.py"),
+        ["--out", str(out), "--steps", "5", "--kill-at", "3",
+         "--max-seconds", "150"],
+        nproc_per_node=1, log_dir=str(tmp_path / "logs"),
+        extra_env={"PYTHONPATH": root,
+                   "PADDLE_ELASTIC_CKPT_DIR": str(tmp_path / "ckpt")})
+    assert rc == 0
+    recs = [json.loads(x) for x in open(out / "losses.jsonl")]
+    done = [r for r in recs if r.get("done")]
+    assert len(done) == 1 and done[0]["run"] == 1
+    st = done[0]["launches"]
+    assert st["flash"] > 0 and st["flash_bwd"] > 0
+    assert all(v == 0 for k, v in st.items() if k.endswith("_ref"))

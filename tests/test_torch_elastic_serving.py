@@ -637,7 +637,7 @@ def test_frozen_replica_does_not_stall_the_fleet():
 
 
 # ---------------------------------------------------------------------------
-# validation and the paths that wait for ROADMAP A10
+# validation and the training loops' entry points
 # ---------------------------------------------------------------------------
 
 def test_bounds_and_protocol_codes():
@@ -653,14 +653,42 @@ def test_bounds_and_protocol_codes():
          ("COMPLETED", "RESTART", "ERROR", "EXIT")}
 
 
-@pytest.mark.parametrize("call", [
-    lambda: TE.ElasticManager().run("train.py"),
-    lambda: TE.run_elastic("train.py"),
-    lambda: TE.AdaptiveElasticManager().run_adaptive("train.py"),
-], ids=["run", "run_elastic", "run_adaptive"])
-def test_training_paths_raise_naming_a10(call):
-    with pytest.raises(NotImplementedError, match="A10"):
-        call()
+def _completing_launcher(calls):
+    def launch(script, script_args=(), nproc_per_node=1, extra_env=None,
+               **kw):
+        calls.append((script, nproc_per_node,
+                      (extra_env or {}).get("PADDLE_ELASTIC_RUN")))
+        return 0
+    return launch
+
+
+@pytest.mark.parametrize("call", ["run", "run_elastic", "run_adaptive"])
+def test_training_paths_raise_naming_a10(call, monkeypatch):
+    """Once the pin on the unported training loops (ROADMAP A10), now
+    ported (``tests/test_torch_elastic_launch.py`` holds them to the
+    reference): each entry point launches the world once through the
+    launcher (``run_elastic`` through the default one, the port's
+    ``distributed.launch``), exporting run index 0, and returns 0 with
+    the reference's COMPLETED event when the world completes."""
+    import importlib
+    calls = []
+    launcher = _completing_launcher(calls)
+    if call == "run":
+        mgr = TE.ElasticManager(launcher=launcher)
+        assert mgr.run("train.py", nproc_per_node=2) == 0
+    elif call == "run_adaptive":
+        mgr = TE.AdaptiveElasticManager(launcher=launcher)
+        assert mgr.run_adaptive("train.py", nproc_per_node=2) == 0
+    else:
+        main = importlib.import_module(
+            "paddle_tpu_torch.distributed.launch.main")
+        monkeypatch.setattr(main, "launch", launcher)
+        assert TE.run_elastic("train.py", nproc_per_node=2) == 0
+        mgr = None
+    assert calls == [("train.py", 2, "0")]
+    if mgr is not None:
+        assert [s for _, s, _ in mgr.events] == [
+            JE.ElasticStatus.COMPLETED]
 
 
 # ---------------------------------------------------------------------------

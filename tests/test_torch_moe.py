@@ -248,9 +248,16 @@ def test_not_ported_paths_raise():
         torch.testing.assert_close(aux.full_tensor(), want_aux)
         np.testing.assert_allclose(float(loss.full_tensor()), float(
             TM.loss_fn(tp, ids, dense)), rtol=1e-5)
-        with pytest.raises(NotImplementedError, match="capacity"):
-            TM.forward(mp, ids, TM.moe_tiny(dispatch_mode="capacity"),
-                       mesh=mesh)
+        # capacity dispatch on the mesh (ROADMAP A9b) is the one-device
+        # capacity dispatch; multi-rank parity with drops:
+        # tests/test_torch_moe_capacity_mesh.py
+        cap = TM.moe_tiny(dispatch_mode="capacity", capacity_factor=0.3)
+        cap_want, cap_aux = TM.forward(tp, ids, cap)
+        with torch.no_grad():
+            cap_got, aux = TM.forward(mp, ids, cap, mesh=mesh)
+        torch.testing.assert_close(cap_got.full_tensor(), cap_want,
+                                   rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(aux.full_tensor(), cap_aux)
     with pytest.raises(ValueError, match="dispatch_mode"):
         TM.forward(tp, torch.as_tensor(_ids((1, 4))),
                    TM.moe_tiny(dispatch_mode="ragged"))

@@ -406,6 +406,93 @@ def test_memory_plane_matches_the_reference(reading, pages):
         reset_both()
 
 
+class _FakeCard:
+    """``torch.cuda``'s readings of one card, set by the test: the
+    driver's free and total bytes and the caching allocator's
+    allocated, reserved and peak bytes."""
+
+    def __init__(self, free, total, allocated, reserved, peak):
+        self.free, self.total = free, total
+        self.allocated, self.reserved, self.peak = allocated, reserved, peak
+
+    def install(self, monkeypatch):
+        import torch
+        cuda = torch.cuda
+        monkeypatch.setattr(cuda, "is_available", lambda: True)
+        monkeypatch.setattr(cuda, "device_count", lambda: 1)
+        monkeypatch.setattr(cuda, "current_device", lambda: 0)
+        monkeypatch.setattr(cuda, "mem_get_info",
+                            lambda i=None: (self.free, self.total))
+        monkeypatch.setattr(cuda, "memory_allocated",
+                            lambda i=None: self.allocated)
+        monkeypatch.setattr(cuda, "memory_reserved",
+                            lambda i=None: self.reserved)
+        monkeypatch.setattr(cuda, "max_memory_allocated",
+                            lambda i=None: self.peak)
+
+
+GIB = 1 << 30
+
+
+@pytest.mark.parametrize("outside_gib", [0, 1, 7])
+def test_admittable_bytes_exclude_memory_outside_the_allocator(
+        monkeypatch, outside_gib):
+    """ROADMAP C5: on a card of 80 GiB whose allocator holds 30 GiB
+    (20 GiB of it in live tensors) and whose CUDA context and other
+    processes hold ``ctx`` more, ``bytes_limit`` stays the card's total
+    but the admittable bytes are the driver's free plus the allocator's
+    reserved-but-unallocated: the context is not admittable, and an
+    allocation made outside the allocator lowers them by its size. The
+    reference's ``hbm_free_bytes`` (limit minus in-use) is unchanged."""
+    ctx = GIB // 2 + outside_gib * GIB
+    card = _FakeCard(free=80 * GIB - 30 * GIB - ctx, total=80 * GIB,
+                     allocated=20 * GIB, reserved=30 * GIB,
+                     peak=25 * GIB)
+    card.install(monkeypatch)
+    reading = tdevmem.memory_stats()
+    assert reading == {"bytes_in_use": 20 * GIB,
+                       "peak_bytes_in_use": 25 * GIB,
+                       "bytes_limit": 80 * GIB,
+                       "bytes_free": 80 * GIB - 20 * GIB - ctx}
+    assert tdevmem.all_memory_stats() == [reading]
+    reset_both()
+    set_monitor(True)
+    try:
+        hr = TM.memory.headroom()
+        assert hr["hbm_free_bytes"] == 60 * GIB
+        assert hr["est_admittable_bytes"] == 60 * GIB - ctx
+        assert TM.snapshot()["gauges"]["device.hbm.bytes_free"] == \
+            60 * GIB - ctx
+        # the autoscaler's memory utilization counts the context as used
+        from paddle_tpu_torch.monitor import slo as TS
+        payload = TS.demand_model(queue_depth=0, live_slots=0,
+                                  num_slots=4, pages_free_fraction=1.0,
+                                  headroom=hr)
+        assert payload["memory_utilization"] == round(
+            1 - (60 * GIB - ctx) / (80 * GIB), 4)
+    finally:
+        set_monitor(False)
+        reset_both()
+
+
+def test_admittable_bytes_follow_the_cache_and_the_temp_reservation(
+        monkeypatch):
+    """Freed tensors stay admittable (the allocator's cache), a reading
+    without ``bytes_free`` keeps the reference's answer, and the temp
+    reservation comes off the capped free bytes."""
+    card = _FakeCard(free=10 * GIB, total=80 * GIB, allocated=5 * GIB,
+                     reserved=65 * GIB, peak=65 * GIB)
+    card.install(monkeypatch)
+    assert TM.memory.headroom()["est_admittable_bytes"] == 70 * GIB
+    card.allocated = 65 * GIB
+    assert TM.memory.headroom()["est_admittable_bytes"] == 10 * GIB
+    monkeypatch.setattr(TM.programs, "max_temp_bytes", lambda: GIB)
+    assert TM.memory.headroom()["est_admittable_bytes"] == 9 * GIB
+    no_free = [{"bytes_in_use": 5 * GIB, "bytes_limit": 80 * GIB}]
+    assert TM.memory.headroom(lambda: no_free)["est_admittable_bytes"] \
+        == 74 * GIB
+
+
 def test_device_reading_on_a_host_without_a_card():
     import torch
     if torch.cuda.is_available():

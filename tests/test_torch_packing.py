@@ -247,3 +247,42 @@ def test_three_packed_train_steps_match_reference():
         noisy += int((err[quiet] > 1e-5).sum())
         total += err.size
     assert noisy <= 1e-3 * total
+
+
+@pytest.mark.parametrize("lens,seq_len,max_rows", [
+    ([40, 24], 64, None),
+    ([5, 17, 3, 30, 12, 9, 1, 20], 32, None),
+    ([70, 10, 33], 32, None),
+    ([0, 4, 0], 8, None),
+    ([20, 20, 20, 5], 24, 2),             # the overflow's chunks uncounted
+])
+def test_packing_metrics_match_the_reference(lens, seq_len, max_rows):
+    """ROADMAP C6: with the monitor on, packing the same documents twice
+    through each package leaves the same ``packing.*`` gauge and
+    counters in both snapshots (efficiency of the last pack; documents,
+    rows, real and padding tokens summed over both)."""
+    from _torch_monitor_common import JM, TM, reset_both, set_monitor
+    docs = _docs(100, lens)
+    kw = ({} if max_rows is None
+          else {"max_rows": max_rows, "collect_overflow": True})
+    reset_both()
+    set_monitor(True)
+    try:
+        for _ in range(2):
+            TPK.pack_documents(docs, seq_len, **kw)
+            JPK.pack_documents(docs, seq_len, **kw)
+        snaps = [{kind: {k: v for k, v in vals.items()
+                         if k.startswith("packing.")}
+                  for kind, vals in M.snapshot().items()}
+                 for M in (TM, JM)]
+        assert snaps[0] == snaps[1]
+        assert snaps[0]["counters"]["packing.documents"] == 2 * sum(
+            n > 0 for n in lens)
+        assert "packing.efficiency" in snaps[0]["gauges"]
+    finally:
+        set_monitor(False)
+        reset_both()
+    # monitor off: nothing is registered
+    TPK.pack_documents(docs, seq_len, **kw)
+    assert not any(k.startswith("packing.") for vals in
+                   TM.snapshot().values() for k in vals)

@@ -136,8 +136,13 @@ def test_paged_supported_guard():
                              torch.zeros(2, 3, dtype=torch.int32))
     assert not TPA.supported(torch.zeros(2, 8, 12), torch.zeros(4, 2, 16, 12),
                              torch.zeros(2, 3, dtype=torch.int32))
-    assert not TPA.supported(torch.zeros(2, 32, 128),
-                             torch.zeros(4, 2, 16, 128),
+    # any group (here 16 heads of 128 over a kv head, ROADMAP B1b); head
+    # dims past 256 stay out
+    assert TPA.supported(torch.zeros(2, 32, 128),
+                         torch.zeros(4, 2, 16, 128),
+                         torch.zeros(2, 3, dtype=torch.int32))
+    assert not TPA.supported(torch.zeros(2, 8, 264),
+                             torch.zeros(4, 2, 16, 264),
                              torch.zeros(2, 3, dtype=torch.int32))
 
 
@@ -390,11 +395,19 @@ def test_split_combine_model_matches_jax_kernel_interpret_and_ref(dt, tol):
     ((2, 8, 12), torch.float32, (4, 2, 16, 12), torch.float32, (2, 3),
      False, False),                                   # head_dim % 8
     ((2, 32, 128), torch.float32, (4, 2, 16, 128), torch.float32, (2, 3),
-     False, False),                                   # group * D > 1024
+     False, True),                                    # group * D > 1024
     ((2, 16, 128), torch.bfloat16, (4, 2, 16, 128), torch.bfloat16, (2, 3),
      False, True),                                    # group * D = 1024
     ((2, 4, 136), torch.float32, (4, 2, 16, 136), torch.float32, (2, 3),
-     False, False),                                   # head_dim > 128
+     False, True),                                    # head_dim > 128
+    ((2, 4, 256), torch.bfloat16, (4, 2, 16, 256), torch.int8, (2, 3),
+     True, True),                                     # int8, head_dim 256
+    ((2, 32, 256), torch.float32, (4, 1, 16, 256), torch.bfloat16, (2, 3),
+     False, True),                                    # group 32 at D 256
+    ((2, 4, 264), torch.float32, (4, 2, 16, 264), torch.float32, (2, 3),
+     False, False),                                   # head_dim > 256
+    ((2, 4, 264), torch.float32, (4, 2, 16, 264), torch.int8, (2, 3),
+     True, False),                                    # int8, head_dim > 256
     ((1, 4, 8), torch.bfloat16, (3, 2, 1, 8), torch.bfloat16, (1, 5),
      False, True),                                    # ps 1, head_dim 8
     ((3, 6, 24), torch.float32, (9, 2, 3, 24), torch.float32, (3, 30),
@@ -432,11 +445,10 @@ def test_split_combine_model_matches_jax_kernel_interpret_and_ref(dt, tol):
 ])
 def test_supported_takes_the_same_shapes(q_shape, q_dt, pages, p_dt,
                                          bt_shape, quant, want):
-    """The split kernel takes exactly the shapes the kernel before it
-    took: any page size, head_dim % 8 == 0 up to 128, group * head_dim
-    <= 1024, float32 / bfloat16 q with pages of float32, bfloat16 or
-    float16 (the Pallas kernel's page types), or int8 pages with
-    scales."""
+    """The split kernel takes the Pallas kernel's domain: any page
+    size, head_dim % 8 == 0 up to 256, any group num_heads / kv_heads,
+    float32 / bfloat16 q with pages of float32, bfloat16 or float16 (the
+    Pallas kernel's page types), or int8 pages with scales."""
     assert TPA.supported(torch.zeros(q_shape, dtype=q_dt),
                          torch.zeros(pages, dtype=p_dt),
                          torch.zeros(bt_shape, dtype=torch.int32),
