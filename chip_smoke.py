@@ -433,9 +433,10 @@ Phases, each printed on its own line; any failure exits non-zero:
 49. elastic_train (after ``sentinel_train``, ROADMAP A10):
     ``ElasticManager.run`` launches ``paddle_tpu_torch/training/
     elastic_worker.py`` on the card (``nproc_per_node=1``): Llama-3-8B
-    widths at ``ELASTIC_LAYERS`` layers, bf16 moments, a checkpoint
-    every ``ELASTIC_SAVE_EVERY`` steps through ``save_state``, a hard
-    exit after step ``ELASTIC_KILL_AT`` on the first world; the
+    widths at ``ELASTIC_LAYERS`` layers, ``TRAIN_BATCH`` rows and
+    float32 moments (the training main path's), a checkpoint every
+    ``ELASTIC_SAVE_EVERY`` steps through ``save_state``, a hard exit
+    after step ``ELASTIC_KILL_AT`` on the first world; the
     relaunched world resumes from its last committed checkpoint, and its
     losses, like the killed world's, equal an uninterrupted world's bit
     for bit; the restart's seconds; the flash pair launched in the
@@ -1707,8 +1708,8 @@ def phase_wide_serve(torch, dev, requests, card):
     32). Each serve: prefill on the flash kernel (head dim 256: the
     CUDA-core route), every decode launch on its arm, no plain version,
     every token in range; decode tokens/s, and how many requests the
-    int8 pages leave on the bf16 tokens (a reading). Returns the
-    launches by (config, arm)."""
+    int8 pages leave on the bf16 tokens (a reading). Returns each
+    serve's launch counts by (config, arm)."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.models import llama as L
@@ -1746,6 +1747,10 @@ def phase_wide_serve(torch, dev, requests, card):
                  **{k: v for k, v in launches.items() if k.endswith("_ref")})
             assert launches["flash"] > 0 and launches[arm] > 0, launches
             assert launches["paged" if kv_quant else "paged_quant"] == 0
+            # every decode launch at this serve's shape, none at the other
+            other = next(n for n in WIDE_CONFIGS if n != name)
+            assert launches[f"{arm}_{name}"] == launches[arm], launches
+            assert launches[f"{arm}_{other}"] == 0, launches
             assert launches["paged_mixed"] == 0, launches
             assert all(v == 0 for k, v in launches.items()
                        if k.endswith("_ref")), launches
@@ -1755,7 +1760,7 @@ def phase_wide_serve(torch, dev, requests, card):
                 toks = out[r.rid].tokens
                 assert len(toks) == r.max_new_tokens, (name, r.rid)
                 assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
-            out_launches[(name, arm)] = launches[arm]
+            out_launches[(name, arm)] = launches
             if base is None:
                 base = tokens
             del eng
@@ -4568,11 +4573,11 @@ def phase_ckpt_train(torch, dev, card, train_ms):
 
 
 # the launched elastic worker (ROADMAP A10): Llama-3-8B widths at
-# ELASTIC_LAYERS deep, bf16 weights and AdamW moments, ids [ELASTIC_BATCH,
-# ELASTIC_SEQ + 1]; a checkpoint every ELASTIC_SAVE_EVERY steps, a hard
-# exit after step ELASTIC_KILL_AT on the first world, ELASTIC_STEPS steps
+# ELASTIC_LAYERS deep, bf16 weights and float32 AdamW moments, ids
+# [TRAIN_BATCH, TRAIN_SEQ + 1] (the training main path's); a checkpoint
+# every ELASTIC_SAVE_EVERY steps, a hard exit after step ELASTIC_KILL_AT
+# on the first world, ELASTIC_STEPS steps
 ELASTIC_LAYERS = 1
-ELASTIC_BATCH, ELASTIC_SEQ = 2, 2048
 ELASTIC_STEPS, ELASTIC_SAVE_EVERY, ELASTIC_KILL_AT = 6, 2, 5
 ELASTIC_WORKER_S = 150
 
@@ -4595,9 +4600,12 @@ def elastic_world(root, name, extra):
     """One ``ElasticManager.run`` of ``paddle_tpu_torch/training/
     elastic_worker.py`` on one card (``nproc_per_node=1``) under
     ``root/name``, its checkpoints under ``PADDLE_ELASTIC_CKPT_DIR``
-    there: ``(manager, steps, done, seconds)``. Each worker ends itself
+    there, removed when it ends (so one world's checkpoints are on disk
+    at a time): ``(manager, steps, done, seconds)``. Each worker ends itself
     after ``ELASTIC_WORKER_S`` (``--max-seconds``), so a hung world
     costs at most two of those and leaves no process behind."""
+    import shutil
+
     from paddle_tpu_torch.distributed.fleet import elastic as EL
     here = os.path.dirname(os.path.abspath(__file__))
     script = os.path.join(here, "paddle_tpu_torch", "training",
@@ -4605,11 +4613,10 @@ def elastic_world(root, name, extra):
     out = os.path.join(root, name)
     os.makedirs(out)
     args = ["--out", out, "--config", "8b", "--layers",
-            str(ELASTIC_LAYERS), "--batch", str(ELASTIC_BATCH), "--seq",
-            str(ELASTIC_SEQ), "--steps", str(ELASTIC_STEPS),
-            "--save-every", str(ELASTIC_SAVE_EVERY), "--moments",
-            "bfloat16", "--lr", "1e-4", "--max-seconds",
-            str(ELASTIC_WORKER_S), *extra]
+            str(ELASTIC_LAYERS), "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--steps", str(ELASTIC_STEPS),
+            "--save-every", str(ELASTIC_SAVE_EVERY), "--lr", "1e-4",
+            "--max-seconds", str(ELASTIC_WORKER_S), *extra]
     env = {"PYTHONPATH": here,
            "PADDLE_ELASTIC_CKPT_DIR": os.path.join(out, "ckpt")}
     mgr = EL.ElasticManager(max_restarts=1, restart_delay=0.1)
@@ -4623,6 +4630,7 @@ def elastic_world(root, name, extra):
             with open(os.path.join(out, "logs", f)) as fh:
                 logs += fh.read()[-3000:]
     assert rc == 0, f"[elastic_train] {name} rc {rc}: {logs}"
+    shutil.rmtree(env["PADDLE_ELASTIC_CKPT_DIR"], ignore_errors=True)
     steps, done = _elastic_records(os.path.join(out, "losses.jsonl"))
     return mgr, steps, done, seconds
 
@@ -4647,9 +4655,11 @@ def phase_elastic_train(torch, dev, card):
     cfg = L.llama_3_8b(num_hidden_layers=ELASTIC_LAYERS)
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="elastic_train_")
+    # bf16 weights and two float32 moments
+    state_bytes = 10 * L.count_params(cfg)
     try:
-        # bf16 weights and two bf16 moments, two checkpoints kept
-        _need_disk(root, 2 * 6 * L.count_params(cfg), "elastic_train")
+        # two checkpoints kept
+        _need_disk(root, 2 * state_bytes, "elastic_train")
         mgr, steps, done, killed_s = elastic_world(
             root, "killed", ["--kill-at", str(ELASTIC_KILL_AT)])
         _, ref, ref_done, whole_s = elastic_world(root, "whole", [])
@@ -4673,7 +4683,8 @@ def phase_elastic_train(torch, dev, card):
     launches = done[1]["launches"]
     losses = [ref[0][s]["loss"] for s in sorted(ref[0])]
     _say("elastic_train", card=repr(card), layers=ELASTIC_LAYERS,
-         batch=f"{ELASTIC_BATCH}x{ELASTIC_SEQ}", steps=ELASTIC_STEPS,
+         batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", moments="float32",
+         state_bytes=state_bytes, steps=ELASTIC_STEPS,
          save_every=ELASTIC_SAVE_EVERY, killed_after=ELASTIC_KILL_AT,
          resumed_from=start, restart_s=round(restart_s, 3),
          killed_world_s=round(killed_s, 2), whole_world_s=round(whole_s, 2),
@@ -7655,14 +7666,16 @@ def main() -> int:
                      (paged_mixed, "paged_mixed")):
         rec["ckpt_launches"] = ckpt_launches[key]
         rec["sentinel_launches"] = sentinel_launches[key]
-    # the wide decode rows (ROADMAP B1b): launches from the head-dim-256
-    # and group-32 serves; the other phases' counts are the arm's own
+    # the wide decode rows (ROADMAP B1b): every column from the counter
+    # of the row's own shape (``paged_d256``, ``paged_quant_g32``, ...),
+    # launches from the head-dim-256 and group-32 serves
     for (kernel, name), rec in wide.items():
         arm = "paged_quant" if kernel.endswith("int8") else "paged"
-        src = paged_int8 if arm == "paged_quant" else paged
-        rec["launches"] = wide_launches[(name, arm)]
-        for key in ("mesh_launches", "ckpt_launches", "sentinel_launches"):
-            rec[key] = src[key]
+        key = f"{arm}_{name}"
+        rec["launches"] = wide_launches[(name, arm)][key]
+        rec["mesh_launches"] = sum(m[key] for m in mesh_launches.values())
+        rec["ckpt_launches"] = ckpt_launches[key]
+        rec["sentinel_launches"] = sentinel_launches[key]
     keys = ("name", "route", "source", "replaces", "launches",
             "mesh_launches", "ckpt_launches", "sentinel_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

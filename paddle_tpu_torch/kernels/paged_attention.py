@@ -187,6 +187,8 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     _launch(_lib(), q, k_pages, v_pages, block_tables, lengths, out, scale,
             k_scales, v_scales)
     DISPATCH_STATS[arm] += 1
+    DISPATCH_STATS[arm + "_d256"] += q.shape[-1] == 256
+    DISPATCH_STATS[arm + "_g32"] += q.shape[1] == 32 * k_pages.shape[1]
     if not quant and k_pages.dtype != q.dtype:
         DISPATCH_STATS["paged_mixed"] += 1
     return out

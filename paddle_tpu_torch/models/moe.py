@@ -260,40 +260,62 @@ def _expert_ffn(xe, lp):
     return torch.bmm(F.silu(g) * u, _edeq(lp["e_down"], xe.dtype))
 
 
-def _moe_mlp_capacity(x, lp, config: MoEConfig):
-    """Capacity dispatch of ``x`` ``[T, D]``: ``(routed [T, D], aux)``.
-    A slot's place in its expert's buffer is the count of earlier slots
-    (token-major) that chose the same expert; places ``>= C`` drop. The
-    grid of token indices has a sink row at ``E * C`` that takes the
-    dropped slots' writes (the reference scatters them out of range with
-    ``mode="drop"``) and is sliced away."""
-    c = config
-    T = x.shape[0]
-    Ex, k = c.num_experts, c.num_experts_per_tok
-    C = moe_capacity(c, T)
-    topv, topi, aux = _route(x, lp, c)
-    expert = topi.reshape(-1)                                   # [T * k]
+def _slot_dest(expert, n_experts: int, cap: int, before=None):
+    """Each slot's row in the ``[E * C]`` grid, ``expert * C + place``,
+    or -1 where it drops, for the slots' experts ``expert`` ``[T * k]``
+    (token-major). A slot's place is the count of earlier slots that
+    chose the same expert, after ``before[e]`` slots of expert ``e`` that
+    come ahead of these (earlier batch shards on a mesh); places ``>= C``
+    drop."""
     # the inclusive count of each expert's slots, scanned along the
     # contiguous axis in int32; a slot's place is its own expert's count
     # less one (the reference's cumsum(oh) - oh at the chosen expert)
-    oh = (expert[None] == torch.arange(Ex, device=x.device)[:, None]) \
-        .to(torch.int32)                                        # [E, T * k]
+    oh = (expert[None] == torch.arange(n_experts, device=expert.device)
+          [:, None]).to(torch.int32)                            # [E, T * k]
     pos = oh.cumsum(dim=1, dtype=torch.int32).gather(
         0, expert[None])[0] - 1                                 # [T * k]
-    keep = pos < C
-    dest = expert * C + pos
-    idx = torch.full((Ex * C + 1,), T, dtype=torch.long, device=x.device)
-    idx[torch.where(keep, dest, Ex * C)] = torch.arange(
+    if before is not None:
+        pos = pos + before[expert]
+    return torch.where(pos < cap, expert * cap + pos, -1)
+
+
+def _dispatch_grid(x, dest, n_experts: int, cap: int, k: int):
+    """The ``[E, C, D]`` rows of ``x`` ``[T, D]`` at the kept slots'
+    ``dest``; a row no slot takes is 0. The grid of token indices has a
+    sink row at ``E * C`` that takes the dropped slots' writes (the
+    reference scatters them out of range with ``mode="drop"``) and is
+    sliced away."""
+    T = x.shape[0]
+    idx = torch.full((n_experts * cap + 1,), T, dtype=torch.long,
+                     device=x.device)
+    idx[torch.where(dest >= 0, dest, n_experts * cap)] = torch.arange(
         T, device=x.device).repeat_interleave(k)
     xp = torch.cat([x, x.new_zeros(1, x.shape[1])])             # row T: 0
-    xe = xp[idx[:Ex * C]].reshape(Ex, C, -1)                    # [E, C, D]
-    y = _expert_ffn(xe, lp)
-    # each slot gathers its expert's output row, weighted by its router
-    # weight; a dropped slot weighs 0
-    yk = y.reshape(Ex * C, -1)[torch.where(keep, dest, 0)]
-    w = (topv.reshape(-1) * keep).float()[:, None]
-    routed = (yk.float() * w).reshape(T, k, -1).sum(dim=1)
-    return routed.to(x.dtype), aux
+    return xp[idx[:n_experts * cap]].reshape(n_experts, cap, -1)
+
+
+def _combine_slots(y, topv, dest, cap: int, k: int, e0: int, n_local: int):
+    """Float32 ``[T, D]``: each slot gathers its expert's output row of
+    ``y`` ``[El, C, D]`` (experts ``[e0, e0 + El)``), weighted by its
+    router weight; a dropped slot, or one whose expert lies outside the
+    window, weighs 0."""
+    mine = (dest >= e0 * cap) & (dest < (e0 + n_local) * cap)
+    yk = y.reshape(n_local * cap, -1)[torch.where(mine, dest - e0 * cap, 0)]
+    w = (topv.reshape(-1) * mine).float()[:, None]
+    return (yk.float() * w).reshape(topv.shape[0], k, -1).sum(dim=1)
+
+
+def _moe_mlp_capacity(x, lp, config: MoEConfig):
+    """Capacity dispatch of ``x`` ``[T, D]``: ``(routed [T, D], aux)``.
+    Slots take places in their experts' buffers token-major
+    (``_slot_dest``); places ``>= C`` drop."""
+    c = config
+    Ex, k = c.num_experts, c.num_experts_per_tok
+    C = moe_capacity(c, x.shape[0])
+    topv, topi, aux = _route(x, lp, c)
+    dest = _slot_dest(topi.reshape(-1), Ex, C)                  # [T * k]
+    y = _expert_ffn(_dispatch_grid(x, dest, Ex, C, k), lp)
+    return _combine_slots(y, topv, dest, C, k, 0, Ex).to(x.dtype), aux
 
 
 def _moe_mlp_dense(x, lp, config: MoEConfig, mesh=None):
@@ -386,28 +408,13 @@ def _moe_mlp_capacity_mesh(x, lp, config: MoEConfig, mesh):
         lambda ti: F.one_hot(ti.reshape(-1), Ex).sum(0, keepdim=True),
         mesh, rows, topi))
     before = counts[:me].sum(0)                # earlier shards' slots
-
-    def slots(ti):
-        # a slot's place: the earlier shards' slots of its expert, then
-        # its own shard's earlier ones; -1 where it drops
-        expert = ti.reshape(-1)
-        oh = (expert[None] == torch.arange(Ex, device=ti.device)[:, None]) \
-            .to(torch.int32)
-        pos = oh.cumsum(dim=1, dtype=torch.int32).gather(
-            0, expert[None])[0] - 1 + before.to(ti.device)[expert]
-        return torch.where(pos < C, expert * C + pos, -1).reshape(ti.shape)
-
-    dest = spmd.local(slots, mesh, rows, topi)
+    dest = spmd.local(
+        lambda ti: _slot_dest(ti.reshape(-1), Ex, C, before.to(ti.device))
+        .reshape(ti.shape), mesh, rows, topi)
 
     def dispatch(xl, dl):
         # this shard's kept slots in the grid; the rest read a zero row
-        d = dl.reshape(-1)
-        idx = torch.full((Ex * C + 1,), xl.shape[0], dtype=torch.long,
-                         device=xl.device)
-        idx[torch.where(d >= 0, d, Ex * C)] = torch.arange(
-            xl.shape[0], device=xl.device).repeat_interleave(k)
-        xp = torch.cat([xl, xl.new_zeros(1, xl.shape[1])])
-        return xp[idx[:Ex * C]].reshape(Ex, C, -1)
+        return _dispatch_grid(xl, dl.reshape(-1), Ex, C, k)
 
     grid = spmd.partial_on(spmd.placements(P(None, None, None), mesh), mesh,
                            _L.BATCH)
@@ -425,13 +432,8 @@ def _moe_mlp_capacity_mesh(x, lp, config: MoEConfig, mesh):
     y = spmd.constrain(y, mesh, P("ep", None, None))
 
     def combine(yl, tv, dl):
-        # the slots whose expert this ep rank holds, weighted by their
-        # router weights; a dropped slot or another rank's weighs 0
-        d = dl.reshape(-1)
-        mine = (d >= e0 * C) & (d < (e0 + El) * C)
-        yk = yl.reshape(El * C, -1)[torch.where(mine, d - e0 * C, 0)]
-        w = (tv.reshape(-1) * mine).float()[:, None]
-        return (yk.float() * w).reshape(tv.shape[0], k, -1).sum(dim=1)
+        # the slots whose expert this ep rank holds
+        return _combine_slots(yl, tv, dl.reshape(-1), C, k, e0, El)
 
     routed = spmd.local(
         combine, mesh, spmd.partial_on(spmd.placements(rows, mesh), mesh,

@@ -7,18 +7,18 @@ Each rank joins the launched world (``env.init_parallel_env``: NCCL on
 the card, gloo with ``--device cpu``), builds the Llama train step (a
 ``dp`` mesh over every rank when there are several, the one-device step
 for one) at ``--config`` widths (``tiny``: ``llama_tiny``; ``8b``:
-``llama_3_8b``) and ``--layers`` deep, random weights from ``--seed``,
-and resumes from the newest committed checkpoint under
+``llama_3_8b``) and ``--layers`` deep, random weights from ``--seed``
+and float32 AdamW moments, and resumes from the newest committed checkpoint under
 ``PADDLE_ELASTIC_CKPT_DIR`` (``fleet.elastic.load_state``; step 0 when
 there is none). Step ``s`` trains on ids drawn from ``(--seed, s)``, so
 a resumed world sees the batches an uninterrupted one would.
 Every ``--save-every`` steps it checkpoints ``{"params", "opt"}``
 through ``save_state`` (asynchronous: a world killed mid-save resumes
 from the save before). On the first world (``PADDLE_ELASTIC_RUN`` 0)
-the process exits hard (``os._exit(--kill-rc)``, no cleanup) right
-after step ``--kill-at``; a rank listed in ``--fail-ranks`` exits with
-``--kill-rc`` before training while the world has more than
-``--min-world`` ranks (a sick host the manager scales in past); with
+the process exits hard (``os._exit(137)``, a ``kill -9``'s rc, no
+cleanup) right after step ``--kill-at``; a rank listed in
+``--fail-ranks`` exits with 137 before training while the world has
+more than ``--min-world`` ranks (a sick host the manager scales in past); with
 ``--max-seconds`` a rank that runs that long exits with rc 124.
 
 Rank 0 appends one JSON line a step to ``DIR/losses.jsonl``: ``run``,
@@ -50,14 +50,11 @@ def _parse(argv):
     p.add_argument("--kill-at", type=int, default=0,
                    help="exit hard after this step on the first world "
                         "(0: never)")
-    p.add_argument("--kill-rc", type=int, default=137)
     p.add_argument("--fail-ranks", default="",
                    help="comma-separated ranks that exit at start while "
                         "the world is larger than --min-world")
     p.add_argument("--min-world", type=int, default=1)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--moments", choices=("float32", "bfloat16"),
-                   default="float32")
     p.add_argument("--max-seconds", type=float, default=0.0,
                    help="exit with rc 124 once the process has run this "
                         "long (0: never), so a hung world ends")
@@ -78,6 +75,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.distributed import env, spmd
     from paddle_tpu_torch.distributed.fleet import elastic
     from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.testing.faults import KILL_EXIT_CODE
 
     cpu = args.device == "cpu"
     env.init_parallel_env(device="cpu" if cpu else None)
@@ -85,7 +83,7 @@ def main(argv=None) -> int:
     run = elastic.elastic_run_index()
     fail = {int(r) for r in args.fail_ranks.split(",") if r}
     if rank in fail and world > args.min_world:
-        os._exit(args.kill_rc)
+        os._exit(KILL_EXIT_CODE)
     dev = "cpu" if cpu else None
     if args.config == "tiny":
         cfg = L.llama_tiny(num_hidden_layers=args.layers, fused_ce=False)
@@ -97,7 +95,7 @@ def main(argv=None) -> int:
         mesh = spmd.make_mesh((world, 1, 1), ("dp", "fsdp", "tp"),
                               device=dev)
         params = L.shard_params(params, cfg, mesh)
-    opt = L.adamw_init(params, moment_dtype=getattr(torch, args.moments))
+    opt = L.adamw_init(params, moment_dtype=torch.float32)
     step_fn = L.make_train_step(cfg, mesh, lr=args.lr)
     start, state = elastic.load_state({"params": params, "opt": opt})
     params, opt = state["params"], state["opt"]
@@ -121,7 +119,7 @@ def main(argv=None) -> int:
             pending = elastic.save_state(step + 1,
                                          {"params": params, "opt": opt})
         if run == 0 and step + 1 == args.kill_at:
-            os._exit(args.kill_rc)
+            os._exit(KILL_EXIT_CODE)
     elastic.finish_saves(pending)
     log(done=True, launches=K.dispatch_stats())
     return 0

@@ -1584,7 +1584,10 @@ def test_wide_decode_kernel_matches_plain(dev, nh, kv, hd, qdt, pdt):
     out = PA.ragged_paged_attention(q, kp, vp, bt, ln, **kw)
     torch.cuda.synchronize()
     st = K.dispatch_stats()
-    assert st["paged_quant" if kw else "paged"] == 1
+    arm = "paged_quant" if kw else "paged"
+    assert st[arm] == 1
+    assert st[arm + "_d256"] == (hd == 256)
+    assert st[arm + "_g32"] == (nh == 32 * kv)
     assert st["paged_ref"] == st["paged_quant_ref"] == 0
     ref = PA.paged_attention_ref(q, kp, vp, bt, ln, **kw)
     if kw or qdt == pdt:

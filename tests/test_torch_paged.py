@@ -128,6 +128,31 @@ def test_paged_wrapper_on_cpu_takes_plain_version():
                                                             tbt, tln))
 
 
+@pytest.mark.parametrize("arm", ["paged", "paged_quant"])
+def test_wide_shape_counters_start_at_zero_and_reset(arm):
+    """``{arm}_d256`` / ``{arm}_g32`` count the CUDA launches at head dim
+    256 and at group 32 among ``{arm}``; a CPU call at those shapes takes
+    the plain version and counts neither."""
+    TK.reset_dispatch_stats()
+    q = torch.zeros(1, 32, 256)
+    kp = torch.zeros(2, 1, 16, 256)
+    kw = {}
+    if arm == "paged_quant":
+        kp = kp.to(torch.int8)
+        kw = {n: torch.ones(2, 1) for n in ("k_scales", "v_scales")}
+    bt = torch.zeros(1, 1, dtype=torch.int32)
+    TK.dispatched_paged_attention(q, kp, kp, bt,
+                                  torch.ones(1, dtype=torch.int32), **kw)
+    st = TK.dispatch_stats()
+    assert st[arm + "_ref"] == 1
+    assert st[arm] == st[arm + "_d256"] == st[arm + "_g32"] == 0
+    TK._DISPATCH_STATS[arm + "_d256"] = 3
+    TK._DISPATCH_STATS[arm + "_g32"] = 2
+    TK.reset_dispatch_stats()
+    st = TK.dispatch_stats()
+    assert st[arm + "_d256"] == st[arm + "_g32"] == 0
+
+
 def test_paged_supported_guard():
     q = torch.zeros(2, 8, 128)
     assert TPA.supported(q, torch.zeros(4, 2, 16, 128),
