@@ -326,8 +326,10 @@ Phases, each printed on its own line; any failure exits non-zero:
     with the monitor on and ``FLAGS_enable_monitor_server`` on at port 0
     (the engine starts the server): a thread scrapes every route while
     the engine serves (each route's status printed: 200, 404 for an
-    absent scorecard, 501 for ``/roofline``, whose plane is ROADMAP
-    A10); ``/sharding`` lists the engine's parameter tree (every leaf,
+    absent scorecard); ``/roofline`` read after the serve: every prefill
+    and decode program has a verdict from the H100's table peaks, and its
+    modeled ms, sampled ms and ``model_error_ratio`` are printed;
+    ``/sharding`` lists the engine's parameter tree (every leaf,
     its bytes), ``/metrics?scope=fleet`` reports world size 1;
     ``/memory`` reports the card's total memory as ``bytes_limit``
     and ``bytes_in_use`` above 0; ``/profile?seconds=1`` taken mid-serve
@@ -443,6 +445,23 @@ Phases, each printed on its own line; any failure exits non-zero:
     workers, no plain version. ``moe_mesh`` also runs ``moe_train``'s
     rung with capacity dispatch (ROADMAP A9b) against the unmeshed
     capacity step.
+50. hapi_fit (after ``eager_recipe``, ROADMAP A10): ``Model.fit`` over
+    ``eager_train``'s configuration (Llama-3-8B widths, ``TRAIN_LAYERS``
+    deep, bf16, AdamW, ``CrossEntropyLoss``, ``Accuracy``) on
+    ``HAPI_STEPS`` shuffled batches of ``[TRAIN_BATCH, TRAIN_SEQ]`` from
+    a native (C++) ``DataLoader``: its losses equal, bit for bit, a
+    hand-written ``eager_step`` loop's over the same weights and the
+    same batches; flash / flash_bwd ``TRAIN_LAYERS`` and RMSNorm
+    forward / backward ``2 * TRAIN_LAYERS + 1`` launches a step, no plain
+    version; a ``FaultTolerantCheckpoint`` run stopped after
+    ``HAPI_STOP`` steps and a fresh ``Model`` resumed from it continue
+    with the next batch, their losses and final weights the uninterrupted
+    run's bit for bit; ``paddle_tpu_torch.save`` / ``load`` and
+    ``async_save`` of the state dict, and ``Model.save`` / ``load``
+    (``.pdparams`` and ``.pdopt``), restore bit for bit. Printed: fit's
+    step ms against the hand loop's, the native and thread loaders' ms a
+    batch, save / load s and GB/s, the state's bytes, fit's MFU
+    (``monitor.mfu``); checkpoints in a temporary directory it removes.
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -2724,13 +2743,13 @@ def phase_fleet_replay(torch, dev, cfg, params, card):
 
 # [operator_plane]: the routes a thread scrapes while the engine serves,
 # and the statuses each may answer (404: no trace replay scored yet in
-# this process; 501: the roofline plane, ROADMAP A10)
+# this process)
 OPERATOR_ROUTES = {
     "/metrics": {200}, "/healthz": {200}, "/flight": {200},
     "/programs": {200}, "/memory": {200}, "/numerics": {200},
     "/slo": {200}, "/fleet/serving": {200}, "/scorecard": {200, 404},
     "/forensics": {200}, "/requests/0": {200}, "/": {200},
-    "/roofline": {501}, "/timeseries": {200}, "/sharding": {200},
+    "/roofline": {200}, "/timeseries": {200}, "/sharding": {200},
     "/metrics?scope=fleet": {200},
 }
 
@@ -2818,6 +2837,7 @@ def phase_operator_plane(torch, dev, cfg, params, requests, card):
             prof.join()
             stop.set()
             scraper.join()
+            roof_status, roof_body = _http(srv.url + "/roofline")
             st = K.dispatch_stats()
             out = eng.outputs
             info = json.loads(got["profile"][1])
@@ -2883,6 +2903,42 @@ def phase_operator_plane(torch, dev, cfg, params, requests, card):
     assert st["flash"] > 0 and st["paged"] > 0, st
     _tc_route_only(st)
     assert all(v == 0 for k, v in st.items() if k.endswith("_ref")), st
+    assert roof_status == 200, roof_status
+    roofline_report(json.loads(roof_body), card)
+
+
+def roofline_report(roof, card):
+    """``[operator_plane] roofline``: the peaks ``/roofline`` resolved
+    (the H100's table row) and, for every serving program, its verdict,
+    FLOPs and bytes from the shapes, modeled ms, sampled mean ms and
+    ``model_error_ratio`` (None where no execution was sampled). Every
+    prefill and decode program must have a verdict."""
+    pk = roof["peaks"]
+    _say("operator_plane", card=repr(card), roofline_device=pk[
+        "device_kind"].replace(" ", "_"), flops_source=pk["flops_source"],
+         hbm_source=pk["hbm_source"], ici_source=pk["ici_source"],
+         peak_tflops=pk["peak_flops_per_sec"] / 1e12,
+         peak_hbm_gbs=pk["peak_hbm_bytes_per_sec"] / 1e9,
+         ridge_flops_per_byte=pk["ridge_point_flops_per_byte"],
+         max_error_ratio=roof["calibration"]["max_error_ratio"],
+         verdicts=json.dumps(roof["attribution"]["verdict_counts"],
+                             separators=(",", ":")))
+    progs = [p for p in roof["programs"]
+             if p["name"].startswith(("serving.prefill",
+                                      "serving.decode"))]
+    for p in progs:
+        _say("operator_plane", program=p["name"], verdict=p["verdict"],
+             flops=p["flops"], bytes_accessed=p["bytes_accessed"],
+             intensity=p["arithmetic_intensity"],
+             modeled_ms=None if p["t_modeled_s"] is None
+             else p["t_modeled_s"] * 1e3, sampled_ms=p["exec_mean_ms"],
+             samples=p["exec_samples"],
+             model_error_ratio=p["model_error_ratio"],
+             invocations=p["invocations"], share=p["share"])
+    assert pk["flops_source"] == pk["hbm_source"] == "table", pk
+    assert any(p["name"].startswith("serving.prefill") for p in progs)
+    assert any(p["name"].startswith("serving.decode") for p in progs)
+    assert all(p["verdict"] is not None for p in progs), progs
 
 
 def overload_case(torch, family, cfg, params, device, case, **override):
@@ -6552,6 +6608,300 @@ def phase_eager_recipe(torch, dev, card, eager_step_ms):
                if k.endswith("_ref") or k == "rms_fallback"), launches
 
 
+# [hapi_fit]: Model.fit over the eager main path (ROADMAP A10):
+# HAPI_STEPS batches of [TRAIN_BATCH, TRAIN_SEQ] from a native DataLoader
+# seeded with HAPI_SEED; a FaultTolerantCheckpoint run stopped after
+# HAPI_STOP steps, then resumed
+HAPI_STEPS, HAPI_STOP, HAPI_SEED = 8, 4, 22
+# free disk the phase needs, in units of the state's bytes (one
+# checkpoint of the state at a time, plus the write being staged)
+HAPI_DISK_FACTOR = 2.1
+
+
+def hapi_loader(P, ids, mode="native"):
+    """The phase's loader: shuffled, ``HAPI_SEED``, two workers, input
+    ids and shifted targets as tensors on the card."""
+    return P.io.DataLoader(P.io.TensorDataset([ids[:, :-1], ids[:, 1:]]),
+                           batch_size=TRAIN_BATCH, shuffle=True,
+                           seed=HAPI_SEED, worker_mode=mode, num_workers=2)
+
+
+def _hapi_fit(P, model, cfg, loader, callbacks=(), lr=3e-4, **kw):
+    """One ``Model.fit`` over ``model`` with a fresh AdamW: ``(Model,
+    optimizer, per-step losses, per-step ms)``; a step's ms is the time
+    between two ``on_train_batch_end`` calls (the batch's fetch
+    included), the first from ``on_train_begin``."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.metric import Accuracy
+    losses, stamps = [], []
+
+    class Steps(P.callbacks.Callback):
+        def on_train_begin(self, logs=None):
+            stamps.append(time.perf_counter())
+
+        def on_train_batch_end(self, step, logs=None):
+            stamps.append(time.perf_counter())
+            losses.append(logs["loss"][0])
+
+    opt = O.AdamW(learning_rate=lr, parameters=model.parameters())
+    m = P.Model(model)
+    m.prepare(opt, P.nn.CrossEntropyLoss(), metrics=Accuracy())
+    m.fit(loader, epochs=1, verbose=0, callbacks=[Steps(), *callbacks],
+          **kw)
+    return m, opt, losses, [(b - a) * 1e3 for a, b in zip(stamps,
+                                                          stamps[1:])]
+
+
+def _same_tensors(torch, a, b):
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k]
+        for k in a)
+
+
+def _same_opt_state(torch, opt, want):
+    """``opt``'s live state against a ``state_dict()`` taken from another
+    optimizer (no copy of ``opt``'s moments is made)."""
+    if opt._global_step != want["global_step"]:
+        return False
+    n = 1
+    for name, p in opt._names():
+        for k, v in opt._accumulators[id(p)].items():
+            n += 1
+            if not torch.equal(v, want[f"{name}.{k}"]):
+                return False
+    return n == len(want)
+
+
+def _nbytes(tree):
+    return sum(t.numel() * t.element_size() for t in tree.values()
+               if hasattr(t, "element_size"))
+
+
+def phase_hapi_fit(torch, dev, card):
+    """``Model.fit`` at ``eager_train``'s configuration (see the module
+    docstring, phase 50). Returns the launches of the uninterrupted
+    fit."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.monitor import mfu as MFU
+    t_phase = time.perf_counter()
+    cfg = L.llama_3_8b(num_hidden_layers=TRAIN_LAYERS)
+    model, _, _, _ = eager_train_setup(torch, cfg)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ids = np.random.default_rng(HAPI_SEED).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH * HAPI_STEPS, TRAIN_SEQ + 1))
+    param_bytes = _nbytes(init)
+    moment_bytes = 2 * 4 * sum(v.numel() for v in init.values())
+    _say("hapi_fit", layers=TRAIN_LAYERS, dtype="bf16",
+         batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", steps=HAPI_STEPS,
+         param_bytes=param_bytes, moment_bytes=moment_bytes,
+         state_bytes=param_bytes + moment_bytes)
+
+    # the loaders alone: ms a batch (tensors on the card), and the
+    # native feed's batches, which the fits and the hand loop consume;
+    # the feed's library is built (host C++ compiler) before the timing
+    from paddle_tpu_torch.io import native_feed
+    t0 = time.perf_counter()
+    native_feed._lib()
+    native_build_s = time.perf_counter() - t0
+    feed = {}
+    for mode in ("native", "thread"):
+        t0 = time.perf_counter()
+        sums = [int(b[0].sum()) + int(b[1].sum())
+                for b in hapi_loader(P, ids, mode)]
+        feed[mode] = ((time.perf_counter() - t0) * 1e3 / len(sums), sums)
+    assert len(feed["native"][1]) == HAPI_STEPS, feed
+
+    root = tempfile.mkdtemp(prefix="hapi_fit_")
+    try:
+        free = shutil.disk_usage(root).free
+        need = HAPI_DISK_FACTOR * (param_bytes + moment_bytes)
+        assert free >= need, (f"[hapi_fit] needs {need / 1e9:.1f} GB free "
+                              f"in {root}, has {free / 1e9:.1f} GB")
+        # the uninterrupted fit, its launches counted
+        torch.cuda.synchronize()
+        K.reset_dispatch_stats()
+        fit_m, fit_opt, fit_losses, fit_ms = _hapi_fit(
+            P, model, cfg, hapi_loader(P, ids))
+        torch.cuda.synchronize()
+        launches = K.dispatch_stats()
+        final = {k: v.detach().clone()
+                 for k, v in model.state_dict().items()}
+        del fit_m, fit_opt
+
+        # the hand-written loop over the same weights and batches
+        from paddle_tpu_torch import optimizer as O
+        model.set_state_dict(init)
+        opt = O.AdamW(learning_rate=3e-4, parameters=model.parameters())
+        hand_losses, hand_ms, hand_sums = [], [], []
+        t0 = time.perf_counter()
+        for inp, tgt in hapi_loader(P, ids):
+            hand_sums.append(int(inp.sum()) + int(tgt.sum()))
+            hand_losses.append(float(eager_step(model, opt, inp, tgt)))
+            t1 = time.perf_counter()
+            hand_ms.append((t1 - t0) * 1e3)
+            t0 = t1
+        del opt
+
+        # FLOPs of one step as FlopCounterMode counts them (its matmuls;
+        # the hand-written attention kernels are outside the counter), at
+        # one forward and backward on the first batch
+        import paddle_tpu_torch.nn.functional as F
+        inp, tgt = next(iter(hapi_loader(P, ids)))
+        counted = MFU.lowered_flops(lambda: F.cross_entropy(
+            model(inp).reshape([-1, cfg.vocab_size]),
+            tgt.reshape([-1])).backward())
+        model.clear_gradients()
+
+        # a run stopped after HAPI_STOP steps, checkpointed there
+        ck_dir = os.path.join(root, "ftc")
+        model.set_state_dict(init)
+        ftc = P.callbacks.FaultTolerantCheckpoint(
+            ck_dir, keep_last_n=1, save_interval_steps=HAPI_STOP,
+            async_save=False, preemption_hook=False)
+        t0 = time.perf_counter()
+        m, opt, stop_losses, _ = _hapi_fit(
+            P, model, cfg, hapi_loader(P, ids), callbacks=[ftc],
+            num_iters=HAPI_STOP)
+        stop_s = time.perf_counter() - t0
+        del m, opt, ftc            # the callback holds the Model
+        # a fresh Model, optimizer and loader over weights set back to
+        # their start: the resume must restore all of it
+        model.set_state_dict(init)
+        ftc2 = P.callbacks.FaultTolerantCheckpoint(
+            ck_dir, keep_last_n=1, save_interval_steps=HAPI_STEPS * 10,
+            async_save=False, preemption_hook=False)
+        loader2 = hapi_loader(P, ids)
+        t0 = time.perf_counter()
+        res_m, res_opt, res_losses, _ = _hapi_fit(
+            P, model, cfg, loader2, callbacks=[ftc2])
+        resume_s = time.perf_counter() - t0
+        resumed_state = loader2.state_dict()
+        restored = ftc2.restored_step
+        del ftc2
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        final_equal = _same_tensors(torch, {k: v.detach() for k, v in
+                                            model.state_dict().items()},
+                                    final)
+        del final
+
+        # paddle.save / load and async_save of the state dict
+        sd = {k: v.detach() for k, v in model.state_dict().items()}
+        path = os.path.join(root, "model.pdparams")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P.save(sd, path)
+        save_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = P.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        sync_equal = _same_tensors(torch, back, sd)
+        del back
+        os.remove(path)
+        t0 = time.perf_counter()
+        P.async_save(sd, path)
+        async_return_s = time.perf_counter() - t0
+        P.clear_async_save_task_queue()
+        async_s = time.perf_counter() - t0
+        back = P.load(path)
+        async_equal = _same_tensors(torch, back, sd)
+        del back
+        os.remove(path)
+
+        # Model.save / Model.load: .pdparams and .pdopt
+        want_opt = res_opt.state_dict()
+        t0 = time.perf_counter()
+        res_m.save(os.path.join(root, "final"))
+        msave_s = time.perf_counter() - t0
+        opt_file = os.path.getsize(os.path.join(root, "final.pdopt"))
+        del res_m, res_opt          # their moments: want_opt holds a copy
+        model.set_state_dict(init)
+        m2 = P.Model(model)
+        opt2 = O.AdamW(learning_rate=3e-4, parameters=model.parameters())
+        m2.prepare(opt2, P.nn.CrossEntropyLoss())
+        t0 = time.perf_counter()
+        m2.load(os.path.join(root, "final"))
+        torch.cuda.synchronize()
+        mload_s = time.perf_counter() - t0
+        mparams_equal = _same_tensors(
+            torch, {k: v.detach() for k, v in model.state_dict().items()},
+            sd)
+        mopt_equal = _same_opt_state(torch, opt2, want_opt)
+        del want_opt, m2, opt2, sd
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model, init
+    torch.cuda.empty_cache()
+
+    steps = HAPI_STEPS
+    fit_med = sorted(fit_ms[2:])[len(fit_ms[2:]) // 2]
+    hand_med = sorted(hand_ms[2:])[len(hand_ms[2:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    nparams = L.count_params(cfg)
+    _say("hapi_fit", card=repr(card), fit_losses=fit_losses,
+         hand_losses=hand_losses, losses_equal=fit_losses == hand_losses,
+         fit_step_ms=fit_ms, hand_step_ms=hand_ms, fit_median_ms=fit_med,
+         hand_median_ms=hand_med, fit_over_hand=fit_med / hand_med,
+         native_build_s=native_build_s,
+         native_ms_per_batch=feed["native"][0],
+         thread_ms_per_batch=feed["thread"][0])
+    _say("hapi_fit", counted_flops_per_step=counted,
+         mfu_counted=MFU.mfu(counted, 1e3 / fit_med),
+         mfu_6nd=MFU.mfu(6.0 * nparams * tokens, 1e3 / fit_med),
+         peak_flops=MFU.peak_flops(dev), steps=steps,
+         rms_per_step=launches["rms"] / steps,
+         rms_bwd_per_step=launches["rms_bwd"] / steps,
+         **{k: v for k, v in launches.items() if v})
+    _say("hapi_fit", stop_losses=stop_losses, resumed_losses=res_losses,
+         restored_step=restored, resumed_loader=json.dumps(
+             resumed_state, separators=(",", ":")),
+         final_weights_equal=final_equal, stop_run_s=stop_s,
+         resume_run_s=resume_s)
+    _say("hapi_fit", save_s=save_s, load_s=load_s,
+         save_gbs=file_bytes / save_s / 1e9,
+         load_gbs=file_bytes / load_s / 1e9, file_bytes=file_bytes,
+         roundtrip_equal=sync_equal, async_return_s=async_return_s,
+         async_drained_s=async_s, async_equal=async_equal,
+         model_save_s=msave_s, model_load_s=mload_s,
+         pdopt_bytes=opt_file,
+         model_save_gbs=(file_bytes + opt_file) / msave_s / 1e9,
+         model_load_gbs=(file_bytes + opt_file) / mload_s / 1e9,
+         pdparams_equal=mparams_equal, pdopt_equal=mopt_equal,
+         seconds=round(time.perf_counter() - t_phase, 2))
+    ln_v = math.log(cfg.vocab_size)
+    assert all(math.isfinite(x) for x in fit_losses), fit_losses
+    assert ln_v - 1 <= fit_losses[0] <= ln_v + 2, (fit_losses[0], ln_v)
+    assert len(fit_losses) == steps and fit_losses == hand_losses, (
+        fit_losses, hand_losses)
+    assert hand_sums == feed["native"][1], (hand_sums, feed)
+    n_rms = 2 * TRAIN_LAYERS + 1
+    assert launches["flash"] == TRAIN_LAYERS * steps, launches
+    assert launches["flash_bwd"] == TRAIN_LAYERS * steps, launches
+    assert launches["rms"] == n_rms * steps, launches
+    assert launches["rms_bwd"] == n_rms * steps, launches
+    _tc_route_only(launches)
+    assert all(v == 0 for k, v in launches.items()
+               if k.endswith("_ref") or k == "rms_fallback"), launches
+    assert stop_losses == fit_losses[:HAPI_STOP], stop_losses
+    assert restored == HAPI_STOP, restored
+    assert res_losses == fit_losses[HAPI_STOP:], res_losses
+    assert resumed_state["epoch"] == 0 and \
+        resumed_state["cursor"] == steps, resumed_state
+    assert final_equal
+    assert sync_equal and async_equal
+    assert mparams_equal and mopt_equal
+    return launches
+
+
 def phase_flash_d(torch, dev):
     """The flash pair at ``FLASH_DIMS`` against the plain versions,
     float32 and bf16, with GQA (8 / 2): the dense forward and backward
@@ -7609,6 +7959,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_eager_recipe(torch, dev, smi, eager_ms)
     torch.cuda.empty_cache()
+    hapi_launches = phase_hapi_fit(torch, dev, smi)
+    torch.cuda.empty_cache()
     phase_moe_train(torch, dev, smi)
     torch.cuda.empty_cache()
     guard_ms = phase_guard(torch, dev, smi)
@@ -7656,8 +8008,9 @@ def main() -> int:
                      (paged_mixed, "paged_mixed"), (rms_fwd, "rms"),
                      (rms_bwd, "rms_bwd")):
         rec["mesh_launches"] = sum(m[key] for m in mesh_launches.values())
-    # launches in the checkpoint and sentinel phases (ROADMAP A10): the
-    # dense pair at the training shape; every other kernel is off them
+    # launches in the checkpoint, sentinel and hapi phases (ROADMAP
+    # A10): the dense pair at the training shape (and, in hapi_fit, the
+    # RMSNorm pair); every other kernel is off them
     for rec, key in ((flash, "flash"), (flash_bwd, "flash_bwd"),
                      (seg_fwd, "varlen"), (seg_bwd, "varlen_bwd"),
                      (rms_fwd, "rms"), (rms_bwd, "rms_bwd"),
@@ -7666,6 +8019,7 @@ def main() -> int:
                      (paged_mixed, "paged_mixed")):
         rec["ckpt_launches"] = ckpt_launches[key]
         rec["sentinel_launches"] = sentinel_launches[key]
+        rec["hapi_launches"] = hapi_launches[key]
     # the wide decode rows (ROADMAP B1b): every column from the counter
     # of the row's own shape (``paged_d256``, ``paged_quant_g32``, ...),
     # launches from the head-dim-256 and group-32 serves
@@ -7676,8 +8030,10 @@ def main() -> int:
         rec["mesh_launches"] = sum(m[key] for m in mesh_launches.values())
         rec["ckpt_launches"] = ckpt_launches[key]
         rec["sentinel_launches"] = sentinel_launches[key]
+        rec["hapi_launches"] = hapi_launches[key]
     keys = ("name", "route", "source", "replaces", "launches",
             "mesh_launches", "ckpt_launches", "sentinel_launches",
+            "hapi_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [

@@ -2,8 +2,9 @@
 
 The JAX package beside it stays the reference. This package mirrors its
 layout module by module (``models/llama.py``, ``inference/paged.py``,
-``inference/engine.py``, ``io/packing.py``, ``kernels/...``, the eager
-``nn`` / ``optimizer`` surface) and runs on an NVIDIA Hopper card: every
+``inference/engine.py``, ``io/``, ``kernels/...``, the eager ``nn`` /
+``optimizer`` surface, ``paddle.save`` / ``load``, ``metric`` and the
+hapi ``Model``) and runs on an NVIDIA Hopper card: every
 Pallas kernel on a ported path is a hand-written CUDA kernel under
 ``csrc/``, built with ``nvcc`` at first use.
 
@@ -19,3 +20,9 @@ from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.tensor import to_tensor  # noqa: F401
 from .device import get_device, set_device  # noqa: F401
 from .framework.random import seed  # noqa: F401
+from .framework.io import (async_save, clear_async_save_task_queue,  # noqa
+                           load, save)
+from . import io, metric  # noqa: F401
+from . import hapi  # noqa: F401
+from .hapi import Model, summary  # noqa: F401
+from . import callbacks  # noqa: F401

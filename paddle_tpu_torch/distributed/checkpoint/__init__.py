@@ -237,9 +237,9 @@ def _ckpt_group(process_group=None):
 
 
 def _gather(obj, group) -> list:
-    out: list = [None] * dist.get_world_size(group)
-    dist.all_gather_object(out, obj, group=group)
-    return out
+    from ...monitor import comms as _comms
+    return _comms.gather_object([None] * dist.get_world_size(group), obj,
+                                group=group)
 
 
 # -- leaves ------------------------------------------------------------------

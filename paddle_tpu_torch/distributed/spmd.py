@@ -22,6 +22,10 @@ the single device, whose path is the plain calls, launch for launch.
 ``HashStore``, the mesh of one that the card verifies. Nothing falls back
 from the card to the CPU: :func:`make_mesh` on ``cuda`` without a card
 raises.
+
+Every redistribute and :func:`full` is counted, kind and per-device
+bytes, in the monitor's comms plane (``monitor/comms.py``) when
+``FLAGS_enable_monitor`` is on.
 """
 from __future__ import annotations
 
@@ -34,7 +38,10 @@ from torch.distributed.tensor import (DTensor, Partial, Placement,
                                       Replicate, Shard, distribute_tensor)
 
 from ..core import enforce as E
+from ..core import flags as _flags
 from ..core import resolve_device
+
+_MONITOR = _flags.flag_info("enable_monitor")
 
 __all__ = ["P", "make_mesh", "placements", "constrain", "shard",
            "replicate", "gather_axis", "local", "init_group", "is_dtensor",
@@ -158,19 +165,36 @@ def spec_of(x) -> P:
                for e in entries])
 
 
+def _count(src, dst, nbytes: int):
+    """Count the collectives that take placements ``src`` to ``dst``,
+    each moving ``nbytes`` a device (monitor on only)."""
+    from ..monitor import comms as _comms
+    for kind in _comms.placement_kinds(src, dst):
+        _comms.record_collective(kind, nbytes)
+
+
+def _redistribute(x, mesh, pls):
+    out = x.redistribute(mesh, pls)
+    if _MONITOR.value:
+        local_t = out.to_local()
+        _count(x.placements, out.placements,
+               local_t.numel() * local_t.element_size())
+    return out
+
+
 def constrain(x, mesh: Optional[DeviceMesh], spec: Sequence):
     """The reference's ``with_sharding_constraint``: ``x`` redistributed
     to ``spec``'s placements; without a mesh ``x`` itself."""
     if mesh is None:
         return x
-    return x.redistribute(mesh, placements(spec, mesh))
+    return _redistribute(x, mesh, placements(spec, mesh))
 
 
 def shard(x, mesh: DeviceMesh, spec: Sequence):
     """A full tensor (the same on every rank) as a DTensor placed by
     ``spec``; a DTensor is redistributed."""
     if isinstance(x, DTensor):
-        return x.redistribute(mesh, placements(spec, mesh))
+        return _redistribute(x, mesh, placements(spec, mesh))
     return distribute_tensor(x, mesh, placements(spec, mesh),
                              src_data_rank=None)
 
@@ -179,7 +203,7 @@ def replicate(x, mesh: DeviceMesh):
     """A tensor that is the same on every rank as a replicated DTensor
     (no communication)."""
     if isinstance(x, DTensor):
-        return x.redistribute(mesh, (Replicate(),) * mesh.ndim)
+        return _redistribute(x, mesh, (Replicate(),) * mesh.ndim)
     return DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
                               run_check=False)
 
@@ -189,6 +213,9 @@ def full(x):
     (``Partial`` placements reduced); a plain tensor itself."""
     if isinstance(x, DTensor):
         if any(isinstance(p, (Shard, Partial)) for p in x.placements):
+            if _MONITOR.value:
+                _count(x.placements, (Replicate(),) * x.device_mesh.ndim,
+                       x.numel() * x.element_size())
             return x.full_tensor()
         return x.to_local()
     return x
@@ -209,7 +236,7 @@ def gather_axis(x, name: str):
         return x
     pl = list(x.placements)
     pl[i] = Replicate()
-    return x.redistribute(x.device_mesh, tuple(pl))
+    return _redistribute(x, x.device_mesh, tuple(pl))
 
 
 def partial_on(x_or_placements, mesh: Optional[DeviceMesh], axes):
@@ -346,7 +373,7 @@ def bias_add(y, b):
     E.enforce(not any(isinstance(p, Partial) for p in y.placements),
               "spmd.bias_add: reduce the partial sums first",
               error=E.InvalidArgumentError)
-    b = b.redistribute(mesh, tuple(
+    b = _redistribute(b, mesh, tuple(
         Shard(0) if isinstance(p, Shard) and p.dim == last else Replicate()
         for p in y.placements))
     rows = [n for n, p in zip(mesh.mesh_dim_names, y.placements)

@@ -138,7 +138,7 @@ from .paged import (PagedKVCache, PrefixCache, paged_decode_step,
 
 __all__ = ["EngineOverloaded", "Request", "RequestCost", "RequestOutput",
            "RequestRejected", "EngineStats", "ServingEngine",
-           "serving_program_flops"]
+           "serving_program_flops", "serving_program_bytes"]
 
 PAGED_DEFAULT_PAGE = 16
 # the reference's page-size floor for int8 pools (kernels/autotune.py
@@ -204,6 +204,41 @@ def serving_program_flops(config, *, tokens: int, key_len: int,
         mlp = 6 * T * D * c.intermediate_size
     head = 2 * int(head_rows) * D * c.vocab_size
     return float(int(steps) * (L * (proj + attn + mlp) + head))
+
+
+def serving_program_bytes(config, *, tokens: int, key_len: int,
+                          head_rows: int, seqs: int, steps: int = 1,
+                          weight_bytes: float, kv_bytes_per_pos: float,
+                          act_bytes: int) -> float:
+    """HBM bytes of one call of a serving program, from its shapes, for
+    the roofline plane (``monitor/roofline.py``): ``steps`` passes, each
+    reading ``weight_bytes`` (every layer's weights and the head; of the
+    embedding table only the rows gathered), reading the KV of
+    ``key_len`` positions for each of the ``seqs`` sequences and writing
+    that of the ``tokens`` new positions in every layer
+    (``kv_bytes_per_pos``: keys and values of one position across the kv
+    heads, int8 scales included), reading and writing the ``tokens``
+    residual rows of every layer in ``act_bytes`` a value, and writing
+    ``head_rows`` float32 logits. The key positions are those
+    ``serving_program_flops`` counts, so the two describe one amount of
+    work."""
+    c = config
+    D, L = c.hidden_size, c.num_hidden_layers
+    T = int(tokens)
+    kv = L * (int(seqs) * int(key_len) + T) * kv_bytes_per_pos
+    act = (2 * L + 1) * T * D * act_bytes
+    logits = 4 * int(head_rows) * c.vocab_size
+    return float(int(steps) * (weight_bytes + kv + act + logits))
+
+
+def _tree_bytes(tree) -> int:
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return 0
 
 
 class RequestRejected(E.InvalidArgumentError):
@@ -558,6 +593,7 @@ class ServingEngine:
         # program FLOPs, cached per registry key: the cost plane reads
         # it once per chunk, not once per slot
         self._flops_by_key: dict = {}
+        self._weight_bytes = None     # serving_program_bytes: weights
         _monitor.set_gauge("serving.pages.total", self.cache.num_pages,
                            doc="KV page pool capacity")
         # the operator HTTP server, when FLAGS_enable_monitor_server is
@@ -578,11 +614,12 @@ class ServingEngine:
         _introspect.register_sharded_tree(
             f"serving:{self._engine_uid}.params", self.params)
 
-    def _record_serving_program(self, spec_key, name, flops_fn, args):
+    def _record_serving_program(self, spec_key, name, shape, args):
         """Register a serving program with the program registry
         (``monitor/programs.py``) at the first dispatch of its key, with
-        its signature and the FLOPs ``flops_fn()`` counts from its
-        shapes; later dispatches count hits. The registry itself is the
+        its signature and the FLOPs and bytes its ``shape`` gives
+        (``serving_program_flops`` / ``serving_program_bytes``); later
+        dispatches count hits. The registry itself is the
         dedup: after a ``monitor.reset()`` mid-run the next dispatch
         registers again. Monitor on only. The parameter tree's sharding
         summary rides the same seam (``ensure_sharded_tree``), so
@@ -594,9 +631,36 @@ class ServingEngine:
         if _programs.has_record(key):
             _programs.note_hit(key)
             return key
-        _programs.record_call(key, name, flops_fn(), args,
-                              source="serving")
+        shape = dict(shape)
+        seqs = shape.pop("seqs")
+        _programs.record_call(
+            key, name, serving_program_flops(self.config, **shape), args,
+            source="serving",
+            bytes_accessed=self._program_bytes(shape, seqs))
         return key
+
+    def _program_bytes(self, shape, seqs: int) -> float:
+        """``serving_program_bytes`` of a program's ``shape`` (the
+        keyword arguments of ``serving_program_flops``) over ``seqs``
+        sequences, this engine's weights and its pages."""
+        c = self.config
+        params = self.params
+        if self._weight_bytes is None:
+            w = _tree_bytes({k: v for k, v in params.items()
+                             if k != "embed"})
+            if "lm_head" not in params:
+                w += _tree_bytes(params["embed"])    # the tied head
+            self._weight_bytes = w
+        row = _tree_bytes(params["embed"]) / c.vocab_size
+        nkv, hd = c.num_key_value_heads, c.head_dim
+        if self.kv_quant:
+            per_pos = 2 * nkv * (hd + 4.0 / self.page_size)
+        else:
+            per_pos = 2 * nkv * hd * self.kv_dtype.itemsize
+        return serving_program_bytes(
+            c, weight_bytes=self._weight_bytes + shape["tokens"] * row,
+            kv_bytes_per_pos=per_pos, act_bytes=c.dtype.itemsize, seqs=seqs,
+            **shape)
 
     def _program_flops(self, key):
         """Cached ``monitor/programs.flops_of`` read (None when unknown).
@@ -1441,15 +1505,13 @@ class ServingEngine:
             # the program's record (first dispatch of its key) and its
             # FLOPs, split across the real requests of the group (pad
             # rows attribute nowhere)
-            c = self.config
             key = self._record_serving_program(
                 ("serving.prefill_shared", g, s_eff, ncp, sampled)
                 if cached else ("serving.prefill", g, s_pad, sampled),
                 f"serving.prefill_shared[g{g},s{s_eff},ctx{ncp}]"
                 if cached else f"serving.prefill[g{g},s{s_pad}]",
-                lambda: serving_program_flops(
-                    c, tokens=g * s_eff, key_len=cached + s_eff,
-                    head_rows=g),
+                dict(tokens=g * s_eff, key_len=cached + s_eff,
+                     head_rows=g, seqs=g),
                 (ids, rows, slen, *ctx))
             from ..monitor import exectime as _exectime
             exec_rec = _exectime.maybe_sample(key, feed_last=False)
@@ -1696,7 +1758,7 @@ class ServingEngine:
             f"serving.decode_chunk[c{C}"
             f"{',sampled' if seeds is not None else ''}]",
             dict(tokens=B, key_len=bt.shape[1] * self.page_size,
-                 head_rows=B, steps=C), args, len(live_idx)) \
+                 head_rows=B, steps=C, seqs=B), args, len(live_idx)) \
             if mon else (None, None)
         with _trace.span("serving.decode_chunk", chunk=C,
                          live=len(live_idx)), \
@@ -1745,9 +1807,7 @@ class ServingEngine:
         FLOPs share for each of the ``live`` slots sharing the dispatch
         (done and empty slots ride the fixed grid for free; the work
         exists because of the live ones)."""
-        c = self.config
-        key = self._record_serving_program(
-            spec_key, name, lambda: serving_program_flops(c, **shape), args)
+        key = self._record_serving_program(spec_key, name, shape, args)
         from ..monitor import exectime as _exectime
         exec_rec = _exectime.maybe_sample(key, feed_last=False)
         flops = self._program_flops(key)
@@ -1848,7 +1908,7 @@ class ServingEngine:
         exec_rec, flops_share = self._chunk_monitor(
             ("serving.spec_chunk", C), f"serving.spec_chunk[c{C}]",
             dict(tokens=B * C, key_len=bt.shape[1] * self.page_size,
-                 head_rows=B * C), args, len(live_idx)) \
+                 head_rows=B * C, seqs=B), args, len(live_idx)) \
             if mon else (None, None)
         with _trace.span("serving.spec_chunk", chunk=C,
                          live=len(live_idx)), \

@@ -192,6 +192,19 @@ class PackingCollator:
         self._carry = [np.asarray(c, np.int32).reshape(-1)
                        for c in state.get("carry", [])]
 
+    # O(1) offer-time pin for per-batch save providers
+    # (``DataLoader.state_provider``): the carry list is REBOUND, never
+    # mutated in place, by __call__ / set_state_dict, so a shallow copy
+    # of the references freezes the state; the JSON-safe rendering waits
+    # for an actual save
+    def state_snapshot(self) -> list:
+        return list(self._carry)
+
+    @staticmethod
+    def render_state(snapshot: list) -> dict:
+        return {"carry": [np.asarray(c).ravel().astype(int).tolist()
+                          for c in snapshot]}
+
 
 def heavy_tailed_lengths(seq_len: int, n_docs: int, seed: int = 7):
     """Deterministic heavy-tailed document-length trace (most documents

@@ -8,6 +8,10 @@ root (listed in ``.gitignore``), named by a hash of source, shared
 headers and flags, so an edited source is rebuilt and an unchanged one is
 reused. The build runs at first use; ``build_all`` starts one ``nvcc`` per
 source at once.
+
+Host sources (``HOST_SOURCES``: the native data feed) are built the same
+way by the host C++ compiler (``c++`` or ``g++``) into ``build/host/``;
+``load_host`` raises when there is no compiler or the build fails.
 """
 from __future__ import annotations
 
@@ -31,6 +35,10 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "paged_decode": "paged_decode.cu", "rms_norm": "rms_norm.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+HOST_SOURCES = {"datafeed": "datafeed.cc"}
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared", "-pthread"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -117,3 +125,48 @@ def check_device(t, what: str):
     E.enforce(major == 9, f"{what}: the CUDA kernels are built for "
               f"sm_90a (Hopper); device {t.device} has capability "
               f"{major}.{minor}", error=E.UnavailableError)
+
+
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise E.UnavailableError(
+        "no host C++ compiler (c++ / g++) found; the native data feed "
+        "cannot be built")
+
+
+def host_library_path(name: str) -> Path:
+    """A host library's path, named by a hash of its source and flags."""
+    src = (CSRC / HOST_SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()).hexdigest()
+    return HOST_BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The named host library (``HOST_SOURCES``), compiled by the host
+    C++ compiler on first use. Raises ``UnavailableError`` with the
+    compiler's output when the build fails."""
+    key = f"host:{name}"
+    lib = _LIBS.get(key)
+    if lib is not None:
+        return lib
+    out = host_library_path(name)
+    if not out.exists():
+        cxx = _cxx()
+        HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=HOST_BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run(
+            [cxx, *CXX_FLAGS, str(CSRC / HOST_SOURCES[name]), "-o", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise E.UnavailableError(
+                f"host build of {name} failed: {cxx} exited "
+                f"{proc.returncode}\n{proc.stdout.decode(errors='replace')}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _LIBS[key] = lib
+    return lib

@@ -12,7 +12,12 @@ planes built on it:
   burn rates and burn alerting, the autoscale demand model;
 - ``forensics``: per-request timelines, the scheduler decision ring,
   violation-cause attribution;
-- ``programs``: the serving programs with their shapes, hits and FLOPs;
+- ``programs``: the serving programs with their shapes, hits, FLOPs and
+  bytes;
+- ``mfu``: peak FLOP/s by card and model-FLOPs utilization;
+- ``comms``: the collectives counted at the port's seams;
+- ``roofline``: compute / HBM / comm-bound verdicts of the programs
+  behind ``/roofline``;
 - ``exectime``: 1-in-N sampled execution timing at the engine's seams;
 - ``steptimer``: ``StepTimer`` (data-wait / compute / checkpoint phases
   and goodput), ``ambient_phase`` (the checkpoint manager's bill) and
@@ -37,12 +42,9 @@ registered until something is recorded. Flip it on with
 Metric names, trace events, forensics kinds and environment variables
 are the reference's.
 
-Not ported yet, with their queue items in ROADMAP.md:
-
-- ``record_op``, ``tensor_bytes`` and ``tensor_free``, hooks of the
-  eager ``Tensor`` (A10, ``core/``);
-- the ``mfu``, ``comms`` and ``roofline`` planes and ``profiler/``
-  (A10).
+Not ported yet, with their queue items in ROADMAP.md: ``record_op``,
+``tensor_bytes`` and ``tensor_free``, hooks of the eager ``Tensor`` (A10,
+``core/``).
 """
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ __all__ = [
     "snapshot", "expose_text", "dump_json", "reset", "timed",
     "trace", "server", "programs", "exectime", "numerics", "slo",
     "forensics", "memory", "federation", "profile_capture", "fleet",
+    "mfu", "comms", "roofline",
     "StepTimer", "ambient_phase", "timeseries",
     "suppressed", "suppress_accounting",
 ]
@@ -182,6 +185,7 @@ def reset():
     federation.reset()
     forensics.reset()
     fleet.reset()
+    comms.reset()
     import sys as _sys
     _introspect = _sys.modules.get("paddle_tpu_torch.distributed.introspect")
     if _introspect is not None:
@@ -230,3 +234,6 @@ from . import federation  # noqa: E402
 from . import profile_capture  # noqa: E402
 from . import fleet  # noqa: E402
 from . import server  # noqa: E402
+from . import mfu  # noqa: E402
+from . import comms  # noqa: E402
+from . import roofline  # noqa: E402

@@ -177,9 +177,8 @@ def aggregated_snapshot(name: str = "monitor") -> dict:
         local["slo_tenants"] = tenants
     nproc = world_size()
     if nproc > 1:
-        import torch.distributed as dist
-        snaps: list = [None] * nproc
-        dist.all_gather_object(snaps, local)
+        from . import comms as _comms
+        snaps = _comms.gather_object([None] * nproc, local)
     else:
         snaps = [local]
     agg = aggregate_hosts(snaps)

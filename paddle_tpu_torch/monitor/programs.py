@@ -12,11 +12,13 @@ reads its FLOPs and bytes from XLA's cost analysis
 (``record_jit_call``). XLA counts the body of a ``lax.scan`` once, so
 the reference's FLOPs of a program that loops over layers, or over the
 steps of a decode chunk, are those of one layer and one step. The port
-runs eager PyTorch, so :func:`record_call` takes the FLOPs its caller
-computed from the program's shapes (every layer, every step, every
-matmul: the engine's ``serving_program_flops``). ``bytes_accessed``
-stays None, as the reference's does when its backend reports none: the
-plane never fabricates a value. The reference's lazy XLA memory analyzer
+runs eager PyTorch, so :func:`record_call` takes the FLOPs and the bytes
+its caller computed from the program's shapes (every layer, every step,
+every matmul: the engine's ``serving_program_flops`` and
+``serving_program_bytes``). A caller that counts no bytes leaves
+``bytes_accessed`` None, as the reference's backend does when it reports
+none: the plane never fabricates a value. The reference's lazy XLA
+memory analyzer
 (``analyze_pending``, ``analyzer_for``) has no counterpart: eager
 PyTorch compiles no program to analyze. So a record's ``memory``,
 ``collectives`` and ``sharding`` are None, the ``/programs`` route
@@ -60,10 +62,10 @@ def next_uid() -> int:
 
 
 class ProgramRecord:
-    """One program specialization. ``flops`` is the FLOPs of one call
-    (None when unknown, never fabricated); ``bytes_accessed``,
-    ``memory``, ``comms`` and ``sharding`` are the reference's fields and
-    stay None here (see the module docstring).
+    """One program specialization. ``flops`` and ``bytes_accessed`` are
+    the FLOPs and bytes of one call (None when unknown, never
+    fabricated); ``memory``, ``comms`` and ``sharding`` are the
+    reference's fields and stay None here (see the module docstring).
 
     Measured-execution fields (``monitor/exectime.py`` sampler):
     ``exec_samples`` / ``exec_total_ms`` / ``exec_max_ms`` accumulate
@@ -190,11 +192,12 @@ def record_program(key, name: str, *, source: str, signature: str = "",
 
 
 def record_call(key, name: str, flops: Optional[float], args: tuple, *,
-                source: str = "serving", donated=()) -> ProgramRecord:
+                source: str = "serving", donated=(),
+                bytes_accessed: Optional[float] = None) -> ProgramRecord:
     """Register a program at its first call: the signature of the call's
-    arguments and the FLOPs of one call, which the caller computed from
-    the program's shapes (the port's ``record_jit_call``, whose FLOPs
-    come from XLA's cost analysis). Also feeds the reference's
+    arguments and the FLOPs and bytes of one call, which the caller
+    computed from the program's shapes (the port's ``record_jit_call``,
+    whose FLOPs and bytes come from XLA's cost analysis). Also feeds the reference's
     ``jit.program.flops`` counter and ``jit.program.last_flops`` gauge.
     Callers gate on ``monitor.enabled()``."""
     from . import inc as _inc
@@ -208,7 +211,7 @@ def record_call(key, name: str, flops: Optional[float], args: tuple, *,
                        "compiled program")
     return record_program(key, name, source=source,
                           signature=signature_of(args), donated=donated,
-                          flops=flops, bytes_accessed=None)
+                          flops=flops, bytes_accessed=bytes_accessed)
 
 
 def note_hit(key):

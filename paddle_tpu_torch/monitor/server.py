@@ -41,7 +41,10 @@ Prometheus scraper or liveness probe hits:
   else the last ``aggregated_snapshot()`` the ranks gathered (503 until
   one was).
 
-``/roofline`` has its plane in ROADMAP A10. Until that is ported, it
+- ``GET /roofline``: per-program compute / HBM / comm-bound verdicts
+  and the step-level attribution (``monitor/roofline.py``).
+
+A route whose plane is not ported (``UNPORTED_ROUTES``, empty now)
 answers **501** with a JSON body that names its ROADMAP item, never a
 made-up payload.
 
@@ -87,9 +90,7 @@ _HEALTH_PROVIDERS: Dict[str, Callable[[], Optional[dict]]] = {}
 
 # The routes whose planes are not ported, each with its ROADMAP item;
 # they answer 501 and name it.
-UNPORTED_ROUTES = {
-    "/roofline": ("A10", "the roofline plane (monitor/roofline.py)"),
-}
+UNPORTED_ROUTES: Dict[str, tuple] = {}
 
 
 def plane_active() -> bool:
@@ -224,6 +225,9 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json(200, _introspect.sharding_snapshot())
             elif route in UNPORTED_ROUTES:
                 self._unported(route)
+            elif route == "/roofline":
+                from . import roofline as _roofline
+                self._send_json(200, _roofline.roofline_snapshot())
             elif route == "/timeseries":
                 from . import timeseries as _timeseries
                 self._send_json(200, _timeseries.timeseries_snapshot())

@@ -10,7 +10,15 @@ from .attention import (apply_rotary_emb, flash_attention,  # noqa: F401
                         sdpa_raw, sdpa_reference, segment_attention_raw,
                         segment_ids_from_cu_seqlens)
 from .common import embedding, linear  # noqa: F401
-from .loss import cross_entropy  # noqa: F401
+from .loss import (binary_cross_entropy,  # noqa: F401
+                   binary_cross_entropy_with_logits, cosine_embedding_loss,
+                   cross_entropy, dice_loss, gaussian_nll_loss,
+                   hinge_embedding_loss, kl_div, l1_loss, log_loss,
+                   margin_ranking_loss, mse_loss,
+                   multi_label_soft_margin_loss, nll_loss, npair_loss,
+                   poisson_nll_loss, sigmoid_focal_loss, smooth_l1_loss,
+                   soft_margin_loss, softmax_with_cross_entropy,
+                   square_error_cost, triplet_margin_loss)
 from .norm import rms_norm  # noqa: F401
 
 

@@ -6,8 +6,8 @@ Parameters are ``torch.nn.Parameter``s made on the current device
 (``paddle_tpu_torch.device``) in the layer's dtype (float32 unless
 given). Paddle's names sit beside torch's: ``create_parameter``,
 ``add_parameter``, ``add_sublayer``, ``parameters()`` as a list,
-``named_parameters``, ``sublayers``, ``state_dict`` / ``set_state_dict``
-over structured names (``layers.0.q_proj.weight``), ``to(device=,
+``named_parameters``, ``sublayers``, ``named_sublayers``, ``state_dict``
+/ ``set_state_dict`` over structured names (``layers.0.q_proj.weight``), ``to(device=,
 dtype=)`` with Paddle dtype names, ``astype``, ``float``, ``bfloat16``,
 ``clear_gradients``; ``train`` and ``eval`` are torch's. A
 parameter's Paddle name (an ``attr``'s ``name``, what
@@ -87,6 +87,15 @@ class Layer(torch.nn.Module):
         """The parameters as a list (Paddle's), not a generator."""
         kw.setdefault("recurse", include_sublayers)
         return list(super().parameters(**kw))
+
+    def named_sublayers(self, prefix: str = "", include_self: bool = False,
+                        layers_set=None):
+        """``(dotted name, layer)`` pairs in pre-order, each layer once
+        (the reference's order and names)."""
+        del layers_set
+        for name, m in self.named_modules(prefix=prefix):
+            if include_self or m is not self:
+                yield name, m
 
     def sublayers(self, include_self: bool = False):
         return [m for m in self.modules() if include_self or m is not self]

@@ -360,8 +360,9 @@ class AnomalySentinel:
         the max norm keeps the EMA state rank-identical, so the caps
         fed to the next step never diverge across ranks. It runs on the
         loop's thread, in step order on every rank."""
-        out: list = [None] * dist.get_world_size()
-        dist.all_gather_object(out, (bool(local_anom), float(g)))
+        from ..monitor import comms as _comms
+        out = _comms.gather_object([None] * dist.get_world_size(),
+                                   (bool(local_anom), float(g)))
         anom = any(a for a, _ in out)
         norms = [x for _, x in out if math.isfinite(x)]
         return anom, (max(norms) if norms else float("nan"))

@@ -14,6 +14,9 @@ from __future__ import annotations
 import json
 import os
 import sys
+import time
+
+T0 = float(os.environ.get("MESH_LAUNCH_T0", time.time()))
 
 import numpy as np
 import torch
@@ -344,14 +347,30 @@ def case_sentinel_agree():
                    "consecutive": sent.consecutive}, f)
 
 
+def _mark(what):
+    """One timestamped line in the rank's log (seconds since the launch,
+    peak resident MB), so a failed launch shows where each rank spent
+    its time and memory."""
+    import resource
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    print(f"[rank {RANK}] {time.time() - T0:.1f}s rss_max={rss:.0f}MB "
+          f"{what}", flush=True)
+
+
 def main():
     torch.set_num_threads(1)
+    _mark("imported")
     dist.init_process_group("gloo", init_method=f"file://{DIR}/pg",
                             rank=RANK, world_size=WORLD)
+    _mark("joined")
+    # the launcher starts its cap on the ranks' own work once every rank
+    # has joined (see _torch_mesh_common.launch)
+    open(os.path.join(DIR, f"joined_r{RANK}"), "w").close()
     try:
         for case in sys.argv[4:]:
             globals()[f"case_{case}"]()
             dist.barrier()
+            _mark(f"case {case} done")
     finally:
         dist.destroy_process_group()
 

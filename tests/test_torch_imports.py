@@ -6,8 +6,9 @@
   import inside a function is caught too).
 - Entry points called without ``device=`` raise on a box without a CUDA
   device instead of running on the CPU; so do the eager surface's
-  (``LlamaForCausalLM``, ``to_tensor``, ``seed``) until
-  ``set_device("cpu")`` asks for the CPU.
+  (``LlamaForCausalLM``, ``to_tensor``, ``seed``, the ``DataLoader``'s
+  batches, ``load``, ``Model``'s inputs) until ``set_device("cpu")`` (or
+  the loader's ``places="cpu"``) asks for the CPU.
 """
 import ast
 import pathlib
@@ -59,7 +60,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "monitor/steptimer.py", "monitor/timeseries.py",
             "distributed/env.py", "distributed/launch/main.py",
             "distributed/launch/__main__.py",
-            "training/elastic_worker.py"} <= scanned
+            "training/elastic_worker.py", "framework/io.py",
+            "io/dataset.py", "io/sampler.py", "io/dataloader.py",
+            "io/native_feed.py", "nn/layer/loss.py", "metric.py",
+            "hapi/model.py", "hapi/callbacks.py", "callbacks.py",
+            "monitor/mfu.py", "monitor/comms.py",
+            "monitor/roofline.py"} <= scanned
     files.append(_ROOT.parent / "chip_smoke.py")
     bad = [(str(f.relative_to(_ROOT.parent)), m) for f in files
            for m in _imported_modules(f)
@@ -157,5 +163,32 @@ def test_eager_surface_refuses_to_drop_to_cpu(no_cuda):
         assert paddle_tpu_torch.set_device("cpu") == "cpu"
         assert paddle_tpu_torch.to_tensor([1.5]).dtype == torch.float32
         assert TL.LlamaForCausalLM(cfg).lm_head.weight.device.type == "cpu"
+    finally:
+        TD._current_device = prev
+
+
+def test_data_and_hapi_entry_points_refuse_to_drop_to_cpu(no_cuda,
+                                                          tmp_path):
+    import numpy as np
+    from paddle_tpu_torch import io as tio
+    prev = TD._current_device
+    TD._current_device = None
+    try:
+        ds = tio.TensorDataset([np.arange(8)])
+        for mode in ("thread", "native"):
+            with pytest.raises(TE.UnavailableError):
+                next(iter(tio.DataLoader(ds, batch_size=2,
+                                         worker_mode=mode)))
+        (b,) = next(iter(tio.DataLoader(ds, batch_size=2, places="cpu")))
+        assert b.device.type == "cpu"
+        paddle_tpu_torch.save({"w": torch.ones(2)}, str(tmp_path / "w"))
+        with pytest.raises(TE.UnavailableError):
+            paddle_tpu_torch.load(str(tmp_path / "w"))
+        model = paddle_tpu_torch.Model(torch.nn.Identity())
+        with pytest.raises(TE.UnavailableError):
+            model.predict_batch([np.ones(2)])
+        paddle_tpu_torch.set_device("cpu")
+        assert paddle_tpu_torch.load(
+            str(tmp_path / "w"))["w"].device.type == "cpu"
     finally:
         TD._current_device = prev

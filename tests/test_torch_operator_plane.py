@@ -15,8 +15,10 @@
   the same metric families, those of the reference's XLA program
   analysis excepted; ``/timeseries``, ``/numerics`` and every block of
   ``/flight`` whole). Bad ``/profile`` arguments answer 400 on both.
-- ``/roofline`` (A10) answers 501 naming its ROADMAP item; ``/sharding``
-  and ``/metrics?scope=fleet`` (A9) are compared with the reference's.
+- ``/roofline``, the route that answered 501 until its plane was ported
+  (A10), answers 200 with the reference's payload keys and a verdict
+  for every program; ``/sharding`` and ``/metrics?scope=fleet`` (A9)
+  are compared with the reference's.
 - ``memory.hbm_stats`` / ``update_hbm_gauges`` / ``headroom`` on one
   injected ``stats_fn`` and one page-pool state equal the reference's,
   gauges included; on this host (no card) the port's device reading is
@@ -51,6 +53,8 @@ ROUTES = ("/metrics", "/healthz", "/flight", "/programs", "/memory",
           "/forensics", "/requests/1", "/requests/999", "/",
           "/profile?seconds=abc", "/profile?seconds=0",
           "/profile?seconds=1000", "/no/such/route")
+# routes that answered 501 until their plane was ported, with its
+# ROADMAP item; scraped on both sides
 UNPORTED = {"/roofline": "A10"}
 # the A9 routes, scraped on both sides after the same serve: the
 # parameter tree's layout and the single-process fleet aggregate
@@ -197,7 +201,7 @@ def scraped():
             while eng.step():
                 clock.advance(0.01)
             out[side] = _scrape(M, ROUTES + MESH_ROUTES + (
-                tuple(UNPORTED) if side == "torch" else ()))
+                tuple(UNPORTED)))
             del eng
     finally:
         set_monitor(False)
@@ -249,10 +253,18 @@ def test_route_payloads_pins(scraped):
 
 @pytest.mark.parametrize("route", sorted(UNPORTED))
 def test_unported_routes_name_their_roadmap_item(scraped, route):
+    """A route once unported leaves the server's 501 map when its plane
+    is ported (``/roofline``, A10): it answers 200 with the reference's
+    payload keys, and every serving program, whose bytes the port counts
+    from its shapes, has a verdict."""
+    from paddle_tpu_torch.monitor import server as tserver
+    assert route not in tserver.UNPORTED_ROUTES
     st, ctype, shape, payload = scraped["torch"][route]
-    assert st == 501 and ctype == "application/json"
-    assert payload["roadmap"] == UNPORTED[route]
-    assert f"ROADMAP.md queue A item {UNPORTED[route]}" in payload["error"]
+    jst, jctype, jshape, _ = scraped["jax"][route]
+    assert st == jst == 200 and ctype == jctype == "application/json"
+    assert set(shape) == set(jshape)
+    assert payload["programs"]
+    assert all(p["verdict"] is not None for p in payload["programs"])
 
 
 def test_sharding_route_lists_the_engine_params(scraped):
