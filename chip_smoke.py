@@ -462,6 +462,33 @@ Phases, each printed on its own line; any failure exits non-zero:
     step ms against the hand loop's, the native and thread loaders' ms a
     batch, save / load s and GB/s, the state's bytes, fit's MFU
     (``monitor.mfu``); checkpoints in a temporary directory it removes.
+51. autotune (the serving part after ``trace_replay`` on ``main``'s
+    weights, the training part inside ``train`` on its state; ROADMAP
+    A10): ``FLAGS_use_autotune`` is off in every other phase, which keep
+    page 16 (int8 32) and chunk 4096, and the cache is a fresh file under
+    ``build/``. The page-size sweep at ``main``'s decode shape (8 slots,
+    ``max_len`` 2048) over bf16 and int8 pools and the cross-entropy
+    chunk sweep at ``train``'s ``[4, 2048]`` x 4096 x 128256: every legal
+    candidate held to the plain version (decode) or the materialising
+    cross entropy (loss, ``dx``, ``dhead``) and timed by CUDA events, each
+    printed with its launches and split plan; a fresh cache over the file
+    answers from the cache and ``cached`` mode measures nothing
+    (``autotune.sweeps`` unchanged). Then ``main``'s 16 requests at the
+    tuned page (``page_size=None``) against page 16, and ``train``'s step
+    at the tuned chunk against 4096, each in turns (``AUTOTUNE_TURNS``);
+52. profiler (inside ``eager_train``, on its model): ``Profiler(
+    device_tracing=True)`` with ``PROFILER_SCHEDULE`` over
+    ``PROFILER_STEPS`` eager steps: each window records exactly its
+    scheduled steps, the native host tracer records, and each window's
+    CUDA trace holds as many flash and RMSNorm kernel events as the
+    launch counters moved (``PROFILED_KERNELS``), with device time; so do
+    the windows opened without a READY step (``PROFILER_COLD``:
+    ``scheduler=None`` and the tuple form); step ms recording against
+    off, in turns; ``export_chrome_trace`` has the host track;
+53. autograd (after ``surface``): a ``PyLayer`` over the RMSNorm kernel
+    wrappers at ``[8192, 4096]`` bf16 gives ``F.rms_norm``'s gradients bit
+    for bit; ``grad(create_graph=True)`` to second order on the card
+    equals the CPU's within ``AUTOGRAD_F32_TOL``.
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -5688,8 +5715,9 @@ def train_setup(torch, dev):
     return cfg, params, state, step, batch
 
 
-def phase_train(torch, dev, card):
-    """The training main path: Llama-3-8B widths, 4 layers, AdamW."""
+def phase_train(torch, dev, card, after=None):
+    """The training main path: Llama-3-8B widths, 4 layers, AdamW; then
+    ``after(cfg, params, state, batch)`` on its state, when given."""
     import math
 
     from paddle_tpu_torch import kernels as K
@@ -5735,6 +5763,8 @@ def phase_train(torch, dev, card):
     _tc_route_only(launches)
     assert all(launches[k] == 0 for k in ("flash_ref", "flash_bwd_ref",
                                           "paged_ref", "fused_ce_fallback"))
+    if after is not None:
+        after(cfg, params, state, batch)
     return launches, step_s * 1e3
 
 
@@ -5993,9 +6023,10 @@ def phase_eager_parity(torch, dev):
     assert grad_err <= TRAIN_GRAD_TOL, grad_err
 
 
-def phase_eager_train(torch, dev, card):
+def phase_eager_train(torch, dev, card, after=None):
     """The eager main path: ``LlamaForCausalLM`` at Llama-3-8B widths, 4
-    layers, bf16, AdamW, batch 4 x 2048. Returns ``(launches, median step
+    layers, bf16, AdamW, batch 4 x 2048; then ``after(model, opt, inp,
+    tgt)`` on its state, when given. Returns ``(launches, median step
     ms)``."""
     import math
 
@@ -6042,6 +6073,8 @@ def phase_eager_train(torch, dev, card):
     _tc_route_only(launches)
     assert all(v == 0 for k, v in launches.items()
                if k.endswith("_ref") or k == "rms_fallback"), launches
+    if after is not None:
+        after(model, opt, inp, tgt)
     return launches, step_s * 1e3
 
 
@@ -7815,6 +7848,491 @@ def phase_mesh(torch, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [autotune], [profiler], [autograd]: the autotuner measured on the card,
+# the profiler's device trace over the eager main path, paddle.autograd
+# ---------------------------------------------------------------------------
+
+# the A / B order of the serve and step comparisons (base: page 16 or
+# chunk 4096; tuned: what the sweep chose), and the steps of each turn
+AUTOTUNE_TURNS = ("base", "tuned", "tuned", "base")
+AUTOTUNE_TRAIN_STEPS = 3
+# the profiler's scheduler over the eager main path: two windows of two
+# recorded steps (steps 2-3 and 6-7 of 8), each after a closed and a
+# ready step
+PROFILER_SCHEDULE = dict(closed=1, ready=1, record=2, repeat=2)
+PROFILER_STEPS = 8
+# windows without a READY step, after the scheduled session, each over
+# its own steps: the whole of a session (scheduler None: no step before
+# the window, warmed by profiler._warm_cupti) and the tuple form (prepared
+# in the closed step before its window)
+PROFILER_COLD = ((None, 2), ((1, 3), 4))
+# the card's kernels in a device trace, by the counter each wrapper adds
+# to once a launch (the backward wrappers launch two kernels each)
+PROFILED_KERNELS = {"flash_fwd": (r"flash_fwd(_tc)?_kernel", "flash"),
+                    "flash_bwd_dq": (r"flash_bwd_dq(_tc)?_kernel",
+                                     "flash_bwd"),
+                    "flash_bwd_dkv": (r"flash_bwd_dkv(_tc)?_kernel",
+                                      "flash_bwd"),
+                    "rms_fwd": (r"rms_fwd_kernel", "rms"),
+                    "rms_bwd": (r"rms_bwd(_scalar)?_kernel", "rms_bwd"),
+                    "rms_dw": (r"rms_dw_kernel", "rms_bwd")}
+AUTOGRAD_F32_TOL = 1e-5      # second order, card against CPU, of max |g|
+
+
+@contextlib.contextmanager
+def autotune_window():
+    """``FLAGS_use_autotune`` on (every other phase runs with it off, at
+    page 16 (int8 32) and chunk 4096, the sizes they ran at before the
+    autotuner), the monitor on for the ``autotune.*`` counters; both off
+    again on exit."""
+    import paddle_tpu_torch
+    paddle_tpu_torch.set_flags({"use_autotune": True})
+    try:
+        with monitor_on() as M:
+            yield M
+    finally:
+        paddle_tpu_torch.set_flags({"use_autotune": False})
+
+
+def _sweeps(M):
+    return M.snapshot().get("counters", {}).get("autotune.sweeps", 0)
+
+
+def _autotune_entry(A, key, cands):
+    """The cache entry of a finished sweep; every legal candidate must
+    have been measured (no error, one timing each)."""
+    entry = A._CACHE.get(key)
+    assert entry and not entry.get("error"), (key, entry)
+    assert entry["candidates"] == len(cands), (entry, cands)
+    assert set(entry["timings_us"]) == {str(c) for c in cands}, entry
+    return entry
+
+
+def _autotune_reload(A, M, call, key):
+    """A fresh cache over the sweep's file answers ``call()`` from the
+    cache, and ``cached`` mode answers a cold shape without measuring;
+    ``autotune.sweeps`` must not move."""
+    sweeps, saved = _sweeps(M), A._CACHE
+    A._CACHE = A.AutotuneCache()
+    try:
+        got = call()
+        assert A.used_blocks()[key]["source"] == "cache", A.used_blocks()
+        os.environ["PADDLE_TPU_AUTOTUNE"] = "cached"
+        try:
+            cold = call(cold=True)
+        finally:
+            del os.environ["PADDLE_TPU_AUTOTUNE"]
+    finally:
+        A._CACHE = saved
+    assert _sweeps(M) == sweeps, (_sweeps(M), sweeps)
+    return got, cold
+
+
+def phase_autotune_serve(torch, dev, cfg, params, requests, card):
+    """``[autotune]`` on the serving main path: the page-size sweep at
+    ``main``'s decode shape (8 slots, ``max_len`` 2048, bf16 and int8
+    pools), every candidate held to the plain decode version and timed;
+    the reloaded cache and ``cached`` mode; then ``main``'s 16 requests
+    at the tuned page (``ServingEngine(page_size=None)``) and at page 16,
+    in turns. Returns the decode kernel's launches in the sweeps by arm."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import autotune as A
+    from paddle_tpu_torch.kernels import paged_attention as PA
+    shape = (8, cfg.num_attention_heads, cfg.num_key_value_heads,
+             cfg.head_dim, 2048)
+    tuned, launches = {}, {}
+    with autotune_window() as M:
+        for kvq in (False, True):
+            arm = "paged_quant" if kvq else "paged"
+            inner = A._paged_measurer(*shape, torch.bfloat16, kv_quant=kvq,
+                                      device=dev)
+            per = {}
+
+            def measure(ps, inner=inner, per=per, arm=arm):
+                K.reset_dispatch_stats()
+                try:
+                    return inner(ps)
+                finally:
+                    per[ps] = K.dispatch_stats()[arm]
+            sweeps = _sweeps(M)
+            t0 = time.perf_counter()
+            got = A.paged_page_size(*shape, torch.bfloat16, kv_quant=kvq,
+                                    measure=measure, device=dev)
+            sweep_s = time.perf_counter() - t0
+            key = (f"paged:{dev.type}:bfloat16:b{shape[0]}h{shape[1]}"
+                   f"kv{shape[2]}d{shape[3]}:m{shape[4]}"
+                   + (":kvq" if kvq else ""))
+            cands = A.paged_candidates(
+                torch.bfloat16, shape[4], kv_quant=kvq, batch=shape[0],
+                num_heads=shape[1], kv_heads=shape[2], head_dim=shape[3])
+            entry = _autotune_entry(A, key, cands)
+            assert _sweeps(M) == sweeps + 1
+            for ps in cands:
+                pps, splits = PA.decode_split_plan(
+                    shape[0], shape[2], ps, shape[4] // ps)
+                _say("autotune", card=repr(card), knob="page_size",
+                     kv_quant=kvq, page_size=ps,
+                     us=entry["timings_us"][str(ps)],
+                     max_abs_err=inner.errors[ps],
+                     tol_of_max=A._AGREE_TOL[torch.bfloat16],
+                     launches=per[ps], pages_per_split=pps, splits=splits)
+            default = cands[0]
+            _say("autotune", knob="page_size", kv_quant=kvq, key=key,
+                 tuned=got, default=default,
+                 keep_default_within=A.PAGED_KEEP_DEFAULT_WITHIN,
+                 sweep_s=round(sweep_s, 3),
+                 tuned_over_default_us=entry["timings_us"][str(got)]
+                 / entry["timings_us"][str(default)])
+
+            def call(cold=False, kvq=kvq):
+                b = 2 * shape[0] if cold else shape[0]
+                return A.paged_page_size(b, *shape[1:], torch.bfloat16,
+                                         kv_quant=kvq, device=dev)
+            again, cold = _autotune_reload(A, M, call, key)
+            assert again == got, (again, got)
+            cold_key = key.replace(f"b{shape[0]}h", f"b{2 * shape[0]}h", 1)
+            _say("autotune", knob="page_size", kv_quant=kvq,
+                 reloaded=again, reloaded_source="cache",
+                 cached_mode_cold=cold,
+                 cached_mode_source=A.used_blocks()[cold_key]["source"])
+            tuned[kvq] = got
+            launches[arm] = sum(per.values())
+    _autotune_serves(torch, dev, cfg, params, requests, card, tuned[False])
+    return launches
+
+
+def _serve_once(torch, dev, cfg, params, requests, page_size):
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import llama as L
+    eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048,
+                        page_size=page_size, device=dev)
+    K.reset_dispatch_stats()
+    out = eng.run(requests)
+    torch.cuda.synchronize()
+    launches = K.dispatch_stats()
+    st = eng.stats
+    ttft = sorted(o.ttft_s for o in out.values())
+    for r in requests:
+        toks = out[r.rid].tokens
+        assert len(toks) == r.max_new_tokens, (r.rid, len(toks))
+        assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), r.rid
+    assert launches["paged"] > 0 and launches["flash"] > 0, launches
+    assert all(v == 0 for k, v in launches.items() if k.endswith("_ref"))
+    _tc_route_only(launches)
+    return (eng.page_size, st.tokens_decoded / st.decode_s,
+            ttft[len(ttft) // 2], ttft[-1], launches,
+            {r.rid: out[r.rid].tokens.tolist() for r in requests})
+
+
+def _autotune_serves(torch, dev, cfg, params, requests, card, tuned):
+    """``main``'s requests at page 16 and at the tuned page, in turns; the
+    tuned engine resolves ``page_size=None`` through the cache."""
+    import statistics
+    import paddle_tpu_torch
+    rates = {"base": [], "tuned": []}
+    tokens = {}
+    for turn in AUTOTUNE_TURNS:
+        paddle_tpu_torch.set_flags({"use_autotune": turn == "tuned"})
+        try:
+            ps, rate, ttft_med, ttft_max, launches, toks = _serve_once(
+                torch, dev, cfg, params, requests,
+                None if turn == "tuned" else 16)
+        finally:
+            paddle_tpu_torch.set_flags({"use_autotune": False})
+        torch.cuda.empty_cache()
+        assert ps == (tuned if turn == "tuned" else 16), (turn, ps)
+        rates[turn].append(rate)
+        tokens[turn] = toks
+        _say("autotune", card=repr(card), serve=turn, page_size=ps,
+             decode_tok_per_s=rate, ttft_median_s=ttft_med,
+             ttft_max_s=ttft_max, paged_launches=launches["paged"],
+             flash_launches=launches["flash"])
+    same = sum(tokens["tuned"][r] == tokens["base"][r] for r in tokens["base"])
+    base, tun = (statistics.median(rates[k]) for k in ("base", "tuned"))
+    _say("autotune", serve="summary", tuned_page=tuned,
+         decode_tok_per_s_base=base, decode_tok_per_s_tuned=tun,
+         tuned_over_base=tun / base,
+         tokens_equal_to_page16=same, of=len(tokens["base"]))
+
+
+def phase_autotune_train(torch, dev, card, cfg, params, state, batch):
+    """``[autotune]`` on the training main path (``train``'s model and
+    batch): the cross-entropy chunk sweep at ``[4, 2048]`` tokens x 4096 x
+    128256, every candidate's loss, ``dx`` and ``dhead`` held to the
+    materialising cross entropy's and timed, forward and backward; then
+    ``train``'s step at the tuned chunk (``fused_ce_chunk=None``, through
+    the cache) and at 4096, in turns."""
+    import dataclasses
+    import statistics
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import autotune as A
+    from paddle_tpu_torch.models import llama as L
+    n, d, v = TRAIN_BATCH * TRAIN_SEQ, cfg.hidden_size, cfg.vocab_size
+    key = f"ce:{dev.type}:bfloat16:n{n}v{v}d{d}"
+    with autotune_window() as M:
+        inner = A._ce_measurer(n, d, v, torch.bfloat16, device=dev)
+        sweeps = _sweeps(M)
+        t0 = time.perf_counter()
+        chunk = A.ce_chunk(n, d, v, torch.bfloat16, measure=inner,
+                           device=dev)
+        sweep_s = time.perf_counter() - t0
+        cands = A.ce_candidates(v)
+        entry = _autotune_entry(A, key, cands)
+        assert _sweeps(M) == sweeps + 1
+        errors = dict(inner.errors)
+        del inner                       # its head and plain gradients
+    torch.cuda.empty_cache()
+    for c in cands:
+        _say("autotune", card=repr(card), knob="ce_chunk", chunk=c,
+             us=entry["timings_us"][str(c)], max_abs_err=errors[c])
+    _say("autotune", knob="ce_chunk", key=key, tuned=chunk,
+         default=A.CE_DEFAULT_CHUNK, sweep_s=round(sweep_s, 3),
+         tuned_over_default_us=entry["timings_us"][str(chunk)]
+         / entry["timings_us"][str(A.CE_DEFAULT_CHUNK)])
+    steps = {"base": L.make_train_step(
+                 dataclasses.replace(cfg, fused_ce_chunk=A.CE_DEFAULT_CHUNK)),
+             "tuned": L.make_train_step(cfg)}
+    times = {"base": [], "tuned": []}
+    for turn in AUTOTUNE_TURNS:
+        paddle_tpu_torch.set_flags({"use_autotune": turn == "tuned"})
+        try:
+            K.reset_dispatch_stats()
+            for _ in range(AUTOTUNE_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                _, _, loss = steps[turn](params, state, batch)
+                loss = float(loss)
+                times[turn].append(time.perf_counter() - t0)
+                assert loss == loss and abs(loss) < 1e4, loss
+        finally:
+            paddle_tpu_torch.set_flags({"use_autotune": False})
+        st = K.dispatch_stats()
+        assert st["fused_ce"] == AUTOTUNE_TRAIN_STEPS, st
+        if turn == "tuned":
+            assert A.used_blocks()[key] == {"chunk": chunk,
+                                            "source": "cache"}
+        _say("autotune", card=repr(card), train=turn,
+             chunk=chunk if turn == "tuned" else A.CE_DEFAULT_CHUNK,
+             step_ms=[round(t * 1e3, 3) for t in
+                      times[turn][-AUTOTUNE_TRAIN_STEPS:]], loss=loss,
+             flash_launches=st["flash"], flash_bwd_launches=st["flash_bwd"])
+    base, tun = (statistics.median(times[k]) * 1e3
+                 for k in ("base", "tuned"))
+    _say("autotune", train="summary", tuned_chunk=chunk,
+         median_step_ms_base=base, median_step_ms_tuned=tun,
+         tuned_over_base=tun / base)
+
+
+def _trace_kernels(path):
+    """``{PROFILED_KERNELS name: (launches, device µs)}`` of a chrome
+    trace written by ``torch.profiler``, and its kernel events in all."""
+    import re
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    got = {}
+    for name, (pattern, _) in PROFILED_KERNELS.items():
+        rx = re.compile(pattern)
+        hits = [e for e in kernels if rx.search(e.get("name", ""))]
+        got[name] = (len(hits), sum(float(e.get("dur", 0)) for e in hits))
+    return got, len(kernels)
+
+
+def _profiled_session(torch, P, K, model, opt, inp, tgt, sched, root,
+                      steps=PROFILER_STEPS):
+    """One ``Profiler(device_tracing=True)`` session under ``sched`` over
+    ``steps`` eager steps, each inside ``RecordEvent(step<i>)``.
+    Returns each window's ``(steps, host step spans, trace kernel counts,
+    kernel events, trace bytes)``, whether each step recorded, each
+    step's ms and launch counters, and the session's wall s."""
+    deltas, recorded, step_ms, windows = [], [], [], []
+
+    def ready(prof):
+        # the window: the run of recorded steps that ends with the last
+        steps = []
+        for j in range(len(recorded) - 1, -1, -1):
+            if not recorded[j]:
+                break
+            steps.insert(0, j)
+        spans = sorted(e["name"] for e in prof.events()
+                       if e["name"].startswith("step"))
+        counts, n_kernels = _trace_kernels(prof.last_device_trace)
+        windows.append((steps, spans, counts, n_kernels,
+                        os.path.getsize(prof.last_device_trace)))
+
+    t0 = time.perf_counter()
+    prof = P.Profiler(scheduler=sched, on_trace_ready=ready,
+                      device_tracing=True, device_trace_dir=root)
+    prof.start()
+    for i in range(steps):
+        recorded.append(prof.current_state in (
+            P.ProfilerState.RECORD, P.ProfilerState.RECORD_AND_RETURN))
+        K.reset_dispatch_stats()
+        t1 = time.perf_counter()
+        with P.RecordEvent(f"step{i}"):
+            loss = float(eager_step(model, opt, inp, tgt))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        deltas.append(K.dispatch_stats())
+        assert loss == loss, loss
+        prof.step()
+    prof.stop()
+    return windows, recorded, step_ms, deltas, time.perf_counter() - t0
+
+
+def _window_checks(card, label, windows, deltas):
+    """Each window's host spans are its steps, and its trace holds one
+    kernel event with device time for every launch the counters saw in
+    those steps (``PROFILED_KERNELS``); prints each window."""
+    for steps, spans, counts, n_kernels, size in windows:
+        assert spans == [f"step{i}" for i in steps], (steps, spans)
+        expect = {name: sum(deltas[i][key] for i in steps)
+                  for name, (_, key) in PROFILED_KERNELS.items()}
+        _say("profiler", card=repr(card), session=label,
+             window=",".join(map(str, steps)),
+             host_spans=",".join(spans), kernel_events=n_kernels,
+             trace_mb=round(size / 1e6, 2),
+             **{f"{k}_trace": counts[k][0] for k in counts},
+             **{f"{k}_counter": expect[k] for k in expect},
+             **{f"{k}_device_us": round(counts[k][1], 1) for k in counts})
+        for name, (n, us) in counts.items():
+            assert n == expect[name] > 0, (label, steps, name, n,
+                                           expect[name])
+            assert us > 0, (label, name, us)
+
+
+def phase_profiler(torch, dev, card, model, opt, inp, tgt):
+    """``[profiler]`` around ``eager_train``'s steps (its model, optimizer
+    and batch): ``Profiler(device_tracing=True)`` under
+    ``PROFILER_SCHEDULE`` over ``PROFILER_STEPS`` steps, each step inside a
+    ``RecordEvent``. Each window must record exactly its scheduled steps
+    (host spans), the native host tracer must be the recorder, and the
+    device trace's flash and RMSNorm kernel events must equal the launch
+    counters' deltas over the window's steps, with device time above 0.
+    Then the same checks on windows opened without a READY step
+    (``PROFILER_COLD``: ``scheduler=None`` and the tuple form). Step ms
+    with the window recording against steps outside it, in turns (closed
+    and ready steps between the windows); ``export_chrome_trace`` holds
+    the host track."""
+    import re
+    import shutil
+    import statistics
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch import profiler as P
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "profiler_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    sched = P.make_scheduler(**PROFILER_SCHEDULE)
+    want = [i for i in range(PROFILER_STEPS)
+            if sched(i) in (P.ProfilerState.RECORD,
+                            P.ProfilerState.RECORD_AND_RETURN)]
+    P._get_recorder()          # the host tracer's build, before any step
+    windows, recorded, step_ms, deltas, wall = _profiled_session(
+        torch, P, K, model, opt, inp, tgt, sched, root)
+    assert P._recorder_kind == "native", P._recorder_kind
+    assert [i for i, r in enumerate(recorded) if r] == want, recorded
+    assert [w[0] for w in windows] == [want[:2], want[2:]], windows
+    _window_checks(card, "scheduled", windows, deltas)
+    on = [step_ms[i] for i in want]
+    off = [step_ms[i] for i in range(PROFILER_STEPS) if i not in want]
+    _say("profiler", card=repr(card), recorder=P._recorder_kind,
+         windows=len(windows), step_ms=[round(t, 3) for t in step_ms],
+         median_step_ms_recording=statistics.median(on),
+         median_step_ms_off=statistics.median(off),
+         recording_over_off=statistics.median(on) / statistics.median(off),
+         wall_s=round(wall, 3))
+    path = os.path.join(root, "merged.json")
+    monitor.trace.export_chrome_trace(path)
+    with open(path) as f:
+        merged = json.load(f)["traceEvents"]
+    host = [e for e in merged if e.get("pid") == 1]
+    assert host and host[0]["args"]["name"] == "paddle_tpu.profiler.host"
+    names = {e["name"] for e in host[1:]}
+    assert {f"step{i}" for i in want[2:]} <= names, sorted(names)[:20]
+    ops = {n for n in names if not re.match(r"step\d", n)}
+    _say("profiler", merged_host_events=len(host) - 1,
+         host_op_names=len(ops), has_matmul="matmul" in ops or "linear" in ops)
+    launched = [deltas]
+    for cold, steps in PROFILER_COLD:
+        windows, recorded, _, deltas, _ = _profiled_session(
+            torch, P, K, model, opt, inp, tgt, cold, root, steps=steps)
+        rec = [i for i, r in enumerate(recorded) if r]
+        assert [w[0] for w in windows] == [rec], (cold, windows, rec)
+        _window_checks(card, "none" if cold is None
+                       else "tuple_{}_{}".format(*cold), windows, deltas)
+        launched.append(deltas)
+    _say("profiler", steps=sum(map(len, launched)),
+         **{f"{k}_launches": sum(d[k] for ds in launched for d in ds)
+            for k in ("flash", "flash_bwd", "rms", "rms_bwd")})
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_autograd(torch, dev):
+    """``[autograd]``: a ``PyLayer`` over the RMSNorm kernel wrappers
+    (``rms_norm_fwd`` / ``rms_norm_bwd``) at the eager path's ``[8192,
+    4096]`` bf16 gives the gradients of autograd through
+    ``F.rms_norm`` (the kernels' own ``_RmsNorm``) bit for bit, launching
+    the kernels once each a pass; ``grad(create_graph=True)`` to second
+    order on the card equals the CPU's within ``AUTOGRAD_F32_TOL``."""
+    import paddle_tpu_torch
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import autograd as AG
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import rms_norm as RN
+
+    class RMS(AG.PyLayer):
+        @staticmethod
+        def forward(ctx, x, w, eps):
+            y, rstd = RN.rms_norm_fwd(x, w, eps)
+            ctx.save_for_backward(x, w, rstd)
+            return y
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, w, rstd = ctx.saved_tensor()
+            return RN.rms_norm_bwd(x, w, rstd, dy.contiguous())
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x0 = torch.randn(8192, 4096, generator=g, device=dev).bfloat16()
+    w0 = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).bfloat16()
+    dy = torch.randn(8192, 4096, generator=g, device=dev).bfloat16()
+    got = {}
+    for name in ("pylayer", "F.rms_norm"):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        K.reset_dispatch_stats()
+        y = RMS.apply(x, w, RMS_EPS) if name == "pylayer" else \
+            F.rms_norm(x, w, RMS_EPS)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        st = K.dispatch_stats()
+        assert st["rms"] == 1 and st["rms_bwd"] == 1, (name, st)
+        assert st["rms_ref"] == st["rms_bwd_ref"] == 0, st
+        got[name] = (y.detach(), x.grad, w.grad)
+    for a, b in zip(got["pylayer"], got["F.rms_norm"]):
+        assert torch.equal(a, b)
+    # second order, card against CPU, float32
+    xs = torch.randn(64, 48, generator=torch.Generator().manual_seed(1))
+    second = {}
+    for where in ("cpu", dev):
+        x = xs.to(where).requires_grad_()
+        (g1,) = paddle_tpu_torch.grad((torch.tanh(x) * x * x).sum(), x,
+                                      create_graph=True)
+        (g2,) = paddle_tpu_torch.grad((g1 * g1).sum(), x)
+        second[str(where)] = (g1.detach().cpu(), g2.cpu())
+    cpu, card = second["cpu"], second[str(dev)]
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(card, cpu)]
+    _say("autograd", pylayer_rms_bit_equal=True, rms_launches=1,
+         rms_bwd_launches=1, shape="8192x4096_bf16",
+         first_order_rel_err=errs[0], second_order_rel_err=errs[1],
+         tol=AUTOGRAD_F32_TOL)
+    assert max(errs) <= AUTOGRAD_F32_TOL, errs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -7840,6 +8358,18 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     _say("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0).replace(" ", "_"))
+
+    # the autotuner: a fresh cache file under build/, and the knobs at
+    # their defaults (page 16, int8 32; chunk 4096) outside [autotune]
+    import paddle_tpu_torch
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "autotune_smoke.json")
+    if os.path.exists(cache):
+        os.remove(cache)
+    os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = cache
+    paddle_tpu_torch.set_flags({"use_autotune": False})
+    _say("autotune", cache=cache, use_autotune_outside_phase=False,
+         page_size=16, page_size_int8=32, ce_chunk=4096)
 
     t0 = time.perf_counter()
     compiled = _build.build_all()
@@ -7890,6 +8420,8 @@ def main() -> int:
     phase_train_packed_parity(torch, dev)
     phase_eager_parity(torch, dev)
     phase_surface(torch, dev)
+    phase_autograd(torch, dev)
+    torch.cuda.empty_cache()
     phase_eager_recipe_parity(torch, dev)
     phase_generate_parity(torch, dev)
     phase_moe_parity(torch, dev)
@@ -7936,6 +8468,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_trace_replay(torch, dev, smi)
     torch.cuda.empty_cache()
+    autotune_launches = phase_autotune_serve(torch, dev, cfg, params,
+                                             requests, smi)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     qparams = L.quantize_weights(params)        # int8 weight-only
     del params
@@ -7951,11 +8486,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_moe_main(torch, dev, args.layers, smi)
     torch.cuda.empty_cache()
-    train_launches, train_ms = phase_train(torch, dev, smi)
+    train_launches, train_ms = phase_train(
+        torch, dev, smi,
+        after=lambda *st: phase_autotune_train(torch, dev, smi, *st))
     torch.cuda.empty_cache()
     packed_launches = phase_train_packed(torch, dev, smi)
     torch.cuda.empty_cache()
-    eager_launches, eager_ms = phase_eager_train(torch, dev, smi)
+    eager_launches, eager_ms = phase_eager_train(
+        torch, dev, smi,
+        after=lambda *st: phase_profiler(torch, dev, smi, *st))
     torch.cuda.empty_cache()
     phase_eager_recipe(torch, dev, smi, eager_ms)
     torch.cuda.empty_cache()
@@ -8031,9 +8570,17 @@ def main() -> int:
         rec["ckpt_launches"] = ckpt_launches[key]
         rec["sentinel_launches"] = sentinel_launches[key]
         rec["hapi_launches"] = hapi_launches[key]
+    # launches in the [autotune] page-size sweeps: the decode kernel's
+    # two arms at every candidate page (none of the other kernels)
+    for rec in (flash, paged, paged_int8, flash_bwd, seg_fwd, seg_bwd,
+                rms_fwd, rms_bwd, dit_fwd, dit_bwd, paged_mixed,
+                *wide.values()):
+        rec["autotune_launches"] = 0
+    paged["autotune_launches"] = autotune_launches["paged"]
+    paged_int8["autotune_launches"] = autotune_launches["paged_quant"]
     keys = ("name", "route", "source", "replaces", "launches",
             "mesh_launches", "ckpt_launches", "sentinel_launches",
-            "hapi_launches",
+            "hapi_launches", "autotune_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [

@@ -3,8 +3,9 @@
 The JAX package beside it stays the reference. This package mirrors its
 layout module by module (``models/llama.py``, ``inference/paged.py``,
 ``inference/engine.py``, ``io/``, ``kernels/...``, the eager ``nn`` /
-``optimizer`` surface, ``paddle.save`` / ``load``, ``metric`` and the
-hapi ``Model``) and runs on an NVIDIA Hopper card: every
+``optimizer`` surface, ``paddle.save`` / ``load``, ``metric``, the
+hapi ``Model``, ``profiler``, ``autograd`` and the kernel autotuner) and
+runs on an NVIDIA Hopper card: every
 Pallas kernel on a ported path is a hand-written CUDA kernel under
 ``csrc/``, built with ``nvcc`` at first use.
 
@@ -15,7 +16,9 @@ wrapper takes its plain PyTorch version. Nothing here imports ``jax`` or
 """
 __version__ = "0.1.0"
 
-from . import incubate, nn, optimizer  # noqa: F401
+from . import autograd, incubate, nn, optimizer, profiler  # noqa: F401
+from .autograd import grad  # noqa: F401
+from .core.state import enable_grad, no_grad, set_grad_enabled  # noqa
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.tensor import to_tensor  # noqa: F401
 from .device import get_device, set_device  # noqa: F401

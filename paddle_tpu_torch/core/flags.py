@@ -17,8 +17,9 @@ are its options' defaults; ``serving_fleet_burn_scaling`` is the elastic
 serving controller's burn scaling over federated frames,
 ``distributed/fleet/elastic.py``), ``enable_monitor`` (the monitor planes),
 ``enable_monitor_server`` and ``monitor_server_port`` (the operator HTTP
-server, which ``ServingEngine`` starts through ``monitor.server.maybe_start``)
-and ``fault_injection`` (armed at import by ``testing.faults``). Left out,
+server, which ``ServingEngine`` starts through ``monitor.server.maybe_start``),
+``fault_injection`` (armed at import by ``testing.faults``) and
+``use_autotune`` (``kernels/autotune.py``). Left out,
 because nothing in the port reads them: the JAX-only flags
 (``use_pallas_kernels``, ``eager_jit_ops``, ``default_matmul_precision``)
 and ``check_nan_inf``, whose module is not ported yet.
@@ -107,6 +108,11 @@ def flag_info(name: str) -> _FlagInfo:
 define_flag("enable_monitor", False,
             "Collect runtime metrics (paddle_tpu.monitor counters/gauges/"
             "histograms) on the instrumented hot paths; off = one branch.")
+define_flag("use_autotune", True,
+            "Measure and cache the tuned kernel knobs per shape "
+            "(kernels/autotune.py: the KV page size, the cross-entropy "
+            "vocab chunk; reference: phi/kernels/autotune). Off = every "
+            "knob at its default.")
 define_flag("enable_sentinel", False,
             "Train-loop anomaly sentinel: models.llama/models.moe "
             "make_train_step builds the GUARDED step (in-graph "

@@ -1,3 +1,3 @@
 """``paddle.incubate`` (port of the fused-op part of
-``paddle_tpu/incubate``)."""
-from . import nn  # noqa: F401
+``paddle_tpu/incubate``, and ``incubate.autotune``)."""
+from . import autotune, nn  # noqa: F401

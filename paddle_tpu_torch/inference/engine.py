@@ -126,6 +126,7 @@ from .. import monitor as _monitor
 from ..core import enforce as E
 from ..core import flags as _flags
 from ..core import resolve_device
+from ..kernels import autotune as _autotune
 from ..monitor import forensics as _forensics
 from ..monitor import profile_capture as _pcap
 from ..monitor import programs as _programs
@@ -140,11 +141,6 @@ __all__ = ["EngineOverloaded", "Request", "RequestCost", "RequestOutput",
            "RequestRejected", "EngineStats", "ServingEngine",
            "serving_program_flops", "serving_program_bytes"]
 
-PAGED_DEFAULT_PAGE = 16
-# the reference's page-size floor for int8 pools (kernels/autotune.py
-# paged_candidates(kv_quant=True)[0]); the CUDA int8 arm takes any page
-# size, so this is the default only
-PAGED_QUANT_PAGE = 32
 
 def _engine_health_provider(ref):
     """Health contributor over a weakly-held engine: queue depth, slot
@@ -490,7 +486,10 @@ class ServingEngine:
     ``FLAGS_serving_kv_quant``) stores the KV pages as int8 codes with
     per-(page, kv head) float32 scales instead (about half the bytes of
     bfloat16 pages), and decodes through the int8 arm of the paged
-    kernel. ``page_size=None`` is 32 with ``kv_quant``, else 16.
+    kernel. ``page_size=None`` resolves through the autotune cache
+    (``kernels.autotune.paged_page_size`` at this engine's slots, heads,
+    ``max_len`` and page type: measured on the card, else the nearest
+    tuned neighbour or the default, 32 with ``kv_quant``, else 16).
 
     ``prefix_cache``, ``spec_decode``, ``priority_admission``,
     ``tenant_inflight_cap`` (a negative cap is 0, uncapped),
@@ -555,9 +554,18 @@ class ServingEngine:
                       else config.max_position_embeddings)
         self.kv_quant = bool(_flags.flag_value("serving_kv_quant")
                              if kv_quant is None else kv_quant)
+        self.kv_dtype = config.dtype if kv_dtype is None else kv_dtype
+        E.enforce(self.kv_dtype in (torch.float32, torch.bfloat16,
+                                    torch.float16),
+                  f"kv_dtype {self.kv_dtype} is not a page type the decode "
+                  f"kernel takes (float32, bfloat16, float16)",
+                  error=E.InvalidArgumentError)
         if page_size is None:
-            page_size = PAGED_QUANT_PAGE if self.kv_quant \
-                else PAGED_DEFAULT_PAGE
+            page_size = _autotune.paged_page_size(
+                self.num_slots, config.num_attention_heads,
+                config.num_key_value_heads, config.head_dim,
+                -(-max_len // 16) * 16, self.kv_dtype,
+                kv_quant=self.kv_quant, device=self.device)
         self.page_size = int(page_size)
         self.max_len = -(-max_len // self.page_size) * self.page_size
         self.max_pages_per_seq = self.max_len // self.page_size
@@ -567,12 +575,6 @@ class ServingEngine:
                   f"pool of {num_pages} pages cannot hold even one "
                   f"max-length sequence ({self.max_pages_per_seq} pages)")
         self.watermark_pages = int(watermark * num_pages)
-        self.kv_dtype = config.dtype if kv_dtype is None else kv_dtype
-        E.enforce(self.kv_dtype in (torch.float32, torch.bfloat16,
-                                    torch.float16),
-                  f"kv_dtype {self.kv_dtype} is not a page type the decode "
-                  f"kernel takes (float32, bfloat16, float16)",
-                  error=E.InvalidArgumentError)
         self.cache = PagedKVCache(config, num_pages, self.page_size,
                                   self.max_pages_per_seq, self.kv_dtype,
                                   self.device, kv_quant=self.kv_quant)

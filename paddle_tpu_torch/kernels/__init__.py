@@ -18,7 +18,9 @@ tensors; there is no fallback from the card to the plain version:
 
 ``fused_ce`` and ``ring_attention`` (the sequence-parallel ring over
 ``torch.distributed``) are plain PyTorch on every device, as the
-reference's are plain ``lax.scan`` code. The launch counters mirror the reference's
+reference's are plain ``lax.scan`` code. ``autotune`` measures and caches
+the knobs the main paths resolve per shape (the KV page size, the cross
+entropy's vocab chunk). The launch counters mirror the reference's
 ``_DISPATCH_STATS``.
 """
 from __future__ import annotations
@@ -26,19 +28,21 @@ from __future__ import annotations
 import torch
 
 from ..core import enforce as E
-from . import flash_attention, fused_ce, paged_attention, rms_norm  # noqa: F401
+from . import autotune, flash_attention, fused_ce  # noqa: F401
+from . import paged_attention, rms_norm  # noqa: F401
 from ._stats import DISPATCH_STATS as _DISPATCH_STATS
 from .ring_attention import ring_attention  # noqa: F401
 
-# the reference's CE_DEFAULT_CHUNK (kernels/autotune.py), its chunk off
-# the TPU; the port has no autotune cache
-CE_DEFAULT_CHUNK = 4096
+# the blockwise cross entropy's default vocab chunk (autotune.ce_chunk
+# tunes it per shape)
+CE_DEFAULT_CHUNK = autotune.CE_DEFAULT_CHUNK
 
 # the decode seam inference/paged.py calls (the reference's name); it
 # takes k_scales / v_scales for int8 pages, counted paged_quant[_ref]
 dispatched_paged_attention = paged_attention.ragged_paged_attention
 
-__all__ = ["flash_attention", "fused_ce", "paged_attention", "rms_norm",
+__all__ = ["autotune", "flash_attention", "fused_ce", "paged_attention",
+           "rms_norm",
            "dispatched_fused_ce", "dispatched_paged_attention",
            "dispatched_rms_norm", "dispatched_segment_attention",
            "ring_attention",
@@ -61,15 +65,19 @@ def dispatched_fused_ce(x, head, labels, *, vocab_chunk=None,
     """Blockwise cross entropy, counted: a shape it does not take falls
     back to the materialising cross entropy (the same math, ignore_index
     masking and valid-count mean included) over float32 logits, as the
-    reference's ``preferred_element_type``. ``vocab_chunk=None`` is
-    ``CE_DEFAULT_CHUNK``; an explicit int is taken as given."""
+    reference's ``preferred_element_type``. ``vocab_chunk=None`` resolves
+    through the autotune cache (``autotune.ce_chunk`` at this call's
+    tokens, width, vocabulary, dtype and device); an explicit int is
+    always taken as given."""
     if fused_ce.supported(x, head, labels):
         _DISPATCH_STATS["fused_ce"] += 1
+        if vocab_chunk is None:
+            vocab_chunk = autotune.ce_chunk(
+                x.numel() // x.shape[-1], int(x.shape[-1]),
+                int(head.shape[0]), x.dtype, device=x.device)
         return fused_ce.fused_cross_entropy(
-            x, head, labels,
-            vocab_chunk=CE_DEFAULT_CHUNK if vocab_chunk is None
-            else vocab_chunk,
-            reduction=reduction, ignore_index=ignore_index)
+            x, head, labels, vocab_chunk=vocab_chunk, reduction=reduction,
+            ignore_index=ignore_index)
     _DISPATCH_STATS["fused_ce_fallback"] += 1
     logits = fused_ce._mm_f32(x, head.t())
     return fused_ce.masked_xent_from_logits(

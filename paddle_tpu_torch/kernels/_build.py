@@ -9,9 +9,10 @@ headers and flags, so an edited source is rebuilt and an unchanged one is
 reused. The build runs at first use; ``build_all`` starts one ``nvcc`` per
 source at once.
 
-Host sources (``HOST_SOURCES``: the native data feed) are built the same
-way by the host C++ compiler (``c++`` or ``g++``) into ``build/host/``;
-``load_host`` raises when there is no compiler or the build fails.
+Host sources (``HOST_SOURCES``: the native data feed and the profiler's
+host tracer) are built the same way by the host C++ compiler (``c++`` or
+``g++``) into ``build/host/``; ``load_host`` raises when there is no
+compiler or the build fails.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-HOST_SOURCES = {"datafeed": "datafeed.cc"}
+HOST_SOURCES = {"datafeed": "datafeed.cc",
+                "host_tracer": "host_tracer.cc"}
 HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared", "-pthread"]
 
@@ -133,8 +135,8 @@ def _cxx() -> str:
         if found:
             return found
     raise E.UnavailableError(
-        "no host C++ compiler (c++ / g++) found; the native data feed "
-        "cannot be built")
+        "no host C++ compiler (c++ / g++) found; the host libraries "
+        f"({', '.join(HOST_SOURCES.values())}) cannot be built")
 
 
 def host_library_path(name: str) -> Path:

@@ -42,9 +42,13 @@ registered until something is recorded. Flip it on with
 Metric names, trace events, forensics kinds and environment variables
 are the reference's.
 
-Not ported yet, with their queue items in ROADMAP.md: ``record_op``,
-``tensor_bytes`` and ``tensor_free``, hooks of the eager ``Tensor`` (A10,
-``core/``).
+Counters recorded outside the planes: ``autotune.cache.hit|miss|evictions``
+and ``autotune.sweeps``, the kernel autotuner (``kernels/autotune.py``).
+
+Not ported yet, with their queue items in ROADMAP.md: ``record_op``
+(``op.<name>.calls``, ``op.dispatch.wall_ns``), ``tensor_bytes`` and
+``tensor_free``, hooks of the eager ``Tensor`` (A10, ``core/tensor.py``;
+the profiler's op spans time torch calls but count nothing here).
 """
 from __future__ import annotations
 

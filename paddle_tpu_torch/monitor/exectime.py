@@ -21,9 +21,9 @@ What a sample feeds:
   ``jit.program.exec.samples`` counter), under the reference's names;
 - per-program sampled count/mean/max on the
   :class:`monitor.programs.ProgramRecord` (``note_exec``);
-- the last-sample slot :func:`take_last_sample_ms` hands to a step
-  timeseries (the reference's ``monitor/timeseries.py``, ROADMAP A10;
-  the engine's seams keep their samples out of it).
+- the last-sample slot :func:`take_last_sample_ms` hands to the step
+  timeseries (``monitor/timeseries.py``; the engine's seams keep their
+  samples out of it).
 
 Gating: ``monitor.enabled()`` AND a nonzero sample rate. Off path =
 one cached-flag branch, no counters, no syncs.

@@ -33,6 +33,7 @@ reference writes XLA's profile directory (``plugins/profile/...``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import tempfile
@@ -41,6 +42,7 @@ import time
 from typing import Optional
 
 __all__ = ["CaptureBusy", "capture_sync", "capturing", "capture_root",
+           "exclusive_profiler", "hold_profiler", "release_profiler",
            "keep_captures", "annotate", "annotate_step",
            "list_captures", "TRACE_FILE"]
 
@@ -158,6 +160,45 @@ def _profiler(torch):
     return profile(activities=acts, experimental_config=cfg)
 
 
+@contextlib.contextmanager
+def exclusive_profiler(torch):
+    """Hold the process's profiler slot while a ``torch.profiler``
+    session starts: raises :class:`CaptureBusy` when a capture window is
+    open or another session (a benchmark's ``torch.profiler``, a
+    ``paddle_tpu_torch.profiler.Profiler`` device trace) holds the
+    profiler, since a second session started beside it would end the
+    first. Both ``capture_sync`` and the profiler's device trace start
+    under it."""
+    with _MU:
+        if _ACTIVE[0] is not None:
+            raise CaptureBusy(
+                f"a capture is already running ({_ACTIVE[0]['dir']})")
+        if torch.autograd.profiler._is_profiler_enabled:
+            raise CaptureBusy("torch profiler unavailable: another "
+                              "profiler session is running")
+        yield
+
+
+def hold_profiler(torch, owner: str) -> dict:
+    """Take the process's profiler slot for a session whose owner starts
+    and stops it itself (a ``Profiler`` device trace, from the step that
+    prepares it to the end of its window): until
+    :func:`release_profiler`, ``capture_sync`` and another hold raise
+    :class:`CaptureBusy`, and :func:`annotate` marks the session's
+    trace. Returns the slot's info."""
+    with exclusive_profiler(torch):
+        info = {"dir": owner, "started_unix": round(time.time(), 3)}
+        _ACTIVE[0] = info
+    return info
+
+
+def release_profiler(info: dict):
+    """Give back a slot taken by :func:`hold_profiler`."""
+    with _MU:
+        if _ACTIVE[0] is info:
+            _ACTIVE[0] = None
+
+
 def capture_sync(seconds: float, base_dir: Optional[str] = None) -> dict:
     """Run one exclusive capture window: start ``torch.profiler`` (CPU
     activity, plus CUDA activity when a CUDA device is present), sleep
@@ -177,15 +218,7 @@ def capture_sync(seconds: float, base_dir: Optional[str] = None) -> dict:
         raise ValueError(f"capture seconds must be > 0, got {seconds}")
     seconds = min(seconds, MAX_SECONDS)
     root = base_dir or capture_root()
-    with _MU:
-        if _ACTIVE[0] is not None:
-            raise CaptureBusy(
-                f"a capture is already running ({_ACTIVE[0]['dir']})")
-        if torch.autograd.profiler._is_profiler_enabled:
-            # a foreign session (a benchmark's torch.profiler) owns the
-            # profiler: starting another would end it
-            raise CaptureBusy("torch profiler unavailable: another "
-                              "profiler session is running")
+    with exclusive_profiler(torch):
         cap_dir = os.path.join(
             root, f"cap_{time.strftime('%Y%m%d_%H%M%S')}_"
                   f"{int((time.time() % 1) * 1e6):06d}")

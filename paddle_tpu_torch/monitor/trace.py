@@ -10,9 +10,8 @@ and instants (``instant(name, **attrs)``) with monotonic
 ``perf_counter_ns`` timestamps — that serves two consumers:
 
 - **Timeline export**: ``export_chrome_trace(path)`` writes
-  chrome://tracing JSON of these events. The reference merges its
-  profiler's host spans in as a second track; the port's ``profiler/``
-  is ROADMAP A10, so no second track is written yet.
+  chrome://tracing JSON of these events, with the profiler's host spans
+  (``paddle_tpu_torch.profiler``) merged in as a second track.
 - **Flight recorder**: because the buffer is bounded and always holds
   the most recent events, ``dump_flight_record(path)`` at any moment —
   in particular the moment a fault fires (``testing/faults.py``) or a
@@ -307,13 +306,23 @@ def record_fault(point: str, action: str) -> Optional[dict]:
 # -- chrome-trace export ----------------------------------------------------
 
 def export_chrome_trace(path: str, include_profiler: bool = True) -> str:
-    """Write chrome://tracing JSON of the ring's spans. The reference
-    merges its profiler's host spans as a second process track when
-    ``include_profiler`` is set; the port has no ``profiler/`` yet
-    (ROADMAP A10), so the flag merges nothing and the file is the
-    reference's with its profiler holding no events."""
+    """Write chrome://tracing JSON of the ring's spans, merged with the
+    profiler's host spans (when a ``paddle_tpu_torch.profiler`` recorder
+    has events and ``include_profiler`` is set) as a second process track
+    of the same timeline, ``paddle_tpu.profiler.host`` (pid 1). The ring
+    stamps ``perf_counter_ns`` and both recorders the same monotonic
+    clock (the native tracer's ``steady_clock``), so the tracks align
+    without clock translation. The card's kernels are not in this file:
+    they are in the profiler's device trace."""
     own = _RING.snapshot()
     prof_events: List[dict] = []
+    if include_profiler:
+        # read the module-level recorder WITHOUT building one: merging
+        # must not trigger a native compile as a side effect
+        from .. import profiler as _profiler
+        rec = _profiler._recorder
+        if rec is not None:
+            prof_events = rec.events()
 
     t0_candidates = [e[2] for e in own] + \
         [e["begin_ns"] for e in prof_events]

@@ -64,6 +64,10 @@ def main() -> int:
     from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.models import llama as L
+    import paddle_tpu_torch
+    # the page size the readings in PERF.md were taken at (16, int8 32),
+    # not one the autotuner would pick
+    paddle_tpu_torch.set_flags({"use_autotune": False})
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -24,6 +24,18 @@ from paddle_tpu_torch.nn.functional import attention as ATT
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(autouse=True)
+def knobs_at_defaults():
+    """The autotuned knobs at their defaults (page 16, int8 32; chunk
+    4096), so each case runs the shapes it was written for; the autotune
+    cases turn the flag on themselves."""
+    from paddle_tpu_torch.core import flags
+    prev = flags.flag_value("use_autotune")
+    flags.set_flags({"use_autotune": False})
+    yield
+    flags.set_flags({"use_autotune": prev})
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -1732,3 +1744,252 @@ def test_tiny_fit_launches_the_kernels(dev, tmp_path):
     back = P.load(str(tmp_path / "m.pdparams"))
     assert all(back[k].device.type == "cuda" and torch.equal(back[k], v)
                for k, v in sd.items())
+
+
+@pytest.fixture
+def autotune_on(tmp_path, monkeypatch):
+    """``FLAGS_use_autotune`` on over a fresh cache file; yields the
+    autotune module."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.kernels import autotune as A
+    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.setattr(A, "_CACHE", A.AutotuneCache())
+    flags.set_flags({"use_autotune": True})
+    A._FAILED_KEYS.clear()
+    yield A
+    flags.set_flags({"use_autotune": False})
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_page_size_sweep_measures_every_candidate(dev, autotune_on,
+                                                  kv_quant):
+    """The page-size sweep on the card: every legal page held to the
+    plain decode version and timed, the winner cached and then answered
+    from the cache; an engine with ``page_size=None`` takes it."""
+    A = autotune_on
+    shape = (4, 8, 2, 64, 256)
+    got = A.paged_page_size(*shape, torch.bfloat16, kv_quant=kv_quant,
+                            device=dev)
+    key = ("paged:cuda:bfloat16:b4h8kv2d64:m256"
+           + (":kvq" if kv_quant else ""))
+    entry = A._CACHE.get(key)
+    cands = A.paged_candidates(torch.bfloat16, 256, kv_quant=kv_quant,
+                               batch=4, num_heads=8, kv_heads=2,
+                               head_dim=64)
+    assert not entry.get("error") and entry["candidates"] == len(cands)
+    assert set(entry["timings_us"]) == {str(c) for c in cands}
+    assert all(t > 0 for t in entry["timings_us"].values())
+    assert got == entry["page_size"] in cands
+    assert A.paged_page_size(*shape, torch.bfloat16, kv_quant=kv_quant,
+                             device=dev) == got
+    assert A.used_blocks()[key]["source"] == "cache"
+
+
+def test_ce_chunk_sweep_measures_every_candidate(dev, autotune_on):
+    """The chunk sweep on the card (forward and backward, each candidate
+    held to the materialising cross entropy), then ``dispatched_fused_ce``
+    with ``vocab_chunk=None`` runs at the cached winner."""
+    A = autotune_on
+    got = A.ce_chunk(512, 64, 5000, torch.bfloat16, device=dev)
+    entry = A._CACHE.get("ce:cuda:bfloat16:n512v5000d64")
+    assert not entry.get("error") and entry["candidates"] == 4
+    assert set(entry["timings_us"]) == {"4096", "1024", "2048", "5000"}
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(2, 256, 64, generator=g, device=dev).bfloat16()
+    head = torch.randn(5000, 64, generator=g, device=dev).bfloat16()
+    labels = torch.randint(0, 5000, (2, 256), generator=g, device=dev)
+    loss = K.dispatched_fused_ce(x, head, labels)
+    assert A.used_blocks()["ce:cuda:bfloat16:n512v5000d64"] == {
+        "chunk": got, "source": "cache"}
+    want = CE.masked_xent_from_logits(CE._mm_f32(x, head.t()), labels)
+    assert abs(float(loss) - float(want)) <= 1e-4 * abs(float(want))
+
+
+def test_profiler_device_trace_counts_the_kernels(dev, tmp_path):
+    """``Profiler(device_tracing=True)`` over an RMSNorm forward and
+    backward and a flash forward, after a READY step: the CUDA trace
+    holds one kernel event for each launch the counters saw, with device
+    time; the op spans are there."""
+    import json
+    import re
+
+    from paddle_tpu_torch import profiler as P
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(256, 512, generator=g, device=dev).bfloat16()
+    x.requires_grad_()
+    w = torch.ones(512, device=dev, dtype=torch.bfloat16,
+                   requires_grad=True)
+    q = torch.randn(1, 128, 4, 64, generator=g, device=dev).bfloat16()
+    def work():
+        RN.rms_norm(x, w, 1e-5).sum().backward()
+        FA.flash_attention_fwd(q, q, q, causal=True)
+        _ = x + x
+
+    # a READY step warms the device trace up, then one recorded step
+    p = P.Profiler(scheduler=P.make_scheduler(closed=0, ready=1, record=1,
+                                              repeat=1),
+                   device_tracing=True, device_trace_dir=str(tmp_path))
+    p.start()
+    work()
+    p.step()
+    K.reset_dispatch_stats()
+    work()
+    p.step()
+    p.stop()
+    st = K.dispatch_stats()
+    assert st["rms"] == st["rms_bwd"] == st["flash"] == 1
+    assert P._recorder_kind == "native"
+    events = json.load(open(p.last_device_trace))["traceEvents"]
+    kern = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    for pattern, n in ((r"rms_fwd_kernel", 1), (r"rms_dw_kernel", 1),
+                       (r"rms_bwd(_scalar)?_kernel", 1),
+                       (r"flash_fwd(_tc)?_kernel", 1)):
+        hits = [e for e in kern if re.search(pattern, e["name"])]
+        assert len(hits) == n and all(e["dur"] > 0 for e in hits), pattern
+    assert "add" in {e["name"] for e in p.events()}
+    assert not torch._C._is_torch_function_mode_enabled()
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode"])
+def test_loss_fn_under_no_grad_sweeps_the_chunk(dev, autotune_on, mode):
+    """A validation loss with the flag on and a cold cache: ``loss_fn``
+    under ``torch.no_grad()`` / ``torch.inference_mode()`` at a vocabulary
+    of 4096 sweeps the chunk (forward and backward, under the sweep's own
+    grad mode), caches every candidate's time, and gives the loss of an
+    explicit 4096 chunk within 1e-4 relative."""
+    import dataclasses
+    A = autotune_on
+    cfg = L.llama_tiny(dtype=torch.bfloat16, vocab_size=4096)
+    params = L.init_params(cfg, seed=0, device=dev)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 33)), device=dev)
+    with getattr(torch, mode)():
+        loss = float(L.loss_fn(params, ids, cfg))
+        key = f"ce:cuda:bfloat16:n64v4096d{cfg.hidden_size}"
+        assert A.used_blocks()[key]["source"] == "measured"
+        entry = A._CACHE.get(key)
+        assert not entry.get("error") and entry["candidates"] == 3, entry
+        want = float(L.loss_fn(params, ids, dataclasses.replace(
+            cfg, fused_ce_chunk=4096)))
+    assert abs(loss - want) <= 1e-4 * abs(want), (loss, want)
+
+
+def test_train_step_sweeps_the_chunk_at_the_train_shape(dev, autotune_on):
+    """One ``make_train_step`` step with the flag on and a cold cache at
+    the training main path's shape (Llama-3-8B widths, 1 layer, ids
+    ``[4, 2049]``): the chunk sweep runs inside the live step over every
+    candidate, and the step's loss equals an explicit 4096 chunk's within
+    1e-3 relative (the chunks differ in float32 summation order)."""
+    import dataclasses
+    A = autotune_on
+    cfg = L.llama_3_8b(num_hidden_layers=1)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 2049)), device=dev)
+    losses = []
+    for c in (cfg, dataclasses.replace(cfg, fused_ce_chunk=4096)):
+        params = L.init_params(c, seed=0, device=dev)
+        state = L.adamw_init(params, moment_dtype=torch.float32)
+        _, _, loss = L.make_train_step(c)(params, state, ids)
+        losses.append(float(loss))
+        del params, state
+        torch.cuda.empty_cache()
+    key = f"ce:cuda:bfloat16:n{4 * 2048}v{cfg.vocab_size}d{cfg.hidden_size}"
+    entry = A._CACHE.get(key)
+    assert not entry.get("error"), entry
+    assert entry["candidates"] == len(A.ce_candidates(cfg.vocab_size)) == 5
+    assert A.used_blocks()[key]["source"] == "measured"
+    assert all(x == x for x in losses)
+    assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1]), losses
+
+
+@pytest.mark.parametrize("sched,steps", [(None, 1), ((0, 1), 1),
+                                         ((1, 2), 3)])
+def test_profiler_cold_window_counts_the_kernels(dev, tmp_path, sched,
+                                                 steps):
+    """A window without a READY step, after an earlier ``torch.profiler``
+    session in the process: with no step before it (``scheduler=None``,
+    a tuple from step 0, warmed by ``_warm_cupti``) or prepared in the
+    closed step before it (a tuple from step 1), the CUDA trace holds one
+    kernel event for each launch of the window's step."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import profiler as P
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(256, 512, generator=g, device=dev).bfloat16()
+    x.requires_grad_()
+    w = torch.ones(512, device=dev, dtype=torch.bfloat16,
+                   requires_grad=True)
+    q = torch.randn(1, 128, 4, 64, generator=g, device=dev).bfloat16()
+
+    def work():
+        RN.rms_norm(x, w, 1e-5).sum().backward()
+        FA.flash_attention_fwd(q, q, q, causal=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        work()
+    torch.cuda.synchronize()
+    p = P.Profiler(scheduler=sched, device_tracing=True,
+                   device_trace_dir=str(tmp_path))
+    p.start()
+    for _ in range(steps):
+        if p.current_state == P.ProfilerState.CLOSED:
+            work()
+        else:
+            K.reset_dispatch_stats()
+            work()
+            st = K.dispatch_stats()
+        p.step()
+    p.stop()
+    assert st["rms"] == st["rms_bwd"] == st["flash"] == 1
+    events = json.load(open(p.last_device_trace))["traceEvents"]
+    kern = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    for pattern in (r"rms_fwd_kernel", r"rms_dw_kernel",
+                    r"rms_bwd(_scalar)?_kernel", r"flash_fwd(_tc)?_kernel"):
+        hits = [e for e in kern if re.search(pattern, e["name"])]
+        assert len(hits) == 1 and hits[0]["dur"] > 0, (pattern, len(hits))
+
+
+def test_pylayer_over_the_kernels_and_second_order(dev):
+    """A ``PyLayer`` over the RMSNorm wrappers gives ``F.rms_norm``'s
+    gradients bit for bit on the card; a second-order ``grad`` on the
+    card equals the CPU's within 1e-5 of its largest entry (float32)."""
+    import paddle_tpu_torch
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import autograd as AG
+
+    class RMS(AG.PyLayer):
+        @staticmethod
+        def forward(ctx, x, w, eps):
+            y, rstd = RN.rms_norm_fwd(x, w, eps)
+            ctx.save_for_backward(x, w, rstd)
+            return y
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, w, rstd = ctx.saved_tensor()
+            return RN.rms_norm_bwd(x, w, rstd, dy.contiguous())
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x0 = torch.randn(64, 512, generator=g, device=dev).bfloat16()
+    w0 = torch.randn(512, generator=g, device=dev).bfloat16()
+    dy = torch.randn(64, 512, generator=g, device=dev).bfloat16()
+    out = []
+    for fn in (lambda x, w: RMS.apply(x, w, 1e-5),
+               lambda x, w: F.rms_norm(x, w, 1e-5)):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        fn(x, w).backward(dy)
+        out.append((x.grad, w.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    xs = torch.randn(16, 8, generator=torch.Generator().manual_seed(1))
+    res = []
+    for where in ("cpu", dev):
+        x = xs.to(where).requires_grad_()
+        (g1,) = paddle_tpu_torch.grad((torch.tanh(x) * x * x).sum(), x,
+                                      create_graph=True)
+        res.append(paddle_tpu_torch.grad((g1 * g1).sum(), x)[0].cpu())
+    assert float((res[0] - res[1]).abs().max()) <= \
+        1e-5 * float(res[0].abs().max())

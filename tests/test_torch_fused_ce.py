@@ -152,8 +152,10 @@ def test_dispatcher_counts_and_falls_back():
 
 
 def test_dispatcher_chunk_default_and_explicit(monkeypatch):
-    """``vocab_chunk=None`` resolves to the reference's default chunk
-    (4096); an explicit int is passed on as given."""
+    """``vocab_chunk=None`` resolves through the autotune cache, which
+    off the card gives the reference's default chunk (4096) clamped to
+    the vocabulary, as the reference's ``ce_chunk`` does; an explicit int
+    is passed on as given."""
     seen = []
     real = TCE.fused_cross_entropy
 
@@ -167,4 +169,5 @@ def test_dispatcher_chunk_default_and_explicit(monkeypatch):
             torch.as_tensor(labels))
     TK.dispatched_fused_ce(*args)
     TK.dispatched_fused_ce(*args, vocab_chunk=5)
-    assert seen == [TK.CE_DEFAULT_CHUNK, 5] and TK.CE_DEFAULT_CHUNK == 4096
+    assert seen == [min(TK.CE_DEFAULT_CHUNK, 16), 5]
+    assert TK.CE_DEFAULT_CHUNK == 4096

@@ -9,7 +9,8 @@ and the serving engine's lifecycle events, against the reference's.
   blocks equal the reference's; ``dump_flight_record`` writes it only to
   an armed destination.
 - The chrome-trace export is structurally equal to the reference's on
-  the same events (no profiler track on either side).
+  the same events, without a profiler track and with the profiler's host
+  spans merged as the second track (pid 1) on both sides.
 - The token-accounting contract (``engine.py``'s docstring: generated -
   discarded == the tokens kept) on a preempting serve, held against the
   JAX engine along with every lifecycle event the two engines record.
@@ -144,10 +145,19 @@ def test_env_arms_the_flight_record(monkeypatch, tmp_path):
     assert TM.trace.flight_record_path() == p
 
 
+def _empty_port_profiler():
+    """Clear what another test left in the port's host recorder."""
+    from paddle_tpu_torch import profiler as TPROF
+    if TPROF._recorder is not None:
+        TPROF._recorder.start()
+        TPROF._recorder.stop()
+
+
 def test_chrome_export_matches(monitor_on, clock, tmp_path):
-    """The port merges no profiler track (it has no profiler yet), so its
-    export equals the reference's without its profiler's events, whatever
-    another test left in the JAX profiler's recorder."""
+    """With the profiler's recorder empty the port merges no profiler
+    track, so its export equals the reference's without its profiler's
+    events, whatever another test left in the JAX profiler's recorder."""
+    _empty_port_profiler()
     out = {}
     for M, include in ((JM, False), (TM, True), (TM, False)):
         clock.now = 1000.0
@@ -230,3 +240,47 @@ def test_fault_corrupt_and_raise_land_in_the_ring(monitor_on, tmp_path):
         assert disk["reason"] == "fault:serving.drain:raise"
     finally:
         TM.trace.set_flight_record_path(TTR._UNSET)
+
+
+def test_chrome_export_merges_profiler_host_spans(monitor_on, tmp_path,
+                                                  monkeypatch):
+    """Spans of a profiler window land on a second process track,
+    ``paddle_tpu.profiler.host`` (pid 1), of the same timeline, on both
+    packages; nothing is merged with ``include_profiler=False``. The
+    recorders read the real clock, so the ring does too here (a module
+    fixture may have left a fake one in place)."""
+    import time
+
+    from paddle_tpu import profiler as JPROF
+    from paddle_tpu_torch import profiler as TPROF
+    for mod in (JTR, TTR):
+        monkeypatch.setattr(mod, "time", time)
+    out = {}
+    for M, P in ((JM, JPROF), (TM, TPROF)):
+        M.reset()
+        with P.Profiler():
+            with M.trace.span("ring_span"):
+                with P.RecordEvent("host_a"):
+                    with P.RecordEvent("host_b"):
+                        pass
+        for include in (True, False):
+            path = tmp_path / f"{M.__name__}{include}.json"
+            M.trace.export_chrome_trace(str(path), include_profiler=include)
+            out[M, include] = json.loads(path.read_text())["traceEvents"]
+    for M in (JM, TM):
+        assert not any(e["pid"] == 1 for e in out[M, False])
+        host = [e for e in out[M, True] if e["pid"] == 1]
+        assert host[0] == {"name": "process_name", "ph": "M", "pid": 1,
+                           "args": {"name": "paddle_tpu.profiler.host"}}
+        assert sorted(e["name"] for e in host[1:]) == ["host_a", "host_b"]
+        ring = [e for e in out[M, True] if e["name"] == "ring_span"][0]
+        span = {e["name"]: e for e in host[1:]}
+        assert all(e["ph"] == "X" and e["dur"] >= 0 for e in host[1:])
+        # one timeline: the host spans lie inside the ring's span
+        assert ring["ts"] <= span["host_a"]["ts"] <= span["host_b"]["ts"]
+        assert (span["host_a"]["ts"] + span["host_a"]["dur"]
+                <= ring["ts"] + ring["dur"] + 1.0)
+    shape = {M: sorted((e["name"], e["ph"], e["pid"]) for e in out[M, True])
+             for M in (JM, TM)}
+    assert shape[TM] == shape[JM]
+    _empty_port_profiler()
