@@ -488,7 +488,19 @@ Phases, each printed on its own line; any failure exits non-zero:
 53. autograd (after ``surface``): a ``PyLayer`` over the RMSNorm kernel
     wrappers at ``[8192, 4096]`` bf16 gives ``F.rms_norm``'s gradients bit
     for bit; ``grad(create_graph=True)`` to second order on the card
-    equals the CPU's within ``AUTOGRAD_F32_TOL``.
+    equals the CPU's within ``AUTOGRAD_F32_TOL``;
+54. ops, ops_block (after ``autograd``, the op library): every
+    registered op (``registered_ops()``) on the card against the CPU on
+    the seeded inputs of ``paddle_tpu_torch/testing/op_cases.py`` at the
+    eager path's widths, float32 and bfloat16, random ops by their
+    moments; then one Llama-3-8B-width bf16 layer written with the flat
+    ops and ``F.*`` at ``[TRAIN_BATCH, TRAIN_SEQ]``, forward and
+    backward, against ``_block`` (``FLASH_TOL`` / ``BWD_TOL``), its
+    flash and RMSNorm launches (``ops_block_launches`` on the kernels
+    line), ms a layer beside ``_block`` with the monitor off and on, and
+    its ``op.<name>.calls`` against the CPU's table at ``llama_tiny``,
+    the mean ``op.dispatch.wall_ns`` and the seam's host ns a call
+    (``ops_seam_ns``).
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -8333,6 +8345,492 @@ def phase_autograd(torch, dev):
     assert max(errs) <= AUTOGRAD_F32_TOL, errs
 
 
+# -- the op library (ROADMAP A10): [ops] and [ops_block] ----------------------
+
+# [ops]: float32 card outputs within rtol of the CPU's (the CPU parity
+# tests' 1e-5, or the case's stated tolerance) plus OPS_F32_ATOL_REL of
+# the output's max |x| (sums over up to 2^24 terms in another order);
+# bfloat16 card outputs within FLASH_TOL of the output's max |x| of the
+# card's float32 result on the same bf16-rounded inputs; integers and
+# booleans exactly
+OPS_F32_ATOL_REL = 1e-5
+OPS_SLOWEST = 10
+# [ops_block]: the op-built layer against models/llama.py _block
+OPS_BLOCK_TIMED = 3     # timed fwd + bwd of each arm, in turns
+OPS_BLOCK_KERNELS = ("flash", "flash_bwd", "rms", "rms_bwd")
+OPS_SEAM_CALLS = 20000  # flat-op calls timed against the bare torch call
+
+
+def _op_map(obj, f):
+    """``obj`` with ``f`` applied to every tensor (in lists / tuples /
+    dicts too)."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return f(obj)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_op_map(o, f) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _op_map(v, f) for k, v in obj.items()}
+    return obj
+
+
+def _op_variant(torch, t, dt, copy):
+    """``t`` for a check in ``dt``: float32 tensors as ``"bfloat16"`` or
+    ``"bf16_as_f32"`` (rounded to bf16, then float32: the exact float32
+    view of the bf16 inputs); ``copy`` gives an in-place op its own
+    memory."""
+    if t.dtype == torch.float32 and dt != "float32":
+        t = t.bfloat16()
+        return t.float() if dt == "bf16_as_f32" else t
+    return t.clone() if copy else t
+
+
+def _op_outputs(out):
+    if isinstance(out, (tuple, list)):
+        return [o for x in out for o in _op_outputs(x)]
+    return [out]
+
+
+def _op_call(torch, name, fn, args, kw, dev, dt):
+    """``fn`` on ``args`` / ``kw`` (tensors already on ``dev``) in
+    ``dt``, with ``dev`` the current device (for the creation ops)."""
+    import paddle_tpu_torch as P
+    P.set_device("cpu" if dev.type == "cpu" else f"gpu:{dev.index or 0}")
+
+    def var(t):
+        return _op_variant(torch, t, dt, name.endswith("_"))
+    out = fn(*_op_map(args, var), **_op_map(kw, var))
+    return _op_outputs(out)
+
+
+def _op_compare(torch, got, want, dt, tol):
+    """The largest error of ``got`` against ``want`` in the check's own
+    measure, computed on ``got``'s device (0 for exact integer / boolean
+    outputs); raises on a miss."""
+    worst = 0.0
+    assert len(got) == len(want), (len(got), len(want))
+    for g, w in zip(got, want):
+        if not isinstance(g, torch.Tensor):
+            assert g == w, (g, w)
+            continue
+        g = g.detach()
+        w = w.detach().to(g.device)
+        assert tuple(g.shape) == tuple(w.shape), (g.shape, w.shape)
+        if not (g.is_floating_point() or g.is_complex()):
+            assert g.dtype == w.dtype and torch.equal(g, w), "exact"
+            continue
+        if g.is_complex():
+            g, w = torch.view_as_real(g), torch.view_as_real(w)
+        gf, wf = g.double(), w.double()
+        nan = torch.isnan(wf)
+        assert torch.equal(nan, torch.isnan(gf)), "NaN placement"
+        inf = torch.isinf(wf)
+        assert torch.equal(torch.where(inf, gf, 0), torch.where(inf, wf, 0)), \
+            "inf placement"
+        ok = ~(nan | inf)
+        gf, wf = torch.where(ok, gf, 0), torch.where(ok, wf, 0)
+        if wf.numel() == 0:
+            continue
+        scale = max(float(wf.abs().max()), 1e-30)
+        diff = (gf - wf).abs()
+        if dt == "float32":
+            rtol, _ = tol
+            over = float((diff - rtol * wf.abs()
+                          - OPS_F32_ATOL_REL * scale).max())
+            assert over <= 0, ("float32", float(diff.max()), scale)
+            worst = max(worst, float((diff / (wf.abs() + scale)).max()))
+        else:
+            err = float(diff.max()) / scale
+            assert err <= FLASH_TOL, ("bfloat16", err)
+            worst = max(worst, err)
+    return worst
+
+
+def _op_random_check(torch, kind, out, arg):
+    """Moments and ranges of a random op's draws (6 standard errors on
+    the draw count)."""
+    import math
+    x = out.detach().float()
+    n = x.numel()
+
+    def mean_close(mean, var):
+        se = math.sqrt(var / n)
+        assert abs(float(x.mean()) - mean) < 6 * se + 1e-6, (
+            kind, float(x.mean()), mean)
+
+    if kind == "bernoulli":
+        assert bool(((x == 0) | (x == 1)).all())
+        mean_close(float(arg.float().mean()), 0.25)
+    elif kind == "gumbel":
+        mean_close(0.5772156649015329, math.pi ** 2 / 6)
+    elif kind == "exponential":
+        assert float(x.min()) >= 0
+        mean_close(0.5, 0.25)
+    elif kind == "uniform":
+        assert float(x.min()) >= -2.0 and float(x.max()) <= 3.0
+        mean_close(0.5, 25 / 12)
+    elif kind == "normal":
+        mean_close(1.0, 4.0)
+        assert abs(float(x.std()) - 2.0) < 6 * 2.0 / math.sqrt(2 * n)
+    elif kind == "cauchy":
+        # loc 1, scale 2: median 1, quartiles 1 -+ 2 (a median's standard
+        # error is pi * scale / (2 sqrt(m)))
+        sample = x.reshape(-1)[:1 << 20].cpu()
+        q = torch.quantile(sample, torch.tensor([0.25, 0.5, 0.75]))
+        se = math.pi * 2.0 / (2 * math.sqrt(sample.numel()))
+        assert abs(float(q[1]) - 1.0) < 6 * se and abs(
+            float(q[2] - q[0]) - 4.0) < 12 * se, q
+    elif kind == "geometric":
+        assert float(x.min()) >= 1 and bool((x == x.round()).all())
+        mean_close(1 / 0.3, 0.7 / 0.09)
+    elif kind == "dropout":
+        a = arg.to(x.device).float()
+        kept = x != 0
+        assert torch.allclose(x[kept], a[kept] / 0.75, rtol=1e-6)
+        frac = 1 - float(kept.float().mean())
+        assert abs(frac - 0.25) < 6 * math.sqrt(0.1875 / n), frac
+    elif kind == "alpha_dropout":
+        # SELU-preserving: mean 0 and variance 1 of a standard normal input
+        mean_close(0.0, 1.0)
+        assert abs(float(x.var()) - 1) < 6 * math.sqrt(2 / n) + 0.02
+    else:
+        raise AssertionError(f"no check for {kind}")
+
+
+def ops_checks(torch, dev, shapes, pool=None):
+    """Every registered op of the library on ``dev`` against the CPU on
+    the same seeded inputs of ``testing.op_cases`` at ``shapes`` in
+    float32; then, where the op takes it, in bfloat16 on ``dev`` against
+    ``dev``'s own float32 on the same bf16-rounded inputs. Returns
+    ``{(name, dtype): (error, device ms)}``; raises after the sweep with
+    every miss. Random ops are checked on ``dev`` by their moments."""
+    import zlib
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import device as PD
+    from paddle_tpu_torch.ops._op import registered_ops
+    from paddle_tpu_torch.testing import op_cases as OC
+    cpu = torch.device("cpu")
+    results, misses = {}, []
+    prev = PD._current_device
+    reg = registered_ops()
+    # an in-place op takes its base's inputs and so its CPU result, kept
+    # from the base's check until the in-place name's
+    bases = {n[:-1] for n in reg if n.endswith("_") and n[:-1] in reg
+             and OC.case_for(n) is OC.case_for(n[:-1])}
+    kept = {}
+
+    def timed(name, fn, card, dt):
+        if dev.type != "cuda":
+            return 0.0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _op_call(torch, name, fn, *card, dev, dt)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    try:
+        for name, fn in sorted(reg.items()):
+            case = OC.case_for(name)
+            base = (name[:-1] if name.endswith("_") and name[:-1] in bases
+                    else None)
+            seed = zlib.crc32((base or name).encode())
+            args, kw = case.make(OC.Inputs(seed, pool=pool), shapes)
+            # the inputs as CPU tensors and, uploaded once, card tensors
+            host = OC.to_tensors((args, kw), torch.from_numpy)
+            card = OC.to_tensors((args, kw),
+                                 lambda a: torch.from_numpy(a).to(dev))
+            if case.random:
+                P.seed(7)
+                if name in OC.KEYED:
+                    card[1]["generator"] = torch.Generator(
+                        device=dev).manual_seed(7)
+                out = _op_call(torch, name, fn, *card, dev, "float32")[0]
+                src = host[0][0] if args and hasattr(args[0], "dtype") \
+                    else None
+                try:
+                    _op_random_check(torch, case.random, out, src)
+                except AssertionError as e:
+                    misses.append(f"{name} random: {e}")
+                results[(name, "random")] = (
+                    0.0, timed(name, fn, card, "float32"))
+                continue
+            floats = any(getattr(a, "dtype", None) is not None
+                         and a.dtype.kind == "f" and a.dtype.itemsize == 4
+                         for a in args)
+            checks = [("float32", cpu, host, "float32")]
+            if case.half and floats:
+                checks.append(("bfloat16", dev, card, "bf16_as_f32"))
+            for dt, ref_dev, ref_args, ref_dt in checks:
+                want = got = None
+                try:
+                    if base is not None and (base, dt) in kept:
+                        want = kept.pop((base, dt))
+                    else:
+                        want = _op_call(torch, name, fn, *ref_args, ref_dev,
+                                        ref_dt)
+                    if name in bases:
+                        kept[(name, dt)] = want
+                    got = _op_call(torch, name, fn, *card, dev, dt)
+                    err = _op_compare(torch, got, want, dt,
+                                      case.tol or (1e-5, 1e-6))
+                    results[(name, dt)] = (err, timed(name, fn, card, dt))
+                except AssertionError as e:
+                    misses.append(f"{name} {dt}: {e}")
+                del want, got
+    finally:
+        PD._current_device = prev
+    assert not misses, "[ops] " + "; ".join(misses)
+    return results
+
+
+def _op_class(name):
+    from paddle_tpu_torch.ops._op import registered_ops
+    mod = registered_ops()[name].__module__
+    return mod.rsplit(".", 1)[-1]
+
+
+def ops_pool_size(shapes):
+    """Elements of each kind the largest case takes at ``shapes``: three
+    elementwise operands, or the batched products' two ``[k, n]``
+    right sides."""
+    import math
+    return max(3 * math.prod(shapes.ew), 2 * shapes.mm[1] * shapes.mm[2])
+
+
+def phase_ops(torch, dev, card):
+    """``[ops]``: every op the library registers (``registered_ops()``),
+    run on the card and on the CPU with the same seeded inputs at the
+    eager path's widths (``op_cases.CARD``: elementwise, reduction,
+    manipulation and logic ops on ``[4, 2048, 4096]``, matmul-class ops
+    at ``[8192, 4096] x [4096, 14336]``, sort / topk / argsort over
+    ``[8, 128256]`` rows, decompositions and solves at ``[8, 256,
+    256]``), in float32 against the CPU and, where the op takes it, in
+    bfloat16 against the card's float32 on the same bf16-rounded inputs;
+    random ops by their moments. The inputs come from one seeded pool
+    (``op_cases.Pool``). Prints the count, the largest error of each
+    class and dtype, and the slowest ops' device ms."""
+    from paddle_tpu_torch.testing import op_cases as OC
+    t0 = time.perf_counter()
+    pool = OC.Pool(24, ops_pool_size(OC.CARD))
+    results = ops_checks(torch, dev, OC.CARD, pool=pool)
+    worst = {}
+    for (name, dt), (err, _) in results.items():
+        key = f"{_op_class(name)}/{dt}"
+        worst[key] = max(worst.get(key, 0.0), err)
+    names = {n for n, _ in results}
+    slow = sorted(((ms, f"{n}/{dt}") for (n, dt), (_, ms) in
+                   results.items()), reverse=True)[:OPS_SLOWEST]
+    _say("ops", card=card.replace(" ", "_"), ops=len(names),
+         checks=len(results), seconds=round(time.perf_counter() - t0, 1),
+         f32_rtol="1e-5_or_case", f32_atol_rel=OPS_F32_ATOL_REL,
+         bf16_tol_rel=FLASH_TOL)
+    for key in sorted(worst):
+        _say("ops", cls=key, max_err=worst[key])
+    for ms, what in slow:
+        _say("ops", slowest=what, device_ms=round(ms, 3))
+    return len(names)
+
+
+def ops_block(P, F, x, lp, cos, sin, cfg):
+    """One Llama decoder layer written only with the flat ops and
+    ``F.*`` (``models/llama.py`` ``_block``'s math): RMSNorm, the q / k /
+    v products, rotate-half rope by ``split`` / ``concat`` in the
+    tables' float32, causal attention, the output product and residual,
+    RMSNorm, SwiGLU and the second residual."""
+    B, S, D = x.shape
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.head_dim
+    eps = cfg.rms_norm_eps
+    h = F.rms_norm(x, lp["ln1"], epsilon=eps)
+    q = P.reshape(P.matmul(h, lp["wq"]), shape=[B, S, nh, hd])
+    k = P.reshape(P.matmul(h, lp["wk"]), shape=[B, S, nkv, hd])
+    v = P.reshape(P.matmul(h, lp["wv"]), shape=[B, S, nkv, hd])
+    c = P.unsqueeze(cos, axis=[0, 2])
+    s = P.unsqueeze(sin, axis=[0, 2])
+
+    def rope(t):
+        t1, t2 = P.split(t, 2, axis=-1)
+        r = P.concat([P.subtract(P.multiply(t1, c), P.multiply(t2, s)),
+                      P.add(P.multiply(t2, c), P.multiply(t1, s))], axis=-1)
+        return P.cast(r, t.dtype)
+
+    a = F.scaled_dot_product_attention(rope(q), rope(k), v, is_causal=True)
+    x = P.add(x, P.matmul(P.reshape(a, shape=[B, S, nh * hd]), lp["wo"]))
+    h = F.rms_norm(x, lp["ln2"], epsilon=eps)
+    ff = P.multiply(F.silu(P.matmul(h, lp["gate"])), P.matmul(h, lp["up"]))
+    return P.add(x, P.matmul(ff, lp["down"]))
+
+
+def ops_block_setup(torch, cfg, dev, batch, seq, seed=0):
+    """Layer 0's weights of ``init_params(cfg, seed)`` as leaves, an
+    input ``[batch, seq, D]`` leaf, the rope tables and a cotangent."""
+    from paddle_tpu_torch.models import llama as L
+    params = L.init_params(cfg, seed=seed, device=dev)
+    lp = {k: w.detach().clone().requires_grad_()
+          for k, w in L.layer(params, 0).items()}
+    del params
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn(batch, seq, cfg.hidden_size, generator=g,
+                    device=dev).to(cfg.dtype).requires_grad_()
+    cot = torch.randn(batch, seq, cfg.hidden_size, generator=g,
+                      device=dev).to(cfg.dtype)
+    cos, sin = L._rope_tables(seq, cfg.head_dim, theta=cfg.rope_theta,
+                              device=dev)
+    return x, lp, cos, sin, cot
+
+
+def ops_block_run(torch, which, cfg, x, lp, cos, sin, cot):
+    """One forward and backward of the op-built layer (``"ops"``) or of
+    ``_block``: ``(output, {leaf: grad})``."""
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.models import llama as L
+    leaves = {"x": x, **lp}
+    for t in leaves.values():
+        t.grad = None
+    if which == "ops":
+        y = ops_block(P, F, x, lp, cos, sin, cfg)
+    else:
+        y = L._block(x, lp, cos, sin, cfg)
+    y.backward(cot)
+    return y.detach(), {k: t.grad for k, t in leaves.items()}
+
+
+def ops_seam_ns(torch, dev, calls=OPS_SEAM_CALLS):
+    """Host ns a call that the dispatch seam adds to ``torch.add`` on two
+    ``[8]`` tensors of ``dev`` (enqueue only, no sync inside the loop),
+    with the monitor off and on: ``{"off": ns, "on": ns}``."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import monitor as M
+    x = torch.ones(8, device=dev)
+    out = {}
+    for mode in ("off", "on"):
+        M.reset()
+        P.set_flags({"enable_monitor": mode == "on"})
+        try:
+            ns = {}
+            for name, fn in (("torch", torch.add), ("seam", P.add)):
+                for _ in range(100):
+                    fn(x, x)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter_ns()
+                for _ in range(calls):
+                    fn(x, x)
+                ns[name] = (time.perf_counter_ns() - t0) / calls
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+        finally:
+            P.set_flags({"enable_monitor": False})
+        out[mode] = ns["seam"] - ns["torch"]
+    M.reset()
+    return out
+
+
+def ops_block_counts(torch, cfg, dev, batch, seq):
+    """``op.<name>.calls`` of one op-built layer, forward and backward,
+    with the monitor on; the ``op.dispatch.wall_ns`` histogram (count,
+    sum); and ``tensor.bytes.peak``."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import monitor as M
+    setup = ops_block_setup(torch, cfg, dev, batch, seq)
+    M.reset()
+    P.set_flags({"enable_monitor": True})
+    try:
+        ops_block_run(torch, "ops", cfg, *setup)
+        snap = M.snapshot()
+    finally:
+        P.set_flags({"enable_monitor": False})
+        M.reset()
+    calls = {k: v for k, v in snap.get("counters", {}).items()
+             if k.startswith("op.")}
+    hist = snap["histograms"]["op.dispatch.wall_ns"]
+    return calls, hist["count"], snap["gauges"]["tensor.bytes.peak"], \
+        hist["sum"]
+
+
+def phase_ops_block(torch, dev, card):
+    """``[ops_block]``: one Llama-3-8B-width decoder layer (4096 hidden,
+    32 / 8 heads of 128, FFN 14336, rope theta 500000) written with the
+    flat ops and ``F.*`` only (``ops_block``), bf16 at ``[TRAIN_BATCH,
+    TRAIN_SEQ]``, forward and backward, against ``models/llama.py``
+    ``_block`` on the same weights: the output within ``FLASH_TOL`` and
+    each leaf's gradient within ``BWD_TOL`` of its max |g|. The layer
+    must launch the flash forward / backward and both RMSNorm kernels
+    (no plain version). Then ms a layer (forward and backward) of
+    ``_block`` and of the op-built layer with the monitor off and on, in
+    turns; with the monitor on, every ``op.<name>.calls`` equals the
+    table of the same layer at ``llama_tiny`` widths on the CPU, the
+    ``op.dispatch.wall_ns`` count their sum; then the host ns the seam
+    adds to a flat op, monitor off and on. Returns the launches."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_3_8b(num_hidden_layers=1)
+    setup = ops_block_setup(torch, cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    K.reset_dispatch_stats()
+    y_ops, g_ops = ops_block_run(torch, "ops", cfg, *setup)
+    torch.cuda.synchronize()
+    launches = K.dispatch_stats()
+    y_ref, g_ref = ops_block_run(torch, "block", cfg, *setup)
+    y_ref = y_ref.clone()
+    g_ref = {k: g.clone() for k, g in g_ref.items()}
+    out_err = _rel(y_ops, y_ref)
+    grad_err = {k: _rel(g_ops[k], g_ref[k]) for k in g_ref}
+    for key in OPS_BLOCK_KERNELS:
+        assert launches[key] >= 1, (key, launches)
+        assert launches[f"{key}_ref"] == 0, launches
+    assert launches["flash_tc"] == launches["flash"], launches
+    assert out_err <= FLASH_TOL, out_err
+    assert max(grad_err.values()) <= BWD_TOL, grad_err
+
+    def step(which):
+        return lambda: ops_block_run(torch, which, cfg, *setup)
+
+    times = {"block": [], "ops_off": [], "ops_on": []}
+    from paddle_tpu_torch import monitor as M
+    for turn in range(OPS_BLOCK_TIMED):
+        for arm in (("block", "ops_off", "ops_on") if turn % 2 == 0
+                    else ("ops_on", "ops_off", "block")):
+            on = arm == "ops_on"
+            M.reset()
+            P.set_flags({"enable_monitor": on})
+            try:
+                _, ms = _wall_ms(torch, step("block" if arm == "block"
+                                             else "ops"))
+            finally:
+                P.set_flags({"enable_monitor": False})
+            times[arm].append(ms)
+    M.reset()
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    calls, hist, peak, wall_ns = ops_block_counts(torch, cfg, dev,
+                                                  TRAIN_BATCH, TRAIN_SEQ)
+    tiny = L.llama_tiny(dtype=torch.float32)
+    want, want_hist, _, _ = ops_block_counts(torch, tiny,
+                                             torch.device("cpu"), 2, 16)
+    seam = ops_seam_ns(torch, dev)
+    assert calls == want, (calls, want)
+    assert hist == want_hist == sum(calls.values()), (hist, want_hist)
+    _say("ops_block", card=card.replace(" ", "_"), widths="llama_3_8b",
+         batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", dtype="bfloat16",
+         out_rel_err=out_err, max_grad_rel_err=max(grad_err.values()),
+         tol=f"{FLASH_TOL}/{BWD_TOL}",
+         **{f"{k}_launches": launches[k] for k in OPS_BLOCK_KERNELS})
+    _say("ops_block", block_ms=round(med["block"], 3),
+         ops_monitor_off_ms=round(med["ops_off"], 3),
+         ops_monitor_on_ms=round(med["ops_on"], 3),
+         turns=OPS_BLOCK_TIMED, op_calls=sum(calls.values()),
+         op_names=len(calls), dispatch_hist_count=hist,
+         dispatch_wall_ns_mean=round(wall_ns / hist),
+         seam_ns_off=round(seam["off"]), seam_ns_on=round(seam["on"]),
+         seam_calls=OPS_SEAM_CALLS, tensor_bytes_peak=int(peak))
+    _say("ops_block", calls=",".join(f"{k[3:-6]}:{v}"
+                                     for k, v in sorted(calls.items())))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -8421,6 +8919,10 @@ def main() -> int:
     phase_eager_parity(torch, dev)
     phase_surface(torch, dev)
     phase_autograd(torch, dev)
+    torch.cuda.empty_cache()
+    phase_ops(torch, dev, smi)
+    torch.cuda.empty_cache()
+    ops_block_launches = phase_ops_block(torch, dev, smi)
     torch.cuda.empty_cache()
     phase_eager_recipe_parity(torch, dev)
     phase_generate_parity(torch, dev)
@@ -8559,6 +9061,8 @@ def main() -> int:
         rec["ckpt_launches"] = ckpt_launches[key]
         rec["sentinel_launches"] = sentinel_launches[key]
         rec["hapi_launches"] = hapi_launches[key]
+        # the op-built Llama layer of [ops_block] (the op library)
+        rec["ops_block_launches"] = ops_block_launches[key]
     # the wide decode rows (ROADMAP B1b): every column from the counter
     # of the row's own shape (``paged_d256``, ``paged_quant_g32``, ...),
     # launches from the head-dim-256 and group-32 serves
@@ -8570,6 +9074,7 @@ def main() -> int:
         rec["ckpt_launches"] = ckpt_launches[key]
         rec["sentinel_launches"] = sentinel_launches[key]
         rec["hapi_launches"] = hapi_launches[key]
+        rec["ops_block_launches"] = ops_block_launches[key]
     # launches in the [autotune] page-size sweeps: the decode kernel's
     # two arms at every candidate page (none of the other kernels)
     for rec in (flash, paged, paged_int8, flash_bwd, seg_fwd, seg_bwd,
@@ -8580,7 +9085,7 @@ def main() -> int:
     paged_int8["autotune_launches"] = autotune_launches["paged_quant"]
     keys = ("name", "route", "source", "replaces", "launches",
             "mesh_launches", "ckpt_launches", "sentinel_launches",
-            "hapi_launches", "autotune_launches",
+            "hapi_launches", "autotune_launches", "ops_block_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [

@@ -3,8 +3,10 @@
 The JAX package beside it stays the reference. This package mirrors its
 layout module by module (``models/llama.py``, ``inference/paged.py``,
 ``inference/engine.py``, ``io/``, ``kernels/...``, the eager ``nn`` /
-``optimizer`` surface, ``paddle.save`` / ``load``, ``metric``, the
-hapi ``Model``, ``profiler``, ``autograd`` and the kernel autotuner) and
+``optimizer`` surface, the flat op library (``paddle.add``, ``concat``,
+``matmul``, ...: ``ops/``, ``tensor/``), ``paddle.save`` / ``load``,
+``metric``, the hapi ``Model``, ``profiler``, ``autograd`` and the
+kernel autotuner) and
 runs on an NVIDIA Hopper card: every
 Pallas kernel on a ported path is a hand-written CUDA kernel under
 ``csrc/``, built with ``nvcc`` at first use.
@@ -16,13 +18,23 @@ wrapper takes its plain PyTorch version. Nothing here imports ``jax`` or
 """
 __version__ = "0.1.0"
 
+from .core.dtype import (bfloat16, bool_, complex64, complex128,  # noqa
+                         float16, float32, float64, get_default_dtype, int8,
+                         int16, int32, int64, set_default_dtype, uint8)
+from .core.tensor import Parameter, Tensor, is_tensor  # noqa: F401
+# the flat op surface (paddle.add, concat, matmul, ...); ops/__init__'s
+# __all__ keeps its domain modules out, so paddle_tpu_torch.linalg is
+# not ops.linalg (a later domain library)
+from .ops import *  # noqa: F401,F403
+from .ops import create_parameter, create_tensor  # noqa: F401
+from . import tensor  # noqa: F401
 from . import autograd, incubate, nn, optimizer, profiler  # noqa: F401
 from .autograd import grad  # noqa: F401
 from .core.state import enable_grad, no_grad, set_grad_enabled  # noqa
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.tensor import to_tensor  # noqa: F401
 from .device import get_device, set_device  # noqa: F401
-from .framework.random import seed  # noqa: F401
+from .framework.random import get_rng_state, seed, set_rng_state  # noqa
 from .framework.io import (async_save, clear_async_save_task_queue,  # noqa
                            load, save)
 from . import io, metric  # noqa: F401

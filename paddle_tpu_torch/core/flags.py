@@ -19,10 +19,12 @@ serving controller's burn scaling over federated frames,
 ``enable_monitor_server`` and ``monitor_server_port`` (the operator HTTP
 server, which ``ServingEngine`` starts through ``monitor.server.maybe_start``),
 ``fault_injection`` (armed at import by ``testing.faults``) and
-``use_autotune`` (``kernels/autotune.py``). Left out,
-because nothing in the port reads them: the JAX-only flags
-(``use_pallas_kernels``, ``eager_jit_ops``, ``default_matmul_precision``)
-and ``check_nan_inf``, whose module is not ported yet.
+``use_autotune`` (``kernels/autotune.py``) and ``check_nan_inf`` (the op
+library's dispatch seam, ``ops/_op.py``: a non-finite float output of a
+registered op raises ``FloatingPointError``; on the card that check is a
+host read, made only while the flag is on). Left out, because nothing in
+the port reads them: the JAX-only flags (``use_pallas_kernels``,
+``eager_jit_ops``, ``default_matmul_precision``).
 """
 from __future__ import annotations
 
@@ -105,6 +107,7 @@ def flag_info(name: str) -> _FlagInfo:
 
 
 # The reference's flags that the port reads (see the module docstring).
+define_flag("check_nan_inf", False, "Check outputs for NaN/Inf after each op (debug).")
 define_flag("enable_monitor", False,
             "Collect runtime metrics (paddle_tpu.monitor counters/gauges/"
             "histograms) on the instrumented hot paths; off = one branch.")

@@ -1,41 +1,64 @@
-"""``to_tensor`` and Paddle dtype names (port of ``to_tensor``,
-``paddle_tpu/core/tensor.py:484``, and a copy of ``convert_dtype``,
-``paddle_tpu/core/dtype.py:51``).
+"""The tensor of the port (port of ``paddle_tpu/core/tensor.py``):
+``Tensor``, ``Parameter``, ``is_tensor``, ``to_tensor`` and the
+monitor's tensor-byte hooks.
 
-The port has no Tensor class of its own: ``torch.Tensor`` already
-records the tape that the reference's ``Tensor`` builds, and Paddle's
-``stop_gradient`` is ``not requires_grad``.
+The port has no Tensor class of its own: ``Tensor`` is
+``torch.Tensor``, which already records the tape that the reference's
+``Tensor`` builds, and ``Parameter`` is ``torch.nn.Parameter``, what
+``nn.Layer.create_parameter`` makes. Paddle's ``stop_gradient`` is
+``not requires_grad``. Nothing is patched onto ``torch.Tensor``: the
+Paddle surface is the flat functions of ``paddle_tpu_torch.ops``.
+
+While ``FLAGS_enable_monitor`` is on, ``to_tensor`` and every output of
+a registered op count their bytes into ``tensor.bytes.live`` / ``peak``
+(``monitor.tensor_bytes``) and return them when the tensor dies
+(``monitor.tensor_free`` from a ``weakref.finalize``), as the
+reference's constructor does. With the flag off the cost is one
+attribute read.
 """
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
 
-from . import enforce as E
+from .dtype import convert_dtype  # noqa: F401  (its old home)
+from .flags import flag_info
 
-__all__ = ["convert_dtype", "to_tensor", "from_numpy"]
+__all__ = ["Tensor", "Parameter", "is_tensor", "convert_dtype", "to_tensor",
+           "from_numpy"]
 
-_NAME_TO_DTYPE = {
-    "bool": torch.bool, "uint8": torch.uint8, "int8": torch.int8,
-    "int16": torch.int16, "int32": torch.int32, "int64": torch.int64,
-    "float16": torch.float16, "bfloat16": torch.bfloat16,
-    "bf16": torch.bfloat16, "float32": torch.float32, "fp32": torch.float32,
-    "float64": torch.float64, "fp64": torch.float64,
-    "complex64": torch.complex64, "complex128": torch.complex128,
-}
+Tensor = torch.Tensor
+Parameter = torch.nn.Parameter
+
+# cached flag record (set_flags mutates it in place); the monitor's
+# helpers are bound on first use, since this module loads before it
+_MON_FLAG = flag_info("enable_monitor")
+_MON_TENSOR_BYTES = None
+_MON_TENSOR_FREE = None
 
 
-def convert_dtype(dtype):
-    """A Paddle dtype name, numpy dtype or ``torch.dtype`` as a
-    ``torch.dtype`` (``None`` stays ``None``)."""
-    if dtype is None or isinstance(dtype, torch.dtype):
-        return dtype
-    if isinstance(dtype, str):
-        key = dtype.lower()
-        E.enforce(key in _NAME_TO_DTYPE, f"Unknown dtype name: {dtype!r}",
-                  error=E.InvalidArgumentError)
-        return _NAME_TO_DTYPE[key]
-    return _NAME_TO_DTYPE[np.dtype(dtype).name]
+def is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def _count(t):
+    """Count ``t``'s bytes into the live / peak gauges and return them
+    when it dies; callers check ``_MON_FLAG.value`` first. Every handle
+    counts, as in the reference, where each op output is a new handle."""
+    global _MON_TENSOR_BYTES, _MON_TENSOR_FREE
+    if _MON_TENSOR_BYTES is None:
+        # free before bytes: a thread that sees _MON_TENSOR_BYTES bound
+        # registers _MON_TENSOR_FREE without checking it
+        from ..monitor import tensor_free as _MON_TENSOR_FREE  # noqa
+        from ..monitor import tensor_bytes as _MON_TENSOR_BYTES  # noqa
+    nb = t.numel() * t.element_size()
+    if nb:
+        epoch = _MON_TENSOR_BYTES(nb)
+        if epoch is not None:
+            weakref.finalize(t, _MON_TENSOR_FREE, nb, epoch)
+    return t
 
 
 def from_numpy(a) -> torch.Tensor:
@@ -65,4 +88,6 @@ def to_tensor(data, dtype=None, place=None, stop_gradient: bool = True):
     t = t.to(device=dev, dtype=dtype, copy=True)
     if not stop_gradient:
         t.requires_grad_()
+    if _MON_FLAG.value:
+        _count(t)
     return t

@@ -45,10 +45,13 @@ are the reference's.
 Counters recorded outside the planes: ``autotune.cache.hit|miss|evictions``
 and ``autotune.sweeps``, the kernel autotuner (``kernels/autotune.py``).
 
-Not ported yet, with their queue items in ROADMAP.md: ``record_op``
-(``op.<name>.calls``, ``op.dispatch.wall_ns``), ``tensor_bytes`` and
-``tensor_free``, hooks of the eager ``Tensor`` (A10, ``core/tensor.py``;
-the profiler's op spans time torch calls but count nothing here).
+The op library's hooks: ``record_op`` (``op.<name>.calls`` and the
+``op.dispatch.wall_ns`` histogram), called by the dispatch seam
+``ops/_op.py`` for every registered op, and ``tensor_bytes`` /
+``tensor_free`` (``tensor.bytes.live`` / ``peak``), called for
+``to_tensor`` and every registered op's outputs (``core/tensor.py``).
+Python operators on torch tensors (``x + y``) are torch's and count
+nothing.
 """
 from __future__ import annotations
 
@@ -63,7 +66,8 @@ from .registry import Counter, Gauge, Histogram, StatRegistry
 __all__ = [
     "Counter", "Gauge", "Histogram", "StatRegistry",
     "enabled", "registry", "counter", "gauge", "histogram",
-    "inc", "observe", "set_gauge",
+    "inc", "observe", "set_gauge", "record_op", "tensor_bytes",
+    "tensor_free",
     "snapshot", "expose_text", "dump_json", "reset", "timed",
     "trace", "server", "programs", "exectime", "numerics", "slo",
     "forensics", "memory", "federation", "profile_capture", "fleet",
@@ -144,6 +148,68 @@ def set_gauge(name: str, value, doc: str = ""):
         _REGISTRY.gauge(name, doc).set(value)
 
 
+# -- hot-path helpers (self-gated, handle-cached) ---------------------------
+
+# Per-op metric handles: the dispatch seam calls record_op on every
+# registered op while the flag is on, so the registry lock stays off
+# that path: plain dict reads, and a first-seen name takes the lock.
+_OP_HANDLES: dict = {}
+_DISPATCH_HIST: list = []       # one-element cache of the shared histogram
+
+
+def record_op(opname: str, wall_ns: int):
+    """Per-op call counter + shared dispatch wall-time histogram."""
+    if not _FLAG.value:
+        return
+    h = _OP_HANDLES.get(opname)
+    if h is None:
+        h = _REGISTRY.counter(f"op.{opname}.calls",
+                              "eager dispatches of this op")
+        _OP_HANDLES[opname] = h
+    if not _DISPATCH_HIST:
+        _DISPATCH_HIST.append(_REGISTRY.histogram(
+            "op.dispatch.wall_ns",
+            "wall time of one eager op dispatch (ns), all ops",
+            buckets=tuple(float(10 ** i) for i in range(2, 11))))
+    h.incr()
+    _DISPATCH_HIST[0].observe(wall_ns)
+
+
+_TENSOR_GAUGES: list = []       # [(live, peak)] one-element cache
+# Generation counter bumped by reset(): frees of tensors counted in an
+# earlier generation are dropped instead of landing on (and driving
+# negative) gauges recreated after the reset.
+_TENSOR_EPOCH = [0]
+
+
+def tensor_bytes(nbytes: int):
+    """Count a tensor allocation into the live / peak byte gauges.
+    Returns the generation to pass back to ``tensor_free``, or None when
+    the flag is off. Allocations count only while the flag is on, but a
+    free lands whatever the flag (turning it off does not pin counted
+    bytes in ``live``), only within the same generation (a ``reset()``
+    orphans stragglers instead of driving the gauge negative)."""
+    if not _FLAG.value:
+        return None
+    if not _TENSOR_GAUGES:
+        _TENSOR_GAUGES.append((
+            _REGISTRY.gauge("tensor.bytes.live",
+                            "bytes held by live Tensor handles"),
+            _REGISTRY.gauge("tensor.bytes.peak",
+                            "high-water mark of tensor.bytes.live"),
+        ))
+    live, peak = _TENSOR_GAUGES[0]
+    live.add_and_max_into(nbytes, peak)
+    return _TENSOR_EPOCH[0]
+
+
+def tensor_free(nbytes: int, epoch):
+    """Return a counted allocation's bytes (the finalizer side of
+    ``tensor_bytes``); dropped when the registry was reset since."""
+    if epoch == _TENSOR_EPOCH[0] and _TENSOR_GAUGES:
+        _TENSOR_GAUGES[0][0].add(-nbytes)
+
+
 # -- reporting --------------------------------------------------------------
 
 def snapshot() -> dict:
@@ -178,8 +244,13 @@ def reset():
     """Drop all metrics and the state of every ported plane (tests;
     between runs). The trace ring empties with the registry — a flight
     record dumped after a reset describes the new run, not the old
-    one."""
+    one. Live counted tensors become orphans: their later frees are
+    dropped (generation mismatch), never negative gauges."""
     _REGISTRY.reset()
+    _OP_HANDLES.clear()
+    _DISPATCH_HIST.clear()
+    _TENSOR_GAUGES.clear()
+    _TENSOR_EPOCH[0] += 1
     trace.clear()
     programs.reset()
     exectime.reset()

@@ -1,6 +1,6 @@
 import contextlib as _ctx
 
-from .activation import silu  # noqa: F401
+from .activation import *  # noqa: F401,F403
 from .attention import (apply_rotary_emb, flash_attention,  # noqa: F401
                         flash_attention_with_sparse_mask,
                         flash_attn_qkvpacked, flash_attn_unpadded,
@@ -9,7 +9,7 @@ from .attention import (apply_rotary_emb, flash_attention,  # noqa: F401
                         rope_raw, rope_tables, scaled_dot_product_attention,
                         sdpa_raw, sdpa_reference, segment_attention_raw,
                         segment_ids_from_cu_seqlens)
-from .common import embedding, linear  # noqa: F401
+from .common import *  # noqa: F401,F403
 from .loss import (binary_cross_entropy,  # noqa: F401
                    binary_cross_entropy_with_logits, cosine_embedding_loss,
                    cross_entropy, dice_loss, gaussian_nll_loss,
@@ -19,7 +19,7 @@ from .loss import (binary_cross_entropy,  # noqa: F401
                    poisson_nll_loss, sigmoid_focal_loss, smooth_l1_loss,
                    soft_margin_loss, softmax_with_cross_entropy,
                    square_error_cost, triplet_margin_loss)
-from .norm import rms_norm  # noqa: F401
+from .norm import *  # noqa: F401,F403
 
 
 @_ctx.contextmanager

@@ -20,6 +20,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ...core import enforce as E
+from ...ops._op import op_fn
 
 __all__ = ["rope_tables", "rope_raw", "gather_rope_rows", "sdpa_reference",
            "sdpa_raw", "scaled_dot_product_attention", "flash_attention",
@@ -202,8 +203,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     from ...framework.random import default_generator
     p = dropout_p if training else 0.0
     gen = default_generator(query.device) if p > 0.0 else None
-    return sdpa_raw(query, key, value, attn_mask, dropout_p=p,
+    return _sdpa_op(query, key, value, attn_mask, dropout_p=p,
                     is_causal=is_causal, generator=gen, scale=scale)
+
+
+@op_fn
+def _sdpa_op(query, key, value, attn_mask=None, *, dropout_p: float = 0.0,
+             is_causal: bool = False, generator=None, scale=None):
+    """``sdpa_raw`` registered as the reference's ``_sdpa_op`` (the seam
+    of ``scaled_dot_product_attention``; ``sdpa_raw`` and the kernel
+    wrappers below it stay outside the seam)."""
+    return sdpa_raw(query, key, value, attn_mask, dropout_p=dropout_p,
+                    is_causal=is_causal, generator=generator, scale=scale)
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
@@ -254,6 +265,7 @@ def rope_raw(x, cos, sin, *, neox: bool = True):
                        dim=-1).reshape(x.shape).to(x.dtype)
 
 
+@op_fn
 def apply_rotary_emb(x, cos, sin):
     """Rotary position embedding (rotate-half) of ``x`` ``[B, S, H, D]``
     with ``[S, D/2]`` tables: ``rope_raw``."""
@@ -282,8 +294,13 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     if position_ids is not None:
         cos_t, sin_t = gather_rope_rows(cos_t, sin_t, position_ids)
     neox = use_neox_rotary_style
-    return (rope_raw(q, cos_t, sin_t, neox=neox),
-            None if k is None else rope_raw(k, cos_t, sin_t, neox=neox), v)
+    return (_rope_op(q, cos_t, sin_t, neox=neox),
+            None if k is None else _rope_op(k, cos_t, sin_t, neox=neox), v)
+
+
+@op_fn(name="fused_rope")
+def _rope_op(x, c, s, *, neox: bool = True):
+    return rope_raw(x, c, s, neox=neox)
 
 
 # -- varlen / unpadded attention ----------------------------------------------
@@ -337,12 +354,21 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
                   error=E.InvalidArgumentError)
     seg_q = segment_ids_from_cu_seqlens(cq, tq)
     seg_k = segment_ids_from_cu_seqlens(ck, tk)
+    out = _flash_varlen(query, key, value, seg_q, seg_k,
+                        _local_positions(cq, seg_q, tq),
+                        _local_positions(ck, seg_k, tk),
+                        causal=bool(causal), scale=scale)
+    return out, None
+
+
+@op_fn(name="flash_attn_varlen")
+def _flash_varlen(q, k, v, seg_q, seg_k, pos_q, pos_k, *, causal, scale):
+    """Packed ragged attention on ``[T, H, D]`` with per-token segment
+    ids and segment-local positions, through the segment kernels."""
     out = segment_attention_raw(
-        query[None], key[None], value[None], seg_q[None], seg_k[None],
-        _local_positions(cq, seg_q, tq)[None],
-        _local_positions(ck, seg_k, tk)[None], causal=bool(causal),
-        scale=scale)
-    return out[0], None
+        q[None], k[None], v[None], seg_q[None], seg_k[None], pos_q[None],
+        pos_k[None], causal=causal, scale=scale)
+    return out[0]
 
 
 def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,

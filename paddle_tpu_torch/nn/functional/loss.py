@@ -2,7 +2,8 @@
 
 Each computes what the reference's does, in float32 where the
 reference casts to float32, with its reductions (``"mean"``, ``"sum"``,
-``"none"``; ``kl_div`` also ``"batchmean"``).
+``"none"``; ``kl_div`` also ``"batchmean"``), and each is registered
+through the op seam (``ops/_op.py``) under its name, as the reference's.
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ import math
 
 import torch
 import torch.nn.functional as TF
+
+from ...ops._op import op_fn
 
 __all__ = [
     "cross_entropy", "softmax_with_cross_entropy", "binary_cross_entropy",
@@ -302,3 +305,12 @@ def gaussian_nll_loss(input, variance, label, full: bool = False,
     if full:
         loss = loss + 0.5 * math.log(2 * math.pi)
     return _reduce(loss, reduction)
+
+
+def _register():
+    g = globals()
+    for name in __all__:
+        g[name] = op_fn(g[name])
+
+
+_register()

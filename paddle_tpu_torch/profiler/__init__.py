@@ -12,13 +12,17 @@ chrometracing_logger.cc (trace export).
   ``build/host/`` (``kernels/_build.py`` ``load_host``) and bound with
   ``ctypes``. A pure-Python recorder takes its place on a machine without
   a C++ compiler; ``_recorder_kind`` says which one ran.
-- Op spans: while a window records, one ``torch.overrides.
-  TorchFunctionMode`` on the thread that opened it puts a host span
-  around each torch function call, named as the reference's dispatcher
-  names its ops for the operators (``x + y`` is ``add``, ``x @ y``
-  ``matmul``) and by torch's function name otherwise (``linear``,
-  ``mean``). The mode is removed when the window ends, so outside a
-  window it costs nothing.
+- Op spans: while a window records, each registered op of the op
+  library (``paddle_tpu_torch.add``, ``F.rms_norm``, ...) is one host
+  span under the reference's op name, through the dispatch seam's
+  profile hook (``ops/_op.py`` ``set_profile_hook``), and one
+  ``torch.overrides.TorchFunctionMode`` on the thread that opened the
+  window puts a host span around each other torch function call, named
+  as the reference's dispatcher names its ops for the operators
+  (``x + y`` is ``add``, ``x @ y`` ``matmul``) and by torch's function
+  name otherwise (``mean``); the torch calls inside a registered op are
+  not spanned again. Hook and mode are removed when the window ends, so
+  outside a window they cost nothing.
 - Device trace: ``Profiler(device_tracing=True)`` (or a ``GPU`` target)
   opens ``torch.profiler.profile`` over CPU and CUDA activity for each
   window and writes torch's chrome trace (the card's kernels from CUPTI)
@@ -286,16 +290,30 @@ def _op_name(func) -> Optional[str]:
 
 
 class _OpSpans(TorchFunctionMode):
-    """A host span around each torch function call on this thread (the
-    reference's ``ops/_op.py`` profile hook). Torch runs the handler with
-    the mode off, so a function's own inner calls are not spanned."""
+    """A host span around each torch function call on this thread, and
+    (``op_begin`` / ``op_end``, the op library's profile hook,
+    ``ops/_op.py``) around each registered op under the reference's op
+    name on any thread. Torch runs the handler with the mode off, so a
+    function's own inner calls are not spanned, and neither are the torch
+    calls inside a registered op."""
 
     def __init__(self, recorder):
         super().__init__()
         self._rec = recorder
+        self._in_op = threading.local()
+
+    def op_begin(self, name):
+        self._rec.begin(name)
+        self._in_op.depth = getattr(self._in_op, "depth", 0) + 1
+
+    def op_end(self):
+        self._in_op.depth -= 1
+        self._rec.end()
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if getattr(self._in_op, "depth", 0):
+            return func(*args, **kwargs)
         name = _op_name(func)
         if name is None:
             return func(*args, **kwargs)
@@ -546,13 +564,17 @@ class Profiler:
         if not rec.enabled:
             rec.start()
         if self._ops is None:
+            from ..ops import _op
             self._ops = _OpSpans(rec)
             self._ops.__enter__()
+            _op.set_profile_hook(self._ops.op_begin, self._ops.op_end)
 
     def _end_record(self):
         if self.timer_only:
             return
         if self._ops is not None:
+            from ..ops import _op
+            _op.set_profile_hook(None, None)
             ops, self._ops = self._ops, None
             ops.__exit__(None, None, None)
         _get_recorder().stop()

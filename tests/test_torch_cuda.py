@@ -1993,3 +1993,38 @@ def test_pylayer_over_the_kernels_and_second_order(dev):
         res.append(paddle_tpu_torch.grad((g1 * g1).sum(), x)[0].cpu())
     assert float((res[0] - res[1]).abs().max()) <= \
         1e-5 * float(res[0].abs().max())
+
+
+def test_op_library_card_against_cpu(dev):
+    """``chip_smoke.ops_checks`` at the small shapes: every registered op
+    on the card against the CPU (float32 and bfloat16, random ops by
+    their moments); the first card call of a new op fails here."""
+    C = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from paddle_tpu_torch.ops._op import registered_ops
+    from paddle_tpu_torch.testing import op_cases as OC
+    results = C.ops_checks(torch, dev, OC.SMALL)
+    assert {n for n, _ in results} == set(registered_ops())
+
+
+def test_op_built_layer_matches_block_on_the_card(dev):
+    """``chip_smoke.ops_block`` at ``llama_tiny`` bf16 on the card against
+    ``_block`` (``FLASH_TOL`` / ``BWD_TOL``), launching the flash and
+    RMSNorm kernels; its op counts equal the CPU's."""
+    C = _chip_smoke()
+    cfg = L.llama_tiny(dtype=torch.bfloat16)
+    setup = C.ops_block_setup(torch, cfg, dev, 2, 64)
+    K.reset_dispatch_stats()
+    y, g = C.ops_block_run(torch, "ops", cfg, *setup)
+    torch.cuda.synchronize()
+    st = K.dispatch_stats()
+    g = {k: v.clone() for k, v in g.items()}
+    y_ref, g_ref = C.ops_block_run(torch, "block", cfg, *setup)
+    assert C._rel(y, y_ref) <= C.FLASH_TOL
+    assert max(C._rel(g[k], g_ref[k]) for k in g_ref) <= C.BWD_TOL
+    assert all(st[k] >= 1 and st[f"{k}_ref"] == 0
+               for k in C.OPS_BLOCK_KERNELS), st
+    card = C.ops_block_counts(torch, cfg, dev, 2, 64)[:2]
+    cpu = C.ops_block_counts(torch, L.llama_tiny(dtype=torch.float32),
+                             torch.device("cpu"), 2, 16)[:2]
+    assert card == cpu

@@ -35,7 +35,7 @@ from paddle_tpu_torch.models import moe as TM
 
 PORTED = ("enable_sentinel", "enable_numerics", "fault_injection",
           "enable_monitor", "enable_monitor_server", "monitor_server_port",
-          "serving_fleet_burn_scaling", "use_autotune")
+          "serving_fleet_burn_scaling", "use_autotune", "check_nan_inf")
 # flags whose doc names the port's own knobs: use_autotune tunes the KV
 # page size and the cross-entropy chunk here, Pallas block sizes there
 PORT_DOCS = ("use_autotune",)

@@ -7,8 +7,9 @@
 - Entry points called without ``device=`` raise on a box without a CUDA
   device instead of running on the CPU; so do the eager surface's
   (``LlamaForCausalLM``, ``to_tensor``, ``seed``, the ``DataLoader``'s
-  batches, ``load``, ``Model``'s inputs) until ``set_device("cpu")`` (or
-  the loader's ``places="cpu"``) asks for the CPU.
+  batches, ``load``, ``Model``'s inputs, the op library's creation and
+  random ops) until ``set_device("cpu")`` (or the loader's
+  ``places="cpu"``) asks for the CPU.
 """
 import ast
 import pathlib
@@ -68,7 +69,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "monitor/roofline.py", "profiler/__init__.py",
             "profiler/statistics.py", "kernels/autotune.py",
             "incubate/autotune.py", "autograd/__init__.py",
-            "autograd/py_layer.py", "core/state.py"} <= scanned
+            "autograd/py_layer.py", "core/state.py", "core/dtype.py",
+            "core/tensor.py", "core/selected_rows.py", "ops/__init__.py",
+            "ops/_op.py", "ops/creation.py", "ops/math.py",
+            "ops/reduction.py", "ops/manipulation.py", "ops/logic.py",
+            "ops/linalg.py", "ops/random.py", "ops/composite.py",
+            "tensor/__init__.py", "testing/op_cases.py"} <= scanned
     files.append(_ROOT.parent / "chip_smoke.py")
     bad = [(str(f.relative_to(_ROOT.parent)), m) for f in files
            for m in _imported_modules(f)
@@ -193,5 +199,25 @@ def test_data_and_hapi_entry_points_refuse_to_drop_to_cpu(no_cuda,
         paddle_tpu_torch.set_device("cpu")
         assert paddle_tpu_torch.load(
             str(tmp_path / "w"))["w"].device.type == "cpu"
+    finally:
+        TD._current_device = prev
+
+
+def test_op_library_creation_refuses_to_drop_to_cpu(no_cuda):
+    prev = TD._current_device
+    TD._current_device = None
+    try:
+        for make in (lambda: paddle_tpu_torch.zeros([2, 3]),
+                     lambda: paddle_tpu_torch.randn([2, 3]),
+                     lambda: paddle_tpu_torch.to_tensor([1.0, 2.0]),
+                     lambda: paddle_tpu_torch.arange(4),
+                     lambda: paddle_tpu_torch.full([2], 1.0)):
+            with pytest.raises(TE.UnavailableError):
+                make()
+        assert paddle_tpu_torch.zeros([2], device="cpu").device.type == "cpu"
+        paddle_tpu_torch.set_device("cpu")
+        assert paddle_tpu_torch.zeros([2, 3]).device.type == "cpu"
+        assert paddle_tpu_torch.randn([2, 3]).device.type == "cpu"
+        assert paddle_tpu_torch.to_tensor([1.0]).device.type == "cpu"
     finally:
         TD._current_device = prev
