@@ -500,7 +500,28 @@ Phases, each printed on its own line; any failure exits non-zero:
     line), ms a layer beside ``_block`` with the monitor off and on, and
     its ``op.<name>.calls`` against the CPU's table at ``llama_tiny``,
     the mean ``op.dispatch.wall_ns`` and the seam's host ns a call
-    (``ops_seam_ns``).
+    (``ops_seam_ns``, on card and on CPU tensors).
+55. float16 (in the kernels phases, ROADMAP B3): every kernel's float16
+    arm against its plain version (``FLASH_F16_TOL``, ``BWD_F16_TOL``,
+    ``PAGED_F16_TOL``, ``RMS_F16_TOL``): the dense and segment flash pair
+    on both routes (``[flash_d]`` at ``FLASH_DIMS`` and ``TC_DIMS``),
+    decode with float16 q over every page type (``MIXED_PAIRS``,
+    ``F16_SAME``), RMSNorm in every float32 / bf16 / float16 pair; the
+    ``*_f16`` kernel rows timed at their bf16 twins' shapes.
+56. amp_parity (after ``eager_parity``): float32 ``llama_tiny`` under each
+    ``AMP_ARMS`` arm (O1 bf16, O2 bf16, O1 float16 with a
+    ``GradScaler``), card against CPU: losses over 3 steps and step-1
+    gradients within ``AMP_PARITY_TOL``, the same steps applied.
+57. amp_train (after ``eager_train``): the eager ``LlamaForCausalLM`` at
+    Llama-3-8B widths, 4 layers, ``[4, 2048]``, AdamW, float32
+    parameters, under each arm: median step, tokens/s, 6ND MFU, peak
+    memory, launches a step (the dense flash pair on the tensor cores,
+    the RMSNorm kernels' float32 arm), the scaler's scale and skipped
+    steps, beside ``eager_train``'s pure-bf16 step.
+58. f16_paths (after ``wide_serve``): the float16 arms off the AMP path,
+    each on a main path at Llama-3-8B widths, 4 layers: packed training
+    (the segment pair), a serve on float16 weights and pages (decode),
+    eager float16 steps (RMSNorm).
 
 The kernels phase also holds the RMSNorm forward and backward kernels to
 their plain versions (``kernel=rms_norm_fwd|rms_norm_bwd``: d 64, 4096
@@ -541,7 +562,8 @@ device, or without the rest of the repo beside it, it exits non-zero
 before printing any result.
 
 ``--layers N`` cuts the depth of the serving main paths: the three Llama
-ones (default: all 32 layers) and ``moe_main`` (at most its 28). The
+ones (default ``SERVE_LAYERS``, 16 of 32) and ``moe_main`` (at most its
+28). The
 wide serves always run ``WIDE_LAYERS``, the launched worker
 ``ELASTIC_LAYERS``.
 """
@@ -561,8 +583,13 @@ H100_BYTES_PER_S = 3.35e12    # HBM3
 
 FLASH_TOL = 2e-2    # bf16 output: one bf16 rounding of values of size ~1
 FLASH_F32_TOL = 1e-4    # float32: summation order and __expf only
+# float16 output: float16 keeps 3 more significand bits than bf16, so
+# one rounding of values up to ~4 is at most 2^-9; the kernel rounds P
+# to float16 too (0.00195 measured on an H100 at D 40-256)
+FLASH_F16_TOL = 4e-3
 LSE_TOL = 1e-3
 PAGED_TOL = 2e-2
+PAGED_F16_TOL = 4e-3    # float16 q: one float16 rounding of the output
 # the decode kernel's mixed (q, page) pairs. A pair with 2-byte pages
 # rounds p to the page type before P.V, as the Pallas kernel does, but
 # against the running max of its row group (Pallas: of its pages so far),
@@ -585,7 +612,11 @@ MIXED_RMS_BAND = (0.25, 2.0)
 # the pairs the mixed arm adds: (q, page) types other than the same-type
 # arms, over the Pallas kernel's page types
 MIXED_PAIRS = (("float32", "bfloat16"), ("float32", "float16"),
-               ("bfloat16", "float32"), ("bfloat16", "float16"))
+               ("bfloat16", "float32"), ("bfloat16", "float16"),
+               ("float16", "float32"), ("float16", "bfloat16"))
+# the float16 q arm over float16 pages (p float32, as the same-type bf16
+# arm), checked beside the mixed pairs
+F16_SAME = ("float16", "float16")
 # [overload_parity]'s kv_dtype case: the float32 model's decode logits
 # over a bf16 pool, card (p rounded to bf16 before P.V, as the Pallas
 # kernel) against CPU (plain version, p float32), relative to the largest
@@ -594,6 +625,7 @@ KV_DTYPE_LOGIT_TOL = 1e-3
 # backward: max abs error of dq / dk / dv over each reference's max |.|
 BWD_TOL = 2e-2      # bf16 outputs and inputs
 BWD_F32_TOL = 1e-4  # float32: summation order and __expf only
+BWD_F16_TOL = 4e-3  # float16: P and dS rounded to float16 (H100: 9.1e-4)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-5   # step-1 grads, relative to each tensor's max |g|
 TRAIN_LAYERS = 4
@@ -602,6 +634,7 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 # 3.9e-3 of a value, and a value may round the other way
 RMS_F32_TOL = 1e-5
 RMS_BF16_TOL = 8e-3     # both relative to max |ref|
+RMS_F16_TOL = 2e-3      # float16 ulp 2^-10 of the value (H100: 5.5e-4)
 RMS_EPS = 1e-5          # llama_3_8b's rms_norm_eps
 BEAM_SCORE_TOL = 1e-5   # float32 beam scores, card against CPU
 # the JAX package's decode rung: batches, prompt and new tokens
@@ -638,6 +671,23 @@ DIT_LABELS, DIT_STEPS, DIT_GUIDANCE = 8, 50, 4.0
 DIT_TIMING_REPS = 5
 DIT_WAVE_BATCHES = (4, 8, 16, 32)
 DIT_TRAIN_BATCH = 32
+
+
+# the serving main paths' default depth: half of Llama-3-8B's 32 layers,
+# so that the whole script, its float16 and AMP phases included, ends
+# inside its time limit on an H100 (at all 32 it does not)
+SERVE_LAYERS = 16
+
+
+def _mem_mark(torch, dev, where):
+    """Collect garbage, return the allocator's cached blocks and print the
+    card's allocated GB: what a phase left behind."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    _say("memory", after=where, allocated_gb=round(
+        torch.cuda.memory_allocated(dev) / 1e9, 3), reserved_gb=round(
+        torch.cuda.memory_reserved(dev) / 1e9, 3))
 
 
 def _say(phase, **kv):
@@ -718,18 +768,22 @@ def _ptxas_entries(log):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             m = re.search(r"\d((?:flash|paged|rms)\w*?_kernel)"
-                          r"(?:ILi(\d+)E(?:NS_(\d+)(\w+))?)?", mangled)
+                          r"(?:ILi(\d+)E(13__nv_bfloat16|6__half)?"
+                          r"(?:NS_(\d+)(\w+))?)?", mangled)
             args = []
             if m and m.group(2):
                 args.append(m.group(2))
-            if m and m.group(3):          # a policy: its name's length
-                args.append(m.group(4)[:int(m.group(3))])
+            if m and m.group(3):          # <D, T, Mask>: the type
+                args.append("f16" if "half" in m.group(3) else "bf16")
+            if m and m.group(4):          # a policy: its name's length
+                args.append(m.group(5)[:int(m.group(4))])
             if m and m.group(1).startswith(("paged_decode", "rms")):
                 args = _decode_args(mangled[m.end(1):])
-            cc = m and re.match(r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ENS_"
-                                r"(\d+)(\w+)", mangled[m.end(1):])
+            cc = m and re.match(r"I(f|13__nv_bfloat16|6__half)Li(\d+)ELi"
+                                r"(\d+)ENS_(\d+)(\w+)", mangled[m.end(1):])
             if cc:                        # <T, G, NC, Mask>: Dp = 4 G NC
-                args = [{"f": "float"}.get(cc.group(1), "bf16"),
+                args = [{"f": "float", "6__half": "f16"}.get(cc.group(1),
+                                                             "bf16"),
                         f"Dp{4 * int(cc.group(2)) * int(cc.group(3))}",
                         cc.group(5)[:int(cc.group(4))]]
             kernel = (f"{m.group(1)}<{','.join(args)}>" if args
@@ -749,15 +803,15 @@ def _decode_args(rest):
     name (``I13__nv_bfloat16aLi4ELb1EEE...``): types, numbers and bools
     (1 / 0); a substitution (``S1_``) repeats the type before it."""
     import re
-    m = re.match(r"I((?:f|a|13__nv_bfloat16|S\d*_|L[ib]\d+E)+)E", rest)
+    m = re.match(r"I((?:f|a|13__nv_bfloat16|6__half|S\d*_|L[ib]\d+E)+)E",
+                 rest)
     args = []
-    for tok in re.finditer(r"f|a|13__nv_bfloat16|S\d*_|L[ib](\d+)E",
+    for tok in re.finditer(r"f|a|13__nv_bfloat16|6__half|S\d*_|L[ib](\d+)E",
                            m.group(1) if m else ""):
         t = tok.group(0)
         args.append(tok.group(1) if tok.group(1) else
-                    {"f": "float", "a": "int8",
-                     "13__nv_bfloat16": "bf16"}.get(t, args[-1] if args
-                                                    else t))
+                    {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16",
+                     "6__half": "f16"}.get(t, args[-1] if args else t))
     return args
 
 
@@ -811,8 +865,8 @@ def phase_flash(torch, dev, main_g, main_s):
         return tuple(torch.randn(b, s, n, d, generator=gen, device=dev)
                      .to(dtype) for s, n in ((sq, h), (sk, kvh), (sk, kvh)))
 
-    worst = 0.0
-    bf16, f32 = torch.bfloat16, torch.float32
+    worst = worst_f16 = 0.0
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     for sq, sk, d, causal, dtype, tol in (
             (16, 16, D, True, bf16, FLASH_TOL),
             (48, 48, D, True, bf16, FLASH_TOL),
@@ -823,7 +877,15 @@ def phase_flash(torch, dev, main_g, main_s):
             (48, 48, 64, True, bf16, FLASH_TOL),
             (1000, 1000, 64, True, bf16, FLASH_TOL),
             (200, 200, 64, False, bf16, FLASH_TOL),
-            (48, 48, D, True, f32, FLASH_F32_TOL)):
+            (48, 48, D, True, f32, FLASH_F32_TOL),
+            # float16 on the tensor cores (D 64 / 128) and the CUDA
+            # cores (D 40), as AMP's float16 arm reaches them
+            (16, 16, D, True, f16, FLASH_F16_TOL),
+            (512, 512, D, True, f16, FLASH_F16_TOL),
+            (80, 48, D, True, f16, FLASH_F16_TOL),
+            (1000, 1000, 64, True, f16, FLASH_F16_TOL),
+            (200, 200, 64, False, f16, FLASH_F16_TOL),
+            (100, 100, 40, True, f16, FLASH_F16_TOL)):
         q, k, v = qkv(2, sq, sk, dtype, d)
         K.reset_dispatch_stats()
         out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
@@ -848,6 +910,8 @@ def phase_flash(torch, dev, main_g, main_s):
                  out_zero=True, lse_neg_inf=True)
         if dtype == bf16:
             worst = max(worst, err)
+        if dtype == f16:
+            worst_f16 = max(worst_f16, err)
 
     for b, sq, sk, causal in moe_flash_cases(main_g, main_s):
         q, k, v = qkv(b, sq, sk, bf16, heads=MOE_HEADS)
@@ -897,11 +961,19 @@ def phase_flash(torch, dev, main_g, main_s):
     return {"name": "flash_fwd", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "paddle_tpu/kernels/flash_attention.py:40",
+            "f16_max_abs_err": worst_f16,
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "operations" if flops / H100_BF16_FLOPS
             >= nbytes / H100_BYTES_PER_S else "bytes",
             "library_ms": library_ms}
+
+
+def _rms_tol(torch, dtype):
+    """The RMSNorm outputs' tolerance in ``dtype``, relative to max
+    |ref|."""
+    return {torch.float32: RMS_F32_TOL, torch.bfloat16: RMS_BF16_TOL,
+            torch.float16: RMS_F16_TOL}[dtype]
 
 
 def rms_bwd_timing(torch, dev, RN, n, d, xdt, wdt, seed=0):
@@ -924,7 +996,7 @@ def rms_bwd_timing(torch, dev, RN, n, d, xdt, wdt, seed=0):
     dx_ref, dw_ref = RN.rms_norm_bwd_ref(x, w, rstd, dy)
     err = {}
     for name, got, want in (("dx", dx, dx_ref), ("dw", dw, dw_ref)):
-        tol = RMS_F32_TOL if got.dtype == torch.float32 else RMS_BF16_TOL
+        tol = _rms_tol(torch, got.dtype)
         err[name] = _err(got, want) / float(want.float().abs().max())
         assert err[name] <= tol, (name, n, d, xdt, wdt, err[name])
     del dx_ref, dw_ref
@@ -976,7 +1048,8 @@ def phase_rms(torch, dev):
     ``torch.nn.functional.rms_norm``."""
     from paddle_tpu_torch.kernels import rms_norm as RN
     gen = torch.Generator(device=dev).manual_seed(13)
-    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16,
+           "f16": torch.float16}
 
     def inputs(n, d, xdt, wdt):
         x = torch.randn(n, d, generator=gen, device=dev).to(xdt)
@@ -997,7 +1070,7 @@ def phase_rms(torch, dev):
         for name, got, want in (("y", y, y_ref), ("dx", dx, dx_ref),
                                 ("dw", dw, dw_ref), ("rstd", rstd, rstd_ref)):
             assert got.dtype == want.dtype and got.shape == want.shape, name
-            tol = RMS_F32_TOL if got.dtype == torch.float32 else RMS_BF16_TOL
+            tol = _rms_tol(torch, got.dtype)
             rel = _err(got, want) / float(want.float().abs().max())
             assert rel <= tol, (name, tuple(x.shape), x.dtype, w.dtype, rel)
             errs[name] = rel
@@ -1008,31 +1081,56 @@ def phase_rms(torch, dev):
         return f"{p.route}:{p.grid}x{p.groups}x{p.threads}:s{p.stages}"
 
     worst_fwd = worst_bwd = 0.0
+    worst_f16 = (0.0, 0.0)
     for d in (64, 4096, 5120):
         for n in (1, 22, 8193):
             rel, plans = {}, {}
             for xn, wn in (("f32", "f32"), ("bf16", "bf16"), ("bf16", "f32"),
-                           ("f32", "bf16")):
+                           ("f32", "bf16"), ("f16", "f16"), ("f16", "f32"),
+                           ("f32", "f16"), ("f16", "bf16"),
+                           ("bf16", "f16")):
                 errs, ef, eb = check(*inputs(n, d, dts[xn], dts[wn]))
                 rel[f"{xn}x{wn}"] = max(errs.values())
                 plans[f"{xn}x{wn}"] = plan(n, d, dts[xn], dts[wn])
-                worst_fwd, worst_bwd = max(worst_fwd, ef), max(worst_bwd, eb)
+                if xn != "f16":
+                    worst_fwd, worst_bwd = max(worst_fwd, ef), max(worst_bwd,
+                                                                   eb)
+                else:
+                    worst_f16 = (max(worst_f16[0], ef), max(worst_f16[1],
+                                                            eb))
             _say("kernels", kernel="rms_norm_fwd|rms_norm_bwd", n=n, d=d,
                  max_rel_err_by_x_w_dtype=json.dumps(rel).replace(" ", ""),
                  bwd_plan_grid_groups_threads_stages=json.dumps(
                      plans).replace(" ", ""),
-                 f32_tol=RMS_F32_TOL, bf16_tol=RMS_BF16_TOL)
+                 f32_tol=RMS_F32_TOL, bf16_tol=RMS_BF16_TOL,
+             f16_tol=RMS_F16_TOL)
 
-    # the eager path's shape: x [B * S, D] bf16, w [D] bf16
+    # the eager path's shape: x [B * S, D], w [D], in bf16 (the eager
+    # main path's) and float16 (rows "_f16")
     n, d = TRAIN_BATCH * TRAIN_SEQ, 4096
-    x, w, dy = inputs(n, d, torch.bfloat16, torch.bfloat16)
+    recs = []
+    for dt, suffix, worst in (
+            (torch.bfloat16, "", (worst_fwd, worst_bwd)),
+            (torch.float16, "_f16", worst_f16)):
+        recs += _rms_rows(torch, dev, RN, inputs, check, n, d, dt, suffix,
+                          worst)
+    return recs
+
+
+def _rms_rows(torch, dev, RN, inputs, check, n, d, dt, suffix, worst):
+    """Both RMSNorm kernels at ``[n, d]`` in ``dt`` (x and w): checked,
+    ``dw`` bit for bit across two launches, then times of kernel (the
+    backward's as device time, ``rms_bwd_timing``), plain version and
+    ``F.rms_norm``; the two kernel records, named with ``suffix``."""
+    x, w, dy = inputs(n, d, dt, dt)
     errs, ef, eb = check(x, w, dy)
-    worst_fwd, worst_bwd = max(worst_fwd, ef), max(worst_bwd, eb)
+    worst_fwd, worst_bwd = max(worst[0], ef), max(worst[1], eb)
+    dname = {torch.bfloat16: "bf16", torch.float16: "f16"}[dt]
     _, rstd = RN.rms_norm_fwd(x, w, RMS_EPS)
     dws = [RN.rms_norm_bwd(x, w, rstd, dy)[1] for _ in range(2)]
     deterministic = bool(torch.equal(dws[0], dws[1]))
     _say("kernels", kernel="rms_norm_fwd|rms_norm_bwd", shape=f"{n}x{d}",
-         dtype="bf16", max_rel_err=json.dumps(errs).replace(" ", ""),
+         dtype=dname, max_rel_err=json.dumps(errs).replace(" ", ""),
          dw_bitwise_equal_across_launches=deterministic,
          bwd_plan=json.dumps(RN.bwd_plan(n, d, x.dtype, w.dtype)._asdict())
          .replace(" ", ""))
@@ -1045,8 +1143,8 @@ def phase_rms(torch, dev):
     plain_b = _time_ms(lambda: RN.rms_norm_bwd_ref(x, w, rstd, dy), 20)
     e = x.element_size()
     del x, w, dy, rstd, dws
-    tb = rms_bwd_timing(torch, dev, RN, n, d, torch.bfloat16, torch.bfloat16)
-    _say("kernels", kernel="rms_norm_bwd", timing="device", **tb)
+    tb = rms_bwd_timing(torch, dev, RN, n, d, dt, dt)
+    _say("kernels", kernel="rms_norm_bwd" + suffix, timing="device", **tb)
     # bytes each moves at least: every input read once, every output
     # written once; a few float32 operations an element besides
     fwd_bytes = 2 * n * d * e + d * e + 4 * n
@@ -1061,10 +1159,11 @@ def phase_rms(torch, dev):
         t_bytes = nbytes / H100_BYTES_PER_S
         t_ops = ops / H100_F32_FLOPS
         bound = max(t_bytes, t_ops) * 1e3
-        _say("kernels", kernel=name, shape=f"{n}x{d}", dtype="bf16", ms=ms,
+        _say("kernels", kernel=name + suffix, shape=f"{n}x{d}", dtype=dname,
+             ms=ms,
              plain_ms=plain, library_ms=libms, bound_ms=bound,
              bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
-        recs.append({"name": name, "route": "cuda",
+        recs.append({"name": name + suffix, "route": "cuda",
                      "source": "paddle_tpu_torch/csrc/rms_norm.cu",
                      "replaces": f"paddle_tpu/kernels/rms_norm.py:{line}",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1136,8 +1235,10 @@ L2_BYTES = 50e6      # the H100's L2 cache
 
 
 def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
-                  check=True, page_dtype=None, heads=(32, 8, 128)):
-    """One decode call's device time at ``lengths`` (bf16 q, ``heads`` =
+                  check=True, page_dtype=None, heads=(32, 8, 128),
+                  q_dtype=None):
+    """One decode call's device time at ``lengths`` (bf16 q, or
+    ``q_dtype``; ``heads`` =
     (query heads, kv heads, head dim), default Llama-3-8B's; bf16 pages
     of ``ps``, pages of ``page_dtype`` when given, or int8 with scales):
     ``torch.profiler``'s
@@ -1173,7 +1274,8 @@ def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
                 .to(page_dtype) for _ in range(2)))
     bt = _page_tables(torch, dev, lengths, ps, width, P - 1, seed)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    q = torch.randn(B, NH, D, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, NH, D, generator=gen, device=dev).to(
+        q_dtype or torch.bfloat16)
 
     def call(i, fn=PA.ragged_paged_attention):
         kp, vp, *sc = pools[i]
@@ -1204,11 +1306,11 @@ def decode_timing(torch, dev, PA, lengths, ps, width, quant, seed,
     ctx = sum(lengths)
     pages = sum(-(-n // ps) for n in lengths)
     # bytes: the live context's keys and values (int8: codes, and the
-    # scales of their pages; elem bytes a value), q and out in bf16, block
-    # tables and lengths
+    # scales of their pages; elem bytes a value), q and out, block tables
+    # and lengths
     nbytes = (2 * KVH * ctx * D * elem + (2 * 4 * KVH * pages if quant
                                          else 0)
-              + 2 * 2 * q.numel() + 4 * (bt.numel() + B))
+              + 2 * q.element_size() * q.numel() + 4 * (bt.numel() + B))
     flops = 4.0 * NH * ctx * D
     bound = max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
     return {"shape": f"B{B}xctx{ctx}xps{ps}", "ms": ms,
@@ -1332,7 +1434,8 @@ def phase_paged(torch, dev, main_lengths, wave2, maxp):
 def mixed_tol(torch, qdt, pdt, vmax):
     """The stated tolerance of a mixed pair against the plain version
     (``MIXED_UNIT_ROUNDOFF``)."""
-    tol = PAGED_TOL if qdt == torch.bfloat16 else FLASH_F32_TOL
+    tol = {torch.bfloat16: PAGED_TOL, torch.float16: PAGED_F16_TOL}.get(
+        qdt, FLASH_F32_TOL)
     return tol + MIXED_UNIT_ROUNDOFF[str(pdt).split(".")[-1]] * vmax
 
 
@@ -1368,15 +1471,17 @@ def _rms(x):
 
 def paged_mixed_checks(torch, dev, PA, main_lengths, maxp):
     """The decode kernel at every mixed (q, page) pair (``MIXED_PAIRS``,
-    pages of 16): the edge shapes of ``paged_checks`` (empty sequences, a
+    pages of 16) and the float16 arm (``F16_SAME``): the edge shapes of ``paged_checks`` (empty sequences, a
     partial last page, sentinel and garbage table entries, the full
     table) at D 64 and 128 and groups 1, 2, 4 and 8, then the main
     serving shape (32 / 8 heads of 128, ``[main]``'s first wave). Each
     pair against its plain version within ``mixed_tol``; bf16 q against
-    ``paged_ref_round_p`` within ``PAGED_TOL``; float32 q over 2-byte
-    pages the rounding's RMS ratio within ``MIXED_RMS_BAND``. Then bf16 q
-    over float32 pages that hold bf16 values must equal the bf16 arm bit
-    for bit (the same tiles in the same order, p float32 in both).
+    ``paged_ref_round_p`` within ``PAGED_TOL``, float16 q within
+    ``PAGED_F16_TOL`` plus the page type's roundoff; float32 q over 2-byte
+    pages the rounding's RMS ratio within ``MIXED_RMS_BAND``. Then bf16
+    (float16) q over float32 pages that hold bf16 (float16) values must
+    equal the same-type arm bit for bit (the same tiles in the same order,
+    p float32 in both).
     Returns each pair's largest error and the largest margin ``err /
     tol``."""
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -1392,7 +1497,7 @@ def paged_mixed_checks(torch, dev, PA, main_lengths, maxp):
         bt = _page_tables(torch, dev, lengths, PS, maxp, P, 22)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
         qf = torch.randn(len(lengths), NH, D, generator=gen, device=dev)
-        for qn, pn in MIXED_PAIRS:
+        for qn, pn in MIXED_PAIRS + (F16_SAME,):
             qdt, pdt = getattr(torch, qn), getattr(torch, pn)
             q, kp, vp = qf.to(qdt), kf.to(pdt), vf.to(pdt)
             out = PA.ragged_paged_attention(q, kp, vp, bt, ln)
@@ -1416,6 +1521,10 @@ def paged_mixed_checks(torch, dev, PA, main_lengths, maxp):
                 f"disagrees at {name} {NH}/{KVH}/{D}: {err}"
             if qdt == torch.bfloat16:
                 assert err_rnd <= PAGED_TOL, (qn, pn, name, err_rnd)
+            if qdt == torch.float16:
+                assert err_rnd <= PAGED_F16_TOL + MIXED_UNIT_ROUNDOFF[
+                    pn] * float(vp.float().abs().max()), (qn, pn, name,
+                                                          err_rnd)
             if ratio is not None:
                 lo, hi = MIXED_RMS_BAND
                 assert lo <= ratio <= hi, f"paged_decode {qn} q over " \
@@ -1424,13 +1533,17 @@ def paged_mixed_checks(torch, dev, PA, main_lengths, maxp):
             assert zero, "paged_decode: a length-0 row is not zero"
             worst[(qn, pn)] = max(worst.get((qn, pn), 0.0), err)
             margin = max(margin, err / tol)
-        qb, kb, vb = qf.bfloat16(), kf.bfloat16(), vf.bfloat16()
-        same = torch.equal(
-            PA.ragged_paged_attention(qb, kb.float(), vb.float(), bt, ln),
-            PA.ragged_paged_attention(qb, kb, vb, bt, ln))
-        _say("paged_mixed", shape=name, heads=f"{NH}/{KVH}", D=D,
-             bf16_q_f32_pages_of_bf16_values_equal_bf16_arm=same)
-        assert same, "bf16 q over float32 pages differs from the bf16 arm"
+        for half in (torch.bfloat16, torch.float16):
+            qb, kb, vb = qf.to(half), kf.to(half), vf.to(half)
+            same = torch.equal(
+                PA.ragged_paged_attention(qb, kb.float(), vb.float(), bt,
+                                          ln),
+                PA.ragged_paged_attention(qb, kb, vb, bt, ln))
+            _say("paged_mixed", shape=name, heads=f"{NH}/{KVH}", D=D,
+                 q=str(half).split(".")[-1],
+                 f32_pages_of_q_type_values_equal_same_type_arm=same)
+            assert same, f"{half} q over float32 pages differs from its " \
+                "same-type arm"
         del kf, vf
     return worst, margin
 
@@ -1448,19 +1561,28 @@ def phase_paged_mixed(torch, dev, main_lengths, maxp):
     mixed = decode_timing(torch, dev, PA, first, PS, maxp, False, 24,
                           page_dtype=torch.float32)
     same = decode_timing(torch, dev, PA, first, PS, maxp, False, 24)
+    # the float16 arm (q and pages float16) at the same wave: row 5f
+    f16 = decode_timing(torch, dev, PA, first, PS, maxp, False, 24,
+                        page_dtype=torch.float16, q_dtype=torch.float16)
+    _say("paged_mixed", timing="first_wave", q="float16", pages="float16",
+         **f16)
     _say("paged_mixed", timing="first_wave", q="bfloat16", pages="float32",
          **mixed)
     _say("paged_mixed", timing="first_wave", q="bfloat16", pages="bfloat16",
          ms=same["ms"], bound_ms=same["bound_ms"],
          mixed_over_same=mixed["ms"] / same["ms"], worst_margin=margin)
     torch.cuda.empty_cache()
-    return {"name": "paged_decode_bf16q_f32pages", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/paged_decode.cu",
-            "replaces": "paddle_tpu/kernels/paged_attention.py:60",
-            "max_abs_err": worst[("bfloat16", "float32")],
-            "ms": mixed["ms"], "plain_ms": mixed["plain_ms"],
-            "bound_ms": mixed["bound_ms"], "bound_by": "bytes",
-            "library_ms": None}
+    rec = {"source": "paddle_tpu_torch/csrc/paged_decode.cu",
+           "route": "cuda", "replaces": "paddle_tpu/kernels/"
+           "paged_attention.py:60", "bound_by": "bytes",
+           "library_ms": None}
+    return ({**rec, "name": "paged_decode_bf16q_f32pages",
+             "max_abs_err": worst[("bfloat16", "float32")],
+             "ms": mixed["ms"], "plain_ms": mixed["plain_ms"],
+             "bound_ms": mixed["bound_ms"]},
+            {**rec, "name": "paged_decode_f16",
+             "max_abs_err": worst[F16_SAME], "ms": f16["ms"],
+             "plain_ms": f16["plain_ms"], "bound_ms": f16["bound_ms"]})
 
 
 def phase_paged_int8(torch, dev, main_lengths, wave2, maxp, ps):
@@ -5218,9 +5340,15 @@ def phase_flash_bwd(torch, dev, batch, seq):
         assert all(bool(torch.isfinite(g.float()).all()) for g in got)
         return got, max(errs)
 
-    worst = 0.0
-    bf16, f32 = torch.bfloat16, torch.float32
+    worst = worst_f16 = 0.0
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     for sq, sk, d, causal, dtype, tol in (
+            (48, 48, D, True, f16, BWD_F16_TOL),
+            (80, 48, D, True, f16, BWD_F16_TOL),
+            (1000, 1000, D, True, f16, BWD_F16_TOL),
+            (1000, 1000, 64, True, f16, BWD_F16_TOL),
+            (200, 200, 64, False, f16, BWD_F16_TOL),
+            (100, 100, 40, True, f16, BWD_F16_TOL),
             (16, 16, D, True, bf16, BWD_TOL),
             (48, 48, D, True, bf16, BWD_TOL),
             (512, 512, D, True, bf16, BWD_TOL),
@@ -5243,6 +5371,8 @@ def phase_flash_bwd(torch, dev, batch, seq):
                  dq_zero=True)
         if dtype == bf16:
             worst = max(worst, err)
+        if dtype == f16:
+            worst_f16 = max(worst_f16, err)
 
     for b, sq, sk, causal in ((2, 48, 48, True), (2, 48, 48, False),
                               (2, 32, 80, True), (2, 80, 48, True),
@@ -5313,13 +5443,84 @@ def phase_flash_bwd(torch, dev, batch, seq):
     _say("kernels", kernel="flash_bwd", shape=f"B{batch}xS{seq}", ms=ms,
          plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
          share_of_bound=bound / ms, tflops=flops / ms / 1e9)
-    return {"name": "flash_bwd", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": "paddle_tpu/kernels/flash_attention.py:146",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+    rec = {"name": "flash_bwd", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
+           "replaces": "paddle_tpu/kernels/flash_attention.py:146",
+           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": library_ms}
+    torch.cuda.empty_cache()
+    return [rec] + _flash_f16_train_rows(torch, FA, inputs, check, batch,
+                                         seq, (0.0, worst_f16))
+
+
+def _flash_f16_train_rows(torch, FA, inputs, check, batch, seq, worst):
+    """Rows 1f / 2f: the dense flash pair in float16 at the training
+    shape (AMP's float16 arm reaches it there): out / lse and the
+    gradients held to the plain versions, then kernel, plain version and
+    SDPA timed, forward and backward; the two kernel records."""
+    H, KVH, D = 32, 8, 128
+    args = inputs(batch, seq, seq, torch.float16, True)
+    q, k, v, out, lse, dout = args
+    ref, ref_lse = FA.flash_attention_ref(q, k, v, causal=True)
+    err, lerr = _err(out, ref), _err(lse, ref_lse)
+    assert err <= FLASH_F16_TOL and lerr <= LSE_TOL, \
+        "flash_fwd float16 disagrees at the training path's shape"
+    del ref, ref_lse
+    fwd_err = max(worst[0], err)
+    _, berr = check(args, True, BWD_F16_TOL, shape=f"B{batch}xS{seq}",
+                    dtype="float16")
+    bwd_err = max(worst[1], berr)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd_ms = _time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal=True),
+                      20)
+    fwd_plain_ms = _time_ms(
+        lambda: FA.flash_attention_ref(q, k, v, causal=True), 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd_lib_ms = _time_ms(
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    del qt, kt, vt
+    bwd_ms = _time_ms(lambda: FA.flash_attention_bwd(*args, causal=True), 5)
+    bwd_plain_ms = _time_ms(
+        lambda: FA.flash_attention_bwd_ref(*args, causal=True), 3)
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_()
+              for x in (q, k, v)]
+    lib_out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+    lib_dout = dout.transpose(1, 2).contiguous()
+    bwd_lib_ms = _time_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, lib_dout, retain_graph=True), 5)
+    del lib_out, leaves, args, q, k, v, out, lse, dout
+    torch.cuda.empty_cache()
+    # the bf16 rows' bounds: float16 runs at the same tensor-core peak
+    # and moves the same bytes
+    fwd_flops = 2.0 * batch * H * seq * seq * D
+    fwd_bytes = 4 * batch * seq * H * D * 2 + 4 * batch * seq * KVH * D \
+        + 4 * batch * H * seq
+    bwd_flops = 5.0 * batch * H * seq * seq * D
+    bwd_bytes = (2 * batch * seq * D * (4 * H + 4 * KVH)
+                 + 4 * batch * H * seq)
+    recs = []
+    for name, src, line, ms, plain, lib, flops, nbytes, e in (
+            ("flash_fwd_f16", "flash_fwd.cu", 40, fwd_ms, fwd_plain_ms,
+             fwd_lib_ms, fwd_flops, fwd_bytes, fwd_err),
+            ("flash_bwd_f16", "flash_bwd.cu", 146, bwd_ms, bwd_plain_ms,
+             bwd_lib_ms, bwd_flops, bwd_bytes, bwd_err)):
+        t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        _say("kernels", kernel=name, shape=f"B{batch}xS{seq}",
+             dtype="float16", route="tc", ms=ms, plain_ms=plain,
+             library_ms=lib, bound_ms=bound, share_of_bound=bound / ms,
+             tflops=flops / ms / 1e9, max_abs_err=e)
+        recs.append({"name": name, "route": "cuda",
+                     "source": f"paddle_tpu_torch/csrc/{src}",
+                     "replaces": f"paddle_tpu/kernels/flash_attention.py:"
+                                 f"{line}",
+                     "max_abs_err": e, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "library_ms": lib})
+    return recs
 
 
 def phase_layer_grads(torch, dev, packed=False):
@@ -5476,7 +5677,7 @@ def phase_flash_seg(torch, dev):
     from paddle_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(9)
     H, KVH, D = 32, 8, 128
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
 
     def inputs(b, sq, sk, dtype, d=D):
         return tuple(torch.randn(b, s, h, d, generator=gen, device=dev)
@@ -5527,8 +5728,13 @@ def phase_flash_seg(torch, dev):
         assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
         return out, lse, grads, err, max(berrs)
 
-    worst_f = worst_b = 0.0
+    worst_f = worst_b = worst_f16_f = worst_f16_b = 0.0
     for sq, sk, d, causal, dtype, tol, kind in (
+            # float16: the tensor cores at D 64 / 128, the CUDA cores at 40
+            (96, 96, D, True, f16, FLASH_F16_TOL, "packed"),
+            (1000, 1000, 64, True, f16, FLASH_F16_TOL, "packed"),
+            (70, 90, D, True, f16, FLASH_F16_TOL, "cu"),
+            (96, 96, 40, True, f16, FLASH_F16_TOL, "packed"),
             (96, 96, D, True, bf16, FLASH_TOL, "packed"),
             (160, 160, D, False, bf16, FLASH_TOL, "packed"),
             (512, 512, D, True, bf16, FLASH_TOL, "packed"),
@@ -5548,6 +5754,9 @@ def phase_flash_seg(torch, dev):
                            dtype=str(dtype).split(".")[-1], layout=kind)
         if dtype == bf16:
             worst_f, worst_b = max(worst_f, ef), max(worst_b, eb)
+        if dtype == f16:
+            worst_f16_f, worst_f16_b = max(worst_f16_f, ef), max(worst_f16_b,
+                                                                eb)
 
     # one document over the whole row is dense causal attention: the
     # segment kernels against the dense ones
@@ -5575,36 +5784,57 @@ def phase_flash_seg(torch, dev):
     assert all(st[key] == 1 for key in ("varlen_tc", "varlen_bwd_tc",
                                         "flash_tc", "flash_bwd_tc")), st
 
-    # the packed trace: [7, 2048] at Llama-3-8B's attention widths
+    # the packed trace: [7, 2048] at Llama-3-8B's attention widths, in
+    # bf16 (the packed main path's) and float16 (its rows "_f16")
     _, packed = packed_trace()
     seg = torch.as_tensor(packed["segment_ids"], device=dev)
     pos = torch.as_tensor(packed["positions"], device=dev)
     segs = (seg, seg, pos, pos)
-    b, s = seg.shape
-    q, k, v, dout = inputs(b, s, s, bf16)
+    recs = []
+    for dtype, suffix, tol in ((bf16, "", FLASH_TOL),
+                               (f16, "_f16", FLASH_F16_TOL)):
+        recs += _seg_trace_rows(torch, dev, K, FA, check, inputs, segs,
+                                dtype, suffix, tol,
+                                (worst_f, worst_b) if dtype == bf16
+                                else (worst_f16_f, worst_f16_b))
+    return recs
+
+
+def _seg_trace_rows(torch, dev, K, FA, check, inputs, segs, dtype, suffix,
+                    tol, worst):
+    """The segment kernels at the packed trace in ``dtype``: the tiles
+    run against ``count_skipped_blocks``, out / lse / grads against the
+    plain versions (``check``), then kernel, stats, plain and SDPA (boolean
+    mask) times and the bounds; the two kernel records, named with
+    ``suffix``."""
+    b, s = segs[0].shape
+    H, KVH, D = 32, 8, 128
+    q, k, v, dout = inputs(b, s, s, dtype)
     ran = torch.zeros(1, dtype=torch.int32, device=dev)
     FA.flash_attention_segments_fwd(q, k, v, *segs, causal=True,
                                     tiles_ran=ran)
     tiles = FA.seg_tiles(q)
     skipped, total = FA.count_skipped_blocks(*segs, *tiles, True)
     ran_per_head = int(ran) / H
-    _say("kernels", kernel="flash_seg_fwd", shape=f"B{b}xS{s}",
+    _say("kernels", kernel="flash_seg_fwd" + suffix, shape=f"B{b}xS{s}",
          tiles=f"{tiles[0]}x{tiles[1]}", tiles_total=total,
          tiles_skipped_count=skipped, tiles_run_kernel_per_head=ran_per_head)
     # what coarser tiles cost on this trace: tiles run of the total, and
-    # pairs computed over visible pairs (a count, on the CPU)
+    # pairs computed over visible pairs (a count, on the CPU; once)
     cpu_segs = [x.cpu() for x in segs]
     visible = int(FA._seg_mask(*cpu_segs, True).sum())
-    for tq, tk in ((32, 32), (64, 64), (128, 128), (128, 64), (64, 128)):
+    for tq, tk in (((32, 32), (64, 64), (128, 128), (128, 64), (64, 128))
+                   if not suffix else ()):
         sk_, tot_ = FA.count_skipped_blocks(*cpu_segs, tq, tk, True)
         _say("kernels", kernel="flash_seg", trace_tiles=f"{tq}x{tk}",
              tiles_run=tot_ - sk_, tiles_total=tot_,
              pairs_computed_over_visible=(tot_ - sk_) * tq * tk / visible)
     assert ran_per_head == total - skipped, \
         "flash_seg_fwd: the tiles run differ from count_skipped_blocks"
-    out, lse, grads, ef, eb = check(q, k, v, dout, segs, True, FLASH_TOL,
-                                    shape=f"B{b}xS{s}", layout="trace")
-    worst_f, worst_b = max(worst_f, ef), max(worst_b, eb)
+    out, lse, grads, ef, eb = check(q, k, v, dout, segs, True, tol,
+                                    shape=f"B{b}xS{s}", layout="trace",
+                                    dtype=str(dtype).split(".")[-1])
+    worst_f, worst_b = max(worst[0], ef), max(worst[1], eb)
     del grads
     torch.cuda.empty_cache()
     # the kernels on stats computed once, as the main path's backward
@@ -5645,29 +5875,31 @@ def phase_flash_seg(torch, dev):
     pair_ops = 2.0 * D * H * visible
     seg_bytes = 4 * 4 * b * s
     fwd_ops, bwd_ops = 2 * pair_ops, 5 * pair_ops
-    qb, kb = 2 * b * s * H * D, 2 * b * s * KVH * D
+    e = q.element_size()
+    qb, kb = e * b * s * H * D, e * b * s * KVH * D
     fwd_bytes = 2 * qb + 2 * kb + 4 * b * H * s + seg_bytes
     bwd_bytes = 4 * qb + 4 * kb + 4 * b * H * s + seg_bytes
     recs = []
-    for name, src_line, ms, plain, lib, ops, nbytes, worst in (
+    for name, src_line, ms, plain, lib, ops, nbytes, err in (
             ("flash_seg_fwd", 496, fwd_ms, fwd_plain_ms, lib_fwd_ms,
              fwd_ops, fwd_bytes, worst_f),
             ("flash_seg_bwd", 546, bwd_ms, bwd_plain_ms, lib_bwd_ms,
              bwd_ops, bwd_bytes, worst_b)):
         t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
-        _say("kernels", kernel=name, shape=f"B{b}xS{s}", route="tc",
+        _say("kernels", kernel=name + suffix, shape=f"B{b}xS{s}",
+             route="tc",
              ms=ms, stats_ms=stats_ms, plain_ms=plain, library_ms=lib,
              bound_ms=bound,
              share_of_bound=bound / ms, visible_pairs_per_head=visible,
              gflop=ops / 1e9, mbytes=nbytes / 1e6, tflops=ops / ms / 1e9)
-        recs.append({"name": name, "route": "cuda",
+        recs.append({"name": name + suffix, "route": "cuda",
                      "source": "paddle_tpu_torch/csrc/" + (
                          "flash_fwd.cu" if name.endswith("fwd")
                          else "flash_bwd.cu"),
                      "replaces": f"paddle_tpu/kernels/flash_attention.py:"
                                  f"{src_line}",
-                     "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": bound,
                      "bound_by": "operations" if t_ops >= t_bytes
                      else "bytes", "library_ms": lib})
@@ -6088,6 +6320,339 @@ def phase_eager_train(torch, dev, card, after=None):
     if after is not None:
         after(model, opt, inp, tgt)
     return launches, step_s * 1e3
+
+
+# -- AMP (ROADMAP A10: amp/ and the auto-cast seam) ---------------------------
+
+# the three AMP arms of the eager path: (name, dtype, level, scaled)
+AMP_ARMS = (("O1-bf16", "bfloat16", "O1", False),
+            ("O2-bf16", "bfloat16", "O2", False),
+            ("O1-fp16", "float16", "O1", True))
+AMP_INIT_SCALE = 65536.0
+# [amp_parity], card (kernels) against CPU (plain versions), float32
+# llama_tiny under each arm: losses over 3 steps and step-1 gradients
+# (of each tensor's max |g|). Both sides round every product to the AMP
+# type, the card's flash kernel P (and dS) at other places than the
+# plain version, and cuBLAS and the CPU sum the products in other
+# orders: bf16 2e-2 / 5e-2 (the CPU port against the reference's eager
+# model differs by 1.5e-2 in gradients), float16 4e-3 / 1e-2
+AMP_PARITY_TOL = {"bfloat16": (2e-2, 5e-2), "float16": (4e-3, 1e-2)}
+AMP_TIMED, AMP_UNTIMED = 5, 2
+# [amp_parity]'s forced overflow: 2^40 times a loss of ~5 overflows every
+# float16 gradient of the logits
+AMP_OVERFLOW_SCALE = 2.0 ** 40
+AMP_MIN_APPLIED, AMP_MAX_STEPS = 3, 16     # the float16 arm's
+
+
+def amp_setup(model, opt, arm):
+    """``(scaler, context)`` of an AMP arm on ``model`` / ``opt``: O2
+    decorates first; the float16 arm's ``GradScaler`` starts at
+    ``AMP_INIT_SCALE`` with dynamic scaling."""
+    from paddle_tpu_torch import amp
+    name, dtype, level, scaled = arm
+    if level == "O2":
+        amp.decorate(model, opt, level="O2", dtype=dtype)
+    scaler = (amp.GradScaler(init_loss_scaling=AMP_INIT_SCALE)
+              if scaled else None)
+    return scaler, lambda: amp.auto_cast(dtype=dtype, level=level)
+
+
+def amp_step(model, opt, inp, tgt, scaler, ctx):
+    """One eager AMP training step as Paddle users write it: forward under
+    ``auto_cast``, the scaled loss's backward and the scaler's step with
+    a scaler, the plain backward and step without. Returns ``(loss,
+    applied)``; ``applied`` False for a step the scaler skipped."""
+    import paddle_tpu_torch.nn.functional as F
+    vocab = model.config.vocab_size
+    with ctx():
+        logits = model(inp)
+        loss = F.cross_entropy(logits.reshape([-1, vocab]),
+                               tgt.reshape([-1]))
+    applied = True
+    if scaler is not None:
+        scaler.scale(loss).backward()
+        scaler.unscale_(opt)
+        applied = not scaler._opt_states[id(opt)][1]
+        scaler.step(opt)
+        scaler.update()
+    else:
+        loss.backward()
+        opt.step()
+    opt.clear_grad()
+    return loss.detach(), applied
+
+
+def phase_amp_parity(torch, dev):
+    """Each AMP arm on float32 ``llama_tiny``: the same weights and data
+    on the CPU (plain versions) and the card (kernels), one gradient and
+    three steps (the float16 arm a fourth at ``AMP_OVERFLOW_SCALE``, which
+    must be skipped with the scale halved); losses and step-1 gradients
+    within ``AMP_PARITY_TOL``, the same steps applied; on the card the
+    flash and RMSNorm kernels launched and no plain version."""
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_tiny()
+    try:
+        for arm in AMP_ARMS:
+            name, dtype = arm[:2]
+            got, weights = {}, None
+            for side, where in (("cpu", "cpu"), ("card", f"gpu:{dev.index}")):
+                P.set_device(where)
+                model, opt, inp, tgt = eager_train_setup(
+                    torch, cfg, seed=0, data_seed=6, batch=2, seq=32,
+                    dtype=None, lr=3e-3)
+                if weights is None:
+                    weights = {k: v.detach().clone()
+                               for k, v in model.state_dict().items()}
+                else:
+                    model.set_state_dict(weights)
+                scaler, ctx = amp_setup(model, opt, arm)
+                K.reset_dispatch_stats()
+                with ctx():
+                    loss = F.cross_entropy(model(inp).reshape(
+                        [-1, cfg.vocab_size]), tgt.reshape([-1]))
+                loss.backward()
+                grads = [p.grad.detach().float().cpu()
+                         for p in model.parameters()]
+                opt.clear_grad()
+                steps = [amp_step(model, opt, inp, tgt, scaler, ctx)
+                         for _ in range(3)]
+                if scaler is not None:
+                    # a scale no float16 gradient survives: the step is
+                    # skipped and the scale halves, on both sides
+                    scaler.set_init_loss_scaling(AMP_OVERFLOW_SCALE)
+                    steps.append(amp_step(model, opt, inp, tgt, scaler, ctx))
+                    assert not steps[-1][1], (name, side)
+                    assert scaler.get_loss_scaling() == \
+                        AMP_OVERFLOW_SCALE / 2, scaler.get_loss_scaling()
+                torch.cuda.synchronize()
+                got[side] = ([float(x) for x, _ in steps],
+                             [a for _, a in steps], grads,
+                             K.dispatch_stats())
+                _say("amp_parity", arm=name, device=side,
+                     losses=got[side][0], applied=got[side][1],
+                     **{k: v for k, v in got[side][3].items() if v})
+            loss_tol, grad_tol = AMP_PARITY_TOL[dtype]
+            (lc, ac, gc, st), (lg, ag, gg, _) = got["card"], got["cpu"]
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lg))
+            grad_err = max(_err(a, b) / float(b.abs().max())
+                           for a, b in zip(gc, gg))
+            _say("amp_parity", arm=name, loss_rel_err=loss_err,
+                 loss_rtol=loss_tol, grad_rel_err=grad_err,
+                 grad_tol=grad_tol)
+            assert ac == ag, (name, ac, ag)
+            assert loss_err <= loss_tol, (name, lc, lg)
+            assert grad_err <= grad_tol, (name, grad_err)
+            n_rms = (1 + len(lc)) * (2 * cfg.num_hidden_layers + 1)
+            assert st["rms"] == n_rms and st["rms_bwd"] == n_rms, st
+            assert st["flash"] > 0 and st["flash_bwd"] > 0, st
+            assert all(v == 0 for k, v in st.items()
+                       if k.endswith("_ref") or k == "rms_fallback"), st
+    finally:
+        P.set_device(f"gpu:{dev.index}")
+
+
+@contextlib.contextmanager
+def rms_dtype_spy(RN, seen):
+    """Count the (x, w) dtypes of every RMSNorm forward launch and the x
+    dtype of every backward launch into ``seen`` while open (the
+    wrappers' module functions, wrapped and put back)."""
+    fwd, bwd = RN.rms_norm_fwd, RN.rms_norm_bwd
+
+    def spy_fwd(x, w, eps):
+        seen[("fwd", str(x.dtype), str(w.dtype))] += 1
+        return fwd(x, w, eps)
+
+    def spy_bwd(x, w, rstd, dy):
+        seen[("bwd", str(x.dtype), str(w.dtype))] += 1
+        return bwd(x, w, rstd, dy)
+    RN.rms_norm_fwd, RN.rms_norm_bwd = spy_fwd, spy_bwd
+    try:
+        yield seen
+    finally:
+        RN.rms_norm_fwd, RN.rms_norm_bwd = fwd, bwd
+
+
+def phase_amp_train(torch, dev, card, eager_ms):
+    """The slice's path: the eager ``LlamaForCausalLM`` at Llama-3-8B
+    widths, ``TRAIN_LAYERS`` layers, ``[TRAIN_BATCH, TRAIN_SEQ]``, AdamW,
+    under each AMP arm in turn (float32 parameters: O1 bf16, O2 bf16 with
+    float32 master weights, O1 float16 with a dynamic ``GradScaler``).
+    ``AMP_UNTIMED`` then ``AMP_TIMED`` steps; the float16 arm goes on
+    until ``AMP_MIN_APPLIED`` steps were applied, at most
+    ``AMP_MAX_STEPS``. Reports each arm's median step, tokens/s, 6ND MFU,
+    peak memory, launches a step and the scaler, beside ``[eager_train]``'s
+    pure-bf16 median; asserts the dense flash pair on the tensor cores,
+    the RMSNorm kernels' float32 arm, no plain version, finite and
+    falling losses. Returns the launches of each arm."""
+    import collections
+    import math
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import rms_norm as RN
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_3_8b(num_hidden_layers=TRAIN_LAYERS)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {}
+    for arm in AMP_ARMS:
+        name, dtype, level, scaled = arm
+        t0 = time.perf_counter()
+        model, opt, inp, tgt = eager_train_setup(torch, cfg, dtype=None)
+        scaler, ctx = amp_setup(model, opt, arm)
+        torch.cuda.synchronize()
+        nparams = sum(p.numel() for p in model.parameters())
+        kinds = collections.Counter(str(p.dtype).split(".")[-1]
+                                    for p in model.parameters())
+        _say("amp_train", arm=name, layers=TRAIN_LAYERS,
+             params_b=round(nparams / 1e9, 3),
+             param_dtypes=json.dumps(dict(kinds)).replace(" ", ""),
+             batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}",
+             init_s=round(time.perf_counter() - t0, 2))
+        if level == "O2":
+            for n, p in model.named_parameters():
+                want = torch.float32 if "norm" in n else torch.bfloat16
+                assert p.dtype == want, (n, p.dtype)
+        torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_dispatch_stats()
+        seen = collections.Counter()
+        losses, applied, times = [], [], []
+        with rms_dtype_spy(RN, seen):
+            while True:
+                t0 = time.perf_counter()
+                loss, ok = amp_step(model, opt, inp, tgt, scaler, ctx)
+                losses.append(float(loss))                 # waits
+                times.append(time.perf_counter() - t0)
+                applied.append(ok)
+                n = len(losses)
+                if n < AMP_UNTIMED + AMP_TIMED:
+                    continue
+                if (not scaled or sum(applied) >= AMP_MIN_APPLIED
+                        or n >= AMP_MAX_STEPS):
+                    break
+        launches = K.dispatch_stats()
+        steps = len(losses)
+        timed = sorted(times[AMP_UNTIMED:])
+        step_s = timed[len(timed) // 2]
+        if level == "O2":
+            masters = sum("master_weight" in st
+                          for st in opt._accumulators.values())
+            assert masters == kinds["bfloat16"], (masters, kinds)
+        _say("amp_train", arm=name, card=repr(card), losses=losses,
+             applied=applied, step_ms=[t * 1e3 for t in times[AMP_UNTIMED:]],
+             median_step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+             mfu_6nd=6.0 * nparams * tokens / step_s / H100_BF16_FLOPS,
+             peak_mem_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9,
+                               2),
+             eager_train_bf16_median_step_ms=eager_ms,
+             over_eager_train=step_s * 1e3 / eager_ms,
+             loss_scale=None if scaler is None
+             else scaler.get_loss_scaling(),
+             skipped_steps=steps - sum(applied))
+        per_step = {k: v / steps for k, v in launches.items() if v}
+        _say("amp_train", arm=name, steps=steps,
+             launches_per_step=json.dumps(per_step).replace(" ", ""),
+             flash_route="tc" if launches["flash_tc"] == launches["flash"]
+             else "mixed",
+             rms_dtypes=json.dumps({"|".join(k): v for k, v in
+                                    seen.items()}).replace(" ", ""))
+        n_rms = 2 * TRAIN_LAYERS + 1
+        ln_v = math.log(cfg.vocab_size)
+        done = [x for x, a in zip(losses, applied) if a]
+        assert all(math.isfinite(x) for x in done), losses
+        assert ln_v - 1 <= losses[0] <= ln_v + 2, (losses[0], ln_v)
+        assert len(done) >= AMP_MIN_APPLIED and done[-1] < done[0], losses
+        assert launches["flash"] == TRAIN_LAYERS * steps, launches
+        assert launches["flash_bwd"] == TRAIN_LAYERS * steps, launches
+        _tc_route_only(launches)
+        assert launches["rms"] == n_rms * steps, launches
+        assert launches["rms_bwd"] == n_rms * steps, launches
+        assert set(seen) == {("fwd", "torch.float32", "torch.float32"),
+                             ("bwd", "torch.float32", "torch.float32")}, seen
+        assert all(v == 0 for k, v in launches.items()
+                   if k.endswith("_ref") or k == "rms_fallback"), launches
+        out[name] = launches
+        del model, opt, scaler, inp, tgt
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_f16_paths(torch, dev, requests, card):
+    """The float16 arms off the AMP path, each on a main path of its own
+    at Llama-3-8B widths (``TRAIN_LAYERS`` layers, random float16
+    weights from seed 0): the packed training step on the packed trace
+    (the segment pair), a serve of ``requests`` on float16 pages (the
+    decode kernel's float16 arm, float16 prefill), and eager float16
+    training steps (the RMSNorm pair's float16 arm). Finite losses and
+    in-range tokens; returns the launches of each."""
+    import dataclasses
+    import math
+
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.io import packing as PK
+    from paddle_tpu_torch.models import llama as L
+    f16 = torch.float16
+    out = {}
+    # packed training in float16 (the packed rung's configuration)
+    cfg = L.llama_3_8b(num_hidden_layers=TRAIN_LAYERS,
+                       vocab_size=PACKED_VOCAB, remat_policy="dots",
+                       fused_ce=False, dtype=f16)
+    params = L.init_params(cfg, seed=0, device=dev)
+    state = L.adamw_init(params, moment_dtype=torch.float32)
+    step = L.make_train_step(cfg, lr=1e-4)
+    _, packed = packed_trace()
+    batch = PK.packed_train_batch(packed, dev)
+    K.reset_dispatch_stats()
+    losses = [float(step(params, state, batch)[2]) for _ in range(2)]
+    launches = K.dispatch_stats()
+    _say("f16_paths", path="train_packed", losses=losses,
+         **{k: v for k, v in launches.items() if v})
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches["varlen"] == TRAIN_LAYERS * 2 * 2, launches
+    assert launches["varlen_tc"] == launches["varlen"], launches
+    assert launches["varlen_bwd"] == TRAIN_LAYERS * 2, launches
+    assert launches["varlen_bwd_tc"] == launches["varlen_bwd"], launches
+    out["train_packed"] = launches
+    del params, state, step, batch
+    torch.cuda.empty_cache()
+    # serving on float16 weights and pages
+    cfg = L.llama_3_8b(num_hidden_layers=TRAIN_LAYERS, dtype=f16)
+    params = L.init_params(cfg, seed=0)
+    eng = ServingEngine(L, params, cfg, num_slots=8, max_len=2048)
+    assert eng.kv_dtype == f16
+    K.reset_dispatch_stats()
+    res = eng.run(requests)
+    torch.cuda.synchronize()
+    launches = K.dispatch_stats()
+    _say("f16_paths", path="serve", requests=len(res),
+         decode_steps=eng.stats.decode_steps,
+         **{k: v for k, v in launches.items() if v})
+    for r in requests:
+        toks = res[r.rid].tokens
+        assert len(toks) == r.max_new_tokens
+        assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    assert launches["paged"] > 0 and launches["paged_mixed"] == 0, launches
+    assert launches["flash"] == launches["flash_tc"] > 0, launches
+    out["serve"] = launches
+    del eng, params
+    torch.cuda.empty_cache()
+    # eager training in float16
+    model, opt, inp, tgt = eager_train_setup(torch, cfg, dtype="float16",
+                                             lr=1e-4)
+    K.reset_dispatch_stats()
+    losses = [float(eager_step(model, opt, inp, tgt)) for _ in range(2)]
+    launches = K.dispatch_stats()
+    _say("f16_paths", path="eager_train", losses=losses,
+         **{k: v for k, v in launches.items() if v})
+    assert all(math.isfinite(x) for x in losses), losses
+    n_rms = 2 * TRAIN_LAYERS + 1
+    assert launches["rms"] == launches["rms_bwd"] == 2 * n_rms, launches
+    out["eager_train"] = launches
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
 
 
 # the no_sync phase: three prompts of one bucket (512 positions) in an
@@ -6948,14 +7513,14 @@ def phase_hapi_fit(torch, dev, card):
 
 
 def phase_flash_d(torch, dev):
-    """The flash pair at ``FLASH_DIMS`` against the plain versions,
-    float32 and bf16, with GQA (8 / 2): the dense forward and backward
-    causal at Sq 70 != Sk 100 and not causal at a ragged S 100, then the
-    segment forward and backward on a packed layout with a padding tail
-    (causal) and on documents that differ on the two sides (Sq 70 != Sk
-    90, not causal). bf16 at D 72 is counted on the tensor cores
-    (``flash_tc`` / ``varlen_tc`` and the backward's), every other launch
-    off them."""
+    """The flash pair at ``FLASH_DIMS`` and ``TC_DIMS`` against the plain
+    versions, float32, bf16 and float16, with GQA (8 / 2): the dense
+    forward and backward causal at Sq 70 != Sk 100 and not causal at a
+    ragged S 100, then the segment forward and backward on a packed
+    layout with a padding tail (causal) and on documents that differ on
+    the two sides (Sq 70 != Sk 90, not causal). bf16 and float16 at
+    ``TC_DIMS`` are counted on the tensor cores (``flash_tc`` /
+    ``varlen_tc`` and the backward's), every other launch off them."""
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -6964,12 +7529,13 @@ def phase_flash_d(torch, dev):
         return max(_err(g, w) / float(w.float().abs().max())
                    for g, w in zip(got, want))
 
-    for d in FLASH_DIMS:
-        for dtype in (torch.float32, torch.bfloat16):
-            f32 = dtype == torch.float32
-            ftol = FLASH_F32_TOL if f32 else FLASH_TOL
-            btol = BWD_F32_TOL if f32 else BWD_TOL
-            tc_route = dtype == torch.bfloat16 and d == 72
+    for d in FLASH_DIMS + tuple(x for x in FA.TC_DIMS
+                                if x not in FLASH_DIMS):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            ftol, btol = {torch.float32: (FLASH_F32_TOL, BWD_F32_TOL),
+                          torch.bfloat16: (FLASH_TOL, BWD_TOL),
+                          torch.float16: (FLASH_F16_TOL, BWD_F16_TOL)}[dtype]
+            tc_route = dtype != torch.float32 and d in FA.TC_DIMS
             errs = {}
             for kind, sq, sk, causal in (("dense", 70, 100, True),
                                          ("dense", 100, 100, False),
@@ -8446,9 +9012,57 @@ def _op_compare(torch, got, want, dt, tol):
     return worst
 
 
-def _op_random_check(torch, kind, out, arg):
+def _op_compare_factors(torch, kind, got, want, tol):
+    """A factorization's outputs where they are unique (``op_cases.Case.
+    compare``): the spectrum and each side's reconstruction of its input,
+    in float64 on the CPU; returns the largest error of max |x|."""
+    g = [x.detach().cpu().to(torch.complex128 if x.is_complex()
+                             else torch.float64) for x in got]
+    w = [x.detach().cpu().to(torch.complex128 if x.is_complex()
+                             else torch.float64) for x in want]
+    rtol, atol = tol
+
+    def close(a, b, part):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        assert err <= rtol * scale + atol * max(scale, 1.0), (kind, part,
+                                                              err, scale)
+        return err / max(scale, 1e-30)
+
+    def spectra(a, b, part):
+        """Two spectra as sets: each eigenvalue's distance to the nearest
+        of the other side's (no order to agree on: a conjugate pair's real
+        parts need not round alike on the two sides)."""
+        d = (a[..., :, None] - b[..., None, :]).abs()
+        err = max(float(d.min(-1).values.max()),
+                  float(d.min(-2).values.max()))
+        scale = float(b.abs().max())
+        assert err <= rtol * scale + atol * max(scale, 1.0), (kind, part,
+                                                              err, scale)
+        return err / max(scale, 1e-30)
+
+    if kind == "svd":
+        rec = [(u * s[..., None, :]) @ vh for u, s, vh in (g, w)]
+        return max(close(g[1], w[1], "S"), close(*rec, "U S Vh"))
+    if kind == "qr":
+        return max(close(g[0] @ g[1], w[0] @ w[1], "Q R"),
+                   close(g[1].diagonal(0, -2, -1).abs(),
+                         w[1].diagonal(0, -2, -1).abs(), "|diag R|"))
+    if kind == "eigh":
+        rec = [(v * e[..., None, :]) @ v.mT for e, v in (g, w)]
+        return max(close(g[0], w[0], "w"), close(*rec, "V w V^T"))
+    if kind == "eig":
+        rec = [(v * e[..., None, :]) @ torch.linalg.inv(v) for e, v in (g, w)]
+        return max(spectra(g[0], w[0], "w"), close(*rec, "V w V^-1"))
+    if kind == "eigvals":
+        return spectra(g[0], w[0], "w")
+    raise AssertionError(f"no comparison {kind}")
+
+
+def _op_random_check(torch, kind, out, arg, outs=(), args=()):
     """Moments and ranges of a random op's draws (6 standard errors on
-    the draw count)."""
+    the draw count); ``outs`` all its outputs, ``args`` all its inputs
+    (CPU tensors)."""
     import math
     x = out.detach().float()
     n = x.numel()
@@ -8493,6 +9107,30 @@ def _op_random_check(torch, kind, out, arg):
         # SELU-preserving: mean 0 and variance 1 of a standard normal input
         mean_close(0.0, 1.0)
         assert abs(float(x.var()) - 1) < 6 * math.sqrt(2 / n) + 0.02
+    elif kind == "randint_like":
+        # low 2, high 9: integers 2 .. 8, uniform
+        assert float(x.min()) >= 2 and float(x.max()) <= 8
+        assert bool((x == x.round()).all())
+        mean_close(5.0, (7 ** 2 - 1) / 12)
+    elif kind == "binomial":
+        count, prob = (a.to(x.device).double() for a in args[:2])
+        assert out.dtype == torch.int64
+        assert bool((x >= 0).all()) and bool((x.double() <= count).all())
+        mean_close(float((count * prob).mean()),
+                   float((count * prob * (1 - prob)).mean()))
+    elif kind == "standard_gamma":
+        alpha = args[0].to(x.device).double()
+        assert float(x.min()) > 0
+        mean_close(float(alpha.mean()), float(alpha.mean()))
+    elif kind == "top_p":
+        logits = args[0].to(x.device).float()
+        ids = outs[1]
+        assert torch.equal(out, args[0].to(x.device).gather(-1, ids))
+        probs = torch.softmax(logits, dim=-1)
+        chosen = probs.gather(-1, ids)
+        before = (probs * (probs > chosen)).sum(-1)
+        ps = args[1].to(x.device).float()
+        assert bool((before <= ps + 1e-4).all()), (before, ps)
     else:
         raise AssertionError(f"no check for {kind}")
 
@@ -8546,11 +9184,12 @@ def ops_checks(torch, dev, shapes, pool=None):
                 if name in OC.KEYED:
                     card[1]["generator"] = torch.Generator(
                         device=dev).manual_seed(7)
-                out = _op_call(torch, name, fn, *card, dev, "float32")[0]
+                outs = _op_call(torch, name, fn, *card, dev, "float32")
                 src = host[0][0] if args and hasattr(args[0], "dtype") \
                     else None
                 try:
-                    _op_random_check(torch, case.random, out, src)
+                    _op_random_check(torch, case.random, outs[0], src, outs,
+                                     host[0])
                 except AssertionError as e:
                     misses.append(f"{name} random: {e}")
                 results[(name, "random")] = (
@@ -8573,8 +9212,12 @@ def ops_checks(torch, dev, shapes, pool=None):
                     if name in bases:
                         kept[(name, dt)] = want
                     got = _op_call(torch, name, fn, *card, dev, dt)
-                    err = _op_compare(torch, got, want, dt,
-                                      case.tol or (1e-5, 1e-6))
+                    if case.compare:
+                        err = _op_compare_factors(torch, case.compare, got,
+                                                  want, case.tol)
+                    else:
+                        err = _op_compare(torch, got, want, dt,
+                                          case.tol or (1e-5, 1e-6))
                     results[(name, dt)] = (err, timed(name, fn, card, dt))
                 except AssertionError as e:
                     misses.append(f"{name} {dt}: {e}")
@@ -8811,6 +9454,9 @@ def phase_ops_block(torch, dev, card):
     want, want_hist, _, _ = ops_block_counts(torch, tiny,
                                              torch.device("cpu"), 2, 16)
     seam = ops_seam_ns(torch, dev)
+    # the same on CPU tensors: the host cost alone, no launch queue to
+    # fill (on the card 20000 launches back to back can pace the loop)
+    seam_cpu = ops_seam_ns(torch, torch.device("cpu"))
     assert calls == want, (calls, want)
     assert hist == want_hist == sum(calls.values()), (hist, want_hist)
     _say("ops_block", card=card.replace(" ", "_"), widths="llama_3_8b",
@@ -8825,6 +9471,8 @@ def phase_ops_block(torch, dev, card):
          op_names=len(calls), dispatch_hist_count=hist,
          dispatch_wall_ns_mean=round(wall_ns / hist),
          seam_ns_off=round(seam["off"]), seam_ns_on=round(seam["on"]),
+         seam_ns_cpu_off=round(seam_cpu["off"]),
+         seam_ns_cpu_on=round(seam_cpu["on"]),
          seam_calls=OPS_SEAM_CALLS, tensor_bytes_peak=int(peak))
     _say("ops_block", calls=",".join(f"{k[3:-6]}:{v}"
                                      for k, v in sorted(calls.items())))
@@ -8833,9 +9481,10 @@ def phase_ops_block(torch, dev, card):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=32,
-                    help="serving main-path depth (default: all 32 "
-                    "layers; moe_main takes at most its 28)")
+    ap.add_argument("--layers", type=int, default=SERVE_LAYERS,
+                    help="serving main-path depth (default: "
+                    f"{SERVE_LAYERS} of Llama-3-8B's 32; moe_main takes at "
+                    "most its 28)")
     args = ap.parse_args()
 
     import torch
@@ -8891,22 +9540,24 @@ def main() -> int:
     main_lengths, wave2 = decode_wave_lengths(requests)
     flash = phase_flash(torch, dev, 8, 512)
     paged = phase_paged(torch, dev, main_lengths, wave2, maxp)
-    paged_mixed = phase_paged_mixed(torch, dev, main_lengths, maxp)
+    paged_mixed, paged_f16 = phase_paged_mixed(torch, dev, main_lengths,
+                                               maxp)
     paged_int8 = phase_paged_int8(torch, dev, main_lengths, wave2,
                                   2048 // 32, 32)
     wide = phase_paged_wide(torch, dev, main_lengths, maxp)
-    flash_bwd = phase_flash_bwd(torch, dev, TRAIN_BATCH, TRAIN_SEQ)
+    flash_bwd, flash_fwd_f16, flash_bwd_f16 = phase_flash_bwd(
+        torch, dev, TRAIN_BATCH, TRAIN_SEQ)
     torch.cuda.empty_cache()
     phase_layer_grads(torch, dev)
     torch.cuda.empty_cache()
     phase_layer_grads(torch, dev, packed=True)
     torch.cuda.empty_cache()
-    seg_fwd, seg_bwd = phase_flash_seg(torch, dev)
+    seg_fwd, seg_bwd, seg_fwd_f16, seg_bwd_f16 = phase_flash_seg(torch, dev)
     torch.cuda.empty_cache()
     phase_flash_d(torch, dev)
     dit_fwd, dit_bwd = phase_dit_kernels(torch, dev)
     torch.cuda.empty_cache()
-    rms_fwd, rms_bwd = phase_rms(torch, dev)
+    rms_fwd, rms_bwd, rms_fwd_f16, rms_bwd_f16 = phase_rms(torch, dev)
     torch.cuda.empty_cache()
     phase_parity(torch, dev)
     phase_engine_options_parity(torch, dev)
@@ -8917,6 +9568,7 @@ def main() -> int:
     phase_train_parity(torch, dev)
     phase_train_packed_parity(torch, dev)
     phase_eager_parity(torch, dev)
+    phase_amp_parity(torch, dev)
     phase_surface(torch, dev)
     phase_autograd(torch, dev)
     torch.cuda.empty_cache()
@@ -8931,6 +9583,8 @@ def main() -> int:
     phase_memory_headroom(torch, dev, smi)
     wide_launches = phase_wide_serve(torch, dev, requests, smi)
     torch.cuda.empty_cache()
+    f16_launches = phase_f16_paths(torch, dev, requests, smi)
+    _mem_mark(torch, dev, "f16_paths")
     t0 = time.perf_counter()
     params = L.init_params(cfg, seed=0)
     torch.cuda.synchronize()
@@ -8998,6 +9652,8 @@ def main() -> int:
         torch, dev, smi,
         after=lambda *st: phase_profiler(torch, dev, smi, *st))
     torch.cuda.empty_cache()
+    amp_launches = phase_amp_train(torch, dev, smi, eager_ms)
+    _mem_mark(torch, dev, "amp_train")
     phase_eager_recipe(torch, dev, smi, eager_ms)
     torch.cuda.empty_cache()
     hapi_launches = phase_hapi_fit(torch, dev, smi)
@@ -9016,6 +9672,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dit_train_launches = phase_dit_train(torch, dev, smi)
     torch.cuda.empty_cache()
+    _mem_mark(torch, dev, "dit_train")
     mesh_launches = phase_mesh(torch, dev, smi)
     # launches on each kernel's main path: serving for the forward and
     # the decode kernel, float32-pool serving for its mixed pair, int8-KV
@@ -9034,6 +9691,42 @@ def main() -> int:
     rms_bwd["launches"] = eager_launches["rms_bwd"]
     dit_fwd["launches"] = dit_sample_launches["flash_d72"]
     dit_bwd["launches"] = dit_train_launches["flash_bwd_d72"]
+    # the float16 rows: the dense pair on AMP's float16 arm (the slice's
+    # path), the others on their float16 paths ([f16_paths]); the other
+    # phases run no float16
+    flash_fwd_f16["max_abs_err"] = max(flash_fwd_f16["max_abs_err"],
+                                       flash.pop("f16_max_abs_err"))
+    fp16 = amp_launches["O1-fp16"]
+    for rec, n in ((flash_fwd_f16, fp16["flash"]),
+                   (flash_bwd_f16, fp16["flash_bwd"]),
+                   (seg_fwd_f16, f16_launches["train_packed"]["varlen"]),
+                   (seg_bwd_f16, f16_launches["train_packed"]["varlen_bwd"]),
+                   (paged_f16, f16_launches["serve"]["paged"]),
+                   (rms_fwd_f16, f16_launches["eager_train"]["rms"]),
+                   (rms_bwd_f16, f16_launches["eager_train"]["rms_bwd"])):
+        rec["launches"] = n
+    f16_rows = (flash_fwd_f16, flash_bwd_f16, seg_fwd_f16, seg_bwd_f16,
+                paged_f16, rms_fwd_f16, rms_bwd_f16)
+    # launches in [amp_train] (the slice's path): the dense pair's bf16
+    # rows in the two bf16 arms, its float16 rows in the float16 arm; the
+    # RMSNorm kernels' float32 arm (rows 7 / 8, every arm)
+    bf16_arms = [amp_launches[a] for a in ("O1-bf16", "O2-bf16")]
+    for rec in (flash, paged, paged_int8, flash_bwd, seg_fwd, seg_bwd,
+                rms_fwd, rms_bwd, dit_fwd, dit_bwd, paged_mixed,
+                *wide.values(), *f16_rows):
+        rec["amp_launches"] = 0
+    flash["amp_launches"] = sum(a["flash"] for a in bf16_arms)
+    flash_bwd["amp_launches"] = sum(a["flash_bwd"] for a in bf16_arms)
+    flash_fwd_f16["amp_launches"] = fp16["flash"]
+    flash_bwd_f16["amp_launches"] = fp16["flash_bwd"]
+    rms_fwd["amp_launches"] = sum(a["rms"] for a in amp_launches.values())
+    rms_bwd["amp_launches"] = sum(a["rms_bwd"]
+                                  for a in amp_launches.values())
+    for rec in f16_rows:
+        for key in ("mesh_launches", "ckpt_launches", "sentinel_launches",
+                    "hapi_launches", "autotune_launches",
+                    "ops_block_launches"):
+            rec[key] = 0
     # launches of each kernel in the mesh phases (ROADMAP A9): the dense
     # pair in mesh_train's base arm, the segment pair in mesh_packed, the
     # head-dim-72 pair in dit_mesh; the decode and RMSNorm kernels, off
@@ -9086,13 +9779,13 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "mesh_launches", "ckpt_launches", "sentinel_launches",
             "hapi_launches", "autotune_launches", "ops_block_launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "amp_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys}
         for rec in (flash, paged, paged_int8, flash_bwd, seg_fwd,
                     seg_bwd, rms_fwd, rms_bwd, dit_fwd, dit_bwd,
-                    paged_mixed, *wide.values())]}))
+                    paged_mixed, *wide.values(), *f16_rows)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

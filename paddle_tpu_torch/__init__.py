@@ -5,8 +5,9 @@ layout module by module (``models/llama.py``, ``inference/paged.py``,
 ``inference/engine.py``, ``io/``, ``kernels/...``, the eager ``nn`` /
 ``optimizer`` surface, the flat op library (``paddle.add``, ``concat``,
 ``matmul``, ...: ``ops/``, ``tensor/``), ``paddle.save`` / ``load``,
-``metric``, the hapi ``Model``, ``profiler``, ``autograd`` and the
-kernel autotuner) and
+``metric``, the hapi ``Model``, ``profiler``, ``autograd``, the
+kernel autotuner, ``amp`` and the ``fft`` / ``linalg`` / ``signal``
+namespaces) and
 runs on an NVIDIA Hopper card: every
 Pallas kernel on a ported path is a hand-written CUDA kernel under
 ``csrc/``, built with ``nvcc`` at first use.
@@ -41,3 +42,13 @@ from . import io, metric  # noqa: F401
 from . import hapi  # noqa: F401
 from .hapi import Model, summary  # noqa: F401
 from . import callbacks  # noqa: F401
+from . import amp  # noqa: F401
+# the namespace modules by name: ``from . import linalg`` would find the
+# ``linalg`` the ops star-import could leave here (ops.linalg)
+import importlib as _importlib
+
+linalg = _importlib.import_module(".linalg", __name__)
+fft = _importlib.import_module(".fft", __name__)
+signal = _importlib.import_module(".signal", __name__)
+from .signal import istft, stft  # noqa: E402,F401
+from .ops.manipulation_ext import tensor_unfold as unfold  # noqa: E402,F401

@@ -47,15 +47,16 @@
 // the bf16 peak and the 151 MB read and written 45.2 us at 3.35 TB/s.
 // Both routes recompute q k^T and dout v^T in both kernels (7 products)
 // and need no atomics:
-// - tensor cores (bfloat16 at D = 64, 72 or 128, the route of every
-//   main path, chosen alike by both entries, tc_route; the *_tc_kernel
-//   pair below, over the DenseTC or SegmentTC policy): wgmma in bf16
-//   with float32 sums, tiles at the stored width DS = 64 ceil(D / 64)
-//   and products at the computed width D (hopper_mma.cuh). A segment
+// - tensor cores (bfloat16 or float16 at D = 64, 72 or 128, the route of
+//   every main path, chosen alike by both entries, tc_route; the
+//   *_tc_kernel pair below, over the DenseTC or SegmentTC policy): wgmma
+//   in bf16 or f16 with float32 sums, tiles at the stored width
+//   DS = 64 ceil(D / 64) and products at the computed width D
+//   (hopper_mma.cuh). A segment
 //   block lists once the 64 x 64 tile pairs it runs, each warpgroup
 //   computes only its own, and only pairs that hold a document boundary,
 //   a diagonal or the ragged edge mask element by element;
-// - CUDA cores (float32, or bfloat16 at another D): float32 arithmetic,
+// - CUDA cores (float32, or bf16 / f16 at another D): float32 arithmetic,
 //   32 rows or keys a block. Its traffic is small all the same: every
 //   tile a block loads into shared memory serves 32 rows or keys, the
 //   score matrix never leaves registers, and causal blocks skip the tiles
@@ -69,11 +70,13 @@
 //   256) are dynamic shared memory.
 //
 // Layout: q / o / dout / dq [B, Sq, H, D], k / v / dk / dv [B, Sk, KVH, D],
-// all contiguous, float32 or bfloat16; lse and delta float32 [B, H, Sq];
-// segment ids and positions int32 [B, Sq] / [B, Sk]. D is a multiple of
-// 8, from 8 to 256 (the tensor cores take bf16 at 64, 72 and 128).
+// all contiguous, float32, bfloat16 or float16; lse and delta float32
+// [B, H, Sq]; segment ids and positions int32 [B, Sq] / [B, Sk]. D is a
+// multiple of 8, from 8 to 256 (the tensor cores take bf16 and f16 at 64,
+// 72 and 128).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -98,6 +101,13 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+__device__ __forceinline__ float4 load4(const __half* p) {
+  uint2 u = *reinterpret_cast<const uint2*>(p);
+  float2 a = __half22float2(*reinterpret_cast<__half2*>(&u.x));
+  float2 b = __half22float2(*reinterpret_cast<__half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
@@ -105,6 +115,15 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
 __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
   __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ void store4(__half* p, float4 v) {
+  __half2 a = __floats2half2_rn(v.x, v.y);
+  __half2 b = __floats2half2_rn(v.z, v.w);
   uint2 u;
   u.x = *reinterpret_cast<uint32_t*>(&a);
   u.y = *reinterpret_cast<uint32_t*>(&b);
@@ -552,14 +571,20 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
     return launch<__nv_bfloat16>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq,
                                  Sk, H, KVH, D, scale, mask, s);
   }
+  if (dtype == 2) {
+    return launch<__half>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk, H,
+                          KVH, D, scale, mask, s);
+  }
   return cudaErrorInvalidValue;
 }
 
-// ---- the tensor-core route: bfloat16, D = 64, 72 or 128 ----------------
+// ---- the tensor-core route: bfloat16 or float16, D = 64, 72 or 128 -----
 //
-// The same two kernels on wgmma, with bf16 operands and float32 sums; P
-// and dS are rounded to bf16 before they enter a product, as SDPA's
-// backward rounds them. Blocks are 256 threads, two warpgroups.
+// The same two kernels on wgmma, with operands of the input type T (bf16
+// or f16) and float32 sums; P and dS are rounded to T before they enter a
+// product, as the Pallas kernels' p.astype / ds.astype round them (in
+// f16 a |dS| above 65504 becomes inf there and here: loss scaling's to
+// catch, not the kernel's to clamp). Blocks are 256 threads, two warpgroups.
 // Widths: the template's D is the computed width. The products over D
 // (S, dP; S^T, dP^T) take k_slices(D) k16 slices, 5 at D 72, and those
 // whose N is D (dQ, dK, dV) run at N = D, 36 floats a thread at D 72;
@@ -780,15 +805,12 @@ struct SegmentTC {
   }
 };
 
-template <int D, typename Mask>
+template <int D, typename T, typename Mask>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ o,
-                       const __nv_bfloat16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       __nv_bfloat16* __restrict__ dq,
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ o,
+                       const T* __restrict__ dout,
+                       const float* __restrict__ lse, T* __restrict__ dq,
                        float* __restrict__ delta, int Sq, int Sk, int H,
                        int KVH, float scale, const Mask mask) {
   using namespace hopper;
@@ -827,8 +849,8 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t q_stride = size_t(H) * D;
   const size_t kv_stride = size_t(KVH) * D;
   const size_t qoff = (size_t(b) * Sq * H + h) * D;
-  const __nv_bfloat16* kg = k + (size_t(b) * Sk * KVH + kvh) * D;
-  const __nv_bfloat16* vg = v + (size_t(b) * Sk * KVH + kvh) * D;
+  const T* kg = k + (size_t(b) * Sk * KVH + kvh) * D;
+  const T* vg = v + (size_t(b) * Sk * KVH + kvh) * D;
   // the K / V tiles of list entry j, and their keys' ids, into stage st
   auto load_kv = [&](int j, uint32_t st) {
     const int k0 = Mask::tile(mask.entry(list, j)) * TC_TILE;
@@ -851,18 +873,18 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = q0 + r;
     float acc = 0.f;
     if (row < Sq) {
-      const __nv_bfloat16* dr = dout + qoff + size_t(row) * q_stride;
-      const __nv_bfloat16* orow = o + qoff + size_t(row) * q_stride;
+      const T* dr = dout + qoff + size_t(row) * q_stride;
+      const T* orow = o + qoff + size_t(row) * q_stride;
 #pragma unroll
       for (int c = (tid & 1) * 8; c < D; c += 16) {
         const uint4 du = *reinterpret_cast<const uint4*>(dr + c);
         const uint4 ou = *reinterpret_cast<const uint4*>(orow + c);
-        const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(&du);
-        const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ou);
+        const uint32_t* d2 = reinterpret_cast<const uint32_t*>(&du);
+        const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&ou);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float2 df = __bfloat1622float2(d2[e]);
-          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = unpack2(d2[e], dr);
+          const float2 of = unpack2(o2[e], dr);
           acc += df.x * of.x + df.y * of.y;
         }
       }
@@ -907,13 +929,13 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < k_slices(D); ++kk) {
-        wgmma_ss<TC_TILE>(s, desc_k<TC_ROWS>(sQ, 64 * wg, kk),
-                          desc_k<TC_TILE>(kt, 0, kk), kk > 0);
+        wgmma_ss<TC_TILE, T>(s, desc_k<TC_ROWS>(sQ, 64 * wg, kk),
+                             desc_k<TC_TILE>(kt, 0, kk), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < k_slices(D); ++kk) {
-        wgmma_ss<TC_TILE>(dp, desc_k<TC_ROWS>(sDO, 64 * wg, kk),
-                          desc_k<TC_TILE>(vt, 0, kk), kk > 0);
+        wgmma_ss<TC_TILE, T>(dp, desc_k<TC_ROWS>(sDO, 64 * wg, kk),
+                             desc_k<TC_TILE>(vt, 0, kk), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -932,11 +954,11 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
       uint32_t a[TC_TILE / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < TC_TILE / 16; ++kk) pack_a(s, kk, a[kk]);
+      for (int kk = 0; kk < TC_TILE / 16; ++kk) pack_a<T>(s, kk, a[kk]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < TC_TILE / 16; ++kk) {
-        wgmma_rs<D>(acc, a[kk], desc_mn<TC_TILE>(kt, kk), 1);
+        wgmma_rs<D, T>(acc, a[kk], desc_mn<TC_TILE>(kt, kk), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -950,26 +972,23 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + lr0 + 8 * r;
     if (row >= Sq) continue;
-    __nv_bfloat16* drow = dq + qoff + size_t(row) * q_stride;
+    T* drow = dq + qoff + size_t(row) * q_stride;
 #pragma unroll
     for (int jn = 0; jn < D / 8; ++jn) {
       *reinterpret_cast<uint32_t*>(drow + 8 * jn + 2 * (lane & 3)) =
-          pack_bf16(acc[4 * jn + 2 * r] * scale,
-                    acc[4 * jn + 2 * r + 1] * scale);
+          pack2<T>(acc[4 * jn + 2 * r] * scale,
+                   acc[4 * jn + 2 * r + 1] * scale);
     }
   }
 }
 
-template <int D, typename Mask>
+template <int D, typename T, typename Mask>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dk,
-                        __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, int Sq, int Sk,
                         int H, int KVH, float scale, const Mask mask) {
   using namespace hopper;
   constexpr int DS = stored_width(D);
@@ -1072,13 +1091,13 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < k_slices(D); ++kk) {
-        wgmma_ss<TC_TILE>(sT, desc_k<TC_ROWS>(sK, 64 * wg, kk),
-                          desc_k<TC_TILE>(qt, 0, kk), kk > 0);
+        wgmma_ss<TC_TILE, T>(sT, desc_k<TC_ROWS>(sK, 64 * wg, kk),
+                             desc_k<TC_TILE>(qt, 0, kk), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < k_slices(D); ++kk) {
-        wgmma_ss<TC_TILE>(dpT, desc_k<TC_ROWS>(sV, 64 * wg, kk),
-                          desc_k<TC_TILE>(dot, 0, kk), kk > 0);
+        wgmma_ss<TC_TILE, T>(dpT, desc_k<TC_ROWS>(sV, 64 * wg, kk),
+                             desc_k<TC_TILE>(dot, 0, kk), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1099,17 +1118,17 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
       uint32_t ap[TC_TILE / 16][4], ads[TC_TILE / 16][4];
 #pragma unroll
       for (int kk = 0; kk < TC_TILE / 16; ++kk) {
-        pack_a(sT, kk, ap[kk]);
-        pack_a(dpT, kk, ads[kk]);
+        pack_a<T>(sT, kk, ap[kk]);
+        pack_a<T>(dpT, kk, ads[kk]);
       }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < TC_TILE / 16; ++kk) {
-        wgmma_rs<D>(adv, ap[kk], desc_mn<TC_TILE>(dot, kk), 1);
+        wgmma_rs<D, T>(adv, ap[kk], desc_mn<TC_TILE>(dot, kk), 1);
       }
 #pragma unroll
       for (int kk = 0; kk < TC_TILE / 16; ++kk) {
-        wgmma_rs<D>(adk, ads[kk], desc_mn<TC_TILE>(qt, kk), 1);
+        wgmma_rs<D, T>(adk, ads[kk], desc_mn<TC_TILE>(qt, kk), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1128,15 +1147,15 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int jn = 0; jn < D / 8; ++jn) {
       const int c = 8 * jn + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(dk + off + c) = pack_bf16(
+      *reinterpret_cast<uint32_t*>(dk + off + c) = pack2<T>(
           adk[4 * jn + 2 * r] * scale, adk[4 * jn + 2 * r + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + off + c) =
-          pack_bf16(adv[4 * jn + 2 * r], adv[4 * jn + 2 * r + 1]);
+          pack2<T>(adv[4 * jn + 2 * r], adv[4 * jn + 2 * r + 1]);
     }
   }
 }
 
-template <int D, typename Mask>
+template <int D, typename T, typename Mask>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       void* dq, void* dk, void* dv, float* delta, int B,
@@ -1147,36 +1166,33 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   static int configured = 0;   // the shared memory the kernels may take
   if (smem > configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_tc_kernel<D, Mask>,
+        flash_bwd_dq_tc_kernel<D, T, Mask>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D, Mask>,
+      err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D, T, Mask>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
     }
     if (err != cudaSuccess) return err;
     configured = smem;
   }
-  using bf16 = __nv_bfloat16;
-  const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
+  const T* qq = static_cast<const T*>(q);
+  const T* kk = static_cast<const T*>(k);
+  const T* vv = static_cast<const T*>(v);
   const dim3 grid_q(B * H, (Sq + TC_ROWS - 1) / TC_ROWS);
-  flash_bwd_dq_tc_kernel<D, Mask><<<grid_q, TC_THREADS, smem, stream>>>(
-      qq, kk, vv, static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, Sq,
-      Sk, H, KVH, scale, mask);
+  flash_bwd_dq_tc_kernel<D, T, Mask><<<grid_q, TC_THREADS, smem, stream>>>(
+      qq, kk, vv, static_cast<const T*>(o), static_cast<const T*>(dout), lse,
+      static_cast<T*>(dq), delta, Sq, Sk, H, KVH, scale, mask);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k(B * KVH, (Sk + TC_ROWS - 1) / TC_ROWS);
-  flash_bwd_dkv_tc_kernel<D, Mask><<<grid_k, TC_THREADS, smem, stream>>>(
-      qq, kk, vv, static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H, KVH, scale,
-      mask);
+  flash_bwd_dkv_tc_kernel<D, T, Mask><<<grid_k, TC_THREADS, smem, stream>>>(
+      qq, kk, vv, static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KVH, scale, mask);
   return cudaGetLastError();
 }
 
-template <typename Mask>
+template <typename T, typename Mask>
 cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
                         const void* o, const void* lse, const void* dout,
                         void* dq, void* dk, void* dv, void* delta, int B,
@@ -1187,24 +1203,40 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
   float* dl = static_cast<float*>(delta);
   switch (D) {   // one instance for each D that tc_route takes
     case 64:
-      return launch_tc<64>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk, H,
+      return launch_tc<64, T>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk, H,
                            KVH, scale, mask, s);
     case 72:
-      return launch_tc<72>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk, H,
+      return launch_tc<72, T>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk, H,
                            KVH, scale, mask, s);
     case 128:
-      return launch_tc<128>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk,
+      return launch_tc<128, T>(q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Sk,
                             H, KVH, scale, mask, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// The route of a launch, dense or segment: bf16 at D = 64, 72 or 128
-// takes the tensor cores (kernels.flash_attention.tensor_core_route is
+// The route of a launch, dense or segment: bf16 or f16 at D = 64, 72 or
+// 128 takes the tensor cores (kernels.flash_attention.tensor_core_route is
 // its mirror).
 bool tc_route(int dtype, int D) {
-  return dtype == 1 && (D == 64 || D == 72 || D == 128);
+  return (dtype == 1 || dtype == 2) && (D == 64 || D == 72 || D == 128);
+}
+
+// the tensor-core launches at the input type (dtype 1 bf16, 2 f16)
+template <typename Mask>
+cudaError_t dispatch_tc_type(const void* q, const void* k, const void* v,
+                             const void* o, const void* lse, const void* dout,
+                             void* dq, void* dk, void* dv, void* delta, int B,
+                             int Sq, int Sk, int H, int KVH, int D,
+                             float scale, const Mask& mask, int dtype,
+                             void* stream) {
+  if (dtype == 2) {
+    return dispatch_tc<__half>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
+                               Sq, Sk, H, KVH, D, scale, mask, stream);
+  }
+  return dispatch_tc<__nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, delta,
+                                    B, Sq, Sk, H, KVH, D, scale, mask, stream);
 }
 
 bool bad_shape(int B, int Sq, int Sk, int H, int KVH, int D) {
@@ -1215,7 +1247,8 @@ bool bad_shape(int B, int Sq, int Sk, int H, int KVH, int D) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. delta is float32 scratch [B, H, Sq]
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. delta is float32 scratch
+// [B, H, Sq]
 // that the dq kernel fills and the dkv kernel reads. Returns the
 // cudaError_t of the launches.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
@@ -1226,8 +1259,8 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   if (bad_shape(B, Sq, Sk, H, KVH, D)) return cudaErrorInvalidValue;
   if (tc_route(dtype, D)) {
     const DenseTC mask{Sq, Sk, Sk - Sq, causal};
-    return dispatch_tc(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk,
-                       H, KVH, D, scale, mask, stream);
+    return dispatch_tc_type(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq,
+                            Sk, H, KVH, D, scale, mask, dtype, stream);
   }
   const DenseMask mask{Sq, Sk, Sk - Sq, causal};
   return dispatch(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H,
@@ -1258,8 +1291,8 @@ extern "C" int flash_bwd_seg(const void* q, const void* k, const void* v,
       return cudaErrorInvalidValue;
     }
     const SegmentTC mask{sq, sk, pq, pk, st, B, Sq, Sk, stride, causal};
-    return dispatch_tc(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk,
-                       H, KVH, D, scale, mask, stream);
+    return dispatch_tc_type(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq,
+                            Sk, H, KVH, D, scale, mask, dtype, stream);
   }
   if (seg::bad_tiles(Sq, Sk, stride, tile_q, tile_k, BM, BN)) {
     return cudaErrorInvalidValue;

@@ -29,11 +29,11 @@
 // DiT-XL/2's sampling shape [16, 256, 16, 72] the 4.8 GFLOP take 4.9 us
 // at the bf16 peak and the 38.0 MB of q, k, v, out and lse 11.3 us at
 // 3.35 TB/s. Two routes, chosen alike by both entries (tc_route):
-// - tensor cores (bfloat16 at D = 64, 72 or 128, the route of every
-//   main path; flash_fwd_tc_kernel below, over the DenseTC or SegmentTC
-//   policy): wgmma products in bf16 with float32 sums, 128 query rows a
-//   block, K / V tiles of 128 keys through TMA rings, a producer
-//   warpgroup and two consumers. D is the computed width and DS =
+// - tensor cores (bfloat16 or float16 at D = 64, 72 or 128, the route of
+//   every main path; flash_fwd_tc_kernel below, over the DenseTC or
+//   SegmentTC policy): wgmma products in bf16 or f16 with float32 sums,
+//   128 query rows a block, K / V tiles of 128 keys through TMA rings, a
+//   producer warpgroup and two consumers. D is the computed width and DS =
 //   64 ceil(D / 64) the stored one (hopper_mma.cuh): D 72 runs in D
 //   128's tiles, S = Q K^T over 5 k16 slices, O += P V at N = 72, and
 //   the columns past 72 are TMA's zero fill, which reads no memory, so
@@ -42,7 +42,7 @@
 //   pairs) and walks only those; the keys' segment ids and positions are
 //   staged beside each K stage, and only tiles that hold a document
 //   boundary, a diagonal or the ragged edge mask element by element;
-// - CUDA cores (float32, or bfloat16 at another D): the arithmetic in
+// - CUDA cores (float32, or bf16 / f16 at another D): the arithmetic in
 //   float32, 32 query rows a block. Its traffic is at the minimum all the
 //   same: each block loads every key and value tile it needs once into
 //   shared memory and reuses it for 32 query rows; the S x S score matrix
@@ -58,17 +58,20 @@
 //   memory.
 //
 // Layout: q [B, Sq, H, D], k / v [B, Sk, KVH, D], out like q, all
-// contiguous, float32 or bfloat16; lse float32 [B, H, Sq]; segment ids and
-// positions int32 [B, Sq] (query side) and [B, Sk] (key side). D is a
-// multiple of 8, from 8 to 256 (the tensor cores take bf16 at 64, 72 and
-// 128).
+// contiguous, float32, bfloat16 or float16 (the Pallas kernels keep any
+// float type); lse float32 [B, H, Sq]; segment ids and positions int32
+// [B, Sq] (query side) and [B, Sk] (key side). D is a multiple of 8, from
+// 8 to 256 (the tensor cores take bf16 and f16 at 64, 72 and 128).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper_mma.cuh"
 #include "segment_tiles.cuh"
@@ -90,6 +93,13 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+__device__ __forceinline__ float4 load4(const __half* p) {
+  uint2 u = *reinterpret_cast<const uint2*>(p);
+  float2 a = __half22float2(*reinterpret_cast<__half2*>(&u.x));
+  float2 b = __half22float2(*reinterpret_cast<__half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
@@ -97,6 +107,15 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
 __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
   __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ void store4(__half* p, float4 v) {
+  __half2 a = __floats2half2_rn(v.x, v.y);
+  __half2 b = __floats2half2_rn(v.z, v.w);
   uint2 u;
   u.x = *reinterpret_cast<uint32_t*>(&a);
   u.y = *reinterpret_cast<uint32_t*>(&b);
@@ -390,10 +409,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
     return launch<__nv_bfloat16>(q, k, v, out, l, B, Sq, Sk, H, KVH, D,
                                  scale, mask, tiles_ran, s);
   }
+  if (dtype == 2) {
+    return launch<__half>(q, k, v, out, l, B, Sq, Sk, H, KVH, D, scale, mask,
+                          tiles_ran, s);
+  }
   return cudaErrorInvalidValue;
 }
 
-// ---- the tensor-core route: bfloat16, D = 64, 72 or 128 ----------------
+// ---- the tensor-core route: bfloat16 or float16, D = 64, 72 or 128 -----
 //
 // Widths: the template's D is the computed width, the count of every
 // product (S over k_slices(D) k16 slices, O at N = D: 36 floats a thread
@@ -418,7 +441,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 // - two consumer warpgroups of 64 rows each. Per key tile: S = Q K^T is a
 //   wgmma with both operands in shared memory (K-major); the online
 //   softmax runs on S in registers (base-2 exponentials, one FFMA a score
-//   with scale * log2(e)); P is rounded to bf16 in registers and O += P V
+//   with scale * log2(e)); P is rounded to the input type (bf16 or f16,
+//   the Pallas kernel's p.astype(v.dtype)) in registers and O += P V
 //   is a wgmma with A from registers and V as an MN-major B from shared
 //   memory. The warpgroups take turns at issuing S (named barriers), so
 //   that one's softmax overlaps the other's products; O is rescaled only
@@ -575,11 +599,11 @@ struct SegmentTC {
 };
 
 // The consumer warpgroups' part of flash_fwd_tc_kernel.
-template <int D, typename Mask>
+template <int D, typename T, typename Mask>
 __device__ __forceinline__ void consume(
     uint32_t sQ, uint32_t sK, uint32_t sV, uint32_t bars,
     const int4* __restrict__ keys, const int* __restrict__ list,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int b, int h,
+    T* __restrict__ out, float* __restrict__ lse, int b, int h,
     int q0, int n_kt, int Sq, int H, float scale_log2, const Mask& mask) {
   using namespace hopper;
   constexpr uint32_t TILE = TC_BN * stored_width(D) * 2;
@@ -602,7 +626,7 @@ __device__ __forceinline__ void consume(
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-  uint32_t a[TC_BN / 16][4];   // P_{j-1} as bf16 A fragments
+  uint32_t a[TC_BN / 16][4];   // P_{j-1} as A fragments of T
 
   // scores times scale * log2(e) = (flip ? -s : s) times sl2 > 0; FLT_MIN
   // for a zero scale keeps a masked -inf from becoming -inf * 0 = NaN
@@ -619,8 +643,8 @@ __device__ __forceinline__ void consume(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < k_slices(D); ++kk) {
-      wgmma_ss<TC_BN>(s, desc_k<TC_BM>(sQ, 64 * wg, kk),
-                      desc_k<TC_BN>(kt, 0, kk), kk > 0);
+      wgmma_ss<TC_BN, T>(s, desc_k<TC_BM>(sQ, 64 * wg, kk),
+                         desc_k<TC_BN>(kt, 0, kk), kk > 0);
     }
     wgmma_commit();
   };
@@ -631,7 +655,7 @@ __device__ __forceinline__ void consume(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TC_BN / 16; ++kk) {
-      wgmma_rs<D>(o, a[kk], desc_mn<TC_BN>(vt, kk), 1);
+      wgmma_rs<D, T>(o, a[kk], desc_mn<TC_BN>(vt, kk), 1);
     }
     wgmma_commit();
   };
@@ -709,7 +733,7 @@ __device__ __forceinline__ void consume(
         for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
       }
 #pragma unroll
-      for (int kk = 0; kk < TC_BN / 16; ++kk) pack_a(s, kk, a[kk]);
+      for (int kk = 0; kk < TC_BN / 16; ++kk) pack_a<T>(s, kk, a[kk]);
       wait_v(j);
       issue_pv(j);
       wgmma_wait<0>();
@@ -728,11 +752,11 @@ __device__ __forceinline__ void consume(
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    __nv_bfloat16* orow = out + (size_t(b) * Sq + row) * q_stride + h * D;
+    T* orow = out + (size_t(b) * Sq + row) * q_stride + h * D;
 #pragma unroll
     for (int jn = 0; jn < D / 8; ++jn) {
       *reinterpret_cast<uint32_t*>(orow + 8 * jn + 2 * (lane & 3)) =
-          pack_bf16(o[4 * jn + 2 * r] * inv, o[4 * jn + 2 * r + 1] * inv);
+          pack2<T>(o[4 * jn + 2 * r] * inv, o[4 * jn + 2 * r + 1] * inv);
     }
     if ((lane & 3) == 0) {
       lse[size_t(bh) * Sq + row] =
@@ -741,12 +765,12 @@ __device__ __forceinline__ void consume(
   }
 }
 
-template <int D, typename Mask>
+template <int D, typename T, typename Mask>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
-                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    T* __restrict__ out, float* __restrict__ lse,
                     int Sq, int H, int KVH, float scale_log2,
                     const Mask mask) {
   using namespace hopper;
@@ -837,7 +861,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     if constexpr (!Mask::kStagesKeys) regs_alloc<240>();
-    consume<D>(sQ, sK, sV, bars, reinterpret_cast<const int4*>(keys), list,
+    consume<D, T>(sQ, sK, sV, bars, reinterpret_cast<const int4*>(keys), list,
                out, lse, b, h, q0, n_kt, Sq, H, scale_log2, mask);
   }
 }
@@ -865,11 +889,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A TMA map of a contiguous bf16 [B, S, NH, D] tensor whose box is 64
-// columns of `rows` rows of one (batch, head), swizzled by 128 bytes: the
+// A TMA map of a contiguous [B, S, NH, D] tensor of T (bf16 or f16) whose
+// box is 64 columns of `rows` rows of one (batch, head), swizzled by 128 bytes: the
 // shared-memory layout of one 64-column block of a tile (hopper_mma.cuh).
 // Rows past S, and columns past D (the second box at D 72 holds 8 real
 // columns), read as zeros.
+template <typename T>
 bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int NH,
                 int D, int rows) {
   const EncodeTiled encode = encode_tiled();
@@ -880,14 +905,17 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int NH,
                                  cuuint64_t(S) * NH * D * 2};
   const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 4,
                 const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, typename Mask>
+template <int D, typename T, typename Mask>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       float* lse, int B, int Sq, int Sk, int H, int KVH,
                       float scale, const Mask& mask, cudaStream_t stream) {
@@ -896,25 +924,25 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
   static int configured = 0;   // the shared memory the kernel may take
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<D, Mask>,
+        flash_fwd_tc_kernel<D, T, Mask>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = smem;
   }
   CUtensorMap q_map, k_map, v_map;
-  if (!tensor_map(&q_map, q, B, Sq, H, D, TC_BM) ||
-      !tensor_map(&k_map, k, B, Sk, KVH, D, TC_BN) ||
-      !tensor_map(&v_map, v, B, Sk, KVH, D, TC_BN)) {
+  if (!tensor_map<T>(&q_map, q, B, Sq, H, D, TC_BM) ||
+      !tensor_map<T>(&k_map, k, B, Sk, KVH, D, TC_BN) ||
+      !tensor_map<T>(&v_map, v, B, Sk, KVH, D, TC_BN)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid(B * H, (Sq + TC_BM - 1) / TC_BM);
-  flash_fwd_tc_kernel<D, Mask><<<grid, TC_THREADS, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Sq, H, KVH,
+  flash_fwd_tc_kernel<D, T, Mask><<<grid, TC_THREADS, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<T*>(out), lse, Sq, H, KVH,
       scale * LOG2E, mask);
   return cudaGetLastError();
 }
 
-template <typename Mask>
+template <typename T, typename Mask>
 cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
                         void* out, void* lse, int B, int Sq, int Sk, int H,
                         int KVH, int D, float scale, const Mask& mask,
@@ -923,24 +951,38 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(lse);
   switch (D) {   // one instance for each D that tc_route takes
     case 64:
-      return launch_tc<64>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale, mask,
+      return launch_tc<64, T>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale, mask,
                            s);
     case 72:
-      return launch_tc<72>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale, mask,
+      return launch_tc<72, T>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale, mask,
                            s);
     case 128:
-      return launch_tc<128>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale, mask,
+      return launch_tc<128, T>(q, k, v, out, l, B, Sq, Sk, H, KVH, scale, mask,
                             s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// The route of a launch, dense or segment: bf16 at D = 64, 72 or 128
-// takes the tensor cores (kernels.flash_attention.tensor_core_route is
+// The route of a launch, dense or segment: bf16 or f16 at D = 64, 72 or
+// 128 takes the tensor cores (kernels.flash_attention.tensor_core_route is
 // its mirror).
 bool tc_route(int dtype, int D) {
-  return dtype == 1 && (D == 64 || D == 72 || D == 128);
+  return (dtype == 1 || dtype == 2) && (D == 64 || D == 72 || D == 128);
+}
+
+// the tensor-core launch at the input type (dtype 1 bf16, 2 f16)
+template <typename Mask>
+cudaError_t dispatch_tc_type(const void* q, const void* k, const void* v,
+                             void* out, void* lse, int B, int Sq, int Sk,
+                             int H, int KVH, int D, float scale,
+                             const Mask& mask, int dtype, void* stream) {
+  if (dtype == 2) {
+    return dispatch_tc<__half>(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale,
+                               mask, stream);
+  }
+  return dispatch_tc<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H, KVH, D,
+                                    scale, mask, stream);
 }
 
 bool bad_shape(int B, int Sq, int Sk, int H, int KVH, int D) {
@@ -950,7 +992,8 @@ bool bad_shape(int B, int Sq, int Sk, int H, int KVH, int D) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns the cudaError_t of
+// the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int Sq, int Sk, int H,
                          int KVH, int D, float scale, int causal, int dtype,
@@ -958,8 +1001,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   if (bad_shape(B, Sq, Sk, H, KVH, D)) return cudaErrorInvalidValue;
   if (tc_route(dtype, D)) {
     const DenseTC mask{Sq, Sk, Sk - Sq, causal};
-    return dispatch_tc(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale, mask,
-                       stream);
+    return dispatch_tc_type(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale,
+                            mask, dtype, stream);
   }
   const DenseMask mask{Sq, Sk, Sk - Sq, causal};
   return dispatch(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale, mask,
@@ -993,8 +1036,8 @@ extern "C" int flash_fwd_seg(const void* q, const void* k, const void* v,
       return cudaErrorInvalidValue;
     }
     const SegmentTC mask{sq, sk, pq, pk, st, ran, B, Sq, Sk, stride, causal};
-    return dispatch_tc(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale, mask,
-                       stream);
+    return dispatch_tc_type(q, k, v, out, lse, B, Sq, Sk, H, KVH, D, scale,
+                            mask, dtype, stream);
   }
   if (seg::bad_tiles(Sq, Sk, stride, tile_q, tile_k, BM, BN)) {
     return cudaErrorInvalidValue;

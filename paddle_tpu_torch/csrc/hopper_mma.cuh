@@ -12,7 +12,11 @@
 // columns, load_tile's zero chunks), so the fifth slice adds nothing;
 // columns past them are never read.
 //
-// Shared-memory tiles. A tile of R rows of DS bfloat16 values is stored
+// Types. Every tile and operand is of one 2-byte type T, __nv_bfloat16 or
+// __half (float16): the products are the same wgmma at type bf16 or f16,
+// the TMA maps are of either type, and P / dS are rounded to T (pack2).
+//
+// Shared-memory tiles. A tile of R rows of DS 2-byte values is stored
 // as DS / 64 column blocks of R rows x 128 bytes, each row's eight
 // 16-byte chunks permuted by the 128-byte swizzle (chunk c of row r at
 // chunk c ^ (r % 8)), every block 1024-byte aligned. That is the layout
@@ -24,19 +28,22 @@
 // by TMA, whose 64-column box with the 128-byte swizzle writes the same
 // layout; rows past the tensor's end read as zeros either way.
 //
-// Products: wgmma.mma_async m64nNk16 with bfloat16 operands and float32
+// Products: wgmma.mma_async m64nNk16 with bf16 or f16 operands and float32
 // sums, A from shared memory (wgmma_ss, B K-major) or from registers
 // (wgmma_rs, B MN-major). The accumulator of a warpgroup's 64 x N tile
 // lies in N / 2 floats a thread: register i of thread t (warp w = t / 32,
 // lane l = t % 32) holds row 16 w + l / 4 + 8 ((i / 2) % 2), column
 // 8 (i / 4) + 2 (l % 4) + i % 2. The A fragment of a k16 slice has the
 // same rows and columns, so a float accumulator becomes the A operand of
-// the next product by packing register pairs to bfloat16 (pack_a).
+// the next product by packing register pairs to T (pack_a).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -125,14 +132,38 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// the A fragment of k16 slice kk of a float accumulator, rounded to bf16
-template <int N>
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two floats rounded to T (__nv_bfloat16 or __half), lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    return pack_f16(lo, hi);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+// two T values (a 32-bit word) as floats
+__device__ __forceinline__ float2 unpack2(uint32_t u, const __nv_bfloat16*) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t u, const __half*) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&u));
+}
+
+// the A fragment of k16 slice kk of a float accumulator, rounded to T
+template <typename T, int N>
 __device__ __forceinline__ void pack_a(const float (&d)[N], int kk,
                                        uint32_t (&a)[4]) {
-  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  a[0] = pack2<T>(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack2<T>(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack2<T>(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack2<T>(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -147,14 +178,13 @@ __device__ __forceinline__ uint32_t tile_offset(int r, int c) {
   return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
-// Rows row0 .. row0 + R - 1 of a bf16 matrix of D columns (row i at
-// g + i * stride elements) into the tile at smem address tile, by the
-// block's nthreads threads, asynchronously: the 2 k_slices(D) 16-byte
+// Rows row0 .. row0 + R - 1 of a 2-byte (bf16 or f16) matrix of D
+// columns (row i at g + i * stride elements) into the tile at smem address
+// tile, by the block's nthreads threads, asynchronously: the 2 k_slices(D) 16-byte
 // chunks of a row that the products read, of which the first D / 8 are
 // copied and the rest, like rows >= rows_valid, read as zeros.
-template <int R, int D>
-__device__ __forceinline__ void load_tile(uint32_t tile,
-                                          const __nv_bfloat16* g, int row0,
+template <int R, int D, typename T>
+__device__ __forceinline__ void load_tile(uint32_t tile, const T* g, int row0,
                                           int rows_valid, size_t stride,
                                           int tid, int nthreads) {
   constexpr int CH = 2 * k_slices(D);   // 16-byte chunks a row, filled
@@ -165,7 +195,7 @@ __device__ __forceinline__ void load_tile(uint32_t tile,
     const int c = idx % CH;
     const int row = row0 + r;
     const bool ok = row < rows_valid && c < VALID;
-    const __nv_bfloat16* src = g + size_t(ok ? row : 0) * stride +
+    const T* src = g + size_t(ok ? row : 0) * stride +
                                (ok ? 8 * c : 0);
     cp_async16(tile + tile_offset<R>(r, c), src, ok);
   }
@@ -281,144 +311,114 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return make_desc(tile + kk * 2048, R * 128, 1024);
 }
 
-// D (64 x N, float32) op= A (64 x 16) . B (16 x N), bf16 operands;
+// D (64 x N, float32) op= A (64 x 16) . B (16 x N), operands of T
+// (__nv_bfloat16 or __half: the same instruction at type bf16 or f16);
 // scale_d = 0 overwrites D, 1 accumulates
-template <int N>
+template <int N, typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d);
-template <int N>
+template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d);
 
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+// the accumulators' operand lists and register names at N = 64, 72, 128
+#define HOPPER_ACC64 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+    "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define HOPPER_REGS64 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+    "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31"
+#define HOPPER_ACC72 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+    "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+#define HOPPER_REGS72 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+    "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35"
+#define HOPPER_ACC128 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+    "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+    "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+    "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define HOPPER_REGS128 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+    "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+    "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+    "%60, %61, %62, %63"
 
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+// One specialisation of wgmma_ss (A and B from shared memory, B K-major)
+// or wgmma_rs (A from registers, B MN-major) at width N and type T, whose
+// PTX name is TY; PRED names the scale_d operand and AB the A / B ones.
+#define HOPPER_WGMMA_SS(N, T, TY, PRED, AB)                               \
+  template <>                                                             \
+  __device__ __forceinline__ void wgmma_ss<N, T>(                         \
+      float(&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"        \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." \
+                 TY " {" HOPPER_REGS##N "}, " AB ", p, 1, 1, 0, 0;\n}\n"  \
+                 : HOPPER_ACC##N                                          \
+                 : "l"(da), "l"(db), "r"(scale_d));                       \
+  }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
+#define HOPPER_WGMMA_RS(N, T, TY, PRED, AB)                               \
+  template <>                                                             \
+  __device__ __forceinline__ void wgmma_rs<N, T>(                         \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t db,               \
+      int scale_d) {                                                      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"        \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." \
+                 TY " {" HOPPER_REGS##N "}, " AB ", p, 1, 1, 1;\n}\n"     \
+                 : HOPPER_ACC##N                                          \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),   \
+                   "r"(scale_d));                                         \
+  }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<72>(float (&d)[36],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35"
-      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
+#define HOPPER_WGMMA_TYPE(T, TY)                                          \
+  HOPPER_WGMMA_SS(64, T, TY, "%34", "%32, %33")                           \
+  HOPPER_WGMMA_SS(128, T, TY, "%66", "%64, %65")                          \
+  HOPPER_WGMMA_RS(64, T, TY, "%37", "{%32, %33, %34, %35}, %36")          \
+  HOPPER_WGMMA_RS(72, T, TY, "%41", "{%36, %37, %38, %39}, %40")          \
+  HOPPER_WGMMA_RS(128, T, TY, "%69", "{%64, %65, %66, %67}, %68")
 
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
+HOPPER_WGMMA_TYPE(__nv_bfloat16, "bf16")
+HOPPER_WGMMA_TYPE(__half, "f16")
+
+#undef HOPPER_WGMMA_TYPE
+#undef HOPPER_WGMMA_RS
+#undef HOPPER_WGMMA_SS
+#undef HOPPER_REGS64
+#undef HOPPER_REGS72
+#undef HOPPER_REGS128
+#undef HOPPER_ACC64
+#undef HOPPER_ACC72
+#undef HOPPER_ACC128
 }  // namespace hopper

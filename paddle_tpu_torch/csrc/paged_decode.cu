@@ -20,12 +20,13 @@
 // bytes of scales per page and kv head).
 //
 // Page types (the serving engine's kv_dtype): the full-precision entry takes
-// pages of float32, bfloat16 or float16 under a float32 or bfloat16 q, the
-// Pallas kernel's domain. Every pair computes q.k and the online softmax in
-// float32. The pairs whose page type is not q's round p to a 2-byte page
-// type before the P.V product, as the Pallas kernel's p.astype(v.dtype)
-// does (float32 pages: p stays float32); the same-type pairs keep p in
-// float32, as they always have.
+// pages of float32, bfloat16 or float16 under a float32, bfloat16 or
+// float16 q, the Pallas kernel's domain (the int8 arm takes the same q).
+// Every pair computes q.k and the online softmax in float32. The pairs
+// whose page type is not q's round p to a 2-byte page type before the P.V
+// product, as the Pallas kernel's p.astype(v.dtype) does (float32 pages: p
+// stays float32); the same-type pairs keep p in float32, as they always
+// have.
 //
 // Design (split positions, flash-decoding). The grid is (splits, KVH * hg,
 // B): a block takes one chunk of pages_per_split whole pages of one
@@ -81,7 +82,7 @@
 // integer permute and one float add a code, where cvt (I2F) runs at an
 // eighth of the FMA rate and would bound the arm before memory does.
 //
-// Layout: q [B, NH, D], out [B, NH, D], float32 or bfloat16; pages
+// Layout: q [B, NH, D], out [B, NH, D], float32, bfloat16 or float16; pages
 // [P, KVH, ps, D] of float32, bfloat16 or float16, or int8 with scales
 // float32 [P, KVH] (one per page and kv head); all contiguous; block_tables int32 [B, maxp];
 // lengths int32 [B]; scratch float32, splits * B * NH * (D + 2) values
@@ -168,6 +169,9 @@ __device__ __forceinline__ float round_to(float p, const __half*) {
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store1(__half* p, float v) {
+  *p = __float2half(v);
 }
 
 // 8 consecutive page elements from shared memory, as floats
@@ -658,7 +662,8 @@ int launch_pages(int page_dtype, const void* q, const void* k_pages,
 
 }  // namespace
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16; page_dtype (of the
+// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16; page_dtype
+// (of the
 // pages): 0 = float32, 1 = bfloat16, 2 = float16.
 // pages_per_split: the chunk a block takes (the wrapper's
 // decode_split_plan); scratch: the partials, float32 [splits * B * NH *
@@ -684,12 +689,18 @@ extern "C" int paged_decode(const void* q, const void* k_pages,
                                        B, NH, KVH, ps, D, P, maxp,
                                        pages_per_split, scale, stream);
   }
+  if (dtype == 2) {
+    return launch_pages<__half>(page_dtype, q, k_pages, v_pages,
+                                block_tables, lengths, out, scratch, B, NH,
+                                KVH, ps, D, P, maxp, pages_per_split, scale,
+                                stream);
+  }
   return cudaErrorInvalidValue;
 }
 
 // int8 pages (codes) with float32 k_scales / v_scales [P, KVH]; dtype is
-// that of q and out: 0 = float32, 1 = bfloat16. Same clamping, masking,
-// zero-row, split and scratch contract as paged_decode.
+// that of q and out: 0 = float32, 1 = bfloat16, 2 = float16. Same
+// clamping, masking, zero-row, split and scratch contract as paged_decode.
 extern "C" int paged_decode_int8(const void* q, const void* k_codes,
                                  const void* v_codes, const void* k_scales,
                                  const void* v_scales,
@@ -713,6 +724,11 @@ extern "C" int paged_decode_int8(const void* q, const void* k_codes,
     return launch<__nv_bfloat16, int8_t>(
         q, k_codes, v_codes, ksc, vsc, block_tables, lengths, out, scratch,
         B, NH, KVH, ps, D, P, maxp, pages_per_split, scale, stream);
+  }
+  if (dtype == 2) {
+    return launch<__half, int8_t>(q, k_codes, v_codes, ksc, vsc, block_tables,
+                                  lengths, out, scratch, B, NH, KVH, ps, D, P,
+                                  maxp, pages_per_split, scale, stream);
   }
   return cudaErrorInvalidValue;
 }

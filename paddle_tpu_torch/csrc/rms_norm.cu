@@ -13,8 +13,9 @@
 //   backward: g = dy * w, dx = r * g - x * r^3 * mean(g * x) (float32,
 //             cast to x's type), dw = sum over rows of dy * x * r (float32,
 //             cast to w's type).
-// x, y, dy and dx share one type; w and dw share one; either is float32
-// or bfloat16, in any pair.
+// x, y, dy and dx share one type; w and dw share one; either is float32,
+// bfloat16 or float16, in any pair (the Pallas kernels keep any float
+// type).
 //
 // Bound on the H100: a handful of flops per element against 2 (bf16) or 4
 // (f32) bytes, so both passes are bounded by device-memory traffic: the
@@ -63,9 +64,12 @@
 // w / dw [d]; partials float32 [grid, d]. 1 <= d <= 16384.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper_mma.cuh"
 
@@ -92,6 +96,9 @@ constexpr int DW_WARPS = 8;  // rms_dw_kernel: warps a block, one column each la
 __device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);       // round to nearest even, as torch's cast
+}
+__device__ __forceinline__ void from_f(__half* p, float v) {
+  *p = __float2half(v);
 }
 
 // N values from p into v: 8 through 16-byte loads (p 16-byte aligned),
@@ -125,6 +132,22 @@ __device__ __forceinline__ void load(const __nv_bfloat16* p, float* v) {
 }
 
 template <int N>
+__device__ __forceinline__ void load(const __half* p, float* v) {
+  if constexpr (N == CH) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+    v[0] = __half2float(*p);
+  }
+}
+
+template <int N>
 __device__ __forceinline__ void store(float* p, const float* v) {
   if constexpr (N == CH) {
     reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -145,6 +168,20 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
     *reinterpret_cast<uint4*>(p) = u;
   } else {
     *p = __float2bfloat16(v[0]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store(__half* p, const float* v) {
+  if constexpr (N == CH) {
+    uint4 u;
+    __half2* h = reinterpret_cast<__half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  } else {
+    *p = __float2half(v[0]);
   }
 }
 
@@ -498,27 +535,37 @@ bool bulk_ok(const Plan& p, int d, int esize, const void* const* ptrs) {
              size_t(hopper::MAX_SMEM);
 }
 
+bool bad_dtype(int dtype) { return dtype < 0 || dtype > 2; }
+
+// f(tag) with a null pointer of the type of code dtype (0 = float32,
+// 1 = bfloat16, 2 = float16) as tag
+template <typename F>
+int with_type(int dtype, F&& f) {
+  if (dtype == 0) return f(static_cast<float*>(nullptr));
+  if (dtype == 1) return f(static_cast<__nv_bfloat16*>(nullptr));
+  return f(static_cast<__half*>(nullptr));
+}
+
 }  // namespace
 
-// x / y: xdtype, w: wdtype (0 = float32, 1 = bfloat16); rstd float32 [n].
+// x / y: xdtype, w: wdtype (0 = float32, 1 = bfloat16, 2 = float16);
+// rstd float32 [n].
 extern "C" int rms_norm_fwd(const void* x, const void* w, void* y,
                             void* rstd, int n, int d, float eps, int xdtype,
                             int wdtype, void* stream) {
-  if (bad_shape(n, d) || xdtype < 0 || xdtype > 1 || wdtype < 0 ||
-      wdtype > 1)
+  if (bad_shape(n, d) || bad_dtype(xdtype) || bad_dtype(wdtype))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* rs = static_cast<float*>(rstd);
   const bool vec = d % CH == 0 && aligned16(x) && aligned16(w) &&
                    aligned16(y);
-  if (xdtype == 0 && wdtype == 0)
-    return launch_fwd<float, float>(x, w, y, rs, n, d, eps, vec, st);
-  if (xdtype == 0)
-    return launch_fwd<float, __nv_bfloat16>(x, w, y, rs, n, d, eps, vec, st);
-  if (wdtype == 0)
-    return launch_fwd<__nv_bfloat16, float>(x, w, y, rs, n, d, eps, vec, st);
-  return launch_fwd<__nv_bfloat16, __nv_bfloat16>(x, w, y, rs, n, d, eps,
-                                                  vec, st);
+  return with_type(xdtype, [&](auto* tx) {
+    return with_type(wdtype, [&](auto* tw) {
+      using TX = std::remove_pointer_t<decltype(tx)>;
+      using TW = std::remove_pointer_t<decltype(tw)>;
+      return launch_fwd<TX, TW>(x, w, y, rs, n, d, eps, vec, st);
+    });
+  });
 }
 
 // dx from x, w, rstd and dy (dy / dx: xdtype), and one float32 partial dw
@@ -530,8 +577,8 @@ extern "C" int rms_norm_bwd(const void* x, const void* w, const void* rstd,
                             int d, int xdtype, int wdtype, int grid,
                             int groups, int threads, int stages,
                             void* stream) {
-  if (bad_shape(n, d) || grid < 1 || stages < 0 || xdtype < 0 ||
-      xdtype > 1 || wdtype < 0 || wdtype > 1)
+  if (bad_shape(n, d) || grid < 1 || stages < 0 || bad_dtype(xdtype) ||
+      bad_dtype(wdtype))
     return cudaErrorInvalidValue;
   const Plan p{grid, groups, threads, stages};
   const void* ptrs[4] = {x, w, dy, dx};
@@ -540,32 +587,27 @@ extern "C" int rms_norm_bwd(const void* x, const void* w, const void* rstd,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* rs = static_cast<const float*>(rstd);
   float* pp = static_cast<float*>(part);
-  if (xdtype == 0 && wdtype == 0)
-    return launch_bwd<float, float>(x, w, rs, dy, dx, pp, n, d, p, st);
-  if (xdtype == 0)
-    return launch_bwd<float, __nv_bfloat16>(x, w, rs, dy, dx, pp, n, d, p,
-                                            st);
-  if (wdtype == 0)
-    return launch_bwd<__nv_bfloat16, float>(x, w, rs, dy, dx, pp, n, d, p,
-                                            st);
-  return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, w, rs, dy, dx, pp, n,
-                                                  d, p, st);
+  return with_type(xdtype, [&](auto* tx) {
+    return with_type(wdtype, [&](auto* tw) {
+      using TX = std::remove_pointer_t<decltype(tx)>;
+      using TW = std::remove_pointer_t<decltype(tw)>;
+      return launch_bwd<TX, TW>(x, w, rs, dy, dx, pp, n, d, p, st);
+    });
+  });
 }
 
 // dw [d] (wdtype) = the column sums of part float32 [nb, d], in a fixed
 // order.
 extern "C" int rms_norm_dw(const void* part, void* dw, int nb, int d,
                            int wdtype, void* stream) {
-  if (nb < 1 || d < 1 || wdtype < 0 || wdtype > 1)
-    return cudaErrorInvalidValue;
+  if (nb < 1 || d < 1 || bad_dtype(wdtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* pp = static_cast<const float*>(part);
   const int blocks = (d + 31) / 32;
-  if (wdtype == 0)
-    rms_dw_kernel<float><<<blocks, DW_WARPS * 32, 0, st>>>(
-        pp, static_cast<float*>(dw), nb, d);
-  else
-    rms_dw_kernel<__nv_bfloat16><<<blocks, DW_WARPS * 32, 0, st>>>(
-        pp, static_cast<__nv_bfloat16*>(dw), nb, d);
-  return cudaGetLastError();
+  return with_type(wdtype, [&](auto* tw) {
+    using TW = std::remove_pointer_t<decltype(tw)>;
+    rms_dw_kernel<TW><<<blocks, DW_WARPS * 32, 0, st>>>(
+        pp, static_cast<TW*>(dw), nb, d);
+    return int(cudaGetLastError());
+  });
 }

@@ -4,12 +4,14 @@
 the hand-written CUDA kernels ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu``, which replace the reference's Pallas
 ``_fwd_kernel`` and ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``. Each C
-entry has two routes, and ``tensor_core_route`` is the choice: bfloat16 at
-head dim 64, 72 or 128 runs on the tensor cores (``wgmma``, bf16
-operands, float32 sums, P and dS rounded to bf16 before their products,
-counted ``flash_tc`` / ``flash_bwd_tc`` besides ``flash`` /
-``flash_bwd``); float32, and bfloat16 at any other head dim, runs the
-float32 CUDA-core kernels. The tensor-core kernels compute at D and store
+entry takes float32, bfloat16 and float16 (the Pallas kernels keep any
+float type) and has two routes, and ``tensor_core_route`` is the choice:
+bfloat16 or float16 at head dim 64, 72 or 128 runs on the tensor cores
+(``wgmma`` at the input type, float32 sums, P and dS rounded to the input
+type before their products as the Pallas kernels round them, counted
+``flash_tc`` / ``flash_bwd_tc`` besides ``flash`` / ``flash_bwd``);
+float32, and bfloat16 or float16 at any other head dim, runs the float32
+CUDA-core kernels. The tensor-core kernels compute at D and store
 their tiles at ``64 * ceil(D / 64)`` columns: DiT-XL/2's 72 runs in D
 128's tiles, its products over D in 5 k16 slices (zeros past 72) and
 those whose N is D at N 72. At DiT's shapes (``[16, 256, 16, 72]``
@@ -70,10 +72,11 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "flash_attention_segments_fwd", "flash_attention_segments_bwd",
            "segment_attention_ref", "segment_attention_bwd_ref",
            "segments_supported", "count_skipped_blocks", "SEG_BLOCK",
-           "seg_tiles", "MIN_D", "MAX_D", "TC_DIMS", "through_ops",
+           "seg_tiles", "MIN_D", "MAX_D", "TC_DIMS", "TC_DTYPES",
+           "through_ops",
            "FLASH_FWD_OPS"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the head dims the kernels take: multiples of 8 in [MIN_D, MAX_D] (the
 # C entries' bad_shape)
 MIN_D, MAX_D = 8, 256
@@ -92,16 +95,17 @@ def supported(q, k, v) -> bool:
             and v.dtype == q.dtype)
 
 
-# head dims of the tensor-core kernels in bfloat16 (each source's
-# tc_route, one dispatch_tc instance each)
+# head dims of the tensor-core kernels in bfloat16 and float16 (each
+# source's tc_route, one dispatch_tc instance each a type)
 TC_DIMS = (64, 72, 128)
+TC_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def tensor_core_route(q) -> bool:
     """Whether a launch on ``q`` (a shape ``supported`` takes), dense or
-    segment, runs the tensor-core kernels: bfloat16 at a head dim of
-    ``TC_DIMS``, the choice the C entries make (``tc_route``)."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in TC_DIMS
+    segment, runs the tensor-core kernels: bfloat16 or float16 at a head
+    dim of ``TC_DIMS``, the choice the C entries make (``tc_route``)."""
+    return q.dtype in TC_DTYPES and q.shape[-1] in TC_DIMS
 
 
 def flash_attention_ref(q, k, v, *, causal=False, scale=None):
@@ -143,7 +147,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None):
               f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}, "
               f"v {tuple(v.shape)} {v.dtype} (needs [B, S, H, D] with "
               f"H % KVH == 0, D % 8 == 0, {MIN_D} <= D <= {MAX_D}, "
-              f"float32 or bfloat16)",
+              f"float32, bfloat16 or float16)",
               error=E.InvalidArgumentError)
     E.enforce(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
               "flash_attention: q/k/v must be contiguous",

@@ -13,8 +13,8 @@ block_tables int32 ``[B, max_pages]`` (entries past a sequence's pages
 may hold anything: they are clamped and masked); lengths int32 ``[B]``
 (0 marks an empty slot and gives a zero row).
 
-Pages of float32, bfloat16 or float16 go under a float32 or bfloat16 q
-(the Pallas kernel's domain; the serving engine's ``kv_dtype``): q.k and
+Pages of float32, bfloat16 or float16 go under a float32, bfloat16 or
+float16 q (the Pallas kernel's domain; the serving engine's ``kv_dtype``): q.k and
 the softmax run in float32, and a pair whose page type is not q's rounds
 the softmax weights to the page type before the P.V product, as the Pallas
 kernel does (float32 pages keep them float32). Launches of such a pair
@@ -45,7 +45,7 @@ __all__ = ["ragged_paged_attention", "paged_attention_ref", "supported",
            "decode_split_plan"]
 
 _NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # head dims the kernel takes: D % 8 == 0 up to MAX_HEAD_DIM (the Pallas
 # kernel's domain); any group of query heads over a kv head
 MAX_HEAD_DIM = 256
@@ -165,7 +165,8 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
               f"{k_pages.dtype}, block_tables {tuple(block_tables.shape)}"
               f"{', scales' if quant else ', no scales'} (needs head_dim "
               f"% 8 == 0, head_dim <= {MAX_HEAD_DIM}, num_heads % "
-              f"kv_heads == 0, q float32 or bfloat16, pages float32, "
+              f"kv_heads == 0, q float32, bfloat16 or float16, pages "
+              f"float32, "
               f"bfloat16 or float16 without scales or int8 with them)",
               error=E.InvalidArgumentError)
     if quant:

@@ -12,7 +12,8 @@ in float32 with ``r = rsqrt(mean(x * x) + eps)``, rounded once to
 ``x.dtype``; ``rstd`` (float32, one per row) is saved for the backward,
 which gives ``dx`` in ``x.dtype`` and ``dw`` summed over all rows in
 float32, then cast to ``w.dtype``. ``x`` is any ``[..., d]``; ``w`` is
-``[d]``; each of them float32 or bfloat16.
+``[d]``; each of them float32, bfloat16 or float16, in any pair (the
+Pallas kernels keep any float type).
 
 ``rms_norm`` is the differentiable entry: ``_RmsNorm`` (the reference's
 ``custom_vjp``) when autograd needs a gradient, the forward alone
@@ -32,7 +33,7 @@ from ._stats import DISPATCH_STATS
 __all__ = ["rms_norm", "rms_norm_fwd", "rms_norm_bwd", "rms_norm_ref",
            "rms_norm_bwd_ref", "supported", "MAX_D", "BwdPlan", "bwd_plan"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_D = 16384
 # The backward's plan (csrc/rms_norm.cu). Bulk route: one block per
 # streaming multiprocessor of the H100 (_SMS) of at most _BULK_THREADS
@@ -129,8 +130,8 @@ def _check(what, tensors, ok, detail):
               f"{[str(t.device) for t in tensors]}",
               error=E.InvalidArgumentError)
     E.enforce(ok, f"{what}: the CUDA kernel does not take {detail} (needs x "
-              f"[..., d] and w [d] with 1 <= d <= {MAX_D}, each float32 or "
-              f"bfloat16)", error=E.InvalidArgumentError)
+              f"[..., d] and w [d] with 1 <= d <= {MAX_D}, each float32, "
+              f"bfloat16 or float16)", error=E.InvalidArgumentError)
     E.enforce(all(t.is_contiguous() for t in tensors),
               f"{what}: inputs must be contiguous",
               error=E.InvalidArgumentError)

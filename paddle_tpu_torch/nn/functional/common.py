@@ -32,7 +32,12 @@ __all__ = [
 @op_fn
 def linear(x, weight, bias=None):
     """``x @ weight + bias`` with Paddle's ``[in, out]`` weight; a plain
-    product (cuBLAS on the card), as the reference leaves it to XLA."""
+    product (cuBLAS on the card), as the reference leaves it to XLA.
+    Inputs of two float types meet at the promoted one, as ``jnp``'s do
+    (a keyword weight that AMP leaves float32 beside a bf16 ``x``)."""
+    if x.dtype != weight.dtype and x.is_floating_point():
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
     y = torch.matmul(x, weight)
     if bias is not None:
         y = y + bias

@@ -32,11 +32,16 @@ import torch
 from ._op import get_op, op_fn, registered_ops, wrap  # noqa: F401
 from .creation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
+from .math_ext import *  # noqa: F401,F403
 from .reduction import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
+from .manipulation_ext import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
+from .linalg_ext import *  # noqa: F401,F403
 from .logic import *  # noqa: F401,F403
 from .random import *  # noqa: F401,F403
+from .misc_ext import *  # noqa: F401,F403
+from . import fft_ops  # noqa: F401  (namespaced as paddle_tpu_torch.fft)
 from ..core import dtype as _dtypes
 from ..device import to_torch_device as _to_torch_device
 from ..framework.random import default_generator as _default_generator

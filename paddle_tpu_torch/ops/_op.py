@@ -17,14 +17,24 @@ instrumentation, all off by default:
   ``FloatingPointError`` naming the op (on the card a host read, made
   only while the flag is on).
 
-With all three off a call costs two attribute reads and a branch on top
-of the function. ``differentiable=False`` runs the function under
-``torch.no_grad()``: its outputs never require grad, as the reference's
-are ``stop_gradient``. ``nondiff_args`` positions are detached.
+The AMP auto-cast seam (``amp.auto_cast``): while it is on, a white-list
+op's positional floating inputs are cast to the AMP dtype and a
+black-list op's to float32 before the function runs (keyword inputs
+stay as they are, as the reference's). The cast is a torch op inside
+autograd, so each gradient comes back in its input's own type: a float32
+parameter of a bfloat16 product gets a float32 gradient. (The reference
+differentiates with respect to the cast arrays, so a producer of a cast
+input receives a cotangent of the cast type and its backward raises: its
+eager models cannot train under ``auto_cast``.)
 
-Not ported yet: the AMP auto-cast seam (waits for ``amp/``) and the
-static-build and segmented-capture seams (wait for ``jit/`` and
-``static/``).
+With all four off a call costs four attribute reads (the AMP state's a
+thread-local one) and two branches on top of the function.
+``differentiable=False`` runs the function under ``torch.no_grad()``:
+its outputs never require grad, as the reference's are ``stop_gradient``.
+``nondiff_args`` positions are detached.
+
+Not ported yet: the static-build and segmented-capture seams (wait for
+``jit/`` and ``static/``).
 """
 from __future__ import annotations
 
@@ -34,6 +44,8 @@ from typing import Callable
 
 import torch
 
+from ..amp.auto_cast import _amp as _AMP
+from ..amp.auto_cast import current_cast_dtype_for as _cast_dtype_for
 from ..core.flags import flag_info
 from ..core import tensor as _tensor
 
@@ -77,6 +89,17 @@ def _check_nan_inf(opname, out):
             if not bool(torch.isfinite(o).all()):
                 raise FloatingPointError(
                     f"NaN/Inf detected in output of op '{opname}'")
+
+
+def _amp_cast(opname, args):
+    """``args`` with each floating tensor cast to the op's AMP dtype
+    (``amp.current_cast_dtype_for``), when it has one."""
+    dt = _cast_dtype_for(opname)
+    if dt is None:
+        return args
+    return tuple(a.to(dt) if isinstance(a, torch.Tensor)
+                 and a.is_floating_point() and a.dtype != dt else a
+                 for a in args)
 
 
 def _instrumented(opname, run, args, kwargs):
@@ -126,6 +149,8 @@ def op_fn(fn: Callable = None, *, name: str = None,
 
     @functools.wraps(fn)
     def dispatch(*args, **kwargs):
+        if _AMP.enabled:
+            args = _amp_cast(opname, args)
         if (_PROFILE_HOOK is None and not _MON_FLAG.value
                 and not _NAN_FLAG.value):
             return run(*args, **kwargs)

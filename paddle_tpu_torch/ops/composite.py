@@ -5,8 +5,8 @@ draws, list-taking wrappers) and the in-place ``<name>_`` family join
 the registry under their names, so ``registered_ops()`` lists the whole
 surface as the reference's does. They are registered as they are: a call
 counts in ``op.<name>.calls`` only through the registered ops it makes.
-The names are the ones whose reference module this package holds; the
-reference's other composites (its ``*_ext`` modules) come with those.
+The names are the reference's composites, each registered from the
+module that defines it (``__module__``), as the reference's are.
 """
 from __future__ import annotations
 
@@ -17,10 +17,26 @@ _COMPOSITE_NAMES = [
     "arange", "empty", "empty_like", "eye", "full", "assign",
     "create_tensor", "meshgrid", "tril_indices", "triu_indices",
     "logspace", "complex",
+    "diag_embed",
     # random
-    "bernoulli", "gumbel",
+    "bernoulli", "gumbel", "binomial", "standard_gamma", "randint_like",
     # manipulation, logic and linalg compositions
     "chunk", "masked_select", "allclose", "equal_all", "bmm", "multi_dot",
+    "atleast_1d", "atleast_2d", "atleast_3d", "broadcast_tensors",
+    "column_stack", "dstack", "hstack", "vstack", "row_stack", "dsplit",
+    "hsplit", "vsplit", "expand_as", "as_strided", "diagonal_scatter",
+    "crop", "select_scatter", "slice_scatter", "view", "view_as",
+    "unflatten",
+    # math compositions
+    "addmm", "cdist", "corrcoef", "cov", "cummax", "cummin",
+    "cumulative_trapezoid", "diff", "dist", "frexp", "histogram",
+    "histogramdd", "increment", "lstsq", "lu", "lu_unpack", "nanmedian",
+    "nanquantile", "pdist", "polar", "vander", "combinations",
+    # indexing / search compositions
+    "index_fill", "index_sample", "mode", "top_p_sampling",
+    "unique_consecutive",
+    # linalg surface
+    "eigh", "eigvalsh", "householder_product", "ormqr",
 ]
 
 

@@ -13,6 +13,10 @@ attribute = logic
 stat = reduction
 einsum = math
 
+# the signal ops flat, as the reference's tensor namespace has them
+from ..ops.fft_ops import istft, stft  # noqa: E402,F401
+from ..ops.manipulation_ext import tensor_unfold as unfold  # noqa: E402,F401
+
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):
     """The legacy creation call: ``full`` with the fluid argument order."""

@@ -16,7 +16,11 @@ its base's. Nothing here imports torch or JAX.
 - ``grad``: False where no gradient is compared (with ``why``);
 - ``random``: the name of a statistical check in place of a value
   comparison (the draws differ between implementations);
-- ``half``: False where the op takes no bfloat16 / float16 input.
+- ``half``: False where the op takes no bfloat16 / float16 input;
+- ``compare``: the name of a comparison in place of the outputs'
+  values, for factorizations unique only up to the sign or phase of
+  their columns (``"svd"``, ``"qr"``, ``"eigh"``, ``"eig"``,
+  ``"eigvals"``: reconstructions, singular values and eigenvalues).
 """
 from __future__ import annotations
 
@@ -127,6 +131,25 @@ class Inputs:
     def upper(self, b, n):
         return np.triu(self.wellcond(b, n)).astype(np.float32)
 
+    def c(self, *shape):
+        """complex64 with standard normal real and imaginary parts."""
+        return (self.f(*shape) + 1j * self.f(*shape)).astype(np.complex64)
+
+    def reflectors(self, b, m, k):
+        """``(x [b, m, k], tau [b, k])``: k Householder reflectors
+        ``I - tau v v^T`` in LAPACK's compact form (v's unit head
+        implicit, its tail below x's diagonal), each orthogonal: tau =
+        2 / |v|^2. Random taus would make reflectors of norm ~m, whose
+        product overflows float32."""
+        x = self.f(b, m, k)
+        below = np.tril(x, -1)[..., :k]
+        tau = (2.0 / (1.0 + (below ** 2).sum(-2))).astype(np.float32)
+        return x, tau
+
+    def ties(self, *shape):
+        """float32 small integers: many equal values."""
+        return self.i(*shape, lo=-3, hi=4).astype(np.float32)
+
 
 @dataclasses.dataclass
 class Case:
@@ -136,6 +159,7 @@ class Case:
     random: Optional[str] = None
     half: bool = True
     why: str = ""
+    compare: Optional[str] = None
 
 
 def C(make, **kw):
@@ -641,6 +665,336 @@ CASES["soft_margin_loss"] = C(lambda r, S: ((r.f(_B, _K), np.sign(r.f(
     _B, _K)).astype(np.float32)), {}))
 CASES["gaussian_nll_loss"] = C(lambda r, S: ((r.f(_B, _K), r.pos(_B, _K),
                                               r.f(_B, _K)), {"full": True}))
+
+# -- ops.math_ext -------------------------------------------------------------
+CASES["add_n_op"] = C(lambda r, S: ((r.f(*S.ew), r.f(*S.ew), r.f(*S.ew)),
+                                    {}))
+for n in ("bitwise_left_shift", "bitwise_right_shift"):
+    CASES[n] = C(lambda r, S: ((r.i(*S.ew, lo=-9, hi=9),
+                                r.i(*S.ew, lo=0, hi=4)), {}), half=False)
+CASES["bucketize_op"] = C(lambda r, S: ((r.f(*S.ew), np.sort(
+    r.f(S.rows[1]))), {"right": True}), half=False,
+    why="a bucket flips where bf16 rounds a value across a boundary")
+for n in ("copysign", "nextafter"):
+    CASES[n] = _bin()
+CASES["nextafter"] = _bin(half=False, why="the neighbouring float is a "
+                                          "float32 notion")
+_TIES = dict(why="small integers as floats: runs of equal values, so the "
+                 "index is the last equal position and a tie splits the "
+                 "gradient as the reference's parallel scan does")
+for n in ("cummax", "cummin"):
+    CASES[n] = C(lambda r, S: ((r.ties(*S.ew),), {"axis": 1}), **_TIES)
+    CASES[n + "_op"] = C(lambda r, S: ((r.ties(*S.ew),), {"axis": 2}),
+                         **_TIES)
+CASES["cumulative_trapezoid"] = C(lambda r, S: ((r.f(*S.ew),),
+                                                {"dx": 0.5, "axis": 1}))
+CASES["cumulative_trapezoid_op"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "x": np.cumsum(r.pos(*S.ew), -1).astype(np.float32)}), tol=(1e-4, 1e-5),
+    why="a running sum of up to 4096 terms in another order")
+CASES["diff"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "axis": 1, "prepend": r.f(S.ew[0], 1, S.ew[2])}))
+CASES["diff_op"] = C(lambda r, S: ((r.f(*S.ew),), {"n": 2, "axis": -1}))
+CASES["floor_mod"] = C(lambda r, S: ((r.f(*S.ew) * 3, r.pos(*S.ew)), {}),
+                       grad=False, why="mod: the gradient jumps at each "
+                                       "multiple of y; values are compared")
+CASES["remainder_"] = CASES["floor_mod"]
+# composites whose reference result leaves its tape (``stop_gradient``):
+# the port's differentiate (torch views and ops), so no gradient is
+# compared against the reference's (none)
+_OFF_TAPE = dict(grad=False, why="the reference's composite rebuilds its "
+                                 "outputs outside its tape (stop_gradient); "
+                                 "the port's differentiate")
+CASES["frexp"] = C(lambda r, S: ((r.f(*S.ew) * 10,), {}), half=False,
+                   **_OFF_TAPE)
+for n in ("gammainc", "gammaincc"):
+    CASES[n] = C(lambda r, S: ((2 * r.pos(*S.ew), 2 * r.pos(*S.ew)), {}),
+                 tol=(1e-4, 1e-5), half=False,
+                 why="series approximations differ by a few float32 ulps; "
+                     "d/da is a float64 central difference against XLA's "
+                     "series")
+CASES["gammaln"] = _dom("pos", tol=(1e-4, 1e-5),
+                        why="Lanczos series differ by a few float32 ulps")
+for n in ("i0", "i0e", "i1", "i1e"):
+    CASES[n] = C(lambda r, S: ((r.f(*S.ew) * 3,), {}), tol=(1e-4, 1e-5),
+                 why="Bessel series (Cephes in both, evaluated in another "
+                     "order) differ by a few float32 ulps")
+CASES["sinc"] = _u("sinc")
+CASES["neg"] = _u("neg")
+CASES["sgn"] = _u("sgn")
+CASES["signbit"] = _u("signbit")
+CASES["increment"] = C(lambda r, S: ((r.f(*S.ew),), {"value": 2.5}),
+                       grad=False, why="an in-place counter outside "
+                                       "autograd in both packages")
+for n in ("isneginf", "isposinf"):
+    CASES[n] = C(lambda r, S: ((np.where(r.b(*S.ew), np.float32(np.inf),
+                                         np.where(r.b(*S.ew),
+                                                  -np.float32(np.inf),
+                                                  r.f(*S.ew))).astype(
+        np.float32),), {}))
+CASES["isreal"] = C(lambda r, S: ((np.where(r.b(*S.ew), r.c(*S.ew),
+                                            r.f(*S.ew)).astype(
+    np.complex64),), {}), half=False, why="a complex input")
+CASES["logcumsumexp"] = C(lambda r, S: ((r.f(*S.ew),), {"axis": 1}),
+                          tol=(1e-5, 1e-5),
+                          why="a running log-sum-exp in another order")
+CASES["multigammaln_op"] = C(lambda r, S: ((2 + r.pos(*S.ew),), {"p": 3}),
+                             tol=(1e-4, 1e-5), half=False,
+                             why="sums of lgamma series, a few ulps each")
+CASES["multigammaln_"] = CASES["multigammaln_op"]
+CASES["multiplex_op"] = C(lambda r, S: ((r.f(S.ew[1], S.ew[2]),
+                                         r.f(S.ew[1], S.ew[2]),
+                                         r.f(S.ew[1], S.ew[2])),
+                                        {"index": r.i(S.ew[1], 1, lo=0,
+                                                      hi=3)}))
+_NANS = dict(tol=(1e-5, 1e-5), why="an interpolation between two sorted "
+                                   "values, rounded in another order")
+CASES["nanmedian"] = C(lambda r, S: ((np.where(
+    r.prob(*S.ew) < 0.15, np.float32(np.nan), r.f(*S.ew)).astype(
+    np.float32),), {"axis": [0, 2]}), **_NANS)
+CASES["nanmedian_op"] = C(lambda r, S: ((np.where(
+    r.prob(*S.ew) < 0.15, np.float32(np.nan), r.f(*S.ew)).astype(
+    np.float32),), {"axis": 1, "keepdim": True}), **_NANS)
+CASES["nanquantile"] = C(lambda r, S: ((np.where(
+    r.prob(*S.ew) < 0.15, np.float32(np.nan), r.f(*S.ew)).astype(
+    np.float32),), {"q": [0.25, 0.75], "axis": -1}), **_NANS)
+CASES["nanquantile_op"] = C(lambda r, S: ((np.where(
+    r.prob(*S.ew) < 0.15, np.float32(np.nan), r.f(*S.ew)).astype(
+    np.float32),), {"q": 0.3, "axis": (1, 2), "keepdim": True}), **_NANS)
+CASES["polar"] = C(lambda r, S: ((r.pos(*S.ew), r.f(*S.ew)), {}),
+                   half=False, why="a complex output")
+CASES["reduce_as_op"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "target_shape": (1, S.ew[1], 1)}), tol=(1e-5, 1e-5),
+    why="a sum in another order")
+CASES["renorm_op"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "p": 2.0, "axis": 1, "max_norm": 3.0}), tol=(1e-5, 1e-5),
+    why="a norm summed in another order")
+CASES["renorm_"] = CASES["renorm_op"]
+CASES["take_op"] = C(lambda r, S: ((r.f(*S.ew), r.i(
+    9, lo=-2 * int(np.prod(S.ew)), hi=2 * int(np.prod(S.ew)))),
+    {"mode": "wrap"}))
+
+# -- ops.manipulation_ext -----------------------------------------------------
+CASES["as_strided"] = C(lambda r, S: ((r.f(*S.ew), (S.ew[0], 3),
+                                       (S.ew[1] * S.ew[2], 2), 1), {}))
+CASES["as_strided_op"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "shape": (2, S.ew[2], 2), "stride": (S.ew[2], 1, 3), "offset": 2}))
+for n in ("atleast_1d", "atleast_2d", "atleast_3d"):
+    CASES[n] = C(lambda r, S: ((r.f(S.ew[2]), r.f(S.ew[1], S.ew[2])), {}),
+                 **_OFF_TAPE)
+CASES["broadcast_tensors"] = C(lambda r, S: (([r.f(S.ew[0], 1, S.ew[2]),
+                                               r.f(1, S.ew[1], 1)],), {}))
+CASES["crop"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "shape": [2, -1, 3], "offsets": [1, 0, 1]}))
+CASES["crop_op"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "shape": (1, 2, S.ew[2] - 1), "offsets": (1, 1, 0)}))
+CASES["diag_embed"] = C(lambda r, S: ((r.f(S.ew[0], 5),), {
+    "offset": 1, "dim1": 0, "dim2": 2}))
+CASES["diag_embed_op"] = C(lambda r, S: ((r.f(S.ew[0], 4),), {
+    "offset": -2}))
+CASES["diagonal_scatter"] = C(lambda r, S: ((r.f(S.ew[0], 5, 6),
+                                             r.f(S.ew[0], 5)),
+                                            {"offset": 1, "axis1": 1,
+                                             "axis2": 2}))
+CASES["diagonal_scatter_op"] = C(lambda r, S: ((r.f(6, S.ew[0], 5),
+                                                r.f(S.ew[0], 4)),
+                                               {"offset": -2, "axis1": 0,
+                                                "axis2": 2}))
+CASES["dsplit"] = C(lambda r, S: ((r.f(S.ew[0], 3, 6), 3), {}), **_OFF_TAPE)
+CASES["hsplit"] = C(lambda r, S: ((r.f(S.ew[0], 6, 3), [1, 4]), {}),
+                    **_OFF_TAPE)
+CASES["vsplit"] = C(lambda r, S: ((r.f(6, *S.ew[1:]), 2), {}), **_OFF_TAPE)
+CASES["expand_as"] = C(lambda r, S: ((r.f(1, S.ew[1], 1), r.f(*S.ew)), {}))
+CASES["index_fill"] = C(lambda r, S: ((r.f(*S.ew), r.perm(S.ew[1])[:2],
+                                       1, -1.5), {}))
+CASES["index_fill_op"] = C(lambda r, S: ((r.f(*S.ew), r.perm(S.ew[2])[:3]),
+                                         {"axis": 2, "value": 0.25}))
+CASES["index_sample"] = C(lambda r, S: ((r.f(S.ew[1], S.ew[2]), r.i(
+    S.ew[1], 4, lo=0, hi=S.ew[2])), {}))
+CASES["index_sample_op"] = CASES["index_sample"]
+CASES["kthvalue_op"] = C(lambda r, S: ((r.f(*S.rows),), {
+    "k": 3, "axis": -1, "keepdim": True}))
+CASES["masked_scatter_op"] = C(lambda r, S: ((r.f(*S.ew), r.b(*S.ew),
+                                              r.f(int(np.prod(S.ew)))), {}))
+CASES["masked_scatter_"] = CASES["masked_scatter_op"]
+_MODE = dict(why="counts of equal values compare every pair of a row: a "
+                 "short row of small integers, at both sizes")
+CASES["mode"] = C(lambda r, S: ((r.ties(S.ew[0], 9),), {}), **_MODE)
+CASES["mode_op"] = C(lambda r, S: ((r.ties(9, S.ew[0]),),
+                                   {"axis": 0, "keepdim": True}), **_MODE)
+CASES["select_scatter"] = C(lambda r, S: ((r.f(*S.ew), r.f(S.ew[0],
+                                                           S.ew[2]), 1, 2),
+                                          {}))
+CASES["select_scatter_op"] = C(lambda r, S: ((r.f(*S.ew), r.f(*S.ew[:2])),
+                                             {"axis": 2, "index": -1}))
+CASES["shard_index_op"] = C(lambda r, S: ((r.i(S.ew[0], 1, lo=0, hi=20),), {
+    "index_num": 20, "nshards": 3, "shard_id": 1, "ignore_value": -1}),
+    half=False)
+CASES["slice_op"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "axes": (0, 2), "starts": (1, -3), "ends": (S.ew[0], 1 << 20)}))
+CASES["slice_scatter"] = C(lambda r, S: ((r.f(*S.ew), r.f(
+    S.ew[0], (S.ew[1] + 1) // 2, S.ew[2])), {
+    "axes": [1], "starts": [0], "ends": [S.ew[1]], "strides": [2]}))
+CASES["slice_scatter_op"] = C(lambda r, S: ((r.f(*S.ew), r.f(
+    S.ew[0], S.ew[1], 2)), {"axes": (2,), "starts": (1,), "ends": (4,),
+                            "strides": (2,)}))
+CASES["strided_slice_op"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "axes": (0, 1, 2), "starts": (0, 3, 1), "ends": (S.ew[0], 0, S.ew[2]),
+    "strides": (2, -1, 2)}))
+CASES["tensor_unfold_op"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "axis": 1, "size": 3, "step": 2}))
+CASES["top_p_sampling"] = C(lambda r, S: ((r.f(S.ew[0], S.rows[1]),
+                                           np.full(S.ew[0], 0.8,
+                                                   np.float32)), {}),
+                            random="top_p")
+CASES["unflatten"] = C(lambda r, S: ((r.f(S.ew[0], S.ew[1] * S.ew[2]), 1,
+                                      [S.ew[1], -1]), {}))
+CASES["unflatten_op"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "axis": -1, "shape": (1, S.ew[2])}))
+CASES["unique_consecutive"] = C(lambda r, S: ((r.i(*S.ew, lo=0, hi=2),), {
+    "return_inverse": True, "return_counts": True}), half=False)
+CASES["view"] = C(lambda r, S: ((r.f(*S.ew), [S.ew[0], -1]), {}))
+CASES["view_as"] = C(lambda r, S: ((r.f(*S.ew), r.f(S.ew[0],
+                                                    S.ew[1] * S.ew[2])), {}))
+
+# -- ops.misc_ext ---------------------------------------------------------------
+CASES["_combinations"] = C(lambda r, S: ((r.f(6),), {"r": 3}))
+CASES["combinations"] = C(lambda r, S: ((r.f(5),), {
+    "r": 2, "with_replacement": True}))
+for n in ("column_stack", "dstack", "hstack", "vstack", "row_stack"):
+    CASES[n] = C(lambda r, S: (([r.f(S.ew[1], S.ew[2]),
+                                 r.f(S.ew[1], S.ew[2])],), {}))
+CASES["pdist"] = C(lambda r, S: ((r.f(7, S.ew[2]),), {}), tol=(1e-5, 1e-5),
+                   why="a sum of squares over the row in another order")
+CASES["randint_like"] = C(lambda r, S: ((r.f(*S.ew),), {"low": 2,
+                                                        "high": 9}),
+                          random="randint_like")
+CASES["binomial"] = C(lambda r, S: ((r.i(*S.ew, lo=0, hi=20), r.prob(
+    *S.ew)), {}), random="binomial")
+CASES["standard_gamma"] = C(lambda r, S: ((2 * r.pos(*S.ew),), {}),
+                            random="standard_gamma")
+
+# -- ops.linalg_ext -------------------------------------------------------------
+for n in ("addmm", "addmm_op"):
+    CASES[n] = C(lambda r, S: ((r.f(S.mm[0], S.mm[2]), r.f(S.mm[0], S.mm[1]),
+                                r.f(S.mm[1], S.mm[2])),
+                               {"beta": 0.5, "alpha": 2.0}), **_MM)
+CASES["cdist"] = C(lambda r, S: ((r.f(2, 5, S.ew[2]), r.f(2, 4, S.ew[2])),
+                                 {}), tol=(1e-5, 1e-5),
+                   why="a sum of squares over the row in another order")
+CASES["cdist_op"] = C(lambda r, S: ((r.f(5, S.ew[2]), r.f(3, S.ew[2])),
+                                    {"p": 3.0}), tol=(1e-5, 1e-5),
+                      why="a sum of cubes over the row in another order")
+CASES["cond_op"] = C(lambda r, S: ((r.wellcond(*S.la),), {"p": "fro"}),
+                     **_LA)
+for n in ("corrcoef", "corrcoef_op", "cov"):
+    CASES[n] = C(lambda r, S: ((r.f(4, S.ew[2]),), {}), tol=(1e-4, 1e-5),
+                 why="means and products over the row in another order")
+CASES["cov_op"] = C(lambda r, S: ((r.f(S.ew[2], 3),), {
+    "rowvar": False, "aweights": r.pos(S.ew[2])}), tol=(1e-4, 1e-5),
+    why="weighted means over the rows in another order")
+CASES["dist"] = C(lambda r, S: ((r.f(*S.ew), r.f(*S.ew)), {"p": 3.0}),
+                  tol=(1e-4, 1e-5), why="a sum over every element in another "
+                                        "order")
+CASES["dist_op"] = C(lambda r, S: ((r.f(*S.ew), r.f(*S.ew)),
+                                   {"p": float("inf")}))
+_FACT = dict(half=False, grad=False,
+             why="factors are unique only up to the sign or phase of their "
+                 "columns: held by reconstructions and spectra, gradients "
+                 "by sign-free compositions (test_torch_linalg_ext.py)")
+CASES["svd"] = C(lambda r, S: ((r.f(S.la[0], S.la[1], S.la[1] - 1),), {}),
+                 compare="svd", tol=(1e-4, 1e-5), **_FACT)
+CASES["qr_op"] = C(lambda r, S: ((r.f(S.la[0], S.la[1] + 2, S.la[1]),), {}),
+                   compare="qr", tol=(1e-4, 1e-5), **_FACT)
+CASES["eig"] = C(lambda r, S: ((r.wellcond(*S.la),), {}), compare="eig",
+                 tol=(1e-4, 1e-5), **_FACT)
+CASES["eigvals"] = C(lambda r, S: ((r.wellcond(*S.la),), {}),
+                     compare="eigvals", tol=(1e-4, 1e-5), **_FACT)
+_EIGH = dict(_FACT, why=_FACT["why"] + "; cuSOLVER's float32 syevd at n "
+             "256 reconstructs 2e-4 of max |A| away from LAPACK's")
+for n in ("eigh", "eigh_op"):
+    CASES[n] = C(lambda r, S: ((r.spd(*S.la),), {"UPLO": "U"}),
+                 compare="eigh", tol=(1e-3, 1e-5), **_EIGH)
+for n in ("eigvalsh", "eigvalsh_op"):
+    CASES[n] = C(lambda r, S: ((r.spd(*S.la),), {}), **_LA)
+for n in ("histogram", "histogram_op"):
+    CASES[n] = C(lambda r, S: ((r.f(*S.ew),), {"bins": 7, "min": -2.0,
+                                               "max": 2.0}), half=False)
+CASES["histogram_op"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "bins": 5, "weight": r.pos(*S.ew), "density": True}), half=False,
+    tol=(1e-4, 1e-6), why="weighted counts summed in another order")
+CASES["histogramdd"] = C(lambda r, S: ((r.f(S.rows[1], 2),), {
+    "bins": [4, 3], "ranges": [[-2.0, 2.0], [-1.5, 1.5]]}), half=False)
+for n in ("householder_product", "householder_product_op"):
+    CASES[n] = C(lambda r, S: (r.reflectors(S.la[0], S.la[1] + 1,
+                                            S.la[1] - 1), {}), **_LA)
+for n in ("lstsq", "lstsq_op"):
+    CASES[n] = C(lambda r, S: ((r.f(S.la[1] + 3, S.la[1]),
+                                r.f(S.la[1] + 3, 2)), {}), **_LA)
+for n in ("lu", "lu_op"):
+    CASES[n] = C(lambda r, S: ((r.wellcond(*S.la),), {}), **_LA)
+CASES["lu_unpack"] = C(lambda r, S: ((r.f(S.la[0], S.la[1], S.la[1]),
+                                      np.tile(np.minimum(
+                                          np.arange(S.la[1]) + 2, S.la[1]),
+                                          (S.la[0], 1)).astype(np.int32)),
+                                     {}), **_OFF_TAPE)
+CASES["matrix_transpose"] = _u("matrix_transpose")
+CASES["mv"] = C(lambda r, S: ((r.f(S.mm[0], S.mm[1]), r.f(S.mm[1])), {}),
+                **_MM)
+for n in ("ormqr", "ormqr_op"):
+    CASES[n] = C(lambda r, S: (r.reflectors(S.la[0], S.la[1], S.la[1] - 1)
+                               + (r.f(S.la[0], S.la[1], 3),),
+                               {"left": True, "transpose": True}), **_LA)
+for n in ("vander", "vander_op"):
+    CASES[n] = C(lambda r, S: ((r.unit(S.ew[2]),), {"n": 5,
+                                                    "increasing": True}))
+CASES["vector_norm_op"] = C(lambda r, S: ((r.f(*S.ew),), {
+    "p": 3.0, "axis": (0, 2)}), tol=(1e-5, 1e-5),
+    why="a sum of cubes in another order")
+
+# -- ops.fft_ops ----------------------------------------------------------------
+_FFT = dict(tol=(1e-4, 1e-4), half=False,
+            why="pocketfft / cuFFT and XLA's FFT butterfly in other orders: "
+                "float32 roundoff grows with log n of the size of the values")
+CASES["fft"] = C(lambda r, S: ((r.f(*S.ew),), {"axis": 1, "norm": "ortho"}),
+                 **_FFT)
+CASES["ifft"] = C(lambda r, S: ((r.c(*S.ew),), {"n": S.ew[-1] + 2}), **_FFT)
+CASES["rfft"] = C(lambda r, S: ((r.f(*S.ew),), {"norm": "forward"}), **_FFT)
+CASES["irfft"] = C(lambda r, S: ((r.c(*S.ew),), {"n": 2 * S.ew[-1] - 2}),
+                   **_FFT)
+CASES["hfft"] = C(lambda r, S: ((r.c(*S.ew),), {"axis": 1}), **_FFT)
+CASES["ihfft"] = C(lambda r, S: ((r.f(*S.ew),), {"norm": "ortho"}), **_FFT)
+for n in ("fft2", "ifft2", "fftn", "ifftn"):
+    CASES[n] = C(lambda r, S: ((r.c(*S.ew),), {"axes": (-2, -1)}), **_FFT)
+CASES["fftn"] = C(lambda r, S: ((r.f(*S.ew),), {"axes": (0, 2),
+                                                "norm": "ortho"}), **_FFT)
+CASES["rfft2"] = C(lambda r, S: ((r.f(*S.ew),), {"axes": (-2, -1)}), **_FFT)
+CASES["rfftn"] = C(lambda r, S: ((r.f(*S.ew),), {"s": (S.ew[1], 4),
+                                                 "axes": (1, 2)}), **_FFT)
+for n in ("irfft2", "irfftn", "hfft2", "hfftn"):
+    CASES[n] = C(lambda r, S: ((r.c(*S.ew),), {
+        "s": (S.ew[1], 2 * S.ew[2] - 2), "axes": (-2, -1)}), **_FFT)
+for n in ("ihfft2", "ihfftn"):
+    CASES[n] = C(lambda r, S: ((r.f(*S.ew),), {"axes": (-2, -1),
+                                               "norm": "forward"}), **_FFT)
+CASES["fftshift"] = C(lambda r, S: ((r.f(*S.ew),), {"axes": (1,)}))
+CASES["ifftshift"] = C(lambda r, S: ((r.c(*S.ew),), {"axes": None}),
+                       half=False, why="a complex input")
+_NFFT = 16
+CASES["stft_op"] = C(lambda r, S: ((r.f(S.ew[0], S.ew[1] * 8),
+                                    r.pos(_NFFT)), {
+    "n_fft": _NFFT, "hop_length": 4, "center": True, "pad_mode": "reflect",
+    "normalized": True, "onesided": True}), **_FFT)
+CASES["istft_op"] = C(lambda r, S: ((r.c(S.ew[0], _NFFT // 2 + 1,
+                                         S.ew[1] * 2 + 1),
+                                     r.pos(_NFFT)), {
+    "n_fft": _NFFT, "hop_length": 4, "center": True, "normalized": False,
+    "onesided": True, "length": None, "return_complex": False}), **_FFT)
+# the signal namespace's framing ops (registered by the port at import,
+# by the reference at their first call)
+CASES["signal_frame"] = C(lambda r, S: ((r.f(S.ew[0], 8 * S.ew[1]),), {
+    "frame_length": 16, "hop_length": 8, "axis": -1}))
+CASES["signal_overlap_add"] = C(lambda r, S: ((r.f(S.ew[0], 16, S.ew[1]),),
+                                              {"hop_length": 8, "axis": -1}))
 
 # the registered ops whose reference call takes a JAX key: the port's
 # takes a generator (``generator=``), made by the caller

@@ -78,7 +78,7 @@ __global__ void __launch_bounds__(128) probe(const __nv_bfloat16* A,
     fence_regs(lo);
     fence_regs(hi);
     wgmma_fence();
-    wgmma_rs<64>(lo, a, desc_mn<16>(t, 0), 0);
+    wgmma_rs<64, __nv_bfloat16>(lo, a, desc_mn<16>(t, 0), 0);
     wgmma_rs8(hi, a, make_desc(t + 16 * 128, 16 * 128, 1024));
     wgmma_commit();
     wgmma_wait<0>();
@@ -89,7 +89,7 @@ __global__ void __launch_bounds__(128) probe(const __nv_bfloat16* A,
   } else {
     fence_regs(d);
     wgmma_fence();
-    wgmma_rs<72>(d, a, desc_mn<16>(t, 0), 0);
+    wgmma_rs<72, __nv_bfloat16>(d, a, desc_mn<16>(t, 0), 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(d);

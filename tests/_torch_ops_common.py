@@ -15,6 +15,8 @@ from paddle_tpu_torch.testing import op_cases as OC
 # the reference's registered names that this slice ports, by module
 SLICE_MODULES = ("ops", "ops.creation", "ops.math", "ops.reduction",
                  "ops.manipulation", "ops.logic", "ops.linalg", "ops.random",
+                 "ops.math_ext", "ops.manipulation_ext", "ops.linalg_ext",
+                 "ops.misc_ext", "ops.fft_ops",
                  "nn.functional.activation", "nn.functional.attention",
                  "nn.functional.common", "nn.functional.loss",
                  "nn.functional.norm")
@@ -29,6 +31,24 @@ DTYPE_MAP = {
 }
 
 F32_TOL = (1e-5, 1e-6)
+
+# Complex gradients. torch's autograd takes a gradient output g for a
+# complex output and returns, for a complex input, the conjugate
+# Wirtinger gradient; JAX's vjp takes the cotangent conj(g) for the same
+# real loss and returns the conjugate of torch's for a complex input.
+# So: the reference's cotangent is conj of the port's gradient output,
+# and a complex input's reference gradient is conjugated before it is
+# compared (a real input's is compared as it is).
+
+
+def ref_cotangent(g):
+    """The reference's cotangent for the port's gradient output ``g``."""
+    return np.conj(g) if np.iscomplexobj(g) else g
+
+
+def port_grad_of(ref_grad, complex_input):
+    """The reference's gradient of an input in the port's convention."""
+    return np.conj(ref_grad) if complex_input else ref_grad
 HALF_TOL = {"float16": 1e-2, "bfloat16": 3e-2}   # rtol = atol, as _close
 
 
@@ -77,7 +97,7 @@ def ref_numpy(x):
 
 
 def port_numpy(x):
-    x = x.detach()
+    x = x.detach().resolve_conj()
     if x.dtype == torch.bfloat16:
         x = x.float()
     return x.numpy()
@@ -94,6 +114,58 @@ def flat(out):
     if isinstance(out, (tuple, list)):
         return [o for x in out for o in flat(x)]
     return [out]
+
+
+def _recon_svd(out):
+    u, s, vh = out
+    return (u * s[..., None, :]) @ vh
+
+
+def _spectrum_gap(a, b):
+    """The largest distance from an eigenvalue of either side to the
+    nearest of the other's: spectra compared as sets, since a conjugate
+    pair's order depends on roundoff."""
+    d = np.abs(np.asarray(a)[..., :, None] - np.asarray(b)[..., None, :])
+    return max(float(d.min(-1).max()), float(d.min(-2).max()))
+
+
+def compare_factors(kind, got, want, tol, what=""):
+    """A factorization's outputs compared where they are unique: the
+    spectrum, and each side's reconstruction of its input (``kind`` as
+    ``op_cases.Case.compare``)."""
+    g = [port_numpy(x) for x in flat(got)]
+    w = [ref_numpy(x) for x in flat(want)]
+    rtol, atol = tol or F32_TOL
+
+    def close(a, b, part):
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
+                                   err_msg=f"{what} {part}")
+    if kind == "svd":
+        close(g[1], w[1], "singular values")
+        close(_recon_svd(g), _recon_svd(w), "U S Vh")
+    elif kind == "qr":
+        close(g[0] @ g[1], w[0] @ w[1], "Q R")
+        close(np.abs(np.diagonal(g[1], 0, -2, -1)),
+              np.abs(np.diagonal(w[1], 0, -2, -1)), "|diag R|")
+        eye = np.eye(g[0].shape[-1], dtype=np.float32)
+        close(g[0].swapaxes(-1, -2) @ g[0], np.broadcast_to(
+            eye, g[0].shape[:-2] + eye.shape), "Q^T Q")
+    elif kind == "eigh":
+        close(g[0], w[0], "eigenvalues")
+        close((g[1] * g[0][..., None, :]) @ g[1].swapaxes(-1, -2),
+              (w[1] * w[0][..., None, :]) @ w[1].swapaxes(-1, -2),
+              "V diag(w) V^T")
+    elif kind == "eig":
+        assert _spectrum_gap(g[0], w[0]) <= rtol * np.abs(w[0]).max() + atol, \
+            (what, "eigenvalues")
+        close((g[1] * g[0][..., None, :]) @ np.linalg.inv(g[1]),
+              (w[1] * w[0][..., None, :]) @ np.linalg.inv(w[1]),
+              "V diag(w) V^-1")
+    elif kind == "eigvals":
+        assert _spectrum_gap(g[0], w[0]) <= rtol * np.abs(w[0]).max() + atol, \
+            (what, "eigenvalues")
+    else:
+        raise KeyError(kind)
 
 
 def assert_same(got, want, tol=None, what=""):

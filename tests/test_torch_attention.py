@@ -148,4 +148,5 @@ def test_flash_supported_guard():
         assert not TFA.supported(torch.zeros(1, 8, 4, d),
                                  torch.zeros(1, 8, 2, d),
                                  torch.zeros(1, 8, 2, d)), d
-    assert not TFA.supported(q.half(), k.half(), k.half())
+    assert TFA.supported(q.half(), k.half(), k.half())     # float16
+    assert not TFA.supported(q.double(), k.double(), k.double())

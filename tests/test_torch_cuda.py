@@ -44,7 +44,8 @@ def dev():
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
-                                       (torch.float32, 1e-4)])
+                                       (torch.float32, 1e-4),
+                                       (torch.float16, 4e-3)])
 @pytest.mark.parametrize("sq,sk,causal", [(48, 48, True), (33, 70, True),
                                           (70, 33, True), (40, 40, False)])
 def test_flash_kernel_matches_plain(dev, dtype, tol, sq, sk, causal):
@@ -71,7 +72,8 @@ def _bwd_inputs(dev, dtype, sq, sk, causal, seed=0):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
-                                       (torch.float32, 1e-4)])
+                                       (torch.float32, 1e-4),
+                                       (torch.float16, 4e-3)])
 @pytest.mark.parametrize("sq,sk,causal", [(48, 48, True), (32, 80, True),
                                           (80, 33, True), (40, 40, False)])
 def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, sq, sk, causal):
@@ -97,18 +99,21 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, sq, sk, causal):
 @pytest.mark.parametrize("sq,sk", [(48, 48), (33, 70), (70, 33), (200, 200),
                                    (1000, 1000)])
 @pytest.mark.parametrize("heads", [(8, 2), (16, 16)])
-def test_tensor_core_kernels_match_plain(dev, d, causal, sq, sk, heads):
-    """The tensor-core route (bf16, D 64 / 72 / 128) against the plain
-    versions, with grouped kv heads and with as many kv heads as query
-    heads (DeepSeekMoE-16B's 16 / 16): out within 2e-2, lse within 1e-3
-    on rows that see a key, dq / dk / dv within 2e-2 of each reference's
-    max |.|; rows that see no key get a zero output, lse = -inf and an
-    exact zero dq."""
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 4e-3)])
+def test_tensor_core_kernels_match_plain(dev, d, causal, sq, sk, heads,
+                                         dtype, tol):
+    """The tensor-core route (bf16 and float16, D 64 / 72 / 128) against
+    the plain versions, with grouped kv heads and with as many kv heads
+    as query heads (DeepSeekMoE-16B's 16 / 16): out within 2e-2 (float16
+    4e-3), lse within 1e-3 on rows that see a key, dq / dk / dv within the
+    same of each reference's max |.|; rows that see no key get a zero
+    output, lse = -inf and an exact zero dq."""
     g = torch.Generator(device=dev).manual_seed(d + sq + sk)
     h, kvh = heads
     q, k, v, dout = (torch.randn(2, s, n, d, generator=g, device=dev)
-                     .bfloat16() for s, n in ((sq, h), (sk, kvh), (sk, kvh),
-                                              (sq, h)))
+                     .to(dtype) for s, n in ((sq, h), (sk, kvh), (sk, kvh),
+                                             (sq, h)))
     K.reset_dispatch_stats()
     out, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
     got = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
@@ -117,15 +122,15 @@ def test_tensor_core_kernels_match_plain(dev, d, causal, sq, sk, heads):
     assert st["flash"] == st["flash_tc"] == 1, st
     assert st["flash_bwd"] == st["flash_bwd_tc"] == 1, st
     ref, ref_lse = FA.flash_attention_ref(q, k, v, causal=causal)
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
     seen = torch.isfinite(ref_lse)
     torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-3, rtol=0)
     assert torch.all(lse[~seen] == float("-inf"))
     want = FA.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
     for a, w in zip(got, want):
-        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert a.dtype == dtype and a.shape == w.shape
         err = float((a.float() - w.float()).abs().max())
-        assert err <= 2e-2 * float(w.float().abs().max()), err
+        assert err <= tol * float(w.float().abs().max()), err
     if causal and sq > sk:
         assert torch.all(out[:, :sq - sk] == 0)
         assert torch.all(got[0][:, :sq - sk] == 0)
@@ -284,7 +289,8 @@ def _decode_case(dev, case, dtype, quant, ps, seed=3, heads=(8, 2, 64)):
 
 @pytest.mark.parametrize("case", PAGED_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
-                                       (torch.float32, 1e-4)])
+                                       (torch.float32, 1e-4),
+                                       (torch.float16, 4e-3)])
 @pytest.mark.parametrize("heads", [(8, 2, 64), (16, 16, 128)])
 def test_paged_kernel_matches_plain(dev, dtype, tol, case, heads):
     """Grouped kv heads, and DeepSeekMoE-16B's 16 / 16 heads of 128 (one
@@ -341,23 +347,25 @@ def test_paged_int8_kernel_equals_full_precision_kernel(dev, case):
 
 def test_paged_decode_mixed_page_dtypes(dev):
     """Every mixed (q, page) pair of the decode kernel (float32 q over
-    bf16 / float16 pages, bf16 q over float32 / float16 pages) against the
-    plain version at the edge shapes (D 64 / 128, groups 1-8) and the main
-    serving shape, within ``chip_smoke.mixed_tol``, bf16 q against
+    bf16 / float16 pages, bf16 q over float32 / float16 pages, float16 q
+    over float32 / bf16 pages) and the float16 arm against the plain
+    version at the edge shapes (D 64 / 128, groups 1-8) and the main
+    serving shape, within ``chip_smoke.mixed_tol``, 2-byte q against
     ``chip_smoke.paged_ref_round_p`` and float32 q over 2-byte pages
     within ``chip_smoke.MIXED_RMS_BAND`` (the pairs with 2-byte pages
-    round p as the Pallas kernel does); bf16 q over float32 pages of
-    bf16 values equals the bf16 arm bit for bit; launches count
-    ``paged_mixed``."""
+    round p as the Pallas kernel does); bf16 and float16 q over float32
+    pages of their own type's values equal their same-type arms bit for
+    bit; launches count ``paged_mixed``."""
     C = _chip_smoke()
     main_lengths, _ = C.decode_wave_lengths(C._main_requests(32000))
     K.reset_dispatch_stats()
     worst, margin = C.paged_mixed_checks(torch, dev, PA, main_lengths, 128)
     st = K.dispatch_stats()
-    assert set(worst) == set(C.MIXED_PAIRS) and margin <= 1.0
-    # 5 shapes: each pair, the bit-for-bit pair and the bf16 arm
-    assert st["paged_mixed"] == 5 * (len(C.MIXED_PAIRS) + 1), st
-    assert st["paged"] == st["paged_mixed"] + 5, st
+    assert set(worst) == set(C.MIXED_PAIRS) | {C.F16_SAME} and margin <= 1.0
+    # 5 shapes: each mixed pair and the two bit-for-bit pairs are mixed;
+    # the float16 arm and the two same-type arms of the bit check are not
+    assert st["paged_mixed"] == 5 * (len(C.MIXED_PAIRS) + 2), st
+    assert st["paged"] == st["paged_mixed"] + 5 * 3, st
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -816,18 +824,22 @@ def test_kernels_raise_instead_of_falling_back(dev):
                     torch.ones(RN.MAX_D + 8, device=dev))
 
 
-_RMS_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+_RMS_DT = {"f32": torch.float32, "bf16": torch.bfloat16,
+           "f16": torch.float16}
+_RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3, torch.float16: 2e-3}
 
 
 @pytest.mark.parametrize("xdt,wdt", [("f32", "f32"), ("bf16", "bf16"),
-                                     ("bf16", "f32"), ("f32", "bf16")])
+                                     ("bf16", "f32"), ("f32", "bf16"),
+                                     ("f16", "f16"), ("f16", "f32"),
+                                     ("f32", "f16"), ("f16", "bf16")])
 @pytest.mark.parametrize("n,d", [(1, 64), (22, 4096), (8193, 5120),
                                  (64, 100), (300, 16384)])
 def test_rms_norm_kernels_match_plain(dev, xdt, wdt, n, d):
     """Forward and backward kernels against their plain versions on the
     same card tensors: float32 outputs within ``1e-5 * max |ref|``
-    (summation order), bfloat16 ones within ``8e-3 * max |ref|`` (one
-    rounding); ``dw`` is the same bit for bit in two launches (no
+    (summation order), bfloat16 ones within ``8e-3 * max |ref|`` and
+    float16 ones within ``2e-3`` (one rounding); ``dw`` is the same bit for bit in two launches (no
     atomics). ``d = 100`` takes the backward's scalar route; ``d =
     16384`` (the largest) fills one row group of 512 threads on the bulk
     route."""
@@ -849,7 +861,7 @@ def test_rms_norm_kernels_match_plain(dev, xdt, wdt, n, d):
     torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=0)
     for got, want in ((y, y_ref), (dx, dx_ref), (dw, dw_ref)):
         assert got.dtype == want.dtype and got.shape == want.shape
-        tol = 1e-5 if got.dtype == torch.float32 else 8e-3
+        tol = _RMS_TOL[got.dtype]
         err = float((got.float() - want.float()).abs().max())
         assert err <= tol * float(want.float().abs().max()), err
 
@@ -2028,3 +2040,74 @@ def test_op_built_layer_matches_block_on_the_card(dev):
     cpu = C.ops_block_counts(torch, L.llama_tiny(dtype=torch.float32),
                              torch.device("cpu"), 2, 16)[:2]
     assert card == cpu
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", ["packed", "cu"])
+def test_float16_segment_kernels_match_plain(dev, d, kind):
+    """The segment pair in float16 on the tensor cores against the plain
+    versions (4e-3: one float16 rounding), exact zeros on padding."""
+    C = _chip_smoke()
+    g = torch.Generator(device=dev).manual_seed(d)
+    sq, sk = (300, 300) if kind == "packed" else (70, 90)
+    q, k, v, dout = (torch.randn(2, s, h, d, generator=g, device=dev).half()
+                     for s, h in ((sq, 8), (sk, 2), (sk, 2), (sq, 8)))
+    segs = C._seg_layout(torch, dev, 2, sq, sk, kind)
+    K.reset_dispatch_stats()
+    out, lse = FA.flash_attention_segments_fwd(q, k, v, *segs, causal=True)
+    got = FA.flash_attention_segments_bwd(q, k, v, out, lse, dout, *segs,
+                                          causal=True)
+    torch.cuda.synchronize()
+    st = K.dispatch_stats()
+    assert st["varlen"] == st["varlen_tc"] == 1, st
+    assert st["varlen_bwd"] == st["varlen_bwd_tc"] == 1, st
+    ref, _ = FA.segment_attention_ref(q, k, v, *segs, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=4e-3, rtol=0)
+    want = FA.segment_attention_bwd_ref(q, k, v, out, lse, dout, *segs,
+                                        causal=True)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float16
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= 4e-3 * float(w.float().abs().max()), err
+    assert torch.all(out[segs[0] < 0] == 0)
+
+
+def test_amp_arms_card_match_cpu(dev):
+    """``chip_smoke.phase_amp_parity``: float32 ``llama_tiny`` under each
+    AMP arm (O1 bf16, O2 bf16, O1 float16 with a ``GradScaler``), card
+    against CPU: losses, step-1 gradients and the applied steps within
+    ``AMP_PARITY_TOL``; the flash and RMSNorm kernels launched, no plain
+    version on the card."""
+    _chip_smoke().phase_amp_parity(torch, dev)
+
+
+def test_amp_float16_step_takes_the_kernels(dev):
+    """One O1 float16 step of a 2-layer model at head dim 128: the dense
+    flash pair in float16 on the tensor cores, the RMSNorm kernels'
+    float32 arm, a float32 gradient for every float32 parameter."""
+    import collections
+    import paddle_tpu_torch as P
+    C = _chip_smoke()
+    cfg = L.llama_3_8b(num_hidden_layers=2, hidden_size=512,
+                       intermediate_size=1024, num_attention_heads=4,
+                       num_key_value_heads=2, vocab_size=1000)
+    P.set_device(f"gpu:{dev.index or 0}")
+    model, opt, inp, tgt = C.eager_train_setup(torch, cfg, batch=2, seq=256,
+                                               dtype=None)
+    scaler, ctx = C.amp_setup(model, opt, C.AMP_ARMS[2])
+    seen = collections.Counter()
+    K.reset_dispatch_stats()
+    with C.rms_dtype_spy(RN, seen):
+        with ctx():
+            logits = model(inp)
+        assert logits.dtype == torch.float16
+        scaler.scale(torch.nn.functional.cross_entropy(
+            logits.float().reshape(-1, cfg.vocab_size),
+            tgt.reshape(-1))).backward()
+    torch.cuda.synchronize()
+    st = K.dispatch_stats()
+    assert st["flash"] == st["flash_tc"] == 2, st
+    assert st["flash_bwd"] == st["flash_bwd_tc"] == 2, st
+    assert set(seen) == {("fwd", "torch.float32", "torch.float32"),
+                         ("bwd", "torch.float32", "torch.float32")}, seen
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())

@@ -1,9 +1,10 @@
 """The flash kernels' two routes, dense and segment-masked, on the CPU.
 
 ``flash_attention.tensor_core_route`` says which kernels a CUDA launch
-runs: bfloat16 at head dim 64, 72 or 128 takes the tensor-core kernels
-(``wgmma``), float32 and every other head dim that ``supported`` takes
-(``D % 8 == 0``, 8 to 256) the float32 CUDA-core kernels. The C entries
+runs: bfloat16 or float16 at head dim 64, 72 or 128 takes the
+tensor-core kernels (``wgmma`` at the input type), float32 and every
+other head dim that ``supported`` takes (``D % 8 == 0``, 8 to 256) the
+float32 CUDA-core kernels. The C entries
 make the same choice (``tc_route`` in ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu``, in the dense and the segment entries), and each
 source's ``dispatch_tc`` has one kernel instance for every head dim its
@@ -37,20 +38,24 @@ def _q(dtype, d, h=4, kvh=2, s=8):
     (torch.bfloat16, 16, False), (torch.bfloat16, 48, False),
     (torch.bfloat16, 112, False), (torch.bfloat16, 72, True),
     (torch.bfloat16, 256, False), (torch.float32, 72, False),
-    (torch.bfloat16, 80, False)])
+    (torch.bfloat16, 80, False), (torch.float16, 64, True),
+    (torch.float16, 72, True), (torch.float16, 128, True),
+    (torch.float16, 40, False), (torch.float16, 256, False)])
 def test_route_takes_tensor_cores_for_bf16_at_64_and_128(dtype, d, want):
-    """bf16 at 64 and 128, and at DiT-XL/2's 72, takes the tensor
-    cores; float32 at any D, and bf16 at any other D, does not."""
+    """bf16 and float16 at 64 and 128, and at DiT-XL/2's 72, take the
+    tensor cores; float32 at any D, and a 2-byte type at any other D, do
+    not."""
     q, k, v = _q(dtype, d)
     assert FA.supported(q, k, v) and FA.supported_bwd(q, k, v)
     assert FA.tensor_core_route(q) is want
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_supported_keeps_every_head_dim(dtype):
     """The tensor-core route narrows nothing: every multiple of 8 from 8
-    to 256 is taken, in float32 and bfloat16 alike; 4, 12 and 264 are
-    not."""
+    to 256 is taken, in float32, bfloat16 and float16 alike; 4, 12 and
+    264 are not."""
     for d in range(8, 257, 8):
         assert FA.supported(*_q(dtype, d)), d
     for d in (24, 72, 256):
@@ -61,14 +66,18 @@ def test_supported_keeps_every_head_dim(dtype):
 
 @pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_bwd.cu"])
 def test_c_entries_choose_the_same_route(source):
-    """Each C entry's ``tc_route`` is the Python predicate: dtype code 1
-    (``_DTYPES[torch.bfloat16]``) at D 64, 72 or 128."""
+    """Each C entry's ``tc_route`` is the Python predicate: dtype codes 1
+    and 2 (``_DTYPES[torch.bfloat16]``, ``_DTYPES[torch.float16]``) at D
+    64, 72 or 128."""
     text = (CSRC / source).read_text()
     body = re.search(r"bool tc_route\(int dtype, int D\) \{([^}]*)\}", text)
     assert body is not None
-    assert body.group(1).split() == \
-        "return dtype == 1 && (D == 64 || D == 72 || D == 128);".split()
+    assert body.group(1).split() == (
+        "return (dtype == 1 || dtype == 2) && (D == 64 || D == 72 || D == "
+        "128);").split()
     assert FA._DTYPES[torch.bfloat16] == 1
+    assert FA._DTYPES[torch.float16] == 2
+    assert set(FA.TC_DTYPES) == {torch.bfloat16, torch.float16}
     assert "if (tc_route(dtype, D))" in text
 
 
@@ -81,12 +90,12 @@ def _tc_route_dims(source):
 
 def _dispatch_tc_instances(source):
     """``{D: instance}`` of ``dispatch_tc`` in ``source``: each ``case D:``
-    and the ``launch_tc<...>`` it returns."""
+    and the ``launch_tc<D, T>`` it returns (one instance a type ``T``)."""
     text = (CSRC / source).read_text()
     start = text.index("cudaError_t dispatch_tc(")
     body = text[start:text.index("\n}\n", start)]
     return {int(d): int(inst) for d, inst in re.findall(
-        r"case (\d+):\s*return launch_tc<(\d+)>", body)}
+        r"case (\d+):\s*return launch_tc<(\d+), T>", body)}
 
 
 @pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_bwd.cu"])
@@ -103,7 +112,15 @@ def test_dispatch_tc_has_an_instance_for_every_route_dim(source):
     assert set(instances) == dims
     assert all(d == inst for d, inst in instances.items())
     for d in dims:
-        assert FA.tensor_core_route(_q(torch.bfloat16, d)[0])
+        for dtype in FA.TC_DTYPES:
+            assert FA.tensor_core_route(_q(dtype, d)[0])
+    # the type-dispatching entry: dtype 2 to the __half instances, else
+    # the bfloat16 ones
+    text = (CSRC / source).read_text()
+    start = text.index("cudaError_t dispatch_tc_type(")
+    body = text[start:text.index("\n}\n", start)]
+    assert "if (dtype == 2)" in body and "dispatch_tc<__half>" in body
+    assert "dispatch_tc<__nv_bfloat16>" in body
 
 
 def _entry_body(source, name):

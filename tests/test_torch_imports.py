@@ -74,7 +74,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "ops/_op.py", "ops/creation.py", "ops/math.py",
             "ops/reduction.py", "ops/manipulation.py", "ops/logic.py",
             "ops/linalg.py", "ops/random.py", "ops/composite.py",
-            "tensor/__init__.py", "testing/op_cases.py"} <= scanned
+            "tensor/__init__.py", "testing/op_cases.py",
+            "ops/math_ext.py", "ops/manipulation_ext.py",
+            "ops/linalg_ext.py", "ops/misc_ext.py", "ops/fft_ops.py",
+            "fft.py", "linalg.py", "signal.py", "amp/__init__.py",
+            "amp/amp_lists.py", "amp/auto_cast.py", "amp/grad_scaler.py",
+            "amp/debugging.py"} <= scanned
     files.append(_ROOT.parent / "chip_smoke.py")
     bad = [(str(f.relative_to(_ROOT.parent)), m) for f in files
            for m in _imported_modules(f)

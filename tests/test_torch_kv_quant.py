@@ -160,7 +160,8 @@ def test_supported_quant_guard():
                          bt, quant=True)
     assert not TPA.supported(q, codes16, bt)               # int8, no scales
     assert not TPA.supported(q, torch.zeros(4, 2, 16, 128), bt, quant=True)
-    assert not TPA.supported(q.half(), codes16, bt, quant=True)
+    assert TPA.supported(q.half(), codes16, bt, quant=True)  # float16 q
+    assert not TPA.supported(q.double(), codes16, bt, quant=True)
 
 
 # -- the int8 pool -----------------------------------------------------------

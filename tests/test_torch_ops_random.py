@@ -182,3 +182,64 @@ def test_rng_state_round_trip():
     T.normal_(torch.zeros(3))
     T.set_rng_state(state)
     assert torch.equal(T.uniform([8]), x)
+
+
+def test_randint_like():
+    x = np.zeros(N, np.float32)
+    for out in _pair("randint_like",
+                     lambda f: f(J.to_tensor(x), low=2, high=9),
+                     lambda f: f(torch.from_numpy(x), low=2, high=9)):
+        assert out.dtype == np.float32 and out.shape == N
+        assert out.min() == 2 and out.max() == 8
+        assert np.all(out == np.round(out))
+        _mean_close(out, 5.0, (7 ** 2 - 1) / 12)
+
+
+def test_binomial():
+    count = np.full(N, 12, np.int64)
+    prob = np.full(N, 0.3, np.float32)
+    for out in _pair("binomial",
+                     lambda f: f(J.to_tensor(count), J.to_tensor(prob)),
+                     lambda f: f(torch.from_numpy(count),
+                                 torch.from_numpy(prob))):
+        assert out.dtype in (np.int32, np.int64)
+        assert out.min() >= 0 and out.max() <= 12
+        _mean_close(out.astype(np.float64), 3.6, 12 * 0.3 * 0.7)
+    assert port_registry()["binomial"](torch.from_numpy(count),
+                                       torch.from_numpy(prob)).dtype \
+        == torch.int64
+
+
+def test_standard_gamma():
+    alpha = np.full(N, 2.5, np.float32)
+    for out in _pair("standard_gamma",
+                     lambda f: f(J.to_tensor(alpha)),
+                     lambda f: f(torch.from_numpy(alpha))):
+        assert out.dtype == np.float32 and out.min() > 0
+        _mean_close(out, 2.5, 2.5)
+        assert abs(out.var() - 2.5) < 0.2
+
+
+def test_top_p_sampling_keeps_the_nucleus():
+    """Each row draws only among the most probable tokens whose mass
+    before them is at most ``ps`` (0.85: the first three of logits
+    log([0.5, 0.3, 0.15, 0.05])), in proportion to their renormalized
+    probabilities, in both packages."""
+    probs = np.array([0.5, 0.3, 0.15, 0.05], np.float32)
+    x = np.tile(np.log(probs), (4000, 1)).astype(np.float32)
+    ps = np.full(4000, 0.85, np.float32)
+    for vals, ids in (
+            [_np(t) for t in ref_registry()["top_p_sampling"](
+                J.to_tensor(x), J.to_tensor(ps))],
+            [_np(t) for t in port_registry()["top_p_sampling"](
+                torch.from_numpy(x), torch.from_numpy(ps))]):
+        assert ids.shape == (4000, 1) and vals.shape == (4000, 1)
+        np.testing.assert_allclose(vals[:, 0], np.log(probs)[ids[:, 0]])
+        freq = np.bincount(ids[:, 0], minlength=4) / 4000
+        assert freq[3] == 0
+        np.testing.assert_allclose(freq[:3], probs[:3] / probs[:3].sum(),
+                                   atol=0.03)
+    g = port_registry()["top_p_sampling"]
+    a = g(torch.from_numpy(x[:50]), torch.from_numpy(ps[:50]), seed=7)[1]
+    b = g(torch.from_numpy(x[:50]), torch.from_numpy(ps[:50]), seed=7)[1]
+    assert torch.equal(a, b)

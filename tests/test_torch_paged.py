@@ -442,7 +442,7 @@ def test_split_combine_model_matches_jax_kernel_interpret_and_ref(dt, tol):
     ((2, 64, 16), torch.float32, (4, 1, 16, 16), torch.float32, (2, 3),
      False, True),                                    # group 64
     ((2, 8, 128), torch.float16, (4, 2, 16, 128), torch.float16, (2, 3),
-     False, False),                                   # float16
+     False, True),                                    # float16
     ((2, 8, 128), torch.bfloat16, (4, 2, 16, 128), torch.float64, (2, 3),
      False, False),                                   # float64 pages
     ((2, 8, 128), torch.float32, (4, 2, 16, 128), torch.int8, (2, 3),
@@ -466,14 +466,21 @@ def test_split_combine_model_matches_jax_kernel_interpret_and_ref(dt, tol):
     ((2, 8, 24), torch.bfloat16, (4, 2, 8, 24), torch.float16, (2, 3),
      False, True),                                    # float16, bf16 q
     ((2, 8, 128), torch.float16, (4, 2, 16, 128), torch.float32, (2, 3),
-     False, False),                                   # float16 q
+     False, True),                                    # float16 q
+    ((2, 8, 128), torch.float16, (4, 2, 16, 128), torch.bfloat16, (2, 3),
+     False, True),                                    # float16 q, bf16
+    ((2, 8, 128), torch.float16, (4, 2, 16, 128), torch.int8, (2, 3),
+     True, True),                                     # float16 q, int8
+    ((2, 8, 128), torch.float64, (4, 2, 16, 128), torch.float32, (2, 3),
+     False, False),                                   # float64 q
 ])
 def test_supported_takes_the_same_shapes(q_shape, q_dt, pages, p_dt,
                                          bt_shape, quant, want):
     """The split kernel takes the Pallas kernel's domain: any page
     size, head_dim % 8 == 0 up to 256, any group num_heads / kv_heads,
-    float32 / bfloat16 q with pages of float32, bfloat16 or float16 (the
-    Pallas kernel's page types), or int8 pages with scales."""
+    float32 / bfloat16 / float16 q with pages of float32, bfloat16 or
+    float16 (the Pallas kernel's page types), or int8 pages with
+    scales."""
     assert TPA.supported(torch.zeros(q_shape, dtype=q_dt),
                          torch.zeros(pages, dtype=p_dt),
                          torch.zeros(bt_shape, dtype=torch.int32),
